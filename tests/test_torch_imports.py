@@ -1,0 +1,65 @@
+"""The port stands alone: ``stoke_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package ``stoke_tpu``.
+
+Careful with prefixes: ``"stoke_tpu_torch".startswith("stoke_tpu")`` is
+true, so a module is the JAX package's only when its name is
+``stoke_tpu`` or starts with ``stoke_tpu.``.
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytestmark = pytest.mark.torch_port
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "stoke_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "jaxlib", "flax", "stoke_tpu"))
+
+
+def test_forbidden_matches_the_jax_package_only():
+    assert _forbidden("stoke_tpu") and _forbidden("stoke_tpu.serving")
+    assert _forbidden("jax.numpy") and _forbidden("jax")
+    assert not _forbidden("stoke_tpu_torch")
+    assert not _forbidden("stoke_tpu_torch.serving.engine")
+    assert not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("module", ["stoke_tpu_torch.serving.engine",
+                                    "stoke_tpu_torch.convert"])
+def test_import_loads_no_jax_module(module):
+    code = (
+        f"import sys, json, {module}\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_source_has_no_jax_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert bad == [], f"{path.name} imports {bad}"
