@@ -9,16 +9,32 @@ Phases, one JSON line each; any failure exits nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 is
    switched off for matmuls and cuDNN so float32 means float32.
-2. build: compile the port's CUDA kernels from ``stoke_tpu_torch/csrc``.
-3. kernels: each kernel against its plain PyTorch version at the serve
-   path's shapes, with its time, the plain version's, the least time the
-   card could take (``bound_ms``) and a PyTorch library call's where one
-   computes the same function.
+2. build: compile the port's CUDA kernels from ``stoke_tpu_torch/csrc``,
+   one ``nvcc`` per source, all at once; print ptxas's register and spill
+   lines.
+3. kernels: each kernel against its plain PyTorch version at its path's
+   shapes, with its time, the plain version's, the least time the card
+   could take (``bound_ms``) and a PyTorch library call's where one
+   computes the same function: the flash forward and paged decode at the
+   serve shapes, the flash backward's dQ and dK/dV kernels at the training
+   shapes (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and bf16, plus a
+   masked case with fully masked rows).
 4. serve: GPT-base at full width (seeded random weights, fp32) behind
    ``ServingEngine`` with the flash prefill and paged-decode kernels;
    16 requests submitted in three waves; launch counts checked against
    the layers and steps; greedy streams held against the same engine on
    the plain attention path.
+5. train: the training path at full width: GPT-base (vocab 50257,
+   max_len 1024) through ``Stoke`` in bf16 with flash attention, AdamW and
+   norm clipping, B=8, L=1024, on the example corpus through
+   ``Stoke.DataLoader``: 2 warm-up and 10 timed ``train_step``s, each of
+   the forward and both backward kernels launched 12 times a step; the
+   loss must fall. Then one four-call step at ``grad_accum=2``, with its
+   counters checked. Prints step ms p50, tokens/s, peak memory and the
+   losses.
+6. train_parity: the same seeded GPT-base in fp32 at B=2, L=512 for 3
+   ``train_step``s through the kernels and through dense attention (no
+   kernel); the losses must agree within 1e-3 relative.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -44,6 +60,10 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 FP32_ATOL = 1e-4  # kernel and plain version sum in different orders
 SEED = 0
 N_LAYERS, HEADS, HEAD_DIM = 12, 12, 64  # GPT "base"
+VOCAB = 50257
+TRAIN_BATCH, TRAIN_LEN = 8, 1024
+WARMUP_STEPS, TIMED_STEPS = 2, 10
+PARITY_RTOL = 1e-3  # kernels and dense attention sum in different orders
 
 
 def emit(obj) -> None:
@@ -98,7 +118,8 @@ def check_flash(ops, gen, flush) -> list:
     """Flash forward at the prefill shapes: B=1, H=12, D=64, causal with a
     prompt-padding key mask, L in {64, 320, 512}, fp32 and bf16. The L=64
     cases also mask key 0, which leaves query row 0 fully masked (LSE
-    sentinel check)."""
+    sentinel check). Then at the training shape: B=8, L=1024, bf16,
+    causal, no key mask."""
     cases = []
     dev = torch.device("cuda")
     for L, plen in ((64, 41), (320, 301), (512, 400)):
@@ -154,6 +175,33 @@ def check_flash(ops, gen, flush) -> list:
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             })
+    # the training path's shape: B=8, L=1024, bf16, causal, no key mask
+    B, L = TRAIN_BATCH, TRAIN_LEN
+    q, k, v = (torch.randn(B, HEADS, L, HEAD_DIM, generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    out, lse = ops.flash_attention(q, k, v, None, causal=True,
+                                   return_lse=True)
+    ref_out, ref_lse = ops.flash_attention_plain(q, k, v, None, True)
+    torch.cuda.synchronize()
+    err = max(max_err(out, ref_out), max_err(lse, ref_lse))
+    if not (torch.isfinite(out).all() and err <= ops.FWD_ATOL_BF16):
+        raise AssertionError(f"flash_fwd training shape: max |kernel - "
+                             f"plain| {err} > {ops.FWD_ATOL_BF16}")
+    pairs = float(B * HEADS * L * (L + 1) // 2)
+    b_ms, b_by = bound_ms(4 * q.numel() * q.element_size() + 4 * B * HEADS * L,
+                          4.0 * HEAD_DIM * pairs, torch.bfloat16)
+    cases.append({
+        "B": B, "L": L, "prompt_len": None, "dtype": "bfloat16",
+        "max_abs_err": err, "atol": ops.FWD_ATOL_BF16,
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v, None, causal=True),
+                      20, flush),
+        "plain_ms": time_ms(lambda: ops.flash_attention_plain(
+            q, k, v, None, True), 5, flush),
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 20, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+    })
     return cases
 
 
@@ -209,6 +257,110 @@ def check_decode(ops, gen, flush) -> list:
             "context_lens": [int(c) for c in ctx], "max_abs_err": err,
             "atol": atol, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        })
+    return cases
+
+
+def sdpa_backward_ms(q, k, v, do, flush) -> float:
+    """SDPA's backward: its forward + backward minus its forward, both
+    timed with the L2 flushed (the library yardstick; the port never
+    calls it)."""
+    F = torch.nn.functional
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def fwd_bwd():
+        fwd().backward(do)
+
+    return time_ms(fwd_bwd, 10, flush) - time_ms(fwd, 10, flush)
+
+
+def check_flash_bwd(ops, gen, flush) -> list:
+    """The dQ and dK/dV kernels against ``flash_attention_bwd_plain`` at
+    the training shapes: B=8, H=12, D=64, causal, L in {512, 1024}, fp32
+    and bf16; plus L=512 fp32 with padding keys and fully masked query
+    rows (batch 0 masks key 0, so its row 0 sees no key; batch 1 masks
+    every key)."""
+    dev = torch.device("cuda")
+    B = TRAIN_BATCH
+    cases = []
+    for L, dtype, masked in ((512, torch.float32, False),
+                             (512, torch.bfloat16, False),
+                             (1024, torch.float32, False),
+                             (1024, torch.bfloat16, False),
+                             (512, torch.float32, True)):
+        q, k, v, do = (torch.randn(B, HEADS, L, HEAD_DIM, generator=gen,
+                                   device=dev).to(dtype) for _ in range(4))
+        mask = None
+        if masked:
+            mask = torch.ones(B, L, dtype=torch.int32, device=dev)
+            mask[0, 0] = 0
+            mask[0, L - 37:] = 0
+            mask[1] = 0
+        out, lse = ops.flash_attention(q, k, v, mask, causal=True,
+                                       return_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        dq = ops.flash_bwd_dq(q, k, v, mask, do, lse, delta, True)
+        dk, dv = ops.flash_bwd_dkv(q, k, v, mask, do, lse, delta, True)
+        ref = ops.flash_attention_bwd_plain(q, k, v, mask, out, lse, do,
+                                            None, True)
+        torch.cuda.synchronize()
+        errs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                    (dq, dk, dv), ref)}
+        if dtype == torch.float32:
+            tols = {n: FP32_ATOL for n in errs}
+        else:
+            tols = {n: ops.BWD_RTOL_BF16 * float(r.float().abs().max())
+                    for n, r in zip(errs, ref)}
+        finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+        if not finite or any(errs[n] > tols[n] for n in errs):
+            raise AssertionError(
+                f"flash_bwd L={L} {dtype} masked={masked}: max |kernel - "
+                f"plain| {errs} over {tols} (finite: {finite})"
+            )
+        if masked and not (bool((dq[1] == 0).all())
+                           and bool((dq[0, :, 0] == 0).all())
+                           and bool((dk[1] == 0).all())
+                           and bool((dv[1] == 0).all())):
+            raise AssertionError("flash_bwd: fully masked rows are not "
+                                 "zero dQ / zero dK, dV")
+        ms_dq = time_ms(lambda: ops.flash_bwd_dq(q, k, v, mask, do, lse,
+                                                 delta, True), 10, flush)
+        ms_dkv = time_ms(lambda: ops.flash_bwd_dkv(q, k, v, mask, do, lse,
+                                                   delta, True), 10, flush)
+        plain_ms = time_ms(lambda: ops.flash_attention_bwd_plain(
+            q, k, v, mask, out, lse, do, None, True), 5, flush)
+        library_ms = (None if masked
+                      else sdpa_backward_ms(q, k, v, do, flush))
+        # work these inputs need: (query, key) pairs that are allowed
+        if mask is None:
+            pairs = float(B * HEADS * L * (L + 1) // 2)
+        else:
+            keys = mask.cumsum(1).float()  # allowed keys of each query row
+            pairs = HEADS * float(keys.sum())
+        esize = q.element_size()
+        tile = B * HEADS * L * HEAD_DIM * esize  # one [B, H, L, D] tensor
+        stats = 2 * B * HEADS * L * 4  # lse, delta
+        mask_bytes = 0 if mask is None else mask.numel() * 4
+        # dq: S, dP, dQ products (2 FLOPs per multiply-add each); reads
+        # q, k, v, dO, lse, delta, writes dQ. dkv: S, dV, dP, dK; writes
+        # dK, dV. The pair: the same plus O (for delta).
+        bq = bound_ms(5 * tile + stats + mask_bytes,
+                      6.0 * HEAD_DIM * pairs, dtype)
+        bkv = bound_ms(6 * tile + stats + mask_bytes,
+                       8.0 * HEAD_DIM * pairs, dtype)
+        bpair = bound_ms(8 * tile + stats + mask_bytes,
+                         14.0 * HEAD_DIM * pairs, dtype)
+        cases.append({
+            "B": B, "L": L, "dtype": str(dtype)[6:], "masked": masked,
+            "max_abs_err": errs, "tol": tols,
+            "dq_ms": ms_dq, "dkv_ms": ms_dkv, "pair_ms": ms_dq + ms_dkv,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "dq_bound_ms": bq[0], "dq_bound_by": bq[1],
+            "dkv_bound_ms": bkv[0], "dkv_bound_by": bkv[1],
+            "pair_bound_ms": bpair[0], "pair_bound_by": bpair[1],
         })
     return cases
 
@@ -272,8 +424,11 @@ def serve(ops) -> dict:
     launches = dict(ops.LAUNCHES)
     summary = engine.summary()
     steps, prefills = summary["decode_steps"], summary["prefills"]
-    if not all(launches.values()):
+    if not (launches["flash_fwd"] and launches["paged_decode"]):
         raise AssertionError(f"a kernel was never launched: {launches}")
+    if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+        raise AssertionError(f"serving launched a backward kernel: "
+                             f"{launches}")
     if launches["paged_decode"] != N_LAYERS * steps:
         raise AssertionError(
             f"paged_decode launched {launches['paged_decode']} times, "
@@ -318,6 +473,199 @@ def serve(ops) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phases 5 and 6: train GPT-base through the facade and the kernels
+# --------------------------------------------------------------------------- #
+
+
+def make_corpus(n=2048, seq_len=128, vocab=64, seed=0):
+    """Arithmetic progressions mod vocab (the GPT example's corpus,
+    ``examples/gpt_lm/train.py``): the next token follows from the
+    previous two, so the loss can fall fast."""
+    r = np.random.default_rng(seed)
+    start = r.integers(0, vocab, size=(n, 1))
+    stride = r.integers(1, 7, size=(n, 1))
+    pos = np.arange(seq_len)[None, :]
+    return ((start + stride * pos) % vocab).astype(np.int32)
+
+
+def gpt_base(attention: str):
+    from stoke_tpu_torch.models.bert import dense_attention
+    from stoke_tpu_torch.models.gpt import GPT
+    from stoke_tpu_torch.ops import make_flash_attention
+
+    flash = attention == "flash"
+    model = GPT(vocab_size=VOCAB, size_name="base", max_len=1024,
+                dropout_rate=0.0,
+                attention_fn=(make_flash_attention(causal=True) if flash
+                              else dense_attention),
+                attention_is_causal=flash, device="cuda")
+    model.init_weights(SEED)
+    return model
+
+
+def stoke_for(model, precision, batch, grad_accum=None):
+    from stoke_tpu_torch import ClipGradNormConfig, Stoke, StokeOptimizer
+    from stoke_tpu_torch.models.gpt import causal_lm_loss
+
+    return Stoke(model, StokeOptimizer(torch.optim.AdamW, lr=3e-4,
+                                       weight_decay=1e-4),
+                 causal_lm_loss, batch_size_per_device=batch,
+                 grad_accum=grad_accum, precision=precision,
+                 grad_clip=ClipGradNormConfig(max_norm=1.0))
+
+
+def profile_step(stoke, batch) -> dict:
+    """Device time of one more ``train_step`` by CUDA kernel
+    (``torch.profiler``; ops, autograd nodes and annotations such as the
+    optimizer step's are left out, since they would count their kernels'
+    time again), against its host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        stoke.train_step(batch, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(
+        ((getattr(e, "self_device_time_total", 0.0) / 1e3, e.key, e.count)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        reverse=True)
+    if not rows:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    device_ms = sum(r[0] for r in rows)
+    attention_ms = sum(r[0] for r in rows if "flash_" in r[1])
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "attention_kernels_ms": attention_ms,
+        "kernels": len(rows), "launches": sum(r[2] for r in rows),
+        "top": [{"name": n[:90], "calls": c, "ms": ms}
+                for ms, n, c in rows[:12]],
+    }
+
+
+def train(ops) -> dict:
+    from stoke_tpu_torch import ArrayDataset
+
+    model = gpt_base("flash")
+    stoke = stoke_for(model, "bf16", TRAIN_BATCH)
+    corpus = make_corpus(n=96, seq_len=TRAIN_LEN, vocab=VOCAB)
+    loader = stoke.DataLoader(ArrayDataset(corpus), shuffle=True,
+                              drop_last=True)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    if len(loader) < steps:
+        raise AssertionError(f"{len(loader)} batches for {steps} steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, times = [], []
+    for i, batch in enumerate(loader):
+        if i == steps:
+            break
+        t0 = time.perf_counter()
+        losses.append(stoke.train_step(batch, batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    losses = [float(l) for l in losses]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != N_LAYERS * steps:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in training, "
+                f"expected {N_LAYERS} layers x {steps} steps"
+            )
+    if launches["paged_decode"]:
+        raise AssertionError("training launched the decode kernel")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if stoke.optimizer_steps != steps or stoke.backward_steps != steps:
+        raise AssertionError(
+            f"counters {stoke.optimizer_steps}/{stoke.backward_steps} after "
+            f"{steps} train_steps")
+    peak = torch.cuda.max_memory_allocated()
+    timed = times[WARMUP_STEPS:]
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    profile = profile_step(stoke, corpus[:TRAIN_BATCH])
+
+    # the four-call loop at grad_accum=2: model -> loss -> backward -> step
+    four = stoke_for(model, "bf16", TRAIN_BATCH, grad_accum=2)
+    batches = iter(four.DataLoader(ArrayDataset(corpus), shuffle=True,
+                                   drop_last=True))
+    ops.reset_launches()
+    counters = []
+    for _ in range(2):
+        batch = next(batches)
+        loss = four.loss(four.model(batch), batch)
+        four.backward(loss)
+        four.step()
+        counters.append((four.grad_accum_counter, four.backward_steps,
+                         four.optimizer_steps))
+    torch.cuda.synchronize()
+    if counters != [(1, 1, 0), (0, 2, 1)]:
+        raise AssertionError(f"four-call counters {counters}, expected "
+                             f"[(1, 1, 0), (0, 2, 1)]")
+    four_launches = dict(ops.LAUNCHES)
+    if any(four_launches[n] != 2 * N_LAYERS
+           for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        raise AssertionError(f"four-call launches {four_launches}")
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"four-call loss {float(loss)}")
+    return {
+        "phase": "train", "model": "GPT-base (12 x 768, 12 heads, ff 3072, "
+        "vocab 50257, max_len 1024), bf16 over fp32 masters, flash "
+        "attention, AdamW(lr 3e-4, wd 1e-4), clip norm 1.0",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+        "steps": steps, "timed_steps": TIMED_STEPS,
+        "step_ms_p50": float(np.median(timed)) * 1e3,
+        "step_ms": [t * 1e3 for t in times],
+        "tokens_per_s": tokens * len(timed) / sum(timed),
+        "max_memory_allocated_gib": peak / 2**30,
+        "losses": losses, "launches": launches, "profile": profile,
+        "four_call": {"grad_accum": 2, "counters": counters,
+                      "launches": four_launches, "loss": float(loss)},
+    }
+
+
+def train_parity(ops) -> dict:
+    """GPT-base in fp32, B=2, L=512, 3 train_steps through the kernels and
+    through dense attention, from the same seeded weights and batches."""
+    corpus = make_corpus(n=6, seq_len=512, vocab=VOCAB, seed=1)
+    runs, launches = {}, {}
+    for attention in ("flash", "dense"):
+        stoke = stoke_for(gpt_base(attention), None, 2)
+        ops.reset_launches()
+        runs[attention] = [
+            float(stoke.train_step(corpus[i:i + 2], corpus[i:i + 2]))
+            for i in range(0, 6, 2)
+        ]
+        launches[attention] = dict(ops.LAUNCHES)
+        del stoke
+        torch.cuda.empty_cache()
+    want = 3 * N_LAYERS
+    if any(launches["flash"][n] != want for n in
+           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")) or any(
+               launches["dense"].values()):
+        raise AssertionError(f"train parity launches {launches}: the "
+                             f"kernel run must launch each flash kernel "
+                             f"{want} times, the dense run none")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["flash"],
+                                                  runs["dense"]))
+    if not rel <= PARITY_RTOL:
+        raise AssertionError(
+            f"train parity: kernels {runs['flash']} vs dense "
+            f"{runs['dense']}, max relative difference {rel} > "
+            f"{PARITY_RTOL}")
+    return {"phase": "train_parity", "model": "GPT-base, fp32, B=2, L=512",
+            "losses_kernels": runs["flash"], "losses_dense": runs["dense"],
+            "max_rel_diff": rel, "rtol": PARITY_RTOL, "launches": launches}
+
+
+# --------------------------------------------------------------------------- #
 # main
 # --------------------------------------------------------------------------- #
 
@@ -345,8 +693,11 @@ def main() -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     seconds = _build.build()
-    ptxas = {n: [ln.strip() for ln in (_build.build_log(n) or "").splitlines()
-                 if "registers" in ln or "spill" in ln]
+    # per kernel: its (mangled) name, then its registers and spills
+    ptxas = {n: [ln.strip()[:160] for ln in
+                 (_build.build_log(n) or "").splitlines()
+                 if "Function properties" in ln or "registers" in ln
+                 or "spill" in ln]
              for n in _build.SOURCES}
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
@@ -354,31 +705,51 @@ def main() -> int:
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     flash = check_flash(ops, gen, flush)
     decode = check_decode(ops, gen, flush)
+    flash_bwd = check_flash_bwd(ops, gen, flush)
     emit({"phase": "kernels", "card": smi, "flash_fwd": flash,
-          "paged_decode": decode})
+          "paged_decode": decode, "flash_bwd": flash_bwd})
+    del flush
+    torch.cuda.empty_cache()
 
     served = serve(ops)
     emit(served)
+    torch.cuda.empty_cache()
+    trained = train(ops)
+    emit(trained)
+    torch.cuda.empty_cache()
+    emit(train_parity(ops))
 
-    def row(name, cases, c, replaces):
+    def row(name, source, replaces, launches, err, c, key=""):
         return {
             "name": name, "route": "cuda",
-            "source": f"stoke_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces,
-            "launches": served["launches"][name],
-            "max_abs_err": max(x["max_abs_err"] for x in cases),
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "source": f"stoke_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": c[f"{key}ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c[f"{key}bound_ms"], "bound_by": c[f"{key}bound_by"],
             "library_ms": c["library_ms"],
         }
 
-    flash_main = next(c for c in flash if c["L"] == 512
-                      and c["dtype"] == "float32")
+    flash_main = next(c for c in flash if c["L"] == TRAIN_LEN)
+    # the training path's shape: L=1024, bf16
+    bwd_main = next(c for c in flash_bwd if c["L"] == TRAIN_LEN
+                    and c["dtype"] == "bfloat16" and not c["masked"])
     emit({"kernels": [
-        row("flash_fwd", flash, flash_main,
-            "stoke_tpu/ops/flash_attention.py:70"),
-        row("paged_decode", decode, decode[0],
-            "stoke_tpu/ops/flash_attention.py:581"),
+        row("flash_fwd", "flash_fwd", "stoke_tpu/ops/flash_attention.py:70",
+            trained["launches"]["flash_fwd"],
+            max(x["max_abs_err"] for x in flash), flash_main),
+        row("flash_bwd_dq", "flash_bwd",
+            "stoke_tpu/ops/flash_attention.py:210",
+            trained["launches"]["flash_bwd_dq"],
+            max(x["max_abs_err"]["dq"] for x in flash_bwd), bwd_main, "dq_"),
+        row("flash_bwd_dkv", "flash_bwd",
+            "stoke_tpu/ops/flash_attention.py:246",
+            trained["launches"]["flash_bwd_dkv"],
+            max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
+                for x in flash_bwd), bwd_main, "dkv_"),
+        row("paged_decode", "paged_decode",
+            "stoke_tpu/ops/flash_attention.py:581",
+            served["launches"]["paged_decode"],
+            max(x["max_abs_err"] for x in decode), decode[0]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

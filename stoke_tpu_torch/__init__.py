@@ -6,6 +6,33 @@ entry points run on the card (``device="cuda"``) unless the caller passes
 ``sm_90a`` (``csrc/``), built at first use, each with a plain PyTorch
 version beside it.
 
-This slice serves GPT through :class:`stoke_tpu_torch.serving.ServingEngine`
-(greedy, paged KV cache, continuous batching).
+Two slices so far:
+
+- training on one device through the :class:`Stoke` facade (the
+  four-call ``model -> loss -> backward -> step`` loop or ``train_step``,
+  fp32 or bf16, with :class:`StokeDataLoader`), flash attention's forward
+  and backward on the CUDA kernels;
+- serving GPT through :class:`stoke_tpu_torch.serving.ServingEngine`
+  (greedy, paged KV cache, continuous batching).
 """
+
+from stoke_tpu_torch.configs import (
+    ClipGradConfig,
+    ClipGradNormConfig,
+    PrecisionConfig,
+    StokeOptimizer,
+)
+from stoke_tpu_torch.data import ArrayDataset, StokeDataLoader
+from stoke_tpu_torch.facade import Stoke
+from stoke_tpu_torch.status import StokeValidationError
+
+__all__ = [
+    "ArrayDataset",
+    "ClipGradConfig",
+    "ClipGradNormConfig",
+    "PrecisionConfig",
+    "Stoke",
+    "StokeDataLoader",
+    "StokeOptimizer",
+    "StokeValidationError",
+]

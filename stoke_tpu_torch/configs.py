@@ -1,7 +1,12 @@
-"""Configuration of the port: ``ServeConfig``.
+"""Configuration of the port: the option enums, the training configs the
+port takes (``PrecisionConfig``, ``ClipGradConfig``, ``ClipGradNormConfig``,
+``StokeOptimizer``) and ``ServeConfig``.
 
-The same field names and defaults as ``stoke_tpu.configs.ServeConfig``, so
-one config describes a serve run in either package. The port's
+Field names and defaults are those of ``stoke_tpu.configs``, so one config
+describes a run in either package. ``DeviceOptions`` is ``cpu`` or
+``cuda`` where the JAX package has ``cpu`` or ``tpu``.
+
+``ServeConfig`` describes a serve run. The port's
 :class:`~stoke_tpu_torch.serving.ServingEngine` serves the greedy path
 (paged KV cache, continuous batching, ``attention`` "dense" or "flash",
 ``decode_kernel`` "reference" or "pallas"); the fields of features that
@@ -13,7 +18,89 @@ over, and the engine refuses them with ``NotImplementedError`` until then.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from enum import Enum
+from typing import Any, Callable, Dict, Optional
+
+
+class DeviceOptions(Enum):
+    """Compute device: the CPU, or the CUDA card."""
+
+    cpu = "cpu"
+    cuda = "cuda"
+
+
+class DistributedOptions(Enum):
+    """Distributed strategy: data parallelism (not ported yet)."""
+
+    dp = "dp"
+
+
+class PrecisionOptions(Enum):
+    """Precision: ``full`` (fp32), ``bf16`` (fp32 master params, the model
+    run in bfloat16) or ``fp16`` (with a dynamic loss scaler; not ported
+    yet)."""
+
+    full = "full"
+    bf16 = "bf16"
+    fp16 = "fp16"
+
+
+@dataclass
+class PrecisionConfig:
+    """Precision policy and loss-scaler tunables.
+
+    Attributes:
+        param_dtype: dtype of the master copy of the parameters.
+        output_dtype: dtype the model's outputs are cast to under bf16.
+        init_scale / growth_factor / backoff_factor / growth_interval /
+            min_scale / num_losses: the fp16 loss scaler's (fp16 is not
+            ported yet; ``num_losses > 1`` needs it).
+    """
+
+    param_dtype: str = "float32"
+    output_dtype: str = "float32"
+    init_scale: float = 2.0**16
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+    min_scale: float = 1.0
+    num_losses: int = 1
+
+
+@dataclass
+class ClipGradConfig:
+    """Clip gradients element-wise to ``[-clip_value, clip_value]``."""
+
+    clip_value: float = 1.0
+
+
+@dataclass
+class ClipGradNormConfig:
+    """Scale all gradients by ``min(1, max_norm / (norm + 1e-6))``, with
+    ``norm`` their global ``norm_type``-norm (``inf``: the largest
+    magnitude)."""
+
+    max_norm: float = 1.0
+    norm_type: float = 2.0
+
+
+class StokeOptimizer(dict):
+    """An uninstantiated ``torch.optim`` optimizer: ``optimizer`` is its
+    class (or any callable taking the parameters first) and
+    ``optimizer_kwargs`` its keyword arguments. The facade builds it over
+    the model's parameters.
+
+    ``StokeOptimizer(torch.optim.AdamW, lr=3e-4)`` and
+    ``StokeOptimizer(optimizer=torch.optim.AdamW,
+    optimizer_kwargs={"lr": 3e-4})`` are the same; the keys are those of
+    the JAX package's ``StokeOptimizer`` dict."""
+
+    def __init__(self, optimizer: Callable[..., Any],
+                 optimizer_kwargs: Optional[Dict[str, Any]] = None,
+                 **kwargs):
+        super().__init__(optimizer=optimizer,
+                         optimizer_kwargs={**(optimizer_kwargs or {}),
+                                           **kwargs})
 
 
 @dataclass

@@ -1,6 +1,6 @@
 """Models of the port."""
 
 from stoke_tpu_torch.models.bert import BERT_SIZES, BertSize
-from stoke_tpu_torch.models.gpt import GPT
+from stoke_tpu_torch.models.gpt import GPT, causal_lm_loss
 
-__all__ = ["BERT_SIZES", "BertSize", "GPT"]
+__all__ = ["BERT_SIZES", "BertSize", "GPT", "causal_lm_loss"]

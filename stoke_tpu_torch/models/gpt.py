@@ -1,11 +1,17 @@
-"""GPT-style decoder-only causal language model (inference).
+"""GPT-style decoder-only causal language model, and its loss.
 
-Counterpart of ``stoke_tpu/models/gpt.py:30-201``: learned token and
-position embeddings, the post-LN blocks of :mod:`.bert`, ``ln_final``
-(eps ``1e-5``) and the head tied to the token embedding
-(``logits = h @ tok_emb.T``). Parameter names follow the flax tree
-(``layers.<i>`` for ``layer_<i>``), so :mod:`stoke_tpu_torch.convert`
-maps one onto the other.
+Counterpart of ``stoke_tpu/models/gpt.py:30-219``: learned token and
+position embeddings, embedding dropout, the post-LN blocks of :mod:`.bert`,
+``ln_final`` (eps ``1e-5``) and the head tied to the token embedding
+(``logits = h @ tok_emb.T``); :func:`causal_lm_loss`. Parameter names
+follow the flax tree (``layers.<i>`` for ``layer_<i>``), so
+:mod:`stoke_tpu_torch.convert` maps one onto the other.
+
+Training path: ``attention_fn`` (default :func:`.bert.dense_attention`)
+goes to every block; with ``attention_is_causal=True`` (for
+``make_flash_attention(causal=True)``) the forward builds no causal bias.
+Train and eval are the module's mode bit (``model.train()`` /
+``model.eval()``), where the JAX package takes ``train=`` per call.
 
 Serving path: ``kv_cache`` is a per-call paged-cache hook
 (:class:`stoke_tpu_torch.serving.kv_cache.PagedAttentionHook`) that gives
@@ -16,11 +22,15 @@ marks the single-token incremental forward, with each slot's position in
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from stoke_tpu_torch.models.bert import (
     BERT_SIZES,
+    Dropout,
     TransformerBlock,
     dense_attention,
 )
@@ -30,25 +40,36 @@ class GPT(nn.Module):
     """Decoder-only LM over the ``BERT_SIZES`` width table.
 
     Args:
-        vocab_size / size_name / max_len: as the JAX package's ``GPT``.
+        vocab_size / size_name / max_len / attention_fn /
+            attention_is_causal: as the JAX package's ``GPT``.
+        dropout_rate: embedding, residual and attention-probability
+            dropout while training. The default is 0.0, not the JAX
+            package's 0.1: a module starts in training mode, and the
+            port's callers that only run the forward (the serving engine,
+            the parity tests) build it without a rate.
         device: where the parameters are created.
 
-    The full-sequence forward runs dense attention with an in-model causal
-    bias; the serving forward takes each layer's attention from the cache
-    hook.
+    The full-sequence forward runs ``attention_fn`` (with an in-model
+    causal bias unless ``attention_is_causal``); the serving forward takes
+    each layer's attention from the cache hook.
     """
 
     def __init__(self, vocab_size: int = 50257, size_name: str = "tiny",
-                 max_len: int = 1024, device=None):
+                 max_len: int = 1024, dropout_rate: float = 0.0,
+                 attention_fn: Callable = dense_attention,
+                 attention_is_causal: bool = False, device=None):
         super().__init__()
         size = BERT_SIZES[size_name]
         self.vocab_size = vocab_size
         self.size_name = size_name
         self.max_len = max_len
+        self.attention_is_causal = attention_is_causal
         self.tok_emb = nn.Embedding(vocab_size, size.hidden, device=device)
         self.pos_emb = nn.Embedding(max_len, size.hidden, device=device)
+        self.emb_dropout = Dropout(dropout_rate)
         self.layers = nn.ModuleList(
-            TransformerBlock(size.hidden, size.heads, size.ff, device=device)
+            TransformerBlock(size.hidden, size.heads, size.ff, dropout_rate,
+                             attention_fn, device=device)
             for _ in range(size.num_layers)
         )
         self.ln_final = nn.LayerNorm(size.hidden, eps=1e-5, device=device)
@@ -109,16 +130,33 @@ class GPT(nn.Module):
                     f"GPT: positions contain id {int(pos.max())} >= "
                     f"max_len={self.max_len}"
                 )
-        h = self.tok_emb(input_ids) + self.pos_emb(pos)
-        if kv_cache is not None:
+        h = self.emb_dropout(self.tok_emb(input_ids) + self.pos_emb(pos))
+        if self.attention_is_causal or kv_cache is not None:
+            # the attention function (or the cache hook) masks causally
             bias = None
         else:
             causal = torch.tril(torch.ones(L, L, dtype=torch.bool, device=dev))
             bias = torch.zeros(1, 1, L, L, dtype=h.dtype, device=dev)
             bias.masked_fill_(~causal, -1e9)
         for i, layer in enumerate(self.layers):
-            fn = (dense_attention if kv_cache is None
-                  else kv_cache.layer_attention(i))
+            fn = None if kv_cache is None else kv_cache.layer_attention(i)
             h = layer(h, bias, fn)
         h = self.ln_final(h)
         return h @ self.tok_emb.weight.T
+
+
+def causal_lm_loss(logits, input_ids, mask=None):
+    """Next-token cross entropy in fp32: position t predicts token t+1.
+    The mean over the ``[B, L-1]`` targets, or with ``mask`` (``[B, L]``
+    0/1, padding 0) the mean over the kept targets,
+    ``sum(loss * w) / max(sum(w), 1)``."""
+    targets = input_ids[:, 1:].long()
+    logits = logits[:, :-1].float()
+    losses = F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+        reduction="none",
+    ).view(targets.shape)
+    if mask is not None:
+        w = mask[:, 1:].to(losses.dtype)
+        return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return losses.mean()

@@ -1,14 +1,21 @@
-"""Attention kernels of the port: flash forward and paged decode.
+"""Attention kernels of the port: flash forward and backward, paged decode.
 
 Counterpart of ``stoke_tpu/ops/flash_attention.py``. Each kernel has two
 versions here, computing the same function:
 
 - a hand-written CUDA kernel for Hopper (``csrc/flash_fwd.cu``,
-  ``csrc/paged_decode.cu``), built at first use by :mod:`._build` and
-  launched on the current stream for tensors on the card;
+  ``csrc/flash_bwd.cu``, ``csrc/paged_decode.cu``), built at first use by
+  :mod:`._build` and launched on the current stream for tensors on the
+  card;
 - a plain PyTorch version (:func:`flash_attention_plain`,
-  :func:`paged_decode_attention`), which the wrapper takes for tensors on
-  the CPU only, and against which the kernel is checked on the card.
+  :func:`flash_attention_bwd_plain`, :func:`paged_decode_attention`),
+  which the wrapper takes for tensors on the CPU only, and against which
+  the kernel is checked on the card.
+
+:func:`flash_attention` is differentiable: two ``torch.autograd.Function``
+s, one per ``return_lse`` (the JAX package's ``_flash`` and
+``_flash_with_lse`` with their VJP rules), run the forward kernel and, in
+backward, the dQ and dK/dV kernels from the saved LSE rows.
 
 The public wrappers keep the JAX package's names and layouts:
 :func:`flash_attention` on ``[B, H, L, D]`` with a ``[B, L]`` key mask, and
@@ -31,12 +38,15 @@ from stoke_tpu_torch.ops import _build
 #: score of a masked position; p is forced to 0 for s <= NEG_INF / 2
 NEG_INF = -1e30
 
-#: tolerance of the flash forward against the dense reference at bf16
-#: inputs (the JAX package's numerics contract)
+#: tolerances of the flash kernels against the dense reference at bf16
+#: inputs (the JAX package's numerics contract): the forward's absolute,
+#: the backward's relative to the largest gradient element
 FWD_ATOL_BF16 = 2e-2
+BWD_RTOL_BF16 = 0.05
 
 #: launches of each CUDA kernel, counted by its wrapper where it launches it
-LAUNCHES = {"flash_fwd": 0, "paged_decode": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "paged_decode": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -66,12 +76,14 @@ def _check_cuda(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _kernel(name: str, argtypes):
-    """The C entry ``stoke_<name>`` of ``csrc/<name>.cu``, built and loaded
-    at first use, and its error-message function."""
-    lib = _build.load(name)
+def _kernel(name: str, argtypes, source: str = None):
+    """The C entry ``stoke_<name>`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``), built and loaded at first use, and the source's
+    error-message function ``stoke_<source>_error``."""
+    source = source or name
+    lib = _build.load(source)
     fn = getattr(lib, f"stoke_{name}")
-    err = getattr(lib, f"stoke_{name}_error")
+    err = getattr(lib, f"stoke_{source}_error")
     if fn.argtypes is None:
         fn.argtypes, fn.restype = argtypes, _I
         err.argtypes, err.restype = [_I], ctypes.c_char_p
@@ -89,35 +101,48 @@ def _raise_on(err, name: str, rc: int) -> None:
 # --------------------------------------------------------------------------- #
 
 
-def flash_attention_plain(q, k, v, mask=None, causal: bool = False):
-    """Plain PyTorch version of the flash forward: the same masking,
-    sentinel and fp32 softmax as the kernel, over the whole score matrix.
+def _acc_dtype(t) -> torch.dtype:
+    """The plain versions' accumulation type: float32, or float64 for
+    float64 inputs (so ``gradcheck`` can hold them to float64)."""
+    return torch.promote_types(t.dtype, torch.float32)
 
-    Returns ``(out [B, H, L, D] in q's dtype, lse [B, H, L] float32)``; a
-    fully masked row gives ``out == 0`` and ``lse == NEG_INF``."""
+
+def _masked_scores(q, k, mask, causal: bool):
+    """``q k^T / sqrt(D)`` in the accumulation type, ``NEG_INF`` where the
+    key mask or the causal rule forbids the pair."""
     L, D = q.shape[2], q.shape[3]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / D**0.5)
+    acc = _acc_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (1.0 / D**0.5)
     allow = torch.ones(L, L, dtype=torch.bool, device=q.device)
     if causal:
         allow = torch.tril(allow)
     allow = allow[None, None]
     if mask is not None:
         allow = allow & (mask[:, None, None, :] > 0)
-    s = torch.where(allow, s, torch.full_like(s, NEG_INF))
+    return torch.where(allow, s, torch.full_like(s, NEG_INF))
+
+
+def flash_attention_plain(q, k, v, mask=None, causal: bool = False):
+    """Plain PyTorch version of the flash forward: the same masking,
+    sentinel and fp32 softmax as the kernel, over the whole score matrix.
+
+    Returns ``(out [B, H, L, D] in q's dtype, lse [B, H, L] float32)``; a
+    fully masked row gives ``out == 0`` and ``lse == NEG_INF``."""
+    acc = _acc_dtype(q)
+    s = _masked_scores(q, k, mask, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l > 0, l, torch.ones_like(l))
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / safe_l
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc)) / safe_l
     lse = torch.where(
         l > 0, m + torch.log(safe_l), torch.full_like(l, NEG_INF)
     )[..., 0]
     return out.to(q.dtype), lse
 
 
-def _flash_fwd_cuda(q, k, v, mask, causal: bool):
-    """Launch ``csrc/flash_fwd.cu`` on the current stream."""
-    B, H, L, D = q.shape
+def _check_flash_kernel_inputs(q, k, v, mask) -> None:
+    D = q.shape[-1]
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"flash_attention kernel takes float32 or bfloat16 q/k/v of one "
@@ -129,6 +154,12 @@ def _flash_fwd_cuda(q, k, v, mask, causal: bool):
         )
     if mask is not None and mask.dtype != torch.int32:
         raise ValueError(f"flash_attention mask must be int32, got {mask.dtype}")
+
+
+def _flash_fwd_cuda(q, k, v, mask, causal: bool):
+    """Launch ``csrc/flash_fwd.cu`` on the current stream."""
+    B, H, L, D = q.shape
+    _check_flash_kernel_inputs(q, k, v, mask)
     _check_cuda("flash_attention", q.device, q=q, k=k, v=v, mask=mask)
     fn, err = _kernel(
         "flash_fwd",
@@ -148,15 +179,170 @@ def _flash_fwd_cuda(q, k, v, mask, causal: bool):
     return out, lse
 
 
+def flash_attention_bwd_plain(q, k, v, mask, out, lse, do, dlse=None,
+                              causal: bool = False):
+    """Plain PyTorch version of the flash backward over the whole score
+    matrix (``_flash_backward`` of the JAX package): P recomputed from the
+    saved LSE rows (``p = 0`` where the score holds the ``NEG_INF``
+    sentinel, so a fully masked row gives no gradient),
+    ``dS = P * (dO V^T - delta)`` with ``delta = rowsum(dO * O) - dlse``,
+    ``dQ = scale dS K``, ``dK = scale dS^T Q``, ``dV = P^T dO``, summed in
+    fp32 (float64 for float64 inputs).
+
+    Args are ``[B, H, L, D]`` except ``mask`` (``[B, L]`` int or None) and
+    ``lse``/``dlse`` (``[B, H, L]``; ``dlse`` None when the LSE output
+    carries no gradient). Returns ``(dq, dk, dv)`` in q's, k's and v's
+    dtypes."""
+    acc = _acc_dtype(q)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = _masked_scores(q, k, mask, causal)
+    p = torch.where(s > NEG_INF * 0.5, torch.exp(s - lse.to(acc)[..., None]),
+                    torch.zeros_like(s))
+    delta = _delta(out, do, dlse).to(acc)
+    do_, q_, k_, v_ = (t.to(acc) for t in (do, q, k, v))
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do_, v_) - delta[..., None])
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, k_)
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q_)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do_)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out, do, dlse):
+    """``rowsum(dO * O)`` in fp32 (float64 for float64 inputs), minus the
+    LSE cotangent where the LSE is an output with a gradient: d lse_i /
+    d s_ij = p_ij, so it folds into the same ``dS = P * (dP - delta)``."""
+    acc = _acc_dtype(out)
+    delta = (do.to(acc) * out.to(acc)).sum(-1)
+    return delta if dlse is None else delta - dlse.to(acc)
+
+
+def _flash_bwd_launch(entry: str, outs, q, k, v, mask, do, lse, delta,
+                      causal: bool) -> None:
+    """Launch ``stoke_<entry>`` of ``csrc/flash_bwd.cu`` on the current
+    stream, writing ``outs``."""
+    B, H, L, D = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"{entry} launches a CUDA kernel and takes CUDA tensors, got "
+            f"{q.device} (flash_attention_bwd_plain is the plain version)"
+        )
+    _check_flash_kernel_inputs(q, k, v, mask)
+    if do.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention backward: dO is {do.dtype}, expected {q.dtype}"
+        )
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(
+            f"flash_attention backward: lse and delta must be float32, got "
+            f"{lse.dtype}/{delta.dtype}"
+        )
+    _check_cuda("flash_attention backward", q.device, q=q, k=k, v=v,
+                mask=mask, do=do, lse=lse, delta=delta)
+    # q, k, v, dO, lse, delta, mask, the outputs, then BH, H, L, D, dtype,
+    # scale, causal, stream
+    fn, err = _kernel(entry, [_P] * (7 + len(outs)) + [_I] * 5
+                      + [ctypes.c_float, _I, _P], source="flash_bwd")
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        *(o.data_ptr() for o in outs),
+        B * H, H, L, D, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
+        int(bool(causal)), _stream_ptr(q.device),
+    )
+    _raise_on(err, entry, rc)
+    LAUNCHES[entry] += 1
+
+
+def flash_bwd_dq(q, k, v, mask, do, lse, delta, causal: bool):
+    """dQ by ``csrc/flash_bwd.cu`` (replaces ``_dq_kernel``): CUDA tensors,
+    ``[B, H, L, D]`` q/k/v/dO in float32 or bfloat16, head dim 64 or 128,
+    ``[B, H, L]`` float32 ``lse`` and ``delta``, ``[B, L]`` int32 mask or
+    None, all contiguous. Returns dQ in q's dtype."""
+    dq = torch.empty_like(q)
+    _flash_bwd_launch("flash_bwd_dq", (dq,), q, k, v, mask, do, lse, delta,
+                      causal)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool):
+    """dK and dV by ``csrc/flash_bwd.cu`` (replaces ``_dkv_kernel``); the
+    inputs of :func:`flash_bwd_dq`. Returns ``(dk, dv)`` in k's and v's
+    dtypes."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, mask, do, lse,
+                      delta, causal)
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, mask, out, lse, do, dlse, causal: bool):
+    """The backward on the card: delta with torch ops (where the JAX
+    package computes it outside Pallas), then the two kernels."""
+    delta = _delta(out, do, dlse).contiguous()
+    dq = flash_bwd_dq(q, k, v, mask, do, lse, delta, causal)
+    return (dq, *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal))
+
+
+def _flash_forward(q, k, v, mask, causal: bool):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, mask, causal)
+    return _flash_fwd_cuda(q, k, v, mask, causal)
+
+
+def _flash_backward(ctx, do, dlse):
+    q, k, v, mask, out, lse = ctx.saved_tensors
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, mask, out, lse, do, dlse,
+                                         ctx.causal)
+    # dO reaches here through the heads' transpose back to [B, L, H*D],
+    # so it is often a strided view; the kernels take contiguous rows
+    return _flash_bwd_cuda(q, k, v, mask, out, lse, do.contiguous(), dlse,
+                           ctx.causal)
+
+
+class _Flash(torch.autograd.Function):
+    """``flash_attention(..., return_lse=False)``: the JAX package's
+    ``_flash`` with its VJP rule."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        out, lse = _flash_forward(q, k, v, mask, causal)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*_flash_backward(ctx, do, None), None, None)
+
+
+class _FlashWithLse(torch.autograd.Function):
+    """``flash_attention(..., return_lse=True)``: the JAX package's
+    ``_flash_with_lse``; the LSE rows carry a real gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        out, lse = _flash_forward(q, k, v, mask, causal)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal = causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return (*_flash_backward(ctx, do, dlse), None, None)
+
+
 def flash_attention(q, k, v, mask=None, *, causal: bool = False,
                     return_lse: bool = False):
     """Flash attention on ``[B, H, L, D]`` inputs with an optional
-    ``[B, L]`` int32 key mask (nonzero = attend).
+    ``[B, L]`` int32 key mask (nonzero = attend), differentiable in q, k
+    and v (and through the LSE rows when ``return_lse=True``).
 
-    On the card it launches the CUDA kernel; on the CPU it runs
-    :func:`flash_attention_plain`. ``return_lse=True`` also returns the
-    ``[B, H, L]`` fp32 logsumexp rows (``NEG_INF`` on a fully masked row).
-    The output is in the input dtype."""
+    On the card it launches the CUDA kernels (forward, and dQ and dK/dV
+    in backward); on the CPU it runs :func:`flash_attention_plain` and
+    :func:`flash_attention_bwd_plain`. ``return_lse=True`` also returns
+    the ``[B, H, L]`` fp32 logsumexp rows (``NEG_INF`` on a fully masked
+    row). The output is in the input dtype."""
     if q.ndim != 4:
         raise ValueError(f"expected [B, H, L, D] inputs, got {tuple(q.shape)}")
     if q.shape != k.shape or k.shape != v.shape:
@@ -169,13 +355,33 @@ def flash_attention(q, k, v, mask=None, *, causal: bool = False,
         raise ValueError(
             f"mask must be [B, L] = {(B, L)}, got {tuple(mask.shape)}"
         )
-    if q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, mask, causal)
-    elif q.device.type == "cuda":
-        out, lse = _flash_fwd_cuda(q, k, v, mask, causal)
-    else:
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return (out, lse) if return_lse else out
+    if return_lse:
+        return _FlashWithLse.apply(q, k, v, mask, causal)
+    return _Flash.apply(q, k, v, mask, causal)
+
+
+def make_flash_attention(causal: bool = False):
+    """A flash ``attention_fn`` for the models' blocks (the contract of
+    :func:`stoke_tpu_torch.models.bert.dense_attention`).
+
+    A bias, if given, becomes the key mask as in the JAX package: key j
+    is kept where ``bias[:, 0, 0, j] > -1e8``. Attention-probability
+    dropout is refused, as the JAX package refuses it."""
+
+    def attention_fn(q, k, v, bias, dropout=None):
+        if dropout is not None:
+            raise NotImplementedError(
+                "flash attention does not support attention-prob dropout; "
+                "set attention dropout to 0 (residual dropout is fine)"
+            )
+        mask = None
+        if bias is not None:
+            mask = (bias[:, 0, 0, :] > -1e8).to(torch.int32)
+        return flash_attention(q, k, v, mask, causal=causal)
+
+    return attention_fn
 
 
 def dense_reference(q, k, v, mask=None, causal: bool = False):

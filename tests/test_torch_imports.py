@@ -36,7 +36,11 @@ def test_forbidden_matches_the_jax_package_only():
 
 
 @pytest.mark.parametrize("module", ["stoke_tpu_torch.serving.engine",
-                                    "stoke_tpu_torch.convert"])
+                                    "stoke_tpu_torch.convert",
+                                    "stoke_tpu_torch.facade",
+                                    "stoke_tpu_torch.engine",
+                                    "stoke_tpu_torch.data",
+                                    "stoke_tpu_torch.status"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"
