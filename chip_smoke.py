@@ -18,13 +18,24 @@ Phases, one JSON line each; any failure exits nonzero:
    computes the same function: the flash forward and paged decode at the
    serve shapes, the flash backward's dQ and dK/dV kernels at the training
    shapes (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and bf16, plus a
-   masked case with fully masked rows).
+   masked case with fully masked rows), and the paged verify kernel at the
+   speculative serve shapes (B=8, H=12, S=5, D=64, fp32 and bf16 pools,
+   an idle slot and clamped padding rows).
 4. serve: GPT-base at full width (seeded random weights, fp32) behind
    ``ServingEngine`` with the flash prefill and paged-decode kernels;
    16 requests submitted in three waves; launch counts checked against
    the layers and steps; greedy streams held against the same engine on
    the plain attention path.
-5. train: the training path at full width: GPT-base (vocab 50257,
+5. serve_spec: the same GPT-base behind the speculative engine
+   (``sampling=True, speculative_k=4, prefill_chunk_tokens=128``; the
+   verify kernel, packed chunked prefill, threefry sampling) on 16
+   re-quoting prompts in the three waves, greedy and sampled (temperature
+   0.8, top-k 50, top-p 0.95), each against the same config without
+   speculation: verify launches are 12 per verify dispatch, decode
+   launches 0, greedy streams and the pre-sampling logits match the
+   non-speculative engine's; prints tokens/s, TTFT/TPOT, tokens per
+   dispatch, acceptance and the sampler's card time.
+6. train: the training path at full width: GPT-base (vocab 50257,
    max_len 1024) through ``Stoke`` in bf16 with flash attention, AdamW and
    norm clipping, B=8, L=1024, on the example corpus through
    ``Stoke.DataLoader``: 2 warm-up and 10 timed ``train_step``s, each of
@@ -32,7 +43,7 @@ Phases, one JSON line each; any failure exits nonzero:
    loss must fall. Then one four-call step at ``grad_accum=2``, with its
    counters checked. Prints step ms p50, tokens/s, peak memory and the
    losses.
-6. train_parity: the same seeded GPT-base in fp32 at B=2, L=512 for 3
+7. train_parity: the same seeded GPT-base in fp32 at B=2, L=512 for 3
    ``train_step``s through the kernels and through dense attention (no
    kernel); the losses must agree within 1e-3 relative.
 
@@ -261,6 +272,72 @@ def check_decode(ops, gen, flush) -> list:
     return cases
 
 
+def verify_inputs(gen, pool_dtype):
+    """Verify inputs at the speculative serve path's shapes: B=8 slots,
+    H=12, S=5 (speculative_k=4), D=64, 16-token pages, 32-entry tables
+    over the engine's pool of 8*32+1 blocks. Slot 0 is idle (positions
+    0..4 on an all-scratch table); the others verify at contexts from 17
+    to 509, the last with positions clamped to 511 as the scheduler clamps
+    short drafts' padding rows at max_seq_len - 1."""
+    dev = torch.device("cuda")
+    B, S, BS, MB = 8, 5, 16, 32
+    NB = B * MB + 1
+    ctx = [0, 17, 64, 129, 250, 333, 480, 509]
+    positions = torch.tensor(
+        [[s if b == 0 else min(c + s, MB * BS - 1) for s in range(S)]
+         for b, c in enumerate(ctx)], dtype=torch.int32, device=dev)
+    perm = torch.randperm(NB - 1, generator=gen, device=dev).to(torch.int32) + 1
+    tables = torch.zeros(B, MB, dtype=torch.int32, device=dev)
+    for b in range(1, B):
+        n = -(-int(positions[b].max() + 1) // BS)
+        tables[b, :n] = perm[b * MB : b * MB + n]
+    q = torch.randn(B, HEADS, S, HEAD_DIM, generator=gen, device=dev)
+    k_pages = torch.randn(NB, BS, HEADS, HEAD_DIM, generator=gen,
+                          device=dev).to(pool_dtype)
+    v_pages = torch.randn(NB, BS, HEADS, HEAD_DIM, generator=gen,
+                          device=dev).to(pool_dtype)
+    return q, k_pages, v_pages, tables, positions
+
+
+def check_verify(ops, gen, flush) -> list:
+    """The verify kernel against ``paged_verify_attention`` at the
+    speculative serve shapes, fp32 and bf16 pools. No single PyTorch call
+    computes a paged gather with a per-query positional mask, so there is
+    no library time."""
+    cases = []
+    for pool_dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, tables, positions = verify_inputs(gen, pool_dtype)
+        out = ops.paged_verify_attention_pallas(q, kp, vp, tables, positions)
+        ref = ops.paged_verify_attention(q, kp, vp, tables, positions)
+        torch.cuda.synchronize()
+        atol = FP32_ATOL if pool_dtype == torch.float32 else ops.FWD_ATOL_BF16
+        err = max_err(out, ref)
+        if not (torch.isfinite(out).all() and err <= atol):
+            raise AssertionError(
+                f"paged_verify pool {pool_dtype}: max |kernel - plain| "
+                f"{err} > {atol}"
+            )
+        ms = time_ms(lambda: ops.paged_verify_attention_pallas(
+            q, kp, vp, tables, positions), 100, flush)
+        plain_ms = time_ms(lambda: ops.paged_verify_attention(
+            q, kp, vp, tables, positions), 20, flush)
+        # K/V up to each slot's last visible position, q and out
+        tokens = float((positions.max(dim=1).values + 1).sum())
+        S = q.shape[2]
+        n_bytes = (2 * tokens * HEADS * HEAD_DIM * kp.element_size()
+                   + 2 * q.numel() * q.element_size()
+                   + tables.numel() * 4 + positions.numel() * 4)
+        flops = 4.0 * S * HEAD_DIM * HEADS * tokens
+        b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+        cases.append({
+            "B": q.shape[0], "S": S, "pool_dtype": str(pool_dtype)[6:],
+            "last_positions": [int(p) for p in positions.max(dim=1).values],
+            "max_abs_err": err, "atol": atol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        })
+    return cases
+
+
 def sdpa_backward_ms(q, k, v, do, flush) -> float:
     """SDPA's backward: its forward + backward minus its forward, both
     timed with the L2 flushed (the library yardstick; the port never
@@ -473,7 +550,239 @@ def serve(ops) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# phases 5 and 6: train GPT-base through the facade and the kernels
+# phase 5: speculative serving with sampling and chunked prefill
+# --------------------------------------------------------------------------- #
+
+
+SPEC = dict(attention="flash", decode_kernel="pallas", sampling=True,
+            prefill_chunk_tokens=128, **SERVE)
+SPEC_K = 4
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, sampling_seed=1234)
+LOGITS_ATOL = 1e-3  # verify and decode forwards sum in different orders
+
+
+def requote_prompts(rng, vocab, n=16):
+    """Prompt-lookup traffic: each prompt (16 to 400 tokens) is a random
+    8-32-token segment repeated, then a random tail of 1-8 tokens."""
+    prompts = []
+    for length in rng.integers(16, 401, size=n):
+        seg = rng.integers(0, vocab, size=int(rng.integers(8, 33)))
+        tail = int(rng.integers(1, 9))
+        body = np.tile(seg, -(-int(length) // seg.size))[: int(length) - tail]
+        prompts.append(np.concatenate([body, rng.integers(0, vocab, tail)]))
+    return prompts
+
+
+def first_divergence(a, b):
+    return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def sampler_ms(flush) -> float:
+    """Card time of one ``speculative_sample_tokens`` at the verify path's
+    shapes (B=8, S=5, V=50257, knobs of the sampled run), from host key
+    data as the engine holds it (the splits run on the host, the draws on
+    the card)."""
+    from stoke_tpu_torch.serving import sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    logits = torch.randn(8, SPEC_K + 1, VOCAB, generator=gen, device="cuda")
+    kd = np.stack([sampling.initial_key_data(i) for i in range(8)])
+    knobs = (torch.full((8,), SAMPLED["temperature"], device="cuda"),
+             torch.full((8,), SAMPLED["top_k"], dtype=torch.int32,
+                        device="cuda"),
+             torch.full((8,), SAMPLED["top_p"], device="cuda"))
+    return time_ms(lambda: sampling.speculative_sample_tokens(
+        logits, kd, *knobs), 20, flush)
+
+
+def host_ms(prompts, streams) -> dict:
+    """Host milliseconds of a verify step's two host-side pieces at the
+    serve_spec shapes: the five sequential key splits of 8 slots (numpy),
+    and the prompt-lookup drafts of 8 slots over their whole histories
+    (prompt + 32 tokens), each averaged over repeated calls."""
+    from stoke_tpu_torch.serving.sampling import initial_key_data, split_chain
+    from stoke_tpu_torch.serving.speculative import propose_draft
+
+    kd = np.stack([initial_key_data(i) for i in range(8)])
+    t0 = time.perf_counter()
+    for _ in range(50):
+        split_chain(kd, SPEC_K + 1)
+    split = (time.perf_counter() - t0) / 50 * 1e3
+    histories = [np.concatenate([p, np.asarray(t, np.int32)])
+                 for p, t in zip(prompts[:8], streams[:8])]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        for h in histories:
+            propose_draft(h, SPEC_K, ngram_max=3, ngram_min=1)
+    draft = (time.perf_counter() - t0) / 20 * 1e3
+    return {"split_chain_8_slots": split, "propose_draft_8_slots": draft,
+            "history_lens": [int(h.size) for h in histories]}
+
+
+def profile_drive(engine, prompts) -> dict:
+    """Device time by CUDA kernel over one more drive of ``engine``
+    (``torch.profiler``; user annotations left out), against its host
+    wall time: the card's busy share of a serve run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = drive(engine, prompts)
+        torch.cuda.synchronize()
+    rows = sorted(
+        ((getattr(e, "self_device_time_total", 0.0) / 1e3, e.key, e.count)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        reverse=True)
+    if not rows:
+        return {"wall_ms": wall * 1e3, "device_ms": "not measured"}
+    device_ms = sum(r[0] for r in rows)
+    s = engine.summary()
+    return {
+        "wall_ms": wall * 1e3, "device_ms": device_ms,
+        "device_busy_share": device_ms / (wall * 1e3),
+        "launches": sum(r[2] for r in rows),
+        "verify_dispatches": s["decode_steps"],
+        "goodput_s": s["goodput_s"],
+        "top": [{"name": n[:90], "calls": c, "ms": ms}
+                for ms, n, c in rows[:12]],
+    }
+
+
+def serve_spec(ops) -> dict:
+    """GPT-base (fp32, seeded random weights) through the speculative
+    engine (verify kernel, sampling, packed chunked prefill), greedy and
+    sampled, each against the same config without speculation."""
+    from stoke_tpu_torch.configs import ServeConfig
+    from stoke_tpu_torch.models.gpt import GPT
+    from stoke_tpu_torch.serving import ServingEngine
+
+    model = GPT(size_name="base", device="cuda")
+    model.init_weights(SEED)
+    weights = model.state_dict()
+    prompts = requote_prompts(np.random.default_rng(SEED + 1),
+                              model.vocab_size)
+    ServingEngine(model, weights, ServeConfig(**SPEC, speculative_k=SPEC_K)
+                  ).generate([prompts[0][:16]], 4)  # warm the libraries
+
+    def run_engine(knobs, k):
+        return ServingEngine(model, weights,
+                             ServeConfig(**SPEC, **knobs, speculative_k=k))
+
+    def run(knobs, k, capture):
+        engine = run_engine(knobs, k)
+        engine.capture_logits = capture
+        ops.reset_launches()
+        streams, wall = drive(engine, prompts)
+        return engine, streams, wall, dict(ops.LAUNCHES)
+
+    report = {"phase": "serve_spec", "model": "GPT-base (12 x 768, 12 heads, "
+              "ff 3072, vocab 50257), fp32, seeded random weights",
+              "config": {**SPEC, "speculative_k": SPEC_K},
+              "sampled_knobs": SAMPLED, "requests": len(prompts),
+              "prompt_lens": [int(p.size) for p in prompts]}
+    for mode, knobs in (("greedy", {}), ("sampled", SAMPLED)):
+        # timed runs with no logits fetched; then both again with the
+        # pre-sampling logits captured for the comparison
+        engine, streams, wall, launches = run(knobs, SPEC_K, False)
+        plain, plain_streams, plain_wall, plain_launches = run(knobs, None,
+                                                               False)
+        s, m, ps = engine.summary(), engine.metrics, plain.summary()
+        dispatches = s["decode_steps"]
+        if launches["paged_verify"] != N_LAYERS * dispatches:
+            raise AssertionError(
+                f"{mode}: paged_verify launched {launches['paged_verify']} "
+                f"times, expected {N_LAYERS} x {dispatches} verify dispatches")
+        if launches["paged_decode"]:
+            raise AssertionError(f"{mode}: the speculative engine launched "
+                                 f"the decode kernel: {launches}")
+        if launches["flash_fwd"] != N_LAYERS * s["prefills"]:
+            raise AssertionError(
+                f"{mode}: flash_fwd launched {launches['flash_fwd']} times, "
+                f"expected {N_LAYERS} x {s['prefills']} whole-prompt "
+                f"prefills")
+        for st in (streams, plain_streams):
+            if [len(x) for x in st] != [SERVE["max_new_tokens"]] * 16:
+                raise AssertionError(f"{mode}: stream lengths "
+                                     f"{[len(x) for x in st]}")
+        identical, diverged = 0, []
+        for i, (a, b) in enumerate(zip(streams, plain_streams)):
+            j = first_divergence(a, b)
+            if j is None:
+                identical += 1
+                continue
+            entry = {"request": i, "token": j}
+            if mode == "greedy":
+                entry["top2_gap"] = top2_gap(model, prompts[i], a[:j])
+                if entry["top2_gap"] > 1e-3:
+                    raise AssertionError(
+                        f"greedy request {i} diverges from the "
+                        f"non-speculative engine at token {j} with top-2 "
+                        f"logit gap {entry['top2_gap']} > 1e-3")
+            diverged.append(entry)
+        if not dispatches < ps["decode_steps"]:
+            raise AssertionError(
+                f"{mode}: {dispatches} verify dispatches, not fewer than "
+                f"the non-speculative engine's {ps['decode_steps']} decode "
+                f"steps")
+        cap, cap_streams, _, _ = run(knobs, SPEC_K, True)
+        cap_plain, cap_plain_streams, _, _ = run(knobs, None, True)
+        logit_err = 0.0
+        for i, (a, b) in enumerate(zip(cap_streams, cap_plain_streams)):
+            j = first_divergence(a, b)
+            upto = len(a) if j is None else j + 1
+            ours = np.stack(cap.captured_logits[i][:upto])
+            theirs = np.stack(cap_plain.captured_logits[i][:upto])
+            logit_err = max(logit_err, float(np.abs(ours - theirs).max()))
+        if logit_err > LOGITS_ATOL:
+            raise AssertionError(
+                f"{mode}: captured logits differ from the non-speculative "
+                f"engine's by {logit_err} > {LOGITS_ATOL} before the first "
+                f"divergence")
+        drafted = m.spec_draft_tokens.value
+        if mode == "greedy":
+            report["profile"] = profile_drive(
+                run_engine(knobs, SPEC_K), prompts)
+            report["host_ms"] = host_ms(prompts, streams)
+        report[mode] = {
+            "tokens_out": s["tokens_out"], "wall_s": wall,
+            "tokens_per_s": s["tokens_out"] / wall,
+            "ttft_p50_s": s["ttft_p50_s"], "ttft_p99_s": s["ttft_p99_s"],
+            "tpot_p50_s": s["tpot_p50_s"], "tpot_p99_s": s["tpot_p99_s"],
+            "verify_dispatches": dispatches,
+            "tokens_per_dispatch": s["tokens_out"] / max(dispatches, 1),
+            "whole_prompt_prefills": s["prefills"],
+            "chunk_dispatches": m.prefill_chunks.value,
+            "goodput_s": s["goodput_s"],
+            "verify_ms_mean": s["goodput_s"]["decode"] / dispatches * 1e3,
+            "spec_draft_tokens": drafted,
+            "spec_accepted_tokens": m.spec_accepted_tokens.value,
+            "acceptance": m.spec_accepted_tokens.value / max(drafted, 1),
+            "sampled_tokens": m.sampled_tokens.value,
+            "launches": launches,
+            "streams_identical_to_plain": identical, "diverged": diverged,
+            "max_logit_diff_before_divergence": logit_err,
+            "plain": {"wall_s": plain_wall,
+                      "tokens_per_s": ps["tokens_out"] / plain_wall,
+                      "decode_steps": ps["decode_steps"],
+                      "decode_ms_mean": ps["goodput_s"]["decode"]
+                      / ps["decode_steps"] * 1e3,
+                      "goodput_s": ps["goodput_s"],
+                      "chunk_dispatches": plain.metrics.prefill_chunks.value,
+                      "ttft_p50_s": ps["ttft_p50_s"],
+                      "tpot_p50_s": ps["tpot_p50_s"],
+                      "tpot_p99_s": ps["tpot_p99_s"],
+                      "launches": plain_launches},
+        }
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    report["sampler_ms"] = sampler_ms(flush)
+    report["sampler_shape"] = {"B": 8, "S": SPEC_K + 1, "V": VOCAB}
+    return report
+
+
+# --------------------------------------------------------------------------- #
+# phases 6 and 7: train GPT-base through the facade and the kernels
 # --------------------------------------------------------------------------- #
 
 
@@ -706,13 +1015,18 @@ def main() -> int:
     flash = check_flash(ops, gen, flush)
     decode = check_decode(ops, gen, flush)
     flash_bwd = check_flash_bwd(ops, gen, flush)
+    verify = check_verify(ops, gen, flush)
     emit({"phase": "kernels", "card": smi, "flash_fwd": flash,
-          "paged_decode": decode, "flash_bwd": flash_bwd})
+          "paged_decode": decode, "flash_bwd": flash_bwd,
+          "paged_verify": verify})
     del flush
     torch.cuda.empty_cache()
 
     served = serve(ops)
     emit(served)
+    torch.cuda.empty_cache()
+    spec = serve_spec(ops)
+    emit(spec)
     torch.cuda.empty_cache()
     trained = train(ops)
     emit(trained)
@@ -750,6 +1064,12 @@ def main() -> int:
             "stoke_tpu/ops/flash_attention.py:581",
             served["launches"]["paged_decode"],
             max(x["max_abs_err"] for x in decode), decode[0]),
+        # launches: the greedy and the sampled speculative runs
+        row("paged_verify", "paged_verify",
+            "stoke_tpu/ops/flash_attention.py:836",
+            spec["greedy"]["launches"]["paged_verify"]
+            + spec["sampled"]["launches"]["paged_verify"],
+            max(x["max_abs_err"] for x in verify), verify[0]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,16 +1,20 @@
-"""Attention kernels of the port: flash forward and backward, paged decode.
+"""Attention kernels of the port: flash forward and backward, paged decode
+and paged speculative verify.
 
 Counterpart of ``stoke_tpu/ops/flash_attention.py``. Each kernel has two
 versions here, computing the same function:
 
 - a hand-written CUDA kernel for Hopper (``csrc/flash_fwd.cu``,
-  ``csrc/flash_bwd.cu``, ``csrc/paged_decode.cu``), built at first use by
-  :mod:`._build` and launched on the current stream for tensors on the
-  card;
+  ``csrc/flash_bwd.cu``, ``csrc/paged_decode.cu``,
+  ``csrc/paged_verify.cu``), built at first use by :mod:`._build` and
+  launched on the current stream for tensors on the card;
 - a plain PyTorch version (:func:`flash_attention_plain`,
-  :func:`flash_attention_bwd_plain`, :func:`paged_decode_attention`),
-  which the wrapper takes for tensors on the CPU only, and against which
-  the kernel is checked on the card.
+  :func:`flash_attention_bwd_plain`, :func:`paged_decode_attention`,
+  :func:`paged_verify_attention`), which the wrapper takes for tensors on
+  the CPU only, and against which the kernel is checked on the card.
+
+Chunked-prefill attention (:func:`paged_prefill_chunk_attention`) has no
+kernel in either package: it is plain PyTorch on both devices.
 
 :func:`flash_attention` is differentiable: two ``torch.autograd.Function``
 s, one per ``return_lse`` (the JAX package's ``_flash`` and
@@ -46,7 +50,7 @@ BWD_RTOL_BF16 = 0.05
 
 #: launches of each CUDA kernel, counted by its wrapper where it launches it
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode": 0}
+            "paged_decode": 0, "paged_verify": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -525,4 +529,157 @@ def paged_decode_attention_pallas(q, k_pages, v_pages, block_tables,
         )
     raise ValueError(
         f"paged_decode_attention_pallas: unsupported device {q.device}"
+    )
+
+
+# --------------------------------------------------------------------------- #
+# chunked-prefill and speculative-verify attention
+# --------------------------------------------------------------------------- #
+
+
+def paged_prefill_chunk_attention(q, k_pages, v_pages, block_tables,
+                                  positions):
+    """Chunked-prefill attention over a paged KV pool (plain PyTorch; the
+    JAX package has no kernel for it either).
+
+    A chunk's queries attend everything cached for the request: earlier
+    chunks' K/V and this chunk's own, which the hook writes before the
+    attention runs. Causality is positional: the query at global position
+    ``p`` sees cache positions ``<= p``, which covers the intra-chunk
+    causal mask and the prefix in one predicate.
+
+    Args:
+        q: ``[B, H, C, D]`` chunk queries.
+        k_pages / v_pages: ``[NB, BS, H, D]`` pool of one layer.
+        block_tables: ``[B, MB]`` int block ids per request.
+        positions: ``[B, C]`` int global positions of the queries (padding
+            rows may hold clamped positions; the caller discards them).
+
+    Returns ``[B, H, C, D]`` in the query dtype."""
+    B, H, C, D = q.shape
+    tables = block_tables.long()
+    k = k_pages[tables].reshape(B, -1, H, D)
+    v = v_pages[tables].reshape(B, -1, H, D)
+    s = torch.einsum("bhqd,bwhd->bhqw", q.float(), k.float()) / (D**0.5)
+    w_pos = torch.arange(k.shape[1], device=q.device)
+    valid = w_pos[None, None, :] <= positions.long()[:, :, None]  # [B, C, W]
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqw,bwhd->bhqd", p, v.float())
+    return out.to(q.dtype)
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, positions):
+    """Plain PyTorch speculative-verify attention: S = k+1 query rows per
+    slot (the pending token and k drafts), each attending the cache at its
+    own global position. The same function as
+    :func:`paged_prefill_chunk_attention`, kept under its own name as the
+    verify kernel's plain version.
+
+    Args:
+        q: ``[B, H, S, D]`` verify queries.
+        k_pages / v_pages: ``[NB, BS, H, D]`` pool of one layer.
+        block_tables: ``[B, MB]`` int block ids per slot.
+        positions: ``[B, S]`` int global positions of the queries (short
+            drafts' padding rows carry clamped positions; their outputs
+            are discarded).
+
+    Returns ``[B, H, S, D]`` in the query dtype."""
+    return paged_prefill_chunk_attention(q, k_pages, v_pages, block_tables,
+                                         positions)
+
+
+#: most query rows per slot the verify kernel takes (speculative_k + 1)
+VERIFY_MAX_QUERIES = 16
+
+
+def _paged_verify_cuda(q, k_pages, v_pages, block_tables, positions):
+    """Launch ``csrc/paged_verify.cu`` on the current stream."""
+    B, H, S, D = q.shape
+    NB, BS = k_pages.shape[0], k_pages.shape[1]
+    MB = block_tables.shape[1]
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"paged verify kernel takes float32 or bfloat16 queries, got "
+            f"{q.dtype}"
+        )
+    if k_pages.dtype not in _DTYPE_CODES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(
+            f"paged verify kernel takes float32 or bfloat16 pools of one "
+            f"dtype, got {k_pages.dtype}/{v_pages.dtype}"
+        )
+    if D not in _HEAD_DIMS:
+        raise ValueError(
+            f"paged verify kernel takes head dim in {_HEAD_DIMS}, got {D}"
+        )
+    if S > VERIFY_MAX_QUERIES:
+        raise ValueError(
+            f"paged verify kernel takes at most {VERIFY_MAX_QUERIES} query "
+            f"rows per slot (speculative_k <= {VERIFY_MAX_QUERIES - 1}), got "
+            f"{S}"
+        )
+    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise ValueError(
+            f"block_tables and positions must be int32, got "
+            f"{block_tables.dtype}/{positions.dtype}"
+        )
+    _check_cuda(
+        "paged_verify_attention_pallas", q.device, q=q, k_pages=k_pages,
+        v_pages=v_pages, block_tables=block_tables, positions=positions,
+    )
+    fn, err = _kernel(
+        "paged_verify",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         ctypes.c_float, _P],
+    )
+    out = torch.empty_like(q)
+    rc = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        B, H, S, D, NB, BS, MB, _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k_pages.dtype], 1.0 / math.sqrt(D),
+        _stream_ptr(q.device),
+    )
+    _raise_on(err, "paged_verify", rc)
+    LAUNCHES["paged_verify"] += 1
+    return out
+
+
+def paged_verify_attention_pallas(q, k_pages, v_pages, block_tables,
+                                  positions):
+    """The verify kernel's wrapper, under the JAX package's name.
+
+    Same contract as :func:`paged_verify_attention`. On the card it
+    launches ``csrc/paged_verify.cu`` (contiguous int32 tables and
+    positions, contiguous float32 or bfloat16 query and pools, head dim 64
+    or 128, at most ``VERIFY_MAX_QUERIES`` query rows); on the CPU it runs
+    :func:`paged_verify_attention`."""
+    B, H, S, D = q.shape
+    if k_pages.shape != v_pages.shape or k_pages.ndim != 4:
+        raise ValueError(
+            f"k_pages/v_pages must be identical [NB, BS, H, D] pools, got "
+            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}"
+        )
+    if k_pages.shape[2] != H or k_pages.shape[3] != D:
+        raise ValueError(
+            f"page pool heads/dim {tuple(k_pages.shape[2:])} do not match "
+            f"the query's {(H, D)}"
+        )
+    if block_tables.ndim != 2 or block_tables.shape[0] != B:
+        raise ValueError(
+            f"block_tables must be [B={B}, MAX_BLOCKS], got "
+            f"{tuple(block_tables.shape)}"
+        )
+    if tuple(positions.shape) != (B, S):
+        raise ValueError(
+            f"positions must be [B={B}, S={S}], got {tuple(positions.shape)}"
+        )
+    if q.device.type == "cpu":
+        return paged_verify_attention(q, k_pages, v_pages, block_tables,
+                                      positions)
+    if q.device.type == "cuda":
+        return _paged_verify_cuda(q, k_pages, v_pages, block_tables,
+                                  positions)
+    raise ValueError(
+        f"paged_verify_attention_pallas: unsupported device {q.device}"
     )

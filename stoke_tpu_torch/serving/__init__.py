@@ -1,13 +1,17 @@
-"""Serving stack of the port: paged KV cache, continuous batching, engine."""
+"""Serving stack of the port: paged KV cache, continuous batching, sampling,
+speculative decoding, engine."""
 
-from stoke_tpu_torch.serving.engine import ServingEngine, resolve_device
+from stoke_tpu_torch.serving.engine import ServingEngine
 from stoke_tpu_torch.serving.kv_cache import (
     SCRATCH_BLOCK,
     BlockAllocator,
     PagedAttentionHook,
     PagedKVCache,
+    resolve_device,
 )
-from stoke_tpu_torch.serving.scheduler import Request, SamplingParams, Scheduler
+from stoke_tpu_torch.serving.sampling import SamplingParams
+from stoke_tpu_torch.serving.scheduler import Request, Scheduler
+from stoke_tpu_torch.serving.speculative import propose_draft
 from stoke_tpu_torch.serving.telemetry import ServeMetrics
 
 __all__ = [
@@ -20,5 +24,6 @@ __all__ = [
     "Scheduler",
     "ServeMetrics",
     "ServingEngine",
+    "propose_draft",
     "resolve_device",
 ]

@@ -1,27 +1,47 @@
 """Continuous-batching serving engine: prefill/decode over a paged KV cache.
 
-Counterpart of ``stoke_tpu/serving/engine.py:115-1220`` for the greedy
-path. Two forwards, as in the JAX engine's two compiled programs
-(``_prefill_fn`` and ``_decode_fn``):
+Counterpart of ``stoke_tpu/serving/engine.py:115-1220``. The JAX engine's
+compiled programs are methods here, run eagerly:
 
 - **prefill**: one request at a time, the prompt zero-padded to a
   ``prefill_pad_multiple`` bucket, causal attention through the configured
   kernel (``attention="flash"``: the flash forward kernel), every prompt
-  K/V written into the request's blocks, and the first token the argmax of
+  K/V written into the request's blocks, and the first token drawn from
   the logits at ``prompt_len - 1`` (the TTFT point);
 - **decode**: all ``max_seqs`` slots every step, one fresh token per slot,
   attention over each slot's cached blocks (``decode_kernel="pallas"``:
   the paged-decode kernel). Inactive slots run against the scratch block
-  and their outputs are discarded, so the step's shape never changes.
+  and their outputs are discarded, so the step's shape never changes;
+- **chunk** (``prefill_chunk_tokens``): a long prompt is prefilled one
+  fixed-size chunk per iteration, attending the paged prefix
+  (:func:`~stoke_tpu_torch.ops.paged_prefill_chunk_attention`), so one
+  long prompt cannot stall the decode batch. A speculative engine packs
+  every prefilling slot's chunk into one ``[max_seqs, C]`` batch;
+- **verify** (``speculative_k``): replaces decode. The prompt-lookup
+  drafter proposes up to k tokens per slot from its own history; one
+  forward scores the pending token and the drafts as S = k+1 query rows
+  (``decode_kernel="pallas"``: the paged-verify kernel); the S true draws
+  come from the slot's key stream; the leading exact matches are kept and
+  the rejected rows' K/V are rolled back out of the pool. Each emitted
+  token is the token the non-speculative engine would draw, so streams
+  are the same; only the dispatch count changes.
 
-The block tables, positions and context lengths are copied to the device
-each step in one pinned host-to-device copy; the only synchronisation is
-the fetch of the tokens. The port runs under ``torch.inference_mode()``.
+With ``ServeConfig(sampling=True)`` every draw goes through
+:mod:`~stoke_tpu_torch.serving.sampling` (temperature / top-k / top-p,
+Gumbel-max on a per-request threefry key stream, one split per emitted
+token); the greedy engine (``sampling=False``) runs the argmax programs.
+
+The key streams advance on the host (a split is a few words per slot);
+the sub keys, block tables, positions, lengths and sampling knobs are
+copied to the device each step in one pinned host-to-device copy, and
+each dispatch synchronises once, to fetch its tokens (and a verify step's
+acceptance counts in the same copy). When no row of a dispatch samples,
+the draw is the argmax, which is what the sampler gives at temperature 0.
+The port runs under ``torch.inference_mode()``.
 
 Left out of this slice, and refused at construction with
-``NotImplementedError``: sampling, speculative decoding, chunked prefill,
-weight quantization, and the SLO and cost observatories. Tracing and the
-memory observatory are left out too.
+``NotImplementedError``: weight quantization, and the SLO and cost
+observatories. Tracing and the memory observatory are left out too.
 """
 
 from __future__ import annotations
@@ -40,17 +60,27 @@ from stoke_tpu_torch.serving.kv_cache import (
     BlockAllocator,
     PagedAttentionHook,
     PagedKVCache,
+    resolve_device,
+)
+from stoke_tpu_torch.serving.sampling import (
+    SamplingParams,
+    accept_drafts,
+    draw_targets,
+    initial_key_data,
+    sample_tokens,
+    select_key_data,
+    split_chain,
+    split_key_data,
+    validate_sampling_params,
 )
 from stoke_tpu_torch.serving.scheduler import Request, Scheduler
 from stoke_tpu_torch.serving.telemetry import ServeMetrics
+from stoke_tpu_torch.status import serve_config_error
 from stoke_tpu_torch.telemetry.registry import MetricsRegistry
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_LATER_SERVING = (
-    "ROADMAP Queue 1 item 3 (serving: sampling, speculative decoding, "
-    "chunked prefill, weight quantization)"
-)
+_LATER_SERVING = "ROADMAP Queue 1 item 3 (serving: weight quantization)"
 _LATER_TELEMETRY = (
     "ROADMAP Queue 1 item 10 (telemetry: the serve SLO and cost "
     "observatories)"
@@ -61,30 +91,10 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for the CPU. Raises when the card is asked for and there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "stoke_tpu_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return dev
-
-
 def _unsupported(cfg: ServeConfig) -> Optional[str]:
     """The first feature ``cfg`` turns on that this slice does not serve,
     with the ROADMAP item that ports it."""
     later = {
-        "sampling": (cfg.sampling, _LATER_SERVING),
-        "temperature": (cfg.temperature != 0.0, _LATER_SERVING),
-        "top_k": (cfg.top_k is not None, _LATER_SERVING),
-        "top_p": (cfg.top_p is not None, _LATER_SERVING),
-        "speculative_k": (cfg.speculative_k is not None, _LATER_SERVING),
-        "prefill_chunk_tokens": (
-            cfg.prefill_chunk_tokens is not None, _LATER_SERVING
-        ),
         "quant": (cfg.quant != "none", _LATER_SERVING),
         "cost_cards": (cfg.cost_cards, _LATER_TELEMETRY),
         "slo_ttft_target_s": (
@@ -98,6 +108,15 @@ def _unsupported(cfg: ServeConfig) -> Optional[str]:
         if on:
             return f"ServeConfig.{name} is not ported yet: {item}"
     return None
+
+
+def _as_int32(a: np.ndarray) -> np.ndarray:
+    """``a`` as int32 for the one-copy upload: integers by value, float32
+    and uint32 (sampling knobs, key data) by bit pattern."""
+    a = np.ascontiguousarray(a)
+    if a.dtype in (np.float32, np.uint32):
+        return a.view(np.int32)
+    return a.astype(np.int32)
 
 
 class ServingEngine:
@@ -128,6 +147,28 @@ class ServingEngine:
             raise TypeError(
                 f"ServingEngine serves GPT models; got {type(model).__name__}"
             )
+        # the JAX engine's own checks, then the status layer's serve rules
+        if (
+            cfg.prefill_chunk_tokens is not None
+            and cfg.prefill_chunk_tokens % cfg.prefill_pad_multiple
+        ):
+            raise ValueError(
+                f"prefill_chunk_tokens={cfg.prefill_chunk_tokens} must be "
+                f"a multiple of prefill_pad_multiple="
+                f"{cfg.prefill_pad_multiple} (the bucket discipline that "
+                f"bounds compiled-program count; same rule the status "
+                f"layer enforces)"
+            )
+        if cfg.speculative_k is not None and not cfg.sampling:
+            raise ValueError(
+                "ServeConfig.speculative_k needs sampling=True — the "
+                "verify program rides the key-threaded sampling programs "
+                "(temperature=0.0 keeps exact greedy streams); set "
+                "sampling=True or drop speculative_k"
+            )
+        rule = serve_config_error(cfg)
+        if rule is not None:
+            raise ValueError(rule)
         reason = _unsupported(cfg)
         if reason is not None:
             raise NotImplementedError(reason)
@@ -195,20 +236,49 @@ class ServingEngine:
             default_max_new_tokens=cfg.max_new_tokens,
             eos_id=cfg.eos_id,
             pad_multiple=cfg.prefill_pad_multiple,
+            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+            sampling_seed_base=cfg.sampling_seed,
         )
+
+        self._sampling = bool(cfg.sampling)
+        # the config's knobs are each request's default; greedy when
+        # sampling is off
+        self._default_sampling = (
+            SamplingParams(temperature=cfg.temperature, top_k=cfg.top_k,
+                           top_p=cfg.top_p)
+            if self._sampling
+            else SamplingParams()
+        )
+        if self._sampling:
+            validate_sampling_params(self._default_sampling)
+        self._chunked = cfg.prefill_chunk_tokens is not None
+        self._speculative_k = cfg.speculative_k
+        # a speculative engine packs every prefilling slot's chunk into one
+        # dispatch, the verify batch's shape
+        self._packed = self._chunked and cfg.speculative_k is not None
+        if cfg.speculative_k is not None:
+            self.metrics.enable_speculative()
+        # per-slot key state of the sampling draws (host uint32 [B, 2], as
+        # the JAX engine's), advanced once per emitted token
+        self._key_data = np.zeros((cfg.max_seqs, 2), np.uint32)
+        # test hook: with capture_logits set, every sampling-path draw's
+        # pre-sampling logits row is kept per request id (one row per
+        # emitted token)
+        self.capture_logits = False
+        self.captured_logits: Dict[int, List[np.ndarray]] = {}
         self._iterations = 0
         self._t_start = time.perf_counter()
 
     # ------------------------------------------------------------------ #
-    # the two forwards
+    # the forwards
     # ------------------------------------------------------------------ #
 
     def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
-        """Copy int32 host arrays to the device in one copy (pinned and
-        asynchronous on the card) and return device views of each."""
-        flat = np.concatenate(
-            [np.ascontiguousarray(a, np.int32).reshape(-1) for a in arrays]
-        )
+        """Copy host arrays to the device in one int32 copy (pinned and
+        asynchronous on the card) and return device views of each; float32
+        and uint32 arrays travel by bit pattern (see :meth:`_sampling_args`
+        for their views back)."""
+        flat = np.concatenate([_as_int32(a).reshape(-1) for a in arrays])
         host = torch.from_numpy(flat)
         if self.device.type == "cuda":
             host = host.pin_memory()
@@ -219,6 +289,28 @@ class ServingEngine:
             at += a.size
         return views
 
+    @staticmethod
+    def _sampling_args(subs, temps, top_ks, top_ps):
+        """Device views of uploaded sub keys and knobs: key data as int64
+        in ``[0, 2**32)``, temperature and top-p as float32."""
+        return (subs.long() & 0xFFFFFFFF, temps.view(torch.float32),
+                top_ks, top_ps.view(torch.float32))
+
+    @staticmethod
+    def _draw(draw, logits, temps_host, subs, t, k, p):
+        """``draw(logits, subs, t, k, p)``, or the argmax of the logits when
+        no row samples (temperature 0 everywhere), which is the same
+        tokens without the Gumbel noise."""
+        if not np.any(temps_host > 0):
+            return logits.float().argmax(dim=-1)
+        return draw(logits, subs, t, k, p)
+
+    def _knobs(self, params: SamplingParams):
+        """A request's ``(temperature, top_k, top_p)`` as ``[1]`` arrays."""
+        t, k, p = params.as_arrays()
+        return (np.array([t], np.float32), np.array([k], np.int32),
+                np.array([p], np.float32))
+
     def _hook(self, tables, positions, mode: str, lengths):
         return PagedAttentionHook(
             self.cache.k_pages, self.cache.v_pages, tables, positions,
@@ -227,10 +319,15 @@ class ServingEngine:
             decode_impl=self.cfg.decode_kernel,
         )
 
+    def _capture(self, rid: int, row) -> None:
+        self.captured_logits.setdefault(rid, []).append(
+            np.array(row, np.float32)
+        )
+
     def _prefill(self, padded: np.ndarray, block_row: np.ndarray,
                  prompt_len: int) -> int:
-        """``padded [1, P]`` prompt, ``block_row [1, MB]``: write the
-        prompt's K/V and return the first generated token."""
+        """Greedy prefill: ``padded [1, P]`` prompt, ``block_row [1, MB]``:
+        write the prompt's K/V and return the first generated token."""
         P = padded.shape[1]
         tokens, tables, plen = self._upload(
             padded, block_row, np.array([prompt_len])
@@ -240,8 +337,26 @@ class ServingEngine:
         logits = self.model(tokens, positions, kv_cache=hook)
         return int(logits[0, prompt_len - 1].argmax())  # sync: the TTFT point
 
+    def _prefill_sampling(self, padded: np.ndarray, block_row: np.ndarray,
+                          prompt_len: int, slot: int, params: SamplingParams):
+        """Sampling prefill: returns ``(token, advanced key data [2],
+        pre-sampling logits row [V] on the device)``."""
+        P = padded.shape[1]
+        carry, sub = split_key_data(self._key_data[slot : slot + 1])
+        knobs = self._knobs(params)
+        tokens, tables, plen, *samp = self._upload(
+            padded, block_row, np.array([prompt_len]), sub, *knobs
+        )
+        positions = torch.arange(P, dtype=torch.int32, device=self.device)[None]
+        hook = self._hook(tables, positions, "prefill", plen)
+        row = self.model(tokens, positions, kv_cache=hook)[0, prompt_len - 1]
+        tok = self._draw(sample_tokens, row[None], knobs[0],
+                         *self._sampling_args(*samp))
+        return int(tok[0]), carry[0], row  # sync: the TTFT point
+
     def _decode(self) -> np.ndarray:
-        """One decode step over all slots; returns the next tokens [B]."""
+        """One greedy decode step over all slots; returns the next tokens
+        [B]."""
         tokens, positions, tables, context = self._upload(
             *self.scheduler.decode_batch()
         )
@@ -252,15 +367,125 @@ class ServingEngine:
         # sync: the tokens stream out
         return logits[:, -1, :].argmax(dim=-1).cpu().numpy()
 
+    def _decode_sampling(self):
+        """One sampling decode step over all slots: returns ``(tokens
+        [B], advanced key data [B, 2], pre-sampling logits [B, V] on the
+        device)``."""
+        sched = self.scheduler
+        carry, sub = split_key_data(self._key_data)
+        knobs = sched.sampling_batch()
+        tokens, positions, tables, context, *samp = self._upload(
+            *sched.decode_batch(), sub, *knobs
+        )
+        hook = self._hook(tables, positions[:, None], "decode", context)
+        logits = self.model(
+            tokens[:, None], positions[:, None], decode=True, kv_cache=hook
+        )[:, -1, :]
+        tok = self._draw(sample_tokens, logits, knobs[0],
+                         *self._sampling_args(*samp))
+        return tok.cpu().numpy(), carry, logits  # sync: tokens stream out
+
+    def _chunk(self, toks, positions, slot: int, req: Request,
+               logit_idx: int):
+        """One prefill chunk of one slot: ``toks [C]`` at global
+        ``positions [C]``; writes the chunk's K/V, attends the cached
+        prefix and draws from row ``logit_idx`` (used by the caller only
+        for the final chunk). Returns ``(token, key data [2], logits row
+        [V] on the device)``."""
+        sched = self.scheduler
+        carry, sub = split_key_data(self._key_data[slot : slot + 1])
+        knobs = self._knobs(req.params)
+        tokens, pos, tables, plen, *samp = self._upload(
+            toks[None], positions[None], sched.block_tables[slot : slot + 1],
+            np.array([req.prompt.size]), sub, *knobs,
+        )
+        hook = self._hook(tables, pos, "chunk", plen)
+        row = self.model(tokens, pos, kv_cache=hook)[0, logit_idx]
+        tok = self._draw(sample_tokens, row[None], knobs[0],
+                         *self._sampling_args(*samp))
+        # every chunk syncs, so its compute is charged to prefill and not
+        # to the next decode step's fetch
+        return int(tok[0]), carry[0], row
+
+    def _packed_chunk(self, tokens, positions, tables, lengths, logit_idx,
+                      rows):
+        """Every prefilling slot's next chunk in one ``[B, C]`` forward;
+        each row draws at its own ``logit_idx``. Returns ``(tokens [B],
+        key data [B, 2], logits rows [B, V] on the device)``."""
+        B = self.cfg.max_seqs
+        temps = np.zeros(B, np.float32)
+        ks = np.zeros(B, np.int32)
+        ps = np.ones(B, np.float32)
+        for i, req, _ in rows:
+            temps[i], ks[i], ps[i] = req.params.as_arrays()
+        carry, sub = split_key_data(self._key_data)
+        toks, pos, tab, lens, idx, *samp = self._upload(
+            tokens, positions, tables, lengths, logit_idx, sub, temps, ks, ps,
+        )
+        hook = self._hook(tab, pos, "chunk", lens)
+        logits = self.model(toks, pos, kv_cache=hook)
+        V = logits.shape[-1]
+        picked = torch.gather(
+            logits, 1, idx.long()[:, None, None].expand(-1, 1, V)
+        )[:, 0]
+        tok = self._draw(sample_tokens, picked, temps,
+                         *self._sampling_args(*samp))
+        return tok.cpu().numpy(), carry, picked
+
+    def _verify(self, tokens, positions, tables, lengths, draft_lens):
+        """One speculative verify step: scores all S rows of every slot,
+        draws the S sequential targets from each slot's key stream,
+        accepts the leading exact matches, rolls the rejected rows' K/V
+        back out of the pool and rewinds each key to one split per emitted
+        token. Returns ``(targets [B, S], n_emit [B], key data [B, 2],
+        logits [B, S, V] on the device)``."""
+        sched = self.scheduler
+        # the S sequential splits of every slot's stream (the JAX
+        # program's scan), on the host
+        key_stack, subs = split_chain(self._key_data, tokens.shape[1])
+        knobs = sched.sampling_batch()
+        toks, pos, tab, lens, dl, *samp = self._upload(
+            tokens, positions, tables, lengths, draft_lens, subs, *knobs,
+        )
+        hook = self._hook(tab, pos, "verify", lens)
+        logits = self.model(toks, pos, kv_cache=hook)
+        targets = self._draw(draw_targets, logits, knobs[0],
+                             *self._sampling_args(*samp))
+        n_emit = accept_drafts(toks[:, 1:], dl, targets)
+        hook.rollback(n_emit)
+        # one sync for the tokens and the acceptance counts
+        host = torch.cat([targets, n_emit[:, None]], dim=1).cpu().numpy()
+        targets, n_emit = host[:, :-1], host[:, -1]
+        return targets, n_emit, select_key_data(key_stack, n_emit), logits
+
     # ------------------------------------------------------------------ #
     # request intake
     # ------------------------------------------------------------------ #
 
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None,
-               eos_id: Optional[int] = None) -> int:
-        """Enqueue one request (mid-flight is the point); returns its id."""
-        rid = self.scheduler.submit(prompt, max_new_tokens, eos_id)
+               eos_id: Optional[int] = None,
+               sampling: Optional[SamplingParams] = None) -> int:
+        """Enqueue one request (mid-flight is the point); returns its id.
+
+        ``sampling`` carries the request's temperature / top-k / top-p /
+        seed, validated here; it needs ``ServeConfig(sampling=True)``.
+        Without it the request takes the config's knobs, and a request
+        without a seed gets ``ServeConfig.sampling_seed + rid``, so a whole
+        run replays from the config."""
+        if sampling is not None:
+            if not self._sampling:
+                raise ValueError(
+                    "per-request SamplingParams need ServeConfig."
+                    "sampling=True (the engine picks its sampling path at "
+                    "construction)"
+                )
+            validate_sampling_params(sampling)
+            params = sampling
+        else:
+            params = self._default_sampling
+        rid = self.scheduler.submit(prompt, max_new_tokens, eos_id,
+                                    params=params)
         self.metrics.requests.inc()
         return rid
 
@@ -271,37 +496,176 @@ class ServingEngine:
     # the engine loop
     # ------------------------------------------------------------------ #
 
-    def _prefill_one(self, slot: int, req: Request, padded: np.ndarray,
-                     plen: int) -> None:
-        sched, m = self.scheduler, self.metrics
-        t0 = time.perf_counter()
-        tok = self._prefill(padded, sched.block_tables[slot : slot + 1], plen)
-        now = time.perf_counter()
-        m.prefills.inc()
-        m.prefill_s.inc(now - t0)
-        sched.note_prefill_token(slot, tok, now)
+    def _emit_first_token(self, slot: int, req: Request, tok: int,
+                          now: float) -> None:
+        """The TTFT token's bookkeeping, from whole-prompt prefill or the
+        final chunk."""
+        m = self.metrics
+        self.scheduler.note_prefill_token(slot, tok, now)
         m.tokens_out.inc()
+        if not req.params.is_greedy:
+            m.sampled_tokens.inc()
         m.observe_ttft(req.ttft_s)
         if req.finished:
             self._finish(req)
 
-    def step(self) -> bool:
-        """One engine iteration: prefill the admitted arrivals, then one
-        decode step over the slot batch. Returns True while work remains."""
+    def _prefill_one(self, slot: int, req: Request, padded: np.ndarray,
+                     plen: int) -> None:
         sched, m = self.scheduler, self.metrics
+        t0 = time.perf_counter()
+        row = sched.block_tables[slot : slot + 1]
+        if self._sampling:
+            tok, key, logits = self._prefill_sampling(padded, row, plen,
+                                                      slot, req.params)
+            self._key_data[slot] = key
+            if self.capture_logits:
+                self._capture(req.rid, logits.cpu())
+        else:
+            tok = self._prefill(padded, row, plen)
+        now = time.perf_counter()
+        m.prefills.inc()
+        m.prefill_s.inc(now - t0)
+        self._emit_first_token(slot, req, tok, now)
+
+    def _run_chunk(self, slot: int, req: Request, toks, positions,
+                   is_final: bool, logit_idx: int) -> None:
+        """One chunk of one slot; only the final chunk emits the TTFT
+        token and advances the request's key stream (one split per emitted
+        token, as in whole-prompt prefill)."""
+        sched, m = self.scheduler, self.metrics
+        t0 = time.perf_counter()
+        tok, key, row = self._chunk(toks, positions, slot, req, logit_idx)
+        now = time.perf_counter()
+        m.prefill_chunks.inc()
+        m.prefill_s.inc(now - t0)
+        sched.note_chunk(slot)
+        if is_final:
+            self._key_data[slot] = key
+            if self.capture_logits:
+                self._capture(req.rid, row.cpu())
+            self._emit_first_token(slot, req, tok, now)
+
+    def _run_packed_chunks(self, tokens, positions, tables, lengths,
+                           logit_idx, rows) -> None:
+        """Every prefilling slot's chunk in one dispatch; final-chunk rows
+        emit their TTFT tokens and take the key writeback."""
+        sched, m = self.scheduler, self.metrics
+        t0 = time.perf_counter()
+        tok, keys, logits = self._packed_chunk(tokens, positions, tables,
+                                               lengths, logit_idx, rows)
+        now = time.perf_counter()
+        m.prefill_chunks.inc()  # dispatches, not serviced rows
+        m.prefill_s.inc(now - t0)
+        larr = logits.cpu() if self.capture_logits else None
+        for i, req, is_final in rows:
+            sched.note_chunk(i)
+            if is_final:
+                self._key_data[i] = keys[i]
+                if larr is not None:
+                    self._capture(req.rid, larr[i])
+                self._emit_first_token(i, req, int(tok[i]), now)
+
+    def _decode_rows(self) -> List[int]:
+        """Slots in the decode batch (fully prefilled), read before the
+        commit evicts any."""
+        return [i for i, s in enumerate(self.scheduler.slots)
+                if s.request is not None and s.prefill_pos is None]
+
+    def _step_decode(self) -> None:
+        """One decode dispatch over the slot batch."""
+        sched, m = self.scheduler, self.metrics
+        rows = self._decode_rows()
+        t0 = time.perf_counter()
+        if self._sampling:
+            next_host, keys, logits = self._decode_sampling()
+            # advance only the decoding slots' key streams
+            for i in rows:
+                self._key_data[i] = keys[i]
+            if self.capture_logits:
+                larr = logits.cpu()
+                for i in rows:
+                    self._capture(sched.slots[i].request.rid, larr[i])
+        else:
+            next_host = self._decode()
+        now = time.perf_counter()
+        m.decode_steps.inc()
+        m.decode_s.inc(now - t0)
+        n_sampled = sum(1 for i in rows
+                        if not sched.slots[i].request.params.is_greedy)
+        was_finished = set(sched.finished)
+        m.tokens_out.inc(sched.commit_decode(next_host, now))
+        if n_sampled:
+            m.sampled_tokens.inc(n_sampled)
+        for rid in set(sched.finished) - was_finished:
+            self._finish(sched.finished[rid])
+
+    def _step_verify(self) -> None:
+        """One speculative decode step: draft on the host, verify every
+        draft in one dispatch, commit the accepted run and the correction
+        or bonus token. ``decode_steps`` counts dispatches, so
+        ``tokens_out / decode_steps`` is tokens per dispatch."""
+        sched, m = self.scheduler, self.metrics
+        rows = self._decode_rows()
+        t0 = time.perf_counter()
+        tokens, positions, tables, lengths, draft_lens = sched.verify_batch(
+            self._speculative_k,
+            ngram_max=self.cfg.speculative_ngram_max,
+            ngram_min=self.cfg.speculative_ngram_min,
+        )
+        targets, n_emit, keys, logits = self._verify(
+            tokens, positions, tables, lengths, draft_lens
+        )
+        for i in rows:
+            self._key_data[i] = keys[i]
+        if self.capture_logits:
+            larr = logits.cpu()
+            for i in rows:
+                # one row per emitted token, aligned with the
+                # non-speculative engine's per-step captures
+                for j in range(int(n_emit[i])):
+                    self._capture(sched.slots[i].request.rid, larr[i, j])
+        now = time.perf_counter()
+        m.decode_steps.inc()
+        m.decode_s.inc(now - t0)
+        greedy_row = {i: sched.slots[i].request.params.is_greedy
+                      for i in rows}
+        was_finished = set(sched.finished)
+        committed, accepted = sched.commit_verify(targets, n_emit, now)
+        m.tokens_out.inc(int(committed.sum()))
+        m.spec_draft_tokens.inc(int(draft_lens.sum()))
+        m.spec_accepted_tokens.inc(accepted)
+        n_sampled = sum(int(committed[i]) for i in rows if not greedy_row[i])
+        if n_sampled:
+            m.sampled_tokens.inc(n_sampled)
+        for rid in set(sched.finished) - was_finished:
+            self._finish(sched.finished[rid])
+
+    def step(self) -> bool:
+        """One engine iteration: admit arrivals (short prompts prefill
+        whole, long ones enter the chunked state), run at most one chunk
+        dispatch, then one decode (or verify) dispatch over the fully
+        prefilled slots. Returns True while work remains."""
+        sched = self.scheduler
         with torch.inference_mode():
             for slot, req, padded, plen in sched.admit():
+                if self._sampling or self._chunked:
+                    self._key_data[slot] = initial_key_data(req.seed)
+                if padded is None:
+                    continue  # chunked admission: chunks run below
                 self._prefill_one(slot, req, padded, plen)
-            if sched.active > 0:
-                t0 = time.perf_counter()
-                next_host = self._decode()
-                now = time.perf_counter()
-                m.decode_steps.inc()
-                m.decode_s.inc(now - t0)
-                was_finished = set(sched.finished)
-                m.tokens_out.inc(sched.commit_decode(next_host, now))
-                for rid in set(sched.finished) - was_finished:
-                    self._finish(sched.finished[rid])
+            if self._packed:
+                nxt = sched.next_chunks()
+                if nxt is not None:
+                    self._run_packed_chunks(*nxt)
+            elif self._chunked:
+                nxt = sched.next_chunk()
+                if nxt is not None:
+                    self._run_chunk(*nxt)
+            if sched.decoding > 0:
+                if self._speculative_k is not None:
+                    self._step_verify()
+                else:
+                    self._step_decode()
         self._iterations += 1
         self._refresh_gauges()
         return sched.has_work

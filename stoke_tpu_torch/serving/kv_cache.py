@@ -13,8 +13,11 @@ Counterpart of ``stoke_tpu/serving/kv_cache.py``:
   slot's blocks and runs causal attention over the (padded) prompt (dense
   or the flash kernel); in decode mode it writes the fresh token's K/V and
   attends over the slot's cached blocks (the plain gather or the
-  paged-decode kernel). The chunk and verify modes of the JAX hook belong
-  to later slices.
+  paged-decode kernel). Chunk mode (chunked prefill) and verify mode
+  (speculative verify) write a multi-token query's K/V at global
+  positions and attend the cache under the positional predicate; verify
+  mode also snapshots what each write clobbers, so :meth:`rollback` can
+  restore rejected draft positions.
 """
 
 from __future__ import annotations
@@ -28,7 +31,22 @@ from stoke_tpu_torch.ops.flash_attention import (
     flash_attention,
     paged_decode_attention,
     paged_decode_attention_pallas,
+    paged_prefill_chunk_attention,
+    paged_verify_attention,
+    paged_verify_attention_pallas,
 )
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU. Raises when the card is asked for and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "stoke_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
 
 #: block id every unused block-table entry (and every inactive slot) points
 #: at: allocated to no request, read by nothing meaningful
@@ -98,11 +116,13 @@ class PagedKVCache:
     """The device-side block pool: K and V page planes for every layer.
 
     Layer outermost, so one layer's plane is a contiguous view the decode
-    kernel reads directly."""
+    and verify kernels read directly. ``device=None`` places the pool on
+    the card (and raises when there is none); ``"cpu"`` on the CPU."""
 
     def __init__(self, n_layers: int, num_blocks: int, block_size: int,
                  heads: int, head_dim: int, dtype=torch.float32,
-                 device="cpu"):
+                 device=None):
+        device = resolve_device(device)
         self.n_layers = int(n_layers)
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
@@ -133,26 +153,26 @@ class PagedAttentionHook:
             updated in place.
         block_tables: ``[B, MAX_BLOCKS] int32`` per-slot block ids.
         positions: ``[B, L]`` token positions written this call (prefill:
-            ``arange`` rows; decode: each slot's current position, L == 1).
-        mode: ``"prefill"`` or ``"decode"``.
-        lengths: ``[B] int32``; prefill: true prompt lengths (padding
-            positions write to scratch and are masked); decode: context
-            lengths including the fresh token.
+            ``arange`` rows; decode: each slot's current position, L == 1;
+            chunk and verify: the queries' global positions).
+        mode: ``"prefill"``, ``"chunk"`` (chunked prefill), ``"decode"``
+            or ``"verify"`` (speculative verify).
+        lengths: ``[B] int32``; prefill and chunk: true prompt lengths
+            (padding positions write to scratch and are masked); decode:
+            context lengths including the fresh token; verify: context +
+            draft length + 1, the write budget (query rows past it write
+            to scratch).
         attention_impl: prefill attention, ``"dense"`` or ``"flash"``.
-        decode_impl: decode attention, ``"reference"``
-            (:func:`paged_decode_attention`) or ``"pallas"``
-            (:func:`paged_decode_attention_pallas`, the kernel).
+        decode_impl: decode and verify attention, ``"reference"`` (the
+            plain :func:`paged_decode_attention` /
+            :func:`paged_verify_attention`) or ``"pallas"`` (the kernels'
+            wrappers).
     """
 
     def __init__(self, k_pages, v_pages, block_tables, positions, *,
                  mode: str, lengths, attention_impl: str = "dense",
                  decode_impl: str = "reference"):
-        if mode in ("chunk", "verify"):
-            raise NotImplementedError(
-                f"PagedAttentionHook mode {mode!r} is not ported yet "
-                f"(ROADMAP Queue 1 item 3: chunked prefill, speculative verify)"
-            )
-        if mode not in ("prefill", "decode"):
+        if mode not in ("prefill", "chunk", "decode", "verify"):
             raise ValueError(f"unknown PagedAttentionHook mode {mode!r}")
         if attention_impl not in ("dense", "flash"):
             raise ValueError(
@@ -173,27 +193,33 @@ class PagedAttentionHook:
         self.attention_impl = attention_impl
         self.decode_impl = decode_impl
         self.block_size = int(k_pages.shape[2])
+        # verify mode: per layer, (blocks, offs, old_k, old_v) gathered
+        # before the write, for rollback()
+        self._saved: List[tuple] = []
 
     def _write_layer(self, layer: int, k, v) -> None:
         """Scatter this call's fresh K/V into layer ``layer``'s planes.
 
         Valid tokens land at ``(block_table[b, pos // BS], pos % BS)``;
-        prompt padding lands in the scratch block (inactive decode slots
-        are steered there by their all-scratch tables). Distinct live
-        slots own distinct blocks, so writes of live tokens never collide.
+        prompt padding, chunk rows past the prompt and verify rows past
+        the write budget land in the scratch block (inactive slots are
+        steered there by their all-scratch tables). Distinct live slots
+        own distinct blocks, so writes of live tokens never collide.
 
         The planes are updated in place with ``index_put_``: this is the
         port's counterpart of the JAX engine donating the page buffers to
         its compiled programs (``stoke_tpu/serving/engine.py:361``), so
-        the pool is never copied."""
+        the pool is never copied. In verify mode the rows a write clobbers
+        are first gathered into a copy, since the write overwrites them in
+        place."""
         B, L = self.positions.shape
         dev = self.positions.device
         pos = self.positions.reshape(-1).long()  # [B*L]
         slot = torch.arange(B, device=dev).repeat_interleave(L)
-        if self.mode == "prefill":
-            valid = (self.positions < self.lengths[:, None]).reshape(-1)
-        else:
+        if self.mode == "decode":
             valid = torch.ones_like(pos, dtype=torch.bool)
+        else:
+            valid = (self.positions < self.lengths[:, None]).reshape(-1)
         # clamp the table column so padding positions past the allocated
         # window index legally, then steer invalid writes to scratch
         col = torch.clamp(pos // self.block_size,
@@ -202,6 +228,10 @@ class PagedAttentionHook:
         blocks = torch.where(valid, blocks, torch.full_like(blocks,
                                                             SCRATCH_BLOCK))
         offs = pos % self.block_size
+        if self.mode == "verify":
+            self._saved.append((blocks, offs,
+                                self.k_pages[layer][blocks, offs],
+                                self.v_pages[layer][blocks, offs]))
         self.k_pages[layer].index_put_(
             (blocks, offs), _flatten_heads(k).to(self.k_pages.dtype)
         )
@@ -209,19 +239,59 @@ class PagedAttentionHook:
             (blocks, offs), _flatten_heads(v).to(self.v_pages.dtype)
         )
 
+    def rollback(self, n_keep) -> None:
+        """Restore every verify write past the accepted window.
+
+        Called after the whole forward, once acceptance is known: query
+        row ``i`` of slot ``b`` keeps its written K/V iff ``i <
+        n_keep[b]``; every other row's destination gets back the snapshot
+        :meth:`_write_layer` took. Kept rows' restores are steered to the
+        scratch block, so the scatter has a fixed shape and rejected
+        drafts never dirty the pool across dispatches.
+
+        Args:
+            n_keep: ``[B]`` accepted-row counts (the sampler's ``n_emit``).
+        """
+        if self.mode != "verify":
+            raise ValueError(
+                f"rollback() is a verify-mode operation; hook mode is "
+                f"{self.mode!r}"
+            )
+        B, L = self.positions.shape
+        dev = self.positions.device
+        within = torch.arange(L, device=dev).repeat(B)
+        slot = torch.arange(B, device=dev).repeat_interleave(L)
+        keep = within < n_keep.long()[slot]
+        for layer, (blocks, offs, old_k, old_v) in enumerate(self._saved):
+            blocks_r = torch.where(keep, torch.full_like(blocks,
+                                                         SCRATCH_BLOCK),
+                                   blocks)
+            self.k_pages[layer].index_put_((blocks_r, offs), old_k)
+            self.v_pages[layer].index_put_((blocks_r, offs), old_v)
+
     def layer_attention(self, layer: int):
         """The attention function (``bert.py`` signature) of layer
         ``layer``: every write happens before the attention that reads
-        it."""
+        it. The block hands ``q`` over contiguous (``bert.py`` makes the
+        head split contiguous), as the kernels take it."""
 
         def attention_fn(q, k, v, bias):
             self._write_layer(layer, k, v)
+            pages = (q, self.k_pages[layer], self.v_pages[layer],
+                     self.block_tables)
+            pallas = self.decode_impl == "pallas"
             if self.mode == "decode":
-                decode = (paged_decode_attention_pallas
-                          if self.decode_impl == "pallas"
+                decode = (paged_decode_attention_pallas if pallas
                           else paged_decode_attention)
-                return decode(q, self.k_pages[layer], self.v_pages[layer],
-                              self.block_tables, self.lengths)
+                return decode(*pages, self.lengths)
+            if self.mode == "verify":
+                verify = (paged_verify_attention_pallas if pallas
+                          else paged_verify_attention)
+                return verify(*pages, self.positions)
+            if self.mode == "chunk":
+                # earlier chunks' prefix and the intra-chunk causal mask
+                # fall out of one positional predicate
+                return paged_prefill_chunk_attention(*pages, self.positions)
             # prefill: causal attention over the padded prompt, with the
             # padding keys masked
             L = q.shape[2]

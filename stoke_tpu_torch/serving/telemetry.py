@@ -5,8 +5,10 @@ generated token, queue time included) and TPOT (mean time per output token
 over the decode tokens) as registry histograms plus exact p50/p99 from
 trailing reservoirs, the capacity gauges (queue depth, KV-block occupancy,
 batch fill), and the goodput split of serve wall time into queue/idle,
-prefill and decode. Instrument names and ``event_fields`` keys are the JAX
-package's, so records from either package read the same.
+prefill and decode, the chunked-prefill and sampled-token counters, and
+the speculative-decoding counters (created only for a speculative engine).
+Instrument names and ``event_fields`` keys are the JAX package's, so
+records from either package read the same.
 """
 
 from __future__ import annotations
@@ -82,8 +84,17 @@ class ServeMetrics:
         self.prefills = registry.counter(
             "serve/prefills_total", help="prefill dispatches"
         )
+        self.prefill_chunks = registry.counter(
+            "serve/prefill_chunks_total",
+            help="chunked-prefill dispatches",
+        )
         self.decode_steps = registry.counter(
             "serve/decode_steps_total", help="decode dispatches"
+        )
+        self.sampled_tokens = registry.counter(
+            "serve/sampled_tokens_total",
+            help="tokens drawn through the sampling path "
+            "(temperature > 0; greedy tokens excluded)",
         )
         self.prefill_s = registry.counter(
             "serve/goodput_prefill_s_total",
@@ -119,6 +130,27 @@ class ServeMetrics:
             "tpot_p50": registry.gauge("serve/tpot_p50_s"),
             "tpot_p99": registry.gauge("serve/tpot_p99_s"),
         }
+        # speculative counters: created by enable_speculative(), so a
+        # non-speculative engine's registry carries no speculative series
+        self.spec_active = False
+        self.spec_draft_tokens = None
+        self.spec_accepted_tokens = None
+
+    def enable_speculative(self) -> None:
+        """Arm the speculative-decoding counters (a speculative engine
+        calls it at construction). ``accepted / drafted`` is the acceptance
+        rate; ``tokens_out / decode_steps`` the tokens per dispatch."""
+        if self.spec_active:
+            return
+        self.spec_active = True
+        self.spec_draft_tokens = self.registry.counter(
+            "serve/spec_draft_tokens_total",
+            help="draft tokens scored by verify dispatches",
+        )
+        self.spec_accepted_tokens = self.registry.counter(
+            "serve/spec_accepted_tokens_total",
+            help="draft tokens accepted into the output stream",
+        )
 
     def observe_ttft(self, seconds: float) -> None:
         self.ttft.observe(seconds)
@@ -147,7 +179,7 @@ class ServeMetrics:
         package emits for the features this slice serves)."""
         self.refresh_percentiles()
         pct = self.latency_percentiles()
-        return {
+        out = {
             "serve/requests": self.requests.value,
             "serve/completed": self.completed.value,
             "serve/tokens_out": self.tokens_out.value,
@@ -163,4 +195,13 @@ class ServeMetrics:
             "serve/goodput_queue_s": self.queue_s.value,
             "serve/goodput_prefill_s": self.prefill_s.value,
             "serve/goodput_decode_s": self.decode_s.value,
+            "serve/prefill_chunks": self.prefill_chunks.value,
+            "serve/sampled_tokens": self.sampled_tokens.value,
         }
+        if self.spec_active:
+            # absent, not null, without a speculative config
+            out["serve/spec_draft_tokens"] = self.spec_draft_tokens.value
+            out["serve/spec_accepted_tokens"] = (
+                self.spec_accepted_tokens.value
+            )
+        return out

@@ -12,6 +12,11 @@ are then refused with ``NotImplementedError`` naming their ROADMAP item:
 fp16 (and per-loss scalers), ``distributed`` and the oss/sddp/fsdp tiers,
 and every config class other than ``PrecisionConfig``, ``ClipGradConfig``
 and ``ClipGradNormConfig``.
+
+:func:`serve_config_error` holds the serving rules of chunked prefill, the
+sampling knobs and speculative decoding (``stoke_tpu/status.py:1101-1149``,
+``:1206-1261``) with the JAX package's messages; ``ServingEngine`` checks
+its config with it.
 """
 
 from __future__ import annotations
@@ -288,3 +293,108 @@ class StokeStatus:
         if "PrecisionConfig" not in self._configs:
             self._configs["PrecisionConfig"] = PrecisionConfig()
         return self._configs["PrecisionConfig"]
+
+
+def serve_config_error(cfg: ServeConfig) -> Optional[str]:
+    """The first rule of chunked prefill, the sampling knobs or speculative
+    decoding that ``cfg`` breaks, as the JAX package's message, or None.
+    Knobs that a disabled feature would silently ignore are rejected, never
+    ignored."""
+    if cfg.prefill_chunk_tokens is not None:
+        c = cfg.prefill_chunk_tokens
+        if c < 1:
+            return (
+                f"ServeConfig.prefill_chunk_tokens must be >= 1, got {c}"
+            )
+        if c % cfg.prefill_pad_multiple:
+            return (
+                f"ServeConfig.prefill_chunk_tokens={c} must be a multiple "
+                f"of prefill_pad_multiple={cfg.prefill_pad_multiple} — "
+                f"chunk shapes ride the same bucket discipline that bounds "
+                f"compiled-program count"
+            )
+        if c > cfg.max_seq_len:
+            return (
+                f"ServeConfig.prefill_chunk_tokens={c} exceeds "
+                f"max_seq_len={cfg.max_seq_len} — no prompt could ever be "
+                f"chunked"
+            )
+    if cfg.temperature < 0.0:
+        return f"ServeConfig.temperature must be >= 0, got {cfg.temperature}"
+    if cfg.top_k is not None and cfg.top_k < 1:
+        return f"ServeConfig.top_k must be >= 1 when set, got {cfg.top_k}"
+    if cfg.top_p is not None and not (0.0 < cfg.top_p <= 1.0):
+        return (
+            f"ServeConfig.top_p must be in (0, 1] when set, got {cfg.top_p}"
+        )
+    if not cfg.sampling and (
+        cfg.temperature != 0.0 or cfg.top_k is not None
+        or cfg.top_p is not None
+    ):
+        return (
+            "ServeConfig sampling knobs set (temperature/top_k/top_p) but "
+            "sampling=False — the greedy programs would silently ignore "
+            "them; set sampling=True or drop the knobs"
+        )
+    k = cfg.speculative_k
+    if k is not None:
+        if k < 1:
+            return (
+                f"ServeConfig.speculative_k must be >= 1 when set (None = "
+                f"speculative decoding off), got {k}"
+            )
+        if not cfg.sampling:
+            return (
+                f"ServeConfig.speculative_k={k} needs sampling=True — the "
+                f"verify program rides the key-threaded sampling programs "
+                f"(temperature=0.0 keeps exact greedy streams); set "
+                f"sampling=True or drop speculative_k"
+            )
+        if (cfg.prefill_chunk_tokens is not None
+                and k + 1 > cfg.prefill_chunk_tokens):
+            return (
+                f"ServeConfig.speculative_k={k} puts the verify query width "
+                f"(k+1={k + 1}) over the chunk budget prefill_chunk_tokens="
+                f"{cfg.prefill_chunk_tokens} — the multi-token programs "
+                f"share that per-iteration bound; shrink speculative_k or "
+                f"raise prefill_chunk_tokens"
+            )
+        if cfg.speculative_ngram_min < 1:
+            return (
+                f"ServeConfig.speculative_ngram_min must be >= 1, got "
+                f"{cfg.speculative_ngram_min}"
+            )
+        if cfg.speculative_ngram_max < cfg.speculative_ngram_min:
+            return (
+                f"ServeConfig.speculative_ngram_max="
+                f"{cfg.speculative_ngram_max} < speculative_ngram_min="
+                f"{cfg.speculative_ngram_min} — the drafter's n-gram range "
+                f"is empty"
+            )
+    elif cfg.speculative_ngram_max != 3 or cfg.speculative_ngram_min != 1:
+        return (
+            "ServeConfig speculative drafter knobs set "
+            "(speculative_ngram_max/speculative_ngram_min) but "
+            "speculative_k=None — the non-speculative engine would silently "
+            "ignore them; set speculative_k or drop the knobs"
+        )
+    for field in ("verify_pages_per_block", "verify_block_h"):
+        v = getattr(cfg, field)
+        if v is None:
+            continue
+        if v < 1:
+            return f"ServeConfig.{field} must be >= 1 when set, got {v}"
+        if k is None:
+            return (
+                f"ServeConfig.{field}={v} set but speculative_k=None — only "
+                f"the speculative verify kernel reads the verify block "
+                f"knobs; set speculative_k or drop the knob"
+            )
+        if cfg.decode_kernel != "pallas":
+            return (
+                f"ServeConfig.{field}={v} set but decode_kernel="
+                f"{cfg.decode_kernel!r} — the verify block knobs feed the "
+                f"pallas verify kernel; set decode_kernel='pallas' or drop "
+                f"the knob"
+            )
+    return None

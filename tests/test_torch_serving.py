@@ -266,9 +266,11 @@ def test_hook_page_writes_match_jax_hook(mode):
 
 
 def test_hook_refuses_later_modes():
+    """Every mode of the JAX hook is served now; a mode neither package
+    knows is refused."""
     z = torch.zeros(1, 2, 4, 1, 8)
-    for mode in ("chunk", "verify"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for mode in ("draft", "Verify", ""):
+        with pytest.raises(ValueError, match="unknown PagedAttentionHook"):
             PagedAttentionHook(z, z, torch.zeros(1, 1, dtype=torch.int32),
                                torch.zeros(1, 1, dtype=torch.int32),
                                mode=mode, lengths=torch.ones(1))
@@ -289,15 +291,27 @@ def test_default_device_without_cuda_raises(weights, monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize(
-    "later",
-    [dict(sampling=True), dict(speculative_k=2), dict(temperature=0.7),
-     dict(prefill_chunk_tokens=32), dict(quant="int8"),
-     dict(cost_cards=True), dict(slo_ttft_target_s=1.0)],
-)
+# the first four were later-slice refusals before sampling, speculative
+# decoding and chunked prefill were ported; they are now the serve status
+# rules' ValueErrors
+LATER = [
+    (dict(sampling=True, top_k=0), ValueError, "top_k must be >= 1"),
+    (dict(speculative_k=2), ValueError, "needs sampling=True"),
+    (dict(temperature=0.7), ValueError, "sampling=False"),
+    (dict(prefill_chunk_tokens=40), ValueError,
+     "multiple of prefill_pad_multiple"),
+    (dict(quant="int8"), NotImplementedError, "ROADMAP"),
+    (dict(cost_cards=True), NotImplementedError, "ROADMAP"),
+    (dict(slo_ttft_target_s=1.0), NotImplementedError, "ROADMAP"),
+]
+
+
+@pytest.mark.parametrize("later", range(len(LATER)),
+                         ids=[f"later{i}" for i in range(len(LATER))])
 def test_later_slice_features_raise(weights, later):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine(weights[2], **later)
+    kw, exc, match = LATER[later]
+    with pytest.raises(exc, match=match):
+        _port_engine(weights[2], **kw)
 
 
 @pytest.mark.parametrize(
