@@ -16,11 +16,16 @@ Phases, one JSON line each; any failure exits nonzero:
    shapes, with its time, the plain version's, the least time the card
    could take (``bound_ms``) and a PyTorch library call's where one
    computes the same function: the flash forward and paged decode at the
-   serve shapes, the flash backward's dQ and dK/dV kernels at the training
-   shapes (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and bf16, plus a
-   masked case with fully masked rows), and the paged verify kernel at the
-   speculative serve shapes (B=8, H=12, S=5, D=64, fp32 and bf16 pools,
-   an idle slot and clamped padding rows).
+   serve shapes, the flash forward in bf16 (the tensor-core kernel) at the
+   training shape (B=8, H=12, L=1024, D=64, causal), at D=128, at a
+   ragged L=1000, without the causal rule, and at D=128 with fully masked
+   rows; the flash backward's dQ and dK/dV kernels at the training shapes
+   (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and bf16), masked cases
+   with fully masked rows in fp32 and bf16, and bf16 at D=128, at
+   L=1000, without the causal rule and masked at D=128 (bf16 dK/dV also
+   held row by row: ``BWD_ROW_RTOL_BF16``); and the paged verify kernel
+   at the speculative serve shapes (B=8, H=12, S=5, D=64, fp32 and bf16
+   pools, an idle slot and clamped padding rows).
 4. serve: GPT-base at full width (seeded random weights, fp32) behind
    ``ServingEngine`` with the flash prefill and paged-decode kernels;
    16 requests submitted in three waves; launch counts checked against
@@ -120,6 +125,34 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def row_rel_err(a, b) -> float:
+    """Largest L2 norm of ``a - b`` over a row (last axis) relative to
+    the norm of that row of ``b``; inf where ``b``'s row is zero and
+    ``a``'s is not."""
+    num = (a.float() - b.float()).norm(dim=-1)
+    den = b.float().norm(dim=-1)
+    return float(torch.where(num == 0, 0.0, num / den).max())
+
+
+def allowed_pairs(B, L, mask, causal) -> float:
+    """(query, key) pairs of one head summed over the batch that the key
+    mask and the causal rule allow: the work these inputs need."""
+    if mask is None:
+        return float(B * (L * (L + 1) // 2 if causal else L * L))
+    keys = mask.cumsum(1) if causal else mask.sum(1, keepdim=True) * L
+    return float(keys.float().sum())
+
+
+def padding_mask(B, L, dev):
+    """Batch 0 masks key 0 (so under causal its query row 0 sees no key)
+    and its last 37 keys; batch 1 masks every key."""
+    mask = torch.ones(B, L, dtype=torch.int32, device=dev)
+    mask[0, 0] = 0
+    mask[0, L - 37:] = 0
+    mask[1] = 0
+    return mask
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
@@ -129,8 +162,8 @@ def check_flash(ops, gen, flush) -> list:
     """Flash forward at the prefill shapes: B=1, H=12, D=64, causal with a
     prompt-padding key mask, L in {64, 320, 512}, fp32 and bf16. The L=64
     cases also mask key 0, which leaves query row 0 fully masked (LSE
-    sentinel check). Then at the training shape: B=8, L=1024, bf16,
-    causal, no key mask."""
+    sentinel check). Then ``FWD_BF16_CASES``. fp32 runs the scalar
+    kernel, bf16 the tensor-core one."""
     cases = []
     dev = torch.device("cuda")
     for L, plen in ((64, 41), (320, 301), (512, 400)):
@@ -172,48 +205,83 @@ def check_flash(ops, gen, flush) -> list:
             library_ms = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, attn_mask=allow), 50, flush)
-            # work this mask needs: row i attends keys j <= i with j valid
-            keys = mask[0].cumsum(0).float()
-            pairs = HEADS * float(keys.sum())
-            flops = 4.0 * HEAD_DIM * pairs
+            flops = 4.0 * HEAD_DIM * HEADS * allowed_pairs(1, L, mask, True)
             esize = q.element_size()
             n_bytes = (4 * L * HEADS * HEAD_DIM * esize  # q, k, v, o
                        + 4 * L + 4 * HEADS * L)          # mask, lse
             b_ms, b_by = bound_ms(n_bytes, flops, dtype)
             cases.append({
-                "L": L, "prompt_len": plen, "dtype": str(dtype)[6:],
-                "max_abs_err": err, "atol": atol, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": library_ms,
+                "L": L, "D": HEAD_DIM, "causal": True, "masked": True,
+                "prompt_len": plen,
+                "dtype": str(dtype)[6:], "max_abs_err": err, "atol": atol,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             })
-    # the training path's shape: B=8, L=1024, bf16, causal, no key mask
-    B, L = TRAIN_BATCH, TRAIN_LEN
-    q, k, v = (torch.randn(B, HEADS, L, HEAD_DIM, generator=gen,
+    for case in FWD_BF16_CASES:
+        cases.append(flash_fwd_bf16_case(ops, gen, flush, *case))
+    return cases
+
+
+# bf16 forward cases at B=8, H=12 (L, D, causal, masked): the training
+# path's shape first, then the tensor-core kernel's other paths (L=1000 is
+# not a multiple of any tile)
+FWD_BF16_CASES = ((TRAIN_LEN, HEAD_DIM, True, False),
+                  (TRAIN_LEN, 128, True, False),
+                  (1000, HEAD_DIM, True, False),
+                  (TRAIN_LEN, HEAD_DIM, False, False),
+                  (TRAIN_LEN, 128, True, True))
+
+
+def flash_fwd_bf16_case(ops, gen, flush, L, D, causal, masked) -> dict:
+    """The bf16 forward at B=8, H=12, L, D against its plain version,
+    timed beside SDPA; ``masked`` applies ``padding_mask``, whose fully
+    masked rows must give O == 0 and LSE == -1e30."""
+    dev = torch.device("cuda")
+    B = TRAIN_BATCH
+    q, k, v = (torch.randn(B, HEADS, L, D, generator=gen,
                            device=dev).to(torch.bfloat16) for _ in range(3))
-    out, lse = ops.flash_attention(q, k, v, None, causal=True,
+    mask = padding_mask(B, L, dev) if masked else None
+    out, lse = ops.flash_attention(q, k, v, mask, causal=causal,
                                    return_lse=True)
-    ref_out, ref_lse = ops.flash_attention_plain(q, k, v, None, True)
+    ref_out, ref_lse = ops.flash_attention_plain(q, k, v, mask, causal)
     torch.cuda.synchronize()
     err = max(max_err(out, ref_out), max_err(lse, ref_lse))
+    name = f"flash_fwd L={L} D={D} causal={causal} masked={masked} bf16"
     if not (torch.isfinite(out).all() and err <= ops.FWD_ATOL_BF16):
-        raise AssertionError(f"flash_fwd training shape: max |kernel - "
-                             f"plain| {err} > {ops.FWD_ATOL_BF16}")
-    pairs = float(B * HEADS * L * (L + 1) // 2)
-    b_ms, b_by = bound_ms(4 * q.numel() * q.element_size() + 4 * B * HEADS * L,
-                          4.0 * HEAD_DIM * pairs, torch.bfloat16)
-    cases.append({
-        "B": B, "L": L, "prompt_len": None, "dtype": "bfloat16",
+        raise AssertionError(f"{name}: max |kernel - plain| {err} > "
+                             f"{ops.FWD_ATOL_BF16}")
+    if masked:
+        dead = [(out[1], lse[1])] + ([(out[0, :, 0], lse[0, :, 0])]
+                                     if causal else [])
+        if not all(bool((o == 0).all()) and bool((s == ops.NEG_INF).all())
+                   for o, s in dead):
+            raise AssertionError(f"{name}: fully masked rows are not O == 0, "
+                                 f"LSE == -1e30")
+    # SDPA takes the causal rule and the key mask as one boolean mask
+    allow = None
+    if masked:
+        allow = mask[:, None, None, :] > 0
+        if causal:
+            allow = allow & torch.tril(torch.ones(L, L, dtype=torch.bool,
+                                                  device=dev))
+    pairs = HEADS * allowed_pairs(B, L, mask, causal)
+    mask_bytes = 0 if mask is None else mask.numel() * 4
+    b_ms, b_by = bound_ms(4 * q.numel() * q.element_size() + 4 * B * HEADS * L
+                          + mask_bytes, 4.0 * D * pairs, torch.bfloat16)
+    return {
+        "B": B, "L": L, "D": D, "causal": causal, "masked": masked,
+        "prompt_len": None, "dtype": "bfloat16",
         "max_abs_err": err, "atol": ops.FWD_ATOL_BF16,
-        "ms": time_ms(lambda: ops.flash_attention(q, k, v, None, causal=True),
-                      20, flush),
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v, mask,
+                                                  causal=causal), 20, flush),
         "plain_ms": time_ms(lambda: ops.flash_attention_plain(
-            q, k, v, None, True), 5, flush),
+            q, k, v, mask, causal), 5, flush),
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 20, flush),
+                q, k, v, attn_mask=allow, is_causal=causal and not masked),
+            20, flush),
         "bound_ms": b_ms, "bound_by": b_by,
-    })
-    return cases
+    }
 
 
 def decode_inputs(gen, pool_dtype):
@@ -338,7 +406,7 @@ def check_verify(ops, gen, flush) -> list:
     return cases
 
 
-def sdpa_backward_ms(q, k, v, do, flush) -> float:
+def sdpa_backward_ms(q, k, v, do, causal, flush) -> float:
     """SDPA's backward: its forward + backward minus its forward, both
     timed with the L2 flushed (the library yardstick; the port never
     calls it)."""
@@ -346,7 +414,7 @@ def sdpa_backward_ms(q, k, v, do, flush) -> float:
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
 
     def fwd():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
 
     def fwd_bwd():
         fwd().backward(do)
@@ -354,92 +422,103 @@ def sdpa_backward_ms(q, k, v, do, flush) -> float:
     return time_ms(fwd_bwd, 10, flush) - time_ms(fwd, 10, flush)
 
 
+# backward cases at B=8, H=12 (L, dtype, D, causal, masked): the training
+# shapes in fp32 and bf16, padding masks with fully masked rows, and the
+# bf16 dK/dV tensor-core kernel's other paths
+BF16 = torch.bfloat16
+BWD_CASES = ((512, torch.float32, HEAD_DIM, True, False),
+             (512, BF16, HEAD_DIM, True, False),
+             (TRAIN_LEN, torch.float32, HEAD_DIM, True, False),
+             (TRAIN_LEN, BF16, HEAD_DIM, True, False),
+             (512, torch.float32, HEAD_DIM, True, True),
+             (512, BF16, HEAD_DIM, True, True),
+             (TRAIN_LEN, BF16, 128, True, False),
+             (1000, BF16, HEAD_DIM, True, False),
+             (TRAIN_LEN, BF16, HEAD_DIM, False, False),
+             (512, BF16, 128, True, True))
+
+
 def check_flash_bwd(ops, gen, flush) -> list:
-    """The dQ and dK/dV kernels against ``flash_attention_bwd_plain`` at
-    the training shapes: B=8, H=12, D=64, causal, L in {512, 1024}, fp32
-    and bf16; plus L=512 fp32 with padding keys and fully masked query
-    rows (batch 0 masks key 0, so its row 0 sees no key; batch 1 masks
-    every key)."""
+    """The dQ and dK/dV kernels against ``flash_attention_bwd_plain`` on
+    ``BWD_CASES``. bf16 dK/dV runs the tensor-core kernel; fp32 dK/dV and
+    dQ the scalar ones."""
+    return [flash_bwd_case(ops, gen, flush, *case) for case in BWD_CASES]
+
+
+def flash_bwd_case(ops, gen, flush, L, dtype, D, causal, masked) -> dict:
+    """One backward case: dQ and dK/dV within FP32_ATOL (fp32) or
+    BWD_RTOL_BF16 of the largest gradient element (bf16), bf16 dK and dV
+    also within BWD_ROW_RTOL_BF16 row by row; under ``padding_mask`` the
+    fully masked query rows get zero dQ and the masked keys zero dK, dV.
+    Timed beside the plain version and SDPA's backward."""
     dev = torch.device("cuda")
     B = TRAIN_BATCH
-    cases = []
-    for L, dtype, masked in ((512, torch.float32, False),
-                             (512, torch.bfloat16, False),
-                             (1024, torch.float32, False),
-                             (1024, torch.bfloat16, False),
-                             (512, torch.float32, True)):
-        q, k, v, do = (torch.randn(B, HEADS, L, HEAD_DIM, generator=gen,
-                                   device=dev).to(dtype) for _ in range(4))
-        mask = None
-        if masked:
-            mask = torch.ones(B, L, dtype=torch.int32, device=dev)
-            mask[0, 0] = 0
-            mask[0, L - 37:] = 0
-            mask[1] = 0
-        out, lse = ops.flash_attention(q, k, v, mask, causal=True,
-                                       return_lse=True)
-        delta = (do.float() * out.float()).sum(-1)
-        dq = ops.flash_bwd_dq(q, k, v, mask, do, lse, delta, True)
-        dk, dv = ops.flash_bwd_dkv(q, k, v, mask, do, lse, delta, True)
-        ref = ops.flash_attention_bwd_plain(q, k, v, mask, out, lse, do,
-                                            None, True)
-        torch.cuda.synchronize()
-        errs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
-                                                    (dq, dk, dv), ref)}
-        if dtype == torch.float32:
-            tols = {n: FP32_ATOL for n in errs}
-        else:
-            tols = {n: ops.BWD_RTOL_BF16 * float(r.float().abs().max())
-                    for n, r in zip(errs, ref)}
-        finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
-        if not finite or any(errs[n] > tols[n] for n in errs):
-            raise AssertionError(
-                f"flash_bwd L={L} {dtype} masked={masked}: max |kernel - "
-                f"plain| {errs} over {tols} (finite: {finite})"
-            )
-        if masked and not (bool((dq[1] == 0).all())
-                           and bool((dq[0, :, 0] == 0).all())
-                           and bool((dk[1] == 0).all())
-                           and bool((dv[1] == 0).all())):
-            raise AssertionError("flash_bwd: fully masked rows are not "
-                                 "zero dQ / zero dK, dV")
-        ms_dq = time_ms(lambda: ops.flash_bwd_dq(q, k, v, mask, do, lse,
-                                                 delta, True), 10, flush)
-        ms_dkv = time_ms(lambda: ops.flash_bwd_dkv(q, k, v, mask, do, lse,
-                                                   delta, True), 10, flush)
-        plain_ms = time_ms(lambda: ops.flash_attention_bwd_plain(
-            q, k, v, mask, out, lse, do, None, True), 5, flush)
-        library_ms = (None if masked
-                      else sdpa_backward_ms(q, k, v, do, flush))
-        # work these inputs need: (query, key) pairs that are allowed
-        if mask is None:
-            pairs = float(B * HEADS * L * (L + 1) // 2)
-        else:
-            keys = mask.cumsum(1).float()  # allowed keys of each query row
-            pairs = HEADS * float(keys.sum())
-        esize = q.element_size()
-        tile = B * HEADS * L * HEAD_DIM * esize  # one [B, H, L, D] tensor
-        stats = 2 * B * HEADS * L * 4  # lse, delta
-        mask_bytes = 0 if mask is None else mask.numel() * 4
-        # dq: S, dP, dQ products (2 FLOPs per multiply-add each); reads
-        # q, k, v, dO, lse, delta, writes dQ. dkv: S, dV, dP, dK; writes
-        # dK, dV. The pair: the same plus O (for delta).
-        bq = bound_ms(5 * tile + stats + mask_bytes,
-                      6.0 * HEAD_DIM * pairs, dtype)
-        bkv = bound_ms(6 * tile + stats + mask_bytes,
-                       8.0 * HEAD_DIM * pairs, dtype)
-        bpair = bound_ms(8 * tile + stats + mask_bytes,
-                         14.0 * HEAD_DIM * pairs, dtype)
-        cases.append({
-            "B": B, "L": L, "dtype": str(dtype)[6:], "masked": masked,
-            "max_abs_err": errs, "tol": tols,
-            "dq_ms": ms_dq, "dkv_ms": ms_dkv, "pair_ms": ms_dq + ms_dkv,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "dq_bound_ms": bq[0], "dq_bound_by": bq[1],
-            "dkv_bound_ms": bkv[0], "dkv_bound_by": bkv[1],
-            "pair_bound_ms": bpair[0], "pair_bound_by": bpair[1],
-        })
-    return cases
+    q, k, v, do = (torch.randn(B, HEADS, L, D, generator=gen,
+                               device=dev).to(dtype) for _ in range(4))
+    mask = padding_mask(B, L, dev) if masked else None
+    out, lse = ops.flash_attention(q, k, v, mask, causal=causal,
+                                   return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = ops.flash_bwd_dq(q, k, v, mask, do, lse, delta, causal)
+    dk, dv = ops.flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal)
+    ref = ops.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, None,
+                                        causal)
+    torch.cuda.synchronize()
+    name = f"flash_bwd L={L} D={D} {dtype} causal={causal} masked={masked}"
+    errs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                (dq, dk, dv), ref)}
+    row_errs = None
+    if dtype == torch.float32:
+        tols = {n: FP32_ATOL for n in errs}
+    else:
+        tols = {n: ops.BWD_RTOL_BF16 * float(r.float().abs().max())
+                for n, r in zip(errs, ref)}
+        row_errs = {"dk": row_rel_err(dk, ref[1]),
+                    "dv": row_rel_err(dv, ref[2])}
+    finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+    if not finite or any(errs[n] > tols[n] for n in errs):
+        raise AssertionError(f"{name}: max |kernel - plain| {errs} over "
+                             f"{tols} (finite: {finite})")
+    if row_errs and max(row_errs.values()) > ops.BWD_ROW_RTOL_BF16:
+        raise AssertionError(f"{name}: a key row's |kernel - plain| over "
+                             f"|plain| is {row_errs} > "
+                             f"{ops.BWD_ROW_RTOL_BF16}")
+    if masked and not (bool((dq[1] == 0).all())
+                       and (not causal or bool((dq[0, :, 0] == 0).all()))
+                       and bool((dk[1] == 0).all())
+                       and bool((dv[1] == 0).all())
+                       and bool((dk[0, :, L - 37:] == 0).all())
+                       and bool((dv[0, :, L - 37:] == 0).all())):
+        raise AssertionError(f"{name}: fully masked rows are not zero dQ / "
+                             f"zero dK, dV")
+    ms_dq = time_ms(lambda: ops.flash_bwd_dq(q, k, v, mask, do, lse, delta,
+                                             causal), 10, flush)
+    ms_dkv = time_ms(lambda: ops.flash_bwd_dkv(q, k, v, mask, do, lse, delta,
+                                               causal), 10, flush)
+    plain_ms = time_ms(lambda: ops.flash_attention_bwd_plain(
+        q, k, v, mask, out, lse, do, None, causal), 5, flush)
+    library_ms = (None if masked
+                  else sdpa_backward_ms(q, k, v, do, causal, flush))
+    pairs = HEADS * allowed_pairs(B, L, mask, causal)
+    tile = B * HEADS * L * D * q.element_size()  # one [B, H, L, D] tensor
+    stats = 2 * B * HEADS * L * 4  # lse, delta
+    mask_bytes = 0 if mask is None else mask.numel() * 4
+    # dq: S, dP, dQ products (2 FLOPs per multiply-add each); reads q, k,
+    # v, dO, lse, delta, writes dQ. dkv: S, dV, dP, dK; writes dK, dV. The
+    # pair: the same plus O (for delta).
+    bq = bound_ms(5 * tile + stats + mask_bytes, 6.0 * D * pairs, dtype)
+    bkv = bound_ms(6 * tile + stats + mask_bytes, 8.0 * D * pairs, dtype)
+    bpair = bound_ms(8 * tile + stats + mask_bytes, 14.0 * D * pairs, dtype)
+    return {
+        "B": B, "L": L, "D": D, "dtype": str(dtype)[6:], "causal": causal,
+        "masked": masked, "max_abs_err": errs, "tol": tols,
+        "row_rel_err": row_errs,
+        "dq_ms": ms_dq, "dkv_ms": ms_dkv, "pair_ms": ms_dq + ms_dkv,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "dq_bound_ms": bq[0], "dq_bound_by": bq[1],
+        "dkv_bound_ms": bkv[0], "dkv_bound_by": bkv[1],
+        "pair_bound_ms": bpair[0], "pair_bound_by": bpair[1],
+    }
 
 
 # --------------------------------------------------------------------------- #
@@ -1043,10 +1122,13 @@ def main() -> int:
             "library_ms": c["library_ms"],
         }
 
-    flash_main = next(c for c in flash if c["L"] == TRAIN_LEN)
-    # the training path's shape: L=1024, bf16
+    # the training path's shape: L=1024, D=64, bf16
+    flash_main = next(c for c in flash if c["L"] == TRAIN_LEN
+                      and c["D"] == HEAD_DIM and c["causal"]
+                      and not c["masked"])
     bwd_main = next(c for c in flash_bwd if c["L"] == TRAIN_LEN
-                    and c["dtype"] == "bfloat16" and not c["masked"])
+                    and c["D"] == HEAD_DIM and c["dtype"] == "bfloat16"
+                    and c["causal"] and not c["masked"])
     emit({"kernels": [
         row("flash_fwd", "flash_fwd", "stoke_tpu/ops/flash_attention.py:70",
             trained["launches"]["flash_fwd"],

@@ -1,0 +1,44 @@
+"""Probe of the bf16 tensor-core flash kernels on a CUDA card.
+
+Run from the root of a checkout: ``python3 scripts/port_probe_flash_tc.py``.
+Builds ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, prints ptxas's
+registers and spills, then runs only the bf16 cases of ``chip_smoke.py``'s
+kernels phase (``FWD_BF16_CASES`` and the bf16 ``BWD_CASES``): each held
+against its plain version at the same tolerances and timed beside SDPA.
+Exits nonzero at the first case out of tolerance.
+"""
+import json
+import sys
+
+import torch
+
+sys.path.insert(0, ".")
+import chip_smoke as cs  # noqa: E402
+from stoke_tpu_torch import ops  # noqa: E402
+from stoke_tpu_torch.ops import _build  # noqa: E402
+
+
+def main() -> int:
+    seconds = _build.build(["flash_fwd", "flash_bwd"])
+    print(json.dumps({"build": seconds}), flush=True)
+    for n in ("flash_fwd", "flash_bwd"):
+        log = _build.build_log(n) or ""
+        print(json.dumps({n: [ln.strip()[:160] for ln in log.splitlines()
+                              if "Function properties" in ln
+                              or "registers" in ln or "spill" in ln]}),
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    for case in cs.FWD_BF16_CASES:
+        print(json.dumps(cs.flash_fwd_bf16_case(ops, gen, flush, *case)),
+              flush=True)
+    for L, dtype, D, causal, masked in cs.BWD_CASES:
+        if dtype == torch.bfloat16:
+            print(json.dumps(cs.flash_bwd_case(ops, gen, flush, L, dtype, D,
+                                               causal, masked)), flush=True)
+    print(cs.nvidia_smi_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

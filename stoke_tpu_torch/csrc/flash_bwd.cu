@@ -13,35 +13,52 @@
 //   dkv kernel: dV = sum over q tiles of p^T dO, dK = scale * sum of ds^T Q,
 // writing dQ, dK and dV in the input dtype. A fully masked query row has
 // LSE = kNegInf and no allowed key, so its p is 0 everywhere: it gets a
-// zero dQ row and adds nothing to dK or dV.
+// zero dQ row and adds nothing to dK or dV; a masked key row gets zero dK
+// and dV.
 //
 // What bounds it on the H100: at the training shapes (B=8, H=12, L=1024,
 // D=64, causal) the pair does 7*L*L*D FLOPs per head (14*L*L*D without the
 // causal half) against ~10*L*D elements moved, so it is bound by
-// operations; neither the score matrix nor P leaves the SM. Like
-// flash_fwd.cu, this first version runs its products as scalar fp32 FMAs
-// out of shared memory (no wgmma, no TMA), far below the tensor-core roof;
-// making it fast is later work.
+// operations, and only the tensor cores' 989 TFLOP/s bf16 come near that
+// bound; neither the score matrix nor P leaves the SM.
 //
-// Design. On the TPU, the dq kernel's k tiles and the dkv kernel's q tiles
-// are sequential grid axes whose VMEM scratch accumulators carry across
-// grid steps. Here blocks run in parallel in no order, so each block owns
-// one output tile and walks the other axis in a loop of its own:
-//   * dq: one block per (b*h, 64-row q tile). Its Q and dO rows, LSE and
-//     delta stay resident while K and V tiles stream through, stopping at
-//     the diagonal under causal;
-//   * dkv: one block per (b*h, 64-row k tile). Its K and V rows and key-mask
-//     bits stay resident while Q, dO, LSE and delta tiles stream through,
-//     starting at the diagonal under causal. Each block owns its k rows, so
-//     nothing is summed across blocks and no atomics are needed;
-//   * 4 adjacent threads share one row of the owned tile: each computes 16
-//     of a tile's 64 scores and owns D/4 output dims in registers. ds (and
-//     p, for dV) goes through shared memory between the two products and is
-//     read back by the same 4 lanes, so one __syncwarp orders them;
-//   * tiles are staged as fp32 with rows padded by one float, so the 8 rows
-//     a warp reads at once fall in distinct banks; the ragged edge (L not a
-//     multiple of 64) is masked here.
+// Dispatch by dtype: bfloat16 dK/dV runs the tensor-core kernel
+// (flash_bwd_dkv_wgmma_kernel, below). float32 dK/dV and the dQ kernel of
+// both dtypes keep the scalar design of the first port: each block owns
+// one 64-row output tile and walks the other axis in a loop, 4 adjacent
+// threads per owned row, products as fp32 FMAs over shared-memory tiles
+// staged as fp32 (rows padded by one float against bank conflicts); ds
+// (and p, for dV) goes through shared memory between the two products.
+//
+// The bf16 dK/dV kernel (FlashAttention-3's dK/dV half, without dQ). On the
+// TPU the q tiles are a sequential grid axis whose VMEM accumulators carry
+// across grid steps; here each CTA owns 64 k rows of one head, so nothing
+// is summed across CTAs and no atomics are needed:
+//   * a CTA is one consumer warpgroup and one producer warp. The producer
+//     loads the CTA's K and V tiles once by TMA (they stay resident), then
+//     streams Q and dO tiles of BQ rows (64 at D=64, 32 at D=128, which
+//     keeps the four accumulators in registers) through a 2-stage ring of
+//     128-byte-swizzled shared memory under "full"/"empty" mbarriers; its
+//     lanes copy each tile's 64 LSE (in log2 units) and delta values beside
+//     it. Under causal the walk starts at the diagonal q tile;
+//   * per q tile, by wgmma with fp32 accumulators in registers:
+//       S^T  = K Q^T           (K and Q K-major from shared memory),
+//       dP^T = V dO^T          (V and dO K-major),
+//       P^T  = exp2(S^T scale log2e - lse log2e) where allowed, else 0
+//              (key mask, range and causal rule tested before the
+//              exponential),
+//       dS^T = P^T (dP^T - delta),
+//       dV  += P^T dO          (P^T as bf16 register A, dO MN-major),
+//       dK  += dS^T Q          (dS^T as bf16 register A, Q MN-major);
+//     dK is scaled once at the end;
+//   * P^T and dS^T are rounded to bf16 for the last two products, which the
+//     TPU kernel (fp32 operands) does not do. Each rounding is at most 2^-9
+//     relative per element, and both products sum >= 64 such terms in fp32,
+//     so dK and dV move by ~0.1% of their largest element, far inside the
+//     bf16 contract BWD_RTOL_BF16 = 5% (shown on the CPU by
+//     tests/test_torch_flash_tc_numerics.py against the JAX kernels).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -169,14 +186,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         const int* __restrict__ mask, T* __restrict__ dk,
-                         T* __restrict__ dv, int H, int L, float scale,
+                         const int* __restrict__ mask, float* __restrict__ dk,
+                         float* __restrict__ dv, int H, int L, float scale,
                          int causal) {
   constexpr int S = D + 1;
   constexpr int DPT = D / kLanes;
@@ -202,8 +221,8 @@ __global__ void __launch_bounds__(kThreads)
   const bool kok = kpos < L && (mask == nullptr ||
                                 mask[static_cast<size_t>(b) * L + kpos] > 0);
 
-  load_tile<T, D>(ks, k, base, k0, L);
-  load_tile<T, D>(vs, v, base, k0, L);
+  load_tile<float, D>(ks, k, base, k0, L);
+  load_tile<float, D>(vs, v, base, k0, L);
 
   float dk_acc[DPT], dv_acc[DPT];
 #pragma unroll
@@ -215,8 +234,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = first; qt < n_tiles; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(qs, q, base, q0, L);
-    load_tile<T, D>(dos, dout, base, q0, L);
+    load_tile<float, D>(qs, q, base, q0, L);
+    load_tile<float, D>(dos, dout, base, q0, L);
     if (tid < kTile) {
       const int qr = q0 + tid;
       const size_t stat = static_cast<size_t>(bh) * L + qr;
@@ -257,8 +276,8 @@ __global__ void __launch_bounds__(kThreads)
     const size_t out = base + static_cast<size_t>(kpos) * D;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
-      dk[out + sub + i * kLanes] = from_float<T>(dk_acc[i] * scale);
-      dv[out + sub + i * kLanes] = from_float<T>(dv_acc[i]);
+      dk[out + sub + i * kLanes] = dk_acc[i] * scale;
+      dv[out + sub + i * kLanes] = dv_acc[i];
     }
   }
 }
@@ -281,23 +300,251 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const int* mask, void* dk, void* dv, int BH, int H,
                        int L, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((L + kTile - 1) / kTile, BH);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, L, scale, causal);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, mask, static_cast<float*>(dk), static_cast<float*>(dv), H, L,
+      scale, causal);
   return cudaGetLastError();
 }
+
+// --------------------------------------------------------------------------
+// bf16 dK/dV: warpgroup MMA over TMA-loaded tiles
+
+namespace tc {
+
+using namespace stoke::hopper;
+using stoke::kNegInf;
+
+constexpr int kRows = 64;        // k rows of a CTA: one consumer warpgroup
+constexpr int kConsumers = 128;  // the warpgroup
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kStages = 2;
+
+template <int D>
+struct Cfg {
+  static constexpr int BQ = D == 64 ? 64 : 32;  // q rows of a streamed tile
+  static constexpr int kPanels = D / 64;        // 64-column panels of a row
+  static constexpr int kKBytes = kRows * D * 2;  // the K or the V tile
+  static constexpr int kQBytes = BQ * D * 2;     // one Q or dO tile
+  // K | V | Q0 | dO0 | Q1 | dO1 | stats [kStages][2][BQ] | barriers
+  static constexpr int kStageOff = 2 * kKBytes;
+  static constexpr int kStatsOff = kStageOff + 2 * kStages * kQBytes;
+  static constexpr int kBarsOff = kStatsOff + kStages * 2 * BQ * 4;
+  static constexpr size_t kSmem = 1024 + kBarsOff + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap domap,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const int* __restrict__ mask,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int H, int L,
+                               float scale, int causal) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint8_t* ks = sm;
+  uint8_t* vs = sm + C::kKBytes;
+  float* stats = reinterpret_cast<float*>(sm + C::kStatsOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::kBarsOff);
+  uint64_t* kvbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;
+  const int first = causal ? k0 / BQ : 0;  // start at the diagonal
+  const int n_tiles = (L + BQ - 1) / BQ - first;
+  const size_t head = static_cast<size_t>(bh) * L;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warp: TMA for K and V once, then Q and dO tiles into the ring
+    const int lane = tid - kConsumers;
+    if (lane == 0) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      tma_prefetch_map(&domap);
+      mbar_arrive_tx(kvbar, 2 * C::kKBytes);
+      for (int p = 0; p < C::kPanels; ++p) {
+        tma_load_3d(ks + p * kRows * 128, &kmap, kvbar, p * 64, k0, bh);
+        tma_load_3d(vs + p * kRows * 128, &vmap, kvbar, p * 64, k0, bh);
+      }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int q0 = (first + t) * BQ;
+      mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      uint8_t* qs = sm + C::kStageOff + 2 * s * C::kQBytes;
+      uint8_t* dos = qs + C::kQBytes;
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * C::kQBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          tma_load_3d(qs + p * BQ * 128, &qmap, &full[s], p * 64, q0, bh);
+          tma_load_3d(dos + p * BQ * 128, &domap, &full[s], p * 64, q0, bh);
+        }
+      }
+      float* st = stats + s * 2 * BQ;
+      for (int j = lane; j < BQ; j += 32) {
+        const int qr = q0 + j;
+        st[j] = qr < L ? lse[head + qr] * kLog2e : 0.f;
+        st[BQ + j] = qr < L ? delta[head + qr] : 0.f;
+      }
+      mbar_arrive(&full[s]);
+    }
+  } else {
+    // consumer warpgroup: k rows r0 and r0 + 8 of the tile, per thread
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = warp * 16 + lane / 4;
+    const int cq = 2 * (lane % 4);
+    const int kpos[2] = {k0 + r0, k0 + r0 + 8};
+    bool kok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      kok[h] = kpos[h] < L &&
+               (mask == nullptr ||
+                mask[static_cast<size_t>(bh / H) * L + kpos[h]] > 0);
+    const float scale_log2 = scale * kLog2e;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int q0 = (first + t) * BQ;
+      const uint8_t* qs = sm + C::kStageOff + 2 * s * C::kQBytes;
+      const uint8_t* dos = qs + C::kQBytes;
+      const float* st = stats + s * 2 * BQ;
+      mbar_wait(&full[s], (t / kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T, two groups in flight
+      float sc[BQ / 2], dp[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 4) * 32;
+        wgmma_ss(sc, smem_desc(ks + (kk / 4) * kRows * 128 + off, 16, 1024),
+                 smem_desc(qs + (kk / 4) * BQ * 128 + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 4) * 32;
+        wgmma_ss(dp, smem_desc(vs + (kk / 4) * kRows * 128 + off, 16, 1024),
+                 smem_desc(dos + (kk / 4) * BQ * 128 + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        const int col = 8 * (i / 4) + cq + (i & 1);
+        const int qr = q0 + col;
+        const bool ok = kok[h] && qr < L && (!causal || qr >= kpos[h]);
+        sc[i] = ok ? exp2f(sc[i] * scale_log2 - st[col]) : 0.f;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int col = 8 * (i / 4) + cq + (i & 1);
+        dp[i] = sc[i] * (dp[i] - st[BQ + col]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q, both left operands as bf16 registers
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        to_a_frag(sc, kk, pa[kk]);
+        to_a_frag(dp, kk, dsa[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(dv_acc, pa[kk], smem_desc(dos + kk * 2048, BQ * 128, 1024),
+                 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(dk_acc, dsa[kk], smem_desc(qs + kk * 2048, BQ * 128, 1024),
+                 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (kpos[h] >= L) continue;
+      const size_t out = (head + kpos[h]) * D;
+#pragma unroll
+      for (int i = 2 * h; i < D / 2; i += 4) {
+        const int col = 8 * (i / 4) + cq;
+        *reinterpret_cast<uint32_t*>(dk + out + col) =
+            pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + out + col) =
+            pack_bf16(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, const int* mask,
+               void* dk, void* dv, int BH, int H, int L, float scale,
+               int causal, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap qm, km, vm, dom;
+  if (!make_map(&qm, q, BH, L, D, C::BQ) || !make_map(&km, k, BH, L, D, kRows) ||
+      !make_map(&vm, v, BH, L, D, kRows) ||
+      !make_map(&dom, dout, BH, L, D, C::BQ))
+    return kErrTensorMap;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(BH, (L + kRows - 1) / kRows);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+      qm, km, vm, dom, lse, delta, mask, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, L, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -305,8 +552,11 @@ extern "C" {
 
 // q, k, v, dout, dq, dk, dv: [BH, L, D] contiguous, dtype 0 = float32,
 // 1 = bfloat16; lse, delta: [BH, L] float32; mask: [B, L] int32 or null.
-// Each returns the CUDA error of its launch (0 on success), or -1 for a
-// dtype or head dim it does not take.
+// Each returns the CUDA error of its launch (0 on success), -1 for a dtype
+// or head dim it does not take, or -2 if a TMA tensor map cannot be made.
+// dK/dV in bfloat16 launches the tensor-core kernel
+// (flash_bwd_dkv_wgmma_kernel); float32 dK/dV and dQ in both dtypes launch
+// the scalar kernels.
 int stoke_flash_bwd_dq(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const int* mask, void* dq, int BH, int H, int L, int D,
@@ -324,7 +574,7 @@ int stoke_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 128)
     return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, mask, dq,
                                          BH, H, L, scale, causal, s);
-  return -1;
+  return stoke::hopper::kErrUnsupported;
 }
 
 int stoke_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -334,23 +584,22 @@ int stoke_flash_bwd_dkv(const void* q, const void* k, const void* v,
                         float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
-                                 H, L, scale, causal, s);
+    return launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, L,
+                           scale, causal, s);
   if (dtype == 0 && D == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
-                                  H, L, scale, causal, s);
+    return launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, L,
+                            scale, causal, s);
   if (dtype == 1 && D == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, mask, dk,
-                                         dv, BH, H, L, scale, causal, s);
+    return tc::launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H,
+                              L, scale, causal, s);
   if (dtype == 1 && D == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, mask, dk,
-                                          dv, BH, H, L, scale, causal, s);
-  return -1;
+    return tc::launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H,
+                               L, scale, causal, s);
+  return stoke::hopper::kErrUnsupported;
 }
 
 const char* stoke_flash_bwd_error(int code) {
-  return code < 0 ? "unsupported dtype or head dim"
-                  : cudaGetErrorString(static_cast<cudaError_t>(code));
+  return stoke::hopper::error_string(code);
 }
 
 }  // extern "C"

@@ -1,0 +1,219 @@
+"""The bf16 tolerances admit the tensor-core kernels' rounding.
+
+The bf16 flash forward and dK/dV kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``) feed their second products from registers as bf16:
+the forward rounds P before ``P V``, the dK/dV kernel rounds P^T before
+``P^T dO`` and dS^T before ``dS^T Q``. The JAX kernels multiply fp32 P and
+dS. This file emulates that rounding on the CPU, beside the plain versions
+(the forward tile by tile, as the kernel walks 128-key tiles with an online
+softmax), and holds the emulation against the JAX package's
+``flash_attention`` and its ``jax.grad`` (Pallas in interpret mode off the
+TPU) on the same numpy inputs, at the port's bf16 contract, unchanged:
+``FWD_ATOL_BF16`` absolute on O and LSE, ``BWD_RTOL_BF16`` of the largest
+gradient element. Fully masked rows must stay exactly zero. The dK/dV
+rounding is also held against the plain version row by row, at
+``BWD_ROW_RTOL_BF16``, the bound that catches a kernel the contract's
+tolerance would pass.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stoke_tpu.ops.flash_attention import flash_attention as jax_flash
+from stoke_tpu_torch.ops import (
+    BWD_ROW_RTOL_BF16,
+    BWD_RTOL_BF16,
+    FWD_ATOL_BF16,
+    NEG_INF,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
+
+pytestmark = pytest.mark.torch_port
+
+B, H, D = 2, 2, 64
+BLOCK_N = 128  # keys per tile of the bf16 forward kernel at D=64
+
+
+def _inputs(L, masked, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.normal(size=(B, H, L, D)).astype(np.float32)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        mask = np.ones((B, L), np.int32)
+        mask[0, L - 7:] = 0  # padding keys
+        mask[0, 0] = 0       # under causal, query row 0 sees no key
+        mask[1, :] = 0       # every row of batch 1 fully masked
+    return q, k, v, do, mask
+
+
+def _scores(q, k, mask, causal):
+    """fp32 ``q k^T / sqrt(D)`` from bf16 inputs, NEG_INF where forbidden."""
+    L = q.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / D**0.5
+    allow = torch.ones(L, L, dtype=torch.bool)
+    if causal:
+        allow = torch.tril(allow)
+    allow = allow[None, None]
+    if mask is not None:
+        allow = allow & (mask[:, None, None, :] > 0)
+    return torch.where(allow, s, torch.full_like(s, NEG_INF))
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def tc_forward(q, k, v, mask, causal):
+    """The bf16 forward kernel's arithmetic: an fp32 online softmax over
+    tiles of BLOCK_N keys, P rounded to bf16 before ``P V``, l summed from
+    the fp32 P. Returns (O in bf16, LSE in fp32)."""
+    s = _scores(q, k, mask, causal)
+    L = q.shape[2]
+    acc = torch.zeros(B, H, L, D)
+    m = torch.full((B, H, L), NEG_INF)
+    l = torch.zeros(B, H, L)
+    for k0 in range(0, L, BLOCK_N):
+        st = s[..., k0:k0 + BLOCK_N]
+        m_new = torch.maximum(m, st.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(st > 0.5 * NEG_INF, torch.exp(st - m_new[..., None]),
+                        torch.zeros_like(st))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", _bf16(p), v[..., k0:k0 + BLOCK_N, :].float())
+        m = m_new
+    safe_l = torch.where(l > 0, l, torch.ones_like(l))
+    out = acc / safe_l[..., None]
+    lse = torch.where(l > 0, m + torch.log(safe_l), torch.full_like(l, NEG_INF))
+    return out.to(torch.bfloat16), lse
+
+
+def tc_backward(q, k, v, mask, out, lse, do, causal):
+    """The bf16 backward's arithmetic: dK/dV as the tensor-core kernel
+    computes them (P^T and dS^T rounded to bf16 for their products), dQ as
+    the scalar kernel does (fp32 dS). Returns (dq, dk, dv) in fp32."""
+    scale = 1.0 / D**0.5
+    s = _scores(q, k, mask, causal)
+    p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    delta = (do.float() * out.float()).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", _bf16(ds), q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", _bf16(p), do.float())
+    return [_bf16(g) for g in (dq, dk, dv)]
+
+
+def _torch_bf16(*arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+
+
+def _jax_forward(q, k, v, mask, causal):
+    j = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    jm = None if mask is None else jnp.asarray(mask)
+    out, lse = jax_flash(*j, jm, causal=causal, return_lse=True)
+    return np.asarray(out.astype(jnp.float32)), np.asarray(lse)
+
+
+def _jax_grads(q, k, v, do, mask, causal):
+    jm = None if mask is None else jnp.asarray(mask)
+    g_out = jnp.asarray(do).astype(jnp.bfloat16).astype(jnp.float32)
+
+    def f(q, k, v):
+        q, k, v = (a.astype(jnp.bfloat16) for a in (q, k, v))
+        out = jax_flash(q, k, v, jm, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * g_out)
+
+    grads = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(g) for g in grads]
+
+
+def _dead_rows(L, mask, causal):
+    """[B, L] query rows with no key to attend."""
+    allow = np.ones((L, L), bool)
+    if causal:
+        allow = np.tril(allow)
+    allow = np.broadcast_to(allow, (B, L, L))
+    if mask is not None:
+        allow = allow & (mask[:, None, :] > 0)
+    return ~allow.any(-1)
+
+
+@pytest.mark.parametrize("L", [64, 300])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_forward_rounding_within_fwd_atol(L, masked, causal):
+    q, k, v, _, mask = _inputs(L, masked, seed=L + 2 * masked + causal)
+    tq, tk, tv = _torch_bf16(q, k, v)
+    tm = None if mask is None else torch.from_numpy(mask)
+    out, lse = tc_forward(tq, tk, tv, tm, causal)
+    j_out, j_lse = _jax_forward(q, k, v, mask, causal)
+    assert np.abs(out.float().numpy() - j_out).max() <= FWD_ATOL_BF16
+    assert np.abs(lse.numpy() - j_lse).max() <= FWD_ATOL_BF16
+
+    # the rounding is real: P in bf16 moves O off the plain version's
+    plain_out, _ = flash_attention_plain(tq, tk, tv, tm, causal)
+    assert not torch.equal(out, plain_out)
+
+    dead = np.broadcast_to(_dead_rows(L, mask, causal)[:, None], (B, H, L))
+    assert dead.any() == masked
+    assert (out.float().numpy()[dead] == 0).all()
+    assert (lse.numpy()[dead] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("L", [64, 300])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_backward_rounding_within_bwd_rtol(L, masked, causal):
+    q, k, v, do, mask = _inputs(L, masked, seed=10 + L + 2 * masked + causal)
+    tq, tk, tv, tdo = _torch_bf16(q, k, v, do)
+    tm = None if mask is None else torch.from_numpy(mask)
+    out, lse = tc_forward(tq, tk, tv, tm, causal)
+    ours = tc_backward(tq, tk, tv, tm, out, lse, tdo, causal)
+    theirs = _jax_grads(q, k, v, do, mask, causal)
+    for a, b in zip(ours, theirs):
+        assert np.abs(a.numpy() - b).max() <= BWD_RTOL_BF16 * np.abs(b).max()
+
+    dq, dk, dv = (g.numpy() for g in ours)
+    dead = np.broadcast_to(_dead_rows(L, mask, causal)[:, None], (B, H, L))
+    assert (dq[dead] == 0).all()
+    if masked:
+        # batch 1 attends nothing and its keys are all masked; batch 0's
+        # padding keys get no gradient
+        assert (dk[1] == 0).all() and (dv[1] == 0).all()
+        assert (dk[0, :, L - 7:] == 0).all() and (dv[0, :, L - 7:] == 0).all()
+
+
+def _row_rel_err(a, b):
+    """Largest L2 norm of ``a - b`` over a row (last axis) relative to that
+    row of ``b``; inf where ``b``'s row is zero and ``a``'s is not."""
+    num = (a.float() - b.float()).norm(dim=-1)
+    den = b.float().norm(dim=-1)
+    return float(torch.where(num == 0, 0.0, num / den).max())
+
+
+@pytest.mark.parametrize("L", [64, 300])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_dkv_rounding_within_row_rtol(L, masked, causal):
+    """The bf16 rounding of P^T and dS^T keeps every key row of dK and dV
+    within BWD_ROW_RTOL_BF16 of the plain version's (zero rows exactly
+    zero); a dK/dV that drops the second half of the keys does not pass."""
+    q, k, v, do, mask = _inputs(L, masked, seed=20 + L + 2 * masked + causal)
+    tq, tk, tv, tdo = _torch_bf16(q, k, v, do)
+    tm = None if mask is None else torch.from_numpy(mask)
+    out, lse = flash_attention_plain(tq, tk, tv, tm, causal)
+    _, dk, dv = tc_backward(tq, tk, tv, tm, out, lse, tdo, causal)
+    _, rdk, rdv = flash_attention_bwd_plain(tq, tk, tv, tm, out, lse, tdo,
+                                            None, causal)
+    for ours, plain in ((dk, rdk), (dv, rdv)):
+        assert _row_rel_err(ours, plain) <= BWD_ROW_RTOL_BF16
+        halved = ours.clone()
+        halved[..., L // 2:, :] = 0
+        assert _row_rel_err(halved, plain) > BWD_ROW_RTOL_BF16
