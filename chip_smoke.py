@@ -22,10 +22,11 @@ Phases, one JSON line each; any failure exits nonzero:
    rows; the flash backward's dQ and dK/dV kernels at the training shapes
    (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and bf16), masked cases
    with fully masked rows in fp32 and bf16, and bf16 at D=128, at
-   L=1000, without the causal rule and masked at D=128 (bf16 dK/dV also
-   held row by row: ``BWD_ROW_RTOL_BF16``); and the paged verify kernel
-   at the speculative serve shapes (B=8, H=12, S=5, D=64, fp32 and bf16
-   pools, an idle slot and clamped padding rows).
+   L=1000, without the causal rule and masked at D=128 (bf16 dQ, dK and dV
+   also held row by row: ``bwd_row_err``), timed beside SDPA's backward
+   alone; a bf16 dQ call at an unsupported head dim must raise; and the
+   paged verify kernel at the speculative serve shapes (B=8, H=12, S=5,
+   D=64, fp32 and bf16 pools, an idle slot and clamped padding rows).
 4. serve: GPT-base at full width (seeded random weights, fp32) behind
    ``ServingEngine`` with the flash prefill and paged-decode kernels;
    16 requests submitted in three waves; launch counts checked against
@@ -45,9 +46,10 @@ Phases, one JSON line each; any failure exits nonzero:
    norm clipping, B=8, L=1024, on the example corpus through
    ``Stoke.DataLoader``: 2 warm-up and 10 timed ``train_step``s, each of
    the forward and both backward kernels launched 12 times a step; the
-   loss must fall. Then one four-call step at ``grad_accum=2``, with its
-   counters checked. Prints step ms p50, tokens/s, peak memory and the
-   losses.
+   loss must fall; the profiled step must show the tensor-core dQ kernel
+   12 times and the scalar one never. Then one four-call step at
+   ``grad_accum=2``, with its counters checked. Prints step ms p50,
+   tokens/s, peak memory and the losses.
 7. train_parity: the same seeded GPT-base in fp32 at B=2, L=512 for 3
    ``train_step``s through the kernels and through dense attention (no
    kernel); the losses must agree within 1e-3 relative.
@@ -59,6 +61,8 @@ The two lines before the last are the kernels' summary and the card's
 
 from __future__ import annotations
 
+import ctypes
+import importlib
 import json
 import subprocess
 import sys
@@ -123,15 +127,6 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
-
-
-def row_rel_err(a, b) -> float:
-    """Largest L2 norm of ``a - b`` over a row (last axis) relative to
-    the norm of that row of ``b``; inf where ``b``'s row is zero and
-    ``a``'s is not."""
-    num = (a.float() - b.float()).norm(dim=-1)
-    den = b.float().norm(dim=-1)
-    return float(torch.where(num == 0, 0.0, num / den).max())
 
 
 def allowed_pairs(B, L, mask, causal) -> float:
@@ -407,19 +402,25 @@ def check_verify(ops, gen, flush) -> list:
 
 
 def sdpa_backward_ms(q, k, v, do, causal, flush) -> float:
-    """SDPA's backward: its forward + backward minus its forward, both
-    timed with the L2 flushed (the library yardstick; the port never
-    calls it)."""
-    F = torch.nn.functional
+    """SDPA's backward alone, timed with the L2 flushed (the library
+    yardstick; the port never calls it): one forward outside the timer,
+    then ``torch.autograd.grad`` of its output captured in a CUDA graph
+    and replayed, so the events time the library's kernels and not the
+    card waiting for autograd's host work."""
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-
-    def fwd():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-
-    def fwd_bwd():
-        fwd().backward(do)
-
-    return time_ms(fwd_bwd, 10, flush) - time_ms(fwd, 10, flush)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        # the backward runs on its forward's stream: the capture stream
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal)
+        for _ in range(3):
+            torch.autograd.grad(o, (qs, ks, vs), do, retain_graph=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        torch.autograd.grad(o, (qs, ks, vs), do, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    return time_ms(graph.replay, 10, flush)
 
 
 # backward cases at B=8, H=12 (L, dtype, D, causal, masked): the training
@@ -440,17 +441,38 @@ BWD_CASES = ((512, torch.float32, HEAD_DIM, True, False),
 
 def check_flash_bwd(ops, gen, flush) -> list:
     """The dQ and dK/dV kernels against ``flash_attention_bwd_plain`` on
-    ``BWD_CASES``. bf16 dK/dV runs the tensor-core kernel; fp32 dK/dV and
-    dQ the scalar ones."""
-    return [flash_bwd_case(ops, gen, flush, *case) for case in BWD_CASES]
+    ``BWD_CASES``: bf16 runs the tensor-core kernels, fp32 the scalar
+    ones. Then a bf16 dQ call at head dim 96, which no kernel takes: the
+    wrapper must raise and the C entry return ``kErrUnsupported``."""
+    cases = [flash_bwd_case(ops, gen, flush, *case) for case in BWD_CASES]
+    x = torch.zeros(1, 1, 64, 96, dtype=BF16, device="cuda")
+    stats = torch.zeros(1, 1, 64, device="cuda")
+    try:
+        ops.flash_bwd_dq(x, x, x, None, x, stats, stats, True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a bf16 dQ call at head dim 96 did not raise")
+    # the C entry itself refuses the head dim: kErrUnsupported, no fallback
+    fa = importlib.import_module("stoke_tpu_torch.ops.flash_attention")
+    fn, _ = fa._kernel("flash_bwd_dq", [fa._P] * 8 + [fa._I] * 5
+                       + [ctypes.c_float, fa._I, fa._P], source="flash_bwd")
+    rc = fn(*(t.data_ptr() for t in (x, x, x, x, stats, stats)), None,
+            x.data_ptr(), 1, 1, 64, 96, 1, 96 ** -0.5, 1,
+            fa._stream_ptr(x.device))
+    if rc != -1:
+        raise AssertionError(f"stoke_flash_bwd_dq at bf16, head dim 96 "
+                             f"returned {rc}, expected -1 (unsupported)")
+    return cases
 
 
 def flash_bwd_case(ops, gen, flush, L, dtype, D, causal, masked) -> dict:
     """One backward case: dQ and dK/dV within FP32_ATOL (fp32) or
-    BWD_RTOL_BF16 of the largest gradient element (bf16), bf16 dK and dV
-    also within BWD_ROW_RTOL_BF16 row by row; under ``padding_mask`` the
-    fully masked query rows get zero dQ and the masked keys zero dK, dV.
-    Timed beside the plain version and SDPA's backward."""
+    BWD_RTOL_BF16 of the largest gradient element (bf16), bf16 dQ, dK and
+    dV also within BWD_ROW_RTOL_BF16 row by row (``bwd_row_err``); under
+    ``padding_mask`` the fully masked query rows get zero dQ and the
+    masked keys zero dK, dV. Timed beside the plain version and SDPA's
+    backward."""
     dev = torch.device("cuda")
     B = TRAIN_BATCH
     q, k, v, do = (torch.randn(B, HEADS, L, D, generator=gen,
@@ -473,15 +495,15 @@ def flash_bwd_case(ops, gen, flush, L, dtype, D, causal, masked) -> dict:
     else:
         tols = {n: ops.BWD_RTOL_BF16 * float(r.float().abs().max())
                 for n, r in zip(errs, ref)}
-        row_errs = {"dk": row_rel_err(dk, ref[1]),
-                    "dv": row_rel_err(dv, ref[2])}
+        row_errs = {n: ops.bwd_row_err(a, b)
+                    for n, a, b in zip(errs, (dq, dk, dv), ref)}
     finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
     if not finite or any(errs[n] > tols[n] for n in errs):
         raise AssertionError(f"{name}: max |kernel - plain| {errs} over "
                              f"{tols} (finite: {finite})")
     if row_errs and max(row_errs.values()) > ops.BWD_ROW_RTOL_BF16:
-        raise AssertionError(f"{name}: a key row's |kernel - plain| over "
-                             f"|plain| is {row_errs} > "
+        raise AssertionError(f"{name}: a row's |kernel - plain| over "
+                             f"|plain| (floored) is {row_errs} > "
                              f"{ops.BWD_ROW_RTOL_BF16}")
     if masked and not (bool((dq[1] == 0).all())
                        and (not causal or bool((dq[0, :, 0] == 0).all()))
@@ -929,6 +951,8 @@ def profile_step(stoke, batch) -> dict:
         "wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "attention_kernels_ms": attention_ms,
+        "attention_kernels": [{"name": n[:90], "calls": c, "ms": ms}
+                              for ms, n, c in rows if "flash_" in n],
         "kernels": len(rows), "launches": sum(r[2] for r in rows),
         "top": [{"name": n[:90], "calls": c, "ms": ms}
                 for ms, n, c in rows[:12]],
@@ -979,6 +1003,14 @@ def train(ops) -> dict:
     timed = times[WARMUP_STEPS:]
     tokens = TRAIN_BATCH * TRAIN_LEN
     profile = profile_step(stoke, corpus[:TRAIN_BATCH])
+    dq_calls = {n: sum(r["calls"] for r in profile.get("attention_kernels", [])
+                       if n in r["name"])
+                for n in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel")}
+    if dq_calls != {"flash_bwd_dq_wgmma_kernel": N_LAYERS,
+                    "flash_bwd_dq_kernel": 0}:
+        raise AssertionError(f"the profiled bf16 step ran dQ kernels "
+                             f"{dq_calls}, expected the tensor-core kernel "
+                             f"{N_LAYERS} times and the scalar one never")
 
     # the four-call loop at grad_accum=2: model -> loss -> backward -> step
     four = stoke_for(model, "bf16", TRAIN_BATCH, grad_accum=2)

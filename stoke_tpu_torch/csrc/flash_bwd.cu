@@ -22,48 +22,62 @@
 // operations, and only the tensor cores' 989 TFLOP/s bf16 come near that
 // bound; neither the score matrix nor P leaves the SM.
 //
-// Dispatch by dtype: bfloat16 dK/dV runs the tensor-core kernel
-// (flash_bwd_dkv_wgmma_kernel, below). float32 dK/dV and the dQ kernel of
-// both dtypes keep the scalar design of the first port: each block owns
-// one 64-row output tile and walks the other axis in a loop, 4 adjacent
-// threads per owned row, products as fp32 FMAs over shared-memory tiles
-// staged as fp32 (rows padded by one float against bank conflicts); ds
-// (and p, for dV) goes through shared memory between the two products.
+// Dispatch by dtype: bfloat16 runs the tensor-core kernels
+// (flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel, below). float32
+// keeps the scalar design of the first port: each block owns one 64-row
+// output tile and walks the other axis in a loop, 4 adjacent threads per
+// owned row, products as fp32 FMAs over shared-memory tiles (rows padded by
+// one float against bank conflicts); ds (and p, for dV) goes through shared
+// memory between the two products.
 //
-// The bf16 dK/dV kernel (FlashAttention-3's dK/dV half, without dQ). On the
-// TPU the q tiles are a sequential grid axis whose VMEM accumulators carry
-// across grid steps; here each CTA owns 64 k rows of one head, so nothing
-// is summed across CTAs and no atomics are needed:
-//   * a CTA is one consumer warpgroup and one producer warp. The producer
-//     loads the CTA's K and V tiles once by TMA (they stay resident), then
-//     streams Q and dO tiles of BQ rows (64 at D=64, 32 at D=128, which
-//     keeps the four accumulators in registers) through a 2-stage ring of
-//     128-byte-swizzled shared memory under "full"/"empty" mbarriers; its
-//     lanes copy each tile's 64 LSE (in log2 units) and delta values beside
-//     it. Under causal the walk starts at the diagonal q tile;
-//   * per q tile, by wgmma with fp32 accumulators in registers:
-//       S^T  = K Q^T           (K and Q K-major from shared memory),
-//       dP^T = V dO^T          (V and dO K-major),
-//       P^T  = exp2(S^T scale log2e - lse log2e) where allowed, else 0
-//              (key mask, range and causal rule tested before the
-//              exponential),
-//       dS^T = P^T (dP^T - delta),
-//       dV  += P^T dO          (P^T as bf16 register A, dO MN-major),
-//       dK  += dS^T Q          (dS^T as bf16 register A, Q MN-major);
-//     dK is scaled once at the end;
-//   * P^T and dS^T are rounded to bf16 for the last two products, which the
-//     TPU kernel (fp32 operands) does not do. Each rounding is at most 2^-9
-//     relative per element, and both products sum >= 64 such terms in fp32,
-//     so dK and dV move by ~0.1% of their largest element, far inside the
-//     bf16 contract BWD_RTOL_BF16 = 5% (shown on the CPU by
-//     tests/test_torch_flash_tc_numerics.py against the JAX kernels).
+// The two bf16 kernels are FlashAttention-3's backward split in two, as
+// the TPU package splits it, without its fp32 dQ atomics. On the TPU the
+// walked axis is a sequential grid axis whose VMEM accumulators carry
+// across grid steps; here each CTA owns 64 rows of the output of one head,
+// so nothing is summed across CTAs, no atomics are needed and the result is
+// deterministic. A CTA is one consumer warpgroup and one producer warp. The
+// producer loads the CTA's own tiles once by TMA (they stay resident), then
+// streams the other axis's tiles through a 2-stage ring of 128-byte-
+// swizzled shared memory under "full"/"empty" mbarriers.
+//
+// dK/dV: K and V resident, Q and dO streamed in tiles of BQ rows (64 at
+// D=64, 32 at D=128, which keeps the four accumulators in registers); the
+// producer's lanes copy each tile's 64 LSE (in log2 units) and delta values
+// beside it. Under causal the walk starts at the diagonal q tile. Per q
+// tile, by wgmma with fp32 accumulators in registers:
+//   S^T  = K Q^T           (K and Q K-major from shared memory),
+//   dP^T = V dO^T          (V and dO K-major),
+//   P^T  = exp2(S^T scale log2e - lse log2e) where allowed, else 0
+//          (key mask, range and causal rule tested before the exponential),
+//   dS^T = P^T (dP^T - delta),
+//   dV  += P^T dO          (P^T as bf16 register A, dO MN-major),
+//   dK  += dS^T Q          (dS^T as bf16 register A, Q MN-major);
+// dK is scaled once at the end.
+//
+// dQ: the same with the roles swapped. Q and dO resident, K and V streamed
+// in tiles of BK rows (64 at D=64, 32 at D=128: S, dP and dQ stay in
+// registers); the producer warp writes a 64-bit word beside each tile, one
+// bit per key (in range and not masked). Each thread keeps its two rows' LSE (log2
+// units) and delta in registers. Under causal the walk ends at the last k
+// tile that touches the diagonal, and the grid runs the q tiles with the
+// longest walks first. Per k tile:
+//   S  = Q K^T, dP = dO V^T  (all operands K-major, both groups in flight),
+//   P  = exp2(S scale log2e - lse log2e) where allowed, else 0,
+//   dS = P (dP - delta),
+//   dQ += dS K               (dS as bf16 register A, K MN-major);
+// dQ is scaled once at the end.
+//
+// P^T, dS^T and dS are rounded to bf16 for the register products, which
+// the TPU kernels (fp32 operands) do not do. Each rounding is at most 2^-9
+// relative per element, and every product sums >= 32 such terms in fp32,
+// so dQ, dK and dV move by ~0.1-0.5% of a row's norm, far inside the bf16
+// contract BWD_RTOL_BF16 = 5% and the row bound BWD_ROW_RTOL_BF16 = 2%
+// (shown on the CPU by tests/test_torch_flash_tc_numerics.py against the
+// JAX kernels).
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-using stoke::from_float;
-using stoke::to_float;
 
 constexpr int kTile = 64;  // rows of a q or k tile
 constexpr int kThreads = 256;
@@ -71,16 +85,17 @@ constexpr int kLanes = kThreads / kTile;  // 4 adjacent threads per owned row
 constexpr int kCols = kTile / kLanes;     // 16 score columns per thread
 constexpr int kSP = kTile + 1;            // padded row stride of a score tile
 
-// Rows [r0, r0 + kTile) of one head's [L, D] slab at `base`, as fp32 into a
+// Rows [r0, r0 + kTile) of one head's [L, D] slab at `base` into a
 // [kTile][D + 1] shared tile; rows past L are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           size_t base, int r0, int L) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int gr = r0 + r;
     dst[r * (D + 1) + c] =
-        gr < L ? to_float(src[base + static_cast<size_t>(gr) * D + c]) : 0.f;
+        gr < L ? src[base + static_cast<size_t>(gr) * D + c] : 0.f;
   }
 }
 
@@ -103,13 +118,15 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kSP + 2 * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        const int* __restrict__ mask, T* __restrict__ dq,
+                        const int* __restrict__ mask, float* __restrict__ dq,
                         int H, int L, float scale, int causal) {
   constexpr int S = D + 1;
   constexpr int DPT = D / kLanes;  // output dims per thread
@@ -135,8 +152,8 @@ __global__ void __launch_bounds__(kThreads)
   const float row_lse = qok ? lse[stat] : 0.f;
   const float row_delta = qok ? delta[stat] : 0.f;
 
-  load_tile<T, D>(qs, q, base, q0, L);
-  load_tile<T, D>(dos, dout, base, q0, L);
+  load_tile<D>(qs, q, base, q0, L);
+  load_tile<D>(dos, dout, base, q0, L);
 
   float acc[DPT];
 #pragma unroll
@@ -148,8 +165,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(ks, k, base, k0, L);
-    load_tile<T, D>(vs, v, base, k0, L);
+    load_tile<D>(ks, k, base, k0, L);
+    load_tile<D>(vs, v, base, k0, L);
     if (tid < kTile) {
       const int kr = k0 + tid;
       kvalid[tid] = kr < L && (mask == nullptr ||
@@ -182,7 +199,7 @@ __global__ void __launch_bounds__(kThreads)
     const size_t out = base + static_cast<size_t>(qpos) * D;
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
-      dq[out + sub + i * kLanes] = from_float<T>(acc[i] * scale);
+      dq[out + sub + i * kLanes] = acc[i] * scale;
   }
 }
 
@@ -221,8 +238,8 @@ __global__ void __launch_bounds__(kThreads)
   const bool kok = kpos < L && (mask == nullptr ||
                                 mask[static_cast<size_t>(b) * L + kpos] > 0);
 
-  load_tile<float, D>(ks, k, base, k0, L);
-  load_tile<float, D>(vs, v, base, k0, L);
+  load_tile<D>(ks, k, base, k0, L);
+  load_tile<D>(vs, v, base, k0, L);
 
   float dk_acc[DPT], dv_acc[DPT];
 #pragma unroll
@@ -234,8 +251,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = first; qt < n_tiles; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<float, D>(qs, q, base, q0, L);
-    load_tile<float, D>(dos, dout, base, q0, L);
+    load_tile<D>(qs, q, base, q0, L);
+    load_tile<D>(dos, dout, base, q0, L);
     if (tid < kTile) {
       const int qr = q0 + tid;
       const size_t stat = static_cast<size_t>(bh) * L + qr;
@@ -282,21 +299,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       const int* mask, void* dq, int BH, int H, int L,
                       float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((L + kTile - 1) / kTile, BH);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
-      static_cast<T*>(dq), H, L, scale, causal);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, mask, static_cast<float*>(dq), H, L, scale, causal);
   return cudaGetLastError();
 }
 
@@ -320,20 +337,229 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // --------------------------------------------------------------------------
-// bf16 dK/dV: warpgroup MMA over TMA-loaded tiles
+// bf16 dQ and dK/dV: warpgroup MMA over TMA-loaded tiles
 
 namespace tc {
 
 using namespace stoke::hopper;
 using stoke::kNegInf;
 
-constexpr int kRows = 64;        // k rows of a CTA: one consumer warpgroup
+constexpr int kRows = 64;        // output rows of a CTA: one consumer warpgroup
 constexpr int kConsumers = 128;  // the warpgroup
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kStages = 2;
 
 template <int D>
-struct Cfg {
+struct DqCfg {
+  static constexpr int BK = D == 64 ? 64 : 32;  // k rows of a streamed tile
+  static constexpr int kPanels = D / 64;        // 64-column panels of a row
+  static constexpr int kQBytes = kRows * D * 2;  // the Q or the dO tile
+  static constexpr int kKBytes = BK * D * 2;     // one K or V tile
+  // Q | dO | K0 | V0 | K1 | V1 | key bits [kStages] | barriers
+  static constexpr int kStageOff = 2 * kQBytes;
+  static constexpr int kBitsOff = kStageOff + 2 * kStages * kKBytes;
+  static constexpr int kBarsOff = kBitsOff + kStages * 8;
+  static constexpr size_t kSmem = 1024 + kBarsOff + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const __grid_constant__ CUtensorMap domap,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const int* __restrict__ mask,
+                              __nv_bfloat16* __restrict__ dq, int H, int L,
+                              float scale, int causal) {
+  using C = DqCfg<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint8_t* qs = sm;
+  uint8_t* dos = sm + C::kQBytes;
+  uint64_t* kbits = reinterpret_cast<uint64_t*>(sm + C::kBitsOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::kBarsOff);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest walks first
+  // under causal, stop at the last k tile that touches the diagonal
+  const int n_tiles = ((causal ? min(L, q0 + kRows) : L) + BK - 1) / BK;
+  const size_t head = static_cast<size_t>(bh) * L;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warp: TMA for Q and dO once, then K and V tiles into the ring
+    const int lane = tid - kConsumers;
+    const int* mrow = mask == nullptr ? nullptr : mask + (bh / H) * L;
+    if (lane == 0) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      tma_prefetch_map(&domap);
+      mbar_arrive_tx(qbar, 2 * C::kQBytes);
+      for (int p = 0; p < C::kPanels; ++p) {
+        tma_load_3d(qs + p * kRows * 128, &qmap, qbar, p * 64, q0, bh);
+        tma_load_3d(dos + p * kRows * 128, &domap, qbar, p * 64, q0, bh);
+      }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int k0 = t * BK;
+      mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      uint8_t* ks = sm + C::kStageOff + 2 * s * C::kKBytes;
+      uint8_t* vs = ks + C::kKBytes;
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * C::kKBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          tma_load_3d(ks + p * BK * 128, &kmap, &full[s], p * 64, k0, bh);
+          tma_load_3d(vs + p * BK * 128, &vmap, &full[s], p * 64, k0, bh);
+        }
+      }
+      // bit j: key k0 + j is in range and not masked
+      uint64_t bits = 0;
+#pragma unroll
+      for (int w = 0; w < BK / 32; ++w) {
+        const int kr = k0 + 32 * w + lane;
+        const bool ok = kr < L && (mrow == nullptr || mrow[kr] > 0);
+        bits |= static_cast<uint64_t>(__ballot_sync(0xffffffffu, ok))
+                << (32 * w);
+      }
+      if (lane == 0) kbits[s] = bits;
+      mbar_arrive(&full[s]);
+    }
+  } else {
+    // consumer warpgroup: q rows r0 and r0 + 8 of the tile, per thread
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = warp * 16 + lane / 4;
+    const int cq = 2 * (lane % 4);
+    const int qpos[2] = {q0 + r0, q0 + r0 + 8};
+    bool qok[2];
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      qok[h] = qpos[h] < L;
+      lse2[h] = qok[h] ? lse[head + qpos[h]] * kLog2e : 0.f;
+      dlt[h] = qok[h] ? delta[head + qpos[h]] : 0.f;
+    }
+    const float scale_log2 = scale * kLog2e;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int k0 = t * BK;
+      const uint8_t* ks = sm + C::kStageOff + 2 * s * C::kKBytes;
+      const uint8_t* vs = ks + C::kKBytes;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      // the key bits as one word, read before the products: per-key flags
+      // read from shared memory after them were this kernel's largest cost
+      // (scripts/port_probe_flash_tc.py --dq-variants times a variant)
+      const uint64_t bits = kbits[s];
+
+      // S = Q K^T and dP = dO V^T, two groups in flight
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 4) * 32;
+        wgmma_ss(sc, smem_desc(qs + (kk / 4) * kRows * 128 + off, 16, 1024),
+                 smem_desc(ks + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 4) * 32;
+        wgmma_ss(dp, smem_desc(dos + (kk / 4) * kRows * 128 + off, 16, 1024),
+                 smem_desc(vs + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      // the rule before the exponential: a fully masked row's LSE is kNegInf
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        const int col = 8 * (i / 4) + cq + (i & 1);
+        const bool ok = qok[h] & static_cast<bool>((bits >> col) & 1) &
+                        (!causal | (qpos[h] >= k0 + col));
+        sc[i] = ok ? exp2f(sc[i] * scale_log2 - lse2[h]) : 0.f;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        dp[i] = sc[i] * (dp[i] - dlt[(i >> 1) & 1]);
+
+      // dQ += dS K, dS as bf16 registers, K MN-major from the same tile
+      uint32_t dsa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) to_a_frag(dp, kk, dsa[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(acc, dsa[kk], smem_desc(ks + kk * 2048, BK * 128, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+    // rows past L write nothing; a fully masked row writes zeros
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!qok[h]) continue;
+      __nv_bfloat16* out = dq + (head + qpos[h]) * D;
+#pragma unroll
+      for (int i = 2 * h; i < D / 2; i += 4) {
+        const int col = 8 * (i / 4) + cq;
+        *reinterpret_cast<uint32_t*>(out + col) =
+            pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, const int* mask, void* dq,
+              int BH, int H, int L, float scale, int causal,
+              cudaStream_t stream) {
+  using C = DqCfg<D>;
+  CUtensorMap qm, km, vm, dom;
+  if (!make_map(&qm, q, BH, L, D, kRows) || !make_map(&km, k, BH, L, D, C::BK) ||
+      !make_map(&vm, v, BH, L, D, C::BK) ||
+      !make_map(&dom, dout, BH, L, D, kRows))
+    return kErrTensorMap;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(BH, (L + kRows - 1) / kRows);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+      qm, km, vm, dom, lse, delta, mask, static_cast<__nv_bfloat16*>(dq), H, L,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+struct DkvCfg {
   static constexpr int BQ = D == 64 ? 64 : 32;  // q rows of a streamed tile
   static constexpr int kPanels = D / 64;        // 64-column panels of a row
   static constexpr int kKBytes = kRows * D * 2;  // the K or the V tile
@@ -357,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
                                __nv_bfloat16* __restrict__ dk,
                                __nv_bfloat16* __restrict__ dv, int H, int L,
                                float scale, int causal) {
-  using C = Cfg<D>;
+  using C = DkvCfg<D>;
   constexpr int BQ = C::BQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
@@ -526,7 +752,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const int* mask,
                void* dk, void* dv, int BH, int H, int L, float scale,
                int causal, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = DkvCfg<D>;
   CUtensorMap qm, km, vm, dom;
   if (!make_map(&qm, q, BH, L, D, C::BQ) || !make_map(&km, k, BH, L, D, kRows) ||
       !make_map(&vm, v, BH, L, D, kRows) ||
@@ -554,26 +780,25 @@ extern "C" {
 // 1 = bfloat16; lse, delta: [BH, L] float32; mask: [B, L] int32 or null.
 // Each returns the CUDA error of its launch (0 on success), -1 for a dtype
 // or head dim it does not take, or -2 if a TMA tensor map cannot be made.
-// dK/dV in bfloat16 launches the tensor-core kernel
-// (flash_bwd_dkv_wgmma_kernel); float32 dK/dV and dQ in both dtypes launch
-// the scalar kernels.
+// bfloat16 launches the tensor-core kernels (flash_bwd_dq_wgmma_kernel,
+// flash_bwd_dkv_wgmma_kernel), float32 the scalar ones.
 int stoke_flash_bwd_dq(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const int* mask, void* dq, int BH, int H, int L, int D,
                        int dtype, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
-                                scale, causal, s);
+    return launch_dq<64>(q, k, v, dout, lse, delta, mask, dq, BH, H, L, scale,
+                         causal, s);
   if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(q, k, v, dout, lse, delta, mask, dq, BH, H,
-                                 L, scale, causal, s);
+    return launch_dq<128>(q, k, v, dout, lse, delta, mask, dq, BH, H, L, scale,
+                          causal, s);
   if (dtype == 1 && D == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, mask, dq,
-                                        BH, H, L, scale, causal, s);
+    return tc::launch_dq<64>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
+                             scale, causal, s);
   if (dtype == 1 && D == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, mask, dq,
-                                         BH, H, L, scale, causal, s);
+    return tc::launch_dq<128>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
+                              scale, causal, s);
   return stoke::hopper::kErrUnsupported;
 }
 

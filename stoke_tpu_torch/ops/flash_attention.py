@@ -47,12 +47,41 @@ NEG_INF = -1e30
 #: the backward's relative to the largest gradient element
 FWD_ATOL_BF16 = 2e-2
 BWD_RTOL_BF16 = 0.05
-#: the bf16 dK/dV kernel against its plain version, per key row: the L2
-#: norm of the difference at most this share of the plain row's (a zero
-#: row must be exactly zero). BWD_RTOL_BF16 alone would pass a kernel that
-#: zeroed the small late-key rows; rounding P^T and dS^T to bf16 for the
-#: tensor cores moves a row by about 0.5%
+#: the bf16 backward kernels against their plain version, per row of dQ,
+#: dK and dV (see :func:`bwd_row_err`). BWD_RTOL_BF16 alone would pass a
+#: kernel that zeroed the small late-key rows; rounding P and dS to bf16
+#: for the tensor cores moves a row by about 0.5%
 BWD_ROW_RTOL_BF16 = 2e-2
+#: the floor of a row's norm in :func:`bwd_row_err`, as a share of the
+#: largest row norm of its head. Some rows' exact gradient is ~0 (the first
+#: causal query row attends key 0 alone, so P = 1 and dP - delta = 0), and
+#: there both versions hold rounding noise of ~1e-8 that differs by ~100%
+#: of itself. Against 1e-2 of the head's largest row norm (~1 with unit
+#: normal inputs) that noise reads ~1e-6, far under the bound, while a
+#: kernel that dropped a row still fails unless the row's norm is under
+#: 2e-4 of the largest
+BWD_ROW_FLOOR = 1e-2
+
+
+def bwd_row_err(out, ref) -> float:
+    """The row check of the bf16 backward kernels: over every row (last
+    axis) of ``out`` against the plain version ``ref``, the largest
+    ``|out row - ref row|`` over ``max(|ref row|, BWD_ROW_FLOOR x the
+    largest |ref row| of the same head)`` (L2 norms; the head is the
+    second-last axis's slab). A kernel passes where it is at most
+    ``BWD_ROW_RTOL_BF16``.
+
+    A plain row that is zero is held to the floor as well: the first
+    causal row's dP and delta can agree to the last bit in the plain
+    version, which a kernel summing in another order does not reproduce.
+    The rows that the masking rule makes zero (fully masked queries,
+    masked keys) are for the caller to hold to exact zeros. Infinite only
+    where a head's plain rows are all zero and ``out``'s are not."""
+    diff = (out.float() - ref.float()).norm(dim=-1)
+    norm = ref.float().norm(dim=-1)
+    den = torch.maximum(norm, BWD_ROW_FLOOR * norm.amax(dim=-1, keepdim=True))
+    return float(torch.where(diff == 0, 0.0, diff / den).max())
+
 
 #: launches of each CUDA kernel, counted by its wrapper where it launches it
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,

@@ -1,19 +1,19 @@
 """The bf16 tolerances admit the tensor-core kernels' rounding.
 
-The bf16 flash forward and dK/dV kernels (``csrc/flash_fwd.cu``,
+The bf16 flash forward, dQ and dK/dV kernels (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``) feed their second products from registers as bf16:
-the forward rounds P before ``P V``, the dK/dV kernel rounds P^T before
-``P^T dO`` and dS^T before ``dS^T Q``. The JAX kernels multiply fp32 P and
-dS. This file emulates that rounding on the CPU, beside the plain versions
+the forward rounds P before ``P V``, the dQ kernel dS before ``dS K``, the
+dK/dV kernel P^T before ``P^T dO`` and dS^T before ``dS^T Q``. The JAX
+kernels multiply fp32 P and dS. This file emulates that rounding on the CPU, beside the plain versions
 (the forward tile by tile, as the kernel walks 128-key tiles with an online
 softmax), and holds the emulation against the JAX package's
 ``flash_attention`` and its ``jax.grad`` (Pallas in interpret mode off the
 TPU) on the same numpy inputs, at the port's bf16 contract, unchanged:
 ``FWD_ATOL_BF16`` absolute on O and LSE, ``BWD_RTOL_BF16`` of the largest
-gradient element. Fully masked rows must stay exactly zero. The dK/dV
-rounding is also held against the plain version row by row, at
-``BWD_ROW_RTOL_BF16``, the bound that catches a kernel the contract's
-tolerance would pass.
+gradient element. Fully masked rows must stay exactly zero. The dQ and
+dK/dV rounding is also held against the plain version row by row
+(``bwd_row_err`` at ``BWD_ROW_RTOL_BF16``), the bound that catches a kernel
+the contract's tolerance would pass.
 """
 
 import jax
@@ -28,6 +28,7 @@ from stoke_tpu_torch.ops import (
     BWD_RTOL_BF16,
     FWD_ATOL_BF16,
     NEG_INF,
+    bwd_row_err,
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
@@ -94,9 +95,9 @@ def tc_forward(q, k, v, mask, causal):
 
 
 def tc_backward(q, k, v, mask, out, lse, do, causal):
-    """The bf16 backward's arithmetic: dK/dV as the tensor-core kernel
-    computes them (P^T and dS^T rounded to bf16 for their products), dQ as
-    the scalar kernel does (fp32 dS). Returns (dq, dk, dv) in fp32."""
+    """The bf16 backward's arithmetic as the tensor-core kernels compute
+    it: dS rounded to bf16 for ``dS K``, P^T and dS^T for ``P^T dO`` and
+    ``dS^T Q``. Returns (dq, dk, dv) in fp32, each rounded to bf16."""
     scale = 1.0 / D**0.5
     s = _scores(q, k, mask, causal)
     p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - lse[..., None]),
@@ -104,7 +105,7 @@ def tc_backward(q, k, v, mask, out, lse, do, causal):
     delta = (do.float() * out.float()).sum(-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None])
-    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", _bf16(ds), k.float())
     dk = scale * torch.einsum("bhqk,bhqd->bhkd", _bf16(ds), q.float())
     dv = torch.einsum("bhqk,bhqd->bhkd", _bf16(p), do.float())
     return [_bf16(g) for g in (dq, dk, dv)]
@@ -190,21 +191,13 @@ def test_tc_backward_rounding_within_bwd_rtol(L, masked, causal):
         assert (dk[0, :, L - 7:] == 0).all() and (dv[0, :, L - 7:] == 0).all()
 
 
-def _row_rel_err(a, b):
-    """Largest L2 norm of ``a - b`` over a row (last axis) relative to that
-    row of ``b``; inf where ``b``'s row is zero and ``a``'s is not."""
-    num = (a.float() - b.float()).norm(dim=-1)
-    den = b.float().norm(dim=-1)
-    return float(torch.where(num == 0, 0.0, num / den).max())
-
-
 @pytest.mark.parametrize("L", [64, 300])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
 def test_tc_dkv_rounding_within_row_rtol(L, masked, causal):
     """The bf16 rounding of P^T and dS^T keeps every key row of dK and dV
-    within BWD_ROW_RTOL_BF16 of the plain version's (zero rows exactly
-    zero); a dK/dV that drops the second half of the keys does not pass."""
+    within BWD_ROW_RTOL_BF16 of the plain version's; a dK/dV that drops
+    the second half of the keys does not pass."""
     q, k, v, do, mask = _inputs(L, masked, seed=20 + L + 2 * masked + causal)
     tq, tk, tv, tdo = _torch_bf16(q, k, v, do)
     tm = None if mask is None else torch.from_numpy(mask)
@@ -213,7 +206,37 @@ def test_tc_dkv_rounding_within_row_rtol(L, masked, causal):
     _, rdk, rdv = flash_attention_bwd_plain(tq, tk, tv, tm, out, lse, tdo,
                                             None, causal)
     for ours, plain in ((dk, rdk), (dv, rdv)):
-        assert _row_rel_err(ours, plain) <= BWD_ROW_RTOL_BF16
+        assert bwd_row_err(ours, plain) <= BWD_ROW_RTOL_BF16
         halved = ours.clone()
         halved[..., L // 2:, :] = 0
-        assert _row_rel_err(halved, plain) > BWD_ROW_RTOL_BF16
+        assert bwd_row_err(halved, plain) > BWD_ROW_RTOL_BF16
+
+
+@pytest.mark.parametrize("L", [64, 300])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_dq_rounding_within_row_rtol(L, masked, causal):
+    """The bf16 rounding of dS keeps every query row of dQ within
+    BWD_ROW_RTOL_BF16 of the plain version's, the rows whose exact
+    gradient is ~0 included (the first causal row; row 1 where key 0 is
+    masked), and fully masked rows exactly zero; a dQ that drops the
+    second half of the queries does not pass, nor does a noise-sized
+    row in a head whose plain rows are all zero."""
+    q, k, v, do, mask = _inputs(L, masked, seed=30 + L + 2 * masked + causal)
+    tq, tk, tv, tdo = _torch_bf16(q, k, v, do)
+    tm = None if mask is None else torch.from_numpy(mask)
+    out, lse = flash_attention_plain(tq, tk, tv, tm, causal)
+    dq, _, _ = tc_backward(tq, tk, tv, tm, out, lse, tdo, causal)
+    rdq, _, _ = flash_attention_bwd_plain(tq, tk, tv, tm, out, lse, tdo, None,
+                                          causal)
+    assert bwd_row_err(dq, rdq) <= BWD_ROW_RTOL_BF16
+    dead = torch.from_numpy(_dead_rows(L, mask, causal))[:, None]
+    assert (dq[dead.expand(B, H, L)] == 0).all()
+    halved = dq.clone()
+    halved[..., L // 2:, :] = 0
+    assert bwd_row_err(halved, rdq) > BWD_ROW_RTOL_BF16
+    if masked:
+        # batch 1's plain rows are all zero: any nonzero row fails
+        noisy = dq.clone()
+        noisy[1, 0, L - 1, 0] = 1e-8
+        assert bwd_row_err(noisy, rdq) == float("inf")
