@@ -21,12 +21,14 @@ Phases, one JSON line each; any failure exits nonzero:
    ragged L=1000, without the causal rule, and at D=128 with fully masked
    rows; the flash backward's dQ and dK/dV kernels at the training shapes
    (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and bf16), masked cases
-   with fully masked rows in fp32 and bf16, and bf16 at D=128, at
-   L=1000, without the causal rule and masked at D=128 (bf16 dQ, dK and dV
-   also held row by row: ``bwd_row_err``), timed beside SDPA's backward
-   alone; a bf16 dQ call at an unsupported head dim must raise; and the
-   paged verify kernel at the speculative serve shapes (B=8, H=12, S=5,
-   D=64, fp32 and bf16 pools, an idle slot and clamped padding rows).
+   with fully masked rows in fp32 and bf16, fp32 and bf16 at D=128, at
+   L=1000 and without the causal rule, and bf16 masked at D=128 (bf16 dQ,
+   dK and dV also held row by row: ``bwd_row_err``), timed beside SDPA's
+   backward alone, with ptxas's registers and spills of the fp32 (3xTF32
+   ``mma.sync``) kernels; a bf16 dQ call at an unsupported head dim must
+   raise; and the paged verify kernel at the speculative serve shapes
+   (B=8, H=12, S=5, D=64, fp32 and bf16 pools, an idle slot and clamped
+   padding rows).
 4. serve: GPT-base at full width (seeded random weights, fp32) behind
    ``ServingEngine`` with the flash prefill and paged-decode kernels;
    16 requests submitted in three waves; launch counts checked against
@@ -51,7 +53,8 @@ Phases, one JSON line each; any failure exits nonzero:
    ``grad_accum=2``, with its counters checked. Prints step ms p50,
    tokens/s, peak memory and the losses.
 7. train_parity: the same seeded GPT-base in fp32 at B=2, L=512 for 3
-   ``train_step``s through the kernels and through dense attention (no
+   ``train_step``s through the kernels (the fp32 backward's 3xTF32
+   tensor-core kernels, 36 launches each) and through dense attention (no
    kernel); the losses must agree within 1e-3 relative.
 
 The two lines before the last are the kernels' summary and the card's
@@ -64,6 +67,7 @@ from __future__ import annotations
 import ctypes
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -72,10 +76,13 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
-# FLOP/s for the type the kernels' work is in (fp32 outside the tensor
-# cores; bf16 on the tensor cores)
+# FLOP/s for the type the kernels' work is in. bf16 on the tensor cores.
+# fp32-accurate products also run on the tensor cores, as three TF32
+# products each (3xTF32), so fp32 work takes at least a third of the 495
+# TFLOP/s TF32 rate; the 67 TFLOP/s of fp32 FMAs is not the least time the
+# card can take for it
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
 FP32_ATOL = 1e-4  # kernel and plain version sum in different orders
 SEED = 0
@@ -84,6 +91,9 @@ VOCAB = 50257
 TRAIN_BATCH, TRAIN_LEN = 8, 1024
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 PARITY_RTOL = 1e-3  # kernels and dense attention sum in different orders
+# the fp32 backward kernels (csrc/flash_bwd.cu), whose registers and spills
+# the kernels phase reports
+TF32X3_KERNELS = ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
 
 
 def emit(obj) -> None:
@@ -123,6 +133,28 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_usage(log: str, kernels) -> dict:
+    """Registers and spill bytes that ``nvcc -Xptxas -v`` reported in
+    ``log`` for each instantiation of ``kernels`` (names without the
+    mangling), as ``{"<name><D>": {"registers": n, "spill_stores": n,
+    "spill_loads": n}}``."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?(" + "|".join(kernels)
+                      + r")ILi(\d+)E", line)
+        if m:
+            cur = out.setdefault(f"{m.group(1)}<{m.group(2)}>", {})
+        elif "Function properties" in line:
+            cur = None
+        elif cur is not None and "spill stores" in line:
+            cur["spill_stores"], cur["spill_loads"] = (
+                int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    return out
 
 
 def max_err(a, b) -> float:
@@ -424,15 +456,19 @@ def sdpa_backward_ms(q, k, v, do, causal, flush) -> float:
 
 
 # backward cases at B=8, H=12 (L, dtype, D, causal, masked): the training
-# shapes in fp32 and bf16, padding masks with fully masked rows, and the
-# bf16 dK/dV tensor-core kernel's other paths
-BF16 = torch.bfloat16
-BWD_CASES = ((512, torch.float32, HEAD_DIM, True, False),
+# shapes in fp32 and bf16, padding masks with fully masked rows, and both
+# dtypes' tensor-core kernels' other paths (D=128, a ragged L=1000, no
+# causal rule)
+BF16, FP32 = torch.bfloat16, torch.float32
+BWD_CASES = ((512, FP32, HEAD_DIM, True, False),
              (512, BF16, HEAD_DIM, True, False),
-             (TRAIN_LEN, torch.float32, HEAD_DIM, True, False),
+             (TRAIN_LEN, FP32, HEAD_DIM, True, False),
              (TRAIN_LEN, BF16, HEAD_DIM, True, False),
-             (512, torch.float32, HEAD_DIM, True, True),
+             (512, FP32, HEAD_DIM, True, True),
              (512, BF16, HEAD_DIM, True, True),
+             (TRAIN_LEN, FP32, 128, True, False),
+             (1000, FP32, HEAD_DIM, True, False),
+             (TRAIN_LEN, FP32, HEAD_DIM, False, False),
              (TRAIN_LEN, BF16, 128, True, False),
              (1000, BF16, HEAD_DIM, True, False),
              (TRAIN_LEN, BF16, HEAD_DIM, False, False),
@@ -441,9 +477,10 @@ BWD_CASES = ((512, torch.float32, HEAD_DIM, True, False),
 
 def check_flash_bwd(ops, gen, flush) -> list:
     """The dQ and dK/dV kernels against ``flash_attention_bwd_plain`` on
-    ``BWD_CASES``: bf16 runs the tensor-core kernels, fp32 the scalar
-    ones. Then a bf16 dQ call at head dim 96, which no kernel takes: the
-    wrapper must raise and the C entry return ``kErrUnsupported``."""
+    ``BWD_CASES``: bf16 runs the ``wgmma`` kernels, fp32 the 3xTF32
+    ``mma.sync`` ones. Then a bf16 dQ call at head dim 96, which no kernel
+    takes: the wrapper must raise and the C entry return
+    ``kErrUnsupported``."""
     cases = [flash_bwd_case(ops, gen, flush, *case) for case in BWD_CASES]
     x = torch.zeros(1, 1, 64, 96, dtype=BF16, device="cuda")
     stats = torch.zeros(1, 1, 64, device="cuda")
@@ -1005,12 +1042,13 @@ def train(ops) -> dict:
     profile = profile_step(stoke, corpus[:TRAIN_BATCH])
     dq_calls = {n: sum(r["calls"] for r in profile.get("attention_kernels", [])
                        if n in r["name"])
-                for n in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel")}
+                for n in ("flash_bwd_dq_wgmma_kernel",
+                          "flash_bwd_dq_tf32x3_kernel")}
     if dq_calls != {"flash_bwd_dq_wgmma_kernel": N_LAYERS,
-                    "flash_bwd_dq_kernel": 0}:
+                    "flash_bwd_dq_tf32x3_kernel": 0}:
         raise AssertionError(f"the profiled bf16 step ran dQ kernels "
-                             f"{dq_calls}, expected the tensor-core kernel "
-                             f"{N_LAYERS} times and the scalar one never")
+                             f"{dq_calls}, expected the bf16 kernel "
+                             f"{N_LAYERS} times and the fp32 one never")
 
     # the four-call loop at grad_accum=2: model -> loss -> backward -> step
     four = stoke_for(model, "bf16", TRAIN_BATCH, grad_accum=2)
@@ -1129,6 +1167,8 @@ def main() -> int:
     verify = check_verify(ops, gen, flush)
     emit({"phase": "kernels", "card": smi, "flash_fwd": flash,
           "paged_decode": decode, "flash_bwd": flash_bwd,
+          "flash_bwd_fp32_ptxas": ptxas_usage(
+              _build.build_log("flash_bwd") or "", TF32X3_KERNELS),
           "paged_verify": verify})
     del flush
     torch.cuda.empty_cache()
@@ -1144,8 +1184,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(train_parity(ops))
 
-    def row(name, source, replaces, launches, err, c, key=""):
-        return {
+    def row(name, source, replaces, launches, err, c, key="", fp32=None):
+        out = {
             "name": name, "route": "cuda",
             "source": f"stoke_tpu_torch/csrc/{source}.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1153,14 +1193,21 @@ def main() -> int:
             "bound_ms": c[f"{key}bound_ms"], "bound_by": c[f"{key}bound_by"],
             "library_ms": c["library_ms"],
         }
+        if fp32 is not None:  # the fp32 kernel at the same shape
+            out.update(fp32_ms=fp32[f"{key}ms"],
+                       fp32_bound_ms=fp32[f"{key}bound_ms"],
+                       fp32_library_ms=fp32["library_ms"])
+        return out
 
     # the training path's shape: L=1024, D=64, bf16
     flash_main = next(c for c in flash if c["L"] == TRAIN_LEN
                       and c["D"] == HEAD_DIM and c["causal"]
                       and not c["masked"])
-    bwd_main = next(c for c in flash_bwd if c["L"] == TRAIN_LEN
-                    and c["D"] == HEAD_DIM and c["dtype"] == "bfloat16"
-                    and c["causal"] and not c["masked"])
+    bwd_main, bwd_fp32 = (
+        next(c for c in flash_bwd if c["L"] == TRAIN_LEN
+             and c["D"] == HEAD_DIM and c["dtype"] == dtype
+             and c["causal"] and not c["masked"])
+        for dtype in ("bfloat16", "float32"))
     emit({"kernels": [
         row("flash_fwd", "flash_fwd", "stoke_tpu/ops/flash_attention.py:70",
             trained["launches"]["flash_fwd"],
@@ -1168,12 +1215,13 @@ def main() -> int:
         row("flash_bwd_dq", "flash_bwd",
             "stoke_tpu/ops/flash_attention.py:210",
             trained["launches"]["flash_bwd_dq"],
-            max(x["max_abs_err"]["dq"] for x in flash_bwd), bwd_main, "dq_"),
+            max(x["max_abs_err"]["dq"] for x in flash_bwd), bwd_main, "dq_",
+            bwd_fp32),
         row("flash_bwd_dkv", "flash_bwd",
             "stoke_tpu/ops/flash_attention.py:246",
             trained["launches"]["flash_bwd_dkv"],
             max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
-                for x in flash_bwd), bwd_main, "dkv_"),
+                for x in flash_bwd), bwd_main, "dkv_", bwd_fp32),
         row("paged_decode", "paged_decode",
             "stoke_tpu/ops/flash_attention.py:581",
             served["launches"]["paged_decode"],

@@ -1,12 +1,15 @@
-"""Probe of the bf16 tensor-core flash kernels on a CUDA card.
+"""Probe of the tensor-core flash kernels on a CUDA card.
 
-Run from the root of a checkout: ``python3 scripts/port_probe_flash_tc.py``.
+Run from the root of a checkout:
+``python3 scripts/port_probe_flash_tc.py [--dtype {bf16,fp32}]``.
 Builds ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, prints ptxas's
-registers and spills, then runs only the bf16 cases of ``chip_smoke.py``'s
-kernels phase (``FWD_BF16_CASES`` and the bf16 ``BWD_CASES``): each held
-against its plain version at the same tolerances and timed beside SDPA.
-Exits nonzero at the first case out of tolerance.
+registers and spills, then runs ``chip_smoke.py``'s kernels-phase cases
+``FWD_BF16_CASES`` and the ``BWD_CASES`` of the chosen dtype (bf16, the
+default: the ``wgmma`` kernels; fp32: the 3xTF32 ``mma.sync`` ones): each
+held against its plain version at the same tolerances and timed beside
+SDPA. Exits nonzero at the first case out of tolerance.
 """
+import argparse
 import json
 import sys
 
@@ -19,6 +22,11 @@ from stoke_tpu_torch.ops import _build  # noqa: E402
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
+                        help="the BWD_CASES to run")
+    bwd_dtype = {"bf16": torch.bfloat16,
+                 "fp32": torch.float32}[parser.parse_args().dtype]
     seconds = _build.build(["flash_fwd", "flash_bwd"])
     print(json.dumps({"build": seconds}), flush=True)
     for n in ("flash_fwd", "flash_bwd"):
@@ -33,7 +41,7 @@ def main() -> int:
         print(json.dumps(cs.flash_fwd_bf16_case(ops, gen, flush, *case)),
               flush=True)
     for L, dtype, D, causal, masked in cs.BWD_CASES:
-        if dtype == torch.bfloat16:
+        if dtype == bwd_dtype:
             print(json.dumps(cs.flash_bwd_case(ops, gen, flush, L, dtype, D,
                                                causal, masked)), flush=True)
     print(cs.nvidia_smi_line(), flush=True)

@@ -19,16 +19,14 @@
 // What bounds it on the H100: at the training shapes (B=8, H=12, L=1024,
 // D=64, causal) the pair does 7*L*L*D FLOPs per head (14*L*L*D without the
 // causal half) against ~10*L*D elements moved, so it is bound by
-// operations, and only the tensor cores' 989 TFLOP/s bf16 come near that
-// bound; neither the score matrix nor P leaves the SM.
+// operations, and only the tensor cores come near that bound: 989 TFLOP/s
+// in bf16, and for fp32 a third of the 495 TFLOP/s TF32 rate (3xTF32,
+// below); neither the score matrix nor P leaves the SM.
 //
-// Dispatch by dtype: bfloat16 runs the tensor-core kernels
-// (flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel, below). float32
-// keeps the scalar design of the first port: each block owns one 64-row
-// output tile and walks the other axis in a loop, 4 adjacent threads per
-// owned row, products as fp32 FMAs over shared-memory tiles (rows padded by
-// one float against bank conflicts); ds (and p, for dV) goes through shared
-// memory between the two products.
+// Dispatch by dtype: bfloat16 runs the wgmma kernels
+// (flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel, namespace tc),
+// float32 the warp-level mma.sync kernels (flash_bwd_dq_tf32x3_kernel and
+// flash_bwd_dkv_tf32x3_kernel, namespace f32).
 //
 // The two bf16 kernels are FlashAttention-3's backward split in two, as
 // the TPU package splits it, without its fp32 dQ atomics. On the TPU the
@@ -74,243 +72,363 @@
 // contract BWD_RTOL_BF16 = 5% and the row bound BWD_ROW_RTOL_BF16 = 2%
 // (shown on the CPU by tests/test_torch_flash_tc_numerics.py against the
 // JAX kernels).
+//
+// The two fp32 kernels have the same split and walks (K and V resident
+// with Q, dO and their LSE and delta streamed for dK/dV; Q and dO resident
+// with K, V and a 64-bit key word streamed for dQ; the same causal walks
+// and CTA order) on TF32 mma.sync.m16n8k8 instead of wgmma: TF32 wgmma
+// reads a shared B operand only K-major, and three of the products need B
+// the other way (dO^T in dV, Q^T in dK, K^T in dQ). A warp loads its own
+// fragments from shared memory, so one fp32 tile (rows padded to D + 4
+// floats, conflict-free in both orientations) serves both, and nothing is
+// transposed: no descriptor, TMA map or mbarrier, a 2-stage cp.async ring
+// instead. Four warps a CTA, each owning 16 of the 64 output rows; the
+// streamed tiles are 32 rows at D=64 and 128 (at D=64, 2 dK/dV or 3 dQ
+// CTAs an SM: both ran 4-10% faster than with 64-row tiles at 2 CTAs,
+// PERF.md). Every product is 3xTF32 (mma_tf32.cuh: each operand split
+// into two TF32 terms, three products, ~fp32 accuracy, held to FP32_ATOL =
+// 1e-4 against the plain version; one TF32 rounding alone moves gradients
+// by ~1e-3). P^T, dS^T and dS feed the second product from registers as
+// the A operand, their k index permuted to match the accumulator layout
+// (mma_tf32.cuh). Each tile's dV, dK or dQ is summed in a fresh
+// accumulator and added to the running sum with an fp32 add: the running
+// sum carried through hundreds of products drifted by up to 8e-5.
+#include <initializer_list>
+
 #include "common.cuh"
 #include "hopper.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kTile = 64;  // rows of a q or k tile
-constexpr int kThreads = 256;
-constexpr int kLanes = kThreads / kTile;  // 4 adjacent threads per owned row
-constexpr int kCols = kTile / kLanes;     // 16 score columns per thread
-constexpr int kSP = kTile + 1;            // padded row stride of a score tile
+// --------------------------------------------------------------------------
+// fp32 dQ and dK/dV: 3xTF32 warp-level mma.sync over cp.async-loaded tiles
 
-// Rows [r0, r0 + kTile) of one head's [L, D] slab at `base` into a
-// [kTile][D + 1] shared tile; rows past L are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          size_t base, int r0, int L) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int gr = r0 + r;
-    dst[r * (D + 1) + c] =
-        gr < L ? src[base + static_cast<size_t>(gr) * D + c] : 0.f;
-  }
-}
+namespace f32 {
+
+using namespace stoke::tf32;
+using stoke::hopper::kLog2e;
+
+constexpr int kRows = 64;  // output rows of a CTA, 16 for each of 4 warps
+constexpr int kThreads = 128;
 
 template <int D>
-__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) acc += a[d] * b[d];
-  return acc;
-}
+struct DkvCfg {
+  static constexpr int BQ = 32;  // q rows of a streamed tile
+  static constexpr int S = D + 4;  // row stride of a shared tile (floats)
+  // a stage: Q [BQ][S] | dO [BQ][S] | lse [BQ] | delta [BQ]
+  static constexpr int kStage = 2 * BQ * S + 2 * BQ;
+  // K [kRows][S] | V [kRows][S] | 2 stages
+  static constexpr size_t kSmem = sizeof(float) * (2 * kRows * S + 2 * kStage);
+};
 
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kSP) +
-         sizeof(int) * kTile;
-}
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                const int* __restrict__ mask,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int H, int L,
+                                float scale, int causal) {
+  using C = DkvCfg<D>;
+  constexpr int BQ = C::BQ, S = C::S;
+  extern __shared__ float4 smem_f4[];  // 16-byte aligned for cp.async
+  float* ks = reinterpret_cast<float*>(smem_f4);
+  float* vs = ks + kRows * S;
+  float* stages = vs + kRows * S;
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kSP + 2 * kTile);
-}
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;
+  const int first = causal ? k0 / BQ : 0;  // start at the diagonal
+  const int n_tiles = (L + BQ - 1) / BQ - first;
+  const size_t head = static_cast<size_t>(bh) * L;
+  const float* qh = q + head * D;
+  const float* doh = dout + head * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ mask, float* __restrict__ dq,
-                        int H, int L, float scale, int causal) {
-  constexpr int S = D + 1;
-  constexpr int DPT = D / kLanes;  // output dims per thread
-
-  extern __shared__ float smem[];
-  float* qs = smem;             // [kTile][S]
-  float* dos = qs + kTile * S;  // [kTile][S]
-  float* ks = dos + kTile * S;  // [kTile][S]
-  float* vs = ks + kTile * S;   // [kTile][S]
-  float* dss = vs + kTile * S;  // [kTile][kSP]
-  int* kvalid = reinterpret_cast<int*>(dss + kTile * kSP);  // [kTile]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(bh) * L * D;
-  const int tid = threadIdx.x;
-  const int row = tid / kLanes;
-  const int sub = tid % kLanes;
-  const int qpos = q0 + row;
-  const bool qok = qpos < L;
-  const size_t stat = static_cast<size_t>(bh) * L + qpos;
-  const float row_lse = qok ? lse[stat] : 0.f;
-  const float row_delta = qok ? delta[stat] : 0.f;
-
-  load_tile<D>(qs, q, base, q0, L);
-  load_tile<D>(dos, dout, base, q0, L);
-
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-
-  int n_tiles = (L + kTile - 1) / kTile;
-  if (causal) n_tiles = min(n_tiles, q0 / kTile + 1);  // stop at the diagonal
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(ks, k, base, k0, L);
-    load_tile<D>(vs, v, base, k0, L);
-    if (tid < kTile) {
-      const int kr = k0 + tid;
-      kvalid[tid] = kr < L && (mask == nullptr ||
-                               mask[static_cast<size_t>(b) * L + kr] > 0);
+  // the stage of q tile i: Q and dO rows, their lse and delta beside them
+  auto load_q_tile = [&](int i) {
+    float* st = stages + (i & 1) * C::kStage;
+    const int q0 = (first + i) * BQ;
+    load_rows<BQ, D, kThreads>(st, qh, q0, L, tid);
+    load_rows<BQ, D, kThreads>(st + BQ * S, doh, q0, L, tid);
+    for (int j = tid; j < 2 * BQ; j += kThreads) {
+      const int qr = q0 + j % BQ;
+      const bool ok = qr < L;
+      const float* src = j < BQ ? lse : delta;
+      cp_async4(st + 2 * BQ * S + j, src + (ok ? head + qr : 0), ok);
     }
+    cp_async_commit();
+  };
+  load_rows<kRows, D, kThreads>(ks, k + head * D, k0, L, tid);
+  load_rows<kRows, D, kThreads>(vs, v + head * D, k0, L, tid);
+  load_q_tile(0);  // one group with K and V
+
+  // this thread's key rows: g and g + 8 of the warp's 16
+  const int r0 = 16 * warp;
+  const int g = lane / 4, t = lane % 4;
+  int kpos[2];
+  bool kok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kpos[h] = k0 + r0 + g + 8 * h;
+    kok[h] = kpos[h] < L &&
+             (mask == nullptr ||
+              mask[static_cast<size_t>(bh / H) * L + kpos[h]] > 0);
+  }
+  const float scale_log2 = scale * kLog2e;
+  // [n][e]: columns 8n + 2t + (e & 1) of rows g (e < 2) and g + 8
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    // tile i has landed for every thread, and every warp is done with
+    // tile i - 1, whose stage the next load overwrites
     __syncthreads();
+    if (i + 1 < n_tiles) load_q_tile(i + 1);
+    const float* qs = stages + (i & 1) * C::kStage;
+    const float* dos = qs + BQ * S;
+    const float* st_lse = dos + BQ * S;
+    const float* st_delta = st_lse + BQ;
+    const int q0 = (first + i) * BQ;
 
+    // S^T = K Q^T and dP^T = V dO^T over the head dim, 8 columns a step
+    float sc[BQ / 8][4], dp[BQ / 8][4];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = sub + j * kLanes;
-      float ds = 0.f;
-      if (qok && kvalid[c] && (!causal || qpos >= k0 + c)) {
-        const float s = dot_rows<D>(qs + row * S, ks + c * S) * scale;
-        const float p = expf(s - row_lse);
-        const float dp = dot_rows<D>(dos + row * S, vs + c * S);
-        ds = p * (dp - row_delta);
+    for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t kb[4], ksm[4], vb[4], vsm[4];
+      load_a<S>(ks + r0 * S + 8 * kk, lane, kb, ksm);
+      load_a<S>(vs + r0 * S + 8 * kk, lane, vb, vsm);
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        uint32_t bb[2], bs[2];
+        load_b_nk<S>(qs + 8 * n * S + 8 * kk, lane, bb, bs);
+        mma_tf32x3(sc[n], kb, ksm, bb, bs);
+        load_b_nk<S>(dos + 8 * n * S + 8 * kk, lane, bb, bs);
+        mma_tf32x3(dp[n], vb, vsm, bb, bs);
       }
-      dss[row * kSP + c] = ds;
     }
-    __syncwarp();  // a row's ds is written and read by the same 4 lanes
-
-    for (int c = 0; c < kTile; ++c) {
-      const float ds = dss[row * kSP + c];
+    // P^T where the key mask, the range and the causal rule allow (tested
+    // before the exponential: a fully masked query row's LSE is kNegInf),
+    // else 0; dS^T = P^T (dP^T - delta)
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] += ds * ks[c * S + sub + i * kLanes];
-    }
+    for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = 8 * n + 2 * t + (e & 1);
+        const int qr = q0 + col;
+        const bool ok = kok[h] && qr < L && (!causal || qr >= kpos[h]);
+        const float p =
+            ok ? exp2f(sc[n][e] * scale_log2 - st_lse[col] * kLog2e) : 0.f;
+        sc[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - st_delta[col]);
+      }
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T as A from registers
+    mma_acc_tile<BQ, D, S>(dv_acc, sc, dos, lane);
+    mma_acc_tile<BQ, D, S>(dk_acc, dp, qs, lane);
   }
 
-  if (qok) {
-    const size_t out = base + static_cast<size_t>(qpos) * D;
+  // rows past L write nothing; a masked key row writes zeros
 #pragma unroll
-    for (int i = 0; i < DPT; ++i)
-      dq[out + sub + i * kLanes] = acc[i] * scale;
+  for (int h = 0; h < 2; ++h) {
+    if (kpos[h] >= L) continue;
+    float* dko = dk + (head + kpos[h]) * D;
+    float* dvo = dv + (head + kpos[h]) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(dko + col) =
+          make_float2(dk_acc[n][2 * h] * scale, dk_acc[n][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dvo + col) =
+          make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const int* __restrict__ mask, float* __restrict__ dk,
-                         float* __restrict__ dv, int H, int L, float scale,
-                         int causal) {
-  constexpr int S = D + 1;
-  constexpr int DPT = D / kLanes;
+struct DqCfg {
+  static constexpr int BK = 32;  // k rows of a streamed tile
+  static constexpr int S = D + 4;  // row stride of a shared tile (floats)
+  // a stage: K [BK][S] | V [BK][S]
+  static constexpr int kStage = 2 * BK * S;
+  // Q [kRows][S] | dO [kRows][S] | 2 stages | key bits [2]
+  static constexpr int kBitsOff = 2 * kRows * S + 2 * kStage;  // floats
+  static constexpr size_t kSmem =
+      sizeof(float) * kBitsOff + 2 * sizeof(uint64_t);
+};
 
-  extern __shared__ float smem[];
-  float* ks = smem;                 // [kTile][S]
-  float* vs = ks + kTile * S;       // [kTile][S]
-  float* qs = vs + kTile * S;       // [kTile][S]
-  float* dos = qs + kTile * S;      // [kTile][S]
-  float* pts = dos + kTile * S;     // [kTile][kSP], p^T of the tile
-  float* dsts = pts + kTile * kSP;  // [kTile][kSP], ds^T of the tile
-  float* qlse = dsts + kTile * kSP;  // [kTile]
-  float* qdelta = qlse + kTile;      // [kTile]
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
+    flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const int* __restrict__ mask,
+                               float* __restrict__ dq, int H, int L,
+                               float scale, int causal) {
+  using C = DqCfg<D>;
+  constexpr int BK = C::BK, S = C::S;
+  extern __shared__ float4 smem_f4[];  // 16-byte aligned for cp.async
+  float* qs = reinterpret_cast<float*>(smem_f4);
+  float* dos = qs + kRows * S;
+  float* stages = dos + kRows * S;
+  uint64_t* kbits = reinterpret_cast<uint64_t*>(qs + C::kBitsOff);
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int k0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(bh) * L * D;
-  const int tid = threadIdx.x;
-  const int row = tid / kLanes;
-  const int sub = tid % kLanes;
-  const int kpos = k0 + row;
-  const bool kok = kpos < L && (mask == nullptr ||
-                                mask[static_cast<size_t>(b) * L + kpos] > 0);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest walks first
+  // under causal, stop at the last k tile that touches the diagonal
+  const int n_tiles = ((causal ? min(L, q0 + kRows) : L) + BK - 1) / BK;
+  const size_t head = static_cast<size_t>(bh) * L;
+  const float* kh = k + head * D;
+  const float* vh = v + head * D;
+  const int* mrow =
+      mask == nullptr ? nullptr : mask + static_cast<size_t>(bh / H) * L;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  load_tile<D>(ks, k, base, k0, L);
-  load_tile<D>(vs, v, base, k0, L);
-
-  float dk_acc[DPT], dv_acc[DPT];
+  // the stage of k tile i: K and V rows; warp 0 packs the tile's key flags
+  // (in range and not masked) into one word beside it, bit j for key k0 + j
+  auto load_k_tile = [&](int i) {
+    float* st = stages + (i & 1) * C::kStage;
+    const int k0 = i * BK;
+    load_rows<BK, D, kThreads>(st, kh, k0, L, tid);
+    load_rows<BK, D, kThreads>(st + BK * S, vh, k0, L, tid);
+    cp_async_commit();
+    if (warp == 0) {
+      uint64_t bits = 0;
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-
-  const int n_tiles = (L + kTile - 1) / kTile;
-  const int first = causal ? k0 / kTile : 0;  // start at the diagonal
-
-  for (int qt = first; qt < n_tiles; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(qs, q, base, q0, L);
-    load_tile<D>(dos, dout, base, q0, L);
-    if (tid < kTile) {
-      const int qr = q0 + tid;
-      const size_t stat = static_cast<size_t>(bh) * L + qr;
-      qlse[tid] = qr < L ? lse[stat] : 0.f;
-      qdelta[tid] = qr < L ? delta[stat] : 0.f;
+      for (int w = 0; w < BK / 32; ++w) {
+        const int kr = k0 + 32 * w + lane;
+        const bool ok = kr < L && (mrow == nullptr || mrow[kr] > 0);
+        bits |= static_cast<uint64_t>(__ballot_sync(0xffffffffu, ok))
+                << (32 * w);
+      }
+      if (lane == 0) kbits[i & 1] = bits;
     }
+  };
+  load_rows<kRows, D, kThreads>(qs, q + head * D, q0, L, tid);
+  load_rows<kRows, D, kThreads>(dos, dout + head * D, q0, L, tid);
+  load_k_tile(0);  // one group with Q and dO
+
+  // this thread's query rows: g and g + 8 of the warp's 16, with their LSE
+  // (log2 units) and delta in registers
+  const int r0 = 16 * warp;
+  const int g = lane / 4, t = lane % 4;
+  int qpos[2];
+  bool qok[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qpos[h] = q0 + r0 + g + 8 * h;
+    qok[h] = qpos[h] < L;
+    lse2[h] = qok[h] ? lse[head + qpos[h]] * kLog2e : 0.f;
+    dlt[h] = qok[h] ? delta[head + qpos[h]] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+  // [n][e]: columns 8n + 2t + (e & 1) of rows g (e < 2) and g + 8
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    // tile i and its key word have landed for every thread, and every warp
+    // is done with tile i - 1, whose stage the next load overwrites
     __syncthreads();
+    if (i + 1 < n_tiles) load_k_tile(i + 1);
+    const float* ks = stages + (i & 1) * C::kStage;
+    const float* vs = ks + BK * S;
+    // the key flags as one word, read before the products
+    const uint64_t bits = kbits[i & 1];
+    const int k0 = i * BK;
 
+    // S = Q K^T and dP = dO V^T over the head dim, 8 columns a step
+    float sc[BK / 8][4], dp[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = sub + j * kLanes;
-      const int qr = q0 + c;
-      float p = 0.f, ds = 0.f;
-      if (kok && qr < L && (!causal || qr >= kpos)) {
-        const float s = dot_rows<D>(qs + c * S, ks + row * S) * scale;
-        p = expf(s - qlse[c]);
-        const float dp = dot_rows<D>(dos + c * S, vs + row * S);
-        ds = p * (dp - qdelta[c]);
-      }
-      pts[row * kSP + c] = p;
-      dsts[row * kSP + c] = ds;
-    }
-    __syncwarp();  // a row's p and ds are written and read by the same 4 lanes
-
-    for (int c = 0; c < kTile; ++c) {
-      const float p = pts[row * kSP + c];
-      const float ds = dsts[row * kSP + c];
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        const int d = c * S + sub + i * kLanes;
-        dv_acc[i] += p * dos[d];
-        dk_acc[i] += ds * qs[d];
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t qb[4], qsm[4], ob[4], osm[4];
+      load_a<S>(qs + r0 * S + 8 * kk, lane, qb, qsm);
+      load_a<S>(dos + r0 * S + 8 * kk, lane, ob, osm);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        uint32_t bb[2], bs[2];
+        load_b_nk<S>(ks + 8 * n * S + 8 * kk, lane, bb, bs);
+        mma_tf32x3(sc[n], qb, qsm, bb, bs);
+        load_b_nk<S>(vs + 8 * n * S + 8 * kk, lane, bb, bs);
+        mma_tf32x3(dp[n], ob, osm, bb, bs);
       }
     }
+    // P where the key word, the range and the causal rule allow (tested
+    // before the exponential: a fully masked row's LSE is kNegInf), else
+    // 0; dS = P (dP - delta)
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = 8 * n + 2 * t + (e & 1);
+        const bool ok = qok[h] && ((bits >> col) & 1) &&
+                        (!causal || qpos[h] >= k0 + col);
+        const float p = ok ? exp2f(sc[n][e] * scale_log2 - lse2[h]) : 0.f;
+        dp[n][e] = p * (dp[n][e] - dlt[h]);
+      }
+    // dQ += dS K, dS as A from registers, K read down its rows
+    mma_acc_tile<BK, D, S>(acc, dp, ks, lane);
   }
 
-  if (kpos < L) {
-    const size_t out = base + static_cast<size_t>(kpos) * D;
+  // rows past L write nothing; a fully masked row writes zeros
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      dk[out + sub + i * kLanes] = dk_acc[i] * scale;
-      dv[out + sub + i * kLanes] = dv_acc[i];
-    }
+  for (int h = 0; h < 2; ++h) {
+    if (!qok[h]) continue;
+    float* out = dq + (head + qpos[h]) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
   }
 }
 
+// cp.async copies 16 bytes at a time
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      const int* mask, void* dq, int BH, int H, int L,
-                      float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, const int* mask, void* dq,
+              int BH, int H, int L, float scale, int causal,
+              cudaStream_t stream) {
+  using C = DqCfg<D>;
+  if (!aligned16({q, k, v, dout, dq})) return cudaErrorMisalignedAddress;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dq_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((L + kTile - 1) / kTile, BH);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(BH, (L + kRows - 1) / kRows);
+  flash_bwd_dq_tf32x3_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       delta, mask, static_cast<float*>(dq), H, L, scale, causal);
@@ -318,23 +436,27 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 }
 
 template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* delta,
-                       const int* mask, void* dk, void* dv, int BH, int H,
-                       int L, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, const int* mask,
+               void* dk, void* dv, int BH, int H, int L, float scale,
+               int causal, cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  if (!aligned16({q, k, v, dout, dk, dv})) return cudaErrorMisalignedAddress;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dkv_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((L + kTile - 1) / kTile, BH);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(BH, (L + kRows - 1) / kRows);  // the longest walks first
+  flash_bwd_dkv_tf32x3_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       delta, mask, static_cast<float*>(dk), static_cast<float*>(dv), H, L,
       scale, causal);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 // --------------------------------------------------------------------------
 // bf16 dQ and dK/dV: warpgroup MMA over TMA-loaded tiles
@@ -470,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       mbar_wait(&full[s], (t / kStages) & 1);
       // the key bits as one word, read before the products: per-key flags
       // read from shared memory after them were this kernel's largest cost
-      // (scripts/port_probe_flash_tc.py --dq-variants times a variant)
+      // (PERF.md, Findings)
       const uint64_t bits = kbits[s];
 
       // S = Q K^T and dP = dO V^T, two groups in flight
@@ -781,18 +903,20 @@ extern "C" {
 // Each returns the CUDA error of its launch (0 on success), -1 for a dtype
 // or head dim it does not take, or -2 if a TMA tensor map cannot be made.
 // bfloat16 launches the tensor-core kernels (flash_bwd_dq_wgmma_kernel,
-// flash_bwd_dkv_wgmma_kernel), float32 the scalar ones.
+// flash_bwd_dkv_wgmma_kernel), float32 the 3xTF32 mma.sync ones
+// (flash_bwd_dq_tf32x3_kernel, flash_bwd_dkv_tf32x3_kernel); a float32
+// pointer that is not 16-byte aligned returns cudaErrorMisalignedAddress.
 int stoke_flash_bwd_dq(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const int* mask, void* dq, int BH, int H, int L, int D,
                        int dtype, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, mask, dq, BH, H, L, scale,
-                         causal, s);
+    return f32::launch_dq<64>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
+                              scale, causal, s);
   if (dtype == 0 && D == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, mask, dq, BH, H, L, scale,
-                          causal, s);
+    return f32::launch_dq<128>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
+                               scale, causal, s);
   if (dtype == 1 && D == 64)
     return tc::launch_dq<64>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
                              scale, causal, s);
@@ -809,11 +933,11 @@ int stoke_flash_bwd_dkv(const void* q, const void* k, const void* v,
                         float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, L,
-                           scale, causal, s);
+    return f32::launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
+                               H, L, scale, causal, s);
   if (dtype == 0 && D == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, L,
-                            scale, causal, s);
+    return f32::launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
+                                H, L, scale, causal, s);
   if (dtype == 1 && D == 64)
     return tc::launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H,
                               L, scale, causal, s);

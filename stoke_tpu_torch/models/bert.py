@@ -92,7 +92,7 @@ class MultiHeadAttention(nn.Module):
     back to ``hidden``. The probabilities drop out at ``dropout_rate``
     while training."""
 
-    def __init__(self, hidden: int, heads: int, dropout_rate: float = 0.0,
+    def __init__(self, hidden: int, heads: int, dropout_rate: float = 0.1,
                  attention_fn: Callable = dense_attention, device=None):
         super().__init__()
         self.hidden = hidden
@@ -123,7 +123,7 @@ class TransformerBlock(nn.Module):
     drop(ffn(x)))``."""
 
     def __init__(self, hidden: int, heads: int, ff: int,
-                 dropout_rate: float = 0.0,
+                 dropout_rate: float = 0.1,
                  attention_fn: Callable = dense_attention, device=None):
         super().__init__()
         self.attention = MultiHeadAttention(hidden, heads, dropout_rate,

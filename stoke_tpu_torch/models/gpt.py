@@ -43,10 +43,7 @@ class GPT(nn.Module):
         vocab_size / size_name / max_len / attention_fn /
             attention_is_causal: as the JAX package's ``GPT``.
         dropout_rate: embedding, residual and attention-probability
-            dropout while training. The default is 0.0, not the JAX
-            package's 0.1: a module starts in training mode, and the
-            port's callers that only run the forward (the serving engine,
-            the parity tests) build it without a rate.
+            dropout while training.
         device: where the parameters are created.
 
     The full-sequence forward runs ``attention_fn`` (with an in-model
@@ -55,7 +52,7 @@ class GPT(nn.Module):
     """
 
     def __init__(self, vocab_size: int = 50257, size_name: str = "tiny",
-                 max_len: int = 1024, dropout_rate: float = 0.0,
+                 max_len: int = 1024, dropout_rate: float = 0.1,
                  attention_fn: Callable = dense_attention,
                  attention_is_causal: bool = False, device=None):
         super().__init__()

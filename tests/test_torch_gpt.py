@@ -5,7 +5,12 @@ params converted by ``stoke_tpu_torch.convert.gpt_state_dict_from_jax``,
 and the port's ``GPT`` held against ``GPT.apply`` on the same token ids
 (atol 1e-4 on the logits: fp32 matmuls and LayerNorm variance summed in
 different orders).
+
+The port's model constructors default ``dropout_rate`` as the JAX
+dataclasses do.
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -13,9 +18,12 @@ import torch
 
 import jax
 
+from stoke_tpu.models.bert import MultiHeadAttention as JaxMultiHeadAttention
+from stoke_tpu.models.bert import TransformerBlock as JaxTransformerBlock
 from stoke_tpu.models.gpt import GPT as JaxGPT
 from stoke_tpu.utils import init_module
 from stoke_tpu_torch.convert import gpt_state_dict_from_jax
+from stoke_tpu_torch.models.bert import MultiHeadAttention, TransformerBlock
 from stoke_tpu_torch.models.gpt import GPT
 
 pytestmark = pytest.mark.torch_port
@@ -68,7 +76,7 @@ def _to_flax(sd, hidden, heads):
 def test_convert_round_trip(jax_gpt):
     _, params = jax_gpt
     sd = gpt_state_dict_from_jax(params)
-    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN)
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN).eval()
     model.load_state_dict(sd, strict=True)
     back = _to_flax({k: v.numpy() for k, v in model.state_dict().items()},
                     hidden=128, heads=2)
@@ -81,7 +89,7 @@ def test_convert_round_trip(jax_gpt):
 
 def test_logits_match_jax_apply(jax_gpt):
     jmodel, params = jax_gpt
-    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN)
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN).eval()
     model.load_state_dict(gpt_state_dict_from_jax(params))
     ids = np.random.default_rng(0).integers(0, VOCAB, size=(2, 24)).astype(
         np.int32)
@@ -124,7 +132,7 @@ def test_convert_raises_on_shape_mismatch(jax_gpt):
 
 
 def test_forward_guards():
-    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=16)
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=16).eval()
     ids = torch.zeros(1, 1, dtype=torch.int64)
     with pytest.raises(ValueError, match="kv_cache"):
         model(ids, torch.zeros(1, 1, dtype=torch.int64), decode=True)
@@ -132,3 +140,13 @@ def test_forward_guards():
         model(torch.zeros(1, 17, dtype=torch.int64))
     with pytest.raises(ValueError, match="positions"):
         model(ids, torch.tensor([[16]]))
+
+
+@pytest.mark.parametrize("port_cls, jax_cls", [
+    (GPT, JaxGPT),
+    (MultiHeadAttention, JaxMultiHeadAttention),
+    (TransformerBlock, JaxTransformerBlock),
+])
+def test_dropout_default_matches_jax(port_cls, jax_cls):
+    port = inspect.signature(port_cls).parameters["dropout_rate"].default
+    assert port == jax_cls.__dataclass_fields__["dropout_rate"].default

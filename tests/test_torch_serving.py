@@ -62,7 +62,7 @@ def prompts():
 
 
 def _port_engine(sd, **kw):
-    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN)
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN).eval()
     return ServingEngine(model, sd, ServeConfig(**{**SERVE, **kw}),
                          device="cpu")
 
@@ -105,7 +105,7 @@ def test_paged_forward_logits_match_jax(weights, prompts):
     that are not the argmax, so decode attends over a varied context)
     through both packages' hooks and kernels' paths, atol 1e-4."""
     jmodel, params, sd = weights
-    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN)
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN).eval()
     model.load_state_dict(sd)
     prompt = prompts[0]
     plen, P, NB, BS = prompt.size, 32, 9, 8
@@ -283,7 +283,7 @@ def test_hook_refuses_later_modes():
 
 def test_default_device_without_cuda_raises(weights, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN)
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN).eval()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, weights[2], ServeConfig(**SERVE))
     with pytest.raises(RuntimeError):

@@ -93,7 +93,7 @@ def prompts():
 
 
 def _port_engine(sd, **kw):
-    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN)
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN).eval()
     return ServingEngine(model, sd, ServeConfig(**{**SPEC, **kw}),
                          device="cpu")
 

@@ -251,7 +251,8 @@ def test_bf16_runs_the_whole_model_in_bf16_over_fp32_masters():
     """A cast of the whole model, not autocast: LayerNorm (here the final
     one) runs on bf16 inputs and bf16 weights, the output comes back as
     fp32, and the gradients land in fp32 on the fp32 masters."""
-    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=L)
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=L,
+                dropout_rate=0.0)
     model.init_weights(0)
     seen = {}
     model.ln_final.register_forward_hook(
