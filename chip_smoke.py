@@ -15,20 +15,25 @@ Phases, one JSON line each; any failure exits nonzero:
 3. kernels: each kernel against its plain PyTorch version at its path's
    shapes, with its time, the plain version's, the least time the card
    could take (``bound_ms``) and a PyTorch library call's where one
-   computes the same function: the flash forward and paged decode at the
-   serve shapes, the flash forward in bf16 (the tensor-core kernel) at the
-   training shape (B=8, H=12, L=1024, D=64, causal), at D=128, at a
-   ragged L=1000, without the causal rule, and at D=128 with fully masked
-   rows; the flash backward's dQ and dK/dV kernels at the training shapes
-   (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and bf16), masked cases
-   with fully masked rows in fp32 and bf16, fp32 and bf16 at D=128, at
-   L=1000 and without the causal rule, and bf16 masked at D=128 (bf16 dQ,
-   dK and dV also held row by row: ``bwd_row_err``), timed beside SDPA's
-   backward alone, with ptxas's registers and spills of the fp32 (3xTF32
-   ``mma.sync``) kernels; a bf16 dQ call at an unsupported head dim must
-   raise; and the paged verify kernel at the speculative serve shapes
+   computes the same function: the flash forward (also replayed from a
+   CUDA graph, ``graph_ms``) and paged decode at the serve shapes, the
+   flash forward in bf16 (``wgmma``) and in fp32 (3xTF32
+   ``mma.sync``) at the training shape (B=8, H=12, L=1024, D=64, causal),
+   at D=128, at a ragged L=1000, without the causal rule, and at D=128
+   with fully masked rows; the flash backward's dQ and dK/dV kernels at
+   the training shapes (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and
+   bf16), masked cases with fully masked rows in fp32 and bf16, fp32 and
+   bf16 at D=128, at L=1000 and without the causal rule, and bf16 masked
+   at D=128 (bf16 dQ, dK and dV also held row by row: ``bwd_row_err``),
+   timed beside SDPA's backward alone, with ptxas's registers and spills
+   of the fp32 (3xTF32 ``mma.sync``) forward and backward kernels and of
+   the verify kernels; a bf16 dQ call at an unsupported head dim must
+   raise; and the paged
+   verify kernels (split context walk) at the speculative serve shapes
    (B=8, H=12, S=5, D=64, fp32 and bf16 pools, an idle slot and clamped
-   padding rows).
+   padding rows), at D=128, at S=16, with bf16 queries over a bf16 pool
+   and with a slot at position 511, each also timed as launches replayed
+   from a CUDA graph (``graph_ms``).
 4. serve: GPT-base at full width (seeded random weights, fp32) behind
    ``ServingEngine`` with the flash prefill and paged-decode kernels;
    16 requests submitted in three waves; launch counts checked against
@@ -42,7 +47,8 @@ Phases, one JSON line each; any failure exits nonzero:
    speculation: verify launches are 12 per verify dispatch, decode
    launches 0, greedy streams and the pre-sampling logits match the
    non-speculative engine's; prints tokens/s, TTFT/TPOT, tokens per
-   dispatch, acceptance and the sampler's card time.
+   dispatch, acceptance, the sampler's card time and the verify kernels'
+   profiled device ms per launch.
 6. train: the training path at full width: GPT-base (vocab 50257,
    max_len 1024) through ``Stoke`` in bf16 with flash attention, AdamW and
    norm clipping, B=8, L=1024, on the example corpus through
@@ -53,9 +59,9 @@ Phases, one JSON line each; any failure exits nonzero:
    ``grad_accum=2``, with its counters checked. Prints step ms p50,
    tokens/s, peak memory and the losses.
 7. train_parity: the same seeded GPT-base in fp32 at B=2, L=512 for 3
-   ``train_step``s through the kernels (the fp32 backward's 3xTF32
-   tensor-core kernels, 36 launches each) and through dense attention (no
-   kernel); the losses must agree within 1e-3 relative.
+   ``train_step``s through the kernels (the fp32 forward's and backward's
+   3xTF32 tensor-core kernels, 36 launches each) and through dense
+   attention (no kernel); the losses must agree within 1e-3 relative.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -91,9 +97,12 @@ VOCAB = 50257
 TRAIN_BATCH, TRAIN_LEN = 8, 1024
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 PARITY_RTOL = 1e-3  # kernels and dense attention sum in different orders
-# the fp32 backward kernels (csrc/flash_bwd.cu), whose registers and spills
-# the kernels phase reports
+BF16, FP32 = torch.bfloat16, torch.float32
+# kernels whose registers and spills the kernels phase reports: the fp32
+# (3xTF32 mma.sync) flash kernels and the verify kernels
 TF32X3_KERNELS = ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
+FWD_TF32X3_KERNELS = ("flash_fwd_tf32x3_kernel",)
+VERIFY_KERNELS = ("paged_verify_chunk_kernel", "paged_verify_merge_kernel")
 
 
 def emit(obj) -> None:
@@ -138,14 +147,21 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
 def ptxas_usage(log: str, kernels) -> dict:
     """Registers and spill bytes that ``nvcc -Xptxas -v`` reported in
     ``log`` for each instantiation of ``kernels`` (names without the
-    mangling), as ``{"<name><D>": {"registers": n, "spill_stores": n,
-    "spill_loads": n}}``."""
+    mangling), as ``{"<name><template args>": {"registers": n,
+    "spill_stores": n, "spill_loads": n}}``, the arguments as ints, f32
+    and bf16 (``"flash_fwd_tf32x3_kernel<64,4>"``; a type repeated in the
+    mangling as a back-reference ``S1_`` is the type before it)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?(" + "|".join(kernels)
-                      + r")ILi(\d+)E", line)
+                      + r")I(\S*?)EEv", line)
         if m:
-            cur = out.setdefault(f"{m.group(1)}<{m.group(2)}>", {})
+            args = []
+            for n, bf, ref, _ in re.findall(
+                    r"Li(\d+)E|(13__nv_bfloat16)|(S\d*_)|(f)", m.group(2)):
+                args.append(n or ("bf16" if bf else args[-1] if ref
+                                  else "f32"))
+            cur = out.setdefault(f"{m.group(1)}<{','.join(args)}>", {})
         elif "Function properties" in line:
             cur = None
         elif cur is not None and "spill stores" in line:
@@ -186,97 +202,112 @@ def padding_mask(B, L, dev):
 
 
 def check_flash(ops, gen, flush) -> list:
-    """Flash forward at the prefill shapes: B=1, H=12, D=64, causal with a
-    prompt-padding key mask, L in {64, 320, 512}, fp32 and bf16. The L=64
-    cases also mask key 0, which leaves query row 0 fully masked (LSE
-    sentinel check). Then ``FWD_BF16_CASES``. fp32 runs the scalar
-    kernel, bf16 the tensor-core one."""
-    cases = []
-    dev = torch.device("cuda")
-    for L, plen in ((64, 41), (320, 301), (512, 400)):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (
-                torch.randn(1, HEADS, L, HEAD_DIM, generator=gen,
-                            device=dev).to(dtype)
-                for _ in range(3)
-            )
-            mask = (torch.arange(L, device=dev) < plen).to(torch.int32)[None]
-            sentinel = L == 64
-            if sentinel:
-                mask[0, 0] = 0
-            out, lse = ops.flash_attention(q, k, v, mask, causal=True,
-                                           return_lse=True)
-            ref_out, ref_lse = ops.flash_attention_plain(q, k, v, mask, True)
-            torch.cuda.synchronize()
-            atol = FP32_ATOL if dtype == torch.float32 else ops.FWD_ATOL_BF16
-            err = max(max_err(out, ref_out), max_err(lse, ref_lse))
-            if not (torch.isfinite(out).all() and err <= atol):
-                raise AssertionError(
-                    f"flash_fwd L={L} {dtype}: max |kernel - plain| {err} "
-                    f"> {atol}"
-                )
-            if sentinel and not (
-                bool((lse[:, :, 0] == ops.NEG_INF).all())
-                and bool((out[:, :, 0] == 0).all())
-            ):
-                raise AssertionError("flash_fwd: fully masked row 0 is not "
-                                     "O == 0, LSE == -1e30")
-            # SDPA needs one boolean mask for causal and padding together
-            allow = torch.tril(torch.ones(L, L, dtype=torch.bool, device=dev))
-            allow = (allow & (mask[:, None, None, :] > 0))
-            ms = time_ms(lambda: ops.flash_attention(q, k, v, mask,
-                                                     causal=True), 50, flush)
-            plain_ms = time_ms(
-                lambda: ops.flash_attention_plain(q, k, v, mask, True), 20,
-                flush)
-            library_ms = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=allow), 50, flush)
-            flops = 4.0 * HEAD_DIM * HEADS * allowed_pairs(1, L, mask, True)
-            esize = q.element_size()
-            n_bytes = (4 * L * HEADS * HEAD_DIM * esize  # q, k, v, o
-                       + 4 * L + 4 * HEADS * L)          # mask, lse
-            b_ms, b_by = bound_ms(n_bytes, flops, dtype)
-            cases.append({
-                "L": L, "D": HEAD_DIM, "causal": True, "masked": True,
-                "prompt_len": plen,
-                "dtype": str(dtype)[6:], "max_abs_err": err, "atol": atol,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": b_ms, "bound_by": b_by,
-            })
-    for case in FWD_BF16_CASES:
-        cases.append(flash_fwd_bf16_case(ops, gen, flush, *case))
+    """Flash forward at the prefill shapes (``FWD_SERVE_CASES``, fp32 and
+    bf16), then ``FWD_BF16_CASES`` and ``FWD_FP32_CASES``. fp32 runs the
+    3xTF32 ``mma.sync`` kernel, bf16 the ``wgmma`` one."""
+    cases = [flash_fwd_serve_case(ops, gen, flush, L, plen, dtype)
+             for L, plen in FWD_SERVE_CASES for dtype in (FP32, BF16)]
+    for dtype, fwd_cases in ((BF16, FWD_BF16_CASES), (FP32, FWD_FP32_CASES)):
+        for case in fwd_cases:
+            cases.append(flash_fwd_case(ops, gen, flush, *case, dtype=dtype))
     return cases
 
 
-# bf16 forward cases at B=8, H=12 (L, D, causal, masked): the training
-# path's shape first, then the tensor-core kernel's other paths (L=1000 is
-# not a multiple of any tile)
+# the prefill shapes (L, prompt length): B=1, H=12, D=64, causal with a
+# prompt-padding key mask; the L=64 case also masks key 0, which leaves
+# query row 0 fully masked (LSE sentinel check)
+FWD_SERVE_CASES = ((64, 41), (320, 301), (512, 400))
+
+
+def flash_fwd_serve_case(ops, gen, flush, L, plen, dtype) -> dict:
+    """The forward at a prefill shape against its plain version, timed
+    beside SDPA, and as launches replayed from a CUDA graph (``graph_ms``:
+    a call this small is mostly the wrapper's host work under
+    ``time_ms``)."""
+    dev = torch.device("cuda")
+    q, k, v = (
+        torch.randn(1, HEADS, L, HEAD_DIM, generator=gen,
+                    device=dev).to(dtype)
+        for _ in range(3)
+    )
+    mask = (torch.arange(L, device=dev) < plen).to(torch.int32)[None]
+    sentinel = L == 64
+    if sentinel:
+        mask[0, 0] = 0
+    out, lse = ops.flash_attention(q, k, v, mask, causal=True,
+                                   return_lse=True)
+    ref_out, ref_lse = ops.flash_attention_plain(q, k, v, mask, True)
+    torch.cuda.synchronize()
+    atol = FP32_ATOL if dtype == FP32 else ops.FWD_ATOL_BF16
+    err = max(max_err(out, ref_out), max_err(lse, ref_lse))
+    if not (torch.isfinite(out).all() and err <= atol):
+        raise AssertionError(
+            f"flash_fwd L={L} {dtype}: max |kernel - plain| {err} > {atol}"
+        )
+    if sentinel and not (
+        bool((lse[:, :, 0] == ops.NEG_INF).all())
+        and bool((out[:, :, 0] == 0).all())
+    ):
+        raise AssertionError("flash_fwd: fully masked row 0 is not "
+                             "O == 0, LSE == -1e30")
+    # SDPA needs one boolean mask for causal and padding together
+    allow = torch.tril(torch.ones(L, L, dtype=torch.bool, device=dev))
+    allow = (allow & (mask[:, None, None, :] > 0))
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, mask, causal=True),
+                 50, flush)
+    plain_ms = time_ms(
+        lambda: ops.flash_attention_plain(q, k, v, mask, True), 20, flush)
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=allow), 50, flush)
+    flops = 4.0 * HEAD_DIM * HEADS * allowed_pairs(1, L, mask, True)
+    esize = q.element_size()
+    n_bytes = (4 * L * HEADS * HEAD_DIM * esize  # q, k, v, o
+               + 4 * L + 4 * HEADS * L)          # mask, lse
+    b_ms, b_by = bound_ms(n_bytes, flops, dtype)
+    return {
+        "B": 1, "L": L, "D": HEAD_DIM, "causal": True, "masked": True,
+        "prompt_len": plen,
+        "dtype": str(dtype)[6:], "max_abs_err": err, "atol": atol,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "graph_ms": graph_ms(lambda: ops.flash_attention(q, k, v, mask,
+                                                         causal=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+# forward cases at B=8, H=12 (L, D, causal, masked), in bf16 and in fp32:
+# the training path's shape first, then the kernels' other paths (L=1000
+# is not a multiple of any tile)
 FWD_BF16_CASES = ((TRAIN_LEN, HEAD_DIM, True, False),
                   (TRAIN_LEN, 128, True, False),
                   (1000, HEAD_DIM, True, False),
                   (TRAIN_LEN, HEAD_DIM, False, False),
                   (TRAIN_LEN, 128, True, True))
+FWD_FP32_CASES = FWD_BF16_CASES
 
 
-def flash_fwd_bf16_case(ops, gen, flush, L, D, causal, masked) -> dict:
-    """The bf16 forward at B=8, H=12, L, D against its plain version,
-    timed beside SDPA; ``masked`` applies ``padding_mask``, whose fully
-    masked rows must give O == 0 and LSE == -1e30."""
+def flash_fwd_case(ops, gen, flush, L, D, causal, masked,
+                   dtype=BF16) -> dict:
+    """The forward at B=8, H=12, L, D in ``dtype`` against its plain
+    version (``FWD_ATOL_BF16``, or ``FP32_ATOL`` for fp32), timed beside
+    SDPA; ``masked`` applies ``padding_mask``, whose fully masked rows
+    must give O == 0 and LSE == -1e30."""
     dev = torch.device("cuda")
     B = TRAIN_BATCH
     q, k, v = (torch.randn(B, HEADS, L, D, generator=gen,
-                           device=dev).to(torch.bfloat16) for _ in range(3))
+                           device=dev).to(dtype) for _ in range(3))
     mask = padding_mask(B, L, dev) if masked else None
     out, lse = ops.flash_attention(q, k, v, mask, causal=causal,
                                    return_lse=True)
     ref_out, ref_lse = ops.flash_attention_plain(q, k, v, mask, causal)
     torch.cuda.synchronize()
     err = max(max_err(out, ref_out), max_err(lse, ref_lse))
-    name = f"flash_fwd L={L} D={D} causal={causal} masked={masked} bf16"
-    if not (torch.isfinite(out).all() and err <= ops.FWD_ATOL_BF16):
-        raise AssertionError(f"{name}: max |kernel - plain| {err} > "
-                             f"{ops.FWD_ATOL_BF16}")
+    atol = FP32_ATOL if dtype == FP32 else ops.FWD_ATOL_BF16
+    name = (f"flash_fwd L={L} D={D} causal={causal} masked={masked} "
+            f"{str(dtype)[6:]}")
+    if not (torch.isfinite(out).all() and err <= atol):
+        raise AssertionError(f"{name}: max |kernel - plain| {err} > {atol}")
     if masked:
         dead = [(out[1], lse[1])] + ([(out[0, :, 0], lse[0, :, 0])]
                                      if causal else [])
@@ -294,11 +325,11 @@ def flash_fwd_bf16_case(ops, gen, flush, L, D, causal, masked) -> dict:
     pairs = HEADS * allowed_pairs(B, L, mask, causal)
     mask_bytes = 0 if mask is None else mask.numel() * 4
     b_ms, b_by = bound_ms(4 * q.numel() * q.element_size() + 4 * B * HEADS * L
-                          + mask_bytes, 4.0 * D * pairs, torch.bfloat16)
+                          + mask_bytes, 4.0 * D * pairs, dtype)
     return {
         "B": B, "L": L, "D": D, "causal": causal, "masked": masked,
-        "prompt_len": None, "dtype": "bfloat16",
-        "max_abs_err": err, "atol": ops.FWD_ATOL_BF16,
+        "prompt_len": None, "dtype": str(dtype)[6:],
+        "max_abs_err": err, "atol": atol,
         "ms": time_ms(lambda: ops.flash_attention(q, k, v, mask,
                                                   causal=causal), 20, flush),
         "plain_ms": time_ms(lambda: ops.flash_attention_plain(
@@ -367,17 +398,18 @@ def check_decode(ops, gen, flush) -> list:
     return cases
 
 
-def verify_inputs(gen, pool_dtype):
+def verify_inputs(gen, pool_dtype, D=HEAD_DIM, S=5, q_dtype=FP32,
+                  last_ctx=509):
     """Verify inputs at the speculative serve path's shapes: B=8 slots,
     H=12, S=5 (speculative_k=4), D=64, 16-token pages, 32-entry tables
     over the engine's pool of 8*32+1 blocks. Slot 0 is idle (positions
-    0..4 on an all-scratch table); the others verify at contexts from 17
-    to 509, the last with positions clamped to 511 as the scheduler clamps
+    0..S-1 on an all-scratch table); the others verify at contexts from 17
+    to ``last_ctx``, positions clamped to 511 as the scheduler clamps
     short drafts' padding rows at max_seq_len - 1."""
     dev = torch.device("cuda")
-    B, S, BS, MB = 8, 5, 16, 32
+    B, BS, MB = 8, 16, 32
     NB = B * MB + 1
-    ctx = [0, 17, 64, 129, 250, 333, 480, 509]
+    ctx = [0, 17, 64, 129, 250, 333, 480, last_ctx]
     positions = torch.tensor(
         [[s if b == 0 else min(c + s, MB * BS - 1) for s in range(S)]
          for b, c in enumerate(ctx)], dtype=torch.int32, device=dev)
@@ -386,48 +418,90 @@ def verify_inputs(gen, pool_dtype):
     for b in range(1, B):
         n = -(-int(positions[b].max() + 1) // BS)
         tables[b, :n] = perm[b * MB : b * MB + n]
-    q = torch.randn(B, HEADS, S, HEAD_DIM, generator=gen, device=dev)
-    k_pages = torch.randn(NB, BS, HEADS, HEAD_DIM, generator=gen,
+    q = torch.randn(B, HEADS, S, D, generator=gen, device=dev).to(q_dtype)
+    k_pages = torch.randn(NB, BS, HEADS, D, generator=gen,
                           device=dev).to(pool_dtype)
-    v_pages = torch.randn(NB, BS, HEADS, HEAD_DIM, generator=gen,
+    v_pages = torch.randn(NB, BS, HEADS, D, generator=gen,
                           device=dev).to(pool_dtype)
     return q, k_pages, v_pages, tables, positions
 
 
+# verify cases (pool dtype, q dtype, D, S, last slot's context): the serve
+# path's shapes with an fp32 and a bf16 pool, then D=128, S=16
+# (speculative_k=15), bf16 queries over a bf16 pool, and a slot whose
+# pending token sits at position 511, the table's last
+VERIFY_CASES = ((FP32, FP32, HEAD_DIM, 5, 509),
+                (BF16, FP32, HEAD_DIM, 5, 509),
+                (FP32, FP32, 128, 5, 509),
+                (FP32, FP32, HEAD_DIM, 16, 511),
+                (BF16, BF16, HEAD_DIM, 5, 511))
+
+
+def graph_ms(fn, n: int = 50) -> float:
+    """Device ms per call of ``fn`` over ``n`` calls captured in one CUDA
+    graph and replayed between one event pair: the kernels' time without
+    the wrapper's host work between them, which ``time_ms``'s per-call
+    events cannot separate from a kernel of tens of microseconds. The L2
+    is not flushed between the calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def check_verify(ops, gen, flush) -> list:
-    """The verify kernel against ``paged_verify_attention`` at the
-    speculative serve shapes, fp32 and bf16 pools. No single PyTorch call
-    computes a paged gather with a per-query positional mask, so there is
-    no library time."""
+    """The verify kernels against ``paged_verify_attention`` on
+    ``VERIFY_CASES``. No single PyTorch call computes a paged gather with
+    a per-query positional mask, so there is no library time."""
     cases = []
-    for pool_dtype in (torch.float32, torch.bfloat16):
-        q, kp, vp, tables, positions = verify_inputs(gen, pool_dtype)
+    for pool_dtype, q_dtype, D, S, last_ctx in VERIFY_CASES:
+        q, kp, vp, tables, positions = verify_inputs(gen, pool_dtype, D, S,
+                                                     q_dtype, last_ctx)
         out = ops.paged_verify_attention_pallas(q, kp, vp, tables, positions)
         ref = ops.paged_verify_attention(q, kp, vp, tables, positions)
         torch.cuda.synchronize()
-        atol = FP32_ATOL if pool_dtype == torch.float32 else ops.FWD_ATOL_BF16
+        atol = (FP32_ATOL if pool_dtype == FP32 and q_dtype == FP32
+                else ops.FWD_ATOL_BF16)
         err = max_err(out, ref)
+        name = (f"paged_verify pool {pool_dtype} q {q_dtype} D={D} S={S} "
+                f"last context {last_ctx}")
         if not (torch.isfinite(out).all() and err <= atol):
-            raise AssertionError(
-                f"paged_verify pool {pool_dtype}: max |kernel - plain| "
-                f"{err} > {atol}"
-            )
-        ms = time_ms(lambda: ops.paged_verify_attention_pallas(
-            q, kp, vp, tables, positions), 100, flush)
+            raise AssertionError(f"{name}: max |kernel - plain| {err} > "
+                                 f"{atol}")
+
+        def kernel():
+            return ops.paged_verify_attention_pallas(q, kp, vp, tables,
+                                                     positions)
+
+        ms = time_ms(kernel, 100, flush)
         plain_ms = time_ms(lambda: ops.paged_verify_attention(
             q, kp, vp, tables, positions), 20, flush)
         # K/V up to each slot's last visible position, q and out
         tokens = float((positions.max(dim=1).values + 1).sum())
-        S = q.shape[2]
-        n_bytes = (2 * tokens * HEADS * HEAD_DIM * kp.element_size()
+        n_bytes = (2 * tokens * HEADS * D * kp.element_size()
                    + 2 * q.numel() * q.element_size()
                    + tables.numel() * 4 + positions.numel() * 4)
-        flops = 4.0 * S * HEAD_DIM * HEADS * tokens
-        b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+        flops = 4.0 * S * D * HEADS * tokens
+        b_ms, b_by = bound_ms(n_bytes, flops, FP32)
         cases.append({
-            "B": q.shape[0], "S": S, "pool_dtype": str(pool_dtype)[6:],
+            "B": q.shape[0], "S": S, "D": D,
+            "pool_dtype": str(pool_dtype)[6:], "q_dtype": str(q_dtype)[6:],
             "last_positions": [int(p) for p in positions.max(dim=1).values],
-            "max_abs_err": err, "atol": atol, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "atol": atol, "ms": ms,
+            "graph_ms": graph_ms(kernel), "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         })
     return cases
@@ -459,7 +533,6 @@ def sdpa_backward_ms(q, k, v, do, causal, flush) -> float:
 # shapes in fp32 and bf16, padding masks with fully masked rows, and both
 # dtypes' tensor-core kernels' other paths (D=128, a ragged L=1000, no
 # causal rule)
-BF16, FP32 = torch.bfloat16, torch.float32
 BWD_CASES = ((512, FP32, HEAD_DIM, True, False),
              (512, BF16, HEAD_DIM, True, False),
              (TRAIN_LEN, FP32, HEAD_DIM, True, False),
@@ -760,7 +833,9 @@ def host_ms(prompts, streams) -> dict:
 def profile_drive(engine, prompts) -> dict:
     """Device time by CUDA kernel over one more drive of ``engine``
     (``torch.profiler``; user annotations left out), against its host
-    wall time: the card's busy share of a serve run."""
+    wall time: the card's busy share of a serve run; and the verify
+    kernels' device ms per verify launch (a chunk kernel and, where a
+    slot's walk spans chunks, a merge kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -777,11 +852,17 @@ def profile_drive(engine, prompts) -> dict:
         return {"wall_ms": wall * 1e3, "device_ms": "not measured"}
     device_ms = sum(r[0] for r in rows)
     s = engine.summary()
+    verify = [r for r in rows if "paged_verify" in r[1]]
+    launches = sum(c for _, n, c in verify if "chunk_kernel" in n)
     return {
         "wall_ms": wall * 1e3, "device_ms": device_ms,
         "device_busy_share": device_ms / (wall * 1e3),
         "launches": sum(r[2] for r in rows),
         "verify_dispatches": s["decode_steps"],
+        "verify_kernels": [{"name": n[:90], "calls": c, "ms": ms}
+                           for ms, n, c in verify],
+        "verify_ms_per_launch": (sum(r[0] for r in verify) / launches
+                                 if launches else "not measured"),
         "goodput_s": s["goodput_s"],
         "top": [{"name": n[:90], "calls": c, "ms": ms}
                 for ms, n, c in rows[:12]],
@@ -1167,9 +1248,13 @@ def main() -> int:
     verify = check_verify(ops, gen, flush)
     emit({"phase": "kernels", "card": smi, "flash_fwd": flash,
           "paged_decode": decode, "flash_bwd": flash_bwd,
+          "flash_fwd_fp32_ptxas": ptxas_usage(
+              _build.build_log("flash_fwd") or "", FWD_TF32X3_KERNELS),
           "flash_bwd_fp32_ptxas": ptxas_usage(
               _build.build_log("flash_bwd") or "", TF32X3_KERNELS),
-          "paged_verify": verify})
+          "paged_verify": verify,
+          "paged_verify_ptxas": ptxas_usage(
+              _build.build_log("paged_verify") or "", VERIFY_KERNELS)})
     del flush
     torch.cuda.empty_cache()
 
@@ -1184,10 +1269,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(train_parity(ops))
 
-    def row(name, source, replaces, launches, err, c, key="", fp32=None):
+    def row(name, source, functions, replaces, launches, err, c, key="",
+            fp32=None):
         out = {
             "name": name, "route": "cuda",
             "source": f"stoke_tpu_torch/csrc/{source}.cu",
+            "functions": functions,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": c[f"{key}ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c[f"{key}bound_ms"], "bound_by": c[f"{key}bound_by"],
@@ -1199,39 +1286,47 @@ def main() -> int:
                        fp32_library_ms=fp32["library_ms"])
         return out
 
-    # the training path's shape: L=1024, D=64, bf16
-    flash_main = next(c for c in flash if c["L"] == TRAIN_LEN
-                      and c["D"] == HEAD_DIM and c["causal"]
-                      and not c["masked"])
+    # the training path's shape: L=1024, D=64, bf16 (and fp32)
+    flash_main, flash_fp32 = (
+        next(c for c in flash if c["B"] == TRAIN_BATCH
+             and c["L"] == TRAIN_LEN and c["D"] == HEAD_DIM
+             and c["dtype"] == dtype and c["causal"] and not c["masked"])
+        for dtype in ("bfloat16", "float32"))
     bwd_main, bwd_fp32 = (
         next(c for c in flash_bwd if c["L"] == TRAIN_LEN
              and c["D"] == HEAD_DIM and c["dtype"] == dtype
              and c["causal"] and not c["masked"])
         for dtype in ("bfloat16", "float32"))
     emit({"kernels": [
-        row("flash_fwd", "flash_fwd", "stoke_tpu/ops/flash_attention.py:70",
+        row("flash_fwd", "flash_fwd",
+            ["flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel"],
+            "stoke_tpu/ops/flash_attention.py:70",
             trained["launches"]["flash_fwd"],
-            max(x["max_abs_err"] for x in flash), flash_main),
+            max(x["max_abs_err"] for x in flash), flash_main,
+            fp32=flash_fp32),
         row("flash_bwd_dq", "flash_bwd",
+            ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:210",
             trained["launches"]["flash_bwd_dq"],
             max(x["max_abs_err"]["dq"] for x in flash_bwd), bwd_main, "dq_",
             bwd_fp32),
         row("flash_bwd_dkv", "flash_bwd",
+            ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:246",
             trained["launches"]["flash_bwd_dkv"],
             max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
                 for x in flash_bwd), bwd_main, "dkv_", bwd_fp32),
-        row("paged_decode", "paged_decode",
+        row("paged_decode", "paged_decode", ["paged_decode_kernel"],
             "stoke_tpu/ops/flash_attention.py:581",
             served["launches"]["paged_decode"],
             max(x["max_abs_err"] for x in decode), decode[0]),
         # launches: the greedy and the sampled speculative runs
-        row("paged_verify", "paged_verify",
-            "stoke_tpu/ops/flash_attention.py:836",
-            spec["greedy"]["launches"]["paged_verify"]
-            + spec["sampled"]["launches"]["paged_verify"],
-            max(x["max_abs_err"] for x in verify), verify[0]),
+        {**row("paged_verify", "paged_verify", list(VERIFY_KERNELS),
+               "stoke_tpu/ops/flash_attention.py:836",
+               spec["greedy"]["launches"]["paged_verify"]
+               + spec["sampled"]["launches"]["paged_verify"],
+               max(x["max_abs_err"] for x in verify), verify[0]),
+         "graph_ms": verify[0]["graph_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

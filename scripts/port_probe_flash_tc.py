@@ -3,11 +3,13 @@
 Run from the root of a checkout:
 ``python3 scripts/port_probe_flash_tc.py [--dtype {bf16,fp32}]``.
 Builds ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, prints ptxas's
-registers and spills, then runs ``chip_smoke.py``'s kernels-phase cases
-``FWD_BF16_CASES`` and the ``BWD_CASES`` of the chosen dtype (bf16, the
-default: the ``wgmma`` kernels; fp32: the 3xTF32 ``mma.sync`` ones): each
-held against its plain version at the same tolerances and timed beside
-SDPA. Exits nonzero at the first case out of tolerance.
+registers and spills, then runs ``chip_smoke.py``'s kernels-phase cases in
+the chosen dtype (bf16, the default: the ``wgmma`` kernels; fp32: the
+3xTF32 ``mma.sync`` ones): the forward at the prefill shapes
+(``FWD_SERVE_CASES``) and at the training shapes (``FWD_BF16_CASES`` or
+``FWD_FP32_CASES``), then ``BWD_CASES``; each held against its plain
+version at the same tolerances and timed beside SDPA. Exits nonzero at
+the first case out of tolerance.
 """
 import argparse
 import json
@@ -24,9 +26,8 @@ from stoke_tpu_torch.ops import _build  # noqa: E402
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
-                        help="the BWD_CASES to run")
-    bwd_dtype = {"bf16": torch.bfloat16,
-                 "fp32": torch.float32}[parser.parse_args().dtype]
+                        help="the forward and backward cases to run")
+    dtype = {"bf16": cs.BF16, "fp32": cs.FP32}[parser.parse_args().dtype]
     seconds = _build.build(["flash_fwd", "flash_bwd"])
     print(json.dumps({"build": seconds}), flush=True)
     for n in ("flash_fwd", "flash_bwd"):
@@ -35,13 +36,22 @@ def main() -> int:
                               if "Function properties" in ln
                               or "registers" in ln or "spill" in ln]}),
               flush=True)
+    print(json.dumps({"fp32_ptxas": {
+        **cs.ptxas_usage(_build.build_log("flash_fwd") or "",
+                         cs.FWD_TF32X3_KERNELS),
+        **cs.ptxas_usage(_build.build_log("flash_bwd") or "",
+                         cs.TF32X3_KERNELS)}}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    for case in cs.FWD_BF16_CASES:
-        print(json.dumps(cs.flash_fwd_bf16_case(ops, gen, flush, *case)),
-              flush=True)
-    for L, dtype, D, causal, masked in cs.BWD_CASES:
-        if dtype == bwd_dtype:
+    for L, plen in cs.FWD_SERVE_CASES:
+        print(json.dumps(cs.flash_fwd_serve_case(ops, gen, flush, L, plen,
+                                                 dtype)), flush=True)
+    fwd_cases = cs.FWD_FP32_CASES if dtype == cs.FP32 else cs.FWD_BF16_CASES
+    for case in fwd_cases:
+        print(json.dumps(cs.flash_fwd_case(ops, gen, flush, *case,
+                                           dtype=dtype)), flush=True)
+    for L, bwd_dtype, D, causal, masked in cs.BWD_CASES:
+        if bwd_dtype == dtype:
             print(json.dumps(cs.flash_bwd_case(ops, gen, flush, L, dtype, D,
                                                causal, masked)), flush=True)
     print(cs.nvidia_smi_line(), flush=True)

@@ -93,8 +93,6 @@
 // (mma_tf32.cuh). Each tile's dV, dK or dQ is summed in a fresh
 // accumulator and added to the running sum with an fp32 add: the running
 // sum carried through hundreds of products drifted by up to 8e-5.
-#include <initializer_list>
-
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mma_tf32.cuh"
@@ -406,13 +404,6 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
       *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
           make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
   }
-}
-
-// cp.async copies 16 bytes at a time
-inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
 }
 
 template <int D>

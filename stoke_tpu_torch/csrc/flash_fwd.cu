@@ -10,23 +10,46 @@
 //
 // What bounds it on the H100: per head ~4*L*L*D FLOPs (half under causal)
 // against 4*L*D elements moved, so at the training shape (B=8, H=12,
-// L=1024, D=64) it is bound by operations, and only the tensor cores'
-// 989 TFLOP/s bf16 come near that bound; the score matrix never leaves the
-// SM.
+// L=1024, D=64) it is bound by operations, and only the tensor cores come
+// near that bound: 989 TFLOP/s in bf16, and for fp32 a third of the 495
+// TFLOP/s TF32 rate (3xTF32, below); the score matrix never leaves the SM.
 //
-// Dispatch by dtype: bfloat16 runs the tensor-core kernel below; float32
-// keeps the scalar kernel of the first port (flash_fwd_kernel), since a
-// tensor-core float32 path would be TF32 and break the fp32 serve paths'
-// 1e-4 tolerance. Its design: one block per (b*h, 64-row q tile) walks 64-
-// key tiles staged in shared memory as fp32 (rows padded by one float
-// against bank conflicts); 4 adjacent threads share a q row, each with 16
-// scores of a tile and D/4 output dims in registers, P going through
-// shared memory between the two products as fp32 FMAs.
-//
-// The bf16 kernel (flash_fwd_wgmma_kernel). On the TPU the k tiles are a
+// Dispatch by dtype: bfloat16 runs flash_fwd_wgmma_kernel (namespace tc),
+// float32 flash_fwd_tf32x3_kernel (namespace f32). Both walk the k tiles of
+// one (b*h, q tile) in a loop of their own (on the TPU the k tiles are a
 // sequential grid axis whose VMEM scratch (acc, m, l) carries across grid
-// steps; here each CTA owns one (b*h, 64-row q tile) and walks the k tiles
-// in a loop of its own:
+// steps); under causal, tiles wholly above the diagonal are never loaded
+// (the TPU's `run` predicate becomes the loop bound), and the q tiles with
+// the longest walks are launched first. The online softmax runs in
+// registers in log2 units (exp2): a thread holds two rows, whose max and
+// sum reduce over the 4 lanes sharing them (two shuffles). A score at the
+// kNegInf sentinel gets p = 0, tested before the exponential, so a fully
+// masked row keeps l == 0 and gives O == 0 and LSE == kNegInf as on the
+// TPU. Rows past L are zero-filled on load and never written.
+//
+// The fp32 kernel (flash_fwd_tf32x3_kernel) is the warp-level mma.sync
+// design of the fp32 backward (flash_bwd.cu, helpers in mma_tf32.cuh):
+//   * a CTA is 4 warps, each owning 16 of the 64 q rows. Q stays in
+//     shared memory (rows padded to D + 4 floats); K and V stream in
+//     32-row tiles through a 2-stage cp.async ring, and warp 0 packs each
+//     tile's key flags (in range and not masked) into one 32-bit word beside
+//     it, read once before the products;
+//   * S = Q K^T by TF32 mma.sync.m16n8k8, Q the A operand and K the B
+//     operand with k along its rows; every product is 3xTF32 (each operand
+//     split into two TF32 terms, three products summed in fp32: ~2^-21 per
+//     operand, where one TF32 rounding (2^-11) moves O by ~1e-3 and fails
+//     FP32_ATOL = 1e-4; tests/test_torch_flash_tf32_numerics.py);
+//   * O += P V with P fed back from the score accumulator as the A operand
+//     (its k index in the order 0, 2, 4, 6, 1, 3, 5, 7) and V read down its
+//     rows in the same order: P never leaves the registers. Each tile's P V
+//     is summed in a fresh accumulator and added to the rescaled O with one
+//     fp32 add (mma_acc_tile): a sum carried in the tensor cores'
+//     accumulator through a long walk drifts. 32-row q tiles, tried for
+//     the serve prefill's small grid (B=1: 96 CTAs of 64 rows at L=512),
+//     were slower there too (PERF.md).
+// What bounds it: operations, at a third of the 495 TFLOP/s TF32 rate.
+//
+// The bf16 kernel (flash_fwd_wgmma_kernel):
 //   * a CTA is one consumer warpgroup (the 64 q rows) and one producer
 //     warp. One producer thread loads Q once and K, V tiles of BN rows
 //     (128 at D=64, 64 at D=128) by TMA into a 2-stage ring of 128-byte-
@@ -35,15 +58,8 @@
 //     flags: in range and unmasked) and an "empty" one the consumers
 //     release. 3-D tensor maps over [B*H, L, D] zero-fill rows past L;
 //   * S = Q K^T by wgmma m64nBNk16 (Q and K K-major from shared memory,
-//     fp32 accumulators in registers), then scale (in log2 units, for
-//     exp2), key mask and, under causal, the diagonal rule; tiles wholly
-//     above the diagonal are never loaded (the TPU's `run` predicate
-//     becomes the loop bound), and the last q tiles are launched first;
-//   * the online softmax runs in registers: a thread holds two rows, whose
-//     max and sum reduce over the 4 lanes sharing them (two shuffles). A
-//     score at the kNegInf sentinel gets p = 0, tested before the
-//     exponential, so a fully masked row keeps l == 0 and gives O == 0 and
-//     LSE == kNegInf as on the TPU;
+//     fp32 accumulators in registers), then scale, key mask and, under
+//     causal, the diagonal rule;
 //   * O += P V by register-A wgmma: P is rounded to bf16 in registers (the
 //     accumulator's layout is the A fragment's), V is the MN-major B
 //     operand. The rounding is one the TPU kernel does not make (it
@@ -55,150 +71,206 @@
 //     tiles and written as O / l in bf16 with the LSE rows.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using stoke::kNegInf;
+using stoke::hopper::kLog2e;
+constexpr float kLn2 = 0.6931471805599453f;
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kThreadsPerRow = kThreads / kBlockQ;  // 4, adjacent lanes
+// --------------------------------------------------------------------------
+// fp32: 3xTF32 warp-level mma.sync over cp.async-loaded tiles
+
+namespace f32 {
+
+using namespace stoke::tf32;
+
+constexpr int kRows = 64;  // q rows of a CTA, 16 for each of 4 warps
+constexpr int kThreads = 128;
+constexpr int kBK = 32;  // k rows of a streamed tile: one 32-bit key word
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBlockQ * (D + 1) + kBlockK * (D + 1) +
-                          kBlockK * D + kBlockQ * (kBlockK + 1)) +
-         sizeof(int) * kBlockK;
-}
+struct FwdCfg {
+  static constexpr int S = D + 4;  // row stride of a shared tile (floats)
+  // a stage: K [kBK][S] | V [kBK][S]
+  static constexpr int kStage = 2 * kBK * S;
+  // Q [kRows][S] | 2 stages | key bits [2]
+  static constexpr int kBitsOff = kRows * S + 2 * kStage;  // floats
+  static constexpr size_t kSmem =
+      sizeof(float) * kBitsOff + 2 * sizeof(uint32_t);
+};
 
+// 2 CTAs an SM, up to 255 registers a thread: at D=64 a cap of 170
+// (3 CTAs) spilled, at D=128 shared memory allows no more
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ mask,
-                     float* __restrict__ o, float* __restrict__ lse, int H,
-                     int L, float scale, int causal) {
-  constexpr int SQ = D + 1;        // padded row stride of the Q and K tiles
-  constexpr int SP = kBlockK + 1;  // padded row stride of the P tile
-  constexpr int CPT = kBlockK / kThreadsPerRow;  // score columns per thread
-  constexpr int DPT = D / kThreadsPerRow;        // output dims per thread
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const int* __restrict__ mask,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            int H, int L, float scale, int causal) {
+  using C = FwdCfg<D>;
+  constexpr int BK = kBK, S = C::S;
+  extern __shared__ float4 smem_f4[];  // 16-byte aligned for cp.async
+  float* qs = reinterpret_cast<float*>(smem_f4);
+  float* stages = qs + kRows * S;
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(qs + C::kBitsOff);
 
-  extern __shared__ float smem[];
-  float* qs = smem;                // [kBlockQ][SQ]
-  float* ks = qs + kBlockQ * SQ;   // [kBlockK][SQ]
-  float* vs = ks + kBlockK * SQ;   // [kBlockK][D]
-  float* ps = vs + kBlockK * D;    // [kBlockQ][SP]
-  int* kvalid = reinterpret_cast<int*>(ps + kBlockQ * SP);  // [kBlockK]
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest walks first
+  // under causal, stop at the last k tile that touches the diagonal
+  const int n_tiles = ((causal ? min(L, q0 + kRows) : L) + BK - 1) / BK;
+  const size_t head = static_cast<size_t>(bh) * L;
+  const float* kh = k + head * D;
+  const float* vh = v + head * D;
+  const int* mrow =
+      mask == nullptr ? nullptr : mask + static_cast<size_t>(bh / H) * L;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t base = static_cast<size_t>(bh) * L * D;
-  const int tid = threadIdx.x;
-  const int row = tid / kThreadsPerRow;
-  const int sub = tid % kThreadsPerRow;
-  const int qpos = q0 + row;
+  // the stage of k tile i: K and V rows; warp 0 packs the tile's key flags
+  // (in range and not masked) into one word beside it, bit j for key k0 + j
+  auto load_k_tile = [&](int i) {
+    float* st = stages + (i & 1) * C::kStage;
+    const int k0 = i * BK;
+    load_rows<BK, D, kThreads>(st, kh, k0, L, tid);
+    load_rows<BK, D, kThreads>(st + BK * S, vh, k0, L, tid);
+    cp_async_commit();
+    if (warp == 0) {
+      const int kr = k0 + lane;
+      const bool ok = kr < L && (mrow == nullptr || mrow[kr] > 0);
+      const uint32_t bits = __ballot_sync(0xffffffffu, ok);
+      if (lane == 0) kbits[i & 1] = bits;
+    }
+  };
+  load_rows<kRows, D, kThreads>(qs, q + head * D, q0, L, tid);
+  load_k_tile(0);  // one group with Q
 
-  for (int e = tid; e < kBlockQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int qr = q0 + r;
-    qs[r * SQ + c] = qr < L ? q[base + static_cast<size_t>(qr) * D + c] : 0.f;
-  }
-
-  float m = kNegInf, l = 0.f;
-  float acc[DPT];
+  // this thread's query rows: g and g + 8 of the warp's 16
+  const int r0 = 16 * warp;
+  const int g = lane / 4, t = lane % 4;
+  const int qpos[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const float scale_log2 = scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // [n][e]: columns 8n + 2t + (e & 1) of rows g (e < 2) and g + 8
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  int n_tiles = (L + kBlockK - 1) / kBlockK;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBlockQ - 1) / kBlockK + 1);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBlockK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const int kr = k0 + r;
-      const bool in = kr < L;
-      const size_t g = base + static_cast<size_t>(kr) * D + c;
-      ks[r * SQ + c] = in ? k[g] : 0.f;
-      vs[r * D + c] = in ? v[g] : 0.f;
-    }
-    if (tid < kBlockK) {
-      const int kr = k0 + tid;
-      kvalid[tid] = kr < L &&
-                    (mask == nullptr ||
-                     mask[static_cast<size_t>(b) * L + kr] > 0);
-    }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    // tile i and its key word have landed for every thread, and every warp
+    // is done with tile i - 1, whose stage the next load overwrites
     __syncthreads();
+    if (i + 1 < n_tiles) load_k_tile(i + 1);
+    const float* ks = stages + (i & 1) * C::kStage;
+    const float* vs = ks + BK * S;
+    // the key flags as one word, read before the products
+    const uint32_t bits = kbits[i & 1];
+    const int k0 = i * BK;
 
-    float s[CPT];
-    float mx = kNegInf;
+    // S = Q K^T over the head dim, 8 columns a step
+    float sc[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = sub + j * kThreadsPerRow;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) dot += qs[row * SQ + d] * ks[c * SQ + d];
-      const bool ok = kvalid[c] && (!causal || qpos >= k0 + c);
-      s[j] = ok ? dot * scale : kNegInf;
-      mx = fmaxf(mx, s[j]);
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t qb[4], qsm[4];
+      load_a<S>(qs + r0 * S + 8 * kk, lane, qb, qsm);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        uint32_t bb[2], bs[2];
+        load_b_nk<S>(ks + 8 * n * S + 8 * kk, lane, bb, bs);
+        mma_tf32x3(sc[n], qb, qsm, bb, bs);
+      }
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float rs = 0.f;
+    // scale (log2 units), key word and causal rule, the rows' maxima
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
-      ps[row * SP + sub + j * kThreadsPerRow] = p;
-      rs += p;
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = 8 * n + 2 * t + (e & 1);
+        const bool ok =
+            ((bits >> col) & 1) && (!causal || qpos[h] >= k0 + col);
+        sc[n][e] = ok ? sc[n][e] * scale_log2 : kNegInf;
+        mx[h] = fmaxf(mx[h], sc[n][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
     }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * corr + rs;
-    m = m_new;
-    __syncwarp();  // a row's P is written and read by the same 4 lanes
-
+    // P in place of S: 0 at the sentinel, tested before the exponential
+    float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= corr;
-    for (int c = 0; c < kBlockK; ++c) {
-      const float p = ps[row * SP + c];
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < DPT; ++i)
-        acc[i] += p * vs[c * D + sub + i * kThreadsPerRow];
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        sc[n][e] = sc[n][e] > 0.5f * kNegInf ? exp2f(sc[n][e] - m[h]) : 0.f;
+        rs[h] += sc[n][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      l[h] = l[h] * corr[h] + rs[h];
     }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+    // O += P V, P as A from registers, V read down its rows
+    mma_acc_tile<BK, D, S>(acc, sc, vs, lane);
   }
 
-  if (qpos < L) {
-    const float safe_l = l > 0.f ? l : 1.f;
-    const size_t out = base + static_cast<size_t>(qpos) * D;
+  // rows past L write nothing; a fully masked row writes zeros and kNegInf.
+  // l >= 1 where it is not 0 (the row's max term is 1), so the fast
+  // division (2 ulp, no slow-path call) is exact enough
 #pragma unroll
-    for (int i = 0; i < DPT; ++i)
-      o[out + sub + i * kThreadsPerRow] = acc[i] / safe_l;
-    if (sub == 0)
-      lse[static_cast<size_t>(bh) * L + qpos] =
-          l > 0.f ? m + logf(l) : kNegInf;
+  for (int h = 0; h < 2; ++h) {
+    if (qpos[h] >= L) continue;
+    const float inv = __fdividef(1.f, l[h] > 0.f ? l[h] : 1.f);
+    float* out = o + (head + qpos[h]) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+    if (t == 0)
+      lse[head + qpos[h]] = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : kNegInf;
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* mask, void* o, float* lse, int BH, int H, int L,
-                   float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+int launch(const void* q, const void* k, const void* v, const int* mask,
+           void* o, float* lse, int BH, int H, int L, float scale, int causal,
+           cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  if (!aligned16({q, k, v, o})) return cudaErrorMisalignedAddress;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_tf32x3_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((L + kBlockQ - 1) / kBlockQ, BH);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(BH, (L + kRows - 1) / kRows);
+  flash_fwd_tf32x3_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), mask, static_cast<float*>(o), lse, H, L,
       scale, causal);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 // --------------------------------------------------------------------------
 // bf16: warpgroup MMA over TMA-loaded tiles
@@ -211,7 +283,6 @@ constexpr int kRows = 64;       // q rows of a CTA: one consumer warpgroup
 constexpr int kConsumers = 128;  // the warpgroup
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kStages = 2;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -420,20 +491,23 @@ int launch(const void* q, const void* k, const void* v, const int* mask,
 extern "C" {
 
 // q, k, v, o: [BH, L, D] contiguous, dtype 0 = float32, 1 = bfloat16;
-// mask: [B, L] int32 or null; lse: [BH, L] float32. bfloat16 launches the
-// tensor-core kernel (flash_fwd_wgmma_kernel), float32 the scalar one.
-// Returns the CUDA error of the launch (0 on success), -1 for a dtype or
-// head dim it does not take, -2 if a TMA tensor map cannot be made (the
-// libcuda lacks the encoder, or a pointer is not 16-byte aligned).
+// mask: [B, L] int32 or null; lse: [BH, L] float32. bfloat16 launches
+// flash_fwd_wgmma_kernel, float32 flash_fwd_tf32x3_kernel. Returns the CUDA
+// error of the launch (0 on success; float32 pointers that are not 16-byte
+// aligned give cudaErrorMisalignedAddress), -1 for a dtype or head dim it
+// does not take, -2 if a TMA tensor map cannot be made (the libcuda lacks
+// the encoder, or a bfloat16 pointer is not 16-byte aligned).
 int stoke_flash_fwd(const void* q, const void* k, const void* v,
                     const int* mask, void* o, float* lse, int BH, int H,
                     int L, int D, int dtype, float scale, int causal,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch<64>(q, k, v, mask, o, lse, BH, H, L, scale, causal, s);
+    return f32::launch<64>(q, k, v, mask, o, lse, BH, H, L, scale, causal,
+                           s);
   if (dtype == 0 && D == 128)
-    return launch<128>(q, k, v, mask, o, lse, BH, H, L, scale, causal, s);
+    return f32::launch<128>(q, k, v, mask, o, lse, BH, H, L, scale, causal,
+                            s);
   if (dtype == 1 && D == 64)
     return tc::launch<64>(q, k, v, mask, o, lse, BH, H, L, scale, causal, s);
   if (dtype == 1 && D == 128)

@@ -1,7 +1,8 @@
-// Warp-level tensor-core building blocks of the port's fp32 flash backward
-// (flash_bwd.cu): TF32 `mma.sync` products with the 3xTF32 split, fragment
-// loads from shared tiles in either orientation, and `cp.async` copies, as
-// inline PTX for sm_80 and later (the port builds them for sm_90a).
+// Warp-level tensor-core building blocks of the port's fp32 flash kernels
+// (flash_fwd.cu, flash_bwd.cu): TF32 `mma.sync` products with the 3xTF32
+// split, fragment loads from shared tiles in either orientation, and
+// `cp.async` copies, as inline PTX for sm_80 and later (the port builds
+// them for sm_90a).
 //
 // Why 3xTF32: a TF32 operand keeps 10 of fp32's 23 mantissa bits, a
 // relative error of up to 2^-11 per operand, which a gradient of order 1
@@ -31,6 +32,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace stoke {
 namespace tf32 {
@@ -181,6 +184,13 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async copies 16 bytes at a time: true if every pointer allows it
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
 }
 
 // rows [r0, r0 + R) of a row-major [L, D] fp32 slab at src into a shared

@@ -664,14 +664,21 @@ def _paged_verify_cuda(q, k_pages, v_pages, block_tables, positions):
     )
     fn, err = _kernel(
         "paged_verify",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
          ctypes.c_float, _P],
     )
+    lib = _build.load("paged_verify")
+    ws_floats = lib.stoke_paged_verify_workspace_floats
+    if ws_floats.argtypes is None:
+        ws_floats.argtypes, ws_floats.restype = [_I] * 6, ctypes.c_longlong
+    # the chunks' partial softmax states, which the merge kernel combines
+    ws = torch.empty(ws_floats(B, H, S, D, BS, MB), dtype=torch.float32,
+                     device=q.device)
     out = torch.empty_like(q)
     rc = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        B, H, S, D, NB, BS, MB, _DTYPE_CODES[q.dtype],
+        ws.data_ptr(), B, H, S, D, NB, BS, MB, _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_pages.dtype], 1.0 / math.sqrt(D),
         _stream_ptr(q.device),
     )
@@ -685,7 +692,8 @@ def paged_verify_attention_pallas(q, k_pages, v_pages, block_tables,
     """The verify kernel's wrapper, under the JAX package's name.
 
     Same contract as :func:`paged_verify_attention`. On the card it
-    launches ``csrc/paged_verify.cu`` (contiguous int32 tables and
+    launches ``csrc/paged_verify.cu``'s chunk and merge kernels, counted
+    once in ``LAUNCHES["paged_verify"]`` (contiguous int32 tables and
     positions, contiguous float32 or bfloat16 query and pools, head dim 64
     or 128, at most ``VERIFY_MAX_QUERIES`` query rows); on the CPU it runs
     :func:`paged_verify_attention`."""

@@ -1,6 +1,7 @@
-"""The fp32 contract admits the 3xTF32 split of the fp32 backward kernels.
+"""The fp32 contract admits the 3xTF32 split of the fp32 flash kernels.
 
-The fp32 dQ and dK/dV kernels (``csrc/flash_bwd.cu``,
+The fp32 forward, dQ and dK/dV kernels (``csrc/flash_fwd.cu``,
+``flash_fwd_tf32x3_kernel``; ``csrc/flash_bwd.cu``,
 ``flash_bwd_dq_tf32x3_kernel`` and ``flash_bwd_dkv_tf32x3_kernel``) compute
 every product on the tensor cores from TF32 operands: each fp32 operand x
 is split into ``big = tf32(x)`` and ``small = tf32(x - big)``, and a product
@@ -11,9 +12,13 @@ kernels' products tile by tile (32-row tiles), and holds dQ, dK and
 dV against ``jax.grad`` of the JAX package's ``flash_attention`` (Pallas in
 interpret mode off the TPU) on the same numpy inputs, at the tolerance the
 fp32 plain version is held to in ``tests/test_torch_flash_bwd.py`` (rtol
-1e-4, atol 1e-5), unchanged. One TF32 rounding per operand (1xTF32) does
-not pass it, which is why the kernels split. Fully masked rows stay exactly
-zero.
+1e-4, atol 1e-5), unchanged. The forward is emulated the same way, q tile
+by q tile and k tile by k tile (its online softmax in log2 units, P split
+like any other operand, each tile's P V in a fresh sum), and O and LSE are
+held against the JAX package's forward at the tolerance
+``tests/test_torch_flash.py`` holds the plain version to (atol 1e-5). One
+TF32 rounding per operand (1xTF32) does not pass either, which is why the
+kernels split. Fully masked rows stay exactly zero (and LSE -1e30).
 """
 
 import jax
@@ -23,13 +28,18 @@ import pytest
 import torch
 
 from stoke_tpu.ops.flash_attention import flash_attention as jax_flash
-from stoke_tpu_torch.ops import flash_attention_plain
+from stoke_tpu_torch.ops import NEG_INF, flash_attention_plain
 
 pytestmark = pytest.mark.torch_port
 
 RTOL, ATOL = 1e-4, 1e-5
+FWD_ATOL = 1e-5  # tests/test_torch_flash.py's tolerance for the forward
 B, H, D = 2, 2, 64
-TILE = 32  # q rows a step of the dK/dV kernel, k rows of the dQ kernel
+# q rows a step of the dK/dV kernel, k rows of the dQ kernel's and the
+# forward kernel's streamed tiles
+TILE = 32
+FWD_Q_TILE = 64  # q rows of a forward CTA
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 
 
 def _inputs(L, masked, seed):
@@ -155,3 +165,77 @@ def test_tf32x1_backward_fails_fp32_tolerance(causal):
     for a, b in zip(ours, theirs):
         assert not np.allclose(a, b, rtol=RTOL, atol=ATOL)
         assert np.abs(a - b).max() > 10 * ATOL
+
+
+# --------------------------------------------------------------------------- #
+# the forward
+# --------------------------------------------------------------------------- #
+
+
+def tf32x_forward(q, k, v, mask, causal, mm=mm3):
+    """O and LSE through the fp32 forward kernel's arithmetic: per q tile
+    of FWD_Q_TILE rows, the k tiles of TILE keys (under causal, up to the
+    last one that touches the tile's diagonal), S = Q K^T, the online
+    softmax in log2 units with p = 0 at the sentinel, and each tile's P V
+    summed fresh and added to the rescaled O."""
+    q_tile = FWD_Q_TILE
+    L = q.shape[2]
+    scale_log2 = LOG2E / D**0.5
+    allow = _allowed(L, mask, causal)
+    out, lse = torch.zeros_like(q), torch.empty(B, H, L)
+    for q0 in range(0, L, q_tile):
+        qs = slice(q0, q0 + q_tile)
+        rows = q[:, :, qs]
+        m = torch.full((*rows.shape[:3], 1), NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(rows)
+        for k0 in range(0, min(L, q0 + q_tile) if causal else L, TILE):
+            ks = slice(k0, k0 + TILE)
+            s = mm(rows, k[:, :, ks].transpose(-1, -2))
+            s = torch.where(allow[:, :, qs, ks], s * scale_log2, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.where(s > 0.5 * NEG_INF, torch.exp2(s - m_new), 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + mm(p, v[:, :, ks])
+            m = m_new
+        out[:, :, qs] = acc / torch.where(l > 0, l, 1.0)
+        lse[:, :, qs] = torch.where(l > 0, m * LN2 + torch.log(l),
+                                    NEG_INF)[..., 0]
+    return out, lse
+
+
+def _fwd_case(L, masked, causal, mm, seed):
+    q, k, v, _, mask = _inputs(L, masked, seed)
+    tm = None if mask is None else torch.from_numpy(mask)
+    out, lse = tf32x_forward(*(torch.from_numpy(a) for a in (q, k, v)), tm,
+                             causal, mm)
+    j_out, j_lse = jax_flash(*(jnp.asarray(a) for a in (q, k, v)),
+                             None if mask is None else jnp.asarray(mask),
+                             causal=causal, return_lse=True)
+    return out.numpy(), lse.numpy(), np.asarray(j_out), np.asarray(j_lse), tm
+
+
+@pytest.mark.parametrize("L", [64, 130, 300])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tf32x3_forward_within_fp32_tolerance(L, masked, causal):
+    """L=130 and 300 end mid-tile, L=130 two keys into a third q tile."""
+    out, lse, j_out, j_lse, tm = _fwd_case(
+        L, masked, causal, mm3, seed=70 + L + 2 * masked + causal)
+    np.testing.assert_allclose(out, j_out, atol=FWD_ATOL)
+    np.testing.assert_allclose(lse, j_lse, atol=FWD_ATOL)
+
+    dead = ~_allowed(L, tm, causal).numpy().any(-1)  # [B, H, L]
+    assert dead.any() == masked
+    assert (out[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    assert np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_tf32x1_forward_fails_fp32_tolerance(causal):
+    """Each operand rounded to TF32 once moves O by ~1e-3: outside the
+    fp32 tolerance the 3xTF32 split keeps."""
+    out, _, j_out, _, _ = _fwd_case(64, False, causal, mm1, seed=90 + causal)
+    assert not np.allclose(out, j_out, atol=FWD_ATOL)
+    assert np.abs(out - j_out).max() > 10 * FWD_ATOL
