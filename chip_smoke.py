@@ -16,7 +16,11 @@ Phases, one JSON line each; any failure exits nonzero:
    shapes, with its time, the plain version's, the least time the card
    could take (``bound_ms``) and a PyTorch library call's where one
    computes the same function: the flash forward (also replayed from a
-   CUDA graph, ``graph_ms``) and paged decode at the serve shapes, the
+   CUDA graph, ``graph_ms``) at the serve shapes; the paged decode
+   kernels (split context walk) at the serve shapes (B=8, H=12, D=64,
+   fp32 and bf16 pools, an inactive slot), at D=128, with bf16 queries
+   over a bf16 pool, with a slot at context 512 and with one at context
+   0 (held to exact zeros), each also with ``graph_ms``; the
    flash forward in bf16 (``wgmma``) and in fp32 (3xTF32
    ``mma.sync``) at the training shape (B=8, H=12, L=1024, D=64, causal),
    at D=128, at a ragged L=1000, without the causal rule, and at D=128
@@ -27,9 +31,9 @@ Phases, one JSON line each; any failure exits nonzero:
    at D=128 (bf16 dQ, dK and dV also held row by row: ``bwd_row_err``),
    timed beside SDPA's backward alone, with ptxas's registers and spills
    of the fp32 (3xTF32 ``mma.sync``) forward and backward kernels and of
-   the verify kernels; a bf16 dQ call at an unsupported head dim must
-   raise; and the paged
-   verify kernels (split context walk) at the speculative serve shapes
+   the decode and verify kernels; a bf16 dQ call at an unsupported head
+   dim must raise; and the paged verify kernels (split context walk) at
+   the speculative serve shapes
    (B=8, H=12, S=5, D=64, fp32 and bf16 pools, an idle slot and clamped
    padding rows), at D=128, at S=16, with bf16 queries over a bf16 pool
    and with a slot at position 511, each also timed as launches replayed
@@ -38,7 +42,9 @@ Phases, one JSON line each; any failure exits nonzero:
    ``ServingEngine`` with the flash prefill and paged-decode kernels;
    16 requests submitted in three waves; launch counts checked against
    the layers and steps; greedy streams held against the same engine on
-   the plain attention path.
+   the plain attention path; then one more drive under ``torch.profiler``
+   for the card's busy share and the decode kernels' device ms per
+   launch (``decode_ms_per_launch``).
 5. serve_spec: the same GPT-base behind the speculative engine
    (``sampling=True, speculative_k=4, prefill_chunk_tokens=128``; the
    verify kernel, packed chunked prefill, threefry sampling) on 16
@@ -99,9 +105,10 @@ WARMUP_STEPS, TIMED_STEPS = 2, 10
 PARITY_RTOL = 1e-3  # kernels and dense attention sum in different orders
 BF16, FP32 = torch.bfloat16, torch.float32
 # kernels whose registers and spills the kernels phase reports: the fp32
-# (3xTF32 mma.sync) flash kernels and the verify kernels
+# (3xTF32 mma.sync) flash kernels and the decode and verify kernels
 TF32X3_KERNELS = ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
 FWD_TF32X3_KERNELS = ("flash_fwd_tf32x3_kernel",)
+DECODE_KERNELS = ("paged_decode_chunk_kernel", "paged_decode_merge_kernel")
 VERIFY_KERNELS = ("paged_verify_chunk_kernel", "paged_verify_merge_kernel")
 
 
@@ -342,57 +349,88 @@ def flash_fwd_case(ops, gen, flush, L, D, causal, masked,
     }
 
 
-def decode_inputs(gen, pool_dtype):
+def decode_inputs(gen, pool_dtype, D=HEAD_DIM, q_dtype=FP32, last_ctx=432,
+                  first_ctx=1):
     """Decode inputs at the serve path's shapes: B=8 slots, H=12, D=64,
     16-token pages, 32-entry tables over the engine's pool of 8*32+1
-    blocks; contexts mixed from 1 to 512, slot 0 inactive (context 1 on
-    an all-scratch table), unused entries on scratch block 0."""
+    blocks; contexts from 17 to 480, the last slot's ``last_ctx`` (by
+    default 432, the serve trace's longest decode context), slot 0 at
+    ``first_ctx`` on an all-scratch table (1: an inactive slot); unused
+    entries on scratch block 0."""
     dev = torch.device("cuda")
     B, BS, MB = 8, 16, 32
     NB = B * MB + 1
-    ctx = torch.tensor([1, 17, 64, 129, 250, 333, 480, 512],
+    ctx = torch.tensor([first_ctx, 17, 64, 129, 250, 333, 480, last_ctx],
                        dtype=torch.int32, device=dev)
     perm = torch.randperm(NB - 1, generator=gen, device=dev).to(torch.int32) + 1
     tables = torch.zeros(B, MB, dtype=torch.int32, device=dev)
     for b in range(1, B):
         n = -(-int(ctx[b]) // BS)
         tables[b, :n] = perm[b * MB : b * MB + n]
-    q = torch.randn(B, HEADS, 1, HEAD_DIM, generator=gen, device=dev)
-    k_pages = torch.randn(NB, BS, HEADS, HEAD_DIM, generator=gen,
+    q = torch.randn(B, HEADS, 1, D, generator=gen, device=dev).to(q_dtype)
+    k_pages = torch.randn(NB, BS, HEADS, D, generator=gen,
                           device=dev).to(pool_dtype)
-    v_pages = torch.randn(NB, BS, HEADS, HEAD_DIM, generator=gen,
+    v_pages = torch.randn(NB, BS, HEADS, D, generator=gen,
                           device=dev).to(pool_dtype)
     return q, k_pages, v_pages, tables, ctx
 
 
+# decode cases (pool dtype, q dtype, D, last slot's context, slot 0's
+# context): the serve path's shapes with an fp32 and a bf16 pool, then
+# D=128, bf16 queries over a bf16 pool, a slot at context 512 (the table's
+# last position), and slot 0 at context 0, which the kernel gives exactly 0
+DECODE_CASES = ((FP32, FP32, HEAD_DIM, 432, 1),
+                (BF16, FP32, HEAD_DIM, 432, 1),
+                (FP32, FP32, 128, 432, 1),
+                (BF16, BF16, HEAD_DIM, 432, 1),
+                (FP32, FP32, HEAD_DIM, 512, 1),
+                (FP32, FP32, HEAD_DIM, 432, 0))
+
+
 def check_decode(ops, gen, flush) -> list:
+    """The decode kernels against ``paged_decode_attention`` on
+    ``DECODE_CASES``; a slot at context 0 against exact zeros (the plain
+    version gives it the mean of V, as the JAX package's jnp reference
+    does). No single PyTorch call computes a paged gather under a length
+    mask, so there is no library time."""
     cases = []
-    for pool_dtype in (torch.float32, torch.bfloat16):
-        q, kp, vp, tables, ctx = decode_inputs(gen, pool_dtype)
-        out = ops.paged_decode_attention_pallas(q, kp, vp, tables, ctx)
-        ref = ops.paged_decode_attention(q, kp, vp, tables, ctx)
+    for pool_dtype, q_dtype, D, last_ctx, first_ctx in DECODE_CASES:
+        args = decode_inputs(gen, pool_dtype, D, q_dtype, last_ctx,
+                             first_ctx)
+        q, kp, _, tables, ctx = args
+        out = ops.paged_decode_attention_pallas(*args)
+        ref = ops.paged_decode_attention(*args)
         torch.cuda.synchronize()
-        atol = FP32_ATOL if pool_dtype == torch.float32 else ops.FWD_ATOL_BF16
-        err = max_err(out, ref)
+        atol = (FP32_ATOL if pool_dtype == FP32 and q_dtype == FP32
+                else ops.FWD_ATOL_BF16)
+        empty = ctx == 0
+        err = max_err(out[~empty], ref[~empty])
+        name = (f"paged_decode pool {pool_dtype} q {q_dtype} D={D} "
+                f"contexts {[int(c) for c in ctx]}")
         if not (torch.isfinite(out).all() and err <= atol):
-            raise AssertionError(
-                f"paged_decode pool {pool_dtype}: max |kernel - plain| "
-                f"{err} > {atol}"
-            )
-        ms = time_ms(lambda: ops.paged_decode_attention_pallas(
-            q, kp, vp, tables, ctx), 100, flush)
-        plain_ms = time_ms(lambda: ops.paged_decode_attention(
-            q, kp, vp, tables, ctx), 20, flush)
-        tokens = float(ctx.sum())
-        n_bytes = (2 * tokens * HEADS * HEAD_DIM * kp.element_size()
+            raise AssertionError(f"{name}: max |kernel - plain| {err} > "
+                                 f"{atol}")
+        if out[empty].count_nonzero():
+            raise AssertionError(f"{name}: a slot at context 0 is not 0")
+
+        def kernel():
+            return ops.paged_decode_attention_pallas(*args)
+
+        ms = time_ms(kernel, 100, flush)
+        plain_ms = time_ms(lambda: ops.paged_decode_attention(*args), 20,
+                           flush)
+        tokens = float(ctx.clamp(0, tables.shape[1] * kp.shape[1]).sum())
+        n_bytes = (2 * tokens * HEADS * D * kp.element_size()
                    + 2 * q.numel() * q.element_size()
                    + tables.numel() * 4 + ctx.numel() * 4)
-        flops = 4.0 * HEAD_DIM * HEADS * tokens
-        b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+        flops = 4.0 * D * HEADS * tokens
+        b_ms, b_by = bound_ms(n_bytes, flops, FP32)
         cases.append({
-            "B": q.shape[0], "pool_dtype": str(pool_dtype)[6:],
+            "B": q.shape[0], "D": D, "pool_dtype": str(pool_dtype)[6:],
+            "q_dtype": str(q_dtype)[6:],
             "context_lens": [int(c) for c in ctx], "max_abs_err": err,
-            "atol": atol, "ms": ms, "plain_ms": plain_ms,
+            "atol": atol, "zero_slots": int(empty.sum()), "ms": ms,
+            "graph_ms": graph_ms(kernel), "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         })
     return cases
@@ -744,6 +782,10 @@ def serve(ops) -> dict:
                 f"request {i} diverges from the plain path at token {j} "
                 f"with top-2 logit gap {gap} > 1e-3"
             )
+    # the decode kernels' device time and the card's busy share, over one
+    # more drive of the checked configuration
+    profiled = profile_drive(ServingEngine(model, weights, kern_cfg), prompts,
+                             "decode")
     return {
         "phase": "serve", "model": "GPT-base (12 x 768, 12 heads, ff 3072, "
         "vocab 50257), fp32, seeded random weights",
@@ -757,6 +799,7 @@ def serve(ops) -> dict:
         "decode_steps": steps, "prefills": prefills, "launches": launches,
         "plain_path_wall_s": plain_wall,
         "streams_equal_plain": 16 - len(diverged), "diverged": diverged,
+        "profile": profiled,
     }
 
 
@@ -830,12 +873,13 @@ def host_ms(prompts, streams) -> dict:
             "history_lens": [int(h.size) for h in histories]}
 
 
-def profile_drive(engine, prompts) -> dict:
+def profile_drive(engine, prompts, op: str) -> dict:
     """Device time by CUDA kernel over one more drive of ``engine``
     (``torch.profiler``; user annotations left out), against its host
-    wall time: the card's busy share of a serve run; and the verify
-    kernels' device ms per verify launch (a chunk kernel and, where a
-    slot's walk spans chunks, a merge kernel)."""
+    wall time: the card's busy share of a serve run; and the ``paged_<op>``
+    kernels' device ms per launch of the wrapper (``op`` "decode" or
+    "verify": a chunk kernel, launched once a call, and, where a slot's
+    walk may span chunks, a merge kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -852,17 +896,17 @@ def profile_drive(engine, prompts) -> dict:
         return {"wall_ms": wall * 1e3, "device_ms": "not measured"}
     device_ms = sum(r[0] for r in rows)
     s = engine.summary()
-    verify = [r for r in rows if "paged_verify" in r[1]]
-    launches = sum(c for _, n, c in verify if "chunk_kernel" in n)
+    paged = [r for r in rows if f"paged_{op}" in r[1]]
+    launches = max((c for _, _, c in paged), default=0)
     return {
         "wall_ms": wall * 1e3, "device_ms": device_ms,
         "device_busy_share": device_ms / (wall * 1e3),
         "launches": sum(r[2] for r in rows),
-        "verify_dispatches": s["decode_steps"],
-        "verify_kernels": [{"name": n[:90], "calls": c, "ms": ms}
-                           for ms, n, c in verify],
-        "verify_ms_per_launch": (sum(r[0] for r in verify) / launches
-                                 if launches else "not measured"),
+        f"{op}_dispatches": s["decode_steps"],
+        f"{op}_kernels": [{"name": n[:90], "calls": c, "ms": ms}
+                          for ms, n, c in paged],
+        f"{op}_ms_per_launch": (sum(r[0] for r in paged) / launches
+                                if launches else "not measured"),
         "goodput_s": s["goodput_s"],
         "top": [{"name": n[:90], "calls": c, "ms": ms}
                 for ms, n, c in rows[:12]],
@@ -962,7 +1006,7 @@ def serve_spec(ops) -> dict:
         drafted = m.spec_draft_tokens.value
         if mode == "greedy":
             report["profile"] = profile_drive(
-                run_engine(knobs, SPEC_K), prompts)
+                run_engine(knobs, SPEC_K), prompts, "verify")
             report["host_ms"] = host_ms(prompts, streams)
         report[mode] = {
             "tokens_out": s["tokens_out"], "wall_s": wall,
@@ -1247,7 +1291,10 @@ def main() -> int:
     flash_bwd = check_flash_bwd(ops, gen, flush)
     verify = check_verify(ops, gen, flush)
     emit({"phase": "kernels", "card": smi, "flash_fwd": flash,
-          "paged_decode": decode, "flash_bwd": flash_bwd,
+          "paged_decode": decode,
+          "paged_decode_ptxas": ptxas_usage(
+              _build.build_log("paged_decode") or "", DECODE_KERNELS),
+          "flash_bwd": flash_bwd,
           "flash_fwd_fp32_ptxas": ptxas_usage(
               _build.build_log("flash_fwd") or "", FWD_TF32X3_KERNELS),
           "flash_bwd_fp32_ptxas": ptxas_usage(
@@ -1316,10 +1363,11 @@ def main() -> int:
             trained["launches"]["flash_bwd_dkv"],
             max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
                 for x in flash_bwd), bwd_main, "dkv_", bwd_fp32),
-        row("paged_decode", "paged_decode", ["paged_decode_kernel"],
-            "stoke_tpu/ops/flash_attention.py:581",
-            served["launches"]["paged_decode"],
-            max(x["max_abs_err"] for x in decode), decode[0]),
+        {**row("paged_decode", "paged_decode", list(DECODE_KERNELS),
+               "stoke_tpu/ops/flash_attention.py:581",
+               served["launches"]["paged_decode"],
+               max(x["max_abs_err"] for x in decode), decode[0]),
+         "graph_ms": decode[0]["graph_ms"]},
         # launches: the greedy and the sampled speculative runs
         {**row("paged_verify", "paged_verify", list(VERIFY_KERNELS),
                "stoke_tpu/ops/flash_attention.py:836",

@@ -56,11 +56,15 @@
 // caller discards those rows.
 #include "common.cuh"
 #include "mma_tf32.cuh"
+#include "paged.cuh"
 
 namespace {
 
 using stoke::from_float;
 using stoke::kNegInf;
+using stoke::paged::load_vec;
+using stoke::paged::warp_max;
+using stoke::paged::warp_sum;
 using stoke::to_float;
 using stoke::tf32::aligned16;
 using stoke::tf32::cp_async16;
@@ -71,40 +75,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChunk = 64;  // cache positions of a block
 constexpr int kScoreGroups = kThreads / kChunk;  // threads on a position
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// one 16-byte vector of shared K or V elements as floats
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&x)[8]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // a bf16 is the top half of an fp32
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 template <typename TKV, int D, int SMAX>
 struct Cfg {

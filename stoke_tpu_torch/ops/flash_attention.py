@@ -129,6 +129,15 @@ def _kernel(name: str, argtypes, source: str = None):
     return fn, err
 
 
+def _workspace_floats(name: str, *shape: int) -> int:
+    """Floats of fp32 scratch that the C entry ``stoke_<name>`` needs at
+    ``shape``, by its ``stoke_<name>_workspace_floats``."""
+    fn = getattr(_build.load(name), f"stoke_{name}_workspace_floats")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I] * len(shape), ctypes.c_longlong
+    return fn(*shape)
+
+
 def _raise_on(err, name: str, rc: int) -> None:
     if rc != 0:
         msg = err(rc).decode()
@@ -505,14 +514,17 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, context_lens):
     )
     fn, err = _kernel(
         "paged_decode",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          ctypes.c_float, _P],
     )
+    # the chunks' partial softmax states, which the merge kernel combines
+    ws = torch.empty(_workspace_floats("paged_decode", B, H, D, BS, MB),
+                     dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     rc = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        B, H, D, NB, BS, MB, _DTYPE_CODES[q.dtype],
+        ws.data_ptr(), B, H, D, NB, BS, MB, _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_pages.dtype], 1.0 / math.sqrt(D),
         _stream_ptr(q.device),
     )
@@ -525,9 +537,13 @@ def paged_decode_attention_pallas(q, k_pages, v_pages, block_tables,
                                   context_lens):
     """The decode kernel's wrapper, under the JAX package's name.
 
-    Same contract as :func:`paged_decode_attention`. On the card it
-    launches ``csrc/paged_decode.cu`` (int32 tables and lengths, float32
-    or bfloat16 query and pools, head dim 64 or 128); on the CPU it runs
+    Same contract as :func:`paged_decode_attention`, but for a slot at
+    context 0, which the kernel gives exactly 0 as the JAX kernel does (the
+    plain version, as the JAX package's jnp reference, gives the mean of V
+    over the slot's table). On the card it launches ``csrc/paged_decode.cu``'s
+    chunk and merge kernels, counted once in ``LAUNCHES["paged_decode"]``
+    (contiguous int32 tables and lengths, contiguous float32 or bfloat16
+    query and pools, head dim 64 or 128); on the CPU it runs
     :func:`paged_decode_attention`."""
     B, H, one, D = q.shape
     if one != 1:
@@ -667,13 +683,9 @@ def _paged_verify_cuda(q, k_pages, v_pages, block_tables, positions):
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
          ctypes.c_float, _P],
     )
-    lib = _build.load("paged_verify")
-    ws_floats = lib.stoke_paged_verify_workspace_floats
-    if ws_floats.argtypes is None:
-        ws_floats.argtypes, ws_floats.restype = [_I] * 6, ctypes.c_longlong
     # the chunks' partial softmax states, which the merge kernel combines
-    ws = torch.empty(ws_floats(B, H, S, D, BS, MB), dtype=torch.float32,
-                     device=q.device)
+    ws = torch.empty(_workspace_floats("paged_verify", B, H, S, D, BS, MB),
+                     dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     rc = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
