@@ -24,11 +24,16 @@ Phases, one JSON line each; any failure exits nonzero:
    flash forward in bf16 (``wgmma``) and in fp32 (3xTF32
    ``mma.sync``) at the training shape (B=8, H=12, L=1024, D=64, causal),
    at D=128, at a ragged L=1000, without the causal rule, and at D=128
-   with fully masked rows; the flash backward's dQ and dK/dV kernels at
+   with fully masked rows, and the same cases in fp16 (the ``wgmma``
+   kernels' fp16 instantiations); the flash backward's dQ and dK/dV kernels at
    the training shapes (B=8, H=12, D=64, causal, L 512 and 1024, fp32 and
    bf16), masked cases with fully masked rows in fp32 and bf16, fp32 and
    bf16 at D=128, at L=1000 and without the causal rule, and bf16 masked
    at D=128 (bf16 dQ, dK and dV also held row by row: ``bwd_row_err``),
+   fp16 at the bf16 cases' paths and with dO scaled by the starting loss
+   scale 2^16 and at the training step's small dS (``BWD_FP16_CASES``,
+   held row by row too, with the largest |dS| and the power of two the
+   kernels scale dS by),
    timed beside SDPA's backward alone, with ptxas's registers and spills
    of the fp32 (3xTF32 ``mma.sync``) forward and backward kernels and of
    the decode and verify kernels; a bf16 dQ call at an unsupported head
@@ -68,6 +73,22 @@ Phases, one JSON line each; any failure exits nonzero:
    ``train_step``s through the kernels (the fp32 forward's and backward's
    3xTF32 tensor-core kernels, 36 launches each) and through dense
    attention (no kernel); the losses must agree within 1e-3 relative.
+8. train_window: GPT-base in bf16 (the train phase's setup) through
+   ``train_steps``, each window a replayed CUDA graph: 12 eager
+   ``train_step``s against ``train_steps`` over the same 12 batches, and
+   with ``segment_size=4`` (losses within 1e-6 relative, counters, 144
+   launches of each flash kernel through the replays);
+   ``train_step_window`` at ``grad_accum=2`` against the four-call loop;
+   step ms p50 and a profiled busy share of replayed windows beside the
+   eager steps'; dropout 0.1 at 2 blocks: whether replays draw the eager
+   masks, fresh masks each replay, a falling loss.
+9. train_fp16: GPT-base in fp16 with the dynamic loss scaler through the
+   fp16 kernels: 12 eager ``train_step``s against ``train_steps`` (losses
+   within 1e-6), the loss falls, the profiled step runs each fp16 kernel
+   12 times and no bf16 or fp32 one; the largest |dS| of a step; then a
+   window whose loss is multiplied by inf, eagerly and replayed: the
+   parameters and AdamW state stay bit for bit, the scale halves, one
+   step is skipped.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -94,7 +115,8 @@ import torch
 # TFLOP/s TF32 rate; the 67 TFLOP/s of fp32 FMAs is not the least time the
 # card can take for it
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
 
 FP32_ATOL = 1e-4  # kernel and plain version sum in different orders
 SEED = 0
@@ -103,13 +125,16 @@ VOCAB = 50257
 TRAIN_BATCH, TRAIN_LEN = 8, 1024
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 PARITY_RTOL = 1e-3  # kernels and dense attention sum in different orders
-BF16, FP32 = torch.bfloat16, torch.float32
+BF16, FP32, FP16 = torch.bfloat16, torch.float32, torch.float16
 # kernels whose registers and spills the kernels phase reports: the fp32
 # (3xTF32 mma.sync) flash kernels and the decode and verify kernels
 TF32X3_KERNELS = ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
 FWD_TF32X3_KERNELS = ("flash_fwd_tf32x3_kernel",)
 DECODE_KERNELS = ("paged_decode_chunk_kernel", "paged_decode_merge_kernel")
 VERIFY_KERNELS = ("paged_verify_chunk_kernel", "paged_verify_merge_kernel")
+# the 16-bit (bf16 and fp16) tensor-core flash kernels
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel")
 
 
 def emit(obj) -> None:
@@ -155,19 +180,21 @@ def ptxas_usage(log: str, kernels) -> dict:
     """Registers and spill bytes that ``nvcc -Xptxas -v`` reported in
     ``log`` for each instantiation of ``kernels`` (names without the
     mangling), as ``{"<name><template args>": {"registers": n,
-    "spill_stores": n, "spill_loads": n}}``, the arguments as ints, f32
-    and bf16 (``"flash_fwd_tf32x3_kernel<64,4>"``; a type repeated in the
-    mangling as a back-reference ``S1_`` is the type before it)."""
+    "spill_stores": n, "spill_loads": n}}``, the arguments as ints, f32,
+    bf16 and f16 (``"flash_fwd_tf32x3_kernel<64,4>"``,
+    ``"flash_fwd_wgmma_kernel<f16,64>"``; a type repeated in the mangling
+    as a back-reference ``S1_`` is the type before it)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?(" + "|".join(kernels)
                       + r")I(\S*?)EEv", line)
         if m:
             args = []
-            for n, bf, ref, _ in re.findall(
-                    r"Li(\d+)E|(13__nv_bfloat16)|(S\d*_)|(f)", m.group(2)):
-                args.append(n or ("bf16" if bf else args[-1] if ref
-                                  else "f32"))
+            for n, bf, half, ref, _ in re.findall(
+                    r"Li(\d+)E|(13__nv_bfloat16)|(6__half)|(S\d*_)|(f)",
+                    m.group(2)):
+                args.append(n or ("bf16" if bf else "f16" if half
+                                  else args[-1] if ref else "f32"))
             cur = out.setdefault(f"{m.group(1)}<{','.join(args)}>", {})
         elif "Function properties" in line:
             cur = None
@@ -208,13 +235,21 @@ def padding_mask(B, L, dev):
 # --------------------------------------------------------------------------- #
 
 
+def fwd_atol(ops, dtype) -> float:
+    """The forward kernel's tolerance against its plain version."""
+    return {FP32: FP32_ATOL, BF16: ops.FWD_ATOL_BF16,
+            FP16: ops.FWD_ATOL_FP16}[dtype]
+
+
 def check_flash(ops, gen, flush) -> list:
     """Flash forward at the prefill shapes (``FWD_SERVE_CASES``, fp32 and
-    bf16), then ``FWD_BF16_CASES`` and ``FWD_FP32_CASES``. fp32 runs the
-    3xTF32 ``mma.sync`` kernel, bf16 the ``wgmma`` one."""
+    bf16), then ``FWD_BF16_CASES``, ``FWD_FP32_CASES`` and
+    ``FWD_FP16_CASES``. fp32 runs the 3xTF32 ``mma.sync`` kernel, bf16 and
+    fp16 the ``wgmma`` one's two instantiations."""
     cases = [flash_fwd_serve_case(ops, gen, flush, L, plen, dtype)
              for L, plen in FWD_SERVE_CASES for dtype in (FP32, BF16)]
-    for dtype, fwd_cases in ((BF16, FWD_BF16_CASES), (FP32, FWD_FP32_CASES)):
+    for dtype, fwd_cases in ((BF16, FWD_BF16_CASES), (FP32, FWD_FP32_CASES),
+                             (FP16, FWD_FP16_CASES)):
         for case in fwd_cases:
             cases.append(flash_fwd_case(ops, gen, flush, *case, dtype=dtype))
     return cases
@@ -245,7 +280,7 @@ def flash_fwd_serve_case(ops, gen, flush, L, plen, dtype) -> dict:
                                    return_lse=True)
     ref_out, ref_lse = ops.flash_attention_plain(q, k, v, mask, True)
     torch.cuda.synchronize()
-    atol = FP32_ATOL if dtype == FP32 else ops.FWD_ATOL_BF16
+    atol = fwd_atol(ops, dtype)
     err = max(max_err(out, ref_out), max_err(lse, ref_lse))
     if not (torch.isfinite(out).all() and err <= atol):
         raise AssertionError(
@@ -292,12 +327,14 @@ FWD_BF16_CASES = ((TRAIN_LEN, HEAD_DIM, True, False),
                   (TRAIN_LEN, HEAD_DIM, False, False),
                   (TRAIN_LEN, 128, True, True))
 FWD_FP32_CASES = FWD_BF16_CASES
+FWD_FP16_CASES = FWD_BF16_CASES
 
 
 def flash_fwd_case(ops, gen, flush, L, D, causal, masked,
                    dtype=BF16) -> dict:
     """The forward at B=8, H=12, L, D in ``dtype`` against its plain
-    version (``FWD_ATOL_BF16``, or ``FP32_ATOL`` for fp32), timed beside
+    version (``FWD_ATOL_BF16``, ``FWD_ATOL_FP16``, or ``FP32_ATOL`` for
+    fp32), timed beside
     SDPA; ``masked`` applies ``padding_mask``, whose fully masked rows
     must give O == 0 and LSE == -1e30."""
     dev = torch.device("cuda")
@@ -310,7 +347,7 @@ def flash_fwd_case(ops, gen, flush, L, D, causal, masked,
     ref_out, ref_lse = ops.flash_attention_plain(q, k, v, mask, causal)
     torch.cuda.synchronize()
     err = max(max_err(out, ref_out), max_err(lse, ref_lse))
-    atol = FP32_ATOL if dtype == FP32 else ops.FWD_ATOL_BF16
+    atol = fwd_atol(ops, dtype)
     name = (f"flash_fwd L={L} D={D} causal={causal} masked={masked} "
             f"{str(dtype)[6:]}")
     if not (torch.isfinite(out).all() and err <= atol):
@@ -584,15 +621,33 @@ BWD_CASES = ((512, FP32, HEAD_DIM, True, False),
              (1000, BF16, HEAD_DIM, True, False),
              (TRAIN_LEN, BF16, HEAD_DIM, False, False),
              (512, BF16, 128, True, True))
+# fp16 gradients under the loss scale: dO of N(0, 2^-10) (eight times a
+# mean cross entropy's over the 8192 tokens of a training batch) times the
+# scale fp16 starts at, 2^16; and dO of N(0, 2^-13), whose largest |dS| is
+# the order of the GPT-base fp16 step's (train_fp16's max_abs_ds), most of
+# dS below fp16's smallest normal, 6.1e-5 (the kernels scale dS by a power
+# of two before rounding it: ds_bound)
+DO_SCALED = 2.0**-10 * 2.0**16
+DO_STEP = 2.0**-13
+# fp16 cases (L, dtype, D, causal, masked, dO scale): the bf16 cases'
+# paths, then the training shape with dO scaled as above
+BWD_FP16_CASES = ((TRAIN_LEN, FP16, HEAD_DIM, True, False, 1.0),
+                  (512, FP16, HEAD_DIM, True, True, 1.0),
+                  (TRAIN_LEN, FP16, 128, True, False, 1.0),
+                  (1000, FP16, HEAD_DIM, True, False, 1.0),
+                  (TRAIN_LEN, FP16, HEAD_DIM, False, False, 1.0),
+                  (TRAIN_LEN, FP16, HEAD_DIM, True, False, DO_SCALED),
+                  (TRAIN_LEN, FP16, HEAD_DIM, True, False, DO_STEP))
 
 
 def check_flash_bwd(ops, gen, flush) -> list:
     """The dQ and dK/dV kernels against ``flash_attention_bwd_plain`` on
-    ``BWD_CASES``: bf16 runs the ``wgmma`` kernels, fp32 the 3xTF32
-    ``mma.sync`` ones. Then a bf16 dQ call at head dim 96, which no kernel
+    ``BWD_CASES`` and ``BWD_FP16_CASES``: bf16 and fp16 run the ``wgmma``
+    kernels, fp32 the 3xTF32 ``mma.sync`` ones. Then a bf16 dQ call at head dim 96, which no kernel
     takes: the wrapper must raise and the C entry return
     ``kErrUnsupported``."""
-    cases = [flash_bwd_case(ops, gen, flush, *case) for case in BWD_CASES]
+    cases = [flash_bwd_case(ops, gen, flush, *case)
+             for case in BWD_CASES + BWD_FP16_CASES]
     x = torch.zeros(1, 1, 64, 96, dtype=BF16, device="cuda")
     stats = torch.zeros(1, 1, 64, device="cuda")
     try:
@@ -603,9 +658,9 @@ def check_flash_bwd(ops, gen, flush) -> list:
         raise AssertionError("a bf16 dQ call at head dim 96 did not raise")
     # the C entry itself refuses the head dim: kErrUnsupported, no fallback
     fa = importlib.import_module("stoke_tpu_torch.ops.flash_attention")
-    fn, _ = fa._kernel("flash_bwd_dq", [fa._P] * 8 + [fa._I] * 5
+    fn, _ = fa._kernel("flash_bwd_dq", [fa._P] * 9 + [fa._I] * 5
                        + [ctypes.c_float, fa._I, fa._P], source="flash_bwd")
-    rc = fn(*(t.data_ptr() for t in (x, x, x, x, stats, stats)), None,
+    rc = fn(*(t.data_ptr() for t in (x, x, x, x, stats, stats)), None, None,
             x.data_ptr(), 1, 1, 64, 96, 1, 96 ** -0.5, 1,
             fa._stream_ptr(x.device))
     if rc != -1:
@@ -614,27 +669,48 @@ def check_flash_bwd(ops, gen, flush) -> list:
     return cases
 
 
-def flash_bwd_case(ops, gen, flush, L, dtype, D, causal, masked) -> dict:
+def max_abs_ds(q, k, v, mask, out, lse, do, causal) -> float:
+    """The largest |dS| = |P (dO V^T - delta)| of these inputs, in fp32:
+    what the 16-bit backward kernels round to their type before ``dS K``
+    and ``dS^T Q`` (fp16 holds at most 65504)."""
+    fa = importlib.import_module("stoke_tpu_torch.ops.flash_attention")
+    s = fa._masked_scores(q, k, mask, causal)
+    p = torch.where(s > fa.NEG_INF * 0.5, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    del s
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    dp -= fa._delta(out, do, None)[..., None]
+    return float((p * dp).abs().max())
+
+
+def flash_bwd_case(ops, gen, flush, L, dtype, D, causal, masked,
+                   do_scale=1.0) -> dict:
     """One backward case: dQ and dK/dV within FP32_ATOL (fp32) or
-    BWD_RTOL_BF16 of the largest gradient element (bf16), bf16 dQ, dK and
-    dV also within BWD_ROW_RTOL_BF16 row by row (``bwd_row_err``); under
-    ``padding_mask`` the fully masked query rows get zero dQ and the
-    masked keys zero dK, dV. Timed beside the plain version and SDPA's
-    backward."""
+    BWD_RTOL_BF16 of the largest gradient element (bf16 and fp16), bf16
+    and fp16 dQ, dK and dV also within BWD_ROW_RTOL_BF16 row by row
+    (``bwd_row_err``); under ``padding_mask`` the fully masked query rows
+    get zero dQ and the masked keys zero dK, dV. dO is N(0, 1) times
+    ``do_scale``; fp16 cases report the largest |dS| (``max_abs_ds``) and
+    the power of two the kernels scaled dS by (``ds_scale``).
+    Timed beside the plain version and SDPA's backward."""
     dev = torch.device("cuda")
     B = TRAIN_BATCH
     q, k, v, do = (torch.randn(B, HEADS, L, D, generator=gen,
-                               device=dev).to(dtype) for _ in range(4))
+                               device=dev) for _ in range(4))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do * do_scale))
     mask = padding_mask(B, L, dev) if masked else None
     out, lse = ops.flash_attention(q, k, v, mask, causal=causal,
                                    return_lse=True)
     delta = (do.float() * out.float()).sum(-1)
-    dq = ops.flash_bwd_dq(q, k, v, mask, do, lse, delta, causal)
-    dk, dv = ops.flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal)
+    # fp16: the |dS| bound, computed once a layer for both kernels
+    bound = ops.ds_bound(do, v, delta) if dtype == FP16 else None
+    dq = ops.flash_bwd_dq(q, k, v, mask, do, lse, delta, causal, bound)
+    dk, dv = ops.flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal, bound)
     ref = ops.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, None,
                                         causal)
     torch.cuda.synchronize()
-    name = f"flash_bwd L={L} D={D} {dtype} causal={causal} masked={masked}"
+    name = (f"flash_bwd L={L} D={D} {dtype} causal={causal} "
+            f"masked={masked} dO x {do_scale}")
     errs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
                                                 (dq, dk, dv), ref)}
     row_errs = None
@@ -662,9 +738,9 @@ def flash_bwd_case(ops, gen, flush, L, dtype, D, causal, masked) -> dict:
         raise AssertionError(f"{name}: fully masked rows are not zero dQ / "
                              f"zero dK, dV")
     ms_dq = time_ms(lambda: ops.flash_bwd_dq(q, k, v, mask, do, lse, delta,
-                                             causal), 10, flush)
+                                             causal, bound), 10, flush)
     ms_dkv = time_ms(lambda: ops.flash_bwd_dkv(q, k, v, mask, do, lse, delta,
-                                               causal), 10, flush)
+                                               causal, bound), 10, flush)
     plain_ms = time_ms(lambda: ops.flash_attention_bwd_plain(
         q, k, v, mask, out, lse, do, None, causal), 5, flush)
     library_ms = (None if masked
@@ -681,8 +757,13 @@ def flash_bwd_case(ops, gen, flush, L, dtype, D, causal, masked) -> dict:
     bpair = bound_ms(8 * tile + stats + mask_bytes, 14.0 * D * pairs, dtype)
     return {
         "B": B, "L": L, "D": D, "dtype": str(dtype)[6:], "causal": causal,
-        "masked": masked, "max_abs_err": errs, "tol": tols,
-        "row_rel_err": row_errs,
+        "masked": masked, "do_scale": do_scale,
+        "max_abs_ds": (max_abs_ds(q, k, v, mask, out, lse, do, causal)
+                       if dtype == FP16 else None),
+        "ds_scale": None if bound is None else ops.ds_scale(float(bound)),
+        "ds_bound_ms": (None if bound is None else time_ms(
+            lambda: ops.ds_bound(do, v, delta), 10, flush)),
+        "max_abs_err": errs, "tol": tols, "row_rel_err": row_errs,
         "dq_ms": ms_dq, "dkv_ms": ms_dkv, "pair_ms": ms_dq + ms_dkv,
         "plain_ms": plain_ms, "library_ms": library_ms,
         "dq_bound_ms": bq[0], "dq_bound_by": bq[1],
@@ -1060,44 +1141,52 @@ def make_corpus(n=2048, seq_len=128, vocab=64, seed=0):
     return ((start + stride * pos) % vocab).astype(np.int32)
 
 
-def gpt_base(attention: str):
+def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS):
+    """GPT-base on the card from seeded weights; ``dropout`` on the
+    embeddings and residuals (the flash kernels take no dropout of the
+    attention probabilities, so that stays off), the first ``layers``
+    blocks."""
     from stoke_tpu_torch.models.bert import dense_attention
     from stoke_tpu_torch.models.gpt import GPT
     from stoke_tpu_torch.ops import make_flash_attention
 
     flash = attention == "flash"
     model = GPT(vocab_size=VOCAB, size_name="base", max_len=1024,
-                dropout_rate=0.0,
+                dropout_rate=dropout,
                 attention_fn=(make_flash_attention(causal=True) if flash
                               else dense_attention),
                 attention_is_causal=flash, device="cuda")
+    del model.layers[layers:]
+    for block in model.layers:
+        block.attention.prob_dropout.rate = 0.0
     model.init_weights(SEED)
     return model
 
 
-def stoke_for(model, precision, batch, grad_accum=None):
+def stoke_for(model, precision, batch, grad_accum=None, loss=None,
+              lr=3e-4, seed=0):
     from stoke_tpu_torch import ClipGradNormConfig, Stoke, StokeOptimizer
     from stoke_tpu_torch.models.gpt import causal_lm_loss
 
-    return Stoke(model, StokeOptimizer(torch.optim.AdamW, lr=3e-4,
+    return Stoke(model, StokeOptimizer(torch.optim.AdamW, lr=lr,
                                        weight_decay=1e-4),
-                 causal_lm_loss, batch_size_per_device=batch,
+                 loss or causal_lm_loss, batch_size_per_device=batch,
                  grad_accum=grad_accum, precision=precision,
-                 grad_clip=ClipGradNormConfig(max_norm=1.0))
+                 grad_clip=ClipGradNormConfig(max_norm=1.0), seed=seed)
 
 
-def profile_step(stoke, batch) -> dict:
-    """Device time of one more ``train_step`` by CUDA kernel
-    (``torch.profiler``; ops, autograd nodes and annotations such as the
-    optimizer step's are left out, since they would count their kernels'
-    time again), against its host wall time."""
+def profile_step(step) -> dict:
+    """Device time of one call of ``step`` (one more training step) by
+    CUDA kernel (``torch.profiler``; ops, autograd nodes and annotations
+    such as the optimizer step's are left out, since they would count
+    their kernels' time again), against its host wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        stoke.train_step(batch, batch)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(
@@ -1164,7 +1253,8 @@ def train(ops) -> dict:
     peak = torch.cuda.max_memory_allocated()
     timed = times[WARMUP_STEPS:]
     tokens = TRAIN_BATCH * TRAIN_LEN
-    profile = profile_step(stoke, corpus[:TRAIN_BATCH])
+    profile = profile_step(lambda: stoke.train_step(corpus[:TRAIN_BATCH],
+                                                    corpus[:TRAIN_BATCH]))
     dq_calls = {n: sum(r["calls"] for r in profile.get("attention_kernels", [])
                        if n in r["name"])
                 for n in ("flash_bwd_dq_wgmma_kernel",
@@ -1249,6 +1339,321 @@ def train_parity(ops) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phases 8 and 9: the window paths (replayed CUDA graphs) and fp16
+# --------------------------------------------------------------------------- #
+
+
+WINDOW_STEPS = 12
+# a window replayed from its CUDA graph runs the eager step's kernels in
+# the eager step's order, so their losses should agree to the last bit
+WINDOW_RTOL = 1e-6
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def window_batches(n: int) -> torch.Tensor:
+    """``n`` training batches of the example corpus, ``[n, B, L]`` int32 on
+    the card."""
+    corpus = make_corpus(n=n * TRAIN_BATCH, seq_len=TRAIN_LEN, vocab=VOCAB,
+                         seed=2)
+    return torch.from_numpy(corpus).view(n, TRAIN_BATCH, TRAIN_LEN).cuda()
+
+
+def rel_diff(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def timed_ms(fn) -> float:
+    """Host ms of ``fn()`` up to a synchronize of the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def flash_launches(ops, want: int, what: str) -> dict:
+    """The flash kernels' launch counts, each of which must be ``want``."""
+    got = {n: ops.LAUNCHES[n] for n in FLASH}
+    if any(c != want for c in got.values()):
+        raise AssertionError(f"{what}: flash launches {got}, expected "
+                             f"{want} of each")
+    return got
+
+
+def eager_steps(stoke, batches) -> tuple:
+    """One ``train_step`` a batch, each timed; returns (losses, ms)."""
+    losses, ms = [], []
+    for b in batches:
+        ms.append(timed_ms(lambda: losses.append(stoke.train_step(b, b))))
+    return [float(l) for l in losses], ms
+
+
+def step_summary(ms, profile) -> dict:
+    """Step ms p50 over all but the first two steps, with the profile's
+    busy share."""
+    return {"step_ms_p50": float(np.median(ms[WARMUP_STEPS:])),
+            "step_ms": ms,
+            "device_busy_share": profile.get("device_busy_share",
+                                             "not measured"),
+            "profile": profile}
+
+
+def dropout_windows(ops) -> dict:
+    """GPT-base cut to 2 blocks, dropout 0.1 on the embeddings and
+    residuals drawn from ``Stoke(seed=...)``'s generator, which a captured
+    window registers. Reports whether replays draw the eager steps' masks
+    (the same seed, eager ``train_step`` against ``train_steps``); holds
+    that replays draw fresh masks (lr 0, one batch four times: four
+    different losses) and that the graphed loss falls."""
+    batches = window_batches(WINDOW_STEPS)
+    eager = stoke_for(gpt_base("flash", 0.1, 2), "bf16", TRAIN_BATCH, seed=5)
+    eager_losses, _ = eager_steps(eager, batches[:4])
+    del eager
+    graphed = stoke_for(gpt_base("flash", 0.1, 2), "bf16", TRAIN_BATCH,
+                        seed=5)
+    losses = graphed.train_steps(batches, batches)[:, 0].tolist()
+    del graphed
+    still = stoke_for(gpt_base("flash", 0.1, 2), "bf16", TRAIN_BATCH,
+                      lr=0.0, seed=5)
+    same = batches[:1].expand(4, -1, -1)
+    fixed = still.train_steps(same, same)[:, 0].tolist()
+    del still
+    torch.cuda.empty_cache()
+    if len(set(fixed)) != len(fixed):
+        raise AssertionError(f"dropout under replay: one batch at lr 0 gave "
+                             f"{fixed}; the masks did not change")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"dropout under replay: the loss did not fall: "
+                             f"{losses}")
+    return {"layers": 2, "dropout": 0.1, "eager_losses": eager_losses,
+            "graphed_losses": losses,
+            "replay_masks_equal_eager": losses[:4] == eager_losses,
+            "max_rel_diff_vs_eager": rel_diff(losses[:4], eager_losses),
+            "lr0_losses": fixed}
+
+
+def train_window(ops) -> dict:
+    """``train_steps`` and ``train_step_window`` on GPT-base in bf16 with
+    flash attention, AdamW(3e-4, wd 1e-4), clip norm 1.0, B=8, L=1024,
+    dropout 0: 12 eager ``train_step``s against ``train_steps`` over the
+    same 12 batches (one window eagerly, its capture, 11 replays), and
+    with ``segment_size=4``; ``train_step_window`` at ``grad_accum=2``
+    against the four-call loop. Losses agree to WINDOW_RTOL, counters
+    match, and the flash kernels read 12 launches a layer a step through
+    the replays. Times replayed windows (one ``train_steps`` call a
+    window) beside the eager steps, with one profiled each."""
+    n = WINDOW_STEPS
+    batches = window_batches(n)
+    a = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH)
+    ops.reset_launches()
+    eager, eager_ms = eager_steps(a, batches)
+    flash_launches(ops, N_LAYERS * n, "eager train_step")
+    eager_profile = profile_step(lambda: a.train_step(batches[0],
+                                                      batches[0]))
+    del a
+    torch.cuda.empty_cache()
+
+    b = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH)
+    ops.reset_launches()
+    out = {}
+    first_ms = timed_ms(lambda: out.update(r=b.train_steps(batches,
+                                                           batches)))
+    launches = flash_launches(ops, N_LAYERS * n, "train_steps")
+    graphed = out["r"][:, 0].tolist()
+    if (b.optimizer_steps, b.backward_steps) != (n, n):
+        raise AssertionError(f"train_steps counters {b.optimizer_steps}/"
+                             f"{b.backward_steps}, expected {n}/{n}")
+    diff = rel_diff(graphed, eager)
+    if not diff <= WINDOW_RTOL:
+        raise AssertionError(f"train_steps losses {graphed} vs eager "
+                             f"{eager}: max relative difference {diff}")
+    replay_ms = [timed_ms(lambda: b.train_steps(batches[i:i + 1],
+                                                batches[i:i + 1]))
+                 for i in range(WARMUP_STEPS + TIMED_STEPS)]
+    replay_profile = profile_step(lambda: b.train_steps(batches[:1],
+                                                        batches[:1]))
+    del b, out
+    torch.cuda.empty_cache()
+
+    c = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH)
+    segmented = c.train_steps(batches, batches, segment_size=4)[:, 0].tolist()
+    seg_diff = rel_diff(segmented, eager)
+    if c.optimizer_steps != n or not seg_diff <= WINDOW_RTOL:
+        raise AssertionError(f"segment_size=4: {c.optimizer_steps} steps, "
+                             f"losses {segmented} vs eager {eager}")
+    del c
+    torch.cuda.empty_cache()
+
+    four = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, grad_accum=2)
+    four_losses = []
+    for i in range(4):
+        loss = four.loss(four.model(batches[i]), batches[i])
+        four.backward(loss)
+        four.step()
+        four_losses.append(float(loss))
+    del four
+    win = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, grad_accum=2)
+    ops.reset_launches()
+    win_losses = []
+    for w in range(2):
+        win_losses += win.train_step_window(batches[2 * w:2 * w + 2],
+                                            batches[2 * w:2 * w + 2]).tolist()
+    accum_launches = flash_launches(ops, 4 * N_LAYERS,
+                                    "train_step_window at grad_accum=2")
+    counters = (win.grad_accum_counter, win.backward_steps,
+                win.optimizer_steps)
+    accum_diff = rel_diff(win_losses, four_losses)
+    if counters != (0, 4, 2) or not accum_diff <= WINDOW_RTOL:
+        raise AssertionError(f"train_step_window at grad_accum=2: counters "
+                             f"{counters}, losses {win_losses} vs four-call "
+                             f"{four_losses}")
+    del win
+    torch.cuda.empty_cache()
+    return {
+        "phase": "train_window", "model": "GPT-base, bf16 over fp32 "
+        "masters, flash attention, AdamW(lr 3e-4, wd 1e-4), clip norm 1.0",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN, "steps": n,
+        "eager": step_summary(eager_ms, eager_profile),
+        "replayed": step_summary(replay_ms, replay_profile),
+        "train_steps_first_call_ms": first_ms,
+        "losses_eager": eager, "losses_train_steps": graphed,
+        "max_rel_diff": diff, "rtol": WINDOW_RTOL,
+        "losses_segment_size_4": segmented, "segment_max_rel_diff": seg_diff,
+        "launches": launches,
+        "grad_accum_2": {"losses_window": win_losses,
+                         "losses_four_call": four_losses,
+                         "max_rel_diff": accum_diff, "counters": counters,
+                         "launches": accum_launches},
+        "dropout": dropout_windows(ops),
+    }
+
+
+def max_ds_in_step(step) -> float:
+    """The largest |dS| that the flash backward meets in ``step()``, the
+    loss scale included: each backward's inputs go through
+    ``max_abs_ds`` before the kernels run."""
+    fa = importlib.import_module("stoke_tpu_torch.ops.flash_attention")
+    seen = []
+    kernels = fa._flash_backward
+
+    def probe(ctx, do, dlse):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        seen.append(max_abs_ds(q, k, v, mask, out, lse, do, ctx.causal))
+        return kernels(ctx, do, dlse)
+
+    fa._flash_backward = probe
+    try:
+        step()
+    finally:
+        fa._flash_backward = kernels
+    return max(seen)
+
+
+def overflow_window(stoke, run, boom) -> dict:
+    """``run()`` one window with the loss times ``boom`` = inf: the
+    parameters and every optimizer state tensor must stay bit for bit, the
+    scale halve and ``skipped_optimizer_steps`` grow by 1."""
+    params = list(stoke.model_access.parameters())
+    before = [p.detach().clone() for p in params]
+    state = [{k: v.clone() for k, v in stoke.optimizer.state[p].items()}
+             for p in params]
+    scale, skipped = stoke.loss_scale, stoke.skipped_optimizer_steps
+    boom.fill_(float("inf"))
+    run()
+    boom.fill_(1.0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, p) for a, p in zip(before, params)) and all(
+        torch.equal(v, stoke.optimizer.state[p][k])
+        for s, p in zip(state, params) for k, v in s.items())
+    out = {"bit_identical": same, "scale_before": scale,
+           "scale_after": stoke.loss_scale, "skipped_before": skipped,
+           "skipped_after": stoke.skipped_optimizer_steps,
+           "state_tensors": sum(len(s) for s in state) + len(params)}
+    if (not same or out["scale_after"] != scale / 2
+            or out["skipped_after"] != skipped + 1):
+        raise AssertionError(f"overflow window: {out}")
+    return out
+
+
+def train_fp16(ops) -> dict:
+    """GPT-base in fp16 over fp32 masters with the dynamic loss scaler,
+    flash attention through the fp16 ``wgmma`` kernels, B=8, L=1024: 12
+    eager ``train_step``s, then ``train_steps`` over the same 12 batches
+    from the same seed (losses agree to WINDOW_RTOL, the loss falls). The
+    profiled step must run the fp16 forward, dQ and dK/dV kernels 12 times
+    each and the bf16 and fp32 ones never. Then one window whose loss is
+    multiplied by inf, eagerly and replayed (``overflow_window``)."""
+    from stoke_tpu_torch.models.gpt import causal_lm_loss
+
+    boom = torch.ones((), device="cuda")
+
+    def loss(logits, ids):
+        return causal_lm_loss(logits, ids) * boom
+
+    n = WINDOW_STEPS
+    batches = window_batches(n)
+    a = stoke_for(gpt_base("flash"), "fp16", TRAIN_BATCH, loss=loss)
+    ops.reset_launches()
+    eager, eager_ms = eager_steps(a, batches)
+    launches = flash_launches(ops, N_LAYERS * n, "fp16 train_step")
+    if not (all(np.isfinite(eager)) and np.mean(eager[-3:]) < eager[0]):
+        raise AssertionError(f"fp16 losses {eager}: not finite or not "
+                             f"falling")
+    profile = profile_step(lambda: a.train_step(batches[0], batches[0]))
+    names = {"fp16": "<__half", "bf16": "<__nv_bfloat16", "fp32": "tf32x3"}
+    calls = {f"{kernel} {t}": sum(r["calls"] for r in
+                                  profile.get("attention_kernels", [])
+                                  if kernel in r["name"] and tag in r["name"])
+             for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+             for t, tag in names.items()}
+    if any(c != (N_LAYERS if t.endswith("fp16") else 0)
+           for t, c in calls.items()):
+        raise AssertionError(f"the profiled fp16 step ran {calls}, expected "
+                             f"each fp16 kernel {N_LAYERS} times and no "
+                             f"other")
+    eager_state = {"loss_scale": a.loss_scale,
+                   "skipped_optimizer_steps": a.skipped_optimizer_steps}
+    ds = max_ds_in_step(lambda: a.train_step(batches[1], batches[1]))
+    scale_ds = a.loss_scale
+    eager_skip = overflow_window(
+        a, lambda: a.train_step(batches[2], batches[2]), boom)
+    del a
+    torch.cuda.empty_cache()
+
+    b = stoke_for(gpt_base("flash"), "fp16", TRAIN_BATCH, loss=loss)
+    graphed = b.train_steps(batches, batches)[:, 0].tolist()
+    diff = rel_diff(graphed, eager)
+    if not diff <= WINDOW_RTOL:
+        raise AssertionError(f"fp16 train_steps losses {graphed} vs eager "
+                             f"{eager}: max relative difference {diff}")
+    graph_state = {"loss_scale": b.loss_scale,
+                   "skipped_optimizer_steps": b.skipped_optimizer_steps}
+    replay_ms = [timed_ms(lambda: b.train_steps(batches[i:i + 1],
+                                                batches[i:i + 1]))
+                 for i in range(WARMUP_STEPS + TIMED_STEPS)]
+    replay_skip = overflow_window(
+        b, lambda: b.train_steps(batches[2:3], batches[2:3]), boom)
+    del b
+    torch.cuda.empty_cache()
+    return {
+        "phase": "train_fp16", "model": "GPT-base, fp16 over fp32 masters, "
+        "dynamic loss scale from 2^16, flash attention, AdamW(lr 3e-4, wd "
+        "1e-4), clip norm 1.0", "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+        "steps": n, "losses_eager": eager, "losses_train_steps": graphed,
+        "max_rel_diff": diff, "rtol": WINDOW_RTOL,
+        "eager_step_ms": eager_ms,
+        "step_ms_p50": float(np.median(eager_ms[WARMUP_STEPS:])),
+        "replayed_step_ms": replay_ms,
+        "replayed_step_ms_p50": float(np.median(replay_ms[WARMUP_STEPS:])),
+        "after_12_steps": {"eager": eager_state, "train_steps": graph_state},
+        "max_abs_ds": ds, "max_abs_ds_loss_scale": scale_ds,
+        "launches": launches, "kernel_calls": calls, "profile": profile,
+        "overflow_eager": eager_skip, "overflow_replayed": replay_skip,
+    }
+
+
+# --------------------------------------------------------------------------- #
 # main
 # --------------------------------------------------------------------------- #
 
@@ -1299,6 +1704,11 @@ def main() -> int:
               _build.build_log("flash_fwd") or "", FWD_TF32X3_KERNELS),
           "flash_bwd_fp32_ptxas": ptxas_usage(
               _build.build_log("flash_bwd") or "", TF32X3_KERNELS),
+          "flash_wgmma_ptxas": {
+              **ptxas_usage(_build.build_log("flash_fwd") or "",
+                            WGMMA_KERNELS),
+              **ptxas_usage(_build.build_log("flash_bwd") or "",
+                            WGMMA_KERNELS)},
           "paged_verify": verify,
           "paged_verify_ptxas": ptxas_usage(
               _build.build_log("paged_verify") or "", VERIFY_KERNELS)})
@@ -1315,6 +1725,11 @@ def main() -> int:
     emit(trained)
     torch.cuda.empty_cache()
     emit(train_parity(ops))
+    torch.cuda.empty_cache()
+    emit(train_window(ops))
+    torch.cuda.empty_cache()
+    fp16 = train_fp16(ops)
+    emit(fp16)
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None):
@@ -1344,25 +1759,52 @@ def main() -> int:
              and c["D"] == HEAD_DIM and c["dtype"] == dtype
              and c["causal"] and not c["masked"])
         for dtype in ("bfloat16", "float32"))
+    # the fp16 instantiations at the training shape, launched on the fp16
+    # path (train_fp16's eager steps)
+    fwd16 = [c for c in flash if c["dtype"] == "float16"]
+    bwd16 = [c for c in flash_bwd if c["dtype"] == "float16"]
+    fwd16_main = next(c for c in fwd16 if c["L"] == TRAIN_LEN
+                      and c["D"] == HEAD_DIM and c["causal"]
+                      and not c["masked"])
+    bwd16_main = next(c for c in bwd16 if c["L"] == TRAIN_LEN
+                      and c["D"] == HEAD_DIM and c["causal"]
+                      and not c["masked"] and c["do_scale"] == 1.0)
     emit({"kernels": [
         row("flash_fwd", "flash_fwd",
             ["flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:70",
             trained["launches"]["flash_fwd"],
-            max(x["max_abs_err"] for x in flash), flash_main,
+            max(x["max_abs_err"] for x in flash if x not in fwd16),
+            flash_main,
             fp32=flash_fp32),
         row("flash_bwd_dq", "flash_bwd",
             ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:210",
             trained["launches"]["flash_bwd_dq"],
-            max(x["max_abs_err"]["dq"] for x in flash_bwd), bwd_main, "dq_",
-            bwd_fp32),
+            max(x["max_abs_err"]["dq"] for x in flash_bwd if x not in bwd16),
+            bwd_main, "dq_", bwd_fp32),
         row("flash_bwd_dkv", "flash_bwd",
             ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:246",
             trained["launches"]["flash_bwd_dkv"],
             max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
-                for x in flash_bwd), bwd_main, "dkv_", bwd_fp32),
+                for x in flash_bwd if x not in bwd16), bwd_main, "dkv_",
+            bwd_fp32),
+        row("flash_fwd_fp16", "flash_fwd", ["flash_fwd_wgmma_kernel<__half>"],
+            "stoke_tpu/ops/flash_attention.py:70",
+            fp16["launches"]["flash_fwd"],
+            max(x["max_abs_err"] for x in fwd16), fwd16_main),
+        row("flash_bwd_dq_fp16", "flash_bwd",
+            ["flash_bwd_dq_wgmma_kernel<__half>"],
+            "stoke_tpu/ops/flash_attention.py:210",
+            fp16["launches"]["flash_bwd_dq"],
+            max(x["max_abs_err"]["dq"] for x in bwd16), bwd16_main, "dq_"),
+        row("flash_bwd_dkv_fp16", "flash_bwd",
+            ["flash_bwd_dkv_wgmma_kernel<__half>"],
+            "stoke_tpu/ops/flash_attention.py:246",
+            fp16["launches"]["flash_bwd_dkv"],
+            max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
+                for x in bwd16), bwd16_main, "dkv_"),
         {**row("paged_decode", "paged_decode", list(DECODE_KERNELS),
                "stoke_tpu/ops/flash_attention.py:581",
                served["launches"]["paged_decode"],

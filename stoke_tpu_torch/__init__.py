@@ -6,14 +6,18 @@ entry points run on the card (``device="cuda"``) unless the caller passes
 ``sm_90a`` (``csrc/``), built at first use, each with a plain PyTorch
 version beside it.
 
-Two slices so far:
+What it covers so far:
 
-- training on one device through the :class:`Stoke` facade (the
-  four-call ``model -> loss -> backward -> step`` loop or ``train_step``,
-  fp32 or bf16, with :class:`StokeDataLoader`), flash attention's forward
-  and backward on the CUDA kernels;
+- training on one device through the :class:`Stoke` facade: the
+  four-call ``model -> loss -> backward -> step`` loop, ``train_step``,
+  and whole accumulation windows (``train_step_window``, ``train_steps``;
+  on the card each window a replayed CUDA graph), in fp32, bf16 or fp16
+  with its dynamic loss scaler (``Stoke.loss_scale``,
+  ``Stoke.skipped_optimizer_steps``), with :class:`StokeDataLoader`;
+  flash attention's forward and backward on the CUDA kernels;
 - serving GPT through :class:`stoke_tpu_torch.serving.ServingEngine`
-  (greedy, paged KV cache, continuous batching).
+  (paged KV cache, continuous batching, sampling, chunked prefill and
+  speculative decoding).
 """
 
 from stoke_tpu_torch.configs import (

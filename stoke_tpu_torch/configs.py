@@ -37,8 +37,8 @@ class DistributedOptions(Enum):
 
 class PrecisionOptions(Enum):
     """Precision: ``full`` (fp32), ``bf16`` (fp32 master params, the model
-    run in bfloat16) or ``fp16`` (with a dynamic loss scaler; not ported
-    yet)."""
+    run in bfloat16) or ``fp16`` (the same in float16, with a dynamic loss
+    scaler)."""
 
     full = "full"
     bf16 = "bf16"
@@ -53,8 +53,8 @@ class PrecisionConfig:
         param_dtype: dtype of the master copy of the parameters.
         output_dtype: dtype the model's outputs are cast to under bf16.
         init_scale / growth_factor / backoff_factor / growth_interval /
-            min_scale / num_losses: the fp16 loss scaler's (fp16 is not
-            ported yet; ``num_losses > 1`` needs it).
+            min_scale / num_losses: the fp16 loss scaler's
+            (``num_losses > 1``, one scaler a loss, needs fp16).
     """
 
     param_dtype: str = "float32"

@@ -20,15 +20,17 @@
 // D=64, causal) the pair does 7*L*L*D FLOPs per head (14*L*L*D without the
 // causal half) against ~10*L*D elements moved, so it is bound by
 // operations, and only the tensor cores come near that bound: 989 TFLOP/s
-// in bf16, and for fp32 a third of the 495 TFLOP/s TF32 rate (3xTF32,
+// in bf16 and fp16, and for fp32 a third of the 495 TFLOP/s TF32 rate (3xTF32,
 // below); neither the score matrix nor P leaves the SM.
 //
-// Dispatch by dtype: bfloat16 runs the wgmma kernels
-// (flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel, namespace tc),
-// float32 the warp-level mma.sync kernels (flash_bwd_dq_tf32x3_kernel and
+// Dispatch by dtype: bfloat16 and float16 run the wgmma kernels
+// (flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel, namespace tc,
+// templates on the element type T: the two types differ only in the wgmma
+// type and the rounding to T, hopper.cuh), float32 the warp-level
+// mma.sync kernels (flash_bwd_dq_tf32x3_kernel and
 // flash_bwd_dkv_tf32x3_kernel, namespace f32).
 //
-// The two bf16 kernels are FlashAttention-3's backward split in two, as
+// The two 16-bit kernels are FlashAttention-3's backward split in two, as
 // the TPU package splits it, without its fp32 dQ atomics. On the TPU the
 // walked axis is a sequential grid axis whose VMEM accumulators carry
 // across grid steps; here each CTA owns 64 rows of the output of one head,
@@ -48,8 +50,8 @@
 //   P^T  = exp2(S^T scale log2e - lse log2e) where allowed, else 0
 //          (key mask, range and causal rule tested before the exponential),
 //   dS^T = P^T (dP^T - delta),
-//   dV  += P^T dO          (P^T as bf16 register A, dO MN-major),
-//   dK  += dS^T Q          (dS^T as bf16 register A, Q MN-major);
+//   dV  += P^T dO          (P^T as T register A, dO MN-major),
+//   dK  += dS^T Q          (dS^T as T register A, Q MN-major);
 // dK is scaled once at the end.
 //
 // dQ: the same with the roles swapped. Q and dO resident, K and V streamed
@@ -62,16 +64,27 @@
 //   S  = Q K^T, dP = dO V^T  (all operands K-major, both groups in flight),
 //   P  = exp2(S scale log2e - lse log2e) where allowed, else 0,
 //   dS = P (dP - delta),
-//   dQ += dS K               (dS as bf16 register A, K MN-major);
+//   dQ += dS K               (dS as T register A, K MN-major);
 // dQ is scaled once at the end.
 //
-// P^T, dS^T and dS are rounded to bf16 for the register products, which
+// P^T, dS^T and dS are rounded to T for the register products, which
 // the TPU kernels (fp32 operands) do not do. Each rounding is at most 2^-9
-// relative per element, and every product sums >= 32 such terms in fp32,
-// so dQ, dK and dV move by ~0.1-0.5% of a row's norm, far inside the bf16
-// contract BWD_RTOL_BF16 = 5% and the row bound BWD_ROW_RTOL_BF16 = 2%
-// (shown on the CPU by tests/test_torch_flash_tc_numerics.py against the
-// JAX kernels).
+// relative per element in bf16 (2^-12 in fp16), and every product sums
+// >= 32 such terms in fp32, so dQ, dK and dV move by ~0.1-0.5% of a row's
+// norm in bf16, far inside the contract BWD_RTOL_BF16 = 5% and the row
+// bound BWD_ROW_RTOL_BF16 = 2%, which fp16 is held to as well (shown on
+// the CPU by tests/test_torch_flash_tc_numerics.py against the JAX
+// kernels). In fp16 the risk is range, not mantissa: dO, and so dS, carry
+// the dynamic loss scale, so a |dS| past 65504 would round to inf, and in
+// the GPT-base step at the starting scale of 2^16 |dS| stays under 2.3e-4,
+// where fp16 is subnormal (below 6.1e-5) and rounds to a fixed 6e-8: the
+// row error against the TPU kernel's fp32 dS grows to 3-6% (PERF.md).
+// So dS is scaled by a power of two before the rounding and the fp32 sums
+// of dQ and dK divided by it at the end, both exact: the wrapper passes a
+// bound on |dS| = P |dP - delta| <= max |dO row| max |V row| + max |delta|
+// (P <= 1, Cauchy-Schwarz) as one float on the card (no host sync), and
+// ds_scale_for (hopper.cuh) maps it to at most 2^14. bf16, with fp32's
+// range, gets no bound and is unchanged.
 //
 // The two fp32 kernels have the same split and walks (K and V resident
 // with Q, dO and their LSE and delta streamed for dK/dV; Q and dO resident
@@ -450,7 +463,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace f32
 
 // --------------------------------------------------------------------------
-// bf16 dQ and dK/dV: warpgroup MMA over TMA-loaded tiles
+// bf16 and fp16 dQ and dK/dV: warpgroup MMA over TMA-loaded tiles
 
 namespace tc {
 
@@ -475,7 +488,7 @@ struct DqCfg {
   static constexpr size_t kSmem = 1024 + kBarsOff + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap kmap,
@@ -484,7 +497,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               const int* __restrict__ mask,
-                              __nv_bfloat16* __restrict__ dq, int H, int L,
+                              const float* __restrict__ ds_bound,
+                              T* __restrict__ dq, int H, int L,
                               float scale, int causal) {
   using C = DqCfg<D>;
   constexpr int BK = C::BK;
@@ -570,6 +584,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       dlt[h] = qok[h] ? delta[head + qpos[h]] : 0.f;
     }
     const float scale_log2 = scale * kLog2e;
+    // dS is rounded to T times ds (a power of two), undone at the end
+    const float ds = ds_bound == nullptr ? 1.f : ds_scale_for(*ds_bound);
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
@@ -592,15 +608,19 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk % 4) * 32;
-        wgmma_ss(sc, smem_desc(qs + (kk / 4) * kRows * 128 + off, 16, 1024),
-                 smem_desc(ks + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
+        wgmma_ss<T>(sc,
+                    smem_desc(qs + (kk / 4) * kRows * 128 + off, 16, 1024),
+                    smem_desc(ks + (kk / 4) * BK * 128 + off, 16, 1024),
+                    kk > 0);
       }
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk % 4) * 32;
-        wgmma_ss(dp, smem_desc(dos + (kk / 4) * kRows * 128 + off, 16, 1024),
-                 smem_desc(vs + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
+        wgmma_ss<T>(dp,
+                    smem_desc(dos + (kk / 4) * kRows * 128 + off, 16, 1024),
+                    smem_desc(vs + (kk / 4) * BK * 128 + off, 16, 1024),
+                    kk > 0);
       }
       wgmma_commit();
       wgmma_wait<1>();
@@ -618,16 +638,17 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       fence_regs(dp);
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i)
-        dp[i] = sc[i] * (dp[i] - dlt[(i >> 1) & 1]);
+        dp[i] = (sc[i] * ds) * (dp[i] - dlt[(i >> 1) & 1]);
 
-      // dQ += dS K, dS as bf16 registers, K MN-major from the same tile
+      // dQ += dS K, dS as T registers, K MN-major from the same tile
       uint32_t dsa[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) to_a_frag(dp, kk, dsa[kk]);
+      for (int kk = 0; kk < BK / 16; ++kk) to_a_frag<T>(dp, kk, dsa[kk]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs(acc, dsa[kk], smem_desc(ks + kk * 2048, BK * 128, 1024), 1);
+        wgmma_rs<T>(acc, dsa[kk], smem_desc(ks + kk * 2048, BK * 128, 1024),
+                    1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -635,38 +656,41 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     }
 
     // rows past L write nothing; a fully masked row writes zeros
+    const float out_scale = scale / ds;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (!qok[h]) continue;
-      __nv_bfloat16* out = dq + (head + qpos[h]) * D;
+      T* out = dq + (head + qpos[h]) * D;
 #pragma unroll
       for (int i = 2 * h; i < D / 2; i += 4) {
         const int col = 8 * (i / 4) + cq;
         *reinterpret_cast<uint32_t*>(out + col) =
-            pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+            pack2<T>(acc[i] * out_scale, acc[i + 1] * out_scale);
       }
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, const int* mask, void* dq,
-              int BH, int H, int L, float scale, int causal,
-              cudaStream_t stream) {
+              const float* lse, const float* delta, const int* mask,
+              const float* ds_bound, void* dq, int BH, int H, int L,
+              float scale, int causal, cudaStream_t stream) {
   using C = DqCfg<D>;
   CUtensorMap qm, km, vm, dom;
-  if (!make_map(&qm, q, BH, L, D, kRows) || !make_map(&km, k, BH, L, D, C::BK) ||
-      !make_map(&vm, v, BH, L, D, C::BK) ||
-      !make_map(&dom, dout, BH, L, D, kRows))
+  if (!make_map<T>(&qm, q, BH, L, D, kRows) ||
+      !make_map<T>(&km, k, BH, L, D, C::BK) ||
+      !make_map<T>(&vm, v, BH, L, D, C::BK) ||
+      !make_map<T>(&dom, dout, BH, L, D, kRows))
     return kErrTensorMap;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_wgmma_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(BH, (L + kRows - 1) / kRows);
-  flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
-      qm, km, vm, dom, lse, delta, mask, static_cast<__nv_bfloat16*>(dq), H, L,
+  flash_bwd_dq_wgmma_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
+      qm, km, vm, dom, lse, delta, mask, ds_bound, static_cast<T*>(dq), H, L,
       scale, causal);
   return cudaGetLastError();
 }
@@ -684,7 +708,7 @@ struct DkvCfg {
   static constexpr size_t kSmem = 1024 + kBarsOff + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                const __grid_constant__ CUtensorMap kmap,
@@ -693,9 +717,9 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                const int* __restrict__ mask,
-                               __nv_bfloat16* __restrict__ dk,
-                               __nv_bfloat16* __restrict__ dv, int H, int L,
-                               float scale, int causal) {
+                               const float* __restrict__ ds_bound,
+                               T* __restrict__ dk, T* __restrict__ dv,
+                               int H, int L, float scale, int causal) {
   using C = DkvCfg<D>;
   constexpr int BQ = C::BQ;
   extern __shared__ uint8_t smem_raw[];
@@ -773,6 +797,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
                (mask == nullptr ||
                 mask[static_cast<size_t>(bh / H) * L + kpos[h]] > 0);
     const float scale_log2 = scale * kLog2e;
+    // dS^T is rounded to T times ds (a power of two), undone at the end
+    const float ds = ds_bound == nullptr ? 1.f : ds_scale_for(*ds_bound);
     float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
@@ -792,15 +818,19 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk % 4) * 32;
-        wgmma_ss(sc, smem_desc(ks + (kk / 4) * kRows * 128 + off, 16, 1024),
-                 smem_desc(qs + (kk / 4) * BQ * 128 + off, 16, 1024), kk > 0);
+        wgmma_ss<T>(sc,
+                    smem_desc(ks + (kk / 4) * kRows * 128 + off, 16, 1024),
+                    smem_desc(qs + (kk / 4) * BQ * 128 + off, 16, 1024),
+                    kk > 0);
       }
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk % 4) * 32;
-        wgmma_ss(dp, smem_desc(vs + (kk / 4) * kRows * 128 + off, 16, 1024),
-                 smem_desc(dos + (kk / 4) * BQ * 128 + off, 16, 1024), kk > 0);
+        wgmma_ss<T>(dp,
+                    smem_desc(vs + (kk / 4) * kRows * 128 + off, 16, 1024),
+                    smem_desc(dos + (kk / 4) * BQ * 128 + off, 16, 1024),
+                    kk > 0);
       }
       wgmma_commit();
       wgmma_wait<1>();
@@ -818,25 +848,25 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 #pragma unroll
       for (int i = 0; i < BQ / 2; ++i) {
         const int col = 8 * (i / 4) + cq + (i & 1);
-        dp[i] = sc[i] * (dp[i] - st[BQ + col]);
+        dp[i] = sc[i] * (dp[i] - st[BQ + col]) * ds;
       }
 
-      // dV += P^T dO and dK += dS^T Q, both left operands as bf16 registers
+      // dV += P^T dO and dK += dS^T Q, both left operands as T registers
       uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
-        to_a_frag(sc, kk, pa[kk]);
-        to_a_frag(dp, kk, dsa[kk]);
+        to_a_frag<T>(sc, kk, pa[kk]);
+        to_a_frag<T>(dp, kk, dsa[kk]);
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs(dv_acc, pa[kk], smem_desc(dos + kk * 2048, BQ * 128, 1024),
-                 1);
+        wgmma_rs<T>(dv_acc, pa[kk],
+                    smem_desc(dos + kk * 2048, BQ * 128, 1024), 1);
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs(dk_acc, dsa[kk], smem_desc(qs + kk * 2048, BQ * 128, 1024),
-                 1);
+        wgmma_rs<T>(dk_acc, dsa[kk],
+                    smem_desc(qs + kk * 2048, BQ * 128, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -844,6 +874,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       mbar_arrive(&empty[s]);
     }
 
+    const float dk_scale = scale / ds;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (kpos[h] >= L) continue;
@@ -852,34 +883,35 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       for (int i = 2 * h; i < D / 2; i += 4) {
         const int col = 8 * (i / 4) + cq;
         *reinterpret_cast<uint32_t*>(dk + out + col) =
-            pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+            pack2<T>(dk_acc[i] * dk_scale, dk_acc[i + 1] * dk_scale);
         *reinterpret_cast<uint32_t*>(dv + out + col) =
-            pack_bf16(dv_acc[i], dv_acc[i + 1]);
+            pack2<T>(dv_acc[i], dv_acc[i + 1]);
       }
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const int* mask,
-               void* dk, void* dv, int BH, int H, int L, float scale,
-               int causal, cudaStream_t stream) {
+               const float* ds_bound, void* dk, void* dv, int BH, int H,
+               int L, float scale, int causal, cudaStream_t stream) {
   using C = DkvCfg<D>;
   CUtensorMap qm, km, vm, dom;
-  if (!make_map(&qm, q, BH, L, D, C::BQ) || !make_map(&km, k, BH, L, D, kRows) ||
-      !make_map(&vm, v, BH, L, D, kRows) ||
-      !make_map(&dom, dout, BH, L, D, C::BQ))
+  if (!make_map<T>(&qm, q, BH, L, D, C::BQ) ||
+      !make_map<T>(&km, k, BH, L, D, kRows) ||
+      !make_map<T>(&vm, v, BH, L, D, kRows) ||
+      !make_map<T>(&dom, dout, BH, L, D, C::BQ))
     return kErrTensorMap;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<D>,
+      flash_bwd_dkv_wgmma_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(BH, (L + kRows - 1) / kRows);
-  flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
-      qm, km, vm, dom, lse, delta, mask, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, L, scale, causal);
+  flash_bwd_dkv_wgmma_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
+      qm, km, vm, dom, lse, delta, mask, ds_bound, static_cast<T*>(dk),
+      static_cast<T*>(dv), H, L, scale, causal);
   return cudaGetLastError();
 }
 
@@ -890,17 +922,22 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // q, k, v, dout, dq, dk, dv: [BH, L, D] contiguous, dtype 0 = float32,
-// 1 = bfloat16; lse, delta: [BH, L] float32; mask: [B, L] int32 or null.
+// 1 = bfloat16, 2 = float16; lse, delta: [BH, L] float32; mask: [B, L]
+// int32 or null; ds_bound: null, or one float32 on the card bounding |dS|,
+// from which the 16-bit kernels pick a power of two to scale dS by before
+// rounding it to their type (ds_scale_for; the float32 kernels ignore it).
 // Each returns the CUDA error of its launch (0 on success), -1 for a dtype
 // or head dim it does not take, or -2 if a TMA tensor map cannot be made.
-// bfloat16 launches the tensor-core kernels (flash_bwd_dq_wgmma_kernel,
-// flash_bwd_dkv_wgmma_kernel), float32 the 3xTF32 mma.sync ones
+// bfloat16 and float16 launch the tensor-core kernels
+// (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel, instantiated for
+// each), float32 the 3xTF32 mma.sync ones
 // (flash_bwd_dq_tf32x3_kernel, flash_bwd_dkv_tf32x3_kernel); a float32
 // pointer that is not 16-byte aligned returns cudaErrorMisalignedAddress.
 int stoke_flash_bwd_dq(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
-                       const int* mask, void* dq, int BH, int H, int L, int D,
-                       int dtype, float scale, int causal, void* stream) {
+                       const int* mask, const float* ds_bound, void* dq,
+                       int BH, int H, int L, int D, int dtype, float scale,
+                       int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return f32::launch_dq<64>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
@@ -909,19 +946,30 @@ int stoke_flash_bwd_dq(const void* q, const void* k, const void* v,
     return f32::launch_dq<128>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
                                scale, causal, s);
   if (dtype == 1 && D == 64)
-    return tc::launch_dq<64>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
-                             scale, causal, s);
+    return tc::launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, mask,
+                                            ds_bound, dq, BH, H, L, scale,
+                                            causal, s);
   if (dtype == 1 && D == 128)
-    return tc::launch_dq<128>(q, k, v, dout, lse, delta, mask, dq, BH, H, L,
-                              scale, causal, s);
+    return tc::launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, mask,
+                                             ds_bound, dq, BH, H, L, scale,
+                                             causal, s);
+  if (dtype == 2 && D == 64)
+    return tc::launch_dq<__half, 64>(q, k, v, dout, lse, delta, mask,
+                                     ds_bound, dq, BH, H, L, scale, causal,
+                                     s);
+  if (dtype == 2 && D == 128)
+    return tc::launch_dq<__half, 128>(q, k, v, dout, lse, delta, mask,
+                                      ds_bound, dq, BH, H, L, scale, causal,
+                                      s);
   return stoke::hopper::kErrUnsupported;
 }
 
 int stoke_flash_bwd_dkv(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
-                        const float* delta, const int* mask, void* dk,
-                        void* dv, int BH, int H, int L, int D, int dtype,
-                        float scale, int causal, void* stream) {
+                        const float* delta, const int* mask,
+                        const float* ds_bound, void* dk, void* dv, int BH,
+                        int H, int L, int D, int dtype, float scale,
+                        int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return f32::launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
@@ -930,11 +978,21 @@ int stoke_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return f32::launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
                                 H, L, scale, causal, s);
   if (dtype == 1 && D == 64)
-    return tc::launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H,
-                              L, scale, causal, s);
+    return tc::launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, mask,
+                                             ds_bound, dk, dv, BH, H, L,
+                                             scale, causal, s);
   if (dtype == 1 && D == 128)
-    return tc::launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H,
-                               L, scale, causal, s);
+    return tc::launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta,
+                                              mask, ds_bound, dk, dv, BH, H,
+                                              L, scale, causal, s);
+  if (dtype == 2 && D == 64)
+    return tc::launch_dkv<__half, 64>(q, k, v, dout, lse, delta, mask,
+                                      ds_bound, dk, dv, BH, H, L, scale,
+                                      causal, s);
+  if (dtype == 2 && D == 128)
+    return tc::launch_dkv<__half, 128>(q, k, v, dout, lse, delta, mask,
+                                       ds_bound, dk, dv, BH, H, L, scale,
+                                       causal, s);
   return stoke::hopper::kErrUnsupported;
 }
 

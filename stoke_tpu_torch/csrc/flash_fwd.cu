@@ -11,11 +11,13 @@
 // What bounds it on the H100: per head ~4*L*L*D FLOPs (half under causal)
 // against 4*L*D elements moved, so at the training shape (B=8, H=12,
 // L=1024, D=64) it is bound by operations, and only the tensor cores come
-// near that bound: 989 TFLOP/s in bf16, and for fp32 a third of the 495
-// TFLOP/s TF32 rate (3xTF32, below); the score matrix never leaves the SM.
+// near that bound: 989 TFLOP/s in bf16 and fp16, and for fp32 a third of
+// the 495 TFLOP/s TF32 rate (3xTF32, below); the score matrix never
+// leaves the SM.
 //
-// Dispatch by dtype: bfloat16 runs flash_fwd_wgmma_kernel (namespace tc),
-// float32 flash_fwd_tf32x3_kernel (namespace f32). Both walk the k tiles of
+// Dispatch by dtype: bfloat16 and float16 run flash_fwd_wgmma_kernel
+// (namespace tc, one instantiation each), float32 flash_fwd_tf32x3_kernel
+// (namespace f32). Both walk the k tiles of
 // one (b*h, q tile) in a loop of their own (on the TPU the k tiles are a
 // sequential grid axis whose VMEM scratch (acc, m, l) carries across grid
 // steps); under causal, tiles wholly above the diagonal are never loaded
@@ -49,7 +51,9 @@
 //     were slower there too (PERF.md).
 // What bounds it: operations, at a third of the 495 TFLOP/s TF32 rate.
 //
-// The bf16 kernel (flash_fwd_wgmma_kernel):
+// The bf16 and fp16 kernel (flash_fwd_wgmma_kernel<T, D>, T __nv_bfloat16
+// or __half; the two differ only in the wgmma type and the rounding of P
+// and O, hopper.cuh):
 //   * a CTA is one consumer warpgroup (the 64 q rows) and one producer
 //     warp. One producer thread loads Q once and K, V tiles of BN rows
 //     (128 at D=64, 64 at D=128) by TMA into a 2-stage ring of 128-byte-
@@ -60,15 +64,17 @@
 //   * S = Q K^T by wgmma m64nBNk16 (Q and K K-major from shared memory,
 //     fp32 accumulators in registers), then scale, key mask and, under
 //     causal, the diagonal rule;
-//   * O += P V by register-A wgmma: P is rounded to bf16 in registers (the
+//   * O += P V by register-A wgmma: P is rounded to T in registers (the
 //     accumulator's layout is the A fragment's), V is the MN-major B
 //     operand. The rounding is one the TPU kernel does not make (it
-//     multiplies fp32 P by V); it costs at most 2^-9 of each p relative,
-//     and l sums the fp32 p, so O moves by ~1e-3 at most, well inside the
-//     bf16 contract FWD_ATOL_BF16 = 2e-2 (shown on the CPU by
+//     multiplies fp32 P by V); it costs at most 2^-9 of each p relative in
+//     bf16 (2^-12 in fp16, where p < 6e-8 also flushes to 0: harmless, as
+//     such a p adds under 2^-24 of a row's weight), and l sums the fp32 p,
+//     so O moves by ~1e-3 at most in bf16, well inside FWD_ATOL_BF16 =
+//     2e-2, and ~8x less in fp16 (FWD_ATOL_FP16; shown on the CPU by
 //     tests/test_torch_flash_tc_numerics.py against the JAX kernel);
 //   * the fp32 O accumulator is rescaled by exp2(m_old - m_new) between
-//     tiles and written as O / l in bf16 with the LSE rows.
+//     tiles and written as O / l in T with the LSE rows.
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mma_tf32.cuh"
@@ -273,7 +279,7 @@ int launch(const void* q, const void* k, const void* v, const int* mask,
 }  // namespace f32
 
 // --------------------------------------------------------------------------
-// bf16: warpgroup MMA over TMA-loaded tiles
+// bf16 and fp16: warpgroup MMA over TMA-loaded tiles
 
 namespace tc {
 
@@ -296,13 +302,13 @@ struct Cfg {
   static constexpr size_t kSmem = 1024 + kBarsOff + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
                            const int* __restrict__ mask,
-                           __nv_bfloat16* __restrict__ o,
+                           T* __restrict__ o,
                            float* __restrict__ lse, int H, int L,
                            float scale_log2, int causal) {
   using C = Cfg<D>;
@@ -388,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk % 4) * 32;
-        wgmma_ss(sc,
+        wgmma_ss<T>(sc,
                  smem_desc(qs + (kk / 4) * kRows * 128 + off, 16, 1024),
                  smem_desc(ks + (kk / 4) * BN * 128 + off, 16, 1024),
                  kk > 0);
@@ -432,14 +438,15 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-      // O += P V, P rounded to bf16 as the A operand
+      // O += P V, P rounded to T as the A operand
       uint32_t pa[BN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) to_a_frag(sc, kk, pa[kk]);
+      for (int kk = 0; kk < BN / 16; ++kk) to_a_frag<T>(sc, kk, pa[kk]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs(acc, pa[kk], smem_desc(vs + kk * 2048, BN * 128, 1024), 1);
+        wgmma_rs<T>(acc, pa[kk], smem_desc(vs + kk * 2048, BN * 128, 1024),
+                    1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -451,12 +458,12 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     for (int h = 0; h < 2; ++h) {
       if (row[h] >= L) continue;
       const float inv = 1.f / (l[h] > 0.f ? l[h] : 1.f);
-      __nv_bfloat16* orow = o + (head + row[h]) * D;
+      T* orow = o + (head + row[h]) * D;
 #pragma unroll
       for (int i = 2 * h; i < D / 2; i += 4) {
         const int col = 8 * (i / 4) + cq;
         *reinterpret_cast<uint32_t*>(orow + col) =
-            pack_bf16(acc[i] * inv, acc[i + 1] * inv);
+            pack2<T>(acc[i] * inv, acc[i + 1] * inv);
       }
       if (lane % 4 == 0)
         lse[head + row[h]] = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : kNegInf;
@@ -464,23 +471,25 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* mask,
            void* o, float* lse, int BH, int H, int L, float scale, int causal,
            cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, BH, L, D, kRows) || !make_map(&km, k, BH, L, D, C::BN) ||
-      !make_map(&vm, v, BH, L, D, C::BN))
+  if (!make_map<T>(&qm, q, BH, L, D, kRows) ||
+      !make_map<T>(&km, k, BH, L, D, C::BN) ||
+      !make_map<T>(&vm, v, BH, L, D, C::BN))
     return kErrTensorMap;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(BH, (L + kRows - 1) / kRows);
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
-      qm, km, vm, mask, static_cast<__nv_bfloat16*>(o), lse, H, L,
-      scale * kLog2e, causal);
+  flash_fwd_wgmma_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
+      qm, km, vm, mask, static_cast<T*>(o), lse, H, L, scale * kLog2e,
+      causal);
   return cudaGetLastError();
 }
 
@@ -490,13 +499,14 @@ int launch(const void* q, const void* k, const void* v, const int* mask,
 
 extern "C" {
 
-// q, k, v, o: [BH, L, D] contiguous, dtype 0 = float32, 1 = bfloat16;
-// mask: [B, L] int32 or null; lse: [BH, L] float32. bfloat16 launches
-// flash_fwd_wgmma_kernel, float32 flash_fwd_tf32x3_kernel. Returns the CUDA
+// q, k, v, o: [BH, L, D] contiguous, dtype 0 = float32, 1 = bfloat16,
+// 2 = float16; mask: [B, L] int32 or null; lse: [BH, L] float32. bfloat16
+// and float16 launch flash_fwd_wgmma_kernel (instantiated for each),
+// float32 flash_fwd_tf32x3_kernel. Returns the CUDA
 // error of the launch (0 on success; float32 pointers that are not 16-byte
 // aligned give cudaErrorMisalignedAddress), -1 for a dtype or head dim it
 // does not take, -2 if a TMA tensor map cannot be made (the libcuda lacks
-// the encoder, or a bfloat16 pointer is not 16-byte aligned).
+// the encoder, or a 16-bit pointer is not 16-byte aligned).
 int stoke_flash_fwd(const void* q, const void* k, const void* v,
                     const int* mask, void* o, float* lse, int BH, int H,
                     int L, int D, int dtype, float scale, int causal,
@@ -509,9 +519,17 @@ int stoke_flash_fwd(const void* q, const void* k, const void* v,
     return f32::launch<128>(q, k, v, mask, o, lse, BH, H, L, scale, causal,
                             s);
   if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, mask, o, lse, BH, H, L, scale, causal, s);
+    return tc::launch<__nv_bfloat16, 64>(q, k, v, mask, o, lse, BH, H, L,
+                                         scale, causal, s);
   if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, mask, o, lse, BH, H, L, scale, causal, s);
+    return tc::launch<__nv_bfloat16, 128>(q, k, v, mask, o, lse, BH, H, L,
+                                          scale, causal, s);
+  if (dtype == 2 && D == 64)
+    return tc::launch<__half, 64>(q, k, v, mask, o, lse, BH, H, L, scale,
+                                  causal, s);
+  if (dtype == 2 && D == 128)
+    return tc::launch<__half, 128>(q, k, v, mask, o, lse, BH, H, L, scale,
+                                   causal, s);
   return stoke::hopper::kErrUnsupported;
 }
 

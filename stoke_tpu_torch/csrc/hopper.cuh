@@ -1,12 +1,16 @@
-// Hopper building blocks of the port's bf16 flash kernels (flash_fwd.cu,
-// flash_bwd.cu): TMA tensor maps and loads, mbarriers, shared-memory matrix
-// descriptors and warpgroup matrix multiplies (wgmma), as inline PTX for
-// sm_90a. No library kernel is called; the tensor-map encoder is
-// libcuda's, looked up through the runtime so the libraries need not link
-// libcuda.
+// Hopper building blocks of the port's bf16 and fp16 flash kernels
+// (flash_fwd.cu, flash_bwd.cu): TMA tensor maps and loads, mbarriers,
+// shared-memory matrix descriptors and warpgroup matrix multiplies
+// (wgmma), as inline PTX for sm_90a. No library kernel is called; the
+// tensor-map encoder is libcuda's, looked up through the runtime so the
+// libraries need not link libcuda.
 //
 // Conventions the kernels rely on:
-//   * every tile is stored as "panels" of 64 bf16 columns (128 bytes a row),
+//   * the kernels are templates on the 16-bit element type T (__nv_bfloat16
+//     or __half): the two share every layout below, and differ only in the
+//     wgmma instruction's type name (wgmma_ops.cuh), the rounding of fp32
+//     pairs (pack2<T>) and the tensor maps' element type (make_map<T>);
+//   * every tile is stored as "panels" of 64 16-bit columns (128 bytes a row),
 //     written by TMA with 128-byte swizzle, each panel 1024-byte aligned:
 //     16-byte chunk c of row r sits at chunk c ^ (r % 8);
 //   * a K-major operand (the contraction runs along the 128-byte rows:
@@ -19,20 +23,27 @@
 //   * the fp32 accumulator of a 64 x N wgmma gives thread t of the
 //     warpgroup rows r0 = 16 (t / 32) + (t % 32) / 4 and r0 + 8, register
 //     i holding row (i & 2 ? r0 + 8 : r0), column 8 (i / 4) + 2 (t % 4) +
-//     (i & 1). Converted to bf16 pairs, registers 8k .. 8k + 7 are exactly
+//     (i & 1). Converted to 16-bit pairs, registers 8k .. 8k + 7 are exactly
 //     the A fragment of the k-th 16-column slice for a register-A wgmma,
 //     so P and dS feed the next product without leaving registers.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace stoke {
 namespace hopper {
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the kernels' 16-bit element type: __half (fp16) or __nv_bfloat16
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -164,158 +175,77 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// two fp32 values as one bf16x2 register, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two fp32 values as one register of two T (bf16x2 or f16x2), the first
+// in the low half, each rounded to nearest even (cvt.rn.bf16x2.f32 or
+// cvt.rn.f16x2.f32; an fp16 value past 65504 becomes inf)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // The 16-column slice k of a 64 x N fp32 accumulator (registers 8k ..
-// 8k + 7), rounded to bf16, as the A fragment of a register-A wgmma.
-template <int R>
+// 8k + 7), rounded to T, as the A fragment of a register-A wgmma.
+template <typename T, int R>
 __device__ __forceinline__ void to_a_frag(const float (&d)[R], int k,
                                           uint32_t (&a)[4]) {
-  a[0] = pack_bf16(d[8 * k + 0], d[8 * k + 1]);
-  a[1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
-  a[2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
-  a[3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
+  a[0] = pack2<T>(d[8 * k + 0], d[8 * k + 1]);
+  a[1] = pack2<T>(d[8 * k + 2], d[8 * k + 3]);
+  a[2] = pack2<T>(d[8 * k + 4], d[8 * k + 5]);
+  a[3] = pack2<T>(d[8 * k + 6], d[8 * k + 7]);
 }
 
-// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B from shared memory,
-// both K-major; scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+// The power of two that scales a |dS| <= bound to at most 2^14, clamped
+// to 2^-30 .. 2^30. The 16-bit backward kernels multiply dS by it before
+// rounding dS to their type and divide their fp32 sums by it after, both
+// exactly. In fp16 (largest 65504, normal from 6.1e-5) this keeps dS from
+// overflowing under a large loss scale and, where dS is tiny, from
+// rounding in the subnormal range; bf16 has fp32's range and gets no bound
+// (a scale of 1). A bound of 0 gives 2^30, inf or NaN 2^-30.
+__device__ __forceinline__ float ds_scale_for(float bound) {
+  const float e = floorf(log2f(16384.f / bound));
+  return ldexpf(1.f, static_cast<int>(fminf(fmaxf(e, -30.f), 30.f)));
+}
+
+namespace mma_bf16 {
+#define STOKE_MMA_TYPE "bf16"
+#include "wgmma_ops.cuh"
+#undef STOKE_MMA_TYPE
+}  // namespace mma_bf16
+
+namespace mma_f16 {
+#define STOKE_MMA_TYPE "f16"
+#include "wgmma_ops.cuh"
+#undef STOKE_MMA_TYPE
+}  // namespace mma_f16
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N] in the operand type T (bf16 or
+// fp16), A and B from shared memory, both K-major; N = 2 R, R the
+// accumulator's registers a thread: 16 (N=32), 32 (N=64) or 64 (N=128).
+template <typename T, int R>
+__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t da,
                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kIsHalf<T>)
+    mma_f16::wgmma_ss(d, da, db, scale_d);
+  else
+    mma_bf16::wgmma_ss(d, da, db, scale_d);
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
-// both K-major; scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory,
-// both K-major; scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (four bf16x2
-// per thread, in the accumulator's layout), B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+// D[64 x N] += A[64 x 16] B[16 x N] in the operand type T, A from
+// registers (to_a_frag<T>), B from shared memory, MN-major; R = 32 or 64.
+template <typename T, int R>
+__device__ __forceinline__ void wgmma_rs(float (&d)[R],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// D[64 x 128] += A[64 x 16] B[16 x 128], A from registers (four bf16x2
-// per thread, in the accumulator's layout), B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+  if constexpr (kIsHalf<T>)
+    mma_f16::wgmma_rs(d, a, db, scale_d);
+  else
+    mma_bf16::wgmma_rs(d, a, db, scale_d);
 }
 
 // ----------------------------------------------------------- host: tensor maps
@@ -361,9 +291,11 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 [BH, L, D] tensor whose box is one
-// 64-column panel of `rows` rows of one head, 128-byte swizzled; rows past
-// L read as zeros. Returns false if the encoder is missing or refuses.
+// A 3-D map over a contiguous [BH, L, D] tensor of T (bf16 or fp16) whose
+// box is one 64-column panel of `rows` rows of one head, 128-byte
+// swizzled; rows past L read as zeros. Returns false if the encoder is
+// missing or refuses.
+template <typename T>
 inline bool make_map(CUtensorMap* map, const void* ptr, int BH, int L, int D,
                      int rows) {
   EncodeTiledFn encode = encode_tiled_fn();
@@ -375,7 +307,10 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int BH, int L, int D,
                                  static_cast<cuuint64_t>(L) * D * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  constexpr CUtensorMapDataType type = kIsHalf<T>
+                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -1,30 +1,47 @@
-"""The step engine of the port on one device: precision policy, gradient
-clipping, optimizer construction, and the accumulate / apply steps.
+"""The step engine of the port on one device: precision policy, the
+dynamic loss scaler, gradient clipping, optimizer construction, the
+accumulate / apply steps and the whole accumulation window.
 
 Counterpart of ``stoke_tpu/engine.py``: ``PrecisionPolicy`` (``:233-266``),
+``init_scaler_state`` and ``_scaler_update`` (``:269-305``),
 ``clip_gradients`` (``:312-341``), ``build_optimizer`` (``:349-372``), the
-train forward (``:699-707``), the accumulate core for one loss or
-``loss_weights`` (``:951-1117``) and the apply core (``:1434-1531``,
-without transports, sentinels or numerics).
+train forward (``:699-707``), the accumulate core for one loss,
+``loss_weights`` or per-loss scalers (``:951-1117``), the window core
+(``window_step``, ``:1143-1273``, which ``multi_step`` repeats) and the
+apply core (``:1434-1531``, without transports, sentinels or numerics).
 
 The JAX engine traces forward and grad into one program; here autograd
 records the eager forward, ``backward`` runs into the parameters' fp32
-``.grad`` (the accumulation buffer), and ``apply`` clips, steps the
-``torch.optim`` optimizer and zeroes the buffer.
+``.grad`` (the accumulation buffer), and ``apply`` unscales, checks,
+clips, steps the ``torch.optim`` optimizer and zeroes the buffer.
 
-Under bf16 the whole model runs in bfloat16, as the JAX policy casts the
-params and floating inputs: ``torch.func.functional_call`` swaps in
-bfloat16 casts of the fp32 master parameters, so every op (LayerNorm and
-the tied head included) computes in bfloat16 and the gradients flow back
+Under bf16 and fp16 the whole model runs in the 16-bit type, as the JAX
+policy casts the params and floating inputs: ``torch.func.functional_call``
+swaps in casts of the fp32 master parameters, so every op (LayerNorm and
+the tied head included) computes in that type and the gradients flow back
 through the casts into fp32 ``.grad`` on the masters. The tied embedding is
 cast once and used twice, and its two gradients sum into one. The output is
 cast to fp32. ``torch.autocast`` would compute a different function: it
 keeps LayerNorm and softmax in fp32.
+
+fp16 adds the JAX package's dynamic loss scaler, a device-resident state
+(``init_scaler_state``) updated by its rule (``scaler_update``), not
+``torch.amp.GradScaler``, which has no ``min_scale`` floor and counts
+growth differently. A step whose gradients are not finite is skipped with
+no host sync: every parameter and optimizer state tensor is put back by
+``torch.where`` on the device (see :meth:`StepEngine.apply`).
+
+A window (:meth:`StepEngine.window`, k micro-steps then one apply) runs
+eagerly on the CPU. On the card, its first call for a signature runs one
+window eagerly and captures the next into a CUDA graph; later windows of
+that signature copy their micro-batches into the graph's static inputs
+and replay it (:class:`CapturedWindow`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 from torch import nn
@@ -37,6 +54,7 @@ from stoke_tpu_torch.configs import (
     PrecisionConfig,
     PrecisionOptions,
 )
+from stoke_tpu_torch.ops.flash_attention import LAUNCHES
 
 
 def _cast_floating(tree, dtype: Optional[torch.dtype]):
@@ -53,11 +71,13 @@ def _cast_floating(tree, dtype: Optional[torch.dtype]):
 
 class PrecisionPolicy(NamedTuple):
     """fp32 master params, the compute dtype the model runs in (None: no
-    cast), and the dtype its outputs are cast to."""
+    cast), the dtype its outputs are cast to, and whether the dynamic loss
+    scaler is on (fp16 only)."""
 
     param_dtype: torch.dtype
     compute_dtype: Optional[torch.dtype]
     output_dtype: Optional[torch.dtype]
+    scaled: bool = False
 
     @staticmethod
     def make(option: PrecisionOptions, cfg: PrecisionConfig) -> "PrecisionPolicy":
@@ -67,6 +87,9 @@ class PrecisionPolicy(NamedTuple):
         if option is PrecisionOptions.bf16:
             return PrecisionPolicy(param, torch.bfloat16,
                                    getattr(torch, cfg.output_dtype))
+        if option is PrecisionOptions.fp16:
+            return PrecisionPolicy(param, torch.float16,
+                                   getattr(torch, cfg.output_dtype), True)
         raise ValueError(f"no precision policy for {option}")
 
     def cast_compute(self, tree):
@@ -74,6 +97,61 @@ class PrecisionPolicy(NamedTuple):
 
     def cast_output(self, tree):
         return _cast_floating(tree, self.output_dtype)
+
+
+def init_scaler_state(cfg: PrecisionConfig,
+                      device: torch.device) -> Dict[str, torch.Tensor]:
+    """The dynamic loss scaler's state on ``device``: ``scale`` (float32)
+    and ``growth_count`` (int32), scalars; with ``num_losses > 1`` each a
+    ``[num_losses]`` vector, plus the per-loss ``finite`` flags (bool) that
+    each loss's backward ANDs into and the apply resets (the JAX package's
+    ``init_scaler_state``)."""
+    if cfg.num_losses > 1:
+        n = cfg.num_losses
+        return {
+            "scale": torch.full((n,), cfg.init_scale, dtype=torch.float32,
+                                device=device),
+            "growth_count": torch.zeros(n, dtype=torch.int32, device=device),
+            "finite": torch.ones(n, dtype=torch.bool, device=device),
+        }
+    return {
+        "scale": torch.tensor(cfg.init_scale, dtype=torch.float32,
+                              device=device),
+        "growth_count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def scaler_update(state: Dict[str, torch.Tensor], finite: torch.Tensor,
+                  cfg: PrecisionConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``_scaler_update``, elementwise: after
+    ``growth_interval`` finite steps in a row the scale grows by
+    ``growth_factor`` and the count restarts; a step that is not finite
+    backs the scale off by ``backoff_factor``, floored at ``min_scale``,
+    and restarts the count. Returns the new ``scale`` and
+    ``growth_count``."""
+    scale, count = state["scale"], state["growth_count"]
+    grew = count + 1 >= cfg.growth_interval
+    new_scale = torch.where(
+        finite,
+        torch.where(grew, scale * cfg.growth_factor, scale),
+        (scale * cfg.backoff_factor).clamp_min(cfg.min_scale),
+    )
+    new_count = torch.where(finite & ~grew, count + 1,
+                            torch.zeros_like(count))
+    return {"scale": new_scale, "growth_count": new_count}
+
+
+def unscale_and_check(grads: Sequence[torch.Tensor],
+                      inv_scale: torch.Tensor) -> torch.Tensor:
+    """Multiply ``grads`` in place by ``inv_scale`` (a float32 scalar on
+    their device) and return whether every element was finite, as a bool
+    scalar on the device, with no host sync (one multi-tensor pass per
+    dtype: ``torch._amp_foreach_non_finite_check_and_unscale_``)."""
+    found = torch.zeros((), dtype=torch.float32, device=inv_scale.device)
+    for dtype in {g.dtype for g in grads}:
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            [g for g in grads if g.dtype == dtype], found, inv_scale)
+    return found == 0
 
 
 @torch.no_grad()
@@ -124,26 +202,60 @@ def build_optimizer(optimizer: Any, params) -> torch.optim.Optimizer:
     return built
 
 
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Keep the optimizer's step counts on the device: ``capturable=True``
+    on every param group that has the flag (Adam, AdamW and the other
+    ``torch.optim`` classes that count steps). Their step then runs inside
+    a CUDA graph, and a skipped fp16 step can be put back with no host
+    sync. The update is the same function; only where the step count and
+    bias corrections are computed moves (to fp32 on the device)."""
+    for group in optimizer.param_groups:
+        if "capturable" in group:
+            group["capturable"] = True
+
+
+class CapturedWindow(NamedTuple):
+    """A window captured as a CUDA graph: the graph, its static inputs (the
+    flattened inputs' leaves), its outputs (stacked reports and the finite
+    flag, in the graph's memory), the kernel launches that one replay
+    makes (counted by the wrappers during capture, which launches nothing)
+    and the learning rates baked into it."""
+
+    graph: Any
+    inputs: List[Any]
+    outputs: Tuple[Any, Optional[torch.Tensor]]
+    launches: Dict[str, int]
+    lrs: Tuple[Any, ...]
+
+
 class StepEngine:
-    """The accumulate and apply steps over one module.
+    """The accumulate and apply steps over one module, and the window.
 
     Args:
         module: the model, on its device, parameters in ``param_dtype``.
         loss_fn: ``loss_fn(output, *loss_args)`` -> a scalar, or a tuple,
             list or dict of scalars (several losses).
         optimizer: the built ``torch.optim`` optimizer over the module's
-            parameters.
+            parameters. On a CUDA device it is made capturable
+            (:func:`make_capturable`).
         precision: the :class:`PrecisionPolicy`.
         grad_accum: micro-batches per optimizer step.
         grad_clip: ``ClipGradConfig``, ``ClipGradNormConfig`` or None.
         loss_weights: None, or weights shaped like the loss result; the
             objective is then ``sum(w_i * loss_i)`` while the reported
             losses stay unweighted.
+        precision_config: the loss scaler's settings (fp16); None is
+            ``PrecisionConfig()``.
+        generator: the ``torch.Generator`` the model's dropout draws from;
+            a captured window registers it, so every replay draws fresh
+            masks.
     """
 
     def __init__(self, module: nn.Module, loss_fn: Callable,
                  optimizer: torch.optim.Optimizer, precision: PrecisionPolicy,
-                 grad_accum: int = 1, grad_clip=None, loss_weights=None):
+                 grad_accum: int = 1, grad_clip=None, loss_weights=None,
+                 precision_config: Optional[PrecisionConfig] = None,
+                 generator: Optional[torch.Generator] = None):
         self.module = module
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -151,9 +263,21 @@ class StepEngine:
         self.grad_accum = grad_accum
         self.grad_clip = grad_clip
         self.loss_weights = loss_weights
+        self.precision_config = precision_config or PrecisionConfig()
+        self.generator = generator
         self.params: List[torch.Tensor] = [
             p for p in module.parameters() if p.requires_grad
         ]
+        self.device = (self.params[0].device if self.params
+                       else torch.device("cpu"))
+        self.per_loss = (precision.scaled
+                         and self.precision_config.num_losses > 1)
+        self.scaler = (init_scaler_state(self.precision_config, self.device)
+                       if precision.scaled else None)
+        self._snapshot: Dict[Any, torch.Tensor] = {}
+        self._windows: Dict[Any, CapturedWindow] = {}
+        if self.device.type == "cuda":
+            make_capturable(optimizer)
 
     def forward(self, args: tuple, kwargs: dict):
         """The model's forward under the precision policy (JAX
@@ -173,9 +297,11 @@ class StepEngine:
         """``(objective, report)`` of a training loss result.
 
         ``objective`` is the fp32 sum of the (weighted) losses divided by
-        ``grad_accum``, the tensor to differentiate. ``report`` has the
-        loss result's structure, each loss detached and divided by
-        ``grad_accum`` (the JAX facade's convention)."""
+        ``grad_accum``, the tensor to differentiate; with per-loss scalers
+        the vector of the (weighted) losses divided by ``grad_accum``, one
+        entry a scale. ``report`` has the loss result's structure, each
+        loss detached and divided by ``grad_accum`` (the JAX facade's
+        convention)."""
         inv = 1.0 / self.grad_accum
         leaves, spec = tree_flatten(result)
         if self.loss_weights is not None:
@@ -189,31 +315,236 @@ class StepEngine:
                      for w, l in zip(weights, leaves)]
         else:
             comps = [l.float().sum() for l in leaves]
-        objective = sum(comps) * inv
+        if self.per_loss:
+            n = self.precision_config.num_losses
+            if len(comps) != n:
+                raise ValueError(
+                    f"Stoke -- PrecisionConfig.num_losses={n} but loss() "
+                    f"returned {len(comps)} loss leaves — per-loss scalers "
+                    f"need one scale per loss"
+                )
+            objective = torch.stack(comps) * inv
+        else:
+            objective = sum(comps) * inv
         report = tree_unflatten([l.detach() * inv for l in leaves], spec)
         return objective, report
 
+    def backward(self, objective: torch.Tensor) -> None:
+        """Autograd of ``objective`` into the accumulated fp32 ``.grad``:
+        times the loss scale under fp16; with per-loss scalers, one
+        backward per loss seeded with its own scale, each checked for
+        finiteness (ANDed into the scaler's ``finite`` flags) and unscaled
+        into the buffer, which then holds unscaled gradients (the JAX
+        accumulate core's per-loss branch)."""
+        if self.per_loss:
+            self._backward_per_loss(objective)
+        elif self.scaler is not None:
+            (objective * self.scaler["scale"]).backward()
+        else:
+            objective.backward()
+
+    def _backward_per_loss(self, objective: torch.Tensor) -> None:
+        scales, flags = self.scaler["scale"], self.scaler["finite"]
+        n = scales.shape[0]
+        index = torch.arange(n, device=scales.device)
+        for i in range(n):
+            seed = torch.where(index == i, scales, 0.0)
+            grads = torch.autograd.grad(objective, self.params, seed,
+                                        retain_graph=i < n - 1,
+                                        allow_unused=True)
+            got = [(p, g) for p, g in zip(self.params, grads)
+                   if g is not None]
+            finite = unscale_and_check([g for _, g in got],
+                                       torch.reciprocal(scales[i]))
+            flags[i] = flags[i] & finite
+            for p, g in got:
+                if p.grad is None:
+                    p.grad = g
+                else:
+                    p.grad.add_(g)
+
     def accum(self, args: tuple, kwargs: dict, loss_args: tuple = ()):
-        """One micro-step: forward, loss, ``(objective / grad_accum)
-        .backward()`` into the accumulated fp32 ``.grad`` of the masters.
-        Returns the report."""
+        """One micro-step: forward, loss, :meth:`backward` of
+        ``objective / grad_accum`` into the accumulated fp32 ``.grad`` of
+        the masters. Returns the report."""
         out = self.forward(args, kwargs)
         objective, report = self.objective(self.loss_fn(out, *loss_args))
-        objective.backward()
+        self.backward(objective)
         return report
 
-    def apply(self) -> None:
-        """At the accumulation boundary: clip the accumulated gradients,
-        step the optimizer, zero the buffer."""
+    @torch.no_grad()
+    def apply(self) -> Optional[torch.Tensor]:
+        """At the accumulation boundary, in the JAX apply core's order:
+        under fp16 unscale and check the accumulated gradients (ANDed with
+        the per-loss flags), then clip, step the optimizer (put back when
+        not finite), zero the buffer, and update the scaler. Returns the
+        finite flag (a bool scalar on the device), or None without a
+        scaler."""
         grads = [p.grad for p in self.params if p.grad is not None]
+        finite = None
+        if self.scaler is not None:
+            scale = self.scaler["scale"]
+            inv = (torch.ones((), dtype=torch.float32, device=scale.device)
+                   if self.per_loss else torch.reciprocal(scale))
+            finite = unscale_and_check(grads, inv)
+            if self.per_loss:
+                finite = finite & self.scaler["finite"].all()
         clip_gradients(grads, self.grad_clip)
-        self.optimizer.step()
+        if finite is None:
+            self.optimizer.step()
+        else:
+            self._step_unless(finite)
         self.optimizer.zero_grad(set_to_none=True)
+        if self.scaler is not None:
+            flags = self.scaler["finite"] if self.per_loss else finite
+            new = scaler_update(self.scaler, flags, self.precision_config)
+            self.scaler["scale"].copy_(new["scale"])
+            self.scaler["growth_count"].copy_(new["growth_count"])
+            if self.per_loss:
+                self.scaler["finite"].fill_(True)
+        return finite
+
+    def _guarded(self) -> Dict[Any, torch.Tensor]:
+        """Every tensor a step may change: the parameters and each tensor
+        of the optimizer's state, by (parameter index, state key)."""
+        out = {(i, None): p for i, p in enumerate(self.params)}
+        for i, p in enumerate(self.params):
+            for key, v in self.optimizer.state.get(p, {}).items():
+                if torch.is_tensor(v):
+                    out[(i, key)] = v
+        return out
+
+    @torch.no_grad()
+    def _snap(self, live: Dict[Any, torch.Tensor]) -> Dict[Any, torch.Tensor]:
+        """Copies of ``live`` into buffers kept from step to step (outside
+        autograd: a copy of a parameter recorded by autograd would keep
+        the parameter's gradient node alive on this stream)."""
+        for key, t in live.items():
+            b = self._snapshot.get(key)
+            if (b is None or b.shape != t.shape or b.dtype != t.dtype
+                    or b.device != t.device):
+                self._snapshot[key] = torch.empty_like(t)
+        bufs = [self._snapshot[key] for key in live]
+        torch._foreach_copy_(bufs, list(live.values()))
+        return dict(zip(live, bufs))
+
+    def _step_unless(self, finite: torch.Tensor) -> None:
+        """``optimizer.step()``, then every parameter and optimizer state
+        tensor, step counts included, put back where ``finite`` is false:
+        ``torch.where`` over the new value and a copy taken before the
+        step, so a skipped step leaves them bit for bit as they were,
+        decided on the device with no host sync (and so inside a CUDA
+        graph). This works for any ``torch.optim`` optimizer; the
+        ``found_inf`` argument of the fused Adam family would skip in the
+        kernel but exists only there. State the step creates (the first
+        step's) is zeroed instead, as optax initialises it."""
+        old = self._snap(self._guarded())
+        self.optimizer.step()
+        for key, t in self._guarded().items():
+            keep = finite if finite.device == t.device else finite.to(t.device)
+            prev = old.get(key)
+            if prev is None:
+                prev = torch.zeros((), dtype=t.dtype, device=t.device)
+            torch.where(keep, t, prev, out=t)
 
     def fused(self, args: tuple, kwargs: dict, loss_args: tuple = (),
               do_apply: bool = True):
-        """:meth:`accum`, then :meth:`apply` when ``do_apply``."""
+        """:meth:`accum`, then :meth:`apply` when ``do_apply``. Returns
+        ``(report, finite)``; ``finite`` is None without an apply or a
+        scaler."""
         report = self.accum(args, kwargs, loss_args)
-        if do_apply:
-            self.apply()
-        return report
+        return report, (self.apply() if do_apply else None)
+
+    # ------------------------------------------------------------------ #
+    # the accumulation window
+    # ------------------------------------------------------------------ #
+
+    def _window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
+        """``grad_accum`` micro-steps over the stacked inputs' leading
+        axis, then :meth:`apply`: exactly what ``grad_accum`` calls of
+        :meth:`fused` compute. Returns (reports stacked ``[k, ...]``,
+        finite)."""
+        reports = []
+        for i in range(self.grad_accum):
+            def pick(tree, i=i):
+                return tree_map(lambda t: t[i] if torch.is_tensor(t) else t,
+                                tree)
+
+            reports.append(self.accum(pick(margs), pick(mkwargs),
+                                      pick(loss_args)))
+        finite = self.apply()
+        return tree_map(lambda *r: torch.stack(r), *reports), finite
+
+    def window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
+        """One whole accumulation window over inputs stacked to
+        ``[grad_accum, ...]`` (the JAX ``window_step``). Returns (the
+        reports stacked ``[grad_accum, ...]``, the finite flag or None).
+
+        On the CPU it runs eagerly. On the card, the first call for a
+        signature (the stacked inputs' structure, shapes and dtypes, with
+        ``grad_accum`` and the loss structure that follow from them) runs
+        one window eagerly, which makes the optimizer's state and builds
+        the kernels, then captures a window into a ``torch.cuda.CUDAGraph``
+        with static input buffers. Every later call of that signature
+        copies its inputs into those buffers (device to device when they
+        are on the card) and replays the graph. The learning rates are
+        baked into the graph as floats, as the JAX package's compiled
+        window bakes its schedule: a window whose param groups' ``lr``
+        changed captures anew. A capture that fails raises with its
+        cause; nothing falls back to eager on the card."""
+        inputs = (tuple(margs), dict(mkwargs), tuple(loss_args))
+        if self.device.type != "cuda":
+            return self._window(*inputs)
+        flat, spec = tree_flatten(inputs)
+        key = (spec, tuple((tuple(t.shape), t.dtype, t.device)
+                           if torch.is_tensor(t) else t for t in flat))
+        lrs = tuple(None if torch.is_tensor(g["lr"]) else g["lr"]
+                    for g in self.optimizer.param_groups)
+        cap = self._windows.get(key)
+        if cap is not None and cap.lrs != lrs:
+            del self._windows[key]
+            cap = None
+        if cap is None:
+            out = self._window(*inputs)
+            self._windows[key] = self._capture(flat, spec, lrs)
+            return out
+        for dst, src in zip(cap.inputs, flat):
+            if torch.is_tensor(dst):
+                dst.copy_(src)
+        cap.graph.replay()
+        for name, n in cap.launches.items():
+            LAUNCHES[name] += n
+        reports, finite = cap.outputs
+        return (tree_map(torch.clone, reports),
+                None if finite is None else finite.clone())
+
+    def _capture(self, flat: list, spec, lrs) -> CapturedWindow:
+        for p in self.params:
+            for key, v in self.optimizer.state.get(p, {}).items():
+                if torch.is_tensor(v) and v.device != self.device:
+                    raise RuntimeError(
+                        f"Stoke -- the optimizer keeps its state {key!r} on "
+                        f"{v.device}; a window on the card runs as a CUDA "
+                        f"graph and needs all optimizer state on "
+                        f"{self.device} (an optimizer with capturable=True)"
+                    )
+        if self.scaler is not None:
+            # the skip's copies live outside the graph's memory pool
+            self._snap(self._guarded())
+        static = [t.clone() if torch.is_tensor(t) else t for t in flat]
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = dict(LAUNCHES)
+        try:
+            with torch.cuda.graph(graph):
+                outputs = self._window(*tree_unflatten(static, spec))
+        except Exception as e:
+            raise RuntimeError(
+                f"Stoke -- capturing the accumulation window as a CUDA "
+                f"graph failed: {e}"
+            ) from e
+        finally:
+            launched = {n: LAUNCHES[n] - before[n] for n in LAUNCHES}
+            LAUNCHES.update(before)
+        return CapturedWindow(graph, static, outputs, launched, lrs)

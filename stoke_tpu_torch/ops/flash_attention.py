@@ -47,7 +47,12 @@ NEG_INF = -1e30
 #: the backward's relative to the largest gradient element
 FWD_ATOL_BF16 = 2e-2
 BWD_RTOL_BF16 = 0.05
-#: the bf16 backward kernels against their plain version, per row of dQ,
+#: the fp16 forward kernel against its plain version: fp16 keeps three more
+#: mantissa bits than bf16, so its rounding of P and O is ~8x smaller; the
+#: fp16 backward is held to the bf16 bounds (BWD_RTOL_BF16, and
+#: BWD_ROW_RTOL_BF16 row by row)
+FWD_ATOL_FP16 = 4e-3
+#: the 16-bit backward kernels against their plain version, per row of dQ,
 #: dK and dV (see :func:`bwd_row_err`). BWD_RTOL_BF16 alone would pass a
 #: kernel that zeroed the small late-key rows; rounding P and dS to bf16
 #: for the tensor cores moves a row by about 0.5%
@@ -64,8 +69,8 @@ BWD_ROW_FLOOR = 1e-2
 
 
 def bwd_row_err(out, ref) -> float:
-    """The row check of the bf16 backward kernels: over every row (last
-    axis) of ``out`` against the plain version ``ref``, the largest
+    """The row check of the bf16 and fp16 backward kernels: over every row
+    (last axis) of ``out`` against the plain version ``ref``, the largest
     ``|out row - ref row|`` over ``max(|ref row|, BWD_ROW_FLOOR x the
     largest |ref row| of the same head)`` (L2 norms; the head is the
     second-last axis's slab). A kernel passes where it is at most
@@ -87,7 +92,9 @@ def bwd_row_err(out, ref) -> float:
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode": 0, "paged_verify": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: what the paged kernels take (the flash kernels also take float16)
+_PAGED_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -193,8 +200,8 @@ def _check_flash_kernel_inputs(q, k, v, mask) -> None:
     D = q.shape[-1]
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
-            f"flash_attention kernel takes float32 or bfloat16 q/k/v of one "
-            f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}"
+            f"flash_attention kernel takes float32, bfloat16 or float16 "
+            f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}"
         )
     if D not in _HEAD_DIMS:
         raise ValueError(
@@ -264,10 +271,39 @@ def _delta(out, do, dlse):
     return delta if dlse is None else delta - dlse.to(acc)
 
 
+def ds_bound(do, v, delta) -> torch.Tensor:
+    """A bound on ``|dS| = P |dO V^T - delta|`` (P <= 1): ``max |dO row|
+    max |V row| + max |delta|``, one float32 on the inputs' device, computed
+    with no host sync. The fp16 backward kernels scale dS by a power of two
+    from it before rounding dS to fp16 (``ds_scale_for`` in
+    ``csrc/hopper.cuh``): the gradients carry the loss scale, and fp16 dS
+    would otherwise overflow above 65504 or round in the subnormal range
+    below 6.1e-5."""
+    def rows(t):
+        return torch.linalg.vector_norm(t, dim=-1, dtype=torch.float32).amax()
+
+    return rows(do) * rows(v) + torch.linalg.vector_norm(delta, ord=math.inf)
+
+
+def ds_scale(bound: float) -> float:
+    """The power of two the fp16 backward kernels scale dS by for a bound
+    ``bound`` (``ds_scale_for`` of ``csrc/hopper.cuh``, on the host in
+    double precision): the largest that keeps ``bound`` at most 2^14,
+    clamped to 2^-30 .. 2^30; 2^30 for a bound of 0, 2^-30 for inf or
+    NaN."""
+    if bound == 0:
+        return 2.0 ** 30
+    if not math.isfinite(bound):
+        return 2.0 ** -30
+    e = math.floor(math.log2(16384.0 / bound))
+    return 2.0 ** min(max(e, -30), 30)
+
+
 def _flash_bwd_launch(entry: str, outs, q, k, v, mask, do, lse, delta,
-                      causal: bool) -> None:
+                      causal: bool, bound=None) -> None:
     """Launch ``stoke_<entry>`` of ``csrc/flash_bwd.cu`` on the current
-    stream, writing ``outs``."""
+    stream, writing ``outs``. fp16 passes the kernels ``bound`` (by default
+    :func:`ds_bound` of these inputs); bf16 and fp32 pass none."""
     B, H, L, D = q.shape
     if q.device.type != "cuda":
         raise ValueError(
@@ -284,16 +320,21 @@ def _flash_bwd_launch(entry: str, outs, q, k, v, mask, do, lse, delta,
             f"flash_attention backward: lse and delta must be float32, got "
             f"{lse.dtype}/{delta.dtype}"
         )
+    if q.dtype != torch.float16:
+        bound = None
+    elif bound is None:
+        bound = ds_bound(do, v, delta)
     _check_cuda("flash_attention backward", q.device, q=q, k=k, v=v,
-                mask=mask, do=do, lse=lse, delta=delta)
-    # q, k, v, dO, lse, delta, mask, the outputs, then BH, H, L, D, dtype,
-    # scale, causal, stream
-    fn, err = _kernel(entry, [_P] * (7 + len(outs)) + [_I] * 5
+                mask=mask, do=do, lse=lse, delta=delta, bound=bound)
+    # q, k, v, dO, lse, delta, mask, the |dS| bound, the outputs, then BH,
+    # H, L, D, dtype, scale, causal, stream
+    fn, err = _kernel(entry, [_P] * (8 + len(outs)) + [_I] * 5
                       + [ctypes.c_float, _I, _P], source="flash_bwd")
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if mask is None else mask.data_ptr(),
+        None if bound is None else bound.data_ptr(),
         *(o.data_ptr() for o in outs),
         B * H, H, L, D, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
         int(bool(causal)), _stream_ptr(q.device),
@@ -302,33 +343,37 @@ def _flash_bwd_launch(entry: str, outs, q, k, v, mask, do, lse, delta,
     LAUNCHES[entry] += 1
 
 
-def flash_bwd_dq(q, k, v, mask, do, lse, delta, causal: bool):
+def flash_bwd_dq(q, k, v, mask, do, lse, delta, causal: bool, bound=None):
     """dQ by ``csrc/flash_bwd.cu`` (replaces ``_dq_kernel``): CUDA tensors,
-    ``[B, H, L, D]`` q/k/v/dO in float32 or bfloat16, head dim 64 or 128,
-    ``[B, H, L]`` float32 ``lse`` and ``delta``, ``[B, L]`` int32 mask or
-    None, all contiguous. Returns dQ in q's dtype."""
+    ``[B, H, L, D]`` q/k/v/dO in float32, bfloat16 or float16, head dim 64
+    or 128, ``[B, H, L]`` float32 ``lse`` and ``delta``, ``[B, L]`` int32
+    mask or None, all contiguous; ``bound``, fp16's :func:`ds_bound` when
+    the caller has it. Returns dQ in q's dtype."""
     dq = torch.empty_like(q)
     _flash_bwd_launch("flash_bwd_dq", (dq,), q, k, v, mask, do, lse, delta,
-                      causal)
+                      causal, bound)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool):
+def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool, bound=None):
     """dK and dV by ``csrc/flash_bwd.cu`` (replaces ``_dkv_kernel``); the
     inputs of :func:`flash_bwd_dq`. Returns ``(dk, dv)`` in k's and v's
     dtypes."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _flash_bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, mask, do, lse,
-                      delta, causal)
+                      delta, causal, bound)
     return dk, dv
 
 
 def _flash_bwd_cuda(q, k, v, mask, out, lse, do, dlse, causal: bool):
-    """The backward on the card: delta with torch ops (where the JAX
-    package computes it outside Pallas), then the two kernels."""
+    """The backward on the card: delta (and, in fp16, the |dS| bound) with
+    torch ops (where the JAX package computes delta outside Pallas), then
+    the two kernels."""
     delta = _delta(out, do, dlse).contiguous()
-    dq = flash_bwd_dq(q, k, v, mask, do, lse, delta, causal)
-    return (dq, *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal))
+    bound = ds_bound(do, v, delta) if q.dtype == torch.float16 else None
+    dq = flash_bwd_dq(q, k, v, mask, do, lse, delta, causal, bound)
+    return (dq, *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal,
+                               bound))
 
 
 def _flash_forward(q, k, v, mask, causal: bool):
@@ -489,12 +534,12 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, context_lens):
     B, H, _, D = q.shape
     NB, BS = k_pages.shape[0], k_pages.shape[1]
     MB = block_tables.shape[1]
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _PAGED_DTYPES:
         raise ValueError(
             f"paged decode kernel takes float32 or bfloat16 queries, got "
             f"{q.dtype}"
         )
-    if k_pages.dtype not in _DTYPE_CODES or v_pages.dtype != k_pages.dtype:
+    if k_pages.dtype not in _PAGED_DTYPES or v_pages.dtype != k_pages.dtype:
         raise ValueError(
             f"paged decode kernel takes float32 or bfloat16 pools of one "
             f"dtype, got {k_pages.dtype}/{v_pages.dtype}"
@@ -649,12 +694,12 @@ def _paged_verify_cuda(q, k_pages, v_pages, block_tables, positions):
     B, H, S, D = q.shape
     NB, BS = k_pages.shape[0], k_pages.shape[1]
     MB = block_tables.shape[1]
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _PAGED_DTYPES:
         raise ValueError(
             f"paged verify kernel takes float32 or bfloat16 queries, got "
             f"{q.dtype}"
         )
-    if k_pages.dtype not in _DTYPE_CODES or v_pages.dtype != k_pages.dtype:
+    if k_pages.dtype not in _PAGED_DTYPES or v_pages.dtype != k_pages.dtype:
         raise ValueError(
             f"paged verify kernel takes float32 or bfloat16 pools of one "
             f"dtype, got {k_pages.dtype}/{v_pages.dtype}"

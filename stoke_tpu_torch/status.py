@@ -9,9 +9,10 @@ checked in the same order.
 
 Flags and configs of later slices pass the same legality rules first and
 are then refused with ``NotImplementedError`` naming their ROADMAP item:
-fp16 (and per-loss scalers), ``distributed`` and the oss/sddp/fsdp tiers,
-and every config class other than ``PrecisionConfig``, ``ClipGradConfig``
-and ``ClipGradNormConfig``.
+``distributed`` and the oss/sddp/fsdp tiers, and every config class other
+than ``PrecisionConfig``, ``ClipGradConfig`` and ``ClipGradNormConfig``.
+fp16 (with per-loss scalers when ``PrecisionConfig.num_losses > 1``) is
+legal.
 
 :func:`serve_config_error` holds the serving rules of chunked prefill, the
 sampling knobs and speculative decoding (``stoke_tpu/status.py:1101-1149``,
@@ -34,7 +35,6 @@ from stoke_tpu_torch.configs import (
     ServeConfig,
 )
 
-_LATER_FP16 = "ROADMAP Queue 1 item 2b (fp16 and its dynamic loss scaler)"
 _LATER_DISTRIBUTED = "ROADMAP Queue 1 item 5 (the DP / ZeRO ladder)"
 _LATER_CONFIGS = "ROADMAP Queue 1 item 2f (the remaining status rules)"
 
@@ -98,8 +98,8 @@ class StokeStatus:
         grad_clip: ``ClipGradConfig``, ``ClipGradNormConfig`` or None.
         device: "cuda" (default) or "cpu".
         distributed: None; "dp" and its aliases are not ported yet.
-        precision: None/"full"/"fp32" or "bf16" (and the JAX package's
-            aliases); "fp16" is not ported yet.
+        precision: None/"full"/"fp32", "bf16" or "fp16" (and the JAX
+            package's aliases).
         oss / sddp / fsdp: the sharding tiers, not ported yet.
         configs: config objects, deduplicated by class name (the last one
             of a class wins, with a warning).
@@ -210,8 +210,6 @@ class StokeStatus:
     def _refuse_later_slices(self) -> None:
         s = self._status
         later = [
-            ("precision='fp16'", s["precision"] is PrecisionOptions.fp16,
-             _LATER_FP16),
             (f"distributed={getattr(s['distributed'], 'value', None)!r}",
              s["distributed"] is not None, _LATER_DISTRIBUTED),
             ("oss/sddp/fsdp", s["oss"] or s["sddp"] or s["fsdp"],
