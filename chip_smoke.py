@@ -68,7 +68,17 @@ Phases, one JSON line each; any failure exits nonzero:
    loss must fall; the profiled step must show the tensor-core dQ kernel
    12 times and the scalar one never. Then one four-call step at
    ``grad_accum=2``, with its counters checked. Prints step ms p50,
-   tokens/s, peak memory and the losses.
+   tokens/s, peak memory and the losses. Then GPT-base with
+   ``chunked_head=True`` and ``chunked_causal_lm_loss`` (bf16 operands
+   under the bf16 policy, fp32 logits): on one batch's hidden states and
+   embedding its loss and gradients against the fp32 full-logits cross
+   entropy (loss 1e-5 relative, gradients 2^-7 in L2 norm); over the same
+   batches from the same weights its first loss within 2^-8 of the full
+   head's, 12 launches of each flash kernel a step, the loss falls,
+   ``train_steps`` replays its eager losses bit for bit; step ms p50
+   eager and replayed, peak memory and each head's share of the profiled
+   step's kernel time (the head alone, forward and backward, timed by
+   CUDA events).
 7. train_parity: the same seeded GPT-base in fp32 at B=2, L=512 for 3
    ``train_step``s through the kernels (the fp32 forward's and backward's
    3xTF32 tensor-core kernels, 36 launches each) and through dense
@@ -89,6 +99,18 @@ Phases, one JSON line each; any failure exits nonzero:
    window whose loss is multiplied by inf, eagerly and replayed: the
    parameters and AdamW state stay bit for bit, the scale halves, one
    step is skipped.
+10. train_resnet50: ResNet-50 v1.5 at its published widths, CIFAR stem, 10
+   classes, channels_last, bf16 over fp32 masters, SGD(0.05, momentum
+   0.9), batch 256 of seeded 32x32 images (``bench.py``'s configuration):
+   12 eager ``train_step``s against ``train_steps`` over the same batches
+   (losses and BatchNorm running statistics bit for bit, the statistics
+   moved, the loss falls), two eval-mode forwards alike, no flash launch;
+   step ms p50 eager and replayed, images/s, peak memory, a profiled step
+   of each (busy share, the five costliest kernels), the step's FLOPs by
+   ``torch.utils.flop_counter`` and their share of the bf16 peak
+   (``mfu``), and the memory format of the input, weights and output.
+11. train_vit: ViT-Base/16 at 224x224 in bf16 with AdamW, batch 64, 8
+   eager ``train_step``s: the loss falls; step ms and peak memory.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -1141,11 +1163,13 @@ def make_corpus(n=2048, seq_len=128, vocab=64, seed=0):
     return ((start + stride * pos) % vocab).astype(np.int32)
 
 
-def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS):
+def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS,
+             chunked_head: bool = False):
     """GPT-base on the card from seeded weights; ``dropout`` on the
     embeddings and residuals (the flash kernels take no dropout of the
     attention probabilities, so that stays off), the first ``layers``
-    blocks."""
+    blocks; ``chunked_head`` returns ``(hidden, embedding)`` for the
+    chunked cross entropy (the same parameters, so the same weights)."""
     from stoke_tpu_torch.models.bert import dense_attention
     from stoke_tpu_torch.models.gpt import GPT
     from stoke_tpu_torch.ops import make_flash_attention
@@ -1155,7 +1179,8 @@ def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS):
                 dropout_rate=dropout,
                 attention_fn=(make_flash_attention(causal=True) if flash
                               else dense_attention),
-                attention_is_causal=flash, device="cuda")
+                attention_is_causal=flash, chunked_head=chunked_head,
+                device="cuda")
     del model.layers[layers:]
     for block in model.layers:
         block.attention.prob_dropout.rate = 0.0
@@ -1224,10 +1249,11 @@ def train(ops) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    losses, times = [], []
+    losses, times, seen = [], [], []
     for i, batch in enumerate(loader):
         if i == steps:
             break
+        seen.append(batch)
         t0 = time.perf_counter()
         losses.append(stoke.train_step(batch, batch))
         torch.cuda.synchronize()
@@ -1288,6 +1314,14 @@ def train(ops) -> dict:
         raise AssertionError(f"four-call launches {four_launches}")
     if not np.isfinite(float(loss)):
         raise AssertionError(f"four-call loss {float(loss)}")
+    del four, stoke
+    torch.cuda.empty_cache()
+    full_head = {"step_ms_p50": float(np.median(timed)) * 1e3,
+                 "max_memory_allocated_gib": peak / 2**30,
+                 "head_ms": head_ms(seen[0], chunked=False)}
+    full_head["head_share_of_kernels"] = (
+        full_head["head_ms"] / profile["device_ms"]
+        if isinstance(profile.get("device_ms"), float) else "not measured")
     return {
         "phase": "train", "model": "GPT-base (12 x 768, 12 heads, ff 3072, "
         "vocab 50257, max_len 1024), bf16 over fp32 masters, flash "
@@ -1301,7 +1335,180 @@ def train(ops) -> dict:
         "losses": losses, "launches": launches, "profile": profile,
         "four_call": {"grad_accum": 2, "counters": counters,
                       "launches": four_launches, "loss": float(loss)},
+        "full_head": full_head,
+        "chunked_head": chunked_head(ops, seen, losses[0]),
     }
+
+
+# the chunked head against the full one, on the first step's loss: bf16
+# rounds each full-head logit to 2^-9 of its size, so a token's cross
+# entropy moves by at most 2^-8 max|logit|, and at this init the loss
+# (~ln 50257 = 10.8) exceeds max|logit| (~5 at logits of N(0, 1))
+CHUNKED_RTOL = 2.0**-8
+# the chunked head's bf16 product against the fp32 full-logits cross
+# entropy on the same fp32 copies of bf16 values: the forward sums the
+# same products in another order (loss to 1e-5 relative); the backward
+# rounds the logits' gradient and each product's result to bf16, two
+# roundings of at most 2^-8 each, so each gradient's L2 error over its
+# L2 norm to 2^-7 (the largest element's error over the largest
+# magnitude is printed beside it)
+CHUNKED_CARD_LOSS_RTOL = 1e-5
+CHUNKED_CARD_GRAD_RTOL = 2.0**-7
+
+
+def head_inputs(batch):
+    """GPT-base's final hidden states of ``batch`` and its embedding from
+    the seeded weights, as the bf16 policy hands them to the loss: fp32
+    copies of bf16 values."""
+    stoke = stoke_for(gpt_base("flash", chunked_head=True), "bf16",
+                      TRAIN_BATCH)
+    with torch.no_grad():
+        h, emb = stoke.model(batch)
+    return h, emb
+
+
+def chunked_card_check(batch) -> dict:
+    """The chunked head on the card (bf16 operands under the bf16
+    policy's ``compute_dtype``, fp32 logits, the tensor-core backward) on
+    one batch's hidden states and embedding, against the fp32 cross
+    entropy of the full fp32 logits (TF32 off) on the same tensors: the
+    loss, and its gradients of both in L2 norm."""
+    from stoke_tpu_torch.models.gpt import causal_lm_loss
+    from stoke_tpu_torch.ops import chunked_causal_lm_loss, chunked_ce
+
+    h, emb = head_inputs(batch)
+    runs = []
+    for chunked in (True, False):
+        hh, ee = (h.detach().requires_grad_(), emb.detach().requires_grad_())
+        if chunked:
+            with chunked_ce.compute_dtype(BF16):
+                loss = chunked_causal_lm_loss((hh, ee), batch)
+        else:
+            loss = causal_lm_loss(hh @ ee.T, batch)
+        runs.append((loss.detach(), *torch.autograd.grad(loss, (hh, ee))))
+    del h, emb
+    (got, *got_g), (want, *want_g) = runs
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out = {"loss": float(got), "fp32_loss": float(want),
+           "loss_rel": rel(got, want), "loss_rtol": CHUNKED_CARD_LOSS_RTOL,
+           "grad_hidden_rel": l2(got_g[0], want_g[0]),
+           "grad_emb_rel": l2(got_g[1], want_g[1]),
+           "grad_rtol": CHUNKED_CARD_GRAD_RTOL,
+           "grad_hidden_max_rel": rel(got_g[0], want_g[0]),
+           "grad_emb_max_rel": rel(got_g[1], want_g[1])}
+    if not (out["loss_rel"] <= CHUNKED_CARD_LOSS_RTOL
+            and out["grad_hidden_rel"] <= CHUNKED_CARD_GRAD_RTOL
+            and out["grad_emb_rel"] <= CHUNKED_CARD_GRAD_RTOL):
+        raise AssertionError(f"chunked head on the card against the fp32 "
+                             f"full-logits cross entropy: {out}")
+    return out
+
+
+def head_ms(batch, chunked: bool, iters: int = 5) -> float:
+    """Device ms of the LM head alone, forward and backward, on GPT-base's
+    final hidden states of ``batch`` (:func:`head_inputs`): the chunked
+    cross entropy with bf16 operands (the bf16 policy's
+    ``compute_dtype``), or the tied head's bf16 product, its cast to fp32
+    and the fp32 cross entropy, as the full-head model computes them."""
+    from stoke_tpu_torch.models.gpt import causal_lm_loss
+    from stoke_tpu_torch.ops import chunked_causal_lm_loss, chunked_ce
+
+    h, emb = head_inputs(batch)
+
+    def run():
+        if chunked:
+            hh, ee = (h.detach().requires_grad_(),
+                      emb.detach().requires_grad_())
+            with chunked_ce.compute_dtype(BF16):
+                loss = chunked_causal_lm_loss((hh, ee), batch)
+        else:
+            hh, ee = (h.to(BF16).requires_grad_(),
+                      emb.to(BF16).requires_grad_())
+            loss = causal_lm_loss((hh @ ee.T).float(), batch)
+        loss.backward()
+
+    run()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def chunked_head(ops, batches, full_first_loss: float) -> dict:
+    """GPT-base with ``chunked_head=True`` and the chunked cross entropy
+    (bf16 operands under the bf16 policy, fp32 logits, 128-position
+    chunks): first :func:`chunked_card_check` on the first batch; then
+    over the train phase's batches from the same seeded weights: the
+    first step's loss within CHUNKED_RTOL of the full head's, 12 launches
+    of each flash kernel a step, the loss falls; step ms p50, peak memory
+    and the head's share of the profiled step's kernel time. Then
+    ``train_steps`` over the same batches from the same weights: the
+    replayed windows give the eager losses bit for bit; their step ms
+    p50."""
+    from stoke_tpu_torch.ops import chunked_causal_lm_loss
+
+    card_check = chunked_card_check(batches[0])
+    torch.cuda.empty_cache()
+    stoke = stoke_for(gpt_base("flash", chunked_head=True), "bf16",
+                      TRAIN_BATCH, loss=chunked_causal_lm_loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, ms = [], []
+    for b in batches:
+        ms.append(timed_ms(lambda: losses.append(stoke.train_step(b, b))))
+    losses = [float(l) for l in losses]
+    launches = flash_launches(ops, N_LAYERS * len(batches),
+                              "chunked-head train_step")
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(losses[0] - full_first_loss) / abs(full_first_loss)
+    if not rel <= CHUNKED_RTOL:
+        raise AssertionError(f"chunked head: first loss {losses[0]} vs the "
+                             f"full head's {full_first_loss}, relative "
+                             f"{rel} > {CHUNKED_RTOL}")
+    if not (all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"chunked head losses {losses}: not finite "
+                             f"or not falling")
+    profile = profile_step(lambda: stoke.train_step(batches[0], batches[0]))
+    del stoke
+    torch.cuda.empty_cache()
+    graphed = stoke_for(gpt_base("flash", chunked_head=True), "bf16",
+                        TRAIN_BATCH, loss=chunked_causal_lm_loss)
+    stacked = torch.stack(batches)
+    replayed = graphed.train_steps(stacked, stacked)[:, 0].tolist()
+    if replayed != losses:
+        raise AssertionError(f"chunked head: replayed windows' losses "
+                             f"{replayed} vs eager {losses}")
+    replay_ms = [timed_ms(lambda: graphed.train_steps(stacked[i:i + 1],
+                                                      stacked[i:i + 1]))
+                 for i in range(len(batches))]
+    del graphed
+    torch.cuda.empty_cache()
+    head = head_ms(batches[0], chunked=True)
+    return {"loss": "chunked_causal_lm_loss(chunk=128), bf16 operands "
+            "under the bf16 policy", "card_check": card_check,
+            "losses": losses,
+            "first_loss_rel_diff": rel, "rtol": CHUNKED_RTOL,
+            "step_ms_p50": float(np.median(ms[WARMUP_STEPS:])),
+            "step_ms": ms, "max_memory_allocated_gib": peak / 2**30,
+            "replayed_losses_bit_identical": True,
+            "replayed_step_ms_p50": float(np.median(
+                replay_ms[WARMUP_STEPS:])),
+            "launches": launches, "head_ms": head,
+            "head_share_of_kernels": (
+                head / profile["device_ms"]
+                if isinstance(profile.get("device_ms"), float)
+                else "not measured"),
+            "profile": profile}
 
 
 def train_parity(ops) -> dict:
@@ -1654,6 +1861,230 @@ def train_fp16(ops) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phases 10 and 11: the vision models
+# --------------------------------------------------------------------------- #
+
+
+RESNET_BATCH = 256
+VIT_BATCH, VIT_STEPS = 64, 8
+STATS = ("running_mean", "running_var")
+
+
+def cifar_pool(n: int, batch: int = RESNET_BATCH, side: int = 32,
+               classes: int = 10, seed: int = 0) -> tuple:
+    """``n`` batches as ``bench.py`` makes its pool: N(0, 1) NHWC images and
+    labels below ``classes`` from ``default_rng(seed)``, batch by batch;
+    returned NCHW on the card, ``[n, batch, 3, side, side]`` and
+    ``[n, batch]``."""
+    r = np.random.default_rng(seed)
+    xs, ys = [], []
+    for _ in range(n):
+        xs.append(r.normal(size=(batch, side, side, 3)).astype(np.float32))
+        ys.append(r.integers(0, classes, size=(batch,)))
+    x = torch.from_numpy(np.stack(xs)).cuda().permute(0, 1, 4, 2, 3)
+    return x.contiguous(), torch.from_numpy(np.stack(ys)).cuda()
+
+
+def softmax_ce(logits, labels):
+    return torch.nn.functional.cross_entropy(logits.float(), labels.long())
+
+
+def resnet50_stoke():
+    """ResNet-50 v1.5 (stages 3, 4, 6, 3; 64 stem filters; bottleneck x4),
+    the CIFAR stem, 10 classes, channels_last, through ``Stoke`` in bf16
+    over fp32 masters with SGD(0.05, momentum 0.9): ``bench.py``'s
+    configuration."""
+    from stoke_tpu_torch import Stoke, StokeOptimizer
+    from stoke_tpu_torch.models import ResNet50
+
+    model = ResNet50(num_classes=10, cifar_stem=True,
+                     device="cuda").to(memory_format=torch.channels_last)
+    return Stoke(model, StokeOptimizer(torch.optim.SGD, lr=0.05,
+                                       momentum=0.9),
+                 softmax_ce, batch_size_per_device=RESNET_BATCH,
+                 precision="bf16")
+
+
+def bn_stats(stoke) -> dict:
+    return {k: v.clone() for k, v in stoke.model_access.state_dict().items()
+            if k.endswith(STATS)}
+
+
+def memory_formats(stoke, x) -> dict:
+    """Whether the input, the stem's weight and its output are
+    channels_last in a forward (in eval mode, which leaves the running
+    statistics as they are)."""
+    model = stoke.model_access
+    seen = {}
+    hook = model.conv_init.register_forward_hook(
+        lambda m, i, o: seen.update(input=i[0], output=o))
+    stoke.eval()
+    stoke.model(x)
+    stoke.train()
+    hook.remove()
+    fmt = lambda t: ("channels_last" if t.is_contiguous(
+        memory_format=torch.channels_last) else "contiguous")
+    return {"input_given": fmt(x), "input_seen": fmt(seen["input"]),
+            "conv_weight": fmt(model.conv_init.weight),
+            "conv_output": fmt(seen["output"])}
+
+
+def step_flops(x, y) -> int:
+    """FLOPs of one bf16 ``train_step`` of a fresh ResNet-50 by
+    ``torch.utils.flop_counter`` (its convolutions and products, forward
+    and backward)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    stoke = resnet50_stoke()
+    with FlopCounterMode(display=False) as counter:
+        stoke.train_step(x, y)
+    torch.cuda.synchronize()
+    return int(counter.get_total_flops())
+
+
+def throughput(ms, flops: int, batch: int) -> dict:
+    """Step ms p50 over all but the first two steps, images/s and the
+    share of the bf16 dense peak (``mfu``) at that p50."""
+    p50 = float(np.median(ms[WARMUP_STEPS:]))
+    return {"step_ms_p50": p50, "step_ms": ms,
+            "images_per_s": batch / (p50 / 1e3),
+            "mfu": flops / (p50 / 1e3) / PEAK_FLOPS[BF16]}
+
+
+def train_resnet50(ops) -> dict:
+    """ResNet-50 in bf16 at batch 256 on CIFAR-shaped images: the first
+    batch of ``bench.py``'s pool, every step (the bench cycles four; on
+    random labels only a batch seen again and again lets the loss fall
+    within 12 steps): 12 eager ``train_step``s (2 warm-up), then
+    ``train_steps`` over the same 12 batches from the same seed (one
+    window eagerly, its capture, replays).
+    Gates: the replayed losses and the running statistics equal the eager
+    ones bit for bit, the statistics moved, the loss falls, two eval-mode
+    forwards give the same logits; no flash kernel launches. Then 12
+    timed replays of one window each; a profiled step of each kind."""
+    pool_x, pool_y = cifar_pool(n=1)
+    n = WARMUP_STEPS + TIMED_STEPS
+    xs, ys = pool_x[[0] * n], pool_y[[0] * n]
+    a = resnet50_stoke()
+    first = bn_stats(a)
+    formats = memory_formats(a, xs[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eager, eager_ms = [], []
+    for x, y in zip(xs, ys):
+        eager_ms.append(timed_ms(lambda: eager.append(a.train_step(x, y))))
+    eager = [float(l) for l in eager]
+    eager_peak = torch.cuda.max_memory_allocated()
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"ResNet-50 launched {dict(ops.LAUNCHES)}")
+    eager_stats = bn_stats(a)
+    moved = sum(not torch.equal(eager_stats[k], first[k]) for k in first)
+    if moved != len(first):
+        raise AssertionError(f"{len(first) - moved} of {len(first)} "
+                             f"running statistics did not move")
+    if not (all(np.isfinite(eager)) and np.mean(eager[-3:]) < eager[0]):
+        raise AssertionError(f"ResNet-50 losses {eager}: not finite or not "
+                             f"falling")
+    eager_profile = profile_step(lambda: a.train_step(xs[0], ys[0]))
+    a.eval()
+    with torch.no_grad():
+        same_eval = torch.equal(a.model(xs[0]), a.model(xs[0]))
+    if not same_eval:
+        raise AssertionError("two eval-mode forwards gave other logits")
+    del a
+    torch.cuda.empty_cache()
+
+    b = resnet50_stoke()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    first_ms = timed_ms(lambda: out.update(r=b.train_steps(xs, ys)))
+    graphed = out["r"][:, 0].tolist()
+    graph_stats = bn_stats(b)
+    stats_equal = all(torch.equal(graph_stats[k], eager_stats[k])
+                      for k in eager_stats)
+    if graphed != eager or not stats_equal:
+        raise AssertionError(
+            f"ResNet-50 replayed windows: losses {graphed} vs eager "
+            f"{eager}; running statistics bit for bit: {stats_equal}")
+    replay_ms = [timed_ms(lambda: b.train_steps(xs[i:i + 1], ys[i:i + 1]))
+                 for i in range(n)]
+    replay_peak = torch.cuda.max_memory_allocated()
+    replay_profile = profile_step(lambda: b.train_steps(xs[:1], ys[:1]))
+    del b, out
+    torch.cuda.empty_cache()
+    flops = step_flops(xs[0], ys[0])
+    torch.cuda.empty_cache()
+    top5 = lambda p: p.get("top", [])[:5]
+    return {
+        "phase": "train_resnet50", "model": "ResNet-50 v1.5 (3, 4, 6, 3 "
+        "bottlenecks, 64 stem filters), CIFAR stem, 10 classes, "
+        "channels_last, bf16 over fp32 masters, SGD(lr 0.05, momentum "
+        "0.9), softmax cross entropy", "batch": RESNET_BATCH,
+        "image": [3, 32, 32], "steps": n, "memory_format": formats,
+        "step_flops": flops, "peak_flops_bf16": PEAK_FLOPS[BF16],
+        "eager": {**throughput(eager_ms, flops, RESNET_BATCH),
+                  "max_memory_allocated_gib": eager_peak / 2**30,
+                  "device_busy_share": eager_profile.get(
+                      "device_busy_share", "not measured"),
+                  "top5": top5(eager_profile), "profile": eager_profile},
+        "replayed": {**throughput(replay_ms, flops, RESNET_BATCH),
+                     "max_memory_allocated_gib": replay_peak / 2**30,
+                     "device_busy_share": replay_profile.get(
+                         "device_busy_share", "not measured"),
+                     "top5": top5(replay_profile),
+                     "profile": replay_profile},
+        "train_steps_first_call_ms": first_ms,
+        "losses_eager": eager, "losses_replayed": graphed,
+        "losses_bit_identical": True, "running_stats_bit_identical": True,
+        "running_stats_moved": moved, "eval_logits_repeat": same_eval,
+    }
+
+
+def train_vit(ops) -> dict:
+    """ViT-Base/16 (12 layers, hidden 768, 12 heads, MLP 3072, patch 16),
+    224x224 seeded images, 1000 classes, dropout 0.1, dense attention, in
+    bf16 over fp32 masters with AdamW(3e-4, wd 1e-4), batch 64: eager
+    ``train_step``s over a pool of two batches cycled; the loss falls."""
+    from stoke_tpu_torch import Stoke, StokeOptimizer
+    from stoke_tpu_torch.models import ViTBase
+
+    model = ViTBase(num_classes=1000, device="cuda")
+    stoke = Stoke(model, StokeOptimizer(torch.optim.AdamW, lr=3e-4,
+                                        weight_decay=1e-4),
+                  softmax_ce, batch_size_per_device=VIT_BATCH,
+                  precision="bf16", seed=SEED)
+    xs, ys = cifar_pool(n=2, batch=VIT_BATCH, side=224, classes=1000,
+                        seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, ms = [], []
+    for i in range(VIT_STEPS):
+        x, y = xs[i % 2], ys[i % 2]
+        ms.append(timed_ms(lambda: losses.append(stoke.train_step(x, y))))
+    losses = [float(l) for l in losses]
+    peak = torch.cuda.max_memory_allocated()
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"ViT (dense attention) launched "
+                             f"{dict(ops.LAUNCHES)}")
+    if not (all(np.isfinite(losses)) and np.mean(losses[-2:]) < losses[0]):
+        raise AssertionError(f"ViT losses {losses}: not finite or not "
+                             f"falling")
+    del stoke, model
+    torch.cuda.empty_cache()
+    return {"phase": "train_vit", "model": "ViT-Base/16 (12 x 768, 12 "
+            "heads, MLP 3072), 224x224, 1000 classes, dropout 0.1, dense "
+            "attention, bf16 over fp32 masters, AdamW(lr 3e-4, wd 1e-4)",
+            "batch": VIT_BATCH, "steps": VIT_STEPS, "losses": losses,
+            "step_ms": ms, "step_ms_p50": float(np.median(
+                ms[WARMUP_STEPS:])),
+            "images_per_s": VIT_BATCH / (np.median(ms[WARMUP_STEPS:]) / 1e3),
+            "max_memory_allocated_gib": peak / 2**30}
+
+
+# --------------------------------------------------------------------------- #
 # main
 # --------------------------------------------------------------------------- #
 
@@ -1722,7 +2153,7 @@ def main() -> int:
     emit(spec)
     torch.cuda.empty_cache()
     trained = train(ops)
-    emit(trained)
+    emit({**trained, "card": smi})
     torch.cuda.empty_cache()
     emit(train_parity(ops))
     torch.cuda.empty_cache()
@@ -1730,6 +2161,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     fp16 = train_fp16(ops)
     emit(fp16)
+    torch.cuda.empty_cache()
+    emit({**train_resnet50(ops), "card": smi})
+    torch.cuda.empty_cache()
+    emit({**train_vit(ops), "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None):

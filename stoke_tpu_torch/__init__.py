@@ -15,6 +15,10 @@ What it covers so far:
   with its dynamic loss scaler (``Stoke.loss_scale``,
   ``Stoke.skipped_optimizer_steps``), with :class:`StokeDataLoader`;
   flash attention's forward and backward on the CUDA kernels;
+- the models (:mod:`stoke_tpu_torch.models`): GPT (with the chunked LM
+  head, :func:`stoke_tpu_torch.ops.chunked_causal_lm_loss`), BasicNN,
+  ResNet-18 to -152 with flax's BatchNorm, and ViT, each loadable from the
+  JAX package's weights (:mod:`stoke_tpu_torch.convert`);
 - serving GPT through :class:`stoke_tpu_torch.serving.ServingEngine`
   (paged KV cache, continuous batching, sampling, chunked prefill and
   speculative decoding).

@@ -17,8 +17,10 @@ clips, steps the ``torch.optim`` optimizer and zeroes the buffer.
 
 Under bf16 and fp16 the whole model runs in the 16-bit type, as the JAX
 policy casts the params and floating inputs: ``torch.func.functional_call``
-swaps in casts of the fp32 master parameters, so every op (LayerNorm and
-the tied head included) computes in that type and the gradients flow back
+swaps in casts of the fp32 master parameters (buffers, such as BatchNorm's
+running statistics, keep their dtype and are updated in place), so every
+op (LayerNorm and the tied head included) computes in that type and the
+gradients flow back
 through the casts into fp32 ``.grad`` on the masters. The tied embedding is
 cast once and used twice, and its two gradients sum into one. The output is
 cast to fp32. ``torch.autocast`` would compute a different function: it
@@ -54,6 +56,7 @@ from stoke_tpu_torch.configs import (
     PrecisionConfig,
     PrecisionOptions,
 )
+from stoke_tpu_torch.ops import chunked_ce
 from stoke_tpu_torch.ops.flash_attention import LAUNCHES
 
 
@@ -272,8 +275,9 @@ class StepEngine:
                        else torch.device("cpu"))
         self.per_loss = (precision.scaled
                          and self.precision_config.num_losses > 1)
-        self.scaler = (init_scaler_state(self.precision_config, self.device)
-                       if precision.scaled else None)
+        # built for every precision, as the JAX facade builds it; only
+        # fp16 (``precision.scaled``) reads or updates it
+        self.scaler = init_scaler_state(self.precision_config, self.device)
         self._snapshot: Dict[Any, torch.Tensor] = {}
         self._windows: Dict[Any, CapturedWindow] = {}
         if self.device.type == "cuda":
@@ -285,13 +289,22 @@ class StepEngine:
         if self.precision.compute_dtype is None:
             return self.module(*args, **kwargs)
         dt = self.precision.compute_dtype
+        # parameters only: buffers (BatchNorm's running statistics) keep
+        # their dtype and stay the module's own tensors, so their in-place
+        # updates land, as the JAX package casts only ``params``
         cast = {n: t.to(dt) if t.is_floating_point() else t
-                for n, t in (*self.module.named_parameters(),
-                             *self.module.named_buffers())}
+                for n, t in self.module.named_parameters()}
         out = functional_call(self.module, cast,
                               self.precision.cast_compute(tuple(args)),
                               self.precision.cast_compute(dict(kwargs)))
         return self.precision.cast_output(out)
+
+    def loss(self, *args, **kwargs):
+        """``loss_fn(*args, **kwargs)``; under a 16-bit policy the chunked
+        LM head multiplies in the compute dtype
+        (:func:`stoke_tpu_torch.ops.chunked_ce.compute_dtype`)."""
+        with chunked_ce.compute_dtype(self.precision.compute_dtype):
+            return self.loss_fn(*args, **kwargs)
 
     def objective(self, result) -> Tuple[torch.Tensor, Any]:
         """``(objective, report)`` of a training loss result.
@@ -338,7 +351,7 @@ class StepEngine:
         accumulate core's per-loss branch)."""
         if self.per_loss:
             self._backward_per_loss(objective)
-        elif self.scaler is not None:
+        elif self.precision.scaled:
             (objective * self.scaler["scale"]).backward()
         else:
             objective.backward()
@@ -368,7 +381,7 @@ class StepEngine:
         ``objective / grad_accum`` into the accumulated fp32 ``.grad`` of
         the masters. Returns the report."""
         out = self.forward(args, kwargs)
-        objective, report = self.objective(self.loss_fn(out, *loss_args))
+        objective, report = self.objective(self.loss(out, *loss_args))
         self.backward(objective)
         return report
 
@@ -378,11 +391,10 @@ class StepEngine:
         under fp16 unscale and check the accumulated gradients (ANDed with
         the per-loss flags), then clip, step the optimizer (put back when
         not finite), zero the buffer, and update the scaler. Returns the
-        finite flag (a bool scalar on the device), or None without a
-        scaler."""
+        finite flag (a bool scalar on the device), or None without fp16."""
         grads = [p.grad for p in self.params if p.grad is not None]
         finite = None
-        if self.scaler is not None:
+        if self.precision.scaled:
             scale = self.scaler["scale"]
             inv = (torch.ones((), dtype=torch.float32, device=scale.device)
                    if self.per_loss else torch.reciprocal(scale))
@@ -395,7 +407,7 @@ class StepEngine:
         else:
             self._step_unless(finite)
         self.optimizer.zero_grad(set_to_none=True)
-        if self.scaler is not None:
+        if self.precision.scaled:
             flags = self.scaler["finite"] if self.per_loss else finite
             new = scaler_update(self.scaler, flags, self.precision_config)
             self.scaler["scale"].copy_(new["scale"])
@@ -450,8 +462,8 @@ class StepEngine:
     def fused(self, args: tuple, kwargs: dict, loss_args: tuple = (),
               do_apply: bool = True):
         """:meth:`accum`, then :meth:`apply` when ``do_apply``. Returns
-        ``(report, finite)``; ``finite`` is None without an apply or a
-        scaler."""
+        ``(report, finite)``; ``finite`` is None without an apply or
+        without fp16."""
         report = self.accum(args, kwargs, loss_args)
         return report, (self.apply() if do_apply else None)
 
@@ -528,7 +540,7 @@ class StepEngine:
                         f"graph and needs all optimizer state on "
                         f"{self.device} (an optimizer with capturable=True)"
                     )
-        if self.scaler is not None:
+        if self.precision.scaled:
             # the skip's copies live outside the graph's memory pool
             self._snap(self._guarded())
         static = [t.clone() if torch.is_tensor(t) else t for t in flat]

@@ -244,7 +244,7 @@ class Stoke:
         :meth:`backward` (when it has a gradient: a loss of a detached
         output gives ``backward()`` nothing to commit)."""
         args, kwargs = self._place(args), self._place(kwargs)
-        result = self._engine.loss_fn(*args, **kwargs)
+        result = self._engine.loss(*args, **kwargs)
         if not self.training:
             return result
         objective, report = self._engine.objective(result)
@@ -559,9 +559,10 @@ class Stoke:
         return float(self._skipped_steps)
 
     @property
-    def scaler(self) -> Optional[dict]:
+    def scaler(self) -> dict:
         """The loss scaler's device state (``scale``, ``growth_count`` and,
-        with per-loss scalers, ``finite``), or None without fp16."""
+        with per-loss scalers, ``finite``), built for every precision as
+        the JAX facade builds it; only fp16 reads or updates it."""
         return self._engine.scaler
 
     @property
@@ -569,8 +570,6 @@ class Stoke:
         """The current dynamic loss scale: a float, or a list of one scale
         a loss with per-loss scalers. Without fp16 the scale never moves
         from ``PrecisionConfig.init_scale``, as in the JAX package."""
-        if self._engine.scaler is None:
-            return float(self._status_obj.precision_config.init_scale)
         s = self._engine.scaler["scale"]
         return [float(v) for v in s] if s.ndim else float(s)
 

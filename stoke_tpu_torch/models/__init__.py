@@ -1,6 +1,34 @@
 """Models of the port."""
 
-from stoke_tpu_torch.models.bert import BERT_SIZES, BertSize
+from stoke_tpu_torch.models.basic import BasicNN
+from stoke_tpu_torch.models.bert import BERT_SIZES, BertSize, dense_attention
 from stoke_tpu_torch.models.gpt import GPT, causal_lm_loss
+from stoke_tpu_torch.models.resnet import (
+    BatchNorm,
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+)
+from stoke_tpu_torch.models.vit import ViT, ViTBase, ViTTiny
 
-__all__ = ["BERT_SIZES", "BertSize", "GPT", "causal_lm_loss"]
+__all__ = [
+    "BasicNN",
+    "BatchNorm",
+    "BERT_SIZES",
+    "BertSize",
+    "dense_attention",
+    "GPT",
+    "causal_lm_loss",
+    "ResNet",
+    "ResNet18",
+    "ResNet34",
+    "ResNet50",
+    "ResNet101",
+    "ResNet152",
+    "ViT",
+    "ViTBase",
+    "ViTTiny",
+]

@@ -3,7 +3,10 @@
 Counterpart of ``stoke_tpu/models/gpt.py:30-219``: learned token and
 position embeddings, embedding dropout, the post-LN blocks of :mod:`.bert`,
 ``ln_final`` (eps ``1e-5``) and the head tied to the token embedding
-(``logits = h @ tok_emb.T``); :func:`causal_lm_loss`. Parameter names
+(``logits = h @ tok_emb.T``), or with ``chunked_head=True`` the
+``(hidden, embedding)`` pair that
+:func:`stoke_tpu_torch.ops.chunked_causal_lm_loss` takes instead of the
+logits; :func:`causal_lm_loss`. Parameter names
 follow the flax tree (``layers.<i>`` for ``layer_<i>``), so
 :mod:`stoke_tpu_torch.convert` maps one onto the other.
 
@@ -42,6 +45,11 @@ class GPT(nn.Module):
     Args:
         vocab_size / size_name / max_len / attention_fn /
             attention_is_causal: as the JAX package's ``GPT``.
+        tie_embeddings: must be True: the port has the tied head only;
+            False raises (with ``chunked_head``, the JAX package's
+            message).
+        chunked_head: return ``(hidden, tok_emb.weight)`` instead of the
+            logits, for :func:`stoke_tpu_torch.ops.chunked_causal_lm_loss`.
         dropout_rate: embedding, residual and attention-probability
             dropout while training.
         device: where the parameters are created.
@@ -54,13 +62,26 @@ class GPT(nn.Module):
     def __init__(self, vocab_size: int = 50257, size_name: str = "tiny",
                  max_len: int = 1024, dropout_rate: float = 0.1,
                  attention_fn: Callable = dense_attention,
-                 attention_is_causal: bool = False, device=None):
+                 attention_is_causal: bool = False,
+                 tie_embeddings: bool = True, chunked_head: bool = False,
+                 device=None):
         super().__init__()
+        if chunked_head and not tie_embeddings:
+            raise ValueError(
+                "GPT: chunked_head requires tie_embeddings=True (the "
+                "chunked loss re-applies the tied embedding per chunk)"
+            )
+        if not tie_embeddings:
+            raise ValueError(
+                "GPT: the port has the tied head only (tie_embeddings=False "
+                "is not ported)"
+            )
         size = BERT_SIZES[size_name]
         self.vocab_size = vocab_size
         self.size_name = size_name
         self.max_len = max_len
         self.attention_is_causal = attention_is_causal
+        self.chunked_head = chunked_head
         self.tok_emb = nn.Embedding(vocab_size, size.hidden, device=device)
         self.pos_emb = nn.Embedding(max_len, size.hidden, device=device)
         self.emb_dropout = Dropout(dropout_rate)
@@ -89,7 +110,9 @@ class GPT(nn.Module):
 
     def forward(self, input_ids, positions=None, *, decode: bool = False,
                 kv_cache=None):
-        """``input_ids [B, L]`` -> logits ``[B, L, vocab]``.
+        """``input_ids [B, L]`` -> logits ``[B, L, vocab]`` (with
+        ``chunked_head``, the final hidden states ``[B, L, hidden]`` and the
+        tied embedding ``[vocab, hidden]``).
 
         ``positions`` ([L] or [B, L] int) overrides the default ``arange``
         position ids; required with ``decode=True``."""
@@ -133,12 +156,15 @@ class GPT(nn.Module):
             bias = None
         else:
             causal = torch.tril(torch.ones(L, L, dtype=torch.bool, device=dev))
-            bias = torch.zeros(1, 1, L, L, dtype=h.dtype, device=dev)
-            bias.masked_fill_(~causal, -1e9)
+            # built in fp32 and cast, as the JAX package builds it: -1e9
+            # is -inf in fp16
+            bias = torch.where(causal, 0.0, -1e9)[None, None].to(h.dtype)
         for i, layer in enumerate(self.layers):
             fn = None if kv_cache is None else kv_cache.layer_attention(i)
             h = layer(h, bias, fn)
         h = self.ln_final(h)
+        if self.chunked_head:
+            return h, self.tok_emb.weight
         return h @ self.tok_emb.weight.T
 
 

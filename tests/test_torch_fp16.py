@@ -139,6 +139,7 @@ def _linear_stoke(loss=_two_losses, num_losses=2, scaler_kwargs=None, **kw):
 
 def _jax_linear_stoke(loss=_jax_two_losses, num_losses=2, scaler_kwargs=None,
                       **kw):
+    kw.setdefault("precision", "fp16")
     return stoke_tpu.Stoke(
         model=lambda params, x: x @ params["w"] + params["b"],
         optimizer=stoke_tpu.StokeOptimizer(
@@ -146,7 +147,7 @@ def _jax_linear_stoke(loss=_jax_two_losses, num_losses=2, scaler_kwargs=None,
         loss=loss,
         params={"w": jnp.zeros((4, 2), jnp.float32),
                 "b": jnp.zeros((2,), jnp.float32)},
-        batch_size_per_device=8, precision="fp16", verbose=False,
+        batch_size_per_device=8, verbose=False,
         configs=[stoke_tpu.PrecisionConfig(num_losses=num_losses,
                                            **(scaler_kwargs or {}))], **kw)
 
@@ -168,6 +169,59 @@ def test_scaler_state_is_a_vector_per_loss():
     assert tuple(s.scaler["finite"].shape) == (2,)
     assert s.loss_scale == [2.0**16, 2.0**16]
     assert _linear_stoke(num_losses=1).loss_scale == 2.0**16
+
+
+@pytest.mark.parametrize("num_losses", [1, 2])
+@pytest.mark.parametrize("precision", ["full", "bf16", "fp16"])
+def test_scaler_state_equals_the_jax_facades(precision, num_losses):
+    """``Stoke.scaler`` for every precision: the JAX facade's keys, values
+    and dtypes exactly (Queue 3 item 2). Per-loss scalers need fp16 in
+    both packages."""
+    kw = dict(precision=precision, num_losses=num_losses)
+    if num_losses > 1 and precision != "fp16":
+        with pytest.raises(StokeValidationError, match="num_losses"):
+            _linear_stoke(**kw)
+        with pytest.raises(stoke_tpu.StokeValidationError,
+                           match="num_losses"):
+            _jax_linear_stoke(**kw)
+        return
+    ours, theirs = _linear_stoke(**kw).scaler, _jax_linear_stoke(**kw).scaler
+    assert sorted(ours) == sorted(theirs)
+    for key, want in theirs.items():
+        want = np.asarray(want)
+        got = ours[key].cpu().numpy()
+        assert got.dtype == want.dtype, key
+        np.testing.assert_array_equal(got, want)
+
+
+def test_bf16_step_neither_scales_nor_snapshots():
+    """The bf16 step with the scaler built: the same losses and parameters
+    as the forward, objective and SGD step written out (no loss scale in
+    the backward), no snapshot for the fp16 skip, the scaler untouched."""
+    rng = np.random.default_rng(3)
+    batches = [_batch(rng) for _ in range(3)]
+    s = _linear_stoke(loss=lambda out, y: ((out - y) ** 2).mean(),
+                      num_losses=1, precision="bf16")
+    model = nn.Linear(4, 2)
+    nn.init.zeros_(model.weight)
+    nn.init.zeros_(model.bias)
+    opt = torch.optim.SGD(model.parameters(), lr=0.2)
+    for x, y in batches:
+        got = s.train_step(x, y)
+        params = {n: p.to(torch.bfloat16)
+                  for n, p in model.named_parameters()}
+        out = torch.func.functional_call(
+            model, params, (torch.from_numpy(x).to(torch.bfloat16),))
+        want = ((out.float() - torch.from_numpy(y)) ** 2).mean()
+        want.backward()
+        opt.step()
+        opt.zero_grad()
+        assert torch.equal(got, want.detach())
+    for a, b in zip(s.model_access.parameters(), model.parameters()):
+        assert torch.equal(a, b)
+    assert s._engine._snapshot == {}
+    assert float(s.scaler["scale"]) == 2.0**16
+    assert int(s.scaler["growth_count"]) == 0
 
 
 @pytest.mark.parametrize("loop", ["four_call", "train_step"])

@@ -4,7 +4,10 @@ GPT-tiny is built and initialised by the JAX package from a seed, its
 params converted by ``stoke_tpu_torch.convert.gpt_state_dict_from_jax``,
 and the port's ``GPT`` held against ``GPT.apply`` on the same token ids
 (atol 1e-4 on the logits: fp32 matmuls and LayerNorm variance summed in
-different orders).
+different orders). In 16 bits (both models' weights cast, dense attention
+with the in-model causal bias) the logits agree within four units of
+the type's roundoff relative to their largest magnitude: bf16 2^-7, fp16
+2^-10 (seen 4.9e-3 and 6.1e-4).
 
 The port's model constructors default ``dropout_rate`` as the JAX
 dataclasses do.
@@ -98,6 +101,27 @@ def test_logits_match_jax_apply(jax_gpt):
         out = model(torch.from_numpy(ids)).numpy()
     assert out.shape == (2, 24, VOCAB)
     np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 2.0**-7),
+                                         (torch.float16, 2.0**-10)])
+def test_16bit_logits_match_jax_apply(jax_gpt, dtype, bound):
+    """The causal bias is built in fp32 and cast, as the JAX package
+    builds it: -1e9 is -inf in fp16, not an overflow error."""
+    jmodel, params = jax_gpt
+    model = GPT(vocab_size=VOCAB, size_name="tiny", max_len=MAX_LEN).eval()
+    model.load_state_dict(gpt_state_dict_from_jax(params))
+    model.to(dtype)
+    jdtype = {torch.bfloat16: jax.numpy.bfloat16,
+              torch.float16: jax.numpy.float16}[dtype]
+    ids = np.random.default_rng(0).integers(0, VOCAB, size=(2, 24)).astype(
+        np.int32)
+    cast = jax.tree_util.tree_map(lambda x: x.astype(jdtype), params)
+    ref = np.asarray(jmodel.apply({"params": cast}, ids, train=False),
+                     np.float32)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(ids)).float().numpy()
+    assert np.abs(out - ref).max() <= bound * np.abs(ref).max()
 
 
 def _drop(params, path):

@@ -40,7 +40,11 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.facade",
                                     "stoke_tpu_torch.engine",
                                     "stoke_tpu_torch.data",
-                                    "stoke_tpu_torch.status"])
+                                    "stoke_tpu_torch.status",
+                                    "stoke_tpu_torch.models.basic",
+                                    "stoke_tpu_torch.models.resnet",
+                                    "stoke_tpu_torch.models.vit",
+                                    "stoke_tpu_torch.ops.chunked_ce"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"
