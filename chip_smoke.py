@@ -99,7 +99,23 @@ Phases, one JSON line each; any failure exits nonzero:
    window whose loss is multiplied by inf, eagerly and replayed: the
    parameters and AdamW state stay bit for bit, the scale halves, one
    step is skipped.
-10. train_resnet50: ResNet-50 v1.5 at its published widths, CIFAR stem, 10
+10. checkpoint: GPT-base in bf16 (the train phase's setup) at
+   ``grad_accum=2`` through ``Stoke.save`` / ``load`` in a temporary
+   directory: 4 replayed steps with async auto-saves at steps 2 and 4
+   (``max_to_keep=2``), an explicit save mid-window and 5 more
+   micro-batches; a run of other weights and seed loads the mid-window
+   tag and repeats them (losses and masters bit for bit); the saver loads
+   the step-4 tag under its captured window and replays one window, bit
+   for bit against a fresh run that resumes the newest tag
+   (``maybe_resume``) and loads the same one; the same resume in fp16 at
+   2 blocks (the loss scale and growth count as saved); 2 auto tags kept
+   and ``meta.json``'s JAX keys; ``serve()``'s greedy tokens against an
+   engine built from the same weights (flash prefill and paged decode
+   launched); ``estimate_step_flops`` through the flash kernels equal to
+   the dense model's. Prints save and load ms, the tags' bytes, the step
+   that an async save overlaps beside the same step without one, and the
+   phase's seconds.
+11. train_resnet50: ResNet-50 v1.5 at its published widths, CIFAR stem, 10
    classes, channels_last, bf16 over fp32 masters, SGD(0.05, momentum
    0.9), batch 256 of seeded 32x32 images (``bench.py``'s configuration):
    12 eager ``train_step``s against ``train_steps`` over the same batches
@@ -109,7 +125,7 @@ Phases, one JSON line each; any failure exits nonzero:
    of each (busy share, the five costliest kernels), the step's FLOPs by
    ``torch.utils.flop_counter`` and their share of the bf16 peak
    (``mfu``), and the memory format of the input, weights and output.
-11. train_vit: ViT-Base/16 at 224x224 in bf16 with AdamW, batch 64, 8
+12. train_vit: ViT-Base/16 at 224x224 in bf16 with AdamW, batch 64, 8
    eager ``train_step``s: the loss falls; step ms and peak memory.
 
 The two lines before the last are the kernels' summary and the card's
@@ -1164,12 +1180,13 @@ def make_corpus(n=2048, seq_len=128, vocab=64, seed=0):
 
 
 def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS,
-             chunked_head: bool = False):
-    """GPT-base on the card from seeded weights; ``dropout`` on the
-    embeddings and residuals (the flash kernels take no dropout of the
-    attention probabilities, so that stays off), the first ``layers``
-    blocks; ``chunked_head`` returns ``(hidden, embedding)`` for the
-    chunked cross entropy (the same parameters, so the same weights)."""
+             chunked_head: bool = False, init_seed: int = SEED):
+    """GPT-base on the card from weights seeded by ``init_seed``;
+    ``dropout`` on the embeddings and residuals (the flash kernels take no
+    dropout of the attention probabilities, so that stays off), the first
+    ``layers`` blocks; ``chunked_head`` returns ``(hidden, embedding)``
+    for the chunked cross entropy (the same parameters, so the same
+    weights)."""
     from stoke_tpu_torch.models.bert import dense_attention
     from stoke_tpu_torch.models.gpt import GPT
     from stoke_tpu_torch.ops import make_flash_attention
@@ -1184,12 +1201,12 @@ def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS,
     del model.layers[layers:]
     for block in model.layers:
         block.attention.prob_dropout.rate = 0.0
-    model.init_weights(SEED)
+    model.init_weights(init_seed)
     return model
 
 
 def stoke_for(model, precision, batch, grad_accum=None, loss=None,
-              lr=3e-4, seed=0):
+              lr=3e-4, seed=0, configs=None):
     from stoke_tpu_torch import ClipGradNormConfig, Stoke, StokeOptimizer
     from stoke_tpu_torch.models.gpt import causal_lm_loss
 
@@ -1197,7 +1214,8 @@ def stoke_for(model, precision, batch, grad_accum=None, loss=None,
                                        weight_decay=1e-4),
                  loss or causal_lm_loss, batch_size_per_device=batch,
                  grad_accum=grad_accum, precision=precision,
-                 grad_clip=ClipGradNormConfig(max_norm=1.0), seed=seed)
+                 grad_clip=ClipGradNormConfig(max_norm=1.0), seed=seed,
+                 configs=configs)
 
 
 def profile_step(step) -> dict:
@@ -1861,7 +1879,253 @@ def train_fp16(ops) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# phases 10 and 11: the vision models
+# phase 10: checkpoints, resume and serve() through the facade
+# --------------------------------------------------------------------------- #
+
+
+#: micro-batches of the checkpoint phase: 4 steps of 2, one more, the 5
+#: that finish the saver's window and make 2 more steps, and one window
+#: after the load under a captured window
+CKPT_MICRO = 16
+#: the fp16 run's depth (resume and the scaler state, not speed)
+CKPT_FP16_LAYERS = 2
+
+
+def tag_bytes(tag_dir: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(tag_dir, f))
+               for f in os.listdir(tag_dir))
+
+
+def masters_equal(a, b) -> bool:
+    """Whether two runs' fp32 master parameters are bit for bit equal."""
+    return all(torch.equal(p, q) for p, q in
+               zip(a.model_access.parameters(), b.model_access.parameters()))
+
+
+def fp16_resume(ops, root: str, batches) -> dict:
+    """Steps 1-2 of :func:`checkpoint` in fp16 at CKPT_FP16_LAYERS blocks:
+    two replayed steps, a micro-batch, an async save mid-window, 5 more
+    micro-batches; a run of another seed loads the tag and must repeat
+    them bit for bit, its loss scale and growth count equal to the
+    saver's at the save."""
+    import os
+
+    from stoke_tpu_torch.configs import CheckpointConfig
+
+    a = stoke_for(gpt_base("flash", layers=CKPT_FP16_LAYERS), "fp16",
+                  TRAIN_BATCH, grad_accum=2,
+                  configs=[CheckpointConfig(async_save=True)])
+    a.train_steps(batches[:4], batches[:4])
+    a.train_step(batches[4], batches[4])
+    at_save = {k: v.clone() for k, v in a.scaler.items()}
+    tag = a.save(root, name="fp16")
+    saver, _ = eager_steps(a, batches[5:10])
+    a.wait_for_checkpoint()
+    b = stoke_for(gpt_base("flash", layers=CKPT_FP16_LAYERS,
+                           init_seed=SEED + 1), "fp16", TRAIN_BATCH,
+                  grad_accum=2, seed=1)
+    b.load(root, tag=os.path.basename(tag))
+    scaler_equal = all(torch.equal(b.scaler[k], v) for k, v in at_save.items())
+    loaded = {k: v.tolist() for k, v in b.scaler.items()}
+    resumed, _ = eager_steps(b, batches[5:10])
+    out = {"layers": CKPT_FP16_LAYERS, "losses_saver": saver,
+           "losses_resumed": resumed,
+           "scaler_at_save": {k: v.tolist() for k, v in at_save.items()},
+           "scaler_after_load": loaded, "scaler_equal": scaler_equal,
+           "masters_equal": masters_equal(a, b)}
+    if not (scaler_equal and resumed == saver and out["masters_equal"]):
+        raise AssertionError(f"fp16 resume: {out}")
+    return out
+
+
+def checkpoint(ops) -> dict:
+    """Checkpoints through the facade at GPT-base width (bf16 over fp32
+    masters, flash attention, AdamW, B=8, L=1024), in a temporary
+    directory removed at the end:
+
+    1. run A (``grad_accum=2``, ``CheckpointConfig(save_every_n_steps=2,
+       max_to_keep=2, async_save=True)``): 4 steps, one ``train_steps``
+       call each (eager window, capture, replays), auto-saved at steps 2
+       and 4; a micro-batch; an explicit save with the window half full;
+       5 more micro-batches (steps 5-7; step 6 auto-saves);
+    2. run B (other weights, another seed) loads the mid-window tag and
+       repeats the 5 micro-batches: losses and masters bit for bit;
+    3. run A loads the step-4 tag under its captured window and replays
+       one window; run C, fresh, resumes the newest tag
+       (``maybe_resume``: step 6), loads the step-4 tag and runs the same
+       window: bit for bit;
+    4. fp16 at 2 blocks (:func:`fp16_resume`);
+    5. 2 auto tags kept, ``meta.json``'s JAX keys and counters;
+    6. B's ``serve()`` against an engine built from B's weights: the same
+       greedy tokens, the prefill and decode kernels launched;
+    7. B's ``estimate_step_flops`` with the flash kernels against the
+       dense model's.
+
+    Prints save and load ms, the tags' bytes, the step that an async
+    save's write overlaps beside the same step in B (no save in flight),
+    and the phase's seconds."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="stoke-ckpt-")
+    try:
+        out = run_checkpoint(ops, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_checkpoint(ops, root: str) -> dict:
+    import os
+
+    from stoke_tpu_torch.configs import CheckpointConfig, ServeConfig
+    from stoke_tpu_torch.io_ops import checkpoint_tag
+    from stoke_tpu_torch.serving import ServingEngine
+
+    auto = os.path.join(root, "auto")
+    auto_cfg = CheckpointConfig(save_every_n_steps=2, auto_path=auto,
+                                max_to_keep=2, async_save=True)
+    serve_cfg = ServeConfig(**{**SERVE, "max_new_tokens": 16},
+                            attention="flash", decode_kernel="pallas")
+    batches = window_batches(CKPT_MICRO)
+    tags = {}
+
+    # 1. run A: replayed steps with async auto-saves, a save mid-window
+    a = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, grad_accum=2,
+                  configs=[auto_cfg])
+    ops.reset_launches()
+    first, step_ms = [], []
+    for i in range(4):
+        sl = slice(2 * i, 2 * i + 2)
+        step_ms.append(timed_ms(lambda: first.extend(
+            a.train_steps(batches[sl], batches[sl])[:, 0].tolist())))
+    a.train_step(batches[8], batches[8])
+    save_ms = timed_ms(lambda: tags.update(mid=a.save(root, name="ckpt")))
+    saver, saver_ms = eager_steps(a, batches[9:14])
+    wait_ms = timed_ms(a.wait_for_checkpoint)
+    launches = flash_launches(ops, N_LAYERS * 14, "checkpoint phase, run A")
+    auto_tags = sorted(os.listdir(auto))
+    want_tags = sorted([checkpoint_tag("auto", 8), checkpoint_tag("auto", 12)])
+    with open(os.path.join(tags["mid"], "meta.json")) as f:
+        meta = json.load(f)
+    bookkeeping = {"auto_tags": auto_tags, "meta_keys": sorted(meta),
+                   "meta_counters": meta["counters"],
+                   "mid_tag_files": sorted(os.listdir(tags["mid"]))}
+    if (auto_tags != want_tags
+            or bookkeeping["meta_keys"] != ["counters", "format", "name",
+                                            "status"]
+            or meta["counters"] != {"backward_step": 9, "grad_accum_step": 1,
+                                    "optimizer_step": 4}):
+        raise AssertionError(f"checkpoint bookkeeping: {bookkeeping}")
+
+    # 2. run B resumes the mid-window tag
+    b = stoke_for(gpt_base("flash", init_seed=SEED + 1), "bf16", TRAIN_BATCH,
+                  grad_accum=2, seed=1, configs=[serve_cfg])
+    if masters_equal(a, b):
+        raise AssertionError("runs A and B start from the same weights")
+    load_ms = timed_ms(lambda: b.load(root, tag=os.path.basename(
+        tags["mid"])))
+    counters = (b.backward_steps, b.optimizer_steps, b.grad_accum_counter)
+    resumed, resumed_ms = eager_steps(b, batches[9:14])
+    resume = {"counters_after_load": counters, "losses_saver": saver,
+              "losses_resumed": resumed,
+              "masters_equal": masters_equal(a, b)}
+    if (counters != (9, 4, 1) or resumed != saver
+            or not resume["masters_equal"]):
+        raise AssertionError(f"mid-window resume: {resume}")
+    sync_ms = timed_ms(lambda: tags.update(sync=b.save(root, name="sync")))
+
+    # 6. serve() against an engine built directly from B's weights
+    prompts = [np.random.default_rng(SEED + i).integers(
+        0, VOCAB, size=n).astype(np.int32) for i, n in enumerate(
+            (17, 64, 129, 300))]
+
+    def greedy(engine):
+        rids = [engine.submit(p) for p in prompts]
+        engine.run()
+        return [list(engine.result(r).tokens) for r in rids]
+
+    ops.reset_launches()
+    served = greedy(b.serve())
+    serve_launches = dict(ops.LAUNCHES)
+    direct = greedy(ServingEngine(gpt_base("flash"),
+                                  b.model_access.state_dict(), serve_cfg,
+                                  device="cuda"))
+    if served != direct or not (serve_launches["paged_decode"]
+                                and serve_launches["flash_fwd"]):
+        raise AssertionError(f"serve(): tokens {served} vs {direct}, "
+                             f"launches {serve_launches}")
+
+    # 7. the step's FLOPs: flash kernels by their formula against dense
+    flops_flash = b.estimate_step_flops(batches[0], batches[0])
+    dense = stoke_for(gpt_base("dense"), "bf16", TRAIN_BATCH)
+    flops_dense = dense.estimate_step_flops(batches[0], batches[0])
+    del dense, b
+    torch.cuda.empty_cache()
+    if flops_flash != flops_dense:
+        raise AssertionError(f"estimate_step_flops: flash {flops_flash} "
+                             f"vs dense {flops_dense}")
+
+    # 3. a load under a captured window against a fresh run's
+    c = stoke_for(gpt_base("flash", init_seed=SEED + 2), "bf16",
+                  TRAIN_BATCH, grad_accum=2, seed=2, configs=[auto_cfg])
+    newest = (c.maybe_resume(), c.optimizer_steps)
+    if newest != (True, 6):
+        raise AssertionError(f"maybe_resume picked {newest}, expected the "
+                             f"step-6 tag")
+    windows = list(a._engine._windows.values())
+    step4 = checkpoint_tag("auto", 8)
+    a.load(auto, tag=step4)
+    window = batches[14:16]
+    replayed = a.train_steps(window, window)[:, 0].tolist()
+    kept = [x is y for x, y in zip(windows, a._engine._windows.values())]
+    c.load(auto, tag=step4)
+    fresh = c.train_steps(window, window)[:, 0].tolist()
+    captured = {"windows_kept": bool(windows) and all(kept),
+                "losses_replayed": replayed, "losses_fresh": fresh,
+                "masters_equal": masters_equal(a, c)}
+    if replayed != fresh or not captured["masters_equal"]:
+        raise AssertionError(f"load under a captured window: {captured}")
+    del a, c
+    torch.cuda.empty_cache()
+
+    # 4. fp16
+    fp16 = fp16_resume(ops, root, batches)
+    torch.cuda.empty_cache()
+    return {
+        "phase": "checkpoint", "model": "GPT-base, bf16 over fp32 masters, "
+        "flash attention, AdamW(lr 3e-4, wd 1e-4), clip norm 1.0, "
+        "grad_accum 2", "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+        "launches": launches,
+        "train_steps_ms": step_ms,
+        "train_steps_ms_note": "steps 2 and 4 include their async "
+        "auto-save's copy to the host; step 3 runs while step 2's tag is "
+        "written",
+        "losses_first_steps": first,
+        "save_async_ms": save_ms, "save_async_write_wait_ms": wait_ms,
+        "save_sync_ms": sync_ms, "load_ms": load_ms,
+        "tag_bytes_mid_window": tag_bytes(tags["mid"]),
+        "tag_bytes_boundary": tag_bytes(tags["sync"]),
+        "overlapped_step_ms": saver_ms[0],
+        "same_step_without_save_ms": resumed_ms[0],
+        "saver_micro_ms": saver_ms, "resumed_micro_ms": resumed_ms,
+        "bookkeeping": bookkeeping, "resume": resume,
+        "load_under_captured_window": captured,
+        "maybe_resume": {"resumed": newest[0], "optimizer_steps": newest[1]},
+        "serve": {"tokens_equal_direct_engine": True,
+                  "tokens": [len(t) for t in served],
+                  "launches": serve_launches},
+        "flops": {"flash": flops_flash, "dense": flops_dense},
+        "fp16": fp16,
+    }
+
+
+# --------------------------------------------------------------------------- #
+# phases 11 and 12: the vision models
 # --------------------------------------------------------------------------- #
 
 
@@ -2161,6 +2425,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fp16 = train_fp16(ops)
     emit(fp16)
+    torch.cuda.empty_cache()
+    emit({**checkpoint(ops), "card": smi})
     torch.cuda.empty_cache()
     emit({**train_resnet50(ops), "card": smi})
     torch.cuda.empty_cache()

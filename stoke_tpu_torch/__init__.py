@@ -15,6 +15,12 @@ What it covers so far:
   with its dynamic loss scaler (``Stoke.loss_scale``,
   ``Stoke.skipped_optimizer_steps``), with :class:`StokeDataLoader`;
   flash attention's forward and backward on the CUDA kernels;
+- checkpoints on one device (``Stoke.save`` / ``load`` /
+  ``maybe_resume``, async and periodic saves by
+  :class:`CheckpointConfig`; :mod:`stoke_tpu_torch.io_ops`), a JAX
+  checkpoint resumed in the port
+  (:func:`stoke_tpu_torch.convert.jax_checkpoint_to_port`), and
+  ``Stoke.serve()`` over the run's GPT;
 - the models (:mod:`stoke_tpu_torch.models`): GPT (with the chunked LM
   head, :func:`stoke_tpu_torch.ops.chunked_causal_lm_loss`), BasicNN,
   ResNet-18 to -152 with flax's BatchNorm, and ViT, each loadable from the
@@ -25,6 +31,7 @@ What it covers so far:
 """
 
 from stoke_tpu_torch.configs import (
+    CheckpointConfig,
     ClipGradConfig,
     ClipGradNormConfig,
     PrecisionConfig,
@@ -36,6 +43,7 @@ from stoke_tpu_torch.status import StokeValidationError
 
 __all__ = [
     "ArrayDataset",
+    "CheckpointConfig",
     "ClipGradConfig",
     "ClipGradNormConfig",
     "PrecisionConfig",

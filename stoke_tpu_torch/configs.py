@@ -1,6 +1,7 @@
 """Configuration of the port: the option enums, the training configs the
 port takes (``PrecisionConfig``, ``ClipGradConfig``, ``ClipGradNormConfig``,
-``StokeOptimizer``) and ``ServeConfig``.
+``CheckpointConfig``, ``StokeOptimizer``), ``ServeConfig`` and
+``ParamNormalize``.
 
 Field names and defaults are those of ``stoke_tpu.configs``, so one config
 describes a run in either package. ``DeviceOptions`` is ``cpu`` or
@@ -45,6 +46,27 @@ class PrecisionOptions(Enum):
     fp16 = "fp16"
 
 
+class ParamNormalize(Enum):
+    """Divisors for printing parameter counts
+    (``Stoke.num_model_parameters``)."""
+
+    BILLION = 1e9
+    GIGA = 2**30
+    KILO = 2**10
+    MEGA = 2**20
+    MILLION = 1e6
+    THOUSAND = 1e3
+
+
+class CheckpointFormat(Enum):
+    """Checkpoint layouts: ``consolidated`` (one ``.npz`` a state key,
+    written by one process) or ``sharded`` (every process writes its
+    shards; not ported yet)."""
+
+    consolidated = "consolidated"
+    sharded = "sharded"
+
+
 @dataclass
 class PrecisionConfig:
     """Precision policy and loss-scaler tunables.
@@ -82,6 +104,38 @@ class ClipGradNormConfig:
 
     max_norm: float = 1.0
     norm_type: float = 2.0
+
+
+@dataclass
+class CheckpointConfig:
+    """How ``Stoke.save`` writes and when the step path saves on its own.
+
+    Attributes:
+        format: the layout, ``consolidated`` (``sharded`` is not ported
+            yet and is refused).
+        max_to_keep: the newest tags of a name kept under a path; older
+            ones are deleted after each save (None keeps all).
+        async_save: copy the state to the host on the calling thread and
+            write the files on a background thread
+            (``Stoke.wait_for_checkpoint`` waits for it and raises its
+            failure).
+        save_every_n_steps / auto_path / auto_name: save under
+            ``auto_path`` with the name ``auto_name`` after every
+            ``save_every_n_steps`` optimizer steps (``Stoke.maybe_resume``
+            loads the newest such tag).
+        save_rank: the process that writes (one process here: 0).
+        offload_staging: the JAX package's staged async save (not ported
+            yet and refused).
+    """
+
+    format: CheckpointFormat = CheckpointFormat.consolidated
+    max_to_keep: Optional[int] = None
+    async_save: bool = False
+    save_every_n_steps: Optional[int] = None
+    auto_path: Optional[str] = None
+    auto_name: str = "auto"
+    save_rank: int = 0
+    offload_staging: bool = False
 
 
 class StokeOptimizer(dict):

@@ -11,6 +11,10 @@ does the ``np.asarray`` (for example with ``jax.tree_util.tree_map(
 np.asarray, variables)``). Each raises ``KeyError`` on a missing leaf and
 ``ValueError`` on a leaf the port has no place for or on a wrong shape.
 
+:func:`jax_checkpoint_to_port` carries a whole checkpoint over: it reads a
+tag the JAX package wrote (numpy, json and pickle only) and writes a port
+tag that ``Stoke.load`` resumes, optimizer state included.
+
 Layouts (``stoke_tpu/models/bert.py:72-106``), one transformer block map
 (:func:`_transformer_blocks`) shared by GPT and ViT:
 
@@ -32,11 +36,16 @@ Layouts (``stoke_tpu/models/bert.py:72-106``), one transformer block map
 
 from __future__ import annotations
 
+import json
+import os
+import pickle
 import re
-from typing import Callable, Dict, Mapping, Tuple
+import shutil
+from typing import Any, Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -248,3 +257,246 @@ def cnn_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{who}: leaves with no place in the port's CNNs: "
                          f"{sorted(params) + sorted(stats)}")
     return _finish(sd, expect, who)
+
+
+# --------------------------------------------------------------------------- #
+# a JAX checkpoint carried over
+# --------------------------------------------------------------------------- #
+
+
+def _jax_leaf_names(module: nn.Module) -> Dict[str, str]:
+    """The flax leaf names of one module's tensors, by the port's names:
+    a kernel (``Conv``, ``Linear``), an embedding, a norm's scale and a
+    BatchNorm's running statistics (in ``batch_stats``)."""
+    from stoke_tpu_torch.models.resnet import BatchNorm, Conv
+
+    if isinstance(module, (Conv, nn.Linear)):
+        return {"weight": "kernel", "bias": "bias"}
+    if isinstance(module, nn.Embedding):
+        return {"weight": "embedding"}
+    if isinstance(module, nn.LayerNorm):
+        return {"weight": "scale", "bias": "bias"}
+    if isinstance(module, BatchNorm):
+        return {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                "running_var": "var"}
+    return {}
+
+
+def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """The inverse map of the weight converters: each entry of
+    ``model.state_dict()`` by the path of its JAX leaf, ``(collection,
+    *keys)``, with collection ``params`` or ``batch_stats`` (the port's
+    ``layers.<i>`` is flax's ``layer_<i>``). Raises ``ValueError`` for an
+    entry with no JAX leaf."""
+    out: Dict[str, Tuple[str, ...]] = {}
+    for mname, module in model.named_modules():
+        leaves = _jax_leaf_names(module)
+        keys = [k for k in re.sub(r"(^|\.)layers\.(\d+)", r"\1layer_\2",
+                                  mname).split(".") if k]
+        tensors = {**dict(module.named_parameters(recurse=False)),
+                   **dict(module.named_buffers(recurse=False))}
+        for tname in tensors:
+            if tname not in leaves:
+                continue
+            coll = "batch_stats" if tname.startswith("running_") else "params"
+            full = f"{mname}.{tname}" if mname else tname
+            out[full] = (coll, *keys, leaves[tname])
+    missing = sorted(set(model.state_dict()) - set(out))
+    if missing:
+        raise ValueError(f"jax_paths: no JAX leaf for {missing}")
+    return out
+
+
+#: the optax states the converter reads, by the torch optimizer that takes
+#: them: the fields of the chain's first state in flatten order (optax
+#: ``adamw``: ``ScaleByAdamState(count, mu, nu)`` then two empty states;
+#: ``sgd`` with momentum: ``TraceState(trace)`` then an empty state), each
+#: with the torch state key it becomes
+_OPTAX_STATES = {
+    torch.optim.AdamW: ("optax.adamw", (("count", "step"), ("mu", "exp_avg"),
+                                        ("nu", "exp_avg_sq"))),
+    torch.optim.SGD: ("optax.sgd with momentum",
+                      (("trace", "momentum_buffer"),)),
+}
+
+
+def _optax_fields(optimizer: torch.optim.Optimizer):
+    """``(optax name, ((field, torch key), ...))`` for ``optimizer``, or
+    ``ValueError`` naming what it got."""
+    kind = type(optimizer)
+    if kind not in _OPTAX_STATES:
+        raise ValueError(
+            f"jax_checkpoint_to_port: {kind.__name__} has no optax "
+            f"counterpart here; torch.optim.AdamW (optax.adamw) and "
+            f"torch.optim.SGD with momentum (optax.sgd) are carried over"
+        )
+    for group in optimizer.param_groups:
+        if kind is torch.optim.SGD and not group.get("momentum"):
+            raise ValueError(
+                "jax_checkpoint_to_port: torch.optim.SGD without momentum "
+                "keeps no state; optax.sgd with momentum is carried over")
+        if group.get("amsgrad") or group.get("nesterov"):
+            raise ValueError(
+                f"jax_checkpoint_to_port: {kind.__name__} with amsgrad or "
+                f"nesterov has no counterpart in optax.adamw / optax.sgd "
+                f"as the JAX package builds them")
+    return _OPTAX_STATES[kind]
+
+
+def jax_flatten_order(model: nn.Module, key: str,
+                      optimizer: torch.optim.Optimizer = None
+                      ) -> List[Tuple[str, ...]]:
+    """The JAX key paths of the leaves of a JAX tag's ``key``.npz, in
+    ``jax.tree_util`` flatten order (dict keys sorted at every level; a
+    state tuple's fields in their own order): ``variables`` by
+    ``(collection, *keys)``, ``grad_buf`` by the params' keys, and
+    ``opt_state`` by ``(field, *keys)`` (``("count",)`` alone)."""
+    paths = sorted(jax_paths(model).values())
+    params = [p[1:] for p in paths if p[0] == "params"]
+    if key == "variables":
+        return paths
+    if key == "grad_buf":
+        return params
+    if key == "opt_state":
+        _, fields = _optax_fields(optimizer)
+        out: List[Tuple[str, ...]] = []
+        for field, _ in fields:
+            out += [(field,)] if field == "count" else [(field, *p)
+                                                        for p in params]
+        return out
+    raise ValueError(f"jax_flatten_order: unknown state key {key!r}")
+
+
+def _nest(flat: Dict[Tuple[str, ...], np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, a in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+    return tree
+
+
+def _read_leaves(tag_dir: str, key: str) -> List[np.ndarray]:
+    with np.load(os.path.join(tag_dir, f"{key}.npz")) as data:
+        n = len(data.files)
+        if sorted(data.files) != sorted(f"leaf_{i}" for i in range(n)):
+            raise ValueError(
+                f"jax_checkpoint_to_port: {key}.npz of {tag_dir} is not the "
+                f"JAX package's (its arrays are not leaf_0..leaf_{n - 1})")
+        return [data[f"leaf_{i}"] for i in range(n)]
+
+
+def jax_checkpoint_to_port(jax_tag_dir: str, out_path: str, model: nn.Module,
+                           optimizer: Any) -> str:
+    """Write a port tag that ``Stoke.load`` resumes from a tag that the
+    JAX package's ``Stoke.save`` wrote (consolidated).
+
+    ``model`` is the port's module of the same architecture (a ``GPT``,
+    ``BasicNN`` or ``ResNet``) and ``optimizer`` the run's
+    optimizer over its parameters (a ``torch.optim.Optimizer``, or a
+    ``StokeOptimizer`` to build one): ``torch.optim.AdamW`` takes
+    ``optax.adamw``'s state (``count`` -> ``step``, ``mu`` -> ``exp_avg``,
+    ``nu`` -> ``exp_avg_sq``), ``torch.optim.SGD`` with momentum
+    ``optax.sgd``'s (``trace`` -> ``momentum_buffer``); any other raises.
+    The weights go through :func:`gpt_state_dict_from_jax` or
+    :func:`cnn_state_dict_from_jax`,
+    and so do the optimizer's moments and the accumulated gradients
+    (``grad_buf``, when the tag was saved mid-window); the scaler state,
+    ``meta.json`` and ``extras.pkl`` are carried as they are, the param
+    groups come from ``optimizer``. The JAX ``.npz`` names its leaves only
+    by flatten order: :func:`jax_flatten_order` rebuilds their paths, and
+    each count of leaves is checked. Returns the port tag's directory
+    (``out_path`` joined with the JAX tag's name)."""
+    from stoke_tpu_torch.engine import build_optimizer
+    from stoke_tpu_torch.io_ops import PORT_FILE, STATE_KEYS
+    from stoke_tpu_torch.models.basic import BasicNN
+    from stoke_tpu_torch.models.gpt import GPT
+    from stoke_tpu_torch.models.resnet import ResNet
+
+    if not isinstance(model, (GPT, BasicNN, ResNet)):
+        raise TypeError(
+            f"jax_checkpoint_to_port: carries GPT, BasicNN and ResNet "
+            f"checkpoints; got {type(model).__name__}")
+    if not isinstance(optimizer, torch.optim.Optimizer):
+        optimizer = build_optimizer(optimizer, model.parameters())
+    optax_name, fields = _optax_fields(optimizer)
+    who = "jax_checkpoint_to_port"
+    with open(os.path.join(jax_tag_dir, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("format") != "consolidated" or meta.get("staged"):
+        raise ValueError(f"{who}: {jax_tag_dir} is not a consolidated tag")
+
+    def leaves_by_path(key):
+        leaves = _read_leaves(jax_tag_dir, key)
+        order = jax_flatten_order(model, key, optimizer)
+        if len(leaves) != len(order):
+            raise ValueError(
+                f"{who}: {key}.npz holds {len(leaves)} leaves; "
+                f"{type(model).__name__} with {optax_name} needs "
+                f"{len(order)}")
+        return dict(zip(order, leaves))
+
+    variables = _nest(leaves_by_path("variables"))
+    names = [n for n, _ in model.named_parameters()]
+
+    def to_port(params: dict) -> Dict[str, torch.Tensor]:
+        """A params-shaped tree (weights, moments or gradients) by the
+        port's parameter names."""
+        if isinstance(model, GPT):
+            sd = gpt_state_dict_from_jax(params)
+        else:
+            sd = cnn_state_dict_from_jax(
+                {"params": params, **({"batch_stats": variables["batch_stats"]}
+                                      if "batch_stats" in variables else {})})
+        return {n: sd[n] for n in names}
+
+    if isinstance(model, GPT):
+        weights = gpt_state_dict_from_jax(variables["params"])
+    else:
+        weights = cnn_state_dict_from_jax(variables)
+    state: Dict[str, Dict[str, np.ndarray]] = {
+        "variables": {n: t.numpy() for n, t in weights.items()}}
+
+    opt = leaves_by_path("opt_state")
+    opt_state: Dict[str, np.ndarray] = {}
+    for field, tkey in fields:
+        if field == "count":
+            count = np.asarray(opt[("count",)], np.float32)
+            opt_state.update({f"{n}/{tkey}": count for n in names})
+            continue
+        tree = _nest({p[1:]: a for p, a in opt.items() if p[0] == field})
+        opt_state.update({f"{n}/{tkey}": t.numpy()
+                          for n, t in to_port(tree).items()})
+    state["opt_state"] = opt_state
+
+    scaler = _read_leaves(jax_tag_dir, "scaler_state")
+    keys = {2: ("growth_count", "scale"),
+            3: ("finite", "growth_count", "scale")}.get(len(scaler))
+    if keys is None:
+        raise ValueError(f"{who}: scaler_state.npz holds {len(scaler)} "
+                         f"leaves; the JAX scaler has 2 (3 per loss)")
+    state["scaler_state"] = dict(zip(keys, scaler))
+    if os.path.exists(os.path.join(jax_tag_dir, "grad_buf.npz")):
+        grads = _nest(leaves_by_path("grad_buf"))
+        state["grad_buf"] = {n: t.numpy() for n, t in to_port(grads).items()}
+
+    tag_dir = os.path.join(os.path.abspath(out_path),
+                           os.path.basename(os.path.normpath(jax_tag_dir)))
+    os.makedirs(tag_dir, exist_ok=True)
+    for key in STATE_KEYS:
+        if key in state:
+            np.savez(os.path.join(tag_dir, f"{key}.npz"), **state[key])
+    index = {p: n for n, p in model.named_parameters()}
+    groups = [{**{k: v for k, v in g.items() if k != "params"},
+               "params": [index[p] for p in g["params"]]}
+              for g in optimizer.param_groups]
+    with open(os.path.join(tag_dir, PORT_FILE), "wb") as f:
+        pickle.dump({"param_groups": groups, "opt_values": {}}, f)
+    # extras before meta.json, the tag's "loadable" marker
+    extras = os.path.join(jax_tag_dir, "extras.pkl")
+    if os.path.exists(extras):
+        shutil.copyfile(extras, os.path.join(tag_dir, "extras.pkl"))
+    shutil.copyfile(os.path.join(jax_tag_dir, "meta.json"),
+                    os.path.join(tag_dir, "meta.json"))
+    return tag_dir

@@ -530,6 +530,12 @@ class StepEngine:
         return (tree_map(torch.clone, reports),
                 None if finite is None else finite.clone())
 
+    def drop_windows(self) -> None:
+        """Forget every captured window: the next window of each signature
+        captures anew (after the parameters' or the optimizer state's
+        tensors were replaced, whose addresses a graph holds)."""
+        self._windows.clear()
+
     def _capture(self, flat: list, spec, lrs) -> CapturedWindow:
         for p in self.params:
             for key, v in self.optimizer.state.get(p, {}).items():

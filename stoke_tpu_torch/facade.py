@@ -4,9 +4,13 @@ Counterpart of ``stoke_tpu/facade.py``: the constructor (``:229-804``, the
 parts the port takes), the four-call contract and ``train_step``
 (``:973-1278``), ``train_step_window`` and ``train_steps``
 (``:2446-2729``) with the segment memory guard (``:94-115``), ``reset``
-(``:2731``), loss tracking (``:2743-2812``), ``DataLoader``
-(``:3047-3101``) and the counters, flags and loss scale
-(``:3440-3547``).
+(``:2731``), loss tracking and its helpers (``:2743-2838``), the rank and
+print helpers (``:2840-2907``), ``estimate_step_flops`` (``:2972``),
+``DataLoader`` (``:3047-3101``), ``serve`` (``:3103``), checkpoints
+(``save``, ``load``, ``maybe_resume``, ``wait_for_checkpoint`` and the
+periodic auto-save, ``:1869-1915``, ``:3219-3398``), ``print_status``
+(``:3399``), the counters, flags and loss scale (``:3440-3547``) and the
+parameter counts (``:3602-3628``).
 
 The JAX facade defers the forward (``model()`` returns a
 ``DeferredOutput``; forward, loss and grad run fused in ``loss()``)
@@ -29,24 +33,38 @@ times the dynamic loss scale (or, with per-loss scalers, one seeded
 backward a loss); the apply unscales, skips a step whose gradients are
 not finite and updates the scale (``StepEngine.apply``).
 
+A checkpoint (:mod:`stoke_tpu_torch.io_ops`) holds the module's state
+dict (the fp32 masters and the buffers), the optimizer's state keyed by
+parameter name, the scaler state, the three counters, the masters'
+gradients when saved mid-window, and the dropout generator's state.
+``load`` copies into the live tensors, so a window captured as a CUDA
+graph replays from the loaded state.
+
 Left out, and refused with ``NotImplementedError`` naming their ROADMAP
-item: ``distributed`` and the oss/sddp/fsdp tiers (by the status layer)
-and ``save``/``load``.
+item: ``distributed`` and the oss/sddp/fsdp tiers and the sharded
+checkpoint format (by the status layer), ``resume`` (item 9) and
+``estimate_step_cost`` (item 10).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Union
+import copy
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils._pytree import tree_leaves, tree_map
 
+from stoke_tpu_torch import io_ops
 from stoke_tpu_torch.configs import (
+    CheckpointConfig,
     ClipGradConfig,
     ClipGradNormConfig,
     DeviceOptions,
     DistributedOptions,
+    ParamNormalize,
     PrecisionConfig,
     PrecisionOptions,
 )
@@ -54,9 +72,15 @@ from stoke_tpu_torch.data import StokeDataLoader, place
 from stoke_tpu_torch.engine import PrecisionPolicy, StepEngine, build_optimizer
 from stoke_tpu_torch.models.bert import Dropout
 from stoke_tpu_torch.serving.engine import resolve_device
-from stoke_tpu_torch.status import StokeStatus
+from stoke_tpu_torch.status import StokeStatus, StokeValidationError
+from stoke_tpu_torch.utils.printing import unrolled_print
+from stoke_tpu_torch.utils.trees import tree_count_params
 
-_LATER_IO = "ROADMAP Queue 1 item 6 (checkpoint IO)"
+_LATER_RESUME = "ROADMAP Queue 1 item 9 (offload and resilience)"
+_LATER_COST = "ROADMAP Queue 1 item 10 (telemetry)"
+#: param-group keys that say how an optimizer runs on this device, not
+#: what it computes; ``load`` keeps the live values
+_DEVICE_FLAGS = ("capturable", "foreach", "fused", "differentiable")
 
 
 def _device_memory_stats(device: torch.device) -> Optional[dict]:
@@ -115,7 +139,9 @@ class Stoke:
         precision: None/"full", "bf16" (the whole model in bfloat16 over
             fp32 master parameters) or "fp16" (in float16, with the dynamic
             loss scaler of ``PrecisionConfig``).
-        configs: ``PrecisionConfig`` (the other classes are later slices).
+        configs: ``PrecisionConfig``, ``CheckpointConfig`` (how ``save``
+            writes, the periodic auto-save) and ``ServeConfig`` (what
+            ``serve`` builds).
         model_train_kwargs / model_eval_kwargs: keyword arguments the
             forward gets in train / eval mode (only when given).
         loss_weights: weights shaped like the loss result; the objective
@@ -278,6 +304,7 @@ class Stoke:
         self._optimizer_steps += 1
         self._grad_accum_counter = 0
         self._reset_tracking_window()
+        self._maybe_auto_save()
 
     def _count_skipped(self, finite: Optional[torch.Tensor]) -> None:
         """``skipped_optimizer_steps += 1 - finite`` on the device (fp16)."""
@@ -308,6 +335,7 @@ class Stoke:
             self._optimizer_steps += 1
             self._grad_accum_counter = 0
             self._reset_tracking_window()
+            self._maybe_auto_save()
         else:
             self._grad_accum_counter += 1
         return report
@@ -361,10 +389,12 @@ class Stoke:
                     f"[grad_accum={k}, ...]; got shape "
                     f"{tuple(getattr(leaf, 'shape', ()))}"
                 )
-        return self._run_window(
+        reports = self._run_window(
             self._place(model_args),
             {**self._train_kwargs, **self._place(model_kwargs or {})},
             self._place(loss_args))
+        self._maybe_auto_save()
+        return reports
 
     def train_steps(self, model_args: Any, loss_args: Any = (),
                     model_kwargs: Optional[dict] = None,
@@ -435,6 +465,8 @@ class Stoke:
             reports.append(self._run_window(
                 _leading(margs, sl), _leading(mkwargs, sl),
                 _leading(loss_args, sl)))
+        # a save boundary crossed inside the segment is saved at its end
+        self._maybe_auto_save(window=n)
         return tree_map(lambda *r: torch.stack(r), *reports)
 
     def reset(self) -> None:
@@ -445,12 +477,377 @@ class Stoke:
         self._pending = None
         self._reset_tracking_window()
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError(f"Stoke.save is not ported yet: {_LATER_IO}")
+    # ------------------------------------------------------------------ #
+    # checkpoints
+    # ------------------------------------------------------------------ #
 
-    def load(self, *args, **kwargs):
-        raise NotImplementedError(f"Stoke.load is not ported yet: {_LATER_IO}")
+    def _param_names(self) -> Dict[torch.Tensor, str]:
+        """Each optimizer parameter's name in the module (raises for a
+        parameter the module does not hold)."""
+        names = {p: n for n, p in self._module.named_parameters()}
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p not in names:
+                    raise ValueError(
+                        "Stoke -- the optimizer holds a parameter the "
+                        "model does not; a checkpoint keys optimizer "
+                        "state by the model's parameter names"
+                    )
+        return names
 
+    def _opt_checkpoint(self, names: Dict[torch.Tensor, str]):
+        """``(arrays, values, groups)``: every tensor of the optimizer's
+        state keyed ``"{parameter name}/{state key}"``, its other state
+        values keyed alike, and its param groups with the parameters by
+        name (all of ``optimizer.state_dict()``)."""
+        arrays, values = {}, {}
+        for p, state in self.optimizer.state.items():
+            for key, v in state.items():
+                (arrays if torch.is_tensor(v) else values)[
+                    f"{names[p]}/{key}"] = v
+        groups = [{**{k: (v.detach().cpu().clone() if torch.is_tensor(v)
+                          else copy.deepcopy(v))
+                      for k, v in g.items() if k != "params"},
+                   "params": [names[p] for p in g["params"]]}
+                  for g in self.optimizer.param_groups]
+        return arrays, values, groups
+
+    def save(self, path: str, name: str = "stoke",
+             extras: Optional[Dict[str, Any]] = None) -> str:
+        """Write a checkpoint under ``path`` (the tag directory
+        ``stoke-{name}-backward-step-{n}``) as ``CheckpointConfig``
+        says (``async_save``: written on a background thread; see
+        :meth:`wait_for_checkpoint`). It holds the module's state dict,
+        the optimizer's state, the scaler state, the counters, the status
+        dict, ``extras``, the dropout generator's state and, mid-window,
+        the accumulated gradients. Returns the tag directory."""
+        return self._save_with_config(
+            path, name, self._status_obj.checkpoint_config, extras)
+
+    def _save_with_config(self, path: str, name: str,
+                          config: CheckpointConfig,
+                          extras: Optional[Dict[str, Any]]) -> str:
+        names = self._param_names()
+        arrays, values, groups = self._opt_checkpoint(names)
+        grad_buf = None
+        if self._grad_accum_counter > 0:
+            grad_buf = {names[p]: p.grad for p in self._engine.params
+                        if p.grad is not None}
+        return io_ops.save_checkpoint(
+            path=path, name=name,
+            state={
+                "variables": self._module.state_dict(),
+                "opt_state": arrays,
+                "scaler_state": dict(self._engine.scaler),
+                "grad_buf": grad_buf,
+            },
+            counters={
+                "backward_step": self._backward_steps,
+                "grad_accum_step": self._grad_accum_counter,
+                "optimizer_step": self._optimizer_steps,
+            },
+            status=self._status_obj.to_dict(),
+            extras=extras, config=config,
+            backward_step=self._backward_steps,
+            port_state={
+                "param_groups": groups, "opt_values": values,
+                "generator": self._generator.get_state().numpy(),
+                "generator_device": self._device.type,
+            },
+        )
+
+    def _opt_spec(self, params: Dict[str, torch.Tensor]):
+        """``spec(name)`` of the optimizer's arrays: None for a parameter
+        the optimizer does not hold or a state key its live state lacks;
+        the live state tensor's where there is one; for an optimizer that
+        has not stepped yet, a scalar fp32 ``step`` or a tensor shaped like
+        its parameter."""
+        held = {p for g in self.optimizer.param_groups for p in g["params"]}
+
+        def spec(key: str) -> io_ops.Spec:
+            pname, _, skey = key.rpartition("/")
+            p = params.get(pname)
+            if p is None or p not in held:
+                return None
+            state = self.optimizer.state.get(p, {})
+            if state and skey not in state:
+                return None
+            if torch.is_tensor(state.get(skey)):
+                return io_ops.spec_of(state[skey])
+            if skey == "step":
+                return (), np.dtype(np.float32)
+            return io_ops.spec_of(p)
+        return spec
+
+    def load(self, path: str, tag: Optional[str] = None,
+             name: str = "stoke") -> Dict[str, Any]:
+        """Restore a checkpoint: the newest tag of ``name`` under ``path``,
+        or ``tag``. Every array is checked by name, shape and dtype
+        against the live state first (``ValueError`` naming the first that
+        differs), then copied into the live tensors (so a window captured
+        as a CUDA graph replays from the loaded state), and the counters
+        are restored. A tag saved mid-window restores the accumulated
+        gradients and the window's counter; one without them restarts the
+        window from zero. Returns the tag's extras."""
+        sd = self._module.state_dict()
+        params = dict(self._module.named_parameters())
+        scaler = self._engine.scaler
+
+        def like(tensors):
+            return lambda n: (io_ops.spec_of(tensors[n]) if n in tensors
+                              else None)
+
+        payload = io_ops.load_checkpoint(
+            path, tag,
+            {"variables": (like(sd), sd.keys()),
+             "opt_state": (self._opt_spec(params), ()),
+             "scaler_state": (like(scaler), scaler.keys()),
+             "grad_buf": (like(params), ())},
+            name=name if tag is None else None)
+        port = payload["port"]
+        self._check_param_groups(port.get("param_groups"))
+        with torch.no_grad():
+            for n, a in payload["variables"].items():
+                sd[n].copy_(io_ops.from_numpy(a, sd[n].dtype))
+            for n, a in payload["scaler_state"].items():
+                scaler[n].copy_(io_ops.from_numpy(a, scaler[n].dtype))
+            self._restore_optimizer(payload["opt_state"], port, params)
+            grads = payload["grad_buf"]
+            for n, p in params.items():
+                if grads is None or n not in grads:
+                    p.grad = None
+                else:
+                    g = io_ops.from_numpy(grads[n], p.dtype).to(p.device)
+                    if p.grad is not None and p.grad.shape == p.shape:
+                        p.grad.copy_(g)
+                    else:
+                        p.grad = g
+        if port.get("generator_device") == self._device.type:
+            self._generator.set_state(torch.from_numpy(port["generator"]))
+        counters = payload["counters"]
+        self._backward_steps = counters["backward_step"]
+        self._optimizer_steps = counters["optimizer_step"]
+        self._grad_accum_counter = (counters["grad_accum_step"]
+                                    if grads is not None else 0)
+        self._pending = None
+        return payload.get("extras") or {}
+
+    def _check_param_groups(self, saved: Optional[List[dict]]) -> None:
+        """Raise ``ValueError`` when the tag's param groups are not the
+        live optimizer's: another count, other parameters, or other
+        hyperparameter keys (another optimizer class)."""
+        if saved is None:
+            return
+        names = self._param_names()
+        live = self.optimizer.param_groups
+        if len(saved) != len(live):
+            raise ValueError(
+                f"Stoke -- checkpoint opt_state has {len(saved)} param "
+                f"groups; the optimizer has {len(live)}")
+        for i, (a, b) in enumerate(zip(saved, live)):
+            if a["params"] != [names[p] for p in b["params"]]:
+                raise ValueError(
+                    f"Stoke -- checkpoint opt_state param group {i} holds "
+                    f"other parameters than the optimizer's")
+            keys = set(a) ^ set(b)
+            if keys:
+                raise ValueError(
+                    f"Stoke -- checkpoint opt_state param group {i} differs "
+                    f"from the optimizer's in {sorted(keys)[0]!r} (written "
+                    f"by another optimizer?)")
+
+    def _restore_optimizer(self, arrays: Dict[str, np.ndarray],
+                           port: Dict[str, Any],
+                           params: Dict[str, torch.Tensor]) -> None:
+        """The optimizer's state and param groups from a checkpoint: into
+        the live state tensors by ``copy_`` where they exist with the same
+        shape and dtype; state the live optimizer lacks is created (on the
+        parameter's device; a ``step`` count stays on the CPU unless the
+        group is capturable or fused, as ``torch.optim`` keeps it) and the
+        captured windows, which hold the old tensors' addresses, are
+        dropped."""
+        opt = self.optimizer
+        owner = {p: g for g in opt.param_groups for p in g["params"]}
+        wanted: Dict[torch.Tensor, Dict[str, Any]] = {p: {} for p in owner}
+        for key, a in arrays.items():
+            pname, _, skey = key.rpartition("/")
+            wanted[params[pname]][skey] = a
+        for key, v in port.get("opt_values", {}).items():
+            pname, _, skey = key.rpartition("/")
+            if pname in params:
+                wanted[params[pname]][skey] = v
+        rebound = False
+        for p, want in wanted.items():
+            live = opt.state[p] if p in opt.state else {}
+            for skey in [k for k in live if k not in want]:
+                del live[skey]
+                rebound = True
+            for skey, v in want.items():
+                if not isinstance(v, np.ndarray):
+                    live[skey] = v
+                    continue
+                cur = live.get(skey)
+                dtype = (p.dtype if (v.shape, v.dtype) == io_ops.spec_of(p)
+                         else torch.from_numpy(np.empty(0, v.dtype)).dtype)
+                if torch.is_tensor(cur) and io_ops.spec_of(cur) == (
+                        v.shape, v.dtype):
+                    cur.copy_(io_ops.from_numpy(v, cur.dtype))
+                    continue
+                group = owner[p]
+                on_cpu = skey == "step" and not (group.get("capturable")
+                                                 or group.get("fused"))
+                live[skey] = io_ops.from_numpy(v, dtype).to(
+                    "cpu" if on_cpu else p.device, copy=True)
+                rebound = True
+            if live:
+                opt.state[p] = live
+            elif p in opt.state:
+                del opt.state[p]
+        for group, saved in zip(opt.param_groups,
+                                port.get("param_groups", ())):
+            for k, v in saved.items():
+                if k == "params" or k in _DEVICE_FLAGS:
+                    continue
+                cur = group.get(k)
+                if torch.is_tensor(cur) and torch.is_tensor(v):
+                    cur.copy_(v)
+                else:
+                    group[k] = v
+        if rebound:
+            self._engine.drop_windows()
+
+    def wait_for_checkpoint(self) -> None:
+        """Block until the async saves in flight have finished; raise if
+        one failed (its partial tag is removed)."""
+        io_ops.wait_for_saves()
+
+    def maybe_resume(self, path: Optional[str] = None) -> bool:
+        """Load the newest tag of ``CheckpointConfig.auto_name`` under
+        ``path`` (default ``CheckpointConfig.auto_path``) if there is one.
+        Returns whether one was loaded; with the periodic auto-save this
+        makes a training loop restart-safe."""
+        cfg = self._status_obj.checkpoint_config
+        target = path or cfg.auto_path
+        if not target:
+            return False
+        try:
+            self.load(target, name=cfg.auto_name)
+            return True
+        except FileNotFoundError:
+            return False
+
+    def resume(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"Stoke.resume (verified resume, emergency saves) is not ported "
+            f"yet: {_LATER_RESUME}")
+
+    @staticmethod
+    def _crossed_boundary(steps: int, every: int, window: int) -> bool:
+        """Whether a multiple of ``every`` lies in ``(steps - window,
+        steps]``: a path that advanced the step count by ``window``
+        crossed a boundary."""
+        return steps > 0 and steps // every > (steps - window) // every
+
+    def _maybe_auto_save(self, window: int = 1) -> None:
+        """Save under ``CheckpointConfig.auto_path`` when the last
+        ``window`` optimizer steps crossed a multiple of
+        ``save_every_n_steps``."""
+        cfg = self._status_obj.checkpoint_config
+        if (cfg.save_every_n_steps and cfg.auto_path
+                and self._crossed_boundary(self._optimizer_steps,
+                                           cfg.save_every_n_steps, window)):
+            self.save(cfg.auto_path, name=cfg.auto_name)
+
+    # ------------------------------------------------------------------ #
+    # serving and the step's cost
+    # ------------------------------------------------------------------ #
+
+    def serve(self, **overrides):
+        """A :class:`~stoke_tpu_torch.serving.ServingEngine` over this
+        run's GPT and its current weights, on this run's device.
+
+        Needs a ``ServeConfig`` in ``Stoke(configs=[...])`` (else
+        ``StokeValidationError``) and a
+        :class:`~stoke_tpu_torch.models.gpt.GPT` model (else
+        ``TypeError``). ``overrides`` replace ``ServeConfig`` fields for
+        this engine only and are checked by the same serve rules. The
+        engine serves a copy of the model and its weights: training on
+        does not change an engine already built (build another to serve
+        newer weights)."""
+        from stoke_tpu_torch.models.gpt import GPT
+        from stoke_tpu_torch.serving.engine import ServingEngine
+
+        scfg = self._status_obj.serve_config
+        if scfg is None:
+            raise StokeValidationError(
+                "Stoke.serve() requires a ServeConfig — add one to "
+                "Stoke(configs=[ServeConfig(...)]) (the serving stack is "
+                "opt-in; docs/serving.md)"
+            )
+        if overrides:
+            scfg = dataclasses.replace(scfg, **overrides)
+            StokeStatus(batch_size_per_device=self.batch_size,
+                        device=self._status_obj.device, configs=[scfg])
+        if not isinstance(self._module, GPT):
+            raise TypeError(
+                f"Stoke.serve() serves GPT models (the paged-KV decode "
+                f"forward lives in models/gpt.py); this facade wraps "
+                f"{type(self._module).__name__}"
+            )
+        # the copy shares the Stoke's dropout generator (eval mode draws
+        # nothing from it) and nothing else
+        shared = {id(m.generator): m.generator
+                  for m in self._module.modules()
+                  if isinstance(m, Dropout) and m.generator is not None}
+        model = copy.deepcopy(self._module, memo=shared)
+        return ServingEngine(model, model.state_dict(), scfg,
+                             device=self._device)
+
+    def estimate_step_flops(self, model_args: Any,
+                            loss_args: Any = ()) -> float:
+        """FLOPs of one training step on these inputs, by
+        ``torch.utils.flop_counter.FlopCounterMode``: the products and
+        convolutions of the forward and the backward (the optimizer's
+        elementwise update has no FLOP formula there), with the flash
+        kernels counted by their formula whether the kernels or their
+        plain versions run. The run's state is as it was afterwards: the
+        gradients, buffers, scaler state and dropout generator are put
+        back, and no counter moves."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        if not isinstance(model_args, tuple):
+            model_args = (model_args,)
+        if not isinstance(loss_args, tuple):
+            loss_args = (loss_args,)
+        margs, largs = self._place(model_args), self._place(loss_args)
+        params = self._engine.params
+        grads = [p.grad for p in params]
+        buffers = {n: b.clone() for n, b in self._module.named_buffers()}
+        scaler = {k: v.clone() for k, v in self._engine.scaler.items()}
+        rng = self._generator.get_state()
+        training = self.training
+        self._module.train()
+        try:
+            for p in params:
+                p.grad = None
+            with FlopCounterMode(display=False) as counter:
+                self._engine.accum(margs, dict(self._train_kwargs), largs)
+        finally:
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.grad = g
+                for n, b in self._module.named_buffers():
+                    b.copy_(buffers[n])
+                for k, v in scaler.items():
+                    self._engine.scaler[k].copy_(v)
+            self._generator.set_state(rng)
+            self._module.train(training)
+        return float(counter.get_total_flops())
+
+    def estimate_step_cost(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"Stoke.estimate_step_cost (the cost card) is not ported yet: "
+            f"{_LATER_COST}")
     # ------------------------------------------------------------------ #
     # loss tracking (device tensors; read on the host only when asked)
     # ------------------------------------------------------------------ #
@@ -491,6 +888,120 @@ class Stoke:
             return None
         return float(self._agg_loss) / self._agg_count
 
+    def reset_ema(self) -> None:
+        """Restart the loss EMA (the next loss seeds it)."""
+        self._rolling_mean_loss = None
+
+    def reset_tracking(self) -> None:
+        """Clear the loss tracking and the step counters; the partial
+        gradient window goes with them."""
+        self.reset_ema()
+        self.reset()
+        self._last_step_loss = None
+        self._optimizer_steps = 0
+        self._backward_steps = 0
+
+    def detach_and_sync_loss(self, loss: Any,
+                             user_reduction: str = "mean") -> float:
+        """The host float of a loss (a tensor, or a tuple, list or dict of
+        them: their sum). On one process the value is already the whole
+        batch's; ``user_reduction`` ("mean" or "sum") says how the loss
+        function reduces over the batch, which matters only across
+        processes, and is checked."""
+        if user_reduction not in ("mean", "sum"):
+            raise ValueError(
+                f"user_reduction must be 'mean' or 'sum', got "
+                f"{user_reduction!r}"
+            )
+        return float(sum(torch.as_tensor(l).detach().float()
+                         for l in tree_leaves(loss)))
+
+    def print_ema_loss(self, prepend_msg: str = "EMA Loss") -> None:
+        self.print_on_devices(f"{prepend_msg}: {self.ema_loss:.6f}")
+
+    def print_mean_accumulated_synced_loss(
+            self, prepend_msg: str = "Mean accumulated loss") -> None:
+        v = self.mean_accumulated_loss
+        self.print_on_devices(f"{prepend_msg}: {v:.6f}" if v is not None
+                              else f"{prepend_msg}: n/a")
+
+    def print_synced_loss(self, loss: Any, prepend_msg: str = "Step loss",
+                          scale_by_accum: bool = True) -> None:
+        """Print a loss from :meth:`loss`, times ``grad_accum`` (the
+        undivided micro loss) unless ``scale_by_accum=False``."""
+        v = self.detach_and_sync_loss(loss)
+        if scale_by_accum:
+            v *= self._status_obj.grad_accum
+        self.print_on_devices(f"{prepend_msg}: {v:.6f}")
+
+    # ------------------------------------------------------------------ #
+    # ranks and printing (one process: rank 0 of 1)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    @property
+    def is_rank_0(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def world_size(self) -> int:
+        return self._status_obj.world_size or 1
+
+    @property
+    def n_processes(self) -> int:
+        return 1
+
+    def print_on_devices(self, msg: str, rank: Optional[int] = 0) -> None:
+        """Print on process ``rank``, or on every process with None."""
+        if rank is None or self.rank == rank:
+            unrolled_print(f"(rank {self.rank}) {msg}")
+
+    def info(self, msg: str) -> None:
+        if self.is_rank_0:
+            unrolled_print(f"INFO: {msg}")
+
+    def warn(self, msg: str) -> None:
+        if self.is_rank_0:
+            unrolled_print(f"WARN: {msg}")
+
+    def barrier(self) -> None:
+        """Synchronise the processes; one process has no one to wait
+        for."""
+
+    def block_until_ready(self) -> None:
+        """Wait for the card's queued work (nothing to wait for on the
+        CPU)."""
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+
+    def print_status(self) -> None:
+        """Print the run's status, one line a flag or config."""
+        if self.is_rank_0:
+            unrolled_print(repr(self._status_obj).splitlines())
+
+    def num_model_parameters(
+            self, normalize: Optional[ParamNormalize] = None) -> float:
+        """The model's parameter count (parameters, not buffers: a
+        BatchNorm's running statistics do not count), divided by
+        ``normalize``'s value when given."""
+        n = tree_count_params(list(self._module.parameters()))
+        return n / normalize.value if normalize is not None else n
+
+    def print_num_model_parameters(
+            self, normalize: Optional[ParamNormalize] = None) -> None:
+        n = self.num_model_parameters(normalize)
+        suffix = f" ({normalize.name})" if normalize else ""
+        self.print_on_devices(f"Model parameters: {n}{suffix}")
+
+    def dump_model_parameter_info(self) -> None:
+        """Print each parameter's name, shape and dtype."""
+        for name, p in self._module.named_parameters():
+            self.print_on_devices(
+                f"param {name}: shape={tuple(p.shape)} dtype={p.dtype}")
+
     # ------------------------------------------------------------------ #
     # data
     # ------------------------------------------------------------------ #
@@ -516,6 +1027,10 @@ class Stoke:
     @property
     def model_access(self) -> nn.Module:
         return self._module
+
+    @property
+    def loss_access(self) -> Callable:
+        return self._engine.loss_fn
 
     @property
     def optimizer(self) -> torch.optim.Optimizer:
@@ -596,6 +1111,10 @@ class Stoke:
     @property
     def precision_config(self) -> PrecisionConfig:
         return self._status_obj.precision_config
+
+    @property
+    def checkpoint_config(self) -> CheckpointConfig:
+        return self._status_obj.checkpoint_config
 
     @property
     def oss(self) -> bool:

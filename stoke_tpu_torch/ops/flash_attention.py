@@ -19,7 +19,14 @@ kernel in either package: it is plain PyTorch on both devices.
 :func:`flash_attention` is differentiable: two ``torch.autograd.Function``
 s, one per ``return_lse`` (the JAX package's ``_flash`` and
 ``_flash_with_lse`` with their VJP rules), run the forward kernel and, in
-backward, the dQ and dK/dV kernels from the saved LSE rows.
+backward, the dQ and dK/dV kernels from the saved LSE rows. A kernel
+launched through ``ctypes`` dispatches no aten op, so under a
+``TorchDispatchMode`` (``torch.utils.flop_counter.FlopCounterMode``) the
+forward and backward go through the custom ops
+``stoke_tpu_torch::flash_fwd`` and ``stoke_tpu_torch::flash_bwd``, which
+the mode sees as one op each and counts by the FLOP formula registered
+for them: that of dense attention (two ``[L, L]`` products forward, four
+backward, the causal half not taken off), whichever version runs inside.
 
 The public wrappers keep the JAX package's names and layouts:
 :func:`flash_attention` on ``[B, H, L, D]`` with a ``[B, L]`` key mask, and
@@ -34,8 +41,11 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from stoke_tpu_torch.ops import _build
 
@@ -376,21 +386,86 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, do, dlse, causal: bool):
                                bound))
 
 
-def _flash_forward(q, k, v, mask, causal: bool):
+def _flash_forward_direct(q, k, v, mask, causal: bool):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, causal)
     return _flash_fwd_cuda(q, k, v, mask, causal)
 
 
-def _flash_backward(ctx, do, dlse):
-    q, k, v, mask, out, lse = ctx.saved_tensors
+def _flash_backward_direct(q, k, v, mask, out, lse, do, dlse, causal: bool):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask, out, lse, do, dlse,
-                                         ctx.causal)
+                                         causal)
     # dO reaches here through the heads' transpose back to [B, L, H*D],
     # so it is often a strided view; the kernels take contiguous rows
     return _flash_bwd_cuda(q, k, v, mask, out, lse, do.contiguous(), dlse,
-                           ctx.causal)
+                           causal)
+
+
+@torch.library.custom_op("stoke_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor],
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, lse = _flash_forward_direct(q, k, v, mask, causal)
+    return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, mask, causal):
+    B, H, L, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, L), dtype=torch.float32)
+
+
+@torch.library.custom_op("stoke_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], out: torch.Tensor,
+                  lse: torch.Tensor, do: torch.Tensor,
+                  dlse: Optional[torch.Tensor], causal: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dq, dk, dv = _flash_backward_direct(q, k, v, mask, out, lse, do, dlse,
+                                        causal)
+    return dq, dk, dv
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, mask, out, lse, do, dlse, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.stoke_tpu_torch.flash_fwd)
+def _flash_fwd_flops(q, k, v, mask, causal, out_shape=None) -> int:
+    """Dense attention's forward: ``Q K^T`` and ``P V``."""
+    B, H, L, D = q
+    return 4 * B * H * L * k[2] * D
+
+
+@register_flop_formula(torch.ops.stoke_tpu_torch.flash_bwd)
+def _flash_bwd_flops(q, k, v, mask, out, lse, do, dlse, causal,
+                     out_shape=None) -> int:
+    """Dense attention's backward: ``dP``, ``dV``, ``dQ`` and ``dK``."""
+    B, H, L, D = q
+    return 8 * B * H * L * k[2] * D
+
+
+def _watched() -> bool:
+    """Whether a ``TorchDispatchMode`` (a FLOP counter) is active: the
+    flash calls then go through the custom ops it can see."""
+    return _get_current_dispatch_mode() is not None
+
+
+def _flash_forward(q, k, v, mask, causal: bool):
+    if _watched():
+        return torch.ops.stoke_tpu_torch.flash_fwd(q, k, v, mask, causal)
+    return _flash_forward_direct(q, k, v, mask, causal)
+
+
+def _flash_backward(ctx, do, dlse):
+    q, k, v, mask, out, lse = ctx.saved_tensors
+    if _watched():
+        return torch.ops.stoke_tpu_torch.flash_bwd(q, k, v, mask, out, lse,
+                                                   do, dlse, ctx.causal)
+    return _flash_backward_direct(q, k, v, mask, out, lse, do, dlse,
+                                  ctx.causal)
 
 
 class _Flash(torch.autograd.Function):

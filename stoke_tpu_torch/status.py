@@ -1,31 +1,41 @@
 """State and validation layer of the port: ``StokeStatus``.
 
 Counterpart of ``stoke_tpu/status.py:74-210`` and its properties
-(``:1626-1720``) for one device: the flags become one validated status
+(``:1626-1790``) for one device: the flags become one validated status
 before any device work happens. Enum values are coerced with the JAX
 package's aliases and "valid options" messages, configs are deduplicated
 by class name, and the combination rules that apply to one device are
-checked in the same order.
+checked in the same order, the checkpoint rules (``:857-903``) and the
+serve rules (:func:`serve_config_error`) with the JAX package's messages.
+``to_dict`` and ``__repr__`` (``:1870-1887``) give the JAX keys and values
+over the flags and config classes the port has; a checkpoint's
+``meta.json`` carries the dict.
 
-Flags and configs of later slices pass the same legality rules first and
-are then refused with ``NotImplementedError`` naming their ROADMAP item:
-``distributed`` and the oss/sddp/fsdp tiers, and every config class other
-than ``PrecisionConfig``, ``ClipGradConfig`` and ``ClipGradNormConfig``.
-fp16 (with per-loss scalers when ``PrecisionConfig.num_losses > 1``) is
-legal.
+The configs it takes: ``PrecisionConfig``, ``ClipGradConfig``,
+``ClipGradNormConfig``, ``CheckpointConfig`` and ``ServeConfig``. Flags and
+settings of later slices pass the same legality rules first and are then
+refused with ``NotImplementedError`` naming their ROADMAP item:
+``distributed`` and the oss/sddp/fsdp tiers (item 5), the sharded
+checkpoint format (item 6b) and offload staging (item 9). fp16 (with
+per-loss scalers when ``PrecisionConfig.num_losses > 1``) is legal.
 
-:func:`serve_config_error` holds the serving rules of chunked prefill, the
-sampling knobs and speculative decoding (``stoke_tpu/status.py:1101-1149``,
-``:1206-1261``) with the JAX package's messages; ``ServingEngine`` checks
-its config with it.
+:func:`serve_config_error` holds the serving rules (``stoke_tpu/status.py
+:1038-1261``) with the JAX package's messages, but for the rule that
+refuses the TPU decode kernel on the CPU (the port's decode kernel runs
+its plain version there); ``ServingEngine`` and ``Stoke.serve`` check
+their config with it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
+from enum import Enum
 from typing import Any, Dict, Optional, Sequence, Union
 
 from stoke_tpu_torch.configs import (
+    CheckpointConfig,
+    CheckpointFormat,
     ClipGradConfig,
     ClipGradNormConfig,
     DeviceOptions,
@@ -36,12 +46,21 @@ from stoke_tpu_torch.configs import (
 )
 
 _LATER_DISTRIBUTED = "ROADMAP Queue 1 item 5 (the DP / ZeRO ladder)"
-_LATER_CONFIGS = "ROADMAP Queue 1 item 2f (the remaining status rules)"
+_LATER_SHARDED_IO = (
+    "ROADMAP Queue 1 item 6b (the sharded checkpoint format and "
+    "multi-process gathers)"
+)
+_LATER_STAGING = "ROADMAP Queue 1 item 9 (offload and resilience)"
 
-#: the config classes this slice takes, by class name
-CONFIG_CLASSES = (PrecisionConfig, ClipGradConfig, ClipGradNormConfig)
-#: config classes of the port that the facade does not take yet
-_LATER_CONFIG_CLASSES = (ServeConfig,)
+#: the config classes the port takes, by class name
+CONFIG_CLASSES = (PrecisionConfig, ClipGradConfig, ClipGradNormConfig,
+                  CheckpointConfig, ServeConfig)
+
+# the JAX package's serving vocabularies (stoke_tpu/configs.py:1357-1366)
+SERVE_ATTENTION_KERNELS = ("dense", "flash")
+SERVE_DECODE_KERNELS = ("reference", "pallas")
+SERVE_QUANT_MODES = ("none", "bf16", "int8")
+SERVE_KV_DTYPES = ("float32", "bfloat16")
 
 
 class StokeValidationError(ValueError):
@@ -135,6 +154,8 @@ class StokeStatus:
             "sddp": bool(sddp),
             "fsdp": bool(fsdp),
             "world_size": None,
+            "n_devices": None,
+            "n_processes": None,
             "effective_batch_size": None,
         }
         self._check_all_raised_combinations()
@@ -145,10 +166,6 @@ class StokeStatus:
         out: Dict[str, Any] = {}
         for cfg in configs or ():
             name = type(cfg).__name__
-            if isinstance(cfg, _LATER_CONFIG_CLASSES):
-                raise NotImplementedError(
-                    f"Stoke -- {name} is not ported yet: {_LATER_CONFIGS}"
-                )
             if not isinstance(cfg, CONFIG_CLASSES):
                 raise StokeValidationError(
                     f"Unrecognized config object of type {name}; expected "
@@ -164,7 +181,8 @@ class StokeStatus:
 
     def _rules(self):
         """(predicate, message) pairs; a truthy predicate is an illegal
-        combination (the one-device rows of the JAX package's table)."""
+        combination (the one-device rows of the JAX package's table), and
+        a predicate that returns a string names the rule itself."""
         pc = self._configs.get("PrecisionConfig")
         return [
             (lambda s: s["batch_size_per_device"] is None
@@ -198,13 +216,61 @@ class StokeStatus:
             (lambda s: s["fsdp"] and (s["oss"] or s["sddp"]),
              "fsdp (fully-sharded) already shards optimizer state and "
              "gradients; combining with oss/sddp is illegal"),
+            (self._checkpoint_invalid, "CheckpointConfig is invalid"),
+            (lambda s: "ServeConfig" in self._configs and serve_config_error(
+                self._configs["ServeConfig"]), "ServeConfig is invalid"),
         ]
+
+    def _checkpoint_invalid(self, s):
+        """The JAX checkpoint rules (``stoke_tpu/status.py:857-903``): the
+        periodic save must be able to fire, ``save_rank`` is a rank, and
+        offload staging is for async consolidated saves only."""
+        cfg = self._configs.get("CheckpointConfig")
+        if cfg is None:
+            return False
+        if cfg.save_every_n_steps is not None:
+            if cfg.save_every_n_steps < 1:
+                return (
+                    f"CheckpointConfig.save_every_n_steps must be "
+                    f">= 1 or None, got {cfg.save_every_n_steps}"
+                )
+            if not cfg.auto_path:
+                return (
+                    "CheckpointConfig.save_every_n_steps is set but "
+                    "auto_path is not — the periodic auto-save would "
+                    "silently never write; set auto_path or drop the "
+                    "cadence"
+                )
+        if cfg.save_rank < 0:
+            return (
+                f"CheckpointConfig.save_rank must be >= 0 (taken "
+                f"modulo the process count), got {cfg.save_rank}"
+            )
+        if not cfg.offload_staging:
+            return False
+        if not cfg.async_save:
+            return (
+                "CheckpointConfig.offload_staging requires "
+                "async_save=True — staging hands device references to "
+                "the background writer; a synchronous save has none. "
+                "Enable async_save or drop offload_staging"
+            )
+        if cfg.format is CheckpointFormat.sharded:
+            return (
+                "CheckpointConfig.offload_staging applies to the "
+                "consolidated format only — the sharded (orbax) async "
+                "path stages its own device→host copy. Use "
+                "format='consolidated' or drop offload_staging"
+            )
+        return False
 
     def _check_all_raised_combinations(self) -> None:
         for predicate, message in self._rules():
-            if predicate(self._status):
+            result = predicate(self._status)
+            if result:
+                msg = result if isinstance(result, str) else message
                 raise StokeValidationError(
-                    f"Stoke -- illegal combination: {message}"
+                    f"Stoke -- illegal combination: {msg}"
                 )
 
     def _refuse_later_slices(self) -> None:
@@ -215,16 +281,27 @@ class StokeStatus:
             ("oss/sddp/fsdp", s["oss"] or s["sddp"] or s["fsdp"],
              _LATER_DISTRIBUTED),
         ]
+        ckpt = self._configs.get("CheckpointConfig")
+        if ckpt is not None:
+            later += [
+                ("CheckpointConfig(format='sharded')",
+                 ckpt.format is CheckpointFormat.sharded, _LATER_SHARDED_IO),
+                ("CheckpointConfig(offload_staging=True)",
+                 ckpt.offload_staging, _LATER_STAGING),
+            ]
         for what, on, item in later:
             if on:
                 raise NotImplementedError(
                     f"Stoke -- {what} is not ported yet: {item}"
                 )
 
-    def set_post_init_values(self, world_size: int) -> None:
-        """Record the device count once the engine exists; the effective
-        batch is per-device batch x devices x grad_accum."""
+    def set_post_init_values(self, world_size: int,
+                             n_processes: int = 1) -> None:
+        """Record the device and process counts once the engine exists;
+        the effective batch is per-device batch x devices x grad_accum."""
         self._status["world_size"] = world_size
+        self._status["n_devices"] = world_size
+        self._status["n_processes"] = n_processes
         self._status["effective_batch_size"] = (
             self._status["batch_size_per_device"] * world_size
             * self._status["grad_accum"]
@@ -286,18 +363,95 @@ class StokeStatus:
     def world_size(self) -> Optional[int]:
         return self._status["world_size"]
 
+    def _get_or_default(self, cls):
+        if cls.__name__ not in self._configs:
+            self._configs[cls.__name__] = cls()
+        return self._configs[cls.__name__]
+
     @property
     def precision_config(self) -> PrecisionConfig:
-        if "PrecisionConfig" not in self._configs:
-            self._configs["PrecisionConfig"] = PrecisionConfig()
-        return self._configs["PrecisionConfig"]
+        return self._get_or_default(PrecisionConfig)
+
+    @property
+    def checkpoint_config(self) -> CheckpointConfig:
+        return self._get_or_default(CheckpointConfig)
+
+    @property
+    def serve_config(self) -> Optional[ServeConfig]:
+        """None unless supplied (serving is opt-in; only ``Stoke.serve``
+        reads it)."""
+        return self._configs.get("ServeConfig")
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The status as JSON-friendly values, with the JAX package's keys
+        and values (a checkpoint's ``meta.json`` carries it): enums by
+        value, a clip config as ``{"type": name, **fields}``, and every
+        config supplied or read so far under ``configs``."""
+        out = {}
+        for k, v in self._status.items():
+            if isinstance(v, Enum):
+                v = v.value
+            elif isinstance(v, (ClipGradConfig, ClipGradNormConfig)):
+                v = {"type": type(v).__name__, **asdict_config(v)}
+            out[k] = v
+        out["configs"] = {k: asdict_config(v)
+                          for k, v in self._configs.items()}
+        return out
+
+    def __repr__(self) -> str:
+        lines = ["Stoke -- Status:"]
+        for k, v in self.to_dict().items():
+            lines.append(f"  {k}: {v}")
+        return "\n".join(lines)
+
+
+def asdict_config(cfg: Any) -> Dict[str, Any]:
+    """A config dataclass as a plain dict with enums by value."""
+    if cfg is None:
+        return {}
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        out[f.name] = v.value if isinstance(v, Enum) else v
+    return out
 
 
 def serve_config_error(cfg: ServeConfig) -> Optional[str]:
-    """The first rule of chunked prefill, the sampling knobs or speculative
-    decoding that ``cfg`` breaks, as the JAX package's message, or None.
-    Knobs that a disabled feature would silently ignore are rejected, never
-    ignored."""
+    """The first serve rule that ``cfg`` breaks, as the JAX package's
+    message, or None: sizes, kernel and dtype names, the block knobs,
+    chunked prefill, the sampling knobs, quantization, the pool's
+    capacity, SLO targets and speculative decoding, in the JAX package's
+    order. Knobs that a disabled feature would silently ignore are
+    rejected, never ignored."""
+    for field in ("max_seqs", "kv_block_size", "max_seq_len",
+                  "max_new_tokens", "prefill_pad_multiple",
+                  "log_every_n_steps"):
+        if getattr(cfg, field) < 1:
+            return (
+                f"ServeConfig.{field} must be >= 1, got "
+                f"{getattr(cfg, field)}"
+            )
+    if cfg.attention not in SERVE_ATTENTION_KERNELS:
+        return (
+            f"ServeConfig.attention {cfg.attention!r} unknown; "
+            f"valid: {list(SERVE_ATTENTION_KERNELS)}"
+        )
+    if cfg.decode_kernel not in SERVE_DECODE_KERNELS:
+        return (
+            f"ServeConfig.decode_kernel {cfg.decode_kernel!r} "
+            f"unknown; valid: {list(SERVE_DECODE_KERNELS)}"
+        )
+    for field in ("decode_pages_per_block", "decode_block_h"):
+        v = getattr(cfg, field)
+        if v is not None and v < 1:
+            return f"ServeConfig.{field} must be >= 1 when set, got {v}"
+        if v is not None and cfg.decode_kernel != "pallas":
+            return (
+                f"ServeConfig.{field}={v} set but decode_kernel="
+                f"{cfg.decode_kernel!r} — only the pallas "
+                f"streaming kernel reads the block knobs; set "
+                f"decode_kernel='pallas' or drop the knob"
+            )
     if cfg.prefill_chunk_tokens is not None:
         c = cfg.prefill_chunk_tokens
         if c < 1:
@@ -334,6 +488,56 @@ def serve_config_error(cfg: ServeConfig) -> Optional[str]:
             "sampling=False — the greedy programs would silently ignore "
             "them; set sampling=True or drop the knobs"
         )
+    if cfg.quant not in SERVE_QUANT_MODES:
+        return (
+            f"ServeConfig.quant {cfg.quant!r} unknown; valid: "
+            f"{list(SERVE_QUANT_MODES)}"
+        )
+    if cfg.kv_dtype not in SERVE_KV_DTYPES:
+        return (
+            f"ServeConfig.kv_dtype {cfg.kv_dtype!r} unknown; "
+            f"valid: {list(SERVE_KV_DTYPES)}"
+        )
+    if cfg.quant_chunk_elems < 1:
+        return (
+            f"ServeConfig.quant_chunk_elems must be >= 1, got "
+            f"{cfg.quant_chunk_elems}"
+        )
+    if cfg.quant_min_size < 0:
+        return (
+            f"ServeConfig.quant_min_size must be >= 0 (leaves "
+            f"below it stay unquantized), got {cfg.quant_min_size}"
+        )
+    if cfg.eos_id is not None and cfg.eos_id < 0:
+        return (
+            f"ServeConfig.eos_id must be a token id >= 0 when "
+            f"set (None = run to the token cap), got {cfg.eos_id}"
+        )
+    if cfg.prefill_pad_multiple > cfg.max_seq_len:
+        return (
+            f"ServeConfig.prefill_pad_multiple "
+            f"{cfg.prefill_pad_multiple} exceeds max_seq_len "
+            f"{cfg.max_seq_len} — every padded prompt would be "
+            f"rejected"
+        )
+    if cfg.kv_blocks is not None:
+        need = -(-cfg.max_seq_len // cfg.kv_block_size) + 1
+        if cfg.kv_blocks < need:
+            return (
+                f"ServeConfig.kv_blocks={cfg.kv_blocks} cannot "
+                f"hold one max_seq_len={cfg.max_seq_len} sequence "
+                f"(needs {need} blocks of {cfg.kv_block_size} "
+                f"tokens incl. the reserved scratch block 0) — no "
+                f"request could ever be admitted"
+            )
+    for field in ("slo_ttft_target_s", "slo_tpot_target_s"):
+        v = getattr(cfg, field)
+        if v is not None and not v > 0.0:
+            return (
+                f"ServeConfig.{field} must be > 0 seconds when "
+                f"set, got {v} (None = requests carry their own "
+                f"RequestSLO targets)"
+            )
     k = cfg.speculative_k
     if k is not None:
         if k < 1:

@@ -44,7 +44,11 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.models.basic",
                                     "stoke_tpu_torch.models.resnet",
                                     "stoke_tpu_torch.models.vit",
-                                    "stoke_tpu_torch.ops.chunked_ce"])
+                                    "stoke_tpu_torch.ops.chunked_ce",
+                                    "stoke_tpu_torch.io_ops",
+                                    "stoke_tpu_torch.utils",
+                                    "stoke_tpu_torch.utils.printing",
+                                    "stoke_tpu_torch.utils.trees"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"

@@ -25,6 +25,8 @@ from stoke_tpu_torch import (
     StokeValidationError,
 )
 from stoke_tpu_torch.configs import (
+    CheckpointConfig,
+    CheckpointFormat,
     DistributedOptions,
     PrecisionOptions,
     ServeConfig,
@@ -131,8 +133,17 @@ def test_unknown_and_later_configs():
 
     with pytest.raises(StokeValidationError, match="Unrecognized"):
         StokeStatus(batch_size_per_device=4, configs=[NotAConfig()])
-    with pytest.raises(NotImplementedError, match=LATER):
-        StokeStatus(batch_size_per_device=4, configs=[ServeConfig()])
+    # ServeConfig and CheckpointConfig are taken; the sharded format and
+    # offload staging pass the JAX rules, then wait for their items
+    serve = ServeConfig()
+    st = StokeStatus(batch_size_per_device=4, configs=[serve])
+    assert st.serve_config is serve
+    for cfg, item in ((CheckpointConfig(format=CheckpointFormat.sharded),
+                       "6b"),
+                      (CheckpointConfig(async_save=True,
+                                        offload_staging=True), "9")):
+        with pytest.raises(NotImplementedError, match=f"{LATER} {item} "):
+            StokeStatus(batch_size_per_device=4, configs=[cfg])
 
 
 def test_defaults_and_effective_batch():
@@ -214,7 +225,10 @@ def test_step_before_boundary_is_a_noop():
 
 
 def test_later_entry_points_raise():
+    # save and load landed with item 6a; verified resume and the cost card
+    # wait for items 9 and 10
     s = _stoke()
-    for call, item in ((s.save, "item 6"), (s.load, "item 6")):
+    for call, item in ((s.resume, "item 9"),
+                       (s.estimate_step_cost, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             call()
