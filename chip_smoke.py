@@ -127,6 +127,24 @@ Phases, one JSON line each; any failure exits nonzero:
    (``mfu``), and the memory format of the input, weights and output.
 12. train_vit: ViT-Base/16 at 224x224 in bf16 with AdamW, batch 64, 8
    eager ``train_step``s: the loss falls; step ms and peak memory.
+13. train_bert: BERT-base sequence classification (12 x 768, vocab
+   30522, max_len 512, 2 classes) built by ``stoke_from_config`` from a
+   dict (bf16, ``grad_accum=2``, clip norm 1.0, optax-named AdamW(1e-4),
+   a ``TensorboardConfig`` every 5 steps) over 8192 synthetic sequences of
+   long-tailed lengths 8-512 in a ``RaggedSequenceDataset(pad_multiple=32)``
+   under ``BucketedDistributedSampler(buckets=8, batch_size=32)``, each
+   batch gathered and padded by the C++ batcher: first the three flash
+   kernels at its attention shape (B=32, H=12, D=64, non-causal, the key
+   mask of a bucketed batch, bf16) at L 32, 96 and 512 against their plain
+   versions and SDPA with the same mask; then 40 four-call micro-steps
+   (20 optimizer steps): the loss falls below half of chance, every L a
+   multiple of 32 up to 512, 12 launches of each flash kernel a
+   micro-step, every batch assembled natively, the event file holds the
+   logged losses; step ms p50 by L, real and padded tokens/s, the
+   padding share of an epoch bucketed against shuffled, ``gather_pad`` ms native against numpy, peak
+   memory, a profiled step at L=512 with the flash kernels' share; then
+   fp32 through the kernels against dense attention for 3 optimizer steps
+   (losses within 1e-3).
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -138,6 +156,7 @@ from __future__ import annotations
 import ctypes
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -620,19 +639,20 @@ def check_verify(ops, gen, flush) -> list:
     return cases
 
 
-def sdpa_backward_ms(q, k, v, do, causal, flush) -> float:
+def sdpa_backward_ms(q, k, v, do, causal, flush, attn_mask=None) -> float:
     """SDPA's backward alone, timed with the L2 flushed (the library
     yardstick; the port never calls it): one forward outside the timer,
     then ``torch.autograd.grad`` of its output captured in a CUDA graph
     and replayed, so the events time the library's kernels and not the
-    card waiting for autograd's host work."""
+    card waiting for autograd's host work. ``attn_mask``: SDPA's boolean
+    mask (True = attend), for a non-causal masked case."""
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         # the backward runs on its forward's stream: the capture stream
         o = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=causal)
+            qs, ks, vs, attn_mask=attn_mask, is_causal=causal)
         for _ in range(3):
             torch.autograd.grad(o, (qs, ks, vs), do, retain_graph=True)
     graph = torch.cuda.CUDAGraph()
@@ -2353,6 +2373,439 @@ def train_vit(ops) -> dict:
 # --------------------------------------------------------------------------- #
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: BERT-base sequence classification on bucketed ragged batches
+# --------------------------------------------------------------------------- #
+
+
+BERT_SIZE = "base"
+BERT_VOCAB, BERT_MAX_LEN, BERT_CLASSES = 30522, 512, 2
+BERT_BATCH, BERT_PAD, BERT_BUCKETS, BERT_SEQS = 32, 32, 8, 8192
+BERT_MICRO = 40          # bf16 micro-steps: 20 optimizer steps
+BERT_PARITY_MICRO = 6    # fp32: 3 optimizer steps at grad_accum=2
+BERT_KERNEL_LENS = (32, 96, 512)
+BERT_MARKERS = 16        # first-token markers; the label is the marker's parity
+# the run as a document (``examples/bert_seqcls/train.py``'s flags); the
+# card machine may have no PyYAML, so a dict. The learning rate is BERT's
+# published pre-training rate, 1e-4: at the example's 3e-4 BERT-base
+# returns to chance (ln 2) within these 20 steps, in bf16 through the
+# kernels and in fp32 through dense attention alike, from either init
+# (``scripts/port_probe_bert.py --sweep``)
+BERT_DOC = {
+    "batch_size_per_device": BERT_BATCH, "grad_accum": 2, "precision": "bf16",
+    "grad_clip": {"type": "norm", "max_norm": 1.0},
+    "optimizer": {"name": "adamw", "learning_rate": 1.0e-4}, "seed": 0,
+}
+# BERT's published initializer: N(0, 0.02^2) weights and embeddings
+BERT_INIT_STD = 0.02
+
+
+def bert_corpus(n: int = BERT_SEQS, seed: int = SEED):
+    """The BERT example's synthetic data at BERT-base's length cap:
+    lengths ``(Pareto(2.5) + 1) x 8`` clipped to [8, 512], tokens uniform
+    in [5 + BERT_MARKERS, vocab); the first token is one of BERT_MARKERS
+    marker ids and the label its parity, so a model reading the [CLS]
+    row can learn the task within the phase."""
+    r = np.random.default_rng(seed)
+    lens = np.clip((r.pareto(2.5, size=n) + 1.0) * 8, 8,
+                   BERT_MAX_LEN).astype(int)
+    markers = r.integers(0, BERT_MARKERS, size=n)
+    seqs = []
+    for L, m in zip(lens, markers):
+        s = r.integers(5 + BERT_MARKERS, BERT_VOCAB, size=L).astype(np.int32)
+        s[0] = 5 + m
+        seqs.append(s)
+    return seqs, (markers % 2).astype(np.int64)
+
+
+def padded_len(lengths) -> int:
+    return -(-int(np.max(lengths)) // BERT_PAD) * BERT_PAD
+
+
+def padding_share(lengths, batches) -> float:
+    """Pad tokens over all tokens when each batch pads to its longest,
+    rounded up to BERT_PAD."""
+    real = pad = 0
+    for idx in batches:
+        n = int(lengths[idx].sum())
+        real += n
+        pad += padded_len(lengths[idx]) * len(idx) - n
+    return pad / (pad + real)
+
+
+def gather_pad_ms(ds, batches, native: bool) -> float:
+    """Host ms a batch of ``gather_pad`` (the C++ batcher or numpy)."""
+    from stoke_tpu_torch.native import NativeBatcher
+
+    b = NativeBatcher(native=native)
+    t0 = time.perf_counter()
+    for idx in batches:
+        b.gather_pad(ds.ragged, ds.offsets, ds.lengths, idx,
+                     pad_multiple=BERT_PAD)
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    b.close()
+    return ms
+
+
+def bert_kernel_masks(lengths, batches) -> dict:
+    """For each L of BERT_KERNEL_LENS, ``(mask [32, L], source)``: the key
+    mask of a batch of the bucketed epoch padded to L, or, where none is
+    (the Pareto tail seldom reaches 512), the epoch's longest batch with
+    its lengths stretched so that its longest is L."""
+    by_len = {}
+    for idx in batches:
+        by_len.setdefault(padded_len(lengths[idx]), idx)
+    longest = by_len[max(by_len)]
+    out = {}
+    for L in BERT_KERNEL_LENS:
+        if L in by_len:
+            lens, source = lengths[by_len[L]], "epoch batch"
+        else:
+            base = lengths[longest].astype(np.float64)
+            lens = np.maximum(1, np.round(base * L / base.max())).astype(int)
+            source = f"longest batch ({max(by_len)}) stretched"
+        mask = (np.arange(L)[None] < np.asarray(lens)[:, None]).astype(
+            np.int32)
+        out[L] = (torch.from_numpy(mask).cuda(), source)
+    return out
+
+
+def enqueue_ms(fn, n: int = 20) -> float:
+    """Host ms a call of ``fn`` spends before it returns (its launches
+    enqueued, the card not waited for): a wrapper's host work, such as
+    the tensor maps the 16-bit flash kernels encode for each call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def bert_kernel_case(ops, gen, flush, mask, source: str) -> dict:
+    """The three flash kernels at BERT-base's attention shape in bf16:
+    B=32, H=12, D=64, non-causal, ``mask`` [32, L] from a bucketed batch.
+    The forward against ``flash_attention_plain`` within FWD_ATOL_BF16;
+    dQ, dK and dV against ``flash_attention_bwd_plain`` within
+    BWD_RTOL_BF16 of the largest element and BWD_ROW_RTOL_BF16 a row
+    (``bwd_row_err``), masked keys exactly 0 in dK and dV; each timed
+    beside its plain version and SDPA with the same boolean mask (the
+    backward: SDPA's backward alone, replayed from a graph)."""
+    dev = torch.device("cuda")
+    B, L = mask.shape
+    q, k, v, do = (torch.randn(B, HEADS, L, HEAD_DIM, generator=gen,
+                               device=dev).to(BF16) for _ in range(4))
+    out, lse = ops.flash_attention(q, k, v, mask, causal=False,
+                                   return_lse=True)
+    ref_out, ref_lse = ops.flash_attention_plain(q, k, v, mask, False)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = ops.flash_bwd_dq(q, k, v, mask, do, lse, delta, False)
+    dk, dv = ops.flash_bwd_dkv(q, k, v, mask, do, lse, delta, False)
+    ref = ops.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, None,
+                                        False)
+    torch.cuda.synchronize()
+    name = f"bert flash L={L} bf16 non-causal masked"
+    fwd_err = max(max_err(out, ref_out), max_err(lse, ref_lse))
+    if not (torch.isfinite(out).all() and fwd_err <= ops.FWD_ATOL_BF16):
+        raise AssertionError(f"{name}: forward |kernel - plain| {fwd_err} > "
+                             f"{ops.FWD_ATOL_BF16}")
+    errs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                (dq, dk, dv), ref)}
+    tols = {n: ops.BWD_RTOL_BF16 * float(r.float().abs().max())
+            for n, r in zip(errs, ref)}
+    rows = {n: ops.bwd_row_err(a, b)
+            for n, a, b in zip(errs, (dq, dk, dv), ref)}
+    finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+    if (not finite or any(errs[n] > tols[n] for n in errs)
+            or max(rows.values()) > ops.BWD_ROW_RTOL_BF16):
+        raise AssertionError(f"{name}: backward |kernel - plain| {errs} "
+                             f"(bounds {tols}), rows {rows} (bound "
+                             f"{ops.BWD_ROW_RTOL_BF16}), finite {finite}")
+    dead = (mask == 0)[:, None, :, None]
+    if bool((dk * dead).abs().max() > 0) or bool((dv * dead).abs().max() > 0):
+        raise AssertionError(f"{name}: masked keys have nonzero dK or dV")
+    allow = mask[:, None, None, :] > 0
+    pairs = HEADS * allowed_pairs(B, L, mask, False)
+    tile = B * HEADS * L * HEAD_DIM * q.element_size()
+    stats = 2 * B * HEADS * L * 4
+    mask_bytes = mask.numel() * 4
+    bf = bound_ms(4 * tile + B * HEADS * L * 4 + mask_bytes,
+                  4.0 * HEAD_DIM * pairs, BF16)
+    bq = bound_ms(5 * tile + stats + mask_bytes, 6.0 * HEAD_DIM * pairs, BF16)
+    bkv = bound_ms(6 * tile + stats + mask_bytes, 8.0 * HEAD_DIM * pairs,
+                   BF16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {
+        "B": B, "L": L, "D": HEAD_DIM, "causal": False, "masked": True,
+        "mask_source": source, "dtype": "bfloat16",
+        "real_keys_share": float(mask.float().mean()),
+        "fwd": {"max_abs_err": fwd_err, "atol": ops.FWD_ATOL_BF16,
+                "ms": time_ms(lambda: ops.flash_attention(
+                    q, k, v, mask, causal=False), 20, flush),
+                "plain_ms": time_ms(lambda: ops.flash_attention_plain(
+                    q, k, v, mask, False), 5, flush),
+                "library_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=allow),
+                                      20, flush),
+                "enqueue_ms": enqueue_ms(lambda: ops.flash_attention(
+                    q, k, v, mask, causal=False)),
+                "bound_ms": bf[0], "bound_by": bf[1]},
+        "bwd": {"max_abs_err": errs, "tol": tols, "row_rel_err": rows,
+                "dq_ms": time_ms(lambda: ops.flash_bwd_dq(
+                    q, k, v, mask, do, lse, delta, False), 10, flush),
+                "dkv_ms": time_ms(lambda: ops.flash_bwd_dkv(
+                    q, k, v, mask, do, lse, delta, False), 10, flush),
+                "plain_ms": time_ms(lambda: ops.flash_attention_bwd_plain(
+                    q, k, v, mask, out, lse, do, None, False), 5, flush),
+                "library_ms": sdpa_backward_ms(q, k, v, do, False, flush,
+                                               attn_mask=allow),
+                "enqueue_ms": {
+                    "dq": enqueue_ms(lambda: ops.flash_bwd_dq(
+                        q, k, v, mask, do, lse, delta, False)),
+                    "dkv": enqueue_ms(lambda: ops.flash_bwd_dkv(
+                        q, k, v, mask, do, lse, delta, False))},
+                "dq_bound_ms": bq[0], "dq_bound_by": bq[1],
+                "dkv_bound_ms": bkv[0], "dkv_bound_by": bkv[1]},
+    }
+
+
+@torch.no_grad()
+def bert_init_(model, seed: int, std: float = BERT_INIT_STD) -> None:
+    """BERT's published initialization (Devlin et al. 2019,
+    ``initializer_range``): weights and embeddings from N(0, std^2),
+    biases 0, LayerNorm scale 1, drawn by a generator seeded with
+    ``seed``."""
+    gen = torch.Generator(device=model.pooler.weight.device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        if ".ln_" in name:
+            p.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, std, generator=gen)
+
+
+def bert_base(attention: str, init_seed: int = SEED, init: str = "bert"):
+    """BERT-base at its published widths (12 x 768, 12 heads, ff 3072,
+    vocab 30522, max_len 512), 2 classes, on the card, weights seeded by
+    ``init_seed`` from BERT's initializer (``init="bert"``) or flax's
+    defaults (``"flax"``, the JAX module's); dropout 0 (the flash kernels
+    take no dropout of the attention probabilities); ``attention``
+    "flash" (non-causal, the padding mask as the key mask) or "dense"."""
+    from stoke_tpu_torch.models.bert import (
+        BertForSequenceClassification,
+        dense_attention,
+    )
+    from stoke_tpu_torch.ops import make_flash_attention
+
+    model = BertForSequenceClassification(
+        vocab_size=BERT_VOCAB, num_classes=BERT_CLASSES, size_name=BERT_SIZE,
+        max_len=BERT_MAX_LEN, dropout_rate=0.0,
+        attention_fn=(make_flash_attention(causal=False)
+                      if attention == "flash" else dense_attention),
+        device="cuda")
+    if init == "bert":
+        bert_init_(model, init_seed)
+    else:
+        model.init_weights(init_seed)
+    return model
+
+
+def bert_loss(logits, labels):
+    return torch.nn.functional.cross_entropy(logits.float(), labels)
+
+
+def bert_micro_step(stoke, batch, labels) -> float:
+    """The four calls on one micro-batch; returns the undivided loss."""
+    loss = stoke.loss(stoke.model(batch["input_ids"],
+                                  batch["attention_mask"]), labels)
+    stoke.backward(loss)
+    stoke.step()
+    return float(loss) * stoke.grad_accum
+
+
+def train_bert(ops) -> dict:
+    """BERT-base sequence classification end to end: a document through
+    ``stoke_from_config``, ragged batches gathered and padded by the
+    native batcher in the bucketed sampler's order, the flash kernels
+    non-causal under the padding mask at ragged L, the four calls."""
+    import tempfile
+
+    from stoke_tpu_torch.data import (
+        BucketedDistributedSampler,
+        RaggedSequenceDataset,
+    )
+    from stoke_tpu_torch.native import NativeBatcher
+    from stoke_tpu_torch.utils.tb_writer import read_scalar_events
+    from stoke_tpu_torch.utils.yaml_config import stoke_from_config
+
+    t_phase = time.perf_counter()
+    seqs, labels = bert_corpus()
+    ds = RaggedSequenceDataset(seqs, labels, pad_multiple=BERT_PAD)
+    sampler = BucketedDistributedSampler(
+        ds, buckets=BERT_BUCKETS, batch_size=BERT_BATCH,
+        sorted_idx=ds.sorted_idx(), num_replicas=1, rank=0, seed=SEED,
+        info_rank=-1)
+    epoch = np.fromiter(iter(sampler), np.int64).reshape(-1, BERT_BATCH)
+    shuffled = np.random.default_rng(SEED).permutation(len(ds))
+    shuffled = shuffled[:len(ds) // BERT_BATCH * BERT_BATCH].reshape(
+        -1, BERT_BATCH)
+    if not NativeBatcher().available:
+        raise AssertionError("the C++ batcher did not build (g++)")
+    padding = {"bucketed": padding_share(ds.lengths, epoch),
+               "shuffled": padding_share(ds.lengths, shuffled),
+               "epoch_padded_lens": sorted({padded_len(ds.lengths[i])
+                                            for i in epoch})}
+    gather = {"native_ms": gather_pad_ms(ds, epoch[:64], True),
+              "numpy_ms": gather_pad_ms(ds, epoch[:64], False)}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    cases = [bert_kernel_case(ops, gen, flush, mask, source) for mask, source
+             in bert_kernel_masks(ds.lengths, epoch).values()]
+    del flush
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="stoke-bert-tb-") as tb_dir:
+        doc = {**BERT_DOC, "configs": {"TensorboardConfig": {
+            "output_path": tb_dir, "log_every_n_steps": 5}}}
+        stoke = stoke_from_config(bert_base("flash"), bert_loss, None, doc)
+        loader = stoke.DataLoader(ds, sampler=sampler)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses, times, lens, real = [], [], [], []
+        for i, (batch, y) in enumerate(loader):
+            if i == BERT_MICRO:
+                break
+            t0 = time.perf_counter()
+            losses.append(bert_micro_step(stoke, batch, y))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            lens.append(int(batch["input_ids"].shape[1]))
+            real.append(int(batch["attention_mask"].sum()))
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        native_batches = loader.native_batches
+        stoke._tb_writer.flush()
+        events = [e for f in sorted(os.listdir(os.path.join(tb_dir, "stoke")))
+                  for e in read_scalar_events(os.path.join(tb_dir, "stoke",
+                                                           f))]
+        steps = stoke.optimizer_steps
+        # one optimizer step (two micro-steps) at L=512, profiled
+        mask512 = bert_kernel_masks(ds.lengths, epoch)[512][0]
+        ids512 = torch.randint(5, BERT_VOCAB, mask512.shape, device="cuda",
+                               dtype=torch.int32, generator=gen) * mask512
+        y512 = torch.zeros(BERT_BATCH, dtype=torch.int64, device="cuda")
+        batch512 = {"input_ids": ids512, "attention_mask": mask512}
+        profile = profile_step(lambda: [bert_micro_step(stoke, batch512, y512)
+                                        for _ in range(2)])
+        del stoke, loader
+    torch.cuda.empty_cache()
+
+    want = N_LAYERS * BERT_MICRO
+    if any(launches[n] != want for n in FLASH):
+        raise AssertionError(f"train_bert launches {launches}: each flash "
+                             f"kernel {want} times ({N_LAYERS} layers x "
+                             f"{BERT_MICRO} micro-steps)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_bert: non-finite loss {losses}")
+    if not np.mean(losses[-5:]) < min(np.mean(losses[:5]), 0.5 * np.log(2)):
+        raise AssertionError(f"train_bert: the loss did not fall below the "
+                             f"first five's mean and half of chance (ln 2): "
+                             f"{losses}")
+    if any(L % BERT_PAD or L > BERT_MAX_LEN for L in lens):
+        raise AssertionError(f"train_bert: batch lengths {lens}")
+    if native_batches < BERT_MICRO:
+        raise AssertionError(f"train_bert: {native_batches} batches "
+                             f"assembled natively, expected >= {BERT_MICRO}")
+    if steps != BERT_MICRO // 2:
+        raise AssertionError(f"train_bert: {steps} optimizer steps")
+    logged = {(t, s): v for t, v, s in events}
+    want_steps = list(range(5, steps + 1, 5))
+    for s in want_steps:
+        micro = np.float32(losses[2 * s - 1])
+        if logged.get(("loss/micro", s)) != float(micro) or not np.isfinite(
+                logged.get(("loss/ema", s), np.nan)):
+            raise AssertionError(f"train_bert: event file at step {s}: "
+                                 f"{logged.get(('loss/micro', s))} against "
+                                 f"the micro loss {float(micro)}")
+
+    parity = bert_parity(ops, ds, sampler)
+    timed = slice(WARMUP_STEPS, None)
+    by_len = {}
+    for L, t in zip(lens[timed], times[timed]):
+        by_len.setdefault(L, []).append(t * 1e3)
+    total = sum(times[timed])
+    return {
+        "phase": "train_bert",
+        "model": "BERT-base seq-cls (12 x 768, 12 heads, ff 3072, vocab "
+        "30522, max_len 512, 2 classes), bf16 over fp32 masters, flash "
+        "attention non-causal under the padding mask, AdamW(1e-4) from a "
+        "document (stoke_from_config), clip norm 1.0, grad_accum 2, BERT's "
+        "N(0, 0.02) init",
+        "batch": BERT_BATCH, "micro_steps": BERT_MICRO,
+        "optimizer_steps": steps, "document": BERT_DOC,
+        "sequences": BERT_SEQS, "buckets": BERT_BUCKETS,
+        "losses": losses, "batch_lens": lens, "launches": launches,
+        "native_batches": native_batches,
+        "logged_steps": want_steps,
+        "step_ms_p50_by_len": {str(L): float(np.median(v))
+                               for L, v in sorted(by_len.items())},
+        "steps_by_len": {str(L): len(v) for L, v in sorted(by_len.items())},
+        "real_tokens_per_s": sum(real[timed]) / total,
+        "padded_tokens_per_s": BERT_BATCH * sum(lens[timed]) / total,
+        "padding_share": padding, "gather_pad": gather,
+        "max_memory_allocated_gib": peak / 2**30,
+        "profile_l512": {
+            **profile,
+            "flash_share_of_kernels": (
+                profile["attention_kernels_ms"] / profile["device_ms"]
+                if isinstance(profile.get("device_ms"), float)
+                else "not measured")},
+        "kernel_cases": cases, "parity": parity,
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
+def bert_parity(ops, ds, sampler) -> dict:
+    """BERT-base in fp32 for 3 optimizer steps (grad_accum=2) on the
+    bucketed epoch's first batches, through the flash kernels (3xTF32) and
+    through dense attention, from the same seeded weights: the losses
+    within PARITY_RTOL relative."""
+    from stoke_tpu_torch.data import StokeDataLoader
+    from stoke_tpu_torch.utils.yaml_config import stoke_from_config
+
+    sampler.set_epoch(1)
+    batches = []
+    for i, b in enumerate(StokeDataLoader(ds, BERT_BATCH, device="cuda",
+                                          sampler=sampler)):
+        if i == BERT_PARITY_MICRO:
+            break
+        batches.append(b)
+    runs, launches = {}, {}
+    for attention in ("flash", "dense"):
+        stoke = stoke_from_config(bert_base(attention), bert_loss, None,
+                                  {**BERT_DOC, "precision": None})
+        ops.reset_launches()
+        runs[attention] = [bert_micro_step(stoke, b, y) for b, y in batches]
+        launches[attention] = {n: ops.LAUNCHES[n] for n in FLASH}
+        del stoke
+        torch.cuda.empty_cache()
+    want = N_LAYERS * BERT_PARITY_MICRO
+    if any(launches["flash"][n] != want for n in FLASH) or any(
+            launches["dense"].values()):
+        raise AssertionError(f"bert parity launches {launches}")
+    rel = rel_diff(runs["flash"], runs["dense"])
+    if not rel <= PARITY_RTOL:
+        raise AssertionError(f"bert parity: kernels {runs['flash']} vs "
+                             f"dense {runs['dense']}: {rel} > {PARITY_RTOL}")
+    return {"precision": "fp32", "micro_steps": BERT_PARITY_MICRO,
+            "batch_lens": [int(b["input_ids"].shape[1]) for b, _ in batches],
+            "losses_kernels": runs["flash"], "losses_dense": runs["dense"],
+            "max_rel_diff": rel, "rtol": PARITY_RTOL, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2431,9 +2884,12 @@ def main() -> int:
     emit({**train_resnet50(ops), "card": smi})
     torch.cuda.empty_cache()
     emit({**train_vit(ops), "card": smi})
+    torch.cuda.empty_cache()
+    bert = train_bert(ops)
+    emit({**bert, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
-            fp32=None):
+            fp32=None, bert_key=None):
         out = {
             "name": name, "route": "cuda",
             "source": f"stoke_tpu_torch/csrc/{source}.cu",
@@ -2447,6 +2903,19 @@ def main() -> int:
             out.update(fp32_ms=fp32[f"{key}ms"],
                        fp32_bound_ms=fp32[f"{key}bound_ms"],
                        fp32_library_ms=fp32["library_ms"])
+        if bert_key is not None:  # train_bert's path and shapes (bf16)
+            part, k = bert_key
+            grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]
+            out["launches_train_bert"] = bert["launches"][name]
+            out["bert"] = [
+                {"L": c["L"], "ms": c[part][f"{k}ms"],
+                 "bound_ms": c[part][f"{k}bound_ms"],
+                 "bound_by": c[part][f"{k}bound_by"],
+                 "library_ms": c[part]["library_ms"],
+                 "max_abs_err": (c[part]["max_abs_err"] if grads is None
+                                 else max(c[part]["max_abs_err"][n]
+                                          for n in grads))}
+                for c in bert["kernel_cases"]]
         return out
 
     # the training path's shape: L=1024, D=64, bf16 (and fp32)
@@ -2477,20 +2946,20 @@ def main() -> int:
             trained["launches"]["flash_fwd"],
             max(x["max_abs_err"] for x in flash if x not in fwd16),
             flash_main,
-            fp32=flash_fp32),
+            fp32=flash_fp32, bert_key=("fwd", "")),
         row("flash_bwd_dq", "flash_bwd",
             ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:210",
             trained["launches"]["flash_bwd_dq"],
             max(x["max_abs_err"]["dq"] for x in flash_bwd if x not in bwd16),
-            bwd_main, "dq_", bwd_fp32),
+            bwd_main, "dq_", bwd_fp32, bert_key=("bwd", "dq_")),
         row("flash_bwd_dkv", "flash_bwd",
             ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:246",
             trained["launches"]["flash_bwd_dkv"],
             max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
                 for x in flash_bwd if x not in bwd16), bwd_main, "dkv_",
-            bwd_fp32),
+            bwd_fp32, bert_key=("bwd", "dkv_")),
         row("flash_fwd_fp16", "flash_fwd", ["flash_fwd_wgmma_kernel<__half>"],
             "stoke_tpu/ops/flash_attention.py:70",
             fp16["launches"]["flash_fwd"],

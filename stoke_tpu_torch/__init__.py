@@ -15,6 +15,12 @@ What it covers so far:
   with its dynamic loss scaler (``Stoke.loss_scale``,
   ``Stoke.skipped_optimizer_steps``), with :class:`StokeDataLoader`;
   flash attention's forward and backward on the CUDA kernels;
+- every config class and status rule of the JAX package (the port
+  honours the precision, clip, checkpoint, serve and TensorBoard configs
+  and refuses the others naming their ROADMAP item), a run described as a
+  YAML document or dict (:func:`stoke_tpu_torch.utils.stoke_from_config`),
+  and ragged token sequences batched by the C++ batcher under
+  :class:`BucketedDistributedSampler`;
 - checkpoints on one device (``Stoke.save`` / ``load`` /
   ``maybe_resume``, async and periodic saves by
   :class:`CheckpointConfig`; :mod:`stoke_tpu_torch.io_ops`), a JAX
@@ -23,7 +29,8 @@ What it covers so far:
   ``Stoke.serve()`` over the run's GPT;
 - the models (:mod:`stoke_tpu_torch.models`): GPT (with the chunked LM
   head, :func:`stoke_tpu_torch.ops.chunked_causal_lm_loss`), BasicNN,
-  ResNet-18 to -152 with flax's BatchNorm, and ViT, each loadable from the
+  ResNet-18 to -152 with flax's BatchNorm, ViT and BERT sequence
+  classification, each loadable from the
   JAX package's weights (:mod:`stoke_tpu_torch.convert`);
 - serving GPT through :class:`stoke_tpu_torch.serving.ServingEngine`
   (paged KV cache, continuous batching, sampling, chunked prefill and
@@ -36,19 +43,28 @@ from stoke_tpu_torch.configs import (
     ClipGradNormConfig,
     PrecisionConfig,
     StokeOptimizer,
+    TensorboardConfig,
 )
-from stoke_tpu_torch.data import ArrayDataset, StokeDataLoader
+from stoke_tpu_torch.data import (
+    ArrayDataset,
+    BucketedDistributedSampler,
+    RaggedSequenceDataset,
+    StokeDataLoader,
+)
 from stoke_tpu_torch.facade import Stoke
 from stoke_tpu_torch.status import StokeValidationError
 
 __all__ = [
     "ArrayDataset",
+    "BucketedDistributedSampler",
     "CheckpointConfig",
     "ClipGradConfig",
     "ClipGradNormConfig",
     "PrecisionConfig",
+    "RaggedSequenceDataset",
     "Stoke",
     "StokeDataLoader",
     "StokeOptimizer",
     "StokeValidationError",
+    "TensorboardConfig",
 ]

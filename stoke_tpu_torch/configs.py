@@ -1,26 +1,34 @@
-"""Configuration of the port: the option enums, the training configs the
-port takes (``PrecisionConfig``, ``ClipGradConfig``, ``ClipGradNormConfig``,
-``CheckpointConfig``, ``StokeOptimizer``), ``ServeConfig`` and
-``ParamNormalize``.
+"""Configuration of the port: the option enums, every config class of the
+JAX package (``ALL_CONFIG_CLASSES``), ``StokeOptimizer`` and
+``asdict_config``.
 
-Field names and defaults are those of ``stoke_tpu.configs``, so one config
-describes a run in either package. ``DeviceOptions`` is ``cpu`` or
-``cuda`` where the JAX package has ``cpu`` or ``tpu``.
+Field names, types and defaults are those of ``stoke_tpu.configs``, so one
+config describes a run in either package (and one YAML document builds
+both: :mod:`stoke_tpu_torch.utils.yaml_config`). ``DeviceOptions`` is
+``cpu`` or ``cuda`` where the JAX package has ``cpu`` or ``tpu``.
+
+The port honours ``PrecisionConfig``, ``ClipGradConfig``,
+``ClipGradNormConfig``, ``CheckpointConfig``, ``ServeConfig`` (read by
+``Stoke.serve``) and ``TensorboardConfig``. Every other class passes the
+JAX package's legality rules in :class:`~stoke_tpu_torch.status.StokeStatus`
+and is then refused with ``NotImplementedError`` naming the ROADMAP item
+that ports it, as each class's docstring says.
 
 ``ServeConfig`` describes a serve run. The port's
-:class:`~stoke_tpu_torch.serving.ServingEngine` serves the greedy path
-(paged KV cache, continuous batching, ``attention`` "dense" or "flash",
-``decode_kernel`` "reference" or "pallas"); the fields of features that
-later slices port (sampling, speculative decoding, chunked prefill,
-weight quantization, SLO and cost accounting) are kept so configs carry
-over, and the engine refuses them with ``NotImplementedError`` until then.
+:class:`~stoke_tpu_torch.serving.ServingEngine` serves the greedy,
+sampled and speculative paths (paged KV cache, continuous batching,
+chunked prefill, ``attention`` "dense" or "flash", ``decode_kernel``
+"reference" or "pallas"); weight quantization, SLO targets and cost cards
+are kept so configs carry over, and the engine refuses them with
+``NotImplementedError`` until their items land.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from enum import Enum
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 
 class DeviceOptions(Enum):
@@ -31,7 +39,7 @@ class DeviceOptions(Enum):
 
 
 class DistributedOptions(Enum):
-    """Distributed strategy: data parallelism (not ported yet)."""
+    """Distributed strategy: data parallelism (ROADMAP Queue 1 item 5)."""
 
     dp = "dp"
 
@@ -44,6 +52,24 @@ class PrecisionOptions(Enum):
     full = "full"
     bf16 = "bf16"
     fp16 = "fp16"
+
+
+class ShardingOptions(Enum):
+    """The sharding ladder (ZeRO-1/2/3) that the ``oss``, ``sddp`` and
+    ``fsdp`` flags select; the port refuses every rung but ``none`` until
+    ROADMAP Queue 1 item 5."""
+
+    none = "none"
+    oss = "oss"
+    sddp = "sddp"
+    fsdp = "fsdp"
+
+
+class LossReduction(Enum):
+    """How per-replica losses combine (``DataParallelConfig``)."""
+
+    mean = "mean"
+    sum = "sum"
 
 
 class ParamNormalize(Enum):
@@ -157,6 +183,14 @@ class StokeOptimizer(dict):
                                            **kwargs})
 
 
+#: the serving vocabularies ``ServeConfig`` takes (validated by the status
+#: layer)
+SERVE_ATTENTION_KERNELS: Tuple[str, ...] = ("dense", "flash")
+SERVE_DECODE_KERNELS: Tuple[str, ...] = ("reference", "pallas")
+SERVE_QUANT_MODES: Tuple[str, ...] = ("none", "bf16", "int8")
+SERVE_KV_DTYPES: Tuple[str, ...] = ("float32", "bfloat16")
+
+
 @dataclass
 class ServeConfig:
     """Serving engine configuration (continuous batching over a paged KV
@@ -223,3 +257,451 @@ class ServeConfig:
     verify_pages_per_block: Optional[int] = None
     verify_block_h: Optional[int] = None
     cost_cards: bool = False
+
+
+# --------------------------------------------------------------------------- #
+# data parallelism and the sharding ladder: ROADMAP Queue 1 item 5
+# --------------------------------------------------------------------------- #
+
+
+@dataclass
+class DataParallelConfig:
+    """Data-parallel knobs: the mesh axis batches and gradients shard over,
+    cross-replica BatchNorm statistics, how per-replica losses combine, and
+    an optional sequence-dimension sharding of the inputs. Refused until
+    ROADMAP Queue 1 item 5 (the DP / ZeRO ladder)."""
+
+    axis_name: str = "data"
+    sync_batch_stats: bool = True
+    loss_reduction: LossReduction = LossReduction.mean
+    convert_to_sync_batchnorm: bool = False
+    shard_seq_dim: Optional[int] = None
+    seq_axis_name: str = "seq"
+
+
+#: wire dtypes of the gradient transport (validated by the status layer)
+COMM_DTYPES: Tuple[str, ...] = ("fp32", "bf16", "int8")
+#: collective schedules of the gradient transport
+COMM_STRATEGIES: Tuple[str, ...] = ("rs_ag", "all_reduce")
+
+
+@dataclass
+class CommConfig:
+    """The quantized gradient transport: wire ``dtype`` ("fp32"
+    pass-through, "bf16" or "int8" with one fp32 scale a ``chunk_elems``
+    chunk), ``bucket_mb`` flat buckets, error feedback, the ``strategy``
+    ("rs_ag" or "all_reduce") and whether updates are sharded
+    (``shard_updates``; None resolves from the tier, see
+    :func:`comm_shard_updates`). Needs ``distributed='dp'``; refused until
+    ROADMAP Queue 1 item 7 (quantized gradient transports)."""
+
+    dtype: str = "fp32"
+    bucket_mb: float = 25.0
+    error_feedback: bool = True
+    strategy: str = "rs_ag"
+    chunk_elems: int = 512
+    stochastic_rounding: bool = True
+    shard_updates: Optional[bool] = None
+
+
+def comm_shard_updates(cfg: Optional["CommConfig"],
+                       tier: "ShardingOptions") -> bool:
+    """``CommConfig.shard_updates`` resolved against the sharding tier:
+    True when the apply boundary would run the sharded weight-update path
+    (sddp and fsdp by default), False for the replicated exchange, and
+    always False without a lossy transport (no config, or fp32)."""
+    if cfg is None or cfg.dtype == "fp32":
+        return False
+    if cfg.shard_updates is not None:
+        return bool(cfg.shard_updates)
+    return tier in (ShardingOptions.sddp, ShardingOptions.fsdp)
+
+
+@dataclass
+class MeshConfig:
+    """The device mesh: axis names, devices per axis (``-1`` inferred,
+    None a 1-D mesh on ``axes[0]``), an explicit device list and the axes
+    that cross hosts. Needs ``distributed='dp'``; refused until ROADMAP
+    Queue 1 item 5."""
+
+    axes: Tuple[str, ...] = ("data",)
+    shape: Optional[Tuple[int, ...]] = None
+    devices: Optional[Any] = None
+    dcn_axes: Tuple[str, ...] = ()
+
+
+@dataclass
+class DistributedInitConfig:
+    """Multi-process rendezvous (coordinator address, process count and
+    id, local devices, timeout). The port's counterpart is
+    ``torch.distributed.init_process_group``; refused until ROADMAP Queue 1
+    item 5."""
+
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    local_device_ids: Optional[Sequence[int]] = None
+    initialization_timeout: int = 300
+    auto_initialize: bool = True
+
+
+@dataclass
+class OSSConfig:
+    """Optimizer-state sharding (ZeRO-1): leaves under ``min_shard_size``
+    elements stay replicated. Refused until ROADMAP Queue 1 item 5."""
+
+    min_shard_size: int = 2**10
+
+
+@dataclass
+class SDDPConfig:
+    """Gradient and optimizer-state sharding (ZeRO-2). Refused until
+    ROADMAP Queue 1 item 5."""
+
+    min_shard_size: int = 2**10
+    broadcast_buffers: bool = True
+
+
+@dataclass
+class FSDPConfig:
+    """Fully sharded parameters (ZeRO-3): parameters under
+    ``min_weight_size`` stay replicated; ``shard_axis_preference``
+    "largest" or "first". Refused until ROADMAP Queue 1 item 5 (FSDP2's
+    ``fully_shard``)."""
+
+    min_weight_size: int = 2**10
+    shard_axis_preference: str = "largest"
+    reshard_after_forward: bool = True
+
+
+@dataclass
+class PartitionRulesConfig:
+    """Tensor-parallel partition rules, ``(path_regex, spec)`` pairs with
+    one mesh axis name (or None, or a tuple of names, or "...") per
+    dimension. Needs ``distributed='dp'``; refused until ROADMAP Queue 1
+    item 8 (model parallelism through DTensor)."""
+
+    rules: Tuple[Tuple[str, Tuple], ...] = ()
+
+
+# --------------------------------------------------------------------------- #
+# offload and activation checkpointing
+# --------------------------------------------------------------------------- #
+
+
+@dataclass
+class OffloadOptimizerConfig:
+    """Optimizer state kept in pinned host memory between steps (ZeRO
+    offload). Refused until ROADMAP Queue 1 item 9 (offload and
+    resilience)."""
+
+    pin_memory: bool = True
+    fallback_to_device: bool = True
+
+
+@dataclass
+class OffloadParamsConfig:
+    """fsdp-sharded parameters kept in pinned host memory between steps
+    (ZeRO-3 offload; needs ``fsdp=True``). Refused until ROADMAP Queue 1
+    item 9."""
+
+    pin_memory: bool = True
+    fallback_to_device: bool = True
+
+
+@dataclass
+class OffloadDiskConfig:
+    """Optimizer state spilled to memory-mapped files under ``path``
+    between steps (one offload tier: exclusive with
+    ``OffloadOptimizerConfig``). Refused until ROADMAP Queue 1 item 9."""
+
+    path: Optional[str] = None
+
+
+#: the rematerialization policies ``ActivationCheckpointingConfig`` names
+#: (the JAX package's ``jax.checkpoint_policies`` members it documents)
+REMAT_POLICIES: Tuple[str, ...] = (
+    "nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable",
+    "everything_saveable",
+)
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """Rematerialization of the model step under a saving ``policy`` (one
+    of :data:`REMAT_POLICIES`). Refused until ROADMAP Queue 1 item 13
+    (rematerialization): a recomputed block must replay the dropout masks
+    its forward drew from the Stoke generator."""
+
+    policy: str = "nothing_saveable"
+    prevent_cse: bool = True
+
+
+# --------------------------------------------------------------------------- #
+# observability: TensorBoard (honoured) and telemetry (ROADMAP item 10)
+# --------------------------------------------------------------------------- #
+
+
+@dataclass
+class TensorboardConfig:
+    """TensorBoard scalars, honoured: ``Stoke`` writes the loss metrics
+    (``loss/ema``, ``loss/micro``, under fp16 the loss scale and skipped
+    steps, ``counters/backward_steps``) every ``log_every_n_steps``
+    optimizer steps on rank 0 into ``output_path/job_name``
+    (:class:`~stoke_tpu_torch.utils.tb_writer.TBEventWriter`), and
+    ``Stoke.log_scalar`` writes user scalars. The device-to-host reads
+    happen at that cadence only."""
+
+    output_path: str = "tensorboard"
+    job_name: str = "stoke"
+    log_every_n_steps: int = 10
+
+
+@dataclass
+class TelemetryConfig:
+    """The telemetry pipeline: a metrics registry drained every
+    ``log_every_n_steps`` into JSONL step events, a Prometheus file and a
+    TensorBoard stream under ``output_dir``, with device-time samples,
+    gradient norms, compile and memory tracking and profiler annotations.
+    Refused until ROADMAP Queue 1 item 10 (telemetry)."""
+
+    output_dir: str = "telemetry"
+    run_name: str = "stoke"
+    log_every_n_steps: int = 10
+    jsonl: bool = True
+    jsonl_all_ranks: bool = False
+    prometheus: bool = True
+    prometheus_all_ranks: bool = False
+    tensorboard: bool = False
+    sample_device_time: bool = True
+    grad_norm: bool = False
+    track_compiles: bool = True
+    track_hbm: bool = True
+    xprof_annotations: bool = True
+
+
+@dataclass
+class TraceConfig:
+    """Host span tracing into a ring of ``ring_size`` spans, exported as
+    ``trace.rank<N>.json`` under ``output_dir``. Refused until ROADMAP
+    Queue 1 item 10."""
+
+    output_dir: str = "trace"
+    ring_size: int = 4096
+    export_on_close: bool = True
+
+
+#: actions a health detector may take when it fires
+HEALTH_ACTIONS: Tuple[str, ...] = ("record", "warn", "dump", "halt")
+
+
+@dataclass
+class HealthConfig:
+    """The training health monitor: per-step numerics sentinels, spike,
+    non-finite, scaler-skip, recompile-storm, starvation and residual
+    detectors (each with an action of :data:`HEALTH_ACTIONS`), a flight
+    recorder and a hang watchdog. Refused until ROADMAP Queue 1 item
+    10."""
+
+    sentinels: bool = True
+    ring_size: int = 256
+    bundle_dir: Optional[str] = None
+    detector_warmup_steps: int = 20
+    ema_alpha: float = 0.02
+    loss_spike_zscore: float = 6.0
+    loss_spike_action: str = "warn"
+    grad_spike_zscore: float = 6.0
+    grad_spike_action: str = "warn"
+    nonfinite_action: str = "dump"
+    scaler_skip_streak: int = 8
+    scaler_skip_action: str = "warn"
+    recompile_storm_threshold: int = 3
+    recompile_storm_window: int = 20
+    recompile_storm_action: str = "warn"
+    starvation_streak: int = 5
+    starvation_action: str = "record"
+    comm_residual_factor: float = 10.0
+    comm_residual_action: str = "warn"
+    max_dumps: int = 3
+    dump_on_exception: bool = True
+    dump_signals: bool = True
+    watchdog: bool = False
+    watchdog_timeout_s: float = 300.0
+    watchdog_compile_grace_s: float = 600.0
+    watchdog_kill: bool = False
+
+
+@dataclass
+class AttributionConfig:
+    """Step-time attribution: MFU and roofline gauges against
+    ``peak_tflops`` / ``peak_hbm_gbps`` / ``ici_gbps``, a goodput ledger
+    and anomaly-triggered profiler captures. Needs a ``TelemetryConfig``;
+    refused until ROADMAP Queue 1 item 10."""
+
+    peak_tflops: float = 0.0
+    peak_hbm_gbps: float = 0.0
+    ici_gbps: float = 0.0
+    ema_alpha: float = 0.1
+    auto_capture: bool = False
+    capture_mfu_below: float = 0.0
+    capture_step_zscore: float = 4.0
+    capture_warmup_windows: int = 5
+    capture_steps: int = 2
+    max_captures: int = 3
+    capture_action: str = "record"
+
+
+#: actions of the straggler detector ("halt" is excluded: a slow host is
+#: a diagnosis)
+FLEET_ACTIONS: Tuple[str, ...] = ("record", "warn", "dump")
+
+
+@dataclass
+class FleetConfig:
+    """Fleet observability: a cross-host exchange every ``window_steps``
+    optimizer steps, straggler detection and skew-reactive input
+    rebalancing (``rebalance``). Needs a ``TelemetryConfig``; refused
+    until ROADMAP Queue 1 item 10 (with the input rebalancer of item
+    4)."""
+
+    window_steps: int = 10
+    straggler_zscore: float = 3.0
+    straggler_rel_frac: float = 0.25
+    straggler_windows: int = 3
+    straggler_action: str = "warn"
+    rebalance: bool = False
+    rebalance_rows: int = 1
+    rebalance_max_frac: float = 0.25
+
+
+@dataclass
+class NumericsConfig:
+    """The per-layer numerics observatory: per-module gradient and update
+    statistics, NaN provenance and quantization-error attribution. Needs a
+    ``TelemetryConfig``; refused until ROADMAP Queue 1 item 10."""
+
+    grad_stats: bool = True
+    provenance_action: str = "warn"
+    wire_error: bool = True
+    per_group_jsonl: bool = True
+    top_k: int = 5
+
+
+@dataclass
+class MemoryConfig:
+    """The device-memory observatory: a per-subsystem ledger, an OOM
+    pre-flight at ``oom_margin_frac`` of ``capacity_bytes`` (None reads
+    the device) and per-program peaks. Needs a ``TelemetryConfig``;
+    refused until ROADMAP Queue 1 item 10."""
+
+    oom_margin_frac: float = 0.9
+    capacity_bytes: Optional[int] = None
+    program_peaks: bool = True
+    preflight: bool = True
+
+
+@dataclass
+class OpsPlaneConfig:
+    """The live ops plane: a read-only HTTP observatory on ``host:port +
+    rank`` (metrics, health, status, requests, trace, bounded profiles).
+    Needs a ``TelemetryConfig``; refused until ROADMAP Queue 1 item 10."""
+
+    port: int = 9200
+    host: str = "127.0.0.1"
+    profile_default_seconds: float = 2.0
+    profile_max_seconds: float = 30.0
+    requests_limit: int = 256
+
+
+@dataclass
+class ProfilerConfig:
+    """Profiling: traces into ``trace_dir``, a FLOP estimate of the step
+    and per-phase host timing of the facade's calls. The port's profiler
+    is ``torch.profiler``; refused until ROADMAP Queue 1 item 10."""
+
+    trace_dir: Optional[str] = None
+    flops_estimate: bool = False
+    wall_clock_breakdown: bool = False
+
+
+# --------------------------------------------------------------------------- #
+# resilience (ROADMAP item 9) and the compile cache (ROADMAP item 11)
+# --------------------------------------------------------------------------- #
+
+
+@dataclass
+class ResilienceConfig:
+    """Preemption-aware emergency checkpoints under ``save_path``, digest
+    manifests, verified resume with quarantine, and the ``STOKE_CHAOS``
+    fault injector (``chaos`` overrides the variable). Refused until
+    ROADMAP Queue 1 item 9 (offload and resilience)."""
+
+    save_path: str = "resilience_ckpts"
+    save_name: str = "emergency"
+    preempt_signals: Tuple[str, ...] = ("SIGTERM",)
+    exit_code: int = 114
+    exit_on_preempt: bool = True
+    manifest: bool = True
+    verify_on_resume: bool = True
+    quarantine: bool = True
+    max_to_keep: Optional[int] = 3
+    chaos: Optional[str] = None
+
+
+@dataclass
+class CompileConfig:
+    """A persistent compilation cache under ``cache_dir`` and a ledger of
+    ahead-of-time step programs. Refused until ROADMAP Queue 1 item 11
+    (compile cache, autotune and analysis)."""
+
+    cache_dir: str = "compile_cache"
+    aot: bool = True
+    xla_cache: bool = True
+    serialize_executables: bool = True
+    min_compile_time_s: float = 0.0
+
+
+#: every config class the status layer takes, by class name (the JAX
+#: package's tuple, in its order)
+ALL_CONFIG_CLASSES: Tuple[type, ...] = (
+    AttributionConfig,
+    PrecisionConfig,
+    ClipGradConfig,
+    ClipGradNormConfig,
+    CommConfig,
+    CompileConfig,
+    DataParallelConfig,
+    MeshConfig,
+    DistributedInitConfig,
+    OSSConfig,
+    SDDPConfig,
+    FSDPConfig,
+    OffloadOptimizerConfig,
+    OffloadParamsConfig,
+    OffloadDiskConfig,
+    PartitionRulesConfig,
+    ActivationCheckpointingConfig,
+    CheckpointConfig,
+    FleetConfig,
+    HealthConfig,
+    MemoryConfig,
+    NumericsConfig,
+    OpsPlaneConfig,
+    ProfilerConfig,
+    ResilienceConfig,
+    ServeConfig,
+    TelemetryConfig,
+    TensorboardConfig,
+    TraceConfig,
+)
+
+
+def asdict_config(cfg: Any) -> Dict[str, Any]:
+    """A config dataclass as a plain dict with enums by value."""
+    if cfg is None:
+        return {}
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        out[f.name] = v.value if isinstance(v, Enum) else v
+    return out

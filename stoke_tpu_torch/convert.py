@@ -4,10 +4,11 @@ Each function maps a flax variable tree, already turned into nested dicts
 of numpy arrays by the caller, onto the names of the port's module's
 ``state_dict()``: :func:`gpt_state_dict_from_jax` for
 ``stoke_tpu.models.gpt.GPT`` (tied head, dense FFN),
-:func:`vit_state_dict_from_jax` for ``ViT``, and
+:func:`vit_state_dict_from_jax` for ``ViT``,
 :func:`cnn_state_dict_from_jax` for ``BasicNN`` and every ``ResNet``
-(``params`` and ``batch_stats``). The port never imports JAX; the caller
-does the ``np.asarray`` (for example with ``jax.tree_util.tree_map(
+(``params`` and ``batch_stats``), and :func:`bert_state_dict_from_jax`
+for ``BertForSequenceClassification``. The port never imports JAX; the
+caller does the ``np.asarray`` (for example with ``jax.tree_util.tree_map(
 np.asarray, variables)``). Each raises ``KeyError`` on a missing leaf and
 ``ValueError`` on a leaf the port has no place for or on a wrong shape.
 
@@ -16,7 +17,7 @@ tag the JAX package wrote (numpy, json and pickle only) and writes a port
 tag that ``Stoke.load`` resumes, optimizer state included.
 
 Layouts (``stoke_tpu/models/bert.py:72-106``), one transformer block map
-(:func:`_transformer_blocks`) shared by GPT and ViT:
+(:func:`_transformer_blocks`) shared by GPT, ViT and BERT:
 
 - ``qkv`` is a ``DenseGeneral((3, heads, D))``: kernel ``[hidden, 3,
   heads, D]``, bias ``[3, heads, D]``; flattened in that order it is the
@@ -201,6 +202,55 @@ def vit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return _finish(sd, expect, who)
 
 
+def bert_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``BertForSequenceClassification`` ``state_dict`` from a
+    flax ``BertForSequenceClassification`` ``params`` tree of numpy arrays:
+    the embeddings (``seg_emb`` when the tree has it, i.e. when ``init``
+    saw ``token_type_ids``; build the port's module with
+    ``token_types=True`` then), ``ln_emb``, the blocks, the pooler and the
+    classifier. Raises as :func:`gpt_state_dict_from_jax`."""
+    who = "bert_state_dict_from_jax"
+    if "encoder" not in params:
+        raise KeyError(f"{who}: missing leaf 'encoder'")
+    head = _flatten({k: v for k, v in params.items() if k != "encoder"})
+    flat = _flatten(params["encoder"])
+    take, take_head = _taker(flat, who), _taker(head, who)
+    tok = take("tok_emb/embedding")
+    vocab, hidden = tok.shape
+    sd: Dict[str, np.ndarray] = {
+        "encoder.tok_emb.weight": tok,
+        "encoder.pos_emb.weight": take("pos_emb/embedding"),
+    }
+    if "seg_emb/embedding" in flat:
+        sd["encoder.seg_emb.weight"] = take("seg_emb/embedding")
+    sd["encoder.ln_emb.weight"] = take("ln_emb/scale")
+    sd["encoder.ln_emb.bias"] = take("ln_emb/bias")
+    blocks, block_shapes = _transformer_blocks(flat, take, hidden, who)
+    sd.update({f"encoder.{k}": v for k, v in blocks.items()})
+    pooler, classifier = take_head("pooler/kernel"), take_head(
+        "classifier/kernel")
+    sd.update({"pooler.weight": pooler.T, "pooler.bias":
+               take_head("pooler/bias"), "classifier.weight": classifier.T,
+               "classifier.bias": take_head("classifier/bias")})
+    if flat or head:
+        raise ValueError(f"{who}: leaves with no place in the port's BERT: "
+                         f"{sorted(flat) + sorted(head)}")
+    max_len = sd["encoder.pos_emb.weight"].shape[0]
+    classes = classifier.shape[-1]
+    expect = {f"encoder.{k}": v for k, v in block_shapes.items()}
+    expect.update({
+        "encoder.tok_emb.weight": (vocab, hidden),
+        "encoder.pos_emb.weight": (max_len, hidden),
+        "encoder.ln_emb.weight": (hidden,), "encoder.ln_emb.bias": (hidden,),
+        "pooler.weight": (hidden, hidden), "pooler.bias": (hidden,),
+        "classifier.weight": (classes, hidden),
+        "classifier.bias": (classes,),
+    })
+    if "encoder.seg_emb.weight" in sd:
+        expect["encoder.seg_emb.weight"] = (2, hidden)
+    return _finish(sd, expect, who)
+
+
 def cnn_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` of ``BasicNN`` or a ``ResNet`` from the
     flax ``variables`` dict (``params`` and, with BatchNorm,
@@ -307,24 +357,106 @@ def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     return out
 
 
-#: the optax states the converter reads, by the torch optimizer that takes
-#: them: the fields of the chain's first state in flatten order (optax
-#: ``adamw``: ``ScaleByAdamState(count, mu, nu)`` then two empty states;
-#: ``sgd`` with momentum: ``TraceState(trace)`` then an empty state), each
-#: with the torch state key it becomes
-_OPTAX_STATES = {
-    torch.optim.AdamW: ("optax.adamw", (("count", "step"), ("mu", "exp_avg"),
-                                        ("nu", "exp_avg_sq"))),
-    torch.optim.SGD: ("optax.sgd with momentum",
-                      (("trace", "momentum_buffer"),)),
+#: the optax optimizers the port pairs with a torch optimizer, by optax
+#: name: the torch class, and the fields of the chain's first state in
+#: flatten order (optax ``adamw``: ``ScaleByAdamState(count, mu, nu)`` then
+#: two empty states; ``sgd`` with momentum: ``TraceState(trace)`` then an
+#: empty state), each with the torch state key it becomes. The checkpoint
+#: converter carries these states; the YAML builder builds these classes
+#: (and ``adam``, whose state no converter reads yet)
+OPTAX_PAIRS = {
+    "adamw": (torch.optim.AdamW, (("count", "step"), ("mu", "exp_avg"),
+                                  ("nu", "exp_avg_sq"))),
+    "sgd": (torch.optim.SGD, (("trace", "momentum_buffer"),)),
 }
+
+#: optax's optimizer constructors (``optax._src.alias``, optax 0.2): a
+#: name outside it is one optax does not have
+OPTAX_OPTIMIZERS = (
+    "adabelief", "adadelta", "adafactor", "adagrad", "adam", "adamax",
+    "adamaxw", "adamw", "adan", "amsgrad", "fromage", "lamb", "lars",
+    "lbfgs", "lion", "noisy_sgd", "novograd", "optimistic_adam",
+    "optimistic_adam_v2", "optimistic_gradient_descent", "polyak_sgd",
+    "radam", "rmsprop", "rprop", "sgd", "sign_sgd", "sm3", "yogi",
+)
+
+#: optax's keyword arguments and defaults of the constructors the port
+#: builds (optax 0.2.6)
+_OPTAX_DEFAULTS = {
+    "adamw": dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, mu_dtype=None,
+                  weight_decay=1e-4, mask=None, nesterov=False),
+    "adam": dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, mu_dtype=None,
+                 nesterov=False),
+    "sgd": dict(momentum=None, nesterov=False, accumulator_dtype=None),
+}
+#: the torch class of each: the checkpoint pairs, and Adam
+_OPTAX_TORCH = {**{n: c for n, (c, _) in OPTAX_PAIRS.items()},
+                "adam": torch.optim.Adam}
+#: optax arguments that have no torch counterpart unless at their default
+_OPTAX_ONLY = ("eps_root", "mu_dtype", "mask", "accumulator_dtype")
+
+
+def torch_optimizer_from_optax(name: str, kwargs: Mapping[str, Any]):
+    """``(torch optimizer class, its keyword arguments)`` that compute
+    what ``optax.<name>(**kwargs)`` computes, with optax's defaults where
+    ``kwargs`` is silent (optax's ``adamw`` decays weights by 1e-4, where
+    torch's ``AdamW`` would take 1e-2):
+
+    - ``adamw`` -> ``AdamW(lr=learning_rate, betas=(b1, b2), eps=eps,
+      weight_decay=weight_decay)``, ``adam`` -> ``Adam`` likewise;
+    - ``sgd`` -> ``SGD(lr=learning_rate, momentum=momentum or 0,
+      nesterov=nesterov)`` (optax ignores ``nesterov`` without momentum).
+
+    Raises ``ValueError`` for a name optax does not have, one the port
+    does not build, a missing ``learning_rate``, an argument optax's
+    constructor does not take, and one that torch has no counterpart for
+    (``eps_root``, ``mu_dtype``, ``mask``, ``accumulator_dtype`` away from
+    their defaults, Adam's ``nesterov``)."""
+    if name not in OPTAX_OPTIMIZERS:
+        raise ValueError(f"Stoke -- optax has no optimizer named {name!r}")
+    if name not in _OPTAX_DEFAULTS:
+        raise ValueError(
+            f"Stoke -- optax.{name} has no torch.optim counterpart in the "
+            f"port; supported: {sorted(_OPTAX_DEFAULTS)}"
+        )
+    cls, defaults = _OPTAX_TORCH[name], _OPTAX_DEFAULTS[name]
+    kw = dict(kwargs)
+    if "learning_rate" not in kw:
+        raise ValueError(f"Stoke -- optax.{name} needs learning_rate")
+    lr = kw.pop("learning_rate")
+    unknown = sorted(set(kw) - set(defaults))
+    if unknown:
+        raise ValueError(
+            f"Stoke -- optax.{name} takes no argument(s) {unknown}; valid: "
+            f"{['learning_rate', *defaults]}"
+        )
+    args = {**defaults, **kw}
+    for key in _OPTAX_ONLY:
+        if key in args and args[key] != defaults[key]:
+            raise ValueError(
+                f"Stoke -- optax.{name}({key}={args[key]!r}) has no "
+                f"{cls.__name__} counterpart in the port"
+            )
+    if name == "sgd":
+        momentum = args["momentum"] or 0.0
+        return cls, dict(lr=lr, momentum=momentum,
+                         nesterov=bool(args["nesterov"]) and momentum > 0)
+    if args["nesterov"]:
+        raise ValueError(f"Stoke -- optax.{name}(nesterov=True) has no "
+                         f"{cls.__name__} counterpart in the port")
+    out = dict(lr=lr, betas=(args["b1"], args["b2"]), eps=args["eps"])
+    if name == "adamw":
+        out["weight_decay"] = args["weight_decay"]
+    return cls, out
 
 
 def _optax_fields(optimizer: torch.optim.Optimizer):
-    """``(optax name, ((field, torch key), ...))`` for ``optimizer``, or
+    """``(optax label, ((field, torch key), ...))`` for ``optimizer``, or
     ``ValueError`` naming what it got."""
     kind = type(optimizer)
-    if kind not in _OPTAX_STATES:
+    pair = next(((n, f) for n, (c, f) in OPTAX_PAIRS.items() if c is kind),
+                None)
+    if pair is None:
         raise ValueError(
             f"jax_checkpoint_to_port: {kind.__name__} has no optax "
             f"counterpart here; torch.optim.AdamW (optax.adamw) and "
@@ -340,7 +472,9 @@ def _optax_fields(optimizer: torch.optim.Optimizer):
                 f"jax_checkpoint_to_port: {kind.__name__} with amsgrad or "
                 f"nesterov has no counterpart in optax.adamw / optax.sgd "
                 f"as the JAX package builds them")
-    return _OPTAX_STATES[kind]
+    name, fields = pair
+    label = f"optax.{name}" + (" with momentum" if name == "sgd" else "")
+    return label, fields
 
 
 def jax_flatten_order(model: nn.Module, key: str,

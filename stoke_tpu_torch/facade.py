@@ -6,7 +6,8 @@ parts the port takes), the four-call contract and ``train_step``
 (``:2446-2729``) with the segment memory guard (``:94-115``), ``reset``
 (``:2731``), loss tracking and its helpers (``:2743-2838``), the rank and
 print helpers (``:2840-2907``), ``estimate_step_flops`` (``:2972``),
-``DataLoader`` (``:3047-3101``), ``serve`` (``:3103``), checkpoints
+``DataLoader`` (``:3047-3101``, with a sampler), TensorBoard metrics and
+``log_scalar`` (``:1281-1346``), ``serve`` (``:3103``), checkpoints
 (``save``, ``load``, ``maybe_resume``, ``wait_for_checkpoint`` and the
 periodic auto-save, ``:1869-1915``, ``:3219-3398``), ``print_status``
 (``:3399``), the counters, flags and loss scale (``:3440-3547``) and the
@@ -50,6 +51,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -70,10 +72,11 @@ from stoke_tpu_torch.configs import (
 )
 from stoke_tpu_torch.data import StokeDataLoader, place
 from stoke_tpu_torch.engine import PrecisionPolicy, StepEngine, build_optimizer
-from stoke_tpu_torch.models.bert import Dropout
+from stoke_tpu_torch.models.bert import Dropout, LayerDrop
 from stoke_tpu_torch.serving.engine import resolve_device
 from stoke_tpu_torch.status import StokeStatus, StokeValidationError
 from stoke_tpu_torch.utils.printing import unrolled_print
+from stoke_tpu_torch.utils.tb_writer import TBEventWriter
 from stoke_tpu_torch.utils.trees import tree_count_params
 
 _LATER_RESUME = "ROADMAP Queue 1 item 9 (offload and resilience)"
@@ -139,9 +142,14 @@ class Stoke:
         precision: None/"full", "bf16" (the whole model in bfloat16 over
             fp32 master parameters) or "fp16" (in float16, with the dynamic
             loss scaler of ``PrecisionConfig``).
-        configs: ``PrecisionConfig``, ``CheckpointConfig`` (how ``save``
-            writes, the periodic auto-save) and ``ServeConfig`` (what
-            ``serve`` builds).
+        configs: objects of the JAX package's config classes
+            (``configs.ALL_CONFIG_CLASSES``). Honoured: ``PrecisionConfig``,
+            ``CheckpointConfig`` (how ``save`` writes, the periodic
+            auto-save), ``ServeConfig`` (what ``serve`` builds) and
+            ``TensorboardConfig`` (the loss metrics and ``log_scalar``);
+            the status layer refuses the others, naming their ROADMAP
+            item. A YAML document or dict builds the same run through
+            :func:`stoke_tpu_torch.utils.yaml_config.stoke_from_config`.
         model_train_kwargs / model_eval_kwargs: keyword arguments the
             forward gets in train / eval mode (only when given).
         loss_weights: weights shaped like the loss result; the objective
@@ -151,6 +159,11 @@ class Stoke:
             .Dropout` of the model uses it).
         ema_weight: weight of the newest micro loss in ``ema_loss``.
         verbose: kept for the JAX signature; the port prints nothing.
+        model_rng_keys: the JAX package's random stream names (e.g.
+            ``("dropout", "layer_drop")``), recorded as
+            ``Stoke.model_rng_keys``: the port draws every stream (dropout
+            masks, BERT's layer-drop decisions) from the one generator
+            that ``seed`` seeds.
     """
 
     def __init__(
@@ -175,6 +188,7 @@ class Stoke:
         seed: int = 0,
         ema_weight: float = 0.1,
         verbose: bool = True,
+        model_rng_keys: Sequence[str] = ("dropout",),
     ):
         self._status_obj = StokeStatus(
             batch_size_per_device=batch_size_per_device,
@@ -207,8 +221,15 @@ class Stoke:
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(seed)
         for m in self._module.modules():
-            if isinstance(m, Dropout):
+            if isinstance(m, (Dropout, LayerDrop)):
                 m.generator = self._generator
+        if isinstance(model_rng_keys, str) or not all(
+                isinstance(k, str) for k in model_rng_keys):
+            raise TypeError(
+                f"Stoke -- model_rng_keys must be a sequence of stream "
+                f"names, got {model_rng_keys!r}")
+        self.model_rng_keys = tuple(model_rng_keys)
+        self._tb_writer_obj: Optional[TBEventWriter] = None
         self._train_kwargs = dict(model_train_kwargs or {})
         self._eval_kwargs = dict(model_eval_kwargs or {})
         self._engine = StepEngine(
@@ -304,7 +325,7 @@ class Stoke:
         self._optimizer_steps += 1
         self._grad_accum_counter = 0
         self._reset_tracking_window()
-        self._maybe_auto_save()
+        self._after_optimizer_steps()
 
     def _count_skipped(self, finite: Optional[torch.Tensor]) -> None:
         """``skipped_optimizer_steps += 1 - finite`` on the device (fp16)."""
@@ -335,7 +356,7 @@ class Stoke:
             self._optimizer_steps += 1
             self._grad_accum_counter = 0
             self._reset_tracking_window()
-            self._maybe_auto_save()
+            self._after_optimizer_steps()
         else:
             self._grad_accum_counter += 1
         return report
@@ -393,7 +414,7 @@ class Stoke:
             self._place(model_args),
             {**self._train_kwargs, **self._place(model_kwargs or {})},
             self._place(loss_args))
-        self._maybe_auto_save()
+        self._after_optimizer_steps()
         return reports
 
     def train_steps(self, model_args: Any, loss_args: Any = (),
@@ -466,7 +487,7 @@ class Stoke:
                 _leading(margs, sl), _leading(mkwargs, sl),
                 _leading(loss_args, sl)))
         # a save boundary crossed inside the segment is saved at its end
-        self._maybe_auto_save(window=n)
+        self._after_optimizer_steps(window=n)
         return tree_map(lambda *r: torch.stack(r), *reports)
 
     def reset(self) -> None:
@@ -748,6 +769,13 @@ class Stoke:
         crossed a boundary."""
         return steps > 0 and steps // every > (steps - window) // every
 
+    def _after_optimizer_steps(self, window: int = 1) -> None:
+        """What follows ``window`` optimizer steps, as in the JAX facade:
+        the TensorBoard metrics, then the periodic auto-save, each when
+        the steps crossed its cadence."""
+        self._maybe_log_metrics(window)
+        self._maybe_auto_save(window)
+
     def _maybe_auto_save(self, window: int = 1) -> None:
         """Save under ``CheckpointConfig.auto_path`` when the last
         ``window`` optimizer steps crossed a multiple of
@@ -757,6 +785,61 @@ class Stoke:
                 and self._crossed_boundary(self._optimizer_steps,
                                            cfg.save_every_n_steps, window)):
             self.save(cfg.auto_path, name=cfg.auto_name)
+
+    # ------------------------------------------------------------------ #
+    # TensorBoard metrics (TensorboardConfig)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def _tb_writer(self) -> Optional[TBEventWriter]:
+        """The event writer of ``TensorboardConfig`` on rank 0, made at
+        first use under ``output_path/job_name``; None otherwise."""
+        cfg = self._status_obj.tensorboard_config
+        if cfg is None or not self.is_rank_0:
+            return None
+        if self._tb_writer_obj is None:
+            self._tb_writer_obj = TBEventWriter(
+                os.path.join(cfg.output_path, cfg.job_name))
+        return self._tb_writer_obj
+
+    def log_scalar(self, tag: str, value, step: Optional[int] = None) -> None:
+        """Write a user scalar to TensorBoard now (with a
+        ``TensorboardConfig``, on rank 0), at ``step`` or the optimizer
+        step count; a tensor is read on the host."""
+        w = self._tb_writer
+        if w is not None:
+            w.add_scalar(tag, float(value),
+                         step if step is not None else self._optimizer_steps)
+
+    def _maybe_log_metrics(self, window: int = 1) -> None:
+        """The loss metrics of ``stoke_tpu/facade.py:1320-1346`` when the
+        last ``window`` optimizer steps crossed a multiple of
+        ``log_every_n_steps``: the loss EMA and micro loss, under fp16
+        the loss scale(s) and skipped steps, and the backward count. Only
+        here are the device values read on the host."""
+        cfg = self._status_obj.tensorboard_config
+        if (cfg is None or self._optimizer_steps == 0
+                or not self._crossed_boundary(
+                    self._optimizer_steps, cfg.log_every_n_steps, window)):
+            return
+        w = self._tb_writer
+        if w is None:
+            return
+        step = self._optimizer_steps
+        w.add_scalar("loss/ema", self.ema_loss, step)
+        if self._last_step_loss is not None:
+            w.add_scalar("loss/micro", self.step_loss, step)
+        if self._precision.scaled:
+            ls = self.loss_scale
+            if isinstance(ls, list):  # per-loss scalers: one curve each
+                for i, v in enumerate(ls):
+                    w.add_scalar(f"scaler/loss_scale_{i}", v, step)
+            else:
+                w.add_scalar("scaler/loss_scale", ls, step)
+            w.add_scalar("scaler/skipped_steps",
+                         self.skipped_optimizer_steps, step)
+        w.add_scalar("counters/backward_steps", self._backward_steps, step)
+        w.flush()
 
     # ------------------------------------------------------------------ #
     # serving and the step's cost
@@ -1008,7 +1091,19 @@ class Stoke:
 
     def DataLoader(self, dataset, **kwargs) -> StokeDataLoader:
         """A :class:`~stoke_tpu_torch.data.StokeDataLoader` of
-        ``batch_size_per_device`` rows on this run's device."""
+        ``batch_size_per_device`` rows on this run's device; ``sampler=``
+        (e.g. a :class:`~stoke_tpu_torch.data.BucketedDistributedSampler`)
+        orders it. A run of several processes needs a sampler, each
+        process loading its own slice (the JAX facade's rule)."""
+        dist = torch.distributed
+        if (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1
+                and kwargs.get("sampler") is None):
+            raise ValueError(
+                "Stoke -- multi-process runs require a distributed sampler "
+                "(see BucketedDistributedSampler / DistributedSampler) — "
+                "reference stoke.py:822-826"
+            )
         return StokeDataLoader(dataset, batch_size=self.batch_size,
                                device=self._device, **kwargs)
 

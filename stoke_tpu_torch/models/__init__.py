@@ -1,7 +1,15 @@
 """Models of the port."""
 
 from stoke_tpu_torch.models.basic import BasicNN
-from stoke_tpu_torch.models.bert import BERT_SIZES, BertSize, dense_attention
+from stoke_tpu_torch.models.bert import (
+    BERT_SIZES,
+    BertBase,
+    BertEncoder,
+    BertForSequenceClassification,
+    BertSize,
+    BertTiny,
+    dense_attention,
+)
 from stoke_tpu_torch.models.gpt import GPT, causal_lm_loss
 from stoke_tpu_torch.models.resnet import (
     BatchNorm,
@@ -18,7 +26,11 @@ __all__ = [
     "BasicNN",
     "BatchNorm",
     "BERT_SIZES",
+    "BertBase",
+    "BertEncoder",
+    "BertForSequenceClassification",
     "BertSize",
+    "BertTiny",
     "dense_attention",
     "GPT",
     "causal_lm_loss",

@@ -1,14 +1,20 @@
-"""Transformer blocks of the port.
+"""BERT of the port: the transformer blocks, the encoder and sequence
+classification.
 
-Counterpart of ``stoke_tpu/models/bert.py:28-106``: the size table, dense
-attention, multi-head attention and the post-LN transformer block, with
-the same numerics as the flax modules:
+Counterpart of ``stoke_tpu/models/bert.py``: the size table, dense
+attention, multi-head attention and the post-LN transformer block
+(``:28-106``), :class:`BertEncoder` and
+:class:`BertForSequenceClassification` (``:109-233``), with the same
+numerics as the flax modules:
 
 - attention scores in ``q.dtype``, softmax in fp32 (``bert.py:52-55``);
 - GELU is flax's ``nn.gelu``, the tanh approximation (``bert.py:103``);
-- both block LayerNorms use eps ``1e-12`` (``bert.py:101,106``);
+- every LayerNorm uses eps ``1e-12`` (``bert.py:101,106,152``);
 - dropout after the attention and after the FFN (``bert.py:100,105``),
-  and on the attention probabilities inside ``dense_attention``.
+  on the attention probabilities inside ``dense_attention``, after the
+  embeddings and after the pooler;
+- the padding mask's additive bias is built in fp32, then cast to the
+  activations' dtype (``bert.py:154-158``; -1e9 is -inf in fp16).
 
 Attention is pluggable as in the JAX package: each block takes its
 ``attention_fn`` at construction, and a call may override it
@@ -17,15 +23,18 @@ its own function per call. An ``attention_fn`` is called as
 ``fn(q, k, v, bias)``, plus ``dropout=`` (a :class:`Dropout` for the
 probabilities) only while the block trains with a nonzero rate.
 
-Dropout masks cannot bit-match the JAX package (threefry against Philox):
-:class:`Dropout` draws them from its ``generator``, which
-``stoke_tpu_torch.Stoke`` seeds from ``Stoke(seed=...)``.
+Random draws cannot bit-match the JAX package (threefry against Philox):
+:class:`Dropout` draws its masks and :class:`LayerDrop` its keep decisions
+from their ``generator``, which ``stoke_tpu_torch.Stoke`` seeds from
+``Stoke(seed=...)``. Train and eval are the module's mode bit, where the
+flax modules take ``train=`` per call.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional
 
 import torch
@@ -140,3 +149,201 @@ class TransformerBlock(nn.Module):
         x = self.ln_attn(x + y)
         y = self.ff_out(F.gelu(self.ff_in(x), approximate="tanh"))
         return self.ln_ff(x + self.drop_ff(y))
+
+
+_LATER_REMAT = "ROADMAP Queue 1 item 13 (rematerialization)"
+
+
+def refuse_remat(model: str) -> None:
+    """``remat=True`` waits for its ROADMAP item: a recomputed block would
+    redraw its dropout masks from the generator."""
+    raise NotImplementedError(
+        f"{model}(remat=True) is not ported yet: a recomputed block would "
+        f"redraw its dropout masks from the Stoke generator; "
+        f"{_LATER_REMAT}"
+    )
+
+
+class LayerDrop(nn.Module):
+    """The keep decisions of progressive layer drop, one per layer per
+    forward, drawn from ``generator`` (None: torch's default generator) on
+    the device, so a replayed CUDA graph draws anew."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator = None
+
+    def keep(self, keep_p: torch.Tensor) -> torch.Tensor:
+        """A bool tensor shaped like ``keep_p``: ``uniform < keep_p``, as
+        ``jax.random.bernoulli``."""
+        u = torch.rand(keep_p.shape, device=keep_p.device,
+                       generator=self.generator)
+        return u < keep_p
+
+
+class BertEncoder(nn.Module):
+    """Token, position and (with ``token_types``) segment embeddings,
+    ``ln_emb``, embedding dropout and ``size.num_layers`` blocks.
+
+    ``token_types`` makes ``seg_emb`` (2 rows): flax creates it only when
+    ``init`` saw ``token_type_ids``, so the port's module says at
+    construction which of the two variable trees it has.
+
+    Progressive layer drop: in training, layer i's output replaces its
+    input with probability ``keep_i = 1 - frac * (i + 1) / N``, where
+    ``frac`` is ``layer_drop_rate``, or with ``layer_drop_theta`` set the
+    theta/gamma schedule ``1 - ((1 - theta) exp(-gamma t) + theta)`` at the
+    forward's ``global_step`` t (:meth:`layer_drop_fraction`).
+    ``remat=True`` is refused (ROADMAP Queue 1 item 13)."""
+
+    def __init__(self, vocab_size: int, size: BertSize, max_len: int = 512,
+                 dropout_rate: float = 0.1,
+                 attention_fn: Callable = dense_attention,
+                 remat: bool = False, layer_drop_rate: float = 0.0,
+                 layer_drop_theta: Optional[float] = None,
+                 layer_drop_gamma: float = 0.001, token_types: bool = False,
+                 device=None):
+        super().__init__()
+        if remat:
+            refuse_remat("BertEncoder")
+        self.size = size
+        self.layer_drop_rate = float(layer_drop_rate)
+        self.layer_drop_theta = layer_drop_theta
+        self.layer_drop_gamma = float(layer_drop_gamma)
+        self.tok_emb = nn.Embedding(vocab_size, size.hidden, device=device)
+        self.pos_emb = nn.Embedding(max_len, size.hidden, device=device)
+        self.seg_emb = (nn.Embedding(2, size.hidden, device=device)
+                        if token_types else None)
+        self.ln_emb = nn.LayerNorm(size.hidden, eps=1e-12, device=device)
+        self.emb_dropout = Dropout(dropout_rate)
+        self.layers = nn.ModuleList(
+            TransformerBlock(size.hidden, size.heads, size.ff, dropout_rate,
+                             attention_fn, device=device)
+            for _ in range(size.num_layers)
+        )
+        self.layer_drop = LayerDrop()
+
+    def layer_drop_fraction(self, global_step=None) -> torch.Tensor:
+        """The depth-linear drop fraction, fp32 on the parameters' device:
+        ``layer_drop_rate``, or ``1 - theta_bar(global_step)`` under the
+        theta/gamma schedule (``stoke_tpu/models/bert.py:181-190``)."""
+        dev = self.tok_emb.weight.device
+        if self.layer_drop_theta is None:
+            return torch.tensor(self.layer_drop_rate, dtype=torch.float32,
+                                device=dev)
+        theta = torch.tensor(self.layer_drop_theta, dtype=torch.float32,
+                             device=dev)
+        t = torch.as_tensor(global_step, dtype=torch.float32, device=dev)
+        gamma = torch.tensor(self.layer_drop_gamma, dtype=torch.float32,
+                             device=dev)
+        return 1.0 - ((1.0 - theta) * torch.exp(-gamma * t) + theta)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                global_step=None):
+        B, L = input_ids.shape
+        pos = torch.arange(L, device=input_ids.device)
+        h = self.tok_emb(input_ids) + self.pos_emb(pos)[None]
+        if token_type_ids is not None:
+            if self.seg_emb is None:
+                raise ValueError(
+                    "BertEncoder: token_type_ids given, but the module was "
+                    "built without segment embeddings (token_types=False)")
+            h = h + self.seg_emb(token_type_ids)
+        h = self.emb_dropout(self.ln_emb(h))
+        bias = None
+        if attention_mask is not None:
+            # [B, 1, 1, L], built in fp32 then cast: -1e9 is -inf in fp16
+            bias = torch.where(attention_mask[:, None, None, :] > 0,
+                               torch.zeros((), device=h.device),
+                               torch.full((), -1e9, device=h.device))
+            bias = bias.to(h.dtype)
+        keep = None
+        if self.training and (self.layer_drop_rate > 0.0
+                              or self.layer_drop_theta is not None):
+            if self.layer_drop_theta is not None and global_step is None:
+                raise ValueError(
+                    "Stoke -- layer_drop_theta is set (PLD theta/gamma time "
+                    "schedule) but the forward was called without the "
+                    "global_step kwarg; the schedule would silently never "
+                    "engage.  Pass global_step=<optimizer step> (a traced "
+                    "scalar), or use the static layer_drop_rate instead."
+                )
+            n = len(self.layers)
+            depth = torch.arange(1, n + 1, dtype=torch.float32,
+                                 device=h.device) / n
+            keep = self.layer_drop.keep(
+                1.0 - self.layer_drop_fraction(global_step) * depth)
+        for i, layer in enumerate(self.layers):
+            h_new = layer(h, bias)
+            h = h_new if keep is None else torch.where(keep[i], h_new, h)
+        return h
+
+
+class BertForSequenceClassification(nn.Module):
+    """The encoder, then ``tanh(pooler(h[:, 0]))``, dropout and the
+    classifier: ``[B, L]`` token ids (and optionally the ``[B, L]`` mask
+    and token types) -> ``[B, num_classes]`` logits.
+
+    Args:
+        vocab_size / num_classes / size_name / max_len / dropout_rate /
+            attention_fn / layer_drop_rate / layer_drop_theta /
+            layer_drop_gamma: as the JAX package's module.
+        remat: must be False (ROADMAP Queue 1 item 13).
+        token_types: build ``seg_emb`` (the flax tree of a module
+            initialised with ``token_type_ids``).
+        device: where the parameters are created.
+
+    The parameters start from flax's defaults drawn from seed 0
+    (:meth:`init_weights`)."""
+
+    def __init__(self, vocab_size: int = 30522, num_classes: int = 2,
+                 size_name: str = "base", max_len: int = 512,
+                 dropout_rate: float = 0.1,
+                 attention_fn: Callable = dense_attention,
+                 remat: bool = False, layer_drop_rate: float = 0.0,
+                 layer_drop_theta: Optional[float] = None,
+                 layer_drop_gamma: float = 0.001, token_types: bool = False,
+                 device=None):
+        super().__init__()
+        if remat:
+            refuse_remat("BertForSequenceClassification")
+        size = BERT_SIZES[size_name]
+        self.encoder = BertEncoder(
+            vocab_size, size, max_len, dropout_rate, attention_fn,
+            layer_drop_rate=layer_drop_rate,
+            layer_drop_theta=layer_drop_theta,
+            layer_drop_gamma=layer_drop_gamma, token_types=token_types,
+            device=device)
+        self.pooler = nn.Linear(size.hidden, size.hidden, device=device)
+        self.cls_dropout = Dropout(dropout_rate)
+        self.classifier = nn.Linear(size.hidden, num_classes, device=device)
+        self.init_weights(0)
+
+    @torch.no_grad()
+    def init_weights(self, seed: int) -> None:
+        """flax's default initialisation drawn by a generator seeded with
+        ``seed`` on the parameters' device: ``lecun_normal`` dense kernels,
+        zero biases, LayerNorm scale 1 and shift 0, embeddings from
+        N(0, 1/hidden)."""
+        from stoke_tpu_torch.models.resnet import init_flax_defaults
+
+        init_flax_defaults(self, seed)
+        dev = self.pooler.weight.device
+        if dev.type == "meta":
+            return
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        for m in self.encoder.modules():
+            if isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, m.weight.shape[1] ** -0.5,
+                                 generator=gen)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                global_step=None):
+        h = self.encoder(input_ids, attention_mask, token_type_ids,
+                         global_step)
+        cls = torch.tanh(self.pooler(h[:, 0]))
+        return self.classifier(self.cls_dropout(cls))
+
+
+BertBase = partial(BertForSequenceClassification, size_name="base")
+BertTiny = partial(BertForSequenceClassification, size_name="tiny")

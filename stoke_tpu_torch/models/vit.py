@@ -27,6 +27,7 @@ from stoke_tpu_torch.models.bert import (
     Dropout,
     TransformerBlock,
     dense_attention,
+    refuse_remat,
 )
 from stoke_tpu_torch.models.resnet import Conv, init_flax_defaults
 
@@ -37,6 +38,7 @@ class ViT(nn.Module):
     Args:
         num_classes / size_name / patch_size / dropout_rate /
             attention_fn: as the JAX package's ``ViT``.
+        remat: must be False (ROADMAP Queue 1 item 13).
         image_size: the input's side, or ``(H, W)``; each must be a
             multiple of ``patch_size``.
         device: where the parameters are created.
@@ -49,9 +51,12 @@ class ViT(nn.Module):
     def __init__(self, num_classes: int = 1000, size_name: str = "tiny",
                  patch_size: int = 4, dropout_rate: float = 0.1,
                  attention_fn: Callable = dense_attention,
+                 remat: bool = False,
                  image_size: Union[int, Tuple[int, int]] = 32,
                  device=None):
         super().__init__()
+        if remat:
+            refuse_remat("ViT")
         size = BERT_SIZES[size_name]
         H, W = ((image_size, image_size) if isinstance(image_size, int)
                 else tuple(image_size))

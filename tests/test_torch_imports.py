@@ -48,7 +48,11 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.io_ops",
                                     "stoke_tpu_torch.utils",
                                     "stoke_tpu_torch.utils.printing",
-                                    "stoke_tpu_torch.utils.trees"])
+                                    "stoke_tpu_torch.utils.trees",
+                                    "stoke_tpu_torch.utils.yaml_config",
+                                    "stoke_tpu_torch.utils.tb_writer",
+                                    "stoke_tpu_torch.native",
+                                    "stoke_tpu_torch.models.bert"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"
@@ -75,3 +79,20 @@ def test_source_has_no_jax_import(path):
             if node.module and _forbidden(node.module):
                 bad.append(node.module)
     assert bad == [], f"{path.name} imports {bad}"
+
+
+NATIVE_SOURCES = sorted((ROOT / "stoke_tpu_torch").rglob("*.cpp"))
+
+
+def test_the_port_has_its_own_batcher_source():
+    assert [p.relative_to(ROOT).as_posix() for p in NATIVE_SOURCES] == [
+        "stoke_tpu_torch/native/batcher.cpp"]
+
+
+@pytest.mark.parametrize("path", NATIVE_SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in NATIVE_SOURCES])
+def test_native_source_names_no_jax_package_path(path):
+    """The port builds its own copy of the batcher, never the JAX
+    package's source by path."""
+    text = path.read_text()
+    assert "stoke_tpu/" not in text and "stoke_tpu." not in text
