@@ -145,6 +145,25 @@ Phases, one JSON line each; any failure exits nonzero:
    memory, a profiled step at L=512 with the flash kernels' share; then
    fp32 through the kernels against dense attention for 3 optimizer steps
    (losses within 1e-3).
+14. train_dp: the DP / ZeRO ladder (``distributed="dp"`` with plain dp,
+   oss, oss + sddp and fsdp) in a one-process NCCL group, world 1 (the
+   card shows that each tier runs over NCCL, that its collectives launch
+   and are captured in the replayed windows, and that the flash kernels
+   run under it; nothing crosses cards): GPT-base in fp32 at B=2, L=512,
+   3 four-call steps per tier against the run without ``distributed``
+   (losses within 1e-3, the largest parameter difference printed);
+   GPT-base bf16 at B=8, L=1024 per tier and once without
+   ``distributed``: 4 eager four-call steps, ``train_steps`` over 8
+   batches in segments of 4, 6 replayed windows timed one a call, the
+   flash kernels' launches, a window captured, a profiled eager step
+   that must launch NCCL kernels (their names, launches and device ms,
+   and the host's ``nccl:*`` calls) and a profiled replayed window, peak
+   memory; ResNet-50 bf16 from a ``stoke_from_config`` dict with
+   ``examples/cifar10/config/dp_oss_sddp.yaml``'s flags (batch 64,
+   32x32), 4 ``train_step``s against the same dict without
+   ``distributed``: every BatchNorm's all-reduce on (two a layer in a
+   profiled step), the running statistics within four units of bf16's
+   rounding. The process group is destroyed at the end.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -1226,7 +1245,10 @@ def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS,
 
 
 def stoke_for(model, precision, batch, grad_accum=None, loss=None,
-              lr=3e-4, seed=0, configs=None):
+              lr=3e-4, seed=0, configs=None, **flags):
+    """``Stoke`` over ``model`` with AdamW(``lr``, wd 1e-4) and clip norm
+    1.0; ``flags`` are further ``Stoke`` flags (``distributed``, the
+    tiers)."""
     from stoke_tpu_torch import ClipGradNormConfig, Stoke, StokeOptimizer
     from stoke_tpu_torch.models.gpt import causal_lm_loss
 
@@ -1235,7 +1257,7 @@ def stoke_for(model, precision, batch, grad_accum=None, loss=None,
                  loss or causal_lm_loss, batch_size_per_device=batch,
                  grad_accum=grad_accum, precision=precision,
                  grad_clip=ClipGradNormConfig(max_norm=1.0), seed=seed,
-                 configs=configs)
+                 configs=configs, **flags)
 
 
 def profile_step(step) -> dict:
@@ -2806,6 +2828,307 @@ def bert_parity(ops, ds, sampler) -> dict:
             "max_rel_diff": rel, "rtol": PARITY_RTOL, "launches": launches}
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the DP / ZeRO ladder in a one-process NCCL group
+# --------------------------------------------------------------------------- #
+
+
+#: the tiers, as ``Stoke`` flags under ``distributed="dp"``
+DP_TIERS = {"dp": {}, "oss": dict(oss=True),
+            "oss_sddp": dict(oss=True, sddp=True), "fsdp": dict(fsdp=True)}
+DP_EAGER_STEPS, DP_WINDOWS, DP_TIMED_WINDOWS = 4, 8, 6
+DP_SEGMENT = 4
+#: device kernels of NCCL's collectives (on one rank NCCL runs an
+#: averaging all-reduce as its ``onerank`` kernel, a summing one, a
+#: reduce-scatter or an all-gather as a device copy or nothing)
+NCCL_KERNEL_MARKS = ("nccl", "onerank")
+DP_RESNET_BATCH, DP_RESNET_STEPS = 64, 4
+#: four units of bf16's rounding, relative to each statistic's largest
+#: magnitude (``tests/test_torch_vision_train.py``'s bound)
+DP_BN_TOL = 4 * 2.0**-7
+
+
+def collective_profile(step) -> dict:
+    """One call of ``step`` under ``torch.profiler``: NCCL's device
+    kernels by name (launches) and its host calls (``nccl:*`` ranges) by
+    name, beside the step's device busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, calls, device_ms, nccl_ms, copy_ms = {}, {}, 0.0, 0.0, 0.0
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            device_ms += ms
+            if any(m in e.key.lower() for m in NCCL_KERNEL_MARKS):
+                kernels[e.key[:90]] = e.count
+                nccl_ms += ms
+            elif "Memcpy DtoD" in e.key:
+                copy_ms += ms
+        elif e.device_type == DeviceType.CPU and e.key.startswith("nccl:"):
+            calls[e.key] = calls.get(e.key, 0) + e.count
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            "nccl_kernel_launches": sum(kernels.values()),
+            "nccl_kernel_ms": nccl_ms, "memcpy_dtod_ms": copy_ms,
+            "nccl_kernels": kernels, "nccl_calls": calls}
+
+
+def four_call_step(stoke, batch) -> torch.Tensor:
+    loss = stoke.loss(stoke.model(batch), batch)
+    stoke.backward(loss)
+    stoke.step()
+    return loss
+
+
+def master_max_diff(a, b) -> float:
+    """The largest difference between two runs' parameters."""
+    with a._whole_params(), b._whole_params():
+        return max(float((x.detach().float() - y.detach().float()).abs()
+                         .max()) for x, y in
+                   zip(a.model_access.parameters(),
+                       b.model_access.parameters()))
+
+
+def dp_parity(ops) -> dict:
+    """GPT-base in fp32 at B=2, L=512 (the ``train_parity`` shapes, the
+    fp32 flash kernels): 3 four-call steps under each tier against the
+    run without ``distributed`` from the same seed and batches."""
+    corpus = torch.from_numpy(make_corpus(n=6, seq_len=512, vocab=VOCAB,
+                                          seed=1)).cuda()
+    batches = [corpus[i:i + 2] for i in range(0, 6, 2)]
+    ref = stoke_for(gpt_base("flash"), None, 2)
+    want = [float(four_call_step(ref, b)) for b in batches]
+    out = {"losses_one_device": want, "tiers": {}}
+    for tier, flags in DP_TIERS.items():
+        s = stoke_for(gpt_base("flash"), None, 2, distributed="dp", **flags)
+        got = [float(four_call_step(s, b)) for b in batches]
+        rel = rel_diff(got, want)
+        if not rel <= PARITY_RTOL:
+            raise AssertionError(
+                f"train_dp parity {tier}: losses {got} vs one device "
+                f"{want}, max relative difference {rel} > {PARITY_RTOL}")
+        out["tiers"][tier] = {"losses": got, "max_rel_diff": rel,
+                              "max_param_abs_diff": master_max_diff(s, ref),
+                              "world_size": s.world_size}
+        del s
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    out["rtol"] = PARITY_RTOL
+    return out
+
+
+def dp_full_width(ops, tier: str, batches) -> dict:
+    """GPT-base bf16 at B=8, L=1024 under one tier (``one_device``: no
+    ``distributed``, the baseline of the same schedule): DP_EAGER_STEPS
+    four-call steps, then ``train_steps`` over DP_WINDOWS batches in
+    segments of DP_SEGMENT (the first window eagerly, its capture, then
+    replays), then DP_TIMED_WINDOWS replayed windows timed one a call;
+    a profiled eager step and a profiled replayed window. Then a second
+    run of the same tier takes the same batches in eager four-call steps
+    only, the reference of the windows' losses."""
+    flags = ({} if tier == "one_device"
+             else dict(distributed="dp", **DP_TIERS[tier]))
+    s = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, **flags)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eager, eager_ms = [], []
+    for b in batches[:DP_EAGER_STEPS]:
+        eager_ms.append(timed_ms(lambda: eager.append(four_call_step(s, b))))
+    out, replayed = {}, []
+    first_ms = timed_ms(lambda: out.update(seg=s.train_steps(
+        batches[:DP_WINDOWS], batches[:DP_WINDOWS], segment_size=DP_SEGMENT)))
+    replay_ms = [timed_ms(lambda: replayed.append(s.train_steps(
+        batches[i:i + 1], batches[i:i + 1])))
+                 for i in range(DP_TIMED_WINDOWS)]
+    micro = DP_EAGER_STEPS + DP_WINDOWS + DP_TIMED_WINDOWS
+    launches = flash_launches(ops, micro * N_LAYERS, f"train_dp {tier}")
+    peak = torch.cuda.max_memory_allocated()
+    windows_kept = len(s._engine._windows)
+    eager_prof = collective_profile(lambda: four_call_step(s, batches[0]))
+    replay_prof = collective_profile(
+        lambda: s.train_steps(batches[:1], batches[:1]))
+    losses = [float(l) for l in eager]
+    segmented = out["seg"][:, 0].tolist()
+    replayed = [float(r[0, 0]) for r in replayed]
+    steps = s.optimizer_steps
+    del s, out
+    torch.cuda.empty_cache()
+    ref = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, **flags)
+    eager_ref = [float(four_call_step(ref, b)) for b in (
+        *batches[:DP_EAGER_STEPS], *batches[:DP_WINDOWS],
+        *batches[:DP_TIMED_WINDOWS])]
+    del ref
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses + segmented + replayed)):
+        raise AssertionError(f"train_dp {tier}: losses {losses}, "
+                             f"{segmented}, {replayed}")
+    if windows_kept < 1:
+        raise AssertionError(f"train_dp {tier}: no window was captured")
+    if tier != "one_device" and eager_prof["nccl_kernel_launches"] < 1:
+        raise AssertionError(f"train_dp {tier}: the profiled step launched "
+                             f"no NCCL kernel: {eager_prof}")
+    return {"eager_step_ms_p50": float(np.median(eager_ms[1:])),
+            "eager_step_ms": eager_ms,
+            "replayed_step_ms_p50": float(np.median(replay_ms[1:])),
+            "replayed_step_ms": replay_ms, "first_train_steps_ms": first_ms,
+            "losses_eager": losses, "losses_segmented": segmented,
+            "losses_replayed": replayed, "losses_eager_reference": eager_ref,
+            "optimizer_steps": steps,
+            "flash_launches": launches, "windows_captured": windows_kept,
+            "max_memory_allocated_gib": peak / 2**30,
+            "profile_eager": eager_prof, "profile_replayed": replay_prof}
+
+
+def dp_window_parity(full: dict, world: int) -> None:
+    """The losses of every run of ``dp_full_width``, in two checks; every
+    difference is recorded before the first failure raises.
+
+    - Each tier's (and ``one_device``'s) segmented and replayed windows
+      against its own eager reference on the same batches, within
+      WINDOW_RTOL: a replay runs the eager step's kernels in its order,
+      so this holds the CUDA-graph captures of the ladder's collectives
+      and of fsdp's storage frees and gathers to the eager step.
+    - Each tier against ``one_device``: plain dp to the bit at world 1
+      (the same arithmetic); the sharded tiers, and dp across ranks,
+      within PARITY_RTOL, since they sum the clip norm's squares in
+      another grouping and a last-bit change of a master can flip its
+      bf16 rounding."""
+    n_eager, n_seg = DP_EAGER_STEPS, DP_EAGER_STEPS + DP_WINDOWS
+    failures = []
+    for tier, run in full.items():
+        ref = run["losses_eager_reference"]
+        for key, want in (("losses_eager", ref[:n_eager]),
+                          ("losses_segmented", ref[n_eager:n_seg]),
+                          ("losses_replayed", ref[n_seg:])):
+            diff = rel_diff(run[key], want)
+            run[key.replace("losses", "rel_diff_to_eager")] = diff
+            if not diff <= WINDOW_RTOL:
+                failures.append(f"{tier}: {key} {run[key]} vs its eager "
+                                f"steps {want}, {diff} > {WINDOW_RTOL}")
+        if tier == "one_device":
+            continue
+        tol = 0.0 if world == 1 and tier == "dp" else PARITY_RTOL
+        for key in ("losses_eager", "losses_segmented", "losses_replayed"):
+            want = full["one_device"][key]
+            diff = rel_diff(run[key], want)
+            run[key.replace("losses", "rel_diff_to_one_device")] = diff
+            if not diff <= tol:
+                failures.append(f"{tier}: {key} {run[key]} vs one device "
+                                f"{want}, {diff} > {tol} at world {world}")
+    if failures:
+        raise AssertionError("train_dp: " + "; ".join(failures))
+
+
+def dp_resnet50() -> dict:
+    """ResNet-50 bf16 from a ``stoke_from_config`` document with
+    ``examples/cifar10/config/dp_oss_sddp.yaml``'s flags (dp, bf16, oss,
+    sddp, batch 64, SGD(0.1, momentum 0.9)) on 32x32 images, against the
+    same document without ``distributed`` and the tiers: DP_RESNET_STEPS
+    ``train_step``s on the same seeded batches. BatchNorm's moments are
+    all-reduced over the group; the running statistics must match within
+    DP_BN_TOL of their largest magnitude."""
+    from stoke_tpu_torch.models import ResNet50
+    from stoke_tpu_torch.models.resnet import BatchNorm
+    from stoke_tpu_torch.utils.yaml_config import stoke_from_config
+
+    doc = {"batch_size_per_device": DP_RESNET_BATCH, "precision": "bf16",
+           "optimizer": {"name": "sgd", "learning_rate": 0.1,
+                         "momentum": 0.9}}
+    dp_doc = {**doc, "distributed": "dp", "oss": True, "sddp": True}
+    xs, ys = cifar_pool(n=DP_RESNET_STEPS, batch=DP_RESNET_BATCH)
+    runs = {}
+    for name, d in (("one_device", doc), ("dp_oss_sddp", dp_doc)):
+        model = ResNet50(num_classes=10, cifar_stem=True,
+                         device="cuda").to(memory_format=torch.channels_last)
+        s = stoke_from_config(model, softmax_ce, None, d)
+        synced = [m.sync_group is not None for m in model.modules()
+                  if isinstance(m, BatchNorm)]
+        losses = [float(s.train_step(x, y)) for x, y in zip(xs, ys)]
+        stats = bn_stats(s)
+        calls = ({} if name == "one_device" else collective_profile(
+            lambda: s.train_step(xs[0], ys[0]))["nccl_calls"])
+        runs[name] = {"losses": losses, "stats": stats,
+                      "bn_layers": len(synced),
+                      "bn_synced": all(synced) and bool(synced),
+                      "tier": s.status.sharding_tier.value,
+                      "nccl_calls": calls}
+        del s, model
+        torch.cuda.empty_cache()
+    a, b = runs["dp_oss_sddp"], runs["one_device"]
+    worst = max(float((a["stats"][k] - b["stats"][k]).abs().max()
+                      / b["stats"][k].abs().max()) for k in b["stats"])
+    if not a["bn_synced"] or b["bn_synced"]:
+        raise AssertionError("train_dp resnet50: BatchNorm's all-reduce is "
+                             "not on under dp (or on without it)")
+    if not worst <= DP_BN_TOL:
+        raise AssertionError(f"train_dp resnet50: running statistics differ "
+                             f"by {worst} of their largest magnitude > "
+                             f"{DP_BN_TOL}")
+    # each BatchNorm all-reduces its moments in the forward and their
+    # gradient in the backward
+    if not a["nccl_calls"].get("nccl:all_reduce", 0) >= 2 * a["bn_layers"]:
+        raise AssertionError(
+            f"train_dp resnet50: {a['bn_layers']} BatchNorm layers but the "
+            f"profiled step's all-reduces are {a['nccl_calls']}")
+    return {"model": "ResNet-50 v1.5, CIFAR stem, 10 classes, "
+            "channels_last, bf16", "batch": DP_RESNET_BATCH,
+            "tier": a["tier"], "losses_dp": a["losses"],
+            "losses_one_device": b["losses"],
+            "running_stats_max_rel_diff": worst, "tol": DP_BN_TOL,
+            "batchnorm_layers": a["bn_layers"],
+            "nccl_calls_profiled_step": a["nccl_calls"]}
+
+
+def train_dp(ops) -> dict:
+    """The DP / ZeRO ladder in a one-process NCCL group (world 1: the card
+    shows that the tiers run over NCCL, that their collectives launch and
+    are captured in the replayed windows, and that the flash kernels run
+    under each; nothing between ranks): GPT-base fp32 parity per tier,
+    GPT-base bf16 at full width per tier, ResNet-50 from the dp_oss_sddp
+    flags. At world 1 the ladder saves no memory."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    # the group is destroyed on failure too: NCCL's watchdog would
+    # otherwise hold the process for minutes after the error
+    try:
+        parity = dp_parity(ops)
+        batches = window_batches(max(DP_WINDOWS, DP_EAGER_STEPS,
+                                     DP_TIMED_WINDOWS))
+        full = {tier: dp_full_width(ops, tier, batches)
+                for tier in ("one_device", *DP_TIERS)}
+        del batches
+        try:
+            dp_window_parity(full, dist.get_world_size())
+        finally:
+            emit({"phase": "train_dp_losses", "runs": {
+                t: {k: v for k, v in r.items()
+                    if k.startswith(("losses", "rel_diff"))}
+                for t, r in full.items()}})
+        resnet = dp_resnet50()
+        return {"phase": "train_dp", "backend": dist.get_backend(),
+                "world_size": dist.get_world_size(),
+                "model": "GPT-base (12 x 768, vocab 50257), flash attention",
+                "parity_fp32_B2_L512": parity,
+                "full_width_bf16_B8_L1024": full,
+                "launches": {n: sum(full[t]["flash_launches"][n]
+                                    for t in DP_TIERS) for n in FLASH},
+                "resnet50": resnet, "seconds": time.perf_counter() - t0}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2887,9 +3210,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     bert = train_bert(ops)
     emit({**bert, "card": smi})
+    torch.cuda.empty_cache()
+    dp = train_dp(ops)
+    emit({**dp, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
-            fp32=None, bert_key=None):
+            fp32=None, bert_key=None, dp_key=None):
         out = {
             "name": name, "route": "cuda",
             "source": f"stoke_tpu_torch/csrc/{source}.cu",
@@ -2903,6 +3229,8 @@ def main() -> int:
             out.update(fp32_ms=fp32[f"{key}ms"],
                        fp32_bound_ms=fp32[f"{key}bound_ms"],
                        fp32_library_ms=fp32["library_ms"])
+        if dp_key is not None:  # train_dp's full-width runs (bf16)
+            out["launches_train_dp"] = dp["launches"][dp_key]
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]
@@ -2946,20 +3274,21 @@ def main() -> int:
             trained["launches"]["flash_fwd"],
             max(x["max_abs_err"] for x in flash if x not in fwd16),
             flash_main,
-            fp32=flash_fp32, bert_key=("fwd", "")),
+            fp32=flash_fp32, bert_key=("fwd", ""), dp_key="flash_fwd"),
         row("flash_bwd_dq", "flash_bwd",
             ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:210",
             trained["launches"]["flash_bwd_dq"],
             max(x["max_abs_err"]["dq"] for x in flash_bwd if x not in bwd16),
-            bwd_main, "dq_", bwd_fp32, bert_key=("bwd", "dq_")),
+            bwd_main, "dq_", bwd_fp32, bert_key=("bwd", "dq_"),
+            dp_key="flash_bwd_dq"),
         row("flash_bwd_dkv", "flash_bwd",
             ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:246",
             trained["launches"]["flash_bwd_dkv"],
             max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
                 for x in flash_bwd if x not in bwd16), bwd_main, "dkv_",
-            bwd_fp32, bert_key=("bwd", "dkv_")),
+            bwd_fp32, bert_key=("bwd", "dkv_"), dp_key="flash_bwd_dkv"),
         row("flash_fwd_fp16", "flash_fwd", ["flash_fwd_wgmma_kernel<__half>"],
             "stoke_tpu/ops/flash_attention.py:70",
             fp16["launches"]["flash_fwd"],

@@ -39,7 +39,8 @@ class DeviceOptions(Enum):
 
 
 class DistributedOptions(Enum):
-    """Distributed strategy: data parallelism (ROADMAP Queue 1 item 5)."""
+    """Distributed strategy: data parallelism over a process group, one
+    device a process (:mod:`stoke_tpu_torch.parallel`)."""
 
     dp = "dp"
 
@@ -56,8 +57,7 @@ class PrecisionOptions(Enum):
 
 class ShardingOptions(Enum):
     """The sharding ladder (ZeRO-1/2/3) that the ``oss``, ``sddp`` and
-    ``fsdp`` flags select; the port refuses every rung but ``none`` until
-    ROADMAP Queue 1 item 5."""
+    ``fsdp`` flags select (:mod:`stoke_tpu_torch.parallel.sharding`)."""
 
     none = "none"
     oss = "oss"
@@ -260,7 +260,7 @@ class ServeConfig:
 
 
 # --------------------------------------------------------------------------- #
-# data parallelism and the sharding ladder: ROADMAP Queue 1 item 5
+# data parallelism and the sharding ladder
 # --------------------------------------------------------------------------- #
 
 
@@ -268,8 +268,12 @@ class ServeConfig:
 class DataParallelConfig:
     """Data-parallel knobs: the mesh axis batches and gradients shard over,
     cross-replica BatchNorm statistics, how per-replica losses combine, and
-    an optional sequence-dimension sharding of the inputs. Refused until
-    ROADMAP Queue 1 item 5 (the DP / ZeRO ladder)."""
+    an optional sequence-dimension sharding of the inputs (refused:
+    ROADMAP Queue 1 item 8). Under ``distributed="dp"`` the port's
+    BatchNorm always takes the global batch's moments, as the JAX package
+    does; ``sync_batch_stats`` and ``convert_to_sync_batchnorm`` inform
+    only. ``loss_reduction`` is what ``Stoke.detach_and_sync_loss``
+    applies."""
 
     axis_name: str = "data"
     sync_batch_stats: bool = True
@@ -321,8 +325,10 @@ def comm_shard_updates(cfg: Optional["CommConfig"],
 class MeshConfig:
     """The device mesh: axis names, devices per axis (``-1`` inferred,
     None a 1-D mesh on ``axes[0]``), an explicit device list and the axes
-    that cross hosts. Needs ``distributed='dp'``; refused until ROADMAP
-    Queue 1 item 5."""
+    that cross hosts. Needs ``distributed='dp'``. The port builds a 1-D
+    mesh over the process group (one device a process, so ``devices``
+    must be None); more axes and ``dcn_axes`` are ROADMAP Queue 1 item
+    8."""
 
     axes: Tuple[str, ...] = ("data",)
     shape: Optional[Tuple[int, ...]] = None
@@ -334,8 +340,11 @@ class MeshConfig:
 class DistributedInitConfig:
     """Multi-process rendezvous (coordinator address, process count and
     id, local devices, timeout). The port's counterpart is
-    ``torch.distributed.init_process_group``; refused until ROADMAP Queue 1
-    item 5."""
+    ``torch.distributed.init_process_group`` at
+    ``tcp://coordinator_address`` (:func:`stoke_tpu_torch.parallel.mesh
+    .initialize_distributed`); ``local_device_ids`` names the one device
+    of the process; ``auto_initialize=False`` leaves the group to the
+    caller."""
 
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
@@ -348,15 +357,16 @@ class DistributedInitConfig:
 @dataclass
 class OSSConfig:
     """Optimizer-state sharding (ZeRO-1): leaves under ``min_shard_size``
-    elements stay replicated. Refused until ROADMAP Queue 1 item 5."""
+    elements stay replicated."""
 
     min_shard_size: int = 2**10
 
 
 @dataclass
 class SDDPConfig:
-    """Gradient and optimizer-state sharding (ZeRO-2). Refused until
-    ROADMAP Queue 1 item 5."""
+    """Gradient and optimizer-state sharding (ZeRO-2): leaves under
+    ``min_shard_size`` elements keep a replicated gradient buffer;
+    ``broadcast_buffers`` is a parity field with no effect."""
 
     min_shard_size: int = 2**10
     broadcast_buffers: bool = True
@@ -366,8 +376,9 @@ class SDDPConfig:
 class FSDPConfig:
     """Fully sharded parameters (ZeRO-3): parameters under
     ``min_weight_size`` stay replicated; ``shard_axis_preference``
-    "largest" or "first". Refused until ROADMAP Queue 1 item 5 (FSDP2's
-    ``fully_shard``)."""
+    "largest" or "first". ``reshard_after_forward`` is a parity field: the
+    port gathers the whole model before a micro-step's forward and frees
+    it after its backward."""
 
     min_weight_size: int = 2**10
     shard_axis_preference: str = "largest"

@@ -157,28 +157,55 @@ def unscale_and_check(grads: Sequence[torch.Tensor],
     return found == 0
 
 
+def _norm(grads: Sequence[torch.Tensor], p: float,
+          device: Optional[torch.device] = None) -> torch.Tensor:
+    """The ``p``-norm over all of ``grads`` in fp32 (0 on ``device`` for
+    none)."""
+    if not grads:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float(), p) for g in grads]), p)
+
+
 @torch.no_grad()
-def clip_gradients(grads: Sequence[torch.Tensor], grad_clip) -> None:
-    """Clip ``grads`` in place, on the accumulated, unscaled gradients.
+def clip_gradients(grads: Sequence[torch.Tensor], grad_clip,
+                   sharded: Sequence[torch.Tensor] = (),
+                   ladder=None) -> None:
+    """Clip ``grads`` and ``sharded`` in place, on the accumulated,
+    unscaled gradients.
 
     ``ClipGradConfig``: clamp each element to ``[-v, v]``.
     ``ClipGradNormConfig``: the global ``norm_type``-norm over all
     gradients in fp32 (``inf``: the largest magnitude), then every
     gradient times ``min(1, max_norm / (norm + 1e-6))``, computed on the
-    device with no host sync."""
-    if grad_clip is None or not grads:
+    device with no host sync. Across the ranks of ``ladder``, ``grads``
+    are the replicated leaves' (the same on every rank, counted once) and
+    ``sharded`` each rank's slices, whose powers (or maxima) are summed
+    (or maxed) over the ranks. Without slices (plain dp) the norm is
+    local: every rank holds the same reduced gradients."""
+    everything = list(grads) + list(sharded)
+    if grad_clip is None or not everything:
         return
     if isinstance(grad_clip, ClipGradConfig):
         v = grad_clip.clip_value
-        for g in grads:
+        for g in everything:
             g.clamp_(-v, v)
         return
     if isinstance(grad_clip, ClipGradNormConfig):
         p = grad_clip.norm_type
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float(), p) for g in grads]), p)
+        # the ladder's layout is the same on every rank, so all skip the
+        # reduction together
+        if ladder is None or not ladder.buckets:
+            norm = _norm(everything, p)
+        else:
+            dev = everything[0].device
+            rep, part = _norm(grads, p, dev), _norm(sharded, p, dev)
+            if p == float("inf"):
+                norm = torch.maximum(rep, ladder.reduce_(part, "max"))
+            else:
+                norm = (rep ** p + ladder.reduce_(part ** p)) ** (1.0 / p)
         factor = torch.clamp(grad_clip.max_norm / (norm + 1e-6), max=1.0)
-        for g in grads:
+        for g in everything:
             g.mul_(factor.to(g.dtype))
         return
     raise TypeError(f"unknown grad_clip {type(grad_clip)}")
@@ -252,13 +279,17 @@ class StepEngine:
         generator: the ``torch.Generator`` the model's dropout draws from;
             a captured window registers it, so every replay draws fresh
             masks.
+        ladder: the data-parallel tier's collectives
+            (:class:`~stoke_tpu_torch.parallel.ladder.Ladder`), or None on
+            one device. The optimizer then holds ``ladder.opt_params``.
     """
 
     def __init__(self, module: nn.Module, loss_fn: Callable,
                  optimizer: torch.optim.Optimizer, precision: PrecisionPolicy,
                  grad_accum: int = 1, grad_clip=None, loss_weights=None,
                  precision_config: Optional[PrecisionConfig] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 ladder=None):
         self.module = module
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -268,6 +299,9 @@ class StepEngine:
         self.loss_weights = loss_weights
         self.precision_config = precision_config or PrecisionConfig()
         self.generator = generator
+        self.ladder = ladder
+        #: whether a backward reduces its gradients over the ranks
+        self.sync = True
         self.params: List[torch.Tensor] = [
             p for p in module.parameters() if p.requires_grad
         ]
@@ -283,9 +317,26 @@ class StepEngine:
         if self.device.type == "cuda":
             make_capturable(optimizer)
 
+    @property
+    def opt_params(self) -> List[torch.Tensor]:
+        """The tensors the optimizer steps: the parameters, or under a
+        sharding tier each sharded leaf's slice in its place."""
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
     def forward(self, args: tuple, kwargs: dict):
         """The model's forward under the precision policy (JAX
-        ``_run_forward_train``); autograd records it when grad is on."""
+        ``_run_forward_train``); autograd records it when grad is on.
+        Under fsdp the parameters are gathered first, and freed after a
+        forward that records no gradient."""
+        if self.ladder is None:
+            return self._forward(args, kwargs)
+        self.ladder.materialize()
+        out = self._forward(args, kwargs)
+        if not torch.is_grad_enabled():
+            self.ladder.release()
+        return out
+
+    def _forward(self, args: tuple, kwargs: dict):
         if self.precision.compute_dtype is None:
             return self.module(*args, **kwargs)
         dt = self.precision.compute_dtype
@@ -314,7 +365,8 @@ class StepEngine:
         the vector of the (weighted) losses divided by ``grad_accum``, one
         entry a scale. ``report`` has the loss result's structure, each
         loss detached and divided by ``grad_accum`` (the JAX facade's
-        convention)."""
+        convention); across ranks each averaged over them, the global
+        batch's loss."""
         inv = 1.0 / self.grad_accum
         leaves, spec = tree_flatten(result)
         if self.loss_weights is not None:
@@ -340,6 +392,8 @@ class StepEngine:
         else:
             objective = sum(comps) * inv
         report = tree_unflatten([l.detach() * inv for l in leaves], spec)
+        if self.ladder is not None:
+            report = self.ladder.average(report)
         return objective, report
 
     def backward(self, objective: torch.Tensor) -> None:
@@ -348,13 +402,17 @@ class StepEngine:
         backward per loss seeded with its own scale, each checked for
         finiteness (ANDed into the scaler's ``finite`` flags) and unscaled
         into the buffer, which then holds unscaled gradients (the JAX
-        accumulate core's per-loss branch)."""
+        accumulate core's per-loss branch). Across ranks the tier then
+        reduces what it shards between micro-steps
+        (:meth:`~stoke_tpu_torch.parallel.ladder.Ladder.after_backward`)."""
         if self.per_loss:
             self._backward_per_loss(objective)
         elif self.precision.scaled:
             (objective * self.scaler["scale"]).backward()
         else:
             objective.backward()
+        if self.ladder is not None:
+            self.ladder.after_backward(self.sync)
 
     def _backward_per_loss(self, objective: torch.Tensor) -> None:
         scales, flags = self.scaler["scale"], self.scaler["finite"]
@@ -391,22 +449,40 @@ class StepEngine:
         under fp16 unscale and check the accumulated gradients (ANDed with
         the per-loss flags), then clip, step the optimizer (put back when
         not finite), zero the buffer, and update the scaler. Returns the
-        finite flag (a bool scalar on the device), or None without fp16."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        finite flag (a bool scalar on the device), or None without fp16.
+
+        Across ranks the gradients are first reduced
+        (:meth:`~stoke_tpu_torch.parallel.ladder.Ladder.reduce_for_apply`),
+        the finite flags ANDed over the ranks (one rank's overflow skips
+        the step everywhere), the clip norm taken over the global
+        gradient, and after the step the tier's parameters gathered."""
+        ladder = self.ladder
+        if ladder is None:
+            grads = [p.grad for p in self.params if p.grad is not None]
+            sharded: List[torch.Tensor] = []
+        else:
+            grads, sharded = ladder.reduce_for_apply()
         finite = None
         if self.precision.scaled:
             scale = self.scaler["scale"]
             inv = (torch.ones((), dtype=torch.float32, device=scale.device)
                    if self.per_loss else torch.reciprocal(scale))
-            finite = unscale_and_check(grads, inv)
+            finite = unscale_and_check(grads + sharded, inv)
             if self.per_loss:
+                if ladder is not None:
+                    self.scaler["finite"].copy_(
+                        ladder.all_true(self.scaler["finite"]))
                 finite = finite & self.scaler["finite"].all()
-        clip_gradients(grads, self.grad_clip)
+            if ladder is not None:
+                finite = ladder.all_true(finite)
+        clip_gradients(grads, self.grad_clip, sharded, ladder)
         if finite is None:
             self.optimizer.step()
         else:
             self._step_unless(finite)
         self.optimizer.zero_grad(set_to_none=True)
+        if ladder is not None:
+            ladder.after_step()
         if self.precision.scaled:
             flags = self.scaler["finite"] if self.per_loss else finite
             new = scaler_update(self.scaler, flags, self.precision_config)
@@ -418,9 +494,11 @@ class StepEngine:
 
     def _guarded(self) -> Dict[Any, torch.Tensor]:
         """Every tensor a step may change: the parameters and each tensor
-        of the optimizer's state, by (parameter index, state key)."""
-        out = {(i, None): p for i, p in enumerate(self.params)}
-        for i, p in enumerate(self.params):
+        of the optimizer's state, by (parameter index, state key); under
+        a sharding tier the slices the optimizer holds."""
+        params = self.opt_params
+        out = {(i, None): p for i, p in enumerate(params)}
+        for i, p in enumerate(params):
             for key, v in self.optimizer.state.get(p, {}).items():
                 if torch.is_tensor(v):
                     out[(i, key)] = v
@@ -537,7 +615,7 @@ class StepEngine:
         self._windows.clear()
 
     def _capture(self, flat: list, spec, lrs) -> CapturedWindow:
-        for p in self.params:
+        for p in self.opt_params:
             for key, v in self.optimizer.state.get(p, {}).items():
                 if torch.is_tensor(v) and v.device != self.device:
                     raise RuntimeError(

@@ -1,4 +1,5 @@
-"""The ``Stoke`` facade of the port, on one device.
+"""The ``Stoke`` facade of the port: one device, or one device a process
+of a data-parallel run.
 
 Counterpart of ``stoke_tpu/facade.py``: the constructor (``:229-804``, the
 parts the port takes), the four-call contract and ``train_step``
@@ -41,14 +42,25 @@ gradients when saved mid-window, and the dropout generator's state.
 ``load`` copies into the live tensors, so a window captured as a CUDA
 graph replays from the loaded state.
 
+``distributed="dp"`` joins a process group (the launcher's, an explicit
+``DistributedInitConfig`` rendezvous, or a one-process group;
+:mod:`stoke_tpu_torch.parallel.mesh`), drives ``cuda:LOCAL_RANK``, and
+runs the tier the ``oss`` / ``sddp`` / ``fsdp`` flags select through the
+step engine's :class:`~stoke_tpu_torch.parallel.ladder.Ladder`. Rank 0's
+parameters and buffers are broadcast at construction. Each rank draws
+its dropout masks from its own seed (``seed + rank``): the JAX package
+draws one mask over the global batch, so the masks cannot match its bit
+for bit. The losses ``loss()`` reports are the global batch's.
+
 Left out, and refused with ``NotImplementedError`` naming their ROADMAP
-item: ``distributed`` and the oss/sddp/fsdp tiers and the sharded
-checkpoint format (by the status layer), ``resume`` (item 9) and
-``estimate_step_cost`` (item 10).
+item: the sharded checkpoint format (by the status layer), checkpoints
+across more than one process and ``serve()`` under a sharding tier (item
+6b), ``resume`` (item 9) and ``estimate_step_cost`` (item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -56,6 +68,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils._pytree import tree_leaves, tree_map
 
@@ -66,15 +79,30 @@ from stoke_tpu_torch.configs import (
     ClipGradNormConfig,
     DeviceOptions,
     DistributedOptions,
+    LossReduction,
     ParamNormalize,
     PrecisionConfig,
     PrecisionOptions,
+    ShardingOptions,
 )
 from stoke_tpu_torch.data import StokeDataLoader, place
 from stoke_tpu_torch.engine import PrecisionPolicy, StepEngine, build_optimizer
 from stoke_tpu_torch.models.bert import Dropout, LayerDrop
+from stoke_tpu_torch.models.resnet import BatchNorm
+from stoke_tpu_torch.parallel.ladder import Ladder
+from stoke_tpu_torch.parallel.mesh import (
+    build_mesh,
+    initialize_distributed,
+    local_rank,
+    one_process_group,
+)
+from stoke_tpu_torch.parallel.sharding import make_sharding_rules
 from stoke_tpu_torch.serving.engine import resolve_device
-from stoke_tpu_torch.status import StokeStatus, StokeValidationError
+from stoke_tpu_torch.status import (
+    _LATER_SHARDED_IO,
+    StokeStatus,
+    StokeValidationError,
+)
 from stoke_tpu_torch.utils.printing import unrolled_print
 from stoke_tpu_torch.utils.tb_writer import TBEventWriter
 from stoke_tpu_torch.utils.trees import tree_count_params
@@ -138,7 +166,12 @@ class Stoke:
         grad_accum: micro-batches per optimizer step (None = 1).
         grad_clip: ``ClipGradConfig``, ``ClipGradNormConfig`` or None.
         device: "cuda" (default; raises when there is no card) or "cpu".
-        distributed / oss / sddp / fsdp: later slices.
+            Under ``distributed`` the card is ``cuda:LOCAL_RANK``.
+        distributed: None, or "dp" (and the JAX package's aliases): data
+            parallelism over a process group, one device a process
+            (NCCL on the card, gloo on the CPU).
+        oss / sddp / fsdp: the sharding tier under ``distributed``
+            (ZeRO-1/2/3; :mod:`stoke_tpu_torch.parallel.sharding`).
         precision: None/"full", "bf16" (the whole model in bfloat16 over
             fp32 master parameters) or "fp16" (in float16, with the dynamic
             loss scaler of ``PrecisionConfig``).
@@ -156,7 +189,8 @@ class Stoke:
             is ``sum(w_i * loss_i)``, the reported losses stay unweighted.
         seed: seeds the ``torch.Generator`` that draws the model's
             dropout masks (each :class:`~stoke_tpu_torch.models.bert
-            .Dropout` of the model uses it).
+            .Dropout` of the model uses it); rank ``r`` of a
+            data-parallel run seeds it with ``seed + r``.
         ema_weight: weight of the newest micro loss in ``ema_loss``.
         verbose: kept for the JAX signature; the port prints nothing.
         model_rng_keys: the JAX package's random stream names (e.g.
@@ -204,7 +238,15 @@ class Stoke:
         )
         st = self._status_obj
         self._device = resolve_device(st.device.value)
-        st.set_post_init_values(world_size=1)
+        self._group = None
+        if st.is_distributed:
+            self._join_process_group()
+        world = (dist.get_world_size(self._group) if self._group is not None
+                 else 1)
+        st.set_post_init_values(world_size=world, n_processes=world)
+        ckpt = st.checkpoint_config
+        if world > 1 and ckpt.save_every_n_steps and ckpt.auto_path:
+            self._refuse_multiprocess_io("the periodic auto-save")
         if not isinstance(model, nn.Module):
             raise TypeError(
                 f"Stoke -- model must be a torch.nn.Module, got "
@@ -219,10 +261,12 @@ class Stoke:
         if params is not None:
             self._module.load_state_dict(params)
         self._generator = torch.Generator(device=self._device)
-        self._generator.manual_seed(seed)
+        self._generator.manual_seed(seed + self.rank)
         for m in self._module.modules():
             if isinstance(m, (Dropout, LayerDrop)):
                 m.generator = self._generator
+            if isinstance(m, BatchNorm):
+                m.sync_group = self._group
         if isinstance(model_rng_keys, str) or not all(
                 isinstance(k, str) for k in model_rng_keys):
             raise TypeError(
@@ -232,12 +276,26 @@ class Stoke:
         self._tb_writer_obj: Optional[TBEventWriter] = None
         self._train_kwargs = dict(model_train_kwargs or {})
         self._eval_kwargs = dict(model_eval_kwargs or {})
+        self._ladder: Optional[Ladder] = None
+        opt_params = self._module.parameters()
+        if self._group is not None:
+            if world > 1:
+                with torch.no_grad():
+                    for t in self._module.state_dict().values():
+                        dist.broadcast(t, 0, group=self._group)
+            rules = make_sharding_rules(
+                st.sharding_tier, world, st.oss_config, st.sddp_config,
+                st.fsdp_config)
+            self._ladder = Ladder(
+                [p for p in self._module.parameters() if p.requires_grad],
+                rules, self._group)
+            opt_params = self._ladder.opt_params
         self._engine = StepEngine(
-            self._module, loss,
-            build_optimizer(optimizer, self._module.parameters()),
+            self._module, loss, build_optimizer(optimizer, opt_params),
             self._precision, grad_accum=st.grad_accum,
             grad_clip=st.grad_clip, loss_weights=loss_weights,
             precision_config=st.precision_config, generator=self._generator,
+            ladder=self._ladder,
         )
         self._skipped_steps = torch.zeros((), dtype=torch.float32,
                                           device=self._device)
@@ -252,6 +310,33 @@ class Stoke:
         self._agg_loss: Optional[torch.Tensor] = None
         self._agg_count = 0
         self.train()
+
+    def _join_process_group(self) -> None:
+        """Join the run's process group (or make a one-process group),
+        drive ``cuda:LOCAL_RANK`` on the card, and build the data mesh."""
+        st = self._status_obj
+        if self._device.type == "cuda":
+            self._device = torch.device("cuda",
+                                        local_rank(st.dist_init_config))
+            torch.cuda.set_device(self._device)
+        joined = (st.dist_init_config.auto_initialize
+                  and initialize_distributed(st.dist_init_config,
+                                             self._device))
+        if not joined and not dist.is_initialized():
+            one_process_group(self._device)
+        self._group = build_mesh(st.mesh_config, self._device).get_group()
+
+    def _refuse_multiprocess_io(self, what: str) -> None:
+        if self.world_size > 1:
+            raise NotImplementedError(
+                f"Stoke -- {what} across {self.world_size} processes is not "
+                f"ported yet: {_LATER_SHARDED_IO}")
+
+    def _whole_params(self):
+        """The module's parameters whole inside the block (under fsdp
+        gathered, and freed again after)."""
+        return (self._ladder.whole() if self._ladder is not None
+                else contextlib.nullcontext())
 
     # ------------------------------------------------------------------ #
     # mode toggles
@@ -293,7 +378,8 @@ class Stoke:
         args, kwargs = self._place(args), self._place(kwargs)
         result = self._engine.loss(*args, **kwargs)
         if not self.training:
-            return result
+            return (result if self._ladder is None
+                    else self._ladder.average(result))
         objective, report = self._engine.objective(result)
         self._pending = objective if objective.requires_grad else None
         self._update_loss_tracking(report)
@@ -494,6 +580,8 @@ class Stoke:
         """Drop the accumulated gradients and zero the accumulation
         counter without stepping (the JAX facade's ``reset``)."""
         self._engine.optimizer.zero_grad(set_to_none=True)
+        if self._ladder is not None:
+            self._ladder.drop_grads()
         self._grad_accum_counter = 0
         self._pending = None
         self._reset_tracking_window()
@@ -503,9 +591,13 @@ class Stoke:
     # ------------------------------------------------------------------ #
 
     def _param_names(self) -> Dict[torch.Tensor, str]:
-        """Each optimizer parameter's name in the module (raises for a
-        parameter the module does not hold)."""
+        """Each optimizer parameter's name in the module, a sharded leaf's
+        slice by its leaf's (raises for a parameter the module does not
+        hold)."""
         names = {p: n for n, p in self._module.named_parameters()}
+        if self._ladder is not None:
+            for p, o in zip(self._ladder.params, self._ladder.opt_params):
+                names[o] = names[p]
         for group in self.optimizer.param_groups:
             for p in group["params"]:
                 if p not in names:
@@ -545,15 +637,33 @@ class Stoke:
         return self._save_with_config(
             path, name, self._status_obj.checkpoint_config, extras)
 
+    def _accumulated_grads(self) -> Dict[str, torch.Tensor]:
+        """The accumulated gradient of each parameter by name, a sharded
+        accumulator's slice in its place (the whole leaf at world 1)."""
+        names = {p: n for n, p in self._module.named_parameters()}
+        out = {names[p]: p.grad for p in self._engine.params
+               if p.grad is not None}
+        if self._ladder is not None:
+            for i, p in enumerate(self._ladder.params):
+                acc = self._ladder.accumulator(i)
+                if acc is not None:
+                    out[names[p]] = acc
+        return out
+
     def _save_with_config(self, path: str, name: str,
                           config: CheckpointConfig,
                           extras: Optional[Dict[str, Any]]) -> str:
+        self._refuse_multiprocess_io("Stoke.save")
+        with self._whole_params():
+            return self._save_whole(path, name, config, extras)
+
+    def _save_whole(self, path: str, name: str, config: CheckpointConfig,
+                    extras: Optional[Dict[str, Any]]) -> str:
         names = self._param_names()
         arrays, values, groups = self._opt_checkpoint(names)
         grad_buf = None
         if self._grad_accum_counter > 0:
-            grad_buf = {names[p]: p.grad for p in self._engine.params
-                        if p.grad is not None}
+            grad_buf = self._accumulated_grads()
         return io_ops.save_checkpoint(
             path=path, name=name,
             state={
@@ -610,8 +720,18 @@ class Stoke:
         are restored. A tag saved mid-window restores the accumulated
         gradients and the window's counter; one without them restarts the
         window from zero. Returns the tag's extras."""
+        self._refuse_multiprocess_io("Stoke.load")
+        with self._whole_params():
+            extras = self._load_whole(path, tag, name)
+            if self._ladder is not None:
+                self._ladder.load_from_params()
+        return extras
+
+    def _load_whole(self, path: str, tag: Optional[str],
+                    name: str) -> Dict[str, Any]:
         sd = self._module.state_dict()
         params = dict(self._module.named_parameters())
+        held = {n: o for o, n in self._param_names().items()}
         scaler = self._engine.scaler
 
         def like(tensors):
@@ -621,7 +741,7 @@ class Stoke:
         payload = io_ops.load_checkpoint(
             path, tag,
             {"variables": (like(sd), sd.keys()),
-             "opt_state": (self._opt_spec(params), ()),
+             "opt_state": (self._opt_spec(held), ()),
              "scaler_state": (like(scaler), scaler.keys()),
              "grad_buf": (like(params), ())},
             name=name if tag is None else None)
@@ -632,17 +752,23 @@ class Stoke:
                 sd[n].copy_(io_ops.from_numpy(a, sd[n].dtype))
             for n, a in payload["scaler_state"].items():
                 scaler[n].copy_(io_ops.from_numpy(a, scaler[n].dtype))
-            self._restore_optimizer(payload["opt_state"], port, params)
+            self._restore_optimizer(payload["opt_state"], port, held)
             grads = payload["grad_buf"]
+            if self._ladder is not None:
+                self._ladder.drop_grads()
+            accumulators = self._accumulated_grads()
             for n, p in params.items():
                 if grads is None or n not in grads:
                     p.grad = None
+                    continue
+                g = io_ops.from_numpy(grads[n], p.dtype).to(p.device)
+                acc = accumulators.get(n)
+                if acc is not None and acc is not p.grad:
+                    acc.copy_(g)
+                elif p.grad is not None and p.grad.shape == p.shape:
+                    p.grad.copy_(g)
                 else:
-                    g = io_ops.from_numpy(grads[n], p.dtype).to(p.device)
-                    if p.grad is not None and p.grad.shape == p.shape:
-                        p.grad.copy_(g)
-                    else:
-                        p.grad = g
+                    p.grad = g
         if port.get("generator_device") == self._device.type:
             self._generator.set_state(torch.from_numpy(port["generator"]))
         counters = payload["counters"]
@@ -856,10 +982,17 @@ class Stoke:
         this engine only and are checked by the same serve rules. The
         engine serves a copy of the model and its weights: training on
         does not change an engine already built (build another to serve
-        newer weights)."""
+        newer weights). Under plain dp every rank holds the whole model
+        and may serve it; under a sharding tier the weights would first
+        be gathered, which is ROADMAP item 6b."""
         from stoke_tpu_torch.models.gpt import GPT
         from stoke_tpu_torch.serving.engine import ServingEngine
 
+        if self._status_obj.sharding_tier is not ShardingOptions.none:
+            raise NotImplementedError(
+                f"Stoke.serve() under "
+                f"{self._status_obj.sharding_tier.value} is not ported yet: "
+                f"{_LATER_SHARDED_IO}")
         scfg = self._status_obj.serve_config
         if scfg is None:
             raise StokeValidationError(
@@ -895,7 +1028,9 @@ class Stoke:
         kernels counted by their formula whether the kernels or their
         plain versions run. The run's state is as it was afterwards: the
         gradients, buffers, scaler state and dropout generator are put
-        back, and no counter moves."""
+        back, and no counter moves. Across ranks every rank must call it
+        (the loss and BatchNorm still reduce over the ranks), and the
+        gradients are not reduced."""
         from torch.utils.flop_counter import FlopCounterMode
 
         if not isinstance(model_args, tuple):
@@ -913,9 +1048,11 @@ class Stoke:
         try:
             for p in params:
                 p.grad = None
+            self._engine.sync = False
             with FlopCounterMode(display=False) as counter:
                 self._engine.accum(margs, dict(self._train_kwargs), largs)
         finally:
+            self._engine.sync = True
             with torch.no_grad():
                 for p, g in zip(params, grads):
                     p.grad = g
@@ -987,17 +1124,25 @@ class Stoke:
     def detach_and_sync_loss(self, loss: Any,
                              user_reduction: str = "mean") -> float:
         """The host float of a loss (a tensor, or a tuple, list or dict of
-        them: their sum). On one process the value is already the whole
-        batch's; ``user_reduction`` ("mean" or "sum") says how the loss
-        function reduces over the batch, which matters only across
-        processes, and is checked."""
+        them: their sum). A loss from :meth:`loss` is already the global
+        batch's. With ``DataParallelConfig(loss_reduction=LossReduction
+        .sum)`` and a mean-reduced loss function (``user_reduction=
+        "mean"``) the value is ``world_size`` times it, the sum of the
+        ranks' means (the JAX facade's rule); a sum-reduced loss is already
+        a global sum."""
         if user_reduction not in ("mean", "sum"):
             raise ValueError(
                 f"user_reduction must be 'mean' or 'sum', got "
                 f"{user_reduction!r}"
             )
-        return float(sum(torch.as_tensor(l).detach().float()
-                         for l in tree_leaves(loss)))
+        val = float(sum(torch.as_tensor(l).detach().float()
+                        for l in tree_leaves(loss)))
+        st = self._status_obj
+        if (st.is_distributed
+                and st.dp_config.loss_reduction is LossReduction.sum
+                and user_reduction == "mean"):
+            val *= self.world_size
+        return val
 
     def print_ema_loss(self, prepend_msg: str = "EMA Loss") -> None:
         self.print_on_devices(f"{prepend_msg}: {self.ema_loss:.6f}")
@@ -1018,12 +1163,13 @@ class Stoke:
         self.print_on_devices(f"{prepend_msg}: {v:.6f}")
 
     # ------------------------------------------------------------------ #
-    # ranks and printing (one process: rank 0 of 1)
+    # ranks and printing (one device a process)
     # ------------------------------------------------------------------ #
 
     @property
     def rank(self) -> int:
-        return 0
+        """This process's rank in the run's group (0 on one device)."""
+        return 0 if self._group is None else dist.get_rank(self._group)
 
     @property
     def is_rank_0(self) -> bool:
@@ -1035,7 +1181,8 @@ class Stoke:
 
     @property
     def n_processes(self) -> int:
-        return 1
+        """Processes in the run: one a device, so the world size."""
+        return self.world_size
 
     def print_on_devices(self, msg: str, rank: Optional[int] = 0) -> None:
         """Print on process ``rank``, or on every process with None."""
@@ -1051,8 +1198,10 @@ class Stoke:
             unrolled_print(f"WARN: {msg}")
 
     def barrier(self) -> None:
-        """Synchronise the processes; one process has no one to wait
-        for."""
+        """Wait for every process of the run (nothing to wait for on one
+        device)."""
+        if self._group is not None:
+            dist.barrier(group=self._group)
 
     def block_until_ready(self) -> None:
         """Wait for the card's queued work (nothing to wait for on the

@@ -19,7 +19,9 @@ linear head. The layers are the flax modules' counterparts, on NCHW:
   fp32 (flax promotes ``x - mean`` to the statistics' fp32), cast back to
   the input's dtype. ``torch.nn.BatchNorm2d`` updates ``running_var`` with
   the unbiased variance, so it is not used. On one device the batch is the
-  global batch.
+  global batch; across ranks (``BatchNorm.sync_group``, which ``Stoke``
+  sets under ``distributed="dp"``) the moments are all-reduced, so they
+  are the global batch's, as in the JAX package.
 
 Module and parameter names mirror the flax tree (``conv_init``,
 ``BottleneckBlock_0.Conv_1.weight``, ``norm_proj``, ``Dense_0``), so
@@ -123,10 +125,20 @@ class BatchNorm(nn.Module):
     ``weight`` (flax ``scale``, initialised to ``scale_init``) and ``bias``
     are parameters; ``running_mean`` and ``running_var`` are fp32 buffers
     that training updates in place (so a replayed CUDA graph updates them
-    too)."""
+    too).
+
+    ``sync_group``: None (the batch is this process's), or the process
+    group of a data-parallel run. In training the per-channel ``E[x]`` and
+    ``E[x^2]`` are then all-reduced over it by the autograd-aware
+    ``torch.distributed.nn.functional.all_reduce`` and divided by its size:
+    the global batch's moments, and the global batch's backward. The JAX
+    package always computes the global batch's (its ``sync_batch_stats``
+    and ``convert_to_sync_batchnorm`` only inform), and so does the port
+    under dp whatever those flags say."""
 
     momentum = 0.9
     eps = 1e-5
+    sync_group = None
 
     def __init__(self, features: int, scale_init: float = 1.0, device=None):
         super().__init__()
@@ -143,8 +155,15 @@ class BatchNorm(nn.Module):
         dims = [d for d in range(x.ndim) if d != 1]
         if self.training:
             xf = x.float()
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            mean, sq = xf.mean(dims), (xf * xf).mean(dims)
+            if self.sync_group is not None:
+                from torch.distributed import get_world_size
+                from torch.distributed.nn.functional import all_reduce
+
+                both = all_reduce(torch.stack([mean, sq]),
+                                  group=self.sync_group)
+                mean, sq = both / get_world_size(self.sync_group)
+            var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(

@@ -14,9 +14,13 @@ Legality comes first (``StokeValidationError``). Only then does
 :meth:`StokeStatus._refuse_later_slices` refuse, with
 ``NotImplementedError`` naming the ROADMAP item, what the port does not
 run yet: every config class but ``PrecisionConfig``, the clip configs,
-``CheckpointConfig``, ``ServeConfig`` and ``TensorboardConfig``
-(:data:`LATER_CONFIGS`); ``distributed`` and the oss/sddp/fsdp tiers (item
-5); the sharded checkpoint format (item 6b) and offload staging (item 9).
+``CheckpointConfig``, ``ServeConfig``, ``TensorboardConfig`` and the data
+parallel ones (``DataParallelConfig``, ``MeshConfig``,
+``DistributedInitConfig``, ``OSSConfig``, ``SDDPConfig``, ``FSDPConfig``)
+(:data:`LATER_CONFIGS`); ``DataParallelConfig.shard_seq_dim`` and a mesh
+of more than one axis or with cross-host axes (item 8); the sharded
+checkpoint format (item 6b) and offload staging (item 9). ``distributed``
+(``"dp"`` and its aliases) and the oss/sddp/fsdp tiers run.
 
 :func:`serve_config_error` holds the serving rules with the JAX package's
 messages, but for the rule that refuses the TPU decode kernel on the CPU:
@@ -80,7 +84,6 @@ from stoke_tpu_torch.configs import (
 )
 
 _ITEM = "ROADMAP Queue 1 item"
-_LATER_DISTRIBUTED = f"{_ITEM} 5 (the DP / ZeRO ladder)"
 _LATER_TRANSPORT = f"{_ITEM} 7 (quantized gradient transports)"
 _LATER_MODEL_PARALLEL = f"{_ITEM} 8 (long context and model parallelism)"
 _LATER_SHARDED_IO = (
@@ -97,12 +100,6 @@ LATER_CONFIGS: Dict[str, str] = {
     "AttributionConfig": _LATER_TELEMETRY,
     "CommConfig": _LATER_TRANSPORT,
     "CompileConfig": _LATER_COMPILE,
-    "DataParallelConfig": _LATER_DISTRIBUTED,
-    "MeshConfig": _LATER_DISTRIBUTED,
-    "DistributedInitConfig": _LATER_DISTRIBUTED,
-    "OSSConfig": _LATER_DISTRIBUTED,
-    "SDDPConfig": _LATER_DISTRIBUTED,
-    "FSDPConfig": _LATER_DISTRIBUTED,
     "OffloadOptimizerConfig": _LATER_STAGING,
     "OffloadParamsConfig": _LATER_STAGING,
     "OffloadDiskConfig": _LATER_STAGING,
@@ -263,10 +260,11 @@ class StokeStatus:
         grad_accum: micro-batches per optimizer step (None = 1; >= 1).
         grad_clip: ``ClipGradConfig``, ``ClipGradNormConfig`` or None.
         device: "cuda" (default) or "cpu".
-        distributed: None; "dp" and its aliases wait for ROADMAP item 5.
+        distributed: None, or "dp" and its aliases (a process group of
+            one device a process; see ``stoke_tpu_torch.parallel``).
         precision: None/"full"/"fp32", "bf16" or "fp16" (and the JAX
             package's aliases).
-        oss / sddp / fsdp: the sharding tiers (ROADMAP item 5).
+        oss / sddp / fsdp: the sharding tiers (ZeRO-1/2/3).
         configs: config objects of ``ALL_CONFIG_CLASSES``, deduplicated by
             class name (the last one of a class wins, with a warning).
     """
@@ -1179,14 +1177,18 @@ class StokeStatus:
         """After the legality rules: ``NotImplementedError`` naming the
         ROADMAP item of the first config class, then flag or setting, that
         the port does not run yet."""
-        s = self._status
         later = [(f"{name} is", name in self._configs, LATER_CONFIGS[name])
                  for name in LATER_CONFIGS]
+        dp = self._configs.get("DataParallelConfig")
+        mesh = self._configs.get("MeshConfig")
         later += [
-            (f"distributed={getattr(s['distributed'], 'value', None)!r} is",
-             s["distributed"] is not None, _LATER_DISTRIBUTED),
-            ("oss/sddp/fsdp is", s["oss"] or s["sddp"] or s["fsdp"],
-             _LATER_DISTRIBUTED),
+            ("DataParallelConfig.shard_seq_dim is",
+             dp is not None and dp.shard_seq_dim is not None,
+             _LATER_MODEL_PARALLEL),
+            (f"a mesh of axes {getattr(mesh, 'axes', None)} (dcn_axes "
+             f"{getattr(mesh, 'dcn_axes', None)}) is",
+             mesh is not None and (len(mesh.axes) > 1 or bool(mesh.dcn_axes)),
+             _LATER_MODEL_PARALLEL),
         ]
         ckpt = self._configs.get("CheckpointConfig")
         if ckpt is not None:
@@ -1204,7 +1206,8 @@ class StokeStatus:
 
     def set_post_init_values(self, world_size: int,
                              n_processes: int = 1) -> None:
-        """Record the device and process counts once the engine exists;
+        """Record the device and process counts once the process group
+        exists (under the port one device a process, so they are equal);
         the effective batch is per-device batch x devices x grad_accum."""
         self._status["world_size"] = world_size
         self._status["n_devices"] = world_size

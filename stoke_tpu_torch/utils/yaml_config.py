@@ -22,6 +22,10 @@ the port builds the ``torch.optim`` optimizer that computes the same
 with the ROADMAP item. YAML lists become tuples, and the enum fields
 (``format``, ``loss_reduction``) their enums. PyYAML is imported only to
 read a path.
+
+:func:`stoke_from_example` builds a run from the CIFAR-10 example's own
+documents (``examples/cifar10/config/*.yaml``), which use that example's
+schema.
 """
 
 from __future__ import annotations
@@ -143,3 +147,106 @@ def stoke_from_config(
         )
     kwargs.update(overrides)
     return Stoke(model=model, loss=loss, params=params, **kwargs)
+
+
+#: the keys of the CIFAR-10 example's documents
+#: (``examples/cifar10/config/*.yaml``, read by its ``build_stoke``)
+_EXAMPLE_KEYS = (
+    "model", "device", "distributed", "precision", "grad_accum",
+    "grad_clip_norm", "oss", "sddp", "fsdp", "epochs", "batch_size_per_device",
+    "lr", "momentum", "seed", "telemetry", "comm", "health",
+)
+
+
+def _example_loss(logits, labels):
+    """optax's softmax cross entropy with integer labels, batch mean."""
+    import torch.nn.functional as F
+
+    return F.cross_entropy(logits.float(), labels.long())
+
+
+def stoke_from_example(cfg: Union[str, Dict[str, Any]], model: Any = None,
+                       **overrides):
+    """A :class:`~stoke_tpu_torch.Stoke` from one of the CIFAR-10
+    example's documents (``examples/cifar10/config/*.yaml``, a path or the
+    loaded dict), as the example's ``build_stoke`` builds the JAX run:
+
+    - ``model``: ``basic`` (:class:`~stoke_tpu_torch.models.BasicNN`) or
+      ``resnet50`` (CIFAR stem, 10 classes); ``model=`` replaces it (for
+      instance the same network in ``channels_last`` on the card);
+    - ``device``: ``tpu`` (the JAX package's accelerator) is the card,
+      ``cpu`` the CPU; a document without it runs on the card, as
+      ``Stoke`` does by default;
+    - ``distributed``, ``precision``, ``grad_accum``,
+      ``batch_size_per_device`` and ``seed`` as flags; ``grad_clip_norm``
+      a ``ClipGradNormConfig``;
+    - ``oss``, ``sddp``, ``fsdp`` with the example's configs
+      (``OSSConfig()``, ``SDDPConfig()``, ``FSDPConfig(min_weight_size=
+      2**12)``);
+    - ``lr`` and ``momentum`` (0.9): optax's ``sgd``;
+    - ``telemetry``, ``comm``, ``health``: their config classes, which the
+      status layer refuses naming their ROADMAP item (10, 7, 10);
+    - ``epochs`` belongs to the training loop and is not read here.
+
+    ``overrides`` replace ``Stoke`` arguments (e.g. ``device="cpu"``).
+    Unknown keys raise."""
+    from stoke_tpu_torch.configs import (
+        CommConfig,
+        FSDPConfig,
+        HealthConfig,
+        OSSConfig,
+        SDDPConfig,
+        TelemetryConfig,
+    )
+    from stoke_tpu_torch.facade import Stoke
+    from stoke_tpu_torch.models import BasicNN, ResNet50
+
+    if isinstance(cfg, str):
+        import yaml
+
+        with open(cfg) as f:
+            cfg = yaml.safe_load(f)
+    cfg = dict(cfg or {})
+    unknown = sorted(set(cfg) - set(_EXAMPLE_KEYS))
+    if unknown:
+        raise ValueError(f"Stoke -- unknown example config keys: {unknown}")
+    if model is None:
+        name = cfg.get("model", "basic")
+        makers = {"basic": BasicNN,
+                    "resnet50": lambda: ResNet50(num_classes=10,
+                                                 cifar_stem=True)}
+        if name not in makers:
+            raise ValueError(f"Stoke -- unknown example model {name!r}; "
+                             f"valid: {sorted(makers)}")
+        model = makers[name]()
+    configs = []
+    if cfg.get("fsdp"):
+        configs.append(FSDPConfig(min_weight_size=2**12))
+    if cfg.get("oss"):
+        configs.append(OSSConfig())
+    if cfg.get("sddp"):
+        configs.append(SDDPConfig())
+    for key, cls, short in (("telemetry", TelemetryConfig, None),
+                            ("comm", CommConfig, "dtype"),
+                            ("health", HealthConfig, None)):
+        spec = cfg.get(key)
+        if spec:
+            configs.append(cls(**spec) if isinstance(spec, dict)
+                           else cls(**({short: str(spec)} if short else {})))
+    optimizer = StokeOptimizer(*torch_optimizer_from_optax(
+        "sgd", {"learning_rate": cfg.get("lr", 0.01),
+                "momentum": cfg.get("momentum", 0.9)}))
+    kwargs = dict(
+        batch_size_per_device=cfg.get("batch_size_per_device", 32),
+        grad_accum=cfg.get("grad_accum", 1),
+        grad_clip=(ClipGradNormConfig(max_norm=cfg["grad_clip_norm"])
+                   if cfg.get("grad_clip_norm") else None),
+        distributed=cfg.get("distributed"), precision=cfg.get("precision"),
+        oss=bool(cfg.get("oss")), sddp=bool(cfg.get("sddp")),
+        fsdp=bool(cfg.get("fsdp")), configs=configs,
+        seed=cfg.get("seed", 0))
+    if "device" in cfg:
+        kwargs["device"] = "cuda" if cfg["device"] == "tpu" else cfg["device"]
+    kwargs.update(overrides)
+    return Stoke(model=model, optimizer=optimizer, loss=_example_loss,
+                 **kwargs)

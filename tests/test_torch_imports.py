@@ -52,7 +52,11 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.utils.yaml_config",
                                     "stoke_tpu_torch.utils.tb_writer",
                                     "stoke_tpu_torch.native",
-                                    "stoke_tpu_torch.models.bert"])
+                                    "stoke_tpu_torch.models.bert",
+                                    "stoke_tpu_torch.parallel",
+                                    "stoke_tpu_torch.parallel.mesh",
+                                    "stoke_tpu_torch.parallel.sharding",
+                                    "stoke_tpu_torch.parallel.ladder"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"

@@ -28,6 +28,7 @@ from stoke_tpu_torch.configs import (
     CheckpointConfig,
     CheckpointFormat,
     DistributedOptions,
+    MeshConfig,
     PrecisionOptions,
     ServeConfig,
 )
@@ -52,8 +53,10 @@ MATRIX = [
      "invalid"),
     (dict(batch_size_per_device=8, precision="bf16"), "ok"),
     (dict(batch_size_per_device=8, precision="fp16"), "ok"),
-    (dict(batch_size_per_device=8, distributed="dp"), "later"),
-    (dict(batch_size_per_device=8, distributed="ddp", oss=True), "later"),
+    (dict(batch_size_per_device=8, distributed="dp"), "ok"),
+    (dict(batch_size_per_device=8, distributed="ddp", oss=True), "ok"),
+    (dict(batch_size_per_device=8, distributed="dp",
+          configs=[MeshConfig(axes=("data", "seq"))]), "later"),
     (dict(batch_size_per_device=8, grad_clip=ClipGradConfig(clip_value=0.0)),
      "invalid"),
     (dict(batch_size_per_device=8,
@@ -114,8 +117,8 @@ def test_reference_aliases():
         st = StokeStatus(batch_size_per_device=4, precision=alias)
         assert st.precision is PrecisionOptions.full
     for alias in ("ddp", "horovod", "deepspeed", "xla", "dp"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            StokeStatus(batch_size_per_device=4, distributed=alias)
+        st = StokeStatus(batch_size_per_device=4, distributed=alias)
+        assert st.distributed is DistributedOptions.dp, alias
     assert DistributedOptions("dp") is DistributedOptions.dp
 
 

@@ -126,7 +126,9 @@ def test_config_tuple_enums_and_helpers():
     assert pc.comm_shard_updates(None, pc.ShardingOptions.fsdp) is False
     # every class the port does not honour names its item
     honoured = {"PrecisionConfig", "ClipGradConfig", "ClipGradNormConfig",
-                "CheckpointConfig", "ServeConfig", "TensorboardConfig"}
+                "CheckpointConfig", "ServeConfig", "TensorboardConfig",
+                "DataParallelConfig", "MeshConfig", "DistributedInitConfig",
+                "OSSConfig", "SDDPConfig", "FSDPConfig"}
     assert set(LATER_CONFIGS) == {c.__name__ for c in
                                   pc.ALL_CONFIG_CLASSES} - honoured
 

@@ -244,7 +244,7 @@ def test_optimizer_arguments_without_a_counterpart(spec, match):
     ("HealthConfig", {"sentinels": False}, "item 10"),
     ("CompileConfig", {}, "item 11"),
     ("ActivationCheckpointingConfig", {}, "item 13"),
-    ("OSSConfig", {}, "item 5"),
+    ("OffloadOptimizerConfig", {}, "item 9"),
 ])
 def test_a_refused_class_names_its_item(name, fields, item, tmp_path,
                                         monkeypatch):
