@@ -42,7 +42,12 @@ Phases, one JSON line each; any failure exits nonzero:
    (B=8, H=12, S=5, D=64, fp32 and bf16 pools, an idle slot and clamped
    padding rows), at D=128, at S=16, with bf16 queries over a bf16 pool
    and with a slot at position 511, each also timed as launches replayed
-   from a CUDA graph (``graph_ms``).
+   from a CUDA graph (``graph_ms``); and the int8 quantize and
+   dequantize kernels (``csrc/quant.cu``) bit for bit against their plain
+   versions at a 25 MB bucket and at GPT-base's whole gradient (the plain
+   version a bucket at a time), stochastic at chunk 512 and nearest at
+   chunk 128, with a ragged last chunk, each with ``ms``, ``graph_ms``,
+   ``plain_ms`` and the bytes' bound.
 4. serve: GPT-base at full width (seeded random weights, fp32) behind
    ``ServingEngine`` with the flash prefill and paged-decode kernels;
    16 requests submitted in three waves; launch counts checked against
@@ -164,6 +169,29 @@ Phases, one JSON line each; any failure exits nonzero:
    ``distributed``: every BatchNorm's all-reduce on (two a layer in a
    profiled step), the running statistics within four units of bf16's
    rounding. The process group is destroyed at the end.
+15. train_comm: the gradient transports (``CommConfig``) in a one-process
+   NCCL group, GPT-base bf16 at B=8, L=1024: int8 under dp and oss (the
+   replicated schedule) and under oss+sddp and fsdp (the sharded one),
+   bf16 and the fp32 pass-through under dp, and dp without a
+   ``CommConfig``; each run 4 eager steps, 4 ``train_steps`` windows in
+   segments of 2 and 6 replayed windows timed one a call, against a
+   second run's eager steps on the same batches (equal bit for bit); the
+   fp32 transport equal to no transport bit for bit; the quantize pair
+   launched every int8 step, its device ms and share in a profiled
+   replayed window. At world 1 the transports take their local round
+   trip: this shows the kernels and their capture, not the wire.
+16. checkpoint_dp: GPT-base bf16 cut to 2 blocks at ``grad_accum=2`` in a
+   one-process NCCL group, every tier x {consolidated, sharded} x {sync,
+   async}: a save mid-window, a fresh run loads it and continues eagerly
+   and in replayed windows, bit for bit against the run that saved;
+   save ms, the async write's wait, load ms and the tag's bytes.
+17. serve_quant (run after phase 5): the serve trace with
+   ``ServeConfig(quant="int8")`` and ``quant="bf16"`` beside the plain
+   engine: compression over the quantized leaves, the greedy choice
+   scored on the plain streams' context (>= 99%), each divergence of a
+   free-running int8 stream a near-tie, the dequantize kernel once a
+   quantized leaf every dispatch; tokens/s, TPOT, parameter bytes and
+   peak memory.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -209,6 +237,7 @@ FWD_TF32X3_KERNELS = ("flash_fwd_tf32x3_kernel",)
 DECODE_KERNELS = ("paged_decode_chunk_kernel", "paged_decode_merge_kernel")
 VERIFY_KERNELS = ("paged_verify_chunk_kernel", "paged_verify_merge_kernel")
 # the 16-bit (bf16 and fp16) tensor-core flash kernels
+QUANT_KERNELS = ("quantize_chunks_kernel", "dequantize_chunks_kernel")
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkv_wgmma_kernel")
 
@@ -847,6 +876,116 @@ def flash_bwd_case(ops, gen, flush, L, dtype, D, causal, masked,
         "dkv_bound_ms": bkv[0], "dkv_bound_by": bkv[1],
         "pair_bound_ms": bpair[0], "pair_bound_by": bpair[1],
     }
+
+
+#: the quantize pair's cases: a 25 MB fp32 bucket (``CommConfig``'s
+#: default ``bucket_mb``) and GPT-base's whole gradient; (elements, chunk,
+#: stochastic); a count that is not a multiple of the chunk leaves a
+#: ragged last chunk, zero-padded as the transports and the serving store
+#: pad it
+QUANT_BUCKET = 25 * 2**20 // 4
+QUANT_FULL = 124_439_808
+QUANT_CASES = ((QUANT_BUCKET, 512, True), (QUANT_BUCKET, 128, False),
+               (QUANT_BUCKET - 300, 512, True), (QUANT_FULL, 512, True),
+               (QUANT_FULL, 128, False))
+#: the bucket's index and the rank's fold, as a rank's second stage folds
+#: them into the step's key
+QUANT_FOLDS = (3, 1)
+
+
+def quant_case(ops, gen, flush, n: int, chunk: int, stochastic: bool) -> dict:
+    """The quantize and dequantize kernels on ``n`` heavy-tailed elements
+    (padded with zeros to the chunk) against their plain versions bit for
+    bit: the plain version runs a bucket at a time (its counter offset
+    the bucket's start), so a whole gradient is held to it piece by
+    piece. Times by events after an L2 flush (``ms``), replayed from a
+    CUDA graph (``graph_ms``), the plain version's over the same
+    elements, and the least time the bytes allow (read fp32 and write
+    int8 plus a scale a chunk, or the reverse)."""
+    padded = -(-n // chunk) * chunk
+    x = torch.zeros(padded, device="cuda")
+    x[:n] = (torch.randn(n, device="cuda", generator=gen)
+             * torch.randn(n, device="cuda", generator=gen).exp())
+    key = torch.tensor([0, 7], dtype=torch.int64, device="cuda")
+    kw = dict(key=key, stochastic=stochastic, folds=QUANT_FOLDS)
+    q, sc = ops.quantize_chunks(x, chunk, **kw)
+    deq = ops.dequantize_chunks(q, sc, chunk, FP32, n)
+    deq16 = ops.dequantize_chunks(q, sc, chunk, BF16, n)
+    bad_q = bad_s = 0
+    err = err16 = q_err = 0.0
+
+    def plain_pieces(check: bool):
+        nonlocal bad_q, bad_s, err, err16, q_err
+        for lo in range(0, padded, QUANT_BUCKET):
+            hi = min(lo + QUANT_BUCKET, padded)
+            pq, ps = ops.quantize_chunks_plain(x[lo:hi], chunk, offset=lo,
+                                               **kw)
+            if not check:
+                continue
+            bad_q += int((pq != q[lo:hi]).sum())
+            bad_s += int((ps != sc[lo // chunk:hi // chunk]).sum())
+            # payload in levels, scales in fp32
+            q_err = max(q_err, max_err(pq, q[lo:hi]),
+                        max_err(ps, sc[lo // chunk:hi // chunk]))
+            m = min(hi, n) - lo
+            pd = ops.dequantize_chunks_plain(pq, ps, chunk, FP32, m)
+            err = max(err, max_err(pd, deq[lo:lo + m]))
+            err16 = max(err16, max_err(ops.dequantize_chunks_plain(
+                pq, ps, chunk, BF16, m), deq16[lo:lo + m]))
+
+    plain_pieces(True)
+    torch.cuda.synchronize()
+    if bad_q or bad_s or err or err16:
+        raise AssertionError(
+            f"quantize n={n} chunk={chunk} stochastic={stochastic}: "
+            f"{bad_q} payload and {bad_s} scale mismatches, dequantize "
+            f"errors {err} (fp32) {err16} (bf16) against the plain version")
+    big = n > QUANT_BUCKET
+    iters, reps = (5, 10) if big else (20, 50)
+    q_bytes = 4 * padded + padded + 4 * padded // chunk
+    d_bytes = padded + 4 * padded // chunk + 4 * n
+    out = {"n": n, "padded": padded, "chunk": chunk,
+           "stochastic": stochastic, "folds": list(QUANT_FOLDS),
+           "payload_mismatches": bad_q, "scale_mismatches": bad_s,
+           "quantize_max_abs_err": q_err,
+           "max_abs_err": err, "bf16_max_abs_err": err16}
+    for name, fn, nbytes in (
+            ("quantize", lambda: ops.quantize_chunks(x, chunk, **kw),
+             q_bytes),
+            ("dequantize",
+             lambda: ops.dequantize_chunks(q, sc, chunk, FP32, n), d_bytes)):
+        b, by = bound_ms(nbytes, 0.0, FP32)
+        out[name] = {"ms": time_ms(fn, iters, flush),
+                     "graph_ms": graph_ms(fn, reps), "bound_ms": b,
+                     "bound_by": by, "bytes": nbytes}
+    # the plain versions over the same elements, a bucket at a time
+    out["quantize"]["plain_ms"] = time_ms(lambda: plain_pieces(False), 1,
+                                          flush)
+    out["dequantize"]["plain_ms"] = time_ms(
+        lambda: [ops.dequantize_chunks_plain(
+            q[lo:lo + QUANT_BUCKET], sc[lo // chunk:(lo + QUANT_BUCKET)
+                                        // chunk], chunk, FP32)
+            for lo in range(0, padded, QUANT_BUCKET)], 1, flush)
+    return out
+
+
+def check_quant(ops, gen, flush) -> list:
+    """QUANT_CASES through :func:`quant_case`; a dequantize launch
+    refused for a payload that is not a whole number of chunks must
+    raise in the wrapper."""
+    cases = []
+    for n, chunk, stochastic in QUANT_CASES:
+        cases.append(quant_case(ops, gen, flush, n, chunk, stochastic))
+        torch.cuda.empty_cache()
+    bad = torch.zeros(130, dtype=torch.int8, device="cuda")
+    try:
+        ops.dequantize_chunks(bad, torch.ones(1, device="cuda"), 128)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("dequantize_chunks took 130 elements for one "
+                             "chunk of 128")
+    return cases
 
 
 # --------------------------------------------------------------------------- #
@@ -3129,6 +3268,441 @@ def train_dp(ops) -> dict:
             dist.destroy_process_group()
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the quantized gradient transports over the ladder
+# --------------------------------------------------------------------------- #
+
+
+#: (wire dtype or None, tier): int8 replicated (dp, oss) and sharded
+#: (sddp, fsdp), bf16 and the fp32 pass-through under dp, and dp without
+#: a ``CommConfig``, the fp32 transport's bit-for-bit reference
+COMM_RUNS = (("int8", "dp"), ("int8", "oss"), ("int8", "oss_sddp"),
+             ("int8", "fsdp"), ("bf16", "dp"), ("fp32", "dp"), (None, "dp"))
+COMM_EAGER, COMM_WINDOWS, COMM_TIMED = 4, 4, 6
+QUANT_NAMES = ("quantize_chunks", "dequantize_chunks")
+
+
+def quant_profile(step) -> dict:
+    """One call of ``step`` under ``torch.profiler``: the quantize pair's
+    device ms and launches beside all kernels' device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    device_ms, quant = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        device_ms += ms
+        # "dequantize_chunks_kernel" contains "quantize_chunks_kernel"
+        k = next((k for k in reversed(QUANT_KERNELS) if k in e.key), None)
+        if k is not None:
+            q = quant.setdefault(k, {"ms": 0.0, "calls": 0})
+            q["ms"] += ms
+            q["calls"] += e.count
+    quant_ms = sum(q["ms"] for q in quant.values())
+    return {"device_ms": device_ms, "quant_kernels": quant,
+            "quant_ms": quant_ms,
+            "quant_share": quant_ms / device_ms if device_ms else None}
+
+
+def comm_run(ops, dtype, tier: str, batches) -> dict:
+    """GPT-base bf16 at B=8, L=1024 in a one-process NCCL group under
+    ``tier`` with ``CommConfig(dtype)`` (None: none): COMM_EAGER eager
+    steps, ``train_steps`` over COMM_WINDOWS batches in segments of 2 (a
+    window eagerly, its capture, replays), COMM_TIMED replayed windows
+    timed one a call, a profiled replayed window; then a second run takes
+    every batch in eager steps, the windows' reference."""
+    from stoke_tpu_torch.configs import CommConfig
+
+    configs = [] if dtype is None else [CommConfig(dtype=dtype)]
+    mk = lambda: stoke_for(  # noqa: E731
+        gpt_base("flash"), "bf16", TRAIN_BATCH, distributed="dp",
+        configs=configs, **DP_TIERS[tier])
+    s = mk()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eager, eager_ms = eager_steps(s, batches[:COMM_EAGER])
+    seg = s.train_steps(batches[:COMM_WINDOWS], batches[:COMM_WINDOWS],
+                        segment_size=2)[:, 0].tolist()
+    replayed = []
+    replay_ms = [timed_ms(lambda: replayed.append(float(s.train_steps(
+        batches[i:i + 1], batches[i:i + 1])[0, 0])))
+        for i in range(COMM_TIMED)]
+    steps = COMM_EAGER + COMM_WINDOWS + COMM_TIMED
+    launches = {n: ops.LAUNCHES[n] for n in (*QUANT_NAMES, *FLASH)}
+    peak = torch.cuda.max_memory_allocated()
+    windows_kept = len(s._engine._windows)
+    prof = quant_profile(lambda: s.train_steps(batches[:1], batches[:1]))
+    residual = [r.numel() for r in s._engine.comm_state.get("residual", [])]
+    comm_bytes, kind = s.comm_bytes, (
+        s._engine.transport.layout_kind
+        if s._engine.transport.active else "none")
+    del s
+    torch.cuda.empty_cache()
+    ref = mk()
+    want, _ = eager_steps(ref, [*batches[:COMM_EAGER], *batches[:COMM_WINDOWS],
+                                *batches[:COMM_TIMED]])
+    del ref
+    torch.cuda.empty_cache()
+    got = eager + seg + replayed
+    return {"dtype": dtype, "tier": tier, "transport": kind,
+            "losses_eager": eager, "losses_segmented": seg,
+            "losses_replayed": replayed, "losses_eager_reference": want,
+            "windows_equal_eager": got == want,
+            "eager_step_ms_p50": float(np.median(eager_ms[1:])),
+            "replayed_step_ms_p50": float(np.median(replay_ms[1:])),
+            "eager_step_ms": eager_ms, "replayed_step_ms": replay_ms,
+            "launches": launches, "quant_launches_per_step": {
+                n: launches[n] / steps for n in QUANT_NAMES},
+            "windows_captured": windows_kept, "profile_replayed": prof,
+            "residual_elems": residual, "comm_bytes": comm_bytes,
+            "max_memory_allocated_gib": peak / 2**30}
+
+
+def train_comm(ops) -> dict:
+    """The gradient transports in a one-process NCCL group (world 1: the
+    transports run their local round trip, so this shows the quantize
+    kernels and their capture in the replayed windows, not the wire):
+    COMM_RUNS through :func:`comm_run`. Gates: the fp32 transport's
+    losses equal the run without ``CommConfig`` bit for bit; each run's
+    segmented and replayed windows equal its eager steps bit for bit; the
+    losses fall; the int8 runs launch the quantize pair every step."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    try:
+        batches = window_batches(max(COMM_EAGER, COMM_WINDOWS, COMM_TIMED))
+        runs = {f"{d}_{t}": comm_run(ops, d, t, batches)
+                for d, t in COMM_RUNS}
+        world = dist.get_world_size() if dist.is_initialized() else None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    failures = []
+    for name, r in runs.items():
+        if not r["windows_equal_eager"]:
+            failures.append(f"{name}: windows {r['losses_segmented']} "
+                            f"{r['losses_replayed']} vs eager "
+                            f"{r['losses_eager_reference']}")
+        # batch 0 again after COMM_EAGER + COMM_WINDOWS steps
+        run = r["losses_eager_reference"]
+        if not run[COMM_EAGER + COMM_WINDOWS] < run[0]:
+            failures.append(f"{name}: the loss on batch 0 did not fall: "
+                            f"{run}")
+        if r["dtype"] == "int8" and not all(
+                v >= 1 for v in r["quant_launches_per_step"].values()):
+            failures.append(f"{name}: quant launches {r['launches']}")
+        if r["dtype"] in (None, "fp32", "bf16") and any(
+                r["launches"][n] for n in QUANT_NAMES):
+            failures.append(f"{name}: quant kernels launched {r['launches']}")
+    if runs["fp32_dp"]["losses_eager_reference"] != runs[
+            "None_dp"]["losses_eager_reference"]:
+        failures.append("the fp32 transport's losses differ from the run "
+                        "without CommConfig")
+    if failures:
+        raise AssertionError("train_comm: " + "; ".join(failures))
+    return {"phase": "train_comm", "world_size": world,
+            "model": "GPT-base (12 x 768, vocab 50257), bf16, flash "
+            "attention, AdamW(lr 3e-4, wd 1e-4), clip norm 1.0",
+            "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+            "note": "world 1: the local round trip, no wire", "runs": runs,
+            "launches": {n: sum(r["launches"][n] for r in runs.values())
+                         for n in QUANT_NAMES},
+            "seconds": time.perf_counter() - t0}
+
+
+# --------------------------------------------------------------------------- #
+# phase 16: checkpoints across the tiers and both formats
+# --------------------------------------------------------------------------- #
+
+
+#: the depth of the checkpoint_dp runs (the tag's bytes are mostly the
+#: embedding's at any depth; 16 saves and loads of the full depth would
+#: take the phase's time)
+CKPT_DP_LAYERS = 2
+#: micro-batches (grad_accum=2): 3 before the mid-window save, 1 to end
+#: that window, then 3 windows in one ``train_steps`` (eager, captured,
+#: replayed)
+CKPT_DP_BEFORE, CKPT_DP_WINDOWS = 3, 3
+
+
+def checkpoint_dp_case(tier: str, fmt: str, is_async: bool, root: str,
+                       batches) -> dict:
+    """One (tier, format, sync or async): a run saves mid-window and
+    trains on (eagerly, then windows replayed); a fresh run loads the tag
+    and trains the same batches; their losses must be equal bit for
+    bit."""
+    import shutil
+
+    from stoke_tpu_torch.configs import CheckpointConfig, CheckpointFormat
+
+    cfg = CheckpointConfig(format=CheckpointFormat(fmt), async_save=is_async)
+    mk = lambda: stoke_for(  # noqa: E731
+        gpt_base("flash", layers=CKPT_DP_LAYERS), "bf16", TRAIN_BATCH,
+        grad_accum=2, distributed="dp", configs=[cfg], **DP_TIERS[tier])
+    n_win = 2 * CKPT_DP_WINDOWS
+    after = batches[CKPT_DP_BEFORE:CKPT_DP_BEFORE + 1]
+    windows = batches[CKPT_DP_BEFORE + 1:CKPT_DP_BEFORE + 1 + n_win]
+
+    def go_on(s):
+        losses = [float(four_call_step(s, b)) for b in after]
+        return losses + s.train_steps(windows, windows).reshape(-1).tolist()
+
+    s = mk()
+    for b in batches[:CKPT_DP_BEFORE]:
+        four_call_step(s, b)
+    save_ms = timed_ms(lambda: s.save(root))
+    wait_ms = timed_ms(s.wait_for_checkpoint)
+    tag = os.path.join(root, os.listdir(root)[0])
+    nbytes = tag_bytes(tag)
+    with open(os.path.join(tag, "meta.json")) as f:
+        meta = json.load(f)
+    want = go_on(s)
+    del s
+    torch.cuda.empty_cache()
+    r = mk()
+    load_ms = timed_ms(lambda: r.load(root))
+    counter = r.grad_accum_counter
+    got = go_on(r)
+    windows_kept = len(r._engine._windows)
+    del r
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return {"tier": tier, "format": fmt, "async": is_async,
+            "save_ms": save_ms, "write_wait_ms": wait_ms, "load_ms": load_ms,
+            "tag_bytes": nbytes, "meta_format": meta["format"],
+            "counter_after_load": counter, "windows_captured": windows_kept,
+            "losses_unbroken": want, "losses_resumed": got,
+            "bit_for_bit": got == want}
+
+
+def checkpoint_dp(ops) -> dict:
+    """Every tier x {consolidated, sharded} x {sync, async} in a
+    one-process NCCL group, GPT-base bf16 cut to CKPT_DP_LAYERS blocks:
+    save mid-window, load into a fresh run, continue eagerly and in
+    replayed windows, bit for bit against the run that saved."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="stoke_ckpt_dp_")
+    cases = []
+    try:
+        batches = window_batches(CKPT_DP_BEFORE + 1 + 2 * CKPT_DP_WINDOWS)
+        for tier in DP_TIERS:
+            for fmt in ("consolidated", "sharded"):
+                for is_async in (False, True):
+                    cases.append(checkpoint_dp_case(
+                        tier, fmt, is_async,
+                        os.path.join(base, f"{tier}_{fmt}_{is_async}"),
+                        batches))
+        world = dist.get_world_size() if dist.is_initialized() else None
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    bad = [c for c in cases if not c["bit_for_bit"]
+           or c["counter_after_load"] != 1]
+    if bad:
+        raise AssertionError(f"checkpoint_dp: resumed runs differ: {bad}")
+    return {"phase": "checkpoint_dp", "world_size": world,
+            "model": f"GPT-base cut to {CKPT_DP_LAYERS} blocks (768 wide, "
+            f"vocab 50257), bf16, grad_accum=2",
+            "cases": cases, "seconds": time.perf_counter() - t0}
+
+
+# --------------------------------------------------------------------------- #
+# phase 17: int8 and bf16 serving weights
+# --------------------------------------------------------------------------- #
+
+
+def forced_agreement(engine, plain, prompts, plain_streams,
+                     streams) -> dict:
+    """``engine``'s greedy choice scored on ``plain``'s streams: each
+    request's prompt and plain stream through both engines' weights in
+    one full-sequence forward; ``agreement`` is the share of the stream's
+    tokens whose argmax under ``engine`` is the plain token. At the first
+    token where a free-running stream of ``engine`` leaves the plain one:
+    the plain top-2 logit gap there and the largest logit change, and
+    whether the change can flip the tie (gap <= 2 x change)."""
+    agree = total = 0
+    divergences = []
+    with torch.inference_mode():
+        for i, (prompt, want, got) in enumerate(zip(prompts, plain_streams,
+                                                    streams)):
+            ids = torch.tensor([list(prompt) + list(want[:-1])],
+                               device="cuda")
+            lo = len(prompt) - 1
+            lq = engine._forward(ids)[0, lo:].float()
+            lp = plain._forward(ids)[0, lo:].float()
+            agree += int((lq.argmax(-1).cpu() == torch.tensor(want)).sum())
+            total += len(want)
+            j = next((t for t, (a, b) in enumerate(zip(want, got))
+                      if a != b), None)
+            if j is None:
+                continue
+            top = torch.topk(lp[j], 2).values
+            gap = float(top[0] - top[1])
+            change = float((lq[j] - lp[j]).abs().max())
+            divergences.append({"request": i, "token": j, "top2_gap": gap,
+                                "max_logit_change": change,
+                                "near_tie": gap <= 2 * change})
+    return {"agreement": agree / total, "divergences": divergences}
+
+
+def serve_quant(ops) -> dict:
+    """The ``serve`` trace (GPT-base fp32, 16 requests in three waves, 8
+    slots, 32 new tokens, the flash and decode kernels) with
+    ``quant="int8"`` and ``quant="bf16"`` beside the plain engine. Gates
+    (int8): compression >= 3.5x over the quantized leaves; the greedy
+    choice agreeing with the plain engine's on >= 99% of the tokens it
+    emitted, each scored on the plain stream's context (a free-running
+    stream that flips one near-tie continues on another context, so its
+    every later token counts as a disagreement; that agreement is
+    reported beside it), and every point where a free-running int8
+    stream leaves the plain one a near-tie that the int8 logits'
+    perturbation can flip (plain top-2 gap <= 2 x the largest logit
+    change there); and the dequantize kernel launched once a quantized
+    leaf every dispatch."""
+    from stoke_tpu_torch.configs import ServeConfig
+    from stoke_tpu_torch.models.gpt import GPT
+    from stoke_tpu_torch.serving import ServingEngine
+    from stoke_tpu_torch.serving.quant import QuantizedTensor, param_bytes
+
+    model = GPT(size_name="base", device="cuda")
+    model.init_weights(SEED)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(16, 401, size=16)
+    prompts = [rng.integers(0, model.vocab_size, size=int(n)) for n in lens]
+    base = dict(attention="flash", decode_kernel="pallas", **SERVE)
+    out, streams, engines = {"phase": "serve_quant"}, {}, {}
+    for mode in ("none", "int8", "bf16"):
+        cfg = ServeConfig(quant=mode, **base)
+        ServingEngine(GPT(size_name="base", device="cuda"), weights,
+                      cfg).generate([prompts[0][:16]], 2)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        engine = ServingEngine(GPT(size_name="base", device="cuda"), weights,
+                               cfg)
+        torch.cuda.synchronize()
+        built = torch.cuda.memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        streams[mode], wall = drive(engine, prompts)
+        summary = engine.summary()
+        launches = {n: ops.LAUNCHES[n] for n in
+                    ("dequantize_chunks", "quantize_chunks", "flash_fwd",
+                     "paged_decode")}
+        dispatches = summary["decode_steps"] + summary["prefills"]
+        quantized = ({n: v for n, v in engine.qparams.items()
+                      if isinstance(v, QuantizedTensor)}
+                     if engine.qparams else {})
+        leaf_fp = sum(weights[n].numel() * weights[n].element_size()
+                      for n in quantized)
+        row = {"tokens_out": summary["tokens_out"], "wall_s": wall,
+               "tokens_per_s": summary["tokens_out"] / wall,
+               "tpot_p50_s": summary["tpot_p50_s"],
+               "tpot_p99_s": summary["tpot_p99_s"],
+               "ttft_p50_s": summary["ttft_p50_s"],
+               "dispatches": dispatches, "launches": launches,
+               "param_bytes": param_bytes(engine.qparams or weights),
+               "engine_bytes_on_device": built,
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2**30,
+               "quantized_leaves": len(quantized),
+               "compression": (engine.quant_stats or {}).get("compression")}
+        if quantized:
+            row["compression_quantized_leaves"] = leaf_fp / param_bytes(
+                quantized)
+            worst = max(engine.quant_errors.items(),
+                        key=lambda kv: kv[1]["rel_rms"], default=None)
+            row["worst_leaf_rel_rms"] = worst
+        out[mode] = row
+        engines[mode] = engine
+    for mode in ("int8", "bf16"):
+        pairs = [(a, b) for sa, sb in zip(streams[mode], streams["none"])
+                 for a, b in zip(sa, sb)]
+        out[mode]["stream_agreement"] = (sum(a == b for a, b in pairs)
+                                         / len(pairs))
+        out[mode].update(forced_agreement(
+            engines[mode], engines["none"], prompts, streams["none"],
+            streams[mode]))
+    del engines
+    torch.cuda.empty_cache()
+    q = out["int8"]
+    want = q["quantized_leaves"] * q["dispatches"]
+    if not q["compression_quantized_leaves"] >= 3.5:
+        raise AssertionError(f"serve_quant: int8 compression {q}")
+    if not q["agreement"] >= 0.99:
+        raise AssertionError(f"serve_quant: int8's greedy choice agrees on "
+                             f"{q['agreement']} of the tokens")
+    if not all(d["near_tie"] for d in q["divergences"]):
+        raise AssertionError(f"serve_quant: an int8 stream left the plain "
+                             f"one where no near-tie explains it: "
+                             f"{q['divergences']}")
+    if q["launches"]["dequantize_chunks"] != want:
+        raise AssertionError(
+            f"serve_quant: dequantize launched {q['launches']} times, "
+            f"expected {q['quantized_leaves']} leaves x {q['dispatches']} "
+            f"dispatches")
+    if out["bf16"]["launches"]["dequantize_chunks"] or out["none"][
+            "launches"]["dequantize_chunks"]:
+        raise AssertionError(f"serve_quant: dequantize launched without "
+                             f"int8: {out}")
+    out["launches"] = {"dequantize_chunks": q["launches"]["dequantize_chunks"]}
+    out["model"] = ("GPT-base (12 x 768, vocab 50257), fp32, seeded random "
+                    "weights")
+    return out
+
+
+def quant_rows(cases, comm, served) -> list:
+    """The kernels line's rows of the quantize pair: ``ms`` and its
+    bound at the 25 MB bucket (stochastic, chunk 512), the case the
+    transports launch; every case beside it; launches from train_comm
+    (the quantize) and from train_comm and serve_quant (the
+    dequantize)."""
+    main_case = next(c for c in cases if c["n"] == QUANT_BUCKET
+                     and c["chunk"] == 512 and c["stochastic"])
+    rows = []
+    for name, key, fn, line in (
+            ("quantize_chunks", "quantize", "quantize_chunks_kernel", 61),
+            ("dequantize_chunks", "dequantize",
+             "dequantize_chunks_kernel", 91)):
+        c = main_case[key]
+        row = {"name": name, "route": "cuda",
+               "source": "stoke_tpu_torch/csrc/quant.cu",
+               "functions": [fn],
+               "replaces": f"stoke_tpu/parallel/collectives.py:{line}",
+               "launches": comm["launches"][name]
+               + served["launches"].get(name, 0),
+               "launches_train_comm": comm["launches"][name],
+               "launches_serve_quant": served["launches"].get(name, 0),
+               "max_abs_err": max(x["max_abs_err"] if key == "dequantize"
+                                  else x["quantize_max_abs_err"]
+                                  for x in cases),
+               "ms": c["ms"], "graph_ms": c["graph_ms"],
+               "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+               "bound_by": c["bound_by"], "library_ms": None,
+               "cases": [{"n": x["n"], "chunk": x["chunk"],
+                          "stochastic": x["stochastic"],
+                          **{k: x[key][k] for k in
+                             ("ms", "graph_ms", "plain_ms", "bound_ms")}}
+                         for x in cases]}
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3166,7 +3740,10 @@ def main() -> int:
     decode = check_decode(ops, gen, flush)
     flash_bwd = check_flash_bwd(ops, gen, flush)
     verify = check_verify(ops, gen, flush)
+    quant = check_quant(ops, gen, flush)
     emit({"phase": "kernels", "card": smi, "flash_fwd": flash,
+          "quant": quant, "quant_ptxas": ptxas_usage(
+              _build.build_log("quant") or "", QUANT_KERNELS),
           "paged_decode": decode,
           "paged_decode_ptxas": ptxas_usage(
               _build.build_log("paged_decode") or "", DECODE_KERNELS),
@@ -3192,6 +3769,9 @@ def main() -> int:
     spec = serve_spec(ops)
     emit(spec)
     torch.cuda.empty_cache()
+    squant = serve_quant(ops)
+    emit({**squant, "card": smi})
+    torch.cuda.empty_cache()
     trained = train(ops)
     emit({**trained, "card": smi})
     torch.cuda.empty_cache()
@@ -3213,6 +3793,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp = train_dp(ops)
     emit({**dp, "card": smi})
+    torch.cuda.empty_cache()
+    comm = train_comm(ops)
+    emit({**comm, "card": smi})
+    torch.cuda.empty_cache()
+    emit({**checkpoint_dp(ops), "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None):
@@ -3316,6 +3901,7 @@ def main() -> int:
                + spec["sampled"]["launches"]["paged_verify"],
                max(x["max_abs_err"] for x in verify), verify[0]),
          "graph_ms": verify[0]["graph_ms"]},
+        *quant_rows(quant, comm, squant),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

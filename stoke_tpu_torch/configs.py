@@ -137,8 +137,10 @@ class CheckpointConfig:
     """How ``Stoke.save`` writes and when the step path saves on its own.
 
     Attributes:
-        format: the layout, ``consolidated`` (``sharded`` is not ported
-            yet and is refused).
+        format: the layout: ``consolidated`` (the writer gathers every
+            slice and writes whole leaves) or ``sharded`` (each rank
+            writes its own slices, the writer the replicated leaves);
+            either loads at any world size.
         max_to_keep: the newest tags of a name kept under a path; older
             ones are deleted after each save (None keeps all).
         async_save: copy the state to the host on the calling thread and
@@ -149,7 +151,8 @@ class CheckpointConfig:
             ``auto_path`` with the name ``auto_name`` after every
             ``save_every_n_steps`` optimizer steps (``Stoke.maybe_resume``
             loads the newest such tag).
-        save_rank: the process that writes (one process here: 0).
+        save_rank: the process that writes the whole leaves and
+            ``meta.json`` (modulo the number of processes).
         offload_staging: the JAX package's staged async save (not ported
             yet and refused).
     """
@@ -296,8 +299,8 @@ class CommConfig:
     chunk), ``bucket_mb`` flat buckets, error feedback, the ``strategy``
     ("rs_ag" or "all_reduce") and whether updates are sharded
     (``shard_updates``; None resolves from the tier, see
-    :func:`comm_shard_updates`). Needs ``distributed='dp'``; refused until
-    ROADMAP Queue 1 item 7 (quantized gradient transports)."""
+    :func:`comm_shard_updates`). Needs ``distributed='dp'``; run by
+    :mod:`stoke_tpu_torch.parallel.collectives` and ``parallel.zero``."""
 
     dtype: str = "fp32"
     bucket_mb: float = 25.0

@@ -42,7 +42,7 @@ import os
 import pickle
 import re
 import shutil
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -354,6 +354,46 @@ def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     missing = sorted(set(model.state_dict()) - set(out))
     if missing:
         raise ValueError(f"jax_paths: no JAX leaf for {missing}")
+    return out
+
+
+def jax_param_layout(model: nn.Module) -> Dict[
+        str, Tuple[Tuple[str, ...], Optional[Tuple[int, ...]], tuple]]:
+    """Each parameter of ``model`` as the JAX package holds it: ``(path in
+    the params tree, permutation, JAX shape)``. The permutation takes the
+    port's tensor to the JAX layout (None where they agree): a ``Linear``
+    weight is transposed to the flax ``Dense`` kernel ``[in, out]``, a
+    ``Conv`` weight ``[out, in, kh, kw]`` becomes ``[kh, kw, in, out]``.
+    The JAX shape is the permuted one, but for an attention block's fused
+    ``qkv`` (a flax ``DenseGeneral((3, heads, D))``: kernel ``[hidden, 3,
+    heads, D]``, bias ``[3, heads, D]``), whose flat order is the
+    transposed weight's. Sorting by path gives the JAX flatten order.
+    Raises ``ValueError`` as :func:`jax_paths` for a tensor with no JAX
+    leaf."""
+    from stoke_tpu_torch.models.bert import MultiHeadAttention
+    from stoke_tpu_torch.models.resnet import Conv
+
+    paths = jax_paths(model)
+    out = {}
+    for mname, module in model.named_modules():
+        heads = None
+        if mname.endswith("qkv") or mname == "qkv":
+            parent = model.get_submodule(mname.rpartition(".")[0])
+            if isinstance(parent, MultiHeadAttention):
+                heads = parent.heads
+        for tname, p in module.named_parameters(recurse=False):
+            full = f"{mname}.{tname}" if mname else tname
+            perm = None
+            if tname == "weight" and isinstance(module, (Conv, nn.Linear)):
+                perm = (1, 0) if p.dim() == 2 else (2, 3, 1, 0)
+            # by shape alone: fsdp's parameters may hold no storage
+            shape = tuple(p.shape[d] for d in perm) if perm else tuple(
+                p.shape)
+            if heads is not None:
+                hidden = shape[0] if tname == "weight" else shape[0] // 3
+                tail = (3, heads, hidden // heads)
+                shape = (shape[0], *tail) if tname == "weight" else tail
+            out[full] = (paths[full][1:], perm, shape)
     return out
 
 

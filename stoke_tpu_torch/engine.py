@@ -8,7 +8,8 @@ Counterpart of ``stoke_tpu/engine.py``: ``PrecisionPolicy`` (``:233-266``),
 train forward (``:699-707``), the accumulate core for one loss,
 ``loss_weights`` or per-loss scalers (``:951-1117``), the window core
 (``window_step``, ``:1143-1273``, which ``multi_step`` repeats) and the
-apply core (``:1434-1531``, without transports, sentinels or numerics).
+apply core (``:1434-1531``, with the gradient transport of a
+``CommConfig``; without sentinels or numerics).
 
 The JAX engine traces forward and grad into one program; here autograd
 records the eager forward, ``backward`` runs into the parameters' fp32
@@ -58,6 +59,13 @@ from stoke_tpu_torch.configs import (
 )
 from stoke_tpu_torch.ops import chunked_ce
 from stoke_tpu_torch.ops.flash_attention import LAUNCHES
+
+
+def _grad_or_zeros(p: torch.Tensor) -> torch.Tensor:
+    """``p.grad``, set to zeros first when the parameter has none."""
+    if p.grad is None:
+        p.grad = torch.zeros_like(p)
+    return p.grad
 
 
 def _cast_floating(tree, dtype: Optional[torch.dtype]):
@@ -282,6 +290,13 @@ class StepEngine:
         ladder: the data-parallel tier's collectives
             (:class:`~stoke_tpu_torch.parallel.ladder.Ladder`), or None on
             one device. The optimizer then holds ``ladder.opt_params``.
+        transport: the gradient transport of a ``CommConfig``
+            (:mod:`stoke_tpu_torch.parallel.collectives`), or None. When
+            active it rewrites the reduced gradients at every apply, in
+            the JAX leaf order and layout, before the clip; its state (the
+            key and the error-feedback residual, ``comm_state``) lives on
+            the device and is updated in place, so a captured window
+            carries it from replay to replay.
     """
 
     def __init__(self, module: nn.Module, loss_fn: Callable,
@@ -289,7 +304,7 @@ class StepEngine:
                  grad_accum: int = 1, grad_clip=None, loss_weights=None,
                  precision_config: Optional[PrecisionConfig] = None,
                  generator: Optional[torch.Generator] = None,
-                 ladder=None):
+                 ladder=None, transport=None):
         self.module = module
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -314,6 +329,15 @@ class StepEngine:
         self.scaler = init_scaler_state(self.precision_config, self.device)
         self._snapshot: Dict[Any, torch.Tensor] = {}
         self._windows: Dict[Any, CapturedWindow] = {}
+        self.transport = transport
+        self.comm_order = None
+        self.comm_state: Dict[str, Any] = {}
+        if transport is not None and transport.cfg is not None:
+            from stoke_tpu_torch.parallel.collectives import JaxLeafOrder
+
+            self.comm_order = JaxLeafOrder(module, self.params)
+            self.comm_state = transport.init_state(
+                self.comm_order.sizes(self.params), self.device)
         if self.device.type == "cuda":
             make_capturable(optimizer)
 
@@ -457,11 +481,16 @@ class StepEngine:
         the step everywhere), the clip norm taken over the global
         gradient, and after the step the tier's parameters gathered."""
         ladder = self.ladder
+        transport = (self._transport_grads
+                     if self.transport is not None and self.transport.active
+                     else None)
         if ladder is None:
+            if transport is not None:
+                transport([_grad_or_zeros(p) for p in self.params])
             grads = [p.grad for p in self.params if p.grad is not None]
             sharded: List[torch.Tensor] = []
         else:
-            grads, sharded = ladder.reduce_for_apply()
+            grads, sharded = ladder.reduce_for_apply(transport)
         finite = None
         if self.precision.scaled:
             scale = self.scaler["scale"]
@@ -491,6 +520,15 @@ class StepEngine:
             if self.per_loss:
                 self.scaler["finite"].fill_(True)
         return finite
+
+    def _transport_grads(self, grads: List[torch.Tensor]) -> None:
+        """The gradient transport over the whole reduced gradients
+        ``grads`` (the engine's parameter order), in place: unscaled
+        (a lossy transport is not legal under fp16), before the finite
+        check and the clip, as the JAX apply core orders them."""
+        order = self.comm_order
+        out = self.transport.apply(order.to_jax(grads), self.comm_state)
+        order.from_jax(out, grads)
 
     def _guarded(self) -> Dict[Any, torch.Tensor]:
         """Every tensor a step may change: the parameters and each tensor

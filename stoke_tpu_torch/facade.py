@@ -40,22 +40,30 @@ dict (the fp32 masters and the buffers), the optimizer's state keyed by
 parameter name, the scaler state, the three counters, the masters'
 gradients when saved mid-window, and the dropout generator's state.
 ``load`` copies into the live tensors, so a window captured as a CUDA
-graph replays from the loaded state.
+graph replays from the loaded state. Across processes every rank takes
+part in ``save``, ``load``, ``maybe_resume`` and the periodic auto-save:
+the consolidated format gathers the slices of oss, sddp and fsdp to
+whole leaves and ``CheckpointConfig.save_rank`` writes them; the sharded
+format has every rank write its own slices. Either loads at any world
+size, and in one process. As in the JAX package, a save does not hold the
+gradient transport's error-feedback residual or its key: a resumed run
+with a ``CommConfig`` starts from a zero residual and the initial key.
 
 ``distributed="dp"`` joins a process group (the launcher's, an explicit
 ``DistributedInitConfig`` rendezvous, or a one-process group;
 :mod:`stoke_tpu_torch.parallel.mesh`), drives ``cuda:LOCAL_RANK``, and
 runs the tier the ``oss`` / ``sddp`` / ``fsdp`` flags select through the
-step engine's :class:`~stoke_tpu_torch.parallel.ladder.Ladder`. Rank 0's
+step engine's :class:`~stoke_tpu_torch.parallel.ladder.Ladder`, with the
+gradient transport of a ``CommConfig`` at its apply
+(:mod:`stoke_tpu_torch.parallel.collectives`). Rank 0's
 parameters and buffers are broadcast at construction. Each rank draws
 its dropout masks from its own seed (``seed + rank``): the JAX package
 draws one mask over the global batch, so the masks cannot match its bit
 for bit. The losses ``loss()`` reports are the global batch's.
 
 Left out, and refused with ``NotImplementedError`` naming their ROADMAP
-item: the sharded checkpoint format (by the status layer), checkpoints
-across more than one process and ``serve()`` under a sharding tier (item
-6b), ``resume`` (item 9) and ``estimate_step_cost`` (item 10).
+item: ``resume``, emergency saves and offload staging (item 9) and
+``estimate_step_cost`` (item 10).
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from stoke_tpu_torch import io_ops
 from stoke_tpu_torch.configs import (
     CheckpointConfig,
+    CheckpointFormat,
     ClipGradConfig,
     ClipGradNormConfig,
     DeviceOptions,
@@ -83,7 +92,6 @@ from stoke_tpu_torch.configs import (
     ParamNormalize,
     PrecisionConfig,
     PrecisionOptions,
-    ShardingOptions,
 )
 from stoke_tpu_torch.data import StokeDataLoader, place
 from stoke_tpu_torch.engine import PrecisionPolicy, StepEngine, build_optimizer
@@ -98,11 +106,8 @@ from stoke_tpu_torch.parallel.mesh import (
 )
 from stoke_tpu_torch.parallel.sharding import make_sharding_rules
 from stoke_tpu_torch.serving.engine import resolve_device
-from stoke_tpu_torch.status import (
-    _LATER_SHARDED_IO,
-    StokeStatus,
-    StokeValidationError,
-)
+from stoke_tpu_torch.parallel.zero import make_transport
+from stoke_tpu_torch.status import StokeStatus, StokeValidationError
 from stoke_tpu_torch.utils.printing import unrolled_print
 from stoke_tpu_torch.utils.tb_writer import TBEventWriter
 from stoke_tpu_torch.utils.trees import tree_count_params
@@ -244,9 +249,6 @@ class Stoke:
         world = (dist.get_world_size(self._group) if self._group is not None
                  else 1)
         st.set_post_init_values(world_size=world, n_processes=world)
-        ckpt = st.checkpoint_config
-        if world > 1 and ckpt.save_every_n_steps and ckpt.auto_path:
-            self._refuse_multiprocess_io("the periodic auto-save")
         if not isinstance(model, nn.Module):
             raise TypeError(
                 f"Stoke -- model must be a torch.nn.Module, got "
@@ -296,6 +298,8 @@ class Stoke:
             grad_clip=st.grad_clip, loss_weights=loss_weights,
             precision_config=st.precision_config, generator=self._generator,
             ladder=self._ladder,
+            transport=make_transport(st.comm_config, st.sharding_tier,
+                                     self._group),
         )
         self._skipped_steps = torch.zeros((), dtype=torch.float32,
                                           device=self._device)
@@ -325,12 +329,6 @@ class Stoke:
         if not joined and not dist.is_initialized():
             one_process_group(self._device)
         self._group = build_mesh(st.mesh_config, self._device).get_group()
-
-    def _refuse_multiprocess_io(self, what: str) -> None:
-        if self.world_size > 1:
-            raise NotImplementedError(
-                f"Stoke -- {what} across {self.world_size} processes is not "
-                f"ported yet: {_LATER_SHARDED_IO}")
 
     def _whole_params(self):
         """The module's parameters whole inside the block (under fsdp
@@ -653,7 +651,6 @@ class Stoke:
     def _save_with_config(self, path: str, name: str,
                           config: CheckpointConfig,
                           extras: Optional[Dict[str, Any]]) -> str:
-        self._refuse_multiprocess_io("Stoke.save")
         with self._whole_params():
             return self._save_whole(path, name, config, extras)
 
@@ -664,14 +661,28 @@ class Stoke:
         grad_buf = None
         if self._grad_accum_counter > 0:
             grad_buf = self._accumulated_grads()
+        state = {
+            "variables": self._module.state_dict(),
+            "opt_state": arrays,
+            "scaler_state": dict(self._engine.scaler),
+            "grad_buf": grad_buf,
+        }
+        port_state = {
+            "param_groups": groups, "opt_values": values,
+            "generator": self._generator.get_state().numpy(),
+            "generator_device": self._device.type,
+        }
+        rank_state = layout = None
+        if self._ladder is not None:
+            state, rank_state, layout = self._split_by_rank(
+                state, config.format is CheckpointFormat.sharded)
+            if self.world_size > 1:
+                # each rank draws its dropout masks from its own generator
+                port_state["generators"] = [
+                    g.cpu().numpy() for g in self._ladder.gather_whole(
+                        self._generator.get_state().to(self._device))]
         return io_ops.save_checkpoint(
-            path=path, name=name,
-            state={
-                "variables": self._module.state_dict(),
-                "opt_state": arrays,
-                "scaler_state": dict(self._engine.scaler),
-                "grad_buf": grad_buf,
-            },
+            path=path, name=name, state=state,
             counters={
                 "backward_step": self._backward_steps,
                 "grad_accum_step": self._grad_accum_counter,
@@ -680,35 +691,121 @@ class Stoke:
             status=self._status_obj.to_dict(),
             extras=extras, config=config,
             backward_step=self._backward_steps,
-            port_state={
-                "param_groups": groups, "opt_values": values,
-                "generator": self._generator.get_state().numpy(),
-                "generator_device": self._device.type,
-            },
+            port_state=port_state, rank_state=rank_state, layout=layout,
+            group=self._group,
         )
 
-    def _opt_spec(self, params: Dict[str, torch.Tensor]):
-        """``spec(name)`` of the optimizer's arrays: None for a parameter
-        the optimizer does not hold or a state key its live state lacks;
-        the live state tensor's where there is one; for an optimizer that
-        has not stepped yet, a scalar fp32 ``step`` or a tensor shaped like
-        its parameter."""
-        held = {p for g in self.optimizer.param_groups for p in g["params"]}
+    def _leaf_index(self) -> Dict[str, int]:
+        """The ladder's index of each trainable parameter, by name."""
+        names = {p: n for n, p in self._module.named_parameters()}
+        return {names[p]: i for i, p in enumerate(self._ladder.params)}
 
+    def _split_by_rank(self, state: Dict[str, Any], sharded: bool):
+        """Across the ladder's ranks: ``(the writer's arrays, this rank's
+        slices, the layout for meta.json)`` of one save. The
+        consolidated format gathers every slice (the optimizer state of
+        the sharded leaves, the sharded accumulators) whole to every rank
+        and writes the ranks' own accumulated gradients both as their
+        mean (``grad_buf``) and one by one (``grad_local``); the sharded
+        format leaves each rank its slices (and, under fsdp, its slices of
+        the parameters), described in the layout. Every rank runs the
+        same collectives in the same order, on this thread."""
+        ladder, world = self._ladder, self.world_size
+        index = self._leaf_index()
+        freed = {i for b in ladder.buckets if b.frees for i in b.index}
+        out = {k: {} for k in ("variables", "opt_state", "scaler_state",
+                               "grad_buf", "grad_local")}
+        mine = {k: {} for k in ("variables", "opt_state", "grad_buf")}
+        leaves = {k: {} for k in mine}
+        local: List[str] = []
+        out["scaler_state"] = state["scaler_state"]
+
+        def keep_slice(key, label, t, full_shape, dim):
+            mine[key][label] = t
+            leaves[key][label] = {
+                "dim": dim, "shape": list(full_shape),
+                "extents": ladder.slice_extents(full_shape[dim])}
+
+        for n, t in state["variables"].items():
+            i = index.get(n)
+            if sharded and world > 1 and i in freed:
+                d = ladder.sliced_dim(i)
+                part = t.unflatten(d, (world, -1)).movedim(d, 0)[self.rank]
+                keep_slice("variables", n, part, t.shape, d)
+            else:
+                out["variables"][n] = t
+        for label, v in state["opt_state"].items():
+            i = index[label.rpartition("/")[0]]
+            d = ladder.sliced_dim(i)
+            full = ladder.params[i].shape
+            if d is None or world == 1 or v.dim() == 0:
+                out["opt_state"][label] = v
+            elif sharded:
+                keep_slice("opt_state", label, v, full, d)
+            else:
+                out["opt_state"][label] = ladder.gather_slice(v, d)
+        for n, g in (state["grad_buf"] or {}).items():
+            i = index[n]
+            d = ladder.accumulator_dim(i)
+            if world == 1:
+                out["grad_buf"][n] = g
+            elif d is not None:
+                if sharded:
+                    keep_slice("grad_buf", n, g, ladder.params[i].shape, d)
+                else:
+                    out["grad_buf"][n] = ladder.gather_slice(g, d)
+            elif sharded:
+                mine["grad_buf"][n] = g
+                local.append(n)
+            else:
+                mean = g.clone()
+                dist.all_reduce(mean, op=dist.ReduceOp.AVG, group=self._group)
+                out["grad_buf"][n] = mean
+                for r, part in enumerate(ladder.gather_whole(g)):
+                    out["grad_local"][f"{n}@{r}"] = part
+        if state["grad_buf"] is None:
+            out["grad_buf"] = None
+        if not out["grad_local"]:
+            del out["grad_local"]
+        if not sharded:
+            return out, None, None
+        layout = {"leaves": {k: v for k, v in leaves.items() if v},
+                  "grad_local": local}
+        return out, {k: v for k, v in mine.items() if v}, layout
+
+    def _opt_spec(self, params: Dict[str, torch.Tensor],
+                  held: Dict[str, torch.Tensor]):
+        """``spec(name)`` of the optimizer's arrays, whole: None for a
+        parameter the optimizer does not hold or a state key its live state
+        lacks; the live state tensor's where there is one (the whole
+        leaf's shape for a state the optimizer keeps of a slice); for an
+        optimizer that has not stepped yet, a scalar fp32 ``step`` or a
+        tensor shaped like its parameter."""
         def spec(key: str) -> io_ops.Spec:
             pname, _, skey = key.rpartition("/")
-            p = params.get(pname)
-            if p is None or p not in held:
+            p, o = params.get(pname), held.get(pname)
+            if p is None or o is None:
                 return None
-            state = self.optimizer.state.get(p, {})
+            state = self.optimizer.state.get(o, {})
             if state and skey not in state:
                 return None
-            if torch.is_tensor(state.get(skey)):
-                return io_ops.spec_of(state[skey])
+            live = state.get(skey)
+            if torch.is_tensor(live):
+                shape = (p.shape if live.dim() and live.shape == o.shape
+                         else live.shape)
+                return tuple(shape), io_ops.numpy_dtype(live.dtype)
             if skey == "step":
                 return (), np.dtype(np.float32)
             return io_ops.spec_of(p)
         return spec
+
+    def _my_part(self, a: np.ndarray, dim: Optional[int]) -> np.ndarray:
+        """This rank's slice of a whole leaf's array along ``dim`` (the
+        ladder's rank-major split), or the array itself."""
+        if dim is None or self.world_size == 1:
+            return a
+        return np.ascontiguousarray(
+            np.split(a, self.world_size, axis=dim)[self.rank])
 
     def load(self, path: str, tag: Optional[str] = None,
              name: str = "stoke") -> Dict[str, Any]:
@@ -719,8 +816,11 @@ class Stoke:
         as a CUDA graph replays from the loaded state), and the counters
         are restored. A tag saved mid-window restores the accumulated
         gradients and the window's counter; one without them restarts the
-        window from zero. Returns the tag's extras."""
-        self._refuse_multiprocess_io("Stoke.load")
+        window from zero. Across processes every rank reads the tag (of
+        either format, saved at any world size) and takes its slices; a
+        rank resumes its own accumulated gradients and dropout generator
+        when the tag was saved at this world size, else the global
+        batch's mean gradients. Returns the tag's extras."""
         with self._whole_params():
             extras = self._load_whole(path, tag, name)
             if self._ladder is not None:
@@ -733,6 +833,8 @@ class Stoke:
         params = dict(self._module.named_parameters())
         held = {n: o for o, n in self._param_names().items()}
         scaler = self._engine.scaler
+        ladder = self._ladder
+        index = self._leaf_index() if ladder is not None else {}
 
         def like(tensors):
             return lambda n: (io_ops.spec_of(tensors[n]) if n in tensors
@@ -741,36 +843,52 @@ class Stoke:
         payload = io_ops.load_checkpoint(
             path, tag,
             {"variables": (like(sd), sd.keys()),
-             "opt_state": (self._opt_spec(held), ()),
+             "opt_state": (self._opt_spec(params, held), ()),
              "scaler_state": (like(scaler), scaler.keys()),
              "grad_buf": (like(params), ())},
             name=name if tag is None else None)
         port = payload["port"]
         self._check_param_groups(port.get("param_groups"))
+        opt = {}
+        for key, a in payload["opt_state"].items():
+            pname = key.rpartition("/")[0]
+            sliced = (ladder.sliced_dim(index[pname])
+                      if pname in index and a.ndim else None)
+            opt[key] = self._my_part(a, sliced)
         with torch.no_grad():
             for n, a in payload["variables"].items():
                 sd[n].copy_(io_ops.from_numpy(a, sd[n].dtype))
             for n, a in payload["scaler_state"].items():
                 scaler[n].copy_(io_ops.from_numpy(a, scaler[n].dtype))
-            self._restore_optimizer(payload["opt_state"], port, held)
+            self._restore_optimizer(opt, port, held)
             grads = payload["grad_buf"]
-            if self._ladder is not None:
-                self._ladder.drop_grads()
-            accumulators = self._accumulated_grads()
+            own = (payload["grad_local"]
+                   if payload["world"] == self.world_size else None) or {}
+            if ladder is not None:
+                ladder.drop_grads()
             for n, p in params.items():
                 if grads is None or n not in grads:
                     p.grad = None
                     continue
-                g = io_ops.from_numpy(grads[n], p.dtype).to(p.device)
-                acc = accumulators.get(n)
-                if acc is not None and acc is not p.grad:
-                    acc.copy_(g)
-                elif p.grad is not None and p.grad.shape == p.shape:
+                i = index.get(n)
+                dim = ladder.accumulator_dim(i) if i is not None else None
+                if dim is not None:
+                    ladder.accumulator(i).copy_(io_ops.from_numpy(
+                        self._my_part(grads[n], dim), p.dtype))
+                    p.grad = None
+                    continue
+                a = own[n][self.rank] if n in own else grads[n]
+                g = io_ops.from_numpy(a, p.dtype).to(p.device)
+                if p.grad is not None and p.grad.shape == p.shape:
                     p.grad.copy_(g)
                 else:
                     p.grad = g
         if port.get("generator_device") == self._device.type:
-            self._generator.set_state(torch.from_numpy(port["generator"]))
+            gens = port.get("generators")
+            if gens is not None and len(gens) == self.world_size:
+                self._generator.set_state(torch.from_numpy(gens[self.rank]))
+            elif self.world_size == 1:
+                self._generator.set_state(torch.from_numpy(port["generator"]))
         counters = payload["counters"]
         self._backward_steps = counters["backward_step"]
         self._optimizer_steps = counters["optimizer_step"]
@@ -982,17 +1100,12 @@ class Stoke:
         this engine only and are checked by the same serve rules. The
         engine serves a copy of the model and its weights: training on
         does not change an engine already built (build another to serve
-        newer weights). Under plain dp every rank holds the whole model
-        and may serve it; under a sharding tier the weights would first
-        be gathered, which is ROADMAP item 6b."""
+        newer weights). Across processes every rank builds the engine
+        over the whole weights (under fsdp gathered for the copy, so every
+        rank must call it)."""
         from stoke_tpu_torch.models.gpt import GPT
         from stoke_tpu_torch.serving.engine import ServingEngine
 
-        if self._status_obj.sharding_tier is not ShardingOptions.none:
-            raise NotImplementedError(
-                f"Stoke.serve() under "
-                f"{self._status_obj.sharding_tier.value} is not ported yet: "
-                f"{_LATER_SHARDED_IO}")
         scfg = self._status_obj.serve_config
         if scfg is None:
             raise StokeValidationError(
@@ -1015,7 +1128,8 @@ class Stoke:
         shared = {id(m.generator): m.generator
                   for m in self._module.modules()
                   if isinstance(m, Dropout) and m.generator is not None}
-        model = copy.deepcopy(self._module, memo=shared)
+        with self._whole_params():
+            model = copy.deepcopy(self._module, memo=shared)
         return ServingEngine(model, model.state_dict(), scfg,
                              device=self._device)
 
@@ -1331,6 +1445,21 @@ class Stoke:
         from ``PrecisionConfig.init_scale``, as in the JAX package."""
         s = self._engine.scaler["scale"]
         return [float(v) for v in s] if s.ndim else float(s)
+
+    @property
+    def comm_bytes(self) -> Optional[Dict[str, int]]:
+        """Analytic per-device bytes on the wire of one optimizer step's
+        gradient exchange (None without a ``CommConfig``): ``prequant``
+        what the schedule moves in fp32, ``onwire`` what the wire dtype
+        moves, and under the sharded transport ``param_gather``, the
+        updated parameters' all-gather (0 under fsdp). The JAX formula:
+        the port's extra int8 all-gather of the sharded schedule and its
+        fp32 all-reduce of the gradients before the wire are not in it."""
+        engine = self._engine
+        if engine.transport is None or engine.comm_order is None:
+            return None
+        return engine.transport.bytes_per_step(
+            engine.comm_order.sizes(engine.params))
 
     @property
     def is_distributed(self) -> bool:

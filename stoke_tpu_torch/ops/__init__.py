@@ -1,5 +1,6 @@
-"""Attention kernels of the port (CUDA, with plain PyTorch versions), and
-the chunked LM-head cross entropy."""
+"""Attention kernels of the port (CUDA, with plain PyTorch versions), the
+per-chunk int8 quantize pair of the gradient transports and the serving
+weights, and the chunked LM-head cross entropy."""
 
 from stoke_tpu_torch.ops.chunked_ce import (
     chunked_causal_lm_loss,
@@ -29,6 +30,12 @@ from stoke_tpu_torch.ops.flash_attention import (
     paged_verify_attention_pallas,
     reset_launches,
 )
+from stoke_tpu_torch.ops.quant import (
+    dequantize_chunks,
+    dequantize_chunks_plain,
+    quantize_chunks,
+    quantize_chunks_plain,
+)
 
 __all__ = [
     "BWD_ROW_RTOL_BF16",
@@ -41,6 +48,8 @@ __all__ = [
     "chunked_causal_lm_loss",
     "chunked_softmax_cross_entropy",
     "dense_reference",
+    "dequantize_chunks",
+    "dequantize_chunks_plain",
     "ds_bound",
     "ds_scale",
     "flash_attention",
@@ -54,5 +63,7 @@ __all__ = [
     "paged_prefill_chunk_attention",
     "paged_verify_attention",
     "paged_verify_attention_pallas",
+    "quantize_chunks",
+    "quantize_chunks_plain",
     "reset_launches",
 ]

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "stoke_tpu_torch"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_verify")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_verify", "quant")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

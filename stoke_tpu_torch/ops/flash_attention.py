@@ -99,8 +99,10 @@ def bwd_row_err(out, ref) -> float:
 
 
 #: launches of each CUDA kernel, counted by its wrapper where it launches it
+#: (the quantize pair's wrappers are in ops/quant.py)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode": 0, "paged_verify": 0}
+            "paged_decode": 0, "paged_verify": 0, "quantize_chunks": 0,
+            "dequantize_chunks": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: what the paged kernels take (the flash kernels also take float16)

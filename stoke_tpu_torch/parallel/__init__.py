@@ -1,7 +1,9 @@
 """Data parallelism of the port: the process group and 1-D data mesh
 (:mod:`~stoke_tpu_torch.parallel.mesh`), the ZeRO ladder's placement rules
-(:mod:`~stoke_tpu_torch.parallel.sharding`) and their collectives
-(:mod:`~stoke_tpu_torch.parallel.ladder`). One process drives one device.
+(:mod:`~stoke_tpu_torch.parallel.sharding`), their collectives
+(:mod:`~stoke_tpu_torch.parallel.ladder`) and the quantized gradient
+transports (:mod:`~stoke_tpu_torch.parallel.collectives`,
+:mod:`~stoke_tpu_torch.parallel.zero`). One process drives one device.
 Counterpart of ``stoke_tpu/parallel`` less the pipeline (ROADMAP item 8).
 """
 

@@ -31,6 +31,13 @@ would replace the step engine's 16-bit casts of the masters):
   the port has no per-layer wrapping, so a micro-step's peak holds every
   parameter, while between steps only the slices are kept.
 
+With a gradient transport (``CommConfig``,
+:mod:`~stoke_tpu_torch.parallel.collectives`), the apply first makes every
+leaf's reduced gradient whole on every rank (oss all-reduces where it
+would reduce-scatter, the sharded accumulators are all-gathered), the
+transport rewrites them, and the slices take their parts; without one the
+path above is unchanged.
+
 Every reduction of gradients averages over the W ranks: each rank's
 objective is the mean over its rows, so their average is the mean over the
 global batch, which the JAX engine differentiates. A gradient that a rank
@@ -41,7 +48,7 @@ so every rank agrees on the bucket's size.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -271,13 +278,25 @@ class Ladder:
         self.release()
 
     @torch.no_grad()
-    def reduce_for_apply(self) -> Tuple[List[torch.Tensor],
-                                        List[torch.Tensor]]:
+    def reduce_for_apply(self, transport: Optional[Callable[
+            [List[torch.Tensor]], None]] = None
+    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """At the apply boundary: all-reduce the replicated leaves'
         gradients (all-gather those that sddp accumulated sharded),
         reduce-scatter the other buckets', and hand the slices their
         reduced gradients. Returns (the replicated gradients, the slices'
-        gradients), which together are what the optimizer steps on."""
+        gradients), which together are what the optimizer steps on.
+
+        With a gradient ``transport`` (a function that rewrites the whole
+        reduced gradients in place, the same on every rank), every leaf's
+        gradient is first made whole on every rank (the oss buckets
+        all-reduced instead of reduce-scattered, the sharded accumulators
+        all-gathered), the transport runs on them, and the slices take
+        their parts of its result."""
+        if transport is not None:
+            full = self._whole_grads()
+            transport(full)
+            return self._hand_out(full)
         rep = [self.params[i] for i in self.replicated]
         gathered = set()
         for b in self.grad_buckets:
@@ -311,6 +330,53 @@ class Ladder:
                 s.grad = g
                 shard_grads.append(g)
         return [p.grad for p in rep], shard_grads
+
+    def _whole_grads(self) -> List[torch.Tensor]:
+        """Every parameter's reduced gradient, whole, on every rank (in
+        the parameters' order): the sharded accumulators all-gathered, the
+        other gradients all-reduced (AVG) in one flat bucket a dtype."""
+        full: List[Optional[torch.Tensor]] = [None] * len(self.params)
+        local = []
+        for b in self.buckets + self.grad_buckets:
+            if not b.per_micro:
+                local += b.index
+                continue
+            whole = torch.empty(self.world * b.size, dtype=b.grad.dtype,
+                                device=b.grad.device)
+            dist.all_gather_into_tensor(whole, b.grad, group=self.group)
+            grads = [torch.empty_like(p) for p in b.leaves]
+            b.unpack(whole, grads)
+            for i, g in zip(b.index, grads):
+                full[i] = g
+        local += [i for i in self.replicated if full[i] is None
+                  and i not in local]
+        local.sort()
+        for dtype in dict.fromkeys(self.params[i].dtype for i in local):
+            idx = [i for i in local if self.params[i].dtype == dtype]
+            grads = [_grad_or_zeros(self.params[i]) for i in idx]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.group)
+            for i, v in zip(idx, flat.split([g.numel() for g in grads])):
+                full[i] = v.view_as(self.params[i])
+        for p in self.params:
+            p.grad = None
+        return full
+
+    def _hand_out(self, full: List[torch.Tensor]
+                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """The contract of :meth:`reduce_for_apply` from whole reduced
+        gradients: the leaves stepped whole get theirs as ``.grad``, the
+        slices their parts (rank-major, into the buckets' ``grad``)."""
+        for i in self.replicated:
+            self.params[i].grad = full[i]
+        shard_grads = []
+        for b in self.buckets:
+            rows = b.pack([full[i] for i in b.index]).view(self.world, b.size)
+            b.grad.copy_(rows[self.rank])
+            for s, g in zip(b.shards, b.views(b.grad)):
+                s.grad = g
+                shard_grads.append(g)
+        return [self.params[i].grad for i in self.replicated], shard_grads
 
     def drop_grads(self) -> None:
         """Zero the sharded accumulators and drop every gradient."""
@@ -364,6 +430,52 @@ class Ladder:
     # ------------------------------------------------------------------ #
     # what each rank holds
     # ------------------------------------------------------------------ #
+
+    def sliced_dim(self, i: int) -> Optional[int]:
+        """The dimension along which the optimizer holds parameter ``i``'s
+        slice (oss, sddp, fsdp), or None for a leaf it steps whole."""
+        for b in self.buckets:
+            if i in b.index:
+                return b.dims[b.index.index(i)]
+        return None
+
+    def accumulator_dim(self, i: int) -> Optional[int]:
+        """The dimension of parameter ``i``'s sharded accumulator (sddp,
+        fsdp), or None for a leaf whose ``.grad`` accumulates."""
+        for b in self.buckets + self.grad_buckets:
+            if b.per_micro and i in b.index:
+                return b.dims[b.index.index(i)]
+        return None
+
+    @torch.no_grad()
+    def gather_slice(self, s: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's slice ``s`` (rank-major along ``dim``) all-gathered
+        into the whole leaf; every rank must call it, in the same order."""
+        if self.world == 1:
+            return s
+        out = torch.empty(self.world * s.numel(), dtype=s.dtype,
+                          device=s.device)
+        dist.all_gather_into_tensor(out, s.contiguous().view(-1),
+                                    group=self.group)
+        return out.view(self.world, *s.shape).movedim(0, dim).flatten(
+            dim, dim + 1)
+
+    @torch.no_grad()
+    def gather_whole(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Each rank's tensor ``t`` (of one shape on every rank), as a
+        list by rank."""
+        if self.world == 1:
+            return [t]
+        out = torch.empty(self.world * t.numel(), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t.contiguous().view(-1),
+                                    group=self.group)
+        return list(out.view(self.world, *t.shape).unbind(0))
+
+    def slice_extents(self, n: int) -> List[List[int]]:
+        """Each rank's ``[start, stop)`` of a dimension of ``n``."""
+        k = n // self.world
+        return [[r * k, (r + 1) * k] for r in range(self.world)]
 
     def accumulator(self, i: int) -> Optional[torch.Tensor]:
         """Parameter ``i``'s slice of the sharded accumulator (sddp,

@@ -1,5 +1,5 @@
 """Serving stack of the port: paged KV cache, continuous batching, sampling,
-speculative decoding, engine."""
+speculative decoding, int8 and bf16 weights, engine."""
 
 from stoke_tpu_torch.serving.engine import ServingEngine
 from stoke_tpu_torch.serving.kv_cache import (
@@ -8,6 +8,13 @@ from stoke_tpu_torch.serving.kv_cache import (
     PagedAttentionHook,
     PagedKVCache,
     resolve_device,
+)
+from stoke_tpu_torch.serving.quant import (
+    QuantizedTensor,
+    compression_stats,
+    dequantize_params,
+    param_bytes,
+    quantize_params,
 )
 from stoke_tpu_torch.serving.sampling import SamplingParams
 from stoke_tpu_torch.serving.scheduler import Request, Scheduler
@@ -19,11 +26,16 @@ __all__ = [
     "BlockAllocator",
     "PagedAttentionHook",
     "PagedKVCache",
+    "QuantizedTensor",
     "Request",
     "SamplingParams",
     "Scheduler",
     "ServeMetrics",
     "ServingEngine",
+    "compression_stats",
+    "dequantize_params",
+    "param_bytes",
     "propose_draft",
+    "quantize_params",
     "resolve_device",
 ]

@@ -39,9 +39,18 @@ acceptance counts in the same copy). When no row of a dispatch samples,
 the draw is the argmax, which is what the sampler gives at temperature 0.
 The port runs under ``torch.inference_mode()``.
 
-Left out of this slice, and refused at construction with
-``NotImplementedError``: weight quantization, and the SLO and cost
-observatories. Tracing and the memory observatory are left out too.
+``ServeConfig(quant="int8" | "bf16")`` quantizes the weights once at
+construction (:mod:`~stoke_tpu_torch.serving.quant`, in the JAX package's
+leaf order and layout) and keeps only the quantized store on the device;
+every dispatch dequantizes it (int8: the dequantize kernel, one launch a
+leaf) and runs the model on the result through
+``torch.func.functional_call``. ``compression`` and the per-leaf
+``quant_errors`` are computed once, as the JAX engine does.
+
+Left out, and refused at construction with ``NotImplementedError``
+naming ROADMAP item 10: the SLO and cost observatories, and the
+by-group attribution of the quantization error. Tracing and the memory
+observatory are left out too.
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 from torch import nn
+
+from torch.func import functional_call
 
 from stoke_tpu_torch.configs import ServeConfig
 from stoke_tpu_torch.models.bert import BERT_SIZES
@@ -80,7 +91,6 @@ from stoke_tpu_torch.telemetry.registry import MetricsRegistry
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_LATER_SERVING = "ROADMAP Queue 1 item 3 (serving: weight quantization)"
 _LATER_TELEMETRY = (
     "ROADMAP Queue 1 item 10 (telemetry: the serve SLO and cost "
     "observatories)"
@@ -95,7 +105,6 @@ def _unsupported(cfg: ServeConfig) -> Optional[str]:
     """The first feature ``cfg`` turns on that this slice does not serve,
     with the ROADMAP item that ports it."""
     later = {
-        "quant": (cfg.quant != "none", _LATER_SERVING),
         "cost_cards": (cfg.cost_cards, _LATER_TELEMETRY),
         "slo_ttft_target_s": (
             cfg.slo_ttft_target_s is not None, _LATER_TELEMETRY
@@ -214,6 +223,12 @@ class ServingEngine:
         self.model.eval()
         self.cfg = cfg
         self.metrics = ServeMetrics(MetricsRegistry())
+        #: the quantized weight store (None: the module's own weights)
+        self.qparams: Optional[Dict[str, Any]] = None
+        self.quant_stats: Optional[Dict[str, float]] = None
+        self.quant_errors: Dict[str, Dict[str, float]] = {}
+        if cfg.quant != "none":
+            self._quantize(cfg)
 
         size = BERT_SIZES[model.size_name]
         max_blocks_per_seq = -(-cfg.max_seq_len // cfg.kv_block_size)
@@ -268,6 +283,47 @@ class ServingEngine:
         self.captured_logits: Dict[int, List[np.ndarray]] = {}
         self._iterations = 0
         self._t_start = time.perf_counter()
+
+    def _quantize(self, cfg: ServeConfig) -> None:
+        """Quantize the weights once (the JAX engine's load-time
+        quantization), record the compression and, for int8, each leaf's
+        error, and free the module's storage of every tensor the store
+        replaces."""
+        from stoke_tpu_torch.convert import jax_param_layout
+        from stoke_tpu_torch.serving.quant import (
+            compression_stats,
+            quantization_error,
+            quantize_params,
+        )
+
+        try:
+            layout = jax_param_layout(self.model)
+        except ValueError:
+            layout = None
+        params = dict(self.model.named_parameters())
+        dense = {n: p.detach() for n, p in params.items()}
+        self.qparams = quantize_params(
+            dense, cfg.quant, chunk_elems=cfg.quant_chunk_elems,
+            stochastic=cfg.quant_stochastic, min_size=cfg.quant_min_size,
+            layout=layout)
+        self.quant_stats = compression_stats(dense, self.qparams)
+        self.metrics.quant_compression.set(self.quant_stats["compression"])
+        if cfg.quant == "int8":
+            self.quant_errors = quantization_error(dense, self.qparams,
+                                                   layout)
+        for n, p in params.items():
+            if self.qparams[n] is not dense[n]:
+                p.untyped_storage().resize_(0)
+
+    def _forward(self, *args, **kwargs):
+        """The model's forward: on the module's weights, or on the
+        quantized store dequantized for this dispatch."""
+        if self.qparams is None:
+            return self.model(*args, **kwargs)
+        from stoke_tpu_torch.serving.quant import dequantize_params
+
+        return functional_call(self.model, dequantize_params(self.qparams),
+                               args, kwargs)
 
     # ------------------------------------------------------------------ #
     # the forwards
@@ -334,7 +390,7 @@ class ServingEngine:
         )
         positions = torch.arange(P, dtype=torch.int32, device=self.device)[None]
         hook = self._hook(tables, positions, "prefill", plen)
-        logits = self.model(tokens, positions, kv_cache=hook)
+        logits = self._forward(tokens, positions, kv_cache=hook)
         return int(logits[0, prompt_len - 1].argmax())  # sync: the TTFT point
 
     def _prefill_sampling(self, padded: np.ndarray, block_row: np.ndarray,
@@ -349,7 +405,7 @@ class ServingEngine:
         )
         positions = torch.arange(P, dtype=torch.int32, device=self.device)[None]
         hook = self._hook(tables, positions, "prefill", plen)
-        row = self.model(tokens, positions, kv_cache=hook)[0, prompt_len - 1]
+        row = self._forward(tokens, positions, kv_cache=hook)[0, prompt_len - 1]
         tok = self._draw(sample_tokens, row[None], knobs[0],
                          *self._sampling_args(*samp))
         return int(tok[0]), carry[0], row  # sync: the TTFT point
@@ -361,7 +417,7 @@ class ServingEngine:
             *self.scheduler.decode_batch()
         )
         hook = self._hook(tables, positions[:, None], "decode", context)
-        logits = self.model(
+        logits = self._forward(
             tokens[:, None], positions[:, None], decode=True, kv_cache=hook
         )
         # sync: the tokens stream out
@@ -378,7 +434,7 @@ class ServingEngine:
             *sched.decode_batch(), sub, *knobs
         )
         hook = self._hook(tables, positions[:, None], "decode", context)
-        logits = self.model(
+        logits = self._forward(
             tokens[:, None], positions[:, None], decode=True, kv_cache=hook
         )[:, -1, :]
         tok = self._draw(sample_tokens, logits, knobs[0],
@@ -400,7 +456,7 @@ class ServingEngine:
             np.array([req.prompt.size]), sub, *knobs,
         )
         hook = self._hook(tables, pos, "chunk", plen)
-        row = self.model(tokens, pos, kv_cache=hook)[0, logit_idx]
+        row = self._forward(tokens, pos, kv_cache=hook)[0, logit_idx]
         tok = self._draw(sample_tokens, row[None], knobs[0],
                          *self._sampling_args(*samp))
         # every chunk syncs, so its compute is charged to prefill and not
@@ -423,7 +479,7 @@ class ServingEngine:
             tokens, positions, tables, lengths, logit_idx, sub, temps, ks, ps,
         )
         hook = self._hook(tab, pos, "chunk", lens)
-        logits = self.model(toks, pos, kv_cache=hook)
+        logits = self._forward(toks, pos, kv_cache=hook)
         V = logits.shape[-1]
         picked = torch.gather(
             logits, 1, idx.long()[:, None, None].expand(-1, 1, V)
@@ -448,7 +504,7 @@ class ServingEngine:
             tokens, positions, tables, lengths, draft_lens, subs, *knobs,
         )
         hook = self._hook(tab, pos, "verify", lens)
-        logits = self.model(toks, pos, kv_cache=hook)
+        logits = self._forward(toks, pos, kv_cache=hook)
         targets = self._draw(draw_targets, logits, knobs[0],
                              *self._sampling_args(*samp))
         n_emit = accept_drafts(toks[:, 1:], dl, targets)

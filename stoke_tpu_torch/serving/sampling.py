@@ -5,16 +5,9 @@ Counterpart of ``stoke_tpu/serving/sampling.py``. The JAX sampler's
 randomness is a fixed function of the key data, so this module ports that
 function and gives the JAX engine's draws bit for bit:
 
-- **Threefry-2x32** (20 rounds, the Random123 rotation schedule of
-  ``jax/_src/prng.py``). Key data is the JAX typed key's raw ``uint32[2]``
-  pair. On the host it is a numpy ``uint32`` array, whose arithmetic wraps
-  modulo 2**32; on the device it is carried as int64 and masked with
-  ``& 0xFFFFFFFF`` after every add, rotate and xor, since torch has no
-  arithmetic on uint32. The same code serves both;
-- the **partitionable** ``split`` and 32-bit ``random_bits`` that
-  ``jax_threefry_partitionable=True`` selects (the default): counters are
-  a 64-bit iota split into hi/lo words, a split key is the pair of hash
-  words, and 32 random bits are ``bits1 ^ bits2``;
+- **Threefry-2x32** and the partitionable ``split`` and ``random_bits``
+  of :mod:`stoke_tpu_torch.utils.prng` (host numpy ``uint32`` key data, or
+  int64 tensors on the device), re-exported here;
 - ``gumbel`` through ``uniform(minval=finfo(float32).tiny, maxval=1)``:
   the top 23 bits become a float in [1, 2), minus 1, then
   ``-log(-log(u))``.
@@ -36,10 +29,18 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+# the threefry primitives live in utils/prng.py, shared with the gradient
+# transports; the sampler's names stay importable from here
+from stoke_tpu_torch.utils.prng import (  # noqa: F401
+    initial_key_data,
+    key_data_to_device,
+    random_bits,
+    split_chain,
+    split_key_data,
+    threefry2x32,
+)
+
 _NEG_INF = -1e30
-_MASK = 0xFFFFFFFF
-#: Threefry-2x32's rotation constants, alternating per block of 4 rounds
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 #: float32 ``finfo.tiny``: ``gumbel``'s uniform lower bound
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -100,93 +101,8 @@ def validate_sampling_params(p: SamplingParams) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# threefry-2x32 and the partitionable split / bits / gumbel
+# gumbel noise over the shared threefry primitives (utils/prng.py)
 # --------------------------------------------------------------------------- #
-
-
-def _rotl(x, r: int):
-    return ((x << r) | (x >> (32 - r))) & _MASK
-
-
-def threefry2x32(k1, k2, x1, x2):
-    """The Threefry-2x32 hash of counter words ``(x1, x2)`` under key
-    ``(k1, k2)``, broadcast together: numpy uint32 arrays, or int64
-    tensors holding uint32 values. Returns the two hashed words in the
-    inputs' type."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (x1 + ks[0]) & _MASK
-    x2 = (x2 + ks[1]) & _MASK
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & _MASK
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & _MASK
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _MASK
-    return x1, x2
-
-
-def _hash_iota(key_data, n: int):
-    """Both hash words of counters ``0..n-1`` (hi word 0) under every key
-    of ``key_data [..., 2]`` (numpy uint32 or int64 tensor): two
-    ``[..., n]`` arrays of its type."""
-    if isinstance(key_data, np.ndarray):
-        lo = np.arange(n, dtype=np.uint32)
-        hi = np.zeros_like(lo)
-    else:
-        lo = torch.arange(n, dtype=torch.int64, device=key_data.device)
-        hi = torch.zeros_like(lo)
-    return threefry2x32(key_data[..., 0:1], key_data[..., 1:2], hi, lo)
-
-
-def _stack(a, b):
-    if isinstance(a, np.ndarray):
-        return np.stack((a, b), axis=-1)
-    return torch.stack((a, b), dim=-1)
-
-
-def initial_key_data(seed: int) -> np.ndarray:
-    """Raw key data of ``jax.random.key(seed)`` (32-bit keys: the high
-    word 0, the low word the seed modulo 2**32), ``uint32 [2]``."""
-    return np.array([0, int(seed) & _MASK], np.uint32)
-
-
-def key_data_to_device(key_data: np.ndarray, device=None) -> torch.Tensor:
-    """Host ``uint32 [..., 2]`` key data as the int64 tensor the sampler
-    takes."""
-    return torch.from_numpy(
-        np.asarray(key_data, np.uint32).astype(np.int64)
-    ).to(device)
-
-
-def split_key_data(key_data):
-    """Split every key of ``key_data [..., 2]`` once, as
-    ``jax.random.split(key)``: returns ``(carry, sub)``, each
-    ``[..., 2]`` of the input's type (host uint32 or device int64). The
-    carry is the key's next state, the sub key feeds one draw."""
-    bits1, bits2 = _hash_iota(key_data, 2)
-    return (_stack(bits1[..., 0], bits2[..., 0]),
-            _stack(bits1[..., 1], bits2[..., 1]))
-
-
-def split_chain(key_data, n: int):
-    """``n`` sequential splits of every key: ``(carries [n, ..., 2], subs
-    [n, ..., 2])``, ``carries[i]`` the state after ``i + 1`` splits and
-    ``subs[i]`` the sub key of the (i+1)-th draw."""
-    carries, subs = [], []
-    for _ in range(n):
-        key_data, sub = split_key_data(key_data)
-        carries.append(key_data)
-        subs.append(sub)
-    if isinstance(key_data, np.ndarray):
-        return np.stack(carries), np.stack(subs)
-    return torch.stack(carries), torch.stack(subs)
-
-
-def random_bits(key_data, n: int):
-    """``jax.random.bits(key, (n,))`` (32-bit) for every key of
-    ``key_data [..., 2]``: ``[..., n]`` int64 in ``[0, 2**32)``."""
-    bits1, bits2 = _hash_iota(key_data, n)
-    return bits1 ^ bits2
 
 
 def gumbel(key_data, n: int):

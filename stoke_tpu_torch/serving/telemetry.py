@@ -124,6 +124,10 @@ class ServeMetrics:
             "serve/kv_block_occupancy",
             help="owned / allocatable KV blocks",
         )
+        self.quant_compression = registry.gauge(
+            "serve/quant_compression",
+            help="param bytes fp / param bytes as-served",
+        )
         self._p = {
             "ttft_p50": registry.gauge("serve/ttft_p50_s"),
             "ttft_p99": registry.gauge("serve/ttft_p99_s"),
@@ -197,6 +201,9 @@ class ServeMetrics:
             "serve/goodput_decode_s": self.decode_s.value,
             "serve/prefill_chunks": self.prefill_chunks.value,
             "serve/sampled_tokens": self.sampled_tokens.value,
+            "serve/quant_compression": (
+                self.quant_compression.value
+                if self.quant_compression.has_value else None),
         }
         if self.spec_active:
             # absent, not null, without a speculative config

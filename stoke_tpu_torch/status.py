@@ -14,13 +14,13 @@ Legality comes first (``StokeValidationError``). Only then does
 :meth:`StokeStatus._refuse_later_slices` refuse, with
 ``NotImplementedError`` naming the ROADMAP item, what the port does not
 run yet: every config class but ``PrecisionConfig``, the clip configs,
-``CheckpointConfig``, ``ServeConfig``, ``TensorboardConfig`` and the data
-parallel ones (``DataParallelConfig``, ``MeshConfig``,
-``DistributedInitConfig``, ``OSSConfig``, ``SDDPConfig``, ``FSDPConfig``)
-(:data:`LATER_CONFIGS`); ``DataParallelConfig.shard_seq_dim`` and a mesh
-of more than one axis or with cross-host axes (item 8); the sharded
-checkpoint format (item 6b) and offload staging (item 9). ``distributed``
-(``"dp"`` and its aliases) and the oss/sddp/fsdp tiers run.
+``CheckpointConfig`` (both formats), ``CommConfig``, ``ServeConfig``,
+``TensorboardConfig`` and the data parallel ones (``DataParallelConfig``,
+``MeshConfig``, ``DistributedInitConfig``, ``OSSConfig``, ``SDDPConfig``,
+``FSDPConfig``) (:data:`LATER_CONFIGS`); ``DataParallelConfig.shard_seq_dim``
+and a mesh of more than one axis or with cross-host axes (item 8); and
+offload staging (item 9). ``distributed`` (``"dp"`` and its aliases), the
+oss/sddp/fsdp tiers and the gradient transports run.
 
 :func:`serve_config_error` holds the serving rules with the JAX package's
 messages, but for the rule that refuses the TPU decode kernel on the CPU:
@@ -84,21 +84,17 @@ from stoke_tpu_torch.configs import (
 )
 
 _ITEM = "ROADMAP Queue 1 item"
-_LATER_TRANSPORT = f"{_ITEM} 7 (quantized gradient transports)"
 _LATER_MODEL_PARALLEL = f"{_ITEM} 8 (long context and model parallelism)"
-_LATER_SHARDED_IO = (
-    f"{_ITEM} 6b (the sharded checkpoint format and multi-process gathers)"
-)
 _LATER_STAGING = f"{_ITEM} 9 (offload and resilience)"
 _LATER_TELEMETRY = f"{_ITEM} 10 (telemetry)"
 _LATER_COMPILE = f"{_ITEM} 11 (compile cache, autotune and analysis)"
 _LATER_REMAT = f"{_ITEM} 13 (rematerialization)"
 
 #: the config classes the port refuses after the legality rules, with the
-#: ROADMAP item that ports each
+#: ROADMAP item that ports each (``CommConfig``, item 7, and
+#: ``CheckpointConfig(format='sharded')``, item 6b, are honoured)
 LATER_CONFIGS: Dict[str, str] = {
     "AttributionConfig": _LATER_TELEMETRY,
-    "CommConfig": _LATER_TRANSPORT,
     "CompileConfig": _LATER_COMPILE,
     "OffloadOptimizerConfig": _LATER_STAGING,
     "OffloadParamsConfig": _LATER_STAGING,
@@ -1193,8 +1189,6 @@ class StokeStatus:
         ckpt = self._configs.get("CheckpointConfig")
         if ckpt is not None:
             later += [
-                ("CheckpointConfig(format='sharded') is",
-                 ckpt.format is CheckpointFormat.sharded, _LATER_SHARDED_IO),
                 ("CheckpointConfig(offload_staging=True) is",
                  ckpt.offload_staging, _LATER_STAGING),
             ]

@@ -184,8 +184,9 @@ def stoke_from_example(cfg: Union[str, Dict[str, Any]], model: Any = None,
       (``OSSConfig()``, ``SDDPConfig()``, ``FSDPConfig(min_weight_size=
       2**12)``);
     - ``lr`` and ``momentum`` (0.9): optax's ``sgd``;
-    - ``telemetry``, ``comm``, ``health``: their config classes, which the
-      status layer refuses naming their ROADMAP item (10, 7, 10);
+    - ``telemetry``, ``comm``, ``health``: their config classes; the
+      status layer refuses ``telemetry`` and ``health`` naming ROADMAP
+      item 10, and ``comm`` runs the gradient transport;
     - ``epochs`` belongs to the training loop and is not read here.
 
     ``overrides`` replace ``Stoke`` arguments (e.g. ``device="cpu"``).

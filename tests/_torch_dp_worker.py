@@ -9,6 +9,7 @@ when a scenario raised). It imports torch and the port only: no JAX.
 
 from __future__ import annotations
 
+import os
 import traceback
 
 import numpy as np
@@ -326,25 +327,35 @@ def resnet(inputs, rank, world) -> dict:
                       s.model_access.state_dict().items()}}
 
 
-def multiprocess_refusals(inputs, rank, world) -> dict:
-    """What a run of several processes refuses (checkpoints, item 6b) and
-    that ``barrier`` returns on every rank."""
+def multiprocess_checkpoints(inputs, rank, world) -> dict:
+    """Saves, loads and the periodic auto-save across processes (refused
+    until ROADMAP item 6b): each returns on every rank, the tag holds the
+    run's counters, and ``barrier`` returns. Their numbers are
+    ``tests/test_torch_io_distributed.py``'s."""
     import tempfile
 
     from stoke_tpu_torch.configs import CheckpointConfig
 
     out = {}
-    s = mlp_stoke(inputs, world)
+    data = mlp_data(2)
     with tempfile.TemporaryDirectory() as d:
-        for name, call in (
-                ("save", lambda: s.save(d)), ("load", lambda: s.load(d)),
-                ("auto_save", lambda: mlp_stoke(inputs, world, extra=[
-                    CheckpointConfig(save_every_n_steps=1, auto_path=d)]))):
-            try:
-                call()
-                out[name] = None
-            except NotImplementedError as e:
-                out[name] = str(e)
+        # one directory for every rank: rank 0's name, broadcast
+        shared = [d]
+        dist.broadcast_object_list(shared, 0)
+        d = shared[0]
+        s = mlp_stoke(inputs, world)
+        four_calls(s, data, rank, world)
+        out["save"] = os.path.basename(s.save(d))
+        t = mlp_stoke(inputs, world)
+        t.load(d)
+        out["load"] = t.optimizer_steps
+        a = mlp_stoke(inputs, world, extra=[
+            CheckpointConfig(save_every_n_steps=1, auto_path=d + "/auto")])
+        four_calls(a, data, rank, world)
+        b = mlp_stoke(inputs, world, extra=[
+            CheckpointConfig(save_every_n_steps=1, auto_path=d + "/auto")])
+        out["auto_save"] = (b.maybe_resume(), b.optimizer_steps)
+        s.barrier()
     s.barrier()
     out["barrier"] = True
     return out
@@ -352,7 +363,7 @@ def multiprocess_refusals(inputs, rank, world) -> dict:
 
 SCENARIOS = (tiers, placements, accumulation, fsdp_eval, window, fp16,
              loss_sync, samplers, dropout_masks, gpt, resnet,
-             multiprocess_refusals)
+             multiprocess_checkpoints)
 
 
 def run(rank: int, world: int, store: str, out_dir: str, inputs) -> None:

@@ -443,13 +443,13 @@ def test_resnet_batchnorm_matches_jax_dp(worlds, jax_refs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_multiprocess_checkpoints_refused(worlds, world):
-    """Saves, loads and the periodic auto-save across processes wait for
-    ROADMAP item 6b (multi-process gathers); ``barrier`` returns."""
+    """Saves, loads and the periodic auto-save across processes were
+    refused until ROADMAP item 6b; now each runs on every rank (the tag
+    of step 2 written and loaded, ``maybe_resume`` finds the auto-save
+    of step 2) and ``barrier`` returns."""
     for res in worlds[world]:
-        got = res["multiprocess_refusals"]
+        got = res["multiprocess_checkpoints"]
         assert got["barrier"]
-        for what in ("save", "load", "auto_save"):
-            assert got[what] is not None and got[what].endswith(
-                "ROADMAP Queue 1 item 6b (the sharded checkpoint format "
-                "and multi-process gathers)"), what
-            assert f"across {world} processes" in got[what]
+        assert got["save"] == "stoke-stoke-backward-step-2"
+        assert got["load"] == 2
+        assert got["auto_save"] == (True, 2)

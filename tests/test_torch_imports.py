@@ -56,7 +56,12 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.parallel",
                                     "stoke_tpu_torch.parallel.mesh",
                                     "stoke_tpu_torch.parallel.sharding",
-                                    "stoke_tpu_torch.parallel.ladder"])
+                                    "stoke_tpu_torch.parallel.ladder",
+                                    "stoke_tpu_torch.parallel.collectives",
+                                    "stoke_tpu_torch.parallel.zero",
+                                    "stoke_tpu_torch.ops.quant",
+                                    "stoke_tpu_torch.serving.quant",
+                                    "stoke_tpu_torch.utils.prng"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"

@@ -431,9 +431,22 @@ def test_jax_loader_refuses_a_port_tag(tmp_path):
                                   np.asarray(params["w1"]))
 
 
-def test_later_slice_settings_raise():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        make(fmt=CheckpointFormat.sharded)
+def test_later_slice_settings_raise(tmp_path):
+    """Offload staging and ``resume`` wait for item 9. The sharded format,
+    refused here until item 6b, now writes a tag that loads back exactly
+    in both formats' runs (its multi-process cases are in
+    ``test_torch_io_distributed.py``)."""
+    s = train_a_bit(make(fmt=CheckpointFormat.sharded))
+    path = str(tmp_path / "ckpt")
+    tag_dir = s.save(path)
+    with open(os.path.join(tag_dir, "meta.json")) as f:
+        meta = json.load(f)
+    assert meta["format"] == "sharded" and meta["world"] == 1
+    for fmt in CheckpointFormat:
+        s2 = make(fmt=fmt)
+        s2.load(path)
+        assert_same_state(s, s2)
+        assert s2.optimizer_steps == 3
     with pytest.raises(NotImplementedError, match="item 9"):
         make(configs=[CheckpointConfig(async_save=True,
                                        offload_staging=True)])

@@ -293,14 +293,15 @@ def test_default_device_without_cuda_raises(weights, monkeypatch):
 
 # the first four were later-slice refusals before sampling, speculative
 # decoding and chunked prefill were ported; they are now the serve status
-# rules' ValueErrors
+# rules' ValueErrors. The fifth, int8 weights, was refused until item 3b
+# and now builds (exc None: the engine serves the quantized store)
 LATER = [
     (dict(sampling=True, top_k=0), ValueError, "top_k must be >= 1"),
     (dict(speculative_k=2), ValueError, "needs sampling=True"),
     (dict(temperature=0.7), ValueError, "sampling=False"),
     (dict(prefill_chunk_tokens=40), ValueError,
      "multiple of prefill_pad_multiple"),
-    (dict(quant="int8"), NotImplementedError, "ROADMAP"),
+    (dict(quant="int8"), None, None),
     (dict(cost_cards=True), NotImplementedError, "ROADMAP"),
     (dict(slo_ttft_target_s=1.0), NotImplementedError, "ROADMAP"),
 ]
@@ -310,6 +311,11 @@ LATER = [
                          ids=[f"later{i}" for i in range(len(LATER))])
 def test_later_slice_features_raise(weights, later):
     kw, exc, match = LATER[later]
+    if exc is None:
+        engine = _port_engine(weights[2], **kw)
+        assert engine.quant_stats["compression"] > 1.0
+        assert engine.qparams is not None and engine.quant_errors
+        return
     with pytest.raises(exc, match=match):
         _port_engine(weights[2], **kw)
 
