@@ -190,8 +190,33 @@ Phases, one JSON line each; any failure exits nonzero:
    engine: compression over the quantized leaves, the greedy choice
    scored on the plain streams' context (>= 99%), each divergence of a
    free-running int8 stream a near-tie, the dequantize kernel once a
-   quantized leaf every dispatch; tokens/s, TPOT, parameter bytes and
-   peak memory.
+   quantized leaf every dispatch; tokens/s, TPOT, parameter bytes, each
+   engine's bytes on the device after its build
+   (``engine_bytes_on_device``) and its own peak (``engine_peak_gib``:
+   the build plus what its drive added above the memory in use when the
+   drive began; the other engines stay allocated across the loop).
+18. train_telemetry (run after phase 8): GPT-base bf16 (the train
+   phase's setup) once without configs and once with
+   ``TelemetryConfig(log_every_n_steps=1)``, ``TraceConfig``,
+   ``HealthConfig(sentinels=True, watchdog=True)`` and
+   ``ProfilerConfig``, over the same batches: 12 timed eager
+   ``train_step``s and a profiled one, ``train_steps`` over 4 windows,
+   12 timed one-window replays and a profiled one, two four-call steps;
+   the flash launches, ``dispatch_count``, losses and final parameters
+   equal (bit for bit); step ms p50 eager and replayed side by side with
+   busy shares and profiled kernel launches; ``steps.jsonl`` validated
+   line by line, ``metrics.prom``, the exported trace's
+   ``stoke/dispatch`` / ``stoke/step`` spans once a step, a sentinel row
+   a step; each four-call step's sentinel grad norm, parameter norm and
+   update ratio against the host's fp64 recompute (rel 1e-5), its
+   non-finite fields exact; the non-finite flags on CUDA leaves with a
+   NaN, +-inf, huge finite values, bf16 and fp16 against
+   ``any(~isfinite)``; then a fresh GPT-base whose one named
+   parameter's gradient a hook makes NaN at step 3 (the detector fires
+   at step 3 naming its JAX leaf path; the bundle's files);
+   ``profile_trace`` naming the three flash kernels; and the serve
+   trace drive untraced and traced (span counts by name and request,
+   TPOT p50 of each, the prefill and decode kernels' launches).
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -1935,6 +1960,424 @@ def train_window(ops) -> dict:
     }
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: telemetry, tracing and the health monitor on the training path
+# --------------------------------------------------------------------------- #
+
+TELEMETRY_EAGER = WARMUP_STEPS + TIMED_STEPS   # timed eager train_steps
+TELEMETRY_WINDOWS = 4                          # windows of the first call
+TELEMETRY_REPLAYS = WARMUP_STEPS + TIMED_STEPS  # timed replays, one a call
+TELEMETRY_FOUR_CALL = 2                        # four-call steps at the end
+GRAD_NORM_RTOL = 1e-5
+NAN_STEP = 3
+BUNDLE_FILES = ("manifest.json", "ring.jsonl", "config.json", "mesh.json",
+                "environment.json", "registry.json", "trace.json",
+                "stacks.txt")
+
+
+def telemetry_configs(root: str, tag: str):
+    """``TelemetryConfig(log_every_n_steps=1)``, ``TraceConfig``,
+    ``HealthConfig(sentinels=True, watchdog=True)`` and a
+    ``ProfilerConfig`` under ``root/tag``."""
+    from stoke_tpu_torch import (HealthConfig, ProfilerConfig,
+                                 TelemetryConfig, TraceConfig)
+
+    out = os.path.join(root, tag)
+    return [TelemetryConfig(output_dir=os.path.join(out, "telemetry"),
+                            log_every_n_steps=1, grad_norm=True),
+            TraceConfig(output_dir=os.path.join(out, "trace")),
+            HealthConfig(sentinels=True, watchdog=True),
+            ProfilerConfig(trace_dir=os.path.join(out, "profile"))]
+
+
+def host_param_norms(stoke, before) -> tuple:
+    """The parameters' global 2-norm and the update ratio
+    ``||new - old|| / (||new|| + 1e-12)`` after a step, ``before`` the
+    parameters' copies taken before it, in fp64 on the card."""
+    p2 = u2 = 0.0
+    for p, b in zip(stoke.model_access.parameters(), before):
+        new = p.detach().double()
+        p2 += float((new * new).sum())
+        u2 += float(((new - b.double()) ** 2).sum())
+    return float(np.sqrt(p2)), float(np.sqrt(u2) / (np.sqrt(p2) + 1e-12))
+
+
+def nonfinite_flags_on_card() -> dict:
+    """The sentinels' per-leaf non-finite flags on CUDA tensors against
+    ``any(~isfinite(leaf))``: a NaN, an inf and a -inf, a finite leaf whose
+    squares overflow fp32, bf16 and fp16 leaves, and leaves of the tied
+    embedding's size (50257 x 768) finite and with a NaN at their end."""
+    from stoke_tpu_torch.telemetry.health import nonfinite_flags
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def leaf(n, dtype=torch.float32, at=None, value=None):
+        t = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        if at is not None:
+            t[at] = value
+        return t
+
+    big = VOCAB * HEADS * HEAD_DIM
+    leaves = {
+        "finite": leaf(4096), "nan": leaf(4096, at=17, value=float("nan")),
+        "inf": leaf(4096, at=4095, value=float("inf")),
+        "neg_inf": leaf(4096, at=0, value=float("-inf")),
+        "huge_finite": torch.full((4096,), 3e38, device="cuda"),
+        "bf16_inf": leaf(4096, torch.bfloat16, at=3, value=float("inf")),
+        "fp16_nan": leaf(4096, torch.float16, at=9, value=float("nan")),
+        "big_finite": leaf(big),
+        "big_nan": leaf(big, at=big - 1, value=float("nan")),
+    }
+    got = nonfinite_flags(list(leaves.values())).tolist()
+    want = [float((~torch.isfinite(t)).any()) for t in leaves.values()]
+    if got != want:
+        raise AssertionError(f"train_telemetry: non-finite flags {got} on "
+                             f"the card, expected {want} for "
+                             f"{list(leaves)}")
+    return dict(zip(leaves, got))
+
+
+def host_grad_norm(stoke) -> float:
+    """The accumulated gradients' global 2-norm, recomputed on the host in
+    fp64."""
+    total = 0.0
+    for p in stoke.model_access.parameters():
+        if p.grad is not None:
+            g = p.grad.detach().to("cpu", torch.float64)
+            total += float((g * g).sum())
+    return float(np.sqrt(total))
+
+
+def telemetry_run(ops, batches, configs) -> dict:
+    """GPT-base bf16 under ``configs`` (None: no config): eager
+    ``train_step``s (timed), one profiled; ``train_steps`` over
+    TELEMETRY_WINDOWS windows (the capture), timed one-window replays, one
+    profiled; then TELEMETRY_FOUR_CALL four-call steps, with sentinels
+    each gradient's norm recomputed on the host before its ``step`` and
+    the parameters' norm and update ratio after it. Returns the run's
+    numbers with its Stoke."""
+    s = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, configs=configs)
+    e, w, r = TELEMETRY_EAGER, TELEMETRY_WINDOWS, TELEMETRY_REPLAYS
+    ops.reset_launches()
+    losses, eager_ms = eager_steps(s, batches[:e])
+    eager_prof = profile_step(lambda: s.train_step(batches[e], batches[e]))
+    eager_launches = {n: ops.LAUNCHES[n] for n in FLASH}
+    ops.reset_launches()
+    first = s.train_steps(batches[:w], batches[:w])[:, 0].tolist()
+    replay_ms, replayed = [], []
+    for i in range(r):
+        b = batches[w + i:w + i + 1]
+        replay_ms.append(timed_ms(
+            lambda: replayed.append(float(s.train_steps(b, b)[0, 0]))))
+    replay_prof = profile_step(lambda: s.train_steps(batches[:1],
+                                                     batches[:1]))
+    replay_launches = {n: ops.LAUNCHES[n] for n in FLASH}
+    four, norms, rows = [], [], []
+    for i in range(TELEMETRY_FOUR_CALL):
+        b = batches[i]
+        loss = s.loss(s.model(b), b)
+        s.backward(loss)
+        before = ([p.detach().clone() for p in s.model_access.parameters()]
+                  if s.health is not None else None)
+        grad_norm = host_grad_norm(s)
+        s.step()
+        four.append(float(loss))
+        if s.health is not None:
+            norms.append((grad_norm, *host_param_norms(s, before)))
+            rows.append(s._last_sentinels.tolist())
+        del before
+    return {
+        "stoke": s, "losses": losses + first + replayed + four,
+        "eager": step_summary(eager_ms, eager_prof),
+        "replayed": step_summary(replay_ms, replay_prof),
+        "launches": {"eager": eager_launches, "replayed": replay_launches},
+        "dispatch_count": s.dispatch_count,
+        "host_grad_norms": norms, "four_call_sentinels": rows,
+    }
+
+
+def trace_counts(path: str) -> dict:
+    """Duration events of an exported trace, by name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts: dict = {}
+    for ev in events:
+        if ev.get("ph") == "X":
+            counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    return counts
+
+
+def telemetry_files(s, steps: int) -> dict:
+    """Read back the "on" run's files: ``steps.jsonl`` line by line
+    through the port's validator (the windows' steps summed), the
+    Prometheus file, the exported trace's step spans, the sentinel rows
+    in the flight recorder's ring (one a step, steps 1..n)."""
+    from stoke_tpu_torch.telemetry.events import read_step_events
+
+    tcfg = s.status.telemetry_config
+    records = read_step_events(os.path.join(tcfg.output_dir, "steps.jsonl"))
+    if sum(r["window_steps"] for r in records) != steps or not all(
+            r["param_norm"] is not None for r in records):
+        raise AssertionError(f"train_telemetry: {len(records)} step events "
+                             f"cover {[r['window_steps'] for r in records]}"
+                             f" steps, expected {steps}")
+    prom = os.path.join(tcfg.output_dir, "metrics.prom")
+    if not os.path.getsize(prom):
+        raise AssertionError("train_telemetry: metrics.prom is empty")
+    counts = trace_counts(s.export_trace())
+    sentinel_steps = [e["step"] for e in s.health.recorder.ring
+                      if e["kind"] == "sentinels"]
+    if sentinel_steps != list(range(1, steps + 1)):
+        raise AssertionError(f"train_telemetry: sentinel rows for steps "
+                             f"{sentinel_steps}, expected 1..{steps}")
+    return {"step_events": len(records), "metrics_prom_bytes":
+            os.path.getsize(prom), "trace_span_counts": counts,
+            "sentinel_rows": len(sentinel_steps),
+            "last_event": {k: records[-1][k] for k in (
+                "step", "window_steps", "host_dispatch_s", "device_step_s",
+                "grad_norm", "param_norm", "update_ratio",
+                "nonfinite_leaves", "compiles_total", "recompiles",
+                "compile_time_s", "hbm_peak_bytes")}}
+
+
+def nan_at_step(ops, root: str) -> dict:
+    """A fresh GPT-base, eagerly: a one-shot gradient hook makes one named
+    parameter's gradient NaN at step NAN_STEP. The non-finite detector
+    must fire at that step naming the parameter's JAX leaf path, and its
+    bundle must hold BUNDLE_FILES."""
+    from stoke_tpu_torch.convert import jax_param_layout
+
+    model = gpt_base("flash")
+    names = [n for n, _ in model.named_parameters()]
+    name = names[len(names) // 2]
+    want = "/".join(jax_param_layout(model)[name][0])
+    s = stoke_for(model, "bf16", TRAIN_BATCH,
+                  configs=telemetry_configs(root, "nan")[:3])
+    calls = []
+
+    def poison(g):
+        calls.append(1)
+        return g * float("nan") if len(calls) == NAN_STEP else g
+
+    dict(model.named_parameters())[name].register_hook(poison)
+    batches = window_batches(NAN_STEP + 1)
+    for b in batches:
+        s.train_step(b, b)
+    fired = [a for a in s.health.anomalies if a.detector == "nonfinite_grads"]
+    s.close_telemetry()
+    if not fired or fired[0].step != NAN_STEP:
+        raise AssertionError(f"train_telemetry: NaN at step {NAN_STEP}, "
+                             f"detector fired at "
+                             f"{[a.step for a in fired]}")
+    got = (fired[0].context or {}).get("first_leaf_path")
+    if got != want or fired[0].value != 1.0:
+        raise AssertionError(f"train_telemetry: the detector named {got} "
+                             f"({fired[0].value} leaves), expected {want}")
+    bundle = s.health.recorder.dumps[0]
+    files = sorted(os.listdir(bundle))
+    if set(BUNDLE_FILES) - set(files):
+        raise AssertionError(f"train_telemetry: bundle {files} lacks "
+                             f"{set(BUNDLE_FILES) - set(files)}")
+    del s, model
+    return {"step": fired[0].step, "parameter": name, "leaf_path": got,
+            "message": fired[0].message, "bundle_files": files,
+            "launches": {n: ops.LAUNCHES[n] for n in FLASH}}
+
+
+def profiled_trace(s) -> dict:
+    """One ``train_step`` under ``Stoke.profile_trace`` into
+    ``ProfilerConfig.trace_dir``: the trace file must name the three flash
+    kernels."""
+    b = window_batches(1)[0]
+    with s.profile_trace("gpt_base"):
+        s.train_step(b, b)
+    path = os.path.join(s.profiler_config.trace_dir,
+                        "gpt_base.rank0.pt.trace.json")
+    with open(path) as f:
+        text = f.read()
+    found = {k: text.count(k) for k in WGMMA_KERNELS}
+    if not all(found.values()):
+        raise AssertionError(f"train_telemetry: the profile_trace file names "
+                             f"the flash kernels {found}")
+    return {"file_bytes": len(text), "kernel_events": found}
+
+
+def traced_serve(ops) -> dict:
+    """GPT-base serving (the ``serve`` phase's settings and prompts), one
+    drive untraced and one with a trace recorder registered: span counts
+    by name and each request's timeline (admission, prefill, decode
+    slices, eviction), TPOT p50 of each drive, and the flash prefill and
+    paged decode kernels' launches in the traced drive."""
+    from stoke_tpu_torch.configs import ServeConfig, TraceConfig
+    from stoke_tpu_torch.models.gpt import GPT
+    from stoke_tpu_torch.serving import ServingEngine
+    from stoke_tpu_torch.telemetry.tracing import (TraceRecorder,
+                                                   register_recorder,
+                                                   unregister_recorder)
+
+    model = GPT(size_name="base", device="cuda")
+    model.init_weights(SEED)
+    weights = model.state_dict()
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(16, 401, size=16)
+    prompts = [rng.integers(0, model.vocab_size, size=int(n)) for n in lens]
+    cfg = ServeConfig(attention="flash", decode_kernel="pallas", **SERVE)
+    ServingEngine(model, weights, cfg).generate([prompts[0][:16]], 2)
+    plain = ServingEngine(model, weights, cfg)
+    plain_streams, plain_wall = drive(plain, prompts)
+    rec = TraceRecorder(TraceConfig(ring_size=1 << 16))
+    register_recorder(rec)
+    try:
+        engine = ServingEngine(model, weights, cfg)
+        ops.reset_launches()
+        streams, wall = drive(engine, prompts)
+        launches = {n: ops.LAUNCHES[n] for n in ("flash_fwd", "paged_decode")}
+    finally:
+        unregister_recorder(rec)
+    summary, base = engine.summary(), plain.summary()
+    by_name: dict = {}
+    per_request: dict = {}
+    for sp in rec.spans():
+        by_name[sp.name] = by_name.get(sp.name, 0) + 1
+        if sp.request_id is not None:
+            row = per_request.setdefault(sp.request_id, {})
+            row[sp.name] = row.get(sp.name, 0) + 1
+    for rid, row in per_request.items():
+        if (row.get("serve/admission"), row.get("serve/prefill"),
+                row.get("serve/evict")) != (1, 1, 1) or not row.get(
+                    "serve/decode"):
+            raise AssertionError(f"traced serve: request {rid}'s spans "
+                                 f"{row}")
+    if len(per_request) != 16 or streams != plain_streams:
+        raise AssertionError("traced serve: the traced drive's requests or "
+                             "streams differ from the untraced drive's")
+    if launches["flash_fwd"] != N_LAYERS * summary["prefills"] or launches[
+            "paged_decode"] != N_LAYERS * summary["decode_steps"]:
+        raise AssertionError(f"traced serve: launches {launches}")
+    del engine, plain, model
+    return {"requests": 16, "span_counts": by_name,
+            "spans_per_request": per_request[min(per_request)],
+            "dropped": rec.dropped, "launches": launches,
+            "tpot_p50_s": summary["tpot_p50_s"],
+            "tpot_p50_s_untraced": base["tpot_p50_s"],
+            "tokens_per_s": summary["tokens_out"] / wall,
+            "tokens_per_s_untraced": base["tokens_out"] / plain_wall}
+
+
+def train_telemetry(ops) -> dict:
+    """GPT-base bf16 at full width with and without TelemetryConfig
+    (every step logged), TraceConfig, HealthConfig (sentinels and the
+    watchdog) and ProfilerConfig, over the same batches: the flash
+    kernels' launches, ``dispatch_count``, the losses and the final
+    parameters equal bit for bit; step ms p50 eager and replayed with the
+    profiled busy share and kernel launches of each; the files read back;
+    the sentinel rows' norms against the host's (rel GRAD_NORM_RTOL) and
+    the non-finite flags on the card against ``any(~isfinite)``; then a
+    NaN at a known step, ``profile_trace``, and the traced serve drive."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="stoke_telemetry_")
+    try:
+        flags = nonfinite_flags_on_card()
+        n = (TELEMETRY_EAGER + 1 + TELEMETRY_WINDOWS + TELEMETRY_REPLAYS
+             + 1 + TELEMETRY_FOUR_CALL)
+        batches = window_batches(TELEMETRY_WINDOWS + TELEMETRY_REPLAYS + 1)
+        off = telemetry_run(ops, batches, None)
+        off_params = [p.detach().clone() for p in
+                      off["stoke"].model_access.parameters()]
+        del off["stoke"]
+        torch.cuda.empty_cache()
+        on = telemetry_run(ops, batches, telemetry_configs(root, "on"))
+        s = on.pop("stoke")
+        if on["launches"] != off["launches"]:
+            raise AssertionError(f"train_telemetry: flash launches "
+                                 f"{on['launches']} with the configs, "
+                                 f"{off['launches']} without")
+        if on["dispatch_count"] != off["dispatch_count"]:
+            raise AssertionError(f"train_telemetry: dispatch_count "
+                                 f"{on['dispatch_count']} vs "
+                                 f"{off['dispatch_count']}")
+        if on["losses"] != off["losses"]:
+            raise AssertionError(f"train_telemetry: losses differ: "
+                                 f"{on['losses']} vs {off['losses']}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            s.model_access.parameters(), off_params))
+        if not same:
+            raise AssertionError("train_telemetry: the final parameters "
+                                 "differ with the configs on")
+        del off_params
+        # grad norm, param norm, update ratio against the host's; the
+        # non-finite count, skip flag and first bad leaf exact
+        grad_rel = [abs(row[i + 1] - h[i]) / h[i] for row, h in
+                    zip(on["four_call_sentinels"], on["host_grad_norms"])
+                    for i in range(3)]
+        if not max(grad_rel) <= GRAD_NORM_RTOL or any(
+                row[4:6] + row[7:] != [0.0, 0.0, -1.0]
+                for row in on["four_call_sentinels"]):
+            raise AssertionError(f"train_telemetry: sentinel rows "
+                                 f"{on['four_call_sentinels']} vs host "
+                                 f"{on['host_grad_norms']}")
+        files = telemetry_files(s, n)
+        counts = {k: v["count"]
+                  for k, v in s.trace_summary["by_name"].items()}
+        dispatches = n - TELEMETRY_FOUR_CALL
+        got = (counts["stoke/dispatch"], counts["stoke/step [step]"],
+               counts["stoke/accum"])
+        if got != (dispatches, TELEMETRY_FOUR_CALL, TELEMETRY_FOUR_CALL):
+            raise AssertionError(f"train_telemetry: step spans {counts}, "
+                                 f"expected {dispatches} dispatches")
+        profiled = profiled_trace(s)
+        health = {"anomalies": s.health.anomaly_count,
+                  "by_detector": s.health.anomaly_counts_by_detector(),
+                  "watchdog_trips": s.health.watchdog.trips}
+        s.close_telemetry()
+        launches = {k: on["launches"]["eager"][k]
+                    + on["launches"]["replayed"][k] for k in FLASH}
+        del s
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        nan = nan_at_step(ops, root)
+        torch.cuda.empty_cache()
+        served = traced_serve(ops)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # kernels the profiled step launched, with and without the configs
+    added = {k: {c: r[k]["profile"].get("launches", "not measured")
+                 for c, r in (("off", off), ("on", on))}
+             for k in ("eager", "replayed")}
+    return {
+        "phase": "train_telemetry", "model": "GPT-base, bf16 over fp32 "
+        "masters, flash attention, AdamW(lr 3e-4, wd 1e-4), clip norm 1.0",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN, "steps": n,
+        "configs": "TelemetryConfig(log_every_n_steps=1, grad_norm=True), "
+        "TraceConfig, HealthConfig(sentinels=True, watchdog=True), "
+        "ProfilerConfig(trace_dir)",
+        "off": {k: off[k] for k in ("eager", "replayed", "dispatch_count")},
+        "on": {k: on[k] for k in ("eager", "replayed", "dispatch_count")},
+        "step_ms_p50": {"eager_off": off["eager"]["step_ms_p50"],
+                        "eager_on": on["eager"]["step_ms_p50"],
+                        "replayed_off": off["replayed"]["step_ms_p50"],
+                        "replayed_on": on["replayed"]["step_ms_p50"]},
+        "profiled_kernel_launches": added,
+        "launches": launches, "launches_by_path": on["launches"],
+        "losses_bit_equal": True, "params_bit_equal": True,
+        "sentinels_vs_host": {"fields": ["grad_norm", "param_norm",
+                                         "update_ratio"],
+                              "sentinel": [r[1:4] for r in
+                                           on["four_call_sentinels"]],
+                              "host_fp64": on["host_grad_norms"],
+                              "max_rel": max(grad_rel),
+                              "rtol": GRAD_NORM_RTOL},
+        "nonfinite_flags": flags,
+        "files": files, "health": health, "profile_trace": profiled,
+        "nan": nan, "serve_traced": served,
+        "phase_s": time.perf_counter() - t0,
+    }
+
+
 def max_ds_in_step(step) -> float:
     """The largest |dS| that the flash backward meets in ``step()``, the
     loss scale included: each backward's inputs go through
@@ -3598,8 +4041,13 @@ def serve_quant(ops) -> dict:
         torch.cuda.synchronize()
         built = torch.cuda.memory_allocated() - before
         torch.cuda.reset_peak_memory_stats()
+        # the other engines, the seed model and the weights stay allocated
+        # across the loop: the engine's own peak is its build plus what
+        # its drive added above the memory in use at the reset
+        at_reset = torch.cuda.memory_allocated()
         ops.reset_launches()
         streams[mode], wall = drive(engine, prompts)
+        drive_peak = torch.cuda.max_memory_allocated() - at_reset
         summary = engine.summary()
         launches = {n: ops.LAUNCHES[n] for n in
                     ("dequantize_chunks", "quantize_chunks", "flash_fwd",
@@ -3618,8 +4066,10 @@ def serve_quant(ops) -> dict:
                "dispatches": dispatches, "launches": launches,
                "param_bytes": param_bytes(engine.qparams or weights),
                "engine_bytes_on_device": built,
-               "max_memory_allocated_gib":
-                   torch.cuda.max_memory_allocated() / 2**30,
+               "engine_peak_gib": (built + drive_peak) / 2**30,
+               "drive_peak_above_rest_gib": drive_peak / 2**30,
+               "process_peak_gib": (torch.cuda.max_memory_allocated()
+                                    / 2**30),
                "quantized_leaves": len(quantized),
                "compression": (engine.quant_stats or {}).get("compression")}
         if quantized:
@@ -3779,6 +4229,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(train_window(ops))
     torch.cuda.empty_cache()
+    tel = train_telemetry(ops)
+    emit({**tel, "card": smi})
+    torch.cuda.empty_cache()
     fp16 = train_fp16(ops)
     emit(fp16)
     torch.cuda.empty_cache()
@@ -3800,7 +4253,7 @@ def main() -> int:
     emit({**checkpoint_dp(ops), "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
-            fp32=None, bert_key=None, dp_key=None):
+            fp32=None, bert_key=None, dp_key=None, tel_key=None):
         out = {
             "name": name, "route": "cuda",
             "source": f"stoke_tpu_torch/csrc/{source}.cu",
@@ -3816,6 +4269,8 @@ def main() -> int:
                        fp32_library_ms=fp32["library_ms"])
         if dp_key is not None:  # train_dp's full-width runs (bf16)
             out["launches_train_dp"] = dp["launches"][dp_key]
+        if tel_key is not None:  # train_telemetry's configured run (bf16)
+            out["launches_train_telemetry"] = tel["launches"][tel_key]
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]
@@ -3859,21 +4314,23 @@ def main() -> int:
             trained["launches"]["flash_fwd"],
             max(x["max_abs_err"] for x in flash if x not in fwd16),
             flash_main,
-            fp32=flash_fp32, bert_key=("fwd", ""), dp_key="flash_fwd"),
+            fp32=flash_fp32, bert_key=("fwd", ""), dp_key="flash_fwd",
+            tel_key="flash_fwd"),
         row("flash_bwd_dq", "flash_bwd",
             ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:210",
             trained["launches"]["flash_bwd_dq"],
             max(x["max_abs_err"]["dq"] for x in flash_bwd if x not in bwd16),
             bwd_main, "dq_", bwd_fp32, bert_key=("bwd", "dq_"),
-            dp_key="flash_bwd_dq"),
+            dp_key="flash_bwd_dq", tel_key="flash_bwd_dq"),
         row("flash_bwd_dkv", "flash_bwd",
             ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel"],
             "stoke_tpu/ops/flash_attention.py:246",
             trained["launches"]["flash_bwd_dkv"],
             max(max(x["max_abs_err"]["dk"], x["max_abs_err"]["dv"])
                 for x in flash_bwd if x not in bwd16), bwd_main, "dkv_",
-            bwd_fp32, bert_key=("bwd", "dkv_"), dp_key="flash_bwd_dkv"),
+            bwd_fp32, bert_key=("bwd", "dkv_"), dp_key="flash_bwd_dkv",
+            tel_key="flash_bwd_dkv"),
         row("flash_fwd_fp16", "flash_fwd", ["flash_fwd_wgmma_kernel<__half>"],
             "stoke_tpu/ops/flash_attention.py:70",
             fp16["launches"]["flash_fwd"],
@@ -3893,7 +4350,9 @@ def main() -> int:
                "stoke_tpu/ops/flash_attention.py:581",
                served["launches"]["paged_decode"],
                max(x["max_abs_err"] for x in decode), decode[0]),
-         "graph_ms": decode[0]["graph_ms"]},
+         "graph_ms": decode[0]["graph_ms"],
+         "launches_serve_traced":
+             tel["serve_traced"]["launches"]["paged_decode"]},
         # launches: the greedy and the sampled speculative runs
         {**row("paged_verify", "paged_verify", list(VERIFY_KERNELS),
                "stoke_tpu/ops/flash_attention.py:836",

@@ -16,8 +16,9 @@ What it covers so far:
   ``Stoke.skipped_optimizer_steps``), with :class:`StokeDataLoader`;
   flash attention's forward and backward on the CUDA kernels;
 - every config class and status rule of the JAX package (the port
-  honours the precision, clip, checkpoint, serve and TensorBoard configs
-  and refuses the others naming their ROADMAP item), a run described as a
+  honours the precision, clip, checkpoint, serve, TensorBoard, data
+  parallel, transport, telemetry, trace, health and profiler configs and
+  refuses the others naming their ROADMAP item), a run described as a
   YAML document or dict (:func:`stoke_tpu_torch.utils.stoke_from_config`),
   and ragged token sequences batched by the C++ batcher under
   :class:`BucketedDistributedSampler`;
@@ -34,16 +35,26 @@ What it covers so far:
   JAX package's weights (:mod:`stoke_tpu_torch.convert`);
 - serving GPT through :class:`stoke_tpu_torch.serving.ServingEngine`
   (paged KV cache, continuous batching, sampling, chunked prefill and
-  speculative decoding).
+  speculative decoding);
+- telemetry, tracing and health (:mod:`stoke_tpu_torch.telemetry`): JSONL
+  step events in the JAX schema, a Prometheus file and TensorBoard
+  (:class:`TelemetryConfig`), host span traces in Perfetto's format
+  (:class:`TraceConfig`), on-device sentinels with anomaly detectors,
+  post-mortem bundles and a hang watchdog (:class:`HealthConfig`), and
+  ``torch.profiler`` traces (:class:`ProfilerConfig`).
 """
 
 from stoke_tpu_torch.configs import (
     CheckpointConfig,
     ClipGradConfig,
     ClipGradNormConfig,
+    HealthConfig,
     PrecisionConfig,
+    ProfilerConfig,
     StokeOptimizer,
+    TelemetryConfig,
     TensorboardConfig,
+    TraceConfig,
 )
 from stoke_tpu_torch.data import (
     ArrayDataset,
@@ -60,11 +71,15 @@ __all__ = [
     "CheckpointConfig",
     "ClipGradConfig",
     "ClipGradNormConfig",
+    "HealthConfig",
     "PrecisionConfig",
+    "ProfilerConfig",
     "RaggedSequenceDataset",
     "Stoke",
     "StokeDataLoader",
     "StokeOptimizer",
     "StokeValidationError",
+    "TelemetryConfig",
     "TensorboardConfig",
+    "TraceConfig",
 ]

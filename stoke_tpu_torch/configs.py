@@ -9,9 +9,11 @@ both: :mod:`stoke_tpu_torch.utils.yaml_config`). ``DeviceOptions`` is
 
 The port honours ``PrecisionConfig``, ``ClipGradConfig``,
 ``ClipGradNormConfig``, ``CheckpointConfig``, ``ServeConfig`` (read by
-``Stoke.serve``) and ``TensorboardConfig``. Every other class passes the
-JAX package's legality rules in :class:`~stoke_tpu_torch.status.StokeStatus`
-and is then refused with ``NotImplementedError`` naming the ROADMAP item
+``Stoke.serve``), ``TensorboardConfig``, the data parallel configs,
+``CommConfig`` and the telemetry configs (``TelemetryConfig``,
+``TraceConfig``, ``HealthConfig``, ``ProfilerConfig``). Every other class
+passes the JAX package's legality rules in
+:class:`~stoke_tpu_torch.status.StokeStatus` and is then refused with ``NotImplementedError`` naming the ROADMAP item
 that ports it, as each class's docstring says.
 
 ``ServeConfig`` describes a serve run. The port's
@@ -452,7 +454,8 @@ class ActivationCheckpointingConfig:
 
 
 # --------------------------------------------------------------------------- #
-# observability: TensorBoard (honoured) and telemetry (ROADMAP item 10)
+# observability: TensorBoard, telemetry, tracing, health and the profiler
+# (honoured); the observatories of ROADMAP items 10c and 10d (refused)
 # --------------------------------------------------------------------------- #
 
 
@@ -476,8 +479,9 @@ class TelemetryConfig:
     """The telemetry pipeline: a metrics registry drained every
     ``log_every_n_steps`` into JSONL step events, a Prometheus file and a
     TensorBoard stream under ``output_dir``, with device-time samples,
-    gradient norms, compile and memory tracking and profiler annotations.
-    Refused until ROADMAP Queue 1 item 10 (telemetry)."""
+    gradient norms, compile and memory tracking and profiler annotations
+    (:class:`stoke_tpu_torch.telemetry.Telemetry`; compiles are the
+    port's kernel builds and CUDA-graph captures)."""
 
     output_dir: str = "telemetry"
     run_name: str = "stoke"
@@ -497,8 +501,8 @@ class TelemetryConfig:
 @dataclass
 class TraceConfig:
     """Host span tracing into a ring of ``ring_size`` spans, exported as
-    ``trace.rank<N>.json`` under ``output_dir``. Refused until ROADMAP
-    Queue 1 item 10."""
+    ``trace.rank<N>.json`` under ``output_dir``
+    (:class:`stoke_tpu_torch.telemetry.tracing.TraceRecorder`)."""
 
     output_dir: str = "trace"
     ring_size: int = 4096
@@ -514,8 +518,8 @@ class HealthConfig:
     """The training health monitor: per-step numerics sentinels, spike,
     non-finite, scaler-skip, recompile-storm, starvation and residual
     detectors (each with an action of :data:`HEALTH_ACTIONS`), a flight
-    recorder and a hang watchdog. Refused until ROADMAP Queue 1 item
-    10."""
+    recorder and a hang watchdog
+    (:class:`stoke_tpu_torch.telemetry.health.HealthMonitor`)."""
 
     sentinels: bool = True
     ring_size: int = 256
@@ -550,7 +554,7 @@ class AttributionConfig:
     """Step-time attribution: MFU and roofline gauges against
     ``peak_tflops`` / ``peak_hbm_gbps`` / ``ici_gbps``, a goodput ledger
     and anomaly-triggered profiler captures. Needs a ``TelemetryConfig``;
-    refused until ROADMAP Queue 1 item 10."""
+    refused until ROADMAP Queue 1 item 10c."""
 
     peak_tflops: float = 0.0
     peak_hbm_gbps: float = 0.0
@@ -575,7 +579,7 @@ class FleetConfig:
     """Fleet observability: a cross-host exchange every ``window_steps``
     optimizer steps, straggler detection and skew-reactive input
     rebalancing (``rebalance``). Needs a ``TelemetryConfig``; refused
-    until ROADMAP Queue 1 item 10 (with the input rebalancer of item
+    until ROADMAP Queue 1 item 10d (with the input rebalancer of item
     4)."""
 
     window_steps: int = 10
@@ -592,7 +596,7 @@ class FleetConfig:
 class NumericsConfig:
     """The per-layer numerics observatory: per-module gradient and update
     statistics, NaN provenance and quantization-error attribution. Needs a
-    ``TelemetryConfig``; refused until ROADMAP Queue 1 item 10."""
+    ``TelemetryConfig``; refused until ROADMAP Queue 1 item 10c."""
 
     grad_stats: bool = True
     provenance_action: str = "warn"
@@ -606,7 +610,7 @@ class MemoryConfig:
     """The device-memory observatory: a per-subsystem ledger, an OOM
     pre-flight at ``oom_margin_frac`` of ``capacity_bytes`` (None reads
     the device) and per-program peaks. Needs a ``TelemetryConfig``;
-    refused until ROADMAP Queue 1 item 10."""
+    refused until ROADMAP Queue 1 item 10c."""
 
     oom_margin_frac: float = 0.9
     capacity_bytes: Optional[int] = None
@@ -618,7 +622,7 @@ class MemoryConfig:
 class OpsPlaneConfig:
     """The live ops plane: a read-only HTTP observatory on ``host:port +
     rank`` (metrics, health, status, requests, trace, bounded profiles).
-    Needs a ``TelemetryConfig``; refused until ROADMAP Queue 1 item 10."""
+    Needs a ``TelemetryConfig``; refused until ROADMAP Queue 1 item 10d."""
 
     port: int = 9200
     host: str = "127.0.0.1"
@@ -631,7 +635,7 @@ class OpsPlaneConfig:
 class ProfilerConfig:
     """Profiling: traces into ``trace_dir``, a FLOP estimate of the step
     and per-phase host timing of the facade's calls. The port's profiler
-    is ``torch.profiler``; refused until ROADMAP Queue 1 item 10."""
+    is ``torch.profiler`` (``Stoke.profile_trace``)."""
 
     trace_dir: Optional[str] = None
     flops_estimate: bool = False

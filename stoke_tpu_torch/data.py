@@ -20,15 +20,23 @@ Batches are placed on the loader's device ``prefetch`` deep: on the card
 through pinned host memory with ``non_blocking`` copies, so the copy of
 the next batches overlaps the step on the current one.
 
+With a ``TelemetryConfig`` (``Stoke.DataLoader`` hands the loader the
+run's pipeline) every fetch from the host loader is a ``stoke/io`` span on
+the ``data`` track and its wait lands in ``data/loader_wait_s``; a wait
+once the first ``prefetch`` batches are in flight also lands in
+``data/starvation_s`` (the JAX loader's rule), and the real tokens
+of a ragged batch (its attention mask's sum) in ``data/tokens_total``.
+
 The JAX package's torch-free fallback loader has no counterpart (the port
 always has torch), and its input rebalancer waits for ROADMAP Queue 1 item
-10's fleet monitor.
+10d's fleet monitor.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import time
 from collections import deque
 from typing import Any, Iterator, List, Optional, Sequence
 
@@ -38,6 +46,7 @@ from torch.utils._pytree import tree_map
 
 from stoke_tpu_torch.native import NativeBatcher
 from stoke_tpu_torch.serving.engine import resolve_device
+from stoke_tpu_torch.telemetry.tracing import trace_span
 
 
 class ArrayDataset:
@@ -186,6 +195,8 @@ class StokeDataLoader:
         device: where batches land; None or "cuda" is the card (and raises
             when there is none), "cpu" the CPU.
         prefetch: batches kept in flight on the device (default 2).
+        telemetry: the run's :class:`~stoke_tpu_torch.telemetry.Telemetry`
+            (loader wait, starvation and token counters), or None.
         **kwargs: ``shuffle``, ``sampler`` (e.g. a
             :class:`BucketedDistributedSampler`), ``drop_last`` and ``seed``
             for the two native datasets; for another dataset, the
@@ -193,10 +204,12 @@ class StokeDataLoader:
     """
 
     def __init__(self, dataset, batch_size: int, device=None,
-                 prefetch: int = 2, **kwargs):
+                 prefetch: int = 2, telemetry=None, **kwargs):
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self._prefetch = max(int(prefetch), 1)
+        self._telemetry = telemetry
+        self._ragged = isinstance(dataset, RaggedSequenceDataset)
         if isinstance(dataset, (ArrayDataset, RaggedSequenceDataset)):
             self._loader = _NativeLoader(dataset, batch_size, **kwargs)
         else:
@@ -223,8 +236,39 @@ class StokeDataLoader:
             s.set_epoch(epoch)
 
     def __iter__(self):
+        wait = starve = tokens = None
+        if self._telemetry is not None:
+            reg = self._telemetry.registry
+            wait = reg.counter(
+                "data/loader_wait_s",
+                help="host seconds blocked on the host-side loader",
+            )
+            starve = reg.counter(
+                "data/starvation_s",
+                help="post-warmup loader wait (device-starving portion)",
+            )
+            if self._ragged:
+                tokens = reg.counter("data/tokens_total")
         queue: deque = deque()
-        for batch in self._loader:
+        it = iter(self._loader)
+        while True:
+            # the first ``prefetch`` fetches fill the pipeline; a wait after
+            # them starves the device (the JAX loader's rule)
+            warm = len(queue) >= self._prefetch
+            with trace_span("stoke/io", track="data"):
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                finally:
+                    if wait is not None:
+                        dt = time.perf_counter() - t0
+                        wait.inc(dt)
+                        if warm:
+                            starve.inc(dt)
+            if tokens is not None:
+                tokens.inc(int(np.asarray(batch[0]["attention_mask"]).sum()))
             queue.append(place(batch, self.device))
             if len(queue) > self._prefetch:
                 yield queue.popleft()

@@ -9,7 +9,9 @@ train forward (``:699-707``), the accumulate core for one loss,
 ``loss_weights`` or per-loss scalers (``:951-1117``), the window core
 (``window_step``, ``:1143-1273``, which ``multi_step`` repeats) and the
 apply core (``:1434-1531``, with the gradient transport of a
-``CommConfig``; without sentinels or numerics).
+``CommConfig`` and the health sentinels; without the numerics matrix),
+with the JAX engine's ``dispatch_count`` and its ``stoke/accum``,
+``stoke/dispatch`` and ``stoke/step`` spans.
 
 The JAX engine traces forward and grad into one program; here autograd
 records the eager forward, ``backward`` runs into the parameters' fp32
@@ -39,6 +41,18 @@ eagerly on the CPU. On the card, its first call for a signature runs one
 window eagerly and captures the next into a CUDA graph; later windows of
 that signature copy their micro-batches into the graph's static inputs
 and replay it (:class:`CapturedWindow`).
+
+With ``sentinels=True`` (a ``HealthConfig``) the apply also computes the
+sentinel row of :mod:`stoke_tpu_torch.telemetry.health` on the device:
+the grad norm, non-finite flags and first bad leaf of the unscaled,
+post-transport gradients before the clip (whose per-leaf norms the clip
+then reuses, so the parameters are bit for bit those of a run without
+sentinels), the updated parameters' norm and the update's, from a copy of
+the parameters taken before the step (under fp16, the skip's copy). In a
+window it is one of the graph's outputs, so a replay yields its row
+too. ``dispatch_count`` counts the engine's device-issuing calls: one a
+4-call ``backward`` or ``apply``, a ``fused`` step or a ``window``
+(eager or replayed).
 """
 
 from __future__ import annotations
@@ -49,7 +63,8 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import torch
 from torch import nn
 from torch.func import functional_call
-from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
+                                 tree_unflatten)
 
 from stoke_tpu_torch.configs import (
     ClipGradConfig,
@@ -59,6 +74,14 @@ from stoke_tpu_torch.configs import (
 )
 from stoke_tpu_torch.ops import chunked_ce
 from stoke_tpu_torch.ops.flash_attention import LAUNCHES
+from stoke_tpu_torch.telemetry import collectors
+from stoke_tpu_torch.telemetry.health import (
+    jax_leaf_order,
+    leaf_norms,
+    nonfinite_flags,
+    pack_sentinels,
+)
+from stoke_tpu_torch.telemetry.tracing import trace_span
 
 
 def _grad_or_zeros(p: torch.Tensor) -> torch.Tensor:
@@ -166,21 +189,27 @@ def unscale_and_check(grads: Sequence[torch.Tensor],
 
 
 def _norm(grads: Sequence[torch.Tensor], p: float,
-          device: Optional[torch.device] = None) -> torch.Tensor:
+          device: Optional[torch.device] = None,
+          leaf: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ``p``-norm over all of ``grads`` in fp32 (0 on ``device`` for
-    none)."""
+    none), from each tensor's norm (``leaf``, when already taken)."""
     if not grads:
         return torch.zeros((), dtype=torch.float32, device=device)
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float(), p) for g in grads]), p)
+    return torch.linalg.vector_norm(
+        leaf_norms(grads, p) if leaf is None else leaf, p)
 
 
 @torch.no_grad()
 def clip_gradients(grads: Sequence[torch.Tensor], grad_clip,
                    sharded: Sequence[torch.Tensor] = (),
-                   ladder=None) -> None:
+                   ladder=None,
+                   leaf: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> Optional[torch.Tensor]:
     """Clip ``grads`` and ``sharded`` in place, on the accumulated,
-    unscaled gradients.
+    unscaled gradients. Returns the global norm of ``ClipGradNormConfig``
+    (None otherwise); ``leaf`` are the 2-norms of each tensor of ``grads``
+    and of ``sharded`` when the caller took them already (the health
+    sentinels), used for a 2-norm clip.
 
     ``ClipGradConfig``: clamp each element to ``[-v, v]``.
     ``ClipGradNormConfig``: the global ``norm_type``-norm over all
@@ -193,21 +222,26 @@ def clip_gradients(grads: Sequence[torch.Tensor], grad_clip,
     local: every rank holds the same reduced gradients."""
     everything = list(grads) + list(sharded)
     if grad_clip is None or not everything:
-        return
+        return None
     if isinstance(grad_clip, ClipGradConfig):
         v = grad_clip.clip_value
         for g in everything:
             g.clamp_(-v, v)
-        return
+        return None
     if isinstance(grad_clip, ClipGradNormConfig):
         p = grad_clip.norm_type
+        if leaf is None or p != 2:
+            leaf = (None, None)
         # the ladder's layout is the same on every rank, so all skip the
         # reduction together
         if ladder is None or not ladder.buckets:
-            norm = _norm(everything, p)
+            both = (None if leaf[0] is None
+                    else torch.cat([leaf[0], leaf[1]]))
+            norm = _norm(everything, p, leaf=both)
         else:
             dev = everything[0].device
-            rep, part = _norm(grads, p, dev), _norm(sharded, p, dev)
+            rep = _norm(grads, p, dev, leaf[0])
+            part = _norm(sharded, p, dev, leaf[1])
             if p == float("inf"):
                 norm = torch.maximum(rep, ladder.reduce_(part, "max"))
             else:
@@ -215,7 +249,7 @@ def clip_gradients(grads: Sequence[torch.Tensor], grad_clip,
         factor = torch.clamp(grad_clip.max_norm / (norm + 1e-6), max=1.0)
         for g in everything:
             g.mul_(factor.to(g.dtype))
-        return
+        return norm
     raise TypeError(f"unknown grad_clip {type(grad_clip)}")
 
 
@@ -252,16 +286,36 @@ def make_capturable(optimizer: torch.optim.Optimizer) -> None:
             group["capturable"] = True
 
 
+class _GradProbe:
+    """The gradient part of a step's sentinel row, taken before the clip:
+    the 2-norm and the non-finite flag of each tensor of ``grads`` (the
+    leaves stepped whole, engine indices ``grad_idx``) and of ``sharded``
+    (this rank's slices, engine indices ``shard_idx``)."""
+
+    def __init__(self, grads: Sequence[torch.Tensor],
+                 sharded: Sequence[torch.Tensor], grad_idx: List[int],
+                 shard_idx: List[int], device: torch.device,
+                 flags: bool = True):
+        empty = torch.zeros(0, dtype=torch.float32, device=device)
+        self.grad_idx, self.shard_idx = grad_idx, shard_idx
+        self.rep_norms = leaf_norms(grads) if grads else empty
+        self.part_norms = leaf_norms(sharded) if sharded else empty
+        self.rep_flags = nonfinite_flags(grads) if grads and flags else empty
+        self.part_flags = (nonfinite_flags(sharded) if sharded and flags
+                           else empty)
+
+
 class CapturedWindow(NamedTuple):
     """A window captured as a CUDA graph: the graph, its static inputs (the
-    flattened inputs' leaves), its outputs (stacked reports and the finite
-    flag, in the graph's memory), the kernel launches that one replay
+    flattened inputs' leaves), its outputs (stacked reports, the finite
+    flag and the sentinel row, in the graph's memory), the kernel launches
+    that one replay
     makes (counted by the wrappers during capture, which launches nothing)
     and the learning rates baked into it."""
 
     graph: Any
     inputs: List[Any]
-    outputs: Tuple[Any, Optional[torch.Tensor]]
+    outputs: Tuple[Any, Optional[torch.Tensor], Optional[torch.Tensor]]
     launches: Dict[str, int]
     lrs: Tuple[Any, ...]
 
@@ -297,6 +351,10 @@ class StepEngine:
             key and the error-feedback residual, ``comm_state``) lives on
             the device and is updated in place, so a captured window
             carries it from replay to replay.
+        sentinels: compute the health sentinel row at every apply
+            (``HealthConfig(sentinels=True)``); after each step call it is
+            :attr:`sentinel_row`, a ``[N_SENTINELS]`` fp32 tensor on the
+            device.
     """
 
     def __init__(self, module: nn.Module, loss_fn: Callable,
@@ -304,7 +362,7 @@ class StepEngine:
                  grad_accum: int = 1, grad_clip=None, loss_weights=None,
                  precision_config: Optional[PrecisionConfig] = None,
                  generator: Optional[torch.Generator] = None,
-                 ladder=None, transport=None):
+                 ladder=None, transport=None, sentinels: bool = False):
         self.module = module
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -329,6 +387,9 @@ class StepEngine:
         self.scaler = init_scaler_state(self.precision_config, self.device)
         self._snapshot: Dict[Any, torch.Tensor] = {}
         self._windows: Dict[Any, CapturedWindow] = {}
+        # every window signature captured so far (a recapture is a
+        # recompile of the telemetry)
+        self._captured: set = set()
         self.transport = transport
         self.comm_order = None
         self.comm_state: Dict[str, Any] = {}
@@ -340,6 +401,19 @@ class StepEngine:
                 self.comm_order.sizes(self.params), self.device)
         if self.device.type == "cuda":
             make_capturable(optimizer)
+        self.sentinels = bool(sentinels)
+        #: the last step's sentinel row (None without sentinels)
+        self.sentinel_row: Optional[torch.Tensor] = None
+        #: the last probed pre-clip grad norm (``apply(probe_grad_norm=
+        #: True)``), a device scalar
+        self.grad_norm: Optional[torch.Tensor] = None
+        self._jax_order = (jax_leaf_order(module, self.params)
+                           if self.sentinels else None)
+        #: device-issuing calls (the JAX engine's counter)
+        self.dispatch_count = 0
+        #: the run's ``CompileTracker`` (the facade assigns it), told of
+        #: windows captured again
+        self.compile_tracker = None
 
     @property
     def opt_params(self) -> List[torch.Tensor]:
@@ -421,6 +495,13 @@ class StepEngine:
         return objective, report
 
     def backward(self, objective: torch.Tensor) -> None:
+        """The 4-call path's micro-step (one dispatch, a ``stoke/accum``
+        span): :meth:`_backward`."""
+        self.dispatch_count += 1
+        with trace_span("stoke/accum", track="step"):
+            self._backward(objective)
+
+    def _backward(self, objective: torch.Tensor) -> None:
         """Autograd of ``objective`` into the accumulated fp32 ``.grad``:
         times the loss scale under fp16; with per-loss scalers, one
         backward per loss seeded with its own scale, each checked for
@@ -464,16 +545,31 @@ class StepEngine:
         the masters. Returns the report."""
         out = self.forward(args, kwargs)
         objective, report = self.objective(self.loss(out, *loss_args))
-        self.backward(objective)
+        self._backward(objective)
         return report
 
+    def apply(self, loss: Optional[torch.Tensor] = None,
+              probe_grad_norm: bool = False) -> Optional[torch.Tensor]:
+        """The 4-call path's apply (one dispatch, a ``stoke/step`` span):
+        :meth:`_apply`, its sentinel row kept as :attr:`sentinel_row`
+        (``loss``: the boundary's undivided micro loss). With
+        ``probe_grad_norm`` (and no sentinels) the pre-clip global grad
+        norm is kept as :attr:`grad_norm`. Returns the finite flag."""
+        self.dispatch_count += 1
+        with trace_span("stoke/step", track="step"):
+            finite, self.sentinel_row = self._apply(loss, probe_grad_norm)
+        return finite
+
     @torch.no_grad()
-    def apply(self) -> Optional[torch.Tensor]:
+    def _apply(self, loss: Optional[torch.Tensor] = None,
+               probe_grad_norm: bool = False
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
         """At the accumulation boundary, in the JAX apply core's order:
         under fp16 unscale and check the accumulated gradients (ANDed with
         the per-loss flags), then clip, step the optimizer (put back when
         not finite), zero the buffer, and update the scaler. Returns the
-        finite flag (a bool scalar on the device), or None without fp16.
+        finite flag (a bool scalar on the device), or None without fp16,
+        and the sentinel row (None without sentinels).
 
         Across ranks the gradients are first reduced
         (:meth:`~stoke_tpu_torch.parallel.ladder.Ladder.reduce_for_apply`),
@@ -487,10 +583,15 @@ class StepEngine:
         if ladder is None:
             if transport is not None:
                 transport([_grad_or_zeros(p) for p in self.params])
-            grads = [p.grad for p in self.params if p.grad is not None]
+            grad_idx = [i for i, p in enumerate(self.params)
+                        if p.grad is not None]
+            grads = [self.params[i].grad for i in grad_idx]
             sharded: List[torch.Tensor] = []
+            shard_idx: List[int] = []
         else:
             grads, sharded = ladder.reduce_for_apply(transport)
+            grad_idx = list(ladder.replicated)
+            shard_idx = [i for b in ladder.buckets for i in b.index]
         finite = None
         if self.precision.scaled:
             scale = self.scaler["scale"]
@@ -504,14 +605,29 @@ class StepEngine:
                 finite = finite & self.scaler["finite"].all()
             if ladder is not None:
                 finite = ladder.all_true(finite)
-        clip_gradients(grads, self.grad_clip, sharded, ladder)
+        probe = None
+        if self.sentinels or probe_grad_norm:
+            probe = _GradProbe(grads, sharded, grad_idx, shard_idx,
+                               self.device, flags=self.sentinels)
+        clip_norm = clip_gradients(
+            grads, self.grad_clip, sharded, ladder,
+            None if probe is None else (probe.rep_norms, probe.part_norms))
+        old = None
         if finite is None:
+            if self.sentinels:
+                old = self._snap({(i, None): p for i, p in
+                                  enumerate(self.opt_params)})
             self.optimizer.step()
         else:
-            self._step_unless(finite)
+            old = self._step_unless(finite)
         self.optimizer.zero_grad(set_to_none=True)
         if ladder is not None:
             ladder.after_step()
+        row = None
+        if self.sentinels:
+            row = self._sentinel_row(probe, clip_norm, old, finite, loss)
+        elif probe is not None:
+            self.grad_norm = self._probe_grad_norm(probe, clip_norm)
         if self.precision.scaled:
             flags = self.scaler["finite"] if self.per_loss else finite
             new = scaler_update(self.scaler, flags, self.precision_config)
@@ -519,7 +635,82 @@ class StepEngine:
             self.scaler["growth_count"].copy_(new["growth_count"])
             if self.per_loss:
                 self.scaler["finite"].fill_(True)
-        return finite
+        return finite, row
+
+    def _sentinel_row(self, probe: "_GradProbe",
+                      clip_norm: Optional[torch.Tensor],
+                      old: Dict[Any, torch.Tensor],
+                      finite: Optional[torch.Tensor],
+                      loss: Optional[torch.Tensor]) -> torch.Tensor:
+        """The sentinel row after the step: the gradient part of ``probe``
+        (its grad norm the clip's 2-norm when the clip took one), the
+        norms of the updated parameters and of the update (``old - new``
+        in place on the copy ``old`` taken before the step), the
+        error-feedback residual's norm. Across the ladder's ranks each
+        sliced leaf's squares and flags are summed over the ranks in one
+        all-reduce, so the norms and flags are global."""
+        params = self.opt_params
+        n = len(params)
+        before = [old[(i, None)] for i in range(n)]
+        torch._foreach_sub_(before, params)
+        # per-leaf scalars, put together in Python (an index tensor made
+        # on the host would be a host-to-device copy inside the graph)
+        param_sq = list((leaf_norms(params) ** 2).unbind(0))
+        upd_sq = list((leaf_norms(before) ** 2).unbind(0))
+        residual = self.comm_state.get("residual")
+        res_sq = None
+        if residual:
+            res_sq = (leaf_norms(residual) ** 2).sum().reshape(1)
+        part_sq, part_flags = probe.part_norms ** 2, probe.part_flags
+        if self.ladder is not None:
+            # the sliced leaves' parts, summed over the ranks (a
+            # residual of the sharded transport is a slice a rank too)
+            cut = probe.shard_idx
+            shard_res = (res_sq is not None
+                         and self.transport.layout_kind == "sharded")
+            parts = [part_sq, part_flags]
+            if cut:
+                parts += [torch.stack([param_sq[i] for i in cut]),
+                          torch.stack([upd_sq[i] for i in cut])]
+            if shard_res:
+                parts.append(res_sq)
+            vec = torch.cat(parts)
+            if vec.numel():
+                self.ladder.reduce_(vec)
+            k = len(cut)
+            part_sq, part_flags = vec[:k], (vec[k:2 * k] > 0).float()
+            for j, i in enumerate(cut):
+                param_sq[i] = vec[2 * k + j]
+                upd_sq[i] = vec[3 * k + j]
+            if shard_res:
+                res_sq = vec[-1:]
+        grad_norm = self._probe_grad_norm(probe, clip_norm, part_sq)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        flag = [zero] * n
+        for i, f in zip(probe.grad_idx, probe.rep_flags.unbind(0)):
+            flag[i] = f
+        for i, f in zip(probe.shard_idx, part_flags.unbind(0)):
+            flag[i] = f
+        flags = torch.stack([flag[i] for i in self._jax_order])
+        return pack_sentinels(
+            loss, grad_norm, torch.stack(param_sq).sum().sqrt(),
+            torch.stack(upd_sq).sum().sqrt(), flags, finite,
+            None if res_sq is None else res_sq.sum().sqrt())
+
+    def _probe_grad_norm(self, probe: "_GradProbe",
+                         clip_norm: Optional[torch.Tensor],
+                         part_sq: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """The global pre-clip 2-norm of the gradients: the clip's when it
+        took a 2-norm, else from ``probe``'s leaf norms (``part_sq``: the
+        slices' squares already summed over the ranks)."""
+        if clip_norm is not None and self.grad_clip.norm_type == 2:
+            return clip_norm.float()
+        if part_sq is None:
+            part_sq = probe.part_norms ** 2
+            if self.ladder is not None and part_sq.numel():
+                self.ladder.reduce_(part_sq)
+        return (probe.rep_norms.pow(2).sum() + part_sq.sum()).sqrt()
 
     def _transport_grads(self, grads: List[torch.Tensor]) -> None:
         """The gradient transport over the whole reduced gradients
@@ -556,7 +747,7 @@ class StepEngine:
         torch._foreach_copy_(bufs, list(live.values()))
         return dict(zip(live, bufs))
 
-    def _step_unless(self, finite: torch.Tensor) -> None:
+    def _step_unless(self, finite: torch.Tensor) -> Dict[Any, torch.Tensor]:
         """``optimizer.step()``, then every parameter and optimizer state
         tensor, step counts included, put back where ``finite`` is false:
         ``torch.where`` over the new value and a copy taken before the
@@ -565,7 +756,8 @@ class StepEngine:
         graph). This works for any ``torch.optim`` optimizer; the
         ``found_inf`` argument of the fused Adam family would skip in the
         kernel but exists only there. State the step creates (the first
-        step's) is zeroed instead, as optax initialises it."""
+        step's) is zeroed instead, as optax initialises it. Returns the
+        copies taken before the step, by (parameter index, state key)."""
         old = self._snap(self._guarded())
         self.optimizer.step()
         for key, t in self._guarded().items():
@@ -574,14 +766,29 @@ class StepEngine:
             if prev is None:
                 prev = torch.zeros((), dtype=t.dtype, device=t.device)
             torch.where(keep, t, prev, out=t)
+        return old
 
     def fused(self, args: tuple, kwargs: dict, loss_args: tuple = (),
               do_apply: bool = True):
-        """:meth:`accum`, then :meth:`apply` when ``do_apply``. Returns
-        ``(report, finite)``; ``finite`` is None without an apply or
-        without fp16."""
-        report = self.accum(args, kwargs, loss_args)
-        return report, (self.apply() if do_apply else None)
+        """:meth:`accum`, then :meth:`_apply` when ``do_apply`` (one
+        dispatch, a ``stoke/dispatch`` span; the row of an apply is
+        :attr:`sentinel_row`). Returns ``(report, finite)``; ``finite`` is
+        None without an apply or without fp16."""
+        self.dispatch_count += 1
+        with trace_span("stoke/dispatch", track="step"):
+            report = self.accum(args, kwargs, loss_args)
+            finite = None
+            if do_apply:
+                finite, self.sentinel_row = self._apply(
+                    self._report_loss(report) if self.sentinels else None)
+        return report, finite
+
+    def _report_loss(self, report) -> torch.Tensor:
+        """The sentinel's boundary loss (the JAX ``_report_loss``): the sum
+        over the loss leaves of each leaf's mean (over a stacked micro
+        axis), times ``grad_accum``: undivided micro-loss units."""
+        return sum(l.float().mean() for l in tree_leaves(report)) * float(
+            self.grad_accum)
 
     # ------------------------------------------------------------------ #
     # the accumulation window
@@ -591,7 +798,7 @@ class StepEngine:
         """``grad_accum`` micro-steps over the stacked inputs' leading
         axis, then :meth:`apply`: exactly what ``grad_accum`` calls of
         :meth:`fused` compute. Returns (reports stacked ``[k, ...]``,
-        finite)."""
+        finite, the sentinel row or None)."""
         reports = []
         for i in range(self.grad_accum):
             def pick(tree, i=i):
@@ -600,13 +807,17 @@ class StepEngine:
 
             reports.append(self.accum(pick(margs), pick(mkwargs),
                                       pick(loss_args)))
-        finite = self.apply()
-        return tree_map(lambda *r: torch.stack(r), *reports), finite
+        reports = tree_map(lambda *r: torch.stack(r), *reports)
+        finite, row = self._apply(
+            self._report_loss(reports) if self.sentinels else None)
+        return reports, finite, row
 
     def window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
         """One whole accumulation window over inputs stacked to
-        ``[grad_accum, ...]`` (the JAX ``window_step``). Returns (the
-        reports stacked ``[grad_accum, ...]``, the finite flag or None).
+        ``[grad_accum, ...]`` (the JAX ``window_step``; one dispatch, a
+        ``stoke/dispatch`` span). Returns (the reports stacked
+        ``[grad_accum, ...]``, the finite flag or None); the sentinel row
+        is :attr:`sentinel_row`, a tensor of its own on every call.
 
         On the CPU it runs eagerly. On the card, the first call for a
         signature (the stacked inputs' structure, shapes and dtypes, with
@@ -619,7 +830,16 @@ class StepEngine:
         baked into the graph as floats, as the JAX package's compiled
         window bakes its schedule: a window whose param groups' ``lr``
         changed captures anew. A capture that fails raises with its
-        cause; nothing falls back to eager on the card."""
+        cause; nothing falls back to eager on the card. A capture counts
+        as a compile of the telemetry, and one for a signature captured
+        before (or after another signature) as a recompile."""
+        self.dispatch_count += 1
+        with trace_span("stoke/dispatch", track="step"):
+            reports, finite, self.sentinel_row = self._run_window(
+                margs, mkwargs, loss_args)
+        return reports, finite
+
+    def _run_window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
         inputs = (tuple(margs), dict(mkwargs), tuple(loss_args))
         if self.device.type != "cuda":
             return self._window(*inputs)
@@ -634,7 +854,11 @@ class StepEngine:
             cap = None
         if cap is None:
             out = self._window(*inputs)
-            self._windows[key] = self._capture(flat, spec, lrs)
+            if self.compile_tracker is not None and self._captured:
+                self.compile_tracker.note_recompile()
+            self._captured.add(key)
+            with collectors.compiling():
+                self._windows[key] = self._capture(flat, spec, lrs)
             return out
         for dst, src in zip(cap.inputs, flat):
             if torch.is_tensor(dst):
@@ -642,9 +866,10 @@ class StepEngine:
         cap.graph.replay()
         for name, n in cap.launches.items():
             LAUNCHES[name] += n
-        reports, finite = cap.outputs
+        reports, finite, row = cap.outputs
         return (tree_map(torch.clone, reports),
-                None if finite is None else finite.clone())
+                None if finite is None else finite.clone(),
+                None if row is None else row.clone())
 
     def drop_windows(self) -> None:
         """Forget every captured window: the next window of each signature
@@ -665,6 +890,9 @@ class StepEngine:
         if self.precision.scaled:
             # the skip's copies live outside the graph's memory pool
             self._snap(self._guarded())
+        elif self.sentinels:
+            # so do the sentinels' copies of the parameters
+            self._snap({(i, None): p for i, p in enumerate(self.opt_params)})
         static = [t.clone() if torch.is_tensor(t) else t for t in flat]
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:

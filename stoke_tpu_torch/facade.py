@@ -11,8 +11,15 @@ print helpers (``:2840-2907``), ``estimate_step_flops`` (``:2972``),
 ``log_scalar`` (``:1281-1346``), ``serve`` (``:3103``), checkpoints
 (``save``, ``load``, ``maybe_resume``, ``wait_for_checkpoint`` and the
 periodic auto-save, ``:1869-1915``, ``:3219-3398``), ``print_status``
-(``:3399``), the counters, flags and loss scale (``:3440-3547``) and the
-parameter counts (``:3602-3628``).
+(``:3399``), the counters, flags, loss scale and configuration accessors
+(``:3440-3581``), the parameter counts (``:3602-3628``), and the
+telemetry, tracing and health surface: the constructor's blocks
+(``:439-468``, ``:510-600``), ``_health_guarded`` (``:133-176``) on every
+step path, the device-time sample at the logging cadence, the step events
+(``:1746``), ``health``, ``tracer``, ``trace_summary``, ``export_trace``
+(``:1551-1640``), ``dispatch_count`` (``:1731``), ``close_telemetry``
+(``:1822``), the wall-clock breakdown and ``profile_trace``
+(``:2901-2970``).
 
 The JAX facade defers the forward (``model()`` returns a
 ``DeferredOutput``; forward, loss and grad run fused in ``loss()``)
@@ -61,9 +68,22 @@ its dropout masks from its own seed (``seed + rank``): the JAX package
 draws one mask over the global batch, so the masks cannot match its bit
 for bit. The losses ``loss()`` reports are the global batch's.
 
+``TelemetryConfig`` writes ``steps.jsonl`` (the JAX step-event schema),
+``metrics.prom`` and a TensorBoard stream under its ``output_dir`` at its
+cadence; ``TraceConfig`` keeps a ring of host spans (``stoke/<phase>`` on
+the facade track, ``stoke/accum`` / ``stoke/dispatch`` / ``stoke/step`` on
+the step track, ``stoke/io`` for the loader and checkpoints) exported as
+``trace.rank<N>.json``; ``HealthConfig`` computes the sentinel row in every
+apply (a replayed window's too), runs the detectors on it once the call's
+rows are read back (one readback a call), writes post-mortem bundles and
+arms the hang watchdog across each step call; ``ProfilerConfig.trace_dir``
+is where :meth:`profile_trace` writes ``torch.profiler`` traces. Without
+these configs no sink, recorder, tracer or snapshot exists and the device
+work is the same.
+
 Left out, and refused with ``NotImplementedError`` naming their ROADMAP
 item: ``resume``, emergency saves and offload staging (item 9) and
-``estimate_step_cost`` (item 10).
+``estimate_step_cost`` (item 10c).
 """
 
 from __future__ import annotations
@@ -71,7 +91,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -108,12 +130,29 @@ from stoke_tpu_torch.parallel.sharding import make_sharding_rules
 from stoke_tpu_torch.serving.engine import resolve_device
 from stoke_tpu_torch.parallel.zero import make_transport
 from stoke_tpu_torch.status import StokeStatus, StokeValidationError
+from stoke_tpu_torch.telemetry import Telemetry
+from stoke_tpu_torch.telemetry.fleet import timed_sync
+from stoke_tpu_torch.telemetry.health import (
+    SENTINEL_INDEX,
+    HealthHaltError,
+    HealthMonitor,
+    leaf_path_names,
+    unpack_sentinels,
+)
+from stoke_tpu_torch.telemetry.recorder import FlightRecorder
+from stoke_tpu_torch.telemetry.tracing import (
+    TraceRecorder,
+    register_recorder,
+    trace_span,
+    unregister_recorder,
+)
 from stoke_tpu_torch.utils.printing import unrolled_print
 from stoke_tpu_torch.utils.tb_writer import TBEventWriter
 from stoke_tpu_torch.utils.trees import tree_count_params
 
 _LATER_RESUME = "ROADMAP Queue 1 item 9 (offload and resilience)"
-_LATER_COST = "ROADMAP Queue 1 item 10 (telemetry)"
+_LATER_COST = ("ROADMAP Queue 1 item 10c (numerics, memory, attribution and "
+               "the serving observatories)")
 #: param-group keys that say how an optimizer runs on this device, not
 #: what it computes; ``load`` keeps the live values
 _DEVICE_FLAGS = ("capturable", "foreach", "fused", "differentiable")
@@ -147,6 +186,62 @@ def _check_segment_memory(seg_bytes: int, stats: Optional[dict]) -> None:
             f"the segment host->device in chunks of c optimizer steps, or "
             f"stack fewer steps per call."
         )
+
+
+def _timed(phase: str):
+    """Method decorator feeding the wall-clock breakdown (``facade/<phase>_s``
+    and, with a ``TraceConfig``, a ``stoke/<phase>`` span); one null context
+    when neither is on."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            with self._clock(phase):
+                return fn(self, *args, **kwargs)
+
+        return wrapper
+
+    return deco
+
+
+def _health_guarded(fn):
+    """Method decorator for the step paths (the JAX facade's): arms the
+    hang watchdog across the call, which ends with the sentinel readback
+    (an eager step returns before the card finishes; the readback waits
+    for it), and writes a post-mortem bundle when the call dies on an
+    uncaught exception. Nothing without a ``HealthConfig``."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        h = self._health
+        if h is None:
+            return fn(self, *args, **kwargs)
+        h.arm_watchdog()
+        try:
+            return fn(self, *args, **kwargs)
+        except HealthHaltError:
+            raise  # the halt path already dumped its bundle
+        except Exception as e:
+            # one bundle per exception (nested guarded calls re-raise
+            # through several wrappers), at most max_dumps a run
+            if (
+                h.cfg.dump_on_exception
+                and not getattr(e, "_stoke_health_dumped", False)
+                and h.note_exception_dump()
+            ):
+                try:
+                    e._stoke_health_dumped = True
+                except Exception:
+                    pass
+                h.dump(
+                    "exception",
+                    extra={"method": fn.__name__, "error": repr(e)[:500]},
+                )
+            raise
+        finally:
+            h.disarm_watchdog()
+
+    return wrapper
 
 
 def _leading(tree, sl: slice):
@@ -183,10 +278,13 @@ class Stoke:
         configs: objects of the JAX package's config classes
             (``configs.ALL_CONFIG_CLASSES``). Honoured: ``PrecisionConfig``,
             ``CheckpointConfig`` (how ``save`` writes, the periodic
-            auto-save), ``ServeConfig`` (what ``serve`` builds) and
-            ``TensorboardConfig`` (the loss metrics and ``log_scalar``);
-            the status layer refuses the others, naming their ROADMAP
-            item. A YAML document or dict builds the same run through
+            auto-save), ``ServeConfig`` (what ``serve`` builds),
+            ``TensorboardConfig`` (the loss metrics and ``log_scalar``),
+            the data parallel ones and ``CommConfig``, and
+            ``TelemetryConfig``, ``TraceConfig``, ``HealthConfig`` and
+            ``ProfilerConfig``; the status layer refuses the others,
+            naming their ROADMAP item. A YAML document or dict builds the
+            same run through
             :func:`stoke_tpu_torch.utils.yaml_config.stoke_from_config`.
         model_train_kwargs / model_eval_kwargs: keyword arguments the
             forward gets in train / eval mode (only when given).
@@ -244,6 +342,7 @@ class Stoke:
         st = self._status_obj
         self._device = resolve_device(st.device.value)
         self._group = None
+        self._mesh = None
         if st.is_distributed:
             self._join_process_group()
         world = (dist.get_world_size(self._group) if self._group is not None
@@ -280,17 +379,17 @@ class Stoke:
         self._eval_kwargs = dict(model_eval_kwargs or {})
         self._ladder: Optional[Ladder] = None
         opt_params = self._module.parameters()
+        self._rules = make_sharding_rules(
+            st.sharding_tier, world, st.oss_config, st.sddp_config,
+            st.fsdp_config)
         if self._group is not None:
             if world > 1:
                 with torch.no_grad():
                     for t in self._module.state_dict().values():
                         dist.broadcast(t, 0, group=self._group)
-            rules = make_sharding_rules(
-                st.sharding_tier, world, st.oss_config, st.sddp_config,
-                st.fsdp_config)
             self._ladder = Ladder(
                 [p for p in self._module.parameters() if p.requires_grad],
-                rules, self._group)
+                self._rules, self._group)
             opt_params = self._ladder.opt_params
         self._engine = StepEngine(
             self._module, loss, build_optimizer(optimizer, opt_params),
@@ -300,6 +399,8 @@ class Stoke:
             ladder=self._ladder,
             transport=make_transport(st.comm_config, st.sharding_tier,
                                      self._group),
+            sentinels=(st.health_config is not None
+                       and st.health_config.sentinels),
         )
         self._skipped_steps = torch.zeros((), dtype=torch.float32,
                                           device=self._device)
@@ -313,7 +414,65 @@ class Stoke:
         self._last_step_loss: Optional[torch.Tensor] = None
         self._agg_loss: Optional[torch.Tensor] = None
         self._agg_count = 0
+        self._build_telemetry()
         self.train()
+
+    def _build_telemetry(self) -> None:
+        """The telemetry pipeline (its registry always; sinks with a
+        ``TelemetryConfig``), the trace recorder (``TraceConfig``) and the
+        health monitor with its flight recorder and watchdog
+        (``HealthConfig``), as the JAX constructor builds them."""
+        st = self._status_obj
+        self._telemetry = Telemetry(st.telemetry_config, rank=self.rank)
+        self._engine.compile_tracker = self._telemetry.compile_tracker
+        self._last_grad_norm: Optional[float] = None
+        self._tracer: Optional[TraceRecorder] = None
+        if st.trace_config is not None:
+            self._tracer = TraceRecorder(st.trace_config, rank=self.rank,
+                                         registry=self._telemetry.registry)
+            register_recorder(self._tracer)
+        self._health: Optional[HealthMonitor] = None
+        self._last_sentinels: Optional[np.ndarray] = None
+        hcfg = st.health_config
+        if hcfg is not None:
+            bundle_dir = hcfg.bundle_dir
+            if bundle_dir is None:
+                base = (st.telemetry_config.output_dir
+                        if st.telemetry_config is not None else "health")
+                bundle_dir = os.path.join(base, "postmortem")
+            recorder = FlightRecorder(
+                bundle_dir,
+                ring_size=hcfg.ring_size,
+                status_dict=st.to_dict(),
+                mesh_info=self._mesh_info(),
+                snapshot_fn=self._telemetry.registry.snapshot,
+                install_signal_handlers=hcfg.dump_signals,
+                # the span ring at time of death
+                trace_fn=(self._tracer.to_trace_events
+                          if self._tracer is not None else None),
+            )
+            self._health = HealthMonitor(
+                hcfg, self._telemetry.registry, recorder,
+                compile_tracker=self._telemetry.compile_tracker)
+            # the NonFiniteDetector names the first bad leaf by its JAX path
+            self._health.leaf_paths = leaf_path_names(self._module,
+                                                      self._engine.params)
+        self._wall_clock_enabled = (
+            st.profiler_config.wall_clock_breakdown
+            or self._telemetry.enabled
+            or self._tracer is not None
+        )
+
+    def _mesh_info(self) -> dict:
+        """The run's topology for post-mortem bundles."""
+        return {
+            "axes": list(self._status_obj.mesh_config.axes),
+            "world": self.world_size,
+            "device": str(self._device),
+            "device_kind": (torch.cuda.get_device_name(self._device)
+                            if self._device.type == "cuda" else "cpu"),
+            "n_processes": self.n_processes,
+        }
 
     def _join_process_group(self) -> None:
         """Join the run's process group (or make a one-process group),
@@ -328,7 +487,8 @@ class Stoke:
                                              self._device))
         if not joined and not dist.is_initialized():
             one_process_group(self._device)
-        self._group = build_mesh(st.mesh_config, self._device).get_group()
+        self._mesh = build_mesh(st.mesh_config, self._device)
+        self._group = self._mesh.get_group()
 
     def _whole_params(self):
         """The module's parameters whole inside the block (under fsdp
@@ -359,6 +519,7 @@ class Stoke:
     def _place(self, tree):
         return place(tree, self._device)
 
+    @_timed("model")
     def model(self, *args, **kwargs):
         """The forward on ``args`` (placed on the device): under autograd
         in train mode, under ``torch.no_grad()`` in eval mode."""
@@ -368,6 +529,8 @@ class Stoke:
         with torch.no_grad():
             return self._engine.forward(args, {**self._eval_kwargs, **kwargs})
 
+    @_health_guarded
+    @_timed("loss")
     def loss(self, *args, **kwargs):
         """``loss(*args, **kwargs)``; in train mode the losses are returned
         divided by ``grad_accum`` and the objective is kept for
@@ -383,6 +546,8 @@ class Stoke:
         self._update_loss_tracking(report)
         return report
 
+    @_health_guarded
+    @_timed("backward")
     def backward(self, loss: Any = None) -> None:
         """Autograd of the last ``loss()`` into the accumulated gradients.
         ``loss`` is accepted for the reference signature; the objective
@@ -399,16 +564,32 @@ class Stoke:
         self._grad_accum_counter += 1
         self._backward_steps += 1
 
+    @_health_guarded
+    @_timed("step")
     def step(self) -> None:
         """At the accumulation boundary: (under fp16, unscale and check)
         clip, optimizer step (skipped when not finite), zero the gradients
         (and update the loss scale); before it, nothing."""
         if self._grad_accum_counter < self._status_obj.grad_accum:
             return
-        self._count_skipped(self._engine.apply())
+        will_record = self._telemetry_will_record()
+        # the grad norm of a logged step without sentinels: the apply's
+        # own pre-clip norm (the JAX facade's extra reduction)
+        probe = (will_record and self._telemetry.config.grad_norm
+                 and not self._engine.sentinels)
+        t0 = self._device_clock_start(will_record)
+        finite = self._engine.apply(self._health_loss_input(),
+                                    probe_grad_norm=probe)
+        self._device_clock_stop(t0)
+        if probe:
+            self._last_grad_norm = float(self._engine.grad_norm)
+            self._telemetry.registry.gauge("train/grad_norm").set(
+                self._last_grad_norm)
+        self._count_skipped(finite)
         self._optimizer_steps += 1
         self._grad_accum_counter = 0
         self._reset_tracking_window()
+        self._observe_health([self._engine.sentinel_row])
         self._after_optimizer_steps()
 
     def _count_skipped(self, finite: Optional[torch.Tensor]) -> None:
@@ -416,6 +597,8 @@ class Stoke:
         if finite is not None:
             self._skipped_steps += 1.0 - finite.float()
 
+    @_health_guarded
+    @_timed("train_step")
     def train_step(self, model_args: Any, loss_args: Any = (),
                    model_kwargs: Optional[dict] = None):
         """``model -> loss -> backward -> step`` in one call:
@@ -430,8 +613,11 @@ class Stoke:
         margs = self._place(model_args)
         mkwargs = {**self._train_kwargs, **self._place(model_kwargs or {})}
         do_apply = self._grad_accum_counter + 1 >= self._status_obj.grad_accum
+        t0 = self._device_clock_start(
+            do_apply and self._telemetry_will_record())
         report, finite = self._engine.fused(
             margs, mkwargs, self._place(loss_args), do_apply=do_apply)
+        self._device_clock_stop(t0)
         self._pending = None
         self._backward_steps += 1
         self._update_loss_tracking(report)
@@ -440,6 +626,7 @@ class Stoke:
             self._optimizer_steps += 1
             self._grad_accum_counter = 0
             self._reset_tracking_window()
+            self._observe_health([self._engine.sentinel_row])
             self._after_optimizer_steps()
         else:
             self._grad_accum_counter += 1
@@ -463,7 +650,8 @@ class Stoke:
         """One window of inputs already on the device and stacked to
         ``[grad_accum, ...]``: the engine's window, then the counters, the
         loss tracking (once, with the window-mean micro loss) and the
-        skipped count. Returns the stacked reports."""
+        skipped count. Returns the stacked reports; the window's sentinel
+        row is the engine's ``sentinel_row``."""
         reports, finite = self._engine.window(margs, mkwargs, loss_args)
         self._pending = None
         self._backward_steps += self._status_obj.grad_accum
@@ -473,6 +661,8 @@ class Stoke:
         self._reset_tracking_window()
         return reports
 
+    @_health_guarded
+    @_timed("train_step_window")
     def train_step_window(self, model_args: Any, loss_args: Any = (),
                           model_kwargs: Optional[dict] = None):
         """A whole accumulation window (``grad_accum`` micro-batches and
@@ -498,9 +688,12 @@ class Stoke:
             self._place(model_args),
             {**self._train_kwargs, **self._place(model_kwargs or {})},
             self._place(loss_args))
+        self._observe_health([self._engine.sentinel_row])
         self._after_optimizer_steps()
         return reports
 
+    @_health_guarded
+    @_timed("train_steps")
     def train_steps(self, model_args: Any, loss_args: Any = (),
                     model_kwargs: Optional[dict] = None,
                     segment_size: Optional[int] = None):
@@ -562,15 +755,23 @@ class Stoke:
                     else _leading(model_kwargs, sl)))
             return tree_map(lambda *r: torch.cat(r), *chunks)
         _check_segment_memory(seg_bytes, _device_memory_stats(self._device))
+        if self._health is not None:
+            # the call legitimately covers n optimizer steps: re-arm the
+            # watchdog with the segment's deadline (n x timeout)
+            self._health.arm_watchdog(steps=n)
         margs, loss_args = self._place(model_args), self._place(loss_args)
         mkwargs = {**self._train_kwargs, **self._place(model_kwargs or {})}
         reports: List[Any] = []
+        rows: List[Optional[torch.Tensor]] = []
         for i in range(n):
             sl = slice(i * k, (i + 1) * k)
             reports.append(self._run_window(
                 _leading(margs, sl), _leading(mkwargs, sl),
                 _leading(loss_args, sl)))
-        # a save boundary crossed inside the segment is saved at its end
+            rows.append(self._engine.sentinel_row)
+        # the segment's rows read back once; a save boundary crossed
+        # inside the segment is saved at its end
+        self._observe_health(rows, window=n)
         self._after_optimizer_steps(window=n)
         return tree_map(lambda *r: torch.stack(r), *reports)
 
@@ -648,6 +849,7 @@ class Stoke:
                     out[names[p]] = acc
         return out
 
+    @_timed("save")
     def _save_with_config(self, path: str, name: str,
                           config: CheckpointConfig,
                           extras: Optional[Dict[str, Any]]) -> str:
@@ -681,19 +883,20 @@ class Stoke:
                 port_state["generators"] = [
                     g.cpu().numpy() for g in self._ladder.gather_whole(
                         self._generator.get_state().to(self._device))]
-        return io_ops.save_checkpoint(
-            path=path, name=name, state=state,
-            counters={
-                "backward_step": self._backward_steps,
-                "grad_accum_step": self._grad_accum_counter,
-                "optimizer_step": self._optimizer_steps,
-            },
-            status=self._status_obj.to_dict(),
-            extras=extras, config=config,
-            backward_step=self._backward_steps,
-            port_state=port_state, rank_state=rank_state, layout=layout,
-            group=self._group,
-        )
+        with trace_span("stoke/io", track="io"):
+            return io_ops.save_checkpoint(
+                path=path, name=name, state=state,
+                counters={
+                    "backward_step": self._backward_steps,
+                    "grad_accum_step": self._grad_accum_counter,
+                    "optimizer_step": self._optimizer_steps,
+                },
+                status=self._status_obj.to_dict(),
+                extras=extras, config=config,
+                backward_step=self._backward_steps,
+                port_state=port_state, rank_state=rank_state,
+                layout=layout, group=self._group,
+            )
 
     def _leaf_index(self) -> Dict[str, int]:
         """The ladder's index of each trainable parameter, by name."""
@@ -807,6 +1010,7 @@ class Stoke:
         return np.ascontiguousarray(
             np.split(a, self.world_size, axis=dim)[self.rank])
 
+    @_timed("load")
     def load(self, path: str, tag: Optional[str] = None,
              name: str = "stoke") -> Dict[str, Any]:
         """Restore a checkpoint: the newest tag of ``name`` under ``path``,
@@ -840,13 +1044,14 @@ class Stoke:
             return lambda n: (io_ops.spec_of(tensors[n]) if n in tensors
                               else None)
 
-        payload = io_ops.load_checkpoint(
-            path, tag,
-            {"variables": (like(sd), sd.keys()),
-             "opt_state": (self._opt_spec(params, held), ()),
-             "scaler_state": (like(scaler), scaler.keys()),
-             "grad_buf": (like(params), ())},
-            name=name if tag is None else None)
+        with trace_span("stoke/io", track="io"):
+            payload = io_ops.load_checkpoint(
+                path, tag,
+                {"variables": (like(sd), sd.keys()),
+                 "opt_state": (self._opt_spec(params, held), ()),
+                 "scaler_state": (like(scaler), scaler.keys()),
+                 "grad_buf": (like(params), ())},
+                name=name if tag is None else None)
         port = payload["port"]
         self._check_param_groups(port.get("param_groups"))
         opt = {}
@@ -1015,10 +1220,151 @@ class Stoke:
 
     def _after_optimizer_steps(self, window: int = 1) -> None:
         """What follows ``window`` optimizer steps, as in the JAX facade:
-        the TensorBoard metrics, then the periodic auto-save, each when
-        the steps crossed its cadence."""
+        the TensorBoard metrics, the telemetry step event, then the
+        periodic auto-save, each when the steps crossed its cadence."""
         self._maybe_log_metrics(window)
+        self._maybe_emit_telemetry(window)
         self._maybe_auto_save(window)
+
+    # ------------------------------------------------------------------ #
+    # telemetry step records and the health monitor
+    # ------------------------------------------------------------------ #
+
+    def _telemetry_will_record(self, window: int = 1) -> bool:
+        """True when the optimizer step(s) about to complete cross the
+        telemetry logging cadence (decides whether to pay for the optional
+        samples: the grad norm, the device-time bracket)."""
+        t = self._telemetry
+        return t.enabled and self._crossed_boundary(
+            self._optimizer_steps + window, t.config.log_every_n_steps,
+            window)
+
+    def _device_clock_start(self, will_record: bool) -> Optional[float]:
+        """Start of a device-time sample of the step about to run (at the
+        logging cadence, with ``sample_device_time``): the queued work
+        drained first so the bracket holds this step alone; None when no
+        sample is taken."""
+        if not (will_record and self._telemetry.will_sample_device()):
+            return None
+        self.block_until_ready()
+        return time.perf_counter()
+
+    def _device_clock_stop(self, t0: Optional[float]) -> None:
+        if t0 is not None:
+            self.block_until_ready()
+            self._telemetry.observe_device_step(time.perf_counter() - t0)
+
+    def _health_loss_input(self) -> Optional[torch.Tensor]:
+        """The 4-call apply's sentinel loss: the last undivided micro loss
+        (0 before any), None without sentinels."""
+        if not self._engine.sentinels:
+            return None
+        if self._last_step_loss is not None:
+            return self._last_step_loss
+        return torch.zeros((), dtype=torch.float32, device=self._device)
+
+    def _observe_health(self, rows: List[Optional[torch.Tensor]],
+                        window: int = 1) -> None:
+        """Feed the just-completed ``window`` optimizer steps to the health
+        monitor: their sentinel rows read back in one transfer (they were
+        computed in the steps' own applies), the detectors run step by
+        step, and the last row kept for the step event. A ``halt`` detector
+        raises :class:`HealthHaltError` from here, at the facade
+        boundary."""
+        h = self._health
+        if h is None:
+            return
+        arr = None
+        if rows and rows[0] is not None:
+            arr = torch.stack(rows).float().cpu().numpy()
+            self._last_sentinels = arr[-1]
+            t = self._telemetry
+            if t.enabled and t.config.grad_norm:
+                # the in-step grad norm replaces the extra reduction
+                gn = float(arr[-1][SENTINEL_INDEX["grad_norm"]])
+                self._last_grad_norm = gn
+                t.registry.gauge("train/grad_norm").set(gn)
+        first = self._optimizer_steps - window + 1
+        for i in range(window):
+            h.observe(first + i, arr[i] if arr is not None else None)
+
+    def _maybe_emit_telemetry(self, window: int = 1) -> None:
+        """One structured step event at the telemetry cadence (JSONL /
+        Prometheus / TensorBoard); the device values (EMA loss, loss
+        scale) are read on the host only here."""
+        if self._tracer is not None:
+            # tag later spans with the last completed optimizer step (the
+            # anchor the cross-rank trace merge aligns on)
+            self._tracer.set_step(self._optimizer_steps)
+        t = self._telemetry
+        if not t.enabled or self._optimizer_steps == 0:
+            return
+        # one optimizer step consumes one (global) effective batch
+        t.add_samples((self._status_obj.effective_batch_size or 0) * window)
+        comm = self.comm_bytes
+        if comm is not None:
+            t.registry.counter("comm/grad_bytes_prequant_total").inc(
+                comm["prequant"] * window)
+            t.registry.counter("comm/grad_bytes_onwire_total").inc(
+                comm["onwire"] * window)
+            if "param_gather" in comm:
+                t.registry.counter("comm/param_gather_bytes_total").inc(
+                    comm["param_gather"] * window)
+        if not self._crossed_boundary(
+                self._optimizer_steps, t.config.log_every_n_steps, window):
+            return
+        scaled = self._precision.scaled
+        sent = (unpack_sentinels(self._last_sentinels)
+                if self._last_sentinels is not None else {})
+        record = t.record_step(
+            self._optimizer_steps,
+            window_steps=window,
+            ema_loss=self.ema_loss,
+            step_loss=self.step_loss,
+            grad_norm=self._last_grad_norm,
+            loss_scale=self.loss_scale if scaled else None,
+            skipped_steps=self.skipped_optimizer_steps if scaled else 0.0,
+            comm_residual_norm=self._comm_residual_norm(),
+            param_norm=sent.get("param_norm"),
+            update_ratio=sent.get("update_ratio"),
+            nonfinite_leaves=sent.get("nonfinite_leaves"),
+            health_anomalies=(float(self._health.anomaly_count)
+                              if self._health is not None else None),
+        )
+        if record is not None and self._health is not None:
+            # the flight recorder's ring replays the step events
+            self._health.recorder.record_event(record)
+        self._last_grad_norm = None
+
+    def _comm_residual_norm(self) -> Optional[float]:
+        """The error-feedback residual's norm (one reduction and a read, at
+        the logging cadence only), None without error feedback; this
+        rank's slice under the sharded transport."""
+        residual = self._engine.comm_state.get("residual")
+        if not residual:
+            return None
+        with torch.no_grad():
+            norm = float(torch.stack(
+                [torch.linalg.vector_norm(r) for r in residual]).norm())
+        self._telemetry.registry.gauge("comm/residual_norm").set(norm)
+        return norm
+
+    def close_telemetry(self) -> None:
+        """Flush and close the telemetry sinks, export the trace (with
+        ``TraceConfig.export_on_close``) and close the health monitor (its
+        watchdog thread and signal handlers); idempotent."""
+        if self._tracer is not None:
+            # stop receiving other runs' spans, then export the final ring
+            unregister_recorder(self._tracer)
+            tcfg = self._status_obj.trace_config
+            if tcfg is not None and tcfg.export_on_close:
+                try:
+                    self._tracer.export()
+                except OSError as e:
+                    self.warn(f"trace export failed: {e}")
+        self._telemetry.close()
+        if self._health is not None:
+            self._health.close()
 
     def _maybe_auto_save(self, window: int = 1) -> None:
         """Save under ``CheckpointConfig.auto_path`` when the last
@@ -1049,10 +1395,13 @@ class Stoke:
     def log_scalar(self, tag: str, value, step: Optional[int] = None) -> None:
         """Write a user scalar to TensorBoard now (with a
         ``TensorboardConfig``, on rank 0), at ``step`` or the optimizer
-        step count; a tensor is read on the host."""
+        step count, and into the telemetry gauge ``user/<tag>``; a tensor
+        is read on the host."""
+        value = float(value)
+        self._telemetry.log_scalar(tag, value)
         w = self._tb_writer
         if w is not None:
-            w.add_scalar(tag, float(value),
+            w.add_scalar(tag, value,
                          step if step is not None else self._optimizer_steps)
 
     def _maybe_log_metrics(self, window: int = 1) -> None:
@@ -1313,15 +1662,122 @@ class Stoke:
 
     def barrier(self) -> None:
         """Wait for every process of the run (nothing to wait for on one
-        device)."""
+        device). The wait lands in ``sync/barrier_wait_s`` of every live
+        telemetry registry."""
         if self._group is not None:
-            dist.barrier(group=self._group)
+            with timed_sync("barrier"):
+                dist.barrier(group=self._group)
 
     def block_until_ready(self) -> None:
         """Wait for the card's queued work (nothing to wait for on the
         CPU)."""
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+
+    # ------------------------------------------------------------------ #
+    # profiling and observability
+    # ------------------------------------------------------------------ #
+
+    def _clock(self, phase: str):
+        """Accumulating host timer of the wall-clock breakdown
+        (``facade/<phase>_s``), with a ``stoke/<phase>`` span; a null
+        context unless ``ProfilerConfig(wall_clock_breakdown=True)``, a
+        ``TelemetryConfig`` or a ``TraceConfig`` is on."""
+        if not self._wall_clock_enabled:
+            return contextlib.nullcontext()
+        return self._telemetry.phase(phase)
+
+    @property
+    def telemetry(self) -> Telemetry:
+        """The run's telemetry pipeline (registry always live; sinks and
+        collectors attach with a ``TelemetryConfig``)."""
+        return self._telemetry
+
+    @property
+    def wall_clock_breakdown(self) -> Dict[str, float]:
+        """Cumulative host seconds per facade phase (with
+        ``ProfilerConfig(wall_clock_breakdown=True)``, a
+        ``TelemetryConfig`` or a ``TraceConfig``). Host time only: the
+        card runs asynchronously; :meth:`profile_trace` gives device
+        timelines."""
+        return self._telemetry.wall_clock_breakdown()
+
+    def print_wall_clock_breakdown(self) -> None:
+        breakdown = self.wall_clock_breakdown
+        total = sum(breakdown.values()) or 1.0
+        for phase, secs in sorted(breakdown.items(), key=lambda kv: -kv[1]):
+            self.print_on_devices(
+                f"wall_clock {phase}: {secs:.3f}s "
+                f"({100 * secs / total:.1f}%)")
+
+    def profile_trace(self, name: str = "stoke"):
+        """Context manager capturing a ``torch.profiler`` trace of the
+        block (host ops and, on the card, CUDA kernels) into
+        ``ProfilerConfig.trace_dir`` as ``<name>.rank<N>.pt.trace.json``
+        (Chrome / Perfetto trace JSON); yields the profiler. A null context
+        without a ``trace_dir``.
+
+        Usage:
+            with stoke.profile_trace():
+                for batch in loader: ...
+        """
+        cfg = self._status_obj.profiler_config
+        if cfg.trace_dir is None:
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def _trace():
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self._device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=acts) as prof:
+                yield prof
+            os.makedirs(cfg.trace_dir, exist_ok=True)
+            path = os.path.join(cfg.trace_dir,
+                                f"{name}.rank{self.rank}.pt.trace.json")
+            prof.export_chrome_trace(path)
+            self.info(f"profiler trace written to {path}")
+
+        return _trace()
+
+    @property
+    def health(self) -> Optional[HealthMonitor]:
+        """The run's health monitor (None without a ``HealthConfig``)."""
+        return self._health
+
+    @property
+    def tracer(self) -> Optional[TraceRecorder]:
+        """The run's trace recorder (None without a ``TraceConfig``): the
+        bounded span ring, the Perfetto exporter and the summary."""
+        return self._tracer
+
+    @property
+    def trace_summary(self) -> Optional[Dict[str, Any]]:
+        """Self-time summary of the trace ring (per-span-name counts, total
+        and self seconds, the ranked ``critical_path``); None without a
+        ``TraceConfig``. A nonzero ``trace/dropped_total`` means the ring
+        evicted spans: the summary describes the recent tail."""
+        if self._tracer is None:
+            return None
+        return self._tracer.summary()
+
+    def export_trace(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the span ring as Chrome/Perfetto trace-event JSON
+        (``trace.rank<N>.json`` under ``TraceConfig.output_dir`` unless
+        ``path``); returns the path, or None without a ``TraceConfig``.
+        ``scripts/merge_rank_traces.py`` merges the ranks' files."""
+        if self._tracer is None:
+            return None
+        return self._tracer.export(path)
+
+    @property
+    def dispatch_count(self) -> int:
+        """The step engine's device-issuing calls: one for each eager
+        micro-step of the four calls (``backward``), each apply
+        (``step``), each fused ``train_step``, and each window (eager or a
+        CUDA-graph replay; ``train_steps(n)`` makes n). The health
+        sentinels add none."""
+        return self._engine.dispatch_count
 
     def print_status(self) -> None:
         """Print the run's status, one line a flag or config."""
@@ -1367,8 +1823,10 @@ class Stoke:
                 "(see BucketedDistributedSampler / DistributedSampler) — "
                 "reference stoke.py:822-826"
             )
-        return StokeDataLoader(dataset, batch_size=self.batch_size,
-                               device=self._device, **kwargs)
+        return StokeDataLoader(
+            dataset, batch_size=self.batch_size, device=self._device,
+            telemetry=self._telemetry if self._telemetry.enabled else None,
+            **kwargs)
 
     # ------------------------------------------------------------------ #
     # counters, flags and access
@@ -1488,6 +1946,58 @@ class Stoke:
     @property
     def checkpoint_config(self) -> CheckpointConfig:
         return self._status_obj.checkpoint_config
+
+    @property
+    def dp_config(self):
+        return self._status_obj.dp_config
+
+    @property
+    def mesh_config(self):
+        return self._status_obj.mesh_config
+
+    @property
+    def oss_config(self):
+        return self._status_obj.oss_config
+
+    @property
+    def sddp_config(self):
+        return self._status_obj.sddp_config
+
+    @property
+    def fsdp_config(self):
+        return self._status_obj.fsdp_config
+
+    @property
+    def profiler_config(self):
+        return self._status_obj.profiler_config
+
+    @property
+    def mesh(self):
+        """The data axis's ``DeviceMesh`` (None on one device without
+        ``distributed``)."""
+        return self._mesh
+
+    @property
+    def sharding_rules(self):
+        """The tier's :class:`~stoke_tpu_torch.parallel.sharding
+        .ShardingRules` over the run's world."""
+        return self._rules
+
+    @property
+    def sharded(self) -> bool:
+        """Gradient sharding on (the reference's ``sharded``: sddp)."""
+        return self._status_obj.sddp
+
+    @property
+    def fully_sharded(self) -> bool:
+        """Parameter sharding on (the reference's ``fully_sharded``:
+        fsdp)."""
+        return self._status_obj.fsdp
+
+    @property
+    def tpu(self) -> bool:
+        """Always False: the port runs on a CUDA card or the CPU."""
+        return False
 
     @property
     def oss(self) -> bool:

@@ -46,10 +46,16 @@ gather and collective stays on that thread) and writes the files on a
 background thread; the writer's thread writes ``meta.json`` once every
 rank's files exist. :func:`wait_for_saves` joins the threads and raises
 any failure, whose partial tag is removed.
+
+With a ``TraceConfig`` the saves and waits are ``stoke/ckpt_save`` and
+``stoke/ckpt_wait`` spans on the ``io`` track, and the barriers time into
+``sync/barrier_wait_s`` of every live telemetry registry
+(:mod:`stoke_tpu_torch.telemetry.fleet`), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -64,6 +70,8 @@ import torch
 import torch.distributed as dist
 
 from stoke_tpu_torch.configs import CheckpointConfig, CheckpointFormat
+from stoke_tpu_torch.telemetry.fleet import timed_sync
+from stoke_tpu_torch.telemetry.tracing import trace_span
 from stoke_tpu_torch.utils.printing import make_folder, unrolled_print
 from stoke_tpu_torch.utils.trees import to_numpy_tree
 
@@ -144,8 +152,11 @@ def rank_file(key: str, rank: int) -> str:
 
 
 def _barrier(group) -> None:
+    # the checkpoint coordination's waits land in sync/barrier_wait_s of
+    # every live telemetry registry
     if group is not None and dist.get_world_size(group) > 1:
-        dist.barrier(group=group)
+        with timed_sync("ckpt"):
+            dist.barrier(group=group)
 
 
 def _savez_atomic(path: str, arrays: Dict[str, Any]) -> None:
@@ -226,11 +237,16 @@ def save_checkpoint(
             os.makedirs(tag_dir, exist_ok=True)
         _barrier(group)
         # the host copy, on this thread: training changes the device
-        # tensors in place once this returns
-        host = ({k: to_numpy_tree(v) for k, v in state.items()
-                 if v is not None} if is_writer else {})
-        mine = {k: to_numpy_tree(v) for k, v in (rank_state or {}).items()
-                if v is not None} if sharded else {}
+        # tensors in place once this returns (traced as the async save's
+        # cost on the step path; the write is off it by design)
+        with (trace_span("stoke/ckpt_save", track="io",
+                         attrs={"tag": tag, "async": True})
+              if is_async else contextlib.nullcontext()):
+            host = ({k: to_numpy_tree(v) for k, v in state.items()
+                     if v is not None} if is_writer else {})
+            mine = {k: to_numpy_tree(v)
+                    for k, v in (rank_state or {}).items()
+                    if v is not None} if sharded else {}
     except BaseException:
         _INFLIGHT_TAGS.discard(tag_dir)
         raise
@@ -264,13 +280,15 @@ def save_checkpoint(
             json.dump(meta, f, indent=2, default=str)
 
     if not is_async:
-        write_payload()
-        _barrier(group)
-        write_meta()
-        if is_writer:
-            _prune_old(root, name, config.max_to_keep)
-            unrolled_print(f"Saved checkpoint {tag_dir}")
-        _barrier(group)
+        # the synchronous write path end to end: payload, metadata, barrier
+        with trace_span("stoke/ckpt_save", track="io", attrs={"tag": tag}):
+            write_payload()
+            _barrier(group)
+            write_meta()
+            if is_writer:
+                _prune_old(root, name, config.max_to_keep)
+                unrolled_print(f"Saved checkpoint {tag_dir}")
+            _barrier(group)
         return tag_dir
 
     def background() -> None:
@@ -314,8 +332,9 @@ def wait_for_saves() -> None:
     ``RuntimeError`` naming every tag whose save failed (the first
     failure chained as the cause); the failures are cleared, so a later
     call returns cleanly."""
-    while _ASYNC_SAVES:
-        _ASYNC_SAVES.pop().join()
+    with trace_span("stoke/ckpt_wait", track="io"):
+        while _ASYNC_SAVES:
+            _ASYNC_SAVES.pop().join()
     if _ASYNC_ERRORS:
         failures = list(_ASYNC_ERRORS)
         _ASYNC_ERRORS.clear()

@@ -5,7 +5,8 @@ with a plain C interface (no PyTorch headers, so a build takes seconds).
 The libraries go into ``build/stoke_tpu_torch/`` at the root of the
 checkout, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is reused. :func:`build` starts one ``nvcc``
-per source, all at once.
+per source, all at once; each build counts as a compile in the telemetry
+(:mod:`stoke_tpu_torch.telemetry.collectors`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from stoke_tpu_torch.telemetry import collectors
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -92,6 +95,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
                 out,
                 time.perf_counter(),
             )
+        if procs:
+            collectors.compile_starting()
         failed = []
         for name, (proc, tmp, out, t0) in procs.items():
             log, _ = proc.communicate()
@@ -102,6 +107,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
                 tmp.unlink(missing_ok=True)
                 continue
             os.replace(tmp, out)
+            collectors.note_compile(seconds[name])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return seconds

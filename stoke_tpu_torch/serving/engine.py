@@ -47,10 +47,19 @@ leaf) and runs the model on the result through
 ``torch.func.functional_call``. ``compression`` and the per-leaf
 ``quant_errors`` are computed once, as the JAX engine does.
 
+With a ``TraceConfig`` run (a registered trace recorder,
+:func:`~stoke_tpu_torch.telemetry.tracing.tracing_active`) the engine
+records the JAX package's spans: ``serve/prefill``,
+``serve/prefill_chunk``, ``serve/decode_step`` and ``serve/verify_step``
+on the ``serve`` track, each request's ``serve/admission`` and per-step
+``serve/decode`` slices on its own timeline (by ``request_id``, the
+request's ``rid``), and a ``serve/evict`` point at each finish. Without
+one, none of that bookkeeping runs.
+
 Left out, and refused at construction with ``NotImplementedError``
-naming ROADMAP item 10: the SLO and cost observatories, and the
-by-group attribution of the quantization error. Tracing and the memory
-observatory are left out too.
+naming ROADMAP item 10c: the SLO and cost observatories, and the
+by-group attribution of the quantization error. The memory observatory
+is left out too.
 """
 
 from __future__ import annotations
@@ -88,12 +97,18 @@ from stoke_tpu_torch.serving.scheduler import Request, Scheduler
 from stoke_tpu_torch.serving.telemetry import ServeMetrics
 from stoke_tpu_torch.status import serve_config_error
 from stoke_tpu_torch.telemetry.registry import MetricsRegistry
+from stoke_tpu_torch.telemetry.tracing import (
+    trace_add,
+    trace_point,
+    trace_span,
+    tracing_active,
+)
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_LATER_TELEMETRY = (
-    "ROADMAP Queue 1 item 10 (telemetry: the serve SLO and cost "
-    "observatories)"
+_LATER_OBSERVATORIES = (
+    "ROADMAP Queue 1 item 10c (numerics, memory, attribution and the "
+    "serving observatories: the serve SLO and cost observatories)"
 )
 
 
@@ -105,12 +120,12 @@ def _unsupported(cfg: ServeConfig) -> Optional[str]:
     """The first feature ``cfg`` turns on that this slice does not serve,
     with the ROADMAP item that ports it."""
     later = {
-        "cost_cards": (cfg.cost_cards, _LATER_TELEMETRY),
+        "cost_cards": (cfg.cost_cards, _LATER_OBSERVATORIES),
         "slo_ttft_target_s": (
-            cfg.slo_ttft_target_s is not None, _LATER_TELEMETRY
+            cfg.slo_ttft_target_s is not None, _LATER_OBSERVATORIES
         ),
         "slo_tpot_target_s": (
-            cfg.slo_tpot_target_s is not None, _LATER_TELEMETRY
+            cfg.slo_tpot_target_s is not None, _LATER_OBSERVATORIES
         ),
     }
     for name, (on, item) in later.items():
@@ -570,14 +585,16 @@ class ServingEngine:
         sched, m = self.scheduler, self.metrics
         t0 = time.perf_counter()
         row = sched.block_tables[slot : slot + 1]
-        if self._sampling:
-            tok, key, logits = self._prefill_sampling(padded, row, plen,
-                                                      slot, req.params)
-            self._key_data[slot] = key
-            if self.capture_logits:
-                self._capture(req.rid, logits.cpu())
-        else:
-            tok = self._prefill(padded, row, plen)
+        with trace_span("serve/prefill", track="serve", request_id=req.rid,
+                        attrs={"padded_len": int(padded.shape[1])}):
+            if self._sampling:
+                tok, key, logits = self._prefill_sampling(
+                    padded, row, plen, slot, req.params)
+                self._key_data[slot] = key
+                if self.capture_logits:
+                    self._capture(req.rid, logits.cpu())
+            else:
+                tok = self._prefill(padded, row, plen)
         now = time.perf_counter()
         m.prefills.inc()
         m.prefill_s.inc(now - t0)
@@ -590,7 +607,13 @@ class ServingEngine:
         token, as in whole-prompt prefill)."""
         sched, m = self.scheduler, self.metrics
         t0 = time.perf_counter()
-        tok, key, row = self._chunk(toks, positions, slot, req, logit_idx)
+        with trace_span("serve/prefill_chunk", track="serve",
+                        request_id=req.rid,
+                        attrs={"start": int(positions[0]),
+                               "chunk": int(len(toks)),
+                               "final": bool(is_final)}):
+            tok, key, row = self._chunk(toks, positions, slot, req,
+                                        logit_idx)
         now = time.perf_counter()
         m.prefill_chunks.inc()
         m.prefill_s.inc(now - t0)
@@ -607,13 +630,21 @@ class ServingEngine:
         emit their TTFT tokens and take the key writeback."""
         sched, m = self.scheduler, self.metrics
         t0 = time.perf_counter()
-        tok, keys, logits = self._packed_chunk(tokens, positions, tables,
-                                               lengths, logit_idx, rows)
+        with trace_span("serve/prefill_chunk_packed", track="serve",
+                        attrs={"packed": len(rows),
+                               "chunk": int(tokens.shape[1])}):
+            tok, keys, logits = self._packed_chunk(tokens, positions, tables,
+                                                   lengths, logit_idx, rows)
         now = time.perf_counter()
         m.prefill_chunks.inc()  # dispatches, not serviced rows
         m.prefill_s.inc(now - t0)
         larr = logits.cpu() if self.capture_logits else None
         for i, req, is_final in rows:
+            if tracing_active():
+                # each request's slice of the shared packed interval,
+                # whose wall clock the packed span owns once
+                trace_add("serve/prefill_chunk", t0, now, track="serve",
+                          request_id=req.rid, count_self=False)
             sched.note_chunk(i)
             if is_final:
                 self._key_data[i] = keys[i]
@@ -627,23 +658,42 @@ class ServingEngine:
         return [i for i, s in enumerate(self.scheduler.slots)
                 if s.request is not None and s.prefill_pos is None]
 
+    def _live_rids(self, rows: List[int]) -> Optional[List[int]]:
+        """The decoding requests' ids while tracing, else None."""
+        if not tracing_active():
+            return None
+        return [self.scheduler.slots[i].request.rid for i in rows]
+
+    @staticmethod
+    def _decode_slices(live_rids: Optional[List[int]], t0: float,
+                       now: float) -> None:
+        """Each live request's ``serve/decode`` slice of one batch step
+        (``count_self=False``: the step's own span owns the interval)."""
+        for rid in live_rids or ():
+            trace_add("serve/decode", t0, now, track="serve",
+                      request_id=rid, count_self=False)
+
     def _step_decode(self) -> None:
         """One decode dispatch over the slot batch."""
         sched, m = self.scheduler, self.metrics
         rows = self._decode_rows()
+        live_rids = self._live_rids(rows)
         t0 = time.perf_counter()
-        if self._sampling:
-            next_host, keys, logits = self._decode_sampling()
-            # advance only the decoding slots' key streams
-            for i in rows:
-                self._key_data[i] = keys[i]
-            if self.capture_logits:
-                larr = logits.cpu()
+        with trace_span("serve/decode_step", track="serve",
+                        attrs={"active": sched.decoding}):
+            if self._sampling:
+                next_host, keys, logits = self._decode_sampling()
+                # advance only the decoding slots' key streams
                 for i in rows:
-                    self._capture(sched.slots[i].request.rid, larr[i])
-        else:
-            next_host = self._decode()
+                    self._key_data[i] = keys[i]
+                if self.capture_logits:
+                    larr = logits.cpu()
+                    for i in rows:
+                        self._capture(sched.slots[i].request.rid, larr[i])
+            else:
+                next_host = self._decode()
         now = time.perf_counter()
+        self._decode_slices(live_rids, t0, now)
         m.decode_steps.inc()
         m.decode_s.inc(now - t0)
         n_sampled = sum(1 for i in rows
@@ -662,25 +712,32 @@ class ServingEngine:
         ``tokens_out / decode_steps`` is tokens per dispatch."""
         sched, m = self.scheduler, self.metrics
         rows = self._decode_rows()
+        live_rids = self._live_rids(rows)
         t0 = time.perf_counter()
-        tokens, positions, tables, lengths, draft_lens = sched.verify_batch(
-            self._speculative_k,
-            ngram_max=self.cfg.speculative_ngram_max,
-            ngram_min=self.cfg.speculative_ngram_min,
-        )
-        targets, n_emit, keys, logits = self._verify(
-            tokens, positions, tables, lengths, draft_lens
-        )
-        for i in rows:
-            self._key_data[i] = keys[i]
-        if self.capture_logits:
-            larr = logits.cpu()
+        with trace_span("serve/verify_step", track="serve",
+                        attrs={"active": sched.decoding,
+                               "k": self._speculative_k}):
+            tokens, positions, tables, lengths, draft_lens = (
+                sched.verify_batch(
+                    self._speculative_k,
+                    ngram_max=self.cfg.speculative_ngram_max,
+                    ngram_min=self.cfg.speculative_ngram_min,
+                ))
+            targets, n_emit, keys, logits = self._verify(
+                tokens, positions, tables, lengths, draft_lens
+            )
             for i in rows:
-                # one row per emitted token, aligned with the
-                # non-speculative engine's per-step captures
-                for j in range(int(n_emit[i])):
-                    self._capture(sched.slots[i].request.rid, larr[i, j])
+                self._key_data[i] = keys[i]
+            if self.capture_logits:
+                larr = logits.cpu()
+                for i in rows:
+                    # one row per emitted token, aligned with the
+                    # non-speculative engine's per-step captures
+                    for j in range(int(n_emit[i])):
+                        self._capture(sched.slots[i].request.rid,
+                                      larr[i, j])
         now = time.perf_counter()
+        self._decode_slices(live_rids, t0, now)
         m.decode_steps.inc()
         m.decode_s.inc(now - t0)
         greedy_row = {i: sched.slots[i].request.params.is_greedy
@@ -704,6 +761,13 @@ class ServingEngine:
         sched = self.scheduler
         with torch.inference_mode():
             for slot, req, padded, plen in sched.admit():
+                if tracing_active():
+                    # the request timeline's first span: arrival to
+                    # admission (the queue wait, owned by other spans)
+                    trace_add("serve/admission", req.arrival_ts,
+                              req.admit_ts, track="serve",
+                              request_id=req.rid,
+                              attrs={"prompt_len": plen}, count_self=False)
                 if self._sampling or self._chunked:
                     self._key_data[slot] = initial_key_data(req.seed)
                 if padded is None:
@@ -750,6 +814,9 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
 
     def _finish(self, req: Request) -> None:
+        # the eviction marker closes the request's trace timeline
+        trace_point("serve/evict", track="serve", request_id=req.rid,
+                    attrs={"tokens": len(req.tokens)})
         self.metrics.completed.inc()
         if req.tpot_s is not None:
             self.metrics.observe_tpot(req.tpot_s)

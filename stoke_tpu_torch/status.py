@@ -15,9 +15,11 @@ Legality comes first (``StokeValidationError``). Only then does
 ``NotImplementedError`` naming the ROADMAP item, what the port does not
 run yet: every config class but ``PrecisionConfig``, the clip configs,
 ``CheckpointConfig`` (both formats), ``CommConfig``, ``ServeConfig``,
-``TensorboardConfig`` and the data parallel ones (``DataParallelConfig``,
+``TensorboardConfig``, the data parallel ones (``DataParallelConfig``,
 ``MeshConfig``, ``DistributedInitConfig``, ``OSSConfig``, ``SDDPConfig``,
-``FSDPConfig``) (:data:`LATER_CONFIGS`); ``DataParallelConfig.shard_seq_dim``
+``FSDPConfig``) and the telemetry ones (``TelemetryConfig``,
+``TraceConfig``, ``HealthConfig``, ``ProfilerConfig``)
+(:data:`LATER_CONFIGS`); ``DataParallelConfig.shard_seq_dim``
 and a mesh of more than one axis or with cross-host axes (item 8); and
 offload staging (item 9). ``distributed`` (``"dp"`` and its aliases), the
 oss/sddp/fsdp tiers and the gradient transports run.
@@ -86,30 +88,29 @@ from stoke_tpu_torch.configs import (
 _ITEM = "ROADMAP Queue 1 item"
 _LATER_MODEL_PARALLEL = f"{_ITEM} 8 (long context and model parallelism)"
 _LATER_STAGING = f"{_ITEM} 9 (offload and resilience)"
-_LATER_TELEMETRY = f"{_ITEM} 10 (telemetry)"
+_LATER_OBSERVATORIES = (f"{_ITEM} 10c (numerics, memory, attribution and "
+                        f"the serving observatories)")
+_LATER_FLEET = f"{_ITEM} 10d (fleet, ops plane and input rebalancing)"
 _LATER_COMPILE = f"{_ITEM} 11 (compile cache, autotune and analysis)"
 _LATER_REMAT = f"{_ITEM} 13 (rematerialization)"
 
 #: the config classes the port refuses after the legality rules, with the
-#: ROADMAP item that ports each (``CommConfig``, item 7, and
-#: ``CheckpointConfig(format='sharded')``, item 6b, are honoured)
+#: ROADMAP item that ports each (``CommConfig``, item 7,
+#: ``CheckpointConfig(format='sharded')``, item 6b, and the telemetry,
+#: trace, health and profiler configs, items 10a and 10b, are honoured)
 LATER_CONFIGS: Dict[str, str] = {
-    "AttributionConfig": _LATER_TELEMETRY,
+    "AttributionConfig": _LATER_OBSERVATORIES,
     "CompileConfig": _LATER_COMPILE,
     "OffloadOptimizerConfig": _LATER_STAGING,
     "OffloadParamsConfig": _LATER_STAGING,
     "OffloadDiskConfig": _LATER_STAGING,
     "PartitionRulesConfig": _LATER_MODEL_PARALLEL,
     "ActivationCheckpointingConfig": _LATER_REMAT,
-    "FleetConfig": _LATER_TELEMETRY,
-    "HealthConfig": _LATER_TELEMETRY,
-    "MemoryConfig": _LATER_TELEMETRY,
-    "NumericsConfig": _LATER_TELEMETRY,
-    "OpsPlaneConfig": _LATER_TELEMETRY,
-    "ProfilerConfig": _LATER_TELEMETRY,
+    "FleetConfig": _LATER_FLEET,
+    "MemoryConfig": _LATER_OBSERVATORIES,
+    "NumericsConfig": _LATER_OBSERVATORIES,
+    "OpsPlaneConfig": _LATER_FLEET,
     "ResilienceConfig": _LATER_STAGING,
-    "TelemetryConfig": _LATER_TELEMETRY,
-    "TraceConfig": _LATER_TELEMETRY,
 }
 
 #: the health watchdog's exit code and the fault injector's variable (the

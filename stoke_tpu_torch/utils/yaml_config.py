@@ -18,8 +18,9 @@ The ``optimizer`` section names an optax constructor and its arguments;
 the port builds the ``torch.optim`` optimizer that computes the same
 (:func:`stoke_tpu_torch.convert.torch_optimizer_from_optax`: ``adamw``,
 ``adam`` and ``sgd``, with optax's defaults). Config classes come from
-``ALL_CONFIG_CLASSES``; ``StokeStatus`` then refuses those of later slices
-with the ROADMAP item. YAML lists become tuples, and the enum fields
+``ALL_CONFIG_CLASSES`` (``TelemetryConfig``, ``TraceConfig``,
+``HealthConfig`` and ``ProfilerConfig`` among the honoured ones);
+``StokeStatus`` then refuses those of later slices with the ROADMAP item. YAML lists become tuples, and the enum fields
 (``format``, ``loss_reduction``) their enums. PyYAML is imported only to
 read a path.
 
@@ -184,9 +185,8 @@ def stoke_from_example(cfg: Union[str, Dict[str, Any]], model: Any = None,
       (``OSSConfig()``, ``SDDPConfig()``, ``FSDPConfig(min_weight_size=
       2**12)``);
     - ``lr`` and ``momentum`` (0.9): optax's ``sgd``;
-    - ``telemetry``, ``comm``, ``health``: their config classes; the
-      status layer refuses ``telemetry`` and ``health`` naming ROADMAP
-      item 10, and ``comm`` runs the gradient transport;
+    - ``telemetry``, ``comm``, ``health``: their config classes (the
+      telemetry pipeline, the gradient transport, the health monitor);
     - ``epochs`` belongs to the training loop and is not read here.
 
     ``overrides`` replace ``Stoke`` arguments (e.g. ``device="cpu"``).

@@ -361,9 +361,43 @@ def multiprocess_checkpoints(inputs, rank, world) -> dict:
     return out
 
 
+def sentinel_rows(s, batches, rank, world) -> list:
+    """The health sentinel row of each four-call step (the global batch's
+    rows of this rank)."""
+    out = []
+    for x, y in batches:
+        s.backward(s.loss(s.model(rows(x, rank, world)),
+                          rows(y, rank, world)))
+        s.step()
+        out.append(s._last_sentinels.tolist())
+    return out
+
+
+def sentinels(inputs, rank, world) -> dict:
+    """The health sentinels under dp and fsdp with a binding clip norm:
+    each step's row, whose norms and non-finite flags are global (summed
+    or maxed over the ranks inside the apply)."""
+    import tempfile
+
+    from stoke_tpu_torch.configs import (ClipGradNormConfig, HealthConfig,
+                                         TelemetryConfig)
+
+    out = {}
+    for tier in ("dp", "fsdp"):
+        cfgs = (TelemetryConfig(output_dir=tempfile.mkdtemp(), jsonl=False,
+                                prometheus=False),
+                HealthConfig(dump_signals=False))
+        s = mlp_stoke(inputs, world, tier,
+                      grad_clip=ClipGradNormConfig(max_norm=CLIP),
+                      extra=cfgs)
+        out[tier] = sentinel_rows(s, mlp_data(3), rank, world)
+        s.close_telemetry()
+    return out
+
+
 SCENARIOS = (tiers, placements, accumulation, fsdp_eval, window, fp16,
              loss_sync, samplers, dropout_masks, gpt, resnet,
-             multiprocess_checkpoints)
+             multiprocess_checkpoints, sentinels)
 
 
 def run(rank: int, world: int, store: str, out_dir: str, inputs) -> None:

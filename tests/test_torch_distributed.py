@@ -231,6 +231,37 @@ def one_device():
             "accum": _one_device(grad_accum=2, n=4)}
 
 
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("tier", ["dp", "fsdp"])
+def test_sentinels_are_global(worlds, world, tier, tmp_path):
+    """The health sentinels across the ranks equal one process's over the
+    whole global batches: the grad norm (the clip's, summed over the
+    ranks' slices under fsdp), the parameter norm and the update ratio at
+    rel 1e-6, the non-finite count and first leaf exactly; every rank
+    holds the same row."""
+    from stoke_tpu_torch.configs import (ClipGradNormConfig, HealthConfig,
+                                         TelemetryConfig)
+
+    p = _jax_mlp_params()
+    ref = Stoke(worker.mlp(p["w1"], p["w2"]),
+                StokeOptimizer(torch.optim.Adam, lr=1e-2), worker.mse,
+                batch_size_per_device=worker.GLOBAL_BATCH, device="cpu",
+                grad_clip=ClipGradNormConfig(max_norm=worker.CLIP),
+                configs=[TelemetryConfig(output_dir=str(tmp_path),
+                                         jsonl=False, prometheus=False),
+                         HealthConfig(dump_signals=False)])
+    want = np.asarray(worker.sentinel_rows(ref, worker.mlp_data(3), 0, 1))
+    ref.close_telemetry()
+    got = [np.asarray(r["sentinels"][tier]) for r in worlds[world]]
+    for rank_rows in got[1:]:
+        np.testing.assert_array_equal(rank_rows, got[0])
+    # grad_norm, param_norm, update_ratio (1-3); nonfinite, skip,
+    # residual, first leaf (4-7) exactly
+    np.testing.assert_allclose(got[0][:, 1:4], want[:, 1:4], rtol=1e-6)
+    np.testing.assert_array_equal(got[0][:, 4:], want[:, 4:])
+    np.testing.assert_allclose(got[0][:, 0], want[:, 0], rtol=1e-6)
+
+
 def _close_weights(got, want, rtol=1e-4, atol=1e-6):
     assert set(got) == set(want)
     for k in want:

@@ -115,9 +115,18 @@ def test_properties_and_introspection(capsys):
 def test_reference_parity_accessors():
     s = make_stoke(grad_accum=2, precision="bf16")
     assert s.grad_accum == 2
+    assert s.sharded is False and s.fully_sharded is False
+    assert s.tpu is False
     assert s.is_bf16 and not s.is_fp16
     assert isinstance(s.precision_config, PrecisionConfig)
+    assert s.dp_config.axis_name == "data"
+    assert s.mesh_config.axes == ("data",)
+    assert s.oss_config and s.sddp_config and s.fsdp_config
+    assert s.checkpoint_config and s.profiler_config
     assert isinstance(s.checkpoint_config, CheckpointConfig)
+    assert s.mesh is None
+    assert s.sharding_rules.tier.value == "none"
+    assert s.sharding_rules.axis_size == 1
     x, y = batch()
     s.backward(s.loss(s.model(x), y))
     assert s.ema_loss > 0

@@ -61,7 +61,15 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.parallel.zero",
                                     "stoke_tpu_torch.ops.quant",
                                     "stoke_tpu_torch.serving.quant",
-                                    "stoke_tpu_torch.utils.prng"])
+                                    "stoke_tpu_torch.utils.prng",
+                                    "stoke_tpu_torch.telemetry",
+                                    "stoke_tpu_torch.telemetry.events",
+                                    "stoke_tpu_torch.telemetry.sinks",
+                                    "stoke_tpu_torch.telemetry.tracing",
+                                    "stoke_tpu_torch.telemetry.recorder",
+                                    "stoke_tpu_torch.telemetry.collectors",
+                                    "stoke_tpu_torch.telemetry.health",
+                                    "stoke_tpu_torch.telemetry.fleet"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"

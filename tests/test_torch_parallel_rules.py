@@ -16,6 +16,7 @@
 The one-process group is made once for the module and destroyed after.
 """
 
+import os
 import re
 from pathlib import Path
 
@@ -411,20 +412,38 @@ def test_example_document_device(doc, want):
 
 @pytest.mark.parametrize("name,item", [("dp_int8_comm", "7"),
                                        ("dp_health", "10")])
-def test_cifar10_documents_of_later_items_refused(one_process, name, item):
-    """Each document is refused for the first item it needs that has not
-    landed. ``dp_int8_comm``'s transport (item 7) runs now, so only its
-    ``telemetry:`` section (item 10) is refused, and the document without
-    that section builds its int8 transport."""
-    want = "10" if item == "7" else item
-    with pytest.raises(NotImplementedError, match=f"{LATER} {want}\\b"):
-        stoke_from_example(str(EXAMPLE_DIR / f"{name}.yaml"),
+def test_cifar10_documents_of_later_items_refused(one_process, name, item,
+                                                  tmp_path, monkeypatch):
+    """The two documents once refused for a later item build now: item 7's
+    int8 transport with item 10a's ``telemetry:`` section
+    (``dp_int8_comm``), and item 10b's ``health:`` section with the
+    sentinels and a killing watchdog (``dp_health``). Each takes a step
+    and writes its step events under the document's relative
+    ``output_dir``."""
+    monkeypatch.chdir(tmp_path)
+    model = ResNet(stage_sizes=(1, 1), block=BasicBlock, num_classes=10,
+                   num_filters=4, cifar_stem=True)
+    s = stoke_from_example(str(EXAMPLE_DIR / f"{name}.yaml"), model=model,
                            device="cpu")
-    if item == "7":
-        import yaml
+    try:
+        tel = s.status.telemetry_config
+        assert tel is not None and tel.log_every_n_steps == 10
+        if item == "7":
+            assert s.status.comm_config.dtype == "int8"
+            assert s.comm_bytes == {"prequant": 0, "onwire": 0}
+            assert s.health is None
+        else:
+            h = s.status.health_config
+            assert h.sentinels and h.watchdog and h.watchdog_kill
+            assert s.health is not None and s.health.watchdog is not None
+        x = torch.randn(2, 3, 32, 32)
+        loss = s.train_step(x, torch.tensor([1, 2]))
+        assert s.optimizer_steps == 1 and torch.isfinite(loss)
+        assert s.dispatch_count == 1
+    finally:
+        s.close_telemetry()
+    assert os.path.exists(os.path.join(tel.output_dir, "steps.jsonl"))
+    if item == "10":
+        assert not s.health.watchdog._thread.is_alive()
 
-        doc = yaml.safe_load((EXAMPLE_DIR / f"{name}.yaml").read_text())
-        doc.pop("telemetry")
-        s = stoke_from_example(dict(doc, model="basic"), device="cpu")
-        assert s.status.comm_config.dtype == "int8"
-        assert s.comm_bytes == {"prequant": 0, "onwire": 0}
+

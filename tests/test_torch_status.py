@@ -230,9 +230,9 @@ def test_step_before_boundary_is_a_noop():
 
 def test_later_entry_points_raise():
     # save and load landed with item 6a; verified resume and the cost card
-    # wait for items 9 and 10
+    # wait for items 9 and 10c
     s = _stoke()
     for call, item in ((s.resume, "item 9"),
-                       (s.estimate_step_cost, "item 10")):
+                       (s.estimate_step_cost, "item 10c")):
         with pytest.raises(NotImplementedError, match=item):
             call()

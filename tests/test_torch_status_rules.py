@@ -128,20 +128,32 @@ def test_config_tuple_enums_and_helpers():
     honoured = {"PrecisionConfig", "ClipGradConfig", "ClipGradNormConfig",
                 "CheckpointConfig", "ServeConfig", "TensorboardConfig",
                 "DataParallelConfig", "MeshConfig", "DistributedInitConfig",
-                "OSSConfig", "SDDPConfig", "FSDPConfig", "CommConfig"}
+                "OSSConfig", "SDDPConfig", "FSDPConfig", "CommConfig",
+                "TelemetryConfig", "TraceConfig", "HealthConfig",
+                "ProfilerConfig"}
     assert set(LATER_CONFIGS) == {c.__name__ for c in
                                   pc.ALL_CONFIG_CLASSES} - honoured
 
 
 #: classes refused here until their item landed, each now a case that
-#: shows the status layer takes it
-NOW_HONOURED = ("CommConfig",)
+#: shows the status layer takes it (by the status property that holds it)
+NOW_HONOURED = {"CommConfig": "comm_config",
+                "HealthConfig": "health_config",
+                "ProfilerConfig": "profiler_config",
+                "TelemetryConfig": "telemetry_config",
+                "TraceConfig": "trace_config"}
+#: the item each refused class names: 10c the observatories, 10d the
+#: fleet and ops plane
+LATER_ITEMS = {"AttributionConfig": "10c", "MemoryConfig": "10c",
+               "NumericsConfig": "10c", "FleetConfig": "10d",
+               "OpsPlaneConfig": "10d"}
 
 
 @pytest.mark.parametrize("name", sorted(LATER_CONFIGS) + list(NOW_HONOURED))
 def test_each_later_class_is_refused_naming_its_item(name, tmp_path):
-    """Every class the port does not run raises naming its ROADMAP item;
-    ``CommConfig`` (item 7) runs now and is taken under ``distributed``."""
+    """Every class the port does not run raises naming its ROADMAP item
+    (the observatories item 10c, the fleet and ops plane 10d); those of
+    items 7, 10a and 10b run now and the status holds them."""
     kw = dict(batch_size_per_device=8, device="cpu")
     needs_dp = {"CommConfig", "MeshConfig", "PartitionRulesConfig"}
     needs_tel = {"AttributionConfig", "FleetConfig", "NumericsConfig",
@@ -161,16 +173,17 @@ def test_each_later_class_is_refused_naming_its_item(name, tmp_path):
         kw.update(distributed="dp", fsdp=True)
     if name in NOW_HONOURED:
         st = StokeStatus(configs=configs, **kw)
-        assert type(st.comm_config).__name__ == name
+        assert type(getattr(st, NOW_HONOURED[name])).__name__ == name
         assert name not in LATER_CONFIGS
         return
     with pytest.raises(NotImplementedError) as e:
         StokeStatus(configs=configs, **kw)
     msg = str(e.value)
     assert LATER in msg and msg.startswith("Stoke -- ")
-    if name not in needs_tel | {"TelemetryConfig"}:
-        assert name in msg
-        assert LATER_CONFIGS[name] in msg
+    assert name in msg
+    assert LATER_CONFIGS[name] in msg
+    if name in LATER_ITEMS:
+        assert f"{LATER} {LATER_ITEMS[name]} " in msg
 
 
 def test_legality_comes_before_the_refusal():

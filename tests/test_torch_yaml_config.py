@@ -241,7 +241,7 @@ def test_optimizer_arguments_without_a_counterpart(spec, match):
 
 
 @pytest.mark.parametrize("name,fields,item", [
-    ("HealthConfig", {"sentinels": False}, "item 10"),
+    ("NumericsConfig", {}, "item 10c"),
     ("CompileConfig", {}, "item 11"),
     ("ActivationCheckpointingConfig", {}, "item 13"),
     ("OffloadOptimizerConfig", {}, "item 9"),
@@ -249,13 +249,43 @@ def test_optimizer_arguments_without_a_counterpart(spec, match):
 def test_a_refused_class_names_its_item(name, fields, item, tmp_path,
                                         monkeypatch):
     monkeypatch.chdir(tmp_path)
+    configs = {name: fields}
+    if name == "NumericsConfig":  # the observatories need a pipeline
+        configs["TelemetryConfig"] = {"jsonl": False, "prometheus": False}
     with pytest.raises(NotImplementedError, match=f"{name} is not ported "
                                                   f"yet: ROADMAP Queue 1 "
-                                                  f"{item}"):
+                                                  f"{item} "):
         stoke_from_config(torch.nn.Linear(2, 2), lambda o, y: o.sum(), None,
                           {"batch_size_per_device": 4, "device": "cpu",
                            "optimizer": {"name": "sgd", "learning_rate": 1},
-                           "configs": {name: fields}})
+                           "configs": configs})
+
+
+def test_a_health_document_builds(tmp_path, monkeypatch):
+    """A document's ``TelemetryConfig``, ``TraceConfig``, ``HealthConfig``
+    and ``ProfilerConfig`` sections build the run's pipeline, recorder
+    and monitor (items 10a and 10b)."""
+    monkeypatch.chdir(tmp_path)
+    s = stoke_from_config(
+        torch.nn.Linear(2, 2), lambda o, y: o.sum(), None,
+        {"batch_size_per_device": 4, "device": "cpu",
+         "optimizer": {"name": "sgd", "learning_rate": 1},
+         "configs": {"TelemetryConfig": {"output_dir": "tel",
+                                         "log_every_n_steps": 1},
+                     "TraceConfig": {"output_dir": "trace"},
+                     "HealthConfig": {"watchdog": True,
+                                      "dump_signals": False},
+                     "ProfilerConfig": {"trace_dir": "prof"}}})
+    try:
+        assert s.telemetry.enabled and s.tracer is not None
+        assert s.health is not None and s.health.watchdog is not None
+        assert s.profiler_config.trace_dir == "prof"
+        s.train_step(torch.ones(4, 2), torch.ones(4, 2))
+        assert s.optimizer_steps == 1
+    finally:
+        s.close_telemetry()
+    assert (tmp_path / "tel" / "steps.jsonl").read_text().count("\n") == 1
+    assert (tmp_path / "trace" / "trace.rank0.json").exists()
 
 
 def test_model_rng_keys_are_recorded():
