@@ -217,6 +217,30 @@ Phases, one JSON line each; any failure exits nonzero:
    ``profile_trace`` naming the three flash kernels; and the serve
    trace drive untraced and traced (span counts by name and request,
    TPOT p50 of each, the prefill and decode kernels' launches).
+19. train_resilience: GPT-base bf16 with dropout 0.1 (the generator's
+   state is part of what a resume restores): the reference schedule (3
+   eager steps, ``train_steps`` of 3 to step 12) without configs and
+   with a ``ResilienceConfig`` and a periodic async save staged through
+   pinned memory (dispatches, flash launches, losses and masters equal;
+   eager and replayed step ms p50); a staged snapshot held bit for bit
+   across the step after it; the async save's stall, write and peak
+   device bytes, plain and staged (the first staged save with an empty
+   pinned pool); three lives of one run (preempted at an eager step, then
+   by a SIGTERM that lands during replayed windows, then to the end:
+   bit for bit against the reference); a supervised run (``python -m
+   stoke_tpu_torch.supervise`` over ``chip_smoke.py
+   --resilience-worker``, SIGKILLed after step 3, resumed from the
+   periodic tag: bit for bit, each life's seconds); ``corrupt_save=2``
+   and ``kill_during_save=1`` (2 blocks: the newest or partial tag
+   quarantined); a tag that a CPU gloo world of 2 wrote (GPT-base width,
+   2 blocks, the int8 sharded transport) resumed at world 1 on the card,
+   its residual exactly the host remap, the quantize pair launched.
+20. offload: GPT-base bf16, 5 eager steps and 2 windows (one replayed)
+   with no offload, ``OffloadOptimizerConfig``, ``OffloadDiskConfig``,
+   and fsdp in a one-process NCCL group without and with
+   ``OffloadParamsConfig``: bit for bit against the same tier without
+   offload, the state pinned or spilled between steps, the peak device
+   bytes after the first step and the step ms.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -1383,7 +1407,8 @@ def make_corpus(n=2048, seq_len=128, vocab=64, seed=0):
 
 
 def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS,
-             chunked_head: bool = False, init_seed: int = SEED):
+             chunked_head: bool = False, init_seed: int = SEED,
+             device: str = "cuda"):
     """GPT-base on the card from weights seeded by ``init_seed``;
     ``dropout`` on the embeddings and residuals (the flash kernels take no
     dropout of the attention probabilities, so that stays off), the first
@@ -1400,7 +1425,7 @@ def gpt_base(attention: str, dropout: float = 0.0, layers: int = N_LAYERS,
                 attention_fn=(make_flash_attention(causal=True) if flash
                               else dense_attention),
                 attention_is_causal=flash, chunked_head=chunked_head,
-                device="cuda")
+                device=device)
     del model.layers[layers:]
     for block in model.layers:
         block.attention.prob_dropout.rate = 0.0
@@ -4116,12 +4141,859 @@ def serve_quant(ops) -> dict:
     return out
 
 
-def quant_rows(cases, comm, served) -> list:
+# --------------------------------------------------------------------------- #
+# phases 19-20: resilience and offload
+# --------------------------------------------------------------------------- #
+
+#: the uninterrupted run: RES_EAGER eager steps, then train_steps windows
+#: of RES_SEGMENT steps each up to RES_STEPS
+RES_STEPS, RES_EAGER, RES_SEGMENT = 12, 3, 3
+#: dropout on the embeddings and residuals, so the resumed runs depend on
+#: the restored generator state
+RES_DROPOUT = 0.1
+#: the periodic saves of the lives and the supervised worker (the first
+#: life's preemption lands on one), and of the "on" run
+RES_SAVE_EVERY, RES_ON_SAVE_EVERY = 3, 6
+#: the supervised worker: SIGKILLed after step RES_KILL_AT (a periodic
+#: sync tag of that step lands just before), RES_WORKER_STEPS steps
+RES_KILL_AT, RES_WORKER_STEPS = 3, 6
+#: depth of the corruption, partial-tag and elastic cases (each writes and
+#: reads tags; the tag's bytes are mostly the embedding's at any depth)
+RES_SHORT_LAYERS = 2
+#: the CPU world that writes the elastic case's tag, and its batch
+ELASTIC_WORLD, ELASTIC_BATCH, ELASTIC_LEN = 2, 2, 32
+ELASTIC_COMM = dict(dtype="int8", shard_updates=True)
+RES_TIMEOUT_S = 300
+
+
+def masters_digest(stoke) -> str:
+    """sha256 over the fp32 masters' bytes, in the module's order (fsdp's
+    gathered whole)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with stoke._whole_params():
+        for p in stoke.model_access.parameters():
+            h.update(p.detach().to("cpu", copy=True).numpy().tobytes())
+    return h.hexdigest()
+
+
+def res_stoke(root: str, tag: str, layers: int = N_LAYERS,
+              init_seed: int = SEED, resilience: bool = True,
+              periodic: str = None, chaos: str = None, extra=(),
+              every: int = RES_SAVE_EVERY, **flags):
+    """GPT-base bf16 with dropout RES_DROPOUT for the resilience phase:
+    a ResilienceConfig under ``root/tag/em`` (when ``resilience``), and a
+    periodic save every ``every`` steps under ``root/tag/auto``
+    (``periodic``: "staged" async through pinned memory, or "sync")."""
+    import os
+
+    from stoke_tpu_torch.configs import CheckpointConfig, ResilienceConfig
+
+    configs = list(extra)
+    if resilience:
+        configs.append(ResilienceConfig(
+            save_path=os.path.join(root, tag, "em"), exit_on_preempt=False,
+            chaos=chaos))
+    if periodic is not None:
+        staged = periodic == "staged"
+        configs.append(CheckpointConfig(
+            async_save=staged, offload_staging=staged, max_to_keep=2,
+            save_every_n_steps=every,
+            auto_path=os.path.join(root, tag, "auto")))
+    return stoke_for(gpt_base("flash", RES_DROPOUT, layers,
+                              init_seed=init_seed), "bf16", TRAIN_BATCH,
+                     seed=SEED, configs=configs, **flags)
+
+
+def res_segment(stoke, batches, first: int, last: int) -> list:
+    """Steps ``first``..``last`` (1-based) as one ``train_steps`` call;
+    returns their losses."""
+    seg = batches[first - 1:last]
+    return [float(v) for v in stoke.train_steps(seg, seg).reshape(-1)]
+
+
+def res_schedule(stoke, batches, start: int = 0,
+                 stop: int = RES_STEPS) -> dict:
+    """The reference schedule from optimizer step ``start`` to ``stop``:
+    eager ``train_step``s up to RES_EAGER, then one ``train_steps`` call
+    a RES_SEGMENT steps (the first window of the first call eager and
+    captured, every later one a replay); returns the losses by step and
+    the masters' digests at steps RES_WORKER_STEPS and RES_STEPS (what
+    the resumed runs are held to)."""
+    losses, digests = {}, {}
+    step = start
+    while step < min(stop, RES_EAGER):
+        losses[step + 1] = float(stoke.train_step(batches[step],
+                                                  batches[step]))
+        step += 1
+    while step < stop:
+        last = min(step + RES_SEGMENT, stop)
+        for i, v in enumerate(res_segment(stoke, batches, step + 1, last)):
+            losses[step + 1 + i] = v
+        step = last
+        if step in (RES_WORKER_STEPS, RES_STEPS):
+            digests[step] = masters_digest(stoke)
+    return {"losses": losses, "digests": digests}
+
+
+#: timed steps of the off / on runs after the schedule: one-window
+#: replays, then eager steps; a step that crosses a periodic save is
+#: reported apart (the save's own cost is ``save_stall``'s)
+RES_TIMED = 6
+
+
+def res_timed(stoke, batches) -> dict:
+    """RES_TIMED one-window ``train_steps`` replays, then RES_TIMED eager
+    ``train_step``s, each timed (no save in flight when each begins);
+    the p50 of each kind over the steps that cross no periodic save,
+    and the times of those that do."""
+    out = {}
+    for kind in ("replayed", "eager"):
+        stoke.wait_for_checkpoint()
+        first = stoke.optimizer_steps + 1
+        ms = []
+        for i in range(RES_TIMED):
+            b = batches[i:i + 1]
+            if kind == "replayed":
+                ms.append(timed_ms(lambda: stoke.train_steps(b, b)))
+            else:
+                ms.append(timed_ms(lambda: stoke.train_step(b[0], b[0])))
+        every = stoke.checkpoint_config.save_every_n_steps or 0
+        saves = [bool(every) and (first + i) % every == 0
+                 for i in range(len(ms))]
+        out[f"{kind}_ms"] = ms
+        out[f"{kind}_ms_p50"] = float(np.median(
+            [m for m, sv in zip(ms, saves) if not sv]))
+        out[f"{kind}_save_step_ms"] = [m for m, sv in zip(ms, saves) if sv]
+    stoke.wait_for_checkpoint()
+    return out
+
+
+def flash_delta(ops, before: dict) -> dict:
+    return {n: ops.LAUNCHES[n] - before[n] for n in FLASH}
+
+
+def save_stall(stoke, root: str, staged: bool, cold: bool = False) -> dict:
+    """One async save of ``stoke``: the host ms the call holds the
+    training thread (no synchronize after: the staged copies run on a
+    side stream), then the write's ms (``wait_for_checkpoint``); the
+    peak device bytes above those held before the save, across the save
+    and its write (the decoupling copy of a staged one); the pinned
+    bytes the Stoke's staging pool holds after it, and torch's pinned
+    host allocator's current bytes (before the save too). ``cold``: the
+    pool closed and torch's cache of unused pinned blocks emptied first
+    (an earlier snapshot's blocks sit there), so the save allocates its
+    pinned buffers as a process's first staged save does."""
+    import dataclasses
+
+    from stoke_tpu_torch import offload
+
+    cfg = dataclasses.replace(stoke.checkpoint_config, async_save=True,
+                              offload_staging=staged, max_to_keep=1)
+    if cold:
+        stoke._staging_pool.close()
+        stoke._staging_pool = offload.PinnedPool()
+        offload._empty_host_cache()
+
+    def host_gib():
+        return {k: v / 2**30 for k, v in torch.cuda.host_memory_stats(
+        ).items() if "bytes" in k and k.endswith("current")}
+
+    host_before = host_gib()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stoke._save_with_config(root, "stall", cfg, None)
+    stall = (time.perf_counter() - t0) * 1e3
+    write = timed_ms(stoke.wait_for_checkpoint)
+    return {"staged": staged, "cold_pool": cold, "stall_ms": stall,
+            "write_ms": write,
+            "peak_above_held_gib": (torch.cuda.max_memory_allocated()
+                                    - held) / 2**30,
+            "pinned_pool_gib": stoke._staging_pool.nbytes / 2**30,
+            "host_allocator_gib_before": host_before,
+            "host_allocator_gib": host_gib(),
+            "host_empty_cache": hasattr(torch._C, "_host_emptyCache")}
+
+
+#: the stall runs, in order: (staged, cold pool); plain and warm staged
+#: interleaved twice, so a difference in write time shows against noise
+STALL_RUNS = ((False, False), (True, True), (True, False), (False, False),
+              (True, False))
+
+
+def staged_snapshot_check(stoke, batch) -> dict:
+    """A staged snapshot of the masters and the AdamW state taken just
+    before an optimizer step that updates them in place, resolved after
+    it: bit for bit the pre-step state (a torn copy would hold post-step
+    bytes)."""
+    from stoke_tpu_torch import offload
+
+    params = list(stoke.model_access.parameters())
+    live = {f"p{i}": p for i, p in enumerate(params)}
+    for i, p in enumerate(params):
+        for k, v in stoke.optimizer.state[p].items():
+            if torch.is_tensor(v) and v.dim():
+                live[f"s{i}/{k}"] = v
+    before = {k: v.detach().clone() for k, v in live.items()}
+    snap = offload.stage_tree(live)
+    stoke.train_step(batch, batch)
+    spec, leaves = snap.resolve()
+    got = torch.utils._pytree.tree_unflatten(leaves, spec)
+    changed = sum(not torch.equal(live[k], before[k]) for k in live)
+    bad = [k for k in live
+           if got[k].tobytes() != before[k].cpu().numpy().tobytes()]
+    snap.release()
+    if bad or not changed:
+        raise AssertionError(f"staged snapshot: {len(bad)} tensors differ "
+                             f"from the pre-step state ({bad[:3]}), "
+                             f"{changed} changed by the step")
+    return {"tensors": len(live), "changed_by_the_step": changed,
+            "bit_equal_pre_step": True,
+            "bytes": int(sum(v.numel() * v.element_size()
+                             for v in before.values()))}
+
+
+def resilience_worker(argv) -> int:
+    """``chip_smoke.py --resilience-worker <dir> [--partial]``: one life
+    of the supervised run (GPT-base, periodic sync saves, resume at
+    start, the reference schedule to RES_WORKER_STEPS, appending its
+    losses, digests and seconds to ``<dir>/lives.jsonl``); with
+    ``--partial`` the 2-block run whose staged async save at step
+    RES_SAVE_EVERY the fault injector kills."""
+    import os
+
+    t0 = time.perf_counter()
+    root = argv[0]
+    partial = "--partial" in argv
+    from stoke_tpu_torch import ops
+
+    before = dict(ops.LAUNCHES)
+    s = res_stoke(os.path.dirname(root), os.path.basename(root),
+                  layers=RES_SHORT_LAYERS if partial else N_LAYERS,
+                  periodic="staged" if partial else "sync")
+    resumed = s.resume()
+    start = s.optimizer_steps
+    # the reference run's batches (the corpus depends on their number)
+    batches = window_batches(RES_STEPS)
+    if partial:
+        for b in batches[:RES_SAVE_EVERY]:
+            s.train_step(b, b)
+        s.wait_for_checkpoint()  # the injector kills the writer here
+        return 1
+    out = res_schedule(s, batches, start, RES_WORKER_STEPS)
+    s.wait_for_checkpoint()
+    s.close_telemetry()
+    with open(os.path.join(root, "lives.jsonl"), "a") as f:
+        f.write(json.dumps({
+            "attempt": int(os.environ.get("STOKE_RESTART_ATTEMPT", "0")),
+            "resumed": resumed, "start": start, "losses": out["losses"],
+            "digests": out["digests"], "launches": flash_delta(ops, before),
+            "seconds": time.perf_counter() - t0}) + "\n")
+    return 0
+
+
+def elastic_rank(rank: int, world: int, store: str, root: str) -> None:
+    """One rank of the CPU gloo world that writes the elastic case's tag:
+    GPT-base width at RES_SHORT_LAYERS blocks, sddp with the int8 sharded
+    transport, two steps, a preemption noticed on rank 0 and the
+    emergency save at step 3."""
+    import traceback
+
+    from stoke_tpu_torch.configs import (CommConfig, DistributedInitConfig,
+                                         ResilienceConfig)
+    from stoke_tpu_torch.parallel import initialize_distributed
+    from stoke_tpu_torch.resilience import PreemptedError
+
+    torch.set_num_threads(2)
+    try:
+        initialize_distributed(DistributedInitConfig(
+            coordinator_address=f"file://{store}", num_processes=world,
+            process_id=rank), torch.device("cpu"))
+        model = gpt_base("flash", 0.0, RES_SHORT_LAYERS, device="cpu")
+        s = stoke_for(model, "bf16", ELASTIC_BATCH, device="cpu",
+                      distributed="dp", oss=True, sddp=True, configs=[
+                          CommConfig(**ELASTIC_COMM),
+                          ResilienceConfig(save_path=root,
+                                           exit_on_preempt=False)])
+        g = torch.Generator().manual_seed(rank)
+        for step in range(3):
+            b = torch.randint(0, VOCAB, (ELASTIC_BATCH, ELASTIC_LEN),
+                              generator=g, dtype=torch.int32)
+            if step == 2 and rank == 0:
+                s.resilience.request_preemption("elastic")
+            try:
+                s.train_step(b, b)
+            except PreemptedError:
+                break
+        else:
+            raise AssertionError("elastic: no preemption at step 3")
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(root, f"error.rank{rank}"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def start_elastic_world(root: str):
+    """Spawn the CPU world of :func:`elastic_rank` (in the background)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    os.makedirs(root, exist_ok=True)
+    store = os.path.join(root, "store")
+    procs = [ctx.Process(target=elastic_rank,
+                         args=(r, ELASTIC_WORLD, store, root))
+             for r in range(ELASTIC_WORLD)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_procs(procs, what: str, deadline: float) -> None:
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{what}: exit codes "
+                             f"{[p.exitcode for p in procs]} "
+                             f"({len(alive)} killed at the deadline)")
+
+
+def elastic_resume(ops, root: str) -> dict:
+    """The CPU world's tag resumed at world 1 on the card (a one-process
+    NCCL group): the parameters and the AdamW state as saved, the
+    residual remapped onto world 1's padding exactly as
+    ``remap_residual`` maps the saved one on the host; two steps launch
+    the quantize pair."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from stoke_tpu_torch.configs import CommConfig, ResilienceConfig
+    from stoke_tpu_torch.io_ops import load_checkpoint
+    from stoke_tpu_torch.parallel.zero import remap_residual
+    from stoke_tpu_torch.resilience import list_checkpoints
+
+    (cand,) = list_checkpoints(root, "emergency")
+    with open(os.path.join(cand["tag_dir"], "extras.pkl"), "rb") as f:
+        rs = pickle.load(f)["resilience"]
+    with open(os.path.join(cand["tag_dir"], "meta.json")) as f:
+        counters = json.load(f)["counters"]
+    try:
+        s = stoke_for(gpt_base("flash", 0.0, RES_SHORT_LAYERS,
+                               init_seed=SEED + 7), "bf16", TRAIN_BATCH,
+                      distributed="dp", oss=True, sddp=True, configs=[
+                          CommConfig(**ELASTIC_COMM),
+                          ResilienceConfig(save_path=root,
+                                           exit_on_preempt=False)])
+        if not s.resume():
+            raise AssertionError("elastic: resume() found no tag")
+        desc = s._comm_layout()
+        want = remap_residual(rs["comm_state"]["residual"],
+                              rs["comm_layout"], desc)
+        live = [r.cpu().numpy() for r in s._engine.comm_state["residual"]]
+        residual_equal = len(want) == len(live) and all(
+            a.tobytes() == b.tobytes() for a, b in zip(want, live))
+        nonzero = int(sum(np.count_nonzero(a) for a in live))
+        # the masters against the tag's arrays
+        tag_vars = np.load(os.path.join(cand["tag_dir"], "variables.npz"))
+        masters_equal_tag = all(
+            np.array_equal(p.detach().cpu().numpy(), tag_vars[n])
+            for n, p in s.model_access.named_parameters())
+        before = {n: ops.LAUNCHES[n] for n in QUANT_NAMES + FLASH}
+        batches = window_batches(2)
+        losses = [float(s.train_step(b, b)) for b in batches]
+        launches = {n: ops.LAUNCHES[n] - before[n] for n in before}
+        summary = s.resilience_summary
+        s.close_telemetry()
+        del s
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    failures = []
+    if not residual_equal or not nonzero:
+        failures.append(f"residual equal {residual_equal}, nonzero "
+                        f"{nonzero}")
+    if not masters_equal_tag:
+        failures.append("the masters differ from the tag's")
+    if summary["elastic_resumes"] != 1:
+        failures.append(f"elastic resumes {summary['elastic_resumes']}")
+    if not all(launches[n] >= 2 for n in QUANT_NAMES + FLASH):
+        failures.append(f"launches {launches}")
+    if not np.all(np.isfinite(losses)):
+        failures.append(f"losses {losses}")
+    if failures:
+        raise AssertionError("elastic: " + "; ".join(failures))
+    return {"saved_world": rs["comm_layout"]["world"],
+            "saved_buckets": rs["comm_layout"]["buckets"],
+            "resumed_buckets": desc["buckets"],
+            "saved_step": counters["optimizer_step"],
+            "residual_equal_host_remap": residual_equal,
+            "residual_nonzero": nonzero,
+            "masters_equal_tag": masters_equal_tag,
+            "elastic_resume": summary["elastic_resume"],
+            "losses": losses, "launches": launches}
+
+
+def train_resilience(ops) -> dict:
+    """Preemption-safe training on GPT-base bf16 (B=8, L=1024, 12 blocks,
+    dropout 0.1, flash attention, AdamW, clip 1.0), in a temporary
+    directory removed at the end:
+
+    1. off against on: the reference schedule (3 eager steps, then
+       ``train_steps`` of 3) without configs and with a
+       ``ResilienceConfig`` and a periodic async save staged through
+       pinned memory every 6 steps: dispatches, flash launches, losses
+       and masters equal; eager and replayed step ms p50;
+    2. a staged snapshot held bit for bit across the step that follows
+       it; the async save's stall, write and peak device bytes, plain
+       and staged (cold and warm pinned pool);
+    3. in the background: the supervised run (``python -m
+       stoke_tpu_torch.supervise`` over ``chip_smoke.py
+       --resilience-worker`` with ``kill_at_step=3,kill_mode=sigkill``),
+       the killed-save run (``kill_during_save=1``) and the CPU gloo
+       world that writes the elastic tag;
+    4. in-process preemption: life 1 preempted at an eager step (the
+       staged periodic save of that step in flight), life 2 resumes
+       (other initial weights) and is preempted by a SIGTERM that lands
+       while its replayed windows run, life 3 resumes to the end: losses
+       and masters bit for bit against the reference, flash launches in
+       every life;
+    5. ``corrupt_save=2`` (2 blocks): resume quarantines the newest tag
+       and falls back;
+    6. the background runs: the supervised lives against the reference
+       bit for bit with each life's seconds; the killed save's partial
+       tag quarantined by ``resume()``; the elastic resume
+       (:func:`elastic_resume`)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="stoke-res-")
+    bg = []
+    try:
+        out = run_resilience(ops, root, bg)
+    finally:
+        for p in bg:
+            if getattr(p, "poll", None) is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+            elif getattr(p, "is_alive", None) is not None and p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_resilience(ops, root: str, bg: list) -> dict:
+    """:func:`train_resilience`'s body; ``bg`` collects the background
+    processes, which the caller stops if this raises."""
+    import signal
+    import threading
+
+    from stoke_tpu_torch.resilience import CHAOS_ENV, PreemptedError
+
+    batches = window_batches(RES_STEPS)
+    failures = []
+    sections = {}
+    t_sec = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        sections[name] = now - t_sec[0]
+        t_sec[0] = now
+
+    # 1. off against on
+    runs = {}
+    for name, kw in (("off", dict(resilience=False)),
+                     ("on", dict(periodic="staged",
+                                 every=RES_ON_SAVE_EVERY))):
+        before = dict(ops.LAUNCHES)
+        s = res_stoke(root, name, **kw)
+        sched = res_schedule(s, batches)
+        s.wait_for_checkpoint()
+        sched.update(launches=flash_delta(ops, before),
+                     dispatches=s.dispatch_count,
+                     timed=res_timed(s, batches),
+                     digest=masters_digest(s))
+        runs[name] = (s, sched)
+    off, ref = runs["off"][1], runs["on"][1]
+    for key in ("losses", "digests", "launches", "dispatches"):
+        if off[key] != ref[key]:
+            failures.append(f"off vs on: {key} {off[key]} vs {ref[key]}")
+    if off["digest"] != ref["digest"]:
+        failures.append("off vs on: masters after the replays differ")
+    on_stoke = runs["on"][0]
+    auto_tags = sorted(os.listdir(os.path.join(root, "on", "auto")))
+    del runs["on"], on_stoke
+    section("off_vs_on")
+    # 2. the staged snapshot; the stall, plain and staged
+    s_off = runs.pop("off")[0]
+    snapshot = staged_snapshot_check(s_off, batches[0])
+    stall = [save_stall(s_off, os.path.join(root, "stall"), staged, cold)
+             for staged, cold in STALL_RUNS]
+    del s_off
+    torch.cuda.empty_cache()
+    section("snapshot_and_stall")
+    # 3. the background runs
+    import stoke_tpu_torch
+
+    # the children import the package this process imported
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(
+        os.path.dirname(os.path.abspath(stoke_tpu_torch.__file__)))}
+    env.pop(CHAOS_ENV, None)
+    sup_dir = os.path.join(root, "sup")
+    os.makedirs(sup_dir)
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "stoke_tpu_torch.supervise",
+         "--max-restarts", "2", "--base-s", "0.1", "--jitter-frac", "0",
+         "--record", os.path.join(sup_dir, "restarts.jsonl"), "--",
+         sys.executable, os.path.abspath(__file__), "--resilience-worker",
+         sup_dir],
+        env={**env, CHAOS_ENV: f"kill_at_step={RES_KILL_AT},"
+             "kill_mode=sigkill"},
+        stdout=open(os.path.join(root, "sup.out"), "w"),
+        stderr=open(os.path.join(root, "sup.err"), "w"))
+    bg.append(sup)
+    part_dir = os.path.join(root, "partial")
+    os.makedirs(part_dir)
+    part = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--resilience-worker",
+         part_dir, "--partial"],
+        env={**env, CHAOS_ENV: "kill_during_save=1"},
+        stdout=subprocess.DEVNULL,
+        stderr=open(os.path.join(root, "partial.err"), "w"))
+    bg.append(part)
+    elastic_root = os.path.join(root, "elastic")
+    procs = start_elastic_world(elastic_root)
+    bg.extend(procs)
+    # 4. in-process preemption: eager, then inside replayed windows
+    lives = []
+    before = dict(ops.LAUNCHES)
+    s = res_stoke(root, "pre", periodic="staged")
+    got = {}
+    for step in range(RES_EAGER - 1):
+        got[step + 1] = float(s.train_step(batches[step], batches[step]))
+    s.resilience.request_preemption("eager")
+    try:
+        s.train_step(batches[RES_EAGER - 1], batches[RES_EAGER - 1])
+        raise AssertionError("life 1: no preemption")
+    except PreemptedError as e:
+        lives.append({"preempted_at": e.step, "tag": os.path.basename(
+            e.tag_dir or ""), "launches": flash_delta(ops, before)})
+    s.close_telemetry()
+    del s
+    before = dict(ops.LAUNCHES)
+    s = res_stoke(root, "pre", init_seed=SEED + 1, periodic="staged")
+    if not s.resume():
+        raise AssertionError("life 2: resume() found no tag")
+    life2_start = s.optimizer_steps
+    first = life2_start + 1
+    for i, v in enumerate(res_segment(s, batches, first,
+                                      first + RES_SEGMENT - 1)):
+        got[first + i] = v
+    first += RES_SEGMENT
+    timer = threading.Timer(0.02, os.kill, (os.getpid(), signal.SIGTERM))
+    timer.start()
+    try:
+        res_segment(s, batches, first, first + RES_SEGMENT - 1)
+        raise AssertionError("life 2: no preemption")
+    except PreemptedError as e:
+        lives.append({"start": life2_start, "preempted_at": e.step,
+                      "signal": s.resilience.preempt_signal,
+                      "tag": os.path.basename(e.tag_dir or ""),
+                      "launches": flash_delta(ops, before)})
+    timer.join()
+    s.close_telemetry()
+    del s
+    before = dict(ops.LAUNCHES)
+    s = res_stoke(root, "pre", init_seed=SEED + 2, periodic="staged")
+    if not s.resume():
+        raise AssertionError("life 3: resume() found no tag")
+    life3_start = s.optimizer_steps
+    rest = res_schedule(s, batches, life3_start)
+    got.update(rest["losses"])
+    s.wait_for_checkpoint()
+    lives.append({"start": life3_start, "launches": flash_delta(ops, before),
+                  "summary": s.resilience_summary})
+    final_equal = masters_digest(s) == ref["digests"][RES_STEPS]
+    s.close_telemetry()
+    del s
+    torch.cuda.empty_cache()
+    section("preemption_lives")
+    mismatched = {k: (v, ref["losses"][k]) for k, v in got.items()
+                  if v != ref["losses"][k]}
+    if mismatched or not final_equal:
+        failures.append(f"preemption: losses {mismatched}, final masters "
+                        f"equal {final_equal}")
+    if [l["preempted_at"] for l in lives[:2]] != [RES_EAGER,
+                                                  RES_EAGER + 2 * RES_SEGMENT]:
+        failures.append(f"preemption steps {lives}")
+    if lives[1]["signal"] != "SIGTERM":
+        failures.append(f"life 2's notice: {lives[1]['signal']}")
+    if not all(all(v > 0 for v in l["launches"].values()) for l in lives):
+        failures.append(f"flash launches by life {lives}")
+    # 5. corrupt_save=2
+    s = res_stoke(root, "cor", layers=RES_SHORT_LAYERS,
+                  chaos="corrupt_save=2")
+    em = s.resilience.cfg.save_path
+    for step in range(2):
+        s.train_step(batches[step], batches[step])
+        s.save(em, name="emergency")
+    corrupted = list(s.resilience.chaos.corrupted)
+    s.close_telemetry()
+    del s
+    r = res_stoke(root, "cor", layers=RES_SHORT_LAYERS, init_seed=SEED + 3)
+    corrupt = {"resumed": r.resume(), "step": r.optimizer_steps,
+               "corrupted": len(corrupted), **{
+                   k: r.resilience_summary[k] for k in
+                   ("quarantined_ckpts", "resumed_step", "lost_steps")}}
+    r.close_telemetry()
+    del r
+    if corrupt != {"resumed": True, "step": 1, "corrupted": 1,
+                   "quarantined_ckpts": 1, "resumed_step": 1,
+                   "lost_steps": 1}:
+        failures.append(f"corrupt_save: {corrupt}")
+    section("corrupt_save")
+    # 6. the background runs
+    deadline = time.monotonic() + RES_TIMEOUT_S
+    sup.wait(timeout=RES_TIMEOUT_S)
+    with open(os.path.join(root, "sup.out")) as f:
+        sup_out = f.read()
+    with open(os.path.join(root, "sup.err")) as f:
+        sup_err = f.read()
+    def read_jsonl(path):
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            return [json.loads(ln) for ln in f]
+
+    sup_lives = read_jsonl(os.path.join(sup_dir, "lives.jsonl"))
+    restarts = read_jsonl(os.path.join(sup_dir, "restarts.jsonl"))
+    summary = [json.loads(ln)["supervise"] for ln in sup_out.splitlines()
+               if '"supervise"' in ln]
+    if not sup_lives or not summary:
+        raise AssertionError(f"supervised run: rc {sup.returncode}, "
+                             f"{restarts}: {sup_err[-3000:]}")
+    summary = summary[-1]
+    sup_losses = {int(k): v for l in sup_lives
+                  for k, v in l["losses"].items()}
+    sup_ok = (sup.returncode == 0 and summary["restarts"] == 1
+              and [r["exit_code"] for r in restarts] == [-9, 0]
+              and len(sup_lives) == 1 and sup_lives[0]["resumed"]
+              and sup_lives[0]["start"] == RES_KILL_AT
+              and all(sup_losses[k] == ref["losses"][k] for k in sup_losses)
+              and sup_lives[0]["digests"][str(RES_WORKER_STEPS)]
+              == ref["digests"][RES_WORKER_STEPS]
+              and all(v > 0 for v in sup_lives[0]["launches"].values()))
+    if not sup_ok:
+        failures.append(f"supervised: rc {sup.returncode}, {restarts}, "
+                        f"{sup_lives}, {sup_err[-2000:]}")
+    section("supervised_wait")
+    part.wait(timeout=max(1.0, deadline - time.monotonic()))
+    with open(os.path.join(root, "partial.err")) as f:
+        part_err = f.read()
+    r = res_stoke(root, "partial-resume", layers=RES_SHORT_LAYERS)
+    partial = {"exit_code": part.returncode,
+               "resumed": r.resume(os.path.join(part_dir, "auto"),
+                                   name="auto"),
+               "quarantined": r.resilience_summary["quarantined_ckpts"]}
+    r.close_telemetry()
+    del r
+    if partial != {"exit_code": -9, "resumed": False, "quarantined": 1}:
+        failures.append(f"kill_during_save: {partial} {part_err[-1500:]}")
+    section("partial_tag")
+    join_procs(procs, "elastic CPU world", deadline)
+    section("elastic_cpu_wait")
+    elastic = elastic_resume(ops, elastic_root)
+    section("elastic_resume")
+    if failures:
+        raise AssertionError("train_resilience: " + "; ".join(failures))
+    return {
+        "phase": "train_resilience",
+        "model": "GPT-base (12 x 768, vocab 50257), bf16, dropout 0.1, "
+                 "flash attention, AdamW(lr 3e-4, wd 1e-4), clip norm 1.0",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+        "off_vs_on": {
+            "losses_equal": off["losses"] == ref["losses"],
+            "dispatches": ref["dispatches"], "launches": ref["launches"],
+            "timed": {"off": off["timed"], "on": ref["timed"]},
+            "periodic_tags": auto_tags},
+        "section_seconds": sections,
+        "losses": ref["losses"],
+        "staged_snapshot": snapshot, "save_stall": stall,
+        "preemption": {"lives": lives, "losses_equal": not mismatched,
+                       "final_masters_equal": final_equal},
+        "supervised": {"summary": summary, "restarts": restarts,
+                       "lives": [{k: l[k] for k in
+                                  ("attempt", "start", "seconds",
+                                   "launches")} for l in sup_lives],
+                       "bit_equal": sup_ok},
+        "corrupt_save": corrupt, "kill_during_save": partial,
+        "elastic": elastic,
+        "launches": {n: sum(l["launches"][n] for l in lives)
+                     for n in FLASH},
+    }
+
+
+#: the offload runs: steps eager, then train_steps windows (the first
+#: window of the call eager and captured, the next replayed)
+OFFLOAD_EAGER, OFFLOAD_WINDOWS = 5, 2
+
+
+def offload_run(ops, tier: str, batches, root: str) -> dict:
+    """GPT-base bf16 with one optimizer-state tier: OFFLOAD_EAGER eager
+    steps then ``train_steps`` over OFFLOAD_WINDOWS windows; the peak
+    device bytes after the first step (the host tier's first step makes
+    its state on the card), the eager step ms p50 and the replayed
+    window's ms; where the state lives between steps."""
+    from stoke_tpu_torch.configs import (OffloadDiskConfig,
+                                         OffloadOptimizerConfig,
+                                         OffloadParamsConfig)
+
+    configs = {"none": [], "optimizer": [OffloadOptimizerConfig()],
+               "disk": [OffloadDiskConfig(path=root)], "fsdp": [],
+               "params": [OffloadParamsConfig()]}[tier]
+    flags = (dict(distributed="dp", fsdp=True)
+             if tier in ("fsdp", "params") else {})
+    torch.cuda.empty_cache()
+    before = dict(ops.LAUNCHES)
+    s = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, configs=configs,
+                  **flags)
+    losses, ms = [], []
+    for i in range(OFFLOAD_EAGER):
+        b = batches[i]
+        ms.append(timed_ms(lambda: losses.append(float(s.train_step(b, b)))))
+        if i == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+    first = OFFLOAD_EAGER
+    seg = batches[first:first + 1]
+    window_ms = [timed_ms(lambda: losses.extend(
+        float(v) for v in s.train_steps(seg, seg).reshape(-1)))]
+    seg = batches[first + 1:first + OFFLOAD_WINDOWS]
+    window_ms.append(timed_ms(lambda: losses.extend(
+        float(v) for v in s.train_steps(seg, seg).reshape(-1))))
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    # between steps: what stays on the card (the batches and the model's
+    # own buffers included)
+    between = torch.cuda.memory_allocated()
+    state = [v for p in s.model_access.parameters()
+             for k, v in s.optimizer.state[p].items()
+             if torch.is_tensor(v) and v.dim()]
+    out = {"tier": tier, "losses": losses, "digest": masters_digest(s),
+           "peak_bytes": peak, "between_steps_bytes": between,
+           "eager_step_ms": ms,
+           "eager_step_ms_p50": float(np.median(ms[1:])),
+           "window_ms": window_ms,
+           "launches": flash_delta(ops, before),
+           "state_tensors": len(state),
+           "state_bytes": int(sum(v.numel() * v.element_size()
+                                  for v in state))}
+    if tier == "optimizer":
+        hs = s._engine.host_state
+        out.update(pinned=all(v.is_pinned() and v.device.type == "cpu"
+                              for v in state),
+                   groups=len(hs.groups), buffer_bytes=hs.buffer_bytes,
+                   windows_captured=len(s._engine._windows))
+    if tier == "params":
+        hosts = s._ladder.host_slices
+        out.update(pinned=bool(hosts) and all(
+            h.is_pinned() for h in hosts),
+            slices_bytes=int(sum(h.numel() * h.element_size()
+                                 for h in hosts)),
+            device_slices_freed=all(
+                b.own.untyped_storage().nbytes() == 0
+                for b in s._ladder._freed),
+            windows_captured=len(s._engine._windows))
+    if tier == "disk":
+        store = s._engine.disk_store
+        out.update(spilled_files=len(store.files()),
+                   files_exist=all(os.path.exists(f)
+                                   for f in store.files()),
+                   freed=all(v.untyped_storage().size() == 0
+                             for v in state),
+                   windows_captured=len(s._engine._windows))
+    s.close_telemetry()
+    del s
+    return out
+
+
+def offload(ops) -> dict:
+    """The optimizer state's tiers on GPT-base bf16 (B=8, L=1024, flash
+    attention, AdamW, clip 1.0): no offload, ``OffloadOptimizerConfig``
+    (pinned host memory, streamed through the card in leaf groups; the
+    window captured) and ``OffloadDiskConfig`` (files; the window runs
+    uncaptured), each :func:`offload_run`: losses and masters bit for bit
+    against no offload, the state pinned or spilled between steps, the
+    peak device bytes and step ms; and fsdp in a one-process NCCL group
+    without and with ``OffloadParamsConfig`` (the slices pinned between
+    steps, the window captured), bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="stoke-offload-")
+    try:
+        batches = window_batches(OFFLOAD_EAGER + OFFLOAD_WINDOWS)
+        runs = {t: offload_run(ops, t, batches, root)
+                for t in ("none", "optimizer", "disk", "fsdp", "params")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    failures = []
+    for t, against in (("optimizer", "none"), ("disk", "none"),
+                       ("params", "fsdp")):
+        r, base = runs[t], runs[against]
+        if r["losses"] != base["losses"] or r["digest"] != base["digest"]:
+            failures.append(f"{t}: losses {r['losses']} vs "
+                            f"{base['losses']}, masters equal "
+                            f"{r['digest'] == base['digest']}")
+        if r["launches"] != base["launches"]:
+            failures.append(f"{t}: launches {r['launches']}")
+    opt, disk, par = runs["optimizer"], runs["disk"], runs["params"]
+    for name, r in (("optimizer", opt), ("params", par)):
+        if not r["pinned"] or r["windows_captured"] != 1:
+            failures.append(f"{name} tier: pinned {r['pinned']}, windows "
+                            f"captured {r['windows_captured']}")
+    if not par["device_slices_freed"]:
+        failures.append("params tier: the slices' device buffers hold "
+                        "memory between steps")
+    if not (disk["files_exist"] and disk["freed"] and disk["spilled_files"]
+            and disk["windows_captured"] == 0):
+        failures.append(f"disk tier: {disk}")
+    if failures:
+        raise AssertionError("offload: " + "; ".join(failures))
+    pairs = (("optimizer", "none"), ("disk", "none"), ("params", "fsdp"))
+    return {"phase": "offload", "runs": runs,
+            "peak_drop_bytes": {
+                t: runs[b]["peak_bytes"] - runs[t]["peak_bytes"]
+                for t, b in pairs},
+            "between_steps_drop_bytes": {
+                t: runs[b]["between_steps_bytes"]
+                - runs[t]["between_steps_bytes"] for t, b in pairs},
+            "launches": {n: sum(r["launches"][n] for r in runs.values())
+                         for n in FLASH},
+            "seconds": time.perf_counter() - t0}
+
+
+def quant_rows(cases, comm, served, elastic) -> list:
     """The kernels line's rows of the quantize pair: ``ms`` and its
     bound at the 25 MB bucket (stochastic, chunk 512), the case the
     transports launch; every case beside it; launches from train_comm
     (the quantize) and from train_comm and serve_quant (the
-    dequantize)."""
+    dequantize), and the elastic resume's steps (``elastic``, beside)."""
     main_case = next(c for c in cases if c["n"] == QUANT_BUCKET
                      and c["chunk"] == 512 and c["stochastic"])
     rows = []
@@ -4138,6 +5010,7 @@ def quant_rows(cases, comm, served) -> list:
                + served["launches"].get(name, 0),
                "launches_train_comm": comm["launches"][name],
                "launches_serve_quant": served["launches"].get(name, 0),
+               "launches_train_resilience": elastic[name],
                "max_abs_err": max(x["max_abs_err"] if key == "dequantize"
                                   else x["quantize_max_abs_err"]
                                   for x in cases),
@@ -4251,6 +5124,12 @@ def main() -> int:
     emit({**comm, "card": smi})
     torch.cuda.empty_cache()
     emit({**checkpoint_dp(ops), "card": smi})
+    torch.cuda.empty_cache()
+    res = train_resilience(ops)
+    emit({**res, "card": smi})
+    torch.cuda.empty_cache()
+    off = offload(ops)
+    emit({**off, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -4271,6 +5150,9 @@ def main() -> int:
             out["launches_train_dp"] = dp["launches"][dp_key]
         if tel_key is not None:  # train_telemetry's configured run (bf16)
             out["launches_train_telemetry"] = tel["launches"][tel_key]
+            # the resilience phase's in-process lives and the offload runs
+            out["launches_train_resilience"] = res["launches"][tel_key]
+            out["launches_offload"] = off["launches"][tel_key]
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]
@@ -4360,7 +5242,7 @@ def main() -> int:
                + spec["sampled"]["launches"]["paged_verify"],
                max(x["max_abs_err"] for x in verify), verify[0]),
          "graph_ms": verify[0]["graph_ms"]},
-        *quant_rows(quant, comm, squant),
+        *quant_rows(quant, comm, squant, res["elastic"]["launches"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -4370,4 +5252,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resilience-worker"]:
+        sys.exit(resilience_worker(sys.argv[2:]))
     sys.exit(main())

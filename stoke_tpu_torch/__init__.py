@@ -41,45 +41,63 @@ What it covers so far:
   (:class:`TelemetryConfig`), host span traces in Perfetto's format
   (:class:`TraceConfig`), on-device sentinels with anomaly detectors,
   post-mortem bundles and a hang watchdog (:class:`HealthConfig`), and
-  ``torch.profiler`` traces (:class:`ProfilerConfig`).
+  ``torch.profiler`` traces (:class:`ProfilerConfig`);
+- resilience (:mod:`stoke_tpu_torch.resilience`): preemption-safe
+  emergency saves, digest manifests, verified resume with quarantine,
+  elastic resume with the residual remap, the fault injector, and the
+  restart supervisor (``python -m stoke_tpu_torch.supervise -- cmd``);
+  offload (:mod:`stoke_tpu_torch.offload`): the optimizer state in pinned
+  host memory or on disk between steps, and async saves staged through
+  pinned buffers.
+
+The names below load at first use, so ``python -m
+stoke_tpu_torch.supervise`` runs without importing ``torch``.
 """
 
-from stoke_tpu_torch.configs import (
-    CheckpointConfig,
-    ClipGradConfig,
-    ClipGradNormConfig,
-    HealthConfig,
-    PrecisionConfig,
-    ProfilerConfig,
-    StokeOptimizer,
-    TelemetryConfig,
-    TensorboardConfig,
-    TraceConfig,
-)
-from stoke_tpu_torch.data import (
-    ArrayDataset,
-    BucketedDistributedSampler,
-    RaggedSequenceDataset,
-    StokeDataLoader,
-)
-from stoke_tpu_torch.facade import Stoke
-from stoke_tpu_torch.status import StokeValidationError
+import importlib
+from typing import Any
 
-__all__ = [
-    "ArrayDataset",
-    "BucketedDistributedSampler",
-    "CheckpointConfig",
-    "ClipGradConfig",
-    "ClipGradNormConfig",
-    "HealthConfig",
-    "PrecisionConfig",
-    "ProfilerConfig",
-    "RaggedSequenceDataset",
-    "Stoke",
-    "StokeDataLoader",
-    "StokeOptimizer",
-    "StokeValidationError",
-    "TelemetryConfig",
-    "TensorboardConfig",
-    "TraceConfig",
-]
+#: public name -> the module that defines it
+_EXPORTS = {
+    "ArrayDataset": "data",
+    "BucketedDistributedSampler": "data",
+    "CheckpointConfig": "configs",
+    "ClipGradConfig": "configs",
+    "ClipGradNormConfig": "configs",
+    "HealthConfig": "configs",
+    "OffloadDiskConfig": "configs",
+    "OffloadOptimizerConfig": "configs",
+    "PrecisionConfig": "configs",
+    "ProfilerConfig": "configs",
+    "RaggedSequenceDataset": "data",
+    "ResilienceConfig": "configs",
+    "Stoke": "facade",
+    "StokeDataLoader": "data",
+    "StokeOptimizer": "configs",
+    "StokeValidationError": "status",
+    "TelemetryConfig": "configs",
+    "TensorboardConfig": "configs",
+    "TraceConfig": "configs",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str) -> Any:
+    module = _EXPORTS.get(name)
+    if module is None:
+        # a submodule (``stoke_tpu_torch.ops``) reached as an attribute
+        try:
+            return importlib.import_module(f"{__name__}.{name}")
+        except ModuleNotFoundError as e:
+            if e.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}") from None
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -155,8 +155,10 @@ class CheckpointConfig:
             loads the newest such tag).
         save_rank: the process that writes the whole leaves and
             ``meta.json`` (modulo the number of processes).
-        offload_staging: the JAX package's staged async save (not ported
-            yet and refused).
+        offload_staging: stage an async consolidated save through pinned
+            host buffers (a device-to-device copy, then asynchronous copies
+            on a side stream; :func:`stoke_tpu_torch.offload.stage_tree`)
+            instead of copying the state to the host on the step path.
     """
 
     format: CheckpointFormat = CheckpointFormat.consolidated
@@ -408,8 +410,11 @@ class PartitionRulesConfig:
 @dataclass
 class OffloadOptimizerConfig:
     """Optimizer state kept in pinned host memory between steps (ZeRO
-    offload). Refused until ROADMAP Queue 1 item 9 (offload and
-    resilience)."""
+    offload) and streamed through the card at the update
+    (:class:`stoke_tpu_torch.offload.HostOptimizerState`). ``pin_memory``
+    is a parity field: the host state is always pinned. On the CPU there is
+    no host tier: ``fallback_to_device`` warns and keeps the state where it
+    is, else the status layer refuses the run."""
 
     pin_memory: bool = True
     fallback_to_device: bool = True
@@ -418,8 +423,10 @@ class OffloadOptimizerConfig:
 @dataclass
 class OffloadParamsConfig:
     """fsdp-sharded parameters kept in pinned host memory between steps
-    (ZeRO-3 offload; needs ``fsdp=True``). Refused until ROADMAP Queue 1
-    item 9."""
+    (ZeRO-3 offload; needs ``fsdp=True``): this rank's slices return to the
+    card for a forward's gather and leave after the optimizer step.
+    ``pin_memory`` is a parity field (always pinned); on the CPU,
+    ``fallback_to_device`` warns and keeps them where they are."""
 
     pin_memory: bool = True
     fallback_to_device: bool = True
@@ -427,9 +434,11 @@ class OffloadParamsConfig:
 
 @dataclass
 class OffloadDiskConfig:
-    """Optimizer state spilled to memory-mapped files under ``path``
-    between steps (one offload tier: exclusive with
-    ``OffloadOptimizerConfig``). Refused until ROADMAP Queue 1 item 9."""
+    """Optimizer state spilled to memory-mapped files under ``path`` (or a
+    temp dir) between steps, its device memory freed (one offload tier:
+    exclusive with ``OffloadOptimizerConfig``;
+    :class:`stoke_tpu_torch.offload.DiskOptimizerStore`). The spill is file
+    IO, so on the card a window runs its steps uncaptured."""
 
     path: Optional[str] = None
 
@@ -643,7 +652,7 @@ class ProfilerConfig:
 
 
 # --------------------------------------------------------------------------- #
-# resilience (ROADMAP item 9) and the compile cache (ROADMAP item 11)
+# resilience and the compile cache (ROADMAP item 11)
 # --------------------------------------------------------------------------- #
 
 
@@ -651,8 +660,9 @@ class ProfilerConfig:
 class ResilienceConfig:
     """Preemption-aware emergency checkpoints under ``save_path``, digest
     manifests, verified resume with quarantine, and the ``STOKE_CHAOS``
-    fault injector (``chaos`` overrides the variable). Refused until
-    ROADMAP Queue 1 item 9 (offload and resilience)."""
+    fault injector (``chaos`` overrides the variable)
+    (:mod:`stoke_tpu_torch.resilience`). Its SIGTERM disposition (drain
+    and save) supersedes the flight recorder's dump-and-die one."""
 
     save_path: str = "resilience_ckpts"
     save_name: str = "emergency"

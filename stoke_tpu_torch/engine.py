@@ -52,11 +52,23 @@ the parameters taken before the step (under fp16, the skip's copy). In a
 window it is one of the graph's outputs, so a replay yields its row
 too. ``dispatch_count`` counts the engine's device-issuing calls: one a
 4-call ``backward`` or ``apply``, a ``fused`` step or a ``window``
-(eager or replayed).
+(eager or replayed); a fault injector (:attr:`StepEngine.chaos`, a
+``ResilienceConfig`` with a chaos plan) sees each dispatch first.
+
+Offload (the JAX engine's ``:553-650``): with :attr:`StepEngine.host_state`
+(``OffloadOptimizerConfig``) the optimizer state shaped like its
+parameters lives in pinned host memory between steps and the update
+streams it through the card in leaf groups
+(:class:`~stoke_tpu_torch.offload.HostOptimizerState`), inside a captured
+window too; with :attr:`StepEngine.disk_store` (``OffloadDiskConfig``) it
+is spilled to memory-mapped files after every update and its device
+memory freed, and loaded back before the next, which is file IO: such a
+window runs its steps eagerly on the card, never captured.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
 
@@ -414,6 +426,21 @@ class StepEngine:
         #: the run's ``CompileTracker`` (the facade assigns it), told of
         #: windows captured again
         self.compile_tracker = None
+        #: the fault injector whose ``on_dispatch`` runs before every
+        #: dispatch (the facade assigns it when a chaos plan is armed)
+        self.chaos = None
+        #: the optimizer state's pinned host tier (``HostOptimizerState``)
+        #: or disk tier (``DiskOptimizerStore``); the facade assigns them
+        self.host_state = None
+        self.disk_store = None
+        self._disk_keys: List[Tuple[torch.Tensor, str]] = []
+
+    def _dispatch(self, program: str) -> None:
+        """Count one device-issuing call (after the fault injector's
+        ``on_dispatch``, which may stall it)."""
+        if self.chaos is not None:
+            self.chaos.on_dispatch(program)
+        self.dispatch_count += 1
 
     @property
     def opt_params(self) -> List[torch.Tensor]:
@@ -497,7 +524,7 @@ class StepEngine:
     def backward(self, objective: torch.Tensor) -> None:
         """The 4-call path's micro-step (one dispatch, a ``stoke/accum``
         span): :meth:`_backward`."""
-        self.dispatch_count += 1
+        self._dispatch("backward")
         with trace_span("stoke/accum", track="step"):
             self._backward(objective)
 
@@ -555,7 +582,7 @@ class StepEngine:
         (``loss``: the boundary's undivided micro loss). With
         ``probe_grad_norm`` (and no sentinels) the pre-clip global grad
         norm is kept as :attr:`grad_norm`. Returns the finite flag."""
-        self.dispatch_count += 1
+        self._dispatch("apply")
         with trace_span("stoke/step", track="step"):
             finite, self.sentinel_row = self._apply(loss, probe_grad_norm)
         return finite
@@ -612,14 +639,20 @@ class StepEngine:
         clip_norm = clip_gradients(
             grads, self.grad_clip, sharded, ladder,
             None if probe is None else (probe.rep_norms, probe.part_norms))
+        if self.disk_store is not None and self.disk_store.spilled:
+            self._unspill()
         old = None
-        if finite is None:
+        if self.host_state is not None:
+            old = self._host_step(finite)
+        elif finite is None:
             if self.sentinels:
                 old = self._snap({(i, None): p for i, p in
                                   enumerate(self.opt_params)})
             self.optimizer.step()
         else:
             old = self._step_unless(finite)
+        if self.disk_store is not None:
+            self._spill()
         self.optimizer.zero_grad(set_to_none=True)
         if ladder is not None:
             ladder.after_step()
@@ -724,14 +757,77 @@ class StepEngine:
     def _guarded(self) -> Dict[Any, torch.Tensor]:
         """Every tensor a step may change: the parameters and each tensor
         of the optimizer's state, by (parameter index, state key); under
-        a sharding tier the slices the optimizer holds."""
+        a sharding tier the slices the optimizer holds. The state the host
+        tier keeps is its own to put back."""
         params = self.opt_params
         out = {(i, None): p for i, p in enumerate(params)}
+        hosted = ({id(t) for t in self.host_state.host_tensors}
+                  if self.host_state is not None else ())
         for i, p in enumerate(params):
             for key, v in self.optimizer.state.get(p, {}).items():
-                if torch.is_tensor(v):
+                if torch.is_tensor(v) and id(v) not in hosted:
                     out[(i, key)] = v
         return out
+
+    def _host_step(self, finite: Optional[torch.Tensor]
+                   ) -> Optional[Dict[Any, torch.Tensor]]:
+        """The optimizer step through the host tier: the state streamed
+        group by group (put back there where ``finite`` is false), the
+        parameters and the device scalars (step counts) put back here.
+        Returns the copies taken before the step (the sentinels'), or
+        None."""
+        old = None
+        if finite is not None:
+            old = self._snap(self._guarded())
+        elif self.sentinels:
+            old = self._snap({(i, None): p for i, p in
+                              enumerate(self.opt_params)})
+        self.host_state.step(finite)
+        if self.host_state.reallocated:
+            # its buffers' addresses are in the captured windows
+            self.host_state.reallocated = False
+            self.drop_windows()
+        if finite is not None:
+            for key, t in self._guarded().items():
+                prev = old.get(key)
+                if prev is None:
+                    prev = torch.zeros((), dtype=t.dtype, device=t.device)
+                torch.where(finite, t, prev, out=t)
+        return old
+
+    def _spill(self) -> None:
+        """The disk tier: write the optimizer state shaped like its
+        parameters to the store and free its memory (the parameters
+        protected)."""
+        keys, tensors = [], []
+        for p in self.opt_params:
+            for key, v in self.optimizer.state.get(p, {}).items():
+                if torch.is_tensor(v) and v.dim() and v.shape == p.shape:
+                    keys.append((p, key))
+                    tensors.append(v)
+        self._disk_keys = keys
+        self.disk_store.store(tensors, protect=self.opt_params)
+
+    def _unspill(self) -> None:
+        """The disk tier: the spilled state back into the optimizer."""
+        for (p, key), t in zip(self._disk_keys, self.disk_store.load()):
+            self.optimizer.state[p][key] = t
+
+    @contextlib.contextmanager
+    def resident_state(self):
+        """The optimizer state readable (and writable) by the host inside
+        the block: the host tier's copies of the last update waited for,
+        the disk tier's spill loaded back, and spilled again after."""
+        if self.host_state is not None and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        spilled = self.disk_store is not None and self.disk_store.spilled
+        if spilled:
+            self._unspill()
+        try:
+            yield
+        finally:
+            if spilled:
+                self._spill()
 
     @torch.no_grad()
     def _snap(self, live: Dict[Any, torch.Tensor]) -> Dict[Any, torch.Tensor]:
@@ -774,7 +870,7 @@ class StepEngine:
         dispatch, a ``stoke/dispatch`` span; the row of an apply is
         :attr:`sentinel_row`). Returns ``(report, finite)``; ``finite`` is
         None without an apply or without fp16."""
-        self.dispatch_count += 1
+        self._dispatch("fused")
         with trace_span("stoke/dispatch", track="step"):
             report = self.accum(args, kwargs, loss_args)
             finite = None
@@ -833,7 +929,7 @@ class StepEngine:
         cause; nothing falls back to eager on the card. A capture counts
         as a compile of the telemetry, and one for a signature captured
         before (or after another signature) as a recompile."""
-        self.dispatch_count += 1
+        self._dispatch("window")
         with trace_span("stoke/dispatch", track="step"):
             reports, finite, self.sentinel_row = self._run_window(
                 margs, mkwargs, loss_args)
@@ -841,7 +937,8 @@ class StepEngine:
 
     def _run_window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
         inputs = (tuple(margs), dict(mkwargs), tuple(loss_args))
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.disk_store is not None:
+            # the disk tier's spill is file IO, which a graph cannot hold
             return self._window(*inputs)
         flat, spec = tree_flatten(inputs)
         key = (spec, tuple((tuple(t.shape), t.dtype, t.device)
@@ -878,9 +975,12 @@ class StepEngine:
         self._windows.clear()
 
     def _capture(self, flat: list, spec, lrs) -> CapturedWindow:
+        hosted = ({id(t) for t in self.host_state.host_tensors}
+                  if self.host_state is not None else ())
         for p in self.opt_params:
             for key, v in self.optimizer.state.get(p, {}).items():
-                if torch.is_tensor(v) and v.device != self.device:
+                if (torch.is_tensor(v) and v.device != self.device
+                        and id(v) not in hosted):
                     raise RuntimeError(
                         f"Stoke -- the optimizer keeps its state {key!r} on "
                         f"{v.device}; a window on the card runs as a CUDA "

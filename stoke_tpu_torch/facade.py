@@ -52,9 +52,10 @@ part in ``save``, ``load``, ``maybe_resume`` and the periodic auto-save:
 the consolidated format gathers the slices of oss, sddp and fsdp to
 whole leaves and ``CheckpointConfig.save_rank`` writes them; the sharded
 format has every rank write its own slices. Either loads at any world
-size, and in one process. As in the JAX package, a save does not hold the
-gradient transport's error-feedback residual or its key: a resumed run
-with a ``CommConfig`` starts from a zero residual and the initial key.
+size, and in one process. As in the JAX package, a plain save does not
+hold the gradient transport's error-feedback residual or its key (a run
+resumed from one with a ``CommConfig`` starts from a zero residual and
+the initial key); an emergency save's extras do (below).
 
 ``distributed="dp"`` joins a process group (the launcher's, an explicit
 ``DistributedInitConfig`` rendezvous, or a one-process group;
@@ -81,9 +82,35 @@ is where :meth:`profile_trace` writes ``torch.profiler`` traces. Without
 these configs no sink, recorder, tracer or snapshot exists and the device
 work is the same.
 
-Left out, and refused with ``NotImplementedError`` naming their ROADMAP
-item: ``resume``, emergency saves and offload staging (item 9) and
-``estimate_step_cost`` (item 10c).
+``ResilienceConfig`` installs the preemption handlers
+(:class:`~stoke_tpu_torch.resilience.ResilienceMonitor`): at every
+optimizer-step boundary (after a call's steps, its telemetry and its
+periodic save) the facade drives the fault injector and, when a notice
+arrived, drains the async saves and writes an emergency checkpoint whose
+extras hold the generator state, the loss EMA, the skipped steps and the
+error-feedback residual with its layout, then exits with the resumable
+code or raises :class:`~stoke_tpu_torch.resilience.PreemptedError`. Every
+save then carries a digest manifest with the run's
+:meth:`topology_descriptor`, and :meth:`resume` restores the newest tag
+that verifies (the emergency root first), quarantining the others; a
+residual saved at another world size or transport kind is remapped
+(:func:`~stoke_tpu_torch.parallel.zero.remap_residual`). Across processes
+rank 0 picks the tag and broadcasts it, and each boundary all-reduces the
+preemption flag.
+
+``OffloadOptimizerConfig`` keeps the optimizer state in pinned host memory
+between steps and streams it through the card at the update;
+``OffloadDiskConfig`` spills it to files between steps (its windows run
+uncaptured); ``OffloadParamsConfig`` keeps fsdp's parameter slices in
+pinned host memory between steps (:meth:`Ladder.offload_params
+<stoke_tpu_torch.parallel.ladder.Ladder.offload_params>`);
+``CheckpointConfig(offload_staging=True)`` stages an async save through
+pinned buffers (:mod:`stoke_tpu_torch.offload`). On the CPU the host
+tiers have nothing to offload to: with ``fallback_to_device`` they warn
+and the state stays where it is.
+
+Left out, and refused with ``NotImplementedError`` naming its ROADMAP
+item: ``estimate_step_cost`` (item 10c).
 """
 
 from __future__ import annotations
@@ -102,10 +129,11 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils._pytree import tree_leaves, tree_map
 
-from stoke_tpu_torch import io_ops
+from stoke_tpu_torch import io_ops, offload
 from stoke_tpu_torch.configs import (
     CheckpointConfig,
     CheckpointFormat,
+    comm_shard_updates,
     ClipGradConfig,
     ClipGradNormConfig,
     DeviceOptions,
@@ -128,7 +156,13 @@ from stoke_tpu_torch.parallel.mesh import (
 )
 from stoke_tpu_torch.parallel.sharding import make_sharding_rules
 from stoke_tpu_torch.serving.engine import resolve_device
-from stoke_tpu_torch.parallel.zero import make_transport
+from stoke_tpu_torch.parallel.zero import make_transport, remap_residual
+from stoke_tpu_torch.resilience import (
+    ResilienceMonitor,
+    find_latest_valid_checkpoint,
+    list_checkpoints,
+    read_manifest,
+)
 from stoke_tpu_torch.status import StokeStatus, StokeValidationError
 from stoke_tpu_torch.telemetry import Telemetry
 from stoke_tpu_torch.telemetry.fleet import timed_sync
@@ -150,7 +184,6 @@ from stoke_tpu_torch.utils.printing import unrolled_print
 from stoke_tpu_torch.utils.tb_writer import TBEventWriter
 from stoke_tpu_torch.utils.trees import tree_count_params
 
-_LATER_RESUME = "ROADMAP Queue 1 item 9 (offload and resilience)"
 _LATER_COST = ("ROADMAP Queue 1 item 10c (numerics, memory, attribution and "
                "the serving observatories)")
 #: param-group keys that say how an optimizer runs on this device, not
@@ -280,10 +313,11 @@ class Stoke:
             ``CheckpointConfig`` (how ``save`` writes, the periodic
             auto-save), ``ServeConfig`` (what ``serve`` builds),
             ``TensorboardConfig`` (the loss metrics and ``log_scalar``),
-            the data parallel ones and ``CommConfig``, and
+            the data parallel ones and ``CommConfig``,
             ``TelemetryConfig``, ``TraceConfig``, ``HealthConfig`` and
-            ``ProfilerConfig``; the status layer refuses the others,
-            naming their ROADMAP item. A YAML document or dict builds the
+            ``ProfilerConfig``, and ``ResilienceConfig`` and the three
+            offload configs; the status layer refuses the others, naming
+            their ROADMAP item. A YAML document or dict builds the
             same run through
             :func:`stoke_tpu_torch.utils.yaml_config.stoke_from_config`.
         model_train_kwargs / model_eval_kwargs: keyword arguments the
@@ -375,6 +409,8 @@ class Stoke:
                 f"names, got {model_rng_keys!r}")
         self.model_rng_keys = tuple(model_rng_keys)
         self._tb_writer_obj: Optional[TBEventWriter] = None
+        #: the pinned buffers of staged saves, freed at close_telemetry
+        self._staging_pool = offload.PinnedPool()
         self._train_kwargs = dict(model_train_kwargs or {})
         self._eval_kwargs = dict(model_eval_kwargs or {})
         self._ladder: Optional[Ladder] = None
@@ -414,8 +450,83 @@ class Stoke:
         self._last_step_loss: Optional[torch.Tensor] = None
         self._agg_loss: Optional[torch.Tensor] = None
         self._agg_count = 0
+        # the lost-goodput accounting of a preemption bundle
+        self._last_save_step = 0
+        self._step_wall_ema: Optional[float] = None
+        self._last_boundary_t: Optional[float] = None
+        self._build_offload()
         self._build_telemetry()
+        self._build_resilience()
         self.train()
+
+    def _build_offload(self) -> None:
+        """The offload tiers: the optimizer state in pinned host memory on
+        the card (``OffloadOptimizerConfig``) or in files
+        (``OffloadDiskConfig``) under ``path/proc<rank>`` or a temp dir,
+        and fsdp's parameter slices in pinned host memory
+        (``OffloadParamsConfig``). On the CPU there is no host tier: with
+        ``fallback_to_device`` a warning, and the state stays where it
+        is."""
+        import warnings
+
+        st = self._status_obj
+        cuda = self._device.type == "cuda"
+        ocfg = st.offload_optimizer_config
+        if ocfg is not None:
+            if cuda:
+                # pinned on the card whatever pin_memory says (a parity
+                # field): the copies must be asynchronous to sit inside a
+                # captured window
+                self._engine.host_state = offload.HostOptimizerState(
+                    self._engine.optimizer, self._device)
+            else:
+                warnings.warn(
+                    "Stoke -- optimizer-state host offload unsupported on "
+                    "this runtime; keeping state on device"
+                )
+        if st.offload_params_config is not None:
+            if cuda:
+                self._ladder.offload_params()
+            else:
+                warnings.warn(
+                    "Stoke -- parameter host offload unsupported on this "
+                    "runtime; keeping state on device"
+                )
+        dcfg = st.offload_disk_config
+        if dcfg is not None:
+            import tempfile
+
+            if dcfg.path is not None:
+                base = os.path.join(dcfg.path, f"proc{self.rank}")
+                os.makedirs(base, exist_ok=True)
+                # a killed run cannot clean its spill: reclaim siblings
+                # whose recorded pid is dead before adding ours
+                offload.reclaim_stale_spills(base)
+                spill_dir = tempfile.mkdtemp(prefix="run-", dir=base)
+            else:
+                spill_dir = tempfile.mkdtemp(prefix="stoke-optspill-")
+            with open(os.path.join(spill_dir, "pid"), "w") as f:
+                f.write(str(os.getpid()))
+            self._engine.disk_store = offload.DiskOptimizerStore(
+                os.path.join(spill_dir, "opt"), cleanup_root=spill_dir)
+
+    def _build_resilience(self) -> None:
+        """The resilience monitor of a ``ResilienceConfig``, built after
+        the health monitor: with resilience on, the preemption signals
+        mean "drain and save", so its handlers supersede the flight
+        recorder's dump-and-die disposition (``close_telemetry``
+        uninstalls them first)."""
+        self._resilience: Optional[ResilienceMonitor] = None
+        rcfg = self._status_obj.resilience_config
+        if rcfg is None:
+            return
+        self._resilience = ResilienceMonitor(
+            rcfg, self._telemetry.registry,
+            recorder=(self._health.recorder if self._health is not None
+                      else None))
+        self._telemetry.resilience = self._resilience
+        if self._resilience.chaos.active:
+            self._engine.chaos = self._resilience.chaos
 
     def _build_telemetry(self) -> None:
         """The telemetry pipeline (its registry always; sinks with a
@@ -853,8 +964,16 @@ class Stoke:
     def _save_with_config(self, path: str, name: str,
                           config: CheckpointConfig,
                           extras: Optional[Dict[str, Any]]) -> str:
-        with self._whole_params():
-            return self._save_whole(path, name, config, extras)
+        with self._whole_params(), self._engine.resident_state():
+            tag_dir = self._save_whole(path, name, config, extras)
+        mon = self._resilience
+        if mon is not None and mon.chaos.active:
+            # corrupt_save needs the payload on disk; the injector is a
+            # test harness, so draining an async save here is acceptable
+            if config.async_save and mon.chaos.spec.corrupt_save is not None:
+                io_ops.wait_for_saves()
+            mon.chaos.note_saved(tag_dir)
+        return tag_dir
 
     def _save_whole(self, path: str, name: str, config: CheckpointConfig,
                     extras: Optional[Dict[str, Any]]) -> str:
@@ -883,6 +1002,8 @@ class Stoke:
                 port_state["generators"] = [
                     g.cpu().numpy() for g in self._ladder.gather_whole(
                         self._generator.get_state().to(self._device))]
+        mon = self._resilience
+        with_manifest = mon is not None and mon.cfg.manifest
         with trace_span("stoke/io", track="io"):
             return io_ops.save_checkpoint(
                 path=path, name=name, state=state,
@@ -896,6 +1017,15 @@ class Stoke:
                 backward_step=self._backward_steps,
                 port_state=port_state, rank_state=rank_state,
                 layout=layout, group=self._group,
+                manifest=with_manifest,
+                topology=(self.topology_descriptor() if with_manifest
+                          else None),
+                chaos=(mon.chaos if mon is not None and mon.chaos.active
+                       else None),
+                # a save counts as the last durable one only once it landed
+                on_durable=functools.partial(self._note_durable_save,
+                                             self._optimizer_steps),
+                staging_pool=self._staging_pool,
             )
 
     def _leaf_index(self) -> Dict[str, int]:
@@ -1025,7 +1155,7 @@ class Stoke:
         rank resumes its own accumulated gradients and dropout generator
         when the tag was saved at this world size, else the global
         batch's mean gradients. Returns the tag's extras."""
-        with self._whole_params():
+        with self._whole_params(), self._engine.resident_state():
             extras = self._load_whole(path, tag, name)
             if self._ladder is not None:
                 self._ladder.load_from_params()
@@ -1206,10 +1336,363 @@ class Stoke:
         except FileNotFoundError:
             return False
 
-    def resume(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Stoke.resume (verified resume, emergency saves) is not ported "
-            f"yet: {_LATER_RESUME}")
+    def _note_durable_save(self, step: int) -> None:
+        """One save's write landed (possibly on its writer thread): the
+        lost-goodput estimate prices the steps beyond it."""
+        self._last_save_step = max(self._last_save_step, int(step))
+
+    # ------------------------------------------------------------------ #
+    # resilience: preemption, emergency saves, verified resume
+    # ------------------------------------------------------------------ #
+
+    @property
+    def resilience(self) -> Optional[ResilienceMonitor]:
+        """The run's resilience monitor (None without a
+        ``ResilienceConfig``): the preemption flag, the fault injector and
+        the ``resilience/*`` counters."""
+        return self._resilience
+
+    @property
+    def resilience_summary(self) -> Optional[Dict[str, Any]]:
+        """Restarts, preemptions, emergency saves, quarantined tags and
+        the resumed and lost steps; None without a ``ResilienceConfig``."""
+        if self._resilience is None:
+            return None
+        return self._resilience.summary()
+
+    @property
+    def restart_attempt(self) -> int:
+        """The supervisor's attempt this process is
+        (``STOKE_RESTART_ATTEMPT``; 0 on a first run or without a
+        ``ResilienceConfig``)."""
+        return 0 if self._resilience is None else self._resilience.restarts
+
+    def _comm_layout(self) -> Optional[Dict[str, Any]]:
+        """The gradient transport's residual layout (None without one)."""
+        order = self._engine.comm_order
+        if order is None:
+            return None
+        return self._engine.transport.layout_descriptor(
+            order.sizes(self._engine.params))
+
+    def topology_descriptor(self) -> Dict[str, Any]:
+        """This run's topology and sharding descriptor (the JAX facade's
+        keys): mesh, process and device counts, the tier, the resolved
+        ``shard_updates``, the parameters' count and elements, and the
+        transport's residual layout. Every manifest this facade writes
+        carries it; :meth:`resume` compares a checkpoint's against it."""
+        st = self._status_obj
+        sizes = [int(p.numel()) for p in self._engine.params]
+        dp = self._group is not None
+        return {
+            "version": 1,
+            "process_count": int(self.n_processes),
+            "device_count": int(self.world_size),
+            "mesh_axes": list(st.mesh_config.axes) if dp else None,
+            "mesh_shape": [int(self.world_size)] if dp else None,
+            "tier": st.sharding_tier.value,
+            "shard_updates": bool(
+                comm_shard_updates(st.comm_config, st.sharding_tier)),
+            "axis_name": st.mesh_config.axes[0] if dp else None,
+            "param_leaves": len(sizes),
+            "param_elems": int(sum(sizes)),
+            "comm": self._comm_layout(),
+        }
+
+    def _descriptor_incompatible(
+            self, saved: Optional[Dict[str, Any]]) -> Optional[str]:
+        """Why a saved descriptor cannot serve this run (None: it can; a
+        topology difference is what elastic resume remaps). Another
+        parameter tree cannot: the reason names the remedy."""
+        if not saved:
+            return None
+        cur = self.topology_descriptor()
+        for key in ("param_elems", "param_leaves"):
+            if key in saved and saved[key] != cur[key]:
+                return (
+                    f"incompatible checkpoint: saved {key}={saved[key]} "
+                    f"vs current {key}={cur[key]} — the checkpoint was "
+                    f"written by a different MODEL; resume with the "
+                    f"saving architecture, or point resume() at this "
+                    f"run's own checkpoint root"
+                )
+        return None
+
+    @staticmethod
+    def _topology_changed(saved: Optional[Dict[str, Any]],
+                          cur: Dict[str, Any]) -> bool:
+        """Whether the run changed shape between save and resume (what
+        ``resilience/elastic_resumes`` counts)."""
+        if not saved:
+            return False
+        return any(saved.get(k) != cur.get(k)
+                   for k in ("mesh_shape", "process_count", "device_count",
+                             "tier", "shard_updates"))
+
+    def resume(self, path: Optional[str] = None, name: str = "stoke") -> bool:
+        """Restore the newest VALID checkpoint and the step counters.
+
+        Candidates: the resilience emergency root first, then ``path`` (or
+        ``CheckpointConfig.auto_path``), ordered by backward step across
+        them. Each is verified against its ``manifest.json`` and its
+        topology descriptor; a corrupt, partial or incompatible one is
+        quarantined (renamed under ``<root>/quarantine/``, never deleted)
+        with the reason and remedy, and the next newest is tried. An
+        emergency tag also restores the state its extras carry (the
+        generator, the loss EMA, the skipped steps, the error-feedback
+        residual, remapped when the layout changed), so the resumed
+        trajectory is the uninterrupted one bit for bit. Across processes
+        rank 0 verifies and quarantines and broadcasts its (root, step)
+        pick. Returns False when there is no valid tag (start fresh).
+        Without a ``ResilienceConfig``: no quarantine."""
+        mon = self._resilience
+        ckpt_cfg = self._status_obj.checkpoint_config
+        roots = []
+        if mon is not None:
+            roots.append((mon.cfg.save_path, mon.cfg.save_name))
+        if path:
+            roots.append((path, name))
+        elif ckpt_cfg.auto_path:
+            roots.append((ckpt_cfg.auto_path, ckpt_cfg.auto_name))
+        if not roots:
+            return False
+        # the newest step recorded anywhere, before any quarantine: the
+        # lost-steps accounting charges the gap to the restored tag
+        newest_step = max((c["step"] for root, nm in roots
+                           for c in list_checkpoints(root, nm)),
+                          default=None)
+        verify = mon.cfg.verify_on_resume if mon is not None else True
+        quarantine = mon.cfg.quarantine if mon is not None else False
+        manifests: Dict[str, Any] = {}
+
+        def validate(tag_dir):
+            manifest = read_manifest(tag_dir)
+            manifests[tag_dir] = manifest
+            reason = self._descriptor_incompatible(
+                (manifest or {}).get("topology"))
+            return (False, reason) if reason is not None else (True, "ok")
+
+        def on_quarantine(tag_dir, dest, reason):
+            self.warn(f"quarantined corrupt checkpoint {tag_dir} -> "
+                      f"{dest or '<rename failed>'} ({reason})")
+            if mon is not None:
+                mon.note_quarantined(tag_dir, dest, reason)
+
+        def pick():
+            return find_latest_valid_checkpoint(
+                roots, verify=verify, quarantine=quarantine,
+                on_quarantine=on_quarantine, validate_fn=validate)
+
+        if self.world_size > 1:
+            # one validator, one choice: ranks loading different tags
+            # would diverge
+            choice = torch.tensor([-1, -1], dtype=torch.int64)
+            if self.is_rank_0:
+                cand = pick()
+                if cand is not None:
+                    choice = torch.tensor([next(
+                        i for i, (r, n) in enumerate(roots)
+                        if r == cand["root"] and n == cand["name"]),
+                        cand["step"]], dtype=torch.int64)
+            choice = choice.to(self._device)
+            dist.broadcast(choice, 0, group=self._group)
+            idx, step = (int(v) for v in choice.cpu())
+            cand = None
+            if idx >= 0:
+                root, nm = roots[idx]
+                tag = io_ops.checkpoint_tag(nm, step)
+                cand = {"root": root, "tag": tag, "name": nm, "step": step,
+                        "tag_dir": os.path.join(root, tag)}
+        else:
+            cand = pick()
+        if cand is None:
+            return False
+        manifest = manifests.get(cand["tag_dir"])
+        if manifest is None:
+            manifest = read_manifest(cand["tag_dir"])
+        saved_topo = (manifest or {}).get("topology")
+        extras = self.load(cand["root"], tag=cand["tag"])
+        rs = extras.get("resilience") if isinstance(extras, dict) else None
+        if rs:
+            self._restore_resume_state(rs)
+        if mon is not None:
+            lost = None
+            if newest_step is not None:
+                lost = max(0, newest_step - cand["step"]) // max(
+                    self._status_obj.grad_accum, 1)
+            mon.note_resumed(self._optimizer_steps, lost_steps=lost)
+            cur_topo = self.topology_descriptor()
+            if self._topology_changed(saved_topo, cur_topo):
+                mon.note_elastic_resume(saved_topo, cur_topo)
+                self.info(
+                    f"elastic resume: checkpoint saved on mesh "
+                    f"{(saved_topo or {}).get('mesh_shape')} (tier "
+                    f"{(saved_topo or {}).get('tier')}), resumed onto "
+                    f"{cur_topo.get('mesh_shape')} (tier "
+                    f"{cur_topo.get('tier')})")
+        self.info(f"resumed from {cand['tag_dir']} at optimizer step "
+                  f"{self._optimizer_steps}")
+        return True
+
+    def _resilience_boundary(self, window: int = 1) -> None:
+        """After ``window`` optimizer steps: drive the fault injector and,
+        when a preemption notice arrived (on any rank: the flag is
+        all-reduced), run the drain, save and exit here, with the steps
+        complete."""
+        mon = self._resilience
+        if mon is None:
+            return
+        now = time.perf_counter()
+        if self._last_boundary_t is not None and window > 0:
+            per_step = (now - self._last_boundary_t) / window
+            self._step_wall_ema = (
+                per_step if self._step_wall_ema is None
+                else 0.7 * self._step_wall_ema + 0.3 * per_step)
+        self._last_boundary_t = now
+        mon.chaos.on_step(self._optimizer_steps, window)
+        preempt = mon.preempt_requested
+        if self.world_size > 1:
+            # a notice reaches one host: every rank drains at the same step
+            flag = torch.tensor([1 if preempt else 0], dtype=torch.int32,
+                                device=self._device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+            peer = bool(int(flag.cpu()[0]))
+            if peer and not preempt:
+                mon.request_preemption("peer-preemption")
+            preempt = peer
+        if preempt:
+            self._handle_preemption()
+
+    def _handle_preemption(self) -> None:
+        mon = self._resilience
+        mon.note_preemption_honored()
+        step = self._optimizer_steps
+        self.warn(
+            f"preemption notice ({mon.preempt_signal}) honored at "
+            f"optimizer step {step}: draining async saves, writing the "
+            f"emergency checkpoint")
+        tag_dir = None
+        try:
+            tag_dir = self._emergency_save()
+            mon.note_emergency_saved(tag_dir)
+        except Exception as e:
+            # the supervisor still restarts from the last periodic tag
+            self.warn(f"emergency checkpoint failed: {e!r}")
+        if self._health is not None:
+            try:
+                self._health.dump("preemption", extra={
+                    "step": step,
+                    "signal": mon.preempt_signal,
+                    "emergency_tag": tag_dir,
+                    "step_ema_s": self._step_wall_ema,
+                    "lost_steps_estimate": (
+                        0 if tag_dir is not None
+                        else max(0, step - self._last_save_step)),
+                })
+            except Exception:
+                pass
+        if mon.cfg.exit_on_preempt:
+            try:
+                self.close_telemetry()
+            except Exception:
+                pass
+        mon.exit_or_raise(step, tag_dir)
+
+    def _emergency_save(self) -> str:
+        """A synchronous checkpoint under the resilience root, after the
+        async saves drained (the staged snapshots first) and the card's
+        queued work finished, with the emergency keep window; its extras
+        carry :meth:`_resume_state`."""
+        mon = self._resilience
+        try:
+            self.wait_for_checkpoint()
+        except RuntimeError as e:
+            self.warn(f"async checkpoint drain reported failures: {e}")
+        self.block_until_ready()
+        cfg = dataclasses.replace(self._status_obj.checkpoint_config,
+                                  async_save=False,
+                                  max_to_keep=mon.cfg.max_to_keep)
+        return self._save_with_config(
+            mon.cfg.save_path, mon.cfg.save_name, cfg,
+            {"resilience": self._resume_state()})
+
+    def _resume_state(self) -> Dict[str, Any]:
+        """The training state outside the checkpoint payload, on the host:
+        the counters, the generator, the loss EMA, the skipped steps and
+        the transport's state (key and whole residual buckets) with its
+        layout."""
+        mon = self._resilience
+        state: Dict[str, Any] = {
+            "optimizer_step": self._optimizer_steps,
+            "backward_step": self._backward_steps,
+            "preempt_signal": mon.preempt_signal if mon is not None else None,
+            "restart_attempt": mon.restarts if mon is not None else 0,
+            "rng": {"device": self._device.type, "world": self.world_size,
+                    "state": self._generator.get_state().numpy()},
+            "ema_loss": (None if self._rolling_mean_loss is None
+                         else float(self._rolling_mean_loss)),
+            "ema_initialized": self._rolling_mean_loss is not None,
+            "skipped_steps": float(self._skipped_steps),
+        }
+        comm = self._engine.comm_state
+        if comm:
+            host: Dict[str, Any] = {"rng": comm["rng"].cpu().numpy()}
+            if "residual" in comm:
+                whole = []
+                for r in comm["residual"]:
+                    if self._engine.transport.layout_kind == "sharded" and (
+                            self._ladder is not None):
+                        r = torch.cat(self._ladder.gather_whole(r))
+                    whole.append(r.cpu().numpy())
+                host["residual"] = whole
+            state["comm_state"] = host
+            state["comm_layout"] = self._comm_layout()
+        return state
+
+    def _restore_resume_state(self, rs: Dict[str, Any]) -> None:
+        try:
+            rng = rs.get("rng")
+            if (isinstance(rng, dict) and rng.get("device") == self._device.type
+                    and rng.get("world") == self.world_size == 1):
+                self._generator.set_state(torch.from_numpy(rng["state"]))
+            if rs.get("ema_loss") is not None:
+                self._rolling_mean_loss = torch.tensor(
+                    rs["ema_loss"], dtype=torch.float32, device=self._device)
+            if rs.get("skipped_steps") is not None:
+                self._skipped_steps.fill_(float(rs["skipped_steps"]))
+            host = rs.get("comm_state")
+            comm = self._engine.comm_state
+            if host and comm:
+                comm["rng"].copy_(torch.from_numpy(
+                    np.asarray(host["rng"])).to(comm["rng"].device))
+                if "residual" in host and "residual" in comm:
+                    self._restore_residual(host["residual"],
+                                           rs.get("comm_layout"))
+        except Exception as e:
+            # an extras blob of another model or transport degrades to a
+            # plain resume of the payload and the counters
+            self.warn(f"could not restore emergency resume extras: {e!r}")
+
+    def _restore_residual(self, saved: List[np.ndarray],
+                          saved_desc: Optional[Dict[str, Any]]) -> None:
+        """The saved residual (whole padded buckets) into the live one,
+        remapped when the saved layout differs (world, buckets, kind);
+        this rank takes its slice under the sharded transport."""
+        cur_desc = self._comm_layout()
+        if saved_desc and cur_desc and (
+                saved_desc["kind"] != cur_desc["kind"]
+                or saved_desc["buckets"] != cur_desc["buckets"]
+                or saved_desc["world"] != cur_desc["world"]):
+            saved = remap_residual(saved, saved_desc, cur_desc)
+        live = self._engine.comm_state["residual"]
+        sharded = self._engine.transport.layout_kind == "sharded"
+        with torch.no_grad():
+            for dst, whole in zip(live, saved):
+                src = torch.from_numpy(np.asarray(whole, np.float32))
+                if sharded and self.world_size > 1:
+                    n = dst.numel()
+                    src = src[self.rank * n:(self.rank + 1) * n]
+                dst.copy_(src.to(dst.device))
 
     @staticmethod
     def _crossed_boundary(steps: int, every: int, window: int) -> bool:
@@ -1221,10 +1704,13 @@ class Stoke:
     def _after_optimizer_steps(self, window: int = 1) -> None:
         """What follows ``window`` optimizer steps, as in the JAX facade:
         the TensorBoard metrics, the telemetry step event, then the
-        periodic auto-save, each when the steps crossed its cadence."""
+        periodic auto-save, each when the steps crossed its cadence, and
+        last the resilience boundary (the fault injector, a preemption's
+        emergency save)."""
         self._maybe_log_metrics(window)
         self._maybe_emit_telemetry(window)
         self._maybe_auto_save(window)
+        self._resilience_boundary(window)
 
     # ------------------------------------------------------------------ #
     # telemetry step records and the health monitor
@@ -1351,8 +1837,10 @@ class Stoke:
 
     def close_telemetry(self) -> None:
         """Flush and close the telemetry sinks, export the trace (with
-        ``TraceConfig.export_on_close``) and close the health monitor (its
-        watchdog thread and signal handlers); idempotent."""
+        ``TraceConfig.export_on_close``), close the health monitor (its
+        watchdog thread and signal handlers) and free the staged saves'
+        pinned buffers; idempotent."""
+        self._staging_pool.close()
         if self._tracer is not None:
             # stop receiving other runs' spans, then export the final ring
             unregister_recorder(self._tracer)
@@ -1363,6 +1851,11 @@ class Stoke:
                 except OSError as e:
                     self.warn(f"trace export failed: {e}")
         self._telemetry.close()
+        if self._resilience is not None:
+            # resilience installed its handlers after the recorder, so it
+            # uninstalls them first (its saved previous SIGTERM handler is
+            # the recorder's)
+            self._resilience.close()
         if self._health is not None:
             self._health.close()
 

@@ -44,8 +44,19 @@ An async save copies the state to the host on the calling thread (the
 training step changes the device tensors in place afterwards; every
 gather and collective stays on that thread) and writes the files on a
 background thread; the writer's thread writes ``meta.json`` once every
-rank's files exist. :func:`wait_for_saves` joins the threads and raises
-any failure, whose partial tag is removed.
+rank's files exist. With ``CheckpointConfig.offload_staging`` (async,
+consolidated) the calling thread only stages the state
+(:func:`stoke_tpu_torch.offload.stage_tree`: a device-to-device copy and
+asynchronous copies into pinned host buffers) and the background thread
+waits for the copies. :func:`wait_for_saves` drains the staged snapshots,
+joins the threads and raises any failure, whose partial tag is removed.
+
+Under a ``ResilienceConfig`` every save also writes ``manifest.json``
+(:func:`stoke_tpu_torch.resilience.write_manifest`: each file's sha256
+and size, with the run's topology descriptor), after ``meta.json``, so a
+tag with a manifest is a tag whose write finished. The fault injector's
+``on_async_payload`` hook fires in the background writer between the
+payload files and ``meta.json``.
 
 With a ``TraceConfig`` the saves and waits are ``stoke/ckpt_save`` and
 ``stoke/ckpt_wait`` spans on the ``io`` track, and the barriers time into
@@ -68,8 +79,11 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_unflatten
 
+from stoke_tpu_torch import offload
 from stoke_tpu_torch.configs import CheckpointConfig, CheckpointFormat
+from stoke_tpu_torch.resilience import write_manifest
 from stoke_tpu_torch.telemetry.fleet import timed_sync
 from stoke_tpu_torch.telemetry.tracing import trace_span
 from stoke_tpu_torch.utils.printing import make_folder, unrolled_print
@@ -195,6 +209,11 @@ def save_checkpoint(
     rank_state: Optional[Dict[str, Dict[str, Any]]] = None,
     layout: Optional[Dict[str, Any]] = None,
     group=None,
+    manifest: bool = False,
+    topology: Optional[Dict[str, Any]] = None,
+    chaos: Any = None,
+    on_durable: Optional[Callable[[], None]] = None,
+    staging_pool: Any = None,
 ) -> str:
     """Write one checkpoint; returns the tag directory's path.
 
@@ -217,7 +236,17 @@ def save_checkpoint(
     written on a background thread (see :func:`wait_for_saves`); the
     writer's thread writes ``meta.json`` once every rank file exists.
     Then the tags of ``name`` beyond ``config.max_to_keep`` are
-    pruned."""
+    pruned.
+
+    ``config.offload_staging`` (async, consolidated): the writer's arrays
+    are staged (:func:`stoke_tpu_torch.offload.stage_tree`, its pinned
+    buffers from ``staging_pool``) instead of copied to the host here.
+    ``manifest``: the writer adds ``manifest.json`` after ``meta.json``,
+    with ``topology`` (the run's descriptor) in it. ``chaos``: the run's ``ChaosInjector``, whose
+    ``on_async_payload`` fires between an async save's payload and its
+    ``meta.json``. ``on_durable``: called once this save has landed (on
+    return of a sync save, from the background thread after ``meta.json``
+    for an async one)."""
     world = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
     writer = int(config.save_rank) % world
@@ -228,6 +257,8 @@ def save_checkpoint(
     tag_dir = os.path.join(root, tag)
     is_async = bool(config.async_save)
     sharded = config.format is CheckpointFormat.sharded
+    staged = is_async and not sharded and bool(config.offload_staging)
+    snap = None
     if is_async:
         # claimed before the directory exists: an earlier save's prune
         # must never take this (still meta-less) tag for a leftover
@@ -240,10 +271,20 @@ def save_checkpoint(
         # tensors in place once this returns (traced as the async save's
         # cost on the step path; the write is off it by design)
         with (trace_span("stoke/ckpt_save", track="io",
-                         attrs={"tag": tag, "async": True})
+                         attrs={"tag": tag, "async": True,
+                                "staged": staged})
               if is_async else contextlib.nullcontext()):
-            host = ({k: to_numpy_tree(v) for k, v in state.items()
-                     if v is not None} if is_writer else {})
+            if staged:
+                # one snapshot a save, so staging never waits on its own
+                # earlier trees
+                host = {}
+                if is_writer:
+                    snap = offload.stage_tree(
+                        {k: v for k, v in state.items() if v is not None},
+                        pool=staging_pool)
+            else:
+                host = ({k: to_numpy_tree(v) for k, v in state.items()
+                         if v is not None} if is_writer else {})
             mine = {k: to_numpy_tree(v)
                     for k, v in (rank_state or {}).items()
                     if v is not None} if sharded else {}
@@ -254,6 +295,9 @@ def save_checkpoint(
                   for k in sorted(mine) for r in range(world)]
 
     def write_payload() -> None:
+        if snap is not None:
+            spec, leaves = snap.resolve()
+            host.update(tree_unflatten(leaves, spec))
         for key, arrays in mine.items():
             _savez_atomic(os.path.join(tag_dir, rank_file(key, rank)), arrays)
         for key, arrays in host.items():
@@ -278,6 +322,18 @@ def save_checkpoint(
             meta.update(world=world, writer=writer, **(layout or {}))
         with open(os.path.join(tag_dir, "meta.json"), "w") as f:
             json.dump(meta, f, indent=2, default=str)
+        if manifest:
+            extra = {"backward_step": backward_step, "name": name}
+            if topology is not None:
+                extra["topology"] = topology
+            write_manifest(tag_dir, extra=extra)
+
+    def landed() -> None:
+        if on_durable is not None:
+            try:
+                on_durable()
+            except Exception:
+                pass  # accounting must never fail a landed save
 
     if not is_async:
         # the synchronous write path end to end: payload, metadata, barrier
@@ -289,18 +345,25 @@ def save_checkpoint(
                 _prune_old(root, name, config.max_to_keep)
                 unrolled_print(f"Saved checkpoint {tag_dir}")
             _barrier(group)
+        landed()
         return tag_dir
 
     def background() -> None:
         try:
             write_payload()
+            if snap is not None:
+                snap.release()
             if is_writer:
                 # every rank's slices on disk before the loadable marker
                 _wait_for_files(rank_files, _ASYNC_RANK_TIMEOUT_S)
+            if chaos is not None:
+                # kill_during_save: the payload is on disk, meta.json not
+                chaos.on_async_payload(tag_dir)
             write_meta()
             # loadable now: out of the in-flight set before pruning, so it
             # counts toward its own keep window
             _INFLIGHT_TAGS.discard(tag_dir)
+            landed()
             if is_writer:
                 _prune_old(root, name, config.max_to_keep)
                 unrolled_print(f"Saved checkpoint {tag_dir} (async)")
@@ -314,6 +377,8 @@ def save_checkpoint(
             _ASYNC_ERRORS.append((tag_dir, e))
         finally:
             _INFLIGHT_TAGS.discard(tag_dir)
+            if snap is not None:
+                snap.release()
 
     t = threading.Thread(target=background, name=f"stoke-save-{tag}",
                          daemon=False)
@@ -331,8 +396,11 @@ def wait_for_saves() -> None:
     """Block until every in-flight async save has finished, then raise
     ``RuntimeError`` naming every tag whose save failed (the first
     failure chained as the cause); the failures are cleared, so a later
-    call returns cleanly."""
+    call returns cleanly. The staged snapshots are drained first, so a
+    synchronous read of the state that follows (the emergency save's)
+    never overlaps a half-landed staging copy."""
     with trace_span("stoke/ckpt_wait", track="io"):
+        offload.drain_staged()
         while _ASYNC_SAVES:
             _ASYNC_SAVES.pop().join()
     if _ASYNC_ERRORS:

@@ -29,7 +29,11 @@ would replace the step engine's 16-bit casts of the masters):
   they are all-gathered before a forward and freed after the backward
   (or after a forward without grad). The whole model is gathered at once:
   the port has no per-layer wrapping, so a micro-step's peak holds every
-  parameter, while between steps only the slices are kept.
+  parameter, while between steps only the slices are kept. With
+  :meth:`Ladder.offload_params` (``OffloadParamsConfig``) the slices too
+  live in pinned host memory between steps: copied to the card before
+  the gather of a forward, back after the optimizer step (the JAX
+  engine's ``_vars_to_compute`` and host ``out_shardings``).
 
 With a gradient transport (``CommConfig``,
 :mod:`~stoke_tpu_torch.parallel.collectives`), the apply first makes every
@@ -184,6 +188,9 @@ class Ladder:
         #: fsdp's buckets, whose leaves hold no storage between steps
         self._freed = [b for b in self.buckets if b.frees]
         self._materialized = True
+        #: fsdp's slices in host memory between steps (offload_params)
+        self._host_own: List[torch.Tensor] = []
+        self._own_resident = True
         if self._freed:
             for b in self._freed:
                 for p in b.leaves:
@@ -210,11 +217,52 @@ class Ladder:
             dist.all_gather_into_tensor(full, b.own, group=self.group)
             b.unpack(full)
 
+    def offload_params(self) -> None:
+        """fsdp: keep this rank's slices of the sharded parameters in host
+        memory (pinned when they live on a CUDA device) between steps; they
+        come back to the device for a forward's gather and leave after the
+        optimizer step."""
+        if not self._freed or self._host_own:
+            return
+        for b in self._freed:
+            host = torch.empty(b.size, dtype=b.own.dtype, device="cpu",
+                               pin_memory=b.own.is_cuda)
+            host.copy_(b.own)
+            self._host_own.append(host)
+        self._spill_own()
+
+    @property
+    def host_slices(self) -> List[torch.Tensor]:
+        """fsdp's slices in host memory (empty without offload)."""
+        return list(self._host_own)
+
+    @torch.no_grad()
+    def _restore_own(self) -> None:
+        """The offloaded slices back into their device buffers."""
+        if self._own_resident:
+            return
+        for b, host in zip(self._freed, self._host_own):
+            b.own.untyped_storage().resize_(b.size * b.own.element_size())
+            b.own.copy_(host, non_blocking=True)
+        self._own_resident = True
+
+    @torch.no_grad()
+    def _spill_own(self) -> None:
+        """The slices to host memory, their device buffers freed."""
+        if not (self._host_own and self._own_resident):
+            return
+        for b, host in zip(self._freed, self._host_own):
+            host.copy_(b.own, non_blocking=True)
+            b.own.untyped_storage().resize_(0)
+        self._own_resident = False
+
     def materialize(self) -> None:
         """fsdp: give the sharded parameters storage and gather them
-        (nothing when they are already whole, or below fsdp)."""
+        (nothing when they are already whole, or below fsdp); offloaded
+        slices come back to the device first."""
         if self._materialized:
             return
+        self._restore_own()
         for b in self._freed:
             for p in b.leaves:
                 p.untyped_storage().resize_(p.numel() * p.element_size())
@@ -236,18 +284,25 @@ class Ladder:
         """The parameters whole inside the block (fsdp gathers them, and
         frees them after when it was they that were gathered)."""
         gathered = not self._materialized
+        spilled = not self._own_resident
         self.materialize()
         try:
             yield
         finally:
             if gathered:
                 self.release()
+            if spilled:
+                self._spill_own()
 
     def load_from_params(self) -> None:
         """After the parameters were written (a checkpoint load), take the
         slices from them again."""
+        spilled = not self._own_resident
+        self._restore_own()
         for b in self.buckets:
             b.load_own()
+        if spilled:
+            self._spill_own()
 
     # ------------------------------------------------------------------ #
     # gradients
@@ -390,9 +445,10 @@ class Ladder:
     def after_step(self) -> None:
         """After the optimizer step: :meth:`drop_grads`, and (oss, sddp)
         all-gather the updated slices into the parameters; fsdp keeps them
-        sharded."""
+        sharded (in host memory under :meth:`offload_params`)."""
         self.drop_grads()
         self.gather_params([b for b in self.buckets if not b.frees])
+        self._spill_own()
 
     # ------------------------------------------------------------------ #
     # small reductions

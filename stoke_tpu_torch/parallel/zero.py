@@ -15,14 +15,24 @@ rank all-gathers the wire format (int8 payload and fp32 scales, or the
 bf16 part), dequantizes the whole bucket and takes its slices from it:
 the numbers are the JAX package's, and the gather is one int8 stage more
 on the wire than the JAX accounting (``bytes_per_step``, which stays the
-JAX formula) counts. The residual's remap across topologies
-(``zero.py:257-329``) belongs to elastic resume (ROADMAP item 9).
+JAX formula) counts.
+
+Elastic resume remaps the error-feedback residual across topologies
+(:func:`residual_to_flat`, :func:`flat_to_residual`,
+:func:`remap_residual`, ``zero.py:255-327``): the residual of either
+transport is, whole, one padded fp32 buffer a bucket in the JAX leaf
+order (the sharded transport's rank ``r`` holds the ``r``-th contiguous
+1/W of each), and the padding follows the world size, so a residual saved
+at one world and kind is unpacked to the flat per-element vector under
+its saved layout descriptor (``GradTransport.layout_descriptor``) and
+repacked under the current one.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from stoke_tpu_torch.configs import (
@@ -82,6 +92,62 @@ class ShardedGradTransport(GradTransport):
         if res is not None:
             res.copy_(own - wire)
         return y
+
+
+def residual_to_flat(residual: Sequence[Any],
+                     desc: Dict[str, Any]) -> np.ndarray:
+    """The flat per-element fp32 vector of a host residual (whole padded
+    buckets, or a JAX replicated residual's per-leaf arrays) under its
+    layout descriptor."""
+    if not residual:
+        return np.zeros((0,), np.float32)
+    arrays = [np.asarray(r, np.float32).reshape(-1) for r in residual]
+    buckets = desc["buckets"]
+    if len(arrays) == len(buckets) and all(
+            a.size == int(p) for a, (_, p) in zip(arrays, buckets)):
+        return np.concatenate([a[:int(e)] for a, (e, _) in
+                               zip(arrays, buckets)])
+    # per-leaf arrays (the JAX replicated transport's residual)
+    return np.concatenate(arrays)
+
+
+def flat_to_residual(flat: np.ndarray,
+                     desc: Dict[str, Any]) -> List[np.ndarray]:
+    """The flat residual vector repacked under a target layout
+    descriptor: one whole padded fp32 buffer a bucket (zero padding);
+    ``ValueError`` when the vector does not cover the target's leaves."""
+    flat = np.asarray(flat, np.float32).reshape(-1)
+    total = int(sum(desc["leaf_sizes"]))
+    if flat.size != total:
+        raise ValueError(
+            f"Stoke -- residual re-map size mismatch: flat vector has "
+            f"{flat.size} elements, target layout covers {total} "
+            f"(different model?)"
+        )
+    out, off = [], 0
+    for elems, padded in desc["buckets"]:
+        buf = np.zeros((int(padded),), np.float32)
+        buf[:elems] = flat[off:off + elems]
+        off += elems
+        out.append(buf)
+    return out
+
+
+def remap_residual(residual: Sequence[Any], saved_desc: Dict[str, Any],
+                   target_desc: Dict[str, Any]) -> List[np.ndarray]:
+    """A host residual saved under ``saved_desc`` re-mapped onto
+    ``target_desc``'s layout (another world size, bucket padding, or
+    replicated/sharded kind), as whole padded buckets. Raises
+    ``ValueError`` on an element-count mismatch: a residual of another
+    model cannot re-map."""
+    flat = residual_to_flat(residual, saved_desc)
+    total = int(sum(target_desc["leaf_sizes"]))
+    if flat.size != total:
+        raise ValueError(
+            f"Stoke -- residual re-map: saved residual covers {flat.size} "
+            f"elements, current model {total} (incompatible checkpoint)"
+        )
+    return flat_to_residual(flat, target_desc)
 
 
 def make_transport(cfg: Optional[CommConfig], tier: ShardingOptions,

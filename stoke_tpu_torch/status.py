@@ -14,15 +14,16 @@ Legality comes first (``StokeValidationError``). Only then does
 :meth:`StokeStatus._refuse_later_slices` refuse, with
 ``NotImplementedError`` naming the ROADMAP item, what the port does not
 run yet: every config class but ``PrecisionConfig``, the clip configs,
-``CheckpointConfig`` (both formats), ``CommConfig``, ``ServeConfig``,
-``TensorboardConfig``, the data parallel ones (``DataParallelConfig``,
-``MeshConfig``, ``DistributedInitConfig``, ``OSSConfig``, ``SDDPConfig``,
-``FSDPConfig``) and the telemetry ones (``TelemetryConfig``,
-``TraceConfig``, ``HealthConfig``, ``ProfilerConfig``)
-(:data:`LATER_CONFIGS`); ``DataParallelConfig.shard_seq_dim``
-and a mesh of more than one axis or with cross-host axes (item 8); and
-offload staging (item 9). ``distributed`` (``"dp"`` and its aliases), the
-oss/sddp/fsdp tiers and the gradient transports run.
+``CheckpointConfig`` (both formats, and offload staging), ``CommConfig``,
+``ServeConfig``, ``TensorboardConfig``, the data parallel ones
+(``DataParallelConfig``, ``MeshConfig``, ``DistributedInitConfig``,
+``OSSConfig``, ``SDDPConfig``, ``FSDPConfig``), the telemetry ones
+(``TelemetryConfig``, ``TraceConfig``, ``HealthConfig``,
+``ProfilerConfig``), ``ResilienceConfig`` and the three offload configs
+(:data:`LATER_CONFIGS`); ``DataParallelConfig.shard_seq_dim`` and a mesh
+of more than one axis or with cross-host axes (item 8). ``distributed``
+(``"dp"`` and its aliases), the oss/sddp/fsdp tiers and the gradient
+transports run.
 
 :func:`serve_config_error` holds the serving rules with the JAX package's
 messages, but for the rule that refuses the TPU decode kernel on the CPU:
@@ -84,10 +85,14 @@ from stoke_tpu_torch.configs import (
     asdict_config,
     comm_shard_updates,
 )
+from stoke_tpu_torch.resilience import (
+    _WATCHDOG_EXIT_CODE,
+    CHAOS_ENV,
+    parse_chaos,
+)
 
 _ITEM = "ROADMAP Queue 1 item"
 _LATER_MODEL_PARALLEL = f"{_ITEM} 8 (long context and model parallelism)"
-_LATER_STAGING = f"{_ITEM} 9 (offload and resilience)"
 _LATER_OBSERVATORIES = (f"{_ITEM} 10c (numerics, memory, attribution and "
                         f"the serving observatories)")
 _LATER_FLEET = f"{_ITEM} 10d (fleet, ops plane and input rebalancing)"
@@ -96,31 +101,24 @@ _LATER_REMAT = f"{_ITEM} 13 (rematerialization)"
 
 #: the config classes the port refuses after the legality rules, with the
 #: ROADMAP item that ports each (``CommConfig``, item 7,
-#: ``CheckpointConfig(format='sharded')``, item 6b, and the telemetry,
-#: trace, health and profiler configs, items 10a and 10b, are honoured)
+#: ``CheckpointConfig(format='sharded')``, item 6b, the telemetry, trace,
+#: health and profiler configs, items 10a and 10b, and ``ResilienceConfig``,
+#: the three offload configs and ``CheckpointConfig(offload_staging=True)``,
+#: item 9, are honoured)
 LATER_CONFIGS: Dict[str, str] = {
     "AttributionConfig": _LATER_OBSERVATORIES,
     "CompileConfig": _LATER_COMPILE,
-    "OffloadOptimizerConfig": _LATER_STAGING,
-    "OffloadParamsConfig": _LATER_STAGING,
-    "OffloadDiskConfig": _LATER_STAGING,
     "PartitionRulesConfig": _LATER_MODEL_PARALLEL,
     "ActivationCheckpointingConfig": _LATER_REMAT,
     "FleetConfig": _LATER_FLEET,
     "MemoryConfig": _LATER_OBSERVATORIES,
     "NumericsConfig": _LATER_OBSERVATORIES,
     "OpsPlaneConfig": _LATER_FLEET,
-    "ResilienceConfig": _LATER_STAGING,
 }
 
-#: the health watchdog's exit code and the fault injector's variable (the
-#: JAX package's, ``stoke_tpu/resilience.py:69,84``)
-WATCHDOG_EXIT_CODE = 113
-CHAOS_ENV = "STOKE_CHAOS"
-CHAOS_KILL_MODES: Tuple[str, ...] = ("sigterm", "sigkill", "exception")
-_CHAOS_INT_KEYS = ("kill_at_step", "corrupt_save", "wedge_at_step",
-                   "kill_during_save")
-_CHAOS_KEYS = sorted(_CHAOS_INT_KEYS + ("kill_mode", "wedge_s"))
+#: the health watchdog's exit code and the fault injector's variable, from
+#: their one source (:mod:`stoke_tpu_torch.resilience`)
+WATCHDOG_EXIT_CODE = _WATCHDOG_EXIT_CODE
 
 
 class StokeValidationError(ValueError):
@@ -176,56 +174,6 @@ def process_rank() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
-
-
-def check_chaos_spec(spec: Optional[str]) -> None:
-    """Raise ``ValueError`` with the JAX package's message when a fault
-    injection plan (``"kill_at_step=5,kill_mode=sigterm"``) does not parse
-    (``stoke_tpu/resilience.py:520``): an entry that is not key=value, an
-    unknown key or kill mode, a non-integer count; then a count under 1 or
-    a negative ``wedge_s``. None or blank is no plan."""
-    if not spec or not spec.strip():
-        return
-    values: Dict[str, Any] = {"wedge_s": 1.0}
-    for part in spec.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        if "=" not in part:
-            raise ValueError(
-                f"Stoke -- chaos spec entry {part!r} is not key=value"
-            )
-        key, _, value = part.partition("=")
-        key, value = key.strip(), value.strip()
-        if key not in _CHAOS_KEYS:
-            raise ValueError(
-                f"Stoke -- unknown chaos key {key!r}; valid: {_CHAOS_KEYS}"
-            )
-        if key == "kill_mode":
-            if value not in CHAOS_KILL_MODES:
-                raise ValueError(
-                    f"Stoke -- chaos kill_mode {value!r} unknown; valid: "
-                    f"{list(CHAOS_KILL_MODES)}"
-                )
-        elif key == "wedge_s":
-            values[key] = float(value)
-        else:
-            try:
-                values[key] = int(value)
-            except ValueError as e:
-                raise ValueError(
-                    f"Stoke -- chaos {key} needs an integer, got {value!r}"
-                ) from e
-    for key in _CHAOS_INT_KEYS:
-        v = values.get(key)
-        if v is not None and v < 1:
-            raise ValueError(
-                f"Stoke -- chaos {key} must be >= 1 (1-based), got {v}"
-            )
-    if values["wedge_s"] < 0:
-        raise ValueError(
-            f"Stoke -- chaos wedge_s must be >= 0, got {values['wedge_s']}"
-        )
 
 
 def _probe_writable(target: str) -> Optional[OSError]:
@@ -917,7 +865,7 @@ class StokeStatus:
         spec = cfg.chaos if cfg.chaos is not None else os.environ.get(
             CHAOS_ENV)
         try:
-            check_chaos_spec(spec)
+            parse_chaos(spec)
         except ValueError as e:
             return str(e)
         err = _probe_writable(cfg.save_path)
@@ -1187,12 +1135,6 @@ class StokeStatus:
              mesh is not None and (len(mesh.axes) > 1 or bool(mesh.dcn_axes)),
              _LATER_MODEL_PARALLEL),
         ]
-        ckpt = self._configs.get("CheckpointConfig")
-        if ckpt is not None:
-            later += [
-                ("CheckpointConfig(offload_staging=True) is",
-                 ckpt.offload_staging, _LATER_STAGING),
-            ]
         for what, on, item in later:
             if on:
                 raise NotImplementedError(

@@ -412,6 +412,8 @@ class Telemetry:
             hbm_bytes_in_use=(hbm or {}).get("bytes_in_use"),
             hbm_peak_bytes=(hbm or {}).get("peak_bytes_in_use"),
             hbm_bytes_limit=(hbm or {}).get("bytes_limit"),
+            resilience=(self.resilience.event_fields()
+                        if self.resilience is not None else None),
         )
         snapshot = self.registry.snapshot()
         for sink in self.sinks:

@@ -69,7 +69,10 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.telemetry.recorder",
                                     "stoke_tpu_torch.telemetry.collectors",
                                     "stoke_tpu_torch.telemetry.health",
-                                    "stoke_tpu_torch.telemetry.fleet"])
+                                    "stoke_tpu_torch.telemetry.fleet",
+                                    "stoke_tpu_torch.resilience",
+                                    "stoke_tpu_torch.offload",
+                                    "stoke_tpu_torch.supervise"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"
@@ -81,6 +84,37 @@ def test_import_loads_no_jax_module(module):
     ).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
     assert module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("how", ["import", "module"])
+def test_supervisor_loads_no_torch(how):
+    """The restart supervisor outlives a worker that wedged its CUDA
+    context: importing it, or running it as ``python -m``, loads neither
+    torch nor JAX (the package root loads its names lazily)."""
+    if how == "import":
+        cmd = [sys.executable, "-c",
+               "import sys, json, stoke_tpu_torch.supervise\n"
+               "print(json.dumps(sorted(sys.modules)))"]
+    else:
+        # the worker prints what the supervisor process had loaded by then
+        cmd = [sys.executable, "-c",
+               "import sys, json, runpy\n"
+               "sys.argv = ['supervise', '--max-restarts', '0', '--', "
+               "sys.executable, '-c', 'pass']\n"
+               "try:\n"
+               "    runpy.run_module('stoke_tpu_torch.supervise', "
+               "run_name='__main__')\n"
+               "except SystemExit as e:\n"
+               "    assert e.code == 0, e.code\n"
+               "print(json.dumps(sorted(sys.modules)))"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    # run as a module, it is __main__, beside the resilience module
+    assert ("stoke_tpu_torch.supervise" in loaded) == (how == "import")
+    assert "stoke_tpu_torch.resilience" in loaded
+    assert "torch" not in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

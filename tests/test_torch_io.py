@@ -432,10 +432,12 @@ def test_jax_loader_refuses_a_port_tag(tmp_path):
 
 
 def test_later_slice_settings_raise(tmp_path):
-    """Offload staging and ``resume`` wait for item 9. The sharded format,
-    refused here until item 6b, now writes a tag that loads back exactly
-    in both formats' runs (its multi-process cases are in
-    ``test_torch_io_distributed.py``)."""
+    """Settings refused here until their item landed, each now a case that
+    shows it runs: the sharded format (item 6b) writes a tag that loads
+    back exactly in both formats' runs (its multi-process cases are in
+    ``test_torch_io_distributed.py``); offload staging (item 9) writes an
+    async tag whose arrays are the synchronous save's; ``resume`` (item 9)
+    starts fresh without a tag and restores the newest one."""
     s = train_a_bit(make(fmt=CheckpointFormat.sharded))
     path = str(tmp_path / "ckpt")
     tag_dir = s.save(path)
@@ -447,8 +449,20 @@ def test_later_slice_settings_raise(tmp_path):
         s2.load(path)
         assert_same_state(s, s2)
         assert s2.optimizer_steps == 3
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make(configs=[CheckpointConfig(async_save=True,
-                                       offload_staging=True)])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make().resume()
+    staged = make(configs=[CheckpointConfig(async_save=True,
+                                            offload_staging=True)])
+    train_a_bit(staged)
+    staged_tag = staged.save(str(tmp_path / "staged"))
+    staged.wait_for_checkpoint()
+    sync_tag = train_a_bit(make()).save(str(tmp_path / "sync"))
+    for key in ("variables", "opt_state", "scaler_state"):
+        a = np.load(os.path.join(staged_tag, f"{key}.npz"))
+        b = np.load(os.path.join(sync_tag, f"{key}.npz"))
+        assert sorted(a.files) == sorted(b.files)
+        for n in a.files:
+            np.testing.assert_array_equal(a[n], b[n])
+    fresh = make()
+    assert fresh.resume() is False and fresh.optimizer_steps == 0
+    assert fresh.resume(path) is True
+    assert_same_state(s, fresh)
+    assert fresh.optimizer_steps == 3

@@ -166,9 +166,9 @@ REFUSED = {
 
 
 #: options refused here until their item landed (the transports, item 7,
-#: and the sharded checkpoint format, item 6b): each case now shows the
-#: status layer takes them
-LANDED = ("comm", "sharded_format")
+#: the sharded checkpoint format, item 6b, and optimizer offload, item
+#: 9): each case now shows the status layer takes them
+LANDED = ("comm", "sharded_format", "offload")
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
@@ -177,8 +177,9 @@ def test_later_options_name_their_item(case):
     if case in LANDED:
         st = StokeStatus(batch_size_per_device=4, device="cpu",
                          distributed="dp", configs=configs)
-        assert st.comm_config is not None or (
-            st.checkpoint_config.format is pc.CheckpointFormat.sharded)
+        assert (st.comm_config is not None
+                or st.offload_optimizer_config is not None
+                or st.checkpoint_config.format is pc.CheckpointFormat.sharded)
         return
     with pytest.raises(NotImplementedError, match=f"{LATER} {item}\\b"):
         StokeStatus(batch_size_per_device=4, device="cpu", distributed="dp",

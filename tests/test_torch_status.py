@@ -136,18 +136,18 @@ def test_unknown_and_later_configs():
 
     with pytest.raises(StokeValidationError, match="Unrecognized"):
         StokeStatus(batch_size_per_device=4, configs=[NotAConfig()])
-    # ServeConfig and CheckpointConfig are taken, the sharded format too
-    # (item 6b, refused here before it was ported); offload staging
-    # passes the JAX rules, then waits for its item
+    # ServeConfig and CheckpointConfig are taken, the sharded format and
+    # offload staging too (items 6b and 9, refused here before they were
+    # ported)
     serve = ServeConfig()
     st = StokeStatus(batch_size_per_device=4, configs=[serve])
     assert st.serve_config is serve
     sharded = CheckpointConfig(format=CheckpointFormat.sharded)
     st = StokeStatus(batch_size_per_device=4, configs=[sharded])
     assert st.checkpoint_config is sharded
-    with pytest.raises(NotImplementedError, match=f"{LATER} 9 "):
-        StokeStatus(batch_size_per_device=4, configs=[CheckpointConfig(
-            async_save=True, offload_staging=True)])
+    staged = CheckpointConfig(async_save=True, offload_staging=True)
+    st = StokeStatus(batch_size_per_device=4, configs=[staged])
+    assert st.checkpoint_config is staged
 
 
 def test_defaults_and_effective_batch():
@@ -229,10 +229,9 @@ def test_step_before_boundary_is_a_noop():
 
 
 def test_later_entry_points_raise():
-    # save and load landed with item 6a; verified resume and the cost card
-    # wait for items 9 and 10c
+    # save and load landed with item 6a and verified resume with item 9
+    # (without a checkpoint it starts fresh); the cost card waits for 10c
     s = _stoke()
-    for call, item in ((s.resume, "item 9"),
-                       (s.estimate_step_cost, "item 10c")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    assert s.resume() is False and s.optimizer_steps == 0
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        s.estimate_step_cost()

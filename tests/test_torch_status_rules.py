@@ -130,7 +130,9 @@ def test_config_tuple_enums_and_helpers():
                 "DataParallelConfig", "MeshConfig", "DistributedInitConfig",
                 "OSSConfig", "SDDPConfig", "FSDPConfig", "CommConfig",
                 "TelemetryConfig", "TraceConfig", "HealthConfig",
-                "ProfilerConfig"}
+                "ProfilerConfig", "ResilienceConfig",
+                "OffloadOptimizerConfig", "OffloadDiskConfig",
+                "OffloadParamsConfig"}
     assert set(LATER_CONFIGS) == {c.__name__ for c in
                                   pc.ALL_CONFIG_CLASSES} - honoured
 
@@ -141,7 +143,11 @@ NOW_HONOURED = {"CommConfig": "comm_config",
                 "HealthConfig": "health_config",
                 "ProfilerConfig": "profiler_config",
                 "TelemetryConfig": "telemetry_config",
-                "TraceConfig": "trace_config"}
+                "TraceConfig": "trace_config",
+                "OffloadDiskConfig": "offload_disk_config",
+                "OffloadOptimizerConfig": "offload_optimizer_config",
+                "OffloadParamsConfig": "offload_params_config",
+                "ResilienceConfig": "resilience_config"}
 #: the item each refused class names: 10c the observatories, 10d the
 #: fleet and ops plane
 LATER_ITEMS = {"AttributionConfig": "10c", "MemoryConfig": "10c",
@@ -153,7 +159,7 @@ LATER_ITEMS = {"AttributionConfig": "10c", "MemoryConfig": "10c",
 def test_each_later_class_is_refused_naming_its_item(name, tmp_path):
     """Every class the port does not run raises naming its ROADMAP item
     (the observatories item 10c, the fleet and ops plane 10d); those of
-    items 7, 10a and 10b run now and the status holds them."""
+    items 7, 9, 10a and 10b run now and the status holds them."""
     kw = dict(batch_size_per_device=8, device="cpu")
     needs_dp = {"CommConfig", "MeshConfig", "PartitionRulesConfig"}
     needs_tel = {"AttributionConfig", "FleetConfig", "NumericsConfig",

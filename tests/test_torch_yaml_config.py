@@ -250,6 +250,17 @@ def test_a_refused_class_names_its_item(name, fields, item, tmp_path,
                                         monkeypatch):
     monkeypatch.chdir(tmp_path)
     configs = {name: fields}
+    if item == "item 9":
+        # landed: the document builds the run (on the CPU the host tier
+        # warns and keeps the state where it is)
+        with pytest.warns(UserWarning, match="host offload unsupported"):
+            s = stoke_from_config(
+                torch.nn.Linear(2, 2), lambda o, y: o.sum(), None,
+                {"batch_size_per_device": 4, "device": "cpu",
+                 "optimizer": {"name": "sgd", "learning_rate": 1},
+                 "configs": configs})
+        assert type(s.status.offload_optimizer_config).__name__ == name
+        return
     if name == "NumericsConfig":  # the observatories need a pipeline
         configs["TelemetryConfig"] = {"jsonl": False, "prometheus": False}
     with pytest.raises(NotImplementedError, match=f"{name} is not ported "
