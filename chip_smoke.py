@@ -241,6 +241,26 @@ Phases, one JSON line each; any failure exits nonzero:
    ``OffloadParamsConfig``: bit for bit against the same tier without
    offload, the state pinned or spilled between steps, the peak device
    bytes after the first step and the step ms.
+21. train_remat: GPT-base bf16 with dropout 0.1 without and with
+   ``remat=True`` (each block recomputed in backward, its dropout masks
+   replayed): 6 eager steps and ``train_steps`` of 3 windows to step 12,
+   losses and masters bit for bit, then timed replays; eager and
+   replayed step ms p50 and the peak device bytes of each; the flash
+   forward launched exactly twice as often as each backward kernel; one
+   eager step and two windows under each ``ActivationCheckpointingConfig``
+   policy (captured under the selective policies too), bit for bit; the
+   untied head (``tie_embeddings=False``) trains.
+22. observatories: GPT-base bf16 with ``TelemetryConfig``,
+   ``AttributionConfig(peak_tflops=989, peak_hbm_gbps=3350)``,
+   ``MemoryConfig`` and ``NumericsConfig`` against the same run without:
+   losses, parameters and dispatches bit for bit; the ledger against the
+   allocator's bytes between steps, the pre-flight's prediction; the
+   fused card's FLOPs against ``estimate_step_flops``; every logged
+   ``mfu`` and ``hbm_bw_util`` in (0, 1]; a replayed window's numerics
+   rows against the host's recompute; then the serve trace (decode
+   kernel) and the speculative trace (verify kernel) plain and with cost
+   cards, SLO targets and a ``MemoryConfig``: streams equal, MFU and
+   bandwidth utilization in (0, 1], the SLO counts, TPOT p50 of each.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -4988,6 +5008,495 @@ def offload(ops) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: rematerialization and GPT's untied head
+# --------------------------------------------------------------------------- #
+
+
+#: the compared schedule (eager steps, then train_steps of REMAT_SEGMENT
+#: windows to REMAT_STEPS), then REMAT_TIMED_SEGMENTS more timed segments
+REMAT_EAGER, REMAT_STEPS, REMAT_SEGMENT = 6, 12, 3
+REMAT_TIMED_SEGMENTS = 5
+REMAT_DROPOUT = 0.1
+ENGINE_POLICIES = ("nothing_saveable", "dots_saveable",
+                   "dots_with_no_batch_dims_saveable", "everything_saveable")
+
+
+def remat_stoke(remat: bool = False, policy: str = None, tie: bool = True,
+                dropout: float = REMAT_DROPOUT):
+    """GPT-base bf16 (flash, dropout on the embeddings and residuals) with
+    per-block remat (``remat``), an engine policy
+    (``ActivationCheckpointingConfig``) or the untied head."""
+    from stoke_tpu_torch.configs import ActivationCheckpointingConfig
+    from stoke_tpu_torch.models.gpt import GPT
+    from stoke_tpu_torch.ops import make_flash_attention
+
+    model = GPT(vocab_size=VOCAB, size_name="base", max_len=1024,
+                dropout_rate=dropout,
+                attention_fn=make_flash_attention(causal=True),
+                attention_is_causal=True, tie_embeddings=tie, remat=remat,
+                device="cuda")
+    for block in model.layers:
+        block.attention.prob_dropout.rate = 0.0
+    model.init_weights(SEED)
+    configs = ([ActivationCheckpointingConfig(policy=policy)]
+               if policy is not None else None)
+    return stoke_for(model, "bf16", TRAIN_BATCH, seed=SEED, configs=configs)
+
+
+def remat_run(ops, batches, remat: bool) -> dict:
+    """The compared schedule and the timed segments of one run: losses by
+    step, the masters' digest at REMAT_STEPS, eager step ms, replayed step
+    ms (a segment's ms over its windows), the peak device bytes of the
+    whole run and the flash launches."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(ops.LAUNCHES)
+    s = remat_stoke(remat=remat)
+    losses, eager_ms = eager_steps(s, [batches[i]
+                                       for i in range(REMAT_EAGER)])
+    seg_ms = []
+    step = REMAT_EAGER
+    stop = REMAT_STEPS + REMAT_TIMED_SEGMENTS * REMAT_SEGMENT
+    digest = None
+    while step < stop:
+        seg = batches[step:step + REMAT_SEGMENT]
+        out = []
+        seg_ms.append(timed_ms(lambda: out.append(s.train_steps(seg, seg))))
+        losses += [float(v) for v in out[0].reshape(-1).tolist()]
+        step += REMAT_SEGMENT
+        if step == REMAT_STEPS:
+            digest = masters_digest(s)
+    peak = torch.cuda.max_memory_allocated()
+    launches = flash_delta(ops, before)
+    replayed = [m / REMAT_SEGMENT for m in
+                seg_ms[(REMAT_STEPS - REMAT_EAGER) // REMAT_SEGMENT:]]
+    out = {"losses": losses, "digest": digest, "final": masters_digest(s),
+           "steps": s.optimizer_steps, "launches": launches,
+           "eager_ms": eager_ms,
+           "eager_ms_p50": float(np.median(eager_ms[WARMUP_STEPS:])),
+           "replayed_ms": replayed,
+           "replayed_ms_p50": float(np.median(replayed)),
+           "peak_bytes": peak,
+           "windows_captured": len(s._engine._windows)}
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_policy_run(ops, batches, policy: str = None) -> dict:
+    """One eager step, then ``train_steps`` of two windows (the first
+    eager and captured, the second replayed) under an engine policy."""
+    before = dict(ops.LAUNCHES)
+    s = remat_stoke(policy=policy)
+    losses = [float(s.train_step(batches[0], batches[0]))]
+    losses += [float(v) for v in
+               s.train_steps(batches[1:3], batches[1:3]).reshape(-1).tolist()]
+    out = {"losses": losses, "digest": masters_digest(s),
+           "launches": flash_delta(ops, before),
+           "windows_captured": len(s._engine._windows)}
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_remat(ops) -> dict:
+    """GPT-base bf16 (B=8, L=1024, dropout 0.1, flash) without and with
+    ``remat=True`` (each block recomputed in backward, its dropout masks
+    replayed): 6 eager steps and ``train_steps`` of 3 windows to step 12,
+    losses and masters bit for bit; then three timed segments of 3
+    replays each. Eager and replayed step ms p50 and the peak device bytes
+    of each run; the flash forward kernel launched twice as often as each
+    backward kernel under remat. One eager step and a two-window
+    ``train_steps`` under each engine policy
+    (``ActivationCheckpointingConfig``, the windows captured under the
+    selective policies' dispatch modes), bit for bit against the same
+    without; GPT-base with the untied head trains (its loss falls over
+    three steps on one batch)."""
+    t0 = time.perf_counter()
+    n = REMAT_STEPS + REMAT_TIMED_SEGMENTS * REMAT_SEGMENT
+    batches = window_batches(n)
+    failures = []
+    runs = {name: remat_run(ops, batches, remat)
+            for name, remat in (("plain", False), ("remat", True))}
+    plain, rem = runs["plain"], runs["remat"]
+    compared = REMAT_STEPS
+    if plain["losses"][:compared] != rem["losses"][:compared] or \
+            plain["digest"] != rem["digest"]:
+        failures.append(f"remat vs plain: losses {rem['losses'][:compared]} "
+                        f"vs {plain['losses'][:compared]}, masters equal "
+                        f"{plain['digest'] == rem['digest']}")
+    if plain["losses"] != rem["losses"] or plain["final"] != rem["final"]:
+        failures.append("remat vs plain: the timed segments differ")
+    steps = plain["steps"]
+    per_step = N_LAYERS * steps
+    if plain["launches"] != dict.fromkeys(FLASH, per_step):
+        failures.append(f"plain launches {plain['launches']}")
+    if rem["launches"] != {"flash_fwd": 2 * per_step,
+                           "flash_bwd_dq": per_step,
+                           "flash_bwd_dkv": per_step}:
+        failures.append(f"remat launches {rem['launches']}, expected the "
+                        f"forward twice each backward kernel's {per_step}")
+    if not (plain["windows_captured"] and rem["windows_captured"]):
+        failures.append("a window was not captured")
+    if not rem["peak_bytes"] < plain["peak_bytes"]:
+        failures.append(f"remat's peak {rem['peak_bytes']} is not below the "
+                        f"plain run's {plain['peak_bytes']}")
+    policies = {"none": remat_policy_run(ops, batches)}
+    for policy in ENGINE_POLICIES:
+        policies[policy] = remat_policy_run(ops, batches, policy)
+    ref = policies["none"]
+    for policy in ENGINE_POLICIES:
+        r = policies[policy]
+        if r["losses"] != ref["losses"] or r["digest"] != ref["digest"]:
+            failures.append(f"policy {policy}: losses {r['losses']} vs "
+                            f"{ref['losses']}")
+        if r["windows_captured"] != 1:
+            failures.append(f"policy {policy}: windows captured "
+                            f"{r['windows_captured']}")
+        fwd = (1 if policy == "everything_saveable" else 2) * 3 * N_LAYERS
+        if r["launches"]["flash_fwd"] != fwd:
+            failures.append(f"policy {policy}: launches {r['launches']}")
+    s = remat_stoke(tie=False, dropout=0.0)
+    untied = [float(s.train_step(batches[0], batches[0])) for _ in range(3)]
+    if not (untied[-1] < untied[0]) or not all(np.isfinite(untied)):
+        failures.append(f"untied head: losses {untied}")
+    untied_head = tuple(s.model_access.lm_head.weight.shape)
+    del s
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("train_remat: " + "; ".join(failures))
+    launches = {n_: plain["launches"][n_] + rem["launches"][n_]
+                + sum(r["launches"][n_] for r in policies.values())
+                for n_ in FLASH}
+    return {
+        "phase": "train_remat",
+        "model": "GPT-base (12 x 768, 12 heads, ff 3072, vocab 50257), "
+                 "bf16 over fp32 masters, B=8, L=1024, dropout 0.1, flash, "
+                 "AdamW, clip 1.0",
+        "losses_equal": True, "masters_equal": True, "steps": steps,
+        "plain": {k: plain[k] for k in ("eager_ms_p50", "replayed_ms_p50",
+                                        "peak_bytes", "launches",
+                                        "eager_ms", "replayed_ms")},
+        "remat": {k: rem[k] for k in ("eager_ms_p50", "replayed_ms_p50",
+                                      "peak_bytes", "launches",
+                                      "eager_ms", "replayed_ms")},
+        "peak_drop_bytes": plain["peak_bytes"] - rem["peak_bytes"],
+        "eager_ms_added": rem["eager_ms_p50"] - plain["eager_ms_p50"],
+        "replayed_ms_added": rem["replayed_ms_p50"]
+        - plain["replayed_ms_p50"],
+        "losses": plain["losses"],
+        "policies": {p: {"losses_equal": True,
+                         "launches": policies[p]["launches"],
+                         "windows_captured":
+                             policies[p]["windows_captured"]}
+                     for p in ENGINE_POLICIES},
+        "untied": {"losses": untied, "lm_head": untied_head},
+        "launches": launches,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+# --------------------------------------------------------------------------- #
+# phase 22: the observatories (attribution, memory, numerics; serve SLO and
+# cost cards)
+# --------------------------------------------------------------------------- #
+
+
+OBS_EAGER, OBS_TIMED = 6, 5
+OBS_PEAKS = dict(peak_tflops=989.0, peak_hbm_gbps=3350.0)
+#: the ledger against the allocator's bytes between steps (the tensors the
+#: run holds are the ledger's; what else is allocated is the allocator's)
+OBS_LEDGER_RTOL = 0.01
+#: the numerics rows against the host's fp64 recompute
+OBS_NUMERICS_RTOL = 1e-5
+OBS_SLO = dict(slo_ttft_target_s=2.0, slo_tpot_target_s=0.05)
+
+
+def obs_run(ops, batches, observe: bool, root: str) -> dict:
+    """GPT-base bf16 with or without ``TelemetryConfig``,
+    ``AttributionConfig``, ``MemoryConfig`` and ``NumericsConfig``:
+    OBS_EAGER eager ``train_step``s, ``train_steps`` of two windows (the
+    first eager and captured), then one more window replayed with the
+    parameters read before and after it. With the observatories: the
+    ledger against the allocator between steps, the pre-flight's
+    prediction, the numerics rows of the replayed window against the
+    host's recompute, the fused card's FLOPs against
+    ``estimate_step_flops``, every logged ``mfu`` and ``hbm_bw_util``."""
+    from stoke_tpu_torch.configs import (
+        AttributionConfig,
+        MemoryConfig,
+        NumericsConfig,
+        TelemetryConfig,
+    )
+
+    configs = None
+    if observe:
+        configs = [TelemetryConfig(output_dir=root, log_every_n_steps=1,
+                                   prometheus=False, tensorboard=False),
+                   AttributionConfig(**OBS_PEAKS), MemoryConfig(),
+                   NumericsConfig()]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(ops.LAUNCHES)
+    s = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, seed=SEED,
+                  configs=configs)
+    out = {}
+    if observe:
+        out["preflight"] = s.memory_summary["preflights"]["build"]
+    losses, ms = eager_steps(s, [batches[i] for i in range(OBS_EAGER)])
+    if observe:
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - base
+        resident = s.memory.resident_bytes()
+        out["ledger"] = {"resident_bytes": resident,
+                         "allocated_bytes": allocated,
+                         "gap_bytes": allocated - resident,
+                         "components": s.memory.ledger()}
+    seg = batches[OBS_EAGER:OBS_EAGER + 2]
+    losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+    replay_ms = []
+    for i in range(OBS_TIMED):
+        b = batches[OBS_EAGER + 2 + i:OBS_EAGER + 3 + i]
+        replay_ms.append(timed_ms(lambda: losses.extend(
+            float(v) for v in s.train_steps(b, b).reshape(-1))))
+    params = [p for p in s.model_access.parameters()]
+    old = [p.detach().double().cpu() for p in params]
+    last = batches[-1:]
+    losses += [float(v) for v in s.train_steps(last, last).reshape(-1)]
+    out.update(losses=losses, digest=masters_digest(s),
+               launches=flash_delta(ops, before), eager_ms=ms,
+               eager_ms_p50=float(np.median(ms[WARMUP_STEPS:])),
+               replayed_ms=replay_ms,
+               replayed_ms_p50=float(np.median(replay_ms)),
+               dispatches=s.dispatch_count,
+               windows_captured=len(s._engine._windows))
+    if not observe:
+        # the memory observatory resets the peak statistic at each
+        # program's first run: the observed run's programs carry theirs
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if observe:
+        new = [p.detach().double().cpu() for p in params]
+        row = s._engine.numerics_row.double().cpu().numpy()
+        worst = 0.0
+        for g, group in enumerate(s.numerics.groups):
+            p_sq = sum(float(new[i].square().sum())
+                       for i in group.param_indices)
+            u_sq = sum(float((new[i] - old[i]).square().sum())
+                       for i in group.param_indices)
+            worst = max(worst, abs(row[g, 3] - p_sq) / p_sq,
+                        abs(row[g, 4] - u_sq) / max(u_sq, 1e-30))
+        out["numerics_rel_err"] = worst
+        out["numerics_groups"] = [g.name for g in s.numerics.groups]
+        cards = {k[0]: c for k, c in s.attribution.cost_cards.cards.items()}
+        out["cards"] = {k: c.to_dict() for k, c in cards.items()}
+        out["memory"] = s.memory_summary
+        out["goodput"] = s.goodput
+        s.close_telemetry()
+        with open(os.path.join(root, "steps.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        out["mfu"] = [r["mfu"] for r in recs]
+        out["hbm_bw_util"] = [r["hbm_bw_util"] for r in recs]
+        out["estimate_step_flops"] = s.estimate_step_flops(batches[0],
+                                                           batches[0])
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def obs_drive(engine, prompts, slo=None) -> tuple:
+    """:func:`drive`'s three waves, each request with ``slo``."""
+    kw = {} if slo is None else {"slo": slo}
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, **kw) for p in prompts[:8]]
+    for _ in range(4):
+        engine.step()
+    rids += [engine.submit(p, **kw) for p in prompts[8:12]]
+    for _ in range(8):
+        engine.step()
+    rids += [engine.submit(p, **kw) for p in prompts[12:]]
+    engine.run()
+    wall = time.perf_counter() - t0
+    return [list(engine.result(r).tokens) for r in rids], wall
+
+
+def obs_serve(ops) -> dict:
+    """The serve trace (GPT-base fp32, the ``serve`` phase's prompts) on
+    the decode kernel and the speculative trace on the verify kernel,
+    each plain and with ``ServeConfig(cost_cards=True)``, the SLO targets
+    (every request tagged), the run's peaks and a ``MemoryConfig``, each
+    engine driven twice: the first drive counts each program's card at
+    its first dispatch, the second runs on the cards (TTFT and TPOT p50 of
+    both, beside the plain engine's drives). Streams equal, MFU and
+    bandwidth utilization in (0, 1], the SLO tracker's counts the two
+    drives' requests."""
+    import dataclasses
+
+    from stoke_tpu_torch.configs import (
+        AttributionConfig,
+        MemoryConfig,
+        ServeConfig,
+    )
+    from stoke_tpu_torch.models.gpt import GPT
+    from stoke_tpu_torch.serving import ServingEngine
+    from stoke_tpu_torch.serving.slo import RequestSLO
+
+    model = GPT(size_name="base", device="cuda")
+    model.init_weights(SEED)
+    weights = model.state_dict()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, model.vocab_size, size=int(n))
+               for n in rng.integers(16, 401, size=16)]
+    spec_prompts = requote_prompts(np.random.default_rng(SEED + 1),
+                                   model.vocab_size)
+    traces = {
+        "decode": (ServeConfig(attention="flash", decode_kernel="pallas",
+                               **SERVE), prompts),
+        "verify": (ServeConfig(**SPEC, speculative_k=SPEC_K), spec_prompts),
+    }
+    out, failures = {}, []
+    for name, (cfg, ps) in traces.items():
+        # warm the libraries outside the measured drives
+        ServingEngine(model, weights, cfg).generate([ps[0][:16]], 2)
+        ops.reset_launches()
+        plain = ServingEngine(model, weights, cfg)
+        plain_streams, _ = obs_drive(plain, ps)
+        plain_cold = plain.metrics.latency_percentiles()
+        plain.metrics.reset_latency_reservoirs()
+        obs_drive(plain, ps)
+        obs_cfg = dataclasses.replace(cfg, cost_cards=True, **OBS_SLO)
+        before = dict(ops.LAUNCHES)
+        engine = ServingEngine(model, weights, obs_cfg,
+                               attribution=AttributionConfig(**OBS_PEAKS),
+                               memory=MemoryConfig())
+        streams, wall = obs_drive(engine, ps, RequestSLO())
+        cold = engine.metrics.latency_percentiles()
+        engine.metrics.reset_latency_reservoirs()
+        warm_streams, _ = obs_drive(engine, ps, RequestSLO())
+        launches = {k: ops.LAUNCHES[k] - before[k]
+                    for k in ("flash_fwd", "paged_decode", "paged_verify")}
+        s, ps_ = engine.summary(), plain.summary()
+        cost, slo = s["cost"], s["slo"]
+        if streams != plain_streams or warm_streams != plain_streams:
+            failures.append(f"{name}: the streams differ from the plain "
+                            f"engine's")
+        for key in ("mfu", "hbm_bw_util"):
+            if not (cost[key] is not None and 0 < cost[key] <= 1):
+                failures.append(f"{name}: {key} {cost[key]}")
+        if not (slo["requests"] == slo["finished"] == 2 * len(ps)):
+            failures.append(f"{name}: SLO counts {slo['requests']} / "
+                            f"{slo['finished']} of 2 x {len(ps)}")
+        kernel = "paged_verify" if name == "verify" else "paged_decode"
+        if not launches[kernel]:
+            failures.append(f"{name}: {kernel} never launched")
+        out[name] = {
+            "streams_equal": True,
+            "tpot_p50_s": s["tpot_p50_s"], "plain_tpot_p50_s":
+                ps_["tpot_p50_s"], "ttft_p50_s": s["ttft_p50_s"],
+            "plain_ttft_p50_s": ps_["ttft_p50_s"],
+            "cold_tpot_p50_s": cold["tpot_p50_s"],
+            "plain_cold_tpot_p50_s": plain_cold["tpot_p50_s"],
+            "cold_ttft_p50_s": cold["ttft_p50_s"],
+            "plain_cold_ttft_p50_s": plain_cold["ttft_p50_s"],
+            "cold_wall_s": wall,
+            "cost": {k: cost[k] for k in (
+                "mfu", "hbm_bw_util", "flops_per_token",
+                "attainable_tpot_s", "achieved_tpot_s", "decode_bound",
+                "decode_intensity", "verify_intensity", "flops_total",
+                "bytes_total")},
+            "cards": cost["cards"],
+            "slo": {k: slo[k] for k in ("requests", "finished", "attained",
+                                        "violated", "ttft_attainment",
+                                        "tpot_attainment")},
+            "memory": s["memory"]["components"],
+            "mem_headroom_bytes": engine.event_fields()[
+                "serve/mem_headroom_bytes"],
+            "launches": launches,
+        }
+        del engine, plain
+        torch.cuda.empty_cache()
+    return out, failures
+
+
+def observatories(ops) -> dict:
+    """GPT-base bf16 with the training observatories against the same run
+    without: losses, parameters and dispatches bit for bit; the ledger
+    within OBS_LEDGER_RTOL of the allocator's bytes between steps; the
+    fused card's FLOPs equal to ``estimate_step_flops``; every logged
+    ``mfu`` and ``hbm_bw_util`` in (0, 1]; the numerics rows of a replayed
+    window equal to the host's recompute. Then the serve and speculative
+    traces with cost cards and SLO targets (:func:`obs_serve`)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="stoke-obs-")
+    try:
+        batches = window_batches(OBS_EAGER + 3 + OBS_TIMED)
+        plain = obs_run(ops, batches, False, root)
+        obs = obs_run(ops, batches, True, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failures = []
+    for key in ("losses", "digest", "launches", "dispatches"):
+        if plain[key] != obs[key]:
+            failures.append(f"{key}: {obs[key]} vs {plain[key]}")
+    led = obs["ledger"]
+    if abs(led["gap_bytes"]) > OBS_LEDGER_RTOL * led["resident_bytes"]:
+        failures.append(f"ledger {led['resident_bytes']} against "
+                        f"{led['allocated_bytes']} allocated")
+    fused = obs["cards"].get("fused")
+    if fused is None or fused["flops"] != obs["estimate_step_flops"]:
+        failures.append(f"fused card {fused} against estimate_step_flops "
+                        f"{obs['estimate_step_flops']}")
+    for key in ("mfu", "hbm_bw_util"):
+        vals = obs[key][1:]
+        if not vals or not all(v is not None and 0 < v <= 1 for v in vals):
+            failures.append(f"{key}: {obs[key]}")
+    if not obs["numerics_rel_err"] <= OBS_NUMERICS_RTOL:
+        failures.append(f"numerics rows {obs['numerics_rel_err']} off the "
+                        f"host's recompute")
+    if obs["windows_captured"] != 1:
+        failures.append(f"windows captured {obs['windows_captured']}")
+    served, serve_failures = obs_serve(ops)
+    failures += serve_failures
+    if failures:
+        raise AssertionError("observatories: " + "; ".join(failures))
+    launches = {**{k: obs["launches"][k] for k in FLASH},
+                "serve_flash_fwd": sum(v["launches"]["flash_fwd"]
+                                       for v in served.values()),
+                "paged_decode": served["decode"]["launches"]["paged_decode"],
+                "paged_verify": served["verify"]["launches"]["paged_verify"]}
+    return {
+        "phase": "observatories",
+        "model": "GPT-base bf16, B=8, L=1024, flash, AdamW, clip 1.0; "
+                 "serving GPT-base fp32 (the serve and serve_spec traces)",
+        "bit_for_bit": True,
+        "eager_ms_p50": {"plain": plain["eager_ms_p50"],
+                         "observed": obs["eager_ms_p50"]},
+        "replayed_ms_p50": {"plain": plain["replayed_ms_p50"],
+                            "observed": obs["replayed_ms_p50"]},
+        "replayed_ms": {"plain": plain["replayed_ms"],
+                        "observed": obs["replayed_ms"]},
+        "peak_bytes_plain": plain["peak_bytes"],
+        "preflight": obs["preflight"],
+        "predicted_peak_bytes": obs["memory"]["predicted_peak_bytes"],
+        "ledger": led, "memory": obs["memory"],
+        "cards": obs["cards"],
+        "estimate_step_flops": obs["estimate_step_flops"],
+        "mfu": obs["mfu"], "hbm_bw_util": obs["hbm_bw_util"],
+        "goodput": obs["goodput"],
+        "numerics_rel_err": obs["numerics_rel_err"],
+        "numerics_groups": obs["numerics_groups"],
+        "serve": served,
+        "launches": launches,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
 def quant_rows(cases, comm, served, elastic) -> list:
     """The kernels line's rows of the quantize pair: ``ms`` and its
     bound at the 25 MB bucket (stochastic, chunk 512), the case the
@@ -5130,6 +5639,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     off = offload(ops)
     emit({**off, "card": smi})
+    torch.cuda.empty_cache()
+    remat = train_remat(ops)
+    emit({**remat, "card": smi})
+    torch.cuda.empty_cache()
+    obsv = observatories(ops)
+    emit({**obsv, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -5153,6 +5668,9 @@ def main() -> int:
             # the resilience phase's in-process lives and the offload runs
             out["launches_train_resilience"] = res["launches"][tel_key]
             out["launches_offload"] = off["launches"][tel_key]
+            # remat's runs (the forward twice a step) and the observatories'
+            out["launches_train_remat"] = remat["launches"][tel_key]
+            out["launches_observatories"] = obsv["launches"][tel_key]
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]
@@ -5234,14 +5752,16 @@ def main() -> int:
                max(x["max_abs_err"] for x in decode), decode[0]),
          "graph_ms": decode[0]["graph_ms"],
          "launches_serve_traced":
-             tel["serve_traced"]["launches"]["paged_decode"]},
+             tel["serve_traced"]["launches"]["paged_decode"],
+         "launches_observatories": obsv["launches"]["paged_decode"]},
         # launches: the greedy and the sampled speculative runs
         {**row("paged_verify", "paged_verify", list(VERIFY_KERNELS),
                "stoke_tpu/ops/flash_attention.py:836",
                spec["greedy"]["launches"]["paged_verify"]
                + spec["sampled"]["launches"]["paged_verify"],
                max(x["max_abs_err"] for x in verify), verify[0]),
-         "graph_ms": verify[0]["graph_ms"]},
+         "graph_ms": verify[0]["graph_ms"],
+         "launches_observatories": obsv["launches"]["paged_verify"]},
         *quant_rows(quant, comm, squant, res["elastic"]["launches"]),
     ]})
     print(smi, flush=True)

@@ -17,8 +17,9 @@ What it covers so far:
   flash attention's forward and backward on the CUDA kernels;
 - every config class and status rule of the JAX package (the port
   honours the precision, clip, checkpoint, serve, TensorBoard, data
-  parallel, transport, telemetry, trace, health and profiler configs and
-  refuses the others naming their ROADMAP item), a run described as a
+  parallel, transport, telemetry, trace, health, profiler, resilience,
+  offload, observatory and remat configs and refuses the others naming
+  their ROADMAP item), a run described as a
   YAML document or dict (:func:`stoke_tpu_torch.utils.stoke_from_config`),
   and ragged token sequences batched by the C++ batcher under
   :class:`BucketedDistributedSampler`;
@@ -40,8 +41,15 @@ What it covers so far:
   step events in the JAX schema, a Prometheus file and TensorBoard
   (:class:`TelemetryConfig`), host span traces in Perfetto's format
   (:class:`TraceConfig`), on-device sentinels with anomaly detectors,
-  post-mortem bundles and a hang watchdog (:class:`HealthConfig`), and
-  ``torch.profiler`` traces (:class:`ProfilerConfig`);
+  post-mortem bundles and a hang watchdog (:class:`HealthConfig`),
+  ``torch.profiler`` traces (:class:`ProfilerConfig`), and the
+  observatories: cost cards, MFU and goodput (:class:`AttributionConfig`),
+  per-layer numerics (:class:`NumericsConfig`), the device-memory ledger
+  (:class:`MemoryConfig`), and the serving engine's SLO tracking and cost
+  cards;
+- rematerialization (:mod:`stoke_tpu_torch.remat`):
+  :class:`ActivationCheckpointingConfig` and the models' ``remat=True``,
+  the dropout masks replayed in the recompute;
 - resilience (:mod:`stoke_tpu_torch.resilience`): preemption-safe
   emergency saves, digest manifests, verified resume with quarantine,
   elastic resume with the residual remap, the fault injector, and the
@@ -59,12 +67,16 @@ from typing import Any
 
 #: public name -> the module that defines it
 _EXPORTS = {
+    "ActivationCheckpointingConfig": "configs",
     "ArrayDataset": "data",
+    "AttributionConfig": "configs",
     "BucketedDistributedSampler": "data",
     "CheckpointConfig": "configs",
     "ClipGradConfig": "configs",
     "ClipGradNormConfig": "configs",
     "HealthConfig": "configs",
+    "MemoryConfig": "configs",
+    "NumericsConfig": "configs",
     "OffloadDiskConfig": "configs",
     "OffloadOptimizerConfig": "configs",
     "PrecisionConfig": "configs",

@@ -454,9 +454,10 @@ REMAT_POLICIES: Tuple[str, ...] = (
 @dataclass
 class ActivationCheckpointingConfig:
     """Rematerialization of the model step under a saving ``policy`` (one
-    of :data:`REMAT_POLICIES`). Refused until ROADMAP Queue 1 item 13
-    (rematerialization): a recomputed block must replay the dropout masks
-    its forward drew from the Stoke generator."""
+    of :data:`REMAT_POLICIES`; :mod:`stoke_tpu_torch.remat`). The
+    recompute replays the dropout masks its forward drew from the Stoke
+    generator. ``prevent_cse`` is a parity field: eager PyTorch has no
+    common-subexpression pass to prevent."""
 
     policy: str = "nothing_saveable"
     prevent_cse: bool = True
@@ -464,7 +465,8 @@ class ActivationCheckpointingConfig:
 
 # --------------------------------------------------------------------------- #
 # observability: TensorBoard, telemetry, tracing, health and the profiler
-# (honoured); the observatories of ROADMAP items 10c and 10d (refused)
+# and the observatories of ROADMAP item 10c (honoured); those of item 10d
+# (refused)
 # --------------------------------------------------------------------------- #
 
 
@@ -562,8 +564,8 @@ class HealthConfig:
 class AttributionConfig:
     """Step-time attribution: MFU and roofline gauges against
     ``peak_tflops`` / ``peak_hbm_gbps`` / ``ici_gbps``, a goodput ledger
-    and anomaly-triggered profiler captures. Needs a ``TelemetryConfig``;
-    refused until ROADMAP Queue 1 item 10c."""
+    and anomaly-triggered profiler captures. Needs a ``TelemetryConfig``
+    (:mod:`stoke_tpu_torch.telemetry.attribution`)."""
 
     peak_tflops: float = 0.0
     peak_hbm_gbps: float = 0.0
@@ -605,7 +607,7 @@ class FleetConfig:
 class NumericsConfig:
     """The per-layer numerics observatory: per-module gradient and update
     statistics, NaN provenance and quantization-error attribution. Needs a
-    ``TelemetryConfig``; refused until ROADMAP Queue 1 item 10c."""
+    ``TelemetryConfig`` (:mod:`stoke_tpu_torch.telemetry.numerics`)."""
 
     grad_stats: bool = True
     provenance_action: str = "warn"
@@ -618,8 +620,8 @@ class NumericsConfig:
 class MemoryConfig:
     """The device-memory observatory: a per-subsystem ledger, an OOM
     pre-flight at ``oom_margin_frac`` of ``capacity_bytes`` (None reads
-    the device) and per-program peaks. Needs a ``TelemetryConfig``;
-    refused until ROADMAP Queue 1 item 10c."""
+    the device) and per-program peaks. Needs a ``TelemetryConfig``
+    (:mod:`stoke_tpu_torch.telemetry.memory`)."""
 
     oom_margin_frac: float = 0.9
     capacity_bytes: Optional[int] = None

@@ -153,10 +153,17 @@ def gpt_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     expect.update(block_shapes)
     sd["ln_final.weight"] = take("ln_final/scale")
     sd["ln_final.bias"] = take("ln_final/bias")
+    if "lm_head/kernel" in flat:
+        # the untied head (``GPT(tie_embeddings=False)``): a flax Dense
+        head = take("lm_head/kernel")
+        sd["lm_head.weight"], sd["lm_head.bias"] = head.T, take(
+            "lm_head/bias")
+        expect.update({"lm_head.weight": (vocab, hidden),
+                       "lm_head.bias": (vocab,)})
     if flat:
         raise ValueError(
-            f"{who}: leaves with no place in the port's GPT (untied head or "
-            f"MoE are not served): {sorted(flat)}"
+            f"{who}: leaves with no place in the port's GPT (MoE is not "
+            f"ported): {sorted(flat)}"
         )
     if sd["pos_emb.weight"].ndim != 2 or sd["pos_emb.weight"].shape[1] != hidden:
         raise ValueError(

@@ -9,9 +9,11 @@ train forward (``:699-707``), the accumulate core for one loss,
 ``loss_weights`` or per-loss scalers (``:951-1117``), the window core
 (``window_step``, ``:1143-1273``, which ``multi_step`` repeats) and the
 apply core (``:1434-1531``, with the gradient transport of a
-``CommConfig`` and the health sentinels; without the numerics matrix),
-with the JAX engine's ``dispatch_count`` and its ``stoke/accum``,
-``stoke/dispatch`` and ``stoke/step`` spans.
+``CommConfig``, the health sentinels and the numerics matrix), the
+rematerialized forward of an ``ActivationCheckpointingConfig``
+(``:693-697``, :mod:`stoke_tpu_torch.remat`), with the JAX engine's
+``dispatch_count`` and its ``stoke/accum``, ``stoke/dispatch`` and
+``stoke/step`` spans.
 
 The JAX engine traces forward and grad into one program; here autograd
 records the eager forward, ``backward`` runs into the parameters' fp32
@@ -53,7 +55,18 @@ window it is one of the graph's outputs, so a replay yields its row
 too. ``dispatch_count`` counts the engine's device-issuing calls: one a
 4-call ``backward`` or ``apply``, a ``fused`` step or a ``window``
 (eager or replayed); a fault injector (:attr:`StepEngine.chaos`, a
-``ResilienceConfig`` with a chaos plan) sees each dispatch first.
+``ResilienceConfig`` with a chaos plan) sees each dispatch first. With
+``numerics`` (a ``NumericsConfig``) the apply also packs the per-group
+statistics of :mod:`stoke_tpu_torch.telemetry.numerics`
+(:attr:`StepEngine.numerics_row`) from the sentinels' taps and the same
+copy of the parameters; a window returns its matrix too.
+
+The attribution's cost cards and the memory observatory watch the
+dispatches (:attr:`StepEngine.cost_cards`, :attr:`StepEngine.memory`):
+the first run of each (program, input signature) is counted and
+measured (``accum``: the 4-call forward and backward; ``apply``,
+``fused``, ``fused_nb`` and ``window``: a window's eager first run, never
+its capture), every later one booked.
 
 Offload (the JAX engine's ``:553-650``): with :attr:`StepEngine.host_state`
 (``OffloadOptimizerConfig``) the optimizer state shaped like its
@@ -84,6 +97,7 @@ from stoke_tpu_torch.configs import (
     PrecisionConfig,
     PrecisionOptions,
 )
+from stoke_tpu_torch import remat
 from stoke_tpu_torch.ops import chunked_ce
 from stoke_tpu_torch.ops.flash_attention import LAUNCHES
 from stoke_tpu_torch.telemetry import collectors
@@ -302,12 +316,14 @@ class _GradProbe:
     """The gradient part of a step's sentinel row, taken before the clip:
     the 2-norm and the non-finite flag of each tensor of ``grads`` (the
     leaves stepped whole, engine indices ``grad_idx``) and of ``sharded``
-    (this rank's slices, engine indices ``shard_idx``)."""
+    (this rank's slices, engine indices ``shard_idx``); with ``numerics``
+    also each tensor's largest magnitude, count of finite elements and
+    element count."""
 
     def __init__(self, grads: Sequence[torch.Tensor],
                  sharded: Sequence[torch.Tensor], grad_idx: List[int],
                  shard_idx: List[int], device: torch.device,
-                 flags: bool = True):
+                 flags: bool = True, numerics: bool = False):
         empty = torch.zeros(0, dtype=torch.float32, device=device)
         self.grad_idx, self.shard_idx = grad_idx, shard_idx
         self.rep_norms = leaf_norms(grads) if grads else empty
@@ -315,6 +331,25 @@ class _GradProbe:
         self.rep_flags = nonfinite_flags(grads) if grads and flags else empty
         self.part_flags = (nonfinite_flags(sharded) if sharded and flags
                            else empty)
+        if numerics:
+            self.rep_absmax, self.rep_finite = _absmax_and_finite(grads,
+                                                                  empty)
+            self.part_absmax, self.part_finite = _absmax_and_finite(
+                sharded, empty)
+            self.rep_numel = [max(g.numel(), 1) for g in grads]
+            self.part_numel = [max(g.numel(), 1) for g in sharded]
+
+
+def _absmax_and_finite(tensors: Sequence[torch.Tensor],
+                       empty: torch.Tensor):
+    """Each tensor's largest magnitude (one multi-tensor pass; inf or NaN
+    where it holds one, as ``jnp.max(jnp.abs(g))``) and its count of
+    finite elements (two kernels a tensor), as fp32 vectors."""
+    if not tensors:
+        return empty, empty
+    tensors = [t if t.numel() else t.new_zeros(1) for t in tensors]
+    finite = torch.stack([torch.isfinite(t).sum() for t in tensors])
+    return leaf_norms(tensors, float("inf")), finite.float()
 
 
 class CapturedWindow(NamedTuple):
@@ -367,6 +402,10 @@ class StepEngine:
             (``HealthConfig(sentinels=True)``); after each step call it is
             :attr:`sentinel_row`, a ``[N_SENTINELS]`` fp32 tensor on the
             device.
+        remat: an ``ActivationCheckpointingConfig``: the training forward
+            recomputed in backward under its policy.
+        numerics: compute the numerics' group statistics at every apply
+            (``NumericsConfig(grad_stats=True)``), :attr:`numerics_row`.
     """
 
     def __init__(self, module: nn.Module, loss_fn: Callable,
@@ -374,8 +413,11 @@ class StepEngine:
                  grad_accum: int = 1, grad_clip=None, loss_weights=None,
                  precision_config: Optional[PrecisionConfig] = None,
                  generator: Optional[torch.Generator] = None,
-                 ladder=None, transport=None, sentinels: bool = False):
+                 ladder=None, transport=None, sentinels: bool = False,
+                 remat=None, numerics: bool = False):
         self.module = module
+        #: the ``ActivationCheckpointingConfig`` (None: no recompute)
+        self.remat = remat
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.precision = precision
@@ -416,11 +458,33 @@ class StepEngine:
         self.sentinels = bool(sentinels)
         #: the last step's sentinel row (None without sentinels)
         self.sentinel_row: Optional[torch.Tensor] = None
+        #: the per-group statistics of a ``NumericsConfig``
+        #: (:mod:`~stoke_tpu_torch.telemetry.numerics`): the groups, and the
+        #: last step's ``[n_groups, N_NUMERICS_STATS]`` fp32 matrix
+        self.numerics = bool(numerics)
+        self.groups = None
+        self.numerics_row: Optional[torch.Tensor] = None
+        self._index_cache: Dict[tuple, torch.Tensor] = {}
+        if self.numerics:
+            from stoke_tpu_torch.telemetry.numerics import module_groups
+
+            self.groups = module_groups(module, self.params)
+            member = [0] * len(self.params)
+            for g, group in enumerate(self.groups):
+                for i in group.param_indices:
+                    member[i] = g
+            # made once here: a host-to-device copy inside a captured
+            # window would break the capture
+            self._group_of = torch.tensor(member, dtype=torch.long,
+                                          device=self.device)
         #: the last probed pre-clip grad norm (``apply(probe_grad_norm=
         #: True)``), a device scalar
         self.grad_norm: Optional[torch.Tensor] = None
         self._jax_order = (jax_leaf_order(module, self.params)
                            if self.sentinels else None)
+        #: whether a step keeps a copy of the parameters from before it
+        #: (the sentinels' and the numerics' update norms share it)
+        self._keeps_old = self.sentinels or self.numerics
         #: device-issuing calls (the JAX engine's counter)
         self.dispatch_count = 0
         #: the run's ``CompileTracker`` (the facade assigns it), told of
@@ -434,6 +498,28 @@ class StepEngine:
         self.host_state = None
         self.disk_store = None
         self._disk_keys: List[Tuple[torch.Tensor, str]] = []
+        #: the attribution's cost cards (``CostCardCache``) and the memory
+        #: observatory (``MemoryObservatory``); the facade assigns them
+        self.cost_cards = None
+        self.memory = None
+        # the 4-call path's micro-step: its forward's signature and, on the
+        # signature's first run, the cost its forward counted
+        self._accum_sig = None
+        self._accum_cost = None
+
+    @contextlib.contextmanager
+    def _observed(self, program: str, sig, steps: int):
+        """One dispatch of ``program`` at ``sig`` inside the block: the
+        cost card counted on its first run and accounted on every run
+        (``cost_cards``), its memory measured on its first run
+        (``memory``)."""
+        with contextlib.ExitStack() as stack:
+            if self.memory is not None:
+                stack.enter_context(self.memory.measure(program, sig))
+            if self.cost_cards is not None:
+                stack.enter_context(self.cost_cards.dispatch(
+                    (program, sig), program, steps))
+            yield
 
     def _dispatch(self, program: str) -> None:
         """Count one device-issuing call (after the fault injector's
@@ -452,7 +538,24 @@ class StepEngine:
         """The model's forward under the precision policy (JAX
         ``_run_forward_train``); autograd records it when grad is on.
         Under fsdp the parameters are gathered first, and freed after a
-        forward that records no gradient."""
+        forward that records no gradient. With cost cards, a forward that
+        records a gradient starts the 4-call micro-step's card (the
+        ``accum`` program: this forward and the next :meth:`backward`)."""
+        cards = self.cost_cards
+        if cards is None or not torch.is_grad_enabled():
+            return self._forward_gathered(args, kwargs)
+        from stoke_tpu_torch.telemetry.attribution import counting, signature
+
+        self._accum_sig = signature((args, kwargs))
+        self._accum_cost = None
+        if not cards.needs_count(("accum", self._accum_sig), "accum"):
+            return self._forward_gathered(args, kwargs)
+        with counting() as cost:
+            out = self._forward_gathered(args, kwargs)
+        self._accum_cost = cost
+        return out
+
+    def _forward_gathered(self, args: tuple, kwargs: dict):
         if self.ladder is None:
             return self._forward(args, kwargs)
         self.ladder.materialize()
@@ -462,6 +565,16 @@ class StepEngine:
         return out
 
     def _forward(self, args: tuple, kwargs: dict):
+        """The forward under the precision policy; with an
+        ``ActivationCheckpointingConfig`` recomputed in backward under its
+        policy (the JAX ``_maybe_remat``), the 16-bit casts of the masters
+        made again inside the recompute."""
+        if self.remat is None:
+            return self._cast_forward(args, kwargs)
+        return remat.checkpoint(self._cast_forward, args, kwargs,
+                                policy=self.remat.policy)
+
+    def _cast_forward(self, args: tuple, kwargs: dict):
         if self.precision.compute_dtype is None:
             return self.module(*args, **kwargs)
         dt = self.precision.compute_dtype
@@ -526,7 +639,19 @@ class StepEngine:
         span): :meth:`_backward`."""
         self._dispatch("backward")
         with trace_span("stoke/accum", track="step"):
-            self._backward(objective)
+            if self.cost_cards is None:
+                self._backward(objective)
+                return
+            from stoke_tpu_torch.telemetry.attribution import counting
+
+            key = ("accum", self._accum_sig)
+            cost, self._accum_cost = self._accum_cost, None
+            if cost is None:
+                self._backward(objective)
+            else:
+                with counting(cost):
+                    self._backward(objective)
+            self.cost_cards.note_dispatch(key, "accum", cost, steps=0)
 
     def _backward(self, objective: torch.Tensor) -> None:
         """Autograd of ``objective`` into the accumulated fp32 ``.grad``:
@@ -570,7 +695,7 @@ class StepEngine:
         """One micro-step: forward, loss, :meth:`backward` of
         ``objective / grad_accum`` into the accumulated fp32 ``.grad`` of
         the masters. Returns the report."""
-        out = self.forward(args, kwargs)
+        out = self._forward_gathered(args, kwargs)
         objective, report = self.objective(self.loss(out, *loss_args))
         self._backward(objective)
         return report
@@ -578,25 +703,30 @@ class StepEngine:
     def apply(self, loss: Optional[torch.Tensor] = None,
               probe_grad_norm: bool = False) -> Optional[torch.Tensor]:
         """The 4-call path's apply (one dispatch, a ``stoke/step`` span):
-        :meth:`_apply`, its sentinel row kept as :attr:`sentinel_row`
-        (``loss``: the boundary's undivided micro loss). With
+        :meth:`_apply`, its sentinel row kept as :attr:`sentinel_row` and
+        its group statistics as :attr:`numerics_row` (``loss``: the
+        boundary's undivided micro loss). With
         ``probe_grad_norm`` (and no sentinels) the pre-clip global grad
         norm is kept as :attr:`grad_norm`. Returns the finite flag."""
         self._dispatch("apply")
-        with trace_span("stoke/step", track="step"):
-            finite, self.sentinel_row = self._apply(loss, probe_grad_norm)
+        with trace_span("stoke/step", track="step"), \
+                self._observed("apply", (), 1):
+            finite, self.sentinel_row, self.numerics_row = self._apply(
+                loss, probe_grad_norm)
         return finite
 
     @torch.no_grad()
     def _apply(self, loss: Optional[torch.Tensor] = None,
                probe_grad_norm: bool = False
-               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                          Optional[torch.Tensor]]:
         """At the accumulation boundary, in the JAX apply core's order:
         under fp16 unscale and check the accumulated gradients (ANDed with
         the per-loss flags), then clip, step the optimizer (put back when
         not finite), zero the buffer, and update the scaler. Returns the
         finite flag (a bool scalar on the device), or None without fp16,
-        and the sentinel row (None without sentinels).
+        the sentinel row (None without sentinels) and the numerics'
+        group statistics (None without them).
 
         Across ranks the gradients are first reduced
         (:meth:`~stoke_tpu_torch.parallel.ladder.Ladder.reduce_for_apply`),
@@ -633,9 +763,10 @@ class StepEngine:
             if ladder is not None:
                 finite = ladder.all_true(finite)
         probe = None
-        if self.sentinels or probe_grad_norm:
+        if self.sentinels or self.numerics or probe_grad_norm:
             probe = _GradProbe(grads, sharded, grad_idx, shard_idx,
-                               self.device, flags=self.sentinels)
+                               self.device, flags=self.sentinels,
+                               numerics=self.numerics)
         clip_norm = clip_gradients(
             grads, self.grad_clip, sharded, ladder,
             None if probe is None else (probe.rep_norms, probe.part_norms))
@@ -645,7 +776,7 @@ class StepEngine:
         if self.host_state is not None:
             old = self._host_step(finite)
         elif finite is None:
-            if self.sentinels:
+            if self._keeps_old:
                 old = self._snap({(i, None): p for i, p in
                                   enumerate(self.opt_params)})
             self.optimizer.step()
@@ -656,10 +787,14 @@ class StepEngine:
         self.optimizer.zero_grad(set_to_none=True)
         if ladder is not None:
             ladder.after_step()
-        row = None
-        if self.sentinels:
-            row = self._sentinel_row(probe, clip_norm, old, finite, loss)
-        elif probe is not None:
+        row = groups = None
+        if self._keeps_old:
+            sq = self._step_squares(old)
+            if self.sentinels:
+                row = self._sentinel_row(probe, clip_norm, sq, finite, loss)
+            if self.numerics:
+                groups = self._group_stats(probe, sq)
+        if not self.sentinels and probe_grad_norm:
             self.grad_norm = self._probe_grad_norm(probe, clip_norm)
         if self.precision.scaled:
             flags = self.scaler["finite"] if self.per_loss else finite
@@ -668,28 +803,91 @@ class StepEngine:
             self.scaler["growth_count"].copy_(new["growth_count"])
             if self.per_loss:
                 self.scaler["finite"].fill_(True)
-        return finite, row
+        return finite, row, groups
+
+    def _step_squares(self, old: Dict[Any, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The squared 2-norm of each updated parameter (a slice under a
+        sharding tier) and of its update (``old - new`` in place on the
+        copy ``old`` taken before the step), this rank's, in the engine's
+        order."""
+        params = self.opt_params
+        before = [old[(i, None)] for i in range(len(params))]
+        torch._foreach_sub_(before, params)
+        return leaf_norms(params) ** 2, leaf_norms(before) ** 2
+
+    def _group_stats(self, probe: "_GradProbe",
+                     sq: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """The numerics matrix ``[n_groups, N_NUMERICS_STATS]`` (the JAX
+        ``compute_group_stats``): per group of the JAX tree the sum of the
+        gradients' squares, their largest magnitude and count of
+        non-finite elements (the unscaled, post-transport, pre-clip
+        gradients of ``probe``), and the sums of squares of the updated
+        parameters and of the update (``sq``). Across the ladder's ranks
+        the sliced leaves' parts are summed (their largest magnitude
+        maxed) over the ranks first."""
+        n = len(self.params)
+        zero = torch.zeros(n, dtype=torch.float32, device=self.device)
+        g_sq, g_max, g_nf = zero.clone(), zero.clone(), zero.clone()
+        for idx, sq_, mx, fin, numel in (
+                (probe.grad_idx, probe.rep_norms ** 2, probe.rep_absmax,
+                 probe.rep_finite, probe.rep_numel),
+                (probe.shard_idx, probe.part_norms ** 2, probe.part_absmax,
+                 probe.part_finite, probe.part_numel)):
+            if idx:
+                at = self._device_vector(idx, torch.long)
+                g_sq.index_copy_(0, at, sq_)
+                g_max.index_copy_(0, at, mx)
+                g_nf.index_copy_(
+                    0, at, self._device_vector(numel, torch.float32) - fin)
+        p_sq, u_sq = sq
+        cut = probe.shard_idx
+        if self.ladder is not None and cut:
+            at = self._device_vector(cut, torch.long)
+            vec = torch.cat([g_sq[at], g_nf[at], p_sq[at], u_sq[at]])
+            self.ladder.reduce_(vec)
+            k = len(cut)
+            g_sq[at], g_nf[at] = vec[:k], vec[k:2 * k]
+            p_sq = p_sq.index_copy(0, at, vec[2 * k:3 * k])
+            u_sq = u_sq.index_copy(0, at, vec[3 * k:])
+            g_max[at] = self.ladder.reduce_(g_max[at], "max")
+        G = len(self.groups)
+        out = torch.zeros((G, 5), dtype=torch.float32, device=self.device)
+        for j, v in ((0, g_sq), (2, g_nf), (3, p_sq), (4, u_sq)):
+            out[:, j].index_add_(0, self._group_of, v)
+        out[:, 1] = torch.zeros(G, dtype=torch.float32,
+                                device=self.device).scatter_reduce(
+            0, self._group_of, g_max, "amax")
+        return out
+
+    def _device_vector(self, values: List[int],
+                       dtype: torch.dtype) -> torch.Tensor:
+        """``values`` as a tensor on the device, made once per list (a
+        host-to-device copy cannot run inside a captured window; the
+        first apply runs eagerly)."""
+        key = (tuple(values), dtype)
+        t = self._index_cache.get(key)
+        if t is None:
+            t = self._index_cache[key] = torch.tensor(
+                values, dtype=dtype, device=self.device)
+        return t
 
     def _sentinel_row(self, probe: "_GradProbe",
                       clip_norm: Optional[torch.Tensor],
-                      old: Dict[Any, torch.Tensor],
+                      sq: Tuple[torch.Tensor, torch.Tensor],
                       finite: Optional[torch.Tensor],
                       loss: Optional[torch.Tensor]) -> torch.Tensor:
         """The sentinel row after the step: the gradient part of ``probe``
         (its grad norm the clip's 2-norm when the clip took one), the
-        norms of the updated parameters and of the update (``old - new``
-        in place on the copy ``old`` taken before the step), the
-        error-feedback residual's norm. Across the ladder's ranks each
-        sliced leaf's squares and flags are summed over the ranks in one
-        all-reduce, so the norms and flags are global."""
-        params = self.opt_params
-        n = len(params)
-        before = [old[(i, None)] for i in range(n)]
-        torch._foreach_sub_(before, params)
+        norms of the updated parameters and of the update (their squares
+        ``sq``), the error-feedback residual's norm. Across the ladder's
+        ranks each sliced leaf's squares and flags are summed over the
+        ranks in one all-reduce, so the norms and flags are global."""
+        n = len(self.opt_params)
         # per-leaf scalars, put together in Python (an index tensor made
         # on the host would be a host-to-device copy inside the graph)
-        param_sq = list((leaf_norms(params) ** 2).unbind(0))
-        upd_sq = list((leaf_norms(before) ** 2).unbind(0))
+        param_sq = list(sq[0].unbind(0))
+        upd_sq = list(sq[1].unbind(0))
         residual = self.comm_state.get("residual")
         res_sq = None
         if residual:
@@ -779,7 +977,7 @@ class StepEngine:
         old = None
         if finite is not None:
             old = self._snap(self._guarded())
-        elif self.sentinels:
+        elif self._keeps_old:
             old = self._snap({(i, None): p for i, p in
                               enumerate(self.opt_params)})
         self.host_state.step(finite)
@@ -871,11 +1069,18 @@ class StepEngine:
         :attr:`sentinel_row`). Returns ``(report, finite)``; ``finite`` is
         None without an apply or without fp16."""
         self._dispatch("fused")
-        with trace_span("stoke/dispatch", track="step"):
+        program = "fused" if do_apply else "fused_nb"
+        sig = None
+        if self.cost_cards is not None or self.memory is not None:
+            from stoke_tpu_torch.telemetry.attribution import signature
+
+            sig = signature((args, kwargs, loss_args))
+        with trace_span("stoke/dispatch", track="step"), \
+                self._observed(program, sig, int(do_apply)):
             report = self.accum(args, kwargs, loss_args)
             finite = None
             if do_apply:
-                finite, self.sentinel_row = self._apply(
+                finite, self.sentinel_row, self.numerics_row = self._apply(
                     self._report_loss(report) if self.sentinels else None)
         return report, finite
 
@@ -904,9 +1109,9 @@ class StepEngine:
             reports.append(self.accum(pick(margs), pick(mkwargs),
                                       pick(loss_args)))
         reports = tree_map(lambda *r: torch.stack(r), *reports)
-        finite, row = self._apply(
+        finite, row, groups = self._apply(
             self._report_loss(reports) if self.sentinels else None)
-        return reports, finite, row
+        return reports, finite, row, groups
 
     def window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
         """One whole accumulation window over inputs stacked to
@@ -931,15 +1136,21 @@ class StepEngine:
         before (or after another signature) as a recompile."""
         self._dispatch("window")
         with trace_span("stoke/dispatch", track="step"):
-            reports, finite, self.sentinel_row = self._run_window(
-                margs, mkwargs, loss_args)
+            (reports, finite, self.sentinel_row,
+             self.numerics_row) = self._run_window(margs, mkwargs, loss_args)
         return reports, finite
 
     def _run_window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
         inputs = (tuple(margs), dict(mkwargs), tuple(loss_args))
+        sig = None
+        if self.cost_cards is not None or self.memory is not None:
+            from stoke_tpu_torch.telemetry.attribution import signature
+
+            sig = signature(inputs)
         if self.device.type != "cuda" or self.disk_store is not None:
             # the disk tier's spill is file IO, which a graph cannot hold
-            return self._window(*inputs)
+            with self._observed("window", sig, 1):
+                return self._window(*inputs)
         flat, spec = tree_flatten(inputs)
         key = (spec, tuple((tuple(t.shape), t.dtype, t.device)
                            if torch.is_tensor(t) else t for t in flat))
@@ -950,23 +1161,32 @@ class StepEngine:
             del self._windows[key]
             cap = None
         if cap is None:
-            out = self._window(*inputs)
+            # the first window of a signature runs eagerly: the one its
+            # cost card counts and its memory card measures
+            with self._observed("window", sig, 1):
+                out = self._window(*inputs)
             if self.compile_tracker is not None and self._captured:
                 self.compile_tracker.note_recompile()
             self._captured.add(key)
+            reserved = torch.cuda.memory_reserved(self.device)
             with collectors.compiling():
                 self._windows[key] = self._capture(flat, spec, lrs)
+            if self.memory is not None:
+                self.memory.note_graph_pool(
+                    "window",
+                    torch.cuda.memory_reserved(self.device) - reserved)
             return out
         for dst, src in zip(cap.inputs, flat):
             if torch.is_tensor(dst):
                 dst.copy_(src)
+        if self.cost_cards is not None:
+            self.cost_cards.note_dispatch(("window", sig), "window", None, 1)
         cap.graph.replay()
         for name, n in cap.launches.items():
             LAUNCHES[name] += n
-        reports, finite, row = cap.outputs
+        reports, *rest = cap.outputs
         return (tree_map(torch.clone, reports),
-                None if finite is None else finite.clone(),
-                None if row is None else row.clone())
+                *(None if t is None else t.clone() for t in rest))
 
     def drop_windows(self) -> None:
         """Forget every captured window: the next window of each signature
@@ -990,7 +1210,7 @@ class StepEngine:
         if self.precision.scaled:
             # the skip's copies live outside the graph's memory pool
             self._snap(self._guarded())
-        elif self.sentinels:
+        elif self._keeps_old:
             # so do the sentinels' copies of the parameters
             self._snap({(i, None): p for i, p in enumerate(self.opt_params)})
         static = [t.clone() if torch.is_tensor(t) else t for t in flat]

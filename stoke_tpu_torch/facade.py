@@ -109,8 +109,14 @@ pinned buffers (:mod:`stoke_tpu_torch.offload`). On the CPU the host
 tiers have nothing to offload to: with ``fallback_to_device`` they warn
 and the state stays where it is.
 
-Left out, and refused with ``NotImplementedError`` naming its ROADMAP
-item: ``estimate_step_cost`` (item 10c).
+The observatories: ``AttributionConfig`` (cost cards counted at each
+program's first run, MFU and bandwidth gauges, goodput, auto-captured
+profiles; :meth:`Stoke.estimate_step_cost`), ``NumericsConfig`` (per-group
+statistics computed in the apply, NaN provenance, the wire and int8
+errors by group; :meth:`Stoke.numerics_summary`) and ``MemoryConfig``
+(the device-memory ledger, program peaks and the OOM pre-flight;
+:attr:`Stoke.memory_summary`). ``ActivationCheckpointingConfig`` recomputes
+the training forward in backward (:mod:`stoke_tpu_torch.remat`).
 """
 
 from __future__ import annotations
@@ -184,8 +190,6 @@ from stoke_tpu_torch.utils.printing import unrolled_print
 from stoke_tpu_torch.utils.tb_writer import TBEventWriter
 from stoke_tpu_torch.utils.trees import tree_count_params
 
-_LATER_COST = ("ROADMAP Queue 1 item 10c (numerics, memory, attribution and "
-               "the serving observatories)")
 #: param-group keys that say how an optimizer runs on this device, not
 #: what it computes; ``load`` keeps the live values
 _DEVICE_FLAGS = ("capturable", "foreach", "fused", "differentiable")
@@ -437,6 +441,9 @@ class Stoke:
                                      self._group),
             sentinels=(st.health_config is not None
                        and st.health_config.sentinels),
+            remat=st.activation_checkpointing_config,
+            numerics=(st.numerics_config is not None
+                      and st.numerics_config.grad_stats),
         )
         self._skipped_steps = torch.zeros((), dtype=torch.float32,
                                           device=self._device)
@@ -544,6 +551,25 @@ class Stoke:
             register_recorder(self._tracer)
         self._health: Optional[HealthMonitor] = None
         self._last_sentinels: Optional[np.ndarray] = None
+        self._numerics = None
+        self._memory_obs = None
+        self._wire_error_warned = False
+        # step-time attribution: the cost cards counted at each program's
+        # first run and the per-window gauges (the JAX constructor's order:
+        # before the health monitor, whose bundles carry its summary)
+        self._attribution = None
+        acfg = st.attribution_config
+        if acfg is not None:
+            from stoke_tpu_torch.telemetry.attribution import (
+                AttributionMonitor,
+            )
+
+            self._attribution = AttributionMonitor(
+                acfg, self._telemetry.registry,
+                trace_dir=st.profiler_config.trace_dir, rank=self.rank,
+                cuda=self._device.type == "cuda")
+            self._telemetry.attribution = self._attribution
+            self._engine.cost_cards = self._attribution.cost_cards
         hcfg = st.health_config
         if hcfg is not None:
             bundle_dir = hcfg.bundle_dir
@@ -561,6 +587,17 @@ class Stoke:
                 # the span ring at time of death
                 trace_fn=(self._tracer.to_trace_events
                           if self._tracer is not None else None),
+                # utilization at time of death: the goodput summary and
+                # the last cost cards
+                goodput_fn=(self._telemetry.goodput_summary
+                            if self._attribution is not None else None),
+                cost_cards_fn=(self._attribution.cost_cards.last_cards
+                               if self._attribution is not None else None),
+                # which layer was bad at time of death (late-bound: the
+                # monitor is built below)
+                numerics_fn=lambda: (self._numerics.snapshot()
+                                     if self._numerics is not None
+                                     else None),
             )
             self._health = HealthMonitor(
                 hcfg, self._telemetry.registry, recorder,
@@ -568,11 +605,97 @@ class Stoke:
             # the NonFiniteDetector names the first bad leaf by its JAX path
             self._health.leaf_paths = leaf_path_names(self._module,
                                                       self._engine.params)
+            if self._attribution is not None:
+                from stoke_tpu_torch.telemetry.attribution import (
+                    AutoCaptureDetector,
+                )
+
+                self._health.detectors.append(AutoCaptureDetector(
+                    self._attribution,
+                    st.attribution_config.capture_action))
+        self._build_observatories()
         self._wall_clock_enabled = (
             st.profiler_config.wall_clock_breakdown
             or self._telemetry.enabled
             or self._tracer is not None
         )
+
+    def _build_observatories(self) -> None:
+        """The numerics monitor (``NumericsConfig``: its groups are the
+        engine's, the JAX tree's top-level entries) and the memory
+        observatory (``MemoryConfig``: the ledger's components registered,
+        the pre-flight run before the first step), as the JAX constructor
+        builds them."""
+        st = self._status_obj
+        ncfg = st.numerics_config
+        if ncfg is not None:
+            from stoke_tpu_torch.telemetry.numerics import (
+                NumericsMonitor,
+                NumericsProvenanceDetector,
+                module_groups,
+            )
+
+            groups = (self._engine.groups if self._engine.groups is not None
+                      else module_groups(self._module, self._engine.params))
+            self._numerics = NumericsMonitor(
+                ncfg, self._telemetry.registry, groups, rank=self.rank)
+            self._telemetry.numerics = self._numerics
+            if self._health is not None:
+                self._health.detectors.append(NumericsProvenanceDetector(
+                    self._numerics, ncfg.provenance_action))
+        mcfg = st.memory_config
+        if mcfg is not None:
+            from stoke_tpu_torch.telemetry.memory import MemoryObservatory
+
+            obs = MemoryObservatory(mcfg, self._telemetry.registry,
+                                    device=self._device)
+            obs.set_component("params", self._params_bytes)
+            obs.set_component("opt_state", self._opt_state_bytes)
+            obs.set_component("transport", self._transport_bytes)
+            obs.set_component("snapshot", self._snapshot_bytes)
+            self._memory_obs = obs
+            self._telemetry.memory = obs
+            self._engine.memory = obs
+            obs.preflight("build")
+
+    def _resident(self, tensors) -> int:
+        from stoke_tpu_torch.telemetry.memory import tensors_resident_bytes
+
+        return tensors_resident_bytes(
+            tensors, self._device if self._device.type == "cpu" else None)
+
+    def _params_bytes(self) -> int:
+        """The model's parameters and buffers, a tier's slices, and the
+        accumulated gradients while a window is open."""
+        eng = self._engine
+        tensors = [*self._module.parameters(), *self._module.buffers(),
+                   *eng.opt_params]
+        tensors += [p.grad for p in (*eng.params, *eng.opt_params)]
+        return self._resident(tensors)
+
+    def _opt_state_bytes(self) -> int:
+        """The optimizer's state on the device (what the host or disk tier
+        holds counts 0) and the host tier's streaming buffer."""
+        eng = self._engine
+        tensors = [v for state in eng.optimizer.state.values()
+                   for v in state.values()]
+        out = self._resident(tensors)
+        if eng.host_state is not None and self._device.type != "cpu":
+            out += eng.host_state.buffer_bytes
+        return out
+
+    def _transport_bytes(self) -> int:
+        """The transport's error-feedback residual and key."""
+        state = self._engine.comm_state
+        return self._resident([state.get("rng"),
+                               *(state.get("residual") or [])])
+
+    def _snapshot_bytes(self) -> int:
+        """In-flight staged snapshots and the engine's copy of the
+        parameters from before the step (sentinels, numerics, fp16's
+        skip)."""
+        return (offload.staged_nbytes()
+                + self._resident(list(self._engine._snapshot.values())))
 
     def _mesh_info(self) -> dict:
         """The run's topology for post-mortem bundles."""
@@ -700,7 +823,7 @@ class Stoke:
         self._optimizer_steps += 1
         self._grad_accum_counter = 0
         self._reset_tracking_window()
-        self._observe_health([self._engine.sentinel_row])
+        self._observe_health([self._step_rows()])
         self._after_optimizer_steps()
 
     def _count_skipped(self, finite: Optional[torch.Tensor]) -> None:
@@ -737,7 +860,7 @@ class Stoke:
             self._optimizer_steps += 1
             self._grad_accum_counter = 0
             self._reset_tracking_window()
-            self._observe_health([self._engine.sentinel_row])
+            self._observe_health([self._step_rows()])
             self._after_optimizer_steps()
         else:
             self._grad_accum_counter += 1
@@ -799,7 +922,7 @@ class Stoke:
             self._place(model_args),
             {**self._train_kwargs, **self._place(model_kwargs or {})},
             self._place(loss_args))
-        self._observe_health([self._engine.sentinel_row])
+        self._observe_health([self._step_rows()])
         self._after_optimizer_steps()
         return reports
 
@@ -879,7 +1002,7 @@ class Stoke:
             reports.append(self._run_window(
                 _leading(margs, sl), _leading(mkwargs, sl),
                 _leading(loss_args, sl)))
-            rows.append(self._engine.sentinel_row)
+            rows.append(self._step_rows())
         # the segment's rows read back once; a save boundary crossed
         # inside the segment is saved at its end
         self._observe_health(rows, window=n)
@@ -1749,17 +1872,36 @@ class Stoke:
             return self._last_step_loss
         return torch.zeros((), dtype=torch.float32, device=self._device)
 
-    def _observe_health(self, rows: List[Optional[torch.Tensor]],
-                        window: int = 1) -> None:
-        """Feed the just-completed ``window`` optimizer steps to the health
-        monitor: their sentinel rows read back in one transfer (they were
-        computed in the steps' own applies), the detectors run step by
-        step, and the last row kept for the step event. A ``halt`` detector
-        raises :class:`HealthHaltError` from here, at the facade
-        boundary."""
+    def _step_rows(self) -> tuple:
+        """The last step's (sentinel row, numerics matrix) on the
+        device."""
+        return self._engine.sentinel_row, self._engine.numerics_row
+
+    def _observe_numerics(self, rows: List[Optional[torch.Tensor]],
+                          window: int = 1) -> None:
+        """Feed the just-completed steps' group matrices (computed in
+        their own applies) to the numerics monitor in one read, before the
+        health observation whose ``numerics_provenance`` detector drains
+        what they show."""
+        m = self._numerics
+        if m is None or not rows or rows[0] is None:
+            return
+        m.observe_window(self._optimizer_steps - window + 1,
+                         torch.stack(rows).float().cpu().numpy())
+
+    def _observe_health(self, rows: List[tuple], window: int = 1) -> None:
+        """Feed the just-completed ``window`` optimizer steps to the
+        numerics monitor and then the health monitor: ``rows`` are each
+        step's (sentinel row, numerics matrix), read back in one transfer
+        each (they were computed in the steps' own applies), the detectors
+        run step by step, and the last row kept for the step event. A
+        ``halt`` detector raises :class:`HealthHaltError` from here, at
+        the facade boundary."""
+        self._observe_numerics([r[1] for r in rows], window)
         h = self._health
         if h is None:
             return
+        rows = [r[0] for r in rows]
         arr = None
         if rows and rows[0] is not None:
             arr = torch.stack(rows).float().cpu().numpy()
@@ -1785,6 +1927,9 @@ class Stoke:
         t = self._telemetry
         if not t.enabled or self._optimizer_steps == 0:
             return
+        if self._attribution is not None:
+            # closes an auto-capture once it covered its steps
+            self._attribution.on_step(self._optimizer_steps)
         # one optimizer step consumes one (global) effective batch
         t.add_samples((self._status_obj.effective_batch_size or 0) * window)
         comm = self.comm_bytes
@@ -1799,6 +1944,7 @@ class Stoke:
         if not self._crossed_boundary(
                 self._optimizer_steps, t.config.log_every_n_steps, window):
             return
+        self._sample_wire_error()
         scaled = self._precision.scaled
         sent = (unpack_sentinels(self._last_sentinels)
                 if self._last_sentinels is not None else {})
@@ -1957,8 +2103,14 @@ class Stoke:
             )
         if overrides:
             scfg = dataclasses.replace(scfg, **overrides)
+            # cross-config rules (cost_cards needs an AttributionConfig)
+            # see the run's companions
+            companions = [c for c in (self._status_obj.attribution_config,
+                                      self._status_obj.telemetry_config)
+                          if c is not None]
             StokeStatus(batch_size_per_device=self.batch_size,
-                        device=self._status_obj.device, configs=[scfg])
+                        device=self._status_obj.device,
+                        configs=[scfg] + companions)
         if not isinstance(self._module, GPT):
             raise TypeError(
                 f"Stoke.serve() serves GPT models (the paged-KV decode "
@@ -1972,8 +2124,17 @@ class Stoke:
                   if isinstance(m, Dropout) and m.generator is not None}
         with self._whole_params():
             model = copy.deepcopy(self._module, memo=shared)
-        return ServingEngine(model, model.state_dict(), scfg,
-                             device=self._device)
+        engine = ServingEngine(
+            model, model.state_dict(), scfg, device=self._device,
+            # the run's peaks, which the serve roofline divides by
+            attribution=(self._status_obj.attribution_config
+                         if scfg.cost_cards else None),
+            # the engine's own ledger (its weights and KV pool)
+            memory=self._status_obj.memory_config)
+        if self._numerics is not None and engine.quant_errors_by_group:
+            # the int8 weights' error by group joins this run's numerics
+            self._numerics.set_quant_errors(engine.quant_errors_by_group)
+        return engine
 
     def estimate_step_flops(self, model_args: Any,
                             loss_args: Any = ()) -> float:
@@ -2020,10 +2181,152 @@ class Stoke:
             self._module.train(training)
         return float(counter.get_total_flops())
 
-    def estimate_step_cost(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Stoke.estimate_step_cost (the cost card) is not ported yet: "
-            f"{_LATER_COST}")
+    def estimate_step_cost(self, model_args: Any, loss_args: Any = ()):
+        """The :class:`~stoke_tpu_torch.telemetry.attribution.CostCard` of
+        one fused optimizer step at these inputs (forward, backward and
+        the apply): FLOPs, bytes accessed and, with an
+        ``AttributionConfig``'s peaks, the roofline-optimal time, counted
+        by the funnel of the live cards
+        (:func:`~stoke_tpu_torch.telemetry.attribution.counting`). The
+        step runs on the device and everything it changed is put back: the
+        parameters, gradients, buffers, optimizer state (what its first
+        step would create is dropped again), scaler, transport state and
+        dropout generator; no counter moves. Across ranks every rank must
+        call it. Under ``OffloadDiskConfig`` the spill of the state is
+        file IO a step repeats, so the estimate is refused there."""
+        from stoke_tpu_torch.telemetry.attribution import CostCard, counting
+
+        eng = self._engine
+        if eng.disk_store is not None:
+            raise ValueError(
+                "Stoke -- estimate_step_cost runs a step and puts the "
+                "state back; the disk tier (OffloadDiskConfig) would spill "
+                "the stepped state to its files first. Estimate in a run "
+                "without it")
+        if not isinstance(model_args, tuple):
+            model_args = (model_args,)
+        if not isinstance(loss_args, tuple):
+            loss_args = (loss_args,)
+        margs, largs = self._place(model_args), self._place(loss_args)
+        params = eng.params
+        grads = [p.grad for p in params]
+        buffers = {n: b.clone() for n, b in self._module.named_buffers()}
+        scaler = {k: v.clone() for k, v in eng.scaler.items()}
+        comm = {k: ([t.clone() for t in v] if isinstance(v, list)
+                    else v.clone()) for k, v in eng.comm_state.items()}
+        stateful = set(eng.optimizer.state)
+        kept = {k: t.clone() for k, t in eng._guarded().items()}
+        hosted = ([t.clone() for t in eng.host_state.host_tensors]
+                  if eng.host_state is not None else [])
+        rng = self._generator.get_state()
+        training = self.training
+        self._module.train()
+        try:
+            for p in params:
+                p.grad = None
+            eng.sync = True
+            with counting() as cost:
+                eng.accum(margs, dict(self._train_kwargs), largs)
+                eng._apply()
+        finally:
+            with torch.no_grad():
+                for p in [p for p in eng.optimizer.state
+                          if p not in stateful]:
+                    del eng.optimizer.state[p]
+                live = eng._guarded()
+                for k, t in kept.items():
+                    if k in live:
+                        live[k].copy_(t)
+                if eng.host_state is not None:
+                    for dst, src in zip(eng.host_state.host_tensors, hosted):
+                        dst.copy_(src)
+                for p, g in zip(params, grads):
+                    p.grad = g
+                for n, b in self._module.named_buffers():
+                    b.copy_(buffers[n])
+                for k, v in scaler.items():
+                    eng.scaler[k].copy_(v)
+                for k, v in comm.items():
+                    if isinstance(v, list):
+                        for dst, src in zip(eng.comm_state[k], v):
+                            dst.copy_(src)
+                    else:
+                        eng.comm_state[k].copy_(v)
+            self._generator.set_state(rng)
+            self._module.train(training)
+        acfg = self._status_obj.attribution_config
+        return CostCard.from_cost(
+            cost.as_dict(), "fused", 1,
+            peak_tflops=acfg.peak_tflops if acfg is not None else 0.0,
+            peak_hbm_gbps=acfg.peak_hbm_gbps if acfg is not None else 0.0)
+
+    # ------------------------------------------------------------------ #
+    # the observatories (numerics, memory, attribution)
+    # ------------------------------------------------------------------ #
+
+    def _sample_wire_error(self) -> None:
+        """The error-feedback residual's norm by group, at the logging
+        cadence (one small read); a failure is warned once and the signal
+        left out."""
+        m = self._numerics
+        eng = self._engine
+        if (m is None or not m.cfg.wire_error or eng.transport is None
+                or not eng.comm_state.get("residual")):
+            return
+        try:
+            from stoke_tpu_torch.telemetry.numerics import (
+                wire_residual_group_norms,
+            )
+
+            m.observe_wire(wire_residual_group_norms(
+                eng.transport, eng.comm_state, m.groups,
+                eng.comm_order.sizes(eng.params)))
+        except Exception as e:
+            if not self._wire_error_warned:
+                self._wire_error_warned = True
+                self.warn(f"per-layer wire-error attribution unavailable "
+                          f"({type(e).__name__}: {e}); numerics wire_err "
+                          f"will be absent this run")
+
+    @property
+    def numerics(self):
+        """The run's numerics monitor (None without a ``NumericsConfig``)."""
+        return self._numerics
+
+    def numerics_summary(self) -> Optional[Dict[str, Any]]:
+        """Groups ranked by gradient noise, quantization error and wire
+        error, the latest per-group statistics and every provenance event;
+        None without a ``NumericsConfig``."""
+        if self._numerics is None:
+            return None
+        return self._numerics.summary()
+
+    @property
+    def memory(self):
+        """The run's memory observatory (None without a ``MemoryConfig``)."""
+        return self._memory_obs
+
+    @property
+    def memory_summary(self) -> Optional[Dict[str, Any]]:
+        """The device-memory ledger: components ranked by bytes (summing
+        to the resident total), the program cards, the pre-flight verdicts
+        and the allocator's unattributed bytes; None without a
+        ``MemoryConfig``."""
+        if self._memory_obs is None:
+            return None
+        return self._memory_obs.summary()
+
+    @property
+    def attribution(self):
+        """The run's attribution monitor (None without an
+        ``AttributionConfig``): cost cards, MFU gauges, goodput, captures."""
+        return self._attribution
+
+    @property
+    def goodput(self) -> Optional[Dict[str, Any]]:
+        """The run's goodput accounting (None without an
+        ``AttributionConfig``)."""
+        return self._telemetry.goodput_summary()
     # ------------------------------------------------------------------ #
     # loss tracking (device tensors; read on the host only when asked)
     # ------------------------------------------------------------------ #

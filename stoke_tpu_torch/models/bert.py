@@ -41,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stoke_tpu_torch import remat as _remat
+
 
 @dataclass(frozen=True)
 class BertSize:
@@ -65,7 +67,8 @@ class Dropout(nn.Module):
     element with probability ``rate`` and scale the rest by
     ``1 / (1 - rate)``; in eval, or at rate 0, the identity. Masks come
     from ``generator`` (None: torch's default generator), which must live
-    on the input's device."""
+    on the input's device; inside a rematerialized region's recompute
+    they are the forward's (:func:`stoke_tpu_torch.remat.draw`)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -75,8 +78,8 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        keep = torch.rand(x.shape, device=x.device,
-                          generator=self.generator) >= self.rate
+        keep = _remat.draw(lambda: torch.rand(x.shape, device=x.device,
+                                       generator=self.generator) >= self.rate)
         return x * keep.to(x.dtype) / (1.0 - self.rate)
 
 
@@ -151,17 +154,15 @@ class TransformerBlock(nn.Module):
         return self.ln_ff(x + self.drop_ff(y))
 
 
-_LATER_REMAT = "ROADMAP Queue 1 item 13 (rematerialization)"
-
-
-def refuse_remat(model: str) -> None:
-    """``remat=True`` waits for its ROADMAP item: a recomputed block would
-    redraw its dropout masks from the generator."""
-    raise NotImplementedError(
-        f"{model}(remat=True) is not ported yet: a recomputed block would "
-        f"redraw its dropout masks from the Stoke generator; "
-        f"{_LATER_REMAT}"
-    )
+def run_block(block: nn.Module, remat: bool, h, bias,
+              attention_fn: Optional[Callable] = None):
+    """``block(h, bias, attention_fn)``; with ``remat`` in training, its
+    activations recomputed in backward and only its inputs kept (flax's
+    ``nn.remat(TransformerBlock)``, whose default policy saves nothing),
+    the dropout masks replayed (:mod:`stoke_tpu_torch.remat`)."""
+    if remat and block.training:
+        return _remat.checkpoint_module(block, h, bias, attention_fn)
+    return block(h, bias, attention_fn)
 
 
 class LayerDrop(nn.Module):
@@ -176,9 +177,9 @@ class LayerDrop(nn.Module):
     def keep(self, keep_p: torch.Tensor) -> torch.Tensor:
         """A bool tensor shaped like ``keep_p``: ``uniform < keep_p``, as
         ``jax.random.bernoulli``."""
-        u = torch.rand(keep_p.shape, device=keep_p.device,
-                       generator=self.generator)
-        return u < keep_p
+        return _remat.draw(lambda: torch.rand(
+            keep_p.shape, device=keep_p.device,
+            generator=self.generator) < keep_p)
 
 
 class BertEncoder(nn.Module):
@@ -194,7 +195,8 @@ class BertEncoder(nn.Module):
     ``frac`` is ``layer_drop_rate``, or with ``layer_drop_theta`` set the
     theta/gamma schedule ``1 - ((1 - theta) exp(-gamma t) + theta)`` at the
     forward's ``global_step`` t (:meth:`layer_drop_fraction`).
-    ``remat=True`` is refused (ROADMAP Queue 1 item 13)."""
+    ``remat=True`` recomputes each block in backward
+    (:func:`run_block`)."""
 
     def __init__(self, vocab_size: int, size: BertSize, max_len: int = 512,
                  dropout_rate: float = 0.1,
@@ -204,8 +206,7 @@ class BertEncoder(nn.Module):
                  layer_drop_gamma: float = 0.001, token_types: bool = False,
                  device=None):
         super().__init__()
-        if remat:
-            refuse_remat("BertEncoder")
+        self.remat = bool(remat)
         self.size = size
         self.layer_drop_rate = float(layer_drop_rate)
         self.layer_drop_theta = layer_drop_theta
@@ -274,7 +275,7 @@ class BertEncoder(nn.Module):
             keep = self.layer_drop.keep(
                 1.0 - self.layer_drop_fraction(global_step) * depth)
         for i, layer in enumerate(self.layers):
-            h_new = layer(h, bias)
+            h_new = run_block(layer, self.remat, h, bias)
             h = h_new if keep is None else torch.where(keep[i], h_new, h)
         return h
 
@@ -288,7 +289,7 @@ class BertForSequenceClassification(nn.Module):
         vocab_size / num_classes / size_name / max_len / dropout_rate /
             attention_fn / layer_drop_rate / layer_drop_theta /
             layer_drop_gamma: as the JAX package's module.
-        remat: must be False (ROADMAP Queue 1 item 13).
+        remat: recompute each encoder block in backward.
         token_types: build ``seg_emb`` (the flax tree of a module
             initialised with ``token_type_ids``).
         device: where the parameters are created.
@@ -305,12 +306,10 @@ class BertForSequenceClassification(nn.Module):
                  layer_drop_gamma: float = 0.001, token_types: bool = False,
                  device=None):
         super().__init__()
-        if remat:
-            refuse_remat("BertForSequenceClassification")
         size = BERT_SIZES[size_name]
         self.encoder = BertEncoder(
             vocab_size, size, max_len, dropout_rate, attention_fn,
-            layer_drop_rate=layer_drop_rate,
+            remat=remat, layer_drop_rate=layer_drop_rate,
             layer_drop_theta=layer_drop_theta,
             layer_drop_gamma=layer_drop_gamma, token_types=token_types,
             device=device)

@@ -3,7 +3,8 @@
 Counterpart of ``stoke_tpu/models/gpt.py:30-219``: learned token and
 position embeddings, embedding dropout, the post-LN blocks of :mod:`.bert`,
 ``ln_final`` (eps ``1e-5``) and the head tied to the token embedding
-(``logits = h @ tok_emb.T``), or with ``chunked_head=True`` the
+(``logits = h @ tok_emb.T``) or, with ``tie_embeddings=False``, flax's
+``lm_head`` Dense with a bias; or with ``chunked_head=True`` the
 ``(hidden, embedding)`` pair that
 :func:`stoke_tpu_torch.ops.chunked_causal_lm_loss` takes instead of the
 logits; :func:`causal_lm_loss`. Parameter names
@@ -13,6 +14,8 @@ follow the flax tree (``layers.<i>`` for ``layer_<i>``), so
 Training path: ``attention_fn`` (default :func:`.bert.dense_attention`)
 goes to every block; with ``attention_is_causal=True`` (for
 ``make_flash_attention(causal=True)``) the forward builds no causal bias.
+``remat=True`` recomputes each block in backward
+(:func:`~stoke_tpu_torch.models.bert.run_block`).
 Train and eval are the module's mode bit (``model.train()`` /
 ``model.eval()``), where the JAX package takes ``train=`` per call.
 
@@ -36,6 +39,7 @@ from stoke_tpu_torch.models.bert import (
     Dropout,
     TransformerBlock,
     dense_attention,
+    run_block,
 )
 
 
@@ -45,9 +49,11 @@ class GPT(nn.Module):
     Args:
         vocab_size / size_name / max_len / attention_fn /
             attention_is_causal: as the JAX package's ``GPT``.
-        tie_embeddings: must be True: the port has the tied head only;
-            False raises (with ``chunked_head``, the JAX package's
-            message).
+        tie_embeddings: the head is the token embedding transposed; False
+            makes ``lm_head``, a ``Linear`` with a bias (flax's
+            ``nn.Dense(vocab, name="lm_head")``). False with
+            ``chunked_head`` raises the JAX package's message.
+        remat: recompute each block in backward.
         chunked_head: return ``(hidden, tok_emb.weight)`` instead of the
             logits, for :func:`stoke_tpu_torch.ops.chunked_causal_lm_loss`.
         dropout_rate: embedding, residual and attention-probability
@@ -64,17 +70,12 @@ class GPT(nn.Module):
                  attention_fn: Callable = dense_attention,
                  attention_is_causal: bool = False,
                  tie_embeddings: bool = True, chunked_head: bool = False,
-                 device=None):
+                 remat: bool = False, device=None):
         super().__init__()
         if chunked_head and not tie_embeddings:
             raise ValueError(
                 "GPT: chunked_head requires tie_embeddings=True (the "
                 "chunked loss re-applies the tied embedding per chunk)"
-            )
-        if not tie_embeddings:
-            raise ValueError(
-                "GPT: the port has the tied head only (tie_embeddings=False "
-                "is not ported)"
             )
         size = BERT_SIZES[size_name]
         self.vocab_size = vocab_size
@@ -82,6 +83,8 @@ class GPT(nn.Module):
         self.max_len = max_len
         self.attention_is_causal = attention_is_causal
         self.chunked_head = chunked_head
+        self.tie_embeddings = tie_embeddings
+        self.remat = bool(remat)
         self.tok_emb = nn.Embedding(vocab_size, size.hidden, device=device)
         self.pos_emb = nn.Embedding(max_len, size.hidden, device=device)
         self.emb_dropout = Dropout(dropout_rate)
@@ -91,6 +94,8 @@ class GPT(nn.Module):
             for _ in range(size.num_layers)
         )
         self.ln_final = nn.LayerNorm(size.hidden, eps=1e-5, device=device)
+        self.lm_head = (None if tie_embeddings else
+                        nn.Linear(size.hidden, vocab_size, device=device))
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -161,10 +166,13 @@ class GPT(nn.Module):
             bias = torch.where(causal, 0.0, -1e9)[None, None].to(h.dtype)
         for i, layer in enumerate(self.layers):
             fn = None if kv_cache is None else kv_cache.layer_attention(i)
-            h = layer(h, bias, fn)
+            h = run_block(layer, self.remat and kv_cache is None, h, bias,
+                          fn)
         h = self.ln_final(h)
         if self.chunked_head:
             return h, self.tok_emb.weight
+        if self.lm_head is not None:
+            return self.lm_head(h)
         return h @ self.tok_emb.weight.T
 
 

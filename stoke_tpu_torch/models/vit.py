@@ -27,7 +27,7 @@ from stoke_tpu_torch.models.bert import (
     Dropout,
     TransformerBlock,
     dense_attention,
-    refuse_remat,
+    run_block,
 )
 from stoke_tpu_torch.models.resnet import Conv, init_flax_defaults
 
@@ -38,7 +38,8 @@ class ViT(nn.Module):
     Args:
         num_classes / size_name / patch_size / dropout_rate /
             attention_fn: as the JAX package's ``ViT``.
-        remat: must be False (ROADMAP Queue 1 item 13).
+        remat: recompute each block in backward
+            (:func:`~stoke_tpu_torch.models.bert.run_block`).
         image_size: the input's side, or ``(H, W)``; each must be a
             multiple of ``patch_size``.
         device: where the parameters are created.
@@ -55,8 +56,7 @@ class ViT(nn.Module):
                  image_size: Union[int, Tuple[int, int]] = 32,
                  device=None):
         super().__init__()
-        if remat:
-            refuse_remat("ViT")
+        self.remat = bool(remat)
         size = BERT_SIZES[size_name]
         H, W = ((image_size, image_size) if isinstance(image_size, int)
                 else tuple(image_size))
@@ -96,7 +96,7 @@ class ViT(nn.Module):
         h = torch.cat([self.cls_token.expand(B, -1, -1), h], dim=1)
         h = self.emb_dropout(h + self.pos_embed)
         for layer in self.layers:
-            h = layer(h, None)
+            h = run_block(layer, self.remat, h, None)
         h = self.ln_final(h)
         return self.head(h[:, 0])
 

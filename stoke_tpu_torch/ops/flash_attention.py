@@ -692,17 +692,24 @@ def paged_decode_attention_pallas(q, k_pages, v_pages, block_tables,
         raise ValueError(
             f"context_lens must be [B={B}], got {tuple(context_lens.shape)}"
         )
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"paged_decode_attention_pallas: unsupported device {q.device}"
+        )
+    if _watched():
+        return torch.ops.stoke_tpu_torch.paged_decode(
+            q, k_pages, v_pages, block_tables, context_lens)
+    return _paged_decode_direct(q, k_pages, v_pages, block_tables,
+                                context_lens)
+
+
+def _paged_decode_direct(q, k_pages, v_pages, block_tables, context_lens):
     if q.device.type == "cpu":
         return paged_decode_attention(
             q, k_pages, v_pages, block_tables, context_lens
         )
-    if q.device.type == "cuda":
-        return _paged_decode_cuda(
-            q, k_pages, v_pages, block_tables, context_lens
-        )
-    raise ValueError(
-        f"paged_decode_attention_pallas: unsupported device {q.device}"
-    )
+    return _paged_decode_cuda(q, k_pages, v_pages, block_tables,
+                              context_lens)
 
 
 # --------------------------------------------------------------------------- #
@@ -851,12 +858,93 @@ def paged_verify_attention_pallas(q, k_pages, v_pages, block_tables,
         raise ValueError(
             f"positions must be [B={B}, S={S}], got {tuple(positions.shape)}"
         )
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"paged_verify_attention_pallas: unsupported device {q.device}"
+        )
+    if _watched():
+        return torch.ops.stoke_tpu_torch.paged_verify(
+            q, k_pages, v_pages, block_tables, positions)
+    return _paged_verify_direct(q, k_pages, v_pages, block_tables,
+                                positions)
+
+
+def _paged_verify_direct(q, k_pages, v_pages, block_tables, positions):
     if q.device.type == "cpu":
         return paged_verify_attention(q, k_pages, v_pages, block_tables,
                                       positions)
-    if q.device.type == "cuda":
-        return _paged_verify_cuda(q, k_pages, v_pages, block_tables,
-                                  positions)
-    raise ValueError(
-        f"paged_verify_attention_pallas: unsupported device {q.device}"
-    )
+    return _paged_verify_cuda(q, k_pages, v_pages, block_tables, positions)
+
+
+# --------------------------------------------------------------------------- #
+# the paged kernels as custom ops, for a TorchDispatchMode (the cost count)
+# --------------------------------------------------------------------------- #
+
+
+@torch.library.custom_op("stoke_tpu_torch::paged_decode", mutates_args=())
+def _paged_decode_op(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, block_tables: torch.Tensor,
+                     context_lens: torch.Tensor) -> torch.Tensor:
+    return _paged_decode_direct(q, k_pages, v_pages, block_tables,
+                                context_lens)
+
+
+@_paged_decode_op.register_fake
+def _(q, k_pages, v_pages, block_tables, context_lens):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("stoke_tpu_torch::paged_verify", mutates_args=())
+def _paged_verify_op(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, block_tables: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    return _paged_verify_direct(q, k_pages, v_pages, block_tables, positions)
+
+
+@_paged_verify_op.register_fake
+def _(q, k_pages, v_pages, block_tables, positions):
+    return torch.empty_like(q)
+
+
+@register_flop_formula([torch.ops.stoke_tpu_torch.paged_decode,
+                        torch.ops.stoke_tpu_torch.paged_verify])
+def _paged_flops(q, k_pages, v_pages, block_tables, lens_or_positions,
+                 out_shape=None) -> int:
+    """Dense attention over every position a slot's table addresses (the
+    plain version's products), as the flash formula counts the dense
+    square."""
+    B, H, S, D = q
+    return 4 * B * H * S * D * block_tables[1] * k_pages[1]
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _paged_decode_bytes(q, k_pages, v_pages, block_tables, context_lens):
+    """Bytes the decode kernel moves: the queries and outputs, the tables
+    and lengths, and the K and V rows of the positions each slot attends
+    (its context; read on the host, so a count syncs)."""
+    H, D = q.shape[1], q.shape[3]
+    row = 2 * H * D * k_pages.element_size()
+    return (2 * _nbytes(q) + _nbytes(block_tables, context_lens)
+            + row * int(context_lens.long().sum()))
+
+
+def _paged_verify_bytes(q, k_pages, v_pages, block_tables, positions):
+    """As :func:`_paged_decode_bytes`, each slot reading the positions up
+    to its last query row's."""
+    H, D = q.shape[1], q.shape[3]
+    row = 2 * H * D * k_pages.element_size()
+    read = int((positions.long().amax(dim=1) + 1).sum())
+    return 2 * _nbytes(q) + _nbytes(block_tables, positions) + row * read
+
+
+#: the bytes a kernel's custom op moves, by op, where counting its operands
+#: would count the whole page pool (the cost count of
+#: :mod:`stoke_tpu_torch.telemetry.attribution`); the flash ops move their
+#: operands (Q, K, V, O, LSE and their gradients), the default count
+BYTES_FORMULAS = {
+    torch.ops.stoke_tpu_torch.paged_decode: _paged_decode_bytes,
+    torch.ops.stoke_tpu_torch.paged_verify: _paged_verify_bytes,
+}

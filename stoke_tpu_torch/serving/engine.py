@@ -56,14 +56,22 @@ on the ``serve`` track, each request's ``serve/admission`` and per-step
 request's ``rid``), and a ``serve/evict`` point at each finish. Without
 one, none of that bookkeeping runs.
 
-Left out, and refused at construction with ``NotImplementedError``
-naming ROADMAP item 10c: the SLO and cost observatories, and the
-by-group attribution of the quantization error. The memory observatory
-is left out too.
+The observatories: ``submit(slo=RequestSLO(...))`` (and the
+``ServeConfig.slo_*`` defaults) tracks each request's deadlines in
+:attr:`ServingEngine.slo` (:mod:`~stoke_tpu_torch.serving.slo`);
+``ServeConfig(cost_cards=True)`` with the run's ``AttributionConfig``
+peaks counts each program's cost card at its first dispatch and gives the
+decode roofline, MFU and bandwidth utilization
+(:mod:`~stoke_tpu_torch.serving.roofline`); a ``MemoryConfig`` ledgers the
+weights and the KV pool, runs the serve pre-flight and forecasts
+``serve/mem_headroom_bytes``. The int8 weights' error by JAX tree group is
+:attr:`ServingEngine.quant_errors_by_group`. ``summary()`` carries the
+``slo``, ``cost`` and ``memory`` blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -94,10 +102,17 @@ from stoke_tpu_torch.serving.sampling import (
     validate_sampling_params,
 )
 from stoke_tpu_torch.serving.scheduler import Request, Scheduler
+from stoke_tpu_torch.serving.slo import (
+    RequestSLO,
+    SLOTracker,
+    resolve_request_slo,
+)
 from stoke_tpu_torch.serving.telemetry import ServeMetrics
 from stoke_tpu_torch.status import serve_config_error
 from stoke_tpu_torch.telemetry.registry import MetricsRegistry
 from stoke_tpu_torch.telemetry.tracing import (
+    dropped_total,
+    request_spans,
     trace_add,
     trace_point,
     trace_span,
@@ -106,32 +121,8 @@ from stoke_tpu_torch.telemetry.tracing import (
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_LATER_OBSERVATORIES = (
-    "ROADMAP Queue 1 item 10c (numerics, memory, attribution and the "
-    "serving observatories: the serve SLO and cost observatories)"
-)
-
-
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
-
-
-def _unsupported(cfg: ServeConfig) -> Optional[str]:
-    """The first feature ``cfg`` turns on that this slice does not serve,
-    with the ROADMAP item that ports it."""
-    later = {
-        "cost_cards": (cfg.cost_cards, _LATER_OBSERVATORIES),
-        "slo_ttft_target_s": (
-            cfg.slo_ttft_target_s is not None, _LATER_OBSERVATORIES
-        ),
-        "slo_tpot_target_s": (
-            cfg.slo_tpot_target_s is not None, _LATER_OBSERVATORIES
-        ),
-    }
-    for name, (on, item) in later.items():
-        if on:
-            return f"ServeConfig.{name} is not ported yet: {item}"
-    return None
 
 
 def _as_int32(a: np.ndarray) -> np.ndarray:
@@ -156,6 +147,12 @@ class ServingEngine:
         device: ``None`` or ``"cuda"`` runs on the card (and raises when
             there is none); ``"cpu"`` runs on the CPU, where the kernels'
             plain versions run.
+        attribution: the ``AttributionConfig`` whose peaks the cost cards
+            roofline against; needed with ``cfg.cost_cards``
+            (``Stoke.serve()`` passes the run's).
+        memory: a ``MemoryConfig``: the engine's own memory observatory
+            (its weights and KV pool, the serve pre-flight at
+            construction, the KV headroom forecast); None builds none.
     """
 
     def __init__(
@@ -165,6 +162,8 @@ class ServingEngine:
         cfg: ServeConfig,
         *,
         device=None,
+        attribution=None,
+        memory=None,
     ):
         self.device = resolve_device(device)
         if not isinstance(model, GPT):
@@ -190,12 +189,16 @@ class ServingEngine:
                 "(temperature=0.0 keeps exact greedy streams); set "
                 "sampling=True or drop speculative_k"
             )
+        if cfg.cost_cards and attribution is None:
+            raise ValueError(
+                "ServeConfig.cost_cards needs the hardware peaks an "
+                "AttributionConfig carries (peak_tflops / peak_hbm_gbps) "
+                "to roofline against — pass attribution= to the engine "
+                "(Stoke.serve() supplies the run's AttributionConfig)"
+            )
         rule = serve_config_error(cfg)
         if rule is not None:
             raise ValueError(rule)
-        reason = _unsupported(cfg)
-        if reason is not None:
-            raise NotImplementedError(reason)
         knobs = ("decode_pages_per_block", "decode_block_h",
                  "verify_pages_per_block", "verify_block_h")
         for knob in knobs:
@@ -238,10 +241,16 @@ class ServingEngine:
         self.model.eval()
         self.cfg = cfg
         self.metrics = ServeMetrics(MetricsRegistry())
+        # host bookkeeping only, inert until an SLO-tagged request arrives
+        self.slo = SLOTracker(self.metrics.registry)
         #: the quantized weight store (None: the module's own weights)
         self.qparams: Optional[Dict[str, Any]] = None
         self.quant_stats: Optional[Dict[str, float]] = None
         self.quant_errors: Dict[str, Dict[str, float]] = {}
+        #: the int8 weights' error folded by JAX tree group, and its worst
+        self.quant_errors_by_group: Dict[str, Dict[str, float]] = {}
+        self.quant_err_layer: Optional[str] = None
+        self.quant_err_max: Optional[float] = None
         if cfg.quant != "none":
             self._quantize(cfg)
 
@@ -296,8 +305,49 @@ class ServingEngine:
         # emitted token)
         self.capture_logits = False
         self.captured_logits: Dict[int, List[np.ndarray]] = {}
+        self._cost = None
+        if cfg.cost_cards:
+            from stoke_tpu_torch.serving.roofline import ServeCostObservatory
+
+            self._cost = ServeCostObservatory(
+                self.metrics, attribution.peak_tflops,
+                attribution.peak_hbm_gbps)
+        self._memory = None
+        if memory is not None:
+            from stoke_tpu_torch.telemetry.memory import (
+                MemoryObservatory,
+                tensors_resident_bytes,
+            )
+            from stoke_tpu_torch.serving.quant import param_bytes
+
+            self._memory = MemoryObservatory(memory, self.metrics.registry,
+                                             device=self.device)
+            self._memory.set_component(
+                "params",
+                lambda: (param_bytes(self.qparams) if self.qparams is not None
+                         else tensors_resident_bytes(
+                             self.model.parameters(), self.device)))
+            self._memory.set_component("kv_cache", lambda: self.cache.nbytes)
+            self._memory.preflight("serve")
         self._iterations = 0
         self._t_start = time.perf_counter()
+
+    @contextlib.contextmanager
+    def _observed(self, program: str, *arrays):
+        """One dispatch of ``program`` over ``arrays`` (its host inputs,
+        whose shapes are its signature) inside the block: its cost card
+        counted on the first run of the signature and booked every time,
+        its memory card measured on the first run."""
+        if self._cost is None and self._memory is None:
+            yield
+            return
+        sig = tuple((tuple(a.shape), str(a.dtype)) for a in arrays)
+        with contextlib.ExitStack() as stack:
+            if self._memory is not None:
+                stack.enter_context(self._memory.measure(program, sig))
+            if self._cost is not None:
+                stack.enter_context(self._cost.dispatch(program, sig))
+            yield
 
     def _quantize(self, cfg: ServeConfig) -> None:
         """Quantize the weights once (the JAX engine's load-time
@@ -324,8 +374,24 @@ class ServingEngine:
         self.quant_stats = compression_stats(dense, self.qparams)
         self.metrics.quant_compression.set(self.quant_stats["compression"])
         if cfg.quant == "int8":
+            from stoke_tpu_torch.telemetry.numerics import (
+                max_quant_error,
+                module_groups,
+                quant_error_by_group,
+            )
+            from stoke_tpu_torch.telemetry.health import leaf_path_names
+
             self.quant_errors = quantization_error(dense, self.qparams,
                                                    layout)
+            self.quant_errors_by_group = quant_error_by_group(
+                self.quant_errors, module_groups(self.model),
+                leaf_path_names(self.model))
+            self.quant_err_layer, self.quant_err_max = max_quant_error(
+                self.quant_errors_by_group)
+            reg = self.metrics.registry
+            for group, err in self.quant_errors_by_group.items():
+                reg.gauge(f"numerics/{group}/quant_err_rel_rms").set(
+                    err["rel_rms"])
         for n, p in params.items():
             if self.qparams[n] is not dense[n]:
                 p.untyped_storage().resize_(0)
@@ -400,13 +466,16 @@ class ServingEngine:
         """Greedy prefill: ``padded [1, P]`` prompt, ``block_row [1, MB]``:
         write the prompt's K/V and return the first generated token."""
         P = padded.shape[1]
-        tokens, tables, plen = self._upload(
-            padded, block_row, np.array([prompt_len])
-        )
-        positions = torch.arange(P, dtype=torch.int32, device=self.device)[None]
-        hook = self._hook(tables, positions, "prefill", plen)
-        logits = self._forward(tokens, positions, kv_cache=hook)
-        return int(logits[0, prompt_len - 1].argmax())  # sync: the TTFT point
+        with self._observed("serve_prefill", padded):
+            tokens, tables, plen = self._upload(
+                padded, block_row, np.array([prompt_len])
+            )
+            positions = torch.arange(P, dtype=torch.int32,
+                                     device=self.device)[None]
+            hook = self._hook(tables, positions, "prefill", plen)
+            logits = self._forward(tokens, positions, kv_cache=hook)
+            # sync: the TTFT point
+            return int(logits[0, prompt_len - 1].argmax())
 
     def _prefill_sampling(self, padded: np.ndarray, block_row: np.ndarray,
                           prompt_len: int, slot: int, params: SamplingParams):
@@ -415,28 +484,32 @@ class ServingEngine:
         P = padded.shape[1]
         carry, sub = split_key_data(self._key_data[slot : slot + 1])
         knobs = self._knobs(params)
-        tokens, tables, plen, *samp = self._upload(
-            padded, block_row, np.array([prompt_len]), sub, *knobs
-        )
-        positions = torch.arange(P, dtype=torch.int32, device=self.device)[None]
-        hook = self._hook(tables, positions, "prefill", plen)
-        row = self._forward(tokens, positions, kv_cache=hook)[0, prompt_len - 1]
-        tok = self._draw(sample_tokens, row[None], knobs[0],
-                         *self._sampling_args(*samp))
-        return int(tok[0]), carry[0], row  # sync: the TTFT point
+        with self._observed("serve_prefill", padded):
+            tokens, tables, plen, *samp = self._upload(
+                padded, block_row, np.array([prompt_len]), sub, *knobs
+            )
+            positions = torch.arange(P, dtype=torch.int32,
+                                     device=self.device)[None]
+            hook = self._hook(tables, positions, "prefill", plen)
+            row = self._forward(tokens, positions,
+                                kv_cache=hook)[0, prompt_len - 1]
+            tok = self._draw(sample_tokens, row[None], knobs[0],
+                             *self._sampling_args(*samp))
+            return int(tok[0]), carry[0], row  # sync: the TTFT point
 
     def _decode(self) -> np.ndarray:
         """One greedy decode step over all slots; returns the next tokens
         [B]."""
-        tokens, positions, tables, context = self._upload(
-            *self.scheduler.decode_batch()
-        )
-        hook = self._hook(tables, positions[:, None], "decode", context)
-        logits = self._forward(
-            tokens[:, None], positions[:, None], decode=True, kv_cache=hook
-        )
-        # sync: the tokens stream out
-        return logits[:, -1, :].argmax(dim=-1).cpu().numpy()
+        batch = self.scheduler.decode_batch()
+        with self._observed("serve_decode", *batch):
+            tokens, positions, tables, context = self._upload(*batch)
+            hook = self._hook(tables, positions[:, None], "decode", context)
+            logits = self._forward(
+                tokens[:, None], positions[:, None], decode=True,
+                kv_cache=hook
+            )
+            # sync: the tokens stream out
+            return logits[:, -1, :].argmax(dim=-1).cpu().numpy()
 
     def _decode_sampling(self):
         """One sampling decode step over all slots: returns ``(tokens
@@ -445,16 +518,20 @@ class ServingEngine:
         sched = self.scheduler
         carry, sub = split_key_data(self._key_data)
         knobs = sched.sampling_batch()
-        tokens, positions, tables, context, *samp = self._upload(
-            *sched.decode_batch(), sub, *knobs
-        )
-        hook = self._hook(tables, positions[:, None], "decode", context)
-        logits = self._forward(
-            tokens[:, None], positions[:, None], decode=True, kv_cache=hook
-        )[:, -1, :]
-        tok = self._draw(sample_tokens, logits, knobs[0],
-                         *self._sampling_args(*samp))
-        return tok.cpu().numpy(), carry, logits  # sync: tokens stream out
+        batch = sched.decode_batch()
+        with self._observed("serve_decode", *batch):
+            tokens, positions, tables, context, *samp = self._upload(
+                *batch, sub, *knobs
+            )
+            hook = self._hook(tables, positions[:, None], "decode", context)
+            logits = self._forward(
+                tokens[:, None], positions[:, None], decode=True,
+                kv_cache=hook
+            )[:, -1, :]
+            tok = self._draw(sample_tokens, logits, knobs[0],
+                             *self._sampling_args(*samp))
+            # sync: tokens stream out
+            return tok.cpu().numpy(), carry, logits
 
     def _chunk(self, toks, positions, slot: int, req: Request,
                logit_idx: int):
@@ -466,17 +543,19 @@ class ServingEngine:
         sched = self.scheduler
         carry, sub = split_key_data(self._key_data[slot : slot + 1])
         knobs = self._knobs(req.params)
-        tokens, pos, tables, plen, *samp = self._upload(
-            toks[None], positions[None], sched.block_tables[slot : slot + 1],
-            np.array([req.prompt.size]), sub, *knobs,
-        )
-        hook = self._hook(tables, pos, "chunk", plen)
-        row = self._forward(tokens, pos, kv_cache=hook)[0, logit_idx]
-        tok = self._draw(sample_tokens, row[None], knobs[0],
-                         *self._sampling_args(*samp))
-        # every chunk syncs, so its compute is charged to prefill and not
-        # to the next decode step's fetch
-        return int(tok[0]), carry[0], row
+        with self._observed("serve_prefill_chunk", toks):
+            tokens, pos, tables, plen, *samp = self._upload(
+                toks[None], positions[None],
+                sched.block_tables[slot : slot + 1],
+                np.array([req.prompt.size]), sub, *knobs,
+            )
+            hook = self._hook(tables, pos, "chunk", plen)
+            row = self._forward(tokens, pos, kv_cache=hook)[0, logit_idx]
+            tok = self._draw(sample_tokens, row[None], knobs[0],
+                             *self._sampling_args(*samp))
+            # every chunk syncs, so its compute is charged to prefill and
+            # not to the next decode step's fetch
+            return int(tok[0]), carry[0], row
 
     def _packed_chunk(self, tokens, positions, tables, lengths, logit_idx,
                       rows):
@@ -490,18 +569,20 @@ class ServingEngine:
         for i, req, _ in rows:
             temps[i], ks[i], ps[i] = req.params.as_arrays()
         carry, sub = split_key_data(self._key_data)
-        toks, pos, tab, lens, idx, *samp = self._upload(
-            tokens, positions, tables, lengths, logit_idx, sub, temps, ks, ps,
-        )
-        hook = self._hook(tab, pos, "chunk", lens)
-        logits = self._forward(toks, pos, kv_cache=hook)
-        V = logits.shape[-1]
-        picked = torch.gather(
-            logits, 1, idx.long()[:, None, None].expand(-1, 1, V)
-        )[:, 0]
-        tok = self._draw(sample_tokens, picked, temps,
-                         *self._sampling_args(*samp))
-        return tok.cpu().numpy(), carry, picked
+        with self._observed("serve_prefill_chunk_packed", tokens):
+            toks, pos, tab, lens, idx, *samp = self._upload(
+                tokens, positions, tables, lengths, logit_idx, sub, temps,
+                ks, ps,
+            )
+            hook = self._hook(tab, pos, "chunk", lens)
+            logits = self._forward(toks, pos, kv_cache=hook)
+            V = logits.shape[-1]
+            picked = torch.gather(
+                logits, 1, idx.long()[:, None, None].expand(-1, 1, V)
+            )[:, 0]
+            tok = self._draw(sample_tokens, picked, temps,
+                             *self._sampling_args(*samp))
+            return tok.cpu().numpy(), carry, picked
 
     def _verify(self, tokens, positions, tables, lengths, draft_lens):
         """One speculative verify step: scores all S rows of every slot,
@@ -515,17 +596,20 @@ class ServingEngine:
         # program's scan), on the host
         key_stack, subs = split_chain(self._key_data, tokens.shape[1])
         knobs = sched.sampling_batch()
-        toks, pos, tab, lens, dl, *samp = self._upload(
-            tokens, positions, tables, lengths, draft_lens, subs, *knobs,
-        )
-        hook = self._hook(tab, pos, "verify", lens)
-        logits = self._forward(toks, pos, kv_cache=hook)
-        targets = self._draw(draw_targets, logits, knobs[0],
-                             *self._sampling_args(*samp))
-        n_emit = accept_drafts(toks[:, 1:], dl, targets)
-        hook.rollback(n_emit)
-        # one sync for the tokens and the acceptance counts
-        host = torch.cat([targets, n_emit[:, None]], dim=1).cpu().numpy()
+        with self._observed("serve_verify", tokens):
+            toks, pos, tab, lens, dl, *samp = self._upload(
+                tokens, positions, tables, lengths, draft_lens, subs,
+                *knobs,
+            )
+            hook = self._hook(tab, pos, "verify", lens)
+            logits = self._forward(toks, pos, kv_cache=hook)
+            targets = self._draw(draw_targets, logits, knobs[0],
+                                 *self._sampling_args(*samp))
+            n_emit = accept_drafts(toks[:, 1:], dl, targets)
+            hook.rollback(n_emit)
+            # one sync for the tokens and the acceptance counts
+            host = torch.cat([targets, n_emit[:, None]],
+                             dim=1).cpu().numpy()
         targets, n_emit = host[:, :-1], host[:, -1]
         return targets, n_emit, select_key_data(key_stack, n_emit), logits
 
@@ -536,14 +620,19 @@ class ServingEngine:
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = None,
-               sampling: Optional[SamplingParams] = None) -> int:
+               sampling: Optional[SamplingParams] = None,
+               slo: Optional[RequestSLO] = None) -> int:
         """Enqueue one request (mid-flight is the point); returns its id.
 
         ``sampling`` carries the request's temperature / top-k / top-p /
         seed, validated here; it needs ``ServeConfig(sampling=True)``.
         Without it the request takes the config's knobs, and a request
         without a seed gets ``ServeConfig.sampling_seed + rid``, so a whole
-        run replays from the config."""
+        run replays from the config.
+
+        ``slo`` carries the request's priority class and TTFT / TPOT
+        deadlines: validated here, its unset targets resolved from the
+        ``ServeConfig.slo_*`` defaults; host bookkeeping only."""
         if sampling is not None:
             if not self._sampling:
                 raise ValueError(
@@ -555,9 +644,15 @@ class ServingEngine:
             params = sampling
         else:
             params = self._default_sampling
+        if slo is not None:
+            slo = resolve_request_slo(slo, self.cfg.slo_ttft_target_s,
+                                      self.cfg.slo_tpot_target_s)
         rid = self.scheduler.submit(prompt, max_new_tokens, eos_id,
-                                    params=params)
+                                    params=params, slo=slo)
         self.metrics.requests.inc()
+        if slo is not None:
+            # the queue's tail is the request just enqueued
+            self.slo.on_submit(self.scheduler.queue[-1])
         return rid
 
     def result(self, rid: int) -> Optional[Request]:
@@ -768,6 +863,8 @@ class ServingEngine:
                               req.admit_ts, track="serve",
                               request_id=req.rid,
                               attrs={"prompt_len": plen}, count_self=False)
+                if req.slo is not None:
+                    self.slo.on_admit(req)
                 if self._sampling or self._chunked:
                     self._key_data[slot] = initial_key_data(req.seed)
                 if padded is None:
@@ -820,6 +917,10 @@ class ServingEngine:
         self.metrics.completed.inc()
         if req.tpot_s is not None:
             self.metrics.observe_tpot(req.tpot_s)
+        if req.slo is not None:
+            # attainment, and the request's span timeline walked into the
+            # violation buckets (partial when the ring dropped spans)
+            self.slo.on_finish(req, request_spans(req.rid), dropped_total())
 
     def _refresh_gauges(self) -> None:
         m, sched = self.metrics, self.scheduler
@@ -833,6 +934,39 @@ class ServingEngine:
         target = max(0.0, wall - m.prefill_s.value - m.decode_s.value)
         if target > m.queue_s.value:
             m.queue_s.inc(target - m.queue_s.value)
+        if self._cost is not None:
+            self._cost.refresh_gauges()
+            self.slo.set_flops_per_token(self._cost.flops_per_token())
+        self.slo.refresh_gauges()
+        if self._memory is not None:
+            self._memory.note_serve_headroom(self._mem_headroom_bytes())
+            self._memory.refresh_gauges()
+
+    def _mem_headroom_bytes(self) -> float:
+        """The KV pool's headroom forecast: free bytes minus the worst-case
+        blocks the queued requests will claim at admission (an admitted
+        request reserved its whole budget already); negative when the
+        queue cannot be admitted against the pool."""
+        alloc = self.allocator
+        queued_blocks = sum(
+            alloc.blocks_for(req.prompt.size + req.max_new_tokens)
+            for req in self.scheduler.queue)
+        bytes_per_block = self.cache.nbytes / max(alloc.num_blocks, 1)
+        return (alloc.free_blocks - queued_blocks) * bytes_per_block
+
+    def event_fields(self) -> Dict[str, Any]:
+        """The ``serve/*`` block of a serve record with the observatories'
+        conditional blocks (the SLO block once an SLO request arrived, the
+        cost block with cost cards, the headroom with a memory
+        observatory)."""
+        self._refresh_gauges()
+        return {
+            **self.metrics.event_fields(),
+            **self.slo.event_fields(),
+            **(self._cost.event_fields() if self._cost is not None else {}),
+            **(self._memory.serve_event_fields()
+               if self._memory is not None else {}),
+        }
 
     def summary(self) -> Dict[str, Any]:
         m = self.metrics
@@ -854,4 +988,9 @@ class ServingEngine:
                 "prefill": m.prefill_s.value,
                 "decode": m.decode_s.value,
             },
+            "slo": self.slo.summary(),
+            "cost": (self._cost.summary() if self._cost is not None
+                     else {"active": False}),
+            "memory": (self._memory.summary() if self._memory is not None
+                       else {"active": False}),
         }

@@ -31,7 +31,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -48,7 +48,7 @@ class Request:
     prefill: its wall time is the TTFT); ``first_token_ts - arrival_ts``
     and the per-token deltas after it feed the TTFT/TPOT histograms.
     ``params`` and ``seed`` are the resolved sampling knobs and key-stream
-    seed."""
+    seed; ``slo`` the resolved per-request SLO (None: none tracked)."""
 
     rid: int
     prompt: np.ndarray
@@ -61,6 +61,7 @@ class Request:
     first_token_ts: Optional[float] = None
     finish_ts: Optional[float] = None
     tokens: List[int] = field(default_factory=list)
+    slo: Optional[Any] = None
 
     @property
     def finished(self) -> bool:
@@ -140,7 +141,8 @@ class Scheduler:
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = None,
-               params: Optional[SamplingParams] = None) -> int:
+               params: Optional[SamplingParams] = None,
+               slo=None) -> int:
         """Enqueue one request; returns its id. A request whose worst case
         cannot fit ``max_seq_len`` is rejected here, not mid-decode. The
         key-stream seed is resolved beside the id: an explicit
@@ -176,6 +178,7 @@ class Scheduler:
                 eos_id=self.eos_id if eos_id is None else eos_id,
                 params=params,
                 seed=int(seed),
+                slo=slo,
             )
         )
         return rid

@@ -156,6 +156,12 @@ class ServeMetrics:
             help="draft tokens accepted into the output stream",
         )
 
+    def reset_latency_reservoirs(self) -> None:
+        """Drop the exact-percentile samples (the registry histograms keep
+        theirs): a drive after a warm one reads its own p50 / p99."""
+        self._ttft_samples = _Reservoir()
+        self._tpot_samples = _Reservoir()
+
     def observe_ttft(self, seconds: float) -> None:
         self.ttft.observe(seconds)
         self._ttft_samples.add(seconds)

@@ -93,26 +93,20 @@ from stoke_tpu_torch.resilience import (
 
 _ITEM = "ROADMAP Queue 1 item"
 _LATER_MODEL_PARALLEL = f"{_ITEM} 8 (long context and model parallelism)"
-_LATER_OBSERVATORIES = (f"{_ITEM} 10c (numerics, memory, attribution and "
-                        f"the serving observatories)")
 _LATER_FLEET = f"{_ITEM} 10d (fleet, ops plane and input rebalancing)"
 _LATER_COMPILE = f"{_ITEM} 11 (compile cache, autotune and analysis)"
-_LATER_REMAT = f"{_ITEM} 13 (rematerialization)"
 
 #: the config classes the port refuses after the legality rules, with the
 #: ROADMAP item that ports each (``CommConfig``, item 7,
 #: ``CheckpointConfig(format='sharded')``, item 6b, the telemetry, trace,
-#: health and profiler configs, items 10a and 10b, and ``ResilienceConfig``,
+#: health and profiler configs, items 10a and 10b, ``ResilienceConfig``,
 #: the three offload configs and ``CheckpointConfig(offload_staging=True)``,
-#: item 9, are honoured)
+#: item 9, the attribution, numerics and memory configs, item 10c, and
+#: ``ActivationCheckpointingConfig``, item 13, are honoured)
 LATER_CONFIGS: Dict[str, str] = {
-    "AttributionConfig": _LATER_OBSERVATORIES,
     "CompileConfig": _LATER_COMPILE,
     "PartitionRulesConfig": _LATER_MODEL_PARALLEL,
-    "ActivationCheckpointingConfig": _LATER_REMAT,
     "FleetConfig": _LATER_FLEET,
-    "MemoryConfig": _LATER_OBSERVATORIES,
-    "NumericsConfig": _LATER_OBSERVATORIES,
     "OpsPlaneConfig": _LATER_FLEET,
 }
 

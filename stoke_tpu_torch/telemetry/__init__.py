@@ -12,7 +12,11 @@ serving layers to files (the counterpart of ``stoke_tpu/telemetry``).
 
 Beside it: host span tracing (:mod:`~stoke_tpu_torch.telemetry.tracing`),
 the health monitor (:mod:`~stoke_tpu_torch.telemetry.health`) and its
-flight recorder (:mod:`~stoke_tpu_torch.telemetry.recorder`).
+flight recorder (:mod:`~stoke_tpu_torch.telemetry.recorder`), and the
+observatories whose fields ride each step event: step-time attribution
+(:mod:`~stoke_tpu_torch.telemetry.attribution`), per-layer numerics
+(:mod:`~stoke_tpu_torch.telemetry.numerics`) and device memory
+(:mod:`~stoke_tpu_torch.telemetry.memory`).
 
 Enable by passing ``TelemetryConfig`` to ``Stoke(configs=[...])``; the
 :class:`Telemetry` object is also usable standalone (scripts, tests):
@@ -144,10 +148,10 @@ class Telemetry:
     adds a per-rank JSONL stream (``steps.rank<N>.jsonl``) and
     ``prometheus_all_ranks`` a per-rank scrape file.
 
-    ``attribution``, ``fleet``, ``resilience``, ``numerics`` and ``memory``
-    are the monitors of ROADMAP Queue 1 items 10c, 10d and 9; they stay
-    None in this port, so their step-event fields ride as ``null`` or stay
-    absent, as the JAX hub writes them without the monitor.
+    ``attribution``, ``resilience``, ``numerics`` and ``memory`` are the
+    monitors the facade assigns with their configs; without one its
+    step-event fields ride as ``null`` or stay absent, as the JAX hub
+    writes them. ``fleet`` (ROADMAP Queue 1 item 10d) stays None.
     """
 
     def __init__(
@@ -265,7 +269,20 @@ class Telemetry:
         sync = self.registry.get("sync/barrier_wait_s")
         if sync is not None and sync.value > 0:
             out["sync/barrier_wait"] = sync.value
+        if self.attribution is not None:
+            from stoke_tpu_torch.telemetry.attribution import GOODPUT_BUCKETS
+
+            summary = self.attribution.goodput_summary()
+            for b in GOODPUT_BUCKETS:
+                out[f"goodput/{b}"] = summary[f"{b}_s"]
         return out
+
+    def goodput_summary(self) -> Optional[dict]:
+        """The goodput accounting (bucket seconds and shares, aggregate
+        achieved TFLOP/s and MFU, captures); None without attribution."""
+        if self.attribution is None:
+            return None
+        return self.attribution.goodput_summary()
 
     # ------------------------------------------------------------------ #
     # step records
@@ -335,10 +352,15 @@ class Telemetry:
             update_hbm_gauges(self.registry)
 
         # host dispatch seconds this window: sum of facade phase deltas
+        # (checkpoint IO also feeds the goodput ledger)
         host_dispatch = 0.0
+        ckpt_io = 0.0
         for name in self.registry.names():
             if name.startswith("facade/") and name.endswith("_s"):
-                host_dispatch += self._delta(name)
+                d = self._delta(name)
+                host_dispatch += d
+                if name in ("facade/save_s", "facade/load_s"):
+                    ckpt_io += d
         loader_wait = self._delta("data/loader_wait_s")
         samples_delta = self._delta("data/samples_total")
         tokens_delta = self._delta("data/tokens_total")
@@ -379,6 +401,21 @@ class Telemetry:
             compiles = recompiles = 0
             compile_time = 0.0
 
+        # the observatories: MFU / roofline / goodput from this window's
+        # deltas, the latest per-group numerics, the memory ledger
+        attr_fields: dict = {}
+        if self.attribution is not None:
+            attr_fields = self.attribution.window_stats(
+                step=step, wall_s=wall_dt, host_dispatch_s=host_dispatch,
+                loader_wait_s=loader_wait, ckpt_io_s=ckpt_io,
+                comm_bytes_onwire=comm_wire)
+        numerics_fields = (self.numerics.event_fields()
+                           if self.numerics is not None else None)
+        memory_fields = None
+        if self.memory is not None:
+            memory_fields = self.memory.event_fields()
+            self.memory.refresh_gauges(memory_fields)
+
         hbm = hbm_stats() if self.config.track_hbm else None
         record = build_step_event(
             ts=now,
@@ -414,6 +451,9 @@ class Telemetry:
             hbm_bytes_limit=(hbm or {}).get("bytes_limit"),
             resilience=(self.resilience.event_fields()
                         if self.resilience is not None else None),
+            numerics=numerics_fields,
+            memory=memory_fields,
+            **attr_fields,
         )
         snapshot = self.registry.snapshot()
         for sink in self.sinks:
@@ -427,6 +467,11 @@ class Telemetry:
         # stop receiving other runs' barrier waits: a closed pipeline's
         # counters are a finished run's record, not a live subscriber
         unregister_sync_registry(self.registry)
+        if self.attribution is not None:
+            try:
+                self.attribution.close()  # stop an auto-capture in flight
+            except Exception:
+                pass
         for sink in self.sinks:
             try:
                 sink.close()

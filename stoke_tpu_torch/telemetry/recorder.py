@@ -18,13 +18,18 @@ triage without re-running:
         environment.json    python/torch/numpy versions, CUDA_*/NCCL_*/
                             TORCH_*/STOKE_* env, argv, cwd
         registry.json       latest telemetry-registry snapshot (when wired)
+        goodput.json        the goodput and utilization summary (with an
+                            AttributionConfig)
+        cost_cards.json     the last cost cards (ditto)
+        numerics.json       the latest per-layer numerics view and the
+                            provenance events (with a NumericsConfig)
         trace.json          the structured-trace span ring as Perfetto-
                             loadable trace-event JSON (when tracing is on)
         stacks.txt          faulthandler all-thread stacks at dump time
 
 These are the files the JAX package writes for a run with the same
-configs; its goodput, cost-card, fleet and numerics files come with the
-observatories the port does not run yet.
+configs; its fleet file comes with the fleet monitor, which the port does
+not run yet.
 
 Bundles are cheap (the ring is small) and atomic enough for crash paths:
 files are written directly into a uniquely named directory, so a partial
@@ -90,6 +95,9 @@ class FlightRecorder:
         snapshot_fn: Optional[Callable[[], Dict[str, Any]]] = None,
         install_signal_handlers: bool = False,
         trace_fn: Optional[Callable[[], Any]] = None,
+        goodput_fn: Optional[Callable[[], Optional[Dict[str, Any]]]] = None,
+        cost_cards_fn: Optional[Callable[[], Any]] = None,
+        numerics_fn: Optional[Callable[[], Optional[Dict[str, Any]]]] = None,
     ):
         self.bundle_dir = bundle_dir
         self._ring: "deque[dict]" = deque(maxlen=int(ring_size))
@@ -104,6 +112,11 @@ class FlightRecorder:
         # what the host was doing at time of death: the span ring as
         # Perfetto-loadable trace.json joins every bundle
         self._trace_fn = trace_fn
+        # utilization at time of death (attribution) and which layer was
+        # bad (numerics)
+        self._goodput_fn = goodput_fn
+        self._cost_cards_fn = cost_cards_fn
+        self._numerics_fn = numerics_fn
         self.dumps: List[str] = []
         self._prev_handlers: Dict[int, Any] = {}
         if install_signal_handlers:
@@ -199,6 +212,17 @@ class FlightRecorder:
                     self._write_json(
                         path, "trace.json", {"traceEvents": events}
                     )
+            except Exception:
+                pass
+        for name, fn in (("goodput.json", self._goodput_fn),
+                         ("cost_cards.json", self._cost_cards_fn),
+                         ("numerics.json", self._numerics_fn)):
+            if fn is None:
+                continue
+            try:
+                payload = fn()
+                if payload is not None:
+                    self._write_json(path, name, payload)
             except Exception:
                 pass
         self._write_stacks(path)

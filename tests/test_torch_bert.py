@@ -193,13 +193,38 @@ def test_converter_errors_and_trees(trees):
 
 
 def test_remat_is_refused_naming_its_item():
+    """Refused until ROADMAP item 13 landed: ``remat=True`` now builds on
+    the three constructors, recomputes each block (the flag rides the
+    module) and gives the output of the module without it, exactly, in
+    eval and in training with dropout 0.1 (the masks replayed)."""
     from stoke_tpu_torch.models.vit import ViT
 
-    for cls in (BertForSequenceClassification, ViT,
-                lambda **kw: BertEncoder(VOCAB, BERT_SIZES["tiny"], **kw)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13"):
-            cls(remat=True)
+    for cls, x in (
+            (lambda **kw: BertForSequenceClassification(
+                vocab_size=VOCAB, size_name="tiny", **kw),
+             torch.randint(0, VOCAB, (2, 8))),
+            (lambda **kw: ViT(num_classes=4, patch_size=8, **kw),
+             torch.randn(2, 3, 32, 32)),
+            (lambda **kw: BertEncoder(VOCAB, BERT_SIZES["tiny"], **kw),
+             torch.randint(0, VOCAB, (2, 8)))):
+        plain, remat = cls(), cls(remat=True)
+        remat.load_state_dict(plain.state_dict())
+        assert remat.remat if hasattr(remat, "remat") else (
+            remat.encoder.remat)
+        outs = []
+        for m in (plain, remat):
+            gen = torch.Generator().manual_seed(3)
+            for d in m.modules():
+                if hasattr(d, "generator"):
+                    d.generator = gen
+            m.train()
+            y = m(x)
+            y.float().square().sum().backward()
+            outs.append((y.detach(), [p.grad.clone()
+                                      for p in m.parameters()]))
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert all(torch.equal(a, b) for a, b in zip(outs[0][1],
+                                                     outs[1][1]))
 
 
 # --------------------------------------------------------------------------- #

@@ -140,9 +140,23 @@ def test_untied_chunked_head_raises_the_jax_message():
 
 
 def test_untied_head_is_refused():
-    with pytest.raises(ValueError, match="tied head only"):
-        GPT(vocab_size=V, size_name="tiny", max_len=16,
+    """Refused until ROADMAP item 13 landed: ``tie_embeddings=False`` now
+    builds flax's ``lm_head`` (a Dense with a bias) and the logits are its
+    product, not the embedding's; only the chunked head stays refused
+    (``test_untied_chunked_head_raises_the_jax_message``)."""
+    m = GPT(vocab_size=V, size_name="tiny", max_len=16,
             tie_embeddings=False)
+    m.init_weights(0)
+    assert tuple(m.lm_head.weight.shape) == (V, m.tok_emb.weight.shape[1])
+    ids = torch.randint(0, V, (2, 8))
+    with torch.no_grad():
+        m.lm_head.bias.fill_(0.5)
+    final = []
+    m.ln_final.register_forward_hook(lambda mod, i, o: final.append(o))
+    logits = m.eval()(ids)
+    want = final[0] @ m.lm_head.weight.T + m.lm_head.bias
+    torch.testing.assert_close(logits, want, rtol=0, atol=0)
+    assert not torch.allclose(logits, final[0] @ m.tok_emb.weight.T)
 
 
 VOCAB, SEQ, BATCH = 257, 16, 4

@@ -140,10 +140,13 @@ def test_convert_raises_on_missing_key(jax_gpt):
 
 
 def test_convert_raises_on_extra_key(jax_gpt):
+    """A leaf with no place in the port's GPT raises naming it; the untied
+    head's ``lm_head`` has one since ROADMAP item 13, so the extra key is
+    another module's."""
     _, params = jax_gpt
-    extra = dict(params, lm_head={"kernel": np.zeros((128, VOCAB),
-                                                      np.float32)})
-    with pytest.raises(ValueError, match="lm_head"):
+    extra = dict(params, moe_head={"kernel": np.zeros((128, VOCAB),
+                                                       np.float32)})
+    with pytest.raises(ValueError, match="moe_head"):
         gpt_state_dict_from_jax(extra)
 
 

@@ -72,7 +72,13 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.telemetry.fleet",
                                     "stoke_tpu_torch.resilience",
                                     "stoke_tpu_torch.offload",
-                                    "stoke_tpu_torch.supervise"])
+                                    "stoke_tpu_torch.supervise",
+                                    "stoke_tpu_torch.remat",
+                                    "stoke_tpu_torch.telemetry.attribution",
+                                    "stoke_tpu_torch.telemetry.memory",
+                                    "stoke_tpu_torch.telemetry.numerics",
+                                    "stoke_tpu_torch.serving.slo",
+                                    "stoke_tpu_torch.serving.roofline"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"

@@ -294,7 +294,10 @@ def test_default_device_without_cuda_raises(weights, monkeypatch):
 # the first four were later-slice refusals before sampling, speculative
 # decoding and chunked prefill were ported; they are now the serve status
 # rules' ValueErrors. The fifth, int8 weights, was refused until item 3b
-# and now builds (exc None: the engine serves the quantized store)
+# and now builds (exc None: the engine serves the quantized store). The
+# last two, the cost cards and the SLO targets, were refused until item
+# 10c: cost cards without an AttributionConfig's peaks raise the JAX
+# engine's ValueError, and an SLO default builds (exc None)
 LATER = [
     (dict(sampling=True, top_k=0), ValueError, "top_k must be >= 1"),
     (dict(speculative_k=2), ValueError, "needs sampling=True"),
@@ -302,8 +305,8 @@ LATER = [
     (dict(prefill_chunk_tokens=40), ValueError,
      "multiple of prefill_pad_multiple"),
     (dict(quant="int8"), None, None),
-    (dict(cost_cards=True), NotImplementedError, "ROADMAP"),
-    (dict(slo_ttft_target_s=1.0), NotImplementedError, "ROADMAP"),
+    (dict(cost_cards=True), ValueError, "needs the hardware peaks"),
+    (dict(slo_ttft_target_s=1.0), None, None),
 ]
 
 
@@ -313,8 +316,12 @@ def test_later_slice_features_raise(weights, later):
     kw, exc, match = LATER[later]
     if exc is None:
         engine = _port_engine(weights[2], **kw)
-        assert engine.quant_stats["compression"] > 1.0
-        assert engine.qparams is not None and engine.quant_errors
+        if "quant" in kw:
+            assert engine.quant_stats["compression"] > 1.0
+            assert engine.qparams is not None and engine.quant_errors
+        else:
+            assert engine.cfg.slo_ttft_target_s == 1.0
+            assert engine.summary()["slo"] == {"active": False}
         return
     with pytest.raises(exc, match=match):
         _port_engine(weights[2], **kw)

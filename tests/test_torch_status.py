@@ -229,9 +229,16 @@ def test_step_before_boundary_is_a_noop():
 
 
 def test_later_entry_points_raise():
-    # save and load landed with item 6a and verified resume with item 9
-    # (without a checkpoint it starts fresh); the cost card waits for 10c
+    # save and load landed with item 6a, verified resume with item 9
+    # (without a checkpoint it starts fresh) and the cost card with 10c:
+    # it returns a card and the run's state is as it was
     s = _stoke()
     assert s.resume() is False and s.optimizer_steps == 0
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        s.estimate_step_cost()
+    w = s.model_access.weight.detach().clone()
+    x, y = (torch.from_numpy(a) for a in _batch())
+    card = s.estimate_step_cost(x, y)
+    assert card.program == "fused" and card.steps == 1
+    assert card.flops == s.estimate_step_flops(x, y) > 0
+    assert card.bytes_accessed > 0
+    assert torch.equal(w, s.model_access.weight) and s.optimizer_steps == 0
+    assert s.model_access.weight.grad is None

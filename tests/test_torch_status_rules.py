@@ -132,7 +132,8 @@ def test_config_tuple_enums_and_helpers():
                 "TelemetryConfig", "TraceConfig", "HealthConfig",
                 "ProfilerConfig", "ResilienceConfig",
                 "OffloadOptimizerConfig", "OffloadDiskConfig",
-                "OffloadParamsConfig"}
+                "OffloadParamsConfig", "AttributionConfig", "MemoryConfig",
+                "NumericsConfig", "ActivationCheckpointingConfig"}
     assert set(LATER_CONFIGS) == {c.__name__ for c in
                                   pc.ALL_CONFIG_CLASSES} - honoured
 
@@ -147,19 +148,21 @@ NOW_HONOURED = {"CommConfig": "comm_config",
                 "OffloadDiskConfig": "offload_disk_config",
                 "OffloadOptimizerConfig": "offload_optimizer_config",
                 "OffloadParamsConfig": "offload_params_config",
-                "ResilienceConfig": "resilience_config"}
-#: the item each refused class names: 10c the observatories, 10d the
-#: fleet and ops plane
-LATER_ITEMS = {"AttributionConfig": "10c", "MemoryConfig": "10c",
-               "NumericsConfig": "10c", "FleetConfig": "10d",
-               "OpsPlaneConfig": "10d"}
+                "ResilienceConfig": "resilience_config",
+                "AttributionConfig": "attribution_config",
+                "MemoryConfig": "memory_config",
+                "NumericsConfig": "numerics_config",
+                "ActivationCheckpointingConfig":
+                    "activation_checkpointing_config"}
+#: the item each refused class names: 10d the fleet and ops plane
+LATER_ITEMS = {"FleetConfig": "10d", "OpsPlaneConfig": "10d"}
 
 
 @pytest.mark.parametrize("name", sorted(LATER_CONFIGS) + list(NOW_HONOURED))
 def test_each_later_class_is_refused_naming_its_item(name, tmp_path):
     """Every class the port does not run raises naming its ROADMAP item
-    (the observatories item 10c, the fleet and ops plane 10d); those of
-    items 7, 9, 10a and 10b run now and the status holds them."""
+    (the fleet and ops plane 10d); those of items 7, 9, 10a, 10b, 10c and
+    13 run now and the status holds them."""
     kw = dict(batch_size_per_device=8, device="cpu")
     needs_dp = {"CommConfig", "MeshConfig", "PartitionRulesConfig"}
     needs_tel = {"AttributionConfig", "FleetConfig", "NumericsConfig",

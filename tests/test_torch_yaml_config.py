@@ -250,6 +250,21 @@ def test_a_refused_class_names_its_item(name, fields, item, tmp_path,
                                         monkeypatch):
     monkeypatch.chdir(tmp_path)
     configs = {name: fields}
+    if item in ("item 10c", "item 13"):
+        # landed: the document builds the run and its status holds it
+        if name == "NumericsConfig":
+            configs["TelemetryConfig"] = {"jsonl": False,
+                                          "prometheus": False}
+        s = stoke_from_config(
+            torch.nn.Linear(2, 2), lambda o, y: o.sum(), None,
+            {"batch_size_per_device": 4, "device": "cpu",
+             "optimizer": {"name": "sgd", "learning_rate": 1},
+             "configs": configs})
+        prop = {"NumericsConfig": "numerics_config",
+                "ActivationCheckpointingConfig":
+                    "activation_checkpointing_config"}[name]
+        assert type(getattr(s.status, prop)).__name__ == name
+        return
     if item == "item 9":
         # landed: the document builds the run (on the CPU the host tier
         # warns and keeps the state where it is)
