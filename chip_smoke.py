@@ -262,6 +262,30 @@ Phases, one JSON line each; any failure exits nonzero:
    cards, SLO targets and a ``MemoryConfig``: streams equal, MFU and
    bandwidth utilization in (0, 1], the SLO counts, TPOT p50 of each.
 
+23. fleet_ops: GPT-base bf16 with ``TelemetryConfig``, ``TraceConfig``,
+   ``HealthConfig`` and ``AttributionConfig``, without and with
+   ``FleetConfig(window_steps=2)`` and ``OpsPlaneConfig(port=0)``, over
+   the same batches (8 eager steps, ``train_steps`` of 4 windows, 6
+   replays): losses, masters, dispatches and flash launches bit for bit;
+   the ``fleet/*`` step-event fields on the window boundaries, ``hosts``
+   1; a thread scraping /metrics, /healthz, /statusz, /requests and
+   /trace throughout, each answer 200 in its shape; /profile scraped
+   during training (200, 409 while it runs, 429 past the budget of one,
+   405 for a POST), its trace naming the three flash kernels; then
+   ``Stoke.serve()`` of each run on the serve trace, the plane's engine
+   scraped on /requests while it drives: the decode kernel launched,
+   the streams equal, TPOT p50 of both.
+24. train_seqpar: GPT-base bf16 at world 1 under a (data=1, seq=1) mesh
+   with ``shard_seq_dim=1`` through ring, zigzag and Ulysses attention,
+   each bit for bit against flash attention (losses, masters, launches,
+   eager and replayed); then S=4 virtual shards of L=4096 in one process
+   (B=2, H=12, D=64), the ring and the zigzag ring, forward and backward
+   against one causal flash call over the whole sequence (outputs within
+   ``FWD_ATOL_BF16``, gradient rows within ``BWD_ROW_RTOL_BF16``), the
+   fully masked hops exactly 0 with LSE -1e30, S^2 (3 S^2 for zigzag)
+   hop forwards and as many of each backward kernel; then the host ms
+   of warmed, uninstrumented passes of each.
+
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5497,6 +5521,596 @@ def observatories(ops) -> dict:
     }
 
 
+FLEET_EAGER = 8          # eager train_steps (the /profile capture rides them)
+FLEET_PROFILE_AT = 2     # the eager step before which /profile is scraped
+FLEET_TIMED = 6          # single-window replays after a 4-window segment
+FLEET_WINDOW = 2         # FleetConfig.window_steps
+FLEET_PROFILE_S = 0.25   # /profile?seconds=
+ENDPOINTS = ("/metrics", "/healthz", "/statusz", "/requests", "/trace")
+SCRAPE_PERIOD_S = 0.05
+
+
+def http_get(url: str, method: str = "GET", timeout: float = 90.0) -> tuple:
+    """(status, body bytes) of one request to the loopback ops plane; an
+    HTTP error gives its status."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method,
+                                 data=None if method == "GET" else b"{}")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def endpoint_miss(path: str, status: int, body: bytes) -> str:
+    """'' when an endpoint answered 200 in its shape, else what was
+    wrong."""
+    from stoke_tpu_torch.telemetry.opsplane import STATUSZ_FIELDS
+
+    if status != 200:
+        return f"{path}: status {status}"
+    if path == "/metrics":
+        ok = b"stoke_fleet_windows_total" in body
+    else:
+        obj = json.loads(body)
+        if path == "/healthz":
+            ok = obj.get("ok") is True
+        elif path == "/statusz":
+            ok = tuple(obj) == STATUSZ_FIELDS
+        elif path == "/requests":
+            ok = set(obj) == {"requests", "truncated"}
+        else:  # the span ring: metadata first, spans once steps ran
+            ok = bool(obj) and all("ph" in e and "name" in e for e in obj)
+    return "" if ok else f"{path}: {body[:120]!r}"
+
+
+class Scraper:
+    """A thread reading ``paths`` of a plane in turn until the block
+    ends: each path's answers, the first misses (a request that raised is
+    one), and the states of the non-empty /requests tables. ``misses``
+    also names a thread that ended before the block did and answer counts
+    that differ between paths (every round reads every path)."""
+
+    def __init__(self, base: str, paths=ENDPOINTS):
+        import threading
+
+        self.base, self.paths = base, paths
+        self.counts = {p: 0 for p in paths}
+        self.misses, self.states = [], set()
+        self.tables_with_rows = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _miss(self, miss: str) -> None:
+        if len(self.misses) < 5:
+            self.misses.append(miss)
+
+    def _run(self):
+        # a round of every path each SCRAPE_PERIOD_S (far faster than a
+        # Prometheus scrape interval)
+        while not self._stop.wait(SCRAPE_PERIOD_S):
+            for p in self.paths:
+                self.counts[p] += 1
+                try:
+                    status, body = http_get(self.base + p)
+                    miss = endpoint_miss(p, status, body)
+                    if p == "/requests" and not miss:
+                        rows = json.loads(body)["requests"]
+                        self.tables_with_rows += bool(rows)
+                        self.states.update(r["state"] for r in rows)
+                except Exception as e:   # a dead plane, a malformed body
+                    miss = f"{p}: {type(e).__name__}: {e}"
+                if miss:
+                    self._miss(miss)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        if not self._thread.is_alive():
+            self._miss("the scraper thread ended before its block")
+        self._stop.set()
+        self._thread.join(120)
+        if self._thread.is_alive():
+            self._miss("the scraper thread outlived its block by 120 s")
+        if len(set(self.counts.values())) > 1:
+            self._miss(f"answer counts differ: {self.counts}")
+
+
+def fleet_configs(root: str, tag: str, fleet: bool) -> list:
+    """Telemetry (every step logged), tracing, health, attribution (no
+    auto-capture: the one capture of the budget is the plane's), the
+    profiler's trace directory and the serve trace's ``ServeConfig``;
+    with ``fleet``, ``FleetConfig(window_steps=2)`` and
+    ``OpsPlaneConfig(port=0)`` too."""
+    from stoke_tpu_torch.configs import (
+        AttributionConfig,
+        FleetConfig,
+        HealthConfig,
+        OpsPlaneConfig,
+        ProfilerConfig,
+        ServeConfig,
+        TelemetryConfig,
+        TraceConfig,
+    )
+
+    d = os.path.join(root, tag)
+    cfgs = [TelemetryConfig(output_dir=d, log_every_n_steps=1,
+                            prometheus=False, tensorboard=False),
+            TraceConfig(output_dir=d, export_on_close=False),
+            HealthConfig(dump_signals=False),
+            AttributionConfig(**OBS_PEAKS, auto_capture=False,
+                              max_captures=1),
+            ProfilerConfig(trace_dir=os.path.join(d, "prof")),
+            ServeConfig(attention="flash", decode_kernel="pallas", **SERVE)]
+    if fleet:
+        cfgs += [FleetConfig(window_steps=FLEET_WINDOW),
+                 OpsPlaneConfig(port=0)]
+    return cfgs
+
+
+def profile_scrapes(base: str, s, out: dict) -> None:
+    """/profile while the run trains: one capture (200), another while it
+    is in flight (409), one past the budget of one (429), and a POST
+    (405)."""
+    import threading
+
+    def first():
+        status, body = http_get(f"{base}/profile?seconds={FLEET_PROFILE_S}")
+        out["first"] = (status, json.loads(body))
+
+    t = threading.Thread(target=first, daemon=True)
+    t.start()
+    while not s.attribution._capturing and t.is_alive():
+        time.sleep(0.001)
+    out["in_flight"] = http_get(f"{base}/profile?seconds=0.1")[0]
+    t.join(120)
+    out["past_budget"] = http_get(f"{base}/profile?seconds=0.1")[0]
+    out["post"] = http_get(f"{base}/statusz", method="POST")[0]
+
+
+def fleet_run(ops, batches, fleet: bool, root: str) -> dict:
+    """GPT-base bf16 with the run's observers, with or without the fleet
+    and the plane: FLEET_EAGER eager ``train_step``s, ``train_steps`` of 4
+    windows and FLEET_TIMED single-window replays; with the plane, a
+    thread scrapes every endpoint throughout and another scrapes
+    /profile from eager step FLEET_PROFILE_AT on (the capture runs on the
+    plane's thread while the training thread steps). The eager p50 leaves
+    out the warm-up and the steps that ran under the capture."""
+    import contextlib
+    import threading
+
+    before = dict(ops.LAUNCHES)
+    s = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, seed=SEED,
+                  configs=fleet_configs(root, f"fleet{fleet}", fleet))
+    base = f"http://127.0.0.1:{s.opsplane.port}" if fleet else None
+    scraper = Scraper(base) if fleet else contextlib.nullcontext()
+    prof = {}
+    if fleet:
+        prof_thread = threading.Thread(
+            target=profile_scrapes, args=(base, s, prof), daemon=True)
+    with scraper:
+        losses, ms, profiled = [], [], []
+        for i in range(FLEET_EAGER):
+            if fleet and i == FLEET_PROFILE_AT:
+                # the capture runs over the next steps
+                prof_thread.start()
+                deadline = time.monotonic() + 60
+                while (not s.attribution._capturing and prof_thread.is_alive()
+                       and time.monotonic() < deadline):
+                    time.sleep(0.001)
+            # a step with a capture in flight at its start or end is
+            # profiled
+            was = fleet and s.attribution._capturing
+            ms.append(timed_ms(lambda: losses.append(
+                float(s.train_step(batches[i], batches[i])))))
+            profiled.append(was or (fleet and s.attribution._capturing))
+        seg = batches[FLEET_EAGER:FLEET_EAGER + 4]
+        losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+        replay_ms = []
+        for i in range(FLEET_TIMED):
+            b = batches[FLEET_EAGER + 4 + i:FLEET_EAGER + 5 + i]
+            replay_ms.append(timed_ms(lambda: losses.extend(
+                float(v) for v in s.train_steps(b, b).reshape(-1))))
+        if fleet:
+            prof_thread.join(180)
+    unprofiled = [m for i, m in enumerate(ms)
+                  if i >= WARMUP_STEPS and not profiled[i]]
+    out = {"stoke": s, "losses": losses, "eager_ms": ms,
+           "profiled_steps": [i + 1 for i, p in enumerate(profiled) if p],
+           "eager_ms_p50": float(np.median(unprofiled)),
+           "replayed_ms": replay_ms,
+           "replayed_ms_p50": float(np.median(replay_ms)),
+           "digest": masters_digest(s), "launches": flash_delta(ops, before),
+           "dispatches": s.dispatch_count,
+           "windows_captured": len(s._engine._windows)}
+    if fleet:
+        out.update(scrapes=scraper.counts, scrape_misses=scraper.misses,
+                   profile=prof, profile_alive=prof_thread.is_alive(),
+                   fleet_summary=s.fleet_summary)
+    return out
+
+
+def fleet_serve(ops, s, scrape: bool) -> dict:
+    """``Stoke.serve()``'s engine (attached to the run's plane, if any)
+    on the serve phase's prompts, /requests and /statusz scraped while it
+    drives when ``scrape``: the streams, TPOT p50 and the decode kernel's
+    launches."""
+    import contextlib
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, VOCAB, size=int(n))
+               for n in rng.integers(16, 401, size=16)]
+    engine = s.serve()
+    engine.generate([prompts[0][:16]], 2)   # warm the libraries
+    engine.metrics.reset_latency_reservoirs()
+    before = ops.LAUNCHES["paged_decode"]
+    scraper = (Scraper(f"http://127.0.0.1:{s.opsplane.port}",
+                       ("/requests", "/statusz")) if scrape
+               else contextlib.nullcontext())
+    with scraper:
+        streams, wall = drive(engine, prompts)
+    out = {"streams": streams, "wall_s": wall,
+           "tpot_p50_s": engine.summary()["tpot_p50_s"],
+           "paged_decode": ops.LAUNCHES["paged_decode"] - before}
+    if scrape:
+        out.update(scrapes=scraper.counts, misses=scraper.misses,
+                   tables_with_rows=scraper.tables_with_rows,
+                   states=sorted(scraper.states))
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_windows(steps, window: int) -> list:
+    """The records' steps at which the fleet monitor closes a window (its
+    cadence rule: the first record anchors, a later one closes when its
+    step enters a new bucket of ``window`` steps)."""
+    closed, last = [], None
+    for st in steps:
+        bucket = st // window
+        if last is not None and bucket > last:
+            closed.append(st)
+        if last is None or bucket > last:
+            last = bucket
+    return closed
+
+
+def fleet_ops(ops) -> dict:
+    """GPT-base bf16 with telemetry, tracing, health and attribution,
+    without and with ``FleetConfig(window_steps=2)`` and
+    ``OpsPlaneConfig(port=0)`` over the same batches: losses, masters,
+    dispatches and flash launches equal (bit for bit), a window captured
+    in each; the ``fleet/*`` fields on the window boundaries, ``hosts`` 1;
+    every endpoint 200 in its shape while a thread scrapes them; /profile
+    scraped from another thread during training: 200, 409 while it runs,
+    429 past the budget of one, 405 for a POST, and its trace names the
+    three flash kernels; then ``Stoke.serve()`` of each run, the plane's
+    engine attached to /requests, scraped while it drives: the decode
+    kernel launched, the streams equal, TPOT p50 of both."""
+    import shutil
+    import tempfile
+
+    from stoke_tpu_torch.telemetry.events import read_step_events
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="stoke-fleet-")
+    try:
+        batches = window_batches(FLEET_EAGER + 4 + FLEET_TIMED)
+        plain = fleet_run(ops, batches, False, root)
+        obs = fleet_run(ops, batches, True, root)
+        served_plain = fleet_serve(ops, plain["stoke"], False)
+        served = fleet_serve(ops, obs["stoke"], True)
+        prof = obs["profile"]
+        first = prof.get("first", (None, {}))
+        trace_file = os.path.join(str(first[1].get("trace_dir")),
+                                  "stoke.rank0.pt.trace.json")
+        profiled = {}
+        if os.path.exists(trace_file):
+            with open(trace_file) as f:
+                text = f.read()
+            profiled = {k: text.count(k) for k in WGMMA_KERNELS}
+        for key in ("plain", "obs"):
+            run = plain if key == "plain" else obs
+            run.pop("stoke").close_telemetry()
+        recs = read_step_events(os.path.join(root, "fleetTrue",
+                                             "steps.jsonl"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failures = []
+    for key in ("losses", "digest", "launches", "dispatches",
+                "windows_captured"):
+        if plain[key] != obs[key]:
+            failures.append(f"{key}: {obs[key]} vs {plain[key]}")
+    if obs["windows_captured"] != 1:
+        failures.append(f"windows captured {obs['windows_captured']}")
+    steps = [r["step"] for r in recs]
+    want = fleet_windows(steps, FLEET_WINDOW)
+    got = [r["step"] for r in recs if r["fleet/hosts"] is not None]
+    if got != want or not got:
+        failures.append(f"fleet windows at {got}, expected {want}")
+    if any(r["fleet/hosts"] not in (None, 1) for r in recs):
+        failures.append("fleet/hosts other than 1")
+    if not all("fleet/window" in r for r in recs):
+        failures.append("a record lacks the fleet fields")
+    if obs["scrape_misses"] or not all(obs["scrapes"].values()):
+        failures.append(f"scrapes {obs['scrapes']}: {obs['scrape_misses']}")
+    codes = (first[0], prof.get("in_flight"), prof.get("past_budget"),
+             prof.get("post"))
+    if codes != (200, 409, 429, 405) or obs["profile_alive"]:
+        failures.append(f"/profile codes {codes} (alive "
+                        f"{obs['profile_alive']}): {first[1]}")
+    if not profiled or not all(profiled.values()):
+        failures.append(f"the /profile trace names the flash kernels "
+                        f"{profiled}")
+    if served["streams"] != served_plain["streams"]:
+        failures.append("the plane's engine streams differ")
+    if not served["paged_decode"] or served["misses"] \
+            or not served["tables_with_rows"] \
+            or not all(served["scrapes"].values()):
+        failures.append(f"serve under the plane: decode launches "
+                        f"{served['paged_decode']}, /requests tables with "
+                        f"rows {served['tables_with_rows']}, misses "
+                        f"{served['misses']}")
+    if failures:
+        raise AssertionError("fleet_ops: " + "; ".join(failures))
+    summary = obs["fleet_summary"]
+    return {
+        "phase": "fleet_ops",
+        "model": "GPT-base bf16, B=8, L=1024, flash, AdamW, clip 1.0; "
+                 "Stoke.serve() of its weights on the serve trace",
+        "bit_for_bit": True,
+        "launches": {**obs["launches"],
+                     "paged_decode": served["paged_decode"]},
+        "eager_ms_p50": {"plain": plain["eager_ms_p50"],
+                         "fleet_plane": obs["eager_ms_p50"]},
+        "replayed_ms_p50": {"plain": plain["replayed_ms_p50"],
+                            "fleet_plane": obs["replayed_ms_p50"]},
+        "eager_ms": {"plain": plain["eager_ms"], "fleet_plane":
+                     obs["eager_ms"]},
+        "profiled_steps": obs["profiled_steps"],
+        "replayed_ms": {"plain": plain["replayed_ms"],
+                        "fleet_plane": obs["replayed_ms"]},
+        "fleet_window_steps": got,
+        "fleet_windows": summary["windows"],
+        "fleet_last_verdict": summary["last_verdict"],
+        "scrapes": obs["scrapes"],
+        "profile": {"codes": list(codes), "seconds": first[1]["seconds"],
+                    "kernel_events": profiled},
+        "serve": {"tpot_p50_s": {"plain": served_plain["tpot_p50_s"],
+                                 "plane_scraped": served["tpot_p50_s"]},
+                  "wall_s": {"plain": served_plain["wall_s"],
+                             "plane_scraped": served["wall_s"]},
+                  "paged_decode": served["paged_decode"],
+                  "requests_scrapes": served["scrapes"]["/requests"],
+                  "tables_with_rows": served["tables_with_rows"],
+                  "states": served["states"]},
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+SEQPAR_STEPS = 3         # eager train_steps, then 2 windows (one replayed)
+SEQPAR_S, SEQPAR_L, SEQPAR_B = 4, 4096, 2   # the virtual ring
+SEQPAR_IMPLS = ("ring", "zigzag", "ulysses")
+
+
+def seqpar_model(impl: str):
+    """GPT-base (the train phase's model) with ``impl``'s attention."""
+    from stoke_tpu_torch.ops import attention as sp
+
+    model = gpt_base("flash")
+    fn = {"flash": None,
+          "ring": lambda: sp.make_ring_attention(causal=True),
+          "zigzag": sp.make_zigzag_ring_attention,
+          "ulysses": lambda: sp.make_ulysses_attention(causal=True)}[impl]
+    if fn is not None:
+        for block in model.layers:
+            block.attention.attention_fn = fn()
+    return model
+
+
+def seqpar_run(ops, impl: str, batches) -> dict:
+    """GPT-base bf16 trained SEQPAR_STEPS eager steps and ``train_steps``
+    of two windows; under ``impl`` on a (data=1, seq=1) mesh with
+    ``shard_seq_dim=1`` (a one-process NCCL group), or plain flash."""
+    from stoke_tpu_torch.configs import DataParallelConfig, MeshConfig
+
+    flags = {}
+    if impl != "flash":
+        flags = dict(distributed="dp", configs=[
+            MeshConfig(axes=("data", "seq"), shape=(1, 1)),
+            DataParallelConfig(shard_seq_dim=1)])
+    before = dict(ops.LAUNCHES)
+    s = stoke_for(seqpar_model(impl), "bf16", TRAIN_BATCH, seed=SEED,
+                  **flags)
+    losses, ms = eager_steps(s, [batches[i] for i in range(SEQPAR_STEPS)])
+    seg = batches[SEQPAR_STEPS:SEQPAR_STEPS + 2]
+    losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+    out = {"losses": losses, "digest": masters_digest(s),
+           "launches": flash_delta(ops, before), "eager_ms": ms,
+           "windows_captured": len(s._engine._windows),
+           "layout": None if s.seq_shard is None else s.seq_shard.layout}
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+#: warmed, uninstrumented passes timed of the virtual ring and of the
+#: whole-sequence flash call it is held against (the median is kept)
+SEQPAR_TIMED = 3
+
+
+def virtual_ring_inputs(gen, zigzag: bool) -> dict:
+    """The virtual ring's inputs: q, k, v and dO of S=4 shards of L=4096
+    (B=2, H=12, D=64, bf16) in natural order, and the layout's order."""
+    from stoke_tpu_torch.ops import attention as sp
+
+    S, L, B = SEQPAR_S, SEQPAR_L, SEQPAR_B
+    shape = (B, HEADS, L, HEAD_DIM)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
+                               dtype=BF16) for _ in range(4))
+    perm = (torch.as_tensor(sp.zigzag_permutation(L, S), device="cuda")
+            if zigzag else torch.arange(L, device="cuda"))
+    return {"q": q, "k": k, "v": v, "do": do, "perm": perm,
+            "zigzag": zigzag}
+
+
+def virtual_ring_pass(inp: dict) -> tuple:
+    """One forward and backward of the S virtual shards in one process,
+    the rotation handed in: the ring (or the zigzag ring over the zigzag
+    layout). Returns the whole output in the layout's order and the
+    (q, k, v) leaves in that order, their gradients filled."""
+    from stoke_tpu_torch.ops import attention as sp
+
+    S, zigzag, perm = SEQPAR_S, inp["zigzag"], inp["perm"]
+    leaves = [inp[n].index_select(2, perm).detach().requires_grad_()
+              for n in ("q", "k", "v")]
+    Ls = SEQPAR_L // S
+    qs, ks, vs = ([t[:, :, r * Ls:(r + 1) * Ls] for r in range(S)]
+                  for t in leaves)
+    layout = "zigzag" if zigzag else "contiguous"
+    fn = sp.zigzag_ring_attention if zigzag else sp.ring_attention
+    kw = {} if zigzag else {"causal": True, "inner": "flash"}
+    out = torch.cat([fn(qs[r], ks[r], vs[r], None,
+                        shard=sp.SeqShard(None, r, S, layout),
+                        rotate=sp.virtual_ring(ks, vs, None, r), **kw)
+                     for r in range(S)], dim=2)
+    out.backward(inp["do"].index_select(2, perm))
+    return out, leaves
+
+
+def whole_flash_pass(ops, inp: dict) -> list:
+    """One causal flash call over the whole sequence and its backward:
+    the output and the gradients of q, k and v."""
+    leaves = [inp[n].detach().clone().requires_grad_()
+              for n in ("q", "k", "v")]
+    ref = ops.flash_attention(*leaves, None, causal=True)
+    ref.backward(inp["do"])
+    return [ref.detach()] + [t.grad for t in leaves]
+
+
+def virtual_ring(ops, gen, zigzag: bool) -> dict:
+    """S=4 virtual shards of L=4096 (B=2, H=12, D=64, bf16) in one
+    process (:func:`virtual_ring_pass`) against one causal flash call over
+    the whole sequence and its backward: outputs within FWD_ATOL_BF16,
+    the gradients' rows within BWD_ROW_RTOL_BF16 (``bwd_row_err``); every
+    fully masked hop's output exactly 0 and its LSE -1e30 (recorded in
+    this checking pass only); the hops' forward launches S^2 (ring) or
+    3 S^2 (zigzag). Then the host ms of SEQPAR_TIMED warmed passes of
+    each, uninstrumented (the median)."""
+    from stoke_tpu_torch.ops import attention as sp
+
+    inp = virtual_ring_inputs(gen, zigzag)
+    hops = []
+    real_flash = sp.flash_attention
+
+    def recording(qh, kh, vh, mask=None, **kw):
+        out = real_flash(qh, kh, vh, mask, **kw)
+        if (kw.get("return_lse") and mask is not None
+                and not bool(mask.any())):
+            hops.append((out[0].detach().clone(), out[1].detach().clone()))
+        return out
+
+    before = dict(ops.LAUNCHES)
+
+    sp.flash_attention = recording
+    try:
+        out, leaves = virtual_ring_pass(inp)
+    finally:
+        sp.flash_attention = real_flash
+    launches = {n: ops.LAUNCHES[n] - before[n] for n in FLASH}
+    inv = torch.argsort(inp["perm"])
+    got = [out.detach().index_select(2, inv)] + [
+        t.grad.index_select(2, inv) for t in leaves]
+    refs = whole_flash_pass(ops, inp)
+    err = max_err(got[0], refs[0])
+    rows = {n: ops.bwd_row_err(g, r) for n, g, r in
+            zip(("dq", "dk", "dv"), got[1:], refs[1:])}
+    zero_hops = all(bool((o == 0).all()) and bool((l == ops.NEG_INF).all())
+                    for o, l in hops)
+    want = (3 if zigzag else 1) * SEQPAR_S ** 2
+    ok = (err <= ops.FWD_ATOL_BF16 and zero_hops and hops
+          and all(e <= ops.BWD_ROW_RTOL_BF16 for e in rows.values())
+          and launches["flash_fwd"] == want
+          and launches["flash_bwd_dq"] == want
+          and launches["flash_bwd_dkv"] == want)
+    del out, leaves, got, refs
+    ring_ms = [timed_ms(lambda: virtual_ring_pass(inp))
+               for _ in range(SEQPAR_TIMED)]
+    whole_ms = [timed_ms(lambda: whole_flash_pass(ops, inp))
+                for _ in range(SEQPAR_TIMED)]
+    return {"S": SEQPAR_S, "L": SEQPAR_L, "B": SEQPAR_B,
+            "layout": "zigzag" if zigzag else "contiguous", "ok": bool(ok),
+            "max_abs_err": err, "bwd_row_err": rows,
+            "fully_masked_hops": len(hops), "fully_masked_exact": zero_hops,
+            "hop_forwards": launches["flash_fwd"],
+            "expected_hop_forwards": want,
+            "launches": launches, "ring_ms": float(np.median(ring_ms)),
+            "ring_ms_each": ring_ms,
+            "whole_flash_ms": float(np.median(whole_ms)),
+            "whole_flash_ms_each": whole_ms}
+
+
+def train_seqpar(ops) -> dict:
+    """Sequence parallelism on the card. GPT-base bf16 (the train
+    phase's model) at world 1 under a (data=1, seq=1) mesh with
+    ``shard_seq_dim=1`` through ring, zigzag and Ulysses attention, each
+    against plain flash attention over the same batches: losses, masters
+    and flash launches bit for bit, eager and replayed (a one-hop ring is
+    one flash call and a bf16 -> fp32 -> bf16 round trip; one zigzag shard
+    one causal flash call; Ulysses of one shard one flash call). Then S=4
+    virtual shards of L=4096 in one process, the ring and the zigzag ring,
+    forward and backward against one causal flash over the whole sequence
+    (:func:`virtual_ring`)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    batches = window_batches(SEQPAR_STEPS + 2)
+    # the one-process NCCL group goes on failure too (its watchdog would
+    # hold the process for minutes)
+    try:
+        runs = {impl: seqpar_run(ops, impl, batches)
+                for impl in ("flash",) + SEQPAR_IMPLS}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    failures = []
+    for impl in SEQPAR_IMPLS:
+        for key in ("losses", "digest", "launches", "windows_captured"):
+            if runs[impl][key] != runs["flash"][key]:
+                failures.append(f"{impl} {key}: {runs[impl][key]} vs "
+                                f"{runs['flash'][key]}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    virtual = {name: virtual_ring(ops, gen, name == "zigzag")
+               for name in ("ring", "zigzag")}
+    for name, res in virtual.items():
+        if not res["ok"]:
+            failures.append(f"virtual {name}: {res}")
+    if failures:
+        raise AssertionError("train_seqpar: " + "; ".join(failures))
+    steps = SEQPAR_STEPS + 2
+    return {
+        "phase": "train_seqpar",
+        "model": "GPT-base bf16, B=8, L=1024, AdamW, clip 1.0, under a "
+                 "(data=1, seq=1) mesh with shard_seq_dim=1",
+        "bit_for_bit": True,
+        "losses": runs["flash"]["losses"],
+        "layouts": {i: runs[i]["layout"] for i in SEQPAR_IMPLS},
+        "launches": {i: runs[i]["launches"] for i in runs},
+        "launches_total": {n: sum(runs[i]["launches"][n] for i in runs)
+                           + sum(v["launches"][n] for v in virtual.values())
+                           for n in FLASH},
+        "eager_ms": {i: runs[i]["eager_ms"] for i in runs},
+        "steps": steps,
+        "virtual": virtual,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
 def quant_rows(cases, comm, served, elastic) -> list:
     """The kernels line's rows of the quantize pair: ``ms`` and its
     bound at the 25 MB bucket (stochastic, chunk 512), the case the
@@ -5645,6 +6259,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     obsv = observatories(ops)
     emit({**obsv, "card": smi})
+    torch.cuda.empty_cache()
+    fleet = fleet_ops(ops)
+    emit({**fleet, "card": smi})
+    torch.cuda.empty_cache()
+    seqpar = train_seqpar(ops)
+    emit({**seqpar, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -5671,6 +6291,10 @@ def main() -> int:
             # remat's runs (the forward twice a step) and the observatories'
             out["launches_train_remat"] = remat["launches"][tel_key]
             out["launches_observatories"] = obsv["launches"][tel_key]
+            # the fleet and ops plane's runs, and sequence parallelism's
+            # training runs and virtual rings
+            out["launches_fleet_ops"] = fleet["launches"][tel_key]
+            out["launches_train_seqpar"] = seqpar["launches_total"][tel_key]
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]
@@ -5753,7 +6377,8 @@ def main() -> int:
          "graph_ms": decode[0]["graph_ms"],
          "launches_serve_traced":
              tel["serve_traced"]["launches"]["paged_decode"],
-         "launches_observatories": obsv["launches"]["paged_decode"]},
+         "launches_observatories": obsv["launches"]["paged_decode"],
+         "launches_fleet_ops": fleet["launches"]["paged_decode"]},
         # launches: the greedy and the sampled speculative runs
         {**row("paged_verify", "paged_verify", list(VERIFY_KERNELS),
                "stoke_tpu/ops/flash_attention.py:836",

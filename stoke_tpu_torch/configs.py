@@ -275,8 +275,11 @@ class ServeConfig:
 class DataParallelConfig:
     """Data-parallel knobs: the mesh axis batches and gradients shard over,
     cross-replica BatchNorm statistics, how per-replica losses combine, and
-    an optional sequence-dimension sharding of the inputs (refused:
-    ROADMAP Queue 1 item 8). Under ``distributed="dp"`` the port's
+    an optional sequence-dimension sharding of the inputs over the mesh's
+    ``seq_axis_name`` axis (``shard_seq_dim``: each process takes its
+    ``seq`` slice of that dim of every batch leaf that has it and whose
+    length the axis divides; :mod:`stoke_tpu_torch.ops.attention`). Under
+    ``distributed="dp"`` the port's
     BatchNorm always takes the global batch's moments, as the JAX package
     does; ``sync_batch_stats`` and ``convert_to_sync_batchnorm`` inform
     only. ``loss_reduction`` is what ``Stoke.detach_and_sync_loss``
@@ -397,7 +400,7 @@ class PartitionRulesConfig:
     """Tensor-parallel partition rules, ``(path_regex, spec)`` pairs with
     one mesh axis name (or None, or a tuple of names, or "...") per
     dimension. Needs ``distributed='dp'``; refused until ROADMAP Queue 1
-    item 8 (model parallelism through DTensor)."""
+    item 8b (tensor and expert parallelism)."""
 
     rules: Tuple[Tuple[str, Tuple], ...] = ()
 
@@ -465,8 +468,7 @@ class ActivationCheckpointingConfig:
 
 # --------------------------------------------------------------------------- #
 # observability: TensorBoard, telemetry, tracing, health and the profiler
-# and the observatories of ROADMAP item 10c (honoured); those of item 10d
-# (refused)
+# and the observatories, the fleet and the ops plane (all honoured)
 # --------------------------------------------------------------------------- #
 
 
@@ -589,9 +591,9 @@ FLEET_ACTIONS: Tuple[str, ...] = ("record", "warn", "dump")
 class FleetConfig:
     """Fleet observability: a cross-host exchange every ``window_steps``
     optimizer steps, straggler detection and skew-reactive input
-    rebalancing (``rebalance``). Needs a ``TelemetryConfig``; refused
-    until ROADMAP Queue 1 item 10d (with the input rebalancer of item
-    4)."""
+    rebalancing (``rebalance``). Needs a ``TelemetryConfig``
+    (:mod:`stoke_tpu_torch.telemetry.fleet`; the rebalancer is
+    :class:`stoke_tpu_torch.data.InputRebalancer`)."""
 
     window_steps: int = 10
     straggler_zscore: float = 3.0
@@ -633,7 +635,7 @@ class MemoryConfig:
 class OpsPlaneConfig:
     """The live ops plane: a read-only HTTP observatory on ``host:port +
     rank`` (metrics, health, status, requests, trace, bounded profiles).
-    Needs a ``TelemetryConfig``; refused until ROADMAP Queue 1 item 10d."""
+    Needs a ``TelemetryConfig`` (:mod:`stoke_tpu_torch.telemetry.opsplane`)."""
 
     port: int = 9200
     host: str = "127.0.0.1"

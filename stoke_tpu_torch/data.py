@@ -27,9 +27,16 @@ once the first ``prefetch`` batches are in flight also lands in
 ``data/starvation_s`` (the JAX loader's rule), and the real tokens
 of a ragged batch (its attention mask's sum) in ``data/tokens_total``.
 
+Skew-reactive input rebalancing (``FleetConfig(rebalance=True)`` across
+processes): :class:`InputRebalancer` holds every process's read share of
+each global batch and applies the fleet monitor's share shifts at a fetch
+index that no process has reached; :func:`assemble_rebalanced_batch`
+reads this process's share and, while the shares are unequal, gets its
+canonical rows back by one all-gather over the fleet's gloo side group.
+A rebalanced batch equals the canonical one row for row.
+
 The JAX package's torch-free fallback loader has no counterpart (the port
-always has torch), and its input rebalancer waits for ROADMAP Queue 1 item
-10d's fleet monitor.
+always has torch).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import itertools
 import math
 import time
 from collections import deque
-from typing import Any, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -164,6 +171,264 @@ class _NativeLoader:
             yield self._assemble(idx)
 
 
+# --------------------------------------------------------------------------- #
+# skew-reactive input rebalancing
+# --------------------------------------------------------------------------- #
+#
+# Each global batch ("slice", batch_size x num_replicas rows) has a
+# canonical split: process r feeds rows [r*B, (r+1)*B) of the canonical
+# order to its device. The rebalancer moves the read work instead: process
+# r reads a contiguous ``shares[r]``-row range of the canonical slice
+# (equal shares: every process reads its own rows and no collective runs).
+# While the shares are unequal, the surplus rows ride one all-gather back
+# to their canonical process, so the global batch, the epoch's samples and
+# every device's feed are unchanged; only who pays for the reads moves.
+#
+# The processes agree without a collective of their own: share updates are
+# computed on the same exchanged fleet matrix everywhere and take effect at
+# a fetch index no process can have reached (yields are lockstep across
+# processes; fetches lead yields by at most the prefetch depth, so
+# ``yields + apply_slack`` with a slack above the prefetch is safe).
+
+
+class InputRebalancer:
+    """Per-host read-share state + the deterministic apply protocol.
+
+    ``shares[r]`` is how many rows of each canonical slice host ``r``
+    reads; all hosts hold identical copies and evolve them identically.
+    ``propose_shift`` (called by the fleet monitor at straggler-streak
+    boundaries) schedules a bounded share move that becomes effective at a
+    fetch index strictly ahead of every host's loader; the loader calls
+    ``shares_for_fetch`` once per batch fetch and ``note_yield`` once per
+    delivered batch.
+    """
+
+    def __init__(
+        self,
+        n_hosts: int,
+        rank: int,
+        batch_size: int,
+        max_frac: float = 0.25,
+        apply_slack: int = 4,
+    ):
+        if not (0 <= rank < max(n_hosts, 1)):
+            raise ValueError(
+                f"Stoke -- rebalancer rank {rank} out of range for "
+                f"{n_hosts} hosts"
+            )
+        self.n_hosts = max(int(n_hosts), 1)
+        self.rank = int(rank)
+        self.batch_size = int(batch_size)
+        #: hard bound: no host's share may leave
+        #: [batch - max_shift, batch + max_shift]
+        self.max_shift = int(float(max_frac) * self.batch_size)
+        if self.max_shift < 1:
+            # a bound that truncated to zero is a permanently-dead
+            # actuator — the silently-ignored-knob anti-pattern the status
+            # rules exist to prevent; loud, never a silent no-op
+            raise ValueError(
+                f"Stoke -- rebalance_max_frac={max_frac} of per-host "
+                f"batch {self.batch_size} rounds to a zero-row share "
+                f"bound; the actuator could never move work. Raise "
+                f"rebalance_max_frac or the per-host batch, or drop "
+                f"rebalance"
+            )
+        self.apply_slack = max(int(apply_slack), 1)
+        self.shares: List[int] = [self.batch_size] * self.n_hosts
+        self._pending: List[Any] = []  # (effective_fetch, shares) FIFO
+        self._fetches = 0
+        self._yields = 0
+        self.shifts = 0
+        self.rows_moved = 0
+
+    def share_of(self, host: int) -> int:
+        """The latest scheduled share of ``host`` (pending updates
+        included — the value gauges/JSONL report)."""
+        target = self._pending[-1][1] if self._pending else self.shares
+        return int(target[host])
+
+    @property
+    def shifted(self) -> bool:
+        target = self._pending[-1][1] if self._pending else self.shares
+        return len(set(target)) > 1
+
+    def note_yield(self) -> None:
+        """One batch delivered to the training loop (lockstep across
+        hosts — the apply-point anchor)."""
+        self._yields += 1
+
+    def propose_shift(self, from_host: int, to_host: int, rows: int) -> int:
+        """Schedule moving ``rows`` of read work ``from_host → to_host``,
+        clamped to the per-host bound; returns the rows actually moved
+        (0 when the bound already binds).  Deterministic given identical
+        call sequences — the fleet-wide agreement contract."""
+        if from_host == to_host or rows <= 0:
+            return 0
+        base = list(self._pending[-1][1]) if self._pending else list(
+            self.shares
+        )
+        lo = self.batch_size - self.max_shift
+        hi = self.batch_size + self.max_shift
+        rows = int(min(rows, base[from_host] - lo, hi - base[to_host]))
+        if rows <= 0:
+            return 0
+        base[from_host] -= rows
+        base[to_host] += rows
+        eff = self._yields + self.apply_slack
+        if self._pending:
+            eff = max(eff, self._pending[-1][0])
+        self._pending.append((eff, base))
+        self.shifts += 1
+        self.rows_moved += rows
+        return rows
+
+    def shares_for_fetch(self) -> List[int]:
+        """The share vector governing the NEXT fetched batch; advances the
+        fetch counter and applies any update whose effective index has
+        arrived.  Every host calls this once per batch in the same order,
+        so fetch ``f`` sees the same shares fleet-wide."""
+        f = self._fetches
+        self._fetches += 1
+        while self._pending and self._pending[0][0] <= f:
+            self.shares = list(self._pending.pop(0)[1])
+        return list(self.shares)
+
+
+def _pad_rows(tree, n: int):
+    """Zero-pad every leaf's leading (row) axis to exactly ``n``: the
+    fixed-shape payload the exchange needs."""
+
+    def leaf(x):
+        x = np.asarray(x)
+        if x.shape[0] == n:
+            return x
+        pad = np.zeros((n - x.shape[0],) + x.shape[1:], x.dtype)
+        return np.concatenate([x, pad], axis=0)
+
+    return tree_map(leaf, tree)
+
+
+def gloo_allgather(group=None) -> Callable:
+    """The exchange of the padded read payloads over ``group`` (the fleet
+    monitor's gloo side group; None is the default group): every numpy
+    leaf gains a leading ``[n_processes]`` axis. Only called while the
+    shares are unequal."""
+    import torch.distributed as dist
+
+    def gather(tree):
+        n = dist.get_world_size(group)
+
+        def leaf(x):
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t, group=group)
+            return torch.stack(parts).numpy()
+
+        return tree_map(leaf, tree)
+
+    return gather
+
+
+def reassemble_from_gathered(gathered, shares, rank: int, batch_size: int):
+    """Pick this host's canonical batch rows out of the gathered per-host
+    read payloads.  Canonical row ``j`` was read by the host whose share
+    range covers ``j``; the math is pure so the mp harness and the
+    simulated-host unit tests exercise the SAME code."""
+    cuts = np.concatenate([[0], np.cumsum(np.asarray(shares, np.int64))])
+    j = np.arange(rank * batch_size, (rank + 1) * batch_size)
+    host_of = np.searchsorted(cuts, j, side="right") - 1
+    off = j - cuts[host_of]
+
+    def leaf(x):
+        x = np.asarray(x)  # [n_hosts, slice_size, ...]
+        return x[host_of, off]
+
+    return tree_map(leaf, gathered)
+
+
+def assemble_rebalanced_batch(
+    per_replica, shares, rank: int, batch_size: int, assemble, allgather=None
+):
+    """One rebalanced batch: read this host's share of the canonical
+    slice, exchange only when shares are shifted, return this host's
+    canonical batch.  ``per_replica`` is the sampler's per-host index plan
+    for one batch (``BucketedDistributedSampler.global_batches()`` entry);
+    ``assemble(idx)`` reads + collates rows; ``allgather`` is injectable
+    so single-process tests can simulate a fleet."""
+    canonical = [i for sub in per_replica for i in sub]
+    cuts = np.concatenate([[0], np.cumsum(np.asarray(shares, np.int64))])
+    if int(cuts[-1]) != len(canonical):
+        raise ValueError(
+            f"Stoke -- rebalance shares {list(shares)} do not cover the "
+            f"slice ({len(canonical)} rows)"
+        )
+    mine = canonical[int(cuts[rank]):int(cuts[rank + 1])]
+    rows = assemble(mine)
+    if max(shares) == min(shares):
+        # balanced: this host read exactly its canonical batch — no
+        # exchange, byte-identical to the non-rebalanced loader's output
+        return rows
+    # pad to the LARGEST share, not the whole slice: shares are identical
+    # fleet-wide (the deterministic agreement protocol), so max(shares)
+    # is a valid uniform collective shape at a fraction of the bytes —
+    # reassembly only ever indexes off < shares[host]
+    payload = _pad_rows(rows, int(max(shares)))
+    gather = allgather if allgather is not None else gloo_allgather()
+    return reassemble_from_gathered(
+        gather(payload), shares, rank, batch_size
+    )
+
+
+def _numpy_collate(samples: List[Any]):
+    """Stack samples leaf-wise over tuples, lists and dicts into numpy
+    arrays (the JAX package's ``_default_collate``)."""
+    first = samples[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_numpy_collate(list(s)) for s in zip(*samples))
+    if isinstance(first, dict):
+        return {k: _numpy_collate([s[k] for s in samples]) for k in first}
+    return np.stack([np.asarray(s) for s in samples])
+
+
+class _RebalancedLoader:
+    """Inner loader of the rebalanced read path: walks the sampler's
+    global batch plan, reads this process's share of each slice and
+    yields this process's canonical (host) batches. ``StokeDataLoader``
+    wraps it like any other inner loader, so placement, the wait
+    accounting and the prefetch are unchanged."""
+
+    def __init__(self, dataset, sampler, batch_size: int,
+                 rebalancer: InputRebalancer, collate_fn=None,
+                 allgather=None):
+        self.dataset = dataset
+        self.sampler = sampler
+        self.batch_size = int(batch_size)
+        self.rebalancer = rebalancer
+        self._collate = collate_fn or _numpy_collate
+        self._allgather = allgather
+        self._batcher = (NativeBatcher() if isinstance(dataset, ArrayDataset)
+                         else None)
+
+    def __len__(self):
+        return len(self.sampler) // self.batch_size
+
+    def _assemble(self, idx):
+        if self._batcher is not None:
+            gathered = np.asarray(idx, np.int64)
+            batch = tuple(self._batcher.gather_rows(a, gathered)
+                          for a in self.dataset.arrays)
+            return batch if len(batch) > 1 else batch[0]
+        return self._collate([self.dataset[int(i)] for i in idx])
+
+    def __iter__(self):
+        rb = self.rebalancer
+        for per_replica in self.sampler.global_batches():
+            shares = rb.shares_for_fetch()
+            yield assemble_rebalanced_batch(
+                per_replica, shares, rb.rank, self.batch_size,
+                self._assemble, self._allgather)
+
+
 def place(batch, device: torch.device):
     """``batch`` (numpy arrays or tensors, nested in tuples, lists or
     dicts) as tensors on ``device``; host tensors bound for the card are
@@ -197,6 +462,11 @@ class StokeDataLoader:
         prefetch: batches kept in flight on the device (default 2).
         telemetry: the run's :class:`~stoke_tpu_torch.telemetry.Telemetry`
             (loader wait, starvation and token counters), or None.
+        rebalancer: an :class:`InputRebalancer` (``Stoke.DataLoader``
+            passes the run's under ``FleetConfig(rebalance=True)``): the
+            batches are read by share from the sampler's
+            ``global_batches()`` plan and exchanged by
+            ``rebalance_allgather`` (default :func:`gloo_allgather`).
         **kwargs: ``shuffle``, ``sampler`` (e.g. a
             :class:`BucketedDistributedSampler`), ``drop_last`` and ``seed``
             for the two native datasets; for another dataset, the
@@ -204,13 +474,37 @@ class StokeDataLoader:
     """
 
     def __init__(self, dataset, batch_size: int, device=None,
-                 prefetch: int = 2, telemetry=None, **kwargs):
+                 prefetch: int = 2, telemetry=None,
+                 rebalancer: Optional[InputRebalancer] = None,
+                 rebalance_allgather=None, **kwargs):
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self._prefetch = max(int(prefetch), 1)
         self._telemetry = telemetry
         self._ragged = isinstance(dataset, RaggedSequenceDataset)
-        if isinstance(dataset, (ArrayDataset, RaggedSequenceDataset)):
+        self._rebalancer = rebalancer
+        if rebalancer is not None:
+            # the rebalanced read path needs the global batch plan
+            sampler = kwargs.get("sampler")
+            if sampler is None or not hasattr(sampler, "global_batches"):
+                raise ValueError(
+                    "Stoke -- input rebalancing (FleetConfig.rebalance) "
+                    "requires a sampler exposing global_batches() — use "
+                    "BucketedDistributedSampler (or drop rebalance)"
+                )
+            unconsumed = set(kwargs) - {"sampler", "collate_fn"}
+            if unconsumed:
+                raise ValueError(
+                    f"Stoke -- the rebalanced loader path consumes only "
+                    f"sampler/collate_fn; {sorted(unconsumed)} would be "
+                    f"silently ignored — drop them or turn off "
+                    f"FleetConfig.rebalance"
+                )
+            self._loader = _RebalancedLoader(
+                dataset, sampler, batch_size, rebalancer,
+                collate_fn=kwargs.get("collate_fn"),
+                allgather=rebalance_allgather)
+        elif isinstance(dataset, (ArrayDataset, RaggedSequenceDataset)):
             self._loader = _NativeLoader(dataset, batch_size, **kwargs)
         else:
             self._loader = torch.utils.data.DataLoader(
@@ -271,9 +565,17 @@ class StokeDataLoader:
                 tokens.inc(int(np.asarray(batch[0]["attention_mask"]).sum()))
             queue.append(place(batch, self.device))
             if len(queue) > self._prefetch:
+                self._note_yield()
                 yield queue.popleft()
         while queue:
+            self._note_yield()
             yield queue.popleft()
+
+    def _note_yield(self) -> None:
+        # the rebalancer's apply-point anchor: delivered batches are
+        # lockstep across processes, fetches lead them by the prefetch
+        if self._rebalancer is not None:
+            self._rebalancer.note_yield()
 
 
 class BucketedDistributedSampler:
@@ -424,8 +726,19 @@ class BucketedDistributedSampler:
             slices = [slices[i] for i in order]
         return slices
 
+    def _replica_batch(self, sl: List[int], rank: int) -> List[int]:
+        return sl[rank:self.slice_size:self.num_replicas]
+
+    def global_batches(self) -> List[List[List[int]]]:
+        """Every replica's read plan for this epoch (the rebalanced
+        loader's input): one entry a batch, each ``num_replicas`` lists of
+        canonical indices; entry ``b[rank]`` is batch ``b`` of that
+        rank's ``__iter__`` stream."""
+        return [[self._replica_batch(sl, r) for r in range(self.num_replicas)]
+                for sl in self._epoch_slices()]
+
     def __iter__(self) -> Iterator[int]:
-        batches = [sl[self.rank:self.slice_size:self.num_replicas]
+        batches = [self._replica_batch(sl, self.rank)
                    for sl in self._epoch_slices()]
         flat = [int(i) for i in itertools.chain(*batches)]
         if len(flat) != self.rounded_num_samples_per_replica:

@@ -153,6 +153,12 @@ from stoke_tpu_torch.data import StokeDataLoader, place
 from stoke_tpu_torch.engine import PrecisionPolicy, StepEngine, build_optimizer
 from stoke_tpu_torch.models.bert import Dropout, LayerDrop
 from stoke_tpu_torch.models.resnet import BatchNorm
+from stoke_tpu_torch.ops.attention import (
+    SeqShard,
+    model_seq_layout,
+    sharded,
+    using_seq_shard,
+)
 from stoke_tpu_torch.parallel.ladder import Ladder
 from stoke_tpu_torch.parallel.mesh import (
     build_mesh,
@@ -239,6 +245,19 @@ def _timed(phase: str):
         return wrapper
 
     return deco
+
+
+def _seq_scoped(fn):
+    """Method decorator for the calls that run the model: the call runs
+    under this Stoke's sequence shard (None without one), restored after,
+    so that two ``Stoke`` objects in one process keep their own."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with using_seq_shard(self._seq_shard):
+            return fn(self, *args, **kwargs)
+
+    return wrapper
 
 
 def _health_guarded(fn):
@@ -381,8 +400,13 @@ class Stoke:
         self._device = resolve_device(st.device.value)
         self._group = None
         self._mesh = None
+        #: this process's shard of the sequence under a ("data", "seq")
+        #: mesh with ``shard_seq_dim`` (GPT's positions, the causal LM loss
+        #: and the sequence-parallel attention read it inside this Stoke's
+        #: calls; None otherwise)
+        self._seq_shard: Optional[SeqShard] = None
         if st.is_distributed:
-            self._join_process_group()
+            self._join_process_group(model)
         world = (dist.get_world_size(self._group) if self._group is not None
                  else 1)
         st.set_post_init_values(world_size=world, n_processes=world)
@@ -551,6 +575,8 @@ class Stoke:
             register_recorder(self._tracer)
         self._health: Optional[HealthMonitor] = None
         self._last_sentinels: Optional[np.ndarray] = None
+        self._fleet = None
+        self._opsplane = None
         self._numerics = None
         self._memory_obs = None
         self._wire_error_warned = False
@@ -598,6 +624,10 @@ class Stoke:
                 numerics_fn=lambda: (self._numerics.snapshot()
                                      if self._numerics is not None
                                      else None),
+                # which process was slow at time of death (late-bound:
+                # bundles before the first exchange carry none)
+                fleet_fn=lambda: (self._fleet.snapshot()
+                                  if self._fleet is not None else None),
             )
             self._health = HealthMonitor(
                 hcfg, self._telemetry.registry, recorder,
@@ -613,12 +643,63 @@ class Stoke:
                 self._health.detectors.append(AutoCaptureDetector(
                     self._attribution,
                     st.attribution_config.capture_action))
+        self._build_fleet()
         self._build_observatories()
+        self._build_opsplane()
         self._wall_clock_enabled = (
             st.profiler_config.wall_clock_breakdown
             or self._telemetry.enabled
             or self._tracer is not None
         )
+
+    def _build_fleet(self) -> None:
+        """The fleet monitor (``FleetConfig``): its exchange over a gloo
+        side group of every process (made here, on every rank), its
+        straggler detector in the health registry, or a warning without
+        one, as the JAX constructor builds them."""
+        fcfg = self._status_obj.fleet_config
+        if fcfg is None:
+            return
+        from stoke_tpu_torch.telemetry.fleet import (
+            FleetMonitor,
+            FleetStragglerDetector,
+            fleet_group,
+        )
+
+        self._fleet = FleetMonitor(
+            fcfg, self._telemetry.registry, rank=self.rank,
+            n_processes=self.n_processes,
+            dispatch_count_fn=lambda: self._engine.dispatch_count,
+            group=fleet_group() if self.n_processes > 1 else None)
+        self._telemetry.fleet = self._fleet
+        if self._health is not None:
+            self._health.detectors.append(
+                FleetStragglerDetector(self._fleet, fcfg.straggler_action))
+
+    def _build_opsplane(self) -> None:
+        """The live ops plane (``OpsPlaneConfig``), bound and serving
+        before the first step."""
+        ocfg = self._status_obj.opsplane_config
+        if ocfg is None:
+            return
+        from stoke_tpu_torch.telemetry.opsplane import OpsPlane
+
+        plane = OpsPlane(ocfg, self._telemetry, rank=self.rank)
+        if self._health is not None:
+            plane.attach_health(self._health)
+        if self._tracer is not None:
+            plane.attach_tracer(self._tracer)
+        if self._attribution is not None:
+            plane.attach_attribution(self._attribution)
+        plane.attach_training(
+            goodput=(self._telemetry.goodput_summary
+                     if self._attribution is not None else None),
+            memory=(self._memory_obs.summary
+                    if self._memory_obs is not None else None),
+            trace_summary=(self._tracer.summary
+                           if self._tracer is not None else None))
+        plane.start()
+        self._opsplane = plane
 
     def _build_observatories(self) -> None:
         """The numerics monitor (``NumericsConfig``: its groups are the
@@ -708,9 +789,11 @@ class Stoke:
             "n_processes": self.n_processes,
         }
 
-    def _join_process_group(self) -> None:
+    def _join_process_group(self, model) -> None:
         """Join the run's process group (or make a one-process group),
-        drive ``cuda:LOCAL_RANK`` on the card, and build the data mesh."""
+        drive ``cuda:LOCAL_RANK`` on the card, and build the mesh (and,
+        with a sequence axis, this process's shard in the layout that
+        ``model``'s attention needs)."""
         st = self._status_obj
         if self._device.type == "cuda":
             self._device = torch.device("cuda",
@@ -721,8 +804,38 @@ class Stoke:
                                              self._device))
         if not joined and not dist.is_initialized():
             one_process_group(self._device)
-        self._mesh = build_mesh(st.mesh_config, self._device)
-        self._group = self._mesh.get_group()
+        dpc = st.dp_config
+        self._mesh = build_mesh(st.mesh_config, self._device,
+                                seq_axes=(dpc.axis_name, dpc.seq_axis_name))
+        if self._mesh.ndim == 1:
+            self._group = self._mesh.get_group()
+        else:
+            # dp reduces the gradients over the whole world; the seq
+            # sub-group carries the ring and Ulysses collectives
+            self._group = dist.group.WORLD
+            seq = self._mesh.get_group(dpc.seq_axis_name)
+            n_seq = dist.get_world_size(seq)
+            if n_seq > 1 and dpc.shard_seq_dim is None:
+                raise NotImplementedError(
+                    f"Stoke -- a {dpc.seq_axis_name!r} mesh axis of size "
+                    f"{n_seq} needs DataParallelConfig.shard_seq_dim: the "
+                    f"port runs the model on this process's sequence "
+                    f"shard, and the JAX package's global view of whole "
+                    f"sequences on every shard is not ported (ROADMAP "
+                    f"Queue 3)")
+            fcfg = st.fleet_config
+            if n_seq > 1 and fcfg is not None and fcfg.rebalance:
+                raise NotImplementedError(
+                    f"Stoke -- FleetConfig(rebalance=True) under a "
+                    f"{dpc.seq_axis_name!r} mesh axis of size {n_seq}: the "
+                    f"rebalancer moves rows between any two processes, and "
+                    f"the processes of one data row must hold the same "
+                    f"sequences (ROADMAP Queue 3)")
+            if dpc.shard_seq_dim is not None:
+                self._seq_shard = SeqShard(
+                    seq, dist.get_rank(seq), n_seq,
+                    model_seq_layout(model) if isinstance(model, nn.Module)
+                    else "contiguous")
 
     def _whole_params(self):
         """The module's parameters whole inside the block (under fsdp
@@ -750,21 +863,67 @@ class Stoke:
     # the four-call contract and the fused step
     # ------------------------------------------------------------------ #
 
-    def _place(self, tree):
-        return place(tree, self._device)
+    def _place(self, tree, stacked: bool = False):
+        """``tree`` on the device; under ``DataParallelConfig.shard_seq_dim
+        = d`` with more than one sequence shard, each tensor leaf that has
+        dim ``d`` (of a micro-batch: ``d + 1`` for ``stacked`` window
+        inputs) is cut to this process's sequence shard, and a leaf whose
+        dim ``d`` the shard count does not divide is refused (the JAX
+        facade leaves it whole, which its global view allows; the port's
+        model would read it as a shard). A leaf without dim ``d``, and a
+        tensor :meth:`model` returned (already this shard's), is not cut."""
+        tree = place(tree, self._device)
+        d = self._status_obj.dp_config.shard_seq_dim
+        shard = self._seq_shard
+        if d is None or d == 0 or not sharded(shard):
+            return tree
+        d += int(stacked)
+
+        def leaf(x):
+            if (not isinstance(x, torch.Tensor) or x.ndim <= d
+                    or getattr(x, "_stoke_seq_local", False)):
+                return x
+            if x.shape[d] % shard.size:
+                raise NotImplementedError(
+                    f"Stoke -- an input of shape {tuple(x.shape)} has "
+                    f"{x.shape[d]} along the sequence dim {d}, which the "
+                    f"{shard.size} sequence shards do not divide; the JAX "
+                    f"package's replication of such a leaf is not ported "
+                    f"(ROADMAP Queue 3)")
+            return shard.take(x, d)
+
+        return tree_map(leaf, tree)
+
+    def _seq_local(self, out):
+        """``out`` with its tensors marked as this sequence shard's, so
+        that :meth:`loss` does not cut them again (the JAX facade passes
+        an array it placed through as it is)."""
+        if not sharded(self._seq_shard):
+            return out
+
+        def mark(x):
+            if isinstance(x, torch.Tensor):
+                x._stoke_seq_local = True
+            return x
+
+        return tree_map(mark, out)
 
     @_timed("model")
+    @_seq_scoped
     def model(self, *args, **kwargs):
         """The forward on ``args`` (placed on the device): under autograd
         in train mode, under ``torch.no_grad()`` in eval mode."""
         args, kwargs = self._place(args), self._place(kwargs)
         if self.training:
-            return self._engine.forward(args, {**self._train_kwargs, **kwargs})
+            return self._seq_local(self._engine.forward(
+                args, {**self._train_kwargs, **kwargs}))
         with torch.no_grad():
-            return self._engine.forward(args, {**self._eval_kwargs, **kwargs})
+            return self._seq_local(self._engine.forward(
+                args, {**self._eval_kwargs, **kwargs}))
 
     @_health_guarded
     @_timed("loss")
+    @_seq_scoped
     def loss(self, *args, **kwargs):
         """``loss(*args, **kwargs)``; in train mode the losses are returned
         divided by ``grad_accum`` and the objective is kept for
@@ -782,6 +941,7 @@ class Stoke:
 
     @_health_guarded
     @_timed("backward")
+    @_seq_scoped
     def backward(self, loss: Any = None) -> None:
         """Autograd of the last ``loss()`` into the accumulated gradients.
         ``loss`` is accepted for the reference signature; the objective
@@ -833,6 +993,7 @@ class Stoke:
 
     @_health_guarded
     @_timed("train_step")
+    @_seq_scoped
     def train_step(self, model_args: Any, loss_args: Any = (),
                    model_kwargs: Optional[dict] = None):
         """``model -> loss -> backward -> step`` in one call:
@@ -897,6 +1058,7 @@ class Stoke:
 
     @_health_guarded
     @_timed("train_step_window")
+    @_seq_scoped
     def train_step_window(self, model_args: Any, loss_args: Any = (),
                           model_kwargs: Optional[dict] = None):
         """A whole accumulation window (``grad_accum`` micro-batches and
@@ -919,15 +1081,16 @@ class Stoke:
                     f"{tuple(getattr(leaf, 'shape', ()))}"
                 )
         reports = self._run_window(
-            self._place(model_args),
-            {**self._train_kwargs, **self._place(model_kwargs or {})},
-            self._place(loss_args))
+            self._place(model_args, True),
+            {**self._train_kwargs, **self._place(model_kwargs or {}, True)},
+            self._place(loss_args, True))
         self._observe_health([self._step_rows()])
         self._after_optimizer_steps()
         return reports
 
     @_health_guarded
     @_timed("train_steps")
+    @_seq_scoped
     def train_steps(self, model_args: Any, loss_args: Any = (),
                     model_kwargs: Optional[dict] = None,
                     segment_size: Optional[int] = None):
@@ -993,8 +1156,10 @@ class Stoke:
             # the call legitimately covers n optimizer steps: re-arm the
             # watchdog with the segment's deadline (n x timeout)
             self._health.arm_watchdog(steps=n)
-        margs, loss_args = self._place(model_args), self._place(loss_args)
-        mkwargs = {**self._train_kwargs, **self._place(model_kwargs or {})}
+        margs = self._place(model_args, True)
+        loss_args = self._place(loss_args, True)
+        mkwargs = {**self._train_kwargs,
+                   **self._place(model_kwargs or {}, True)}
         reports: List[Any] = []
         rows: List[Optional[torch.Tensor]] = []
         for i in range(n):
@@ -1512,7 +1677,7 @@ class Stoke:
             "process_count": int(self.n_processes),
             "device_count": int(self.world_size),
             "mesh_axes": list(st.mesh_config.axes) if dp else None,
-            "mesh_shape": [int(self.world_size)] if dp else None,
+            "mesh_shape": list(self._mesh.shape) if dp else None,
             "tier": st.sharding_tier.value,
             "shard_updates": bool(
                 comm_shard_updates(st.comm_config, st.sharding_tier)),
@@ -1985,7 +2150,20 @@ class Stoke:
         """Flush and close the telemetry sinks, export the trace (with
         ``TraceConfig.export_on_close``), close the health monitor (its
         watchdog thread and signal handlers) and free the staged saves'
-        pinned buffers; idempotent."""
+        pinned buffers; idempotent. The ops plane unbinds first, and a
+        straggler streak that completed on the last fleet window is drained
+        into the health monitor."""
+        if (self._health is not None and self._fleet is not None
+                and self._fleet._pending_straggler is not None):
+            # no later step observation would drain it; a halt from a
+            # registry-driven detector must not raise out of shutdown
+            try:
+                self._health.observe(self._optimizer_steps, None)
+            except HealthHaltError:
+                pass
+        if self._opsplane is not None:
+            # unbind first: a scraper must not read closing subsystems
+            self._opsplane.close()
         self._staging_pool.close()
         if self._tracer is not None:
             # stop receiving other runs' spans, then export the final ring
@@ -2131,11 +2309,16 @@ class Stoke:
                          if scfg.cost_cards else None),
             # the engine's own ledger (its weights and KV pool)
             memory=self._status_obj.memory_config)
+        if self._opsplane is not None:
+            # /requests and the /statusz serving block follow the newest
+            # engine this facade built
+            self._opsplane.attach_engine(engine)
         if self._numerics is not None and engine.quant_errors_by_group:
             # the int8 weights' error by group joins this run's numerics
             self._numerics.set_quant_errors(engine.quant_errors_by_group)
         return engine
 
+    @_seq_scoped
     def estimate_step_flops(self, model_args: Any,
                             loss_args: Any = ()) -> float:
         """FLOPs of one training step on these inputs, by
@@ -2181,6 +2364,7 @@ class Stoke:
             self._module.train(training)
         return float(counter.get_total_flops())
 
+    @_seq_scoped
     def estimate_step_cost(self, model_args: Any, loss_args: Any = ()):
         """The :class:`~stoke_tpu_torch.telemetry.attribution.CostCard` of
         one fused optimizer step at these inputs (forward, backward and
@@ -2321,6 +2505,26 @@ class Stoke:
         """The run's attribution monitor (None without an
         ``AttributionConfig``): cost cards, MFU gauges, goodput, captures."""
         return self._attribution
+
+    @property
+    def fleet(self):
+        """The run's fleet monitor (None without a ``FleetConfig``): the
+        per-process signal matrix, skew aggregates, straggler streaks."""
+        return self._fleet
+
+    @property
+    def fleet_summary(self) -> Optional[Dict[str, Any]]:
+        """End-of-run fleet accounting: exchange windows, the latest
+        per-process matrix, aggregates and straggler verdict, the
+        straggler counts. None without a ``FleetConfig``."""
+        return self._telemetry.fleet_summary()
+
+    @property
+    def opsplane(self):
+        """The run's live ops plane (None without an ``OpsPlaneConfig``):
+        the bound HTTP observatory serving /metrics, /healthz, /statusz,
+        /requests, /trace and /profile for this rank."""
+        return self._opsplane
 
     @property
     def goodput(self) -> Optional[Dict[str, Any]]:
@@ -2609,16 +2813,35 @@ class Stoke:
         ``batch_size_per_device`` rows on this run's device; ``sampler=``
         (e.g. a :class:`~stoke_tpu_torch.data.BucketedDistributedSampler`)
         orders it. A run of several processes needs a sampler, each
-        process loading its own slice (the JAX facade's rule)."""
-        dist = torch.distributed
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1
-                and kwargs.get("sampler") is None):
+        process loading its own slice (the JAX facade's rule). With
+        ``FleetConfig(rebalance=True)`` across processes the loader reads
+        by the shares of an :class:`~stoke_tpu_torch.data.InputRebalancer`
+        that the fleet monitor shifts (the JAX facade's hand-over; a run of
+        one process has nothing to rebalance)."""
+        multi = (dist.is_available() and dist.is_initialized()
+                 and dist.get_world_size() > 1)
+        if multi and kwargs.get("sampler") is None:
             raise ValueError(
                 "Stoke -- multi-process runs require a distributed sampler "
                 "(see BucketedDistributedSampler / DistributedSampler) — "
                 "reference stoke.py:822-826"
             )
+        fcfg = self._status_obj.fleet_config
+        if ("rebalancer" not in kwargs and fcfg is not None
+                and fcfg.rebalance and self._fleet is not None
+                and self.n_processes > 1):
+            from stoke_tpu_torch.data import InputRebalancer, gloo_allgather
+
+            rb = InputRebalancer(
+                n_hosts=self.n_processes, rank=self.rank,
+                batch_size=self.batch_size,
+                max_frac=fcfg.rebalance_max_frac,
+                # applied past every process's prefetch lookahead
+                apply_slack=int(kwargs.get("prefetch", 2)) + 2)
+            self._fleet.attach_rebalancer(rb)
+            kwargs["rebalancer"] = rb
+            kwargs.setdefault("rebalance_allgather",
+                              gloo_allgather(self._fleet.group))
         return StokeDataLoader(
             dataset, batch_size=self.batch_size, device=self._device,
             telemetry=self._telemetry if self._telemetry.enabled else None,
@@ -2769,9 +2992,15 @@ class Stoke:
 
     @property
     def mesh(self):
-        """The data axis's ``DeviceMesh`` (None on one device without
-        ``distributed``)."""
+        """The run's ``DeviceMesh``: the data axis, or the data and sequence
+        axes (None on one device without ``distributed``)."""
         return self._mesh
+
+    @property
+    def seq_shard(self) -> Optional[SeqShard]:
+        """This process's sequence shard under a ``("data", "seq")`` mesh
+        (:class:`~stoke_tpu_torch.ops.attention.SeqShard`), else None."""
+        return self._seq_shard
 
     @property
     def sharding_rules(self):

@@ -19,6 +19,16 @@ goes to every block; with ``attention_is_causal=True`` (for
 Train and eval are the module's mode bit (``model.train()`` /
 ``model.eval()``), where the JAX package takes ``train=`` per call.
 
+Sequence parallelism: under a process's sequence shard of more than one
+(:func:`stoke_tpu_torch.ops.attention.seq_shard`, set by ``Stoke``
+around its calls under ``shard_seq_dim`` on a ``("data", "seq")`` mesh)
+the forward takes this shard's tokens, its
+default positions are their global positions (the shard's range, or its
+zigzag slice), and whole-sequence ``positions`` are cut to the shard;
+:func:`causal_lm_loss` then shifts across the shards' edges and takes the
+mean over the global count, so the loss and each shard's logits are those
+of the whole sequence.
+
 Serving path: ``kv_cache`` is a per-call paged-cache hook
 (:class:`stoke_tpu_torch.serving.kv_cache.PagedAttentionHook`) that gives
 each layer its attention function (``layer_attention(i)``); ``decode=True``
@@ -34,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stoke_tpu_torch.ops.attention import all_reduce_sum, seq_shard, sharded
 from stoke_tpu_torch.models.bert import (
     BERT_SIZES,
     Dropout,
@@ -137,17 +148,23 @@ class GPT(nn.Module):
                 "GPT: decode=True needs explicit positions (each slot's "
                 "cache position selects its position embedding)"
             )
-        if L > self.max_len:
+        shard = seq_shard() if kv_cache is None else None
+        shards = shard.size if sharded(shard) else 1
+        if L * shards > self.max_len:
             raise ValueError(
-                f"GPT: sequence length {L} exceeds max_len={self.max_len}"
+                f"GPT: sequence length {L * shards} exceeds "
+                f"max_len={self.max_len}"
             )
         dev = input_ids.device
         if positions is None:
-            pos = torch.arange(L, device=dev)[None, :]
+            pos = (torch.arange(L, device=dev) if shards == 1
+                   else shard.global_index(L, dev))[None, :]
         else:
             pos = torch.as_tensor(positions, device=dev)
             if pos.ndim == 1:
                 pos = pos[None, :]
+            if shards > 1 and pos.shape[-1] == L * shards:
+                pos = shard.take(pos, pos.ndim - 1)
             # an out-of-range id would fault the embedding on the card;
             # positions on the card are the engine's, checked on the host
             if pos.device.type == "cpu" and int(pos.max()) >= self.max_len:
@@ -180,7 +197,15 @@ def causal_lm_loss(logits, input_ids, mask=None):
     """Next-token cross entropy in fp32: position t predicts token t+1.
     The mean over the ``[B, L-1]`` targets, or with ``mask`` (``[B, L]``
     0/1, padding 0) the mean over the kept targets,
-    ``sum(loss * w) / max(sum(w), 1)``."""
+    ``sum(loss * w) / max(sum(w), 1)``.
+
+    Under a sequence shard of more than one, ``logits`` and ``input_ids``
+    are this shard's; the whole sequence's ids are gathered, each token's
+    target is the token after it in the whole sequence, and the loss is
+    the whole batch row's (the same value on every shard)."""
+    shard = seq_shard()
+    if sharded(shard):
+        return _sharded_causal_lm_loss(logits, input_ids, mask, shard)
     targets = input_ids[:, 1:].long()
     logits = logits[:, :-1].float()
     losses = F.cross_entropy(
@@ -191,3 +216,26 @@ def causal_lm_loss(logits, input_ids, mask=None):
         w = mask[:, 1:].to(losses.dtype)
         return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
     return losses.mean()
+
+
+def _sharded_causal_lm_loss(logits, input_ids, mask, shard):
+    """:func:`causal_lm_loss` of this shard's tokens: the sum of its
+    targets' cross entropies, summed over the shards (whose backward sums
+    the cotangents: each shard's term depends on every shard's keys),
+    over the whole sequence's target count."""
+    B, Ls = input_ids.shape
+    L = Ls * shard.size
+    ids = shard.gather(input_ids, 1).long()
+    pos = shard.global_index(Ls, input_ids.device)
+    nxt = torch.clamp(pos + 1, max=L - 1)
+    w = (pos < L - 1).to(torch.float32)[None, :].expand(B, Ls)
+    if mask is not None:
+        w = w * shard.gather(mask, 1)[:, nxt].to(torch.float32)
+    losses = F.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]),
+        ids[:, nxt].reshape(-1), reduction="none").view(B, Ls)
+    total = all_reduce_sum((losses * w).sum(), shard)
+    if mask is None:
+        return total / float(B * (L - 1))
+    count = all_reduce_sum(w.sum(), shard).detach()
+    return total / torch.clamp(count, min=1.0)

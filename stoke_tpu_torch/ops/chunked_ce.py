@@ -146,6 +146,13 @@ def chunked_causal_lm_loss(out, input_ids, mask=None, *, chunk: int = 128):
     embedding)`` output: position t predicts token t+1, with an optional
     ``[B, L]`` padding mask (``models.gpt.causal_lm_loss`` without the
     logits)."""
+    from stoke_tpu_torch.ops.attention import seq_shard, sharded
+
+    if sharded(seq_shard()):
+        raise NotImplementedError(
+            "Stoke -- the chunked head under a sequence axis is not ported "
+            "yet: ROADMAP Queue 1 item 8d (the ZeRO tiers and the chunked "
+            "head under a sequence axis)")
     hidden, emb = out
     m = None if mask is None else mask[:, 1:]
     return chunked_softmax_cross_entropy(

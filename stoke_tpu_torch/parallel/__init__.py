@@ -4,7 +4,8 @@
 (:mod:`~stoke_tpu_torch.parallel.ladder`) and the quantized gradient
 transports (:mod:`~stoke_tpu_torch.parallel.collectives`,
 :mod:`~stoke_tpu_torch.parallel.zero`). One process drives one device.
-Counterpart of ``stoke_tpu/parallel`` less the pipeline (ROADMAP item 8).
+Counterpart of ``stoke_tpu/parallel`` less the tensor, expert and pipeline
+parallelism (ROADMAP items 8b and 8c).
 """
 
 from stoke_tpu_torch.parallel.ladder import Ladder

@@ -1,9 +1,12 @@
-"""Process groups and the 1-D data mesh of the port.
+"""Process groups and the device mesh of the port.
 
 Counterpart of ``stoke_tpu/parallel/mesh.py``: the rendezvous is
 ``torch.distributed.init_process_group`` (NCCL for the card, gloo for the
-CPU; nothing else is substituted) and the mesh a 1-D ``DeviceMesh`` on
-the data axis.
+CPU; nothing else is substituted) and the mesh a ``DeviceMesh``: the 1-D
+data axis, or the two axes ``("data", "seq")`` of sequence parallelism,
+whose ``seq`` sub-groups run the ring and Ulysses collectives
+(:mod:`stoke_tpu_torch.ops.attention`). Every other two-axis mesh is
+ROADMAP Queue 1 item 8b.
 
 **One process, one device.** In the JAX package one process drives every
 device of its host. Under the port each process drives exactly one:
@@ -31,8 +34,8 @@ import torch.distributed as dist
 
 from stoke_tpu_torch.configs import DistributedInitConfig, MeshConfig
 
-_LATER_MODEL_PARALLEL = (
-    "ROADMAP Queue 1 item 8 (long context and model parallelism)")
+_LATER_TENSOR_PARALLEL = (
+    "ROADMAP Queue 1 item 8b (tensor and expert parallelism)")
 
 #: the directory of the newest one-process group's store (removed when
 #: a later group replaces it, or at exit)
@@ -140,11 +143,11 @@ def one_process_group(device: torch.device) -> None:
                             world_size=1, **kw)
 
 
-def mesh_shape(shape: Optional[tuple], n: int) -> tuple:
+def mesh_shape(shape: Optional[tuple], n: int, n_axes: int = 1) -> tuple:
     """The mesh's shape over ``n`` devices: ``shape``, with one ``-1``
-    inferred, or ``(n,)`` for None; the JAX package's errors where it
-    cannot be."""
-    shape = (n,) if shape is None else tuple(shape)
+    inferred, or ``(n, 1, ...)`` of ``n_axes`` for None; the JAX package's
+    errors where it cannot be."""
+    shape = (n,) + (1,) * (n_axes - 1) if shape is None else tuple(shape)
     if -1 in shape:
         known = math.prod(s for s in shape if s != -1)
         if n % known != 0:
@@ -157,24 +160,30 @@ def mesh_shape(shape: Optional[tuple], n: int) -> tuple:
     return shape
 
 
-def build_mesh(mesh_config: MeshConfig, device: torch.device):
-    """The 1-D ``DeviceMesh`` over the process group's ranks, its axis
-    ``mesh_config.axes[0]`` (``"data"``). ``shape`` may be None, ``(W,)``
-    or ``(-1,)``; its errors are the JAX package's. A mesh of more than one
-    axis, cross-host axes and an explicit device list are refused: the
-    first two are ROADMAP item 8, and under the port each process brings
-    its one device."""
+def build_mesh(mesh_config: MeshConfig, device: torch.device,
+               seq_axes: Optional[tuple] = None):
+    """The ``DeviceMesh`` over the process group's ranks: the 1-D data
+    mesh ``mesh_config.axes[0]`` (``"data"``), or a two-axis mesh whose
+    axes are ``seq_axes`` (the data and sequence axis names, in either
+    order; the last axis varies fastest over the ranks). ``shape`` may be
+    None, or name each axis's size with one ``-1`` inferred; its errors are
+    the JAX package's. Other two-axis meshes and cross-host axes are
+    refused (ROADMAP item 8b), and an explicit device list: under the port
+    each process brings its one device."""
     from torch.distributed.device_mesh import init_device_mesh
 
     axes = tuple(mesh_config.axes)
-    if len(axes) != 1 or mesh_config.dcn_axes:
+    two = seq_axes is not None and set(axes) == set(seq_axes)
+    if (len(axes) != 1 and not (two and len(axes) == 2)) \
+            or mesh_config.dcn_axes:
         raise NotImplementedError(
             f"Stoke -- a mesh of axes {axes} (dcn_axes "
             f"{tuple(mesh_config.dcn_axes)}) is not ported yet: the port's "
-            f"mesh is the one data axis; {_LATER_MODEL_PARALLEL}")
+            f"mesh is the data axis, or the data and sequence axes; "
+            f"{_LATER_TENSOR_PARALLEL}")
     if mesh_config.devices is not None:
         raise ValueError(
             "Stoke -- MeshConfig.devices has no meaning in the port: each "
             "process drives one device (launch one process a device)")
-    shape = mesh_shape(mesh_config.shape, dist.get_world_size())
+    shape = mesh_shape(mesh_config.shape, dist.get_world_size(), len(axes))
     return init_device_mesh(device.type, shape, mesh_dim_names=axes)

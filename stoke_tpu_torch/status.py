@@ -13,17 +13,13 @@ message, letter for letter. A rule that reads the process index reads
 Legality comes first (``StokeValidationError``). Only then does
 :meth:`StokeStatus._refuse_later_slices` refuse, with
 ``NotImplementedError`` naming the ROADMAP item, what the port does not
-run yet: every config class but ``PrecisionConfig``, the clip configs,
-``CheckpointConfig`` (both formats, and offload staging), ``CommConfig``,
-``ServeConfig``, ``TensorboardConfig``, the data parallel ones
-(``DataParallelConfig``, ``MeshConfig``, ``DistributedInitConfig``,
-``OSSConfig``, ``SDDPConfig``, ``FSDPConfig``), the telemetry ones
-(``TelemetryConfig``, ``TraceConfig``, ``HealthConfig``,
-``ProfilerConfig``), ``ResilienceConfig`` and the three offload configs
-(:data:`LATER_CONFIGS`); ``DataParallelConfig.shard_seq_dim`` and a mesh
-of more than one axis or with cross-host axes (item 8). ``distributed``
-(``"dp"`` and its aliases), the oss/sddp/fsdp tiers and the gradient
-transports run.
+run yet: ``CompileConfig`` and ``PartitionRulesConfig``
+(:data:`LATER_CONFIGS`); a mesh of two axes other than the data and
+sequence axes, or with cross-host axes (item 8b); the oss / sddp / fsdp
+tiers under a sequence axis (item 8d). ``distributed`` (``"dp"`` and its
+aliases), the oss/sddp/fsdp tiers, the gradient transports, the
+``("data", "seq")`` mesh with ``DataParallelConfig.shard_seq_dim``, and
+every other config class run.
 
 :func:`serve_config_error` holds the serving rules with the JAX package's
 messages, but for the rule that refuses the TPU decode kernel on the CPU:
@@ -92,22 +88,16 @@ from stoke_tpu_torch.resilience import (
 )
 
 _ITEM = "ROADMAP Queue 1 item"
-_LATER_MODEL_PARALLEL = f"{_ITEM} 8 (long context and model parallelism)"
-_LATER_FLEET = f"{_ITEM} 10d (fleet, ops plane and input rebalancing)"
+_LATER_TENSOR_PARALLEL = f"{_ITEM} 8b (tensor and expert parallelism)"
+_LATER_SEQ_TIERS = (f"{_ITEM} 8d (the ZeRO tiers and the chunked head under a "
+                    f"sequence axis)")
 _LATER_COMPILE = f"{_ITEM} 11 (compile cache, autotune and analysis)"
 
 #: the config classes the port refuses after the legality rules, with the
-#: ROADMAP item that ports each (``CommConfig``, item 7,
-#: ``CheckpointConfig(format='sharded')``, item 6b, the telemetry, trace,
-#: health and profiler configs, items 10a and 10b, ``ResilienceConfig``,
-#: the three offload configs and ``CheckpointConfig(offload_staging=True)``,
-#: item 9, the attribution, numerics and memory configs, item 10c, and
-#: ``ActivationCheckpointingConfig``, item 13, are honoured)
+#: ROADMAP item that ports each (every other class is honoured)
 LATER_CONFIGS: Dict[str, str] = {
     "CompileConfig": _LATER_COMPILE,
-    "PartitionRulesConfig": _LATER_MODEL_PARALLEL,
-    "FleetConfig": _LATER_FLEET,
-    "OpsPlaneConfig": _LATER_FLEET,
+    "PartitionRulesConfig": _LATER_TENSOR_PARALLEL,
 }
 
 #: the health watchdog's exit code and the fault injector's variable, from
@@ -276,6 +266,10 @@ class StokeStatus:
     def _data_axis(self) -> str:
         dp = self._configs.get("DataParallelConfig")
         return dp.axis_name if dp is not None else "data"
+
+    def _seq_axis(self) -> str:
+        dp = self._configs.get("DataParallelConfig")
+        return dp.seq_axis_name if dp is not None else "seq"
 
     def _ignored_without_distributed(self, cfg_name: str) -> Callable:
         def rule(s):
@@ -1118,16 +1112,19 @@ class StokeStatus:
         the port does not run yet."""
         later = [(f"{name} is", name in self._configs, LATER_CONFIGS[name])
                  for name in LATER_CONFIGS]
-        dp = self._configs.get("DataParallelConfig")
         mesh = self._configs.get("MeshConfig")
+        axes = tuple(getattr(mesh, "axes", ()) or ())
+        seq_mesh = set(axes) == {self._data_axis(), self._seq_axis()}
+        tier = self.sharding_tier.value
         later += [
-            ("DataParallelConfig.shard_seq_dim is",
-             dp is not None and dp.shard_seq_dim is not None,
-             _LATER_MODEL_PARALLEL),
-            (f"a mesh of axes {getattr(mesh, 'axes', None)} (dcn_axes "
+            (f"a mesh of axes {axes} (dcn_axes "
              f"{getattr(mesh, 'dcn_axes', None)}) is",
-             mesh is not None and (len(mesh.axes) > 1 or bool(mesh.dcn_axes)),
-             _LATER_MODEL_PARALLEL),
+             mesh is not None and ((len(axes) > 1 and not seq_mesh)
+                                   or bool(mesh.dcn_axes)),
+             _LATER_TENSOR_PARALLEL),
+            (f"the {tier} tier under the {self._seq_axis()!r} mesh axis is",
+             seq_mesh and tier != "none",
+             _LATER_SEQ_TIERS),
         ]
         for what, on, item in later:
             if on:

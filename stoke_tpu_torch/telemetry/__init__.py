@@ -50,8 +50,17 @@ from stoke_tpu_torch.telemetry.events import (
     validate_step_event,
 )
 from stoke_tpu_torch.telemetry.fleet import (
+    FLEET_EVENT_FIELDS,
+    FLEET_INDEX,
+    FLEET_SIGNALS,
+    FleetMonitor,
+    FleetStragglerDetector,
+    fleet_aggregates,
+    pack_fleet_vector,
     register_sync_registry,
+    straggler_verdict,
     timed_sync,
+    unpack_fleet_vector,
     unregister_sync_registry,
 )
 from stoke_tpu_torch.telemetry.health import (
@@ -114,6 +123,15 @@ __all__ = [
     "register_sync_registry",
     "unregister_sync_registry",
     "timed_sync",
+    "FLEET_EVENT_FIELDS",
+    "FLEET_INDEX",
+    "FLEET_SIGNALS",
+    "FleetMonitor",
+    "FleetStragglerDetector",
+    "fleet_aggregates",
+    "pack_fleet_vector",
+    "straggler_verdict",
+    "unpack_fleet_vector",
     "SENTINEL_FIELDS",
     "WATCHDOG_EXIT_CODE",
     "Anomaly",
@@ -148,10 +166,10 @@ class Telemetry:
     adds a per-rank JSONL stream (``steps.rank<N>.jsonl``) and
     ``prometheus_all_ranks`` a per-rank scrape file.
 
-    ``attribution``, ``resilience``, ``numerics`` and ``memory`` are the
-    monitors the facade assigns with their configs; without one its
-    step-event fields ride as ``null`` or stay absent, as the JAX hub
-    writes them. ``fleet`` (ROADMAP Queue 1 item 10d) stays None.
+    ``attribution``, ``fleet``, ``resilience``, ``numerics`` and
+    ``memory`` are the monitors the facade assigns with their configs;
+    without one its step-event fields ride as ``null`` or stay absent, as
+    the JAX hub writes them.
     """
 
     def __init__(
@@ -284,6 +302,14 @@ class Telemetry:
             return None
         return self.attribution.goodput_summary()
 
+    def fleet_summary(self) -> Optional[dict]:
+        """End-of-run fleet accounting (windows, the latest per-process
+        matrix, its aggregates and straggler verdict, the straggler
+        counts); None without a ``FleetConfig``."""
+        if self.fleet is None:
+            return None
+        return self.fleet.summary()
+
     # ------------------------------------------------------------------ #
     # step records
     # ------------------------------------------------------------------ #
@@ -409,6 +435,14 @@ class Telemetry:
                 step=step, wall_s=wall_dt, host_dispatch_s=host_dispatch,
                 loader_wait_s=loader_wait, ckpt_io_s=ckpt_io,
                 comm_bytes_onwire=comm_wire)
+        # the fleet view: this record's deltas join the current fleet
+        # window; at a window boundary one all-gather yields the
+        # per-process matrix and the fleet/* fields (nulls in between)
+        fleet_fields = None
+        if self.fleet is not None:
+            fleet_fields = self.fleet.window_stats(
+                step=step, wall_s=wall_dt, loader_wait_s=loader_wait,
+                comm_bytes_onwire=comm_wire)
         numerics_fields = (self.numerics.event_fields()
                            if self.numerics is not None else None)
         memory_fields = None
@@ -451,6 +485,7 @@ class Telemetry:
             hbm_bytes_limit=(hbm or {}).get("bytes_limit"),
             resilience=(self.resilience.event_fields()
                         if self.resilience is not None else None),
+            fleet=fleet_fields,
             numerics=numerics_fields,
             memory=memory_fields,
             **attr_fields,

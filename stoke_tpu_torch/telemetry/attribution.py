@@ -39,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -340,11 +341,18 @@ class AutoCaptureDetector(Detector):
 
 
 class AttributionMonitor:
-    """The cost-card cache, the per-window gauges, the goodput ledger and
-    the auto-capture (the JAX package's ``AttributionMonitor``). A capture
-    is a ``torch.profiler`` trace (CPU ops, and CUDA kernels on the card)
-    exported as ``stoke.rank<N>.pt.trace.json`` under its directory, the
-    file ``Stoke.profile_trace`` writes."""
+    """The cost-card cache, the per-window gauges, the goodput ledger, the
+    auto-capture and the ops plane's manual capture (the JAX package's
+    ``AttributionMonitor``). A capture is a ``torch.profiler`` trace (CPU
+    ops, and CUDA kernels on the card) exported as
+    ``stoke.rank<N>.pt.trace.json`` under its directory, the file
+    ``Stoke.profile_trace`` writes.
+
+    A manual capture runs on the caller's thread, as the JAX package's
+    does: the profiler starts there, the thread sleeps and stops it. On
+    the card its trace holds every kernel the process launched meanwhile
+    (the training thread's flash kernels too); of the CPU operators it
+    holds the caller's thread's only."""
 
     def __init__(self, cfg, registry, *, trace_dir: Optional[str] = None,
                  rank: int = 0, cuda: bool = False):
@@ -525,22 +533,14 @@ class AttributionMonitor:
                 self.trace_dir,
                 f"auto-capture-{self.captures + 1}-step{step}-{safe}")
             try:
-                acts = [torch.profiler.ProfilerActivity.CPU]
-                if self.cuda:
-                    acts.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=acts)
-                prof.start()
+                self._open_profiler(target)
             except Exception as e:  # a profiler cannot kill the run
                 warnings.warn(f"Stoke -- attribution auto-capture failed to "
                               f"start: {e!r}")
                 return
-            self._profiler = (prof, target)
-            self.captures += 1
+            self._count_capture(target)
             self._capturing = True
             self._capture_stop_at = step + max(1, self.cfg.capture_steps)
-            self._capture_dirs.append(target)
-        self.registry.counter("attr/captures_total",
-                              help="anomaly-triggered profiler captures").inc()
         self._pending_trigger = {
             "capture": self.captures, "reason": reason,
             "value": None if value is None else float(value),
@@ -548,13 +548,67 @@ class AttributionMonitor:
         }
 
     def on_step(self, optimizer_steps: int) -> None:
-        """Every step boundary: close a capture once it covered
-        ``capture_steps`` steps."""
+        """Every step boundary: close an auto-capture once it covered
+        ``capture_steps`` steps (a manual capture stops itself)."""
         with self._capture_lock:
-            if self._capturing and (self._capture_stop_at is None
-                                    or optimizer_steps
-                                    >= self._capture_stop_at):
+            if self._capturing and self._capture_stop_at is not None \
+                    and optimizer_steps >= self._capture_stop_at:
                 self._stop_capture()
+
+    def _open_profiler(self, target: str):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        self._profiler = (prof, target)
+
+    def _count_capture(self, target: str) -> None:
+        """Only a trace that started takes a slot of the budget."""
+        self.captures += 1
+        self._capture_dirs.append(target)
+        self.registry.counter("attr/captures_total",
+                              help="anomaly-triggered profiler captures").inc()
+
+    def manual_capture(self, seconds: float,
+                       reason: str = "manual") -> Dict[str, Any]:
+        """One bounded on-demand capture (the ops plane's ``/profile``):
+        the profiler starts, this thread sleeps ``seconds`` while the run
+        goes on, and stops it. On the budget of ``max_captures`` and
+        exclusive with the auto-capture. Returns ``{"ok": True,
+        "trace_dir", "seconds", "captures", "max_captures"}`` or ``{"ok":
+        False, "error"}`` (the error names the budget or a capture in
+        flight where those refuse it)."""
+        if self.trace_dir is None:
+            return {"ok": False,
+                    "error": "no trace_dir — set ProfilerConfig.trace_dir "
+                             "to enable on-demand capture"}
+        safe = "".join(c if (c.isalnum() or c in "-_=.") else "-"
+                       for c in reason)[:48]
+        seconds = max(0.0, float(seconds))
+        with self._capture_lock:
+            if self._capturing:
+                return {"ok": False, "error": "capture already in flight"}
+            if self.captures >= self.cfg.max_captures:
+                return {"ok": False,
+                        "error": f"capture budget exhausted "
+                                 f"({self.captures}/{self.cfg.max_captures})"}
+            target = os.path.join(
+                self.trace_dir, f"manual-capture-{self.captures + 1}-{safe}")
+            try:
+                self._open_profiler(target)
+            except Exception as e:
+                return {"ok": False,
+                        "error": f"profiler failed to start: {e!r}"}
+            self._count_capture(target)
+            self._capturing = True
+            self._capture_stop_at = None
+        time.sleep(seconds)
+        with self._capture_lock:
+            self._stop_capture()
+        return {"ok": True, "trace_dir": target, "seconds": seconds,
+                "captures": self.captures,
+                "max_captures": self.cfg.max_captures}
 
     def _stop_capture(self) -> None:
         prof, target = self._profiler or (None, None)

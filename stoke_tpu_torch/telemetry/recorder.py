@@ -23,13 +23,15 @@ triage without re-running:
         cost_cards.json     the last cost cards (ditto)
         numerics.json       the latest per-layer numerics view and the
                             provenance events (with a NumericsConfig)
+        fleet.json          the latest per-host signal matrix, its
+                            aggregates and straggler verdict (with a
+                            FleetConfig, after the first exchange)
         trace.json          the structured-trace span ring as Perfetto-
                             loadable trace-event JSON (when tracing is on)
         stacks.txt          faulthandler all-thread stacks at dump time
 
 These are the files the JAX package writes for a run with the same
-configs; its fleet file comes with the fleet monitor, which the port does
-not run yet.
+configs.
 
 Bundles are cheap (the ring is small) and atomic enough for crash paths:
 files are written directly into a uniquely named directory, so a partial
@@ -98,6 +100,7 @@ class FlightRecorder:
         goodput_fn: Optional[Callable[[], Optional[Dict[str, Any]]]] = None,
         cost_cards_fn: Optional[Callable[[], Any]] = None,
         numerics_fn: Optional[Callable[[], Optional[Dict[str, Any]]]] = None,
+        fleet_fn: Optional[Callable[[], Optional[Dict[str, Any]]]] = None,
     ):
         self.bundle_dir = bundle_dir
         self._ring: "deque[dict]" = deque(maxlen=int(ring_size))
@@ -117,6 +120,8 @@ class FlightRecorder:
         self._goodput_fn = goodput_fn
         self._cost_cards_fn = cost_cards_fn
         self._numerics_fn = numerics_fn
+        # which host was slow at time of death
+        self._fleet_fn = fleet_fn
         self.dumps: List[str] = []
         self._prev_handlers: Dict[int, Any] = {}
         if install_signal_handlers:
@@ -216,7 +221,8 @@ class FlightRecorder:
                 pass
         for name, fn in (("goodput.json", self._goodput_fn),
                          ("cost_cards.json", self._cost_cards_fn),
-                         ("numerics.json", self._numerics_fn)):
+                         ("numerics.json", self._numerics_fn),
+                         ("fleet.json", self._fleet_fn)):
             if fn is None:
                 continue
             try:

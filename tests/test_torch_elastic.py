@@ -1,6 +1,6 @@
 """The port's staging, partial tags, the residual remap and elastic resume
 against ``tests/test_elastic.py:121-638`` and the JAX package (its
-rebalancer cases are ROADMAP item 10d's).
+rebalancer cases are in ``tests/test_torch_fleet.py``).
 
 The remap functions are held exactly to the JAX package's on the same
 residuals. A gloo world of 2 (``tests/_torch_elastic_worker.py``) saves an

@@ -78,7 +78,9 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.telemetry.memory",
                                     "stoke_tpu_torch.telemetry.numerics",
                                     "stoke_tpu_torch.serving.slo",
-                                    "stoke_tpu_torch.serving.roofline"])
+                                    "stoke_tpu_torch.serving.roofline",
+                                    "stoke_tpu_torch.telemetry.opsplane",
+                                    "stoke_tpu_torch.ops.attention"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"

@@ -153,12 +153,14 @@ def test_status_accepts_the_ladder(alias, tier):
 
 REFUSED = {
     "shard_seq_dim": ([pc.DataParallelConfig(shard_seq_dim=1),
-                       pc.MeshConfig(axes=("data", "seq"))], "8"),
-    "two_axes": ([pc.MeshConfig(axes=("data", "model"))], "8"),
-    "dcn_axes": ([pc.MeshConfig(dcn_axes=("data",))], "8"),
+                       pc.MeshConfig(axes=("data", "seq"))], "8a"),
+    "two_axes": ([pc.MeshConfig(axes=("data", "model"))], "8b"),
+    "dcn_axes": ([pc.MeshConfig(dcn_axes=("data",))], "8b"),
     "comm": ([pc.CommConfig()], "7"),
     "partition_rules": ([pc.PartitionRulesConfig(rules=(("w", ("data",)),))],
-                        "8"),
+                        "8b"),
+    "seq_axis_tiers": ([pc.DataParallelConfig(shard_seq_dim=1),
+                        pc.MeshConfig(axes=("data", "seq"))], "8d"),
     "offload": ([pc.OffloadOptimizerConfig()], "9"),
     "sharded_format": ([pc.CheckpointConfig(
         format=pc.CheckpointFormat.sharded)], "6b"),
@@ -166,9 +168,12 @@ REFUSED = {
 
 
 #: options refused here until their item landed (the transports, item 7,
-#: the sharded checkpoint format, item 6b, and optimizer offload, item
-#: 9): each case now shows the status layer takes them
-LANDED = ("comm", "sharded_format", "offload")
+#: the sharded checkpoint format, item 6b, optimizer offload, item 9, and
+#: the (data, seq) mesh with shard_seq_dim, item 8a): each case now shows
+#: the status layer takes them
+LANDED = ("comm", "sharded_format", "offload", "shard_seq_dim")
+#: the flags of a refused case (a tier under a seq axis, item 8d)
+REFUSED_FLAGS = {"seq_axis_tiers": dict(oss=True)}
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
@@ -179,11 +184,13 @@ def test_later_options_name_their_item(case):
                          distributed="dp", configs=configs)
         assert (st.comm_config is not None
                 or st.offload_optimizer_config is not None
-                or st.checkpoint_config.format is pc.CheckpointFormat.sharded)
+                or st.checkpoint_config.format is pc.CheckpointFormat.sharded
+                or (st.dp_config.shard_seq_dim == 1
+                    and st.mesh_config.axes == ("data", "seq")))
         return
     with pytest.raises(NotImplementedError, match=f"{LATER} {item}\\b"):
         StokeStatus(batch_size_per_device=4, device="cpu", distributed="dp",
-                    configs=configs)
+                    configs=configs, **REFUSED_FLAGS.get(case, {}))
 
 
 @pytest.mark.parametrize("env,present", [

@@ -56,7 +56,7 @@ MATRIX = [
     (dict(batch_size_per_device=8, distributed="dp"), "ok"),
     (dict(batch_size_per_device=8, distributed="ddp", oss=True), "ok"),
     (dict(batch_size_per_device=8, distributed="dp",
-          configs=[MeshConfig(axes=("data", "seq"))]), "later"),
+          configs=[MeshConfig(axes=("data", "model"))]), "later"),
     (dict(batch_size_per_device=8, grad_clip=ClipGradConfig(clip_value=0.0)),
      "invalid"),
     (dict(batch_size_per_device=8,
@@ -66,6 +66,11 @@ MATRIX = [
      "invalid"),
     (dict(batch_size_per_device=8, configs=[PrecisionConfig(num_losses=2)]),
      "invalid"),
+    # the (data, seq) mesh runs since item 8a; the tiers under it wait
+    (dict(batch_size_per_device=8, distributed="dp",
+          configs=[MeshConfig(axes=("data", "seq"))]), "ok"),
+    (dict(batch_size_per_device=8, distributed="dp", oss=True,
+          configs=[MeshConfig(axes=("data", "seq"))]), "later"),
 ]
 
 
