@@ -285,6 +285,20 @@ Phases, one JSON line each; any failure exits nonzero:
    fully masked hops exactly 0 with LSE -1e30, S^2 (3 S^2 for zigzag)
    hop forwards and as many of each backward kernel; then the host ms
    of warmed, uninstrumented passes of each.
+25. train_tp_ep: GPT-base bf16 under ``gpt_tensor_parallel_rules`` on a
+   (data=1, model=1) mesh against the same run without rules, and
+   GPT-base-MoE (8 experts every 2nd block, capacity 1.25) top-1 and
+   top-2 under ``moe_expert_parallel_rules`` on a (data=1, expert=1)
+   mesh against the run without (3 eager steps, 2 windows, 4 timed
+   replays): losses, masters, aux losses and flash launches bit for bit;
+   the MoE runs (one batch every step) eagerly against replayed windows
+   within WINDOW_RTOL, the loss falls, every aux loss finite and >= 1 -
+   1e-5; one GPT-base block split over T = 2 and 4 virtual model ranks
+   by the port's own cut (flash at 6 and 3 heads, the partial sums added
+   here) and the MoE FFN over X = 2 and 4 virtual expert ranks, forward
+   and every gradient in fp32 (PARITY_RTOL) and bf16 (the row check);
+   step ms eager and replayed, peak memory, and one MoE FFN's routing,
+   dispatch and combine against its products under ``torch.profiler``.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -6111,6 +6125,405 @@ def train_seqpar(ops) -> dict:
     }
 
 
+TPEP_STEPS = 5           # train_steps a run: eager, or 3 eager then 2 windows
+TPEP_EAGER = 3           # eager steps before the windows
+TPEP_SPLITS = (2, 4)     # the virtual model and expert group sizes
+TPEP_REPLAYS = 4         # timed one-window replays
+MOE_EXPERTS, MOE_EVERY, MOE_CAPACITY = 8, 2, 1.25
+
+
+def moe_base(top_k: int):
+    """GPT-base-MoE on the card (the train phase's GPT-base with a switch
+    MoE of MOE_EXPERTS experts in every MOE_EVERY-th block, capacity
+    MOE_CAPACITY), seeded weights, flash attention."""
+    from stoke_tpu_torch.models.gpt import GPT
+    from stoke_tpu_torch.ops import make_flash_attention
+
+    model = GPT(vocab_size=VOCAB, size_name="base", max_len=1024,
+                dropout_rate=0.0,
+                attention_fn=make_flash_attention(causal=True),
+                attention_is_causal=True, moe_num_experts=MOE_EXPERTS,
+                moe_every=MOE_EVERY, moe_capacity_factor=MOE_CAPACITY,
+                moe_top_k=top_k, device="cuda")
+    model.init_weights(SEED)
+    return model
+
+
+def split_run(ops, model, axes, rules, batches, windows: bool,
+              replays: int = 0) -> dict:
+    """``model`` trained bf16 TPEP_STEPS steps: all eager, or TPEP_EAGER
+    eager then ``train_steps`` of two one-step windows (the second
+    replayed) and ``replays`` timed one-window replays; under ``rules`` on
+    a (1, 1) mesh of ``axes`` (a one-process NCCL group), or without
+    ``distributed``."""
+    from stoke_tpu_torch.configs import MeshConfig, PartitionRulesConfig
+
+    flags = {}
+    if rules is not None:
+        flags = dict(distributed="dp", configs=[
+            MeshConfig(axes=axes, shape=(1, 1)),
+            PartitionRulesConfig(rules=rules)])
+    before = dict(ops.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    s = stoke_for(model, "bf16", TRAIN_BATCH, seed=SEED, **flags)
+    n = TPEP_EAGER if windows else TPEP_STEPS
+    losses, ms = eager_steps(s, [batches[i] for i in range(n)])
+    replay_ms = []
+    if windows:
+        seg = batches[TPEP_EAGER:TPEP_STEPS]
+        losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+        one = batches[TPEP_STEPS - 1:TPEP_STEPS]
+        replay_ms = [timed_ms(lambda: s.train_steps(one, one))
+                     for _ in range(replays)]
+    aux = s.aux_losses
+    out = {"losses": losses, "launches": flash_delta(ops, before),
+           "digest": masters_digest(s), "eager_ms": ms,
+           "replay_ms": replay_ms,
+           "windows_captured": len(s._engine._windows),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "aux": None if aux is None else [
+               float(v["moe"]["aux_loss"]) for v in aux.values()],
+           "split": None if s.tensor_parallel is None else sorted(
+               {n.split(".")[-2] + "." + n.split(".")[-1]
+                for n in s.tensor_parallel.cuts})}
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def joined_grads(whole, ranks, tps) -> dict:
+    """Each parameter's gradient of the split ranks, the cut ones put
+    back whole, the others (biases, norms) from ``whole``."""
+    out = {}
+    for n, p in whole.named_parameters():
+        cut = tps[0].cuts.get(n)
+        out[n] = (p.grad if cut is None else cut.join(
+            [dict(r.named_parameters())[n].grad for r in ranks]))
+    return out
+
+
+def block_pass(module, x, dout, call) -> tuple:
+    """``call(module, x)`` and its backward of ``dout``: the output and
+    every gradient (``x``'s as ``"x"``) by name."""
+    x = x.clone().requires_grad_()
+    out = call(module, x)
+    out.backward(dout)
+    grads = {n: p.grad for n, p in module.named_parameters()}
+    grads["x"] = x.grad
+    return out.detach(), grads
+
+
+def split_errors(split, refs, dtype) -> dict:
+    """The split's output and each gradient against ``refs[-1]``, by the
+    largest absolute difference over the largest magnitude in fp32
+    (held to PARITY_RTOL) and by the row check (``bwd_row_err``) in bf16
+    (held to BWD_ROW_RTOL_BF16). ``refs`` is the unsplit block's pass;
+    for a bf16 split that rounds its partial sums otherwise than the
+    unsplit block, also the unsplit fp32 block's, which both bf16 passes
+    are then held against: each of the split's tensors within
+    BWD_ROW_RTOL_BF16 or, where the unsplit bf16 block's own error of
+    that tensor is above half of it (a weight gradient's rows summed over
+    8192 tokens), within twice that error."""
+    fa = importlib.import_module("stoke_tpu_torch.ops.flash_attention")
+
+    def err(a, b):
+        if dtype == FP32:
+            return float((a - b).abs().max() / b.abs().max())
+        # a vector is one row
+        return fa.bwd_row_err(a.reshape(-1, a.shape[-1]),
+                              b.reshape(-1, b.shape[-1]))
+
+    def errs(got):
+        ref = refs[-1]
+        out = {"out": err(got[0], ref[0])}
+        out.update({n: err(got[1][n], ref[1][n]) for n in ref[1]})
+        return out
+
+    mine = errs(split)
+    k = max(mine, key=mine.get)
+    limit = PARITY_RTOL if dtype == FP32 else fa.BWD_ROW_RTOL_BF16
+    if len(refs) == 1:
+        return {"max_err": mine[k], "worst": k, "limit": limit,
+                "ok": mine[k] <= limit}
+    theirs = errs(refs[0])
+    limits = {n: max(limit, 2 * theirs[n]) for n in mine}
+    return {"max_err": mine[k], "worst": k, "limit": limits[k],
+            "unsplit_err": theirs[k],
+            "unsplit_max_err": max(theirs.values()),
+            "ok": all(mine[n] <= limits[n] for n in mine)}
+
+
+def virtual_tp(ops, T: int, dtype) -> dict:
+    """One GPT-base block (flash attention, causal) split over T virtual
+    model ranks by the port's own cut (``shard_module`` with
+    ``gpt_tensor_parallel_rules``): each rank's column- and row-parallel
+    products on the card at 12 / T heads and 3072 / T ff, the partial
+    outputs summed here in place of the all-reduce, the row biases added
+    once; forward and every gradient against the unsplit block."""
+    import copy
+
+    from stoke_tpu_torch.models.bert import TransformerBlock
+    from stoke_tpu_torch.models import gpt_tensor_parallel_rules
+    from stoke_tpu_torch.ops import make_flash_attention
+    from stoke_tpu_torch.parallel import ModelGroup, shard_module
+
+    torch.manual_seed(SEED + T)
+    whole = TransformerBlock(HEADS * HEAD_DIM, HEADS, 4 * HEADS * HEAD_DIM,
+                             0.0, make_flash_attention(causal=True),
+                             device="cuda").to(dtype)
+    base = copy.deepcopy(whole)
+    x = torch.randn(TRAIN_BATCH, TRAIN_LEN, HEADS * HEAD_DIM,
+                    device="cuda", dtype=dtype)
+    dout = torch.randn_like(x)
+    # the fp32 copy before the pass (a pass leaves a MoE FFN its aux)
+    whole32 = copy.deepcopy(whole).float() if dtype != FP32 else None
+    refs = [block_pass(whole, x, dout, lambda m, t: m(t, None))]
+    if whole32 is not None:
+        refs.append(block_pass(whole32, x.float(), dout.float(),
+                               lambda m, t: m(t, None)))
+    ranks, tps = [], []
+    for r in range(T):
+        b = copy.deepcopy(base)
+        tps.append(shard_module(b, gpt_tensor_parallel_rules(),
+                                ModelGroup(None, T, r, "model")))
+        ranks.append(b)
+    before = dict(ops.LAUNCHES)
+    xs = x.clone().requires_grad_()
+    a = sum(b.attention.partial(xs, None) for b in ranks)
+    h = base.ln_attn(xs + a + base.attention.out.bias)
+    f = sum(b.ff_partial(h) for b in ranks) + base.ff_out.bias
+    out = base.ln_ff(h + f)
+    out.backward(dout)
+    launches = flash_delta(ops, before)
+    grads = joined_grads(base, ranks, tps)
+    grads["x"] = xs.grad
+    res = split_errors((out.detach(), grads), refs, dtype)
+    res.update(T=T, dtype=str(dtype).replace("torch.", ""),
+               heads_a_rank=ranks[0].attention.local_heads,
+               ff_a_rank=ranks[0].ff_in.out_features, launches=launches)
+    res["ok"] = res["ok"] and all(v == T for v in launches.values())
+    return res
+
+
+def virtual_ep(X: int, dtype) -> dict:
+    """The MoE FFN of a GPT-base-MoE block (8 experts, capacity 1.25,
+    top-2) split over X virtual expert ranks by the port's own cut
+    (``moe_expert_parallel_rules``): routing and dispatch once, each
+    rank's experts on the card, their outputs gathered here, combined;
+    forward and every gradient against the unsplit FFN."""
+    import copy
+
+    from stoke_tpu_torch.models import MoEFFN, moe_expert_parallel_rules
+    from stoke_tpu_torch.parallel import ModelGroup, shard_module
+
+    torch.manual_seed(SEED + X)
+    H = HEADS * HEAD_DIM
+    whole = MoEFFN(H, 4 * H, MOE_EXPERTS, MOE_CAPACITY, top_k=2,
+                   device="cuda").to(dtype)
+    base = copy.deepcopy(whole)
+    x = torch.randn(TRAIN_BATCH, TRAIN_LEN, H, device="cuda", dtype=dtype)
+    dout = torch.randn_like(x)
+    # each expert is computed whole on its rank: the split is held to the
+    # unsplit FFN of its own dtype (in bf16 an fp32 reference would route
+    # its near ties otherwise)
+    refs = [block_pass(whole, x, dout, lambda m, t: m(t))]
+    ranks, tps = [], []
+    for r in range(X):
+        m = copy.deepcopy(base)
+        tps.append(shard_module(m, moe_expert_parallel_rules(),
+                                ModelGroup(None, X, r, "expert")))
+        ranks.append(m)
+    xs = x.clone().requires_grad_()
+    slot, gates = base.route(xs)
+    expert_in = base.dispatch(xs, slot)
+    n = MOE_EXPERTS // X
+    outs = [m.experts(expert_in[r * n:(r + 1) * n])
+            for r, m in enumerate(ranks)]
+    out = MoEFFN.combine(torch.cat(outs), slot, gates)
+    out.backward(dout)
+    grads = joined_grads(base, ranks, tps)
+    grads["x"] = xs.grad
+    res = split_errors((out.detach(), grads), refs, dtype)
+    res.update(X=X, dtype=str(dtype).replace("torch.", ""),
+               experts_a_rank=ranks[0].local_experts,
+               capacity=base.capacity(TRAIN_LEN))
+    return res
+
+
+def moe_block_profile() -> dict:
+    """Device ms of one MoE FFN of GPT-base-MoE (bf16, top-1 and top-2,
+    B=8, L=1024) forward and backward under ``torch.profiler``: the
+    forward's kernels by region (routing, dispatch, the experts'
+    products, combine) and the whole pass's product kernels (cuBLAS's
+    GEMMs by name: the experts' and the router's) against the rest
+    (routing, dispatch, combine, gelu)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from stoke_tpu_torch.models import MoEFFN
+
+    H = HEADS * HEAD_DIM
+    out = {}
+    for k in (1, 2):
+        torch.manual_seed(SEED)
+        moe = MoEFFN(H, 4 * H, MOE_EXPERTS, MOE_CAPACITY, top_k=k,
+                     device="cuda").to(BF16)
+        x = torch.randn(TRAIN_BATCH, TRAIN_LEN, H, device="cuda",
+                        dtype=BF16, requires_grad=True)
+
+        def once():
+            with record_function("moe/route"):
+                slot, gates = moe.route(x)
+            with record_function("moe/dispatch"):
+                ein = moe.dispatch(x, slot)
+            with record_function("moe/experts"):
+                eo = moe.experts(ein)
+            with record_function("moe/combine"):
+                y = moe.combine(eo, slot, gates)
+            y.float().pow(2).mean().backward()
+
+        once()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            once()
+            torch.cuda.synchronize()
+        regions = {}
+        for e in prof.events():
+            if e.name.startswith("moe/") and e.device_type == DeviceType.CPU:
+                regions[e.name] = getattr(e, "device_time_total", 0.0) / 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        ms = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.key)
+              for e in kernels]
+        gemm = sum(t for t, n in ms if re.search(
+            r"gemm|xmma|cutlass|sm90_|nvjet", n, re.I))
+        total = sum(t for t, _ in ms)
+        out[f"top{k}"] = {
+            "forward_regions_ms": regions,
+            "device_ms": total, "product_kernels_ms": gemm,
+            "routing_dispatch_combine_ms": total - gemm,
+            "routing_share": (total - gemm) / total if total else None,
+            "top": [{"name": n[:80], "ms": t}
+                    for t, n in sorted(ms, reverse=True)[:6]]}
+        del moe, x
+    return out
+
+
+def train_tp_ep(ops) -> dict:
+    """Tensor and expert parallelism on the card. GPT-base bf16 (the
+    train phase's model) at world 1 under ``gpt_tensor_parallel_rules``
+    on a (data=1, model=1) mesh, against the same run without rules:
+    losses, masters and flash launches bit for bit, eager and replayed.
+    One GPT-base block split over T = 2 and 4 virtual model ranks
+    (:func:`virtual_tp`) in fp32 and bf16. GPT-base-MoE top-1 and top-2
+    on one batch every step: all eager against eager then replayed
+    windows (within WINDOW_RTOL), the loss falls, the aux losses finite
+    and >= 1 - 1e-5, the windowed
+    run under ``moe_expert_parallel_rules`` on a (data=1, expert=1) mesh
+    bit for bit; its experts split over X = 2 and 4 virtual expert ranks
+    (:func:`virtual_ep`); step ms eager and replayed, peak memory, and
+    the MoE FFN's routing against its products (:func:`moe_block_profile`)."""
+    import torch.distributed as dist
+
+    from stoke_tpu_torch.models import (
+        gpt_tensor_parallel_rules,
+        moe_expert_parallel_rules,
+    )
+
+    t0 = time.perf_counter()
+    batches = window_batches(TPEP_STEPS)
+    failures = []
+    runs = {}
+    # the one-process NCCL group goes on failure too (its watchdog would
+    # hold the process for minutes)
+    try:
+        runs["gpt"] = split_run(ops, gpt_base("flash"), None, None, batches,
+                                True)
+        runs["gpt_tp"] = split_run(ops, gpt_base("flash"), ("data", "model"),
+                                   gpt_tensor_parallel_rules(), batches,
+                                   True)
+        # the MoE runs take one batch every step, so that five steps at
+        # the train phase's learning rate show the loss falling
+        same = batches[:1].expand_as(batches).contiguous()
+        for k in (1, 2):
+            runs[f"moe{k}_eager"] = split_run(ops, moe_base(k), None, None,
+                                              same, False)
+            runs[f"moe{k}"] = split_run(ops, moe_base(k), None, None,
+                                        same, True, TPEP_REPLAYS)
+            runs[f"moe{k}_ep"] = split_run(
+                ops, moe_base(k), ("data", "expert"),
+                moe_expert_parallel_rules(), same, True, TPEP_REPLAYS)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for plain, split in (("gpt", "gpt_tp"), ("moe1", "moe1_ep"),
+                         ("moe2", "moe2_ep")):
+        for key in ("losses", "digest", "launches", "windows_captured",
+                    "aux"):
+            if runs[split][key] != runs[plain][key]:
+                failures.append(f"{split} {key}: {runs[split][key]} vs "
+                                f"{runs[plain][key]}")
+        if not runs[split]["split"]:
+            failures.append(f"{split}: nothing split")
+    for k in (1, 2):
+        eager, win = runs[f"moe{k}_eager"], runs[f"moe{k}"]
+        diff = rel_diff(win["losses"], eager["losses"])
+        if diff > WINDOW_RTOL:
+            failures.append(f"moe{k} windows vs eager: {diff}")
+        if not eager["losses"][-1] < eager["losses"][0]:
+            failures.append(f"moe{k}: loss did not fall {eager['losses']}")
+        if not all(np.isfinite(a) and a >= 1 - 1e-5 for a in win["aux"]):
+            failures.append(f"moe{k}: aux {win['aux']}")
+        if win["windows_captured"] < 1:
+            failures.append(f"moe{k}: no window captured")
+        win["windows_vs_eager"] = diff
+    want = {n: (TPEP_STEPS + TPEP_REPLAYS) * N_LAYERS for n in FLASH}
+    if runs["moe1"]["launches"] != want:
+        failures.append(f"moe1 launches {runs['moe1']['launches']} vs {want}")
+    virtual = {"tp": [virtual_tp(ops, T, dt) for dt in (FP32, BF16)
+                      for T in TPEP_SPLITS],
+               "ep": [virtual_ep(X, dt) for dt in (FP32, BF16)
+                      for X in TPEP_SPLITS]}
+    for kind, cases in virtual.items():
+        for c in cases:
+            if not c["ok"]:
+                failures.append(f"virtual {kind}: {c}")
+    if failures:
+        raise AssertionError("train_tp_ep: " + "; ".join(failures))
+    profile = moe_block_profile()
+
+    def p50(xs):
+        return float(np.median(xs)) if xs else None
+
+    return {
+        "phase": "train_tp_ep",
+        "model": "GPT-base and GPT-base-MoE (8 experts every 2nd block, "
+                 "capacity 1.25) bf16, B=8, L=1024, AdamW, clip 1.0",
+        "bit_for_bit": True,
+        "losses": {k: v["losses"] for k, v in runs.items()},
+        "aux_losses": {k: runs[k]["aux"] for k in ("moe1", "moe2")},
+        "split": {k: runs[k]["split"] for k in ("gpt_tp", "moe1_ep")},
+        "windows_vs_eager": {k: runs[k]["windows_vs_eager"]
+                             for k in ("moe1", "moe2")},
+        "eager_ms_p50": {k: p50(v["eager_ms"][2:]) for k, v in runs.items()
+                         if k.endswith("_eager")},
+        "eager_ms": {k: v["eager_ms"] for k, v in runs.items()},
+        "replay_ms_p50": {k: p50(runs[k]["replay_ms"])
+                          for k in ("moe1", "moe2")},
+        "replay_ms": {k: runs[k]["replay_ms"] for k in ("moe1", "moe2")},
+        "peak_gb": {k: v["peak_gb"] for k, v in runs.items()},
+        "launches": {k: v["launches"] for k, v in runs.items()},
+        "launches_total": {n: sum(v["launches"][n] for v in runs.values())
+                           + sum(c["launches"][n] for c in virtual["tp"])
+                           for n in FLASH},
+        "virtual": virtual,
+        "moe_block": profile,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
 def quant_rows(cases, comm, served, elastic) -> list:
     """The kernels line's rows of the quantize pair: ``ms`` and its
     bound at the 25 MB bucket (stochastic, chunk 512), the case the
@@ -6265,6 +6678,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     seqpar = train_seqpar(ops)
     emit({**seqpar, "card": smi})
+    torch.cuda.empty_cache()
+    tpep = train_tp_ep(ops)
+    emit({**tpep, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -6295,6 +6711,8 @@ def main() -> int:
             # training runs and virtual rings
             out["launches_fleet_ops"] = fleet["launches"][tel_key]
             out["launches_train_seqpar"] = seqpar["launches_total"][tel_key]
+            # tensor and expert parallelism's runs and virtual splits
+            out["launches_train_tp_ep"] = tpep["launches_total"][tel_key]
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]

@@ -3,7 +3,7 @@
 Each function maps a flax variable tree, already turned into nested dicts
 of numpy arrays by the caller, onto the names of the port's module's
 ``state_dict()``: :func:`gpt_state_dict_from_jax` for
-``stoke_tpu.models.gpt.GPT`` (tied head, dense FFN),
+``stoke_tpu.models.gpt.GPT`` (tied or untied head, dense or MoE blocks),
 :func:`vit_state_dict_from_jax` for ``ViT``,
 :func:`cnn_state_dict_from_jax` for ``BasicNN`` and every ``ResNet``
 (``params`` and ``batch_stats``), and :func:`bert_state_dict_from_jax`
@@ -72,12 +72,14 @@ def _taker(flat: Dict[str, np.ndarray], who: str) -> Callable:
 def _transformer_blocks(flat: Dict[str, np.ndarray], take: Callable,
                         hidden: int, who: str) -> Tuple[dict, dict]:
     """Every ``layer_<i>`` ``TransformerBlock`` of ``flat`` as the port's
-    ``layers.<i>``: ``(state, expected shapes)``."""
+    ``layers.<i>``: ``(state, expected shapes)``. A block with a
+    ``moe`` subtree is a ``MoETransformerBlock``: ``moe/router/kernel``
+    ``[hidden, E]`` (transposed into the router's weight), ``moe/w_in``
+    ``[E, hidden, ff]`` and ``moe/w_out`` ``[E, ff, hidden]`` as they are."""
     layers = sorted(
         {int(m.group(1)) for k in flat if (m := re.match(r"layer_(\d+)/", k))}
     )
     n_layers = layers[-1] + 1 if layers else 0
-    ff = flat.get("layer_0/ff_in/kernel", np.zeros((hidden, 0))).shape[1]
     sd, expect = {}, {}
     for i in range(n_layers):
         src, dst = f"layer_{i}", f"layers.{i}"
@@ -93,9 +95,29 @@ def _transformer_blocks(flat: Dict[str, np.ndarray], take: Callable,
         sd[f"{dst}.attention.out.weight"] = take(
             f"{src}/attention/out/kernel").T
         sd[f"{dst}.attention.out.bias"] = take(f"{src}/attention/out/bias")
-        for name in ("ff_in", "ff_out"):
-            sd[f"{dst}.{name}.weight"] = take(f"{src}/{name}/kernel").T
-            sd[f"{dst}.{name}.bias"] = take(f"{src}/{name}/bias")
+        if f"{src}/moe/router/kernel" in flat:
+            router = take(f"{src}/moe/router/kernel")
+            w_in = take(f"{src}/moe/w_in")
+            n_exp, ff = router.shape[1], w_in.shape[-1]
+            sd[f"{dst}.moe.router.weight"] = router.T
+            sd[f"{dst}.moe.w_in"] = w_in
+            sd[f"{dst}.moe.w_out"] = take(f"{src}/moe/w_out")
+            expect.update({
+                f"{dst}.moe.router.weight": (n_exp, hidden),
+                f"{dst}.moe.w_in": (n_exp, hidden, ff),
+                f"{dst}.moe.w_out": (n_exp, ff, hidden),
+            })
+        else:
+            for name in ("ff_in", "ff_out"):
+                sd[f"{dst}.{name}.weight"] = take(f"{src}/{name}/kernel").T
+                sd[f"{dst}.{name}.bias"] = take(f"{src}/{name}/bias")
+            ff = sd[f"{dst}.ff_in.weight"].shape[0]
+            expect.update({
+                f"{dst}.ff_in.weight": (ff, hidden),
+                f"{dst}.ff_in.bias": (ff,),
+                f"{dst}.ff_out.weight": (hidden, ff),
+                f"{dst}.ff_out.bias": (hidden,),
+            })
         for name in ("ln_attn", "ln_ff"):
             sd[f"{dst}.{name}.weight"] = take(f"{src}/{name}/scale")
             sd[f"{dst}.{name}.bias"] = take(f"{src}/{name}/bias")
@@ -104,10 +126,6 @@ def _transformer_blocks(flat: Dict[str, np.ndarray], take: Callable,
             f"{dst}.attention.qkv.bias": (3 * hidden,),
             f"{dst}.attention.out.weight": (hidden, hidden),
             f"{dst}.attention.out.bias": (hidden,),
-            f"{dst}.ff_in.weight": (ff, hidden),
-            f"{dst}.ff_in.bias": (ff,),
-            f"{dst}.ff_out.weight": (hidden, ff),
-            f"{dst}.ff_out.bias": (hidden,),
             f"{dst}.ln_attn.weight": (hidden,),
             f"{dst}.ln_attn.bias": (hidden,),
             f"{dst}.ln_ff.weight": (hidden,),
@@ -128,6 +146,25 @@ def _finish(sd: Dict[str, np.ndarray], expect: Dict[str, tuple],
         k: torch.from_numpy(np.array(v, dtype=np.float32))
         for k, v in sd.items()
     }
+
+
+def rank_state_dict(state: Mapping[str, Any], cuts: Mapping[str, Any],
+                    rank: int) -> Dict[str, Any]:
+    """Rank ``rank``'s slice of each entry of a whole ``state`` (tensors or
+    numpy arrays by name, e.g. a converter's output) that ``cuts`` (a
+    :class:`~stoke_tpu_torch.parallel.tensor.TensorParallel`'s, by name)
+    splits; the other entries as they are. With a converter this turns
+    the JAX parameters into any rank's slice of a split model."""
+    return {n: cuts[n].take(v, rank) if n in cuts else v
+            for n, v in state.items()}
+
+
+def whole_state_dict(parts: List[Mapping[str, Any]],
+                     cuts: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`rank_state_dict`: the whole state from every
+    rank's, by rank."""
+    return {n: cuts[n].join([p[n] for p in parts]) if n in cuts else v
+            for n, v in parts[0].items()}
 
 
 def gpt_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -162,8 +199,8 @@ def gpt_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                        "lm_head.bias": (vocab,)})
     if flat:
         raise ValueError(
-            f"{who}: leaves with no place in the port's GPT (MoE is not "
-            f"ported): {sorted(flat)}"
+            f"{who}: leaves with no place in the port's GPT: "
+            f"{sorted(flat)}"
         )
     if sd["pos_emb.weight"].ndim != 2 or sd["pos_emb.weight"].shape[1] != hidden:
         raise ValueError(
@@ -323,10 +360,17 @@ def cnn_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 def _jax_leaf_names(module: nn.Module) -> Dict[str, str]:
     """The flax leaf names of one module's tensors, by the port's names:
-    a kernel (``Conv``, ``Linear``), an embedding, a norm's scale and a
-    BatchNorm's running statistics (in ``batch_stats``)."""
+    a kernel (``Conv``, ``Linear``), an embedding, a norm's scale, a
+    BatchNorm's running statistics (in ``batch_stats``), the experts'
+    stacked kernels and ViT's own ``cls_token`` and ``pos_embed``."""
+    from stoke_tpu_torch.models.moe import MoEFFN
     from stoke_tpu_torch.models.resnet import BatchNorm, Conv
+    from stoke_tpu_torch.models.vit import ViT
 
+    if isinstance(module, MoEFFN):
+        return {"w_in": "w_in", "w_out": "w_out"}
+    if isinstance(module, ViT):
+        return {"cls_token": "cls_token", "pos_embed": "pos_embed"}
     if isinstance(module, (Conv, nn.Linear)):
         return {"weight": "kernel", "bias": "bias"}
     if isinstance(module, nn.Embedding):
@@ -374,7 +418,9 @@ def jax_param_layout(model: nn.Module) -> Dict[
     The JAX shape is the permuted one, but for an attention block's fused
     ``qkv`` (a flax ``DenseGeneral((3, heads, D))``: kernel ``[hidden, 3,
     heads, D]``, bias ``[3, heads, D]``), whose flat order is the
-    transposed weight's. Sorting by path gives the JAX flatten order.
+    transposed weight's (under a Megatron split, this rank's heads:
+    ``[hidden, 3, heads / T, D]``). Sorting by path gives the JAX flatten
+    order.
     Raises ``ValueError`` as :func:`jax_paths` for a tensor with no JAX
     leaf."""
     from stoke_tpu_torch.models.bert import MultiHeadAttention
@@ -397,8 +443,9 @@ def jax_param_layout(model: nn.Module) -> Dict[
             shape = tuple(p.shape[d] for d in perm) if perm else tuple(
                 p.shape)
             if heads is not None:
-                hidden = shape[0] if tname == "weight" else shape[0] // 3
-                tail = (3, heads, hidden // heads)
+                d = parent.hidden // heads
+                cols = shape[1] if tname == "weight" else shape[0]
+                tail = (3, cols // (3 * d), d)
                 shape = (shape[0], *tail) if tname == "weight" else tail
             out[full] = (paths[full][1:], perm, shape)
     return out

@@ -15,6 +15,16 @@ rematerialized forward of an ``ActivationCheckpointingConfig``
 ``dispatch_count`` and its ``stoke/accum``, ``stoke/dispatch`` and
 ``stoke/step`` spans.
 
+Model-internal auxiliary losses (an MoE block's load-balancing term,
+:mod:`stoke_tpu_torch.models.moe`) join the objective as
+``aux_loss_weight * sum(aux)`` on every step path, folded into the first
+loss (``stoke_tpu/engine.py:1028-1040``); the reported losses stay
+unweighted. Under a Megatron or expert split (``tp``, a
+:class:`~stoke_tpu_torch.parallel.tensor.TensorParallel`) the norms of the
+clip, the sentinels and the numerics are the global parameters': a split
+leaf's squares (or largest magnitude) taken over the model group, a whole
+leaf once, and a non-finite flag ANDed over both groups.
+
 The JAX engine traces forward and grad into one program; here autograd
 records the eager forward, ``backward`` runs into the parameters' fp32
 ``.grad`` (the accumulation buffer), and ``apply`` unscales, checks,
@@ -229,7 +239,8 @@ def _norm(grads: Sequence[torch.Tensor], p: float,
 def clip_gradients(grads: Sequence[torch.Tensor], grad_clip,
                    sharded: Sequence[torch.Tensor] = (),
                    ladder=None,
-                   leaf: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   leaf: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   whole: Optional[Callable] = None
                    ) -> Optional[torch.Tensor]:
     """Clip ``grads`` and ``sharded`` in place, on the accumulated,
     unscaled gradients. Returns the global norm of ``ClipGradNormConfig``
@@ -245,7 +256,9 @@ def clip_gradients(grads: Sequence[torch.Tensor], grad_clip,
     are the replicated leaves' (the same on every rank, counted once) and
     ``sharded`` each rank's slices, whose powers (or maxima) are summed
     (or maxed) over the ranks. Without slices (plain dp) the norm is
-    local: every rank holds the same reduced gradients."""
+    local: every rank holds the same reduced gradients. ``whole(norms,
+    p)`` (a model split's) turns the ``p``-norms of ``grads`` into the
+    whole leaves' where the caller did not take them already."""
     everything = list(grads) + list(sharded)
     if grad_clip is None or not everything:
         return None
@@ -258,15 +271,18 @@ def clip_gradients(grads: Sequence[torch.Tensor], grad_clip,
         p = grad_clip.norm_type
         if leaf is None or p != 2:
             leaf = (None, None)
+        rep_leaf = leaf[0]
+        if rep_leaf is None and grads and whole is not None:
+            rep_leaf = whole(leaf_norms(grads, p), p)
         # the ladder's layout is the same on every rank, so all skip the
         # reduction together
         if ladder is None or not ladder.buckets:
-            both = (None if leaf[0] is None
-                    else torch.cat([leaf[0], leaf[1]]))
+            both = (rep_leaf if rep_leaf is None or leaf[1] is None
+                    else torch.cat([rep_leaf, leaf[1]]))
             norm = _norm(everything, p, leaf=both)
         else:
             dev = everything[0].device
-            rep = _norm(grads, p, dev, leaf[0])
+            rep = _norm(grads, p, dev, rep_leaf)
             part = _norm(sharded, p, dev, leaf[1])
             if p == float("inf"):
                 norm = torch.maximum(rep, ladder.reduce_(part, "max"))
@@ -406,6 +422,11 @@ class StepEngine:
             recomputed in backward under its policy.
         numerics: compute the numerics' group statistics at every apply
             (``NumericsConfig(grad_stats=True)``), :attr:`numerics_row`.
+        aux_loss_weight: the weight of the model's auxiliary losses in
+            the objective (0: left out).
+        tp: the model's Megatron or expert split
+            (:class:`~stoke_tpu_torch.parallel.tensor.TensorParallel`), or
+            None.
     """
 
     def __init__(self, module: nn.Module, loss_fn: Callable,
@@ -414,8 +435,15 @@ class StepEngine:
                  precision_config: Optional[PrecisionConfig] = None,
                  generator: Optional[torch.Generator] = None,
                  ladder=None, transport=None, sentinels: bool = False,
-                 remat=None, numerics: bool = False):
+                 remat=None, numerics: bool = False,
+                 aux_loss_weight: float = 0.0, tp=None):
+        from stoke_tpu_torch.models.moe import MoEFFN
+
         self.module = module
+        self.aux_loss_weight = float(aux_loss_weight)
+        #: the MoE FFNs whose ``aux_loss`` joins the objective
+        self.aux_modules = [m for m in module.modules()
+                            if isinstance(m, MoEFFN)]
         #: the ``ActivationCheckpointingConfig`` (None: no recompute)
         self.remat = remat
         self.loss_fn = loss_fn
@@ -434,6 +462,10 @@ class StepEngine:
         ]
         self.device = (self.params[0].device if self.params
                        else torch.device("cpu"))
+        self.tp = tp
+        #: the positions in ``params`` of the leaves the split cut
+        self._cut = (frozenset(tp.sliced_indices(module, self.params))
+                     if tp is not None else frozenset())
         self.per_loss = (precision.scaled
                          and self.precision_config.num_losses > 1)
         # built for every precision, as the JAX facade builds it; only
@@ -618,6 +650,15 @@ class StepEngine:
                      for w, l in zip(weights, leaves)]
         else:
             comps = [l.float().sum() for l in leaves]
+        aux = self.aux_total()
+        if self.aux_loss_weight and aux is not None:
+            comps[0] = comps[0] + self.aux_loss_weight * aux
+        for m in self.aux_modules:
+            # the objective holds the graph now; a module attribute that
+            # kept it past the backward would keep its gradient nodes,
+            # whose stream a later captured window would not match
+            if m.aux_loss is not None:
+                m.aux_loss = m.aux_loss.detach()
         if self.per_loss:
             n = self.precision_config.num_losses
             if len(comps) != n:
@@ -633,6 +674,44 @@ class StepEngine:
         if self.ladder is not None:
             report = self.ladder.average(report)
         return objective, report
+
+    def aux_total(self) -> Optional[torch.Tensor]:
+        """The sum of the last forward's auxiliary losses (fp32), or None
+        for a model without any."""
+        terms = [m.aux_loss.float() for m in self.aux_modules
+                 if m.aux_loss is not None]
+        return sum(terms) if terms else None
+
+    def _whole_norms(self, norms: torch.Tensor, idx: Sequence[int],
+                     p: float = 2.0) -> torch.Tensor:
+        """``norms`` (the ``p``-norm of each of the leaves ``idx``, this
+        rank's) with each leaf the model split cut taken whole: its
+        slices' ``p``-th powers summed (maxima maxed) over the model
+        group. At a group of one the values do not move (``sqrt(x * x)``
+        is ``x`` in binary floating point)."""
+        at = [j for j, i in enumerate(idx) if i in self._cut]
+        if not at:
+            return norms
+        pos = self._device_vector(at, torch.long)
+        part = norms.index_select(0, pos)
+        if p == float("inf"):
+            part = self.tp.reduce_(part, "max")
+        elif p == 2:
+            part = self.tp.reduce_(part * part).sqrt()
+        else:
+            part = self.tp.reduce_(part ** p) ** (1.0 / p)
+        return norms.index_copy(0, pos, part)
+
+    def _whole_sums(self, values: torch.Tensor, idx: Sequence[int],
+                    op: str = "sum") -> torch.Tensor:
+        """``values`` (one a leaf of ``idx``) with each cut leaf's summed
+        (or maxed) over the model group."""
+        at = [j for j, i in enumerate(idx) if i in self._cut]
+        if not at:
+            return values
+        pos = self._device_vector(at, torch.long)
+        part = self.tp.reduce_(values.index_select(0, pos), op)
+        return values.index_copy(0, pos, part)
 
     def backward(self, objective: torch.Tensor) -> None:
         """The 4-call path's micro-step (one dispatch, a ``stoke/accum``
@@ -759,17 +838,26 @@ class StepEngine:
                 if ladder is not None:
                     self.scaler["finite"].copy_(
                         ladder.all_true(self.scaler["finite"]))
+                if self._cut:
+                    self.scaler["finite"].copy_(
+                        self.tp.all_true(self.scaler["finite"]))
                 finite = finite & self.scaler["finite"].all()
             if ladder is not None:
                 finite = ladder.all_true(finite)
+            if self._cut:
+                finite = self.tp.all_true(finite)
         probe = None
         if self.sentinels or self.numerics or probe_grad_norm:
             probe = _GradProbe(grads, sharded, grad_idx, shard_idx,
                                self.device, flags=self.sentinels,
                                numerics=self.numerics)
+            if self._cut:
+                self._whole_probe(probe)
         clip_norm = clip_gradients(
             grads, self.grad_clip, sharded, ladder,
-            None if probe is None else (probe.rep_norms, probe.part_norms))
+            None if probe is None else (probe.rep_norms, probe.part_norms),
+            (lambda v, p: self._whole_norms(v, grad_idx, p))
+            if self._cut else None)
         if self.disk_store is not None and self.disk_store.spilled:
             self._unspill()
         old = None
@@ -790,6 +878,10 @@ class StepEngine:
         row = groups = None
         if self._keeps_old:
             sq = self._step_squares(old)
+            if self._cut:
+                every = range(len(self.params))
+                sq = (self._whole_sums(sq[0], every),
+                      self._whole_sums(sq[1], every))
             if self.sentinels:
                 row = self._sentinel_row(probe, clip_norm, sq, finite, loss)
             if self.numerics:
@@ -804,6 +896,23 @@ class StepEngine:
             if self.per_loss:
                 self.scaler["finite"].fill_(True)
         return finite, row, groups
+
+    def _whole_probe(self, probe: "_GradProbe") -> None:
+        """The probe of the leaves stepped whole over the data axis, the
+        leaves the model split cut taken whole: their norms, flags and
+        numerics summed (or maxed) over the model group."""
+        idx = probe.grad_idx
+        if not idx:
+            return
+        probe.rep_norms = self._whole_norms(probe.rep_norms, idx)
+        if probe.rep_flags.numel():
+            probe.rep_flags = (self._whole_sums(probe.rep_flags, idx)
+                               > 0).float()
+        if self.numerics:
+            probe.rep_absmax = self._whole_sums(probe.rep_absmax, idx, "max")
+            probe.rep_finite = self._whole_sums(probe.rep_finite, idx)
+            probe.rep_numel = [n * self.tp.size if i in self._cut else n
+                               for i, n in zip(idx, probe.rep_numel)]
 
     def _step_squares(self, old: Dict[Any, torch.Tensor]
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

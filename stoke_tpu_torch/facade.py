@@ -69,6 +69,21 @@ its dropout masks from its own seed (``seed + rank``): the JAX package
 draws one mask over the global batch, so the masks cannot match its bit
 for bit. The losses ``loss()`` reports are the global batch's.
 
+Tensor and expert parallelism: a ``("data", X)`` mesh with a
+``PartitionRulesConfig`` whose rules name X (the Megatron rules of
+``bert_tensor_parallel_rules``, or ``moe_expert_parallel_rules``) cuts
+the whole model, after the broadcast, into this process's slices
+(:func:`~stoke_tpu_torch.parallel.tensor.apply_partition_rules`); the
+ladder then runs over the data sub-group, each rank's generator is seeded
+by its data coordinate (``seed + data rank``: a model group draws the same
+masks), ``DataLoader`` shards a ``BucketedDistributedSampler`` built with
+the world's defaults by the data coordinate, the parameter counts and
+``dump_model_parameter_info`` report the whole model, and a consolidated
+save gathers the slices into the whole arrays (the tag a dp run of the
+same parameters writes), which ``load`` cuts again. A model's auxiliary
+losses (MoE) join the objective as ``aux_loss_weight * sum(aux)``;
+``aux_losses`` holds the last forward's, and no checkpoint does.
+
 ``TelemetryConfig`` writes ``steps.jsonl`` (the JAX step-event schema),
 ``metrics.prom`` and a TensorBoard stream under its ``output_dir`` at its
 cadence; ``TraceConfig`` keeps a ring of host spans (``stoke/<phase>`` on
@@ -125,7 +140,9 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import math
 import os
+import re
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
@@ -152,6 +169,7 @@ from stoke_tpu_torch.configs import (
 from stoke_tpu_torch.data import StokeDataLoader, place
 from stoke_tpu_torch.engine import PrecisionPolicy, StepEngine, build_optimizer
 from stoke_tpu_torch.models.bert import Dropout, LayerDrop
+from stoke_tpu_torch.models.moe import MoEFFN
 from stoke_tpu_torch.models.resnet import BatchNorm
 from stoke_tpu_torch.ops.attention import (
     SeqShard,
@@ -162,11 +180,18 @@ from stoke_tpu_torch.ops.attention import (
 from stoke_tpu_torch.parallel.ladder import Ladder
 from stoke_tpu_torch.parallel.mesh import (
     build_mesh,
+    data_coordinates,
     initialize_distributed,
     local_rank,
     one_process_group,
 )
 from stoke_tpu_torch.parallel.sharding import make_sharding_rules
+from stoke_tpu_torch.parallel.tensor import (
+    ModelGroup,
+    TensorParallel,
+    apply_partition_rules,
+    shard_module,
+)
 from stoke_tpu_torch.serving.engine import resolve_device
 from stoke_tpu_torch.parallel.zero import make_transport, remap_residual
 from stoke_tpu_torch.resilience import (
@@ -175,7 +200,11 @@ from stoke_tpu_torch.resilience import (
     list_checkpoints,
     read_manifest,
 )
-from stoke_tpu_torch.status import StokeStatus, StokeValidationError
+from stoke_tpu_torch.status import (
+    StokeStatus,
+    StokeValidationError,
+    refuse_under_second_axis,
+)
 from stoke_tpu_torch.telemetry import Telemetry
 from stoke_tpu_torch.telemetry.fleet import timed_sync
 from stoke_tpu_torch.telemetry.health import (
@@ -347,10 +376,15 @@ class Stoke:
             forward gets in train / eval mode (only when given).
         loss_weights: weights shaped like the loss result; the objective
             is ``sum(w_i * loss_i)``, the reported losses stay unweighted.
+        aux_loss_weight: the weight of the model's auxiliary losses (an
+            MoE block's load-balancing term) in the objective,
+            ``aux_loss_weight * sum(aux)`` (0 leaves them out; default
+            0.01, the Switch Transformer's); ``aux_losses`` holds them.
         seed: seeds the ``torch.Generator`` that draws the model's
             dropout masks (each :class:`~stoke_tpu_torch.models.bert
-            .Dropout` of the model uses it); rank ``r`` of a
-            data-parallel run seeds it with ``seed + r``.
+            .Dropout` of the model uses it, and an MoE router's noise);
+            rank ``r`` of a data-parallel run seeds it with ``seed + r``,
+            ``r`` the data coordinate under a model or expert axis.
         ema_weight: weight of the newest micro loss in ``ema_loss``.
         verbose: kept for the JAX signature; the port prints nothing.
         model_rng_keys: the JAX package's random stream names (e.g.
@@ -379,6 +413,7 @@ class Stoke:
         model_train_kwargs: Optional[dict] = None,
         model_eval_kwargs: Optional[dict] = None,
         loss_weights: Optional[Any] = None,
+        aux_loss_weight: float = 0.01,
         seed: int = 0,
         ema_weight: float = 0.1,
         verbose: bool = True,
@@ -405,10 +440,21 @@ class Stoke:
         #: and the sequence-parallel attention read it inside this Stoke's
         #: calls; None otherwise)
         self._seq_shard: Optional[SeqShard] = None
+        #: the data sub-group under a model or expert axis (the ladder's
+        #: group; None: the run's group is the data axis)
+        self._data_group = None
+        #: the model's Megatron or expert split (None without rules)
+        self._tp: Optional[TensorParallel] = None
         if st.is_distributed:
             self._join_process_group(model)
         world = (dist.get_world_size(self._group) if self._group is not None
                  else 1)
+        data_group = (self._data_group if self._data_group is not None
+                      else self._group)
+        data_world = (dist.get_world_size(data_group)
+                      if data_group is not None else 1)
+        data_rank = (dist.get_rank(data_group)
+                     if data_group is not None else 0)
         st.set_post_init_values(world_size=world, n_processes=world)
         if not isinstance(model, nn.Module):
             raise TypeError(
@@ -424,10 +470,12 @@ class Stoke:
         if params is not None:
             self._module.load_state_dict(params)
         self._generator = torch.Generator(device=self._device)
-        self._generator.manual_seed(seed + self.rank)
+        self._generator.manual_seed(seed + data_rank)
         for m in self._module.modules():
-            if isinstance(m, (Dropout, LayerDrop)):
+            if isinstance(m, (Dropout, LayerDrop, MoEFFN)):
                 m.generator = self._generator
+            if isinstance(m, MoEFFN):
+                m.data_group = data_group
             if isinstance(m, BatchNorm):
                 m.sync_group = self._group
         if isinstance(model_rng_keys, str) or not all(
@@ -443,17 +491,24 @@ class Stoke:
         self._eval_kwargs = dict(model_eval_kwargs or {})
         self._ladder: Optional[Ladder] = None
         opt_params = self._module.parameters()
+        prc = st.partition_rules_config
         self._rules = make_sharding_rules(
-            st.sharding_tier, world, st.oss_config, st.sddp_config,
-            st.fsdp_config)
+            st.sharding_tier, data_world, st.oss_config, st.sddp_config,
+            st.fsdp_config, prc.rules if prc is not None else None)
         if self._group is not None:
             if world > 1:
                 with torch.no_grad():
                     for t in self._module.state_dict().values():
                         dist.broadcast(t, 0, group=self._group)
+            if self._rules.overrides:
+                self._tp = self._split_model(prc.rules)
+            params = [p for p in self._module.parameters() if p.requires_grad]
+            placed = ({id(p) for n, p in self._module.named_parameters()
+                       if n in self._tp.placed} if self._tp else set())
             self._ladder = Ladder(
-                [p for p in self._module.parameters() if p.requires_grad],
-                self._rules, self._group)
+                params, self._rules, data_group,
+                keep_whole=[i for i, p in enumerate(params)
+                            if id(p) in placed])
             opt_params = self._ladder.opt_params
         self._engine = StepEngine(
             self._module, loss, build_optimizer(optimizer, opt_params),
@@ -462,12 +517,13 @@ class Stoke:
             precision_config=st.precision_config, generator=self._generator,
             ladder=self._ladder,
             transport=make_transport(st.comm_config, st.sharding_tier,
-                                     self._group),
+                                     data_group),
             sentinels=(st.health_config is not None
                        and st.health_config.sentinels),
             remat=st.activation_checkpointing_config,
             numerics=(st.numerics_config is not None
                       and st.numerics_config.grad_stats),
+            aux_loss_weight=aux_loss_weight, tp=self._tp,
         )
         self._skipped_steps = torch.zeros((), dtype=torch.float32,
                                           device=self._device)
@@ -805,10 +861,20 @@ class Stoke:
         if not joined and not dist.is_initialized():
             one_process_group(self._device)
         dpc = st.dp_config
-        self._mesh = build_mesh(st.mesh_config, self._device,
-                                seq_axes=(dpc.axis_name, dpc.seq_axis_name))
+        self._mesh = build_mesh(st.mesh_config, self._device, dpc.axis_name)
+        names = tuple(self._mesh.mesh_dim_names)
+        second = next((a for a in names if a != dpc.axis_name), None)
         if self._mesh.ndim == 1:
             self._group = self._mesh.get_group()
+        elif second != dpc.seq_axis_name:
+            # a model or expert axis: the ladder reduces over the data
+            # sub-group, io and the broadcast span the world
+            self._group = dist.group.WORLD
+            self._data_group = data_coordinates(self._mesh,
+                                                dpc.axis_name)[0]
+            refuse_under_second_axis(
+                st._second_axis_options(), second,
+                self._mesh.size(names.index(second)))
         else:
             # dp reduces the gradients over the whole world; the seq
             # sub-group carries the ring and Ulysses collectives
@@ -836,6 +902,18 @@ class Stoke:
                     seq, dist.get_rank(seq), n_seq,
                     model_seq_layout(model) if isinstance(model, nn.Module)
                     else "contiguous")
+
+    def _split_model(self, rules) -> TensorParallel:
+        """Cut the (broadcast) whole model by the partition rules over the
+        mesh's model or expert axis; under a sequence axis no rule may name
+        an axis (ROADMAP item 8e)."""
+        dpc = self._status_obj.dp_config
+        names = tuple(self._mesh.mesh_dim_names)
+        if dpc.seq_axis_name in names and self._mesh.ndim == 2:
+            return shard_module(self._module, rules,
+                                ModelGroup(None, 1, 0, None))
+        return apply_partition_rules(self._module, rules, self._mesh,
+                                     dpc.axis_name)
 
     def _whole_params(self):
         """The module's parameters whole inside the block (under fsdp
@@ -1281,11 +1359,13 @@ class Stoke:
             "generator": self._generator.get_state().numpy(),
             "generator_device": self._device.type,
         }
+        if self._tp is not None and self._tp.cuts:
+            state = self._whole_state(state)
         rank_state = layout = None
         if self._ladder is not None:
             state, rank_state, layout = self._split_by_rank(
                 state, config.format is CheckpointFormat.sharded)
-            if self.world_size > 1:
+            if self._ladder.world > 1:
                 # each rank draws its dropout masks from its own generator
                 port_state["generators"] = [
                     g.cpu().numpy() for g in self._ladder.gather_whole(
@@ -1316,6 +1396,22 @@ class Stoke:
                 staging_pool=self._staging_pool,
             )
 
+    def _whole_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """``state`` with every slice of the model split gathered over the
+        model group into its whole tensor (parameters, their optimizer
+        state, accumulated gradients): the arrays a run without the split
+        saves. Every rank runs the same gathers in the same order."""
+        tp = self._tp
+        out = dict(state)
+        out["variables"] = {n: tp.gather(n, t)
+                            for n, t in state["variables"].items()}
+        out["opt_state"] = {k: tp.gather(k.rpartition("/")[0], v)
+                            for k, v in state["opt_state"].items()}
+        if state["grad_buf"] is not None:
+            out["grad_buf"] = {n: tp.gather(n, g)
+                               for n, g in state["grad_buf"].items()}
+        return out
+
     def _leaf_index(self) -> Dict[str, int]:
         """The ladder's index of each trainable parameter, by name."""
         names = {p: n for n, p in self._module.named_parameters()}
@@ -1331,7 +1427,7 @@ class Stoke:
         format leaves each rank its slices (and, under fsdp, its slices of
         the parameters), described in the layout. Every rank runs the
         same collectives in the same order, on this thread."""
-        ladder, world = self._ladder, self.world_size
+        ladder, world = self._ladder, self._ladder.world
         index = self._leaf_index()
         freed = {i for b in ladder.buckets if b.frees for i in b.index}
         out = {k: {} for k in ("variables", "opt_state", "scaler_state",
@@ -1351,7 +1447,7 @@ class Stoke:
             i = index.get(n)
             if sharded and world > 1 and i in freed:
                 d = ladder.sliced_dim(i)
-                part = t.unflatten(d, (world, -1)).movedim(d, 0)[self.rank]
+                part = t.unflatten(d, (world, -1)).movedim(d, 0)[ladder.rank]
                 keep_slice("variables", n, part, t.shape, d)
             else:
                 out["variables"][n] = t
@@ -1380,7 +1476,8 @@ class Stoke:
                 local.append(n)
             else:
                 mean = g.clone()
-                dist.all_reduce(mean, op=dist.ReduceOp.AVG, group=self._group)
+                dist.all_reduce(mean, op=dist.ReduceOp.AVG,
+                                group=ladder.group)
                 out["grad_buf"][n] = mean
                 for r, part in enumerate(ladder.gather_whole(g)):
                     out["grad_local"][f"{n}@{r}"] = part
@@ -1411,22 +1508,26 @@ class Stoke:
             if state and skey not in state:
                 return None
             live = state.get(skey)
+            # a split parameter's state is saved whole
+            whole = (p.shape if self._tp is None
+                     else self._tp.full_shape(pname, p.shape))
             if torch.is_tensor(live):
-                shape = (p.shape if live.dim() and live.shape == o.shape
+                shape = (whole if live.dim() and live.shape == o.shape
                          else live.shape)
                 return tuple(shape), io_ops.numpy_dtype(live.dtype)
             if skey == "step":
                 return (), np.dtype(np.float32)
-            return io_ops.spec_of(p)
+            return tuple(whole), io_ops.spec_of(p)[1]
         return spec
 
     def _my_part(self, a: np.ndarray, dim: Optional[int]) -> np.ndarray:
         """This rank's slice of a whole leaf's array along ``dim`` (the
         ladder's rank-major split), or the array itself."""
-        if dim is None or self.world_size == 1:
+        ladder = self._ladder
+        if dim is None or ladder is None or ladder.world == 1:
             return a
         return np.ascontiguousarray(
-            np.split(a, self.world_size, axis=dim)[self.rank])
+            np.split(a, ladder.world, axis=dim)[ladder.rank])
 
     @_timed("load")
     def load(self, path: str, tag: Optional[str] = None,
@@ -1458,9 +1559,16 @@ class Stoke:
         ladder = self._ladder
         index = self._leaf_index() if ladder is not None else {}
 
+        tp = self._tp
+
         def like(tensors):
-            return lambda n: (io_ops.spec_of(tensors[n]) if n in tensors
-                              else None)
+            if tp is None:
+                return lambda n: (io_ops.spec_of(tensors[n])
+                                  if n in tensors else None)
+            # a split model's arrays are saved whole
+            return lambda n: ((tp.full_shape(n, tensors[n].shape),
+                               io_ops.numpy_dtype(tensors[n].dtype))
+                              if n in tensors else None)
 
         with trace_span("stoke/io", track="io"):
             payload = io_ops.load_checkpoint(
@@ -1473,20 +1581,22 @@ class Stoke:
         port = payload["port"]
         self._check_param_groups(port.get("param_groups"))
         opt = {}
+        cut = tp.take if tp is not None else (lambda n, a: a)
         for key, a in payload["opt_state"].items():
             pname = key.rpartition("/")[0]
             sliced = (ladder.sliced_dim(index[pname])
                       if pname in index and a.ndim else None)
-            opt[key] = self._my_part(a, sliced)
+            opt[key] = self._my_part(cut(pname, a), sliced)
         with torch.no_grad():
             for n, a in payload["variables"].items():
-                sd[n].copy_(io_ops.from_numpy(a, sd[n].dtype))
+                sd[n].copy_(io_ops.from_numpy(cut(n, a), sd[n].dtype))
             for n, a in payload["scaler_state"].items():
                 scaler[n].copy_(io_ops.from_numpy(a, scaler[n].dtype))
             self._restore_optimizer(opt, port, held)
             grads = payload["grad_buf"]
             own = (payload["grad_local"]
                    if payload["world"] == self.world_size else None) or {}
+            data_rank = ladder.rank if ladder is not None else 0
             if ladder is not None:
                 ladder.drop_grads()
             for n, p in params.items():
@@ -1500,16 +1610,19 @@ class Stoke:
                         self._my_part(grads[n], dim), p.dtype))
                     p.grad = None
                     continue
-                a = own[n][self.rank] if n in own else grads[n]
-                g = io_ops.from_numpy(a, p.dtype).to(p.device)
+                a = own[n][data_rank] if n in own else grads[n]
+                g = io_ops.from_numpy(cut(n, a), p.dtype).to(p.device)
                 if p.grad is not None and p.grad.shape == p.shape:
                     p.grad.copy_(g)
                 else:
                     p.grad = g
         if port.get("generator_device") == self._device.type:
             gens = port.get("generators")
-            if gens is not None and len(gens) == self.world_size:
-                self._generator.set_state(torch.from_numpy(gens[self.rank]))
+            if (gens is not None and ladder is not None
+                    and len(gens) == ladder.world
+                    and payload["world"] == self.world_size):
+                self._generator.set_state(
+                    torch.from_numpy(gens[ladder.rank]))
             elif self.world_size == 1:
                 self._generator.set_state(torch.from_numpy(port["generator"]))
         counters = payload["counters"]
@@ -2301,7 +2414,9 @@ class Stoke:
                   for m in self._module.modules()
                   if isinstance(m, Dropout) and m.generator is not None}
         with self._whole_params():
-            model = copy.deepcopy(self._module, memo=shared)
+            model = (copy.deepcopy(self._module, memo=shared)
+                     if self._tp is None
+                     else self._tp.whole_copy(self._module, memo=shared))
         engine = ServingEngine(
             model, model.state_dict(), scfg, device=self._device,
             # the run's peaks, which the serve roofline divides by
@@ -2789,7 +2904,11 @@ class Stoke:
         """The model's parameter count (parameters, not buffers: a
         BatchNorm's running statistics do not count), divided by
         ``normalize``'s value when given."""
-        n = tree_count_params(list(self._module.parameters()))
+        if self._tp is None:
+            n = tree_count_params(list(self._module.parameters()))
+        else:
+            n = sum(math.prod(self._tp.full_shape(name, p.shape))
+                    for name, p in self._module.named_parameters())
         return n / normalize.value if normalize is not None else n
 
     def print_num_model_parameters(
@@ -2801,8 +2920,10 @@ class Stoke:
     def dump_model_parameter_info(self) -> None:
         """Print each parameter's name, shape and dtype."""
         for name, p in self._module.named_parameters():
+            shape = (tuple(p.shape) if self._tp is None
+                     else self._tp.full_shape(name, p.shape))
             self.print_on_devices(
-                f"param {name}: shape={tuple(p.shape)} dtype={p.dtype}")
+                f"param {name}: shape={shape} dtype={p.dtype}")
 
     # ------------------------------------------------------------------ #
     # data
@@ -2826,6 +2947,9 @@ class Stoke:
                 "(see BucketedDistributedSampler / DistributedSampler) — "
                 "reference stoke.py:822-826"
             )
+        if (self._data_group is not None
+                and kwargs.get("sampler") is not None):
+            kwargs["sampler"] = self._data_sampler(dataset, kwargs["sampler"])
         fcfg = self._status_obj.fleet_config
         if ("rebalancer" not in kwargs and fcfg is not None
                 and fcfg.rebalance and self._fleet is not None
@@ -2846,6 +2970,33 @@ class Stoke:
             dataset, batch_size=self.batch_size, device=self._device,
             telemetry=self._telemetry if self._telemetry.enabled else None,
             **kwargs)
+
+    def _data_sampler(self, dataset, sampler):
+        """Under a model or expert axis, the rows go by the data
+        coordinate (a model group reads the same rows): a
+        ``BucketedDistributedSampler`` built with the world's defaults is
+        built again over the data sub-group; one over other replicas is
+        refused."""
+        from stoke_tpu_torch.data import BucketedDistributedSampler
+
+        group = self._data_group
+        want = (dist.get_world_size(group), dist.get_rank(group))
+        got = (getattr(sampler, "num_replicas", None),
+               getattr(sampler, "rank", None))
+        if got == want:
+            return sampler
+        if (isinstance(sampler, BucketedDistributedSampler)
+                and got == (self.world_size, self.rank)):
+            return BucketedDistributedSampler(
+                dataset, sampler.buckets, sampler.batch_size,
+                sampler.sorted_idx, sampler.allow_bucket_overlap,
+                num_replicas=want[0], rank=want[1], shuffle=sampler.shuffle,
+                seed=sampler.seed, drop_last=sampler.drop_last,
+                info_rank=-1)
+        raise ValueError(
+            f"Stoke -- under a model or expert mesh axis the rows are "
+            f"sharded over the data axis: build the sampler with "
+            f"num_replicas={want[0]}, rank={want[1]} (got {got})")
 
     # ------------------------------------------------------------------ #
     # counters, flags and access
@@ -3005,8 +3156,40 @@ class Stoke:
     @property
     def sharding_rules(self):
         """The tier's :class:`~stoke_tpu_torch.parallel.sharding
-        .ShardingRules` over the run's world."""
+        .ShardingRules` over the run's data axis; ``overrides`` holds the
+        compiled partition rules."""
         return self._rules
+
+    @property
+    def tensor_parallel(self) -> Optional[TensorParallel]:
+        """The model's Megatron or expert split
+        (:class:`~stoke_tpu_torch.parallel.tensor.TensorParallel`), or
+        None without partition rules."""
+        return self._tp
+
+    @property
+    def aux_losses(self) -> Optional[Dict[str, Any]]:
+        """The last forward's auxiliary losses (each MoE FFN's
+        load-balancing term, fp32 scalars on the device, 0 before its
+        first forward), nested by the JAX package's path as its ``"losses"``
+        collection (``{"layer_1": {"moe": {"aux_loss": ...}}}``); None for
+        a model without any. They join the objective weighted by
+        ``aux_loss_weight``, not ``loss()``'s report, and no checkpoint
+        holds them."""
+        out: Dict[str, Any] = {}
+        for name, m in self._module.named_modules():
+            if not isinstance(m, MoEFFN):
+                continue
+            node = out
+            for key in re.sub(r"(^|\.)layers\.(\d+)", r"\1layer_\2",
+                              name).split("."):
+                if key:
+                    node = node.setdefault(key, {})
+            node["aux_loss"] = (
+                m.aux_loss.detach() if m.aux_loss is not None
+                else torch.zeros((), dtype=torch.float32,
+                                 device=self._device))
+        return out or None
 
     @property
     def sharded(self) -> bool:

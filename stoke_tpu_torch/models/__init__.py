@@ -8,9 +8,15 @@ from stoke_tpu_torch.models.bert import (
     BertForSequenceClassification,
     BertSize,
     BertTiny,
+    bert_tensor_parallel_rules,
     dense_attention,
 )
 from stoke_tpu_torch.models.gpt import GPT, causal_lm_loss
+from stoke_tpu_torch.models.moe import (
+    MoEFFN,
+    MoETransformerBlock,
+    moe_expert_parallel_rules,
+)
 from stoke_tpu_torch.models.resnet import (
     BatchNorm,
     ResNet,
@@ -22,6 +28,12 @@ from stoke_tpu_torch.models.resnet import (
 )
 from stoke_tpu_torch.models.vit import ViT, ViTBase, ViTTiny
 
+# BERT, GPT and ViT share TransformerBlock's parameter paths
+# (attention/{qkv,out}, ff_{in,out}), so the Megatron rules apply to each
+# (the JAX package's aliases)
+gpt_tensor_parallel_rules = bert_tensor_parallel_rules
+vit_tensor_parallel_rules = bert_tensor_parallel_rules
+
 __all__ = [
     "BasicNN",
     "BatchNorm",
@@ -31,9 +43,15 @@ __all__ = [
     "BertForSequenceClassification",
     "BertSize",
     "BertTiny",
+    "bert_tensor_parallel_rules",
+    "gpt_tensor_parallel_rules",
+    "vit_tensor_parallel_rules",
     "dense_attention",
     "GPT",
     "causal_lm_loss",
+    "MoEFFN",
+    "MoETransformerBlock",
+    "moe_expert_parallel_rules",
     "ResNet",
     "ResNet18",
     "ResNet34",

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stoke_tpu_torch import remat as _remat
+from stoke_tpu_torch.parallel.tensor import copy_to_group, reduce_from_group
 
 
 @dataclass(frozen=True)
@@ -101,8 +102,16 @@ def dense_attention(q, k, v, bias, dropout=None):
 class MultiHeadAttention(nn.Module):
     """``qkv`` projects to ``[B, L, 3, H, D]`` (flax ``DenseGeneral((3, H,
     D))``); ``out`` maps the heads, re-flattened in ``[B, L, H*D]`` order,
-    back to ``hidden``. The probabilities drop out at ``dropout_rate``
-    while training."""
+    back to ``hidden``, its bias added after the product. The
+    probabilities drop out at ``dropout_rate`` while training.
+
+    Under a Megatron split (:func:`~stoke_tpu_torch.parallel.tensor
+    .apply_partition_rules`) ``group`` is the model group: ``qkv`` holds
+    this rank's ``heads / T`` heads (column-parallel, its input through
+    :func:`~stoke_tpu_torch.parallel.tensor.copy_to_group`), ``out`` the
+    matching input columns (row-parallel: its partial product summed by
+    :func:`~stoke_tpu_torch.parallel.tensor.reduce_from_group`, then the
+    whole bias added once)."""
 
     def __init__(self, hidden: int, heads: int, dropout_rate: float = 0.1,
                  attention_fn: Callable = dense_attention, device=None):
@@ -113,26 +122,52 @@ class MultiHeadAttention(nn.Module):
         self.qkv = nn.Linear(hidden, 3 * hidden, device=device)
         self.out = nn.Linear(hidden, hidden, device=device)
         self.prob_dropout = Dropout(dropout_rate)
+        #: the model group of a Megatron split (None: unsplit)
+        self.group = None
+        self.local_heads = heads
 
-    def forward(self, x, bias, attention_fn: Optional[Callable] = None):
+    def sync_widths(self) -> None:
+        """This rank's head count, from the parameters (after a split, or
+        after they are made whole again)."""
+        self.local_heads = (self.qkv.weight.shape[0] * self.heads
+                            // (3 * self.hidden))
+        self.qkv.out_features = self.qkv.weight.shape[0]
+        self.out.in_features = self.out.weight.shape[1]
+
+    def partial(self, x, bias, attention_fn: Optional[Callable] = None):
+        """Attention over this rank's heads through its columns of
+        ``out``, without the bias: the row-parallel partial sum (the whole
+        product when unsplit)."""
         B, L, _ = x.shape
         D = self.hidden // self.heads
+        H = self.local_heads
         fn = self.attention_fn if attention_fn is None else attention_fn
+        if self.group is not None:
+            x = copy_to_group(x, self.group)
         # [B, L, 3, H, D] -> [3, B, H, L, D]: q, k, v contiguous, as the
         # attention kernels take them
-        qkv = self.qkv(x).view(B, L, 3, self.heads, D)
+        qkv = self.qkv(x).view(B, L, 3, H, D)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         if self.training and self.prob_dropout.rate > 0.0:
             out = fn(q, k, v, bias, dropout=self.prob_dropout)
         else:
             out = fn(q, k, v, bias)
-        out = out.transpose(1, 2).reshape(B, L, self.hidden)
-        return self.out(out)
+        out = out.transpose(1, 2).reshape(B, L, H * D)
+        return F.linear(out, self.out.weight)
+
+    def forward(self, x, bias, attention_fn: Optional[Callable] = None):
+        y = self.partial(x, bias, attention_fn)
+        if self.group is not None:
+            y = reduce_from_group(y, self.group)
+        return y + self.out.bias
 
 
 class TransformerBlock(nn.Module):
     """Post-LN block: ``x = LN(x + drop(attn(x))); x = LN(x +
-    drop(ffn(x)))``."""
+    drop(ffn(x)))``. Under a Megatron split ``group`` is the model group:
+    ``ff_in`` holds this rank's ``ff / T`` columns (column-parallel),
+    ``ff_out`` the matching rows (row-parallel, summed, its bias added
+    once)."""
 
     def __init__(self, hidden: int, heads: int, ff: int,
                  dropout_rate: float = 0.1,
@@ -146,12 +181,32 @@ class TransformerBlock(nn.Module):
         self.ff_out = nn.Linear(ff, hidden, device=device)
         self.drop_ff = Dropout(dropout_rate)
         self.ln_ff = nn.LayerNorm(hidden, eps=1e-12, device=device)
+        #: the model group of a Megatron split of the FFN (None: unsplit)
+        self.group = None
+
+    def sync_widths(self) -> None:
+        """This rank's ff width, from the parameters."""
+        self.ff_in.out_features = self.ff_in.weight.shape[0]
+        self.ff_out.in_features = self.ff_out.weight.shape[1]
+
+    def ff_partial(self, x):
+        """``gelu(ff_in(x))`` over this rank's ff columns through its rows
+        of ``ff_out``, without the bias (the whole product unsplit)."""
+        if self.group is not None:
+            x = copy_to_group(x, self.group)
+        h = F.gelu(self.ff_in(x), approximate="tanh")
+        return F.linear(h, self.ff_out.weight)
+
+    def ffn(self, x):
+        y = self.ff_partial(x)
+        if self.group is not None:
+            y = reduce_from_group(y, self.group)
+        return y + self.ff_out.bias
 
     def forward(self, x, bias, attention_fn: Optional[Callable] = None):
         y = self.drop_attn(self.attention(x, bias, attention_fn))
         x = self.ln_attn(x + y)
-        y = self.ff_out(F.gelu(self.ff_in(x), approximate="tanh"))
-        return self.ln_ff(x + self.drop_ff(y))
+        return self.ln_ff(x + self.drop_ff(self.ffn(x)))
 
 
 def run_block(block: nn.Module, remat: bool, h, bias,
@@ -346,3 +401,20 @@ class BertForSequenceClassification(nn.Module):
 
 BertBase = partial(BertForSequenceClassification, size_name="base")
 BertTiny = partial(BertForSequenceClassification, size_name="tiny")
+
+
+def bert_tensor_parallel_rules(model_axis: str = "model"):
+    """Megatron-style tensor-parallel partition rules of the BERT family
+    (for ``PartitionRulesConfig``; the JAX package's, letter for letter):
+    column-parallel ``qkv`` (over heads) and ``ff_in`` (over ff),
+    row-parallel ``attention/out`` and ``ff_out`` (over their input). The
+    port runs them by hand (:mod:`stoke_tpu_torch.parallel.tensor`) on a
+    mesh with ``model_axis``, whose size must divide heads and ff."""
+    return (
+        (r"attention/qkv/kernel", (None, None, model_axis, None)),
+        (r"attention/qkv/bias", (None, model_axis, None)),
+        (r"attention/out/kernel", (model_axis, None)),
+        (r"ff_in/kernel", (None, model_axis)),
+        (r"ff_in/bias", (model_axis,)),
+        (r"ff_out/kernel", (model_axis, None)),
+    )

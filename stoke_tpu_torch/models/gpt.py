@@ -29,6 +29,12 @@ zigzag slice), and whole-sequence ``positions`` are cut to the shard;
 mean over the global count, so the loss and each shard's logits are those
 of the whole sequence.
 
+Sparse FFN: ``moe_num_experts > 0`` makes every ``moe_every``-th block a
+:class:`~stoke_tpu_torch.models.moe.MoETransformerBlock` (the JAX
+``moe_*`` options, their validation messages), its router noise drawn
+from the Stoke's generator; ``remat`` covers those blocks too. The paged
+serving path refuses such a model (the JAX package's message).
+
 Serving path: ``kv_cache`` is a per-call paged-cache hook
 (:class:`stoke_tpu_torch.serving.kv_cache.PagedAttentionHook`) that gives
 each layer its attention function (``layer_attention(i)``); ``decode=True``
@@ -52,6 +58,11 @@ from stoke_tpu_torch.models.bert import (
     dense_attention,
     run_block,
 )
+from stoke_tpu_torch.models.moe import MoETransformerBlock
+
+#: the JAX package's refusal of the paged cache for a MoE GPT
+MOE_KV_CACHE = ("GPT: the paged KV-cache serving path supports dense FFN "
+                "blocks only (no MoE routing state in the cache)")
 
 
 class GPT(nn.Module):
@@ -69,6 +80,10 @@ class GPT(nn.Module):
             logits, for :func:`stoke_tpu_torch.ops.chunked_causal_lm_loss`.
         dropout_rate: embedding, residual and attention-probability
             dropout while training.
+        moe_num_experts / moe_every / moe_capacity_factor /
+            moe_router_noise / moe_top_k: the switch MoE in every
+            ``moe_every``-th block (0 experts: dense everywhere), as the
+            JAX package's options.
         device: where the parameters are created.
 
     The full-sequence forward runs ``attention_fn`` (with an in-model
@@ -81,7 +96,10 @@ class GPT(nn.Module):
                  attention_fn: Callable = dense_attention,
                  attention_is_causal: bool = False,
                  tie_embeddings: bool = True, chunked_head: bool = False,
-                 remat: bool = False, device=None):
+                 remat: bool = False, moe_num_experts: int = 0,
+                 moe_every: int = 2, moe_capacity_factor: float = 1.25,
+                 moe_router_noise: float = 0.0, moe_top_k: int = 1,
+                 device=None):
         super().__init__()
         if chunked_head and not tie_embeddings:
             raise ValueError(
@@ -96,14 +114,30 @@ class GPT(nn.Module):
         self.chunked_head = chunked_head
         self.tie_embeddings = tie_embeddings
         self.remat = bool(remat)
+        self.moe_num_experts = moe_num_experts
+        if moe_num_experts > 0:
+            if moe_every < 1:
+                raise ValueError(
+                    f"GPT: moe_every must be >= 1, got {moe_every}")
+            if size.num_layers // moe_every == 0:
+                raise ValueError(
+                    f"GPT: moe_every={moe_every} selects no layer in a "
+                    f"{size.num_layers}-layer model — the MoE option would "
+                    f"silently train fully dense")
         self.tok_emb = nn.Embedding(vocab_size, size.hidden, device=device)
         self.pos_emb = nn.Embedding(max_len, size.hidden, device=device)
         self.emb_dropout = Dropout(dropout_rate)
-        self.layers = nn.ModuleList(
-            TransformerBlock(size.hidden, size.heads, size.ff, dropout_rate,
-                             attention_fn, device=device)
-            for _ in range(size.num_layers)
-        )
+
+        def block(i):
+            if moe_num_experts > 0 and (i + 1) % moe_every == 0:
+                return MoETransformerBlock(
+                    size.hidden, size.heads, size.ff, moe_num_experts,
+                    dropout_rate, moe_capacity_factor, attention_fn,
+                    moe_router_noise, moe_top_k, device=device)
+            return TransformerBlock(size.hidden, size.heads, size.ff,
+                                    dropout_rate, attention_fn, device=device)
+
+        self.layers = nn.ModuleList(block(i) for i in range(size.num_layers))
         self.ln_final = nn.LayerNorm(size.hidden, eps=1e-5, device=device)
         self.lm_head = (None if tie_embeddings else
                         nn.Linear(size.hidden, vocab_size, device=device))
@@ -113,7 +147,8 @@ class GPT(nn.Module):
         """Seeded random init with flax's default scales: weight matrices
         from N(0, 1/fan_in), embeddings from N(0, 1/hidden), biases 0,
         LayerNorm scale 1 and shift 0, drawn by a generator on the
-        parameters' device."""
+        parameters' device. The experts' stacked ``[E, in, out]`` kernels
+        take lecun_normal's fan-in, ``E * in``."""
         dev = self.tok_emb.weight.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         for name, p in self.named_parameters():
@@ -122,7 +157,8 @@ class GPT(nn.Module):
             elif name.endswith("bias"):
                 p.zero_()
             else:
-                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+                fan_in = p.shape[1] * (p.shape[0] if p.dim() == 3 else 1)
+                p.normal_(0.0, fan_in ** -0.5, generator=gen)
 
     def forward(self, input_ids, positions=None, *, decode: bool = False,
                 kv_cache=None):
@@ -148,6 +184,8 @@ class GPT(nn.Module):
                 "GPT: decode=True needs explicit positions (each slot's "
                 "cache position selects its position embedding)"
             )
+        if kv_cache is not None and self.moe_num_experts > 0:
+            raise NotImplementedError(MOE_KV_CACHE)
         shard = seq_shard() if kv_cache is None else None
         shards = shard.size if sharded(shard) else 1
         if L * shards > self.max_len:

@@ -149,10 +149,11 @@ def chunked_causal_lm_loss(out, input_ids, mask=None, *, chunk: int = 128):
     from stoke_tpu_torch.ops.attention import seq_shard, sharded
 
     if sharded(seq_shard()):
+        from stoke_tpu_torch.status import LATER_SECOND_AXIS
+
         raise NotImplementedError(
-            "Stoke -- the chunked head under a sequence axis is not ported "
-            "yet: ROADMAP Queue 1 item 8d (the ZeRO tiers and the chunked "
-            "head under a sequence axis)")
+            f"Stoke -- the chunked head under a sequence axis is not ported "
+            f"yet: {LATER_SECOND_AXIS}")
     hidden, emb = out
     m = None if mask is None else mask[:, 1:]
     return chunked_softmax_cross_entropy(

@@ -1,11 +1,12 @@
 """Data parallelism of the port: the process group and 1-D data mesh
 (:mod:`~stoke_tpu_torch.parallel.mesh`), the ZeRO ladder's placement rules
-(:mod:`~stoke_tpu_torch.parallel.sharding`), their collectives
-(:mod:`~stoke_tpu_torch.parallel.ladder`) and the quantized gradient
-transports (:mod:`~stoke_tpu_torch.parallel.collectives`,
-:mod:`~stoke_tpu_torch.parallel.zero`). One process drives one device.
-Counterpart of ``stoke_tpu/parallel`` less the tensor, expert and pipeline
-parallelism (ROADMAP items 8b and 8c).
+(:mod:`~stoke_tpu_torch.parallel.sharding`, with the partition rules),
+their collectives (:mod:`~stoke_tpu_torch.parallel.ladder`), the
+quantized gradient transports (:mod:`~stoke_tpu_torch.parallel.collectives`,
+:mod:`~stoke_tpu_torch.parallel.zero`) and tensor and expert parallelism
+(:mod:`~stoke_tpu_torch.parallel.tensor`). One process drives one device.
+Counterpart of ``stoke_tpu/parallel`` less pipeline parallelism (ROADMAP
+item 8c).
 """
 
 from stoke_tpu_torch.parallel.ladder import Ladder
@@ -17,17 +18,37 @@ from stoke_tpu_torch.parallel.mesh import (
 )
 from stoke_tpu_torch.parallel.sharding import (
     ShardingRules,
+    compile_partition_rules,
     leaf_partition_spec,
     make_sharding_rules,
+    rule_entries,
+)
+from stoke_tpu_torch.parallel.tensor import (
+    ModelGroup,
+    TensorParallel,
+    apply_partition_rules,
+    copy_to_group,
+    gather_from_group,
+    reduce_from_group,
+    shard_module,
 )
 
 __all__ = [
     "Ladder",
     "ShardingRules",
+    "ModelGroup",
+    "TensorParallel",
+    "apply_partition_rules",
     "build_mesh",
+    "compile_partition_rules",
+    "copy_to_group",
+    "gather_from_group",
     "initialize_distributed",
     "leaf_partition_spec",
     "make_sharding_rules",
     "mesh_shape",
     "one_process_group",
+    "reduce_from_group",
+    "rule_entries",
+    "shard_module",
 ]

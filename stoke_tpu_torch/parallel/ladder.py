@@ -42,6 +42,14 @@ would reduce-scatter, the sharded accumulators are all-gathered), the
 transport rewrites them, and the slices take their parts; without one the
 path above is unchanged.
 
+Under a model or expert axis (:mod:`~stoke_tpu_torch.parallel.tensor`)
+the group is the data sub-group: every rank of a model group holds the
+same gradient of each leaf it does not split, and its own slice's of each
+leaf it splits, so each is averaged over the ranks that share its place on
+the model axis. The leaves a partition rule places (``keep_whole``) stay
+whole over the data axis whatever the tier, as the JAX package's rules win
+over the tier's placement.
+
 Every reduction of gradients averages over the W ranks: each rank's
 objective is the mean over its rows, so their average is the mean over the
 global batch, which the JAX engine differentiates. A gradient that a rank
@@ -139,10 +147,12 @@ class Ladder:
             .ShardingRules` over the group's size; ``opt_dim``,
             ``grad_dim`` and ``param_dim`` place each leaf.
         group: the process group of the data axis.
+        keep_whole: indices of ``params`` a partition rule placed; they
+            are stepped whole.
     """
 
     def __init__(self, params: Sequence[torch.Tensor], rules: ShardingRules,
-                 group=None):
+                 group=None, keep_whole: Sequence[int] = ()):
         self.group = group
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
@@ -156,10 +166,14 @@ class Ladder:
         self.replicated: List[int] = []
         grouped: Dict[tuple, List[int]] = {}
         dims: Dict[int, int] = {}
+        keep_whole = set(keep_whole)
         for i, p in enumerate(self.params):
             shape = tuple(p.shape)
             opt, grad = rules.opt_dim(shape), rules.grad_dim(shape)
             frees = rules.param_dim(shape) is not None
+            if i in keep_whole:
+                opt = grad = None
+                frees = False
             if frees and opt is None:
                 raise ValueError(
                     "Stoke -- a sharded parameter needs sharded optimizer "

@@ -3,10 +3,14 @@
 Counterpart of ``stoke_tpu/parallel/mesh.py``: the rendezvous is
 ``torch.distributed.init_process_group`` (NCCL for the card, gloo for the
 CPU; nothing else is substituted) and the mesh a ``DeviceMesh``: the 1-D
-data axis, or the two axes ``("data", "seq")`` of sequence parallelism,
-whose ``seq`` sub-groups run the ring and Ulysses collectives
-(:mod:`stoke_tpu_torch.ops.attention`). Every other two-axis mesh is
-ROADMAP Queue 1 item 8b.
+data axis, or the data axis and one more: ``("data", "seq")`` of sequence
+parallelism, whose ``seq`` sub-groups run the ring and Ulysses
+collectives (:mod:`stoke_tpu_torch.ops.attention`), or ``("data", X)``
+for the model or expert axis X that partition rules name, whose
+sub-groups run the Megatron and expert splits
+(:mod:`stoke_tpu_torch.parallel.tensor`) while the ladder reduces over
+the data sub-groups (:func:`data_coordinates`). Meshes of three or more
+axes and cross-host axes are ROADMAP Queue 1 item 8e.
 
 **One process, one device.** In the JAX package one process drives every
 device of its host. Under the port each process drives exactly one:
@@ -34,8 +38,8 @@ import torch.distributed as dist
 
 from stoke_tpu_torch.configs import DistributedInitConfig, MeshConfig
 
-_LATER_TENSOR_PARALLEL = (
-    "ROADMAP Queue 1 item 8b (tensor and expert parallelism)")
+_LATER_MESH = ("ROADMAP Queue 1 item 8e (meshes of three axes, dcn_axes "
+               "and partition rules beyond the Megatron and expert sets)")
 
 #: the directory of the newest one-process group's store (removed when
 #: a later group replaces it, or at exit)
@@ -161,29 +165,37 @@ def mesh_shape(shape: Optional[tuple], n: int, n_axes: int = 1) -> tuple:
 
 
 def build_mesh(mesh_config: MeshConfig, device: torch.device,
-               seq_axes: Optional[tuple] = None):
-    """The ``DeviceMesh`` over the process group's ranks: the 1-D data
-    mesh ``mesh_config.axes[0]`` (``"data"``), or a two-axis mesh whose
-    axes are ``seq_axes`` (the data and sequence axis names, in either
-    order; the last axis varies fastest over the ranks). ``shape`` may be
-    None, or name each axis's size with one ``-1`` inferred; its errors are
-    the JAX package's. Other two-axis meshes and cross-host axes are
-    refused (ROADMAP item 8b), and an explicit device list: under the port
-    each process brings its one device."""
+               data_axis: str = "data"):
+    """The ``DeviceMesh`` over the process group's ranks: the 1-D mesh
+    ``mesh_config.axes[0]``, or a two-axis mesh of ``data_axis`` and one
+    more (a sequence, model or expert axis, in either order; the last
+    axis varies fastest over the ranks). ``shape`` may be None, or name
+    each axis's size with one ``-1`` inferred; its errors are the JAX
+    package's. Meshes of three or more axes, two axes without the data
+    axis and cross-host axes are refused (ROADMAP item 8e), and an
+    explicit device list: under the port each process brings its one
+    device."""
     from torch.distributed.device_mesh import init_device_mesh
 
     axes = tuple(mesh_config.axes)
-    two = seq_axes is not None and set(axes) == set(seq_axes)
-    if (len(axes) != 1 and not (two and len(axes) == 2)) \
-            or mesh_config.dcn_axes:
+    if (len(axes) > 2 or mesh_config.dcn_axes
+            or (len(axes) == 2 and data_axis not in axes)):
         raise NotImplementedError(
             f"Stoke -- a mesh of axes {axes} (dcn_axes "
             f"{tuple(mesh_config.dcn_axes)}) is not ported yet: the port's "
-            f"mesh is the data axis, or the data and sequence axes; "
-            f"{_LATER_TENSOR_PARALLEL}")
+            f"mesh is the data axis {data_axis!r}, or it and one more; "
+            f"{_LATER_MESH}")
     if mesh_config.devices is not None:
         raise ValueError(
             "Stoke -- MeshConfig.devices has no meaning in the port: each "
             "process drives one device (launch one process a device)")
     shape = mesh_shape(mesh_config.shape, dist.get_world_size(), len(axes))
     return init_device_mesh(device.type, shape, mesh_dim_names=axes)
+
+
+def data_coordinates(mesh, data_axis: str = "data") -> tuple:
+    """``(data sub-group, its size, this process's coordinate on it)`` of
+    a two-axis mesh: the processes that share this one's place on the
+    other axis."""
+    group = mesh.get_group(data_axis)
+    return group, dist.get_world_size(group), dist.get_rank(group)

@@ -18,6 +18,15 @@ A sharded leaf is split along the one dimension the rule picks
 (:func:`leaf_partition_spec`), rank ``r`` holding the ``r``-th of ``W``
 equal slices, as ``P(..., "data", ...)`` places it in the JAX package.
 
+Partition rules (``PartitionRulesConfig``): :func:`compile_partition_rules`
+and :func:`rule_entries` port the JAX package's path-regex overrides
+(``compile_partition_rules``, the rule matching of ``sharding_tree``):
+the first rule whose pattern a leaf's path matches wins, over the tier's
+placement. The port matches them against each tensor's JAX leaf path and
+shape; :func:`stoke_tpu_torch.parallel.tensor.apply_partition_rules`
+turns what they place on a model or expert axis into the Megatron and
+expert splits.
+
 Under the port a process drives one device, so the JAX package's
 per-process batch checks (``batch_sharding`` with several local shards a
 process, ``test_multiprocess_batch_divisibility``) have no counterpart:
@@ -28,8 +37,9 @@ size.
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from stoke_tpu_torch.configs import (
     FSDPConfig,
@@ -96,11 +106,63 @@ class ShardingRules:
     param_dim: DimRule
     grad_dim: DimRule
     opt_dim: DimRule
+    #: the compiled partition rules (:func:`compile_partition_rules`),
+    #: which win over the tier for the leaves they match; None without
+    overrides: Optional[List[Tuple[Any, tuple]]] = None
+
+
+def compile_partition_rules(rules) -> Optional[List[Tuple[Any, tuple]]]:
+    """``(regex, spec)`` pairs as ``(compiled pattern, entries)``: the JAX
+    ``compile_partition_rules``. A trailing ``...`` (or the string
+    ``"..."``, for YAML) makes a rule variadic: the dims it does not name
+    are replicated. None for no rules."""
+    if not rules:
+        return None
+    return [(re.compile(rx), tuple(Ellipsis if e is Ellipsis or e == "..."
+                                   else e for e in spec))
+            for rx, spec in rules]
+
+
+def rule_entries(path: str, shape: Sequence[int], overrides,
+                 strict: bool = True) -> Optional[tuple]:
+    """The entries (one mesh axis name, tuple of names or None a dim) that
+    the first of the compiled ``overrides`` matching ``path`` (``re.search``
+    on the ``/``-joined JAX leaf path) gives a leaf of ``shape``, or None
+    where no rule matches: the JAX ``sharding_tree``'s rule. A rule of
+    another rank raises the JAX package's ``ValueError`` when ``strict``
+    (parameters); otherwise the leaf falls back to the tier's placement
+    (None: optimizer state, whose leaves share a parameter's path but not
+    always its rank)."""
+    shape = tuple(shape)
+    for rx, entries in overrides or ():
+        if not rx.search(path):
+            continue
+        entries = tuple(entries)
+        if entries and entries[-1] is Ellipsis:
+            head = entries[:-1]
+            if len(head) > len(shape):
+                if strict:
+                    raise ValueError(
+                        f"Stoke -- partition rule {rx.pattern!r} needs at "
+                        f"least {len(head)} dims but parameter {path} has "
+                        f"shape {shape}")
+                return None
+            entries = head + (None,) * (len(shape) - len(head))
+        if len(entries) != len(shape):
+            if strict:
+                raise ValueError(
+                    f"Stoke -- partition rule {rx.pattern!r} has "
+                    f"{len(entries)} entries but parameter {path} has "
+                    f"shape {shape}")
+            return None
+        return entries
+    return None
 
 
 def make_sharding_rules(tier: ShardingOptions, axis_size: int,
                         oss_config: OSSConfig, sddp_config: SDDPConfig,
-                        fsdp_config: FSDPConfig) -> ShardingRules:
+                        fsdp_config: FSDPConfig,
+                        partition_rules=None) -> ShardingRules:
     """The tier's rules (the ladder in the module docstring), with the JAX
     package's thresholds: ``OSSConfig.min_shard_size`` for optimizer
     state, ``SDDPConfig.min_shard_size`` for the gradient buffer, and under
@@ -119,4 +181,5 @@ def make_sharding_rules(tier: ShardingOptions, axis_size: int,
     }
     if tier not in by_tier:
         raise ValueError(f"unknown sharding tier {tier}")
-    return ShardingRules(tier, axis_size, *by_tier[tier])
+    return ShardingRules(tier, axis_size, *by_tier[tier],
+                         overrides=compile_partition_rules(partition_rules))

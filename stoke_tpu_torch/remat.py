@@ -117,6 +117,14 @@ def draw(make: Callable[[], torch.Tensor]) -> torch.Tensor:
     return mask
 
 
+def replaying() -> bool:
+    """Whether this runs inside a recompute (its masks come from a
+    tape): a forward's side outputs, such as an MoE block's auxiliary
+    loss, keep the forward's values."""
+    frames = _frames()
+    return bool(frames) and frames[-1][0] == "replay"
+
+
 def _policy_fn(keep):
     from torch.utils.checkpoint import CheckpointPolicy
 

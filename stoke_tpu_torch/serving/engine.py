@@ -83,7 +83,7 @@ from torch.func import functional_call
 
 from stoke_tpu_torch.configs import ServeConfig
 from stoke_tpu_torch.models.bert import BERT_SIZES
-from stoke_tpu_torch.models.gpt import GPT
+from stoke_tpu_torch.models.gpt import GPT, MOE_KV_CACHE
 from stoke_tpu_torch.serving.kv_cache import (
     BlockAllocator,
     PagedAttentionHook,
@@ -170,6 +170,8 @@ class ServingEngine:
             raise TypeError(
                 f"ServingEngine serves GPT models; got {type(model).__name__}"
             )
+        if model.moe_num_experts > 0:
+            raise NotImplementedError(MOE_KV_CACHE)
         # the JAX engine's own checks, then the status layer's serve rules
         if (
             cfg.prefill_chunk_tokens is not None

@@ -80,7 +80,9 @@ def test_forbidden_matches_the_jax_package_only():
                                     "stoke_tpu_torch.serving.slo",
                                     "stoke_tpu_torch.serving.roofline",
                                     "stoke_tpu_torch.telemetry.opsplane",
-                                    "stoke_tpu_torch.ops.attention"])
+                                    "stoke_tpu_torch.ops.attention",
+                                    "stoke_tpu_torch.parallel.tensor",
+                                    "stoke_tpu_torch.models.moe"])
 def test_import_loads_no_jax_module(module):
     code = (
         f"import sys, json, {module}\n"

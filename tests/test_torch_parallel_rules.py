@@ -155,12 +155,15 @@ REFUSED = {
     "shard_seq_dim": ([pc.DataParallelConfig(shard_seq_dim=1),
                        pc.MeshConfig(axes=("data", "seq"))], "8a"),
     "two_axes": ([pc.MeshConfig(axes=("data", "model"))], "8b"),
-    "dcn_axes": ([pc.MeshConfig(dcn_axes=("data",))], "8b"),
+    "dcn_axes": ([pc.MeshConfig(dcn_axes=("data",))], "8e"),
     "comm": ([pc.CommConfig()], "7"),
     "partition_rules": ([pc.PartitionRulesConfig(rules=(("w", ("data",)),))],
                         "8b"),
     "seq_axis_tiers": ([pc.DataParallelConfig(shard_seq_dim=1),
                         pc.MeshConfig(axes=("data", "seq"))], "8d"),
+    "tp_tiers": ([pc.MeshConfig(axes=("data", "model"), shape=(1, 2)),
+                  pc.PartitionRulesConfig(rules=(
+                      ("ff_in/kernel", (None, "model")),))], "8d"),
     "offload": ([pc.OffloadOptimizerConfig()], "9"),
     "sharded_format": ([pc.CheckpointConfig(
         format=pc.CheckpointFormat.sharded)], "6b"),
@@ -168,12 +171,15 @@ REFUSED = {
 
 
 #: options refused here until their item landed (the transports, item 7,
-#: the sharded checkpoint format, item 6b, optimizer offload, item 9, and
-#: the (data, seq) mesh with shard_seq_dim, item 8a): each case now shows
-#: the status layer takes them
-LANDED = ("comm", "sharded_format", "offload", "shard_seq_dim")
-#: the flags of a refused case (a tier under a seq axis, item 8d)
-REFUSED_FLAGS = {"seq_axis_tiers": dict(oss=True)}
+#: the sharded checkpoint format, item 6b, optimizer offload, item 9, the
+#: (data, seq) mesh with shard_seq_dim, item 8a, and a (data, model) mesh
+#: and partition rules, item 8b): each case now shows the status layer
+#: takes them
+LANDED = ("comm", "sharded_format", "offload", "shard_seq_dim", "two_axes",
+          "partition_rules")
+#: the flags of a refused case (a tier under a seq axis, or under a model
+#: axis of two, item 8d)
+REFUSED_FLAGS = {"seq_axis_tiers": dict(oss=True), "tp_tiers": dict(oss=True)}
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
@@ -186,7 +192,9 @@ def test_later_options_name_their_item(case):
                 or st.offload_optimizer_config is not None
                 or st.checkpoint_config.format is pc.CheckpointFormat.sharded
                 or (st.dp_config.shard_seq_dim == 1
-                    and st.mesh_config.axes == ("data", "seq")))
+                    and st.mesh_config.axes == ("data", "seq"))
+                or st.mesh_config.axes == ("data", "model")
+                or st.partition_rules_config is not None)
         return
     with pytest.raises(NotImplementedError, match=f"{LATER} {item}\\b"):
         StokeStatus(batch_size_per_device=4, device="cpu", distributed="dp",

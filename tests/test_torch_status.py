@@ -55,8 +55,9 @@ MATRIX = [
     (dict(batch_size_per_device=8, precision="fp16"), "ok"),
     (dict(batch_size_per_device=8, distributed="dp"), "ok"),
     (dict(batch_size_per_device=8, distributed="ddp", oss=True), "ok"),
+    # a (data, model) mesh runs since item 8b; three axes wait (8e)
     (dict(batch_size_per_device=8, distributed="dp",
-          configs=[MeshConfig(axes=("data", "model"))]), "later"),
+          configs=[MeshConfig(axes=("data", "model", "expert"))]), "later"),
     (dict(batch_size_per_device=8, grad_clip=ClipGradConfig(clip_value=0.0)),
      "invalid"),
     (dict(batch_size_per_device=8,
@@ -71,6 +72,8 @@ MATRIX = [
           configs=[MeshConfig(axes=("data", "seq"))]), "ok"),
     (dict(batch_size_per_device=8, distributed="dp", oss=True,
           configs=[MeshConfig(axes=("data", "seq"))]), "later"),
+    (dict(batch_size_per_device=8, distributed="dp",
+          configs=[MeshConfig(axes=("data", "model"))]), "ok"),
 ]
 
 

@@ -134,7 +134,7 @@ def test_config_tuple_enums_and_helpers():
                 "OffloadOptimizerConfig", "OffloadDiskConfig",
                 "OffloadParamsConfig", "AttributionConfig", "MemoryConfig",
                 "NumericsConfig", "ActivationCheckpointingConfig",
-                "FleetConfig", "OpsPlaneConfig"}
+                "FleetConfig", "OpsPlaneConfig", "PartitionRulesConfig"}
     assert set(LATER_CONFIGS) == {c.__name__ for c in
                                   pc.ALL_CONFIG_CLASSES} - honoured
 
@@ -156,17 +156,17 @@ NOW_HONOURED = {"CommConfig": "comm_config",
                 "ActivationCheckpointingConfig":
                     "activation_checkpointing_config",
                 "FleetConfig": "fleet_config",
-                "OpsPlaneConfig": "opsplane_config"}
-#: the item each refused class names: 8b the partition rules, 11 the
-#: compile cache
-LATER_ITEMS = {"PartitionRulesConfig": "8b", "CompileConfig": "11"}
+                "OpsPlaneConfig": "opsplane_config",
+                "PartitionRulesConfig": "partition_rules_config"}
+#: the item each refused class names: 11 the compile cache
+LATER_ITEMS = {"CompileConfig": "11"}
 
 
 @pytest.mark.parametrize("name", sorted(LATER_CONFIGS) + list(NOW_HONOURED))
 def test_each_later_class_is_refused_naming_its_item(name, tmp_path):
     """Every class the port does not run raises naming its ROADMAP item
-    (the partition rules 8b, the compile cache 11); those of items 7, 9,
-    10a, 10b, 10c, 10d and 13 run now and the status holds them."""
+    (the compile cache 11); those of items 7, 8b, 9, 10a, 10b, 10c, 10d
+    and 13 run now and the status holds them."""
     kw = dict(batch_size_per_device=8, device="cpu")
     needs_dp = {"CommConfig", "MeshConfig", "PartitionRulesConfig"}
     needs_tel = {"AttributionConfig", "FleetConfig", "NumericsConfig",
