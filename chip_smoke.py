@@ -297,8 +297,22 @@ Phases, one JSON line each; any failure exits nonzero:
    by the port's own cut (flash at 6 and 3 heads, the partial sums added
    here) and the MoE FFN over X = 2 and 4 virtual expert ranks, forward
    and every gradient in fp32 (PARITY_RTOL) and bf16 (the row check);
-   step ms eager and replayed, peak memory, and one MoE FFN's routing,
-   dispatch and combine against its products under ``torch.profiler``.
+   step ms eager and replayed, peak memory (the rise above the
+   allocation at each run's start, beside the process's peak), and one
+   MoE FFN's routing, dispatch and combine against its products under
+   ``torch.profiler``.
+26. train_pipeline: PipelinedLM at GPT-base width (12 x 768, 12 heads,
+   ff 3072, vocab 50257, untied head, no final LayerNorm, dense causal
+   attention) bf16, B=8, L=1024, M=4 microbatches, GPipe (``rounds=1``)
+   and circular (``rounds=2``, 6 layers a stage, ``remat=True``), each
+   under ``pipeline_parallel_rules`` on a (data=1, stage=1) mesh against
+   the same run without (3 eager steps, 2 windows, 4 timed replays):
+   losses and masters bit for bit, windows captured, no flash launch;
+   then S = 2 (``rounds=2``) and 4 (``rounds=1``) virtual stages of 3
+   blocks in one process, fp32 and bf16, one forward and backward against
+   the unsplit 12-block stack on the same microbatches (fp32 within
+   PIPE_FP32_RTOL; bf16 within twice the unsplit bf16 stack's own error
+   against fp32), with the ticks, stage applications and useful ones.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -308,6 +322,7 @@ The two lines before the last are the kernels' summary and the card's
 from __future__ import annotations
 
 import ctypes
+import gc
 import importlib
 import json
 import os
@@ -6149,13 +6164,32 @@ def moe_base(top_k: int):
     return model
 
 
-def split_run(ops, model, axes, rules, batches, windows: bool,
+def peak_start() -> int:
+    """Collect the garbage, reset the allocator's peak statistic and
+    return the bytes allocated then: a run's peak is its rise above them
+    (tensors an earlier phase left alive count in the process's peak, not
+    in it; unreachable ones, which the collector could free during the
+    run, are freed first)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peaks(start: int) -> dict:
+    """The run's peak above ``start`` and the process's, in GB."""
+    top = torch.cuda.max_memory_allocated()
+    return {"peak_gb": (top - start) / 1e9, "process_peak_gb": top / 1e9}
+
+
+def split_run(ops, make, axes, rules, batches, windows: bool,
               replays: int = 0) -> dict:
-    """``model`` trained bf16 TPEP_STEPS steps: all eager, or TPEP_EAGER
-    eager then ``train_steps`` of two one-step windows (the second
-    replayed) and ``replays`` timed one-window replays; under ``rules`` on
-    a (1, 1) mesh of ``axes`` (a one-process NCCL group), or without
-    ``distributed``."""
+    """``make()``'s model trained bf16 TPEP_STEPS steps: all eager, or
+    TPEP_EAGER eager then ``train_steps`` of two one-step windows (the
+    second replayed) and ``replays`` timed one-window replays; under
+    ``rules`` on a (1, 1) mesh of ``axes`` (a one-process NCCL group), or
+    without ``distributed``. The peak is the run's, the model's weights
+    included (``make`` runs after the reset)."""
     from stoke_tpu_torch.configs import MeshConfig, PartitionRulesConfig
 
     flags = {}
@@ -6164,8 +6198,8 @@ def split_run(ops, model, axes, rules, batches, windows: bool,
             MeshConfig(axes=axes, shape=(1, 1)),
             PartitionRulesConfig(rules=rules)])
     before = dict(ops.LAUNCHES)
-    torch.cuda.reset_peak_memory_stats()
-    s = stoke_for(model, "bf16", TRAIN_BATCH, seed=SEED, **flags)
+    start = peak_start()
+    s = stoke_for(make(), "bf16", TRAIN_BATCH, seed=SEED, **flags)
     n = TPEP_EAGER if windows else TPEP_STEPS
     losses, ms = eager_steps(s, [batches[i] for i in range(n)])
     replay_ms = []
@@ -6180,7 +6214,7 @@ def split_run(ops, model, axes, rules, batches, windows: bool,
            "digest": masters_digest(s), "eager_ms": ms,
            "replay_ms": replay_ms,
            "windows_captured": len(s._engine._windows),
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **peaks(start),
            "aux": None if aux is None else [
                float(v["moe"]["aux_loss"]) for v in aux.values()],
            "split": None if s.tensor_parallel is None else sorted(
@@ -6439,22 +6473,27 @@ def train_tp_ep(ops) -> dict:
     # the one-process NCCL group goes on failure too (its watchdog would
     # hold the process for minutes)
     try:
-        runs["gpt"] = split_run(ops, gpt_base("flash"), None, None, batches,
-                                True)
-        runs["gpt_tp"] = split_run(ops, gpt_base("flash"), ("data", "model"),
+        def gpt():
+            return gpt_base("flash")
+
+        runs["gpt"] = split_run(ops, gpt, None, None, batches, True)
+        runs["gpt_tp"] = split_run(ops, gpt, ("data", "model"),
                                    gpt_tensor_parallel_rules(), batches,
                                    True)
         # the MoE runs take one batch every step, so that five steps at
         # the train phase's learning rate show the loss falling
         same = batches[:1].expand_as(batches).contiguous()
         for k in (1, 2):
-            runs[f"moe{k}_eager"] = split_run(ops, moe_base(k), None, None,
-                                              same, False)
-            runs[f"moe{k}"] = split_run(ops, moe_base(k), None, None,
-                                        same, True, TPEP_REPLAYS)
+            def moe(k=k):
+                return moe_base(k)
+
+            runs[f"moe{k}_eager"] = split_run(ops, moe, None, None, same,
+                                              False)
+            runs[f"moe{k}"] = split_run(ops, moe, None, None, same, True,
+                                        TPEP_REPLAYS)
             runs[f"moe{k}_ep"] = split_run(
-                ops, moe_base(k), ("data", "expert"),
-                moe_expert_parallel_rules(), same, True, TPEP_REPLAYS)
+                ops, moe, ("data", "expert"), moe_expert_parallel_rules(),
+                same, True, TPEP_REPLAYS)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -6514,6 +6553,8 @@ def train_tp_ep(ops) -> dict:
                           for k in ("moe1", "moe2")},
         "replay_ms": {k: runs[k]["replay_ms"] for k in ("moe1", "moe2")},
         "peak_gb": {k: v["peak_gb"] for k, v in runs.items()},
+        "process_peak_gb": {k: v["process_peak_gb"]
+                            for k, v in runs.items()},
         "launches": {k: v["launches"] for k, v in runs.items()},
         "launches_total": {n: sum(v["launches"][n] for v in runs.values())
                            + sum(c["launches"][n] for c in virtual["tp"])
@@ -6521,6 +6562,246 @@ def train_tp_ep(ops) -> dict:
         "virtual": virtual,
         "moe_block": profile,
         "seconds": time.perf_counter() - t0,
+    }
+
+
+PIPE_M = 4                # microbatches a batch
+PIPE_EAGER, PIPE_STEPS = 3, 5  # eager steps, then windows up to PIPE_STEPS
+PIPE_REPLAYS = 4         # timed one-window replays
+#: the schedules at world 1: GPipe, and circular with remat
+PIPE_SCHEDULES = {"gpipe": dict(rounds=1),
+                  "circular": dict(rounds=2, remat=True,
+                                   layers_per_stage=6)}
+#: the virtual stage counts S and their rounds V, 3 blocks a stage
+PIPE_VIRTUAL = ((2, 2), (4, 1))
+PIPE_VIRTUAL_LAYERS = 3
+#: the virtual stages run each microbatch through the unsplit stack's
+#: operations; only the stacked gradients' sums over the microbatches
+#: may round otherwise
+PIPE_FP32_RTOL = 1e-5
+
+
+def pipelined_lm(rounds: int = 1, remat: bool = False,
+                 layers_per_stage=None, stages: int = 1):
+    """PipelinedLM at GPT-base width (12 blocks over ``rounds * stages``
+    stages) on the card, seeded."""
+    from stoke_tpu_torch.models import PipelinedLM
+
+    model = PipelinedLM(vocab_size=VOCAB, size_name="base", max_len=1024,
+                        num_microbatches=PIPE_M,
+                        layers_per_stage=layers_per_stage, rounds=rounds,
+                        remat=remat, stages=stages, device="cuda")
+    model.init_weights(SEED)
+    return model
+
+
+def pipeline_run(ops, schedule: dict, mesh: bool, batches) -> dict:
+    """PipelinedLM (``schedule``'s options) trained bf16: PIPE_EAGER
+    eager steps, ``train_steps`` of two one-step windows (the second
+    replayed), PIPE_REPLAYS timed one-window replays; under
+    ``pipeline_parallel_rules`` on a (data=1, stage=1) mesh, or without
+    ``distributed``."""
+    from stoke_tpu_torch.configs import MeshConfig, PartitionRulesConfig
+    from stoke_tpu_torch.models import pipeline_parallel_rules
+
+    flags = {}
+    if mesh:
+        flags = dict(distributed="dp", configs=[
+            MeshConfig(axes=("data", "stage"), shape=(1, 1)),
+            PartitionRulesConfig(rules=pipeline_parallel_rules())])
+    before = dict(ops.LAUNCHES)
+    start = peak_start()
+    s = stoke_for(pipelined_lm(**schedule), "bf16", TRAIN_BATCH, seed=SEED,
+                  **flags)
+    losses, ms = eager_steps(s, [batches[i] for i in range(PIPE_EAGER)])
+    seg = batches[PIPE_EAGER:PIPE_STEPS]
+    losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+    one = batches[PIPE_STEPS - 1:PIPE_STEPS]
+    replay_ms = [timed_ms(lambda: s.train_steps(one, one))
+                 for _ in range(PIPE_REPLAYS)]
+    tp = s.tensor_parallel
+    out = {"losses": losses, "launches": flash_delta(ops, before),
+           "digest": masters_digest(s), "eager_ms": ms,
+           "replay_ms": replay_ms,
+           "windows_captured": len(s._engine._windows), **peaks(start),
+           "cut": None if tp is None else len(tp.cuts),
+           "stages_held": int(s.model_access.stages.block_0.ln_ff.weight
+                              .shape[0])}
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def stack_errors(got, ref) -> dict:
+    """Each tensor of ``got`` against ``ref`` (``(out, grads)``): the
+    largest absolute difference over ``ref``'s largest magnitude."""
+    out = {"out": float((got[0].float() - ref[0].float()).abs().max()
+                        / ref[0].float().abs().max())}
+    for n, g in got[1].items():
+        r = ref[1][n].float()
+        out[n] = float((g.float() - r).abs().max() / r.abs().max())
+    return out
+
+
+def virtual_stages(S: int, V: int, dtype) -> dict:
+    """The 12 blocks of PipelinedLM at GPT-base width as V·S stages of
+    PIPE_VIRTUAL_LAYERS, over S virtual stages in one process
+    (``virtual_pipeline``): one forward and backward of PIPE_M
+    microbatches of B/M rows, L=1024, against the unsplit stack (each
+    microbatch through the V·S stages in turn) on the same inputs and
+    cotangent, in ``dtype``; bf16 also against the fp32 stack."""
+    from torch.func import functional_call
+
+    from stoke_tpu_torch.parallel import Schedule, virtual_pipeline
+
+    torch.manual_seed(SEED + S)
+    m = pipelined_lm(rounds=V, layers_per_stage=PIPE_VIRTUAL_LAYERS,
+                     stages=S)
+    H = HEADS * HEAD_DIM
+    causal = torch.tril(torch.ones(TRAIN_LEN, TRAIN_LEN, dtype=torch.bool,
+                                   device="cuda"))
+    x32 = torch.randn(PIPE_M, TRAIN_BATCH // PIPE_M, TRAIN_LEN, H,
+                      device="cuda")
+    dout32 = torch.randn_like(x32)
+    # the bf16 pass's parameters and inputs, and the fp32 reference of
+    # the same values
+    base = {n: p.detach().to(dtype) for n, p in m.stages.named_parameters()}
+
+    def stage_fn(dt):
+        bias = torch.where(causal, 0.0, -1e9)[None, None].to(dt)
+        return lambda p, x: functional_call(m.stages, p, (x, bias))
+
+    def leaves(dt):
+        p = {n: t.to(dt, copy=True).requires_grad_()
+             for n, t in base.items()}
+        return p, x32.to(dtype).to(dt, copy=True).requires_grad_()
+
+    def unsplit(dt):
+        p, x = leaves(dt)
+        fn = stage_fn(dt)
+        slices = {n: t.unbind(0) for n, t in p.items()}
+        outs = []
+        for i in range(PIPE_M):
+            h = x[i]
+            for k in range(S * V):
+                h = fn({n: t[k] for n, t in slices.items()}, h)
+            outs.append(h)
+        out = torch.stack(outs)
+        out.backward(dout32.to(dt))
+        return out.detach(), {**{n: t.grad for n, t in p.items()},
+                              "x": x.grad}
+
+    p, x = leaves(dtype)
+    run = virtual_pipeline(stage_fn(dtype), S, rounds=V)
+    out = torch.cat(run(p, x))
+    out.backward(dout32.to(dtype))
+    got = (out.detach(), {**{n: t.grad for n, t in p.items()}, "x": x.grad})
+    ref = unsplit(dtype)
+    mine = stack_errors(got, ref)
+    sched = Schedule(S, V, PIPE_M)
+    res = {"S": S, "V": V, "dtype": str(dtype).replace("torch.", ""),
+           "layers_a_stage": PIPE_VIRTUAL_LAYERS, **run.counts,
+           "bubble": 1 - run.counts["useful"] / run.counts["applications"],
+           "counts_as_schedule": run.counts == {
+               "ticks": sched.ticks, "applications": sched.applications,
+               "useful": sched.useful}}
+    worst = max(mine, key=mine.get)
+    if dtype == FP32:
+        res.update(max_rel_err=mine[worst], worst=worst,
+                   limit=PIPE_FP32_RTOL,
+                   ok=mine[worst] <= PIPE_FP32_RTOL)
+    else:
+        ref32 = unsplit(FP32)
+        vs32, own = stack_errors(got, ref32), stack_errors(ref, ref32)
+        limits = {n: max(PIPE_FP32_RTOL, 2 * own[n]) for n in vs32}
+        w = max(vs32, key=lambda n: vs32[n] / limits[n])
+        res.update(max_rel_err_vs_unsplit_bf16=mine[worst],
+                   worst_vs_unsplit_bf16=worst, max_rel_err=vs32[w],
+                   worst=w, limit=limits[w], unsplit_err=own[w],
+                   unsplit_max_err=max(own.values()),
+                   ok=all(vs32[n] <= limits[n] for n in vs32))
+    res["ok"] = res["ok"] and res["counts_as_schedule"]
+    del m
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_pipeline(ops, t_main: float) -> dict:
+    """Pipeline parallelism on the card. PipelinedLM at GPT-base width,
+    bf16, B=8, L=1024, M=PIPE_M, GPipe and circular with remat, each at
+    world 1 under ``pipeline_parallel_rules`` on a (data=1, stage=1) mesh
+    against the same run without (:func:`pipeline_run`): losses, masters
+    and windows captured bit for bit, no flash launch (the stage's dense
+    attention, as the JAX stage); eager and replayed step ms and the
+    peak's rise. Then S = 2 and 4 virtual stages against the unsplit
+    stack in fp32 and bf16 (:func:`virtual_stages`). ``t_main`` is the
+    run's start on the host clock (the line reports both times)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    batches = window_batches(PIPE_STEPS)
+    failures = []
+    runs = {}
+    # the one-process NCCL group goes on failure too
+    try:
+        for name, schedule in PIPE_SCHEDULES.items():
+            runs[name] = pipeline_run(ops, schedule, False, batches)
+            runs[f"{name}_mesh"] = pipeline_run(ops, schedule, True, batches)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for name in PIPE_SCHEDULES:
+        plain, split = runs[name], runs[f"{name}_mesh"]
+        for key in ("losses", "digest", "windows_captured"):
+            if split[key] != plain[key]:
+                failures.append(f"{name}_mesh {key}: {split[key]} vs "
+                                f"{plain[key]}")
+        if not split["cut"]:
+            failures.append(f"{name}_mesh: nothing cut")
+        if plain["windows_captured"] < 1:
+            failures.append(f"{name}: no window captured")
+        if not all(np.isfinite(plain["losses"])):
+            failures.append(f"{name}: losses {plain['losses']}")
+    for k, r in runs.items():
+        if any(r["launches"].values()):
+            failures.append(f"{k}: flash launches {r['launches']}")
+    virtual = [virtual_stages(S, V, dt) for dt in (FP32, BF16)
+               for S, V in PIPE_VIRTUAL]
+    for c in virtual:
+        if not c["ok"]:
+            failures.append(f"virtual stages: {c}")
+    if failures:
+        raise AssertionError("train_pipeline: " + "; ".join(failures))
+
+    def p50(xs):
+        return float(np.median(xs)) if xs else None
+
+    return {
+        "phase": "train_pipeline",
+        "model": "PipelinedLM at GPT-base width (12 x 768, 12 heads, ff "
+                 "3072, vocab 50257, untied head, dense causal attention) "
+                 f"bf16, B={TRAIN_BATCH}, L={TRAIN_LEN}, M={PIPE_M}, AdamW, "
+                 "clip 1.0",
+        "schedules": PIPE_SCHEDULES,
+        "bit_for_bit": True,
+        "losses": {k: v["losses"] for k, v in runs.items()},
+        "digest": {k: v["digest"][:16] for k, v in runs.items()},
+        "windows_captured": {k: v["windows_captured"]
+                             for k, v in runs.items()},
+        "stages_held": {k: v["stages_held"] for k, v in runs.items()},
+        "eager_ms_p50": {k: p50(v["eager_ms"]) for k, v in runs.items()},
+        "eager_ms": {k: v["eager_ms"] for k, v in runs.items()},
+        "replay_ms_p50": {k: p50(v["replay_ms"]) for k, v in runs.items()},
+        "replay_ms": {k: v["replay_ms"] for k, v in runs.items()},
+        "peak_gb": {k: v["peak_gb"] for k, v in runs.items()},
+        "process_peak_gb": {k: v["process_peak_gb"]
+                            for k, v in runs.items()},
+        "launches": {k: v["launches"] for k, v in runs.items()},
+        "launches_total": {n: sum(v["launches"][n] for v in runs.values())
+                           for n in FLASH},
+        "virtual": virtual,
+        "seconds": time.perf_counter() - t0,
+        "run_seconds": time.perf_counter() - t_main,
     }
 
 
@@ -6563,6 +6844,7 @@ def quant_rows(cases, comm, served, elastic) -> list:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -6681,6 +6963,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tpep = train_tp_ep(ops)
     emit({**tpep, "card": smi})
+    torch.cuda.empty_cache()
+    pipe = train_pipeline(ops, t_main)
+    emit({**pipe, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -6713,6 +6998,8 @@ def main() -> int:
             out["launches_train_seqpar"] = seqpar["launches_total"][tel_key]
             # tensor and expert parallelism's runs and virtual splits
             out["launches_train_tp_ep"] = tpep["launches_total"][tel_key]
+            # pipeline parallelism's runs (dense attention in the stages)
+            out["launches_train_pipeline"] = pipe["launches_total"][tel_key]
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]

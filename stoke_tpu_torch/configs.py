@@ -400,8 +400,8 @@ class PartitionRulesConfig:
     """Tensor-parallel partition rules, ``(path_regex, spec)`` pairs with
     one mesh axis name (or None, or a tuple of names, or "...") per
     dimension, matched against each parameter's JAX leaf path. Needs
-    ``distributed='dp'``; the port runs the Megatron and expert sets
-    (:mod:`stoke_tpu_torch.parallel.tensor`) and refuses other
+    ``distributed='dp'``; the port runs the Megatron, expert and stage
+    sets (:mod:`stoke_tpu_torch.parallel.tensor`) and refuses other
     placements (ROADMAP Queue 1 item 8e)."""
 
     rules: Tuple[Tuple[str, Tuple], ...] = ()

@@ -6,18 +6,22 @@ of numpy arrays by the caller, onto the names of the port's module's
 ``stoke_tpu.models.gpt.GPT`` (tied or untied head, dense or MoE blocks),
 :func:`vit_state_dict_from_jax` for ``ViT``,
 :func:`cnn_state_dict_from_jax` for ``BasicNN`` and every ``ResNet``
-(``params`` and ``batch_stats``), and :func:`bert_state_dict_from_jax`
-for ``BertForSequenceClassification``. The port never imports JAX; the
+(``params`` and ``batch_stats``), :func:`bert_state_dict_from_jax`
+for ``BertForSequenceClassification``, and
+:func:`pipelined_lm_state_dict_from_jax` for ``PipelinedLM`` (its
+stage-stacked leaves slice by slice). The port never imports JAX; the
 caller does the ``np.asarray`` (for example with ``jax.tree_util.tree_map(
 np.asarray, variables)``). Each raises ``KeyError`` on a missing leaf and
 ``ValueError`` on a leaf the port has no place for or on a wrong shape.
+:func:`jax_params_from_port` goes back, by :func:`jax_param_layout`.
 
 :func:`jax_checkpoint_to_port` carries a whole checkpoint over: it reads a
 tag the JAX package wrote (numpy, json and pickle only) and writes a port
 tag that ``Stoke.load`` resumes, optimizer state included.
 
 Layouts (``stoke_tpu/models/bert.py:72-106``), one transformer block map
-(:func:`_transformer_blocks`) shared by GPT, ViT and BERT:
+(:func:`_transformer_blocks`) shared by GPT, ViT, BERT and a
+``PipelinedLM``'s stages:
 
 - ``qkv`` is a ``DenseGeneral((3, heads, D))``: kernel ``[hidden, 3,
   heads, D]``, bias ``[3, heads, D]``; flattened in that order it is the
@@ -295,6 +299,50 @@ def bert_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return _finish(sd, expect, who)
 
 
+def pipelined_lm_state_dict_from_jax(
+        params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``PipelinedLM`` ``state_dict`` from a JAX
+    ``PipelinedLM`` ``params`` tree of numpy arrays (``embed/tok``,
+    ``embed/pos``, the stage-stacked ``stages/block_<i>/...`` leaves and
+    ``head``). Each stacked leaf keeps its lead dim; its slices are
+    converted one at a time by the blocks' map (the port's ``qkv`` layout
+    a slice) and stacked again. Raises as
+    :func:`gpt_state_dict_from_jax`."""
+    who = "pipelined_lm_state_dict_from_jax"
+    flat = _flatten(params)
+    take = _taker(flat, who)
+    tok = take("embed/tok")
+    vocab, hidden = tok.shape
+    sd: Dict[str, np.ndarray] = {"embed.tok": tok,
+                                 "embed.pos": take("embed/pos"),
+                                 "head": take("head")}
+    expect = {"embed.tok": (vocab, hidden), "head": (hidden, vocab),
+              "embed.pos": (sd["embed.pos"].shape[0], hidden)}
+    stage = {k[len("stages/"):].replace("block_", "layer_", 1): flat.pop(k)
+             for k in sorted(flat) if k.startswith("stages/")}
+    if flat:
+        raise ValueError(f"{who}: leaves with no place in the port's "
+                         f"PipelinedLM: {sorted(flat)}")
+    n = {a.shape[0] for a in stage.values()}
+    if len(n) != 1:
+        raise ValueError(f"{who}: the stage-stacked leaves' lead dims "
+                         f"differ: {sorted(n)}")
+    slices = []
+    for i in range(n.pop()):
+        part = {k: a[i] for k, a in stage.items()}
+        blocks, shapes = _transformer_blocks(part, _taker(part, who),
+                                             hidden, who)
+        if part:
+            raise ValueError(f"{who}: leaves with no place in a stage: "
+                             f"{sorted(part)}")
+        slices.append(blocks)
+    for k in slices[0]:
+        name = "stages." + k.replace("layers.", "block_", 1)
+        sd[name] = np.stack([b[k] for b in slices])
+        expect[name] = (len(slices), *shapes[k])
+    return _finish(sd, expect, who)
+
+
 def cnn_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` of ``BasicNN`` or a ``ResNet`` from the
     flax ``variables`` dict (``params`` and, with BatchNorm,
@@ -364,11 +412,16 @@ def _jax_leaf_names(module: nn.Module) -> Dict[str, str]:
     BatchNorm's running statistics (in ``batch_stats``), the experts'
     stacked kernels and ViT's own ``cls_token`` and ``pos_embed``."""
     from stoke_tpu_torch.models.moe import MoEFFN
+    from stoke_tpu_torch.models.pipelined_lm import PipelinedLM, _Embed
     from stoke_tpu_torch.models.resnet import BatchNorm, Conv
     from stoke_tpu_torch.models.vit import ViT
 
     if isinstance(module, MoEFFN):
         return {"w_in": "w_in", "w_out": "w_out"}
+    if isinstance(module, PipelinedLM):
+        return {"head": "head"}
+    if isinstance(module, _Embed):
+        return {"tok": "tok", "pos": "pos"}
     if isinstance(module, ViT):
         return {"cls_token": "cls_token", "pos_embed": "pos_embed"}
     if isinstance(module, (Conv, nn.Linear)):
@@ -419,14 +472,19 @@ def jax_param_layout(model: nn.Module) -> Dict[
     ``qkv`` (a flax ``DenseGeneral((3, heads, D))``: kernel ``[hidden, 3,
     heads, D]``, bias ``[3, heads, D]``), whose flat order is the
     transposed weight's (under a Megatron split, this rank's heads:
-    ``[hidden, 3, heads / T, D]``). Sorting by path gives the JAX flatten
-    order.
+    ``[hidden, 3, heads / T, D]``). A ``PipelinedLM``'s stage-stacked
+    tensors keep their leading stage dim (the slices this rank holds)
+    before a slice's layout. Sorting by path gives the JAX flatten order.
     Raises ``ValueError`` as :func:`jax_paths` for a tensor with no JAX
     leaf."""
     from stoke_tpu_torch.models.bert import MultiHeadAttention
+    from stoke_tpu_torch.models.pipelined_lm import PipelinedLM
     from stoke_tpu_torch.models.resnet import Conv
 
     paths = jax_paths(model)
+    stacked = tuple(f"{n}.stages." if n else "stages."
+                    for n, m in model.named_modules()
+                    if isinstance(m, PipelinedLM))
     out = {}
     for mname, module in model.named_modules():
         heads = None
@@ -436,19 +494,37 @@ def jax_param_layout(model: nn.Module) -> Dict[
                 heads = parent.heads
         for tname, p in module.named_parameters(recurse=False):
             full = f"{mname}.{tname}" if mname else tname
+            # a stacked tensor: the layout of one slice, after its lead
+            lead = tuple(p.shape[:1]) if full.startswith(stacked) else ()
+            sshape = tuple(p.shape[len(lead):])
             perm = None
             if tname == "weight" and isinstance(module, (Conv, nn.Linear)):
-                perm = (1, 0) if p.dim() == 2 else (2, 3, 1, 0)
+                perm = (1, 0) if len(sshape) == 2 else (2, 3, 1, 0)
             # by shape alone: fsdp's parameters may hold no storage
-            shape = tuple(p.shape[d] for d in perm) if perm else tuple(
-                p.shape)
+            shape = tuple(sshape[d] for d in perm) if perm else sshape
             if heads is not None:
                 d = parent.hidden // heads
                 cols = shape[1] if tname == "weight" else shape[0]
                 tail = (3, cols // (3 * d), d)
                 shape = (shape[0], *tail) if tname == "weight" else tail
-            out[full] = (paths[full][1:], perm, shape)
+            if lead and perm:
+                perm = (0, *(i + 1 for i in perm))
+            out[full] = (paths[full][1:], perm, (*lead, *shape))
     return out
+
+
+def jax_params_from_port(model: nn.Module) -> dict:
+    """The inverse of the converters: the JAX ``params`` tree (nested
+    dicts of fp32 numpy arrays) of ``model``'s parameters as it holds
+    them, each permuted and reshaped by :func:`jax_param_layout` (for a
+    ``PipelinedLM``, the stage-stacked leaves whole; a consolidated tag
+    loads into one)."""
+    flat = {}
+    for name, (path, perm, shape) in jax_param_layout(model).items():
+        t = model.get_parameter(name).detach()
+        t = t.permute(perm) if perm else t
+        flat[path] = t.reshape(shape).float().cpu().numpy()
+    return _nest(flat)
 
 
 #: the optax optimizers the port pairs with a torch optimizer, by optax

@@ -84,6 +84,12 @@ same parameters writes), which ``load`` cuts again. A model's auxiliary
 losses (MoE) join the objective as ``aux_loss_weight * sum(aux)``;
 ``aux_losses`` holds the last forward's, and no checkpoint does.
 
+Pipeline parallelism: a ``("data", "stage")`` mesh, or a ``("stage",)``
+one (built as ``(1, n)``: every process takes the same rows), with
+``pipeline_parallel_rules`` cuts a ``PipelinedLM``'s stage-stacked
+tensors to this rank's ``stages[d::S]`` and gives the model its stage
+group, the same way; the processes of one data row take the same rows.
+
 ``TelemetryConfig`` writes ``steps.jsonl`` (the JAX step-event schema),
 ``metrics.prom`` and a TensorBoard stream under its ``output_dir`` at its
 cadence; ``TraceConfig`` keeps a ring of host spans (``stoke/<phase>`` on
@@ -867,7 +873,7 @@ class Stoke:
         if self._mesh.ndim == 1:
             self._group = self._mesh.get_group()
         elif second != dpc.seq_axis_name:
-            # a model or expert axis: the ladder reduces over the data
+            # a model, expert or stage axis: the ladder reduces over the data
             # sub-group, io and the broadcast span the world
             self._group = dist.group.WORLD
             self._data_group = data_coordinates(self._mesh,
@@ -905,8 +911,8 @@ class Stoke:
 
     def _split_model(self, rules) -> TensorParallel:
         """Cut the (broadcast) whole model by the partition rules over the
-        mesh's model or expert axis; under a sequence axis no rule may name
-        an axis (ROADMAP item 8e)."""
+        mesh's model, expert or stage axis; under a sequence axis no rule
+        may name an axis (ROADMAP item 8e)."""
         dpc = self._status_obj.dp_config
         names = tuple(self._mesh.mesh_dim_names)
         if dpc.seq_axis_name in names and self._mesh.ndim == 2:

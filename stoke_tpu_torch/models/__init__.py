@@ -17,6 +17,10 @@ from stoke_tpu_torch.models.moe import (
     MoETransformerBlock,
     moe_expert_parallel_rules,
 )
+from stoke_tpu_torch.models.pipelined_lm import (
+    PipelinedLM,
+    pipeline_parallel_rules,
+)
 from stoke_tpu_torch.models.resnet import (
     BatchNorm,
     ResNet,
@@ -52,6 +56,8 @@ __all__ = [
     "MoEFFN",
     "MoETransformerBlock",
     "moe_expert_parallel_rules",
+    "PipelinedLM",
+    "pipeline_parallel_rules",
     "ResNet",
     "ResNet18",
     "ResNet34",

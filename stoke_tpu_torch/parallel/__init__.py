@@ -3,10 +3,10 @@
 (:mod:`~stoke_tpu_torch.parallel.sharding`, with the partition rules),
 their collectives (:mod:`~stoke_tpu_torch.parallel.ladder`), the
 quantized gradient transports (:mod:`~stoke_tpu_torch.parallel.collectives`,
-:mod:`~stoke_tpu_torch.parallel.zero`) and tensor and expert parallelism
-(:mod:`~stoke_tpu_torch.parallel.tensor`). One process drives one device.
-Counterpart of ``stoke_tpu/parallel`` less pipeline parallelism (ROADMAP
-item 8c).
+:mod:`~stoke_tpu_torch.parallel.zero`), tensor, expert and stage splits
+(:mod:`~stoke_tpu_torch.parallel.tensor`) and pipeline parallelism
+(:mod:`~stoke_tpu_torch.parallel.pipeline`). One process drives one
+device. Counterpart of ``stoke_tpu/parallel``.
 """
 
 from stoke_tpu_torch.parallel.ladder import Ladder
@@ -15,6 +15,14 @@ from stoke_tpu_torch.parallel.mesh import (
     initialize_distributed,
     mesh_shape,
     one_process_group,
+)
+from stoke_tpu_torch.parallel.pipeline import (
+    Schedule,
+    local_pipeline,
+    pipeline,
+    pipeline_with_edges,
+    stack_stage_params,
+    virtual_pipeline,
 )
 from stoke_tpu_torch.parallel.sharding import (
     ShardingRules,
@@ -37,6 +45,7 @@ __all__ = [
     "Ladder",
     "ShardingRules",
     "ModelGroup",
+    "Schedule",
     "TensorParallel",
     "apply_partition_rules",
     "build_mesh",
@@ -45,10 +54,15 @@ __all__ = [
     "gather_from_group",
     "initialize_distributed",
     "leaf_partition_spec",
+    "local_pipeline",
     "make_sharding_rules",
     "mesh_shape",
     "one_process_group",
+    "pipeline",
+    "pipeline_with_edges",
     "reduce_from_group",
     "rule_entries",
     "shard_module",
+    "stack_stage_params",
+    "virtual_pipeline",
 ]

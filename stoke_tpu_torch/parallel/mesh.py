@@ -39,7 +39,8 @@ import torch.distributed as dist
 from stoke_tpu_torch.configs import DistributedInitConfig, MeshConfig
 
 _LATER_MESH = ("ROADMAP Queue 1 item 8e (meshes of three axes, dcn_axes "
-               "and partition rules beyond the Megatron and expert sets)")
+               "and partition rules beyond the Megatron, expert and stage "
+               "sets)")
 
 #: the directory of the newest one-process group's store (removed when
 #: a later group replaces it, or at exit)
@@ -167,14 +168,16 @@ def mesh_shape(shape: Optional[tuple], n: int, n_axes: int = 1) -> tuple:
 def build_mesh(mesh_config: MeshConfig, device: torch.device,
                data_axis: str = "data"):
     """The ``DeviceMesh`` over the process group's ranks: the 1-D mesh
-    ``mesh_config.axes[0]``, or a two-axis mesh of ``data_axis`` and one
-    more (a sequence, model or expert axis, in either order; the last
-    axis varies fastest over the ranks). ``shape`` may be None, or name
-    each axis's size with one ``-1`` inferred; its errors are the JAX
-    package's. Meshes of three or more axes, two axes without the data
-    axis and cross-host axes are refused (ROADMAP item 8e), and an
-    explicit device list: under the port each process brings its one
-    device."""
+    ``data_axis``, or a two-axis mesh of ``data_axis`` and one more (a
+    sequence, model, expert or stage axis, in either order; the last axis
+    varies fastest over the ranks). A 1-D mesh of another axis is the
+    ``(1, n)`` mesh of ``data_axis`` and it: every process takes the same
+    rows, as the JAX package replicates the batch over a mesh without its
+    data axis. ``shape`` may be None, or name each axis's size with one
+    ``-1`` inferred; its errors are the JAX package's. Meshes of three or
+    more axes, two axes without the data axis and cross-host axes are
+    refused (ROADMAP item 8e), and an explicit device list: under the
+    port each process brings its one device."""
     from torch.distributed.device_mesh import init_device_mesh
 
     axes = tuple(mesh_config.axes)
@@ -190,6 +193,8 @@ def build_mesh(mesh_config: MeshConfig, device: torch.device,
             "Stoke -- MeshConfig.devices has no meaning in the port: each "
             "process drives one device (launch one process a device)")
     shape = mesh_shape(mesh_config.shape, dist.get_world_size(), len(axes))
+    if len(axes) == 1 and axes[0] != data_axis:
+        axes, shape = (data_axis, axes[0]), (1, *shape)
     return init_device_mesh(device.type, shape, mesh_dim_names=axes)
 
 

@@ -1,5 +1,5 @@
-"""Tensor and expert parallelism of the port: the Megatron and expert
-splits, with their collectives written by hand.
+"""Tensor, expert and pipeline parallelism of the port: the Megatron,
+expert and stage splits, with their collectives written by hand.
 
 Counterpart of the JAX package's partition rules under a ``("data",
 "model")`` or ``("data", "expert")`` mesh (``PartitionRulesConfig``,
@@ -34,7 +34,7 @@ group and a replicated leaf once.
 
 The rules are matched against each tensor's JAX leaf path
 (:func:`stoke_tpu_torch.convert.jax_param_layout`), a rule's dims read in
-the JAX layout. Recognised are the leaves of the two published sets:
+the JAX layout. Recognised are the leaves of the three published sets:
 
 - Megatron: ``attention/qkv`` kernel ``[hidden, 3, heads, D]`` over
   heads (dim 2) and its bias ``[3, heads, D]`` (dim 1); ``attention/out``
@@ -44,12 +44,23 @@ the JAX layout. Recognised are the leaves of the two published sets:
   rows ``[:, heads_r]`` of its ``[3, heads, D, hidden]`` view, not one
   block of rows;
 - expert: ``moe/w_in`` ``[E, H, ff]`` and ``moe/w_out`` ``[E, ff, H]``
-  over the experts (dim 0); the router stays replicated.
+  over the experts (dim 0); the router stays replicated;
+- stage (``pipeline_parallel_rules``): every stage-stacked leaf of a
+  ``PipelinedLM`` (``stages/...``, ``[V·S, ...]``) over its dim 0. The
+  cut is strided, as the JAX package reshapes the stack to ``[V, S,
+  ...]`` and shards dim 1: rank ``d`` holds ``stages[d::S]``. The model
+  gets the group (:mod:`~stoke_tpu_torch.parallel.pipeline` runs its
+  schedule over it); the embedding and the head stay whole. There the
+  invariant holds of every tensor outside the stages: every rank of a
+  stage group takes the same rows and ends with the whole batch's logits
+  (the model's docstring).
 
 Any other placement on a mesh axis, a column-parallel product without its
-row-parallel partner and a split bias without its kernel are refused
+row-parallel partner, a split bias without its kernel and a stage set
+that leaves a stacked leaf whole or places another dim are refused
 (``NotImplementedError`` naming the leaf and ROADMAP item 8e), and a
-head, ff or expert count the axis does not divide raises ``ValueError``.
+head, ff, expert or stage count the axis does not divide raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -69,7 +80,8 @@ from stoke_tpu_torch.parallel.sharding import (
 )
 
 LATER_RULES = ("ROADMAP Queue 1 item 8e (meshes of three axes, dcn_axes "
-               "and partition rules beyond the Megatron and expert sets)")
+               "and partition rules beyond the Megatron, expert and stage "
+               "sets)")
 
 
 @dataclass(frozen=True)
@@ -276,7 +288,10 @@ class TensorParallel:
     def whole_copy(self, model: nn.Module, memo=None) -> nn.Module:
         """A copy of the split ``model`` made whole: every cut parameter
         gathered over the group, every block's group dropped (collective:
-        each rank of the group calls it)."""
+        each rank of the group calls it). The copy shares the group until
+        it drops it: a process group cannot be copied."""
+        memo = {} if memo is None else memo
+        memo.setdefault(id(self.group), self.group)
         out = copy.deepcopy(model, memo)
         for name in self.cuts:
             owner, _, attr = name.rpartition(".")
@@ -334,10 +349,10 @@ def apply_partition_rules(model: nn.Module, rules, mesh,
 def shard_module(model: nn.Module, rules, group: ModelGroup) -> TensorParallel:
     """Cut each parameter of ``model`` that ``rules`` place on
     ``group.axis`` down to rank ``group.rank``'s slice, and give the
-    attention blocks their local heads, the FFNs their local ff and the
-    MoE FFNs their local experts, with ``group``. The rule set is
-    recognised by the leaves it places (the module docstring); anything
-    else raises."""
+    attention blocks their local heads, the FFNs their local ff, the
+    MoE FFNs their local experts and a ``PipelinedLM`` its stages, with
+    ``group``. The rule set is recognised by the leaves it places (the
+    module docstring); anything else raises."""
     from stoke_tpu_torch.convert import jax_param_layout
     from stoke_tpu_torch.models.bert import (
         MultiHeadAttention,
@@ -370,7 +385,7 @@ def shard_module(model: nn.Module, rules, group: ModelGroup) -> TensorParallel:
                           f"{group.axis or 'second'!s} axis")
         on_axis[name] = named[0][0]
 
-    cuts: Dict[str, Cut] = {}
+    cuts = _stage_cuts(model, on_axis, paths, group)
     for mname, m in model.named_modules():
         if isinstance(m, MultiHeadAttention):
             kind, count, what = _ATTENTION, m.heads, "heads"
@@ -415,7 +430,7 @@ def shard_module(model: nn.Module, rules, group: ModelGroup) -> TensorParallel:
     left = sorted(set(on_axis) - set(cuts))
     if left:
         raise _refuse(paths[left[0]], "split", "the port splits only the "
-                      "Megatron and expert leaves")
+                      "Megatron, expert and stage leaves")
     with torch.no_grad():
         for name, cut in cuts.items():
             owner, _, attr = name.rpartition(".")
@@ -428,6 +443,49 @@ def shard_module(model: nn.Module, rules, group: ModelGroup) -> TensorParallel:
         if getattr(m, "group", None) is group:
             m.sync_widths()
     return TensorParallel(group, cuts, placed)
+
+
+def _stage_cuts(model: nn.Module, on_axis: Dict[str, int],
+                paths: Dict[str, str], group: ModelGroup) -> Dict[str, Cut]:
+    """The strided cut of each ``PipelinedLM``'s stage set that the rules
+    place on ``group.axis`` (taken out of ``on_axis``); each such model
+    gets ``group``. A set placed in part, or on another dim than the
+    stacked stage dim, is refused."""
+    from stoke_tpu_torch.models.pipelined_lm import PipelinedLM
+
+    cuts: Dict[str, Cut] = {}
+    for mname, m in model.named_modules():
+        if not isinstance(m, PipelinedLM):
+            continue
+        prefix = f"{mname}.stages." if mname else "stages."
+        names = [n for n in paths if n.startswith(prefix)]
+        on = [n for n in names if n in on_axis]
+        if not on:
+            continue
+        for n in on:
+            if on_axis[n] != 0:
+                raise _refuse(paths[n], f"dim {on_axis[n]}", "the stage "
+                              "set places the stacked stage dim, dim 0")
+        if len(on) != len(names):
+            missing = [paths[n] for n in names if n not in on]
+            raise NotImplementedError(
+                f"Stoke -- the partition rules place {len(on)} of the "
+                f"{len(names)} stage-stacked leaves on the {group.axis!r} "
+                f"axis but not {missing}: the stage set places every leaf "
+                f"under stages/; {LATER_RULES}")
+        lead = model.get_parameter(on[0]).shape[0]
+        if lead % group.size:
+            raise ValueError(
+                f"Stoke -- partition rule places {paths[on[0]]} dim 0 "
+                f"({lead} stages) on the {group.axis!r} axis of "
+                f"{group.size} devices, which does not divide it")
+        for n in on:
+            shape = tuple(model.get_parameter(n).shape)
+            cuts[n] = Cut(shape, (lead // group.size, group.size,
+                                  *shape[1:]), 1, group.size)
+            del on_axis[n]
+        m.group = group
+    return cuts
 
 
 def _cut_for(module: nn.Module, key: str, shape: tuple, size: int) -> Cut:

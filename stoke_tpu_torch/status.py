@@ -16,14 +16,14 @@ Legality comes first (``StokeValidationError``). Only then does
 run yet: ``CompileConfig`` (:data:`LATER_CONFIGS`); a mesh of three or
 more axes, of two axes without the data axis, or with cross-host axes
 (item 8e); the oss / sddp / fsdp tiers under a sequence axis, and the
-tiers, a ``CommConfig`` and the sharded checkpoint format under a model
-or expert axis of more than one (item 8d; a size the mesh shape leaves
-to be inferred is checked again once the mesh is built).
+tiers, a ``CommConfig`` and the sharded checkpoint format under a model,
+expert or stage axis of more than one (item 8d; a size the mesh shape
+leaves to be inferred is checked again once the mesh is built).
 ``distributed`` (``"dp"`` and its aliases), the oss/sddp/fsdp tiers, the
 gradient transports, the ``("data", "seq")`` mesh with
 ``DataParallelConfig.shard_seq_dim``, a ``("data", X)`` mesh with
-``PartitionRulesConfig`` (tensor and expert parallelism), and every other
-config class run.
+``PartitionRulesConfig`` (tensor, expert and pipeline parallelism), and
+every other config class run.
 
 :func:`serve_config_error` holds the serving rules with the JAX package's
 messages, but for the rule that refuses the TPU decode kernel on the CPU:
@@ -93,7 +93,7 @@ from stoke_tpu_torch.resilience import (
 
 _ITEM = "ROADMAP Queue 1 item"
 _LATER_MESH = (f"{_ITEM} 8e (meshes of three axes, dcn_axes and partition "
-               f"rules beyond the Megatron and expert sets)")
+               f"rules beyond the Megatron, expert and stage sets)")
 #: the message tail of what a second mesh axis does not run yet
 LATER_SECOND_AXIS = (f"{_ITEM} 8d (the ZeRO tiers, the chunked head, the "
                      f"transports and the sharded format under a second "

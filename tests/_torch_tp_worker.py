@@ -97,6 +97,14 @@ def gpt(inputs, rank, world) -> dict:
     s.backward(s.loss(s.model(x), x))
     invariant = _replicated_grads_equal(s)
     s.step()
+    # the split made whole again (collective), against the split's logits
+    whole = tp.whole_copy(s.model_access)
+    with torch.no_grad():
+        s.eval()
+        whole_copy = {"split": s.model(x).numpy(),
+                      "whole": whole.eval()(x).numpy(),
+                      "heads": whole.layers[0].attention.local_heads}
+        s.train()
     tag = s.save(os.path.join(inputs["out_dir"], "tp_ckpt"))
     saved = _whole(s)
     local = {n: t.detach().clone()
@@ -122,6 +130,7 @@ def gpt(inputs, rank, world) -> dict:
     out = {"losses": losses, "weights": weights, "shapes": shapes,
            "sampler": sampler,
            "invariant": invariant, "tag": tag, "saved": saved,
+           "whole_copy": whole_copy,
            "reloaded": reloaded, "counts": s.num_model_parameters(),
            "overrides": len(s.sharding_rules.overrides),
            "data_rank": s.mesh.get_local_rank("data"),

@@ -35,64 +35,89 @@ def test_forbidden_matches_the_jax_package_only():
     assert not _forbidden("jaxtyping")
 
 
-@pytest.mark.parametrize("module", ["stoke_tpu_torch.serving.engine",
-                                    "stoke_tpu_torch.convert",
-                                    "stoke_tpu_torch.facade",
-                                    "stoke_tpu_torch.engine",
-                                    "stoke_tpu_torch.data",
-                                    "stoke_tpu_torch.status",
-                                    "stoke_tpu_torch.models.basic",
-                                    "stoke_tpu_torch.models.resnet",
-                                    "stoke_tpu_torch.models.vit",
-                                    "stoke_tpu_torch.ops.chunked_ce",
-                                    "stoke_tpu_torch.io_ops",
-                                    "stoke_tpu_torch.utils",
-                                    "stoke_tpu_torch.utils.printing",
-                                    "stoke_tpu_torch.utils.trees",
-                                    "stoke_tpu_torch.utils.yaml_config",
-                                    "stoke_tpu_torch.utils.tb_writer",
-                                    "stoke_tpu_torch.native",
-                                    "stoke_tpu_torch.models.bert",
-                                    "stoke_tpu_torch.parallel",
-                                    "stoke_tpu_torch.parallel.mesh",
-                                    "stoke_tpu_torch.parallel.sharding",
-                                    "stoke_tpu_torch.parallel.ladder",
-                                    "stoke_tpu_torch.parallel.collectives",
-                                    "stoke_tpu_torch.parallel.zero",
-                                    "stoke_tpu_torch.ops.quant",
-                                    "stoke_tpu_torch.serving.quant",
-                                    "stoke_tpu_torch.utils.prng",
-                                    "stoke_tpu_torch.telemetry",
-                                    "stoke_tpu_torch.telemetry.events",
-                                    "stoke_tpu_torch.telemetry.sinks",
-                                    "stoke_tpu_torch.telemetry.tracing",
-                                    "stoke_tpu_torch.telemetry.recorder",
-                                    "stoke_tpu_torch.telemetry.collectors",
-                                    "stoke_tpu_torch.telemetry.health",
-                                    "stoke_tpu_torch.telemetry.fleet",
-                                    "stoke_tpu_torch.resilience",
-                                    "stoke_tpu_torch.offload",
-                                    "stoke_tpu_torch.supervise",
-                                    "stoke_tpu_torch.remat",
-                                    "stoke_tpu_torch.telemetry.attribution",
-                                    "stoke_tpu_torch.telemetry.memory",
-                                    "stoke_tpu_torch.telemetry.numerics",
-                                    "stoke_tpu_torch.serving.slo",
-                                    "stoke_tpu_torch.serving.roofline",
-                                    "stoke_tpu_torch.telemetry.opsplane",
-                                    "stoke_tpu_torch.ops.attention",
-                                    "stoke_tpu_torch.parallel.tensor",
-                                    "stoke_tpu_torch.models.moe"])
-def test_import_loads_no_jax_module(module):
+MODULES = [
+    "stoke_tpu_torch.serving.engine",
+    "stoke_tpu_torch.convert",
+    "stoke_tpu_torch.facade",
+    "stoke_tpu_torch.engine",
+    "stoke_tpu_torch.data",
+    "stoke_tpu_torch.status",
+    "stoke_tpu_torch.models.basic",
+    "stoke_tpu_torch.models.resnet",
+    "stoke_tpu_torch.models.vit",
+    "stoke_tpu_torch.ops.chunked_ce",
+    "stoke_tpu_torch.io_ops",
+    "stoke_tpu_torch.utils",
+    "stoke_tpu_torch.utils.printing",
+    "stoke_tpu_torch.utils.trees",
+    "stoke_tpu_torch.utils.yaml_config",
+    "stoke_tpu_torch.utils.tb_writer",
+    "stoke_tpu_torch.native",
+    "stoke_tpu_torch.models.bert",
+    "stoke_tpu_torch.parallel",
+    "stoke_tpu_torch.parallel.mesh",
+    "stoke_tpu_torch.parallel.sharding",
+    "stoke_tpu_torch.parallel.ladder",
+    "stoke_tpu_torch.parallel.collectives",
+    "stoke_tpu_torch.parallel.zero",
+    "stoke_tpu_torch.ops.quant",
+    "stoke_tpu_torch.serving.quant",
+    "stoke_tpu_torch.utils.prng",
+    "stoke_tpu_torch.telemetry",
+    "stoke_tpu_torch.telemetry.events",
+    "stoke_tpu_torch.telemetry.sinks",
+    "stoke_tpu_torch.telemetry.tracing",
+    "stoke_tpu_torch.telemetry.recorder",
+    "stoke_tpu_torch.telemetry.collectors",
+    "stoke_tpu_torch.telemetry.health",
+    "stoke_tpu_torch.telemetry.fleet",
+    "stoke_tpu_torch.resilience",
+    "stoke_tpu_torch.offload",
+    "stoke_tpu_torch.supervise",
+    "stoke_tpu_torch.remat",
+    "stoke_tpu_torch.telemetry.attribution",
+    "stoke_tpu_torch.telemetry.memory",
+    "stoke_tpu_torch.telemetry.numerics",
+    "stoke_tpu_torch.serving.slo",
+    "stoke_tpu_torch.serving.roofline",
+    "stoke_tpu_torch.telemetry.opsplane",
+    "stoke_tpu_torch.ops.attention",
+    "stoke_tpu_torch.parallel.tensor",
+    "stoke_tpu_torch.models.moe",
+    "stoke_tpu_torch.parallel.pipeline",
+    "stoke_tpu_torch.models.pipelined_lm",
+]
+
+
+@pytest.fixture(scope="module")
+def loaded_after():
+    """One interpreter imports MODULES in turn and records, after each
+    import, every module loaded by then (or the import's error)."""
     code = (
-        f"import sys, json, {module}\n"
-        "print(json.dumps(sorted(sys.modules)))\n"
+        "import importlib, json, sys, traceback\n"
+        "out = {}\n"
+        f"for m in {MODULES!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "        out[m] = sorted(sys.modules)\n"
+        "    except Exception:\n"
+        "        out[m] = traceback.format_exc()\n"
+        "print(json.dumps(out))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-        text=True, timeout=120, check=True,
+        text=True, timeout=240, check=True,
     ).stdout
-    loaded = json.loads(out.strip().splitlines()[-1])
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_loads_no_jax_module(module, loaded_after):
+    """Importing ``module`` (after the ones before it in MODULES) loads
+    no JAX module: a case fails when its own import pulls one in, and so
+    does every case after it."""
+    loaded = loaded_after[module]
+    assert isinstance(loaded, list), loaded
     assert module in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -561,6 +561,17 @@ def test_split_slices_and_counts(world, refs):
                                        r["gpt"]["data_rank"])
 
 
+def test_whole_copy_matches_the_split(world):
+    """``TensorParallel.whole_copy`` across processes (the group shared
+    by the copy, then dropped): the unsplit model of all heads, whose
+    logits are the split run's."""
+    for res in world:
+        got = res["gpt"]["whole_copy"]
+        assert got["heads"] == 2
+        np.testing.assert_allclose(got["whole"], got["split"], rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_consolidated_tag_is_a_whole_runs(world, refs, tmp_path):
     """The split world's consolidated tag holds the whole arrays: loaded
     at world 1 into the unsplit model they are the gathered weights bit
