@@ -313,6 +313,22 @@ Phases, one JSON line each; any failure exits nonzero:
    the unsplit 12-block stack on the same microbatches (fp32 within
    PIPE_FP32_RTOL; bf16 within twice the unsplit bf16 stack's own error
    against fp32), with the ticks, stage applications and useful ones.
+27. train_second_axis: GPT-base bf16 with the chunked head under oss,
+   sddp and fsdp, each with an int8 ``rs_ag`` transport, on a (data=1,
+   seq=1) mesh with ``shard_seq_dim=1`` against the same tier on the 1-D
+   data mesh (4 eager steps, a window of 2 one-step windows, 2 timed
+   replays): losses, masters, launches, the transport's bytes and
+   residual bit for bit, a window captured, the flash and quantize pair
+   launched; GPT-base under ``gpt_tensor_parallel_rules`` on a (data=1,
+   model=1) mesh with fsdp, an int8 transport and the sharded format,
+   emergency-saved after 2 steps and resumed by a fresh ``Stoke``, bit
+   for bit against the uninterrupted run (the tag's bytes, save and load
+   ms); then at GPT-base's widths in one process the chunked head over S
+   = 2 and 4 virtual sequence shards against the unsharded one (fp32
+   within SA_CE_RTOL, bf16 rows within ``BWD_ROW_RTOL_BF16``), and the
+   transport's JAX-layout buckets of 2 virtual model ranks against the
+   unsplit model's, with the quantize kernel's payload and scales, bit
+   for bit.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -6805,12 +6821,398 @@ def train_pipeline(ops, t_main: float) -> dict:
     }
 
 
-def quant_rows(cases, comm, served, elastic) -> list:
+SA_EAGER = 4              # eager steps a run, then a window of SA_WINDOW
+SA_WINDOW = 2             # one-step windows (the second replayed)
+SA_REPLAYS = 2            # timed one-window replays
+SA_SPLIT = 2              # eager steps before the sharded save
+#: the tiers under the seq axis, each with an int8 rs_ag transport
+SA_TIERS = ("oss", "oss_sddp", "fsdp")
+#: the virtual sequence shard counts of the chunked head
+SA_SHARDS = (2, 4)
+SA_CE_RTOL = 1e-5         # the fp32 chunked head's shards against unsharded
+SA_TP = 2                 # the virtual model ranks of the transport layout
+
+
+def sa_run(ops, mesh, tier: str, batches, device="cuda", layers=N_LAYERS,
+           batch=TRAIN_BATCH) -> dict:
+    """GPT-base bf16 (flash, chunked head) under ``tier`` with an int8
+    ``rs_ag`` transport: SA_EAGER eager steps, ``train_steps`` of SA_WINDOW
+    one-step windows (the second replayed) and SA_REPLAYS timed one-window
+    replays, on a (data=1, seq=1) mesh with ``shard_seq_dim=1``
+    (``mesh``) or on the 1-D data mesh: losses, masters' digest, launches,
+    windows captured, step ms and the run's peak rise."""
+    from stoke_tpu_torch.configs import (
+        CommConfig,
+        DataParallelConfig,
+        MeshConfig,
+    )
+    from stoke_tpu_torch.ops.chunked_ce import chunked_causal_lm_loss
+
+    configs = [CommConfig(dtype="int8", strategy="rs_ag")]
+    if mesh:
+        configs += [MeshConfig(axes=("data", "seq"), shape=(1, 1)),
+                    DataParallelConfig(shard_seq_dim=1)]
+    before = dict(ops.LAUNCHES)
+    start = peak_start() if device == "cuda" else 0
+    s = stoke_for(gpt_base("flash", layers=layers, chunked_head=True,
+                           device=device), "bf16", batch,
+                  loss=chunked_causal_lm_loss, seed=SEED, configs=configs,
+                  distributed="dp", device=device, **DP_TIERS[tier])
+    losses, ms = eager_steps(s, [batches[i] for i in range(SA_EAGER)])
+    seg = batches[SA_EAGER:SA_EAGER + SA_WINDOW]
+    losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+    one = batches[-1:]
+    replay_ms = [timed_ms(lambda: s.train_steps(one, one))
+                 for _ in range(SA_REPLAYS)]
+    out = {"losses": losses, "digest": masters_digest(s),
+           "launches": {n: ops.LAUNCHES[n] - before[n]
+                        for n in (*FLASH, *QUANT_NAMES)},
+           "windows_captured": len(s._engine._windows),
+           "eager_ms": ms, "replay_ms": replay_ms,
+           "comm_bytes": s.comm_bytes,
+           "residual": [r.numel() for r in
+                        s._engine.comm_state.get("residual", [])],
+           **(peaks(start) if device == "cuda" else {})}
+    s.close_telemetry()
+    del s
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def sa_model_stoke(root: str, device="cuda", layers=N_LAYERS,
+                   batch=TRAIN_BATCH):
+    """GPT-base bf16 under ``gpt_tensor_parallel_rules`` on a (data=1,
+    model=1) mesh with fsdp, an int8 transport, the sharded format and a
+    ``ResilienceConfig`` under ``root`` (whose emergency tags carry the
+    transport's residual and key)."""
+    from stoke_tpu_torch.configs import (
+        CheckpointConfig,
+        CheckpointFormat,
+        CommConfig,
+        MeshConfig,
+        PartitionRulesConfig,
+        ResilienceConfig,
+    )
+    from stoke_tpu_torch.models import gpt_tensor_parallel_rules
+
+    return stoke_for(
+        gpt_base("flash", layers=layers, device=device), "bf16", batch,
+        seed=SEED, distributed="dp", fsdp=True, device=device,
+        configs=[MeshConfig(axes=("data", "model"), shape=(1, 1)),
+                 PartitionRulesConfig(rules=gpt_tensor_parallel_rules()),
+                 CommConfig(dtype="int8"),
+                 CheckpointConfig(format=CheckpointFormat.sharded),
+                 ResilienceConfig(save_path=root, exit_on_preempt=False)])
+
+
+def sa_format(ops, root: str, batches, device="cuda", layers=N_LAYERS,
+              batch=TRAIN_BATCH) -> dict:
+    """The model mesh's fsdp run with the sharded format: SA_EAGER steps
+    uninterrupted, against SA_SPLIT steps, an emergency save (sharded),
+    a fresh ``Stoke`` that resumes it, and the remaining steps: losses and
+    masters bit for bit; the tag's bytes, save and load ms."""
+    n = SA_EAGER
+    ref = sa_model_stoke(os.path.join(root, "ref"), device, layers, batch)
+    ref_losses, _ = eager_steps(ref, [batches[i] for i in range(n)])
+    ref_digest = masters_digest(ref)
+    split = sorted({k.split(".")[-2] + "." + k.split(".")[-1]
+                    for k in ref.tensor_parallel.cuts})
+    ref.close_telemetry()
+    del ref
+    before = dict(ops.LAUNCHES)
+    s = sa_model_stoke(os.path.join(root, "cut"), device, layers, batch)
+    losses, _ = eager_steps(s, [batches[i] for i in range(SA_SPLIT)])
+    t0 = time.perf_counter()
+    tag = s._emergency_save()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    s.close_telemetry()
+    del s
+    tag_bytes = sum(os.path.getsize(os.path.join(tag, f))
+                    for f in os.listdir(tag))
+    with open(os.path.join(tag, "meta.json")) as f:
+        meta = json.load(f)
+    fresh = sa_model_stoke(os.path.join(root, "cut"), device, layers, batch)
+    t0 = time.perf_counter()
+    resumed = fresh.resume()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    more, _ = eager_steps(fresh, [batches[i] for i in range(SA_SPLIT, n)])
+    losses += more
+    out = {"losses": losses, "reference_losses": ref_losses,
+           "digest": masters_digest(fresh), "reference_digest": ref_digest,
+           "resumed": resumed, "split": split,
+           "launches": {k: ops.LAUNCHES[k] - before[k]
+                        for k in (*FLASH, *QUANT_NAMES)},
+           "tag_bytes": tag_bytes, "save_ms": save_ms, "load_ms": load_ms,
+           "files": sorted(os.listdir(tag)),
+           "layout_mesh": meta.get("mesh"),
+           "cut_leaves": sum(1 for leaves in meta.get("leaves", {}).values()
+                             for leaf in leaves.values() if "cut" in leaf)}
+    fresh.close_telemetry()
+    return out
+
+
+def sa_chunked(dtype, device="cuda", B=TRAIN_BATCH, L=TRAIN_LEN, H=768,
+               V=VOCAB) -> dict:
+    """GPT's chunked head over S virtual sequence shards in one process
+    (``chunked_shard_terms``: each shard's sum over its positions against
+    the whole sequence's next tokens, summed over the shards, over the
+    summed count) against the unsharded chunked loss, at GPT-base's
+    hidden ``[B, L, H]`` and its 50257-row embedding: the loss and the
+    gradients of the hidden states and of the embedding. fp32 within
+    SA_CE_RTOL of each tensor's largest magnitude; under the bf16 policy
+    (``compute_dtype``) the gradients' rows within BWD_ROW_RTOL_BF16."""
+    from stoke_tpu_torch.ops.attention import SeqShard
+    from stoke_tpu_torch.ops.chunked_ce import (
+        chunked_causal_lm_loss,
+        chunked_shard_terms,
+        compute_dtype,
+    )
+
+    fa = importlib.import_module("stoke_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=device).manual_seed(SEED)
+    hidden = torch.randn(B, L, H, generator=g, device=device)
+    emb = 0.02 * torch.randn(V, H, generator=g, device=device)
+    ids = torch.randint(0, V, (B, L), generator=g, device=device)
+    if dtype == BF16:
+        # the policy's fp32 copies of 16-bit values
+        hidden, emb = hidden.to(BF16).float(), emb.to(BF16).float()
+    policy = dtype if dtype == BF16 else None
+
+    def run(S):
+        h = hidden.clone().requires_grad_()
+        e = emb.clone().requires_grad_()
+        with compute_dtype(policy):
+            if S is None:
+                loss = chunked_causal_lm_loss((h, e), ids)
+            else:
+                Ls = L // S
+                terms = [chunked_shard_terms(
+                    h[:, r * Ls:(r + 1) * Ls], e, ids, None,
+                    SeqShard(None, r, S)) for r in range(S)]
+                loss = (sum(t for t, _ in terms)
+                        / sum(c for _, c in terms).clamp_min(1.0))
+        loss.backward()
+        return loss.detach(), h.grad, e.grad
+
+    def err(a, b):
+        if dtype == FP32:
+            return float((a - b).abs().max() / b.abs().max())
+        return fa.bwd_row_err(a.reshape(-1, a.shape[-1]),
+                              b.reshape(-1, b.shape[-1]))
+
+    ref = run(None)
+    out = []
+    for S in SA_SHARDS:
+        got = run(S)
+        loss_err = float((got[0] - ref[0]).abs() / ref[0].abs())
+        errs = {"dh": err(got[1], ref[1]), "de": err(got[2], ref[2])}
+        limit = SA_CE_RTOL if dtype == FP32 else fa.BWD_ROW_RTOL_BF16
+        out.append({"S": S, "dtype": str(dtype).split(".")[-1],
+                    "loss": float(got[0]), "loss_rel_err": loss_err,
+                    "grad_err": errs, "limit": limit,
+                    "ok": loss_err <= SA_CE_RTOL
+                    and all(v <= limit for v in errs.values())})
+    return {"unsharded_loss": float(ref[0]), "cases": out}
+
+
+class _VirtualSplit:
+    """The model split's collectives over T virtual ranks in one process:
+    ``gather`` joins the ranks' slices of a parameter (each rank's
+    gradient, registered by ``slices``), ``take`` cuts rank ``rank``'s."""
+
+    def __init__(self, cuts, rank: int, slices):
+        self.cuts, self.rank, self._slices = cuts, rank, slices
+
+    def gather(self, name, t):
+        return self.cuts[name].join(self._slices[name])
+
+    def take(self, name, whole):
+        return self.cuts[name].take(whole, self.rank)
+
+
+def sa_transport_layout(ops, device="cuda", layers=N_LAYERS) -> dict:
+    """GPT-base split over SA_TP virtual model ranks by the Megatron
+    rules: each rank's JAX-layout leaves (``JaxLeafOrder`` with the split:
+    its slices joined with the other ranks', in the JAX layout and order)
+    packed into the int8 transport's buckets, against the unsplit model's,
+    bit for bit; the quantize kernel's payload and scales on both, bit
+    for bit; and each rank's slices taken back from the whole leaves."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from stoke_tpu_torch.configs import CommConfig, ShardingOptions
+    from stoke_tpu_torch.models import gpt_tensor_parallel_rules
+    from stoke_tpu_torch.parallel import ModelGroup, shard_module
+    from stoke_tpu_torch.parallel.collectives import JaxLeafOrder
+    from stoke_tpu_torch.parallel.zero import make_transport
+
+    whole = gpt_base("flash", layers=layers, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    grads = {n: torch.randn(p.shape, generator=g, device=device)
+             for n, p in whole.named_parameters()}
+    params = list(whole.parameters())
+    names = [n for n, _ in whole.named_parameters()]
+    transport = make_transport(CommConfig(dtype="int8"),
+                               ShardingOptions.none)
+    cfg = transport.cfg
+    key = torch.tensor([0, SEED], dtype=torch.int64, device=device)
+
+    def buckets(order, tensors):
+        leaves = order.to_jax(tensors)
+        layout = transport._layout(order.sizes())
+        out = []
+        for idx, elems, padded in layout.buckets:
+            flat = torch.cat([leaves[i].reshape(-1).float() for i in idx])
+            out.append(F.pad(flat, (0, padded - elems)))
+        return out, leaves
+
+    ref, ref_leaves = buckets(JaxLeafOrder(whole, params),
+                              [grads[n] for n in names])
+    ranks = []
+    for r in range(SA_TP):
+        m = copy.deepcopy(whole)
+        ranks.append((m, shard_module(m, gpt_tensor_parallel_rules(),
+                                      ModelGroup(None, SA_TP, r, "model"))))
+    cuts = ranks[0][1].cuts
+    slices = {n: [cut.take(grads[n], r) for r in range(SA_TP)]
+              for n, cut in cuts.items()}
+    same, quant_same, back = True, True, True
+    before = ops.LAUNCHES["quantize_chunks"]
+    ref_q = [sa_quantize(ops, b, cfg, key, i) for i, b in enumerate(ref)]
+    for r, (m, tp) in enumerate(ranks):
+        mine = [tp.cuts[n].take(grads[n], r) if n in tp.cuts else grads[n]
+                for n, _ in m.named_parameters()]
+        order = JaxLeafOrder(m, list(m.parameters()),
+                             _VirtualSplit(cuts, r, slices))
+        got, leaves = buckets(order, mine)
+        same &= all(torch.equal(a, b) for a, b in zip(got, ref))
+        for i, b in enumerate(got):
+            q, s = sa_quantize(ops, b, cfg, key, i)
+            quant_same &= (torch.equal(q, ref_q[i][0])
+                           and torch.equal(s, ref_q[i][1]))
+        into = [torch.empty_like(t) for t in mine]
+        order.from_jax(leaves, into)
+        back &= all(torch.equal(a, b) for a, b in zip(into, mine))
+    return {"T": SA_TP, "buckets": len(ref),
+            "elements": int(sum(b.numel() for b in ref)),
+            "split": sorted(cuts), "buckets_equal": bool(same),
+            "quantized_equal": bool(quant_same),
+            "slices_back": bool(back),
+            "quantize_launches": ops.LAUNCHES["quantize_chunks"] - before,
+            "ok": bool(same and quant_same and back)}
+
+
+def sa_quantize(ops, flat, cfg, key, bucket: int):
+    """The transport's int8 quantize of bucket ``bucket`` (its
+    ``fold_in``)."""
+    return ops.quantize_chunks(flat, cfg.chunk_elems, key,
+                               cfg.stochastic_rounding, (bucket,))
+
+
+def train_second_axis(ops, device="cuda", layers=N_LAYERS,
+                      batch=TRAIN_BATCH) -> dict:
+    """The tiers, the transports, the sharded format and the chunked head
+    under a second mesh axis on the card, at world 1 (every mesh (1, 1)):
+    (a) GPT-base bf16 with the chunked head under oss, sddp and fsdp, each
+    with an int8 rs_ag transport, on a (data=1, seq=1) mesh with
+    ``shard_seq_dim=1`` against the same tier on the 1-D data mesh
+    (:func:`sa_run`): losses and masters bit for bit, a window captured,
+    the flash and quantize pair launched; (b) the model mesh's fsdp run
+    with the sharded format resumed after SA_SPLIT steps
+    (:func:`sa_format`) bit for bit; (c) the chunked head over S = 2 and 4
+    virtual sequence shards (:func:`sa_chunked`) and the transport's
+    layout over SA_TP virtual model ranks (:func:`sa_transport_layout`) at
+    GPT-base's widths."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    batches = window_batches(SA_EAGER + SA_WINDOW)
+    if batch != TRAIN_BATCH or device != "cuda":
+        batches = batches[:, :batch, :128].to(device)
+    failures = []
+    runs = {}
+    root = tempfile.mkdtemp(prefix="stoke-second-axis-")
+    try:
+        for tier in SA_TIERS:
+            for mesh in (False, True):
+                runs[f"{tier}_{'seq' if mesh else 'data'}"] = sa_run(
+                    ops, mesh, tier, batches, device, layers, batch)
+        fmt = sa_format(ops, root, batches, device, layers, batch)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    for tier in SA_TIERS:
+        a, b = runs[f"{tier}_seq"], runs[f"{tier}_data"]
+        for key in ("losses", "digest", "launches", "windows_captured",
+                    "comm_bytes", "residual"):
+            if a[key] != b[key]:
+                failures.append(f"{tier} seq vs data {key}: {a[key]} vs "
+                                f"{b[key]}")
+        # on the card (the CPU runs a window eagerly)
+        if device == "cuda" and a["windows_captured"] < 1:
+            failures.append(f"{tier}: no window captured")
+        if device == "cuda" and not all(a["launches"].values()):
+            failures.append(f"{tier}: launches {a['launches']}")
+    if (fmt["losses"] != fmt["reference_losses"]
+            or fmt["digest"] != fmt["reference_digest"]
+            or not fmt["resumed"] or not fmt["split"]
+            or not fmt["cut_leaves"]):
+        failures.append(f"sharded format: {fmt}")
+    virtual = {"chunked": {str(dt).split(".")[-1]: sa_chunked(dt, device)
+                           for dt in (FP32, BF16)},
+               "transport_layout": sa_transport_layout(ops, device, layers)}
+    for dt, v in virtual["chunked"].items():
+        for c in v["cases"]:
+            if not c["ok"]:
+                failures.append(f"virtual chunked head {dt}: {c}")
+    if not virtual["transport_layout"]["ok"]:
+        failures.append(f"transport layout: {virtual['transport_layout']}")
+    if failures:
+        raise AssertionError("train_second_axis: " + "; ".join(failures))
+
+    def p50(xs):
+        return float(np.median(xs)) if xs else None
+
+    seq = {k: v for k, v in runs.items() if k.endswith("_seq")}
+    return {
+        "phase": "train_second_axis",
+        "model": "GPT-base bf16 (flash, chunked head), B=8, L=1024, AdamW, "
+                 "clip 1.0, int8 rs_ag transport; every mesh (1, 1)",
+        "bit_for_bit": True,
+        "losses": {k: v["losses"] for k, v in runs.items()},
+        "launches": {k: v["launches"] for k, v in runs.items()},
+        "windows_captured": {k: v["windows_captured"] for k, v in
+                             seq.items()},
+        "eager_ms_p50": {k: p50(v["eager_ms"][1:]) for k, v in runs.items()},
+        "replay_ms_p50": {k: p50(v["replay_ms"]) for k, v in runs.items()},
+        "eager_ms": {k: v["eager_ms"] for k, v in runs.items()},
+        "replay_ms": {k: v["replay_ms"] for k, v in runs.items()},
+        "peak_gb": {k: v.get("peak_gb") for k, v in runs.items()},
+        "process_peak_gb": {k: v.get("process_peak_gb")
+                            for k, v in runs.items()},
+        "comm_bytes": runs["fsdp_seq"]["comm_bytes"],
+        "sharded_format": fmt,
+        "virtual": virtual,
+        "launches_total": {n: sum(v["launches"][n] for v in runs.values())
+                           + fmt["launches"][n]
+                           for n in (*FLASH, *QUANT_NAMES)},
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def quant_rows(cases, comm, served, elastic, second) -> list:
     """The kernels line's rows of the quantize pair: ``ms`` and its
     bound at the 25 MB bucket (stochastic, chunk 512), the case the
     transports launch; every case beside it; launches from train_comm
     (the quantize) and from train_comm and serve_quant (the
-    dequantize), and the elastic resume's steps (``elastic``, beside)."""
+    dequantize), and, beside, the elastic resume's steps (``elastic``)
+    and train_second_axis's runs (``second``)."""
     main_case = next(c for c in cases if c["n"] == QUANT_BUCKET
                      and c["chunk"] == 512 and c["stochastic"])
     rows = []
@@ -6828,6 +7230,7 @@ def quant_rows(cases, comm, served, elastic) -> list:
                "launches_train_comm": comm["launches"][name],
                "launches_serve_quant": served["launches"].get(name, 0),
                "launches_train_resilience": elastic[name],
+               "launches_train_second_axis": second[name],
                "max_abs_err": max(x["max_abs_err"] if key == "dequantize"
                                   else x["quantize_max_abs_err"]
                                   for x in cases),
@@ -6966,6 +7369,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipe = train_pipeline(ops, t_main)
     emit({**pipe, "card": smi})
+    torch.cuda.empty_cache()
+    second = train_second_axis(ops)
+    emit({**second, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -7000,6 +7406,9 @@ def main() -> int:
             out["launches_train_tp_ep"] = tpep["launches_total"][tel_key]
             # pipeline parallelism's runs (dense attention in the stages)
             out["launches_train_pipeline"] = pipe["launches_total"][tel_key]
+            # the tiers, transports and sharded format under a second axis
+            out["launches_train_second_axis"] = (
+                second["launches_total"][tel_key])
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]
@@ -7092,7 +7501,8 @@ def main() -> int:
                max(x["max_abs_err"] for x in verify), verify[0]),
          "graph_ms": verify[0]["graph_ms"],
          "launches_observatories": obsv["launches"]["paged_verify"]},
-        *quant_rows(quant, comm, squant, res["elastic"]["launches"]),
+        *quant_rows(quant, comm, squant, res["elastic"]["launches"],
+                    second["launches_total"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -461,7 +461,8 @@ def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     return out
 
 
-def jax_param_layout(model: nn.Module) -> Dict[
+def jax_param_layout(model: nn.Module,
+                     full_shapes: Optional[Dict[str, tuple]] = None) -> Dict[
         str, Tuple[Tuple[str, ...], Optional[Tuple[int, ...]], tuple]]:
     """Each parameter of ``model`` as the JAX package holds it: ``(path in
     the params tree, permutation, JAX shape)``. The permutation takes the
@@ -475,8 +476,11 @@ def jax_param_layout(model: nn.Module) -> Dict[
     ``[hidden, 3, heads / T, D]``). A ``PipelinedLM``'s stage-stacked
     tensors keep their leading stage dim (the slices this rank holds)
     before a slice's layout. Sorting by path gives the JAX flatten order.
-    Raises ``ValueError`` as :func:`jax_paths` for a tensor with no JAX
-    leaf."""
+    ``full_shapes`` gives a split tensor's whole shape in the port's layout
+    (``Cut.full``, by name): its JAX shape is then the global one, ``T x``
+    on the split dim (all heads of a ``qkv``) and ``[V*S, ...]`` for a
+    stage stack. Raises ``ValueError`` as :func:`jax_paths` for a tensor
+    with no JAX leaf."""
     from stoke_tpu_torch.models.bert import MultiHeadAttention
     from stoke_tpu_torch.models.pipelined_lm import PipelinedLM
     from stoke_tpu_torch.models.resnet import Conv
@@ -494,9 +498,10 @@ def jax_param_layout(model: nn.Module) -> Dict[
                 heads = parent.heads
         for tname, p in module.named_parameters(recurse=False):
             full = f"{mname}.{tname}" if mname else tname
+            pshape = tuple((full_shapes or {}).get(full, p.shape))
             # a stacked tensor: the layout of one slice, after its lead
-            lead = tuple(p.shape[:1]) if full.startswith(stacked) else ()
-            sshape = tuple(p.shape[len(lead):])
+            lead = pshape[:1] if full.startswith(stacked) else ()
+            sshape = pshape[len(lead):]
             perm = None
             if tname == "weight" and isinstance(module, (Conv, nn.Linear)):
                 perm = (1, 0) if len(sshape) == 2 else (2, 3, 1, 0)

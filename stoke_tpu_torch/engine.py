@@ -482,9 +482,11 @@ class StepEngine:
         if transport is not None and transport.cfg is not None:
             from stoke_tpu_torch.parallel.collectives import JaxLeafOrder
 
-            self.comm_order = JaxLeafOrder(module, self.params)
+            self.comm_order = JaxLeafOrder(module, self.params,
+                                           tp if tp is not None and tp.cuts
+                                           else None)
             self.comm_state = transport.init_state(
-                self.comm_order.sizes(self.params), self.device)
+                self.comm_order.sizes(), self.device)
         if self.device.type == "cuda":
             make_capturable(optimizer)
         self.sentinels = bool(sentinels)

@@ -84,6 +84,12 @@ same parameters writes), which ``load`` cuts again. A model's auxiliary
 losses (MoE) join the objective as ``aux_loss_weight * sum(aux)``;
 ``aux_losses`` holds the last forward's, and no checkpoint does.
 
+Under any two-axis mesh the tiers shard over the data axis alone, as the
+JAX rules place them (under ``seq`` the ladder also averages over the
+data row), a ``CommConfig`` packs the JAX package's global leaves and
+exchanges over the data sub-group, and the sharded format writes each
+slice once with the mesh and a placed leaf's cut in its layout.
+
 Pipeline parallelism: a ``("data", "stage")`` mesh, or a ``("stage",)``
 one (built as ``(1, n)``: every process takes the same rows), with
 ``pipeline_parallel_rules`` cuts a ``PipelinedLM``'s stage-stacked
@@ -183,13 +189,14 @@ from stoke_tpu_torch.ops.attention import (
     sharded,
     using_seq_shard,
 )
-from stoke_tpu_torch.parallel.ladder import Ladder
+from stoke_tpu_torch.parallel.ladder import Ladder, gather_by_rank
 from stoke_tpu_torch.parallel.mesh import (
     build_mesh,
     data_coordinates,
     initialize_distributed,
     local_rank,
     one_process_group,
+    other_coordinates,
 )
 from stoke_tpu_torch.parallel.sharding import make_sharding_rules
 from stoke_tpu_torch.parallel.tensor import (
@@ -206,11 +213,7 @@ from stoke_tpu_torch.resilience import (
     list_checkpoints,
     read_manifest,
 )
-from stoke_tpu_torch.status import (
-    StokeStatus,
-    StokeValidationError,
-    refuse_under_second_axis,
-)
+from stoke_tpu_torch.status import StokeStatus, StokeValidationError
 from stoke_tpu_torch.telemetry import Telemetry
 from stoke_tpu_torch.telemetry.fleet import timed_sync
 from stoke_tpu_torch.telemetry.health import (
@@ -446,9 +449,12 @@ class Stoke:
         #: and the sequence-parallel attention read it inside this Stoke's
         #: calls; None otherwise)
         self._seq_shard: Optional[SeqShard] = None
-        #: the data sub-group under a model or expert axis (the ladder's
-        #: group; None: the run's group is the data axis)
+        #: the data sub-group under a model, expert or stage axis (the
+        #: ladder's group; None: the run's group is the data axis)
         self._data_group = None
+        #: under a ("data", "seq") mesh, the ladder's groups: the data
+        #: sub-group and this process's data row (None otherwise)
+        self._seq_groups = None
         #: the model's Megatron or expert split (None without rules)
         self._tp: Optional[TensorParallel] = None
         if st.is_distributed:
@@ -457,10 +463,13 @@ class Stoke:
                  else 1)
         data_group = (self._data_group if self._data_group is not None
                       else self._group)
-        data_world = (dist.get_world_size(data_group)
-                      if data_group is not None else 1)
         data_rank = (dist.get_rank(data_group)
                      if data_group is not None else 0)
+        ladder_group, across = data_group, None
+        if self._seq_groups is not None:
+            ladder_group, across = self._seq_groups
+        ladder_world = (dist.get_world_size(ladder_group)
+                        if ladder_group is not None else 1)
         st.set_post_init_values(world_size=world, n_processes=world)
         if not isinstance(model, nn.Module):
             raise TypeError(
@@ -499,7 +508,7 @@ class Stoke:
         opt_params = self._module.parameters()
         prc = st.partition_rules_config
         self._rules = make_sharding_rules(
-            st.sharding_tier, data_world, st.oss_config, st.sddp_config,
+            st.sharding_tier, ladder_world, st.oss_config, st.sddp_config,
             st.fsdp_config, prc.rules if prc is not None else None)
         if self._group is not None:
             if world > 1:
@@ -512,9 +521,10 @@ class Stoke:
             placed = ({id(p) for n, p in self._module.named_parameters()
                        if n in self._tp.placed} if self._tp else set())
             self._ladder = Ladder(
-                params, self._rules, data_group,
+                params, self._rules, ladder_group,
                 keep_whole=[i for i, p in enumerate(params)
-                            if id(p) in placed])
+                            if id(p) in placed], across=across,
+                jax_layout=self._jax_layout(params))
             opt_params = self._ladder.opt_params
         self._engine = StepEngine(
             self._module, loss, build_optimizer(optimizer, opt_params),
@@ -523,7 +533,7 @@ class Stoke:
             precision_config=st.precision_config, generator=self._generator,
             ladder=self._ladder,
             transport=make_transport(st.comm_config, st.sharding_tier,
-                                     data_group),
+                                     ladder_group),
             sentinels=(st.health_config is not None
                        and st.health_config.sentinels),
             remat=st.activation_checkpointing_config,
@@ -878,15 +888,14 @@ class Stoke:
             self._group = dist.group.WORLD
             self._data_group = data_coordinates(self._mesh,
                                                 dpc.axis_name)[0]
-            refuse_under_second_axis(
-                st._second_axis_options(), second,
-                self._mesh.size(names.index(second)))
         else:
-            # dp reduces the gradients over the whole world; the seq
-            # sub-group carries the ring and Ulysses collectives
+            # the ladder reduces over the data sub-group, then over the data
+            # row, whose seq sub-group also carries the ring and Ulysses
+            # collectives; io and the broadcast span the world
             self._group = dist.group.WORLD
-            seq = self._mesh.get_group(dpc.seq_axis_name)
-            n_seq = dist.get_world_size(seq)
+            seq, n_seq, _ = other_coordinates(self._mesh, dpc.axis_name)
+            self._seq_groups = (
+                data_coordinates(self._mesh, dpc.axis_name)[0], seq)
             if n_seq > 1 and dpc.shard_seq_dim is None:
                 raise NotImplementedError(
                     f"Stoke -- a {dpc.seq_axis_name!r} mesh axis of size "
@@ -920,6 +929,25 @@ class Stoke:
                                 ModelGroup(None, 1, 0, None))
         return apply_partition_rules(self._module, rules, self._mesh,
                                      dpc.axis_name)
+
+    def _jax_layout(self, params) -> Optional[List[tuple]]:
+        """Each of ``params``' JAX shape and the JAX dims that are whole
+        dims of it (the ladder places a leaf as the JAX package does), or
+        None for a module the converters do not know."""
+        from stoke_tpu_torch.convert import jax_param_layout
+        from stoke_tpu_torch.parallel.sharding import jax_dim_map
+
+        try:
+            layout = jax_param_layout(self._module)
+        except ValueError:
+            return None
+        names = {id(p): n for n, p in self._module.named_parameters()}
+        out = []
+        for p in params:
+            entry = layout.get(names.get(id(p)))
+            out.append(None if entry is None else (
+                entry[2], jax_dim_map(p.shape, entry[1], entry[2])))
+        return out
 
     def _whole_params(self):
         """The module's parameters whole inside the block (under fsdp
@@ -1365,17 +1393,20 @@ class Stoke:
             "generator": self._generator.get_state().numpy(),
             "generator_device": self._device.type,
         }
+        sharded = config.format is CheckpointFormat.sharded
         if self._tp is not None and self._tp.cuts:
-            state = self._whole_state(state)
+            # the sharded format writes the model split's slices as they
+            # are (their accumulated gradients whole, with the ranks' own)
+            state = self._whole_state(state, grads_only=sharded)
         rank_state = layout = None
         if self._ladder is not None:
-            state, rank_state, layout = self._split_by_rank(
-                state, config.format is CheckpointFormat.sharded)
-            if self._ladder.world > 1:
+            state, rank_state, layout = self._split_by_rank(state, sharded)
+            if self.world_size > 1:
                 # each rank draws its dropout masks from its own generator
                 port_state["generators"] = [
-                    g.cpu().numpy() for g in self._ladder.gather_whole(
-                        self._generator.get_state().to(self._device))]
+                    g.cpu().numpy() for g in gather_by_rank(
+                        self._generator.get_state().to(self._device),
+                        self._group)]
         mon = self._resilience
         with_manifest = mon is not None and mon.cfg.manifest
         with trace_span("stoke/io", track="io"):
@@ -1402,17 +1433,20 @@ class Stoke:
                 staging_pool=self._staging_pool,
             )
 
-    def _whole_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+    def _whole_state(self, state: Dict[str, Any],
+                     grads_only: bool = False) -> Dict[str, Any]:
         """``state`` with every slice of the model split gathered over the
         model group into its whole tensor (parameters, their optimizer
-        state, accumulated gradients): the arrays a run without the split
-        saves. Every rank runs the same gathers in the same order."""
+        state, accumulated gradients; only the gradients with
+        ``grads_only``): the arrays a run without the split saves. Every
+        rank runs the same gathers in the same order."""
         tp = self._tp
         out = dict(state)
-        out["variables"] = {n: tp.gather(n, t)
-                            for n, t in state["variables"].items()}
-        out["opt_state"] = {k: tp.gather(k.rpartition("/")[0], v)
-                            for k, v in state["opt_state"].items()}
+        if not grads_only:
+            out["variables"] = {n: tp.gather(n, t)
+                                for n, t in state["variables"].items()}
+            out["opt_state"] = {k: tp.gather(k.rpartition("/")[0], v)
+                                for k, v in state["opt_state"].items()}
         if state["grad_buf"] is not None:
             out["grad_buf"] = {n: tp.gather(n, g)
                                for n, g in state["grad_buf"].items()}
@@ -1423,6 +1457,15 @@ class Stoke:
         names = {p: n for n, p in self._module.named_parameters()}
         return {names[p]: i for i, p in enumerate(self._ladder.params)}
 
+    def _mesh_rank(self, data: int, other: int = 0) -> int:
+        """The world rank at data coordinate ``data`` and coordinate
+        ``other`` on a two-axis mesh's other axis."""
+        mesh = self._mesh
+        if mesh.ndim == 1:
+            return int(mesh.mesh[data])
+        d = mesh.mesh_dim_names.index(self._status_obj.dp_config.axis_name)
+        return int(mesh.mesh[(data, other) if d == 0 else (other, data)])
+
     def _split_by_rank(self, state: Dict[str, Any], sharded: bool):
         """Across the ladder's ranks: ``(the writer's arrays, this rank's
         slices, the layout for meta.json)`` of one save. The
@@ -1432,10 +1475,24 @@ class Stoke:
         mean (``grad_buf``) and one by one (``grad_local``); the sharded
         format leaves each rank its slices (and, under fsdp, its slices of
         the parameters), described in the layout. Every rank runs the
-        same collectives in the same order, on this thread."""
+        same collectives in the same order, on this thread.
+
+        Under a two-axis mesh the layout names the mesh, and a slice is
+        written once: a leaf's data slice ``d`` by the rank at ``(d, 0)``
+        (the others of data row ``d`` hold it alike), a model split's
+        slice ``x`` of a parameter and its optimizer state by the rank at
+        ``(0, x)``, with the cut (its view, dim and, under a stage axis,
+        stride) beside the data level."""
         ladder, world = self._ladder, self._ladder.world
         index = self._leaf_index()
         freed = {i for b in ladder.buckets if b.frees for i in b.index}
+        cuts = self._tp.cuts if sharded and self._tp is not None else {}
+        mesh = self._mesh
+        other = (next(a for a in mesh.mesh_dim_names
+                      if a != self._status_obj.dp_config.axis_name)
+                 if mesh is not None and mesh.ndim == 2 else None)
+        my_other = mesh.get_local_rank(other) if other else 0
+        my_data = ladder.rank
         out = {k: {} for k in ("variables", "opt_state", "scaler_state",
                                "grad_buf", "grad_local")}
         mine = {k: {} for k in ("variables", "opt_state", "grad_buf")}
@@ -1444,24 +1501,48 @@ class Stoke:
         out["scaler_state"] = state["scaler_state"]
 
         def keep_slice(key, label, t, full_shape, dim):
-            mine[key][label] = t
             leaves[key][label] = {
                 "dim": dim, "shape": list(full_shape),
-                "extents": ladder.slice_extents(full_shape[dim])}
+                "extents": ladder.slice_extents(full_shape[dim]),
+                "ranks": [[self._mesh_rank(d)] for d in range(world)]}
+            if my_other == 0:
+                mine[key][label] = t
+
+        def keep_cut(key, label, t, cut):
+            leaves[key][label] = {
+                "dim": None, "shape": list(cut.full),
+                "cut": {"axis": other, "shape": list(cut.full),
+                        "view": list(cut.view), "dim": cut.dim,
+                        "stride": (cut.size if other == "stage"
+                                   else None)},
+                "ranks": [[self._mesh_rank(0, x)
+                           for x in range(cut.size)]]}
+            if my_data == 0:
+                mine[key][label] = t
+
+        def cut_of(name, t):
+            cut = cuts.get(name)
+            return cut if cut is not None and (
+                tuple(t.shape) == cut.local) else None
 
         for n, t in state["variables"].items():
             i = index.get(n)
-            if sharded and world > 1 and i in freed:
+            if cut_of(n, t) is not None:
+                keep_cut("variables", n, t, cuts[n])
+            elif sharded and world > 1 and i in freed:
                 d = ladder.sliced_dim(i)
                 part = t.unflatten(d, (world, -1)).movedim(d, 0)[ladder.rank]
                 keep_slice("variables", n, part, t.shape, d)
             else:
                 out["variables"][n] = t
         for label, v in state["opt_state"].items():
-            i = index[label.rpartition("/")[0]]
+            pname = label.rpartition("/")[0]
+            i = index[pname]
             d = ladder.sliced_dim(i)
             full = ladder.params[i].shape
-            if d is None or world == 1 or v.dim() == 0:
+            if v.dim() and cut_of(pname, v) is not None:
+                keep_cut("opt_state", label, v, cuts[pname])
+            elif d is None or world == 1 or v.dim() == 0:
                 out["opt_state"][label] = v
             elif sharded:
                 keep_slice("opt_state", label, v, full, d)
@@ -1470,7 +1551,7 @@ class Stoke:
         for n, g in (state["grad_buf"] or {}).items():
             i = index[n]
             d = ladder.accumulator_dim(i)
-            if world == 1:
+            if self.world_size == 1:
                 out["grad_buf"][n] = g
             elif d is not None:
                 if sharded:
@@ -1483,9 +1564,9 @@ class Stoke:
             else:
                 mean = g.clone()
                 dist.all_reduce(mean, op=dist.ReduceOp.AVG,
-                                group=ladder.group)
+                                group=self._group)
                 out["grad_buf"][n] = mean
-                for r, part in enumerate(ladder.gather_whole(g)):
+                for r, part in enumerate(gather_by_rank(g, self._group)):
                     out["grad_local"][f"{n}@{r}"] = part
         if state["grad_buf"] is None:
             out["grad_buf"] = None
@@ -1495,6 +1576,9 @@ class Stoke:
             return out, None, None
         layout = {"leaves": {k: v for k, v in leaves.items() if v},
                   "grad_local": local}
+        if other is not None:
+            layout["mesh"] = {"axes": list(mesh.mesh_dim_names),
+                              "shape": list(mesh.mesh.shape)}
         return out, {k: v for k, v in mine.items() if v}, layout
 
     def _opt_spec(self, params: Dict[str, torch.Tensor],
@@ -1602,7 +1686,6 @@ class Stoke:
             grads = payload["grad_buf"]
             own = (payload["grad_local"]
                    if payload["world"] == self.world_size else None) or {}
-            data_rank = ladder.rank if ladder is not None else 0
             if ladder is not None:
                 ladder.drop_grads()
             for n, p in params.items():
@@ -1616,7 +1699,7 @@ class Stoke:
                         self._my_part(grads[n], dim), p.dtype))
                     p.grad = None
                     continue
-                a = own[n][data_rank] if n in own else grads[n]
+                a = own[n][self.rank] if n in own else grads[n]
                 g = io_ops.from_numpy(cut(n, a), p.dtype).to(p.device)
                 if p.grad is not None and p.grad.shape == p.shape:
                     p.grad.copy_(g)
@@ -1624,11 +1707,10 @@ class Stoke:
                     p.grad = g
         if port.get("generator_device") == self._device.type:
             gens = port.get("generators")
-            if (gens is not None and ladder is not None
-                    and len(gens) == ladder.world
+            if (gens is not None and len(gens) == self.world_size
                     and payload["world"] == self.world_size):
                 self._generator.set_state(
-                    torch.from_numpy(gens[ladder.rank]))
+                    torch.from_numpy(gens[self.rank]))
             elif self.world_size == 1:
                 self._generator.set_state(torch.from_numpy(port["generator"]))
         counters = payload["counters"]
@@ -1780,16 +1862,21 @@ class Stoke:
         if order is None:
             return None
         return self._engine.transport.layout_descriptor(
-            order.sizes(self._engine.params))
+            order.sizes())
 
     def topology_descriptor(self) -> Dict[str, Any]:
         """This run's topology and sharding descriptor (the JAX facade's
         keys): mesh, process and device counts, the tier, the resolved
         ``shard_updates``, the parameters' count and elements, and the
         transport's residual layout. Every manifest this facade writes
-        carries it; :meth:`resume` compares a checkpoint's against it."""
+        carries it; :meth:`resume` compares a checkpoint's against it.
+        A model split's leaves count whole, as the JAX tree's do."""
         st = self._status_obj
-        sizes = [int(p.numel()) for p in self._engine.params]
+        names = {p: n for n, p in self._module.named_parameters()}
+        full = (self._tp.full_shape if self._tp is not None
+                else (lambda n, shape: shape))
+        sizes = [math.prod(full(names[p], p.shape))
+                 for p in self._engine.params]
         dp = self._group is not None
         return {
             "version": 1,
@@ -2049,7 +2136,7 @@ class Stoke:
                 for r in comm["residual"]:
                     if self._engine.transport.layout_kind == "sharded" and (
                             self._ladder is not None):
-                        r = torch.cat(self._ladder.gather_whole(r))
+                        r = torch.cat(gather_by_rank(r, self._ladder.group))
                     whole.append(r.cpu().numpy())
                 host["residual"] = whole
             state["comm_state"] = host
@@ -2096,9 +2183,10 @@ class Stoke:
         with torch.no_grad():
             for dst, whole in zip(live, saved):
                 src = torch.from_numpy(np.asarray(whole, np.float32))
-                if sharded and self.world_size > 1:
-                    n = dst.numel()
-                    src = src[self.rank * n:(self.rank + 1) * n]
+                if sharded and self._engine.transport.world > 1:
+                    # the data coordinate's part, alike across a second axis
+                    n, r = dst.numel(), self._engine.transport.rank
+                    src = src[r * n:(r + 1) * n]
                 dst.copy_(src.to(dst.device))
 
     @staticmethod
@@ -2585,7 +2673,7 @@ class Stoke:
 
             m.observe_wire(wire_residual_group_norms(
                 eng.transport, eng.comm_state, m.groups,
-                eng.comm_order.sizes(eng.params)))
+                eng.comm_order.sizes()))
         except Exception as e:
             if not self._wire_error_warned:
                 self._wire_error_warned = True
@@ -3093,7 +3181,7 @@ class Stoke:
         if engine.transport is None or engine.comm_order is None:
             return None
         return engine.transport.bytes_per_step(
-            engine.comm_order.sizes(engine.params))
+            engine.comm_order.sizes())
 
     @property
     def is_distributed(self) -> bool:

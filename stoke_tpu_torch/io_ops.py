@@ -19,8 +19,12 @@ A tag is a directory ``stoke-{name}-backward-step-{n}`` that holds:
 - in the sharded format, ``<key>.rank<r>.npz``: rank ``r``'s slices (of
   the optimizer state of the leaves oss, sddp and fsdp shard, of fsdp's
   parameters, of the sharded accumulators) and its own gradients, with
-  each sliced leaf's dimension, whole shape and per-rank extents in
-  ``meta.json`` (``leaves``); the writer's ``.npz`` holds the rest. Not
+  each sliced leaf's dimension, whole shape, per-rank extents and writers
+  in ``meta.json`` (``leaves``); the writer's ``.npz`` holds the rest.
+  Under a two-axis mesh ``meta.json`` names the mesh (``mesh``), a slice
+  that several ranks hold alike is written by one of them, and a model
+  split's slices carry their cut (``cut``: the view and dim, and the
+  stride under a stage axis), so a leaf is put together in two levels. Not
   ``torch.distributed.checkpoint``: the ladder's slices are plain
   tensors, which it would write once, as if every rank held the same;
 - ``port.pkl``, the port's own (the dropout generators' states, the
@@ -165,6 +169,45 @@ def rank_file(key: str, rank: int) -> str:
     return f"{key}.rank{rank}.npz"
 
 
+def _leaf_ranks(leaf: Dict[str, Any]) -> list:
+    """A sliced leaf's writers: one row a data slice, one rank a part of
+    the second-axis cut in each row (a tag of one axis names none: rank
+    ``d`` wrote slice ``d``)."""
+    return leaf.get("ranks") or [[r] for r in range(len(leaf["extents"]))]
+
+
+def rank_writers(layout: Dict[str, Any], key: str, world: int) -> list:
+    """The ranks whose files hold ``key``'s slices in a sharded tag of
+    ``layout`` (``meta.json``'s): each sliced leaf's writers, and every
+    rank for the ranks' own gradients."""
+    ranks = {r for leaf in layout.get("leaves", {}).get(key, {}).values()
+             for row in _leaf_ranks(leaf) for r in row}
+    if key == "grad_buf" and layout.get("grad_local"):
+        ranks.update(range(world))
+    return sorted(ranks)
+
+
+def _join_leaf(leaf: Dict[str, Any], part) -> np.ndarray:
+    """A sliced leaf whole from ``part(rank)``, its writers' arrays, in two
+    levels: each row's parts joined along the second-axis cut (its view and
+    dim; the stage stride is that view's), then the rows concatenated along
+    the data dim."""
+    cut = leaf.get("cut")
+    rows = []
+    for row in _leaf_ranks(leaf):
+        parts = [part(r) for r in row]
+        if cut is None:
+            rows.append(parts[0])
+            continue
+        view = list(cut["view"])
+        view[cut["dim"]] //= len(parts)
+        rows.append(np.concatenate([p.reshape(view) for p in parts],
+                                   cut["dim"]).reshape(cut["shape"]))
+    if leaf.get("dim") is None:
+        return rows[0]
+    return np.concatenate(rows, axis=leaf["dim"])
+
+
 def _barrier(group) -> None:
     # the checkpoint coordination's waits land in sync/barrier_wait_s of
     # every live telemetry registry
@@ -291,8 +334,10 @@ def save_checkpoint(
     except BaseException:
         _INFLIGHT_TAGS.discard(tag_dir)
         raise
-    rank_files = [os.path.join(tag_dir, rank_file(k, r))
-                  for k in sorted(mine) for r in range(world)]
+    rank_files = ([os.path.join(tag_dir, rank_file(k, r))
+                   for k in STATE_KEYS
+                   for r in rank_writers(layout or {}, k, world)]
+                  if sharded else [])
 
     def write_payload() -> None:
         if snap is not None:
@@ -481,13 +526,13 @@ def _read_key(tag_dir: str, key: str, meta: Dict[str, Any]
     local_names = meta.get("grad_local", []) if key == "grad_buf" else []
     if meta.get("format") == CheckpointFormat.sharded.value and (
             sliced or local_names):
-        ranks = [_read_npz(os.path.join(tag_dir, rank_file(key, r)))
-                 for r in range(int(meta["world"]))]
+        world = int(meta["world"])
+        ranks = {r: _read_npz(os.path.join(tag_dir, rank_file(key, r)))
+                 for r in rank_writers(meta, key, world)}
         for n, leaf in sliced.items():
-            arrays[n] = np.concatenate([r[n] for r in ranks],
-                                       axis=leaf["dim"])
+            arrays[n] = _join_leaf(leaf, lambda r: ranks[r][n])
         for n in local_names:
-            local[n] = [r[n] for r in ranks]
+            local[n] = [ranks[r][n] for r in range(world)]
     for n, parts in local.items():
         if n not in arrays:
             total = parts[0].astype(np.float32)

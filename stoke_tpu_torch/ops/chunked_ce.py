@@ -100,6 +100,31 @@ def _chunk_ce_sum(h, emb, t, m, vocab: int):
     return (ce * m.reshape(-1)).sum()
 
 
+def _chunked_ce_total(hidden, emb, targets, mask, chunk: int):
+    """The sum of the masked cross entropies over ``[B, L]`` positions,
+    chunk by chunk (``mask`` fp32 0/1), in fp32."""
+    B, L, _ = hidden.shape
+    chunk = max(1, min(int(chunk), L))
+    pad = (-L) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    dtype = _COMPUTE_DTYPE.get()
+    if dtype is not None:
+        hidden, emb = hidden.to(dtype), emb.to(dtype)
+    vocab = emb.shape[0]
+    emb = F.pad(emb, (0, 0, 0, (-vocab) % _VOCAB_ALIGN))
+    targets = targets.long()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, L + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + checkpoint(
+            _chunk_ce_sum, hidden[:, sl], emb, targets[:, sl], mask[:, sl],
+            vocab, use_reentrant=False, preserve_rng_state=False)
+    return total
+
+
 def chunked_softmax_cross_entropy(hidden, emb, targets, *, chunk: int = 128,
                                   mask=None):
     """Masked-mean token cross entropy from hidden states and an embedding.
@@ -120,24 +145,7 @@ def chunked_softmax_cross_entropy(hidden, emb, targets, *, chunk: int = 128,
     B, L, _ = hidden.shape
     mask = (torch.ones(B, L, device=hidden.device) if mask is None
             else mask.float())
-    chunk = max(1, min(int(chunk), L))
-    pad = (-L) % chunk
-    if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        targets = F.pad(targets, (0, pad))
-        mask = F.pad(mask, (0, pad))
-    dtype = _COMPUTE_DTYPE.get()
-    if dtype is not None:
-        hidden, emb = hidden.to(dtype), emb.to(dtype)
-    vocab = emb.shape[0]
-    emb = F.pad(emb, (0, 0, 0, (-vocab) % _VOCAB_ALIGN))
-    targets = targets.long()
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, L + pad, chunk):
-        sl = slice(c0, c0 + chunk)
-        total = total + checkpoint(
-            _chunk_ce_sum, hidden[:, sl], emb, targets[:, sl], mask[:, sl],
-            vocab, use_reentrant=False, preserve_rng_state=False)
+    total = _chunked_ce_total(hidden, emb, targets, mask, chunk)
     return total / mask.sum().clamp_min(1.0)
 
 
@@ -145,16 +153,55 @@ def chunked_causal_lm_loss(out, input_ids, mask=None, *, chunk: int = 128):
     """Next-token cross entropy for ``GPT(chunked_head=True)``'s ``(hidden,
     embedding)`` output: position t predicts token t+1, with an optional
     ``[B, L]`` padding mask (``models.gpt.causal_lm_loss`` without the
-    logits)."""
+    logits).
+
+    Under a sequence shard of more than one, ``hidden`` and ``input_ids``
+    are this shard's: the whole sequence's ids (and mask) are gathered
+    without a gradient, each position's target is the token after it in
+    the whole sequence (the last position of the sequence has none), and
+    the shard's chunked sum is summed over the shards (whose backward sums
+    the cotangents) over the global count of kept targets, so every
+    shard's loss is the whole batch's, as the JAX function computes it on
+    the global ``hidden``."""
     from stoke_tpu_torch.ops.attention import seq_shard, sharded
 
-    if sharded(seq_shard()):
-        from stoke_tpu_torch.status import LATER_SECOND_AXIS
-
-        raise NotImplementedError(
-            f"Stoke -- the chunked head under a sequence axis is not ported "
-            f"yet: {LATER_SECOND_AXIS}")
     hidden, emb = out
+    shard = seq_shard()
+    if sharded(shard):
+        return _sharded_chunked_loss(hidden, emb, input_ids, mask, shard,
+                                     chunk)
     m = None if mask is None else mask[:, 1:]
     return chunked_softmax_cross_entropy(
         hidden[:, :-1], emb, input_ids[:, 1:], chunk=chunk, mask=m)
+
+
+def _sharded_chunked_loss(hidden, emb, input_ids, mask, shard, chunk: int):
+    """:func:`chunked_causal_lm_loss` of this shard's positions (the
+    ``models.gpt._sharded_causal_lm_loss`` rule without the logits)."""
+    from stoke_tpu_torch.ops.attention import all_reduce_sum
+
+    total, count = chunked_shard_terms(
+        hidden, emb, shard.gather(input_ids, 1),
+        None if mask is None else shard.gather(mask, 1), shard, chunk)
+    total = all_reduce_sum(total, shard)
+    count = all_reduce_sum(count, shard).detach()
+    return total / torch.clamp(count, min=1.0)
+
+
+def chunked_shard_terms(hidden, emb, ids, mask, shard, chunk: int = 128):
+    """One sequence shard's part of :func:`chunked_causal_lm_loss`, with
+    no collective: ``(the sum of its positions' cross entropies, the count
+    of its kept targets)``, fp32. ``hidden`` ``[B, Ls, H]`` is the shard's
+    (``shard``: its index, the shard count and the layout), ``ids`` and
+    ``mask`` the whole sequence's ``[B, L]``; each position's target is
+    the token after it in the whole sequence, and the sequence's last
+    position has none. The loss is the shards' sums over their counts'."""
+    B, Ls = hidden.shape[:2]
+    L = ids.shape[1]
+    pos = shard.global_index(Ls, hidden.device)
+    nxt = torch.clamp(pos + 1, max=L - 1)
+    w = (pos < L - 1).to(torch.float32)[None, :].expand(B, Ls)
+    if mask is not None:
+        w = w * mask[:, nxt].to(torch.float32)
+    total = _chunked_ce_total(hidden, emb, ids.long()[:, nxt], w, chunk)
+    return total, w.sum()

@@ -13,7 +13,10 @@ JAX engine's apply orders them (``stoke_tpu/engine.py:1440-1466``):
    packed into flat fp32 buckets of ``CommConfig.bucket_mb``, each padded
    to a multiple of world x ``chunk_elems``. The layout decides which
    elements share a chunk's absmax, so only this packing gives the JAX
-   package's numbers.
+   package's numbers. Under a second mesh axis the world is the data
+   axis's, and the leaves are the JAX package's global ones: a model
+   split's slices are gathered over the model group first, and each rank
+   takes its slices back from the result.
 2. **The exchange** (:meth:`GradTransport._exchange`), the JAX package's
    arithmetic collective by collective. At world 1 the local round trip
    (``_roundtrip_local``); across W ranks, on the bucket the ladder
@@ -42,6 +45,7 @@ state, no collectives, the ladder's own path bit for bit.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -89,50 +93,96 @@ class JaxLeafOrder:
     """The JAX package's view of a module's trainable parameters: their
     order (the flax params tree's flatten order, by
     :func:`stoke_tpu_torch.convert.jax_paths`) and each one's layout (a
-    permutation of the port's tensor). A module the converter does not
-    know keeps registration order and the port's layout.
+    permutation of the port's tensor, then its JAX shape). A module the
+    converter does not know keeps registration order and the port's
+    layout.
+
+    Under a model split (``tp``, a
+    :class:`~stoke_tpu_torch.parallel.tensor.TensorParallel`) the JAX
+    leaves are the global ones, as the JAX transport packs them: each
+    split leaf's slices are all-gathered over the model group and joined
+    by their cut (a stage stack's strided rows back in the stack's order)
+    before the layout, and :meth:`from_jax` gives each rank its own slice
+    of the result.
 
     Args:
         module: the model.
         params: the trainable parameters the engine steps, in its order.
+        tp: the model's split, or None.
     """
 
-    def __init__(self, module: nn.Module, params: Sequence[torch.Tensor]):
+    def __init__(self, module: nn.Module, params: Sequence[torch.Tensor],
+                 tp: Any = None):
         from stoke_tpu_torch.convert import jax_param_layout
 
         index = {id(p): i for i, p in enumerate(params)}
         names = {id(p): n for n, p in module.named_parameters()}
+        cuts = tp.cuts if tp is not None else {}
         try:
-            layout = jax_param_layout(module)
+            layout = jax_param_layout(
+                module, {n: c.full for n, c in cuts.items()})
         except ValueError:
             layout = None
         if layout is None or any(names[id(p)] not in layout for p in params):
             self.order = list(range(len(params)))
             self.perms: List[Optional[Tuple[int, ...]]] = [None] * len(params)
+            self.shapes = [tuple(p.shape) for p in params]
+            self.names: List[Optional[str]] = [None] * len(params)
+            self.tp = None
             return
         by_path = sorted((layout[names[id(p)]][0], index[id(p)],
-                          layout[names[id(p)]][1]) for p in params)
-        self.order = [i for _, i, _ in by_path]
-        self.perms = [perm for _, _, perm in by_path]
+                          layout[names[id(p)]][1], layout[names[id(p)]][2],
+                          names[id(p)]) for p in params)
+        self.order = [i for _, i, _, _, _ in by_path]
+        self.perms = [perm for _, _, perm, _, _ in by_path]
+        self.shapes = [tuple(shape) for _, _, _, shape, _ in by_path]
+        #: each leaf's name where the split cut it (None elsewhere)
+        self.names = [n if n in cuts else None for _, _, _, _, n in by_path]
+        self.tp = tp if cuts else None
 
-    def sizes(self, params: Sequence[torch.Tensor]) -> List[int]:
-        """Each leaf's element count, in the JAX order."""
-        return [params[i].numel() for i in self.order]
+    def sizes(self) -> List[int]:
+        """Each leaf's element count, in the JAX order (the global leaves'
+        under a model split)."""
+        return [math.prod(shape) for shape in self.shapes]
+
+    def _whole(self, t: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+        return t if name is None else self.tp.gather(name, t)
 
     def to_jax(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """``tensors`` (the engine's order, the port's layout) as the JAX
-        leaves, in the JAX order (views where the layout is the port's)."""
-        return [tensors[i] if perm is None else tensors[i].permute(perm)
-                for i, perm in zip(self.order, self.perms)]
+        leaves, in the JAX order (views where the layout is the port's;
+        a split leaf gathered whole, collectively)."""
+        out = []
+        for i, perm, name in zip(self.order, self.perms, self.names):
+            t = self._whole(tensors[i], name)
+            out.append(t if perm is None else t.permute(perm))
+        return out
 
     def from_jax(self, leaves: Sequence[torch.Tensor],
                  into: Sequence[torch.Tensor]) -> None:
         """Copy JAX-ordered, JAX-laid-out ``leaves`` into ``into`` (the
-        engine's order and the port's layout)."""
+        engine's order and the port's layout; a split leaf takes this
+        rank's slice)."""
         with torch.no_grad():
-            for (i, perm), leaf in zip(zip(self.order, self.perms), leaves):
-                dst = into[i] if perm is None else into[i].permute(perm)
-                dst.copy_(leaf.view(dst.shape))
+            for i, perm, name, leaf in zip(self.order, self.perms,
+                                           self.names, leaves):
+                if name is None:
+                    dst = into[i] if perm is None else into[i].permute(perm)
+                    dst.copy_(leaf.view(dst.shape))
+                    continue
+                cut = self.tp.cuts[name]
+                whole = leaf.reshape([cut.full[d] for d in perm]) \
+                    if perm is not None else leaf.reshape(cut.full)
+                if perm is not None:
+                    whole = whole.permute(_inverse(perm))
+                into[i].copy_(self.tp.take(name, whole))
+
+
+def _inverse(perm: Sequence[int]) -> Tuple[int, ...]:
+    out = [0] * len(perm)
+    for i, p in enumerate(perm):
+        out[p] = i
+    return tuple(out)
 
 
 class GradTransport:

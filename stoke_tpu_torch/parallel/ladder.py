@@ -42,13 +42,23 @@ would reduce-scatter, the sharded accumulators are all-gathered), the
 transport rewrites them, and the slices take their parts; without one the
 path above is unchanged.
 
-Under a model or expert axis (:mod:`~stoke_tpu_torch.parallel.tensor`)
-the group is the data sub-group: every rank of a model group holds the
-same gradient of each leaf it does not split, and its own slice's of each
-leaf it splits, so each is averaged over the ranks that share its place on
-the model axis. The leaves a partition rule places (``keep_whole``) stay
-whole over the data axis whatever the tier, as the JAX package's rules win
-over the tier's placement.
+Under a second mesh axis the group is the data sub-group, and a
+sharded leaf's slice ``d`` is held alike by every rank of data row ``d``,
+as the JAX package places each tier's state over the data axis alone
+(``stoke_tpu/parallel/sharding.py:243-294``):
+
+- a model, expert or stage axis (:mod:`~stoke_tpu_torch.parallel.tensor`):
+  every rank of a model group holds the same gradient of each leaf it does
+  not split, and its own slice's of each leaf it splits, so each is
+  averaged over the ranks that share its place on the model axis. The
+  leaves a partition rule places (``keep_whole``) stay whole over the data
+  axis whatever the tier, as the JAX package's rules win over the tier's
+  placement;
+- a ``seq`` axis (``across``, the shards of one data row): each shard's
+  gradient is its part of the row's, so every reduction of gradients runs
+  over the data sub-group and then over ``across`` (a reduce-scatter over
+  the data sub-group, then the slice averaged over the row's shards): the
+  mean over the whole world, as dp takes it.
 
 Every reduction of gradients averages over the W ranks: each rank's
 objective is the mean over its rows, so their average is the mean over the
@@ -149,11 +159,23 @@ class Ladder:
         group: the process group of the data axis.
         keep_whole: indices of ``params`` a partition rule placed; they
             are stepped whole.
+        across: under a ``seq`` axis, the process group of this process's
+            data row (the other axis's sub-group), over which every
+            gradient is averaged after the data sub-group.
+        jax_layout: for each of ``params``, ``(its JAX shape, each JAX dim
+            that is a whole dim of the tensor, to that dim)``
+            (:func:`~stoke_tpu_torch.parallel.sharding.jax_dim_map`), or
+            None: the rules then pick the dim on the JAX shape, as the JAX
+            package places the leaf, where that dim is whole in the port's
+            tensor (else, and without a layout, on the tensor's shape).
     """
 
     def __init__(self, params: Sequence[torch.Tensor], rules: ShardingRules,
-                 group=None, keep_whole: Sequence[int] = ()):
+                 group=None, keep_whole: Sequence[int] = (), across=None,
+                 jax_layout: Optional[Sequence[Optional[tuple]]] = None):
         self.group = group
+        self.across = (across if across is not None
+                       and dist.get_world_size(across) > 1 else None)
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         if rules.axis_size != self.world:
@@ -169,8 +191,19 @@ class Ladder:
         keep_whole = set(keep_whole)
         for i, p in enumerate(self.params):
             shape = tuple(p.shape)
-            opt, grad = rules.opt_dim(shape), rules.grad_dim(shape)
-            frees = rules.param_dim(shape) is not None
+            jl = jax_layout[i] if jax_layout is not None else None
+
+            def pick(rule):
+                if jl is not None:
+                    d = rule(jl[0])
+                    if d is None:
+                        return None
+                    if d in jl[1]:
+                        return jl[1][d]
+                return rule(shape)
+
+            opt, grad = pick(rules.opt_dim), pick(rules.grad_dim)
+            frees = pick(rules.param_dim) is not None
             if i in keep_whole:
                 opt = grad = None
                 frees = False
@@ -322,6 +355,18 @@ class Ladder:
     # gradients
     # ------------------------------------------------------------------ #
 
+    def _avg_across(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over ``across`` in place (nothing without
+        one)."""
+        if self.across is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.AVG, group=self.across)
+        return t
+
+    def _all_reduce_avg(self, t: torch.Tensor) -> None:
+        """``t`` averaged over the group, then over ``across``."""
+        dist.all_reduce(t, op=dist.ReduceOp.AVG, group=self.group)
+        self._avg_across(t)
+
     @torch.no_grad()
     def _reduce_scatter_into(self, b: _Bucket, accumulate: bool) -> None:
         flat = b.pack([_grad_or_zeros(p) for p in b.leaves])
@@ -329,10 +374,11 @@ class Ladder:
             out = torch.empty_like(b.grad)
             dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.AVG,
                                        group=self.group)
-            b.grad.add_(out)
+            b.grad.add_(self._avg_across(out))
         else:
             dist.reduce_scatter_tensor(b.grad, flat, op=dist.ReduceOp.AVG,
                                        group=self.group)
+            self._avg_across(b.grad)
         for p in b.leaves:
             p.grad = None
 
@@ -385,7 +431,7 @@ class Ladder:
             ps = [p for p in reduced if p.dtype == dtype]
             grads = [_grad_or_zeros(p) for p in ps]
             flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.group)
+            self._all_reduce_avg(flat)
             for p, v in zip(ps, flat.split([g.numel() for g in grads])):
                 if p.grad is None:
                     p.grad = v.view_as(p).clone()
@@ -424,7 +470,7 @@ class Ladder:
             idx = [i for i in local if self.params[i].dtype == dtype]
             grads = [_grad_or_zeros(self.params[i]) for i in idx]
             flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.group)
+            self._all_reduce_avg(flat)
             for i, v in zip(idx, flat.split([g.numel() for g in grads])):
                 full[i] = v.view_as(self.params[i])
         for p in self.params:
@@ -469,14 +515,17 @@ class Ladder:
     # ------------------------------------------------------------------ #
 
     def all_true(self, flag: torch.Tensor) -> torch.Tensor:
-        """A bool tensor ANDed over the ranks (on the device)."""
+        """A bool tensor ANDed over the ranks, ``across`` included (on the
+        device)."""
         f = flag.to(torch.float32)
         dist.all_reduce(f, op=dist.ReduceOp.MIN, group=self.group)
+        if self.across is not None:
+            dist.all_reduce(f, op=dist.ReduceOp.MIN, group=self.across)
         return f > 0.5
 
     def reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``t`` summed (or maxed, ``op="max"``) over the ranks, in
-        place."""
+        place: the parts of the slices, which ``across`` holds alike."""
         dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM, group=self.group)
         return t
@@ -491,7 +540,7 @@ class Ladder:
             return tree
         flat = torch.cat([leaves[i].detach().float().reshape(-1)
                           for i in idx])
-        dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.group)
+        self._all_reduce_avg(flat)
         out = list(leaves)
         for i, v in zip(idx, flat.split([leaves[i].numel() for i in idx])):
             out[i] = v.view_as(leaves[i]).to(leaves[i].dtype)
@@ -530,18 +579,6 @@ class Ladder:
         return out.view(self.world, *s.shape).movedim(0, dim).flatten(
             dim, dim + 1)
 
-    @torch.no_grad()
-    def gather_whole(self, t: torch.Tensor) -> List[torch.Tensor]:
-        """Each rank's tensor ``t`` (of one shape on every rank), as a
-        list by rank."""
-        if self.world == 1:
-            return [t]
-        out = torch.empty(self.world * t.numel(), dtype=t.dtype,
-                          device=t.device)
-        dist.all_gather_into_tensor(out, t.contiguous().view(-1),
-                                    group=self.group)
-        return list(out.view(self.world, *t.shape).unbind(0))
-
     def slice_extents(self, n: int) -> List[List[int]]:
         """Each rank's ``[start, stop)`` of a dimension of ``n``."""
         k = n // self.world
@@ -554,3 +591,15 @@ class Ladder:
             if b.per_micro and i in b.index:
                 return b.views(b.grad)[b.index.index(i)]
         return None
+
+
+@torch.no_grad()
+def gather_by_rank(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Each rank's tensor ``t`` (of one shape on every rank of ``group``),
+    as a list by rank; every rank must call it, in the same order."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return [t]
+    out = torch.empty(world * t.numel(), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous().view(-1), group=group)
+    return list(out.view(world, *t.shape).unbind(0))

@@ -200,7 +200,18 @@ def build_mesh(mesh_config: MeshConfig, device: torch.device,
 
 def data_coordinates(mesh, data_axis: str = "data") -> tuple:
     """``(data sub-group, its size, this process's coordinate on it)`` of
-    a two-axis mesh: the processes that share this one's place on the
-    other axis."""
+    a two-axis mesh (a ``seq``, model, expert or stage axis beside the
+    data axis): the processes that share this one's place on the other
+    axis."""
     group = mesh.get_group(data_axis)
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def other_coordinates(mesh, data_axis: str = "data") -> tuple:
+    """``(sub-group, its size, this process's coordinate on it)`` of a
+    two-axis mesh's other axis: the processes that share this one's data
+    coordinate (the shards of one data row under ``seq``, one model,
+    expert or stage group otherwise)."""
+    axis = next(a for a in mesh.mesh_dim_names if a != data_axis)
+    group = mesh.get_group(axis)
     return group, dist.get_world_size(group), dist.get_rank(group)

@@ -80,6 +80,28 @@ def leaf_partition_spec(shape: Sequence[int], axis_size: int,
     return _pick_dim(shape, axis_size, min_size, preference)
 
 
+def jax_dim_map(shape: Sequence[int], perm: Optional[Sequence[int]],
+                jax_shape: Sequence[int]) -> dict:
+    """Each dim of a leaf's JAX shape that is a whole dim of the port's
+    tensor of ``shape``, to that dim. The JAX leaf is the port's tensor
+    permuted by ``perm`` (None: as it is), then reshaped to ``jax_shape``
+    (a fused ``qkv``'s flat dim is several JAX dims, none of them whole)."""
+    shape = tuple(shape)
+    order = tuple(perm) if perm is not None else tuple(range(len(shape)))
+    permuted = [shape[d] for d in order]
+    out, j = {}, 0
+    for k, n in enumerate(permuted):
+        start, prod = j, 1
+        while j < len(jax_shape) and (prod < n or (n == 1 and j == start)):
+            prod *= jax_shape[j]
+            j += 1
+        if prod != n:
+            return out
+        if j - start == 1:
+            out[start] = order[k]
+    return out
+
+
 def _rule(axis_size: int, min_size: int, preference: str) -> DimRule:
     return lambda shape: _pick_dim(tuple(shape), axis_size, min_size,
                                    preference)

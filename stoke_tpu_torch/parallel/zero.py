@@ -6,7 +6,9 @@ stage: rank ``r`` owns the contiguous ``r``-th 1/W of each reduced bucket
 (the JAX ``psum_scatter(x) / n`` of the replicated bucket), adds its
 residual shard, rounds it through the wire format under ``fold_in(key,
 r + 1)`` and keeps ``own - wire`` as its new residual, so the residual is
-1/W of the padded bucket a rank.
+1/W of the padded bucket a rank. Under a second mesh axis ``r`` and W are
+the data axis's: the residual is placed over the data sub-group and held
+alike by the processes that share a data coordinate.
 
 JAX hands the P(axis) shards to GSPMD, which places them where the tier's
 optimizer steps them. The port's optimizer steps the ladder's rank-major

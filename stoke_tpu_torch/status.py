@@ -15,14 +15,11 @@ Legality comes first (``StokeValidationError``). Only then does
 ``NotImplementedError`` naming the ROADMAP item, what the port does not
 run yet: ``CompileConfig`` (:data:`LATER_CONFIGS`); a mesh of three or
 more axes, of two axes without the data axis, or with cross-host axes
-(item 8e); the oss / sddp / fsdp tiers under a sequence axis, and the
-tiers, a ``CommConfig`` and the sharded checkpoint format under a model,
-expert or stage axis of more than one (item 8d; a size the mesh shape
-leaves to be inferred is checked again once the mesh is built).
-``distributed`` (``"dp"`` and its aliases), the oss/sddp/fsdp tiers, the
-gradient transports, the ``("data", "seq")`` mesh with
+(item 8e). ``distributed`` (``"dp"`` and its aliases), the oss/sddp/fsdp
+tiers, the gradient transports and the sharded checkpoint format, on the
+1-D data mesh or beside a second axis (the ``("data", "seq")`` mesh with
 ``DataParallelConfig.shard_seq_dim``, a ``("data", X)`` mesh with
-``PartitionRulesConfig`` (tensor, expert and pipeline parallelism), and
+``PartitionRulesConfig``: tensor, expert and pipeline parallelism), and
 every other config class run.
 
 :func:`serve_config_error` holds the serving rules with the JAX package's
@@ -94,10 +91,6 @@ from stoke_tpu_torch.resilience import (
 _ITEM = "ROADMAP Queue 1 item"
 _LATER_MESH = (f"{_ITEM} 8e (meshes of three axes, dcn_axes and partition "
                f"rules beyond the Megatron, expert and stage sets)")
-#: the message tail of what a second mesh axis does not run yet
-LATER_SECOND_AXIS = (f"{_ITEM} 8d (the ZeRO tiers, the chunked head, the "
-                     f"transports and the sharded format under a second "
-                     f"mesh axis)")
 _LATER_COMPILE = f"{_ITEM} 11 (compile cache, autotune and analysis)"
 
 #: the config classes the port refuses after the legality rules, with the
@@ -1121,42 +1114,17 @@ class StokeStatus:
         mesh = self._configs.get("MeshConfig")
         axes = tuple(getattr(mesh, "axes", ()) or ())
         data = self._data_axis()
-        seq_mesh = set(axes) == {data, self._seq_axis()}
-        tier = self.sharding_tier.value
-        second = next((a for a in axes if a != data), None)
-        size = None
-        if len(axes) == 2 and mesh.shape is not None and data in axes:
-            size = mesh.shape[axes.index(second)]
-        later += [
+        later.append(
             (f"a mesh of axes {axes} (dcn_axes "
              f"{getattr(mesh, 'dcn_axes', None)}) is",
              mesh is not None and (len(axes) > 2 or bool(mesh.dcn_axes)
                                    or (len(axes) == 2 and data not in axes)),
-             _LATER_MESH),
-            (f"the {tier} tier under the {self._seq_axis()!r} mesh axis is",
-             seq_mesh and tier != "none",
-             LATER_SECOND_AXIS),
-        ]
-        if not seq_mesh and size is not None and size > 1:
-            later += [second_axis_refusal(what, second, size)
-                      for what in self._second_axis_options()]
+             _LATER_MESH))
         for what, on, item in later:
             if on:
                 raise NotImplementedError(
                     f"Stoke -- {what} not ported yet: {item}"
                 )
-
-    def _second_axis_options(self) -> List[str]:
-        """What this run asks for that a model or expert axis of more than
-        one does not run yet (item 8d)."""
-        out = []
-        if self.sharding_tier.value != "none":
-            out.append(f"the {self.sharding_tier.value} tier")
-        if "CommConfig" in self._configs:
-            out.append("CommConfig")
-        if self.checkpoint_config.format is CheckpointFormat.sharded:
-            out.append("the sharded checkpoint format")
-        return out
 
     def set_post_init_values(self, world_size: int,
                              n_processes: int = 1) -> None:
@@ -1384,24 +1352,6 @@ class StokeStatus:
         for k, v in self.to_dict().items():
             lines.append(f"  {k}: {v}")
         return "\n".join(lines)
-
-
-def second_axis_refusal(what: str, axis: str, size: int) -> tuple:
-    """``(what, True, item)`` of :meth:`StokeStatus._refuse_later_slices`
-    for ``what`` under a model or expert ``axis`` of ``size``."""
-    return (f"{what} under the {axis!r} mesh axis of {size} is", True,
-            LATER_SECOND_AXIS)
-
-
-def refuse_under_second_axis(options: Sequence[str], axis: str,
-                             size: int) -> None:
-    """Raise the status layer's ``NotImplementedError`` for the first of
-    ``options`` (see :meth:`StokeStatus._second_axis_options`) under a
-    model or expert ``axis`` of ``size`` > 1: the facade's check once the
-    mesh's sizes are known."""
-    if options and size > 1:
-        what, _, item = second_axis_refusal(options[0], axis, size)
-        raise NotImplementedError(f"Stoke -- {what} not ported yet: {item}")
 
 
 def serve_config_error(cfg: ServeConfig) -> Optional[str]:

@@ -130,7 +130,7 @@ def training(inputs, rank, world) -> dict:
                 "residual": [r.numel() for r in
                              g._engine.comm_state.get("residual", [])],
                 "padded": [p for _, _, p in g._engine.transport._layout(
-                    g._engine.comm_order.sizes(g._engine.params)).buckets]
+                    g._engine.comm_order.sizes()).buckets]
                 if comm else [],
                 "comm_bytes": g.comm_bytes}
     return out

@@ -291,7 +291,7 @@ def test_wire_residual_by_group_is_the_leaves_slices(tmp_path):
         for i in range(2):
             s.train_step(_ids(i), _ids(i))
         eng = s._engine
-        sizes = eng.comm_order.sizes(eng.params)
+        sizes = eng.comm_order.sizes()
         got = pn.wire_residual_group_norms(eng.transport, eng.comm_state,
                                            s.numerics.groups, sizes)
         layout = eng.transport._layout(sizes)

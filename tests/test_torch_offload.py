@@ -41,6 +41,17 @@ pytestmark = pytest.mark.torch_port
 VOCAB, B, L = 97, 2, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its tiny models gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gpt():
     m = GPT(vocab_size=VOCAB, size_name="tiny", max_len=L,
             dropout_rate=0.0, attention_fn=make_flash_attention(causal=True),

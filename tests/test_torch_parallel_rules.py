@@ -172,13 +172,13 @@ REFUSED = {
 
 #: options refused here until their item landed (the transports, item 7,
 #: the sharded checkpoint format, item 6b, optimizer offload, item 9, the
-#: (data, seq) mesh with shard_seq_dim, item 8a, and a (data, model) mesh
-#: and partition rules, item 8b): each case now shows the status layer
-#: takes them
+#: (data, seq) mesh with shard_seq_dim, item 8a, a (data, model) mesh
+#: and partition rules, item 8b, and a tier under a seq axis or a model
+#: axis of two, item 8d): each case now shows the status layer takes them
 LANDED = ("comm", "sharded_format", "offload", "shard_seq_dim", "two_axes",
-          "partition_rules")
-#: the flags of a refused case (a tier under a seq axis, or under a model
-#: axis of two, item 8d)
+          "partition_rules", "seq_axis_tiers", "tp_tiers")
+#: the flags of a case (a tier under a seq axis, or under a model axis of
+#: two, item 8d)
 REFUSED_FLAGS = {"seq_axis_tiers": dict(oss=True), "tp_tiers": dict(oss=True)}
 
 
@@ -187,7 +187,10 @@ def test_later_options_name_their_item(case):
     configs, item = REFUSED[case]
     if case in LANDED:
         st = StokeStatus(batch_size_per_device=4, device="cpu",
-                         distributed="dp", configs=configs)
+                         distributed="dp", configs=configs,
+                         **REFUSED_FLAGS.get(case, {}))
+        if case in REFUSED_FLAGS:
+            assert st.sharding_tier.value == "oss"
         assert (st.comm_config is not None
                 or st.offload_optimizer_config is not None
                 or st.checkpoint_config.format is pc.CheckpointFormat.sharded

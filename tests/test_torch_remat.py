@@ -58,6 +58,17 @@ FA = sys.modules["stoke_tpu_torch.ops.flash_attention"]
 _FWD, _BWD = FA._flash_forward_direct, FA._flash_backward_direct
 VOCAB, L, B = 97, 32, 4
 FACADE_RTOL = 1e-6   # the JAX spec's
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its tiny models gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 FP32_TOL = 1e-5
 LOGITS_ATOL = 1e-4   # test_torch_gpt.py's
 
