@@ -337,6 +337,7 @@ The two lines before the last are the kernels' summary and the card's
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import gc
 import importlib
@@ -7206,13 +7207,425 @@ def train_second_axis(ops, device="cuda", layers=N_LAYERS,
     }
 
 
-def quant_rows(cases, comm, served, elastic, second) -> list:
+TA_EAGER = 3              # eager steps of the main path, then a window
+TA_WINDOW = 2             # one-step windows (the second replayed)
+TA_REPLAYS = 2            # timed one-window replays
+TA_LAYERS = 2             # the depth of the smaller runs (seq, stage, gathered)
+TA_SPLITS = (2, 2)        # the virtual (model, expert) ranks of one block
+#: ln_attn's scale on the model axis and ff_in's kernel over the flattened
+#: (model, expert) axes: two gathered placements
+TA_GATHERED_RULES = ((r"ln_attn/scale", ("model",)),
+                     (r"ff_in/kernel", (None, ("model", "expert"))))
+#: PipelinedLM's qkv kernels also on the model axis, ahead of the stage set
+TA_STAGE_QKV_RULE = ((r"^stages/.*attention/qkv/kernel",
+                      ("stage", None, None, "model", None)),)
+
+
+def ta_moe_stoke(mesh: bool, root: str):
+    """GPT-base-MoE top-1 bf16 (flash) under fsdp with an int8 ``rs_ag``
+    transport, AdamW without a clip (the clip's norm sums the leaves a
+    rule keeps whole apart from the fsdp slices, in another order than
+    the 1-D run), a ``ResilienceConfig`` under ``root`` and the sharded
+    format: on a (1, 1, 1) ``("data", "model", "expert")`` mesh with the
+    Megatron and expert rules (``mesh``), or on the 1-D data mesh."""
+    from stoke_tpu_torch import Stoke, StokeOptimizer
+    from stoke_tpu_torch.configs import (
+        CheckpointConfig,
+        CheckpointFormat,
+        CommConfig,
+        FSDPConfig,
+        MeshConfig,
+        PartitionRulesConfig,
+        ResilienceConfig,
+    )
+    from stoke_tpu_torch.models import (
+        bert_tensor_parallel_rules,
+        causal_lm_loss,
+        moe_expert_parallel_rules,
+    )
+
+    configs = [CommConfig(dtype="int8", strategy="rs_ag"), FSDPConfig(),
+               CheckpointConfig(format=CheckpointFormat.sharded),
+               ResilienceConfig(save_path=root, exit_on_preempt=False,
+                                manifest=False)]
+    if mesh:
+        configs += [MeshConfig(axes=("data", "model", "expert"),
+                               shape=(1, 1, 1)),
+                    PartitionRulesConfig(rules=bert_tensor_parallel_rules()
+                                         + moe_expert_parallel_rules())]
+    return Stoke(moe_base(1), StokeOptimizer(torch.optim.AdamW, lr=3e-4,
+                                             weight_decay=1e-4),
+                 causal_lm_loss, batch_size_per_device=TRAIN_BATCH,
+                 precision="bf16", seed=SEED, distributed="dp", fsdp=True,
+                 configs=configs)
+
+
+def ta_main(ops, mesh: bool, batches, root: str) -> dict:
+    """The main path (:func:`ta_moe_stoke`): TA_EAGER eager steps, a
+    ``train_steps`` of TA_WINDOW one-step windows and TA_REPLAYS timed
+    one-window replays; losses, masters' digest, the flash and quantize
+    launches (reset just before the run, read just after), ``comm_bytes``
+    and the run's peak rise. On the mesh, then an emergency save in the
+    sharded format, a fresh ``Stoke`` that resumes it, and one more step
+    of both: loss and masters bit for bit."""
+    names = (*FLASH, *QUANT_NAMES)
+    ops.reset_launches()
+    start = peak_start()
+    s = ta_moe_stoke(mesh, root)
+    losses, ms = eager_steps(s, [batches[i] for i in range(TA_EAGER)])
+    seg = batches[TA_EAGER:TA_EAGER + TA_WINDOW]
+    losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+    one = batches[-1:]
+    replay_ms = [timed_ms(lambda: s.train_steps(one, one))
+                 for _ in range(TA_REPLAYS)]
+    out = {"losses": losses, "digest": masters_digest(s),
+           "launches": {n: ops.LAUNCHES[n] for n in names},
+           "windows_captured": len(s._engine._windows),
+           "eager_ms": ms, "replay_ms": replay_ms,
+           "comm_bytes": s.comm_bytes, **peaks(start),
+           "split": None if s.tensor_parallel is None else sorted(
+               {".".join(n.split(".")[-2:]) for n in
+                s.tensor_parallel.cuts})}
+    if mesh:
+        t0 = time.perf_counter()
+        tag = s._emergency_save()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(tag, "meta.json")) as f:
+            meta = json.load(f)
+        fresh = ta_moe_stoke(True, root)
+        t0 = time.perf_counter()
+        resumed = fresh.resume()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        nxt = batches[:1]
+        after = [[float(t.train_step(nxt[0], nxt[0])), masters_digest(t)]
+                 for t in (s, fresh)]
+        out["sharded_format"] = {
+            "resumed": resumed, "next_step": after,
+            "bit_for_bit": after[0] == after[1],
+            "tag_bytes": sum(os.path.getsize(os.path.join(tag, f))
+                             for f in os.listdir(tag)),
+            "save_ms": save_ms, "load_ms": load_ms,
+            "layout_mesh": meta.get("mesh"),
+            "cut_axes": sorted({tuple(leaf["cut"]["axes"])
+                                for leaves in meta["leaves"].values()
+                                for leaf in leaves.values()
+                                if "cut" in leaf})}
+        fresh.close_telemetry()
+        del fresh
+    s.close_telemetry()
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def ta_small(ops, kind: str, mesh: bool, batches) -> dict:
+    """A TA_LAYERS-block run of ``kind`` (bf16, clip 1.0; TA_EAGER eager
+    steps, then a ``train_steps`` of TA_WINDOW one-step windows, the
+    second replayed: a gathered placement's all-gather is captured with
+    the window): ``"seq"`` GPT-base with ring attention under the Megatron
+    rules on a (1, 1, 1) ``("data", "seq", "model")`` mesh with
+    ``shard_seq_dim=1``; ``"stage"`` PipelinedLM (GPipe) under the stage
+    set with the qkv kernels also on ``model`` on ``("data", "stage",
+    "model")``, against the stage set alone on ``("data", "stage")``;
+    ``"gathered"`` GPT-base under TA_GATHERED_RULES on ``("data",
+    "model", "expert")``. Without ``mesh``: the same model without the
+    mesh (the stage run: on its two-axis mesh)."""
+    from stoke_tpu_torch.configs import (
+        DataParallelConfig,
+        MeshConfig,
+        PartitionRulesConfig,
+    )
+    from stoke_tpu_torch.models import (
+        bert_tensor_parallel_rules,
+        pipeline_parallel_rules,
+    )
+    from stoke_tpu_torch.ops import attention as sp
+
+    flags = {}
+    if kind == "stage":
+        model = pipelined_lm(layers_per_stage=TA_LAYERS)
+        axes = ("data", "stage", "model") if mesh else ("data", "stage")
+        rules = ((TA_STAGE_QKV_RULE if mesh else ())
+                 + pipeline_parallel_rules())
+        flags = dict(distributed="dp", configs=[
+            MeshConfig(axes=axes, shape=(1,) * len(axes)),
+            PartitionRulesConfig(rules=rules)])
+    else:
+        model = gpt_base("flash", layers=TA_LAYERS)
+        if kind == "seq":
+            for block in model.layers:
+                block.attention.attention_fn = sp.make_ring_attention(
+                    causal=True)
+        if mesh:
+            axes = (("data", "seq", "model") if kind == "seq"
+                    else ("data", "model", "expert"))
+            rules = (bert_tensor_parallel_rules() if kind == "seq"
+                     else TA_GATHERED_RULES)
+            configs = [MeshConfig(axes=axes, shape=(1, 1, 1)),
+                       PartitionRulesConfig(rules=rules)]
+            if kind == "seq":
+                configs.append(DataParallelConfig(shard_seq_dim=1))
+            flags = dict(distributed="dp", configs=configs)
+    before = dict(ops.LAUNCHES)
+    s = stoke_for(model, "bf16", TRAIN_BATCH, seed=SEED, **flags)
+    losses, ms = eager_steps(s, [batches[i] for i in range(TA_EAGER)])
+    seg = batches[TA_EAGER:TA_EAGER + TA_WINDOW]
+    losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+    tp = s.tensor_parallel
+    out = {"losses": losses, "digest": masters_digest(s),
+           "launches": flash_delta(ops, before), "eager_ms": ms,
+           "windows_captured": len(s._engine._windows),
+           # the cut leaves by the axes their slices lie over
+           "cuts": None if tp is None else dict(collections.Counter(
+               "/".join(c.group_axes) for c in tp.cuts.values())),
+           "gathered": None if tp is None else len(tp.gathered)}
+    s.close_telemetry()
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def virtual_model_expert(ops, dtype) -> dict:
+    """One GPT-base-MoE block (flash attention, causal; 8 experts,
+    capacity 1.25, top-1) under the Megatron and expert rules over
+    TA_SPLITS virtual (model, expert) ranks by the port's own cut
+    (``shard_module`` with one virtual group a mesh axis): the attention's
+    partial sums over the model ranks at 12 / T heads, the experts'
+    outputs over the expert ranks at 8 / X experts, gathered here in place
+    of the collectives. In fp32 the whole block, forward and every
+    gradient, against the unsplit block within PARITY_RTOL. In bf16 each
+    region against the unsplit block's region on the same input, in
+    :func:`split_errors`'s row check: the attention sublayer against the
+    unsplit bf16 and fp32 blocks, the MoE sublayer against the unsplit
+    bf16 block (a bf16 input that differs by one rounding can route a
+    near tie to another expert, as :func:`virtual_ep` notes)."""
+    import copy
+
+    from stoke_tpu_torch.models import (
+        MoEFFN,
+        bert_tensor_parallel_rules,
+        moe_expert_parallel_rules,
+    )
+    from stoke_tpu_torch.models.moe import MoETransformerBlock
+    from stoke_tpu_torch.ops import make_flash_attention
+    from stoke_tpu_torch.parallel import ModelGroup, shard_module
+
+    T, X = TA_SPLITS
+    H = HEADS * HEAD_DIM
+    torch.manual_seed(SEED + 7)
+    whole = MoETransformerBlock(
+        H, HEADS, 4 * H, MOE_EXPERTS, 0.0, MOE_CAPACITY,
+        make_flash_attention(causal=True), top_k=1,
+        device="cuda").to(dtype)
+    base = copy.deepcopy(whole)
+    ranks, tps = {}, {}
+    for m in range(T):
+        for e in range(X):
+            b = copy.deepcopy(base)
+            tps[(m, e)] = shard_module(
+                b, bert_tensor_parallel_rules() + moe_expert_parallel_rules(),
+                {"model": ModelGroup(None, T, m, "model"),
+                 "expert": ModelGroup(None, X, e, "expert")})
+            ranks[(m, e)] = b
+    model_ranks = [ranks[(m, 0)] for m in range(T)]
+    expert_ranks = [ranks[(0, e)] for e in range(X)]
+    n = MOE_EXPERTS // X
+
+    def attention(xs):
+        a = sum(b.attention.partial(xs, None) for b in model_ranks)
+        return base.ln_attn(xs + a + base.attention.out.bias)
+
+    def moe(h):
+        slot, gates = base.moe.route(h)
+        ein = base.moe.dispatch(h, slot)
+        outs = [b.moe.experts(ein[e * n:(e + 1) * n])
+                for e, b in enumerate(expert_ranks)]
+        return base.ln_ff(h + MoEFFN.combine(torch.cat(outs), slot, gates))
+
+    def grads_of(xs):
+        out = {}
+        for name, p in base.named_parameters():
+            tp = tps[(0, 0)]
+            cut = tp.cuts.get(name)
+            if cut is None:
+                g = p.grad
+            else:
+                group = (model_ranks if cut.group_axes == ("model",)
+                         else expert_ranks)
+                parts = [dict(b.named_parameters())[name].grad
+                         for b in group]
+                g = None if parts[0] is None else cut.join(parts)
+            if g is not None:
+                out[name] = g
+        out["x"] = xs.grad
+        return out
+
+    def zero():
+        for b in (base, *ranks.values()):
+            b.zero_grad(set_to_none=True)
+
+    def pick(ref):
+        out, grads = ref
+        return out, {k: v for k, v in grads.items() if v is not None}
+
+    x = torch.randn(TRAIN_BATCH, TRAIN_LEN, H, device="cuda", dtype=dtype)
+    dout = torch.randn_like(x)
+    before = dict(ops.LAUNCHES)
+    regions = {}
+    if dtype == FP32:
+        refs = [pick(block_pass(whole, x, dout, lambda m, t: m(t, None)))]
+        xs = x.clone().requires_grad_()
+        out = moe(attention(xs))
+        out.backward(dout)
+        regions["block"] = split_errors((out.detach(), grads_of(xs)), refs,
+                                        dtype)
+    else:
+        whole32 = copy.deepcopy(whole).float()
+
+        def sub_attn(m, t):
+            return m.ln_attn(t + m.attention(t, None))
+
+        refs = [pick(block_pass(whole, x, dout, sub_attn)),
+                pick(block_pass(whole32, x.float(), dout.float(), sub_attn))]
+        xs = x.clone().requires_grad_()
+        out = attention(xs)
+        out.backward(dout)
+        regions["attention"] = split_errors((out.detach(), grads_of(xs)),
+                                            refs, dtype)
+        zero()
+        whole.zero_grad(set_to_none=True)
+        refs = [pick(block_pass(whole, x, dout,
+                                lambda m, t: m.ln_ff(t + m.moe(t))))]
+        xs = x.clone().requires_grad_()
+        out = moe(xs)
+        out.backward(dout)
+        regions["moe"] = split_errors((out.detach(), grads_of(xs)), refs,
+                                      dtype)
+    launches = flash_delta(ops, before)
+    return {"T": T, "X": X, "dtype": str(dtype).replace("torch.", ""),
+            "heads_a_rank": model_ranks[0].attention.local_heads,
+            "experts_a_rank": expert_ranks[0].moe.local_experts,
+            "regions": regions, "launches": launches,
+            "ok": all(r["ok"] for r in regions.values())
+            and all(v > 0 for v in launches.values())}
+
+
+def train_three_axes(ops) -> dict:
+    """Meshes of three axes on the card, at world 1 (every mesh of ones):
+    (1) the main path, GPT-base-MoE top-1 bf16 under the Megatron and
+    expert rules on a (1, 1, 1) ``("data", "model", "expert")`` mesh with
+    fsdp and the int8 rs_ag transport, against the same run on the 1-D
+    data mesh (:func:`ta_main`): losses, masters, the flash and quantize
+    launches and ``comm_bytes`` bit for bit, eager and replayed; (2) its
+    emergency save in the sharded format, resumed bit for bit; (3)-(5)
+    GPT-base under ``("data", "seq", "model")``, PipelinedLM under
+    ``("data", "stage", "model")`` with a gathered qkv level, GPT-base
+    with two gathered placements, each TA_LAYERS blocks deep, bit for
+    bit against the run without the third axis (:func:`ta_small`); (6)
+    one GPT-base-MoE block over TA_SPLITS virtual (model, expert) ranks
+    (:func:`virtual_model_expert`)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    batches = window_batches(TA_EAGER + TA_WINDOW)
+    failures = []
+    runs, small = {}, {}
+    root = tempfile.mkdtemp(prefix="stoke-three-axes-")
+    try:
+        for mesh in (True, False):
+            runs["mesh" if mesh else "data"] = ta_main(
+                ops, mesh, batches, os.path.join(root, str(mesh)))
+        for kind in ("seq", "stage", "gathered"):
+            for mesh in (True, False):
+                small[f"{kind}_{'mesh' if mesh else 'plain'}"] = ta_small(
+                    ops, kind, mesh, batches)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = runs["mesh"], runs["data"]
+    for key in ("losses", "digest", "launches", "windows_captured",
+                "comm_bytes"):
+        if a[key] != b[key]:
+            failures.append(f"main path mesh vs data {key}: {a[key]} vs "
+                            f"{b[key]}")
+    if not all(a["launches"].values()):
+        failures.append(f"main path launches {a['launches']}")
+    if a["windows_captured"] < 1:
+        failures.append("main path: no window captured")
+    if not a["split"]:
+        failures.append("main path: nothing split")
+    fmt = a["sharded_format"]
+    if not (fmt["resumed"] and fmt["bit_for_bit"]):
+        failures.append(f"sharded format: {fmt}")
+    for kind in ("seq", "stage", "gathered"):
+        m, p = small[f"{kind}_mesh"], small[f"{kind}_plain"]
+        for key in ("losses", "digest", "launches", "windows_captured"):
+            if m[key] != p[key]:
+                failures.append(f"{kind} {key}: {m[key]} vs {p[key]}")
+        if not m["cuts"]:
+            failures.append(f"{kind}: nothing cut")
+        if m["windows_captured"] < 1:
+            failures.append(f"{kind}: no window captured")
+    if not small["stage_mesh"]["gathered"] or not small[
+            "gathered_mesh"]["gathered"]:
+        failures.append("no gathered placement")
+    virtual = [virtual_model_expert(ops, dt) for dt in (FP32, BF16)]
+    for v in virtual:
+        if not v["ok"]:
+            failures.append(f"virtual (model, expert) block: {v}")
+    if failures:
+        raise AssertionError("train_three_axes: " + "; ".join(failures))
+
+    def p50(xs):
+        return float(np.median(xs)) if xs else None
+
+    return {
+        "phase": "train_three_axes",
+        "model": "GPT-base-MoE (8 experts every 2nd block, capacity 1.25, "
+                 "top-1) bf16, flash, B=8, L=1024, AdamW, fsdp, int8 rs_ag; "
+                 f"seq / stage / gathered runs GPT-base or PipelinedLM at "
+                 f"{TA_LAYERS} blocks, clip 1.0; every mesh of ones",
+        "bit_for_bit": True,
+        "losses": {k: v["losses"] for k, v in runs.items()},
+        "launches": {k: v["launches"] for k, v in runs.items()},
+        "windows_captured": {k: v["windows_captured"]
+                             for k, v in runs.items()},
+        "eager_ms_p50": {k: p50(v["eager_ms"][1:]) for k, v in runs.items()},
+        "replay_ms_p50": {k: p50(v["replay_ms"]) for k, v in runs.items()},
+        "eager_ms": {k: v["eager_ms"] for k, v in runs.items()},
+        "replay_ms": {k: v["replay_ms"] for k, v in runs.items()},
+        "peak_gb": {k: v["peak_gb"] for k, v in runs.items()},
+        "process_peak_gb": {k: v["process_peak_gb"]
+                            for k, v in runs.items()},
+        "comm_bytes": a["comm_bytes"],
+        "split": a["split"],
+        "sharded_format": fmt,
+        "small": {k: {kk: v[kk] for kk in ("losses", "launches", "cuts",
+                                           "gathered", "eager_ms",
+                                           "windows_captured")}
+                  for k, v in small.items()},
+        "virtual": virtual,
+        "launches_main": a["launches"],
+        "launches_total": {n: sum(v["launches"].get(n, 0)
+                                  for v in (*runs.values(),
+                                            *small.values(), *virtual))
+                           for n in (*FLASH, *QUANT_NAMES)},
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def quant_rows(cases, comm, served, elastic, second, third) -> list:
     """The kernels line's rows of the quantize pair: ``ms`` and its
     bound at the 25 MB bucket (stochastic, chunk 512), the case the
     transports launch; every case beside it; launches from train_comm
     (the quantize) and from train_comm and serve_quant (the
-    dequantize), and, beside, the elastic resume's steps (``elastic``)
-    and train_second_axis's runs (``second``)."""
+    dequantize), and, beside, the elastic resume's steps (``elastic``),
+    train_second_axis's runs (``second``) and train_three_axes's main
+    path (``third``)."""
     main_case = next(c for c in cases if c["n"] == QUANT_BUCKET
                      and c["chunk"] == 512 and c["stochastic"])
     rows = []
@@ -7231,6 +7644,7 @@ def quant_rows(cases, comm, served, elastic, second) -> list:
                "launches_serve_quant": served["launches"].get(name, 0),
                "launches_train_resilience": elastic[name],
                "launches_train_second_axis": second[name],
+               "launches_train_three_axes": third[name],
                "max_abs_err": max(x["max_abs_err"] if key == "dequantize"
                                   else x["quantize_max_abs_err"]
                                   for x in cases),
@@ -7372,6 +7786,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     second = train_second_axis(ops)
     emit({**second, "card": smi})
+    torch.cuda.empty_cache()
+    third = train_three_axes(ops)
+    emit({**third, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -7409,6 +7826,12 @@ def main() -> int:
             # the tiers, transports and sharded format under a second axis
             out["launches_train_second_axis"] = (
                 second["launches_total"][tel_key])
+            # the main path under three axes (GPT-base-MoE), and the
+            # phase's other runs and virtual block beside it
+            out["launches_train_three_axes"] = (
+                third["launches_main"][tel_key])
+            out["launches_train_three_axes_total"] = (
+                third["launches_total"][tel_key])
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]
@@ -7502,7 +7925,7 @@ def main() -> int:
          "graph_ms": verify[0]["graph_ms"],
          "launches_observatories": obsv["launches"]["paged_verify"]},
         *quant_rows(quant, comm, squant, res["elastic"]["launches"],
-                    second["launches_total"]),
+                    second["launches_total"], third["launches_main"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -334,11 +334,14 @@ def comm_shard_updates(cfg: Optional["CommConfig"],
 @dataclass
 class MeshConfig:
     """The device mesh: axis names, devices per axis (``-1`` inferred,
-    None a 1-D mesh on ``axes[0]``), an explicit device list and the axes
-    that cross hosts. Needs ``distributed='dp'``. The port builds a 1-D
-    mesh over the process group (one device a process, so ``devices``
-    must be None); more axes and ``dcn_axes`` are ROADMAP Queue 1 item
-    8."""
+    None ``(n, 1, ...)``), an explicit device list and the axes that cross
+    hosts. Needs ``distributed='dp'``. The port builds a ``DeviceMesh`` of
+    these axes over the process group (one device a process, so
+    ``devices`` must be None), with a data axis of 1 in front when
+    ``axes`` lacks it (:func:`stoke_tpu_torch.parallel.mesh.build_mesh`).
+    ``dcn_axes`` is accepted and has no effect, as in the JAX package:
+    the launcher orders the ranks and NCCL picks each pair's
+    transport."""
 
     axes: Tuple[str, ...] = ("data",)
     shape: Optional[Tuple[int, ...]] = None
@@ -400,9 +403,11 @@ class PartitionRulesConfig:
     """Tensor-parallel partition rules, ``(path_regex, spec)`` pairs with
     one mesh axis name (or None, or a tuple of names, or "...") per
     dimension, matched against each parameter's JAX leaf path. Needs
-    ``distributed='dp'``; the port runs the Megatron, expert and stage
-    sets (:mod:`stoke_tpu_torch.parallel.tensor`) and refuses other
-    placements (ROADMAP Queue 1 item 8e)."""
+    ``distributed='dp'``; the port splits the Megatron, expert and stage
+    sets over their axes and gathers any other placement on a model or
+    expert axis before each use (:mod:`stoke_tpu_torch.parallel.tensor`);
+    placements on the data, seq or stage axis outside the stage set are
+    refused (ROADMAP Queue 1 item 8f)."""
 
     rules: Tuple[Tuple[str, Tuple], ...] = ()
 

@@ -22,8 +22,11 @@ loss (``stoke_tpu/engine.py:1028-1040``); the reported losses stay
 unweighted. Under a Megatron or expert split (``tp``, a
 :class:`~stoke_tpu_torch.parallel.tensor.TensorParallel`) the norms of the
 clip, the sentinels and the numerics are the global parameters': a split
-leaf's squares (or largest magnitude) taken over the model group, a whole
-leaf once, and a non-finite flag ANDed over both groups.
+leaf's squares (or largest magnitude) taken over its own group (the axes
+that cut it: an expert leaf is whole over the model axis, so its squares
+are not summed there), a whole leaf once, and a non-finite flag ANDed
+over every group. A gathered placement's slices are all-gathered before
+each forward (:meth:`StepEngine._cast_forward`).
 
 The JAX engine traces forward and grad into one program; here autograd
 records the eager forward, ``backward`` runs into the parameters' fp32
@@ -463,9 +466,13 @@ class StepEngine:
         self.device = (self.params[0].device if self.params
                        else torch.device("cpu"))
         self.tp = tp
-        #: the positions in ``params`` of the leaves the split cut
-        self._cut = (frozenset(tp.sliced_indices(module, self.params))
-                     if tp is not None else frozenset())
+        #: the positions in ``params`` of the leaves the split cut, to
+        #: the axes of the group their slices lie over
+        self._cut: Dict[int, tuple] = {}
+        if tp is not None:
+            names = {id(p): n for n, p in module.named_parameters()}
+            self._cut = {i: tp.cuts[names[id(self.params[i])]].group_axes
+                         for i in tp.sliced_indices(module, self.params)}
         self.per_loss = (precision.scaled
                          and self.precision_config.num_losses > 1)
         # built for every precision, as the JAX facade builds it; only
@@ -609,15 +616,19 @@ class StepEngine:
                                 policy=self.remat.policy)
 
     def _cast_forward(self, args: tuple, kwargs: dict):
-        if self.precision.compute_dtype is None:
-            return self.module(*args, **kwargs)
         dt = self.precision.compute_dtype
+        gathered = self.tp is not None and self.tp.gathered
+        if dt is None and not gathered:
+            return self.module(*args, **kwargs)
         # parameters only: buffers (BatchNorm's running statistics) keep
         # their dtype and stay the module's own tensors, so their in-place
         # updates land, as the JAX package casts only ``params``
-        cast = {n: t.to(dt) if t.is_floating_point() else t
-                for n, t in self.module.named_parameters()}
-        out = functional_call(self.module, cast,
+        swap = {n: t.to(dt) if dt is not None and t.is_floating_point()
+                else t for n, t in self.module.named_parameters()}
+        if gathered:
+            # each gathered placement whole, from its (cast) slice
+            swap.update(self.tp.run_params(swap))
+        out = functional_call(self.module, swap,
                               self.precision.cast_compute(tuple(args)),
                               self.precision.cast_compute(dict(kwargs)))
         return self.precision.cast_output(out)
@@ -684,36 +695,43 @@ class StepEngine:
                  if m.aux_loss is not None]
         return sum(terms) if terms else None
 
+    def _cut_positions(self, idx: Sequence[int]) -> List[tuple]:
+        """The positions in ``idx`` of the leaves the split cut, by the
+        axes of their group: ``[(axes, positions), ...]``."""
+        by: Dict[tuple, List[int]] = {}
+        for j, i in enumerate(idx):
+            if i in self._cut:
+                by.setdefault(self._cut[i], []).append(j)
+        return list(by.items())
+
     def _whole_norms(self, norms: torch.Tensor, idx: Sequence[int],
                      p: float = 2.0) -> torch.Tensor:
         """``norms`` (the ``p``-norm of each of the leaves ``idx``, this
-        rank's) with each leaf the model split cut taken whole: its
-        slices' ``p``-th powers summed (maxima maxed) over the model
-        group. At a group of one the values do not move (``sqrt(x * x)``
-        is ``x`` in binary floating point)."""
-        at = [j for j, i in enumerate(idx) if i in self._cut]
-        if not at:
-            return norms
-        pos = self._device_vector(at, torch.long)
-        part = norms.index_select(0, pos)
-        if p == float("inf"):
-            part = self.tp.reduce_(part, "max")
-        elif p == 2:
-            part = self.tp.reduce_(part * part).sqrt()
-        else:
-            part = self.tp.reduce_(part ** p) ** (1.0 / p)
-        return norms.index_copy(0, pos, part)
+        rank's) with each leaf the split cut taken whole: its slices'
+        ``p``-th powers summed (maxima maxed) over its own group. At a
+        group of one the values do not move (``sqrt(x * x)`` is ``x`` in
+        binary floating point)."""
+        for axes, at in self._cut_positions(idx):
+            pos = self._device_vector(at, torch.long)
+            part = norms.index_select(0, pos)
+            if p == float("inf"):
+                part = self.tp.reduce_(part, "max", axes)
+            elif p == 2:
+                part = self.tp.reduce_(part * part, axes=axes).sqrt()
+            else:
+                part = self.tp.reduce_(part ** p, axes=axes) ** (1.0 / p)
+            norms = norms.index_copy(0, pos, part)
+        return norms
 
     def _whole_sums(self, values: torch.Tensor, idx: Sequence[int],
                     op: str = "sum") -> torch.Tensor:
         """``values`` (one a leaf of ``idx``) with each cut leaf's summed
-        (or maxed) over the model group."""
-        at = [j for j, i in enumerate(idx) if i in self._cut]
-        if not at:
-            return values
-        pos = self._device_vector(at, torch.long)
-        part = self.tp.reduce_(values.index_select(0, pos), op)
-        return values.index_copy(0, pos, part)
+        (or maxed) over its own group."""
+        for axes, at in self._cut_positions(idx):
+            pos = self._device_vector(at, torch.long)
+            part = self.tp.reduce_(values.index_select(0, pos), op, axes)
+            values = values.index_copy(0, pos, part)
+        return values
 
     def backward(self, objective: torch.Tensor) -> None:
         """The 4-call path's micro-step (one dispatch, a ``stoke/accum``
@@ -902,7 +920,7 @@ class StepEngine:
     def _whole_probe(self, probe: "_GradProbe") -> None:
         """The probe of the leaves stepped whole over the data axis, the
         leaves the model split cut taken whole: their norms, flags and
-        numerics summed (or maxed) over the model group."""
+        numerics summed (or maxed) over each leaf's own group."""
         idx = probe.grad_idx
         if not idx:
             return
@@ -913,7 +931,8 @@ class StepEngine:
         if self.numerics:
             probe.rep_absmax = self._whole_sums(probe.rep_absmax, idx, "max")
             probe.rep_finite = self._whole_sums(probe.rep_finite, idx)
-            probe.rep_numel = [n * self.tp.size if i in self._cut else n
+            parts = {i: self.tp.groups[a].size for i, a in self._cut.items()}
+            probe.rep_numel = [n * parts.get(i, 1)
                                for i, n in zip(idx, probe.rep_numel)]
 
     def _step_squares(self, old: Dict[Any, torch.Tensor]

@@ -69,32 +69,42 @@ its dropout masks from its own seed (``seed + rank``): the JAX package
 draws one mask over the global batch, so the masks cannot match its bit
 for bit. The losses ``loss()`` reports are the global batch's.
 
-Tensor and expert parallelism: a ``("data", X)`` mesh with a
-``PartitionRulesConfig`` whose rules name X (the Megatron rules of
-``bert_tensor_parallel_rules``, or ``moe_expert_parallel_rules``) cuts
-the whole model, after the broadcast, into this process's slices
-(:func:`~stoke_tpu_torch.parallel.tensor.apply_partition_rules`); the
-ladder then runs over the data sub-group, each rank's generator is seeded
-by its data coordinate (``seed + data rank``: a model group draws the same
-masks), ``DataLoader`` shards a ``BucketedDistributedSampler`` built with
-the world's defaults by the data coordinate, the parameter counts and
+Tensor and expert parallelism: a mesh of model or expert axes beside
+the data axis (``("data", "model")``, ``("data", "model", "expert")``,
+``("model", "expert")`` built with a data axis of 1 in front, a ``seq``
+axis beside them) with a ``PartitionRulesConfig`` whose rules name them
+(the Megatron rules of ``bert_tensor_parallel_rules``,
+``moe_expert_parallel_rules``, or any other placement on those axes, a
+gathered placement) cuts the whole model, after the broadcast, into this
+process's slices (:func:`~stoke_tpu_torch.parallel.tensor
+.apply_partition_rules`, one group a mesh axis); the ladder then runs
+over the data sub-group, each rank's generator is seeded by its data
+coordinate (``seed + data rank``; under ``seq`` by its place in the
+(data, seq) plane: a model group draws the same masks), ``DataLoader``
+shards a ``BucketedDistributedSampler`` built with the world's defaults
+by the data coordinate, the parameter counts and
 ``dump_model_parameter_info`` report the whole model, and a consolidated
 save gathers the slices into the whole arrays (the tag a dp run of the
 same parameters writes), which ``load`` cuts again. A model's auxiliary
 losses (MoE) join the objective as ``aux_loss_weight * sum(aux)``;
 ``aux_losses`` holds the last forward's, and no checkpoint does.
 
-Under any two-axis mesh the tiers shard over the data axis alone, as the
-JAX rules place them (under ``seq`` the ladder also averages over the
-data row), a ``CommConfig`` packs the JAX package's global leaves and
+Under any mesh of several axes the tiers shard over the data axis alone,
+as the JAX rules place them (under ``seq`` the ladder also averages over
+the data row), a ``CommConfig`` packs the JAX package's global leaves and
 exchanges over the data sub-group, and the sharded format writes each
 slice once with the mesh and a placed leaf's cut in its layout.
+``MeshConfig.dcn_axes`` is accepted and changes nothing, as in the JAX
+package.
 
 Pipeline parallelism: a ``("data", "stage")`` mesh, or a ``("stage",)``
 one (built as ``(1, n)``: every process takes the same rows), with
 ``pipeline_parallel_rules`` cuts a ``PipelinedLM``'s stage-stacked
 tensors to this rank's ``stages[d::S]`` and gives the model its stage
 group, the same way; the processes of one data row take the same rows.
+Beside a model axis (``("data", "stage", "model")``) a rule that also
+places a stacked leaf on ``model`` cuts it in a second level, gathered
+over the model group before each forward.
 
 ``TelemetryConfig`` writes ``steps.jsonl`` (the JAX step-event schema),
 ``metrics.prom`` and a TensorBoard stream under its ``output_dir`` at its
@@ -191,19 +201,16 @@ from stoke_tpu_torch.ops.attention import (
 )
 from stoke_tpu_torch.parallel.ladder import Ladder, gather_by_rank
 from stoke_tpu_torch.parallel.mesh import (
+    axis_coordinates,
     build_mesh,
-    data_coordinates,
     initialize_distributed,
     local_rank,
     one_process_group,
-    other_coordinates,
 )
 from stoke_tpu_torch.parallel.sharding import make_sharding_rules
 from stoke_tpu_torch.parallel.tensor import (
-    ModelGroup,
     TensorParallel,
     apply_partition_rules,
-    shard_module,
 )
 from stoke_tpu_torch.serving.engine import resolve_device
 from stoke_tpu_torch.parallel.zero import make_transport, remap_residual
@@ -455,14 +462,19 @@ class Stoke:
         #: under a ("data", "seq") mesh, the ladder's groups: the data
         #: sub-group and this process's data row (None otherwise)
         self._seq_groups = None
+        #: under a seq axis beside model, expert or stage axes, the
+        #: flattened (data, seq) sub-group: the processes that hold other
+        #: tokens (None otherwise: the data sub-group or the world)
+        self._rows_group = None
         #: the model's Megatron or expert split (None without rules)
         self._tp: Optional[TensorParallel] = None
         if st.is_distributed:
             self._join_process_group(model)
         world = (dist.get_world_size(self._group) if self._group is not None
                  else 1)
-        data_group = (self._data_group if self._data_group is not None
-                      else self._group)
+        data_group = next((g for g in (self._rows_group, self._data_group,
+                                        self._group) if g is not None),
+                          None)
         data_rank = (dist.get_rank(data_group)
                      if data_group is not None else 0)
         ladder_group, across = data_group, None
@@ -879,56 +891,55 @@ class Stoke:
         dpc = st.dp_config
         self._mesh = build_mesh(st.mesh_config, self._device, dpc.axis_name)
         names = tuple(self._mesh.mesh_dim_names)
-        second = next((a for a in names if a != dpc.axis_name), None)
         if self._mesh.ndim == 1:
             self._group = self._mesh.get_group()
-        elif second != dpc.seq_axis_name:
-            # a model, expert or stage axis: the ladder reduces over the data
-            # sub-group, io and the broadcast span the world
-            self._group = dist.group.WORLD
-            self._data_group = data_coordinates(self._mesh,
-                                                dpc.axis_name)[0]
-        else:
-            # the ladder reduces over the data sub-group, then over the data
-            # row, whose seq sub-group also carries the ring and Ulysses
-            # collectives; io and the broadcast span the world
-            self._group = dist.group.WORLD
-            seq, n_seq, _ = other_coordinates(self._mesh, dpc.axis_name)
-            self._seq_groups = (
-                data_coordinates(self._mesh, dpc.axis_name)[0], seq)
-            if n_seq > 1 and dpc.shard_seq_dim is None:
-                raise NotImplementedError(
-                    f"Stoke -- a {dpc.seq_axis_name!r} mesh axis of size "
-                    f"{n_seq} needs DataParallelConfig.shard_seq_dim: the "
-                    f"port runs the model on this process's sequence "
-                    f"shard, and the JAX package's global view of whole "
-                    f"sequences on every shard is not ported (ROADMAP "
-                    f"Queue 3)")
-            fcfg = st.fleet_config
-            if n_seq > 1 and fcfg is not None and fcfg.rebalance:
-                raise NotImplementedError(
-                    f"Stoke -- FleetConfig(rebalance=True) under a "
-                    f"{dpc.seq_axis_name!r} mesh axis of size {n_seq}: the "
-                    f"rebalancer moves rows between any two processes, and "
-                    f"the processes of one data row must hold the same "
-                    f"sequences (ROADMAP Queue 3)")
-            if dpc.shard_seq_dim is not None:
-                self._seq_shard = SeqShard(
-                    seq, dist.get_rank(seq), n_seq,
-                    model_seq_layout(model) if isinstance(model, nn.Module)
-                    else "contiguous")
+            return
+        # io and the broadcast span the world; the ladder reduces over the
+        # data sub-group (and, under seq, then over the data row, whose
+        # seq sub-group also carries the ring and Ulysses collectives)
+        self._group = dist.group.WORLD
+        data = axis_coordinates(self._mesh, dpc.axis_name)[0]
+        if dpc.seq_axis_name not in names:
+            self._data_group = data
+            return
+        seq, n_seq, _ = axis_coordinates(self._mesh, dpc.seq_axis_name)
+        self._seq_groups = (data, seq)
+        if self._mesh.ndim > 2:
+            # beside model, expert or stage axes: the rows go by the data
+            # coordinate, the dropout masks and the MoE's batch means by
+            # the (data, seq) plane
+            self._data_group = data
+            self._rows_group = axis_coordinates(
+                self._mesh, (dpc.axis_name, dpc.seq_axis_name))[0]
+        if n_seq > 1 and dpc.shard_seq_dim is None:
+            raise NotImplementedError(
+                f"Stoke -- a {dpc.seq_axis_name!r} mesh axis of size "
+                f"{n_seq} needs DataParallelConfig.shard_seq_dim: the "
+                f"port runs the model on this process's sequence "
+                f"shard, and the JAX package's global view of whole "
+                f"sequences on every shard is not ported (ROADMAP "
+                f"Queue 3)")
+        fcfg = st.fleet_config
+        if n_seq > 1 and fcfg is not None and fcfg.rebalance:
+            raise NotImplementedError(
+                f"Stoke -- FleetConfig(rebalance=True) under a "
+                f"{dpc.seq_axis_name!r} mesh axis of size {n_seq}: the "
+                f"rebalancer moves rows between any two processes, and "
+                f"the processes of one data row must hold the same "
+                f"sequences (ROADMAP Queue 3)")
+        if dpc.shard_seq_dim is not None:
+            self._seq_shard = SeqShard(
+                seq, dist.get_rank(seq), n_seq,
+                model_seq_layout(model) if isinstance(model, nn.Module)
+                else "contiguous")
 
     def _split_model(self, rules) -> TensorParallel:
         """Cut the (broadcast) whole model by the partition rules over the
-        mesh's model, expert or stage axis; under a sequence axis no rule
-        may name an axis (ROADMAP item 8e)."""
+        mesh's model, expert and stage axes (a placement on the data or
+        seq axis is refused: ROADMAP item 8f)."""
         dpc = self._status_obj.dp_config
-        names = tuple(self._mesh.mesh_dim_names)
-        if dpc.seq_axis_name in names and self._mesh.ndim == 2:
-            return shard_module(self._module, rules,
-                                ModelGroup(None, 1, 0, None))
         return apply_partition_rules(self._module, rules, self._mesh,
-                                     dpc.axis_name)
+                                     dpc.axis_name, dpc.seq_axis_name)
 
     def _jax_layout(self, params) -> Optional[List[tuple]]:
         """Each of ``params``' JAX shape and the JAX dims that are whole
@@ -1435,8 +1446,8 @@ class Stoke:
 
     def _whole_state(self, state: Dict[str, Any],
                      grads_only: bool = False) -> Dict[str, Any]:
-        """``state`` with every slice of the model split gathered over the
-        model group into its whole tensor (parameters, their optimizer
+        """``state`` with every slice of the model split gathered over its
+        own group into its whole tensor (parameters, their optimizer
         state, accumulated gradients; only the gradients with
         ``grads_only``): the arrays a run without the split saves. Every
         rank runs the same gathers in the same order."""
@@ -1457,14 +1468,26 @@ class Stoke:
         names = {p: n for n, p in self._module.named_parameters()}
         return {names[p]: i for i, p in enumerate(self._ladder.params)}
 
-    def _mesh_rank(self, data: int, other: int = 0) -> int:
-        """The world rank at data coordinate ``data`` and coordinate
-        ``other`` on a two-axis mesh's other axis."""
+    def _mesh_rank(self, coords: Dict[str, int]) -> int:
+        """The world rank at the mesh coordinates ``coords`` (by axis
+        name; 0 on every axis they leave out)."""
         mesh = self._mesh
-        if mesh.ndim == 1:
-            return int(mesh.mesh[data])
-        d = mesh.mesh_dim_names.index(self._status_obj.dp_config.axis_name)
-        return int(mesh.mesh[(data, other) if d == 0 else (other, data)])
+        return int(mesh.mesh[tuple(coords.get(a, 0)
+                                   for a in mesh.mesh_dim_names)])
+
+    def _cut_ranks(self, axes: tuple) -> List[int]:
+        """The world ranks that hold a cut's slices over ``axes`` (the
+        flattened coordinate, the first axis major), at 0 on every other
+        axis."""
+        mesh = self._mesh
+        sizes = [mesh.mesh.shape[mesh.mesh_dim_names.index(a)] for a in axes]
+        out = []
+        for x in range(math.prod(sizes)):
+            coords = {}
+            for a, n in zip(reversed(axes), reversed(sizes)):
+                x, coords[a] = divmod(x, n)
+            out.append(self._mesh_rank(coords))
+        return out
 
     def _split_by_rank(self, state: Dict[str, Any], sharded: bool):
         """Across the ladder's ranks: ``(the writer's arrays, this rank's
@@ -1477,22 +1500,28 @@ class Stoke:
         the parameters), described in the layout. Every rank runs the
         same collectives in the same order, on this thread.
 
-        Under a two-axis mesh the layout names the mesh, and a slice is
-        written once: a leaf's data slice ``d`` by the rank at ``(d, 0)``
-        (the others of data row ``d`` hold it alike), a model split's
-        slice ``x`` of a parameter and its optimizer state by the rank at
-        ``(0, x)``, with the cut (its view, dim and, under a stage axis,
-        stride) beside the data level."""
+        Under a mesh of several axes the layout names the mesh, and a
+        slice is written once: a leaf's data slice ``d`` by the rank at
+        data coordinate ``d`` and 0 on every other axis (the others of
+        data row ``d`` hold it alike), a model split's slice of a
+        parameter and its optimizer state by the rank at its coordinates
+        on the axes that cut it and 0 on every other axis, with the cut
+        (each level's axes, view, dim and, under a stage axis, stride)
+        beside the data level."""
         ladder, world = self._ladder, self._ladder.world
         index = self._leaf_index()
         freed = {i for b in ladder.buckets if b.frees for i in b.index}
         cuts = self._tp.cuts if sharded and self._tp is not None else {}
         mesh = self._mesh
-        other = (next(a for a in mesh.mesh_dim_names
-                      if a != self._status_obj.dp_config.axis_name)
-                 if mesh is not None and mesh.ndim == 2 else None)
-        my_other = mesh.get_local_rank(other) if other else 0
-        my_data = ladder.rank
+        data_axis = self._status_obj.dp_config.axis_name
+        several = mesh is not None and mesh.ndim > 1
+        mine_at = ({a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+                   if several else {})
+
+        def writes(axes) -> bool:
+            # this rank is at 0 on every axis but ``axes``
+            return all(c == 0 for a, c in mine_at.items() if a not in axes)
+
         out = {k: {} for k in ("variables", "opt_state", "scaler_state",
                                "grad_buf", "grad_local")}
         mine = {k: {} for k in ("variables", "opt_state", "grad_buf")}
@@ -1504,20 +1533,17 @@ class Stoke:
             leaves[key][label] = {
                 "dim": dim, "shape": list(full_shape),
                 "extents": ladder.slice_extents(full_shape[dim]),
-                "ranks": [[self._mesh_rank(d)] for d in range(world)]}
-            if my_other == 0:
+                "ranks": [[self._mesh_rank({data_axis: d})]
+                          for d in range(world)]}
+            if writes((data_axis,)):
                 mine[key][label] = t
 
         def keep_cut(key, label, t, cut):
             leaves[key][label] = {
                 "dim": None, "shape": list(cut.full),
-                "cut": {"axis": other, "shape": list(cut.full),
-                        "view": list(cut.view), "dim": cut.dim,
-                        "stride": (cut.size if other == "stage"
-                                   else None)},
-                "ranks": [[self._mesh_rank(0, x)
-                           for x in range(cut.size)]]}
-            if my_data == 0:
+                "cut": io_ops.cut_layout(cut),
+                "ranks": [self._cut_ranks(cut.group_axes)]}
+            if writes(cut.group_axes):
                 mine[key][label] = t
 
         def cut_of(name, t):
@@ -1576,7 +1602,7 @@ class Stoke:
             return out, None, None
         layout = {"leaves": {k: v for k, v in leaves.items() if v},
                   "grad_local": local}
-        if other is not None:
+        if several:
             layout["mesh"] = {"axes": list(mesh.mesh_dim_names),
                               "shape": list(mesh.mesh.shape)}
         return out, {k: v for k, v in mine.items() if v}, layout
@@ -1883,7 +1909,10 @@ class Stoke:
             "process_count": int(self.n_processes),
             "device_count": int(self.world_size),
             "mesh_axes": list(st.mesh_config.axes) if dp else None,
-            "mesh_shape": list(self._mesh.shape) if dp else None,
+            # the config's axes (the port's mesh may hold a data axis of
+            # 1 in front of them), as the JAX facade counts them
+            "mesh_shape": ([self._mesh.shape[self._mesh.mesh_dim_names.index(
+                a)] for a in st.mesh_config.axes] if dp else None),
             "tier": st.sharding_tier.value,
             "shard_updates": bool(
                 comm_shard_updates(st.comm_config, st.sharding_tier)),

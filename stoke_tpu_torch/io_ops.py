@@ -21,10 +21,14 @@ A tag is a directory ``stoke-{name}-backward-step-{n}`` that holds:
   parameters, of the sharded accumulators) and its own gradients, with
   each sliced leaf's dimension, whole shape, per-rank extents and writers
   in ``meta.json`` (``leaves``); the writer's ``.npz`` holds the rest.
-  Under a two-axis mesh ``meta.json`` names the mesh (``mesh``), a slice
-  that several ranks hold alike is written by one of them, and a model
-  split's slices carry their cut (``cut``: the view and dim, and the
-  stride under a stage axis), so a leaf is put together in two levels. Not
+  Under a mesh of several axes ``meta.json`` names the mesh (``mesh``:
+  its N axes and shape), a slice that several ranks hold alike is written
+  by one of them, and a model split's slices carry their cut (``cut``:
+  each level's axes, view and dim, the stride under a stage axis, and
+  under a stage cut the model level inside it), so a leaf is put
+  together level by level: the cut's innermost level first, then the
+  outer ones, then the data dim. A consolidated tag holds the whole
+  JAX-layout arrays whatever the mesh. Not
   ``torch.distributed.checkpoint``: the ladder's slices are plain
   tensors, which it would write once, as if every rank held the same;
 - ``port.pkl``, the port's own (the dropout generators' states, the
@@ -171,7 +175,7 @@ def rank_file(key: str, rank: int) -> str:
 
 def _leaf_ranks(leaf: Dict[str, Any]) -> list:
     """A sliced leaf's writers: one row a data slice, one rank a part of
-    the second-axis cut in each row (a tag of one axis names none: rank
+    the model split's cut in each row (a tag of one axis names none: rank
     ``d`` wrote slice ``d``)."""
     return leaf.get("ranks") or [[r] for r in range(len(leaf["extents"]))]
 
@@ -187,22 +191,44 @@ def rank_writers(layout: Dict[str, Any], key: str, world: int) -> list:
     return sorted(ranks)
 
 
+def cut_layout(cut) -> Dict[str, Any]:
+    """A model split's :class:`~stoke_tpu_torch.parallel.tensor.Cut` as
+    ``meta.json`` records it: this level's axes (``axis``: the first),
+    size, whole shape, view and dim, its stride when it is a stage cut
+    (rank ``d`` holds ``stages[d::S]``), and the level inside it."""
+    out = {"axis": cut.axes[0] if len(cut.axes) == 1 else list(cut.axes),
+           "axes": list(cut.axes), "size": cut.size,
+           "shape": list(cut.full), "view": list(cut.view), "dim": cut.dim,
+           "stride": cut.size if cut.strided else None}
+    if cut.inner is not None:
+        out["inner"] = cut_layout(cut.inner)
+    return out
+
+
+def _join_cut(cut: Dict[str, Any], parts: list) -> np.ndarray:
+    """A cut leaf whole from its slices, by their flattened coordinate
+    (the outer level major): each outer block put together from its inner
+    level's slices first."""
+    inner = cut.get("inner")
+    if inner is not None:
+        n = len(parts) // cut["size"]
+        parts = [_join_cut(inner, parts[k * n:(k + 1) * n])
+                 for k in range(cut["size"])]
+    view = list(cut["view"])
+    view[cut["dim"]] //= len(parts)
+    return np.concatenate([p.reshape(view) for p in parts],
+                          cut["dim"]).reshape(cut["shape"])
+
+
 def _join_leaf(leaf: Dict[str, Any], part) -> np.ndarray:
-    """A sliced leaf whole from ``part(rank)``, its writers' arrays, in two
-    levels: each row's parts joined along the second-axis cut (its view and
-    dim; the stage stride is that view's), then the rows concatenated along
-    the data dim."""
+    """A sliced leaf whole from ``part(rank)``, its writers' arrays: each
+    row's parts joined by the model split's cut, level by level, then the
+    rows concatenated along the data dim."""
     cut = leaf.get("cut")
     rows = []
     for row in _leaf_ranks(leaf):
         parts = [part(r) for r in row]
-        if cut is None:
-            rows.append(parts[0])
-            continue
-        view = list(cut["view"])
-        view[cut["dim"]] //= len(parts)
-        rows.append(np.concatenate([p.reshape(view) for p in parts],
-                                   cut["dim"]).reshape(cut["shape"]))
+        rows.append(parts[0] if cut is None else _join_cut(cut, parts))
     if leaf.get("dim") is None:
         return rows[0]
     return np.concatenate(rows, axis=leaf["dim"])

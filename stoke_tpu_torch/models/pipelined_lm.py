@@ -29,6 +29,14 @@ gathered over the group (:func:`~stoke_tpu_torch.parallel.tensor
 Either way every rank returns the whole batch's logits, and the embedding
 and the head end each backward with the same gradient on every rank.
 Without a group the stack runs as one stage of all its slices in turn.
+
+Beside a model axis (``("data", "stage", "model")``) a rule that also
+places a stacked leaf on ``model`` (or ``expert``) cuts it in a second
+level inside the stage cut; the step engine gathers that level over its
+group before each forward (the JAX pipeline's ``shard_map`` names only
+the stage axis in its ``in_specs``, ``stoke_tpu/parallel/pipeline.py:
+213-241``, so GSPMD all-gathers the other axes at the boundary), and the
+stage applications run on the stage slices whole.
 """
 
 from __future__ import annotations

@@ -41,7 +41,11 @@ shard_seq_dim=d)`` on a ``("data", "seq")`` mesh runs each of its calls
 under its process's shard (:func:`using_seq_shard`): the attention
 adapters without an explicit mesh, GPT's positions and
 :func:`~stoke_tpu_torch.models.gpt.causal_lm_loss` read it. Without one,
-the adapters run one shard (plain attention).
+the adapters run one shard (plain attention). Beside a model axis
+(``("data", "seq", "model")`` under the Megatron rules) each of these
+runs on the model rank's local heads over the seq group: attention is
+per head, so this is the function the JAX ``shard_map`` computes after
+gathering the heads (``stoke_tpu/ops/attention.py:177-193``).
 """
 
 from __future__ import annotations
@@ -539,14 +543,18 @@ def ulysses_attention(q, k, v, kmask=None, *,
     """DeepSpeed-Ulysses attention of this process's shard (JAX
     ``_ulysses_shard``): all-to-all to ``[B, H/S, L, D]``, one attention
     over the whole sequence (flash or dense), all-to-all back. The head
-    count must divide by the shard count."""
+    count ``q`` holds must divide by the shard count: under a Megatron
+    split those are this model rank's local heads (the JAX ``shard_map``
+    gathers the heads first and computes the same function), so there
+    the local heads must divide by S."""
     shard = shard_of() if shard is None else shard
     _check_seq(q)
     S = shard.size
     if q.shape[1] % S:
         raise ValueError(
-            f"ulysses_attention: heads ({q.shape[1]}) not divisible by "
-            f"mesh axis 'seq' size ({S})")
+            f"ulysses_attention: heads ({q.shape[1]}, this process's local "
+            f"heads under a model split) not divisible by mesh axis 'seq' "
+            f"size ({S})")
     km = kmask
     if S > 1:
         q, k, v = (_SeqToHeads.apply(t, shard.group) for t in (q, k, v))

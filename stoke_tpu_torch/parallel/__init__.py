@@ -1,5 +1,5 @@
-"""Data parallelism of the port: the process group and 1-D data mesh
-(:mod:`~stoke_tpu_torch.parallel.mesh`), the ZeRO ladder's placement rules
+"""Data parallelism of the port: the process group and the device mesh
+of any number of axes (:mod:`~stoke_tpu_torch.parallel.mesh`), the ZeRO ladder's placement rules
 (:mod:`~stoke_tpu_torch.parallel.sharding`, with the partition rules),
 their collectives (:mod:`~stoke_tpu_torch.parallel.ladder`), the
 quantized gradient transports (:mod:`~stoke_tpu_torch.parallel.collectives`,
@@ -11,6 +11,7 @@ device. Counterpart of ``stoke_tpu/parallel``.
 
 from stoke_tpu_torch.parallel.ladder import Ladder
 from stoke_tpu_torch.parallel.mesh import (
+    axis_coordinates,
     build_mesh,
     initialize_distributed,
     mesh_shape,
@@ -37,6 +38,7 @@ from stoke_tpu_torch.parallel.tensor import (
     apply_partition_rules,
     copy_to_group,
     gather_from_group,
+    gather_placed,
     reduce_from_group,
     shard_module,
 )
@@ -48,10 +50,12 @@ __all__ = [
     "Schedule",
     "TensorParallel",
     "apply_partition_rules",
+    "axis_coordinates",
     "build_mesh",
     "compile_partition_rules",
     "copy_to_group",
     "gather_from_group",
+    "gather_placed",
     "initialize_distributed",
     "leaf_partition_spec",
     "local_pipeline",

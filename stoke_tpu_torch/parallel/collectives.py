@@ -13,10 +13,11 @@ JAX engine's apply orders them (``stoke_tpu/engine.py:1440-1466``):
    packed into flat fp32 buckets of ``CommConfig.bucket_mb``, each padded
    to a multiple of world x ``chunk_elems``. The layout decides which
    elements share a chunk's absmax, so only this packing gives the JAX
-   package's numbers. Under a second mesh axis the world is the data
+   package's numbers. Under a mesh of several axes the world is the data
    axis's, and the leaves are the JAX package's global ones: a model
-   split's slices are gathered over the model group first, and each rank
-   takes its slices back from the result.
+   split's slices are gathered over each cut's own group first (the model,
+   expert or stage group, or the flattened group of a cut over several
+   axes), and each rank takes its slices back from the result.
 2. **The exchange** (:meth:`GradTransport._exchange`), the JAX package's
    arithmetic collective by collective. At world 1 the local round trip
    (``_roundtrip_local``); across W ranks, on the bucket the ladder
@@ -100,7 +101,7 @@ class JaxLeafOrder:
     Under a model split (``tp``, a
     :class:`~stoke_tpu_torch.parallel.tensor.TensorParallel`) the JAX
     leaves are the global ones, as the JAX transport packs them: each
-    split leaf's slices are all-gathered over the model group and joined
+    split leaf's slices are all-gathered over its own group and joined
     by their cut (a stage stack's strided rows back in the stack's order)
     before the layout, and :meth:`from_jax` gives each rank its own slice
     of the result.

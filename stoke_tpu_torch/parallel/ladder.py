@@ -42,15 +42,15 @@ would reduce-scatter, the sharded accumulators are all-gathered), the
 transport rewrites them, and the slices take their parts; without one the
 path above is unchanged.
 
-Under a second mesh axis the group is the data sub-group, and a
+Under a mesh of several axes the group is the data sub-group, and a
 sharded leaf's slice ``d`` is held alike by every rank of data row ``d``,
 as the JAX package places each tier's state over the data axis alone
 (``stoke_tpu/parallel/sharding.py:243-294``):
 
-- a model, expert or stage axis (:mod:`~stoke_tpu_torch.parallel.tensor`):
+- model, expert or stage axes (:mod:`~stoke_tpu_torch.parallel.tensor`):
   every rank of a model group holds the same gradient of each leaf it does
   not split, and its own slice's of each leaf it splits, so each is
-  averaged over the ranks that share its place on the model axis. The
+  averaged over the ranks that share its place on the other axes. The
   leaves a partition rule places (``keep_whole``) stay whole over the data
   axis whatever the tier, as the JAX package's rules win over the tier's
   placement;
@@ -160,7 +160,7 @@ class Ladder:
         keep_whole: indices of ``params`` a partition rule placed; they
             are stepped whole.
         across: under a ``seq`` axis, the process group of this process's
-            data row (the other axis's sub-group), over which every
+            data row (the seq axis's sub-group), over which every
             gradient is averaged after the data sub-group.
         jax_layout: for each of ``params``, ``(its JAX shape, each JAX dim
             that is a whole dim of the tensor, to that dim)``

@@ -2,15 +2,14 @@
 
 Counterpart of ``stoke_tpu/parallel/mesh.py``: the rendezvous is
 ``torch.distributed.init_process_group`` (NCCL for the card, gloo for the
-CPU; nothing else is substituted) and the mesh a ``DeviceMesh``: the 1-D
-data axis, or the data axis and one more: ``("data", "seq")`` of sequence
-parallelism, whose ``seq`` sub-groups run the ring and Ulysses
-collectives (:mod:`stoke_tpu_torch.ops.attention`), or ``("data", X)``
-for the model or expert axis X that partition rules name, whose
-sub-groups run the Megatron and expert splits
-(:mod:`stoke_tpu_torch.parallel.tensor`) while the ladder reduces over
-the data sub-groups (:func:`data_coordinates`). Meshes of three or more
-axes and cross-host axes are ROADMAP Queue 1 item 8e.
+CPU; nothing else is substituted) and the mesh a ``DeviceMesh`` of any
+number of named axes: the data axis, and beside it a ``seq`` axis of
+sequence parallelism, whose sub-groups run the ring and Ulysses
+collectives (:mod:`stoke_tpu_torch.ops.attention`), and model, expert or
+stage axes that partition rules name, whose sub-groups run the Megatron,
+expert and stage splits (:mod:`stoke_tpu_torch.parallel.tensor`), while
+the ladder reduces over the data sub-groups. :func:`axis_coordinates`
+gives any axis's sub-group, or the flattened sub-group of several axes.
 
 **One process, one device.** In the JAX package one process drives every
 device of its host. Under the port each process drives exactly one:
@@ -37,10 +36,6 @@ import torch
 import torch.distributed as dist
 
 from stoke_tpu_torch.configs import DistributedInitConfig, MeshConfig
-
-_LATER_MESH = ("ROADMAP Queue 1 item 8e (meshes of three axes, dcn_axes "
-               "and partition rules beyond the Megatron, expert and stage "
-               "sets)")
 
 #: the directory of the newest one-process group's store (removed when
 #: a later group replaces it, or at exit)
@@ -167,51 +162,52 @@ def mesh_shape(shape: Optional[tuple], n: int, n_axes: int = 1) -> tuple:
 
 def build_mesh(mesh_config: MeshConfig, device: torch.device,
                data_axis: str = "data"):
-    """The ``DeviceMesh`` over the process group's ranks: the 1-D mesh
-    ``data_axis``, or a two-axis mesh of ``data_axis`` and one more (a
-    sequence, model, expert or stage axis, in either order; the last axis
-    varies fastest over the ranks). A 1-D mesh of another axis is the
-    ``(1, n)`` mesh of ``data_axis`` and it: every process takes the same
-    rows, as the JAX package replicates the batch over a mesh without its
-    data axis. ``shape`` may be None, or name each axis's size with one
-    ``-1`` inferred; its errors are the JAX package's. Meshes of three or
-    more axes, two axes without the data axis and cross-host axes are
-    refused (ROADMAP item 8e), and an explicit device list: under the
-    port each process brings its one device."""
+    """The ``DeviceMesh`` over the process group's ranks, of the config's
+    axes in their order (the last axis varies fastest over the ranks).
+    A mesh without ``data_axis`` gets a data axis of 1 in front: every
+    process takes the same rows, as the JAX package replicates the batch
+    over a mesh without its data axis. ``shape`` may be None, or name
+    each axis's size with one ``-1`` inferred; its errors are the JAX
+    package's. An explicit device list is refused: under the port each
+    process brings its one device.
+
+    ``dcn_axes`` is accepted and has no effect, as in the JAX package,
+    where no module reads it: the launcher orders the ranks (hosts
+    outermost under ``torchrun``), and NCCL picks each pair's transport
+    (NVLink within a host, the network across hosts)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     axes = tuple(mesh_config.axes)
-    if (len(axes) > 2 or mesh_config.dcn_axes
-            or (len(axes) == 2 and data_axis not in axes)):
-        raise NotImplementedError(
-            f"Stoke -- a mesh of axes {axes} (dcn_axes "
-            f"{tuple(mesh_config.dcn_axes)}) is not ported yet: the port's "
-            f"mesh is the data axis {data_axis!r}, or it and one more; "
-            f"{_LATER_MESH}")
     if mesh_config.devices is not None:
         raise ValueError(
             "Stoke -- MeshConfig.devices has no meaning in the port: each "
             "process drives one device (launch one process a device)")
     shape = mesh_shape(mesh_config.shape, dist.get_world_size(), len(axes))
-    if len(axes) == 1 and axes[0] != data_axis:
-        axes, shape = (data_axis, axes[0]), (1, *shape)
+    if data_axis not in axes:
+        axes, shape = (data_axis, *axes), (1, *shape)
     return init_device_mesh(device.type, shape, mesh_dim_names=axes)
 
 
-def data_coordinates(mesh, data_axis: str = "data") -> tuple:
-    """``(data sub-group, its size, this process's coordinate on it)`` of
-    a two-axis mesh (a ``seq``, model, expert or stage axis beside the
-    data axis): the processes that share this one's place on the other
-    axis."""
-    group = mesh.get_group(data_axis)
-    return group, dist.get_world_size(group), dist.get_rank(group)
-
-
-def other_coordinates(mesh, data_axis: str = "data") -> tuple:
-    """``(sub-group, its size, this process's coordinate on it)`` of a
-    two-axis mesh's other axis: the processes that share this one's data
-    coordinate (the shards of one data row under ``seq``, one model,
-    expert or stage group otherwise)."""
-    axis = next(a for a in mesh.mesh_dim_names if a != data_axis)
-    group = mesh.get_group(axis)
+def axis_coordinates(mesh, axis) -> tuple:
+    """``(sub-group, its size, this process's coordinate on it)`` of the
+    mesh axis ``axis``: the processes that share this one's coordinates
+    on every other axis (the ladder's data sub-group, the shards of one
+    data row under ``seq``, one model, expert or stage group). A tuple of
+    several axes is their flattened sub-group, the first axis major (the
+    JAX order of a dim placed on a tuple of axes); it is made once a mesh,
+    collectively: every process asks for the same tuples in the same
+    order."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+        return group, dist.get_world_size(group), dist.get_rank(group)
+    made = mesh.__dict__.setdefault("_stoke_flat", {})
+    if axes not in made:
+        names = list(mesh.mesh_dim_names)
+        inner = [names.index(a) for a in axes]
+        outer = [d for d in range(len(names)) if d not in inner]
+        ranks = mesh.mesh.permute(*outer, *inner).reshape(
+            -1, math.prod(mesh.mesh.shape[d] for d in inner))
+        made[axes] = dist.new_subgroups_by_enumeration(ranks.tolist())[0]
+    group = made[axes]
     return group, dist.get_world_size(group), dist.get_rank(group)

@@ -1,14 +1,18 @@
 """Tensor, expert and pipeline parallelism of the port: the Megatron,
-expert and stage splits, with their collectives written by hand.
+expert and stage splits, with their collectives written by hand, and the
+gathered placement of any other leaf a rule places on a model or expert
+axis.
 
-Counterpart of the JAX package's partition rules under a ``("data",
-"model")`` or ``("data", "expert")`` mesh (``PartitionRulesConfig``,
+Counterpart of the JAX package's partition rules under a mesh of model,
+expert or stage axes beside the data axis (``PartitionRulesConfig``,
 ``stoke_tpu/models/bert.py:236-253`` ``bert_tensor_parallel_rules``,
 ``stoke_tpu/models/moe.py:146-157`` ``moe_expert_parallel_rules``). There
 GSPMD derives every collective from the placements; here
 :func:`apply_partition_rules` reads the same rules, cuts each parameter
-they place on the second axis down to this process's slice, and gives the
-blocks their group, whose forwards run three autograd functions at the
+they place down to this process's slice, and gives each split module
+the group of the axis its leaves name (one :class:`ModelGroup` a mesh
+axis: the attention and the FFN take the model axis, ``MoEFFN`` the
+expert axis), whose forwards run three autograd functions at the
 boundaries of the split:
 
 - :func:`copy_to_group`: identity forward, all-reduce (sum) backward, on
@@ -25,26 +29,27 @@ boundaries of the split:
 
 **The invariant.** Every activation outside the split regions, hence
 every parameter the rules leave replicated, is the same bit for bit on
-every rank of the model (expert) group: each of them sees the same rows
+every rank of a model (expert) group: each of them sees the same rows
 (its data coordinate's), draws the same dropout masks (its generator is
 seeded by the data coordinate) and combines the same whole results.
 So the ladder reduces every gradient over the data sub-group only, and
-the norms of a step count a sliced leaf's squares summed over the model
-group and a replicated leaf once.
+the norms of a step count a sliced leaf's squares summed over its own
+group (the axes that cut it) and a replicated leaf once.
 
 The rules are matched against each tensor's JAX leaf path
 (:func:`stoke_tpu_torch.convert.jax_param_layout`), a rule's dims read in
-the JAX layout. Recognised are the leaves of the three published sets:
+the JAX layout. The compute splits are the leaves of the three published
+sets:
 
 - Megatron: ``attention/qkv`` kernel ``[hidden, 3, heads, D]`` over
   heads (dim 2) and its bias ``[3, heads, D]`` (dim 1); ``attention/out``
   kernel over its input (dim 0); ``ff_in`` kernel over ff (dim 1) and its
-  bias (dim 0); ``ff_out`` kernel over its input (dim 0). The port's
-  ``qkv`` weight is ``qkv.reshape(hidden, -1).T``: a rank's heads are
-  rows ``[:, heads_r]`` of its ``[3, heads, D, hidden]`` view, not one
-  block of rows;
+  bias (dim 0); ``ff_out`` kernel over its input (dim 0), all on one
+  axis. The port's ``qkv`` weight is ``qkv.reshape(hidden, -1).T``: a
+  rank's heads are rows ``[:, heads_r]`` of its ``[3, heads, D, hidden]``
+  view, not one block of rows;
 - expert: ``moe/w_in`` ``[E, H, ff]`` and ``moe/w_out`` ``[E, ff, H]``
-  over the experts (dim 0); the router stays replicated;
+  over the experts (dim 0), on one axis; the router stays replicated;
 - stage (``pipeline_parallel_rules``): every stage-stacked leaf of a
   ``PipelinedLM`` (``stages/...``, ``[V·S, ...]``) over its dim 0. The
   cut is strided, as the JAX package reshapes the stack to ``[V, S,
@@ -55,19 +60,34 @@ the JAX layout. Recognised are the leaves of the three published sets:
   stage group takes the same rows and ends with the whole batch's logits
   (the model's docstring).
 
-Any other placement on a mesh axis, a column-parallel product without its
-row-parallel partner, a split bias without its kernel and a stage set
-that leaves a stacked leaf whole or places another dim are refused
-(``NotImplementedError`` naming the leaf and ROADMAP item 8e), and a
-head, ff, expert or stage count the axis does not divide raises
-``ValueError``.
+**The gathered placement.** Any other placement of a dim on a model or
+expert axis, or on a tuple of them (a norm, a row-parallel bias, another
+dim, a column-parallel product without its partner, a bias without its
+kernel, a dim on two axes, a model or expert placement on a
+stage-stacked leaf) is what GSPMD does when an operand's placement is not
+its consumer's: the rank stores its JAX shard (the block along the JAX
+dim, in a view of the port's tensor where that dim is a dim of its own:
+the ``qkv`` layouts' ``[3, heads, D, ...]``), and before each forward
+:func:`gather_placed` all-gathers it whole over the axis's sub-group (the
+flattened sub-group of a tuple) in one autograd function, whose backward
+takes this rank's slice of the incoming gradient with no collective:
+every rank of the group computes the same gradient (the invariant). The
+module then runs whole, as without the rule. A stage-stacked leaf with a
+model placement is cut in two levels, the stage cut first.
+
+Placements on the data or ``seq`` axis, and on the stage axis outside
+the stage set, are refused (``NotImplementedError`` naming the leaf and
+ROADMAP item 8f): there the ranks of the axis compute different
+gradients. A head, ff, expert or stage count the axis does not divide,
+and a placed dim the axis does not divide, raise ``ValueError``.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Set
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -79,23 +99,22 @@ from stoke_tpu_torch.parallel.sharding import (
     rule_entries,
 )
 
-LATER_RULES = ("ROADMAP Queue 1 item 8e (meshes of three axes, dcn_axes "
-               "and partition rules beyond the Megatron, expert and stage "
-               "sets)")
-
+LATER_RULES = ("ROADMAP Queue 1 item 8f (placements on the data, seq or "
+               "stage axis outside the stage set)")
 
 @dataclass(frozen=True)
 class ModelGroup:
-    """One process's place on the model (or expert) axis: the axis's
-    process ``group``, its ``size``, this process's coordinate ``rank`` and
-    the axis's name. A ``group`` of None is a virtual rank: its
-    collectives are left out and the caller combines the ranks' results
-    (the forwards' ``partial`` methods)."""
+    """One process's place on a model, expert or stage axis (or on the
+    flattened axes of a tuple, the first major): the axis's process
+    ``group``, its ``size``, this process's coordinate ``rank`` and the
+    axis's name (a tuple of names for a flattened group). A ``group`` of
+    None is a virtual rank: its collectives are left out and the caller
+    combines the ranks' results (the forwards' ``partial`` methods)."""
 
     group: Any
     size: int
     rank: int
-    axis: Optional[str]
+    axis: Any
 
 
 def _sum_(t: torch.Tensor, group: Optional[ModelGroup]) -> torch.Tensor:
@@ -180,18 +199,68 @@ def mean_over_group(x: torch.Tensor, group) -> torch.Tensor:
     return _MeanIdentityBackward.apply(x, group)
 
 
+class _GatherPlaced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, cut, group):
+        ctx.cut, ctx.rank = cut, group.rank
+        if group.group is None:
+            raise ValueError(
+                "gather_placed: a virtual rank has no group to gather over "
+                "(its caller puts the ranks' slices together)")
+        out = t.new_empty((group.size * t.numel(),))
+        dist.all_gather_into_tensor(out, t.contiguous().view(-1),
+                                    group=group.group)
+        return cut.join(list(out.view(group.size, *t.shape).unbind(0)))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.cut.take(grad, ctx.rank), None, None
+
+
+def gather_placed(t: torch.Tensor, cut: "Cut",
+                  group: ModelGroup) -> torch.Tensor:
+    """A gathered placement's whole tensor (``cut.full``) from this rank's
+    slice ``t``, all-gathered over ``group``; in backward this rank's slice
+    of the gradient, with no collective."""
+    return _GatherPlaced.apply(t, cut, group)
+
+
+def _split_sizes(full: Sequence[int], view: Sequence[int]) -> List[tuple]:
+    """For each dim of ``full``, the ``(first, end)`` dims of ``view`` it
+    spans (``view`` splits some dims of ``full`` into several)."""
+    out, j = [], 0
+    for n in full:
+        start, prod = j, 1
+        while j < len(view) and (prod < n or (n == 1 and j == start)):
+            prod *= view[j]
+            j += 1
+        if prod != n:
+            raise ValueError(f"view {tuple(view)} does not split "
+                             f"{tuple(full)}")
+        out.append((start, j))
+    return out
+
+
 @dataclass(frozen=True)
 class Cut:
-    """How one parameter splits over the model axis: its whole shape
-    ``full`` in the port's layout, the view ``view`` of it in which the
-    split dimension ``dim`` is a dimension of its own (the ``qkv``
-    layouts' ``[3, heads, D, ...]``), and the axis size. Rank ``r`` holds
-    the ``r``-th of ``size`` equal blocks along ``dim`` of the view."""
+    """How one parameter splits over a mesh axis (or the flattened axes
+    ``axes``): its whole shape ``full`` in the port's layout, the view
+    ``view`` of it in which the split dimension ``dim`` is a dimension of
+    its own (the ``qkv`` layouts' ``[3, heads, D, ...]``), and the axis
+    size. Rank ``r`` holds the ``r``-th of ``size`` equal blocks along
+    ``dim`` of the view. ``gathered`` marks a gathered placement (the
+    module runs on the whole tensor, gathered before each forward);
+    ``inner`` a second level that cuts this one's block again (a
+    stage-stacked leaf's model placement). The ranks of a two-level cut
+    are numbered over both levels' axes, this level's major."""
 
     full: tuple
     view: tuple
     dim: int
     size: int
+    axes: tuple = ()
+    gathered: bool = False
+    inner: Optional["Cut"] = None
 
     @property
     def local_view(self) -> tuple:
@@ -200,25 +269,72 @@ class Cut:
         return tuple(v)
 
     @property
-    def local(self) -> tuple:
-        """The slice's shape in the port's layout."""
+    def block(self) -> tuple:
+        """One rank's block of this level, in the port's layout."""
         shape = list(self.full)
-        shape[0 if self.view != self.full else self.dim] //= self.size
+        for k, (a, b) in enumerate(_split_sizes(self.full, self.view)):
+            if a <= self.dim < b:
+                shape[k] //= self.size
         return tuple(shape)
 
-    def take(self, whole, rank: int):
-        """Rank ``rank``'s slice of ``whole`` (a tensor or numpy array of
-        shape ``full``)."""
+    @property
+    def local(self) -> tuple:
+        """The shape a rank holds, in the port's layout."""
+        return self.inner.local if self.inner is not None else self.block
+
+    @property
+    def parts(self) -> int:
+        """How many slices the leaf is cut into, over every level."""
+        return self.size * (self.inner.parts if self.inner is not None
+                            else 1)
+
+    @property
+    def group_axes(self) -> tuple:
+        """The axes of every level, outermost first: the flattened group
+        over which the ranks hold the leaf's slices."""
+        return self.axes + (self.inner.group_axes if self.inner is not None
+                            else ())
+
+    @property
+    def strided(self) -> bool:
+        """Whether this is a stage cut: rank ``d`` holds rows ``d::size``
+        of the stack's dim 0."""
+        return (not self.gathered and self.dim == 1
+                and self.view == (self.full[0] // self.size, self.size,
+                                  *self.full[1:]))
+
+    @property
+    def gathered_level(self) -> Optional["Cut"]:
+        """The outermost level from which every level is gathered (None:
+        the module runs on the slice)."""
+        if self.gathered:
+            return self
+        return (self.inner.gathered_level if self.inner is not None
+                else None)
+
+    def _take(self, whole, rank: int):
         n = self.view[self.dim] // self.size
         idx = [slice(None)] * len(self.view)
         idx[self.dim] = slice(rank * n, (rank + 1) * n)
-        part = whole.reshape(self.view)[tuple(idx)].reshape(self.local)
+        part = whole.reshape(self.view)[tuple(idx)].reshape(self.block)
         if isinstance(part, np.ndarray):
             return np.ascontiguousarray(part)
         return part.contiguous()
 
+    def take(self, whole, rank: int):
+        """Rank ``rank``'s slice of ``whole`` (a tensor or numpy array of
+        shape ``full``)."""
+        if self.inner is None:
+            return self._take(whole, rank)
+        outer, inner = divmod(rank, self.inner.parts)
+        return self.inner.take(self._take(whole, outer), inner)
+
     def join(self, parts: Sequence):
         """The whole tensor (or array) of every rank's slice, by rank."""
+        if self.inner is not None:
+            n = self.inner.parts
+            parts = [self.inner.join(parts[k * n:(k + 1) * n])
+                     for k in range(self.size)]
         parts = [p.reshape(self.local_view) for p in parts]
         if isinstance(parts[0], np.ndarray):
             return np.concatenate(parts, self.dim).reshape(self.full)
@@ -226,17 +342,30 @@ class Cut:
 
 
 class TensorParallel:
-    """What :func:`apply_partition_rules` did to one model: the model
-    group (:class:`ModelGroup`), the :class:`Cut` of each parameter it
-    split, by name, and the names of the parameters a rule placed (split
-    or replicated: the rule wins over the tier, so the ladder keeps them
-    whole over the data axis)."""
+    """What :func:`apply_partition_rules` did to one model: the groups of
+    the axes its cuts name (one :class:`ModelGroup` a mesh axis, or a
+    flattened tuple of axes, keyed by the axes' tuple), the :class:`Cut`
+    of each parameter it split, by name, and the names of the parameters
+    a rule placed (split or replicated: the rule wins over the tier, so
+    the ladder keeps them whole over the data axis)."""
 
-    def __init__(self, group: ModelGroup, cuts: Dict[str, Cut],
+    def __init__(self, groups: Dict[tuple, ModelGroup], cuts: Dict[str, Cut],
                  placed: Set[str]):
-        self.group = group
+        self.groups = groups
         self.cuts = cuts
         self.placed = placed
+        #: the parameters gathered whole before each forward
+        self.gathered = sorted(n for n, c in cuts.items()
+                               if c.gathered_level is not None)
+
+    @property
+    def group(self) -> ModelGroup:
+        """The one group of a split whose cuts all run over the same axes
+        (a two-axis mesh's), else the split's first axis's."""
+        keys = {c.group_axes for c in self.cuts.values()}
+        if len(keys) == 1:
+            return self.groups[keys.pop()]
+        return next(iter(self.groups.values()), ModelGroup(None, 1, 0, None))
 
     @property
     def size(self) -> int:
@@ -245,6 +374,11 @@ class TensorParallel:
     @property
     def rank(self) -> int:
         return self.group.rank
+
+    def group_of(self, name: str) -> ModelGroup:
+        """The (flattened) group over which parameter ``name``'s slices
+        lie."""
+        return self.groups[self.cuts[name].group_axes]
 
     def full_shape(self, name: str, shape: Sequence[int]) -> tuple:
         """The whole shape of parameter ``name`` held at ``shape``."""
@@ -257,41 +391,61 @@ class TensorParallel:
         cut = self.cuts.get(name)
         if cut is None or tuple(whole.shape) != cut.full:
             return whole
-        return cut.take(whole, self.rank)
+        return cut.take(whole, self.group_of(name).rank)
 
     @torch.no_grad()
     def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """Parameter ``name``'s whole tensor from every rank's slice ``t``
-        (or a state shaped like the slice); every rank of the group calls
-        it, in the same order. Other names and shapes pass through."""
+        (or a state shaped like the slice), over its own group; every rank
+        of the group calls it, in the same order. Other names and shapes
+        pass through."""
         cut = self.cuts.get(name)
         if cut is None or tuple(t.shape) != cut.local:
             return t
-        out = t.new_empty((self.size * t.numel(),))
+        g = self.group_of(name)
+        out = t.new_empty((g.size * t.numel(),))
         dist.all_gather_into_tensor(out, t.contiguous().view(-1),
-                                    group=self.group.group)
-        return cut.join(list(out.view(self.size, *cut.local).unbind(0)))
+                                    group=g.group)
+        return cut.join(list(out.view(g.size, *cut.local).unbind(0)))
 
-    def reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` summed (or maxed) over the model group, in place."""
+    def run_params(self, tensors: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """The tensors the forward runs on for each gathered placement:
+        ``tensors[name]`` (the slice, or its 16-bit cast) gathered to the
+        shape the module uses (:func:`gather_placed`)."""
+        out = {}
+        for name in self.gathered:
+            level = self.cuts[name].gathered_level
+            out[name] = gather_placed(tensors[name], level,
+                                      self.groups[level.group_axes])
+        return out
+
+    def reduce_(self, t: torch.Tensor, op: str = "sum",
+                axes: Optional[tuple] = None) -> torch.Tensor:
+        """``t`` summed (or maxed) over the group of ``axes`` (the split's
+        one group when None), in place."""
+        g = self.group if axes is None else self.groups[axes]
         dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
-                        else dist.ReduceOp.SUM, group=self.group.group)
+                        else dist.ReduceOp.SUM, group=g.group)
         return t
 
     def all_true(self, flag: torch.Tensor) -> torch.Tensor:
-        """A bool tensor ANDed over the model group (on the device)."""
+        """A bool tensor ANDed over every group of the split (on the
+        device)."""
         f = flag.to(torch.float32)
-        dist.all_reduce(f, op=dist.ReduceOp.MIN, group=self.group.group)
+        for g in self.groups.values():
+            dist.all_reduce(f, op=dist.ReduceOp.MIN, group=g.group)
         return f > 0.5
 
     @torch.no_grad()
     def whole_copy(self, model: nn.Module, memo=None) -> nn.Module:
         """A copy of the split ``model`` made whole: every cut parameter
-        gathered over the group, every block's group dropped (collective:
-        each rank of the group calls it). The copy shares the group until
-        it drops it: a process group cannot be copied."""
+        gathered over its group, every block's group dropped (collective:
+        each rank of the groups calls it). The copy shares the groups
+        until it drops them: a process group cannot be copied."""
         memo = {} if memo is None else memo
-        memo.setdefault(id(self.group), self.group)
+        for g in self.groups.values():
+            memo.setdefault(id(g), g)
         out = copy.deepcopy(model, memo)
         for name in self.cuts:
             owner, _, attr = name.rpartition(".")
@@ -330,62 +484,187 @@ def _refuse(path: str, entries, why: str) -> NotImplementedError:
 
 
 def apply_partition_rules(model: nn.Module, rules, mesh,
-                          data_axis: str = "data") -> TensorParallel:
+                          data_axis: str = "data",
+                          seq_axis: str = "seq") -> TensorParallel:
     """Split ``model`` (the whole model, seeded, converted or loaded, on
-    its device) over ``mesh``'s axis other than ``data_axis`` by
-    ``rules`` (``PartitionRulesConfig.rules``, plain or compiled): see
-    :func:`shard_module`. On a 1-D mesh no rule may name an axis."""
+    its device) over ``mesh``'s axes by ``rules``
+    (``PartitionRulesConfig.rules``, plain or compiled): see
+    :func:`shard_module`. Each axis (or flattened tuple of axes) a cut
+    names gets its sub-group (:func:`~stoke_tpu_torch.parallel.mesh
+    .axis_coordinates`); a placement on ``data_axis`` or ``seq_axis`` is
+    refused."""
+    from stoke_tpu_torch.parallel.mesh import axis_coordinates
+
     names = tuple(mesh.mesh_dim_names)
-    other = [a for a in names if a != data_axis]
-    if not other:
-        group = ModelGroup(None, 1, 0, None)
-    else:
-        pg = mesh.get_group(other[0])
-        group = ModelGroup(pg, dist.get_world_size(pg), dist.get_rank(pg),
-                           other[0])
-    return shard_module(model, rules, group)
+    refused = (data_axis, seq_axis)
+
+    def group_for(axes: tuple) -> Optional[ModelGroup]:
+        if any(a not in names or a in refused for a in axes):
+            return None
+        g, n, r = axis_coordinates(mesh, axes)
+        return ModelGroup(g, n, r, axes[0] if len(axes) == 1 else axes)
+
+    return shard_module(model, rules, group_for)
 
 
-def shard_module(model: nn.Module, rules, group: ModelGroup) -> TensorParallel:
-    """Cut each parameter of ``model`` that ``rules`` place on
-    ``group.axis`` down to rank ``group.rank``'s slice, and give the
-    attention blocks their local heads, the FFNs their local ff, the
-    MoE FFNs their local experts and a ``PipelinedLM`` its stages, with
-    ``group``. The rule set is recognised by the leaves it places (the
-    module docstring); anything else raises."""
+def _resolver(groups) -> Callable[[tuple], Optional[ModelGroup]]:
+    """``axes -> ModelGroup`` (None for an axis the split has no group
+    for) from one group, a mapping by axis name (or tuple of names), or
+    such a function. Virtual groups of single axes make the virtual
+    flattened group of a tuple, the first axis major."""
+    if callable(groups) and not isinstance(groups, ModelGroup):
+        return groups
+    if isinstance(groups, ModelGroup):
+        groups = {groups.axis: groups} if groups.axis is not None else {}
+    table = {((k,) if isinstance(k, str) else tuple(k)): g
+             for k, g in groups.items()}
+
+    def get(axes: tuple) -> Optional[ModelGroup]:
+        if axes in table:
+            return table[axes]
+        parts = [table.get((a,)) for a in axes]
+        if len(axes) < 2 or any(p is None or p.group is not None
+                                for p in parts):
+            return None
+        rank = 0
+        for p in parts:
+            rank = rank * p.size + p.rank
+        return ModelGroup(None, math.prod(p.size for p in parts), rank, axes)
+
+    return get
+
+
+def _axes(entry) -> tuple:
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _jax_view(shape: tuple, perm, jshape: Sequence[int], jdim: int) -> tuple:
+    """``(view, dim)``: a view of the port's tensor of shape ``shape`` in
+    which JAX dim ``jdim`` of the leaf (JAX shape ``jshape``: the tensor
+    permuted by ``perm``, then reshaped) is a dim of its own."""
+    order = tuple(perm) if perm is not None else tuple(range(len(shape)))
+    spans = _split_sizes([shape[d] for d in order], jshape)
+    by_port = {order[k]: span for k, span in enumerate(spans)}
+    view, dim = [], None
+    for d in range(len(shape)):
+        a, b = by_port[d]
+        if a <= jdim < b:
+            dim = len(view) + jdim - a
+        view.extend(jshape[a:b])
+    return tuple(view), dim
+
+
+def shard_module(model: nn.Module, rules, groups) -> TensorParallel:
+    """Cut each parameter of ``model`` that ``rules`` place on a mesh
+    axis down to this rank's slice, and give the attention blocks their
+    local heads, the FFNs their local ff, the MoE FFNs their local
+    experts and a ``PipelinedLM`` its stages, each with the group of the
+    axis its leaves name. ``groups`` gives each axis's
+    :class:`ModelGroup`: one group (a split over one axis), a mapping by
+    axis name, or a function of an axes tuple (None where the split has
+    no group: the data and seq axes). A recognised module whose leaves
+    the rules place as a published set is split; every other placement
+    on a model or expert axis is a gathered placement (the module
+    docstring); a placement on an axis without a group, or on the stage
+    axis outside the stage set, raises ``NotImplementedError``."""
     from stoke_tpu_torch.convert import jax_param_layout
     from stoke_tpu_torch.models.bert import (
         MultiHeadAttention,
         TransformerBlock,
     )
     from stoke_tpu_torch.models.moe import MoEFFN
+    from stoke_tpu_torch.models.pipelined_lm import PipelinedLM
+
+    resolve = _resolver(groups)
+    made: Dict[tuple, ModelGroup] = {}
+
+    def group(axes: tuple) -> Optional[ModelGroup]:
+        if axes not in made:
+            g = resolve(axes)
+            if g is None:
+                return None
+            made[axes] = g
+        return made[axes]
 
     # ``re.compile`` of a compiled pattern is the pattern: plain and
     # compiled rules alike
     compiled = compile_partition_rules(rules)
     layout = jax_param_layout(model)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     placed: Set[str] = set()
-    on_axis: Dict[str, int] = {}
+    on: Dict[str, List[tuple]] = {}
+    entries_of: Dict[str, tuple] = {}
     paths: Dict[str, str] = {}
-    for name, _ in model.named_parameters():
+    for name in shapes:
         path, _, jshape = layout[name]
         paths[name] = spath = "/".join(path)
         entries = rule_entries(spath, jshape, compiled, strict=True)
         if entries is None:
             continue
         placed.add(name)
-        named = [(d, e[0] if isinstance(e, (tuple, list)) and len(e) == 1
-                  else e) for d, e in enumerate(entries) if e is not None]
-        if not named:
-            continue
-        if (len(named) > 1 or group.axis is None
-                or named[0][1] != group.axis):
-            raise _refuse(spath, entries, "the port splits one dimension "
-                          f"of a leaf over the mesh's "
-                          f"{group.axis or 'second'!s} axis")
-        on_axis[name] = named[0][0]
+        entries_of[name] = entries
+        dims = [(d, _axes(e)) for d, e in enumerate(entries)
+                if e is not None and _axes(e)]
+        if dims:
+            on[name] = dims
+    stacks = {(f"{n}.stages." if n else "stages."): m
+              for n, m in model.named_modules()
+              if isinstance(m, PipelinedLM)}
+    # a PipelinedLM's own stage axis, and any axis a rule places a stage
+    # stack's dim 0 on
+    stage_axes = {m.stage_axis for m in stacks.values()} | {
+        axes[0] for n, dims in on.items() if n.startswith(tuple(stacks))
+        for d, axes in dims if d == 0 and len(axes) == 1}
+    for name, dims in on.items():
+        used = [a for _, axes in dims for a in axes]
+        if len(set(used)) != len(used):
+            raise ValueError(
+                f"Stoke -- partition rule places {paths[name]} as "
+                f"{entries_of[name]}, which names a mesh axis twice")
+        stacked = name.startswith(tuple(stacks))
+        for d, axes in dims:
+            on_stage = (stacked and d == 0 and len(axes) == 1
+                        and axes[0] in stage_axes)
+            if on_stage:
+                continue
+            if group(axes) is None or set(axes) & stage_axes:
+                raise _refuse(paths[name], entries_of[name],
+                              f"dim {d} on {axes}: the ranks of the data, "
+                              f"seq and stage axes compute different "
+                              f"gradients")
 
-    cuts = _stage_cuts(model, on_axis, paths, group)
+    # the stage sets, then the published splits of the modules
+    cuts: Dict[str, Cut] = {}
+    split: Set[str] = set()
+    for prefix, m in stacks.items():
+        names = [n for n in shapes if n.startswith(prefix)]
+        staged = [n for n in names if any(
+            d == 0 and axes[0] in stage_axes for d, axes in on.get(n, ()))]
+        if not staged:
+            continue
+        axes = next(a for d, a in on[staged[0]] if d == 0)
+        if len(staged) != len(names) or any(
+                next(a for d, a in on[n] if d == 0) != axes for n in staged):
+            missing = [paths[n] for n in names if n not in staged]
+            raise NotImplementedError(
+                f"Stoke -- the partition rules place {len(staged)} of the "
+                f"{len(names)} stage-stacked leaves on the {axes[0]!r} "
+                f"axis but not {missing}: the stage set places every leaf "
+                f"under stages/ on one axis; {LATER_RULES}")
+        g = group(axes)
+        lead = shapes[staged[0]][0]
+        if lead % g.size:
+            raise ValueError(
+                f"Stoke -- partition rule places {paths[staged[0]]} dim 0 "
+                f"({lead} stages) on the {axes[0]!r} axis of "
+                f"{g.size} devices, which does not divide it")
+        for n in staged:
+            shape = shapes[n]
+            cuts[n] = Cut(shape, (lead // g.size, g.size, *shape[1:]), 1,
+                          g.size, axes)
+            on[n] = [(d, a) for d, a in on[n] if d != 0]
+        m.group = g
+    groups_of_modules: List[nn.Module] = list(stacks.values())
     for mname, m in model.named_modules():
         if isinstance(m, MultiHeadAttention):
             kind, count, what = _ATTENTION, m.heads, "heads"
@@ -395,100 +674,86 @@ def shard_module(model: nn.Module, rules, group: ModelGroup) -> TensorParallel:
             kind, count, what = _EXPERTS, m.num_experts, "experts"
         else:
             continue
-        split, whole = kind
-        full = {k: f"{mname}.{k}" if mname else k
-                for k in (*split, *whole)}
-        for k in whole:
-            if full[k] in on_axis:
-                raise _refuse(paths[full[k]], "split",
-                              "it stays whole in the published sets")
-        for k, d in split.items():
-            if full[k] in on_axis and on_axis[full[k]] != d:
-                raise _refuse(paths[full[k]], f"dim {on_axis[full[k]]}",
-                              f"the published set splits dim {d}")
-        on = [k for k in split if full[k] in on_axis]
-        if not on:
+        keys = kind[0]
+        full = {k: f"{mname}.{k}" if mname else k for k in keys}
+        if full[next(iter(keys))].startswith(tuple(stacks)):
+            # a stage stack's block: any placement beside the stage cut is
+            # gathered
             continue
-        if len(on) != len(split):
-            missing = [paths[full[k]] for k in split if k not in on]
-            raise NotImplementedError(
-                f"Stoke -- the partition rules split "
-                f"{[paths[full[k]] for k in on]} but not {missing}: a "
-                f"column-parallel product needs its row-parallel partner "
-                f"(and its bias split with it) in the port; "
-                f"{LATER_RULES}")
-        if count % group.size:
-            k = on[0]
+        dims = [on.get(full[k]) for k in keys]
+        if not all(dims) or any(
+                len(ds) != 1 or ds[0][0] != keys[k] or len(ds[0][1]) != 1
+                for k, ds in zip(keys, dims)) or len(
+                {ds[0][1] for ds in dims}) != 1:
+            continue
+        axes = dims[0][0][1]
+        g = group(axes)
+        if count % g.size:
+            k = next(iter(keys))
             raise ValueError(
                 f"Stoke -- partition rule places {paths[full[k]]} dim "
-                f"{split[k]} ({count} {what}) on the {group.axis!r} axis "
-                f"of {group.size} devices, which does not divide it")
-        for k in on:
-            p = model.get_parameter(full[k])
-            cuts[full[k]] = _cut_for(m, k, tuple(p.shape), group.size)
-        m.group = group
-    left = sorted(set(on_axis) - set(cuts))
-    if left:
-        raise _refuse(paths[left[0]], "split", "the port splits only the "
-                      "Megatron, expert and stage leaves")
+                f"{keys[k]} ({count} {what}) on the {axes[0]!r} axis "
+                f"of {g.size} devices, which does not divide it")
+        for k in keys:
+            cuts[full[k]] = _cut_for(m, k, shapes[full[k]], g.size, axes)
+            split.add(full[k])
+        m.group = g
+        groups_of_modules.append(m)
+
+    # every other placement: gathered, in levels by JAX dim (under a
+    # stage cut, a second level of its block)
+    for name, dims in on.items():
+        if name in split or not dims:
+            continue
+        path, perm, jshape = layout[name]
+        outer = cuts.get(name)
+        shape = outer.block if outer is not None else shapes[name]
+        jlocal = list(jshape)
+        if outer is not None:
+            jlocal[0] //= outer.size
+        levels: List[Cut] = []
+        for d, axes in dims:
+            g = group(axes)
+            if jlocal[d] % g.size:
+                raise ValueError(
+                    f"Stoke -- partition rule places {paths[name]} dim {d} "
+                    f"({jshape[d]}) on the {axes!r} axes of {g.size} "
+                    f"devices, which does not divide it")
+            view, vdim = _jax_view(shape, perm, jlocal, d)
+            levels.append(Cut(shape, view, vdim, g.size, axes, True))
+            shape = levels[-1].block
+            jlocal[d] //= g.size
+        cut = levels[-1]
+        for level in reversed(levels[:-1]):
+            cut = Cut(level.full, level.view, level.dim, level.size,
+                      level.axes, True, cut)
+        if outer is not None:
+            cut = Cut(outer.full, outer.view, outer.dim, outer.size,
+                      outer.axes, False, cut)
+        cuts[name] = cut
+    # the group of each level, and of each level with the levels inside it
+    tp_groups = {}
+    for cut in cuts.values():
+        c: Optional[Cut] = cut
+        while c is not None:
+            for axes in (c.group_axes, c.axes):
+                tp_groups[axes] = group(axes)
+            c = c.inner
     with torch.no_grad():
         for name, cut in cuts.items():
             owner, _, attr = name.rpartition(".")
             mod = model.get_submodule(owner) if owner else model
             p = getattr(mod, attr)
             setattr(mod, attr, nn.Parameter(
-                cut.take(p.data, group.rank).clone(),
+                cut.take(p.data, tp_groups[cut.group_axes].rank).clone(),
                 requires_grad=p.requires_grad))
-    for m in model.modules():
-        if getattr(m, "group", None) is group:
-            m.sync_widths()
-    return TensorParallel(group, cuts, placed)
+    for m in groups_of_modules:
+        m.sync_widths()
+    return TensorParallel(tp_groups, cuts, placed)
 
 
-def _stage_cuts(model: nn.Module, on_axis: Dict[str, int],
-                paths: Dict[str, str], group: ModelGroup) -> Dict[str, Cut]:
-    """The strided cut of each ``PipelinedLM``'s stage set that the rules
-    place on ``group.axis`` (taken out of ``on_axis``); each such model
-    gets ``group``. A set placed in part, or on another dim than the
-    stacked stage dim, is refused."""
-    from stoke_tpu_torch.models.pipelined_lm import PipelinedLM
-
-    cuts: Dict[str, Cut] = {}
-    for mname, m in model.named_modules():
-        if not isinstance(m, PipelinedLM):
-            continue
-        prefix = f"{mname}.stages." if mname else "stages."
-        names = [n for n in paths if n.startswith(prefix)]
-        on = [n for n in names if n in on_axis]
-        if not on:
-            continue
-        for n in on:
-            if on_axis[n] != 0:
-                raise _refuse(paths[n], f"dim {on_axis[n]}", "the stage "
-                              "set places the stacked stage dim, dim 0")
-        if len(on) != len(names):
-            missing = [paths[n] for n in names if n not in on]
-            raise NotImplementedError(
-                f"Stoke -- the partition rules place {len(on)} of the "
-                f"{len(names)} stage-stacked leaves on the {group.axis!r} "
-                f"axis but not {missing}: the stage set places every leaf "
-                f"under stages/; {LATER_RULES}")
-        lead = model.get_parameter(on[0]).shape[0]
-        if lead % group.size:
-            raise ValueError(
-                f"Stoke -- partition rule places {paths[on[0]]} dim 0 "
-                f"({lead} stages) on the {group.axis!r} axis of "
-                f"{group.size} devices, which does not divide it")
-        for n in on:
-            shape = tuple(model.get_parameter(n).shape)
-            cuts[n] = Cut(shape, (lead // group.size, group.size,
-                                  *shape[1:]), 1, group.size)
-            del on_axis[n]
-        m.group = group
-    return cuts
-
-
-def _cut_for(module: nn.Module, key: str, shape: tuple, size: int) -> Cut:
+def _cut_for(module: nn.Module, key: str, shape: tuple, size: int,
+             axes: tuple) -> Cut:
     """The :class:`Cut` of ``module``'s tensor ``key`` of port shape
     ``shape``: ``qkv`` in its ``[3, heads, D, ...]`` view; a ``Linear``
     weight ``[out, in]`` along the port dim of the JAX kernel's dim; the
@@ -496,7 +761,7 @@ def _cut_for(module: nn.Module, key: str, shape: tuple, size: int) -> Cut:
     if key.startswith("qkv."):
         heads = module.heads
         d = module.hidden // heads
-        return Cut(shape, (3, heads, d, *shape[1:]), 1, size)
+        return Cut(shape, (3, heads, d, *shape[1:]), 1, size, axes)
     port_dim = {"out.weight": 1, "ff_in.weight": 0, "ff_in.bias": 0,
                 "ff_out.weight": 1, "w_in": 0, "w_out": 0}[key]
-    return Cut(shape, shape, port_dim, size)
+    return Cut(shape, shape, port_dim, size, axes)

@@ -13,14 +13,17 @@ message, letter for letter. A rule that reads the process index reads
 Legality comes first (``StokeValidationError``). Only then does
 :meth:`StokeStatus._refuse_later_slices` refuse, with
 ``NotImplementedError`` naming the ROADMAP item, what the port does not
-run yet: ``CompileConfig`` (:data:`LATER_CONFIGS`); a mesh of three or
-more axes, of two axes without the data axis, or with cross-host axes
-(item 8e). ``distributed`` (``"dp"`` and its aliases), the oss/sddp/fsdp
-tiers, the gradient transports and the sharded checkpoint format, on the
-1-D data mesh or beside a second axis (the ``("data", "seq")`` mesh with
-``DataParallelConfig.shard_seq_dim``, a ``("data", X)`` mesh with
-``PartitionRulesConfig``: tensor, expert and pipeline parallelism), and
-every other config class run.
+run yet: ``CompileConfig`` (:data:`LATER_CONFIGS`). ``distributed``
+(``"dp"`` and its aliases), the oss/sddp/fsdp tiers, the gradient
+transports and the sharded checkpoint format run on a mesh of any
+number of axes, with or without the data axis and with ``dcn_axes`` (a
+``seq`` axis with ``DataParallelConfig.shard_seq_dim``, model, expert
+and stage axes with ``PartitionRulesConfig``: tensor, expert and
+pipeline parallelism), and every other config class runs. The JAX
+legality rules of a mesh (duplicate axes, a shape against the axes, a
+rule naming an unknown axis) stay; a placement on the data, seq or stage
+axis outside the stage set is refused when the model is split
+(:mod:`stoke_tpu_torch.parallel.tensor`, ROADMAP item 8f).
 
 :func:`serve_config_error` holds the serving rules with the JAX package's
 messages, but for the rule that refuses the TPU decode kernel on the CPU:
@@ -89,8 +92,6 @@ from stoke_tpu_torch.resilience import (
 )
 
 _ITEM = "ROADMAP Queue 1 item"
-_LATER_MESH = (f"{_ITEM} 8e (meshes of three axes, dcn_axes and partition "
-               f"rules beyond the Megatron, expert and stage sets)")
 _LATER_COMPILE = f"{_ITEM} 11 (compile cache, autotune and analysis)"
 
 #: the config classes the port refuses after the legality rules, with the
@@ -1107,23 +1108,12 @@ class StokeStatus:
 
     def _refuse_later_slices(self) -> None:
         """After the legality rules: ``NotImplementedError`` naming the
-        ROADMAP item of the first config class, then flag or setting, that
-        the port does not run yet."""
-        later = [(f"{name} is", name in self._configs, LATER_CONFIGS[name])
-                 for name in LATER_CONFIGS]
-        mesh = self._configs.get("MeshConfig")
-        axes = tuple(getattr(mesh, "axes", ()) or ())
-        data = self._data_axis()
-        later.append(
-            (f"a mesh of axes {axes} (dcn_axes "
-             f"{getattr(mesh, 'dcn_axes', None)}) is",
-             mesh is not None and (len(axes) > 2 or bool(mesh.dcn_axes)
-                                   or (len(axes) == 2 and data not in axes)),
-             _LATER_MESH))
-        for what, on, item in later:
-            if on:
+        ROADMAP item of the first config class that the port does not run
+        yet."""
+        for name, item in LATER_CONFIGS.items():
+            if name in self._configs:
                 raise NotImplementedError(
-                    f"Stoke -- {what} not ported yet: {item}"
+                    f"Stoke -- {name} is not ported yet: {item}"
                 )
 
     def set_post_init_values(self, world_size: int,

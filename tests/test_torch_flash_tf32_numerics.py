@@ -32,6 +32,18 @@ from stoke_tpu_torch.ops import NEG_INF, flash_attention_plain
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its small tensors gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-4, 1e-5
 FWD_ATOL = 1e-5  # tests/test_torch_flash.py's tolerance for the forward
 B, H, D = 2, 2, 64

@@ -173,10 +173,11 @@ REFUSED = {
 #: options refused here until their item landed (the transports, item 7,
 #: the sharded checkpoint format, item 6b, optimizer offload, item 9, the
 #: (data, seq) mesh with shard_seq_dim, item 8a, a (data, model) mesh
-#: and partition rules, item 8b, and a tier under a seq axis or a model
-#: axis of two, item 8d): each case now shows the status layer takes them
+#: and partition rules, item 8b, a tier under a seq axis or a model
+#: axis of two, item 8d, and dcn_axes, item 8e): each case now shows the
+#: status layer takes them
 LANDED = ("comm", "sharded_format", "offload", "shard_seq_dim", "two_axes",
-          "partition_rules", "seq_axis_tiers", "tp_tiers")
+          "partition_rules", "seq_axis_tiers", "tp_tiers", "dcn_axes")
 #: the flags of a case (a tier under a seq axis, or under a model axis of
 #: two, item 8d)
 REFUSED_FLAGS = {"seq_axis_tiers": dict(oss=True), "tp_tiers": dict(oss=True)}
@@ -197,7 +198,8 @@ def test_later_options_name_their_item(case):
                 or (st.dp_config.shard_seq_dim == 1
                     and st.mesh_config.axes == ("data", "seq"))
                 or st.mesh_config.axes == ("data", "model")
-                or st.partition_rules_config is not None)
+                or st.partition_rules_config is not None
+                or st.mesh_config.dcn_axes == ("data",))
         return
     with pytest.raises(NotImplementedError, match=f"{LATER} {item}\\b"):
         StokeStatus(batch_size_per_device=4, device="cpu", distributed="dp",

@@ -31,6 +31,18 @@ from stoke_tpu_torch.serving import quant as pq
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its small tensors gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB, MAX_LEN = 257, 64
 SERVE = dict(max_seqs=3, kv_block_size=8, max_seq_len=48, max_new_tokens=8,
              prefill_pad_multiple=16)

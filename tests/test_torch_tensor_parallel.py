@@ -5,9 +5,10 @@ expert placements.
 
 Without a spawn: rule compilation, first match and the rank-mismatch
 messages (``tests/test_tensor_parallel.py:23-60``), the recognised rule
-sets and the refusals (an unrecognised rule, a column-parallel product
-without its partner, an indivisible head count, meshes of three axes,
-``dcn_axes``, the tiers under a model axis), the qkv slice layout, and
+sets, the gathered placements of other rules on virtual ranks and the
+refusals (a placement on the data axis, an indivisible head count), the
+meshes of three axes and ``dcn_axes`` the status layer takes, the tiers
+under a model axis, the qkv slice layout, and
 at world 1 on (1, 1) meshes a YAML document's rules with ``"..."``.
 
 A gloo world of 4 (``tests/_torch_tp_worker.py``) is spawned once for the
@@ -55,6 +56,7 @@ from stoke_tpu_torch import configs as pc
 from stoke_tpu_torch.convert import (
     bert_state_dict_from_jax,
     gpt_state_dict_from_jax,
+    jax_param_layout,
     rank_state_dict,
     whole_state_dict,
 )
@@ -164,24 +166,71 @@ def _block(heads=4, hidden=32, ff=64):
 
 
 @pytest.mark.parametrize("rules,what", [
-    (((r"ln_attn/scale", ("model",)),), "8e"),
-    (((r"attention/out/bias", ("model",)),), "8e"),
-    (((r"ff_in/kernel", ("model", None)),), "8e"),
+    (((r"ln_attn/scale", ("model",)),), "gathered"),
+    (((r"attention/out/bias", ("model",)),), "gathered"),
+    (((r"ff_in/kernel", ("model", None)),), "gathered"),
     (((r"attention/qkv/kernel", (None, None, "model", None)),
-      (r"attention/qkv/bias", (None, "model", None))), "partner"),
+      (r"attention/qkv/bias", (None, "model", None))), "gathered"),
     (((r"ff_in/kernel", (None, "model")), (r"ff_out/kernel",
-                                            ("model", None))), "partner"),
-    (((r"ff_in/kernel", (None, ("data", "model"))),), "8e"),
-    (((r"ff_in/kernel", (None, "data")),), "8e"),
+                                            ("model", None))), "gathered"),
+    (((r"ff_in/kernel", (None, ("data", "model"))),), "8f"),
+    (((r"ff_in/kernel", (None, "data")),), "8f"),
 ], ids=["norm", "row_bias", "wrong_dim", "no_row", "no_bias", "two_axes",
         "data_axis"])
 def test_unrecognised_rules_are_refused(rules, what):
-    with pytest.raises(NotImplementedError) as e:
-        shard_module(_block(), rules, ModelGroup(None, 2, 0, "model"))
-    msg = str(e.value)
-    assert "8e" in msg and msg.startswith("Stoke -- ")
-    if what == "partner":
-        assert "partner" in msg
+    """Placements outside the published sets on the model axis run as
+    gathered placements (item 8e): on 2 virtual ranks each rank holds the
+    JAX shard of each placed leaf (the block along the JAX dim, in the
+    port's layout), its blocks run whole, and the ranks' slices put back
+    give the unsplit block's output exactly. A placement on the data
+    axis stays refused, naming item 8f."""
+    if what == "8f":
+        with pytest.raises(NotImplementedError) as e:
+            shard_module(_block(), rules, ModelGroup(None, 2, 0, "model"))
+        msg = str(e.value)
+        assert "8f" in msg and "8e" not in msg
+        assert msg.startswith("Stoke -- ")
+        return
+    whole = _block()
+    x = torch.randn(2, 5, 32)
+    ref = whole(x, None)
+    blocks, tps = [], []
+    for r in range(2):
+        b = _block()
+        tps.append(shard_module(b, rules, ModelGroup(None, 2, r, "model")))
+        blocks.append(b)
+        assert b.attention.group is None and b.group is None
+    tp = tps[0]
+    assert tp.gathered and set(tp.gathered) == set(tp.cuts) == tp.placed
+    layout = jax_param_layout(whole)
+    for n in tp.gathered:
+        path, perm, jshape = layout[n]
+        cut = tp.cuts[n]
+        assert cut.gathered and cut.full == tuple(whole.get_parameter(n)
+                                                  .shape)
+        (rx, spec), = [(rx, sp) for rx, sp in rules
+                       if re.search(rx, "/".join(path))]
+        d = next(k for k, e in enumerate(spec) if e is not None)
+        jax_leaf = whole.get_parameter(n).detach()
+        jax_leaf = (jax_leaf.permute(perm) if perm else jax_leaf).reshape(
+            jshape)
+        for r, b in enumerate(blocks):
+            held = b.get_parameter(n).detach()
+            want = jax_leaf.chunk(2, d)[r]
+            # this rank's JAX shard, in the port's layout
+            assert torch.equal(
+                (held.permute(perm) if perm else held).reshape(want.shape),
+                want)
+            assert torch.equal(cut.take(whole.get_parameter(n).detach(), r),
+                               held)
+            assert torch.equal(
+                whole.get_parameter(n).detach(),
+                cut.join([bb.get_parameter(n).detach() for bb in blocks]))
+    for b in blocks:
+        run = {n: tp.cuts[n].join([bb.get_parameter(n) for bb in blocks])
+               for n in tp.gathered}
+        out = torch.func.functional_call(b, run, (x, None))
+        assert torch.equal(out, ref)
 
 
 def test_indivisible_heads_name_the_leaf():
@@ -247,10 +296,12 @@ REFUSED_MESHES = {
 
 
 #: the cases refused until item 8d landed (a tier, a transport and the
-#: sharded format under a model or expert axis of two): the status layer
-#: now takes them
+#: sharded format under a model or expert axis of two) or 8e (meshes of
+#: three axes, a model axis beside seq, two axes without the data axis,
+#: dcn_axes): the status layer now takes them
 LANDED = ("fsdp_under_model", "comm_under_expert",
-          "sharded_format_under_model")
+          "sharded_format_under_model", "three_axes", "model_beside_seq",
+          "no_data_axis", "dcn")
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED_MESHES))
@@ -262,7 +313,9 @@ def test_meshes_and_tiers_not_ported_name_their_item(case):
         assert (st.sharding_tier.value == "fsdp"
                 or st.comm_config is not None
                 or st.checkpoint_config.format
-                is pc.CheckpointFormat.sharded)
+                is pc.CheckpointFormat.sharded
+                or st.mesh_config.axes == configs[0].axes
+                and st.mesh_config.dcn_axes == configs[0].dcn_axes)
         return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}\\b"):
