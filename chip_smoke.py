@@ -329,6 +329,25 @@ Phases, one JSON line each; any failure exits nonzero:
    transport's JAX-layout buckets of 2 virtual model ranks against the
    unsplit model's, with the quantize kernel's payload and scales, bit
    for bit.
+28. train_three_axes: GPT-base-MoE under (data, model, expert) and the
+   other three-axis meshes (its own function's docstring).
+29. compile_audit: the compile cache, the program auditor and the
+   autotuner. (a) two processes (``--cache-worker``) with
+   ``CompileConfig`` on one directory: the first builds the five sources
+   into ``<dir>/kernels`` inside its first program and misses each
+   library, the second builds nothing, hits each, credits the first's
+   build seconds and holds each kernel of the warm libraries against its
+   plain version; a second ``Stoke`` in a process builds nothing. (b)
+   GPT-base bf16, 3 eager steps, a window and 2 replays, without and with
+   ``CompileConfig``: losses, the masters' digest, launches and dispatch
+   counts bit for bit, eager and replayed p50, the first step's ms.
+   (c) ``Stoke.audit()`` of that build and its ``serve`` engine (the
+   serve trace): no findings, dispatch and launch counts unchanged, its
+   seconds, the recorder's cost on a micro-step; a loss that calls
+   ``.item()`` fires ``audit-hidden-transfer``. (d) the ``serve_decode``
+   sweep of ``scripts/autotune_torch.py`` over the decode batch (8, 16,
+   32 slots), its trials in this process: each trial's ``graph_ms`` and
+   tokens/s, the winner persisted to a temporary ledger.
 
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -7660,6 +7679,382 @@ def quant_rows(cases, comm, served, elastic, second, third) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# the compile cache, the program auditor and the autotuner
+# --------------------------------------------------------------------------- #
+
+AUDIT_STEPS, AUDIT_REPLAYS = 3, 2  # eager steps, then a window and replays
+CACHE_LAYERS = 2  # the cache workers' GPT-base depth (full width)
+
+
+def cache_worker(argv) -> int:
+    """``chip_smoke.py --cache-worker <cache_dir>``: one process of the
+    compile cache's cross-process check. GPT-base bf16 (full width,
+    CACHE_LAYERS blocks) with ``CompileConfig(cache_dir=<cache_dir>)``:
+    one ``train_step`` (its first run loads the flash kernels, which
+    builds the five sources into ``<cache_dir>/kernels`` where they are
+    missing), one served request; each kernel of the five libraries
+    against its plain version at one case (``library_checks``), then the
+    cache's stats; then a second ``Stoke`` in the process (2 blocks),
+    which must build nothing. Prints one JSON line."""
+    from stoke_tpu_torch import configs as pc
+    from stoke_tpu_torch import ops
+    from stoke_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t0
+
+    cache_dir = argv[0]
+    cfg = pc.CompileConfig(cache_dir=cache_dir)
+    serve_cfg = pc.ServeConfig(attention="flash", decode_kernel="pallas",
+                               **SERVE)
+    b = window_batches(1)[0]
+    s = stoke_for(gpt_base("flash", layers=CACHE_LAYERS), "bf16",
+                  TRAIN_BATCH, configs=[cfg, serve_cfg])
+    mark("stoke")
+    loss = float(s.train_step(b, b))
+    mark("first_step")
+    engine = s.serve()
+    engine.submit(np.random.default_rng(SEED).integers(0, VOCAB, size=40))
+    engine.run()
+    mark("serve")
+    checks = library_checks(ops)
+    mark("checks")
+    built = _build.built_seconds()
+    stats = s.compile_cache.stats()
+    # a second Stoke in this process: the loaded libraries serve it
+    s2 = stoke_for(gpt_base("flash", layers=2), "bf16", TRAIN_BATCH,
+                   configs=[cfg])
+    s2.train_step(b, b)
+    mark("second_stoke")
+    print(json.dumps({
+        "loss": loss, "stats": stats, "built_s": built, "marks_s": marks,
+        "second_stoke_built_s": _build.built_seconds() - built,
+        "second_stoke_stats": s2.compile_cache.stats(),
+        "build_dir": str(_build.build_dir()),
+        "libraries": sorted(p.name for p in _build.build_dir().glob("*.so")),
+        "checks": checks, "seconds": time.perf_counter() - t0}),
+        flush=True)
+    return 0
+
+
+def library_checks(ops) -> dict:
+    """Each library the process loaded against its plain version at one
+    case, untimed: the bf16 flash forward (``wgmma``) at B=2, H=12,
+    L=256; the fp32 flash backward (3xTF32) by autograd against the plain
+    attention's; the decode and verify kernels at the serve shapes; the
+    quantize pair on one 512-element-chunked bucket, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(2, HEADS, 256, HEAD_DIM, generator=gen,
+                           device="cuda") for _ in range(3))
+    qb, kb, vb = (t.to(BF16) for t in (q, k, v))
+    fwd = max_err(ops.flash_attention(qb, kb, vb, None, causal=True),
+                  ops.flash_attention_plain(qb, kb, vb, None, True)[0])
+    grads = []
+    for attend in (lambda *a: ops.flash_attention(*a, None, causal=True),
+                   lambda *a: ops.flash_attention_plain(*a, None, True)[0]):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        attend(*leaves).square().sum().backward()
+        grads.append([t.grad for t in leaves])
+    bwd = max(max_err(a, b) for a, b in zip(*grads))
+    out = {"flash_fwd": fwd, "flash_bwd": bwd,
+           "paged_decode": paged_case(ops, gen, "decode"),
+           "paged_verify": paged_case(ops, gen, "verify")}
+    if fwd > ops.FWD_ATOL_BF16 or bwd > FP32_ATOL:
+        raise AssertionError(f"flash libraries: {out}")
+    out["quant"] = quant_case(ops, gen, torch.empty(1, device="cuda"),
+                              QUANT_BUCKET // 8, 512, True)["max_abs_err"]
+    return out
+
+
+def paged_case(ops, gen, kind: str) -> float:
+    """The decode (``DECODE_CASES``' first shape) or verify
+    (``VERIFY_CASES``' first) kernels against the plain version, fp32
+    pool; returns the largest difference, raising past the tolerance."""
+    if kind == "decode":
+        args = decode_inputs(gen, FP32)
+        out = ops.paged_decode_attention_pallas(*args)
+        ref = ops.paged_decode_attention(*args)
+    else:
+        args = verify_inputs(gen, FP32)
+        out = ops.paged_verify_attention_pallas(*args)
+        ref = ops.paged_verify_attention(*args)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    if not (torch.isfinite(out).all() and err <= FP32_ATOL):
+        raise AssertionError(f"paged_{kind}: max |kernel - plain| {err} > "
+                             f"{FP32_ATOL}")
+    return err
+
+
+def run_cache_worker(cache_dir: str) -> dict:
+    import stoke_tpu_torch
+
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(
+        os.path.dirname(os.path.abspath(stoke_tpu_torch.__file__)))}
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--cache-worker",
+         cache_dir], capture_output=True, text=True, timeout=300, env=env)
+    if out.returncode != 0:
+        raise AssertionError(f"cache worker failed (exit {out.returncode}):"
+                             f"\n{out.stderr[-3000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    rec["process_s"] = time.perf_counter() - t0
+    return rec
+
+
+def cache_across_processes() -> dict:
+    """(a) Two processes on one cache directory: the first builds the
+    five sources into ``<dir>/kernels`` inside its first program and
+    misses each library; the second builds nothing, hits each and credits
+    the first's build seconds."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="stoke-compile-cache-")
+    try:
+        cold = run_cache_worker(root)
+        warm = run_cache_worker(root)
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    if len(cold["libraries"]) != 5 or not cold["build_dir"].startswith(
+            os.path.realpath(root)):
+        raise AssertionError(f"the cold process did not build the five "
+                             f"sources into the cache: {cold}")
+    if (cold["stats"]["misses"], cold["stats"]["hits"]) != (5, 0):
+        raise AssertionError(f"cold process: {cold['stats']}")
+    if warm["built_s"] != 0.0 or \
+            (warm["stats"]["misses"], warm["stats"]["hits"]) != (0, 5):
+        raise AssertionError(f"the warm process built {warm['built_s']} s "
+                             f"or missed: {warm['stats']}")
+    # each library's record holds its share of the cold build call's wall
+    saved = warm["stats"]["saved_compile_s"]
+    if abs(saved - cold["built_s"]) > 1e-3:
+        raise AssertionError(f"warm process credited {saved} s against the "
+                             f"cold build's {cold['built_s']} s")
+    for run in (cold, warm):
+        if run["second_stoke_built_s"] != 0.0:
+            raise AssertionError("a second Stoke in the process built "
+                                 "kernels")
+    if cold["loss"] != warm["loss"]:
+        raise AssertionError(f"cold and warm first losses differ: "
+                             f"{cold['loss']} {warm['loss']}")
+    return {"cold": cold, "warm": warm, "saved_compile_s": saved,
+            "cold_build_s": cold["built_s"]}
+
+
+def cached_training(ops, cache_dir: str) -> dict:
+    """(b) GPT-base bf16, AUDIT_STEPS eager ``train_step``s then a window
+    and AUDIT_REPLAYS replays (``train_steps`` of one step each), without
+    and with ``CompileConfig``: losses, the masters' digest, launches and
+    dispatch counts must be equal bit for bit."""
+    from stoke_tpu_torch import configs as pc
+
+    batches = window_batches(AUDIT_STEPS + 1 + AUDIT_REPLAYS)
+    runs = {}
+    for name, extra in (("plain", []),
+                        ("cached", [pc.CompileConfig(cache_dir=cache_dir)])):
+        t0 = time.perf_counter()
+        s = stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH,
+                      configs=extra + [pc.ServeConfig(
+                          attention="flash", decode_kernel="pallas",
+                          **SERVE)])
+        construct_s = time.perf_counter() - t0
+        ops.reset_launches()
+        eager_ms, losses = [], []
+        for b in batches[:AUDIT_STEPS]:
+            eager_ms.append(timed_ms(lambda: losses.append(
+                s.train_step(b, b))))
+        window_ms = []
+        for b in batches[AUDIT_STEPS:]:
+            window_ms.append(timed_ms(lambda: losses.append(
+                s.train_steps(b[None], b[None]))))
+        runs[name] = {
+            "stoke": s, "losses": [float(l.float().mean()) for l in losses],
+            "digest": masters_digest(s), "launches": dict(ops.LAUNCHES),
+            "dispatch_count": s.dispatch_count, "construct_s": construct_s,
+            "eager_ms": eager_ms, "window_ms": window_ms,
+            "first_step_ms": eager_ms[0],
+            "eager_p50_ms": float(np.median(eager_ms[1:])),
+            "replayed_p50_ms": float(np.median(window_ms[1:])),
+        }
+    a, b = runs["plain"], runs["cached"]
+    for key in ("losses", "digest", "launches", "dispatch_count"):
+        if a[key] != b[key]:
+            raise AssertionError(f"with and without the cache, {key} differ:"
+                                 f" {a[key]} {b[key]}")
+    want = N_LAYERS * (AUDIT_STEPS + 1 + AUDIT_REPLAYS)
+    flash_launches(ops, want, "compile_audit training")
+    return runs
+
+
+def recording_ms(s, batch) -> dict:
+    """What recording a program costs: the engine's micro-step (the bf16
+    forward, loss and backward of ``train_step`` without its apply) of the
+    warmed build, timed plain and under the recorder, twice each (the
+    gradients it leaves are released), and the ops recorded."""
+    from stoke_tpu_torch.analysis.program import TraceRecorder
+
+    eng = s._engine
+    times = {}
+    # the recorder the engines run at a first run: the facts, no text
+    for name in ("plain", "recorded", "plain2", "recorded2"):
+        rec = TraceRecorder("probe") if name.startswith("recorded") else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rec is None:
+            eng.accum((batch,), {}, (batch,))
+        else:
+            with rec:
+                eng.accum((batch,), {}, (batch,))
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        if rec is not None:
+            times["ops"] = rec.facts.ops
+        eng.optimizer.zero_grad(set_to_none=True)
+    return {"fwd_bwd_ms": min(times["plain"], times["plain2"]),
+            "recorded_fwd_bwd_ms": min(times["recorded"],
+                                       times["recorded2"]),
+            "recording_extra_ms": min(times["recorded"], times["recorded2"])
+            - min(times["plain"], times["plain2"]),
+            "recorded_ops": times["ops"]}
+
+
+def audit_checks(ops, runs) -> dict:
+    """(c) ``Stoke.audit()`` of the cached build and its ``serve``
+    engine (the serve trace's 16 requests): no findings, and dispatch and
+    launch counts equal across it; then a loss that calls ``.item()``
+    must fire ``audit-hidden-transfer`` on the card."""
+    from stoke_tpu_torch.models.gpt import causal_lm_loss
+
+    s = runs["cached"]["stoke"]
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(16, 401, size=16)
+    prompts = [rng.integers(0, VOCAB, size=int(n)) for n in lens]
+    t0 = time.perf_counter()
+    engine = s.serve()
+    build_s = time.perf_counter() - t0
+    _, drive_s = drive(engine, prompts)
+    before = (s.dispatch_count, dict(ops.LAUNCHES))
+    t0 = time.perf_counter()
+    rep = s.audit(serve=engine)
+    audit_s = time.perf_counter() - t0
+    if rep.findings:
+        raise AssertionError("the audit found:\n" + rep.format())
+    if (s.dispatch_count, dict(ops.LAUNCHES)) != before:
+        raise AssertionError("the audit dispatched or launched")
+
+    def item_loss(out, y):
+        loss = causal_lm_loss(out, y)
+        loss.item()
+        return loss
+
+    b = window_batches(1)[0]
+    t0 = time.perf_counter()
+    probe = stoke_for(gpt_base("flash", layers=2), "bf16", TRAIN_BATCH,
+                      loss=item_loss)
+    probe.train_step(b, b)
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fired = probe.audit()
+    rules = sorted({f.rule for f in fired.findings})
+    if rules != ["audit-hidden-transfer"]:
+        raise AssertionError(f".item() in the loss: {fired.format()}")
+    probe_s = time.perf_counter() - t0
+    return {"findings": 0, "programs": rep.programs, "notes": rep.notes,
+            "audit_s": audit_s, "serve_build_s": build_s,
+            "serve_drive_s": drive_s, "item_probe_s": probe_s,
+            "item_loss_rules": rules,
+            "item_loss_message": fired.findings[0].message[:160],
+            "recording": recording_ms(s, b)}
+
+
+def decode_sweep(ledger: str) -> dict:
+    """(d) The ``serve_decode`` workload of ``scripts/autotune_torch.py``
+    (its trial measurement, in this process): the paged decode kernel
+    alone at GPT-base's serve geometry (12 heads of 64, 16-token blocks,
+    contexts of 1,024 to 2,048 positions, bf16 pool), greedy over the
+    decode batch (8, 16, 32 slots), each trial timed from a replayed CUDA
+    graph of 50 calls; the winner persisted to ``ledger`` and read
+    back."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_autotune_torch_script", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "scripts",
+            "autotune_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    at = script._autotune
+    payload = {"seq_len": 2048, "steps": 50, "warmup": 1,
+               "kv_block_size": None, "spec_k": None}
+    t0 = time.perf_counter()
+    trials = {}
+
+    def measure(trial):
+        rec = script.measure_serve_decode(trial, payload)
+        trials[trial.config_key()] = {"graph_ms": rec["graph_ms"],
+                                      "tokens_per_s": rec["value"]}
+        return at.TrialResult(trial, value=rec["value"], unit=rec["unit"],
+                              bound=rec["bound"], wall_s=rec["wall_s"])
+
+    outcome = at.greedy_search(measure, at.TrialSpec(batch=16),
+                               {"batch": [8, 16, 32]}, max_trials=3)
+    metric = script.SERVE_DECODE_METRIC
+    record = at.persist_winner(ledger, metric, outcome, backend="cuda",
+                               source="chip_smoke.py",
+                               extra={"workload": "serve_decode"})
+    if at.read_winner(ledger, metric) != record:
+        raise AssertionError("the persisted winner does not read back")
+    return {"trials": trials, "winner": record["config_key"],
+            "trial_count": outcome.trials,
+            "seconds": time.perf_counter() - t0}
+
+
+def compile_audit(ops) -> dict:
+    """The compile cache across processes and in one, the bit-for-bit
+    training with and without it, the program audit of the training and
+    serving builds, and the serve_decode sweep."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"phase": "compile_audit"}
+    out["cache"] = cache_across_processes()
+    out["cache_s"] = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="stoke-compile-audit-")
+    try:
+        t = time.perf_counter()
+        runs = cached_training(ops, os.path.join(root, "cache"))
+        out["training"] = {
+            name: {k: v for k, v in r.items() if k != "stoke"}
+            for name, r in runs.items()}
+        out["training"]["cached_stats"] = \
+            runs["cached"]["stoke"].compile_cache.stats()
+        out["training_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["audit"] = audit_checks(ops, runs)
+        out["audit_phase_s"] = time.perf_counter() - t
+        for r in runs.values():
+            r["stoke"].close_telemetry()
+        del runs
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out["sweep"] = decode_sweep(os.path.join(root, "autotune.json"))
+        out["sweep_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7789,6 +8184,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     third = train_three_axes(ops)
     emit({**third, "card": smi})
+    torch.cuda.empty_cache()
+    audit = compile_audit(ops)
+    emit({**audit, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -7937,4 +8335,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resilience-worker"]:
         sys.exit(resilience_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cache-worker"]:
+        sys.exit(cache_worker(sys.argv[2:]))
     sys.exit(main())

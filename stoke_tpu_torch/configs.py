@@ -689,9 +689,15 @@ class ResilienceConfig:
 
 @dataclass
 class CompileConfig:
-    """A persistent compilation cache under ``cache_dir`` and a ledger of
-    ahead-of-time step programs. Refused until ROADMAP Queue 1 item 11
-    (compile cache, autotune and analysis)."""
+    """The persistent compile cache under ``cache_dir``
+    (:mod:`stoke_tpu_torch.compile_cache`): with ``xla_cache`` the kernel
+    libraries are built into ``<cache_dir>/kernels`` and loaded from there
+    by later processes (builds under ``min_compile_time_s`` seconds are
+    not kept); with ``aot`` each library a process loads is booked: a
+    hit, crediting its recorded build seconds, where it was there, a miss
+    where the process built it. ``serialize_executables`` is
+    accepted without effect: a CUDA graph cannot be serialised, and the
+    kernel library is already the artifact."""
 
     cache_dir: str = "compile_cache"
     aot: bool = True

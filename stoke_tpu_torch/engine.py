@@ -77,9 +77,16 @@ copy of the parameters; a window returns its matrix too.
 The attribution's cost cards and the memory observatory watch the
 dispatches (:attr:`StepEngine.cost_cards`, :attr:`StepEngine.memory`):
 the first run of each (program, input signature) is counted and
-measured (``accum``: the 4-call forward and backward; ``apply``,
+measured (``accum``: the 4-call forward, loss and backward; ``apply``,
 ``fused``, ``fused_nb`` and ``window``: a window's eager first run, never
-its capture), every later one booked.
+its capture), every later one booked. That first run is also recorded as
+the program (the JAX engine's ``_aot_call`` / ``_note_audit``): what its
+ops wrote, copied, synced and communicated
+(:class:`~stoke_tpu_torch.analysis.program.TraceRecorder`'s facts) and the
+state it declares updated in place (:attr:`DECLARED_STATE`, the
+counterpart of the JAX programs' ``donate_argnums``) become one
+:class:`~stoke_tpu_torch.analysis.program.ProgramSpec` for the auditor
+(:meth:`StepEngine.audit_specs`, at most ``_MAX_AUDIT_SPECS``).
 
 Offload (the JAX engine's ``:553-650``): with :attr:`StepEngine.host_state`
 (``OffloadOptimizerConfig``) the optimizer state shaped like its
@@ -111,6 +118,12 @@ from stoke_tpu_torch.configs import (
     PrecisionOptions,
 )
 from stoke_tpu_torch import remat
+from stoke_tpu_torch.analysis.program import (
+    ProgramSpec,
+    StateEntry,
+    TraceRecorder,
+    program_signature,
+)
 from stoke_tpu_torch.ops import chunked_ce
 from stoke_tpu_torch.ops.flash_attention import LAUNCHES
 from stoke_tpu_torch.telemetry import collectors
@@ -120,6 +133,7 @@ from stoke_tpu_torch.telemetry.health import (
     nonfinite_flags,
     pack_sentinels,
 )
+from stoke_tpu_torch.telemetry.attribution import counting, signature
 from stoke_tpu_torch.telemetry.tracing import trace_span
 
 
@@ -371,6 +385,26 @@ def _absmax_and_finite(tensors: Sequence[torch.Tensor],
     return leaf_norms(tensors, float("inf")), finite.float()
 
 
+class _Recording:
+    """One program's first run of a signature being recorded: the
+    recorder, and the declared state with how to read each entry back (a
+    4-call micro-step records in three segments: forward, loss and
+    backward)."""
+
+    def __init__(self, program: str, memo, inputs):
+        self.program = program
+        self.memo = memo
+        self.recorder = TraceRecorder(program)
+        self.abstract, self.weak = program_signature(inputs)
+        self.state: List[tuple] = []
+
+
+def _storage_ref(t: torch.Tensor):
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    return StorageWeakRef(t.untyped_storage())
+
+
 class CapturedWindow(NamedTuple):
     """A window captured as a CUDA graph: the graph, its static inputs (the
     flattened inputs' leaves), its outputs (stacked reports, the finite
@@ -544,23 +578,163 @@ class StepEngine:
         self.cost_cards = None
         self.memory = None
         # the 4-call path's micro-step: its forward's signature and, on the
-        # signature's first run, the cost its forward counted
+        # signature's first run, the cost its forward counted and its
+        # recording
         self._accum_sig = None
         self._accum_cost = None
+        self._accum_rec: Optional[_Recording] = None
+        # the program specs of first runs (the auditor's), and the
+        # signatures each program has run (its churn ledger)
+        self._audit_specs: List[ProgramSpec] = []
+        self._audit_seen: set = set()
+        self._audit_truncated = False
+        self._spec_of: Dict[Any, ProgramSpec] = {}
+        self._program_sigs: Dict[str, set] = {}
+        self._window_captures = 0
+        self._recording = False
+
+    #: the state each program declares updated in place, stated once
+    #: (the JAX programs' ``donate_argnums``: ``accum`` donates nothing,
+    #: ``fused_nb`` the gradient buffer, the apply family the variables,
+    #: the gradient buffer, the optimizer state and the scaler). Only what
+    #: exists before the run is declared: a first step's optimizer state
+    #: and gradients are made by it
+    DECLARED_STATE: Dict[str, Tuple[str, ...]] = {
+        "accum": (),
+        "fused_nb": ("grad",),
+        "apply": ("param", "grad", "opt", "scaler"),
+        "fused": ("param", "grad", "opt", "scaler"),
+        "window": ("param", "grad", "opt", "scaler"),
+    }
+    #: bound on recorded specs (one a program signature; a shape-churning
+    #: run stops recording, never errors)
+    _MAX_AUDIT_SPECS = 64
+    #: bound on the signatures remembered a program
+    _MAX_SIGS = 1024
 
     @contextlib.contextmanager
-    def _observed(self, program: str, sig, steps: int):
-        """One dispatch of ``program`` at ``sig`` inside the block: the
-        cost card counted on its first run and accounted on every run
-        (``cost_cards``), its memory measured on its first run
-        (``memory``)."""
+    def _observed(self, program: str, sig, steps: int, inputs=()):
+        """One dispatch of ``program`` at ``sig`` (of ``inputs``) inside
+        the block: the cost card counted on its first run and accounted on
+        every run (``cost_cards``), its memory measured on its first run
+        (``memory``), and its first run recorded (:meth:`_start_recording`)
+        innermost, so no count's own ops are in the recording."""
+        self._accum_rec = None
         with contextlib.ExitStack() as stack:
             if self.memory is not None:
                 stack.enter_context(self.memory.measure(program, sig))
             if self.cost_cards is not None:
                 stack.enter_context(self.cost_cards.dispatch(
                     (program, sig), program, steps))
-            yield
+            rec = self._start_recording(program, sig, inputs)
+            if rec is None:
+                yield
+                return
+            self._recording = True
+            try:
+                with rec.recorder:
+                    yield
+            finally:
+                self._recording = False
+            self._finish_recording(rec)
+
+    def _start_recording(self, program: str, sig, inputs
+                         ) -> Optional[_Recording]:
+        """A recording of ``program``'s first run at ``sig``, under the
+        spec cap (None otherwise, and on every later run); the declared
+        state is named first."""
+        seen = self._program_sigs.setdefault(program, set())
+        if len(seen) < self._MAX_SIGS:
+            seen.add(sig)
+        memo = (program, sig)
+        if memo in self._audit_seen:
+            return None
+        if len(self._audit_specs) >= self._MAX_AUDIT_SPECS:
+            self._audit_truncated = True
+            return None
+        self._audit_seen.add(memo)
+        rec = _Recording(program, memo, inputs)
+        names = {id(p): n for n, p in self.module.named_parameters()}
+        for kind in self.DECLARED_STATE.get(program, ()):
+            for name, t, read in self._state_of(kind, names):
+                rec.recorder.declare(name, t)
+                cut = bool(kind == "param" and self.tp is not None
+                           and name[len("param:"):] in self.tp.cuts)
+                rec.state.append((StateEntry(
+                    name, t.numel() * t.element_size(), cut),
+                    _storage_ref(t), read))
+        return rec
+
+    def _state_of(self, kind: str, names: Dict[int, str]):
+        """``(name, tensor, read back)`` of the live state of ``kind``."""
+        if kind == "param":
+            for n, p in self.module.named_parameters():
+                if p.requires_grad:
+                    yield f"param:{n}", p, (lambda p=p: p)
+        elif kind == "grad":
+            for n, p in self.module.named_parameters():
+                if p.grad is not None:
+                    yield f"grad:{n}", p.grad, (lambda p=p: p.grad)
+        elif kind == "opt":
+            for i, p in enumerate(self.opt_params):
+                pname = names.get(id(p), f"#{i}")
+                for k, v in self.optimizer.state.get(p, {}).items():
+                    if torch.is_tensor(v):
+                        yield (f"opt:{pname}/{k}", v,
+                               lambda p=p, k=k: self.optimizer.state.get(
+                                   p, {}).get(k))
+        elif kind == "scaler" and self.precision.scaled:
+            for k in ("scale", "growth_count"):
+                yield f"scaler:{k}", self.scaler[k], (
+                    lambda k=k: self.scaler[k])
+
+    def _finish_recording(self, rec: _Recording) -> None:
+        """The recorded first run as a spec (what each declared entry
+        became)."""
+        state = []
+        for entry, ref, read in rec.state:
+            after = read()
+            if after is None:
+                entry.after = "released"
+            elif ref.expired() or _storage_ref(after).cdata != ref.cdata:
+                entry.after = "replaced"
+            state.append(entry)
+        rec.state.clear()
+        groups = {}
+        if self.tp is not None:
+            groups = {"/".join(map(str, axes)): int(g.size)
+                      for axes, g in self.tp.groups.items()}
+        exchange = (self.ladder is not None
+                    or (self.transport is not None and self.transport.active)
+                    or (self.tp is not None and bool(self.tp.cuts)))
+        spec = ProgramSpec(
+            program=rec.program, facts=rec.recorder.facts,
+            abstract_args=rec.abstract, state=tuple(state),
+            weak_leaves=rec.weak, source="engine", group_sizes=groups,
+            exchange=exchange)
+        self._audit_specs.append(spec)
+        self._spec_of[rec.memo] = spec
+
+    def _accum_segment(self):
+        """The pending 4-call micro-step's recording around a step of it
+        (its forward, loss or backward), outside any other recording."""
+        if self._accum_rec is None or self._recording:
+            return contextlib.nullcontext()
+        return self._accum_rec.recorder
+
+    def audit_specs(self) -> List[ProgramSpec]:
+        """The recorded program specs (``Stoke.audit()`` is the
+        consumer)."""
+        return list(self._audit_specs)
+
+    def shape_sig_counts(self) -> Dict[str, int]:
+        """Distinct input signatures run a program (a window's: its
+        captures when more) — the auditor's recompile-churn ledger."""
+        out = {p: len(s) for p, s in self._program_sigs.items()}
+        if self._window_captures:
+            out["window"] = max(out.get("window", 0),
+                                self._window_captures)
+        return out
 
     def _dispatch(self, program: str) -> None:
         """Count one device-issuing call (after the fault injector's
@@ -582,19 +756,19 @@ class StepEngine:
         forward that records no gradient. With cost cards, a forward that
         records a gradient starts the 4-call micro-step's card (the
         ``accum`` program: this forward and the next :meth:`backward`)."""
-        cards = self.cost_cards
-        if cards is None or not torch.is_grad_enabled():
+        if not torch.is_grad_enabled():
             return self._forward_gathered(args, kwargs)
-        from stoke_tpu_torch.telemetry.attribution import counting, signature
-
+        cards = self.cost_cards
         self._accum_sig = signature((args, kwargs))
         self._accum_cost = None
-        if not cards.needs_count(("accum", self._accum_sig), "accum"):
+        self._accum_rec = self._start_recording("accum", self._accum_sig,
+                                                (args, kwargs))
+        with contextlib.ExitStack() as stack:
+            if cards is not None and cards.needs_count(
+                    ("accum", self._accum_sig), "accum"):
+                self._accum_cost = stack.enter_context(counting())
+            stack.enter_context(self._accum_segment())
             return self._forward_gathered(args, kwargs)
-        with counting() as cost:
-            out = self._forward_gathered(args, kwargs)
-        self._accum_cost = cost
-        return out
 
     def _forward_gathered(self, args: tuple, kwargs: dict):
         if self.ladder is None:
@@ -637,10 +811,16 @@ class StepEngine:
         """``loss_fn(*args, **kwargs)``; under a 16-bit policy the chunked
         LM head multiplies in the compute dtype
         (:func:`stoke_tpu_torch.ops.chunked_ce.compute_dtype`)."""
-        with chunked_ce.compute_dtype(self.precision.compute_dtype):
+        with chunked_ce.compute_dtype(self.precision.compute_dtype), \
+                self._accum_segment():
             return self.loss_fn(*args, **kwargs)
 
     def objective(self, result) -> Tuple[torch.Tensor, Any]:
+        """:meth:`_objective`, in the pending 4-call recording."""
+        with self._accum_segment():
+            return self._objective(result)
+
+    def _objective(self, result) -> Tuple[torch.Tensor, Any]:
         """``(objective, report)`` of a training loss result.
 
         ``objective`` is the fp32 sum of the (weighted) losses divided by
@@ -737,20 +917,23 @@ class StepEngine:
         """The 4-call path's micro-step (one dispatch, a ``stoke/accum``
         span): :meth:`_backward`."""
         self._dispatch("backward")
+        rec = self._accum_rec
         with trace_span("stoke/accum", track="step"):
             if self.cost_cards is None:
-                self._backward(objective)
-                return
-            from stoke_tpu_torch.telemetry.attribution import counting
-
-            key = ("accum", self._accum_sig)
-            cost, self._accum_cost = self._accum_cost, None
-            if cost is None:
-                self._backward(objective)
-            else:
-                with counting(cost):
+                with self._accum_segment():
                     self._backward(objective)
-            self.cost_cards.note_dispatch(key, "accum", cost, steps=0)
+            else:
+                key = ("accum", self._accum_sig)
+                cost, self._accum_cost = self._accum_cost, None
+                with contextlib.ExitStack() as stack:
+                    if cost is not None:
+                        stack.enter_context(counting(cost))
+                    stack.enter_context(self._accum_segment())
+                    self._backward(objective)
+                self.cost_cards.note_dispatch(key, "accum", cost, steps=0)
+        self._accum_rec = None
+        if rec is not None:
+            self._finish_recording(rec)
 
     def _backward(self, objective: torch.Tensor) -> None:
         """Autograd of ``objective`` into the accumulated fp32 ``.grad``:
@@ -1200,13 +1383,10 @@ class StepEngine:
         None without an apply or without fp16."""
         self._dispatch("fused")
         program = "fused" if do_apply else "fused_nb"
-        sig = None
-        if self.cost_cards is not None or self.memory is not None:
-            from stoke_tpu_torch.telemetry.attribution import signature
-
-            sig = signature((args, kwargs, loss_args))
+        inputs = (args, kwargs, loss_args)
+        sig = signature(inputs)
         with trace_span("stoke/dispatch", track="step"), \
-                self._observed(program, sig, int(do_apply)):
+                self._observed(program, sig, int(do_apply), inputs):
             report = self.accum(args, kwargs, loss_args)
             finite = None
             if do_apply:
@@ -1272,14 +1452,9 @@ class StepEngine:
 
     def _run_window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
         inputs = (tuple(margs), dict(mkwargs), tuple(loss_args))
-        sig = None
-        if self.cost_cards is not None or self.memory is not None:
-            from stoke_tpu_torch.telemetry.attribution import signature
-
-            sig = signature(inputs)
         if self.device.type != "cuda" or self.disk_store is not None:
             # the disk tier's spill is file IO, which a graph cannot hold
-            with self._observed("window", sig, 1):
+            with self._observed("window", signature(inputs), 1, inputs):
                 return self._window(*inputs)
         flat, spec = tree_flatten(inputs)
         key = (spec, tuple((tuple(t.shape), t.dtype, t.device)
@@ -1287,17 +1462,27 @@ class StepEngine:
         lrs = tuple(None if torch.is_tensor(g["lr"]) else g["lr"]
                     for g in self.optimizer.param_groups)
         cap = self._windows.get(key)
+        # a replay needs the signature only for its cost card
+        sig = (signature(inputs) if cap is None or cap.lrs != lrs
+               or self.cost_cards is not None else None)
         if cap is not None and cap.lrs != lrs:
+            baked = self._spec_of.get(("window", sig))
+            if baked is not None:
+                # the floats baked into the graph changed: a recapture
+                baked.weak_leaves += (
+                    f"captured learning rates {cap.lrs} changed to {lrs}",)
             del self._windows[key]
             cap = None
         if cap is None:
             # the first window of a signature runs eagerly: the one its
-            # cost card counts and its memory card measures
-            with self._observed("window", sig, 1):
+            # cost card counts, its memory card measures and the auditor
+            # records (never the capture)
+            with self._observed("window", sig, 1, inputs):
                 out = self._window(*inputs)
             if self.compile_tracker is not None and self._captured:
                 self.compile_tracker.note_recompile()
             self._captured.add(key)
+            self._window_captures += 1
             reserved = torch.cuda.memory_reserved(self.device)
             with collectors.compiling():
                 self._windows[key] = self._capture(flat, spec, lrs)

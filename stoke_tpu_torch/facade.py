@@ -664,6 +664,17 @@ class Stoke:
         self._numerics = None
         self._memory_obs = None
         self._wire_error_warned = False
+        # the persistent compile cache (a ``CompileConfig``; the JAX
+        # constructor builds it before the attribution): the kernel
+        # libraries kept across processes and booked as they load. The
+        # engine runs exactly as without one
+        self._compile_cache = None
+        ccfg = st.compile_config
+        if ccfg is not None:
+            from stoke_tpu_torch.compile_cache import CompileCache
+
+            self._compile_cache = CompileCache(ccfg,
+                                               self._telemetry.registry)
         # step-time attribution: the cost cards counted at each program's
         # first run and the per-window gauges (the JAX constructor's order:
         # before the health monitor, whose bundles carry its summary)
@@ -2769,6 +2780,86 @@ class Stoke:
         """The run's goodput accounting (None without an
         ``AttributionConfig``)."""
         return self._telemetry.goodput_summary()
+
+    @property
+    def compile_cache(self):
+        """The run's persistent compile cache (None without a
+        ``CompileConfig``): the kernel libraries' hit and miss counts,
+        reclaimed build seconds (``.stats()``), and the cache directory."""
+        return self._compile_cache
+
+    def audit(
+        self,
+        serve=None,
+        *,
+        replicated_bytes_threshold: Optional[int] = None,
+        churn_threshold: Optional[int] = None,
+        cost_manifest: Optional[dict] = None,
+        cost_tolerance: Optional[float] = None,
+        mem_manifest: Optional[dict] = None,
+        mem_tolerance: Optional[float] = None,
+    ):
+        """Static program audit of this live build: walk what the first
+        run of every program the engine has run recorded (and, with
+        ``serve=engine``, a serving engine's) and check the program
+        invariants (:mod:`stoke_tpu_torch.analysis.program`): the declared
+        in-place state, hidden host round-trips, recompile hazards, whole
+        parameters on a model or expert group, collectives against the
+        gradient exchange's accounting, and with a manifest the serve
+        programs' cost drift.
+
+        A walk over recorded facts: NO dispatch and no kernel launch
+        (``dispatch_count`` and ``ops.LAUNCHES`` are equal before and
+        after). Returns an :class:`~stoke_tpu_torch.analysis.program.
+        AuditReport`; ticks ``analysis/programs_audited_total`` and
+        ``analysis/audit_findings_total`` and warns on findings on rank 0.
+        Run the step APIs you care about first: the audit covers what the
+        engine ran."""
+        from stoke_tpu_torch.analysis.program import audit_program_specs
+
+        specs = self._engine.audit_specs()
+        if serve is not None:
+            specs += serve.audit_specs()
+        kwargs = {}
+        if replicated_bytes_threshold is not None:
+            kwargs["replicated_bytes_threshold"] = replicated_bytes_threshold
+        if churn_threshold is not None:
+            kwargs["churn_threshold"] = churn_threshold
+        if cost_manifest is not None:
+            kwargs["cost_manifest"] = cost_manifest
+        if cost_tolerance is not None:
+            kwargs["cost_tolerance"] = cost_tolerance
+        if mem_manifest is not None:
+            kwargs["mem_manifest"] = mem_manifest
+        if mem_tolerance is not None:
+            kwargs["mem_tolerance"] = mem_tolerance
+        transport = self._engine.transport
+        report = audit_program_specs(
+            specs,
+            transport_active=bool(transport is not None
+                                  and transport.active),
+            comm_bytes=self.comm_bytes,
+            shape_sig_counts=self._engine.shape_sig_counts(),
+            **kwargs,
+        )
+        if self._engine._audit_truncated:
+            report.notes.append(
+                f"program inventory truncated at the engine's "
+                f"{self._engine._MAX_AUDIT_SPECS}-spec audit cap — "
+                f"programs first run after the cap were NOT audited")
+        reg = self._telemetry.registry
+        reg.counter("analysis/programs_audited_total",
+                    help="programs checked by Stoke.audit()").inc(
+                        len(report.programs))
+        reg.counter("analysis/audit_findings_total",
+                    help="program-audit findings").inc(len(report.findings))
+        if report.findings and self.is_rank_0:
+            import warnings
+
+            warnings.warn(
+                "Stoke -- program audit found "
+                f"{len(report.findings)} issue(s):\n" + report.format())
+        return report
     # ------------------------------------------------------------------ #
     # loss tracking (device tensors; read on the host only when asked)
     # ------------------------------------------------------------------ #

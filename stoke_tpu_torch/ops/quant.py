@@ -20,13 +20,18 @@ device, so a replayed CUDA graph draws from its current value.
 The wrappers run the plain versions for CPU tensors only; for a CUDA
 tensor they launch the kernel or raise. Each launch adds one to
 ``LAUNCHES["quantize_chunks"]`` or ``LAUNCHES["dequantize_chunks"]``
-(the flash module's table, which a captured window counts).
+(the flash module's table, which a captured window counts). Under a
+``TorchDispatchMode`` (a cost count, a program's recording) each call
+goes through the custom op ``stoke_tpu_torch::quantize_chunks`` /
+``dequantize_chunks``, as the flash and paged kernels do: the mode sees
+the kernel by name, on the CPU as on the card, and not the plain
+version's ops inside it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +42,7 @@ from stoke_tpu_torch.ops.flash_attention import (
     _kernel,
     _raise_on,
     _stream_ptr,
+    _watched,
 )
 from stoke_tpu_torch.utils.prng import fold_in, uniform
 
@@ -166,6 +172,13 @@ def quantize_chunks(x: torch.Tensor, chunk: int,
     device) feeds stochastic rounding after ``folds``; ``offset`` is
     ``x[0]``'s index in the draw. The kernel on the card, the plain
     version on the CPU."""
+    if _watched():
+        return torch.ops.stoke_tpu_torch.quantize_chunks(
+            x, chunk, key, stochastic, list(folds), offset)
+    return _quantize_direct(x, chunk, key, stochastic, folds, offset)
+
+
+def _quantize_direct(x, chunk, key, stochastic, folds, offset):
     if x.device.type == "cpu":
         return quantize_chunks_plain(x, chunk, key, stochastic, folds, offset)
     return _quantize_cuda(x, chunk, key, stochastic, folds, offset)
@@ -177,9 +190,46 @@ def dequantize_chunks(q: torch.Tensor, scales: torch.Tensor, chunk: int,
     """The inverse of :func:`quantize_chunks` up to rounding: ``q * scale``
     in float32, its first ``n`` elements, in ``dtype``. The kernel on the
     card, the plain version on the CPU."""
+    if _watched():
+        return torch.ops.stoke_tpu_torch.dequantize_chunks(
+            q, scales, chunk, dtype, n)
+    return _dequantize_direct(q, scales, chunk, dtype, n)
+
+
+def _dequantize_direct(q, scales, chunk, dtype, n):
     if q.device.type == "cpu":
         return dequantize_chunks_plain(q, scales, chunk, dtype, n)
     return _dequantize_cuda(q, scales, chunk, dtype, n)
+
+
+# --------------------------------------------------------------------------- #
+# the pair as custom ops, for a TorchDispatchMode
+# --------------------------------------------------------------------------- #
+
+
+@torch.library.custom_op("stoke_tpu_torch::quantize_chunks", mutates_args=())
+def _quantize_op(x: torch.Tensor, chunk: int, key: Optional[torch.Tensor],
+                 stochastic: bool, folds: List[int],
+                 offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _quantize_direct(x, chunk, key, stochastic, folds, offset)
+
+
+@_quantize_op.register_fake
+def _(x, chunk, key, stochastic, folds, offset):
+    return (x.new_empty(x.numel(), dtype=torch.int8),
+            x.new_empty(x.numel() // chunk))
+
+
+@torch.library.custom_op("stoke_tpu_torch::dequantize_chunks",
+                         mutates_args=())
+def _dequantize_op(q: torch.Tensor, scales: torch.Tensor, chunk: int,
+                   dtype: torch.dtype, n: Optional[int]) -> torch.Tensor:
+    return _dequantize_direct(q, scales, chunk, dtype, n)
+
+
+@_dequantize_op.register_fake
+def _(q, scales, chunk, dtype, n):
+    return q.new_empty(q.numel() if n is None else n, dtype=dtype)
 
 
 __all__ = ["INT8_MAX", "OUT_DTYPES", "dequantize_chunks",

@@ -67,6 +67,18 @@ weights and the KV pool, runs the serve pre-flight and forecasts
 ``serve/mem_headroom_bytes``. The int8 weights' error by JAX tree group is
 :attr:`ServingEngine.quant_errors_by_group`. ``summary()`` carries the
 ``slo``, ``cost`` and ``memory`` blocks.
+
+Each program's first run (of a name; the JAX engine's ``_note_audit``) is
+recorded as a :class:`~stoke_tpu_torch.analysis.program.ProgramSpec` for
+the auditor (:meth:`ServingEngine.audit_specs`): what its ops wrote,
+copied, synced and communicated, its cost count, and the KV pool it
+declares updated in place (the JAX serve programs' donated cache).
+``ServeConfig.decode_pages_per_block`` / ``verify_pages_per_block`` are
+accepted under the JAX rules and have no effect: the CUDA kernels walk a
+slot's context in tiles of 64 positions, one block a tile, and no
+measurement has shown another tile that serves faster end to end.
+``decode_block_h`` / ``verify_block_h`` are refused: the CUDA kernels'
+heads are a grid dimension.
 """
 
 from __future__ import annotations
@@ -81,6 +93,11 @@ from torch import nn
 
 from torch.func import functional_call
 
+from stoke_tpu_torch.analysis.program import (
+    ProgramSpec,
+    StateEntry,
+    TraceRecorder,
+)
 from stoke_tpu_torch.configs import ServeConfig
 from stoke_tpu_torch.models.bert import BERT_SIZES
 from stoke_tpu_torch.models.gpt import GPT, MOE_KV_CACHE
@@ -109,6 +126,7 @@ from stoke_tpu_torch.serving.slo import (
 )
 from stoke_tpu_torch.serving.telemetry import ServeMetrics
 from stoke_tpu_torch.status import serve_config_error
+from stoke_tpu_torch.telemetry.attribution import counting
 from stoke_tpu_torch.telemetry.registry import MetricsRegistry
 from stoke_tpu_torch.telemetry.tracing import (
     dropped_total,
@@ -154,6 +172,9 @@ class ServingEngine:
             (its weights and KV pool, the serve pre-flight at
             construction, the KV headroom forecast); None builds none.
     """
+
+    #: bound on recorded specs (one a program)
+    _MAX_AUDIT_SPECS = 64
 
     def __init__(
         self,
@@ -201,13 +222,12 @@ class ServingEngine:
         rule = serve_config_error(cfg)
         if rule is not None:
             raise ValueError(rule)
-        knobs = ("decode_pages_per_block", "decode_block_h",
-                 "verify_pages_per_block", "verify_block_h")
-        for knob in knobs:
+        for knob in ("decode_block_h", "verify_block_h"):
             if getattr(cfg, knob) is not None:
                 raise ValueError(
                     f"ServeConfig.{knob} is a TPU kernel's block knob; the "
-                    f"CUDA kernels choose their own tiles, leave it None"
+                    f"CUDA kernels' heads are a grid dimension, leave it "
+                    f"None"
                 )
         if cfg.attention not in ("dense", "flash"):
             raise ValueError(
@@ -331,6 +351,8 @@ class ServingEngine:
                              self.model.parameters(), self.device)))
             self._memory.set_component("kv_cache", lambda: self.cache.nbytes)
             self._memory.preflight("serve")
+        self._audit_specs: List[ProgramSpec] = []
+        self._audit_seen: set = set()
         self._iterations = 0
         self._t_start = time.perf_counter()
 
@@ -339,17 +361,49 @@ class ServingEngine:
         """One dispatch of ``program`` over ``arrays`` (its host inputs,
         whose shapes are its signature) inside the block: its cost card
         counted on the first run of the signature and booked every time,
-        its memory card measured on the first run."""
-        if self._cost is None and self._memory is None:
+        its memory card measured on the first run, and the program's first
+        run recorded (innermost, its cost counted for the spec)."""
+        sig = tuple((tuple(a.shape), str(a.dtype)) for a in arrays)
+        spec = (program not in self._audit_seen
+                and len(self._audit_specs) < self._MAX_AUDIT_SPECS)
+        if self._cost is None and self._memory is None and not spec:
             yield
             return
-        sig = tuple((tuple(a.shape), str(a.dtype)) for a in arrays)
         with contextlib.ExitStack() as stack:
             if self._memory is not None:
                 stack.enter_context(self._memory.measure(program, sig))
             if self._cost is not None:
                 stack.enter_context(self._cost.dispatch(program, sig))
-            yield
+            if not spec:
+                yield
+                return
+            self._audit_seen.add(program)
+            cost = stack.enter_context(counting())
+            rec = TraceRecorder(program)
+            state = []
+            for n, t in (("k_pages", self.cache.k_pages),
+                         ("v_pages", self.cache.v_pages)):
+                rec.declare(f"kv:{n}", t)
+                state.append((StateEntry(f"kv:{n}",
+                                         t.numel() * t.element_size()), t))
+            with rec:
+                yield
+        for entry, t in state:
+            if (self.cache.k_pages if entry.name == "kv:k_pages"
+                    else self.cache.v_pages) is not t:
+                entry.after = "replaced"
+        self._audit_specs.append(ProgramSpec(
+            program=program, facts=rec.facts,
+            abstract_args=tuple((tuple(a.shape), str(a.dtype), "host")
+                                for a in arrays),
+            state=tuple(e for e, _ in state), source="serve",
+            cost=cost.as_dict()))
+
+    def audit_specs(self) -> List[ProgramSpec]:
+        """The recorded serve-program specs (consumed by
+        ``Stoke.audit(serve=engine)`` or a standalone
+        ``audit_program_specs`` call)."""
+        return list(self._audit_specs)
 
     def _quantize(self, cfg: ServeConfig) -> None:
         """Quantize the weights once (the JAX engine's load-time

@@ -18,6 +18,14 @@ from typing import Dict, List, Optional
 
 from stoke_tpu_torch.telemetry.registry import MetricsRegistry
 
+#: speculative-decoding JSONL fields, emitted only by engines with
+#: ``speculative_k`` set; pinned append-only by the wire-format manifest
+#: (``analysis/manifests/wire_formats.json``)
+SPEC_FIELDS = (
+    "serve/spec_draft_tokens",
+    "serve/spec_accepted_tokens",
+)
+
 #: sample cap of the exact-percentile reservoirs (beyond it the oldest
 #: samples age out; p50/p99 then describe the trailing window)
 _MAX_SAMPLES = 8192

@@ -12,8 +12,10 @@ message, letter for letter. A rule that reads the process index reads
 
 Legality comes first (``StokeValidationError``). Only then does
 :meth:`StokeStatus._refuse_later_slices` refuse, with
-``NotImplementedError`` naming the ROADMAP item, what the port does not
-run yet: ``CompileConfig`` (:data:`LATER_CONFIGS`). ``distributed``
+``NotImplementedError`` naming the ROADMAP item, a config class the port
+does not run yet (:data:`LATER_CONFIGS`, empty now: ``CompileConfig``
+runs the port's compile cache, :mod:`stoke_tpu_torch.compile_cache`,
+under the JAX legality rules). ``distributed``
 (``"dp"`` and its aliases), the oss/sddp/fsdp tiers, the gradient
 transports and the sharded checkpoint format run on a mesh of any
 number of axes, with or without the data axis and with ``dcn_axes`` (a
@@ -91,14 +93,9 @@ from stoke_tpu_torch.resilience import (
     parse_chaos,
 )
 
-_ITEM = "ROADMAP Queue 1 item"
-_LATER_COMPILE = f"{_ITEM} 11 (compile cache, autotune and analysis)"
-
 #: the config classes the port refuses after the legality rules, with the
-#: ROADMAP item that ports each (every other class is honoured)
-LATER_CONFIGS: Dict[str, str] = {
-    "CompileConfig": _LATER_COMPILE,
-}
+#: ROADMAP Queue 1 item that ports each (every class is honoured now)
+LATER_CONFIGS: Dict[str, str] = {}
 
 #: the health watchdog's exit code and the fault injector's variable, from
 #: their one source (:mod:`stoke_tpu_torch.resilience`)

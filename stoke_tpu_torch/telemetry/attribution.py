@@ -400,12 +400,15 @@ class AttributionMonitor:
         """One window's attribution fields (achieved_tflops / mfu /
         hbm_bw_util / bound / goodput_*) from the counters' deltas. The
         port's compiles are its kernel builds and window captures
-        (``cuda/compile_time_s``, ``cuda/recompiles_total``); it has no
-        compile cache, so the cached share is 0."""
+        (``cuda/compile_time_s``, ``cuda/recompiles_total``), the fresh
+        share; the cached share is what a ``CompileConfig``'s hits paid,
+        the loads of the cached kernel libraries
+        (``compile_cache/hit_s_total``), as the JAX monitor splits
+        them."""
         flops = self._delta("attr/flops_total")
         bytes_acc = self._delta("attr/bytes_total")
         compile_fresh_dt = self._delta("cuda/compile_time_s")
-        compile_cached_dt = 0.0
+        compile_cached_dt = self._delta("compile_cache/hit_s_total")
         compile_dt = compile_fresh_dt + compile_cached_dt
         recompiles_dt = self._delta("cuda/recompiles_total")
         halt_dt = self._delta("health/halt_s")

@@ -304,7 +304,37 @@ def chunked(inputs, rank, world) -> dict:
     return out
 
 
-SCENARIOS = (tiers, transports, formats, chunked)
+def audit(inputs, rank, world) -> dict:
+    """The program auditor where a group is larger than 1: GPT-tiny under
+    the Megatron rules on the (data, model) mesh, one ``train_step`` and
+    one window; the audit as built (clean), at a byte threshold of 0
+    (every parameter the split leaves whole fires
+    ``audit-replicated-bytes``), and with no exchange accounting the
+    ladder's and the split's collectives (``audit-comm-bytes``). The
+    dispatch and launch counts across the audits."""
+    from stoke_tpu_torch.analysis.program import audit_program_specs
+    from stoke_tpu_torch.ops.flash_attention import LAUNCHES
+
+    s = _stoke("gpt_model", inputs, {})
+    x, y = _args(s, "gpt_model", inputs, 0)
+    s.train_step(x, y)
+    s.train_step_window(x[None], y[None])
+    before = (s.dispatch_count, dict(LAUNCHES))
+    clean = s.audit()
+    low = s.audit(replicated_bytes_threshold=0)
+    unaccounted = audit_program_specs(s._engine.audit_specs(),
+                                      exchange_active=False)
+    out = {"clean": [f.to_dict() for f in clean.findings],
+           "programs": clean.programs,
+           "replicated": [f.to_dict() for f in low.findings],
+           "comm": [f.to_dict() for f in unaccounted.findings],
+           "cut": sorted(s.tensor_parallel.cuts),
+           "counts_equal": before == (s.dispatch_count, dict(LAUNCHES))}
+    s.close_telemetry()
+    return out
+
+
+SCENARIOS = (tiers, transports, formats, chunked, audit)
 
 
 def run(rank: int, world: int, store: str, out_dir: str, inputs) -> None:

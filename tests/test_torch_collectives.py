@@ -64,6 +64,18 @@ import _torch_dp_worker as dpw  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its small tensors gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WORLDS = (2, 4)
 JOIN_TIMEOUT_S = 120
 #: the share of payload elements allowed one level off (v + u within an

@@ -86,6 +86,11 @@ MODULES = [
     "stoke_tpu_torch.models.moe",
     "stoke_tpu_torch.parallel.pipeline",
     "stoke_tpu_torch.models.pipelined_lm",
+    "stoke_tpu_torch.analysis",
+    "stoke_tpu_torch.analysis.invariants",
+    "stoke_tpu_torch.analysis.program",
+    "stoke_tpu_torch.compile_cache",
+    "stoke_tpu_torch.autotune",
 ]
 
 

@@ -43,6 +43,18 @@ from stoke_tpu_torch.parallel import ModelGroup, shard_module
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its small tensors gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, L, H, FF, E = 2, 8, 16, 32, 4
 TOL = dict(rtol=2e-5, atol=2e-6)
 

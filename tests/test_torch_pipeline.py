@@ -106,6 +106,17 @@ def one_process_group():
         torch.distributed.destroy_process_group()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its small tensors gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def stage_mesh():
     return Mesh(np.asarray(jax.devices("cpu")[:S]), ("stage",))

@@ -717,3 +717,36 @@ def test_chunked_head_under_a_sequence_shard(run, S, masked):
         des.append(got["de"])
     group = des if S == WORLD else des[:2]
     np.testing.assert_allclose(np.mean(group, 0), de, **CE_TOL)
+
+
+# ---------------------------------------------------------------------- #
+# the program auditor where a group is larger than 1
+# ---------------------------------------------------------------------- #
+
+
+def test_audit_rules_that_need_a_group(run):
+    """On the (data, model) mesh every rank's audit of its own build is
+    clean and dispatches nothing; at a byte threshold of 0 each parameter
+    the Megatron rules leave whole fires ``audit-replicated-bytes`` (at
+    most four a program) and no cut one does; with no exchange accounting
+    them, the apply-family traces' c10d collectives fire
+    ``audit-comm-bytes``."""
+    world, _ = run
+    for r, out in enumerate(world):
+        a = out["audit"]
+        assert a["clean"] == [], (r, a["clean"])
+        assert a["counts_equal"]
+        assert {"fused", "window"} <= set(a["programs"])
+        repl = [f for f in a["replicated"]
+                if f["rule"] == "audit-replicated-bytes"]
+        assert repl and all(f["file"] in ("<trace:fused>", "<trace:window>")
+                            for f in repl)
+        for f in repl:
+            name = f["message"].split(" keeps param:")[1].split(" ")[0]
+            assert name not in a["cut"], name
+        assert {f["rule"] for f in a["replicated"]} == \
+            {"audit-replicated-bytes"}
+        comm = {f["file"] for f in a["comm"] if f["rule"] ==
+                "audit-comm-bytes"}
+        assert comm == {"<trace:fused>", "<trace:window>"}
+

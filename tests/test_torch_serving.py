@@ -329,13 +329,24 @@ def test_later_slice_features_raise(weights, later):
 
 @pytest.mark.parametrize(
     "bad",
-    [dict(decode_pages_per_block=4), dict(attention="ring"),
+    [dict(decode_pages_per_block=0), dict(attention="ring"),
      dict(decode_kernel="triton"), dict(kv_dtype="float16"),
      dict(max_seq_len=256)],
 )
 def test_engine_rejects_bad_config(weights, bad):
     with pytest.raises(ValueError):
         _port_engine(weights[2], **bad)
+
+
+def test_engine_takes_the_pages_knobs_and_refuses_a_head_block(weights):
+    """decode_pages_per_block (under the JAX rule: the pallas decode
+    kernel) is accepted and has no effect, as the kernels' tile is fixed;
+    a head block is a grid dimension of the CUDA kernels, and refused."""
+    engine = _port_engine(weights[2], decode_kernel="pallas",
+                          decode_pages_per_block=4)
+    assert engine.cfg.decode_pages_per_block == 4
+    with pytest.raises(ValueError, match="grid dimension"):
+        _port_engine(weights[2], decode_kernel="pallas", decode_block_h=1)
 
 
 def test_engine_serves_gpt_only(weights):

@@ -250,7 +250,7 @@ def test_a_refused_class_names_its_item(name, fields, item, tmp_path,
                                         monkeypatch):
     monkeypatch.chdir(tmp_path)
     configs = {name: fields}
-    if item in ("item 10c", "item 13"):
+    if item in ("item 10c", "item 11", "item 13"):
         # landed: the document builds the run and its status holds it
         if name == "NumericsConfig":
             configs["TelemetryConfig"] = {"jsonl": False,
@@ -261,6 +261,7 @@ def test_a_refused_class_names_its_item(name, fields, item, tmp_path,
              "optimizer": {"name": "sgd", "learning_rate": 1},
              "configs": configs})
         prop = {"NumericsConfig": "numerics_config",
+                "CompileConfig": "compile_config",
                 "ActivationCheckpointingConfig":
                     "activation_checkpointing_config"}[name]
         assert type(getattr(s.status, prop)).__name__ == name
