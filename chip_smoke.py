@@ -7306,34 +7306,41 @@ def ta_main(ops, mesh: bool, batches, root: str) -> dict:
                {".".join(n.split(".")[-2:]) for n in
                 s.tensor_parallel.cuts})}
     if mesh:
-        t0 = time.perf_counter()
-        tag = s._emergency_save()
-        save_ms = (time.perf_counter() - t0) * 1e3
-        with open(os.path.join(tag, "meta.json")) as f:
-            meta = json.load(f)
-        fresh = ta_moe_stoke(True, root)
-        t0 = time.perf_counter()
-        resumed = fresh.resume()
-        load_ms = (time.perf_counter() - t0) * 1e3
-        nxt = batches[:1]
-        after = [[float(t.train_step(nxt[0], nxt[0])), masters_digest(t)]
-                 for t in (s, fresh)]
-        out["sharded_format"] = {
-            "resumed": resumed, "next_step": after,
-            "bit_for_bit": after[0] == after[1],
-            "tag_bytes": sum(os.path.getsize(os.path.join(tag, f))
-                             for f in os.listdir(tag)),
-            "save_ms": save_ms, "load_ms": load_ms,
-            "layout_mesh": meta.get("mesh"),
-            "cut_axes": sorted({tuple(leaf["cut"]["axes"])
-                                for leaves in meta["leaves"].values()
-                                for leaf in leaves.values()
-                                if "cut" in leaf})}
-        fresh.close_telemetry()
-        del fresh
+        out["sharded_format"] = resumed_bit_for_bit(
+            s, lambda: ta_moe_stoke(True, root), batches[:1])
     s.close_telemetry()
     del s
     torch.cuda.empty_cache()
+    return out
+
+
+def resumed_bit_for_bit(s, make, nxt) -> dict:
+    """An emergency save of ``s`` in the sharded format, a fresh ``make()``
+    that resumes it, and one more step of both on the batch ``nxt``: the
+    loss and masters' digest of each (bit for bit when equal), the tag's
+    bytes, save and load ms, the layout's mesh and cut axes."""
+    t0 = time.perf_counter()
+    tag = s._emergency_save()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(tag, "meta.json")) as f:
+        meta = json.load(f)
+    fresh = make()
+    t0 = time.perf_counter()
+    resumed = fresh.resume()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    after = [[float(t.train_step(nxt[0], nxt[0])), masters_digest(t)]
+             for t in (s, fresh)]
+    out = {"resumed": resumed, "next_step": after,
+           "bit_for_bit": after[0] == after[1],
+           "tag_bytes": sum(os.path.getsize(os.path.join(tag, f))
+                            for f in os.listdir(tag)),
+           "save_ms": save_ms, "load_ms": load_ms,
+           "layout_mesh": meta.get("mesh"),
+           "cut_axes": sorted({tuple(leaf["cut"]["axes"])
+                               for leaves in meta["leaves"].values()
+                               for leaf in leaves.values()
+                               if "cut" in leaf})}
+    fresh.close_telemetry()
     return out
 
 
@@ -7385,6 +7392,18 @@ def ta_small(ops, kind: str, mesh: bool, batches) -> dict:
             if kind == "seq":
                 configs.append(DataParallelConfig(shard_seq_dim=1))
             flags = dict(distributed="dp", configs=configs)
+    out = small_run(ops, model, batches, **flags)
+    out["gathered"] = (None if out["gathered"] is None
+                       else len(out["gathered"]))
+    return out
+
+
+def small_run(ops, model, batches, **flags) -> dict:
+    """``model`` trained bf16 (clip 1.0) with ``flags``: TA_EAGER eager
+    steps, then a ``train_steps`` of TA_WINDOW one-step windows, the
+    second replayed; losses, masters' digest, flash launches, eager ms,
+    windows captured, the cut leaves by the axes their slices lie over
+    and the gathered ones."""
     before = dict(ops.LAUNCHES)
     s = stoke_for(model, "bf16", TRAIN_BATCH, seed=SEED, **flags)
     losses, ms = eager_steps(s, [batches[i] for i in range(TA_EAGER)])
@@ -7394,10 +7413,9 @@ def ta_small(ops, kind: str, mesh: bool, batches) -> dict:
     out = {"losses": losses, "digest": masters_digest(s),
            "launches": flash_delta(ops, before), "eager_ms": ms,
            "windows_captured": len(s._engine._windows),
-           # the cut leaves by the axes their slices lie over
            "cuts": None if tp is None else dict(collections.Counter(
                "/".join(c.group_axes) for c in tp.cuts.values())),
-           "gathered": None if tp is None else len(tp.gathered)}
+           "gathered": None if tp is None else tp.gathered}
     s.close_telemetry()
     del s
     torch.cuda.empty_cache()
@@ -7633,6 +7651,341 @@ def train_three_axes(ops) -> dict:
                                   for v in (*runs.values(),
                                             *small.values(), *virtual))
                            for n in (*FLASH, *QUANT_NAMES)},
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+# --------------------------------------------------------------------------- #
+# placements on the data, seq and stage axes
+# --------------------------------------------------------------------------- #
+
+#: GPT-base's 2-D rules: the Megatron set of ``bert_tensor_parallel_rules``
+#: with each kernel's other dim on the data axis, and the embedding's
+#: hidden dim on it (the vocab of 50257 is odd)
+DA_RULES = ((r"attention/qkv/kernel", ("data", None, "model", None)),
+            (r"attention/qkv/bias", (None, "model", None)),
+            (r"attention/out/kernel", ("model", "data")),
+            (r"ff_in/kernel", ("data", "model")),
+            (r"ff_in/bias", ("model",)),
+            (r"ff_out/kernel", ("model", "data")),
+            (r"tok_emb/embedding", (None, "data")))
+DA_SPLITS = (2, 2)  # the virtual (data, model) ranks of one block
+
+
+def da_stoke(two_d: bool, root: str):
+    """GPT-base bf16 (flash, AdamW, clip 1.0) on a (1, 1) ``("data",
+    "model")`` mesh under DA_RULES (``two_d``) or the Megatron rules
+    alone, with a ``ResilienceConfig`` under ``root`` and the sharded
+    format."""
+    from stoke_tpu_torch.configs import (
+        CheckpointConfig,
+        CheckpointFormat,
+        MeshConfig,
+        PartitionRulesConfig,
+        ResilienceConfig,
+    )
+    from stoke_tpu_torch.models import bert_tensor_parallel_rules
+
+    rules = DA_RULES if two_d else bert_tensor_parallel_rules()
+    return stoke_for(gpt_base("flash"), "bf16", TRAIN_BATCH, seed=SEED,
+                     distributed="dp", configs=[
+                         MeshConfig(axes=("data", "model"), shape=(1, 1)),
+                         PartitionRulesConfig(rules=rules),
+                         CheckpointConfig(format=CheckpointFormat.sharded),
+                         ResilienceConfig(save_path=root,
+                                          exit_on_preempt=False,
+                                          manifest=False)])
+
+
+def da_main(ops, two_d: bool, batches, root: str) -> dict:
+    """The main path (:func:`da_stoke`): TA_EAGER eager steps, a
+    ``train_steps`` of TA_WINDOW one-step windows and TA_REPLAYS timed
+    one-window replays; losses, masters' digest, the flash launches (reset
+    just before the run, read just after), the cuts and the run's peak
+    rise. Under DA_RULES, then an emergency save in the sharded format, a
+    fresh ``Stoke`` that resumes it, and one more step of both: loss and
+    masters bit for bit."""
+    ops.reset_launches()
+    start = peak_start()
+    s = da_stoke(two_d, root)
+    losses, ms = eager_steps(s, [batches[i] for i in range(TA_EAGER)])
+    seg = batches[TA_EAGER:TA_EAGER + TA_WINDOW]
+    losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
+    one = batches[-1:]
+    replay_ms = [timed_ms(lambda: s.train_steps(one, one))
+                 for _ in range(TA_REPLAYS)]
+    launches = {n: ops.LAUNCHES[n] for n in FLASH}
+    tp = s.tensor_parallel
+    out = {"losses": losses, "digest": masters_digest(s),
+           "launches": launches,
+           "windows_captured": len(s._engine._windows),
+           "eager_ms": ms, "replay_ms": replay_ms, **peaks(start),
+           # the cut leaves by the axes their slices lie over, and the
+           # split modules (the Megatron split kept under the data level)
+           "cuts": dict(collections.Counter(
+               "/".join(c.group_axes) for c in tp.cuts.values())),
+           "mean_levels": sum(bool(c.mean_axes) for c in tp.cuts.values()),
+           "split_blocks": sum(getattr(m, "group", None) is not None
+                               for m in s.model_access.modules())}
+    if two_d:
+        out["sharded_format"] = resumed_bit_for_bit(
+            s, lambda: da_stoke(True, root), batches[:1])
+    s.close_telemetry()
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def da_small(ops, kind: str, extra: bool, batches) -> dict:
+    """A TA_LAYERS-block run of ``kind`` (bf16, clip 1.0; TA_EAGER eager
+    steps, then a ``train_steps`` of TA_WINDOW one-step windows, the
+    second replayed): ``"seq"`` GPT-base with ring attention on a (1, 1)
+    ``("data", "seq")`` mesh with ``shard_seq_dim=1``, with ``pos_emb`` on
+    the seq axis (``extra``) or without rules; ``"stage"`` PipelinedLM
+    (GPipe) on a (1, 1) ``("data", "stage")`` mesh under the stage set,
+    with the token embedding on the stage axis beside it (``extra``)."""
+    from stoke_tpu_torch.configs import (
+        DataParallelConfig,
+        MeshConfig,
+        PartitionRulesConfig,
+    )
+    from stoke_tpu_torch.models import pipeline_parallel_rules
+    from stoke_tpu_torch.ops import attention as sp
+
+    if kind == "stage":
+        model = pipelined_lm(layers_per_stage=TA_LAYERS)
+        rules = (((r"^embed/tok", ("stage", None)),) if extra else ()) \
+            + pipeline_parallel_rules()
+        configs = [MeshConfig(axes=("data", "stage"), shape=(1, 1)),
+                   PartitionRulesConfig(rules=rules)]
+    else:
+        model = gpt_base("flash", layers=TA_LAYERS)
+        for block in model.layers:
+            block.attention.attention_fn = sp.make_ring_attention(
+                causal=True)
+        configs = [MeshConfig(axes=("data", "seq"), shape=(1, 1)),
+                   DataParallelConfig(shard_seq_dim=1)]
+        if extra:
+            configs.append(PartitionRulesConfig(
+                rules=((r"pos_emb/embedding", ("seq", None)),)))
+    return small_run(ops, model, batches, distributed="dp",
+                     configs=configs)
+
+
+def virtual_data_model(ops, dtype) -> dict:
+    """One GPT-base block (flash attention, causal) under DA_RULES over
+    DA_SPLITS virtual (data, model) ranks by the port's own cut
+    (``shard_module`` with one virtual group a mesh axis). Data rank ``d``
+    takes rows ``[4d, 4d + 4)`` of the B = 8; the model ranks of a data
+    rank share them. Each rank's Megatron-local tensors are its data
+    slices joined over the data ranks (what the all-gather before the
+    forward makes; held equal to the Megatron cut of the whole block),
+    the partial products run on the card at 6 heads and 1536 ff, summed
+    here in place of the all-reduces. Each 2-D-placed leaf's gradient is
+    reduced over the data ranks (``Cut.reduced``: their mean, the
+    reduce-scatter of the backward) and the ranks' slices joined; the
+    objective sums over rows, so D times that mean is the whole block's
+    gradient over the 8 rows, against which :func:`split_errors` holds
+    it with the output and every other gradient."""
+    import copy
+
+    from stoke_tpu_torch.models import gpt_tensor_parallel_rules
+    from stoke_tpu_torch.models.bert import TransformerBlock
+    from stoke_tpu_torch.ops import make_flash_attention
+    from stoke_tpu_torch.parallel import ModelGroup, shard_module
+
+    D, T = DA_SPLITS
+    torch.manual_seed(SEED + 11)
+    whole = TransformerBlock(HEADS * HEAD_DIM, HEADS, 4 * HEADS * HEAD_DIM,
+                             0.0, make_flash_attention(causal=True),
+                             device="cuda").to(dtype)
+    base = copy.deepcopy(whole)
+    x = torch.randn(TRAIN_BATCH, TRAIN_LEN, HEADS * HEAD_DIM,
+                    device="cuda", dtype=dtype)
+    dout = torch.randn_like(x)
+    whole32 = copy.deepcopy(whole).float() if dtype != FP32 else None
+    refs = [block_pass(whole, x, dout, lambda m, t: m(t, None))]
+    if whole32 is not None:
+        refs.append(block_pass(whole32, x.float(), dout.float(),
+                               lambda m, t: m(t, None)))
+    # every rank's slices, and each model rank's Megatron cut
+    held, tp = {}, None
+    for d in range(D):
+        for m in range(T):
+            b = copy.deepcopy(base)
+            tp = shard_module(b, DA_RULES, {
+                "data": ModelGroup(None, D, d, "data"),
+                "model": ModelGroup(None, T, m, "model")})
+            held[(d, m)] = {n: p.detach()
+                            for n, p in b.named_parameters()}
+            del b
+    megatron = []
+    for m in range(T):
+        b = copy.deepcopy(base)
+        shard_module(b, gpt_tensor_parallel_rules(),
+                     ModelGroup(None, T, m, "model"))
+        megatron.append(b)
+    placed = [n for n, c in tp.cuts.items() if c.mean_axes]
+    joins_ok = True
+    compute = {}
+    for d in range(D):
+        for m in range(T):
+            c = copy.deepcopy(megatron[m])
+            with torch.no_grad():
+                for n in placed:
+                    level = tp.cuts[n].gathered_level
+                    local = level.join([held[(k, m)][n] for k in range(D)])
+                    joins_ok &= torch.equal(local, c.get_parameter(n))
+                    c.get_parameter(n).copy_(local)
+            compute[(d, m)] = c
+    before = dict(ops.LAUNCHES)
+    rows = TRAIN_BATCH // D
+    outs, xgrads = [], []
+    for d in range(D):
+        xs = x[d * rows:(d + 1) * rows].clone().requires_grad_()
+        ranks = [compute[(d, m)] for m in range(T)]
+        a = sum(b.attention.partial(xs, None) for b in ranks)
+        h = base.ln_attn(xs + a + base.attention.out.bias)
+        f = sum(b.ff_partial(h) for b in ranks) + base.ff_out.bias
+        out = base.ln_ff(h + f)
+        out.backward(dout[d * rows:(d + 1) * rows])
+        outs.append(out.detach())
+        xgrads.append(xs.grad)
+    launches = flash_delta(ops, before)
+    grads = {}
+    for n, p in base.named_parameters():
+        cut = tp.cuts.get(n)
+        if cut is None:
+            grads[n] = p.grad
+            continue
+        by = {(d, m): compute[(d, m)].get_parameter(n).grad
+              for d in range(D) for m in range(T)}
+        if cut.mean_axes:
+            # each model rank's Megatron-local gradients reduced over the
+            # data ranks, then every (model, data) slice joined
+            level = cut.gathered_level
+            slices = []
+            for m in range(T):
+                slices += level.reduced([by[(d, m)] for d in range(D)])
+            grads[n] = D * cut.join(slices)
+        else:
+            grads[n] = cut.join([sum(by[(d, m)] for d in range(D))
+                                 for m in range(T)])
+    grads["x"] = torch.cat(xgrads)
+    res = split_errors((torch.cat(outs), grads), refs, dtype)
+    res.update(D=D, T=T, dtype=str(dtype).replace("torch.", ""),
+               mean_leaves=len(placed), joins_ok=bool(joins_ok),
+               heads_a_rank=compute[(0, 0)].attention.local_heads,
+               ff_a_rank=compute[(0, 0)].ff_in.out_features,
+               launches=launches)
+    res["ok"] = (res["ok"] and bool(joins_ok) and len(placed) == 4
+                 and all(v == D * T for v in launches.values()))
+    return res
+
+
+def train_data_axes(ops) -> dict:
+    """Placements on the data, seq and stage axes on the card, at world 1
+    (every mesh of ones): (a) the main path, GPT-base bf16 under the 2-D
+    rules (DA_RULES) on a (1, 1) ``("data", "model")`` mesh, against the
+    same run under the Megatron rules alone (:func:`da_main`): losses,
+    masters, flash launches and windows captured bit for bit, eager and
+    replayed; its emergency save in the sharded format, resumed bit for
+    bit; (b) GPT-base under ``("data", "seq")`` with ``pos_emb`` on seq
+    and PipelinedLM under ``("data", "stage")`` with the embedding on
+    stage, each TA_LAYERS blocks deep, bit for bit against the run
+    without that rule (:func:`da_small`); (c) one GPT-base block over
+    DA_SPLITS virtual (data, model) ranks in fp32 and bf16
+    (:func:`virtual_data_model`)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    batches = window_batches(TA_EAGER + TA_WINDOW)
+    failures = []
+    runs, small = {}, {}
+    root = tempfile.mkdtemp(prefix="stoke-data-axes-")
+    try:
+        for two_d in (True, False):
+            runs["two_d" if two_d else "megatron"] = da_main(
+                ops, two_d, batches, os.path.join(root, str(two_d)))
+        for kind in ("seq", "stage"):
+            for extra in (True, False):
+                small[f"{kind}_{'placed' if extra else 'plain'}"] = \
+                    da_small(ops, kind, extra, batches)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = runs["two_d"], runs["megatron"]
+    for key in ("losses", "digest", "launches", "windows_captured",
+                "split_blocks"):
+        if a[key] != b[key]:
+            failures.append(f"main path 2-D vs Megatron {key}: {a[key]} "
+                            f"vs {b[key]}")
+    if not all(a["launches"].values()):
+        failures.append(f"main path launches {a['launches']}")
+    if a["windows_captured"] < 1:
+        failures.append("main path: no window captured")
+    if a["split_blocks"] != 2 * N_LAYERS or a["mean_levels"] != (
+            4 * N_LAYERS + 1):
+        failures.append(f"main path: {a['split_blocks']} split modules, "
+                        f"{a['mean_levels']} data levels")
+    fmt = a["sharded_format"]
+    if not (fmt["resumed"] and fmt["bit_for_bit"]):
+        failures.append(f"sharded format: {fmt}")
+    for kind in ("seq", "stage"):
+        m, p = small[f"{kind}_placed"], small[f"{kind}_plain"]
+        for key in ("losses", "digest", "launches", "windows_captured"):
+            if m[key] != p[key]:
+                failures.append(f"{kind} {key}: {m[key]} vs {p[key]}")
+        if not m["gathered"]:
+            failures.append(f"{kind}: nothing gathered")
+        if m["windows_captured"] < 1:
+            failures.append(f"{kind}: no window captured")
+    virtual = [virtual_data_model(ops, dt) for dt in (FP32, BF16)]
+    for v in virtual:
+        if not v["ok"]:
+            failures.append(f"virtual (data, model) block: {v}")
+    if failures:
+        raise AssertionError("train_data_axes: " + "; ".join(failures))
+
+    def p50(xs):
+        return float(np.median(xs)) if xs else None
+
+    return {
+        "phase": "train_data_axes",
+        "model": "GPT-base bf16, flash, B=8, L=1024, AdamW, clip 1.0, "
+                 "under the 2-D rules on (data, model) = (1, 1); seq / "
+                 f"stage runs GPT-base or PipelinedLM at {TA_LAYERS} "
+                 "blocks; every mesh of ones",
+        "bit_for_bit": True,
+        "losses": {k: v["losses"] for k, v in runs.items()},
+        "launches": {k: v["launches"] for k, v in runs.items()},
+        "windows_captured": {k: v["windows_captured"]
+                             for k, v in runs.items()},
+        "eager_ms_p50": {k: p50(v["eager_ms"][1:]) for k, v in runs.items()},
+        "replay_ms_p50": {k: p50(v["replay_ms"]) for k, v in runs.items()},
+        "eager_ms": {k: v["eager_ms"] for k, v in runs.items()},
+        "replay_ms": {k: v["replay_ms"] for k, v in runs.items()},
+        "peak_gb": {k: v["peak_gb"] for k, v in runs.items()},
+        "process_peak_gb": {k: v["process_peak_gb"]
+                            for k, v in runs.items()},
+        "cuts": {k: v["cuts"] for k, v in runs.items()},
+        "mean_levels": a["mean_levels"],
+        "split_blocks": a["split_blocks"],
+        "sharded_format": fmt,
+        "small": {k: {kk: v[kk] for kk in ("losses", "launches", "cuts",
+                                           "gathered", "eager_ms",
+                                           "windows_captured")}
+                  for k, v in small.items()},
+        "virtual": virtual,
+        "launches_main": a["launches"],
+        "launches_total": {n: sum(v["launches"].get(n, 0)
+                                  for v in (*runs.values(),
+                                            *small.values(), *virtual))
+                           for n in FLASH},
         "seconds": time.perf_counter() - t0,
     }
 
@@ -8185,6 +8538,9 @@ def main() -> int:
     third = train_three_axes(ops)
     emit({**third, "card": smi})
     torch.cuda.empty_cache()
+    data_axes = train_data_axes(ops)
+    emit({**data_axes, "card": smi})
+    torch.cuda.empty_cache()
     audit = compile_audit(ops)
     emit({**audit, "card": smi})
 
@@ -8230,6 +8586,12 @@ def main() -> int:
                 third["launches_main"][tel_key])
             out["launches_train_three_axes_total"] = (
                 third["launches_total"][tel_key])
+            # the main path under the 2-D rules (GPT-base), and the
+            # phase's other runs and virtual block beside it
+            out["launches_train_data_axes"] = (
+                data_axes["launches_main"][tel_key])
+            out["launches_train_data_axes_total"] = (
+                data_axes["launches_total"][tel_key])
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]

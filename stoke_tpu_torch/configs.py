@@ -404,10 +404,10 @@ class PartitionRulesConfig:
     one mesh axis name (or None, or a tuple of names, or "...") per
     dimension, matched against each parameter's JAX leaf path. Needs
     ``distributed='dp'``; the port splits the Megatron, expert and stage
-    sets over their axes and gathers any other placement on a model or
-    expert axis before each use (:mod:`stoke_tpu_torch.parallel.tensor`);
-    placements on the data, seq or stage axis outside the stage set are
-    refused (ROADMAP Queue 1 item 8f)."""
+    sets over their axes and gathers any other placement, on any mesh
+    axis, before each use (:mod:`stoke_tpu_torch.parallel.tensor`); a
+    placement on the data or seq axis averages its slice's gradient over
+    that axis in the backward, and wins over the tier there."""
 
     rules: Tuple[Tuple[str, Tuple], ...] = ()
 

@@ -797,11 +797,13 @@ class StepEngine:
         # parameters only: buffers (BatchNorm's running statistics) keep
         # their dtype and stay the module's own tensors, so their in-place
         # updates land, as the JAX package casts only ``params``
+        params = dict(self.module.named_parameters())
         swap = {n: t.to(dt) if dt is not None and t.is_floating_point()
-                else t for n, t in self.module.named_parameters()}
+                else t for n, t in params.items()}
         if gathered:
-            # each gathered placement whole, from its (cast) slice
-            swap.update(self.tp.run_params(swap))
+            # each gathered placement whole, from its slice cast in the
+            # gather (a mean level's gradient reduced in fp32)
+            swap.update(self.tp.run_params(params, dt))
         out = functional_call(self.module, swap,
                               self.precision.cast_compute(tuple(args)),
                               self.precision.cast_compute(dict(kwargs)))

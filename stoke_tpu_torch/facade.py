@@ -530,13 +530,21 @@ class Stoke:
             if self._rules.overrides:
                 self._tp = self._split_model(prc.rules)
             params = [p for p in self._module.parameters() if p.requires_grad]
+            names = {id(p): n for n, p in self._module.named_parameters()}
             placed = ({id(p) for n, p in self._module.named_parameters()
                        if n in self._tp.placed} if self._tp else set())
+            dpc = st.dp_config
+            # the reductions a data or seq placement made in the backward
+            averaged = {} if self._tp is None else {
+                i: {k for k, a in (("group", dpc.axis_name),
+                                   ("across", dpc.seq_axis_name))
+                    if a in self._tp.mean_axes(names[id(p)])}
+                for i, p in enumerate(params)}
             self._ladder = Ladder(
                 params, self._rules, ladder_group,
                 keep_whole=[i for i, p in enumerate(params)
                             if id(p) in placed], across=across,
-                jax_layout=self._jax_layout(params))
+                jax_layout=self._jax_layout(params), averaged=averaged)
             opt_params = self._ladder.opt_params
         self._engine = StepEngine(
             self._module, loss, build_optimizer(optimizer, opt_params),
@@ -928,8 +936,8 @@ class Stoke:
                 f"{n_seq} needs DataParallelConfig.shard_seq_dim: the "
                 f"port runs the model on this process's sequence "
                 f"shard, and the JAX package's global view of whole "
-                f"sequences on every shard is not ported (ROADMAP "
-                f"Queue 3)")
+                f"sequences on every shard is not ported yet (ROADMAP "
+                f"Queue 1 item 8g)")
         fcfg = st.fleet_config
         if n_seq > 1 and fcfg is not None and fcfg.rebalance:
             raise NotImplementedError(
@@ -937,7 +945,7 @@ class Stoke:
                 f"{dpc.seq_axis_name!r} mesh axis of size {n_seq}: the "
                 f"rebalancer moves rows between any two processes, and "
                 f"the processes of one data row must hold the same "
-                f"sequences (ROADMAP Queue 3)")
+                f"sequences (ROADMAP Queue 1 item 8g)")
         if dpc.shard_seq_dim is not None:
             self._seq_shard = SeqShard(
                 seq, dist.get_rank(seq), n_seq,
@@ -946,8 +954,8 @@ class Stoke:
 
     def _split_model(self, rules) -> TensorParallel:
         """Cut the (broadcast) whole model by the partition rules over the
-        mesh's model, expert and stage axes (a placement on the data or
-        seq axis is refused: ROADMAP item 8f)."""
+        mesh's axes (a placement on the data or seq axis is a ``mean``
+        level: its gradient averaged over that axis in the backward)."""
         dpc = self._status_obj.dp_config
         return apply_partition_rules(self._module, rules, self._mesh,
                                      dpc.axis_name, dpc.seq_axis_name)
@@ -1023,7 +1031,7 @@ class Stoke:
                     f"{x.shape[d]} along the sequence dim {d}, which the "
                     f"{shard.size} sequence shards do not divide; the JAX "
                     f"package's replication of such a leaf is not ported "
-                    f"(ROADMAP Queue 3)")
+                    f"yet (ROADMAP Queue 1 item 8g)")
             return shard.take(x, d)
 
         return tree_map(leaf, tree)

@@ -53,7 +53,10 @@ as the JAX package places each tier's state over the data axis alone
   averaged over the ranks that share its place on the other axes. The
   leaves a partition rule places (``keep_whole``) stay whole over the data
   axis whatever the tier, as the JAX package's rules win over the tier's
-  placement;
+  placement; a leaf a rule places on the data axis (or the ``seq`` axis)
+  ends its backward with its slice's gradient already averaged over that
+  axis (:mod:`~stoke_tpu_torch.parallel.tensor`'s ``mean`` levels), so it
+  is not averaged over it again (``averaged``);
 - a ``seq`` axis (``across``, the shards of one data row): each shard's
   gradient is its part of the row's, so every reduction of gradients runs
   over the data sub-group and then over ``across`` (a reduce-scatter over
@@ -162,6 +165,9 @@ class Ladder:
         across: under a ``seq`` axis, the process group of this process's
             data row (the seq axis's sub-group), over which every
             gradient is averaged after the data sub-group.
+        averaged: for indices of ``keep_whole``, the reductions their
+            gradients have had in the backward: a set of ``"group"`` (the
+            data sub-group) and ``"across"``; they are not run again.
         jax_layout: for each of ``params``, ``(its JAX shape, each JAX dim
             that is a whole dim of the tensor, to that dim)``
             (:func:`~stoke_tpu_torch.parallel.sharding.jax_dim_map`), or
@@ -172,8 +178,12 @@ class Ladder:
 
     def __init__(self, params: Sequence[torch.Tensor], rules: ShardingRules,
                  group=None, keep_whole: Sequence[int] = (), across=None,
-                 jax_layout: Optional[Sequence[Optional[tuple]]] = None):
+                 jax_layout: Optional[Sequence[Optional[tuple]]] = None,
+                 averaged: Optional[Dict[int, set]] = None):
         self.group = group
+        #: the reductions each leaf's gradient has had in the backward
+        self.averaged = {i: frozenset(v) for i, v in (averaged or {}).items()
+                         if v}
         self.across = (across if across is not None
                        and dist.get_world_size(across) > 1 else None)
         self.world = dist.get_world_size(group)
@@ -362,10 +372,35 @@ class Ladder:
             dist.all_reduce(t, op=dist.ReduceOp.AVG, group=self.across)
         return t
 
-    def _all_reduce_avg(self, t: torch.Tensor) -> None:
-        """``t`` averaged over the group, then over ``across``."""
-        dist.all_reduce(t, op=dist.ReduceOp.AVG, group=self.group)
-        self._avg_across(t)
+    def _all_reduce_avg(self, t: torch.Tensor,
+                        done: frozenset = frozenset()) -> None:
+        """``t`` averaged over the group, then over ``across``, leaving
+        out the reductions ``done`` names (``"group"``, ``"across"``)."""
+        if "group" not in done:
+            dist.all_reduce(t, op=dist.ReduceOp.AVG, group=self.group)
+        if "across" not in done:
+            self._avg_across(t)
+
+    def _average_leaves(self, idx: Sequence[int]) -> List[torch.Tensor]:
+        """The gradients of the leaves ``idx`` (in the parameters' order)
+        averaged over the ranks, one flat bucket a dtype and set of
+        reductions still to run: each averaged gradient, by position."""
+        out: List[Optional[torch.Tensor]] = [None] * len(idx)
+        # in the parameters' order, the same on every rank (a set's order
+        # of dtypes could differ between processes)
+        keys = dict.fromkeys(
+            (self.params[i].dtype, self.averaged.get(i, frozenset()))
+            for i in idx)
+        for dtype, done in keys:
+            at = [j for j, i in enumerate(idx)
+                  if self.params[i].dtype == dtype
+                  and self.averaged.get(i, frozenset()) == done]
+            grads = [_grad_or_zeros(self.params[idx[j]]) for j in at]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            self._all_reduce_avg(flat, done)
+            for j, v in zip(at, flat.split([g.numel() for g in grads])):
+                out[j] = v.view_as(self.params[idx[j]])
+        return out
 
     @torch.no_grad()
     def _reduce_scatter_into(self, b: _Bucket, accumulate: bool) -> None:
@@ -423,20 +458,13 @@ class Ladder:
             for p, g in zip(b.leaves, grads):
                 p.grad = g
             gathered.update(b.index)
-        reduced = [self.params[i] for i in self.replicated
-                   if i not in gathered]
-        # in the parameters' order, the same on every rank (a set's order
-        # of dtypes could differ between processes)
-        for dtype in dict.fromkeys(p.dtype for p in reduced):
-            ps = [p for p in reduced if p.dtype == dtype]
-            grads = [_grad_or_zeros(p) for p in ps]
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            self._all_reduce_avg(flat)
-            for p, v in zip(ps, flat.split([g.numel() for g in grads])):
-                if p.grad is None:
-                    p.grad = v.view_as(p).clone()
-                else:
-                    p.grad.copy_(v.view_as(p))
+        reduced = [i for i in self.replicated if i not in gathered]
+        for i, v in zip(reduced, self._average_leaves(reduced)):
+            p = self.params[i]
+            if p.grad is None:
+                p.grad = v.clone()
+            else:
+                p.grad.copy_(v)
         shard_grads = []
         for b in self.buckets:
             if not b.per_micro:
@@ -466,13 +494,8 @@ class Ladder:
         local += [i for i in self.replicated if full[i] is None
                   and i not in local]
         local.sort()
-        for dtype in dict.fromkeys(self.params[i].dtype for i in local):
-            idx = [i for i in local if self.params[i].dtype == dtype]
-            grads = [_grad_or_zeros(self.params[i]) for i in idx]
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            self._all_reduce_avg(flat)
-            for i, v in zip(idx, flat.split([g.numel() for g in grads])):
-                full[i] = v.view_as(self.params[i])
+        for i, v in zip(local, self._average_leaves(local)):
+            full[i] = v
         for p in self.params:
             p.grad = None
         return full

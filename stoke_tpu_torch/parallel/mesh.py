@@ -188,26 +188,54 @@ def build_mesh(mesh_config: MeshConfig, device: torch.device,
     return init_device_mesh(device.type, shape, mesh_dim_names=axes)
 
 
+def _flat_rows(mesh, axes: tuple) -> list:
+    """The world ranks of each flattened sub-group of ``axes``, by
+    flattened coordinate (the first axis major)."""
+    names = list(mesh.mesh_dim_names)
+    inner = [names.index(a) for a in axes]
+    outer = [d for d in range(len(names)) if d not in inner]
+    return mesh.mesh.permute(*outer, *inner).reshape(
+        -1, math.prod(mesh.mesh.shape[d] for d in inner)).tolist()
+
+
+def _flat_row(mesh, axes: tuple) -> list:
+    """The world ranks of this process's flattened sub-group of
+    ``axes``."""
+    me = dist.get_rank()
+    return next(row for row in _flat_rows(mesh, axes) if me in row)
+
+
 def axis_coordinates(mesh, axis) -> tuple:
     """``(sub-group, its size, this process's coordinate on it)`` of the
     mesh axis ``axis``: the processes that share this one's coordinates
     on every other axis (the ladder's data sub-group, the shards of one
     data row under ``seq``, one model, expert or stage group). A tuple of
-    several axes is their flattened sub-group, the first axis major (the
-    JAX order of a dim placed on a tuple of axes); it is made once a mesh,
-    collectively: every process asks for the same tuples in the same
-    order."""
+    several axes is their flattened sub-group, the coordinate the first
+    axis major (the JAX order of a dim placed on a tuple of axes); it is
+    made once a mesh, collectively: every process asks for the same
+    tuples in the same order. Where the tuple's order is not the mesh's,
+    the group's ranks (by world rank) are not the coordinates:
+    :func:`axis_order` maps one to the other."""
     axes = (axis,) if isinstance(axis, str) else tuple(axis)
     if len(axes) == 1:
         group = mesh.get_group(axes[0])
         return group, dist.get_world_size(group), dist.get_rank(group)
     made = mesh.__dict__.setdefault("_stoke_flat", {})
     if axes not in made:
-        names = list(mesh.mesh_dim_names)
-        inner = [names.index(a) for a in axes]
-        outer = [d for d in range(len(names)) if d not in inner]
-        ranks = mesh.mesh.permute(*outer, *inner).reshape(
-            -1, math.prod(mesh.mesh.shape[d] for d in inner))
-        made[axes] = dist.new_subgroups_by_enumeration(ranks.tolist())[0]
+        made[axes] = dist.new_subgroups_by_enumeration(
+            _flat_rows(mesh, axes))[0]
     group = made[axes]
-    return group, dist.get_world_size(group), dist.get_rank(group)
+    return (group, dist.get_world_size(group),
+            _flat_row(mesh, axes).index(dist.get_rank()))
+
+
+def axis_order(mesh, axes) -> Optional[tuple]:
+    """For the flattened sub-group of ``axes``: the group rank of each
+    flattened coordinate, or None where they are the same (one axis, or
+    axes in the mesh's order). A process group numbers its members by
+    world rank, so a collective over it lays out the members' parts in
+    that order."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    row = _flat_row(mesh, axes)
+    order = tuple(sorted(row).index(r) for r in row)
+    return None if order == tuple(range(len(row))) else order

@@ -24,8 +24,10 @@ and :func:`rule_entries` port the JAX package's path-regex overrides
 the first rule whose pattern a leaf's path matches wins, over the tier's
 placement. The port matches them against each tensor's JAX leaf path and
 shape; :func:`stoke_tpu_torch.parallel.tensor.apply_partition_rules`
-turns what they place on a model or expert axis into the Megatron and
-expert splits.
+turns what they place into the Megatron, expert and stage splits and the
+gathered placements, on any mesh axis: a leaf a rule places stays out of
+the tier's buckets, and a placement on the data axis averages its
+slice's gradient over that axis itself.
 
 Under the port a process drives one device, so the JAX package's
 per-process batch checks (``batch_sharding`` with several local shards a

@@ -1,7 +1,8 @@
-"""Tensor, expert and pipeline parallelism of the port: the Megatron,
-expert and stage splits, with their collectives written by hand, and the
-gathered placement of any other leaf a rule places on a model or expert
-axis.
+"""Tensor, expert and pipeline parallelism of the port, and the placement
+of a leaf on any mesh axis: the Megatron, expert and stage splits, with
+their collectives written by hand, and the gathered placement of every
+other leaf a partition rule places (on the model, expert, stage, data or
+``seq`` axes).
 
 Counterpart of the JAX package's partition rules under a mesh of model,
 expert or stage axes beside the data axis (``PartitionRulesConfig``,
@@ -32,9 +33,7 @@ every parameter the rules leave replicated, is the same bit for bit on
 every rank of a model (expert) group: each of them sees the same rows
 (its data coordinate's), draws the same dropout masks (its generator is
 seeded by the data coordinate) and combines the same whole results.
-So the ladder reduces every gradient over the data sub-group only, and
-the norms of a step count a sliced leaf's squares summed over its own
-group (the axes that cut it) and a replicated leaf once.
+So the ladder reduces such a gradient over the data sub-group only.
 
 The rules are matched against each tensor's JAX leaf path
 (:func:`stoke_tpu_torch.convert.jax_param_layout`), a rule's dims read in
@@ -60,31 +59,57 @@ sets:
   stage group takes the same rows and ends with the whole batch's logits
   (the model's docstring).
 
-**The gathered placement.** Any other placement of a dim on a model or
-expert axis, or on a tuple of them (a norm, a row-parallel bias, another
-dim, a column-parallel product without its partner, a bias without its
-kernel, a dim on two axes, a model or expert placement on a
-stage-stacked leaf) is what GSPMD does when an operand's placement is not
-its consumer's: the rank stores its JAX shard (the block along the JAX
-dim, in a view of the port's tensor where that dim is a dim of its own:
-the ``qkv`` layouts' ``[3, heads, D, ...]``), and before each forward
-:func:`gather_placed` all-gathers it whole over the axis's sub-group (the
-flattened sub-group of a tuple) in one autograd function, whose backward
-takes this rank's slice of the incoming gradient with no collective:
-every rank of the group computes the same gradient (the invariant). The
-module then runs whole, as without the rule. A stage-stacked leaf with a
-model placement is cut in two levels, the stage cut first.
+**The gathered placement.** Any other placement of a dim on a mesh axis,
+or on a tuple of axes (a norm, a row-parallel bias, another dim, a
+column-parallel product without its partner, a bias without its kernel,
+a dim on two axes, a placement on a stage-stacked leaf beside or outside
+the stage set, any placement on the data or ``seq`` axis) is what GSPMD
+does when an operand's placement is not its consumer's: the rank stores
+its JAX shard (the block along the JAX dim, in a view of the port's
+tensor where that dim is a dim of its own: the ``qkv`` layouts' ``[3,
+heads, D, ...]``), and before each forward :func:`gather_placed`
+all-gathers it whole over the flattened sub-group of its levels' axes in
+one autograd function (one all-gather for the placements over one group,
+:meth:`TensorParallel.run_params`). The module then runs whole, as
+without the rule (under a published split: on its heads, ff or experts
+whole). A dim on a tuple of axes is cut in one level a run of axes of
+one kind, the first axis major, so rank ``(d, m)`` of ``("data",
+"model")`` holds block ``d·M + m``; a leaf placed beside a compute cut
+(the stage cut, or a Megatron or expert split whose other dim is on the
+data axis) holds its gathered levels inside that cut's block.
 
-Placements on the data or ``seq`` axis, and on the stage axis outside
-the stage set, are refused (``NotImplementedError`` naming the leaf and
-ROADMAP item 8f): there the ranks of the axis compute different
-gradients. A head, ff, expert or stage count the axis does not divide,
-and a placed dim the axis does not divide, raise ``ValueError``.
+**Which ranks hold which gradient.** Two kinds of axes:
+
+- the model, expert and stage axes: every rank of such a group computes
+  the same gradient of every tensor outside the split regions (the
+  invariant above; a stage placement outside the stage set runs no
+  pipeline, so every stage rank runs the whole stack), so the backward of
+  a gathered level on them takes this rank's slice of the incoming
+  gradient, with no collective;
+- the data and ``seq`` axes (a ``mean`` level of the cut): their ranks
+  take other rows or other tokens and compute different gradients, whose
+  mean is the global batch's. The backward of a gathered level on them
+  reduce-scatters the gradient (in fp32, averaged) over the level's
+  group, at every backward (once all the gathered placements' gradients
+  are in, one collective a group): the fsdp tier's per-micro-step
+  reduction, so the ladder does not reduce such a leaf over that axis
+  again (:meth:`TensorParallel.mean_axes`).
+
+So every leaf's slice ends each backward with its part of the global
+batch's gradient over the axes its cut names, and the ladder averages it
+over the data and ``seq`` axes its cut does not name. The norms of a step
+count a cut leaf's squares summed over its own group (the axes that cut
+it) and a replicated leaf once.
+
+A head, ff, expert or stage count the axis does not divide, a placed dim
+the axes do not divide, and an axis the mesh lacks raise ``ValueError``
+naming the leaf.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set
@@ -99,9 +124,6 @@ from stoke_tpu_torch.parallel.sharding import (
     rule_entries,
 )
 
-LATER_RULES = ("ROADMAP Queue 1 item 8f (placements on the data, seq or "
-               "stage axis outside the stage set)")
-
 @dataclass(frozen=True)
 class ModelGroup:
     """One process's place on a model, expert or stage axis (or on the
@@ -109,12 +131,31 @@ class ModelGroup:
     ``group``, its ``size``, this process's coordinate ``rank`` and the
     axis's name (a tuple of names for a flattened group). A ``group`` of
     None is a virtual rank: its collectives are left out and the caller
-    combines the ranks' results (the forwards' ``partial`` methods)."""
+    combines the ranks' results (the forwards' ``partial`` methods).
+    ``order``: the group rank of each coordinate where they differ (a
+    flattened group of axes not in the mesh's order), else None."""
 
     group: Any
     size: int
     rank: int
     axis: Any
+    order: Optional[tuple] = None
+
+    def by_coordinate(self, parts: Sequence) -> list:
+        """Parts laid out by group rank (a collective's), by coordinate."""
+        if self.order is None:
+            return list(parts)
+        return [parts[g] for g in self.order]
+
+    def by_group_rank(self, parts: Sequence) -> list:
+        """Parts by coordinate, laid out by group rank (for a
+        collective)."""
+        if self.order is None:
+            return list(parts)
+        out = [None] * len(parts)
+        for c, g in enumerate(self.order):
+            out[g] = parts[c]
+        return out
 
 
 def _sum_(t: torch.Tensor, group: Optional[ModelGroup]) -> torch.Tensor:
@@ -199,30 +240,97 @@ def mean_over_group(x: torch.Tensor, group) -> torch.Tensor:
     return _MeanIdentityBackward.apply(x, group)
 
 
+def _levels(cut: "Cut", rank: int) -> List[tuple]:
+    """``(level, this rank's coordinate on it)`` of every level of
+    ``cut``, outermost first, from the rank over all of them."""
+    out = []
+    while cut is not None:
+        inner = cut.inner.parts if cut.inner is not None else 1
+        coord, rank = divmod(rank, inner)
+        out.append((cut, coord))
+        cut = cut.inner
+    return out
+
+
 class _GatherPlaced(torch.autograd.Function):
+    """Several gathered placements over one group (their slices of one
+    dtype once cast) in one all-gather; in backward each slice's gradient
+    walks its levels, and the slices waiting at a ``mean`` level on one
+    group reduce-scatter together."""
+
     @staticmethod
-    def forward(ctx, t, cut, group):
-        ctx.cut, ctx.rank = cut, group.rank
+    def forward(ctx, cuts, group, groups, dtype, *ts):
+        ctx.cuts, ctx.rank, ctx.groups = cuts, group.rank, groups
+        ctx.dtypes = [t.dtype for t in ts]
         if group.group is None:
             raise ValueError(
                 "gather_placed: a virtual rank has no group to gather over "
                 "(its caller puts the ranks' slices together)")
-        out = t.new_empty((group.size * t.numel(),))
-        dist.all_gather_into_tensor(out, t.contiguous().view(-1),
-                                    group=group.group)
-        return cut.join(list(out.view(group.size, *t.shape).unbind(0)))
+        ts = [t.to(dtype) if dtype is not None and t.is_floating_point()
+              else t for t in ts]
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        out = flat.new_empty((group.size * flat.numel(),))
+        dist.all_gather_into_tensor(out, flat, group=group.group)
+        rows = group.by_coordinate(out.view(group.size, -1).unbind(0))
+        whole, at = [], 0
+        for cut, t in zip(cuts, ts):
+            n = t.numel()
+            whole.append(cut.join([r[at:at + n].view(t.shape)
+                                   for r in rows]))
+            at += n
+        return tuple(whole)
 
     @staticmethod
-    def backward(ctx, grad):
-        return ctx.cut.take(grad, ctx.rank), None, None
+    def backward(ctx, *grads):
+        grads = list(grads)
+        walks = [_levels(cut, ctx.rank) for cut in ctx.cuts]
+        at = [0] * len(grads)
+        while True:
+            # each slice takes its own part where the level's ranks hold
+            # the same gradient, up to its next mean level
+            waiting: Dict[tuple, List[int]] = {}
+            for i, walk in enumerate(walks):
+                while at[i] < len(walk) and not walk[at[i]][0].mean:
+                    level, coord = walk[at[i]]
+                    grads[i] = level._take(grads[i], coord)
+                    at[i] += 1
+                if at[i] < len(walk):
+                    waiting.setdefault(walk[at[i]][0].axes, []).append(i)
+            if not waiting:
+                break
+            # a mean level's ranks hold different gradients: their mean,
+            # in fp32, reduce-scattered (each rank its block), one
+            # collective for the slices waiting on one group
+            for axes, idx in waiting.items():
+                g = ctx.groups[axes]
+                levels = [walks[i][at[i]][0] for i in idx]
+                parts = [torch.stack(g.by_group_rank(
+                    [lv._take(grads[i], r).float() for r in range(g.size)])
+                ).view(g.size, -1) for i, lv in zip(idx, levels)]
+                flat = torch.cat(parts, 1)
+                out = flat.new_empty((flat.shape[1],))
+                dist.reduce_scatter_tensor(out, flat.view(-1),
+                                           op=dist.ReduceOp.AVG,
+                                           group=g.group)
+                for i, lv, piece in zip(idx, levels, out.split(
+                        [p.shape[1] for p in parts])):
+                    grads[i] = piece.view(lv.block)
+                    at[i] += 1
+        return (None, None, None, None,
+                *[g.to(dt) for g, dt in zip(grads, ctx.dtypes)])
 
 
-def gather_placed(t: torch.Tensor, cut: "Cut",
-                  group: ModelGroup) -> torch.Tensor:
+def gather_placed(t: torch.Tensor, cut: "Cut", group: ModelGroup,
+                  groups: Optional[Dict[tuple, ModelGroup]] = None,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A gathered placement's whole tensor (``cut.full``) from this rank's
-    slice ``t``, all-gathered over ``group``; in backward this rank's slice
-    of the gradient, with no collective."""
-    return _GatherPlaced.apply(t, cut, group)
+    slice ``t`` (cast to ``dtype`` first, when given), all-gathered over
+    ``group`` (the flattened group of the cut's levels); in backward this
+    rank's slice of the gradient, in ``t``'s dtype: taken with no
+    collective at a level whose ranks compute the same gradient, averaged
+    in fp32 over the level's own group (``groups``, by axes) at a
+    ``mean`` level."""
+    return _GatherPlaced.apply((cut,), group, groups or {}, dtype, t)[0]
 
 
 def _split_sizes(full: Sequence[int], view: Sequence[int]) -> List[tuple]:
@@ -251,8 +359,11 @@ class Cut:
     ``dim`` of the view. ``gathered`` marks a gathered placement (the
     module runs on the whole tensor, gathered before each forward);
     ``inner`` a second level that cuts this one's block again (a
-    stage-stacked leaf's model placement). The ranks of a two-level cut
-    are numbered over both levels' axes, this level's major."""
+    stage-stacked leaf's model placement, a Megatron leaf's data
+    placement). The ranks of a two-level cut are numbered over both
+    levels' axes, this level's major. ``mean`` marks a level on the data
+    or ``seq`` axes, whose ranks compute different gradients (averaged
+    over the level's group in the backward of :func:`gather_placed`)."""
 
     full: tuple
     view: tuple
@@ -261,6 +372,7 @@ class Cut:
     axes: tuple = ()
     gathered: bool = False
     inner: Optional["Cut"] = None
+    mean: bool = False
 
     @property
     def local_view(self) -> tuple:
@@ -328,6 +440,28 @@ class Cut:
             return self._take(whole, rank)
         outer, inner = divmod(rank, self.inner.parts)
         return self.inner.take(self._take(whole, outer), inner)
+
+    @property
+    def mean_axes(self) -> tuple:
+        """The axes of every ``mean`` level, outermost first."""
+        return ((self.axes if self.mean else ())
+                + (self.inner.mean_axes if self.inner is not None else ()))
+
+    def reduced(self, grads: Sequence) -> list:
+        """Each rank's slice of the reduced gradient, by rank, from every
+        rank's gradient of the whole tensor (``grads``, by rank over every
+        level): the virtual ranks' counterpart of :func:`gather_placed`'s
+        backward (a ``mean`` level averages its ranks', every other level
+        takes the rank's own)."""
+        out = []
+        for r in range(self.parts):
+            mine = [c for _, c in _levels(self, r)]
+            peers = [q for q in range(self.parts) if all(
+                level.mean or c == m
+                for (level, c), m in zip(_levels(self, q), mine))]
+            out.append(sum(self.take(grads[q], r) for q in peers)
+                       / len(peers))
+        return out
 
     def join(self, parts: Sequence):
         """The whole tensor (or array) of every rank's slice, by rank."""
@@ -406,19 +540,41 @@ class TensorParallel:
         out = t.new_empty((g.size * t.numel(),))
         dist.all_gather_into_tensor(out, t.contiguous().view(-1),
                                     group=g.group)
-        return cut.join(list(out.view(g.size, *cut.local).unbind(0)))
+        return cut.join(g.by_coordinate(
+            out.view(g.size, *cut.local).unbind(0)))
 
-    def run_params(self, tensors: Dict[str, torch.Tensor]
+    def run_params(self, tensors: Dict[str, torch.Tensor],
+                   dtype: Optional[torch.dtype] = None
                    ) -> Dict[str, torch.Tensor]:
         """The tensors the forward runs on for each gathered placement:
-        ``tensors[name]`` (the slice, or its 16-bit cast) gathered to the
-        shape the module uses (:func:`gather_placed`)."""
-        out = {}
+        ``tensors[name]`` (the slice) cast to ``dtype`` (when given) and
+        gathered to the shape the module uses (:func:`gather_placed`, one
+        collective for the placements over one group; its gradient comes
+        back in the slice's dtype, a ``mean`` level's averaged in
+        fp32)."""
+        # one all-gather (and one reduce-scatter a mean group) for the
+        # placements over one group, of one dtype once cast
+        buckets: Dict[tuple, List[str]] = {}
         for name in self.gathered:
-            level = self.cuts[name].gathered_level
-            out[name] = gather_placed(tensors[name], level,
-                                      self.groups[level.group_axes])
+            t = tensors[name]
+            cast = (dtype if dtype is not None and t.is_floating_point()
+                    else t.dtype)
+            buckets.setdefault((self.cuts[name].gathered_level.group_axes,
+                                cast), []).append(name)
+        out = {}
+        for (axes, _), names in buckets.items():
+            out.update(zip(names, _GatherPlaced.apply(
+                tuple(self.cuts[n].gathered_level for n in names),
+                self.groups[axes], self.groups, dtype,
+                *[tensors[n] for n in names])))
         return out
+
+    def mean_axes(self, name: str) -> Set[str]:
+        """The data and ``seq`` axes over which parameter ``name``'s cut
+        averages its gradient in the backward (empty for a leaf the split
+        leaves whole or cuts only over model, expert or stage axes)."""
+        cut = self.cuts.get(name)
+        return set(cut.mean_axes) if cut is not None else set()
 
     def reduce_(self, t: torch.Tensor, op: str = "sum",
                 axes: Optional[tuple] = None) -> torch.Tensor:
@@ -477,12 +633,6 @@ _FFN = ({"ff_in.weight": 1, "ff_in.bias": 0, "ff_out.weight": 0},
 _EXPERTS = ({"w_in": 0, "w_out": 0}, ("router.weight",))
 
 
-def _refuse(path: str, entries, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Stoke -- the partition rule placing {path} as {entries} is not "
-        f"ported yet ({why}): {LATER_RULES}")
-
-
 def apply_partition_rules(model: nn.Module, rules, mesh,
                           data_axis: str = "data",
                           seq_axis: str = "seq") -> TensorParallel:
@@ -491,20 +641,21 @@ def apply_partition_rules(model: nn.Module, rules, mesh,
     (``PartitionRulesConfig.rules``, plain or compiled): see
     :func:`shard_module`. Each axis (or flattened tuple of axes) a cut
     names gets its sub-group (:func:`~stoke_tpu_torch.parallel.mesh
-    .axis_coordinates`); a placement on ``data_axis`` or ``seq_axis`` is
-    refused."""
-    from stoke_tpu_torch.parallel.mesh import axis_coordinates
+    .axis_coordinates`); the levels on ``data_axis`` and ``seq_axis`` are
+    ``mean`` levels."""
+    from stoke_tpu_torch.parallel.mesh import axis_coordinates, axis_order
 
     names = tuple(mesh.mesh_dim_names)
-    refused = (data_axis, seq_axis)
 
     def group_for(axes: tuple) -> Optional[ModelGroup]:
-        if any(a not in names or a in refused for a in axes):
+        if any(a not in names for a in axes):
             return None
         g, n, r = axis_coordinates(mesh, axes)
-        return ModelGroup(g, n, r, axes[0] if len(axes) == 1 else axes)
+        return ModelGroup(g, n, r, axes[0] if len(axes) == 1 else axes,
+                          axis_order(mesh, axes))
 
-    return shard_module(model, rules, group_for)
+    return shard_module(model, rules, group_for,
+                        mean_axes=(data_axis, seq_axis))
 
 
 def _resolver(groups) -> Callable[[tuple], Optional[ModelGroup]]:
@@ -554,19 +705,35 @@ def _jax_view(shape: tuple, perm, jshape: Sequence[int], jdim: int) -> tuple:
     return tuple(view), dim
 
 
-def shard_module(model: nn.Module, rules, groups) -> TensorParallel:
+def _runs(axes: tuple, mean_axes) -> List[tuple]:
+    """``axes`` (one dim's entry) in runs of one kind, in order:
+    ``[(run, whether its axes are mean axes), ...]``."""
+    out: List[tuple] = []
+    for a in axes:
+        kind = a in mean_axes
+        if out and out[-1][1] == kind:
+            out[-1] = (out[-1][0] + (a,), kind)
+        else:
+            out.append(((a,), kind))
+    return out
+
+
+def shard_module(model: nn.Module, rules, groups,
+                 mean_axes: Sequence[str] = ("data", "seq")
+                 ) -> TensorParallel:
     """Cut each parameter of ``model`` that ``rules`` place on a mesh
     axis down to this rank's slice, and give the attention blocks their
     local heads, the FFNs their local ff, the MoE FFNs their local
     experts and a ``PipelinedLM`` its stages, each with the group of the
     axis its leaves name. ``groups`` gives each axis's
     :class:`ModelGroup`: one group (a split over one axis), a mapping by
-    axis name, or a function of an axes tuple (None where the split has
-    no group: the data and seq axes). A recognised module whose leaves
-    the rules place as a published set is split; every other placement
-    on a model or expert axis is a gathered placement (the module
-    docstring); a placement on an axis without a group, or on the stage
-    axis outside the stage set, raises ``NotImplementedError``."""
+    axis name, or a function of an axes tuple. A recognised module whose
+    leaves the rules place as a published set (beside which a leaf may
+    also place another dim, or its split dim after the split's axis, on
+    ``mean_axes``) is split; every other placement is a gathered
+    placement, its levels on ``mean_axes`` ``mean`` levels (the module
+    docstring). A placement on an axis without a group raises
+    ``ValueError`` naming the leaf."""
     from stoke_tpu_torch.convert import jax_param_layout
     from stoke_tpu_torch.models.bert import (
         MultiHeadAttention,
@@ -577,6 +744,7 @@ def shard_module(model: nn.Module, rules, groups) -> TensorParallel:
 
     resolve = _resolver(groups)
     made: Dict[tuple, ModelGroup] = {}
+    mean_axes = tuple(mean_axes)
 
     def group(axes: tuple) -> Optional[ModelGroup]:
         if axes not in made:
@@ -607,64 +775,54 @@ def shard_module(model: nn.Module, rules, groups) -> TensorParallel:
                 if e is not None and _axes(e)]
         if dims:
             on[name] = dims
-    stacks = {(f"{n}.stages." if n else "stages."): m
-              for n, m in model.named_modules()
-              if isinstance(m, PipelinedLM)}
-    # a PipelinedLM's own stage axis, and any axis a rule places a stage
-    # stack's dim 0 on
-    stage_axes = {m.stage_axis for m in stacks.values()} | {
-        axes[0] for n, dims in on.items() if n.startswith(tuple(stacks))
-        for d, axes in dims if d == 0 and len(axes) == 1}
     for name, dims in on.items():
         used = [a for _, axes in dims for a in axes]
         if len(set(used)) != len(used):
             raise ValueError(
                 f"Stoke -- partition rule places {paths[name]} as "
                 f"{entries_of[name]}, which names a mesh axis twice")
-        stacked = name.startswith(tuple(stacks))
         for d, axes in dims:
-            on_stage = (stacked and d == 0 and len(axes) == 1
-                        and axes[0] in stage_axes)
-            if on_stage:
-                continue
-            if group(axes) is None or set(axes) & stage_axes:
-                raise _refuse(paths[name], entries_of[name],
-                              f"dim {d} on {axes}: the ranks of the data, "
-                              f"seq and stage axes compute different "
-                              f"gradients")
+            for run, _ in _runs(axes, mean_axes):
+                if group(run) is None:
+                    raise ValueError(
+                        f"Stoke -- partition rule places {paths[name]} as "
+                        f"{entries_of[name]}: dim {d} on {run!r}, an axis "
+                        f"the mesh does not have")
+    stacks = {(f"{n}.stages." if n else "stages."): m
+              for n, m in model.named_modules()
+              if isinstance(m, PipelinedLM)}
 
-    # the stage sets, then the published splits of the modules
+    # the stage sets, then the published splits of the modules: compute
+    # cuts, by the JAX dim each cuts
     cuts: Dict[str, Cut] = {}
-    split: Set[str] = set()
+    cut_dim: Dict[str, int] = {}
     for prefix, m in stacks.items():
         names = [n for n in shapes if n.startswith(prefix)]
-        staged = [n for n in names if any(
-            d == 0 and axes[0] in stage_axes for d, axes in on.get(n, ()))]
-        if not staged:
+        lead_axes = {next((a for d, a in on.get(n, ()) if d == 0), None)
+                     for n in names}
+        axes = next(iter(lead_axes))
+        if (len(lead_axes) != 1 or axes is None or len(axes) != 1
+                or axes[0] in mean_axes):
+            # no stage set (every leaf's dim 0 on one axis, not the data
+            # or seq axis): every stage rank runs the whole stack, and a
+            # placement on the stack is gathered
             continue
-        axes = next(a for d, a in on[staged[0]] if d == 0)
-        if len(staged) != len(names) or any(
-                next(a for d, a in on[n] if d == 0) != axes for n in staged):
-            missing = [paths[n] for n in names if n not in staged]
-            raise NotImplementedError(
-                f"Stoke -- the partition rules place {len(staged)} of the "
-                f"{len(names)} stage-stacked leaves on the {axes[0]!r} "
-                f"axis but not {missing}: the stage set places every leaf "
-                f"under stages/ on one axis; {LATER_RULES}")
         g = group(axes)
-        lead = shapes[staged[0]][0]
+        lead = shapes[names[0]][0]
         if lead % g.size:
             raise ValueError(
-                f"Stoke -- partition rule places {paths[staged[0]]} dim 0 "
+                f"Stoke -- partition rule places {paths[names[0]]} dim 0 "
                 f"({lead} stages) on the {axes[0]!r} axis of "
                 f"{g.size} devices, which does not divide it")
-        for n in staged:
+        for n in names:
             shape = shapes[n]
             cuts[n] = Cut(shape, (lead // g.size, g.size, *shape[1:]), 1,
                           g.size, axes)
+            cut_dim[n] = 0
             on[n] = [(d, a) for d, a in on[n] if d != 0]
         m.group = g
-    groups_of_modules: List[nn.Module] = list(stacks.values())
+    groups_of_modules: List[nn.Module] = [m for m in stacks.values()
+                                          if m.group is not None]
     for mname, m in model.named_modules():
         if isinstance(m, MultiHeadAttention):
             kind, count, what = _ATTENTION, m.heads, "heads"
@@ -680,56 +838,70 @@ def shard_module(model: nn.Module, rules, groups) -> TensorParallel:
             # a stage stack's block: any placement beside the stage cut is
             # gathered
             continue
-        dims = [on.get(full[k]) for k in keys]
-        if not all(dims) or any(
-                len(ds) != 1 or ds[0][0] != keys[k] or len(ds[0][1]) != 1
-                for k, ds in zip(keys, dims)) or len(
-                {ds[0][1] for ds in dims}) != 1:
-            continue
-        axes = dims[0][0][1]
-        g = group(axes)
-        if count % g.size:
-            k = next(iter(keys))
-            raise ValueError(
-                f"Stoke -- partition rule places {paths[full[k]]} dim "
-                f"{keys[k]} ({count} {what}) on the {axes[0]!r} axis "
-                f"of {g.size} devices, which does not divide it")
+        # each leaf's dims on other axes than the data and seq axes: the
+        # split's one dim, on one axis, whose entry names the data or seq
+        # axes only after it
+        split_axes = set()
         for k in keys:
-            cuts[full[k]] = _cut_for(m, k, shapes[full[k]], g.size, axes)
-            split.add(full[k])
-        m.group = g
-        groups_of_modules.append(m)
+            ds = on.get(full[k], ())
+            other = [(d, axes) for d, axes in ds
+                     if any(a not in mean_axes for a in axes)]
+            if (len(other) != 1 or other[0][0] != keys[k]
+                    or other[0][1][0] in mean_axes
+                    or any(a not in mean_axes for a in other[0][1][1:])):
+                break
+            split_axes.add(other[0][1][:1])
+        else:
+            if len(split_axes) != 1:
+                continue
+            axes = split_axes.pop()
+            g = group(axes)
+            if count % g.size:
+                k = next(iter(keys))
+                raise ValueError(
+                    f"Stoke -- partition rule places {paths[full[k]]} dim "
+                    f"{keys[k]} ({count} {what}) on the {axes[0]!r} axis "
+                    f"of {g.size} devices, which does not divide it")
+            for k in keys:
+                n = full[k]
+                cuts[n] = _cut_for(m, k, shapes[n], g.size, axes)
+                cut_dim[n] = keys[k]
+                # what is left: the data and seq levels inside the split
+                on[n] = [(d, a[1:] if d == keys[k] else a)
+                         for d, a in on[n] if d != keys[k] or len(a) > 1]
+            m.group = g
+            groups_of_modules.append(m)
 
-    # every other placement: gathered, in levels by JAX dim (under a
-    # stage cut, a second level of its block)
+    # every other placement: gathered, in levels by JAX dim and by run of
+    # axes of one kind (inside a compute cut, levels of its block)
     for name, dims in on.items():
-        if name in split or not dims:
+        if not dims:
             continue
         path, perm, jshape = layout[name]
         outer = cuts.get(name)
         shape = outer.block if outer is not None else shapes[name]
         jlocal = list(jshape)
         if outer is not None:
-            jlocal[0] //= outer.size
+            jlocal[cut_dim[name]] //= outer.size
         levels: List[Cut] = []
         for d, axes in dims:
-            g = group(axes)
-            if jlocal[d] % g.size:
-                raise ValueError(
-                    f"Stoke -- partition rule places {paths[name]} dim {d} "
-                    f"({jshape[d]}) on the {axes!r} axes of {g.size} "
-                    f"devices, which does not divide it")
-            view, vdim = _jax_view(shape, perm, jlocal, d)
-            levels.append(Cut(shape, view, vdim, g.size, axes, True))
-            shape = levels[-1].block
-            jlocal[d] //= g.size
+            for run, mean in _runs(axes, mean_axes):
+                g = group(run)
+                if jlocal[d] % g.size:
+                    raise ValueError(
+                        f"Stoke -- partition rule places {paths[name]} dim "
+                        f"{d} ({jshape[d]}) on the {run!r} axes of "
+                        f"{g.size} devices, which does not divide it")
+                view, vdim = _jax_view(shape, perm, jlocal, d)
+                levels.append(Cut(shape, view, vdim, g.size, run, True,
+                                  mean=mean))
+                shape = levels[-1].block
+                jlocal[d] //= g.size
         cut = levels[-1]
         for level in reversed(levels[:-1]):
-            cut = Cut(level.full, level.view, level.dim, level.size,
-                      level.axes, True, cut)
+            cut = dataclasses.replace(level, inner=cut)
         if outer is not None:
-            cut = Cut(outer.full, outer.view, outer.dim, outer.size,
-                      outer.axes, False, cut)
+            cut = dataclasses.replace(outer, inner=cut)
         cuts[name] = cut
     # the group of each level, and of each level with the levels inside it
     tp_groups = {}

@@ -23,9 +23,9 @@ number of axes, with or without the data axis and with ``dcn_axes`` (a
 and stage axes with ``PartitionRulesConfig``: tensor, expert and
 pipeline parallelism), and every other config class runs. The JAX
 legality rules of a mesh (duplicate axes, a shape against the axes, a
-rule naming an unknown axis) stay; a placement on the data, seq or stage
-axis outside the stage set is refused when the model is split
-(:mod:`stoke_tpu_torch.parallel.tensor`, ROADMAP item 8f).
+rule naming an unknown axis) stay; a rule may place a dim on any axis of
+the mesh, the data, seq and stage axes included
+(:mod:`stoke_tpu_torch.parallel.tensor`).
 
 :func:`serve_config_error` holds the serving rules with the JAX package's
 messages, but for the rule that refuses the TPU decode kernel on the CPU:

@@ -57,6 +57,18 @@ from stoke_tpu_torch.utils.yaml_config import stoke_from_config
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its small tensors gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB, MAX_LEN, CLASSES = 97, 64, 3
 FP32_TOL = 1e-5
 TRAIN_RTOL = 1e-5

@@ -507,14 +507,77 @@ def test_stage_cut_is_strided(rounds):
     ((r"^embed/tok", ("stage", None)), (r"^stages/", ("stage", "..."))),
 ], ids=["stage_dim_1", "part_of_the_set", "embedding"])
 def test_other_rules_under_a_stage_axis_name_8e(rules):
-    """A placement on the stage axis outside the stage set stays refused:
-    since item 8e landed its message names item 8f (the ranks of a stage
-    axis compute different gradients)."""
-    m = PipelinedLM(vocab_size=LM_VOCAB, size_name="tiny", max_len=LM_LEN,
-                    layers_per_stage=1, stages=2)
-    with pytest.raises(NotImplementedError, match=r"item 8f\b") as e:
-        shard_module(m, rules, ModelGroup(None, 2, 0, "stage"))
-    assert "8e" not in str(e.value)
+    """Placements on the stage axis outside the stage set (item 8f) are
+    gathered placements. Over S = 2 virtual stage ranks each rank holds
+    the JAX shard of each placed leaf (its block along the rule's dim);
+    the model keeps the stage group under the whole stage set alone
+    (``embedding``), and without it runs the whole stack on every stage
+    rank (``part_of_the_set``); every stage rank then ends the backward
+    with the same gradient of a gathered leaf (the pipeline sums the
+    input stream's gradient over the group), so the ranks' reduced slices
+    joined are the whole model's gradient. ``stage_dim_1`` places the qkv
+    bias's dim 1 (q, k, v: 3) on 2 stages, which JAX's ``device_put``
+    refuses too: a ``ValueError`` naming the leaf (at a stage axis of 1
+    it trains: ``tests/test_torch_data_axes.py``)."""
+    S = 2
+
+    def lm():
+        m = PipelinedLM(vocab_size=LM_VOCAB, size_name="tiny",
+                        max_len=LM_LEN, layers_per_stage=1, stages=S)
+        m.init_weights(3)
+        return m
+
+    if rules[0][1][:2] == (None, "stage"):
+        with pytest.raises(ValueError, match=r"stages/block_0/attention/"
+                           r"qkv/bias dim 1 \(3\) on the \('stage',\) "
+                           r"axes of 2 devices") as e:
+            shard_module(lm(), rules, ModelGroup(None, S, 0, "stage"))
+        assert "8f" not in str(e.value)
+        return
+    whole = lm()
+    layout = jax_param_layout(whole)
+    parts, tps = [], []
+    for r in range(S):
+        m = lm()
+        tps.append(shard_module(m, rules, ModelGroup(None, S, r, "stage")))
+        assert (m.group is not None) == (len(rules) == 2)
+        parts.append(dict(m.named_parameters()))
+    tp = tps[0]
+    assert tp.gathered and all(
+        tp.cuts[n].group_axes == ("stage",) and not tp.cuts[n].mean_axes
+        for n in tp.gathered)
+    joined = {}
+    for n, p in whole.named_parameters():
+        cut = tp.cuts.get(n)
+        if cut is None:
+            joined[n] = p.detach().clone()
+            continue
+        held = [parts[r][n].detach() for r in range(S)]
+        joined[n] = cut.join(held)
+        assert torch.equal(joined[n], p.detach()), n
+        if n not in tp.gathered:
+            continue
+        path, perm, jshape = layout[n]
+        (rx, spec), = [(rx, sp) for rx, sp in rules
+                       if re.search(rx, "/".join(path))]
+        jax_leaf = (p.detach().permute(perm) if perm else p.detach()
+                    ).reshape(jshape)
+        for r in range(S):
+            want = jax_leaf.chunk(S, spec.index("stage"))[r]
+            got = held[r].permute(perm) if perm else held[r]
+            assert torch.equal(got.reshape(want.shape), want), n
+    run = {n: t.requires_grad_(True) for n, t in joined.items()}
+    ids = torch.randint(0, LM_VOCAB, (4, 16),
+                        generator=torch.Generator().manual_seed(0))
+    loss = causal_lm_loss(functional_call(whole, run, (ids,)), ids)
+    grads = dict(zip(run, torch.autograd.grad(loss, list(run.values()))))
+    want = dict(zip(dict(whole.named_parameters()), torch.autograd.grad(
+        causal_lm_loss(whole(ids), ids), list(whole.parameters()))))
+    for n in tp.gathered:
+        cut = tp.cuts[n].gathered_level
+        reduced = cut.reduced([grads[n]] * S)
+        torch.testing.assert_close(cut.join(reduced), want[n], rtol=1e-5,
+                                   atol=1e-7)
 
 
 def test_indivisible_stage_count_names_the_leaf():

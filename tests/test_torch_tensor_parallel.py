@@ -173,8 +173,8 @@ def _block(heads=4, hidden=32, ff=64):
       (r"attention/qkv/bias", (None, "model", None))), "gathered"),
     (((r"ff_in/kernel", (None, "model")), (r"ff_out/kernel",
                                             ("model", None))), "gathered"),
-    (((r"ff_in/kernel", (None, ("data", "model"))),), "8f"),
-    (((r"ff_in/kernel", (None, "data")),), "8f"),
+    (((r"ff_in/kernel", (None, ("data", "model"))),), "mean"),
+    (((r"ff_in/kernel", (None, "data")),), "mean"),
 ], ids=["norm", "row_bias", "wrong_dim", "no_row", "no_bias", "two_axes",
         "data_axis"])
 def test_unrecognised_rules_are_refused(rules, what):
@@ -182,14 +182,14 @@ def test_unrecognised_rules_are_refused(rules, what):
     gathered placements (item 8e): on 2 virtual ranks each rank holds the
     JAX shard of each placed leaf (the block along the JAX dim, in the
     port's layout), its blocks run whole, and the ranks' slices put back
-    give the unsplit block's output exactly. A placement on the data
-    axis stays refused, naming item 8f."""
-    if what == "8f":
-        with pytest.raises(NotImplementedError) as e:
-            shard_module(_block(), rules, ModelGroup(None, 2, 0, "model"))
-        msg = str(e.value)
-        assert "8f" in msg and "8e" not in msg
-        assert msg.startswith("Stoke -- ")
+    give the unsplit block's output exactly. A placement on the data axis
+    (alone, or major in a tuple with the model axis) is a ``mean`` level
+    (item 8f): on 2 and 2 x 2 virtual ranks each rank holds the JAX shard
+    (block ``d·M + m``), and the ranks' reduced slices (each data rank's
+    gradient of the whole from its own rows, averaged over the data
+    ranks), joined, are the whole block's gradient over all rows."""
+    if what == "mean":
+        _check_mean_placement(rules)
         return
     whole = _block()
     x = torch.randn(2, 5, 32)
@@ -231,6 +231,50 @@ def test_unrecognised_rules_are_refused(rules, what):
                for n in tp.gathered}
         out = torch.func.functional_call(b, run, (x, None))
         assert torch.equal(out, ref)
+
+
+def _check_mean_placement(rules):
+    (rx, spec), = rules
+    axes = spec[1] if isinstance(spec[1], tuple) else (spec[1],)
+    sizes = {"data": 2, "model": 2}
+    whole = _block()
+    x = torch.randn(4, 5, 32)
+    out = whole(x, None)
+    name = "ff_in.weight"
+    want_grad, = torch.autograd.grad(out.square().mean(),
+                                     whole.get_parameter(name))
+    path, perm, jshape = jax_param_layout(whole)[name]
+    jax_leaf = whole.get_parameter(name).detach().permute(perm).reshape(
+        jshape)
+    ranks = [dict(zip(axes, c)) for c in np.ndindex(
+        *(sizes[a] for a in axes))]
+    blocks, tps = [], []
+    for coords in ranks:
+        b = _block()
+        tps.append(shard_module(b, rules, {
+            a: ModelGroup(None, sizes[a], coords[a], a) for a in axes}))
+        blocks.append(b)
+    cut = tps[0].cuts[name]
+    assert cut.group_axes == axes and cut.mean_axes == ("data",)
+    assert cut.parts == len(ranks)
+    held = [b.get_parameter(name).detach() for b in blocks]
+    for r, h in enumerate(held):
+        # the JAX shard: block r of the flattened axes, the first major
+        want = jax_leaf.chunk(len(ranks), 1)[r]
+        assert torch.equal(h.permute(perm).reshape(want.shape), want)
+    joined = cut.join(held)
+    assert torch.equal(joined, whole.get_parameter(name).detach())
+    grads = []
+    for coords, b in zip(ranks, blocks):
+        d = coords["data"]
+        run = joined.clone().requires_grad_(True)
+        y = torch.func.functional_call(b, {name: run},
+                                       (x[2 * d:2 * d + 2], None))
+        grads.append(torch.autograd.grad(y.square().mean(), run)[0])
+    reduced = cut.reduced(grads)
+    assert [tuple(g.shape) for g in reduced] == [cut.local] * len(ranks)
+    torch.testing.assert_close(cut.join(reduced), want_grad, rtol=1e-5,
+                               atol=1e-7)
 
 
 def test_indivisible_heads_name_the_leaf():

@@ -46,6 +46,18 @@ from stoke_tpu_torch.ops import make_flash_attention
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its small tensors gain nothing
+    from more, and beside the suite's other workers each spare thread
+    spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB, L, BATCH, ACCUM, MICRO = 257, 32, 4, 2, 8
 
 
