@@ -349,6 +349,16 @@ Phases, one JSON line each; any failure exits nonzero:
    32 slots), its trials in this process: each trial's ``graph_ms`` and
    tokens/s, the winner persisted to a temporary ledger.
 
+30. train_seq_global: GPT-base bf16 at world 1 under a (data=1, seq=1)
+   mesh without ``shard_seq_dim`` (the global view) through ring, zigzag
+   and Ulysses attention, 3 eager steps, a window and 2 replays, each bit
+   for bit against flash attention (losses, masters, launches, the
+   captured window); then GPT-base bf16 with every block's attention
+   through the global view's boundary over S = 4 virtual shards in one
+   process, one forward and backward against one flash call over the
+   whole sequence a block (the loss within SEQ_GLOBAL_LOSS_RTOL, every
+   gradient by the bf16 row check, 192 launches of each of #1-#3).
+
 The two lines before the last are the kernels' summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5978,27 +5988,31 @@ def seqpar_model(impl: str):
     return model
 
 
-def seqpar_run(ops, impl: str, batches) -> dict:
+def seqpar_run(ops, impl: str, batches, shard_seq_dim=1,
+               windows: int = 2) -> dict:
     """GPT-base bf16 trained SEQPAR_STEPS eager steps and ``train_steps``
-    of two windows; under ``impl`` on a (data=1, seq=1) mesh with
-    ``shard_seq_dim=1`` (a one-process NCCL group), or plain flash."""
+    of ``windows`` windows; under ``impl`` on a (data=1, seq=1) mesh (a
+    one-process NCCL group) with ``shard_seq_dim`` (None: the global
+    view), or plain flash."""
     from stoke_tpu_torch.configs import DataParallelConfig, MeshConfig
 
     flags = {}
     if impl != "flash":
-        flags = dict(distributed="dp", configs=[
-            MeshConfig(axes=("data", "seq"), shape=(1, 1)),
-            DataParallelConfig(shard_seq_dim=1)])
+        configs = [MeshConfig(axes=("data", "seq"), shape=(1, 1))]
+        if shard_seq_dim is not None:
+            configs.append(DataParallelConfig(shard_seq_dim=shard_seq_dim))
+        flags = dict(distributed="dp", configs=configs)
     before = dict(ops.LAUNCHES)
     s = stoke_for(seqpar_model(impl), "bf16", TRAIN_BATCH, seed=SEED,
                   **flags)
     losses, ms = eager_steps(s, [batches[i] for i in range(SEQPAR_STEPS)])
-    seg = batches[SEQPAR_STEPS:SEQPAR_STEPS + 2]
+    seg = batches[SEQPAR_STEPS:SEQPAR_STEPS + windows]
     losses += [float(v) for v in s.train_steps(seg, seg).reshape(-1)]
     out = {"losses": losses, "digest": masters_digest(s),
            "launches": flash_delta(ops, before), "eager_ms": ms,
            "windows_captured": len(s._engine._windows),
-           "layout": None if s.seq_shard is None else s.seq_shard.layout}
+           "layout": None if s.seq_shard is None else s.seq_shard.layout,
+           "whole": None if s.seq_shard is None else s.seq_shard.whole}
     del s
     torch.cuda.empty_cache()
     return out
@@ -6172,6 +6186,155 @@ def train_seqpar(ops) -> dict:
         "eager_ms": {i: runs[i]["eager_ms"] for i in runs},
         "steps": steps,
         "virtual": virtual,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+SEQ_GLOBAL_WINDOWS = 3   # train_steps windows: one run and captured, 2 replays
+SEQ_GLOBAL_S = 4         # the virtual shards of the global view's boundary
+#: the virtual global view's loss against the whole flash pass's (both
+#: bf16), relative; or twice the whole bf16 pass's own error against the
+#: fp32 pass, where that is larger
+SEQ_GLOBAL_LOSS_RTOL = 5e-3
+
+
+def virtual_global_attention(S: int):
+    """An ``attention_fn`` that runs the global view's boundary over S
+    virtual shards in one process: each shard takes its contiguous block
+    of q, k and v, runs the causal ring body (flash inner) with the
+    rotation handed in (``virtual_ring``), and the blocks' outputs are put
+    side by side (the gather). Autograd's slices and concatenation stand
+    for the take's and the gather's collectives and their transposes."""
+    from stoke_tpu_torch.ops import attention as sp
+
+    def attention_fn(q, k, v, bias, dropout=None):
+        n = q.shape[2] // S
+        qs, ks, vs = ([t[:, :, r * n:(r + 1) * n] for r in range(S)]
+                      for t in (q, k, v))
+        return torch.cat([sp.ring_attention(
+            qs[r], ks[r], vs[r], None, shard=sp.SeqShard(None, r, S),
+            causal=True, inner="flash",
+            rotate=sp.virtual_ring(ks, vs, None, r)) for r in range(S)],
+            dim=2)
+
+    return attention_fn
+
+
+def seq_global_pass(model, batch) -> tuple:
+    """One forward and backward of ``model`` on ``batch`` (the causal LM
+    loss): the loss and every parameter's gradient."""
+    from stoke_tpu_torch.models.gpt import causal_lm_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = causal_lm_loss(model(batch), batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def virtual_global(ops, batch) -> dict:
+    """GPT-base bf16 with every block's attention through the global
+    view's boundary over SEQ_GLOBAL_S virtual shards
+    (:func:`virtual_global_attention`), one forward and backward, against
+    the same model's pass with one causal flash call over the whole
+    sequence a block, and against that model in fp32 (the fp32 kernels):
+    the loss within SEQ_GLOBAL_LOSS_RTOL (or twice the whole bf16 pass's
+    own error), every gradient by the bf16 row check (``split_errors``);
+    the virtual pass's launches of #1-#3 (S^2 hop calls of each a block)."""
+    from stoke_tpu_torch.ops import make_flash_attention
+
+    model = gpt_base("flash").to(BF16)
+    before = dict(ops.LAUNCHES)
+    for block in model.layers:
+        block.attention.attention_fn = virtual_global_attention(SEQ_GLOBAL_S)
+    loss, grads = seq_global_pass(model, batch)
+    launches = flash_delta(ops, before)
+    for block in model.layers:
+        block.attention.attention_fn = make_flash_attention(causal=True)
+    whole_loss, whole = seq_global_pass(model, batch)
+    model.float()
+    fp32_loss, fp32 = seq_global_pass(model, batch)
+    del model
+    torch.cuda.empty_cache()
+    own = abs(whole_loss - fp32_loss) / abs(fp32_loss)
+    rtol = max(SEQ_GLOBAL_LOSS_RTOL, 2 * own)
+    loss_rel = abs(loss - whole_loss) / abs(whole_loss)
+    rows = split_errors((torch.tensor([loss]), grads),
+                        [(torch.tensor([whole_loss]), whole),
+                         (torch.tensor([fp32_loss]), fp32)], BF16)
+    want = N_LAYERS * SEQ_GLOBAL_S ** 2
+    ok = (loss_rel <= rtol and rows["ok"]
+          and all(launches[n] == want for n in FLASH))
+    return {"S": SEQ_GLOBAL_S, "B": TRAIN_BATCH, "L": TRAIN_LEN,
+            "ok": bool(ok), "loss": loss, "whole_loss": whole_loss,
+            "fp32_loss": fp32_loss, "loss_rel": loss_rel, "loss_rtol": rtol,
+            "whole_own_rel": own, "grad_rows": rows, "launches": launches,
+            "expected_launches": want}
+
+
+def train_seq_global(ops) -> dict:
+    """The global view of a seq axis on the card. GPT-base bf16 (the
+    train phase's model) at world 1 under a (data=1, seq=1) mesh without
+    ``shard_seq_dim``: every block's ring, zigzag or Ulysses adapter takes
+    its block of the whole sequence, runs the per-shard body and gathers
+    the output (at S = 1 a block is the whole sequence, so the path runs
+    with nothing cut). SEQPAR_STEPS eager steps and SEQ_GLOBAL_WINDOWS
+    windows (one run and captured, two replays), each against plain
+    flash attention over the same batches: losses, masters, launches of
+    #1-#3 and the captured window bit for bit. Then the boundary over
+    SEQ_GLOBAL_S virtual shards in one process (:func:`virtual_global`).
+    Not on this card (one card, so a group of one): collectives at W > 1,
+    an input the shards do not divide (S = 1 divides every length) and
+    the rebalancer across data rows; their evidence is the gloo world of
+    ``tests/test_torch_attention.py``."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    batches = window_batches(SEQPAR_STEPS + SEQ_GLOBAL_WINDOWS)
+    try:
+        runs = {impl: seqpar_run(ops, impl, batches, shard_seq_dim=None,
+                                 windows=SEQ_GLOBAL_WINDOWS)
+                for impl in ("flash",) + SEQPAR_IMPLS}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    failures = []
+    for impl in SEQPAR_IMPLS:
+        if runs[impl]["whole"] is not True:
+            failures.append(f"{impl}: not under the global view")
+        for key in ("losses", "digest", "launches", "windows_captured"):
+            if runs[impl][key] != runs["flash"][key]:
+                failures.append(f"{impl} {key}: {runs[impl][key]} vs "
+                                f"{runs['flash'][key]}")
+    if runs["flash"]["windows_captured"] != 1 or not all(
+            runs["flash"]["launches"][n] for n in FLASH):
+        failures.append(f"flash run: {runs['flash']}")
+    virtual = virtual_global(ops, batches[0])
+    if not virtual["ok"]:
+        failures.append(f"virtual: {virtual}")
+    if failures:
+        raise AssertionError("train_seq_global: " + "; ".join(failures))
+    return {
+        "phase": "train_seq_global",
+        "model": "GPT-base bf16, B=8, L=1024, AdamW, clip 1.0, under a "
+                 "(data=1, seq=1) mesh without shard_seq_dim (the global "
+                 "view)",
+        "bit_for_bit": True,
+        "losses": runs["flash"]["losses"],
+        "layouts": {i: runs[i]["layout"] for i in SEQPAR_IMPLS},
+        "launches": {i: runs[i]["launches"] for i in runs},
+        # the main path: the three adapters' runs under the global view
+        "launches_main": {n: sum(runs[i]["launches"][n]
+                                 for i in SEQPAR_IMPLS) for n in FLASH},
+        "launches_total": {n: sum(runs[i]["launches"][n] for i in runs)
+                           + virtual["launches"][n] for n in FLASH},
+        "eager_ms": {i: runs[i]["eager_ms"] for i in runs},
+        "steps": SEQPAR_STEPS + SEQ_GLOBAL_WINDOWS,
+        "virtual": virtual,
+        "not_on_this_card": "collectives at W > 1, an input the shards do "
+                            "not divide (S = 1 divides every length), the "
+                            "rebalancer across data rows: the gloo world "
+                            "of tests/test_torch_attention.py",
         "seconds": time.perf_counter() - t0,
     }
 
@@ -8543,6 +8706,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     audit = compile_audit(ops)
     emit({**audit, "card": smi})
+    torch.cuda.empty_cache()
+    seq_global = train_seq_global(ops)
+    emit({**seq_global, "card": smi})
 
     def row(name, source, functions, replaces, launches, err, c, key="",
             fp32=None, bert_key=None, dp_key=None, tel_key=None):
@@ -8592,6 +8758,12 @@ def main() -> int:
                 data_axes["launches_main"][tel_key])
             out["launches_train_data_axes_total"] = (
                 data_axes["launches_total"][tel_key])
+            # the global view of a seq axis: the three adapters' runs, and
+            # the phase's flash runs and virtual boundary beside them
+            out["launches_train_seq_global"] = (
+                seq_global["launches_main"][tel_key])
+            out["launches_train_seq_global_total"] = (
+                seq_global["launches_total"][tel_key])
         if bert_key is not None:  # train_bert's path and shapes (bf16)
             part, k = bert_key
             grads = {"": None, "dq_": ("dq",), "dkv_": ("dk", "dv")}[k]

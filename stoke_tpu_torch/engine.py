@@ -125,6 +125,7 @@ from stoke_tpu_torch.analysis.program import (
     program_signature,
 )
 from stoke_tpu_torch.ops import chunked_ce
+from stoke_tpu_torch.ops.attention import seq_shard
 from stoke_tpu_torch.ops.flash_attention import LAUNCHES
 from stoke_tpu_torch.telemetry import collectors
 from stoke_tpu_torch.telemetry.health import (
@@ -1459,8 +1460,11 @@ class StepEngine:
             with self._observed("window", signature(inputs), 1, inputs):
                 return self._window(*inputs)
         flat, spec = tree_flatten(inputs)
+        # the sequence view is in the key: a whole input and a shard of a
+        # longer one can have the same shape
         key = (spec, tuple((tuple(t.shape), t.dtype, t.device)
-                           if torch.is_tensor(t) else t for t in flat))
+                           if torch.is_tensor(t) else t for t in flat),
+               id(seq_shard()))
         lrs = tuple(None if torch.is_tensor(g["lr"]) else g["lr"]
                     for g in self.optimizer.param_groups)
         cap = self._windows.get(key)

@@ -79,10 +79,10 @@ gathered placement) cuts the whole model, after the broadcast, into this
 process's slices (:func:`~stoke_tpu_torch.parallel.tensor
 .apply_partition_rules`, one group a mesh axis); the ladder then runs
 over the data sub-group, each rank's generator is seeded by its data
-coordinate (``seed + data rank``; under ``seq`` by its place in the
-(data, seq) plane: a model group draws the same masks), ``DataLoader``
-shards a ``BucketedDistributedSampler`` built with the world's defaults
-by the data coordinate, the parameter counts and
+coordinate (``seed + data rank``; under ``seq``'s sharded view by its
+place in the (data, seq) plane: a model group draws the same masks),
+``DataLoader`` shards a ``BucketedDistributedSampler`` built with the
+world's defaults by the data coordinate, the parameter counts and
 ``dump_model_parameter_info`` report the whole model, and a consolidated
 save gathers the slices into the whole arrays (the tag a dp run of the
 same parameters writes), which ``load`` cuts again. A model's auxiliary
@@ -90,12 +90,43 @@ losses (MoE) join the objective as ``aux_loss_weight * sum(aux)``;
 ``aux_losses`` holds the last forward's, and no checkpoint does.
 
 Under any mesh of several axes the tiers shard over the data axis alone,
-as the JAX rules place them (under ``seq`` the ladder also averages over
-the data row), a ``CommConfig`` packs the JAX package's global leaves and
-exchanges over the data sub-group, and the sharded format writes each
-slice once with the mesh and a placed leaf's cut in its layout.
-``MeshConfig.dcn_axes`` is accepted and changes nothing, as in the JAX
-package.
+as the JAX rules place them (under ``seq``'s sharded view the ladder
+also averages over the data row), a ``CommConfig`` packs the JAX
+package's global leaves and exchanges over the data sub-group, and the
+sharded format writes each slice once with the mesh and a placed leaf's
+cut in its layout. ``MeshConfig.dcn_axes`` is accepted and changes
+nothing, as in the JAX package. On every such mesh the rows go by the
+data coordinate (``DataLoader``), and ``FleetConfig(rebalance=True)``
+takes the data rows for its hosts, as a JAX host owns whole data-axis
+shards: the straggler verdict runs on the exchanged matrix folded to one
+entry a row (:func:`~stoke_tpu_torch.telemetry.fleet.reduce_to_rows`),
+and the read payloads go over the data sub-group, so each process of a
+row reads the same share and yields the same rows.
+
+Sequence parallelism: on a mesh with a ``seq`` axis (``("data",
+"seq")``, or beside a model axis) each call runs under a view of the
+sequence (:mod:`stoke_tpu_torch.ops.attention`), which GPT's positions,
+the causal LM loss and the ring, zigzag and Ulysses adapters read.
+
+- With ``DataParallelConfig(shard_seq_dim=d)`` each input's dim ``d`` is
+  cut to this process's shard (the sharded view), the layout the
+  model's attention needs (zigzag for the zigzag ring); the ladder
+  averages over the data sub-group and then over the data row. A call
+  whose inputs the shards do not divide keeps every leaf whole and runs
+  under the global view, as the JAX placement leaves such a leaf whole;
+  the model's outputs carry their view, so ``loss()`` neither cuts them
+  again nor mixes views. Under that view the gradients are equal across
+  the row, and the row's average keeps them (with dropout the masks are
+  each process's own there).
+- Without it (the JAX facade's batch sharded over ``data`` only) every
+  process of a data row runs the model on the row's whole sequences and
+  computes the same values (the global view): the adapters take their
+  block at the JAX ``shard_map`` boundary and gather the output. The
+  ladder runs over the data sub-group alone, the generator is seeded by
+  the data coordinate and an MoE's batch means go over the data
+  sub-group, so a row's processes hold bit-equal weights. Zigzag there
+  takes what the JAX one takes: zigzag-ordered sequences with
+  ``positions=perm``.
 
 Pipeline parallelism: a ``("data", "stage")`` mesh, or a ``("stage",)``
 one (built as ``(1, n)``: every process takes the same rows), with
@@ -292,19 +323,6 @@ def _timed(phase: str):
     return deco
 
 
-def _seq_scoped(fn):
-    """Method decorator for the calls that run the model: the call runs
-    under this Stoke's sequence shard (None without one), restored after,
-    so that two ``Stoke`` objects in one process keep their own."""
-
-    @functools.wraps(fn)
-    def wrapper(self, *args, **kwargs):
-        with using_seq_shard(self._seq_shard):
-            return fn(self, *args, **kwargs)
-
-    return wrapper
-
-
 def _health_guarded(fn):
     """Method decorator for the step paths (the JAX facade's): arms the
     hang watchdog across the call, which ends with the sentinel readback
@@ -400,7 +418,8 @@ class Stoke:
             dropout masks (each :class:`~stoke_tpu_torch.models.bert
             .Dropout` of the model uses it, and an MoE router's noise);
             rank ``r`` of a data-parallel run seeds it with ``seed + r``,
-            ``r`` the data coordinate under a model or expert axis.
+            ``r`` the data coordinate under a model or expert axis and
+            under a seq axis's global view.
         ema_weight: weight of the newest micro loss in ``ema_loss``.
         verbose: kept for the JAX signature; the port prints nothing.
         model_rng_keys: the JAX package's random stream names (e.g.
@@ -451,20 +470,26 @@ class Stoke:
         self._device = resolve_device(st.device.value)
         self._group = None
         self._mesh = None
-        #: this process's shard of the sequence under a ("data", "seq")
-        #: mesh with ``shard_seq_dim`` (GPT's positions, the causal LM loss
-        #: and the sequence-parallel attention read it inside this Stoke's
-        #: calls; None otherwise)
+        #: this process's view of the sequence under a mesh with a seq
+        #: axis: its shard with ``shard_seq_dim``, else the global view
+        #: (GPT's positions, the causal LM loss and the sequence-parallel
+        #: attention read it inside this Stoke's calls; None without one)
         self._seq_shard: Optional[SeqShard] = None
-        #: the data sub-group under a model, expert or stage axis (the
-        #: ladder's group; None: the run's group is the data axis)
+        #: the global view of the same seq group, which a call under
+        #: ``shard_seq_dim`` takes when the shards do not divide an input
+        self._seq_whole: Optional[SeqShard] = None
+        #: the view of the objective ``loss()`` kept for ``backward()``
+        self._pending_view: Optional[SeqShard] = None
+        #: the data sub-group on a mesh of several axes (the ladder's
+        #: group, the rows' and the rebalancer's hosts; None: the run's
+        #: group is the data axis)
         self._data_group = None
-        #: under a ("data", "seq") mesh, the ladder's groups: the data
+        #: under seq's sharded view, the ladder's groups: the data
         #: sub-group and this process's data row (None otherwise)
         self._seq_groups = None
-        #: under a seq axis beside model, expert or stage axes, the
-        #: flattened (data, seq) sub-group: the processes that hold other
-        #: tokens (None otherwise: the data sub-group or the world)
+        #: under seq's sharded view, the flattened (data, seq) sub-group:
+        #: the processes that hold other tokens (None otherwise: the data
+        #: sub-group or the world)
         self._rows_group = None
         #: the model's Megatron or expert split (None without rules)
         self._tp: Optional[TensorParallel] = None
@@ -769,15 +794,38 @@ class Stoke:
             fleet_group,
         )
 
+        group = fleet_group() if self.n_processes > 1 else None
+        rows = row_group = None
+        if group is not None and self._data_group is not None:
+            # a host of the verdict and the rebalancer is a data row, whose
+            # read payloads go over a gloo data sub-group
+            rows, row_lists = self._data_rows()
+            if fcfg.rebalance:
+                row_group = dist.new_subgroups_by_enumeration(
+                    row_lists, backend="gloo")[0]
         self._fleet = FleetMonitor(
             fcfg, self._telemetry.registry, rank=self.rank,
             n_processes=self.n_processes,
             dispatch_count_fn=lambda: self._engine.dispatch_count,
-            group=fleet_group() if self.n_processes > 1 else None)
+            group=group, rows=rows,
+            row_group=group if row_group is None else row_group)
         self._telemetry.fleet = self._fleet
         if self._health is not None:
             self._health.detectors.append(
                 FleetStragglerDetector(self._fleet, fcfg.straggler_action))
+
+    def _data_rows(self):
+        """``(each world rank's data coordinate, the world ranks of every
+        data sub-group)`` of the mesh."""
+        ranks = self._mesh.mesh
+        axis = self._mesh.mesh_dim_names.index(
+            self._status_obj.dp_config.axis_name)
+        coord = torch.empty(ranks.numel(), dtype=torch.long)
+        coord[ranks.flatten()] = torch.arange(ranks.shape[axis]).view(
+            [-1 if i == axis else 1 for i in range(ranks.ndim)]).expand(
+            ranks.shape).flatten()
+        lists = ranks.movedim(axis, -1).reshape(-1, ranks.shape[axis])
+        return coord.tolist(), lists.tolist()
 
     def _build_opsplane(self) -> None:
         """The live ops plane (``OpsPlaneConfig``), bound and serving
@@ -895,8 +943,8 @@ class Stoke:
     def _join_process_group(self, model) -> None:
         """Join the run's process group (or make a one-process group),
         drive ``cuda:LOCAL_RANK`` on the card, and build the mesh (and,
-        with a sequence axis, this process's shard in the layout that
-        ``model``'s attention needs)."""
+        with a sequence axis, this process's views of the sequence in the
+        layout that ``model``'s attention needs)."""
         st = self._status_obj
         if self._device.type == "cuda":
             self._device = torch.device("cuda",
@@ -914,43 +962,34 @@ class Stoke:
             self._group = self._mesh.get_group()
             return
         # io and the broadcast span the world; the ladder reduces over the
-        # data sub-group (and, under seq, then over the data row, whose
-        # seq sub-group also carries the ring and Ulysses collectives)
+        # data sub-group (and, under seq's sharded view, then over the
+        # data row, whose seq sub-group also carries the ring and Ulysses
+        # collectives); the rows go by the data coordinate
         self._group = dist.group.WORLD
         data = axis_coordinates(self._mesh, dpc.axis_name)[0]
+        self._data_group = data
         if dpc.seq_axis_name not in names:
-            self._data_group = data
             return
         seq, n_seq, _ = axis_coordinates(self._mesh, dpc.seq_axis_name)
+        layout = (model_seq_layout(model) if isinstance(model, nn.Module)
+                  else "contiguous")
+        self._seq_whole = SeqShard(seq, dist.get_rank(seq), n_seq, layout,
+                                   whole=True)
+        if dpc.shard_seq_dim is None:
+            # the global view: every process of a data row holds its
+            # whole sequences, draws its masks and takes its MoE batch
+            # means by the data coordinate, and holds the same gradients
+            self._seq_shard = self._seq_whole
+            return
         self._seq_groups = (data, seq)
-        if self._mesh.ndim > 2:
-            # beside model, expert or stage axes: the rows go by the data
-            # coordinate, the dropout masks and the MoE's batch means by
-            # the (data, seq) plane
-            self._data_group = data
-            self._rows_group = axis_coordinates(
-                self._mesh, (dpc.axis_name, dpc.seq_axis_name))[0]
-        if n_seq > 1 and dpc.shard_seq_dim is None:
-            raise NotImplementedError(
-                f"Stoke -- a {dpc.seq_axis_name!r} mesh axis of size "
-                f"{n_seq} needs DataParallelConfig.shard_seq_dim: the "
-                f"port runs the model on this process's sequence "
-                f"shard, and the JAX package's global view of whole "
-                f"sequences on every shard is not ported yet (ROADMAP "
-                f"Queue 1 item 8g)")
-        fcfg = st.fleet_config
-        if n_seq > 1 and fcfg is not None and fcfg.rebalance:
-            raise NotImplementedError(
-                f"Stoke -- FleetConfig(rebalance=True) under a "
-                f"{dpc.seq_axis_name!r} mesh axis of size {n_seq}: the "
-                f"rebalancer moves rows between any two processes, and "
-                f"the processes of one data row must hold the same "
-                f"sequences (ROADMAP Queue 1 item 8g)")
-        if dpc.shard_seq_dim is not None:
-            self._seq_shard = SeqShard(
-                seq, dist.get_rank(seq), n_seq,
-                model_seq_layout(model) if isinstance(model, nn.Module)
-                else "contiguous")
+        # the processes that hold other tokens: the (data, seq) plane
+        # (beside model, expert or stage axes, whose groups draw the same
+        # dropout masks)
+        self._rows_group = (dist.group.WORLD if self._mesh.ndim == 2
+                            else axis_coordinates(
+                                self._mesh,
+                                (dpc.axis_name, dpc.seq_axis_name))[0])
+        self._seq_shard = SeqShard(seq, dist.get_rank(seq), n_seq, layout)
 
     def _split_model(self, rules) -> TensorParallel:
         """Cut the (broadcast) whole model by the partition rules over the
@@ -1005,85 +1044,108 @@ class Stoke:
     # the four-call contract and the fused step
     # ------------------------------------------------------------------ #
 
-    def _place(self, tree, stacked: bool = False):
-        """``tree`` on the device; under ``DataParallelConfig.shard_seq_dim
-        = d`` with more than one sequence shard, each tensor leaf that has
-        dim ``d`` (of a micro-batch: ``d + 1`` for ``stacked`` window
-        inputs) is cut to this process's sequence shard, and a leaf whose
-        dim ``d`` the shard count does not divide is refused (the JAX
-        facade leaves it whole, which its global view allows; the port's
-        model would read it as a shard). A leaf without dim ``d``, and a
-        tensor :meth:`model` returned (already this shard's), is not cut."""
-        tree = place(tree, self._device)
+    def _place_call(self, *trees, stacked: bool = False):
+        """``(view, trees)``: the call's inputs on the device, and the view
+        of the sequence the call runs under (:func:`using_seq_shard`).
+
+        Under ``DataParallelConfig.shard_seq_dim = d`` with more than one
+        sequence shard the view is decided a call at a time, as the JAX
+        placement decides where each leaf lives (it never changes the
+        values): when every tensor leaf that has dim ``d`` (of a
+        micro-batch: ``d + 1`` for ``stacked`` window inputs) divides by
+        the shard count, each such leaf is cut to this process's shard
+        (the sharded view); otherwise every leaf stays whole and the call
+        runs under the global view. A tensor :meth:`model` returned keeps
+        the view it was made under, and is not cut again. Otherwise the
+        view is the Stoke's own (the global view without ``shard_seq_dim``,
+        whose inputs stay whole) and nothing is cut."""
+        trees = place(trees, self._device)
+        view = self._seq_shard
         d = self._status_obj.dp_config.shard_seq_dim
-        shard = self._seq_shard
-        if d is None or d == 0 or not sharded(shard):
-            return tree
+        if d is None or d == 0 or not sharded(view):
+            return view, trees
         d += int(stacked)
+        leaves = [x for x in tree_leaves(trees) if isinstance(x, torch.Tensor)]
+        made = {id(v): v for v in (getattr(x, "_stoke_seq_view", None)
+                                   for x in leaves) if v is not None}
+        if len(made) > 1:
+            raise ValueError(
+                "Stoke -- a call mixes model outputs of the sharded and of "
+                "the global view of the sequence")
+        fresh = [x for x in leaves
+                 if x.ndim > d and not hasattr(x, "_stoke_seq_view")]
+        indivisible = [x for x in fresh if x.shape[d] % view.size]
+        if made:
+            view = next(iter(made.values()))
+        elif indivisible:
+            view = self._seq_whole
+        if view.whole:
+            return view, trees
+        if indivisible:
+            raise ValueError(
+                f"Stoke -- an input of shape {tuple(indivisible[0].shape)} "
+                f"beside model outputs of the sharded view: the "
+                f"{view.size} sequence shards do not divide its dim {d}")
 
         def leaf(x):
             if (not isinstance(x, torch.Tensor) or x.ndim <= d
-                    or getattr(x, "_stoke_seq_local", False)):
+                    or hasattr(x, "_stoke_seq_view")):
                 return x
-            if x.shape[d] % shard.size:
-                raise NotImplementedError(
-                    f"Stoke -- an input of shape {tuple(x.shape)} has "
-                    f"{x.shape[d]} along the sequence dim {d}, which the "
-                    f"{shard.size} sequence shards do not divide; the JAX "
-                    f"package's replication of such a leaf is not ported "
-                    f"yet (ROADMAP Queue 1 item 8g)")
-            return shard.take(x, d)
+            return view.take(x, d)
 
-        return tree_map(leaf, tree)
+        return view, tree_map(leaf, trees)
 
-    def _seq_local(self, out):
-        """``out`` with its tensors marked as this sequence shard's, so
-        that :meth:`loss` does not cut them again (the JAX facade passes
-        an array it placed through as it is)."""
-        if not sharded(self._seq_shard):
+    def _seq_local(self, out, view: Optional[SeqShard]):
+        """``out`` with its tensors marked with the view they were made
+        under, so that :meth:`loss` neither cuts them again (the JAX facade
+        passes an array it placed through as it is) nor mixes views. Only
+        under ``shard_seq_dim``, where a call's view can differ from the
+        next one's."""
+        d = self._status_obj.dp_config.shard_seq_dim
+        if d is None or d == 0 or not sharded(self._seq_shard):
             return out
 
         def mark(x):
             if isinstance(x, torch.Tensor):
-                x._stoke_seq_local = True
+                x._stoke_seq_view = view
             return x
 
         return tree_map(mark, out)
 
     @_timed("model")
-    @_seq_scoped
     def model(self, *args, **kwargs):
         """The forward on ``args`` (placed on the device): under autograd
         in train mode, under ``torch.no_grad()`` in eval mode."""
-        args, kwargs = self._place(args), self._place(kwargs)
-        if self.training:
-            return self._seq_local(self._engine.forward(
-                args, {**self._train_kwargs, **kwargs}))
-        with torch.no_grad():
-            return self._seq_local(self._engine.forward(
-                args, {**self._eval_kwargs, **kwargs}))
+        view, (args, kwargs) = self._place_call(args, kwargs)
+        with using_seq_shard(view):
+            if self.training:
+                return self._seq_local(self._engine.forward(
+                    args, {**self._train_kwargs, **kwargs}), view)
+            with torch.no_grad():
+                return self._seq_local(self._engine.forward(
+                    args, {**self._eval_kwargs, **kwargs}), view)
 
     @_health_guarded
     @_timed("loss")
-    @_seq_scoped
     def loss(self, *args, **kwargs):
         """``loss(*args, **kwargs)``; in train mode the losses are returned
         divided by ``grad_accum`` and the objective is kept for
         :meth:`backward` (when it has a gradient: a loss of a detached
         output gives ``backward()`` nothing to commit)."""
-        args, kwargs = self._place(args), self._place(kwargs)
-        result = self._engine.loss(*args, **kwargs)
+        view, (args, kwargs) = self._place_call(args, kwargs)
+        with using_seq_shard(view):
+            result = self._engine.loss(*args, **kwargs)
         if not self.training:
             return (result if self._ladder is None
                     else self._ladder.average(result))
         objective, report = self._engine.objective(result)
         self._pending = objective if objective.requires_grad else None
+        self._pending_view = view
         self._update_loss_tracking(report)
         return report
 
     @_health_guarded
     @_timed("backward")
-    @_seq_scoped
     def backward(self, loss: Any = None) -> None:
         """Autograd of the last ``loss()`` into the accumulated gradients.
         ``loss`` is accepted for the reference signature; the objective
@@ -1096,7 +1158,9 @@ class Stoke:
                 "model() output"
             )
         objective, self._pending = self._pending, None
-        self._engine.backward(objective)
+        # the view of its forward: remat's recompute reads it
+        with using_seq_shard(self._pending_view):
+            self._engine.backward(objective)
         self._grad_accum_counter += 1
         self._backward_steps += 1
 
@@ -1135,7 +1199,6 @@ class Stoke:
 
     @_health_guarded
     @_timed("train_step")
-    @_seq_scoped
     def train_step(self, model_args: Any, loss_args: Any = (),
                    model_kwargs: Optional[dict] = None):
         """``model -> loss -> backward -> step`` in one call:
@@ -1147,13 +1210,15 @@ class Stoke:
             model_args = (model_args,)
         if not isinstance(loss_args, tuple):
             loss_args = (loss_args,)
-        margs = self._place(model_args)
-        mkwargs = {**self._train_kwargs, **self._place(model_kwargs or {})}
+        view, (margs, mkwargs, largs) = self._place_call(
+            model_args, model_kwargs or {}, loss_args)
+        mkwargs = {**self._train_kwargs, **mkwargs}
         do_apply = self._grad_accum_counter + 1 >= self._status_obj.grad_accum
         t0 = self._device_clock_start(
             do_apply and self._telemetry_will_record())
-        report, finite = self._engine.fused(
-            margs, mkwargs, self._place(loss_args), do_apply=do_apply)
+        with using_seq_shard(view):
+            report, finite = self._engine.fused(margs, mkwargs, largs,
+                                                do_apply=do_apply)
         self._device_clock_stop(t0)
         self._pending = None
         self._backward_steps += 1
@@ -1183,13 +1248,16 @@ class Stoke:
         return (model_args if isinstance(model_args, tuple) else (model_args,),
                 loss_args if isinstance(loss_args, tuple) else (loss_args,))
 
-    def _run_window(self, margs: tuple, mkwargs: dict, loss_args: tuple):
+    def _run_window(self, view: Optional[SeqShard], margs: tuple,
+                    mkwargs: dict, loss_args: tuple):
         """One window of inputs already on the device and stacked to
-        ``[grad_accum, ...]``: the engine's window, then the counters, the
-        loss tracking (once, with the window-mean micro loss) and the
-        skipped count. Returns the stacked reports; the window's sentinel
-        row is the engine's ``sentinel_row``."""
-        reports, finite = self._engine.window(margs, mkwargs, loss_args)
+        ``[grad_accum, ...]``, under the sequence view ``view``: the
+        engine's window, then the counters, the loss tracking (once, with
+        the window-mean micro loss) and the skipped count. Returns the
+        stacked reports; the window's sentinel row is the engine's
+        ``sentinel_row``."""
+        with using_seq_shard(view):
+            reports, finite = self._engine.window(margs, mkwargs, loss_args)
         self._pending = None
         self._backward_steps += self._status_obj.grad_accum
         self._update_loss_tracking(tree_map(lambda r: r.mean(0), reports))
@@ -1200,7 +1268,6 @@ class Stoke:
 
     @_health_guarded
     @_timed("train_step_window")
-    @_seq_scoped
     def train_step_window(self, model_args: Any, loss_args: Any = (),
                           model_kwargs: Optional[dict] = None):
         """A whole accumulation window (``grad_accum`` micro-batches and
@@ -1222,17 +1289,16 @@ class Stoke:
                     f"[grad_accum={k}, ...]; got shape "
                     f"{tuple(getattr(leaf, 'shape', ()))}"
                 )
-        reports = self._run_window(
-            self._place(model_args, True),
-            {**self._train_kwargs, **self._place(model_kwargs or {}, True)},
-            self._place(loss_args, True))
+        view, (margs, mkwargs, largs) = self._place_call(
+            model_args, model_kwargs or {}, loss_args, stacked=True)
+        reports = self._run_window(view, margs,
+                                   {**self._train_kwargs, **mkwargs}, largs)
         self._observe_health([self._step_rows()])
         self._after_optimizer_steps()
         return reports
 
     @_health_guarded
     @_timed("train_steps")
-    @_seq_scoped
     def train_steps(self, model_args: Any, loss_args: Any = (),
                     model_kwargs: Optional[dict] = None,
                     segment_size: Optional[int] = None):
@@ -1298,16 +1364,15 @@ class Stoke:
             # the call legitimately covers n optimizer steps: re-arm the
             # watchdog with the segment's deadline (n x timeout)
             self._health.arm_watchdog(steps=n)
-        margs = self._place(model_args, True)
-        loss_args = self._place(loss_args, True)
-        mkwargs = {**self._train_kwargs,
-                   **self._place(model_kwargs or {}, True)}
+        view, (margs, mkwargs, loss_args) = self._place_call(
+            model_args, model_kwargs or {}, loss_args, stacked=True)
+        mkwargs = {**self._train_kwargs, **mkwargs}
         reports: List[Any] = []
         rows: List[Optional[torch.Tensor]] = []
         for i in range(n):
             sl = slice(i * k, (i + 1) * k)
             reports.append(self._run_window(
-                _leading(margs, sl), _leading(mkwargs, sl),
+                view, _leading(margs, sl), _leading(mkwargs, sl),
                 _leading(loss_args, sl)))
             rows.append(self._step_rows())
         # the segment's rows read back once; a save boundary crossed
@@ -2575,7 +2640,6 @@ class Stoke:
             self._numerics.set_quant_errors(engine.quant_errors_by_group)
         return engine
 
-    @_seq_scoped
     def estimate_step_flops(self, model_args: Any,
                             loss_args: Any = ()) -> float:
         """FLOPs of one training step on these inputs, by
@@ -2594,7 +2658,7 @@ class Stoke:
             model_args = (model_args,)
         if not isinstance(loss_args, tuple):
             loss_args = (loss_args,)
-        margs, largs = self._place(model_args), self._place(loss_args)
+        view, (margs, largs) = self._place_call(model_args, loss_args)
         params = self._engine.params
         grads = [p.grad for p in params]
         buffers = {n: b.clone() for n, b in self._module.named_buffers()}
@@ -2606,7 +2670,8 @@ class Stoke:
             for p in params:
                 p.grad = None
             self._engine.sync = False
-            with FlopCounterMode(display=False) as counter:
+            with FlopCounterMode(display=False) as counter, \
+                    using_seq_shard(view):
                 self._engine.accum(margs, dict(self._train_kwargs), largs)
         finally:
             self._engine.sync = True
@@ -2621,7 +2686,6 @@ class Stoke:
             self._module.train(training)
         return float(counter.get_total_flops())
 
-    @_seq_scoped
     def estimate_step_cost(self, model_args: Any, loss_args: Any = ()):
         """The :class:`~stoke_tpu_torch.telemetry.attribution.CostCard` of
         one fused optimizer step at these inputs (forward, backward and
@@ -2648,7 +2712,7 @@ class Stoke:
             model_args = (model_args,)
         if not isinstance(loss_args, tuple):
             loss_args = (loss_args,)
-        margs, largs = self._place(model_args), self._place(loss_args)
+        view, (margs, largs) = self._place_call(model_args, loss_args)
         params = eng.params
         grads = [p.grad for p in params]
         buffers = {n: b.clone() for n, b in self._module.named_buffers()}
@@ -2666,7 +2730,7 @@ class Stoke:
             for p in params:
                 p.grad = None
             eng.sync = True
-            with counting() as cost:
+            with counting() as cost, using_seq_shard(view):
                 eng.accum(margs, dict(self._train_kwargs), largs)
                 eng._apply()
         finally:
@@ -3160,7 +3224,12 @@ class Stoke:
         ``FleetConfig(rebalance=True)`` across processes the loader reads
         by the shares of an :class:`~stoke_tpu_torch.data.InputRebalancer`
         that the fleet monitor shifts (the JAX facade's hand-over; a run of
-        one process has nothing to rebalance)."""
+        one process has nothing to rebalance). On a mesh of several axes
+        the rows go by the data coordinate (:meth:`_data_sampler`), and a
+        rebalancer's hosts are the data rows, as a JAX host owns whole
+        data-axis shards: its shares are the rows', and the read payloads
+        are exchanged over this process's data sub-group, so every process
+        of a row reads the same share and yields the same rows."""
         multi = (dist.is_available() and dist.is_initialized()
                  and dist.get_world_size() > 1)
         if multi and kwargs.get("sampler") is None:
@@ -3173,29 +3242,34 @@ class Stoke:
                 and kwargs.get("sampler") is not None):
             kwargs["sampler"] = self._data_sampler(dataset, kwargs["sampler"])
         fcfg = self._status_obj.fleet_config
+        hosts, host, group = self.n_processes, self.rank, None
+        if self._fleet is not None:
+            group = self._fleet.row_group
+            if self._data_group is not None:
+                hosts = dist.get_world_size(self._data_group)
+                host = dist.get_rank(self._data_group)
         if ("rebalancer" not in kwargs and fcfg is not None
                 and fcfg.rebalance and self._fleet is not None
-                and self.n_processes > 1):
+                and hosts > 1):
             from stoke_tpu_torch.data import InputRebalancer, gloo_allgather
 
             rb = InputRebalancer(
-                n_hosts=self.n_processes, rank=self.rank,
-                batch_size=self.batch_size,
+                n_hosts=hosts, rank=host, batch_size=self.batch_size,
                 max_frac=fcfg.rebalance_max_frac,
                 # applied past every process's prefetch lookahead
                 apply_slack=int(kwargs.get("prefetch", 2)) + 2)
             self._fleet.attach_rebalancer(rb)
             kwargs["rebalancer"] = rb
-            kwargs.setdefault("rebalance_allgather",
-                              gloo_allgather(self._fleet.group))
+            kwargs.setdefault("rebalance_allgather", gloo_allgather(group))
         return StokeDataLoader(
             dataset, batch_size=self.batch_size, device=self._device,
             telemetry=self._telemetry if self._telemetry.enabled else None,
             **kwargs)
 
     def _data_sampler(self, dataset, sampler):
-        """Under a model or expert axis, the rows go by the data
-        coordinate (a model group reads the same rows): a
+        """On a mesh of several axes (model, expert, stage or seq beside
+        the data axis), the rows go by the data coordinate (a model group
+        and a data row's sequence shards read the same rows): a
         ``BucketedDistributedSampler`` built with the world's defaults is
         built again over the data sub-group; one over other replicas is
         refused."""
@@ -3216,7 +3290,7 @@ class Stoke:
                 seed=sampler.seed, drop_last=sampler.drop_last,
                 info_rank=-1)
         raise ValueError(
-            f"Stoke -- under a model or expert mesh axis the rows are "
+            f"Stoke -- on a mesh of several axes the rows are "
             f"sharded over the data axis: build the sampler with "
             f"num_replicas={want[0]}, rank={want[1]} (got {got})")
 
@@ -3371,8 +3445,10 @@ class Stoke:
 
     @property
     def seq_shard(self) -> Optional[SeqShard]:
-        """This process's sequence shard under a ``("data", "seq")`` mesh
-        (:class:`~stoke_tpu_torch.ops.attention.SeqShard`), else None."""
+        """This process's view of the sequence on a mesh with a ``seq``
+        axis (:class:`~stoke_tpu_torch.ops.attention.SeqShard`): its shard
+        under ``shard_seq_dim``, else the global view (``whole``); None
+        without a seq axis."""
         return self._seq_shard
 
     @property

@@ -27,7 +27,9 @@ default positions are their global positions (the shard's range, or its
 zigzag slice), and whole-sequence ``positions`` are cut to the shard;
 :func:`causal_lm_loss` then shifts across the shards' edges and takes the
 mean over the global count, so the loss and each shard's logits are those
-of the whole sequence.
+of the whole sequence. Under the global view (``SeqShard.whole``) the
+tensors are whole and both act as without a shard; only the attention
+adapters cut the sequence.
 
 Sparse FFN: ``moe_num_experts > 0`` makes every ``moe_every``-th block a
 :class:`~stoke_tpu_torch.models.moe.MoETransformerBlock` (the JAX

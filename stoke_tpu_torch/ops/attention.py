@@ -36,21 +36,39 @@ follows the TPU kernel's block ladder instead, so a length that no block
 divides (e.g. 520) takes flash here and dense there (ROADMAP Queue 3).
 
 The shard a process holds is described by a :class:`SeqShard` (its group,
-index, count and layout). ``Stoke`` under ``DataParallelConfig(
-shard_seq_dim=d)`` on a ``("data", "seq")`` mesh runs each of its calls
-under its process's shard (:func:`using_seq_shard`): the attention
-adapters without an explicit mesh, GPT's positions and
+index, count and layout). ``Stoke`` on a mesh with a ``seq`` axis runs
+each of its calls under a view of the sequence (:func:`using_seq_shard`):
+the attention adapters without an explicit mesh, GPT's positions and
 :func:`~stoke_tpu_torch.models.gpt.causal_lm_loss` read it. Without one,
-the adapters run one shard (plain attention). Beside a model axis
-(``("data", "seq", "model")`` under the Megatron rules) each of these
-runs on the model rank's local heads over the seq group: attention is
-per head, so this is the function the JAX ``shard_map`` computes after
-gathering the heads (``stoke_tpu/ops/attention.py:177-193``).
+the adapters run one shard (plain attention).
+
+- **The sharded view** (``DataParallelConfig(shard_seq_dim=d)``, where the
+  shards divide every input's dim ``d``): each process holds its shard of
+  the sequence, and the adapters run the per-shard body on it.
+- **The global view** (``SeqShard.whole``: no ``shard_seq_dim``, or a
+  call whose inputs the shards do not divide): every process of a data
+  row holds the whole sequences and computes the same values, as GSPMD
+  does with the seq axis replicated. The adapters do what the JAX
+  ``shard_map`` boundary does (specs ``P(batch, None, seq, None)``): take
+  this process's contiguous block of q, k, v and the key mask, run the
+  per-shard body, and all-gather the output (:func:`global_view`). The
+  take's backward all-gathers the cotangent blocks and the gather's
+  takes this process's block: the graph around them is replicated, so
+  its cotangents are already whole on every process. Zigzag follows the
+  JAX contract: the model runs on zigzag-ordered sequences with
+  ``positions=perm``, and the boundary cuts that order contiguously.
+
+Beside a model axis (``("data", "seq", "model")`` under the Megatron
+rules) each of these runs on the model rank's local heads over the seq
+group: attention is per head, so this is the function the JAX
+``shard_map`` computes after gathering the heads
+(``stoke_tpu/ops/attention.py:177-193``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Sequence
@@ -104,13 +122,16 @@ def inverse_permutation(perm) -> np.ndarray:
 @dataclass(frozen=True)
 class SeqShard:
     """One process's place on the sequence axis: the group (None for a
-    group of one), this shard's index and the shard count, and the layout
-    of the sequence over the shards."""
+    group of one), this shard's index and the shard count, the layout of
+    the sequence over the shards, and the view: ``whole`` (the global
+    view) when every process of the group holds the whole sequence and
+    only the attention adapters cut it (module docstring)."""
 
     group: Any
     rank: int
     size: int
     layout: str = "contiguous"
+    whole: bool = False
     #: zigzag index tensors by (kind, length, device): made at their first
     #: (eager) use, so a captured window copies nothing from the host
     _indices: dict = field(default_factory=dict, compare=False, repr=False)
@@ -149,14 +170,11 @@ class SeqShard:
         part along ``dim`` (no gradient; every shard gets it)."""
         if self.size == 1:
             return x
-        x = x.detach().movedim(dim, 0).contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x, group=self.group)
-        whole = torch.cat(parts)
+        whole = _gather_blocks(x.detach(), self, dim)
         if self.layout == "zigzag":
             whole = whole.index_select(
-                0, self._zigzag("inv", whole.shape[0], x.device))
-        return whole.movedim(0, dim)
+                dim, self._zigzag("inv", whole.shape[dim], x.device))
+        return whole
 
 
 _SEQ_SHARD: Optional[SeqShard] = None
@@ -183,14 +201,16 @@ def seq_shard() -> Optional[SeqShard]:
 
 
 def sharded(shard: Optional[SeqShard]) -> bool:
-    """Whether ``shard`` splits the sequence over more than one process."""
-    return shard is not None and shard.size > 1
+    """Whether the tensors under ``shard`` hold part of the sequence: more
+    than one shard, and not the global view."""
+    return shard is not None and shard.size > 1 and not shard.whole
 
 
 def shard_of(mesh=None, axis_name: str = "seq",
              layout: str = "contiguous") -> SeqShard:
     """The shard on ``mesh``'s ``axis_name`` (a ``DeviceMesh``), or the
-    process's shard (:func:`seq_shard`) with ``layout``, or one shard."""
+    process's shard (:func:`seq_shard`, its view kept) with ``layout``, or
+    one shard."""
     if mesh is not None:
         group = mesh.get_group(axis_name)
         return SeqShard(group, dist.get_rank(group),
@@ -198,8 +218,8 @@ def shard_of(mesh=None, axis_name: str = "seq",
     s = seq_shard()
     if s is None:
         return SeqShard(None, 0, 1, layout)
-    return s if s.layout == layout else SeqShard(s.group, s.rank, s.size,
-                                                 layout)
+    return s if s.layout == layout else dataclasses.replace(
+        s, layout=layout, _indices={})
 
 
 # --------------------------------------------------------------------------- #
@@ -339,6 +359,78 @@ def all_reduce_sum(t: torch.Tensor, shard: SeqShard) -> torch.Tensor:
     if shard.size == 1:
         return t
     return _AllReduceSum.apply(t, shard.group)
+
+
+def _block(x: torch.Tensor, shard: SeqShard, dim: int) -> torch.Tensor:
+    """This shard's contiguous block of ``x`` along ``dim``."""
+    n = x.shape[dim] // shard.size
+    return x.narrow(dim, shard.rank * n, n)
+
+
+def _gather_blocks(x: torch.Tensor, shard: SeqShard, dim: int):
+    """Every shard's block of ``x`` along ``dim``, in shard order."""
+    if shard.size == 1:
+        return x
+    x = x.movedim(dim, 0).contiguous()
+    parts = [torch.empty_like(x) for _ in range(shard.size)]
+    dist.all_gather(parts, x, group=shard.group)
+    return torch.cat(parts).movedim(0, dim)
+
+
+class _TakeBlock(torch.autograd.Function):
+    """This shard's block of a tensor every shard holds whole (the
+    global view's way in). Its backward all-gathers the cotangent blocks:
+    the graph upstream is the same on every shard, so the whole cotangent
+    is the blocks side by side, not their sum."""
+
+    @staticmethod
+    def forward(ctx, x, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return _block(x, shard, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_blocks(g, ctx.shard, ctx.dim), None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """The whole tensor from every shard's block (the global view's way
+    out). Its backward takes this shard's block of the cotangent, which
+    the replicated graph downstream gives whole on every shard: a
+    reduce-scatter would count it ``size`` times."""
+
+    @staticmethod
+    def forward(ctx, x, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return _gather_blocks(x, shard, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.shard, ctx.dim).contiguous(), None, None
+
+
+def global_view(body: Callable, q, k, v, kmask, shard: SeqShard,
+                axis_name: str = "seq"):
+    """``body`` (a per-shard attention, ``body(q, k, v, kmask, shard)``)
+    under the global view: q, k, v ``[B, H, L, D]`` and the key mask
+    ``[B, L]`` are whole on every shard of ``shard``'s group. Each shard
+    takes its contiguous block, runs ``body`` on it and all-gathers the
+    output, as the JAX ``shard_map`` boundary does; the result is the
+    whole ``[B, H, L, D]`` on every shard. A length the shards do not
+    divide raises the JAX package's ``ValueError``."""
+    S, L = shard.size, q.shape[2]
+    if shard.layout == "zigzag" and L % (2 * S):
+        raise ValueError(
+            f"zigzag layout needs L divisible by 2*axis_size = {2 * S}, "
+            f"got {L}")
+    if L % S:
+        raise ValueError(
+            f"sequence length {L} not divisible by mesh axis "
+            f"'{axis_name}' size {S}; pad the sequence")
+    part = dataclasses.replace(shard, whole=False)
+    q, k, v = (_TakeBlock.apply(t, part, 2) for t in (q, k, v))
+    km = None if kmask is None else _block(kmask, part, 1)
+    return _GatherBlocks.apply(body(q, k, v, km, part), part, 2)
 
 
 # --------------------------------------------------------------------------- #
@@ -588,9 +680,12 @@ def _dense_whole(q, k, v, km, causal: bool):
 # --------------------------------------------------------------------------- #
 
 
-def _as_model_attention(impl: Callable, layout: str) -> Callable:
-    """Adapt a per-shard body to the models' ``attention_fn(q, k, v, bias,
-    dropout=None)`` contract, with the JAX adapter's guards."""
+def _as_model_attention(impl: Callable, layout: str, mesh,
+                        axis_name: str) -> Callable:
+    """Adapt a per-shard body ``impl(q, k, v, kmask, shard)`` to the
+    models' ``attention_fn(q, k, v, bias, dropout=None)`` contract, with
+    the JAX adapter's guards; under the global view through
+    :func:`global_view`."""
 
     def attention_fn(q, k, v, bias, dropout=None):
         if dropout is not None:
@@ -608,7 +703,10 @@ def _as_model_attention(impl: Callable, layout: str) -> Callable:
                     "— set attention_is_causal=True on the model and let "
                     "the attention enforce causality")
             kmask = (bias[:, 0, 0, :] > -1e8).to(torch.int32)
-        return impl(q, k, v, kmask)
+        shard = shard_of(mesh, axis_name, layout)
+        if shard.whole:
+            return global_view(impl, q, k, v, kmask, shard, axis_name)
+        return impl(q, k, v, kmask, shard)
 
     attention_fn.seq_layout = layout
     return attention_fn
@@ -618,15 +716,14 @@ def make_ring_attention(mesh=None, axis_name: str = "seq",
                         batch_axis: str = "data", causal: bool = False,
                         inner: str = "auto") -> Callable:
     """A ring ``attention_fn`` for the models' blocks. ``mesh``: a
-    ``DeviceMesh`` whose ``axis_name`` axis is the sequence group, or None
-    for the process's shard at call time (:func:`seq_shard`).
-    ``batch_axis`` is the JAX signature's (each process holds its batch
-    rows here)."""
+    ``DeviceMesh`` whose ``axis_name`` axis is the sequence group (the
+    blocks then hold their shards), or None for the process's view at
+    call time (:func:`seq_shard`). ``batch_axis`` is the JAX signature's
+    (each process holds its batch rows here)."""
     return _as_model_attention(
-        lambda q, k, v, km: ring_attention(
-            q, k, v, km, shard=shard_of(mesh, axis_name), causal=causal,
-            inner=inner),
-        "contiguous")
+        lambda q, k, v, km, shard: ring_attention(
+            q, k, v, km, shard=shard, causal=causal, inner=inner),
+        "contiguous", mesh, axis_name)
 
 
 def make_ulysses_attention(mesh=None, axis_name: str = "seq",
@@ -634,22 +731,24 @@ def make_ulysses_attention(mesh=None, axis_name: str = "seq",
                            inner: str = "auto") -> Callable:
     """A Ulysses ``attention_fn`` (arguments as :func:`make_ring_attention`)."""
     return _as_model_attention(
-        lambda q, k, v, km: ulysses_attention(
-            q, k, v, km, shard=shard_of(mesh, axis_name), causal=causal,
-            inner=inner),
-        "contiguous")
+        lambda q, k, v, km, shard: ulysses_attention(
+            q, k, v, km, shard=shard, causal=causal, inner=inner),
+        "contiguous", mesh, axis_name)
 
 
 def make_zigzag_ring_attention(mesh=None, axis_name: str = "seq",
                                batch_axis: str = "data") -> Callable:
     """A zigzag-ring ``attention_fn`` (always causal, flash inner). A model
-    built with it (``attention_is_causal=True``) under ``Stoke`` takes
-    natural-order batches: the placement hands each process its zigzag
-    shard, and GPT's positions and the causal LM loss follow the layout."""
+    built with it (``attention_is_causal=True``) under ``Stoke``'s sharded
+    view takes natural-order batches: the placement hands each process
+    its zigzag shard, and GPT's positions and the causal LM loss follow
+    the layout. Under the global view it takes what the JAX one takes:
+    zigzag-ordered sequences with ``positions=perm``
+    (:func:`zigzag_permutation`), cut contiguously at the boundary."""
     return _as_model_attention(
-        lambda q, k, v, km: zigzag_ring_attention(
-            q, k, v, km, shard=shard_of(mesh, axis_name, layout="zigzag")),
-        "zigzag")
+        lambda q, k, v, km, shard: zigzag_ring_attention(
+            q, k, v, km, shard=shard),
+        "zigzag", mesh, axis_name)
 
 
 def model_seq_layout(module: torch.nn.Module) -> str:
@@ -666,6 +765,7 @@ __all__: List[str] = [
     "LAYOUTS",
     "SeqShard",
     "all_reduce_sum",
+    "global_view",
     "inverse_permutation",
     "make_ring_attention",
     "make_ulysses_attention",

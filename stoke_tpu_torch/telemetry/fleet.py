@@ -28,7 +28,9 @@ and barrier-wait attribution (the port's copy of
   health-registry detector with a ``HealthConfig``, a warning otherwise.
   A loader-classified streak proposes a bounded share shift to the input
   rebalancer (:class:`stoke_tpu_torch.data.InputRebalancer`) when
-  ``FleetConfig.rebalance`` is on.
+  ``FleetConfig.rebalance`` is on. On a mesh of several axes the hosts
+  of the verdict and the rebalancer are the data rows
+  (:func:`reduce_to_rows`), as a JAX host owns whole data-axis shards.
 
 Without a ``FleetConfig`` nothing here runs but the barrier-wait timing
 (:func:`timed_sync`): ``Stoke.barrier`` and the checkpoint syncs time
@@ -263,6 +265,31 @@ def straggler_verdict(
     }
 
 
+def reduce_to_rows(matrix: np.ndarray, rows) -> np.ndarray:
+    """The ``[n_processes, N]`` exchanged matrix folded to one entry a
+    data row (``rows[p]``: process ``p``'s data coordinate), the hosts of
+    the straggler verdict on a mesh of several axes: a JAX host owns a
+    data row, and a row waits for its slowest process. Per signal:
+
+    - ``barrier_wait_s``: the minimum over the row's processes. The last
+      arrival waits least, and a row arrives when its last process does;
+      the maximum would be its earliest process's wait and would clear
+      the late row;
+    - every other signal the maximum: the time signals (``wall_s``,
+      ``loader_wait_s``, ``starvation_s``, ``compile_s``, the goodput
+      buckets) are the row's slowest process's; ``step`` is the same on
+      each; the counts (``dispatches``, ``health_anomalies``,
+      ``comm_bytes_onwire``) are each process's own program's, so the
+      maximum is the row's busiest process."""
+    m = np.asarray(matrix)
+    rows = np.asarray(rows)
+    out = np.stack([m[rows == r].max(0) for r in range(int(rows.max()) + 1)])
+    barrier = FLEET_INDEX["barrier_wait_s"]
+    out[:, barrier] = [m[rows == r, barrier].min()
+                       for r in range(out.shape[0])]
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # barrier-wait timing (always on: visible without a FleetConfig)
 # --------------------------------------------------------------------------- #
@@ -369,6 +396,13 @@ class FleetMonitor:
     it collected. The exchange fires only when ``step`` crosses a
     ``window_steps`` boundary: one all-gather of a ``[N]`` float32 vector
     over ``group`` (:func:`fleet_group`) a fleet window, nothing a step.
+
+    ``rows`` (each process's data coordinate, on a mesh of several axes)
+    makes the data rows the hosts of the straggler verdict and the
+    rebalancer: the verdict runs on :func:`reduce_to_rows` of the
+    exchanged matrix (``last_host_matrix``), the same on every process.
+    ``row_group`` is the group the rebalanced read payloads are exchanged
+    over (this process's data sub-group; ``group`` without ``rows``).
     """
 
     def __init__(
@@ -380,12 +414,16 @@ class FleetMonitor:
         n_processes: int = 1,
         dispatch_count_fn: Optional[Callable[[], int]] = None,
         group=None,
+        rows=None,
+        row_group=None,
     ):
         self.cfg = cfg
         self.registry = registry
         self.rank = int(rank)
         self.n_processes = max(int(n_processes), 1)
         self.group = group
+        self.rows = None if rows is None else list(rows)
+        self.row_group = group if row_group is None else row_group
         self._dispatch_count_fn = dispatch_count_fn
         self._acc = np.zeros(N_FLEET_SIGNALS, np.float64)
         self._last_counters: Dict[str, float] = {}
@@ -395,6 +433,9 @@ class FleetMonitor:
         self._last_bucket: Optional[int] = None
         self.windows = 0
         self.last_matrix: Optional[np.ndarray] = None
+        #: the matrix the verdict ran on: one entry a host (a data row
+        #: under ``rows``, else a process)
+        self.last_host_matrix: Optional[np.ndarray] = None
         self.last_aggregates: Optional[Dict[str, Dict[str, float]]] = None
         self.last_verdict: Optional[Dict[str, Any]] = None
         # straggler streak state: K consecutive flagged windows on the
@@ -528,12 +569,15 @@ class FleetMonitor:
         self.windows += 1
         self.registry.counter("fleet/windows_total").inc()
         aggregates = fleet_aggregates(matrix)
+        hosts = (matrix if self.rows is None
+                 else reduce_to_rows(matrix, self.rows))
         verdict = straggler_verdict(
-            matrix,
+            hosts,
             rel_threshold=self.cfg.straggler_rel_frac,
             zscore_threshold=self.cfg.straggler_zscore,
         )
         self.last_matrix = matrix
+        self.last_host_matrix = hosts
         self.last_aggregates = aggregates
         self.last_verdict = verdict
         self._publish_gauges(aggregates)
@@ -571,8 +615,8 @@ class FleetMonitor:
         event = {
             **verdict,
             "window": self.windows,
-            "step": int(self.last_matrix[verdict["host"],
-                                         FLEET_INDEX["step"]]),
+            "step": int(self.last_host_matrix[verdict["host"],
+                                              FLEET_INDEX["step"]]),
             "windows_in_streak": int(self.cfg.straggler_windows),
         }
         self._straggler_events.append(event)
@@ -604,11 +648,11 @@ class FleetMonitor:
             or not self._rebalance_on
             or self.n_processes <= 1
             or event.get("skew_class") != "loader"
-            or self.last_matrix is None
+            or self.last_host_matrix is None
         ):
             return
         slow = int(event["host"])
-        loader_col = self.last_matrix[:, FLEET_INDEX["loader_wait_s"]]
+        loader_col = self.last_host_matrix[:, FLEET_INDEX["loader_wait_s"]]
         fast = int(loader_col.argmin())
         if fast == slow:
             return
@@ -623,7 +667,7 @@ class FleetMonitor:
         self.registry.gauge(
             "fleet/rebalance_share_self",
             help="this host's per-slice read share (rows)",
-        ).set(float(rb.share_of(self.rank)))
+        ).set(float(rb.share_of(rb.rank)))
 
     def _self_apply(self, event: Dict[str, Any]) -> None:
         """Warn-path fallback when no health registry will consume the
@@ -667,7 +711,7 @@ class FleetMonitor:
             self._last_shift = None  # report each actuation exactly once
             out.update({
                 "fleet/rebalance_share_self": (
-                    None if rb is None else float(rb.share_of(self.rank))
+                    None if rb is None else float(rb.share_of(rb.rank))
                 ),
                 "fleet/rebalance_shift_rows": (
                     None if shift is None else shift["rows"]

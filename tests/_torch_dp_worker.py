@@ -400,16 +400,20 @@ SCENARIOS = (tiers, placements, accumulation, fsdp_eval, window, fp16,
              multiprocess_checkpoints, sentinels)
 
 
-def run(rank: int, world: int, store: str, out_dir: str, inputs) -> None:
+def run(rank: int, world: int, store: str, out_dir: str,
+        inputs: str) -> None:
     """The entry point of one spawned rank: it joins the world by the
     port's explicit rendezvous (``DistributedInitConfig``) at the file
-    store."""
+    store; ``inputs`` is the file the test saved them to: a payload larger
+    than a pipe's buffer would hold each ``Process.start`` until that
+    child had started up."""
     from stoke_tpu_torch.configs import DistributedInitConfig
     from stoke_tpu_torch.parallel import initialize_distributed
 
     torch.set_num_threads(1)
     out = {}
     try:
+        inputs = torch.load(inputs, weights_only=False)
         initialize_distributed(DistributedInitConfig(
             coordinator_address=f"file://{store}", num_processes=world,
             process_id=rank), torch.device("cpu"))

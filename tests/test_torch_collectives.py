@@ -494,15 +494,20 @@ def test_int8_error_feedback_tracks_fp32(worlds, world, tier, model):
     a transport."""
     got = worlds[world][0]["training"]
     fp32, int8 = got[(tier, None)], got[(tier, "int8")]
-    assert fp32[model] < 0.8 * fp32[f"{model}0"]
-    assert abs(int8[model] - fp32[model]) <= EMA_RTOL * fp32[model]
+    # each rank's values in the message: a failure names what it saw
+    seen = [(res["training"][(tier, None)][model],
+             res["training"][(tier, "int8")][model])
+            for res in worlds[world]]
+    assert fp32[model] < 0.8 * fp32[f"{model}0"], (fp32, seen)
+    assert abs(int8[model] - fp32[model]) <= EMA_RTOL * fp32[model], seen
     for res in worlds[world][1:]:
-        assert res["training"][(tier, "int8")][model] == int8[model]
+        assert res["training"][(tier, "int8")][model] == int8[model], seen
 
 
 @pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("tier", list(dpw.TIERS))
 def test_windows_give_the_eager_losses(worlds, world, tier):
-    for res in worlds[world]:
+    for rank, res in enumerate(worlds[world]):
         got = res["windows"][tier]
-        assert got["window"] == got["eager"]
+        assert got["window"] == got["eager"], (rank, got["eager"],
+                                               got["window"])

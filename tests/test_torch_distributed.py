@@ -180,8 +180,10 @@ def _spawn(world, inputs, tmp) -> list:
     when a rank raised or the world outlived the join timeout."""
     ctx = mp.get_context("spawn")
     store = os.path.join(tmp, "store")
+    sent = os.path.join(tmp, "inputs.pt")
+    torch.save(inputs, sent)
     procs = [ctx.Process(target=worker.run,
-                         args=(r, world, store, str(tmp), inputs))
+                         args=(r, world, store, str(tmp), sent))
              for r in range(world)]
     for p in procs:
         p.start()

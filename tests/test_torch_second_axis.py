@@ -233,8 +233,10 @@ def _spawn(inputs, tmp):
     send = {k: {n: v for n, v in d.items()
                 if n not in ("params", "collections")}
             for k, d in inputs.items()}
+    sent = os.path.join(tmp, "inputs.pt")
+    torch.save(send, sent)
     procs = [ctx.Process(target=worker.run,
-                         args=(r, WORLD, store, str(tmp), send))
+                         args=(r, WORLD, store, str(tmp), sent))
              for r in range(WORLD)]
     for p in procs:
         p.start()

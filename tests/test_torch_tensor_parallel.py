@@ -542,8 +542,10 @@ def world(refs, tmp_path_factory):
     }
     ctx = mp.get_context("spawn")
     store = os.path.join(tmp, "store")
+    sent = os.path.join(tmp, "inputs.pt")
+    torch.save(inputs, sent)
     procs = [ctx.Process(target=worker.run,
-                         args=(r, WORLD, store, str(tmp), inputs))
+                         args=(r, WORLD, store, str(tmp), sent))
              for r in range(WORLD)]
     for p in procs:
         p.start()
